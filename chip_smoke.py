@@ -5,14 +5,15 @@
 
 Phases, each of which must pass (any failure raises and exits non-zero):
 
-1. Build the two CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
+1. Build the four CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
    source, started together).
 2. Kernel phases at the main path's shapes: ``pdu_health_sim`` on one
    controller interval of the 1024-rack campus (T = 1000, R = 1024, slew
    and wear fold) and ``admm_iterate`` on the campus controller QP
    (h = 12, R = 1024, 30 iterations), each held against its plain PyTorch
    version on the same inputs on the card and timed with CUDA events
-   (median of 25 calls) beside it.
+   (median of 25 calls, the host's enqueueing hidden behind a device
+   sleep; ``_median_ms``) beside it.
 3. The quickstart (``examples/quickstart.py`` through the port): the
    240 s testbench trace at 500 Hz through ``pdu.condition`` with
    ``qp_iters=40``; the raw rack must fail the grid spec, the conditioned
@@ -25,9 +26,34 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    campus numbers must match the JAX package's (``JAX_CAMPUS``, recorded
    on the CPU by ``python tests/test_torch_campus_reference.py``) within
    ``CAMPUS_TOLERANCES``.
+5. The serving kernels at the serving slice's full-width shapes, each held
+   against its plain version on the card and timed as in phase 2 beside
+   the plain version and the library call: ``rmsnorm`` on (4 x 512, 2048) bf16 and f32 and (4, 2048)
+   bf16 (``F.rms_norm``); the flash-attention forward on q (4, 32, 512, 64)
+   and k, v (4, 8, 512, 64), causal, bf16 and f32, a decode offset
+   (Tq = 128, Tk = 1024), a ragged Tq = Tk = 300, a non-causal case and
+   a head dim of 30 (zero-padded to 32), output and log-sum-exp compared
+   (``F.scaled_dot_product_attention``).
+6. The serving slice at full llama3.2-1b width (16 layers, bf16, 1.24 B
+   random parameters from ``convert.random_lm_tree(cfg, 0)``):
+   (a) the prefill step on 4 prompts x 512 tokens must launch flash 16
+   and rmsnorm 33 times, and its logits must match the same step run on
+   the plain versions (``ops.forced("ref")``) within
+   ``SERVE_PREFILL_TOL``; (b) ``ServeEngine.generate``, 4 requests, 64-token
+   prompts, 32 greedy tokens, must launch rmsnorm 33 x 32 times and flash
+   never, its logits (the decode loop fed its own tokens) must match
+   ``forward``'s on the output within ``SERVE_PREFILL_TOL``, and its
+   tokens must equal forward's argmax wherever the top-2 margin exceeds
+   ``SERVE_MARGIN_TOL``; and ``SERVE_REF`` (2 prompts x 64, 8 tokens) must
+   match the JAX package's numbers (``JAX_SERVE``, recorded on the CPU by
+   ``python tests/test_torch_serve_reference.py``: prefill rows, and the
+   decode step's logits at every generated position with JAX's tokens fed
+   back) within ``SERVE_LOGIT_TOL``.  It prints the prefill wall time and
+   the generation's tokens/s.
 
-With ``--profile DIR`` it also profiles one more campus run
-(``torch.profiler``) and writes the table and a Chrome trace into DIR.
+With ``--profile DIR`` it also profiles one more campus run, prefill step
+and generation (``torch.profiler``) and writes the tables and Chrome
+traces into DIR.
 
 The script prints the card's name and power limit, then one JSON line
 describing each kernel, and ends with the line
@@ -50,6 +76,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 ARCHS = ("llama3_2_1b", "deepseek_v3_671b", "chatglm3_6b", "whisper_large_v3")
 CAMPUS = dict(n_racks=1024, duration_s=88.0, sample_hz=200.0, seed=3, noise_seed=2,
@@ -133,6 +160,201 @@ BANK_REL_TOL = 1e-3
 CAMPUS_VERDICTS = ("rack_ramp_ok", "rack_spectrum_ok", "grid_ramp_ok", "grid_spectrum_ok", "grid_ok")
 
 
+# The serving slice (phases 5-6): llama3.2-1b at full width, bf16, random
+# weights from ``convert.random_lm_tree(cfg, SERVE["seed"])``; prompts from
+# ``serve_prompts``.  Prefill: 4 prompts x 512 tokens through the prefill
+# step; generation: 4 requests, 64-token prompts, 32 greedy tokens.
+SERVE = dict(arch="llama3_2_1b", seed=0, prompt_seed=1, prefill=(4, 512), gen=(4, 64),
+             gen_tokens=32)
+# What tests/test_torch_serve_reference.py runs through the JAX package on
+# the CPU and what the card's run is held to: 2 prompts x 64 tokens; the
+# prefill step's logits at these (request, position) rows; 8 greedy tokens
+# of ServeEngine.generate, and the decode step's logits at each of them
+# with JAX's tokens fed back (teacher-forced), so that every generated
+# position is compared, whatever the tokens the port would choose.
+SERVE_REF = dict(requests=2, prompt_len=64, gen_tokens=8,
+                 rows=((0, 0), (0, 31), (0, 63), (1, 17), (1, 63)))
+
+# The JAX package's numbers for SERVE_REF at full llama3.2-1b width (bf16,
+# weights ``random_lm_tree(cfg, 0)``), on the CPU (jax 0.9.0), printed by
+# ``python tests/test_torch_serve_reference.py``.
+JAX_SERVE = {'rows': [{'argmax': 53304,
+                       'margin': 0.71875,
+                       'max': 4.375,
+                       'lse': 12.13351521160129,
+                       'at_ids': [1.6953125, -0.035888671875, 0.20703125, 0.34375, 0.1416015625, 0.64453125,
+                                  -0.24609375]},
+                      {'argmax': 41089,
+                       'margin': 0.65625,
+                       'max': 4.34375,
+                       'lse': 12.13730681827908,
+                       'at_ids': [0.859375, -0.228515625, 0.400390625, -0.2578125, 0.82421875, 1.0703125,
+                                  -0.98046875]},
+                      {'argmax': 63792,
+                       'margin': 0.0625,
+                       'max': 3.703125,
+                       'lse': 12.134699800976126,
+                       'at_ids': [1.0625, -1.6328125, 0.3203125, -0.06396484375, 0.87109375, 1.0625,
+                                  0.08642578125]},
+                      {'argmax': 111453,
+                       'margin': 0.21875,
+                       'max': 3.8125,
+                       'lse': 12.138742085093343,
+                       'at_ids': [-2.015625, 0.875, -0.66015625, 0.1376953125, -0.1806640625, 0.515625,
+                                  0.89453125]},
+                      {'argmax': 91941,
+                       'margin': 0.125,
+                       'max': 3.65625,
+                       'lse': 12.141883498599583,
+                       'at_ids': [-1.625, 1.1171875, -0.69140625, -1.015625, 0.03125, -0.90625,
+                                  0.95703125]}],
+             'steps': [[{'argmax': 63792,
+                         'margin': 0.046875,
+                         'max': 3.6875,
+                         'lse': 12.134510879472856,
+                         'at_ids': [1.0546875, -1.640625, 0.31640625, -0.06689453125, 0.87890625, 1.046875,
+                                    0.09326171875],
+                         'at_fed': 3.6875},
+                        {'argmax': 77213,
+                         'margin': 0.0625,
+                         'max': 3.65625,
+                         'lse': 12.135331481625709,
+                         'at_ids': [-0.2451171875, -1.4453125, 1.15625, 0.376953125, 0.8046875, 1.2265625,
+                                    -0.9375],
+                         'at_fed': 3.65625},
+                        {'argmax': 75560,
+                         'margin': 0.046875,
+                         'max': 3.71875,
+                         'lse': 12.133354783766924,
+                         'at_ids': [0.314453125, -2.421875, 0.58203125, 0.236328125, 0.69921875, 1.5,
+                                    -1.0078125],
+                         'at_fed': 3.71875},
+                        {'argmax': 77397,
+                         'margin': 0.109375,
+                         'max': 3.703125,
+                         'lse': 12.133224823608902,
+                         'at_ids': [0.62109375, -1.3203125, 0.404296875, -0.044921875, 1.1875, 0.25,
+                                    -0.57421875],
+                         'at_fed': 3.703125},
+                        {'argmax': 59492,
+                         'margin': 0.234375,
+                         'max': 3.90625,
+                         'lse': 12.13692550946161,
+                         'at_ids': [-0.004608154296875, -1.6875, 1.0625, -0.0966796875, 0.71484375, 0.46875,
+                                    -0.232421875],
+                         'at_fed': 3.90625},
+                        {'argmax': 59492,
+                         'margin': 0.03125,
+                         'max': 3.59375,
+                         'lse': 12.134143368559942,
+                         'at_ids': [0.06884765625, -1.2734375, 1.3671875, 0.058349609375, 1.046875,
+                                    1.1171875, -0.3671875],
+                         'at_fed': 3.59375},
+                        {'argmax': 90329,
+                         'margin': 0.109375,
+                         'max': 3.65625,
+                         'lse': 12.134918050738074,
+                         'at_ids': [0.23828125, -1.6328125, 1.0625, -0.07177734375, 0.8203125, 1.2265625,
+                                    -0.349609375],
+                         'at_fed': 3.65625},
+                        {'argmax': 49347,
+                         'margin': 0.015625,
+                         'max': 3.828125,
+                         'lse': 12.137233711929856,
+                         'at_ids': [0.1865234375, -1.7890625, 0.3515625, -0.1484375, 0.7734375, 0.51171875,
+                                    -0.79296875],
+                         'at_fed': 3.828125}],
+                       [{'argmax': 91941,
+                         'margin': 0.140625,
+                         'max': 3.65625,
+                         'lse': 12.141830395390194,
+                         'at_ids': [-1.625, 1.1171875, -0.69140625, -1.0, 0.04443359375, -0.890625,
+                                    0.94921875],
+                         'at_fed': 3.65625},
+                        {'argmax': 120719,
+                         'margin': 0.09375,
+                         'max': 3.9375,
+                         'lse': 12.141137943070845,
+                         'at_ids': [-1.59375, 0.87109375, -0.337890625, -0.9921875, -0.314453125,
+                                    -0.72265625, 1.4453125],
+                         'at_fed': 3.9375},
+                        {'argmax': 72533,
+                         'margin': 0.015625,
+                         'max': 3.625,
+                         'lse': 12.141015762102596,
+                         'at_ids': [-1.1328125, 0.5703125, -1.3984375, -1.0390625, -0.2294921875,
+                                    -0.0205078125, 0.416015625],
+                         'at_fed': 3.625},
+                        {'argmax': 68464,
+                         'margin': 0.171875,
+                         'max': 3.796875,
+                         'lse': 12.141149609575123,
+                         'at_ids': [-1.21875, 0.91015625, -1.171875, -1.140625, -0.71875, -0.66015625,
+                                    1.4609375],
+                         'at_fed': 3.796875},
+                        {'argmax': 111,
+                         'margin': 0.15625,
+                         'max': 3.734375,
+                         'lse': 12.141638050447344,
+                         'at_ids': [-0.60546875, 1.734375, -0.8515625, -1.859375, 0.875, 0.01043701171875,
+                                    0.53125],
+                         'at_fed': 3.734375},
+                        {'argmax': 33435,
+                         'margin': 0.109375,
+                         'max': 3.640625,
+                         'lse': 12.141639462069238,
+                         'at_ids': [-1.0, 1.1328125, -0.8828125, -1.21875, -0.2431640625, -1.6953125,
+                                    1.1484375],
+                         'at_fed': 3.640625},
+                        {'argmax': 109757,
+                         'margin': 0.171875,
+                         'max': 3.546875,
+                         'lse': 12.140034049074472,
+                         'at_ids': [-0.93359375, 0.8359375, -1.1953125, -1.171875, 0.18359375,
+                                    -0.1806640625, 1.0],
+                         'at_fed': 3.546875},
+                        {'argmax': 118148,
+                         'margin': 0.125,
+                         'max': 3.625,
+                         'lse': 12.142823505194698,
+                         'at_ids': [-1.078125, 0.89453125, -1.3984375, -1.3125, 0.1484375, -0.6171875,
+                                    1.1953125],
+                         'at_fed': 3.625}]],
+             'tokens': [[63792, 77213, 75560, 77397, 59492, 59492, 90329, 49347],
+                        [91941, 120719, 72533, 68464, 111, 33435, 109757, 118148]]}
+
+# Tolerances of the card's full-width bf16 serving run, with their
+# reasons.  The logits are bf16 (the tied readout rounds them before they
+# are widened), and at the top of their range (|logit| ~4.4) one bf16 ulp
+# is 2^-5 = 0.031.  The port and the reference round at the same points but
+# sum their bf16 products in other orders (cuBLAS, XLA:CPU), and on the
+# card the flash kernel keeps the prefill's attention logits and
+# probabilities in float32 where the plain version rounds them to bf16;
+# each such difference moves a hidden value by a bf16 ulp, and 16 layers
+# carry them to the logits.
+# * SERVE_LOGIT_TOL: the card against JAX_SERVE (sampled logits, maxima,
+#   log-sum-exps, the logit of JAX's token at each teacher-forced step):
+#   2 ulps at the top of the range (measured 0.031, one ulp, on the CPU
+#   by ``tests/test_torch_serve_reference.py --port`` and on an H100);
+# * JAX_MARGIN_TOL: an argmax or a greedy token may differ from JAX's where
+#   JAX's top-1/top-2 margin is within twice that (each of the two logits
+#   may move by the tolerance);
+# * SERVE_PREFILL_TOL: every logit of the 4 x 512 prefill with all kernels
+#   against the same step on the plain versions: the largest of 263 M
+#   differences, 4 ulps at the top of the range (measured 0.084 on an
+#   H100);
+# * SERVE_MARGIN_TOL: the generation (the plain cache attention) against
+#   ``forward`` (the flash kernel) on its own tokens differs as the prefill
+#   with and without the kernels does, so a greedy token may differ from
+#   forward's argmax where the margin is within twice SERVE_PREFILL_TOL
+#   (measured on an H100: the generation's logits within 0.074 of
+#   forward's; its tokens differ from forward's argmax only at exact ties).
+SERVE_LOGIT_TOL = 0.0625
+JAX_MARGIN_TOL = 2 * SERVE_LOGIT_TOL
+SERVE_PREFILL_TOL = 0.125
+SERVE_MARGIN_TOL = 2 * SERVE_PREFILL_TOL
+
+
 def exact_worst_line(trace, bank) -> float:
     """The largest spec line of a whole campus trace at the bank's bins, from
     a float64 FFT of the Hann-windowed trace: what the streaming line bank
@@ -146,6 +368,107 @@ def exact_worst_line(trace, bank) -> float:
     bins = np.asarray(bank.bins, np.int64)
     scale = np.where((n % 2 == 0) & (bins == n // 2), 1.0, 2.0)
     return float(np.max(np.abs(np.fft.rfft(x * w))[bins] * scale) / (n * np.mean(w)))
+
+
+def serve_prompts(vocab_size: int, batch: int, length: int, seed: int):
+    """Prompt token ids, ``(batch, length)`` int32, from numpy (both packages
+    get the same ids)."""
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(0, vocab_size, (batch, length)).astype(np.int32)
+
+
+def _top2_margin(logits):
+    """Top-1 minus top-2 logit over the last axis (float64)."""
+    import numpy as np
+
+    top2 = np.partition(np.asarray(logits, np.float64), -2, axis=-1)[..., -2:]
+    return top2[..., 1] - top2[..., 0]
+
+
+def _logit_summary(row, ids, fed=None) -> dict:
+    """Argmax, top-2 margin, max, log-sum-exp and the logits at ``ids`` of
+    one ``(V,)`` row of logits, and the logit of token ``fed`` if given."""
+    import numpy as np
+
+    row = np.asarray(row, np.float64)
+    m = float(row.max())
+    out = {"argmax": int(row.argmax()), "margin": float(_top2_margin(row)), "max": m,
+           "lse": m + float(np.log(np.sum(np.exp(row - m)))), "at_ids": [float(row[i]) for i in ids]}
+    if fed is not None:
+        out["at_fed"] = float(row[fed])
+    return out
+
+
+def serve_summary(prefill_logits, tokens, step_logits, fed) -> dict:
+    """The numbers of a SERVE_REF run that the check compares (either
+    package; numpy arrays): ``prefill_logits (R, T0, V)`` of the prefill
+    step, ``tokens (R, T0 + n)`` of the greedy generation, and ``step_logits
+    (R, n, V)``, the decode step's last-position logits at each generated
+    position with the tokens ``fed (R, n)`` fed back (JAX's, on both sides).
+    Each prefill row and each step keeps its argmax, top-2 margin, max,
+    log-sum-exp and the logits at seven fixed ids spread over the
+    vocabulary; each step also the logit of the token fed at it."""
+    import numpy as np
+
+    t0 = SERVE_REF["prompt_len"]
+    v = prefill_logits.shape[-1]
+    ids = [int(f * (v - 1)) for f in (0.0, 0.1, 0.3, 0.5, 0.7, 0.9, 1.0)]
+    rows = [_logit_summary(prefill_logits[r, pos], ids) for r, pos in SERVE_REF["rows"]]
+    fed = np.asarray(fed)
+    steps = [[_logit_summary(step_logits[r, p], ids, int(fed[r, p])) for p in range(fed.shape[1])]
+             for r in range(fed.shape[0])]
+    return {"rows": rows, "steps": steps, "tokens": np.asarray(tokens)[:, t0:].tolist()}
+
+
+def _compare_logits(g: dict, w: dict, what: str) -> list[str]:
+    bad = []
+    if w["margin"] > JAX_MARGIN_TOL and g["argmax"] != w["argmax"]:
+        bad.append(f"{what}: argmax {g['argmax']} != {w['argmax']} (margin {w['margin']:.4f})")
+    for k in ("max", "lse", "at_fed"):
+        if k in w and not abs(g[k] - w[k]) <= SERVE_LOGIT_TOL:
+            bad.append(f"{what}: {k} {g[k]!r} vs {w[k]!r}")
+    for j, (a, b) in enumerate(zip(g["at_ids"], w["at_ids"])):
+        if not abs(a - b) <= SERVE_LOGIT_TOL:
+            bad.append(f"{what}: logit {j} {a!r} vs {b!r}")
+    return bad
+
+
+def serve_max_diff(got: dict, want: dict) -> float:
+    """Largest |got - want| over the compared logits (maxima, log-sum-exps,
+    sampled ids and the fed tokens' logits) of the rows and steps."""
+    pairs = list(zip(got["rows"], want["rows"]))
+    pairs += [p for gs, ws in zip(got["steps"], want["steps"]) for p in zip(gs, ws)]
+    keys = lambda d: d["at_ids"] + [d["max"], d["lse"]] + ([d["at_fed"]] if "at_fed" in d else [])
+    return max(abs(a - b) for g, w in pairs for a, b in zip(keys(g), keys(w)))
+
+
+def compare_serve(got: dict, want: dict) -> tuple[list[str], int]:
+    """Failures of ``got`` against ``want`` under SERVE_LOGIT_TOL and
+    JAX_MARGIN_TOL, and the number of generated positions whose greedy
+    tokens were left uncompared.  Every prefill row and every teacher-forced
+    step is compared (its argmax where ``want``'s top-2 margin exceeds the
+    margin tolerance).  The free-running greedy tokens are walked request by
+    request: where ``want``'s margin exceeds the tolerance they must agree;
+    where it does not, they may differ, and if they do, the two runs
+    continue from different contexts and the rest of the request's tokens
+    are not compared (its teacher-forced steps still are)."""
+    bad = []
+    for i, (g, w) in enumerate(zip(got["rows"], want["rows"])):
+        bad += _compare_logits(g, w, f"row {i}")
+    for r, (gs, ws) in enumerate(zip(got["steps"], want["steps"])):
+        for p, (g, w) in enumerate(zip(gs, ws)):
+            bad += _compare_logits(g, w, f"request {r} step {p}")
+    skipped = 0
+    for r, (gt, wt, ws) in enumerate(zip(got["tokens"], want["tokens"], want["steps"])):
+        for p, (a, b, w) in enumerate(zip(gt, wt, ws)):
+            if a == b:
+                continue
+            if w["margin"] > JAX_MARGIN_TOL:
+                bad.append(f"request {r}: token {p} is {a}, JAX {b} (margin {w['margin']:.4f})")
+            skipped += len(gt) - p - 1
+            break
+    return bad, skipped
 
 
 def campus_summary(res, health_summary: dict) -> dict:
@@ -221,8 +544,49 @@ def run_campus(n_racks: int, duration_s: float, *, device: str = "cuda"):
     return res, hsum, time.perf_counter() - t0
 
 
+def decode_logits(model, cfg, prompts, fed, max_len: int):
+    """``ServeEngine.generate``'s loop through the port's decode step with
+    the tokens ``fed (B, n)`` fed back in place of the sampled ones: the
+    last-position logits at each generated position, ``(B, n, V)``."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import build_decode_step
+
+    decode = build_decode_step(cfg)
+    b, t0 = prompts.shape
+    state = T.init_decode_state(cfg, b, max_len, device=prompts.device)
+    logits, state = decode(model, prompts, state, 0)
+    steps = [logits[:, -1]]
+    for i in range(fed.shape[1] - 1):
+        logits, state = decode(model, fed[:, i:i + 1], state, t0 + i)
+        steps.append(logits[:, -1])
+    return torch.stack(steps, dim=1)
+
+
+def port_serve_reference(model, cfg, dev, fed) -> dict:
+    """SERVE_REF through the port on ``dev`` (prefill step, greedy
+    generation, the decode steps with JAX's tokens ``fed (R, n)`` fed back);
+    returns ``serve_summary``."""
+    import torch
+
+    from repro_torch.serve import ServeEngine, build_prefill_step
+
+    ref = SERVE_REF
+    t0, n = ref["prompt_len"], ref["gen_tokens"]
+    prompts = torch.as_tensor(
+        serve_prompts(cfg.vocab_size, ref["requests"], t0, SERVE["prompt_seed"]), device=dev)
+    logits, _ = build_prefill_step(cfg)(model, prompts, t0 + n)
+    out = ServeEngine(cfg, model, max_len=t0 + n, device=dev).generate(prompts, n)
+    steps = decode_logits(model, cfg, prompts, torch.as_tensor(fed, device=dev), t0 + n)
+    host = lambda t: t.cpu().numpy()
+    return serve_summary(host(logits), host(out), host(steps), fed)
+
+
 def _median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median device time of one ``fn()`` call, from CUDA events."""
+    """Median device time of one ``fn()`` call, from CUDA events, with the
+    card kept busy (``torch.cuda._sleep``, ~1 ms) while the host enqueues the
+    call, so that up to ~1 ms of its host-side overhead is not counted."""
     import torch
 
     for _ in range(warmup):
@@ -230,12 +594,28 @@ def _median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_entry(name, source, replaces, err, ms, plain_ms, library_ms, nbytes, nops,
+                 flop_per_s, **extra) -> dict:
+    """One kernel's record for the ``kernels`` JSON line; the bound is the
+    larger of ``nbytes`` over the memory rate and ``nops`` over
+    ``flop_per_s``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / flop_per_s * 1e3
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms, **extra,
+    }
 
 
 def _max_err(a, b) -> float:
@@ -370,19 +750,11 @@ def phase_kernels(dev) -> dict:
     ad_ops = c["qp_iters"] * r * (2 * n2 * 5 * h + n2 + 2 * n3 + 2 * h * n2 + 4 * n3 + 3 * n3)
 
     def entry(name, source, replaces, err, ms, call_ms, plain_ms, nbytes, nops):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / FP32_FLOP_PER_S * 1e3
-        return {
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            # No single PyTorch call computes either function.
-            "library_ms": None,
-            # "ms" is the kernel launch alone; the wrapper call adds its
-            # host-side checks, packing and (pdu_health) epilogue sums.
-            "kernel_ms": ms, "wrapper_ms": call_ms,
-        }
+        # No single PyTorch call computes either function.  "ms" is the
+        # kernel launch alone; the wrapper call adds its host-side checks,
+        # packing and (pdu_health) epilogue sums.
+        return kernel_entry(name, source, replaces, err, ms, plain_ms, None, nbytes, nops,
+                            FP32_FLOP_PER_S, kernel_ms=ms, wrapper_ms=call_ms)
 
     return {
         "pdu_health": entry(
@@ -394,6 +766,250 @@ def phase_kernels(dev) -> dict:
             "src/repro/kernels/admm_step.py:65", ad_err, ad_ms, ad_call_ms, ad_plain_ms,
             ad_bytes, ad_ops),
     }
+
+
+def _flash_bytes_ops(q, k, causal) -> tuple[int, int]:
+    """Bytes the flash forward must move (q, k, v in, o and the float32 lse
+    out, once each) and the product operations of the (query, key) pairs
+    the causal mask leaves visible (2 D for q k^T and 2 D for p v each)."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    if causal:
+        off = tk - tq  # row i sees min(tk, i + off + 1) keys
+        pairs = sum(min(tk, i + off + 1) for i in range(tq))
+    else:
+        pairs = tq * tk
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel()) + 4 * b * h * tq
+    return nbytes, 4 * d * b * h * pairs
+
+
+def phase_serve_kernels(dev) -> dict:
+    """The serving kernels against their plain versions at the slice's
+    full-width shapes (llama3.2-1b: d_model 2048, 32 query and 8 KV heads of
+    64), each timed beside its plain version and the library call."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import full_config
+    from repro_torch.kernels import ops, ref
+
+    cfg = full_config(SERVE["arch"])
+    d, eps = cfg.d_model, cfg.norm_eps
+    gen = torch.Generator(device=dev).manual_seed(0)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = SERVE["prefill"][0] * SERVE["prefill"][1]
+
+    # rmsnorm: the prefill's rows in bf16 and f32, and the decode step's.
+    # Tolerance, elementwise: the float32 statistics differ from the plain
+    # version's by a few float32 ulps (summation order; 1/sqrt against
+    # torch.rsqrt), which can move a bf16 result across one rounding
+    # boundary: one bf16 ulp, 2^-7 of the value; float32: 1e-6 relative.
+    rn_err = 0.0
+    for dtype, n in ((bf16, rows), (f32, rows), (bf16, SERVE["gen"][0])):
+        x, w = randn(n, d).to(dtype), (1.0 + 0.1 * randn(d)).to(dtype)
+        got = ops.rmsnorm(x, w, eps, force="cuda").double()
+        want = ops.rmsnorm(x, w, eps, force="ref").double()
+        err = float((got - want).abs().max())
+        rel = 2.0**-7 if dtype == bf16 else 1e-6
+        ok = bool(((got - want).abs() <= rel * want.abs() + 1e-6).all())
+        print(f"rmsnorm     ({n}, {d}) {str(dtype)[6:]}  max|kernel - plain| = {err:.3e}")
+        _check(ok, f"rmsnorm ({n}, {d}) {dtype} vs plain")
+        rn_err = max(rn_err, err)
+    x, w = randn(rows, d).to(bf16), (1.0 + 0.1 * randn(d)).to(bf16)
+    rn_ms = _median_ms(lambda: ops.rmsnorm(x, w, eps, force="cuda"))
+    rn_plain = _median_ms(lambda: ops.rmsnorm(x, w, eps, force="ref"))
+    rn_lib = _median_ms(lambda: F.rms_norm(x, (d,), w, eps))
+    print(f"rmsnorm     ({rows}, {d}) bf16: kernel {rn_ms:.4f} ms, plain {rn_plain:.4f} ms, "
+          f"F.rms_norm {rn_lib:.4f} ms")
+    # Bytes: x in, y out, the weight once; operations per element: the
+    # square-accumulate (an FMA, 2), the scale and the weight (float32).
+    rn_entry = kernel_entry(
+        "rmsnorm", "src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:25",
+        rn_err, rn_ms, rn_plain, rn_lib, x.element_size() * (2 * x.numel() + d), 4 * x.numel(),
+        FP32_FLOP_PER_S, shape=[rows, d], dtype="bfloat16")
+
+    # Flash forward.  Tolerances: float32, 1e-5 on o and lse (sums in
+    # another order; the kernel accumulates across key tiles).  bf16: the
+    # plain version rounds the logits and the probabilities to bf16 (as the
+    # reference's einsums do) where the kernel keeps them in float32, so
+    # against it 2e-2 on o and lse (the reference's own bf16 envelope);
+    # against the plain version on the same inputs widened to float32 the
+    # kernel's only rounding is its output's: one bf16 ulp (2^-7 of the
+    # value) on o, 1e-5 on lse.
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    bsz, tl = SERVE["prefill"]
+    # Last: the qwen1.5-4b smoke config's head dim 30, zero-padded to 32.
+    cases = [("prefill", bsz, h, hkv, tl, tl, hd, True, bf16),
+             ("prefill f32", bsz, h, hkv, tl, tl, hd, True, f32),
+             ("decode offset", bsz, h, hkv, 128, 1024, hd, True, bf16),
+             ("ragged", bsz, h, hkv, 300, 300, hd, True, bf16),
+             ("non-causal", bsz, h, hkv, tl, tl, hd, False, bf16),
+             ("head dim 30", 2, 4, 4, 77, 77, 30, True, bf16)]
+    fa_err = 0.0
+    for name, b, nh, nkv, tq, tk, dh, causal, dtype in cases:
+        q, k, v = (randn(b, n, t, dh).to(dtype) for n, t in ((nh, tq), (nkv, tk), (nkv, tk)))
+        o, lse = _fa_kernel(q, k, v, causal)
+        o_p, lse_p = ref.attention(q, k, v, causal=causal, with_lse=True)
+        torch.cuda.synchronize()
+        err_o, err_l = _max_err(o, o_p), _max_err(lse, lse_p)
+        line = f"flash fwd   {name:13s} q {tuple(q.shape)} k {tuple(k.shape)} {str(dtype)[6:]}: " \
+               f"max|kernel - plain| o {err_o:.3e} lse {err_l:.3e}"
+        tol = 2e-2 if dtype == bf16 else 1e-5
+        ok = err_o <= tol and err_l <= tol
+        if dtype == bf16:
+            o_w, lse_w = ref.attention(q.float(), k.float(), v.float(), causal=causal, with_lse=True)
+            dev_o = (o.double() - o_w.double()).abs()
+            line += f"; vs float32 plain o {float(dev_o.max()):.3e} lse {_max_err(lse, lse_w):.3e}"
+            ok = ok and bool((dev_o <= 2.0**-7 * o_w.double().abs() + 1e-6).all())
+            ok = ok and _max_err(lse, lse_w) <= 1e-5
+        print(line)
+        _check(ok, f"flash forward {name} vs plain")
+        fa_err = max(fa_err, err_o, err_l)
+        if name == "prefill":
+            fa_ms = _median_ms(lambda: _fa_kernel(q, k, v, causal))
+            fa_plain = _median_ms(lambda: ref.attention(q, k, v, causal=causal, with_lse=True))
+            # The library's causal mask is aligned to the top left, the same
+            # function only where Tq == Tk.
+            fa_lib = _median_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+            fa_bytes, fa_ops = _flash_bytes_ops(q, k, causal)
+            fa_shape = [list(q.shape), list(k.shape)]
+    print(f"flash fwd   prefill bf16: kernel {fa_ms:.4f} ms, plain {fa_plain:.4f} ms, "
+          f"F.scaled_dot_product_attention {fa_lib:.4f} ms")
+    fa_entry = kernel_entry(
+        "flash_attention_fwd", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:90", fa_err, fa_ms, fa_plain, fa_lib, fa_bytes,
+        fa_ops, BF16_FLOP_PER_S, shape=fa_shape, dtype="bfloat16", causal=True)
+    return {"rmsnorm": rn_entry, "flash_attention_fwd": fa_entry}
+
+
+def _fa_kernel(q, k, v, causal):
+    from repro_torch.kernels import flash_attention
+
+    return flash_attention.flash_attention_fwd(q, k, v, causal=causal)
+
+
+def _counts() -> dict:
+    from repro_torch.kernels import flash_attention, rmsnorm
+
+    return {"rmsnorm": rmsnorm.rmsnorm.launches,
+            "flash_attention_fwd": flash_attention.flash_attention_fwd.launches}
+
+
+def _reset_counts() -> None:
+    from repro_torch.kernels import flash_attention, rmsnorm
+
+    rmsnorm.rmsnorm.launches = 0
+    flash_attention.flash_attention_fwd.launches = 0
+
+
+def _timed(fn) -> float:
+    """Wall seconds of ``fn()``, synchronised on both ends."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def phase_serve(dev, profile_dir: Path | None = None) -> dict:
+    """The serving slice at full llama3.2-1b width; returns the kernels'
+    launch counts of the prefill step and of the generation, and their wall
+    times.  With ``profile_dir``, profiles one more prefill and generation."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import full_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeEngine, build_prefill_step
+
+    cfg = full_config(SERVE["arch"])
+    t0 = time.perf_counter()
+    model = convert.lm_params_from_numpy(convert.random_lm_tree(cfg, SERVE["seed"]), cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"serve: {cfg.name} {n_params} parameters ({cfg.dtype}) built and moved to the card "
+          f"in {time.perf_counter() - t0:.1f} s")
+
+    got = port_serve_reference(model, cfg, dev, JAX_SERVE["tokens"])
+    bad, skipped = compare_serve(got, JAX_SERVE)
+    print(f"serve vs JAX: prefill rows and teacher-forced steps max|diff| "
+          f"{serve_max_diff(got, JAX_SERVE):.4f}; row argmax "
+          f"{[g['argmax'] for g in got['rows']]} vs {[w['argmax'] for w in JAX_SERVE['rows']]}; "
+          f"step argmax {[[g['argmax'] for g in gs] for gs in got['steps']]}; "
+          f"tokens {got['tokens']} vs {JAX_SERVE['tokens']}; {skipped} tokens past a "
+          f"top-2 margin <= {JAX_MARGIN_TOL} not compared")
+    _check(not bad, "serving differs from the JAX package: " + "; ".join(bad))
+
+    # (a) Prefill: 4 prompts x 512 tokens through the prefill step.
+    b, tl = SERVE["prefill"]
+    prefill_prompts = torch.as_tensor(
+        serve_prompts(cfg.vocab_size, b, tl, SERVE["prompt_seed"]), device=dev)
+    step = build_prefill_step(cfg)
+    step(model, prefill_prompts, tl)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t = time.perf_counter()
+    logits, state = step(model, prefill_prompts, tl)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    prefill_counts = _counts()
+    with ops.forced("ref"):
+        logits_ref, _ = step(model, prefill_prompts, tl)
+    torch.cuda.synchronize()
+    err = _max_err(logits, logits_ref)
+    print(f"serve prefill {b} x {tl}: {prefill_s:.4f} s wall, launches {prefill_counts}; "
+          f"logits max|kernels - plain| {err:.4f} (max|logit| "
+          f"{float(logits_ref.abs().max()):.3f})")
+    _check(prefill_counts == {"rmsnorm": 2 * cfg.n_layers + 1, "flash_attention_fwd": cfg.n_layers},
+           f"prefill launches {prefill_counts}")
+    _check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (b, tl, cfg.padded_vocab)
+           and state["blocks"].length == tl, "prefill logits/state")
+    _check(err <= SERVE_PREFILL_TOL, "prefill logits, kernels vs plain versions")
+
+    # (b) Generation: 4 requests, 64-token prompts, 32 greedy tokens.
+    b, t0p = SERVE["gen"]
+    n = SERVE["gen_tokens"]
+    prompts = torch.as_tensor(serve_prompts(cfg.vocab_size, b, t0p, SERVE["prompt_seed"] + 1),
+                              device=dev)
+    eng = ServeEngine(cfg, model, max_len=t0p + n, device=dev)
+    eng.generate(prompts, 2)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t = time.perf_counter()
+    out = eng.generate(prompts, n)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    gen_counts = _counts()
+    with torch.inference_mode():
+        fwd = T.forward(model, out[:, :-1]).logits[:, t0p - 1:]
+    # The generation's own logits (its decode loop fed its own tokens)
+    # against forward's, every logit of every generated position.
+    gen_logits = decode_logits(model, cfg, prompts, out[:, t0p:], t0p + n)
+    gen_err = _max_err(gen_logits, fwd)
+    margin = torch.as_tensor(_top2_margin(fwd.cpu().numpy()))
+    agree = fwd.argmax(-1).cpu() == out[:, t0p:].cpu()
+    sure = margin > SERVE_MARGIN_TOL
+    worst = float(margin[~agree].max()) if bool((~agree).any()) else 0.0
+    print(f"serve generate {b} x ({t0p} + {n}): {gen_s:.4f} s wall, {b * n / gen_s:.1f} tokens/s, "
+          f"launches {gen_counts}; logits max|generation - forward| {gen_err:.4f}; greedy == "
+          f"forward argmax at {int(agree.sum())}/{agree.numel()} positions (largest margin "
+          f"where not {worst:.4f}), {int(sure.sum())} with a top-2 margin > {SERVE_MARGIN_TOL}")
+    _check(gen_counts == {"rmsnorm": (2 * cfg.n_layers + 1) * n, "flash_attention_fwd": 0},
+           f"generation launches {gen_counts}")
+    _check(gen_err <= SERVE_PREFILL_TOL, "generation logits vs forward")
+    _check(bool(sure.any()) and bool(agree[sure].all()),
+           "greedy tokens differ from the forward argmax")
+    if profile_dir is not None:
+        profile_run("prefill", lambda: _timed(lambda: step(model, prefill_prompts, tl)),
+                    profile_dir)
+        profile_run("generate", lambda: _timed(lambda: eng.generate(prompts, n)), profile_dir)
+    return {"prefill": prefill_counts, "generate": gen_counts, "prefill_s": prefill_s,
+            "generate_s": gen_s, "tokens_per_s": b * n / gen_s}
 
 
 def phase_quickstart(dev) -> None:
@@ -456,17 +1072,17 @@ def phase_campus(dev) -> tuple[int, int]:
     return counts
 
 
-def phase_profile(dev, out_dir: Path) -> None:
-    """One more campus run under torch.profiler: device time by kernel and
-    the device's busy share of the run's wall time (both inflated a little
-    by the profiler itself).  Writes the table and a Chrome trace."""
+def profile_run(label: str, run, out_dir: Path) -> None:
+    """``run()`` (which returns its wall seconds) once more under
+    torch.profiler: device time by kernel and the device's busy share of
+    the run's wall time (both inflated a little by the profiler itself).
+    Writes the table and a Chrome trace into ``out_dir``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    c = CAMPUS
     out_dir.mkdir(parents=True, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, wall = run_campus(c["n_racks"], c["duration_s"], device=dev)
+        wall = run()
     avgs = prof.key_averages()
     dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
     # Device-side entries only (the kernels); the host ops that launched
@@ -475,9 +1091,9 @@ def phase_profile(dev, out_dir: Path) -> None:
                    if e.device_type == DeviceType.CUDA), reverse=True)
     busy_us = sum(r[0] for r in rows)
     table = avgs.table(sort_by="self_cuda_time_total", row_limit=60)
-    (out_dir / "campus_profile.txt").write_text(table)
-    prof.export_chrome_trace(str(out_dir / "campus_trace.json"))
-    print(f"profile: campus run {wall * 1e3:.1f} ms wall under the profiler, kernels "
+    (out_dir / f"{label}_profile.txt").write_text(table)
+    prof.export_chrome_trace(str(out_dir / f"{label}_trace.json.gz"))
+    print(f"profile: {label} run {wall * 1e3:.1f} ms wall under the profiler, kernels "
           f"{busy_us / 1e3:.2f} ms in {sum(r[1] for r in rows)} launches "
           f"(device busy {100 * busy_us / 1e3 / (wall * 1e3):.1f} %)")
     for us, count, key in rows[:12]:
@@ -491,7 +1107,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", type=Path, default=None,
-                    help="also profile one campus run; write the table and trace here")
+                    help="also profile one campus run, prefill step and generation; write the "
+                         "tables and traces here")
     opts = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -515,14 +1132,22 @@ def main() -> int:
     kernels["pdu_health"]["launches"] = ph_count
     kernels["admm_step"]["launches"] = ad_count
     if opts.profile is not None:
-        phase_profile(dev, opts.profile)
+        c = CAMPUS
+        profile_run("campus", lambda: run_campus(c["n_racks"], c["duration_s"], device=dev)[2],
+                    opts.profile)
+    kernels.update(phase_serve_kernels(dev))
+    serve = phase_serve(dev, opts.profile)
+    for name in ("rmsnorm", "flash_attention_fwd"):
+        pre, gen = serve["prefill"][name], serve["generate"][name]
+        kernels[name].update(launches=pre + gen, launches_prefill=pre, launches_generate=gen)
+    print(json.dumps({"serve": {k: serve[k] for k in ("prefill_s", "generate_s", "tokens_per_s")}}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
-    print(json.dumps({"kernels": [kernels["pdu_health"], kernels["admm_step"]]}))
+    print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-"""Carry the JAX package's configs, plans and states across to the port.
+"""Carry the JAX package's configs, plans, states and LM weights across to
+the port.
 
 The inputs are nested dicts of numpy arrays (or Python scalars) keyed by
 the JAX package's field names — what ``dataclasses.fields`` / ``_asdict``
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import controller as ctrl, ess, filters, health as hlt, pdu
+from repro_torch.models import transformer as T
 from repro_torch.power import scenario as SC
 from repro_torch.utils.devices import resolve_device
 
@@ -105,3 +107,101 @@ def numpy_tree(obj):
     if isinstance(obj, torch.Tensor):
         return obj.detach().cpu().numpy()
     return np.asarray(obj)
+
+
+# ------------------------------------------------------------ LM parameters
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _unflatten(flat: dict) -> dict:
+    tree: dict = {}
+    for path, v in flat.items():
+        *heads, leaf = path.split(".")
+        node = tree
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[leaf] = v
+    return tree
+
+
+def lm_tree_shapes(cfg) -> dict:
+    """``{dotted path: (shape, dtype)}`` of the JAX package's parameter tree
+    for ``cfg`` (``repro.models.transformer.init``): the port's own module
+    tree, with the per-layer ``blocks.{i}.*`` leaves stacked on a leading
+    ``n_layers`` axis (the reference's scan layout)."""
+    model = T.Transformer(cfg, device="meta")
+    out = {}
+    for name, p in model.named_parameters():
+        if name.startswith("blocks."):
+            _, i, rest = name.split(".", 2)
+            if i != "0":
+                continue
+            out["blocks." + rest] = ((cfg.n_layers, *p.shape), p.dtype)
+        else:
+            out[name] = (tuple(p.shape), p.dtype)
+    return out
+
+
+def random_lm_tree(cfg, seed: int) -> dict:
+    """A parameter tree in the JAX package's layout (nested dicts of numpy
+    arrays, blocks stacked on axis 0) filled from
+    ``numpy.random.default_rng(seed)``, leaf by leaf in sorted path order:
+    ``kernel`` leaves a standard normal clipped at +-2 and scaled by
+    1/sqrt(d_in), ``embedding`` the same at 0.02, ``bias`` zeros, ``scale``
+    ones (the reference's initialisers in distribution; the draws are
+    numpy's).  Leaves are float32: numpy has no bfloat16, so a bf16 config
+    is cast on the device by ``lm_params_from_numpy``."""
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for path, (shape, _) in sorted(lm_tree_shapes(cfg).items()):
+        leaf = path.rsplit(".", 1)[-1]
+        if leaf in ("kernel", "embedding"):
+            a = rng.standard_normal(shape, dtype=np.float32)
+            np.clip(a, -2.0, 2.0, out=a)
+            a *= np.float32(0.02 if leaf == "embedding" else 1.0 / np.sqrt(shape[-2]))
+        elif leaf == "bias":
+            a = np.zeros(shape, np.float32)
+        elif leaf == "scale":
+            a = np.ones(shape, np.float32)
+        else:
+            raise ValueError(f"no initialiser for parameter {path!r}")
+        flat[path] = a
+    return _unflatten(flat)
+
+
+@torch.no_grad()
+def lm_params_from_numpy(tree: dict, cfg, *, device="cuda") -> T.Transformer:
+    """A ``Transformer`` holding the JAX package's parameter tree ``tree``
+    (nested dicts of numpy arrays, blocks stacked on axis 0).  Each leaf is
+    moved to the device as it is and cast there to the config's dtype.
+    Raises unless the tree's leaves and shapes match the model's exactly."""
+    model = T.Transformer(cfg, device=device)
+    dev = model.embed.embedding.device
+    params = dict(model.named_parameters())
+    flat = _flatten(tree)
+    want = lm_tree_shapes(cfg)
+    if set(flat) != set(want):
+        raise ValueError(f"parameter tree differs from the model: missing "
+                         f"{sorted(set(want) - set(flat))}, unexpected {sorted(set(flat) - set(want))}")
+    for path, arr in flat.items():
+        shape = want[path][0]
+        if tuple(np.shape(arr)) != shape:
+            raise ValueError(f"{path}: shape {np.shape(arr)}, the model's is {shape}")
+        t = torch.as_tensor(np.asarray(arr), device=dev)
+        if path.startswith("blocks."):
+            rest = path[len("blocks."):]
+            for i in range(cfg.n_layers):
+                params[f"blocks.{i}.{rest}"].copy_(t[i])
+        else:
+            params[path].copy_(t)
+    return model

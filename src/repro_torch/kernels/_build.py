@@ -24,13 +24,16 @@ _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v
 
 # Per-kernel flags.  pdu_health pins rounding (-fmad=false; the fused
 # multiply-adds it needs are explicit __fmaf_rn), so it matches its plain
-# version bit for bit; admm_step keeps nvcc's FP32 FMA contraction.
+# version bit for bit; the others keep nvcc's FP32 FMA contraction.
 SOURCES = {
     "pdu_health": ("pdu_health.cu", ["-fmad=false"]),
     "admm_step": ("admm_step.cu", []),
+    "rmsnorm": ("rmsnorm.cu", []),
+    "flash_attention": ("flash_attention.cu", []),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_fns: dict[str, ctypes._CFuncPtr] = {}
 build_logs: dict[str, str] = {}  # nvcc/ptxas output of this process's builds
 
 
@@ -90,6 +93,18 @@ def load(name: str) -> ctypes.CDLL:
         path = build([name])[name]
         lib = _loaded[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def launch_fn(name: str, symbol: str, argtypes: list):
+    """The C launch function ``symbol`` of kernel ``name`` with its ctypes
+    signature set (returns the CUDA error code), cached per symbol."""
+    fn = _fns.get(symbol)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[symbol] = fn
+    return fn
 
 
 def check_launch(name: str, err: int) -> None:

@@ -69,10 +69,9 @@ def launch(p: Prepared) -> None:
     """Launch the kernel on prepared operands (current stream, no
     synchronization) and count the launch."""
     dev = p.x.device
-    fn = _build.load("admm_step").admm_step_launch
     vp = ctypes.c_void_p
-    fn.argtypes = [vp] * 11 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, vp]
-    fn.restype = ctypes.c_int
+    fn = _build.launch_fn("admm_step", "admm_step_launch",
+                          [vp] * 11 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, vp])
     with torch.cuda.device(dev):
         err = fn(*p.args, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("admm_step", err)

@@ -124,12 +124,10 @@ def launch(p: Prepared) -> None:
     """Launch the kernel on prepared operands (on the current stream; no
     synchronization) and count the launch."""
     dev = p.grid.device
-    lib = _build.load("pdu_health")
-    fn = lib.pdu_health_launch
     vp = ctypes.c_void_p
-    fn.argtypes = [vp, vp, ctypes.c_int, vp, vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int,
-                   vp, ctypes.c_int, vp]
-    fn.restype = ctypes.c_int
+    fn = _build.launch_fn("pdu_health", "pdu_health_launch",
+                          [vp, vp, ctypes.c_int, vp, vp, vp, vp, vp, vp, ctypes.c_int,
+                           ctypes.c_int, vp, ctypes.c_int, vp])
     with torch.cuda.device(dev):
         err = fn(*p.args, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("pdu_health", err)

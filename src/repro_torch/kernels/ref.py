@@ -276,3 +276,60 @@ def admm_iterate(
         y = y + rho_t * (ax - z_new)
         x, z = x_new, z_new
     return x, z, y
+
+
+# ------------------------------------------------------------------- rmsnorm
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis, ``x * w / rms(x)`` (see
+    ``repro.kernels.ref.rmsnorm``): statistics in float32, the result cast
+    back to ``x.dtype`` once."""
+    xf = x.to(F32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * weight.to(F32)).to(x.dtype)
+
+
+# ----------------------------------------------------- flash attention (fwd)
+
+NEG_INF = -1e30  # the reference's mask value (not -inf: masked rows stay finite)
+
+
+def attention(
+    q: torch.Tensor,  # (B, H, Tq, D)
+    k: torch.Tensor,  # (B, Hkv, Tk, D)
+    v: torch.Tensor,  # (B, Hkv, Tk, D)
+    *,
+    causal: bool = True,
+    scale: float | None = None,
+    with_lse: bool = False,
+):
+    """Softmax attention with GQA (see ``repro.kernels.ref.attention``):
+    query head ``h`` uses KV head ``h // (H // Hkv)``; with ``causal`` the
+    query ``i`` sits at absolute position ``i + Tk - Tq`` (aligned to the
+    end of the KV sequence) and masked logits are set to -1e30.  The
+    products run in the input type, as the reference's einsums do (a bf16
+    input rounds the logits to bf16 before the float32 softmax, and the
+    probabilities to bf16 before the second product).
+
+    ``with_lse=True`` also returns the row log-sum-exp of the scaled,
+    masked float32 logits, ``(B, H, Tq)``: the flash kernel's second
+    output."""
+    b, h, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / (d**0.5)
+    groups = h // hkv
+    kx = k.repeat_interleave(groups, dim=1)
+    vx = v.repeat_interleave(groups, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, kx).to(F32) * scale
+    if causal:
+        rows = torch.arange(tq, device=q.device) + (tk - tq)
+        mask = torch.arange(tk, device=q.device)[None, :] <= rows[:, None]
+        logits = logits.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), vx)
+    if with_lse:
+        return out, torch.logsumexp(logits, dim=-1)
+    return out

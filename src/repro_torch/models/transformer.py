@@ -1,0 +1,132 @@
+"""Top-level language model for the ``dense`` and ``vlm`` families
+(counterpart of ``repro.models.transformer``).
+
+``init(cfg)`` builds a randomly initialised ``Transformer``; ``forward``
+returns float32 logits over ``cfg.padded_vocab`` (the padded ids are not
+masked, as in the reference); ``init_decode_state`` and ``decode_step``
+run prefill and cached decode.  The reference scans stacked per-layer
+leaves; the port keeps one ``DecoderBlock`` per layer in an
+``nn.ModuleList``.  ``constrain_activations``/``maybe_constrain`` are
+identities on one device and are dropped (sharding comes with
+``sharding/rules.py``).
+
+The ``moe``, ``ssm`` and ``hybrid`` families (and ``audio``, in
+``models/encdec.py`` of the reference) are not ported yet and raise,
+naming their ROADMAP.md item.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention as A
+from repro_torch.models import blocks as B
+from repro_torch.models import layers as L
+from repro_torch.utils.devices import resolve_device
+
+_NOT_PORTED = {
+    "moe": "the moe family (MLA attention, MoE FFN, MTP; ROADMAP.md queue 1 item 13)",
+    "ssm": "the ssm family (RWKV-6 with the rwkv6_scan kernel; ROADMAP.md queue 1 item 13)",
+    "hybrid": "the hybrid family (Mamba2 + Zamba2 shared block; ROADMAP.md queue 1 item 13)",
+    "audio": "the audio family (encoder-decoder; ROADMAP.md queue 1 item 13)",
+}
+
+
+def check_family(cfg) -> None:
+    """Raise for the families the port does not run yet."""
+    if cfg.family not in ("dense", "vlm"):
+        raise NotImplementedError(f"{_NOT_PORTED.get(cfg.family, cfg.family)} is not ported yet")
+
+
+class ForwardOut(NamedTuple):
+    logits: torch.Tensor  # (B, T, V) float32
+    aux_losses: dict
+    mtp_logits: torch.Tensor | None
+
+
+class Transformer(nn.Module):
+    """``{"embed", "ln_f", "lm_head"?, "blocks"}`` with uninitialised
+    parameters on ``device`` (``init`` fills them, ``convert`` copies
+    them in)."""
+
+    def __init__(self, cfg, *, device="cuda"):
+        super().__init__()
+        check_family(cfg)
+        dev = resolve_device(device)
+        kw = dict(dtype=L.dtype_of(cfg), device=dev)
+        self.cfg = cfg
+        self.embed = L.Embedding(cfg.padded_vocab, cfg.d_model, **kw)
+        self.ln_f = L.init_norm(cfg.d_model, cfg.norm, cfg.norm_eps, **kw)
+        self.lm_head = None if cfg.tie_embeddings else L.Linear(cfg.d_model, cfg.padded_vocab, **kw)
+        self.blocks = nn.ModuleList(B.DecoderBlock(cfg, **kw) for _ in range(cfg.n_layers))
+
+    def forward(self, tokens, *, embeddings=None) -> ForwardOut:
+        return forward(self, tokens, embeddings=embeddings)
+
+
+def init(cfg, *, device="cuda", generator: torch.Generator | None = None) -> Transformer:
+    """A ``Transformer`` with the reference's initialisers, drawn from
+    ``generator`` (default: seed 0 on ``device``)."""
+    model = Transformer(cfg, device=device)
+    dev = model.embed.embedding.device
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    return L.init_weights_(model, generator)
+
+
+def _readout(p: Transformer, h: torch.Tensor) -> torch.Tensor:
+    if p.lm_head is None:
+        return p.embed.unembed(h)
+    return p.lm_head(h).to(torch.float32)
+
+
+def forward(p: Transformer, tokens: torch.Tensor, *, embeddings=None) -> ForwardOut:
+    """Logits of ``tokens (B, T)`` (or of the modality-stub ``embeddings
+    (B, T, D)``) from a fresh causal pass."""
+    b, t = tokens.shape[:2]
+    x = p.embed.embed(tokens) if embeddings is None else embeddings
+    positions = torch.arange(t, device=x.device).expand(b, t)
+    for blk in p.blocks:
+        x, _, _ = blk(x, positions)
+    return ForwardOut(logits=_readout(p, p.ln_f(x)), aux_losses={}, mtp_logits=None)
+
+
+def init_decode_state(cfg, batch: int, max_len: int, *, device="cuda") -> dict:
+    """``{"blocks": KVCache}`` with per-layer caches stacked on axis 0,
+    ``(n_layers, B, max_len, Hkv, Dh)``, as the reference lays them out."""
+    check_family(cfg)
+    dev = resolve_device(device)
+    c = A.init_cache(cfg, batch, max_len, dtype=L.dtype_of(cfg), device=dev)
+    shape = (cfg.n_layers,) + tuple(c.k.shape)
+    return {"blocks": A.KVCache(k=c.k.new_zeros(shape), v=c.v.new_zeros(shape), length=0)}
+
+
+def decode_step(
+    p: Transformer,
+    tokens: torch.Tensor,  # (B, T_new): 1 for decode, more for prefill
+    state: dict,
+    pos_offset: int,  # absolute position of tokens[:, 0]
+    *,
+    prefill: bool = False,
+) -> tuple[torch.Tensor, dict]:
+    """Advance the model over ``tokens`` with caches; returns ``(logits,
+    state)``.  ``prefill=True`` runs attention through the training path
+    (``ops.attention``, the flash kernel on the card) over the new tokens
+    and then writes their keys and values into the cache; otherwise each
+    layer attends over its cache.  The cache tensors are updated in place
+    and returned with the new length."""
+    b, t = tokens.shape
+    x = p.embed.embed(tokens)
+    positions = pos_offset + torch.arange(t, device=x.device).expand(b, t)
+    kvs: A.KVCache = state["blocks"]
+    for i, blk in enumerate(p.blocks):
+        if prefill:
+            x, fresh, _ = blk(x, positions, None)
+            A.write_cache(kvs.k[i], fresh.k, kvs.length)
+            A.write_cache(kvs.v[i], fresh.v, kvs.length)
+        else:
+            x, _, _ = blk(x, positions, A.KVCache(k=kvs.k[i], v=kvs.v[i], length=kvs.length))
+    new_state = {"blocks": A.KVCache(k=kvs.k, v=kvs.v, length=kvs.length + t)}
+    return _readout(p, p.ln_f(x)), new_state

@@ -19,9 +19,12 @@ import torch
 
 import repro_torch
 from repro_torch import convert
+from repro_torch.configs import smoke_config
 from repro_torch.core import compliance, controller, fleet, pdu
 from repro_torch.kernels import admm_step, ops, pdu_health
+from repro_torch.models import transformer
 from repro_torch.power import scenario, trace
+from repro_torch.serve import ServeEngine
 
 SRC = Path(repro_torch.__file__).resolve().parents[1]
 
@@ -35,6 +38,7 @@ def _all_modules():
 def test_import_pulls_in_neither_jax_nor_repro():
     mods = _all_modules()
     assert "repro_torch.kernels.ops" in mods and "repro_torch.core.fleet" in mods
+    assert "repro_torch.serve.engine" in mods and "repro_torch.launch.serve" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -66,6 +70,12 @@ def _no_cuda(monkeypatch):
         lambda: scenario.mixed_campus(8, ("llama3_2_1b",), duration_s=10.0),
         lambda: trace.testbench_trace(trace.TestbenchSpec(duration_s=1.0)),
         lambda: convert.workload_params_from_numpy({"p_idle": 0.1}),
+        lambda: transformer.init(smoke_config("llama3_2_1b")),
+        lambda: transformer.Transformer(smoke_config("chameleon_34b")),
+        lambda: transformer.init_decode_state(smoke_config("llama3_2_1b"), 1, 8),
+        lambda: convert.lm_params_from_numpy({}, smoke_config("llama3_2_1b")),
+        lambda: ServeEngine(smoke_config("llama3_2_1b"),
+                            transformer.Transformer(smoke_config("llama3_2_1b"), device="cpu")),
     ],
 )
 def test_default_device_raises_without_a_card(monkeypatch, entry):

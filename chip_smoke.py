@@ -5,8 +5,8 @@
 
 Phases, each of which must pass (any failure raises and exits non-zero):
 
-1. Build the four CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-   source, started together).
+1. Build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
+   source, five sources, started together).
 2. Kernel phases at the main path's shapes: ``pdu_health_sim`` on one
    controller interval of the 1024-rack campus (T = 1000, R = 1024, slew
    and wear fold) and ``admm_iterate`` on the campus controller QP
@@ -51,9 +51,36 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    back) within ``SERVE_LOGIT_TOL``.  It prints the prefill wall time and
    the generation's tokens/s.
 
-With ``--profile DIR`` it also profiles one more campus run, prefill step
-and generation (``torch.profiler``) and writes the tables and Chrome
-traces into DIR.
+7. The training kernels at the training slice's full-width shapes: the
+   flash-attention backward (dK/dV and dQ kernels) on q (4, 32, 512, 64),
+   k, v (4, 8, 512, 64), causal, bf16 and f32, a decode offset (Tq = 128,
+   Tk = 1024), a ragged 300, a non-causal case and a head dim of 30, each
+   gradient held against the plain backward on the same residuals and
+   against autograd through the plain attention; both kernels timed
+   beside the plain backward and the library's (autograd through
+   ``F.scaled_dot_product_attention``, backward only); the rmsnorm
+   Function's gradients equal to autograd of the plain version.
+8. The training slice at full llama3.2-1b width (16 layers, bf16,
+   ``remat="block"``, the serving phase's parameter tree): (a) three
+   ``build_train_step`` steps on 4 x 512 tokens of ``SyntheticLMDataset``
+   with AdamW(lr=1e-3, weight decay 0.1) must launch, per step, flash
+   forward 32 times (the recompute runs it again), dK/dV and dQ 16 each and
+   rmsnorm 65 times, and step 1 (loss, grad norm, sampled moments and
+   updated parameters) must match the same step on the plain versions
+   (``ops.forced("ref")``) within ``TRAIN_TOL``; (b) ``TRAIN_REF`` (2
+   layers at full width, 2 x 64 tokens, 2 steps) must match the JAX
+   package's numbers (``JAX_TRAIN``, recorded on the CPU by ``python
+   tests/test_torch_train_reference.py``); (c) ``train()`` with the
+   launcher's ``PowerSim`` (``launch.train.power_sim_for``) for 4 steps
+   must keep the conditioned grid's ramp within 0.1 /s (+1e-3), the rack's
+   above it and the SoC inside [0.1, 0.9], with ``pdu_health`` and
+   ``admm_step`` launched once per conditioned controller interval.  It
+   prints the warm step's wall time, tokens/s and ``train_mfu`` (6 N
+   tokens over the step time at 989 TFLOP/s; remat executes ~8 N).
+
+With ``--profile DIR`` it also profiles one more campus run, prefill step,
+generation and training step (``torch.profiler``) and writes the tables
+and Chrome traces into DIR.
 
 The script prints the card's name and power limit, then one JSON line
 describing each kernel, and ends with the line
@@ -64,6 +91,7 @@ no result.  It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -471,6 +499,245 @@ def compare_serve(got: dict, want: dict) -> tuple[list[str], int]:
     return bad, skipped
 
 
+# The training slice (phases 7-8): llama3.2-1b at full width, bf16,
+# remat="block", 16 layers, weights ``convert.random_lm_tree(cfg, 0)`` (the
+# serving phase's tree), AdamW(lr=1e-3) with its default weight decay 0.1,
+# 4 x 512 tokens of ``SyntheticLMDataset`` per step.  The schedule warms up
+# in one step (``total_steps=10, warmup_steps=1``): with the default 100
+# warm-up steps the first steps' lr would be ~1e-5, under half a bf16 ulp of
+# every weight, and no parameter would move.
+TRAIN = dict(arch="llama3_2_1b", seed=0, batch=4, seq_len=512, lr=1e-3, total_steps=10,
+             warmup_steps=1, steps=3, power_steps=4)
+# What tests/test_torch_train_reference.py runs through the JAX package on
+# the CPU and what the card's run is held to: the same at 2 layers (full
+# width; a full-depth step through the JAX package on the CPU would hold
+# ~20 GB of weights, moments and gradients), 2 x 64 tokens, 2
+# steps: each step's loss and grad norm, and after the last step 16
+# sampled elements of the updated parameters and of the first moment after
+# each step, of the embedding, block 0's wq and ln1 scale, and ln_f.
+TRAIN_REF = dict(n_layers=2, batch=2, seq_len=64, steps=2, samples=16, sample_seed=5)
+TRAIN_LEAVES = ("embed.embedding", "blocks.attn.wq.kernel", "blocks.ln1.scale", "ln_f.scale")
+
+# Tolerances of the training comparisons, with their reasons.  A step's
+# gradients are bf16 (the parameters' type), summed in other orders by the
+# two packages (and, on the card, through the flash kernels, which keep the
+# attention probabilities in float32 where the plain versions round them to
+# bf16); each such difference moves a gradient element by about a bf16 ulp
+# (2^-8 relative) of the larger terms it sums.
+# * loss: a mean over 128 (JAX_TRAIN) or 2048 (kernels vs plain) tokens of
+#   float32 cross entropies from bf16 logits that differ by an ulp or two
+#   (0.03-0.06 at the top of the logit range, SERVE_LOGIT_TOL), mostly
+#   averaging out: 5e-3 absolute (measured against JAX_TRAIN: 3.3e-3 by the
+#   port on the CPU, 1.8e-3 on an H100; kernels vs plain 1.5e-4);
+# * grad_norm: the root of a sum of 1.2 B (0.4 B) squares of such
+#   gradients: 5e-3 relative (measured 9.5e-4 against JAX_TRAIN, 2.1e-4
+#   kernels vs plain);
+# * the first moment m = 0.1 g (clipped): 2^-5 of the leaf's largest
+#   sampled |m|, a few bf16 ulps of the leaf's largest gradient (measured
+#   2^-6 against JAX_TRAIN, 0.007 kernels vs plain);
+# * updated parameters: AdamW's first steps move an element by about
+#   lr * u with u = m / sqrt(v) of size ~1 (+ decay), ~8 bf16 ulps of a
+#   weight of ~0.02.  Where the element's moment is clear of zero at every
+#   step (beyond ``grad_margin``, 4x the moment tolerance, of the leaf's
+#   largest), the two u differ by a fraction (measured 0.019 on the CPU
+#   for TRAIN_REF, where the moments differed by 1 %): the parameters must
+#   agree to 2 bf16 ulps of the value (rounding after each update) plus
+#   ``update_frac`` = 1/8 of lr per step.  Elsewhere a gradient within its
+#   noise of zero can flip u's sign: 2 lr per step.
+TRAIN_TOL = dict(loss=5e-3, grad_norm=5e-3, m=2.0**-5, grad_margin=2.0**-3, param_ulps=2,
+                 update_frac=2.0**-3)
+
+# The JAX package's numbers for TRAIN_REF (llama3.2-1b at full width with 2
+# layers, bf16, weights ``random_lm_tree(cfg, 0)``), on the CPU (jax 0.9.0),
+# printed by ``python tests/test_torch_train_reference.py``.
+JAX_TRAIN = {'loss': [12.154769897460938, 12.04736328125],
+ 'grad_norm': [35.166812896728516, 37.876102447509766],
+ 'params': {'embed.embedding': [-0.0286865234375, 0.0037994384765625, -0.0262451171875,
+                                -0.0135498046875, -0.0184326171875, -0.008056640625, 0.011962890625,
+                                -0.0230712890625, 0.0037689208984375, 0.02587890625, 0.02490234375,
+                                -0.0213623046875, 0.021484375, 0.027099609375, 0.039794921875,
+                                0.0106201171875],
+            'blocks.attn.wq.kernel': [-0.04541015625, -0.01312255859375, -0.02392578125,
+                                      -0.0274658203125, -0.0057373046875, -0.017333984375,
+                                      0.01092529296875, -0.01361083984375, 0.00811767578125,
+                                      0.009521484375, 0.034423828125, 0.006988525390625,
+                                      0.005767822265625, 0.01513671875, -0.00183868408203125,
+                                      0.032470703125],
+            'blocks.ln1.scale': [1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0,
+                                 1.0, 1.0, 1.0],
+            'ln_f.scale': [1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0,
+                           1.0, 1.0]},
+ 'm': [{'embed.embedding': [-1.0296589358915753e-08, 5.084735743565716e-09, -1.8389792799666793e-08,
+                            -1.6949117664921687e-09, -1.2033874341454975e-08,
+                            -6.016937170727488e-09, -1.3400396348117738e-09, -9.152524071964763e-09,
+                            -7.288120773552009e-09, 3.898297240567672e-09, -1.2627093148864788e-08,
+                            1.072031707849419e-08, 1.072031707849419e-08, -2.0084703677980542e-08,
+                            -7.711848937219656e-09, 8.262694528582415e-09],
+        'blocks.attn.wq.kernel': [3.124061549897306e-05, -1.2930143384437542e-05,
+                                  -4.382363840704784e-06, -3.4277895792911295e-06,
+                                  3.322027168906061e-07, 7.506424935854739e-06,
+                                  9.068456165550742e-06, 4.794566393684363e-06,
+                                  1.6140984371304512e-05, -4.94643063575495e-06,
+                                  8.200661795854103e-06, -2.399995082669193e-07,
+                                  4.122025529795792e-06, -5.938970843999414e-07,
+                                  -2.7769435746449744e-06, 4.577617801260203e-06],
+        'blocks.ln1.scale': [-2.6554522264632396e-05, 3.1067054806044325e-05, 1.562030774948653e-05,
+                             8.504389370500576e-06, -9.198624866257887e-06, 6.725410003127763e-06,
+                             9.068456165550742e-06, 1.5967425497365184e-05, 7.3328665166627616e-06,
+                             3.575314985937439e-05, 1.5012849871709477e-05, 1.1888789231306873e-05,
+                             -2.5339608328067698e-05, -6.334902082016924e-06, -4.29558440373512e-06,
+                             -5.5191754654515535e-05],
+        'ln_f.scale': [5.119989509694278e-06, -5.814225460198941e-06, 4.6860923248459585e-06,
+                       3.0806718314124737e-06, -2.3213513031805633e-06, 1.1454892046458554e-05,
+                       -5.380328275350621e-06, -9.632522960600909e-06, -1.1194553735549562e-05,
+                       9.198624866257887e-06, -1.7529455362819135e-05, 4.122025529795792e-06,
+                       4.208804966765456e-06, 2.559994754847139e-06, -1.0890825251408387e-05,
+                       1.2496245290094521e-05]},
+       {'embed.embedding': [-2.5788142732352526e-09, 4.769493244793921e-08, -1.658462167597463e-08,
+                            -2.1730393873209408e-10, -2.129541876172425e-08, 4.734954650587042e-09,
+                            3.4363032419548745e-09, -3.2955874140760955e-10,
+                            -1.2539270066724839e-08, 2.210186256235147e-09, -4.220840210678034e-08,
+                            2.231636209160115e-08, 6.186201773061839e-09, -1.395284665584029e-09,
+                            -1.4848376750364878e-08, 1.782267489147671e-08],
+        'blocks.attn.wq.kernel': [2.179164221161045e-05, -8.998392331704963e-06,
+                                  -1.7988946865443722e-06, -6.126607786427485e-06,
+                                  2.5147157884930493e-06, -1.6771276932558976e-05,
+                                  1.4204519175109453e-05, 2.129590939148329e-06,
+                                  1.2170151421742048e-05, -1.8734796185526648e-06,
+                                  4.298711701267166e-06, 6.310342541837599e-06,
+                                  6.247844794415869e-06, 2.366089120187098e-06,
+                                  -1.0086648671858711e-06, -2.003625013458077e-06],
+        'blocks.ln1.scale': [-7.836582517484203e-05, 1.0959631254081614e-05, 1.220511785504641e-05,
+                             3.6656304018833907e-06, 1.3898923043598188e-06, 5.0206388550577685e-05,
+                             1.4929668395780027e-05, -4.160905064054532e-06, -7.339397143368842e-06,
+                             -1.616543704585638e-05, 1.8063889001496136e-05,
+                             -2.4107244826154783e-05, -3.10240029648412e-05,
+                             -2.9228471248643473e-05, 7.0917826633376535e-06,
+                             -6.087210203986615e-05],
+        'ln_f.scale': [7.891304449003655e-06, -1.3572016541729681e-05, -1.640897971810773e-05,
+                       2.2754489691578783e-05, 8.30458702694159e-06, 6.1196519709483255e-06,
+                       1.2811856322514359e-06, -1.0522428965487052e-05, -8.554299711249769e-06,
+                       -1.5510365756199462e-06, -1.1123843250970822e-06, -3.461095275270054e-06,
+                       -2.577273335191421e-06, 7.057750281092012e-06, -9.295648851548322e-06,
+                       1.7088099411921576e-05]}]}
+
+
+def train_indices(shape, leaf: int):
+    """``TRAIN_REF["samples"]`` flat indices into a leaf of ``shape`` (layer
+    0's slice for block leaves), from numpy."""
+    import numpy as np
+
+    n = int(np.prod(shape))
+    rng = np.random.default_rng(TRAIN_REF["sample_seed"] + leaf)
+    return np.sort(rng.choice(n, size=TRAIN_REF["samples"], replace=False))
+
+
+def train_samples(leaf_array) -> dict:
+    """``{path: values at train_indices}`` of a JAX-layout tree's leaves
+    (numpy, float64), given ``leaf_array(path)`` -> that leaf (layer 0 for
+    block leaves) as a numpy array."""
+    import numpy as np
+
+    out = {}
+    for i, path in enumerate(TRAIN_LEAVES):
+        a = np.asarray(leaf_array(path), np.float64)
+        out[path] = a.reshape(-1)[train_indices(a.shape, i)].tolist()
+    return out
+
+
+def train_summary(losses, grad_norms, params: dict, moments: list[dict]) -> dict:
+    """The numbers of a training run that the checks compare (either
+    package): each step's loss and grad norm, sampled updated parameters,
+    and the sampled first moment after each step (``train_samples``)."""
+    return {"loss": [float(x) for x in losses], "grad_norm": [float(x) for x in grad_norms],
+            "params": params, "m": moments}
+
+
+def _bf16_ulp(x: float) -> float:
+    import math
+
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0**-133
+
+
+def compare_train(got: dict, want: dict, lr: float) -> list[str]:
+    """Failures of ``got`` against ``want`` under TRAIN_TOL (see there)."""
+    t = TRAIN_TOL
+    bad = []
+    for i, (g, w) in enumerate(zip(got["loss"], want["loss"])):
+        if not abs(g - w) <= t["loss"]:
+            bad.append(f"step {i}: loss {g!r} vs {w!r}")
+    for i, (g, w) in enumerate(zip(got["grad_norm"], want["grad_norm"])):
+        if not abs(g - w) <= t["grad_norm"] * abs(w):
+            bad.append(f"step {i}: grad norm {g!r} vs {w!r}")
+    steps = len(want["m"])
+    for path in TRAIN_LEAVES:
+        wm = [m[path] for m in want["m"]]
+        scale = max(abs(x) for ms in wm for x in ms) or 1.0
+        for s, (gs, ws) in enumerate(zip((m[path] for m in got["m"]), wm)):
+            for j, (a, b) in enumerate(zip(gs, ws)):
+                if not abs(a - b) <= t["m"] * scale:
+                    bad.append(f"{path}[{j}] step {s}: m {a!r} vs {b!r}")
+        for j, (a, b) in enumerate(zip(got["params"][path], want["params"][path])):
+            clear = all(abs(ms[j]) > t["grad_margin"] * scale for ms in wm)
+            tol = (t["param_ulps"] * _bf16_ulp(b) + t["update_frac"] * lr * steps if clear
+                   else 2 * lr * steps + _bf16_ulp(b))
+            if not abs(a - b) <= tol:
+                bad.append(f"{path}[{j}]: param {a!r} vs {b!r} (tolerance {tol:.3g})")
+    return bad
+
+
+def train_max_diff(got: dict, want: dict, lr: float) -> dict:
+    """The largest differences that ``compare_train`` holds to its
+    tolerances: loss (absolute), grad norm (relative), m (relative to the
+    leaf's largest sampled |m|) and the parameters of clear gradient sign
+    (in units of lr per step, beyond their bf16 ulps)."""
+    t = TRAIN_TOL
+    out = {"loss": max(abs(g - w) for g, w in zip(got["loss"], want["loss"])),
+           "grad_norm": max(abs(g - w) / abs(w)
+                            for g, w in zip(got["grad_norm"], want["grad_norm"])),
+           "m": 0.0, "update_frac": 0.0}
+    for path in TRAIN_LEAVES:
+        wm = [m[path] for m in want["m"]]
+        scale = max(abs(x) for ms in wm for x in ms) or 1.0
+        for gs, ws in zip((m[path] for m in got["m"]), wm):
+            out["m"] = max([out["m"]] + [abs(a - b) / scale for a, b in zip(gs, ws)])
+        for j, (a, b) in enumerate(zip(got["params"][path], want["params"][path])):
+            if all(abs(ms[j]) > t["grad_margin"] * scale for ms in wm):
+                beyond = max(abs(a - b) - t["param_ulps"] * _bf16_ulp(b), 0.0)
+                out["update_frac"] = max(out["update_frac"], beyond / (lr * len(wm)))
+    return out
+
+
+def port_train_reference(model, cfg, dev) -> dict:
+    """TRAIN_REF's steps through the port on ``model`` (whose parameters
+    they update); ``train_summary`` of the run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import build_train_step
+
+    opt = AdamWConfig(lr=TRAIN["lr"])
+    params = dict(model.named_parameters())
+    state = adamw_init(params, opt)
+    step = build_train_step(cfg, opt, total_steps=TRAIN["total_steps"],
+                            warmup_steps=TRAIN["warmup_steps"])
+    ds = SyntheticLMDataset(DataConfig(seed=TRAIN["seed"], batch=TRAIN_REF["batch"],
+                                       seq_len=TRAIN_REF["seq_len"], vocab_size=cfg.vocab_size))
+    port_name = lambda path: path.replace("blocks.", "blocks.0.", 1)
+    host = lambda t: t.detach().to(torch.float32).cpu().numpy()
+    losses, norms, moments = [], [], []
+    for i in range(TRAIN_REF["steps"]):
+        model, state, metrics = step(model, state, ds.batch_at(i), i)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        moments.append(train_samples(lambda p: host(state.m[port_name(p)])))
+    sampled = train_samples(lambda p: host(params[port_name(p)]))
+    assert all(np.isfinite(losses)) and all(np.isfinite(norms))
+    return train_summary(losses, norms, sampled, moments)
+
+
 def campus_summary(res, health_summary: dict) -> dict:
     """The scalars of a campus run that the check compares (either package:
     every field goes through ``float``/``bool`` of its value)."""
@@ -768,19 +1035,23 @@ def phase_kernels(dev) -> dict:
     }
 
 
+def _visible_pairs(q, k, causal) -> int:
+    """The (query, key) pairs of one head that the causal mask leaves
+    visible."""
+    tq, tk = q.shape[2], k.shape[2]
+    if not causal:
+        return tq * tk
+    off = tk - tq  # row i sees min(tk, i + off + 1) keys
+    return sum(min(tk, i + off + 1) for i in range(tq))
+
+
 def _flash_bytes_ops(q, k, causal) -> tuple[int, int]:
     """Bytes the flash forward must move (q, k, v in, o and the float32 lse
-    out, once each) and the product operations of the (query, key) pairs
-    the causal mask leaves visible (2 D for q k^T and 2 D for p v each)."""
+    out, once each) and the product operations of the visible pairs (2 D
+    for q k^T and 2 D for p v each)."""
     b, h, tq, d = q.shape
-    tk = k.shape[2]
-    if causal:
-        off = tk - tq  # row i sees min(tk, i + off + 1) keys
-        pairs = sum(min(tk, i + off + 1) for i in range(tq))
-    else:
-        pairs = tq * tk
     nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel()) + 4 * b * h * tq
-    return nbytes, 4 * d * b * h * pairs
+    return nbytes, 4 * d * b * h * _visible_pairs(q, k, causal)
 
 
 def phase_serve_kernels(dev) -> dict:
@@ -915,10 +1186,12 @@ def _timed(fn) -> float:
     return time.perf_counter() - t
 
 
-def phase_serve(dev, profile_dir: Path | None = None) -> dict:
-    """The serving slice at full llama3.2-1b width; returns the kernels'
-    launch counts of the prefill step and of the generation, and their wall
-    times.  With ``profile_dir``, profiles one more prefill and generation."""
+def phase_serve(dev, tree, profile_dir: Path | None = None) -> dict:
+    """The serving slice at full llama3.2-1b width on the parameter tree
+    ``tree`` (``convert.random_lm_tree(cfg, SERVE["seed"])``); returns the
+    kernels' launch counts of the prefill step and of the generation, and
+    their wall times.  With ``profile_dir``, profiles one more prefill and
+    generation."""
     import torch
 
     from repro_torch import convert
@@ -929,10 +1202,10 @@ def phase_serve(dev, profile_dir: Path | None = None) -> dict:
 
     cfg = full_config(SERVE["arch"])
     t0 = time.perf_counter()
-    model = convert.lm_params_from_numpy(convert.random_lm_tree(cfg, SERVE["seed"]), cfg, device=dev)
+    model = convert.lm_params_from_numpy(tree, cfg, device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"serve: {cfg.name} {n_params} parameters ({cfg.dtype}) built and moved to the card "
+    print(f"serve: {cfg.name} {n_params} parameters ({cfg.dtype}) moved to the card "
           f"in {time.perf_counter() - t0:.1f} s")
 
     got = port_serve_reference(model, cfg, dev, JAX_SERVE["tokens"])
@@ -1010,6 +1283,285 @@ def phase_serve(dev, profile_dir: Path | None = None) -> dict:
         profile_run("generate", lambda: _timed(lambda: eng.generate(prompts, n)), profile_dir)
     return {"prefill": prefill_counts, "generate": gen_counts, "prefill_s": prefill_s,
             "generate_s": gen_s, "tokens_per_s": b * n / gen_s}
+
+
+def _flash_bwd_bytes_ops(q, k, causal) -> dict:
+    """Bytes each backward kernel must move and the product operations it
+    does on the visible (query, key) pairs.  dK/dV reads q, k, v, dO and
+    the float32 lse and delta once and writes dk, dv; its products per pair
+    are q k^T, dO V^T, p^T dO and dS^T Q (8 D).  dQ reads the same and
+    writes dq; q k^T, dO V^T and dS K (6 D)."""
+    b, h, tq, d = q.shape
+    pairs = _visible_pairs(q, k, causal)
+    e = q.element_size()
+    reads = e * (2 * q.numel() + 2 * k.numel()) + 2 * 4 * b * h * tq
+    return {"dkv": (reads + e * 2 * k.numel(), 8 * d * b * h * pairs),
+            "dq": (reads + e * q.numel(), 6 * d * b * h * pairs)}
+
+
+def phase_train_kernels(dev) -> dict:
+    """The training kernels at the training slice's full-width shapes: the
+    flash-attention backward (dK/dV and dQ) against the plain backward on
+    the same residuals and against autograd through the plain attention,
+    each kernel timed beside the plain backward and the library's; the
+    rmsnorm Function's gradients against autograd of the plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import full_config
+    from repro_torch.kernels import flash_attention as fa, ops, ref
+
+    cfg = full_config(TRAIN["arch"])
+    gen = torch.Generator(device=dev).manual_seed(1)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    bf16, f32 = torch.bfloat16, torch.float32
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    bsz, tl = TRAIN["batch"], TRAIN["seq_len"]
+
+    # Tolerances, elementwise, with ``scale`` the gradient's largest |value|:
+    # * against the plain backward on the same residuals (the same float32
+    #   math; the kernels sum the products and the GQA head group in
+    #   another order): float32 1e-5 x scale (measured 2.5e-6 on a first
+    #   run); bf16 additionally one bf16 ulp of the element (2^-7 of it),
+    #   since each side rounds its float32 result once;
+    # * against autograd through the plain attention on the same inputs
+    #   widened to float32 (the softmax's own VJP): float32 2e-5 x scale;
+    #   bf16 one ulp of the element plus 2^-7 x scale, as the kernels'
+    #   residuals o and dO are bf16 (delta = sum(dO o) moves by 2^-8 of
+    #   its size, and dS, dQ, dK with it).
+    cases = [("train", bsz, h, hkv, tl, tl, hd, True, bf16),
+             ("train f32", bsz, h, hkv, tl, tl, hd, True, f32),
+             ("decode offset", bsz, h, hkv, 128, 1024, hd, True, bf16),
+             ("ragged", bsz, h, hkv, 300, 300, hd, True, bf16),
+             ("non-causal", bsz, h, hkv, tl, tl, hd, False, bf16),
+             ("head dim 30", 2, 4, 4, 77, 77, 30, True, bf16)]
+    err_max = 0.0
+    for name, b, nh, nkv, tq, tk, dh, causal, dtype in cases:
+        q, k, v = (randn(b, n, t, dh).to(dtype) for n, t in ((nh, tq), (nkv, tk), (nkv, tk)))
+        do = randn(b, nh, tq, dh).to(dtype)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        plain = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        qw, kw, vw = (t.float().requires_grad_() for t in (q, k, v))
+        auto = torch.autograd.grad(ref.attention(qw, kw, vw, causal=causal), (qw, kw, vw),
+                                   do.float())
+        torch.cuda.synchronize()
+        line = f"flash bwd   {name:13s} q {tuple(q.shape)} k {tuple(k.shape)} {str(dtype)[6:]}:"
+        ok = True
+        for nm, g, p, a in zip(("dq", "dk", "dv"), got, plain, auto):
+            g64, p64, a64 = g.double(), p.double(), a.double()
+            scale = float(p64.abs().max())
+            ulp = 2.0**-7 if dtype == bf16 else 0.0
+            e_p, e_a = float((g64 - p64).abs().max()), float((g64 - a64).abs().max())
+            ok &= bool(((g64 - p64).abs() <= ulp * p64.abs() + 1e-5 * scale).all())
+            ok &= bool(((g64 - a64).abs() <= ulp * a64.abs()
+                        + (2.0**-7 if dtype == bf16 else 2e-5) * scale).all())
+            line += f" {nm} {e_p:.3e}/{e_a:.3e} (max {scale:.3f})"
+            err_max = max(err_max, e_p)
+        print(line + "  [kernel - plain backward / - autograd of plain attention]")
+        _check(ok, f"flash backward {name} vs plain")
+        if name == "train":
+            lse_c, delta = lse.contiguous(), torch.sum(do.float() * o.float(), dim=-1)
+            sc = 1.0 / hd**0.5
+            dkv_ms = _median_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse_c, delta, causal=True,
+                                                         scale=sc))
+            dq_ms = _median_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse_c, delta, causal=True,
+                                                       scale=sc))
+            plain_ms = _median_ms(lambda: ref.flash_attention_bwd(q, k, v, o, lse, do,
+                                                                  causal=True))
+            ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+            out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+            lib_ms = _median_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), do,
+                                                            retain_graph=True))
+            costs = _flash_bwd_bytes_ops(q, k, True)
+            shape = [list(q.shape), list(k.shape)]
+    fa.flash_bwd_dkv.launches = fa.flash_bwd_dq.launches = 0
+    print(f"flash bwd   train bf16: dK/dV {dkv_ms:.4f} ms, dQ {dq_ms:.4f} ms, plain backward "
+          f"{plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms")
+    rows = {}
+    for key, which, ms, line in (("dkv", "flash_attention_bwd_dkv", dkv_ms, 243),
+                                 ("dq", "flash_attention_bwd_dq", dq_ms, 273)):
+        # The plain and library times are of the whole backward (both
+        # gradients), the only unit either computes.
+        rows[which] = kernel_entry(
+            which, "src/repro_torch/csrc/flash_attention_bwd.cu",
+            f"src/repro/kernels/flash_attention.py:{line}", err_max, ms, plain_ms, lib_ms,
+            *costs[key], BF16_FLOP_PER_S, shape=shape, dtype="bfloat16", causal=True)
+
+    # The rmsnorm Function: its backward is autograd of the plain version,
+    # so the gradients equal autograd through the plain rmsnorm exactly.
+    for dtype in (bf16, f32):
+        x = randn(bsz * tl, cfg.d_model).to(dtype).requires_grad_()
+        w = (1.0 + 0.1 * randn(cfg.d_model)).to(dtype).requires_grad_()
+        c = randn(bsz * tl, cfg.d_model).to(dtype)
+        gk = torch.autograd.grad((ops.rmsnorm(x, w, cfg.norm_eps, force="cuda") * c).sum(), (x, w))
+        gp = torch.autograd.grad((ops.rmsnorm(x, w, cfg.norm_eps, force="ref") * c).sum(), (x, w))
+        same = all(torch.equal(a, b) for a, b in zip(gk, gp))
+        print(f"rmsnorm bwd ({bsz * tl}, {cfg.d_model}) {str(dtype)[6:]}: gradients equal to "
+              f"autograd of the plain version: {same}")
+        _check(same, f"rmsnorm gradients {dtype}")
+    return rows
+
+
+def _train_counts() -> dict:
+    from repro_torch.kernels import flash_attention as fa, rmsnorm
+
+    return {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+            "flash_attention_bwd_dkv": fa.flash_bwd_dkv.launches,
+            "flash_attention_bwd_dq": fa.flash_bwd_dq.launches,
+            "rmsnorm": rmsnorm.rmsnorm.launches}
+
+
+def _reset_train_counts() -> None:
+    from repro_torch.kernels import flash_attention as fa, rmsnorm
+
+    fa.flash_attention_fwd.launches = fa.flash_bwd_dkv.launches = fa.flash_bwd_dq.launches = 0
+    rmsnorm.rmsnorm.launches = 0
+
+
+def _step_summary(model, state, metrics) -> dict:
+    import torch
+
+    port_name = lambda path: path.replace("blocks.", "blocks.0.", 1)
+    params = dict(model.named_parameters())
+    host = lambda t: t.detach().to(torch.float32).cpu().numpy()
+    return train_summary([metrics["loss"]], [metrics["grad_norm"]],
+                         train_samples(lambda p: host(params[port_name(p)])),
+                         [train_samples(lambda p: host(state.m[port_name(p)]))])
+
+
+def phase_train(dev, tree, profile_dir: Path | None = None) -> dict:
+    """The training slice at full llama3.2-1b width: (a) three
+    ``build_train_step`` steps, launch counts and step 1 against the plain
+    versions; (b) TRAIN_REF against JAX_TRAIN; (c) ``train()`` with the
+    launcher's PowerSim.  Returns the counts and the timings."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import full_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels import admm_step, ops, pdu_health
+    from repro_torch.launch.train import power_sim_for
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.power import phases as P, scenario as SC
+    from repro_torch.train import TrainConfig, build_train_step, train
+
+    cfg = full_config(TRAIN["arch"])
+    _check(cfg.remat == "block" and cfg.dtype == "bfloat16",
+           "the full config trains in bf16 with remat")
+    L = cfg.n_layers
+    b, t = TRAIN["batch"], TRAIN["seq_len"]
+    opt = AdamWConfig(lr=TRAIN["lr"])
+    step = build_train_step(cfg, opt, total_steps=TRAIN["total_steps"],
+                            warmup_steps=TRAIN["warmup_steps"])
+    ds = SyntheticLMDataset(DataConfig(seed=TRAIN["seed"], batch=b, seq_len=t,
+                                       vocab_size=cfg.vocab_size))
+    model = convert.lm_params_from_numpy(tree, cfg, device=dev)
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    start = {n: p.detach().clone() for n, p in params.items()}
+
+    # (a) Step 1 on the plain versions, then from the same start on the
+    # kernels, then two more kernel steps.
+    with ops.forced("ref"):
+        _, st, m = step(model, adamw_init(params, opt), ds.batch_at(0), 0)
+    want = _step_summary(model, st, m)
+    del st, m
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(start[n])
+    del start
+    state = adamw_init(params, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_train_counts()
+    walls, losses = [], []
+    for i in range(TRAIN["steps"]):
+        batch = ds.batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, state, metrics = step(model, state, batch, i)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            got = _step_summary(model, state, metrics)
+    counts = _train_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    per_step = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dkv": L,
+                "flash_attention_bwd_dq": L, "rmsnorm": (2 * L + 1) + 2 * L}
+    step_s = walls[-1]
+    tokens = b * t
+    mfu = 6.0 * n_params * tokens / (step_s * BF16_FLOP_PER_S)
+    bad = compare_train(got, want, TRAIN["lr"])
+    print(f"train {cfg.name} {n_params} parameters ({cfg.dtype}, remat={cfg.remat}), {b} x {t} "
+          f"tokens: step walls {[round(w, 4) for w in walls]} s, losses {losses}, launches over "
+          f"{TRAIN['steps']} steps {counts}, peak memory {peak_gb:.1f} GB")
+    print("train step 1, kernels vs plain versions: "
+          + json.dumps(train_max_diff(got, want, TRAIN["lr"])))
+    print(f"train warm step {step_s:.4f} s, {tokens / step_s:.1f} tokens/s, train_mfu "
+          f"{mfu:.4f} (6 N tokens / (step time x 989 TFLOP/s); remat executes ~8 N)")
+    _check(counts == {k: v * TRAIN["steps"] for k, v in per_step.items()},
+           f"train launches {counts}, want {per_step} per step")
+    _check(all(map(math.isfinite, losses)), f"train losses {losses}")
+    _check(not bad, "train step 1, kernels vs plain versions: " + "; ".join(bad))
+    if profile_dir is not None:
+        batch = ds.batch_at(TRAIN["steps"])
+        profile_run("train_step", lambda: _timed(lambda: step(model, state, batch, TRAIN["steps"])),
+                    profile_dir)
+    del model, state, params, metrics
+    torch.cuda.empty_cache()
+
+    # (b) TRAIN_REF: full width at 2 layers against the JAX package.
+    cfg2 = dataclasses.replace(cfg, n_layers=TRAIN_REF["n_layers"])
+    model2 = convert.lm_params_from_numpy(convert.random_lm_tree(cfg2, TRAIN["seed"]), cfg2,
+                                          device=dev)
+    got_ref = port_train_reference(model2, cfg2, dev)
+    del model2
+    torch.cuda.empty_cache()
+    bad = compare_train(got_ref, JAX_TRAIN, TRAIN["lr"])
+    print(f"train vs JAX ({TRAIN_REF['n_layers']} layers, {TRAIN_REF['batch']} x "
+          f"{TRAIN_REF['seq_len']}, {TRAIN_REF['steps']} steps): losses {got_ref['loss']} vs "
+          f"{JAX_TRAIN['loss']}, grad norms {got_ref['grad_norm']} vs {JAX_TRAIN['grad_norm']}; "
+          f"largest differences {json.dumps(train_max_diff(got_ref, JAX_TRAIN, TRAIN['lr']))}")
+    _check(not bad, "training differs from the JAX package: " + "; ".join(bad))
+
+    # (c) train() with the launcher's PowerSim, full width.
+    sim = power_sim_for(cfg, b, t, device=dev)
+    durs, pows = P.step_phases(sim.cost, sim.hw, sim.model)
+    step_samples = SC.from_phase_timeline(durs, pows, sim.cfg.sample_hz, device=dev).total_samples
+    intervals = step_samples * TRAIN["power_steps"] // sim._k
+    pdu_health.pdu_health_sim.launches = admm_step.admm_iterate.launches = 0
+    _reset_train_counts()
+    t0 = time.perf_counter()
+    res = train(cfg, DataConfig(seed=TRAIN["seed"], batch=b, seq_len=t, vocab_size=cfg.vocab_size),
+                AdamWConfig(lr=TRAIN["lr"]), TrainConfig(steps=TRAIN["power_steps"], log_every=1),
+                power_sim=sim, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rep = res["power_report"]
+    power_counts = (pdu_health.pdu_health_sim.launches, admm_step.admm_iterate.launches)
+    power_train_counts = _train_counts()
+    print(f"train + PowerSim: {TRAIN['power_steps']} steps in {wall:.2f} s wall, losses "
+          f"{[round(r['loss'], 4) for r in res['history']]}; each step {float(sum(durs)):.2f} s "
+          f"of simulated power at {sim.cfg.sample_hz:g} Hz, {intervals} controller intervals "
+          f"conditioned; launches pdu_health={power_counts[0]} admm_step={power_counts[1]}, "
+          f"training kernels {power_train_counts}")
+    print("train + PowerSim report: " + json.dumps(rep))
+    del res
+    torch.cuda.empty_cache()
+    _check(rep["grid_max_ramp"] <= 0.1 + 1e-3, f"PowerSim grid ramp {rep['grid_max_ramp']}")
+    _check(rep["rack_max_ramp"] > rep["grid_max_ramp"], "PowerSim rack ramp <= grid ramp")
+    _check(0.1 <= rep["final_soc"] <= 0.9, f"PowerSim SoC {rep['final_soc']}")
+    _check(power_counts == (intervals, intervals),
+           f"PowerSim launches {power_counts}, want {intervals} each")
+    _check(power_train_counts == {k: v * TRAIN["power_steps"] for k, v in per_step.items()},
+           f"train() launches {power_train_counts}")
+    return {"counts": counts, "per_step": per_step, "step_s": step_s,
+            "tokens_per_s": tokens / step_s, "train_mfu": mfu, "peak_gb": peak_gb,
+            "power_counts": power_counts}
 
 
 def phase_quickstart(dev) -> None:
@@ -1107,8 +1659,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", type=Path, default=None,
-                    help="also profile one campus run, prefill step and generation; write the "
-                         "tables and traces here")
+                    help="also profile one campus run, prefill step, generation and training "
+                         "step; write the tables and traces here")
     opts = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1136,11 +1688,32 @@ def main() -> int:
         profile_run("campus", lambda: run_campus(c["n_racks"], c["duration_s"], device=dev)[2],
                     opts.profile)
     kernels.update(phase_serve_kernels(dev))
-    serve = phase_serve(dev, opts.profile)
+    from repro_torch import convert
+    from repro_torch.configs import full_config
+
+    assert SERVE["arch"] == TRAIN["arch"] and SERVE["seed"] == TRAIN["seed"]
+    t0 = time.perf_counter()
+    tree = convert.random_lm_tree(full_config(SERVE["arch"]), SERVE["seed"])
+    print(f"random_lm_tree({SERVE['arch']}, {SERVE['seed']}) in {time.perf_counter() - t0:.1f} s "
+          f"(serving and training phases)")
+    serve = phase_serve(dev, tree, opts.profile)
+    torch.cuda.empty_cache()
+    kernels.update(phase_train_kernels(dev))
+    trained = phase_train(dev, tree, opts.profile)
+    del tree
     for name in ("rmsnorm", "flash_attention_fwd"):
         pre, gen = serve["prefill"][name], serve["generate"][name]
-        kernels[name].update(launches=pre + gen, launches_prefill=pre, launches_generate=gen)
-    print(json.dumps({"serve": {k: serve[k] for k in ("prefill_s", "generate_s", "tokens_per_s")}}))
+        tr = trained["counts"][name]
+        kernels[name].update(launches=pre + gen + tr, launches_prefill=pre, launches_generate=gen,
+                             launches_train=tr, launches_per_train_step=trained["per_step"][name])
+    for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        kernels[name].update(launches=trained["counts"][name],
+                             launches_per_train_step=trained["per_step"][name])
+    for name, n in zip(("pdu_health", "admm_step"), trained["power_counts"]):
+        kernels[name]["launches_train_powersim"] = n
+    print(json.dumps({"serve": {k: serve[k] for k in ("prefill_s", "generate_s", "tokens_per_s")},
+                      "train": {k: trained[k] for k in ("step_s", "tokens_per_s", "train_mfu",
+                                                         "peak_gb")}}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

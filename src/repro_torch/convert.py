@@ -205,3 +205,29 @@ def lm_params_from_numpy(tree: dict, cfg, *, device="cuda") -> T.Transformer:
         else:
             params[path].copy_(t)
     return model
+
+
+@torch.no_grad()
+def lm_tree_to_numpy(named: dict, cfg) -> dict:
+    """The JAX package's parameter-tree layout (nested dicts of float32
+    numpy arrays, blocks stacked on axis 0) of a dict keyed by the port's
+    parameter names: the parameters themselves, their gradients or an
+    optimizer moment.  bf16 leaves are widened to float32 (exactly; numpy
+    has no bfloat16)."""
+    flat = {}
+    want = lm_tree_shapes(cfg)
+    for path in want:
+        if path.startswith("blocks."):
+            rest = path[len("blocks."):]
+            leaves = [named[f"blocks.{i}.{rest}"] for i in range(cfg.n_layers)]
+            t = torch.stack([x.detach() for x in leaves])
+        else:
+            t = named[path].detach()
+        flat[path] = t.to(torch.float32).cpu().numpy()
+    return _unflatten(flat)
+
+
+def lm_params_to_numpy(model: T.Transformer) -> dict:
+    """The inverse of ``lm_params_from_numpy``: ``model``'s parameters as
+    the JAX package's tree (bf16 widened to float32)."""
+    return lm_tree_to_numpy(dict(model.named_parameters()), model.cfg)

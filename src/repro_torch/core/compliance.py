@@ -202,6 +202,18 @@ def make_bank(n_total: int, dt: float, f_c: float, *, n_lines: int = 48) -> Spec
     )
 
 
+def make_online_bank(dt: float, f_c: float, *, n_lines: int = 24,
+                     modulus: int = 1 << 15) -> SpectrumBank:
+    """Open-ended bank (total length unknown): rectangular window, lines on
+    a fixed length-``modulus`` frequency grid."""
+    return SpectrumBank(
+        bins=spec_lines(modulus, dt, f_c, n_lines),
+        modulus=int(modulus),
+        dt=float(dt),
+        window=None,
+    )
+
+
 class SpectrumObserver(NamedTuple):
     """Running line-bank state: complex line accumulators plus the exact
     integer bin phase of the next sample (kept mod ``modulus``)."""

@@ -27,7 +27,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from repro_torch.core import compliance, health as hlt, pdu
+from repro_torch.core import compliance, controller as ctrl, health as hlt, pdu
 from repro_torch.utils.devices import resolve_device
 
 F32 = torch.float32
@@ -332,3 +332,18 @@ def condition(
             total_samples=so.total_samples, **kwargs,
         )
     raise ValueError(f"unknown engine {engine!r} (expected 'host' or 'oneshot')")
+
+
+def make_condition_step(cfg: pdu.PDUConfig, *, qp_iters: int = 30) -> Callable:
+    """A ``(state, trace) -> (grid, state, telemetry)`` step through
+    ``pdu.condition``: the single-chunk building block of the streaming
+    engines, for callers that condition a stream of chunks
+    (``power.integration.PowerSim``).  The reference caches a jitted step
+    per config; here nothing is compiled, and what the step keeps is the
+    controller plan, factored once instead of on every chunk."""
+    plan = ctrl.make_plan(cfg.controller, cfg.ess_params) if cfg.software_enabled else None
+
+    def step(state: pdu.PDUState, trace: torch.Tensor):
+        return pdu.condition(cfg, state, trace, qp_iters=qp_iters, plan=plan)
+
+    return step

@@ -30,6 +30,7 @@ SOURCES = {
     "admm_step": ("admm_step.cu", []),
     "rmsnorm": ("rmsnorm.cu", []),
     "flash_attention": ("flash_attention.cu", []),
+    "flash_attention_bwd": ("flash_attention_bwd.cu", []),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -6,10 +6,16 @@ causal or non-causal online-softmax attention that returns the output in
 the input type and the row log-sum-exp in float32.  The CUDA source
 (``csrc/flash_attention.cu``) reads KV head ``h // (H // Hkv)`` directly
 (no repeated K/V), skips key tiles above the causal diagonal and masks
-ragged tails itself, so every sequence length runs the kernel.  Only the
-forward is ported: the backward kernels come with the training slice
-(ROADMAP.md), and ``ops.attention`` refuses to record a graph through this
-path.  ``flash_attention_fwd.launches`` counts kernel launches.
+ragged tails itself, so every sequence length runs the kernel.
+
+The backward ports ``_flash_bwd`` (Pallas ``_flash_bwd_dkv_kernel`` and
+``_flash_bwd_dq_kernel``, ``csrc/flash_attention_bwd.cu``): two kernels
+that recompute the probabilities from the forward's log-sum-exp, the
+dK/dV one summing the GQA head group in float32.  ``FlashAttention`` is
+the ``torch.autograd.Function`` that pairs them, the counterpart of the
+reference's ``_flash_core`` with ``defvjp``.  ``flash_attention_fwd``,
+``flash_bwd_dkv`` and ``flash_bwd_dq`` each count their launches in
+``.launches``.
 """
 from __future__ import annotations
 
@@ -84,3 +90,140 @@ def flash_attention_fwd(
 
 
 flash_attention_fwd.launches = 0
+
+
+def _check_bwd_operands(q, k, v, o, lse, do, causal):
+    dev = q.device
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v, o, do)):
+        raise ValueError(f"flash_attention backward takes float32 or bfloat16 q, k, v, o, do of "
+                         f"one type, got {[t.dtype for t in (q, k, v, o, do)]}")
+    b, h, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    if (k.shape != v.shape or o.shape != q.shape or do.shape != q.shape or k.shape[0] != b
+            or k.shape[3] != d or h % hkv or lse.shape != (b, h, tq) or lse.dtype != torch.float32
+            or any(t.device != dev for t in (k, v, o, lse, do))):
+        raise ValueError("flash_attention backward: q, o, do (B, H, Tq, D), k, v (B, Hkv, Tk, D) "
+                         "and a float32 lse (B, H, Tq) on one device")
+    if d > HEAD_DIMS[-1]:
+        raise ValueError(f"flash_attention kernel takes head dims up to {HEAD_DIMS[-1]}, got {d}")
+    if causal and tq > tk:
+        raise ValueError(f"flash_attention: causal attention needs Tq <= Tk, got {tq} > {tk}")
+    if b * h > 65535:
+        raise ValueError(f"flash_attention: B * H = {b * h} exceeds the grid's 65535")
+
+
+def _strides(*ts) -> ctypes.Array:
+    return (ctypes.c_longlong * (3 * len(ts)))(*(s for t in ts for s in t.stride()[:3]))
+
+
+def _bwd_args(q, k, v, do, lse, delta):
+    b, h, tq, d = q.shape
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr()), (b, h, k.shape[1], tq, k.shape[2], d)
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float):
+    """Launch the dK/dV kernel on prepared operands (head dim instantiated,
+    last axes contiguous, ``lse`` and ``delta`` contiguous float32
+    ``(B, H, Tq)``); returns ``(dk, dv)`` in ``k``'s type, laid out
+    ``(B, Tk, Hkv, D)`` in memory."""
+    b, hkv, tk, d = k.shape
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError("flash_attention backward kernels need CUDA tensors")
+    dk = torch.empty((b, tk, hkv, d), dtype=k.dtype, device=dev).transpose(1, 2)
+    dv = torch.empty_like(dk)
+    vp, ii = ctypes.c_void_p, ctypes.c_int
+    fn = _build.launch_fn("flash_attention_bwd", "flash_bwd_dkv_launch",
+                          [vp] * 8 + [ii] * 6 + [vp, ctypes.c_float, ii, ii, vp])
+    ptrs, dims = _bwd_args(q, k, v, do, lse, delta)
+    with torch.cuda.device(dev):
+        err = fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *dims, _strides(q, k, v, do, dk, dv),
+                 float(scale), int(causal), _DTYPES[q.dtype],
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch("flash_attention_bwd (dK/dV)", err)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float):
+    """Launch the dQ kernel on operands prepared as for ``flash_bwd_dkv``;
+    returns ``dq`` in ``q``'s type, laid out ``(B, Tq, H, D)`` in memory."""
+    b, h, tq, d = q.shape
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError("flash_attention backward kernels need CUDA tensors")
+    dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    vp, ii = ctypes.c_void_p, ctypes.c_int
+    fn = _build.launch_fn("flash_attention_bwd", "flash_bwd_dq_launch",
+                          [vp] * 7 + [ii] * 6 + [vp, ctypes.c_float, ii, ii, vp])
+    ptrs, dims = _bwd_args(q, k, v, do, lse, delta)
+    with torch.cuda.device(dev):
+        err = fn(*ptrs, dq.data_ptr(), *dims, _strides(q, k, v, do, dq), float(scale),
+                 int(causal), _DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch("flash_attention_bwd (dQ)", err)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,  # (B, H, Tq, D)
+    k: torch.Tensor,  # (B, Hkv, Tk, D)
+    v: torch.Tensor,  # (B, Hkv, Tk, D)
+    o: torch.Tensor,  # (B, H, Tq, D), the forward's output
+    lse: torch.Tensor,  # (B, H, Tq) float32, the forward's log-sum-exp
+    do: torch.Tensor,  # (B, H, Tq, D), the output's cotangent
+    *,
+    causal: bool = True,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of ``ref.flash_attention_bwd`` from the two CUDA
+    kernels: ``delta = sum(do * o)`` in float32 (as the reference computes
+    it before its ``pallas_call``s), then dK/dV and dQ.  Any strides are
+    taken (a tensor whose last axis is not contiguous, such as an expanded
+    ``do``, is copied first); a head dim between the instantiated ones is
+    zero-padded, with the scale taken from the unpadded one."""
+    _check_bwd_operands(q, k, v, o, lse, do, causal)
+    d = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / (d**0.5)
+    dk_ = next(n for n in HEAD_DIMS if n >= d)
+    if dk_ != d:
+        # Zero columns add nothing to q k^T, dO V^T or delta; the padded
+        # gradient columns are cut off.
+        dq, dk, dv = flash_attention_bwd(*(F.pad(t, (0, dk_ - d)) for t in (q, k, v, o)), lse,
+                                         F.pad(do, (0, dk_ - d)), causal=causal, scale=scale)
+        return dq[..., :d], dk[..., :d], dv[..., :d]
+    q, k, v, do = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, do))
+    lse = lse.contiguous()
+    delta = torch.sum(do.to(torch.float32) * o.to(torch.float32), dim=-1).contiguous()
+    if q.shape[0] == 0 or q.shape[2] == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal, scale=scale)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal=causal, scale=scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention on the card: the forward kernel saves
+    ``q, k, v, o, lse``; the backward launches the dK/dV and dQ kernels
+    (``repro.kernels.flash_attention._flash_core`` with ``defvjp``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float | None):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None

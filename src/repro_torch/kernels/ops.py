@@ -7,7 +7,16 @@ it on the card), ``"cuda"`` demands the kernel and raises for CPU tensors.
 There is no fallback: a kernel that fails to build or launch raises.
 ``with ops.forced("ref"):`` sets the default ``force`` of every call made
 inside it (in this thread or task), so a whole model step can run its
-plain versions on the card for comparison.
+plain versions on the card for comparison.  The setting is a context
+variable, which autograd's backward thread does not see: code that reruns
+a forward from the backward pass (activation checkpointing) reads
+``current_mode()`` when it first runs and re-enters it.
+
+``rmsnorm`` and ``attention`` are differentiable on every path: the plain
+versions under autograd, the kernels through ``torch.autograd.Function``s
+whose backward runs on the card too (the flash-attention backward
+kernels; the plain rmsnorm gradient, as the reference has no rmsnorm
+backward kernel).
 """
 from __future__ import annotations
 
@@ -32,6 +41,15 @@ def forced(mode: str | None):
         yield
     finally:
         _FORCED.reset(token)
+
+
+def current_mode() -> str | None:
+    """The ``force`` that ``forced`` set for this context (None if unset)."""
+    return _FORCED.get()
+
+
+def _records_graph(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def _use_kernel(t: torch.Tensor, force: str | None) -> bool:
@@ -85,9 +103,12 @@ def admm_iterate(kkt_stack, g_blk, kq, lo, hi, x0, z0, y0, *, rho, iters, force=
 
 def rmsnorm(x, weight, eps: float = 1e-6, *, force=None):
     """RMSNorm over the last axis, statistics in float32 (see
-    ``ref.rmsnorm``)."""
-    fn = _rn.rmsnorm if _use_kernel(x, force) else _ref.rmsnorm
-    return fn(x, weight, eps)
+    ``ref.rmsnorm``); differentiable in ``x`` and ``weight``."""
+    if not _use_kernel(x, force):
+        return _ref.rmsnorm(x, weight, eps)
+    if _records_graph(x, weight):
+        return _rn.RMSNorm.apply(x, weight, eps)
+    return _rn.rmsnorm(x, weight, eps)
 
 
 def attention(q, k, v, *, causal=True, scale=None, force=None):
@@ -95,13 +116,10 @@ def attention(q, k, v, *, causal=True, scale=None, force=None):
     D)`` (see ``ref.attention``).  On the card the flash-attention forward
     kernel serves every shape (it masks ragged tails itself), so the
     reference's dense fallback for sequences its tiles do not divide is
-    not carried over.  The kernel has no backward yet: recording a graph
-    through it raises instead of differentiating the plain version."""
+    not carried over.  Differentiable: on the card the backward launches
+    the dK/dV and dQ kernels (``flash_attention.FlashAttention``)."""
     if not _use_kernel(q, force):
         return _ref.attention(q, k, v, causal=causal, scale=scale)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "the flash-attention backward kernels are not ported yet (ROADMAP.md queue 2 "
-            "item 7, the training slice); run under torch.inference_mode() or no_grad()"
-        )
+    if _records_graph(q, k, v):
+        return _fa.FlashAttention.apply(q, k, v, causal, scale)
     return _fa.flash_attention_fwd(q, k, v, causal=causal, scale=scale)[0]

@@ -333,3 +333,53 @@ def attention(
     if with_lse:
         return out, torch.logsumexp(logits, dim=-1)
     return out
+
+
+# ---------------------------------------------------- flash attention (bwd)
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,  # (B, H, Tq, D)
+    k: torch.Tensor,  # (B, Hkv, Tk, D)
+    v: torch.Tensor,  # (B, Hkv, Tk, D)
+    o: torch.Tensor,  # (B, H, Tq, D)
+    lse: torch.Tensor,  # (B, H, Tq) float32
+    do: torch.Tensor,  # (B, H, Tq, D)
+    *,
+    causal: bool = True,
+    scale: float | None = None,
+    delta: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dense log-sum-exp backward of flash attention, ``(dq, dk, dv)``: the
+    math the two backward kernels evaluate, as in
+    ``repro.kernels.flash_attention._bwd_reference`` (``p`` recomputed from
+    the saved ``lse``, ``delta = sum(do * o)`` in float32, everything in
+    float32, each gradient rounded once to its input's type).  It also
+    takes the GQA head-group sum that the reference gets from the VJP of
+    ``jnp.repeat`` outside its custom-vjp: here the group's dK/dV are
+    summed in float32 before the one rounding, as the kernel does (the
+    reference rounds each query head's share first).  A given ``delta``
+    (B, H, Tq) stands in for ``sum(do * o)``, as the kernels take it."""
+    b, h, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / (d**0.5)
+    groups = h // hkv
+    kx = k.to(F32).repeat_interleave(groups, dim=1)
+    vx = v.to(F32).repeat_interleave(groups, dim=1)
+    qf, dof = q.to(F32), do.to(F32)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kx) * scale
+    if causal:
+        rows = torch.arange(tq, device=q.device) + (tk - tq)
+        mask = torch.arange(tk, device=q.device)[None, :] <= rows[:, None]
+        s = s.masked_fill(~mask, NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vx)
+    if delta is None:
+        delta = torch.sum(dof * o.to(F32), dim=-1)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kx) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    group_sum = lambda t: t.reshape(b, hkv, groups, tk, d).sum(dim=2)
+    return dq.to(q.dtype), group_sum(dk).to(k.dtype), group_sum(dv).to(v.dtype)

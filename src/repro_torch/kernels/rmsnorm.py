@@ -5,6 +5,13 @@ Ports ``repro.kernels.rmsnorm.rmsnorm`` (Pallas ``_rmsnorm_kernel``):
 float32, the result in ``x.dtype``.  The CUDA source
 (``csrc/rmsnorm.cu``) reads each row once as 16-byte vectors; see its
 header for the design.  ``rmsnorm.launches`` counts kernel launches.
+
+``RMSNorm`` makes the kernel differentiable: its forward launches the
+kernel, its backward is the gradient of the plain version (``ref.rmsnorm``)
+recomputed from ``x`` and the weight with plain PyTorch ops.  The
+reference has no backward kernel either (``repro.kernels.rmsnorm`` has no
+VJP, so JAX differentiates its jnp reference), so this is the port of what
+it runs, not a fallback.
 """
 from __future__ import annotations
 
@@ -12,7 +19,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_VECTORS = 8 * 1024  # 16-byte vectors a row may hold (8 per thread, 1024 threads)
@@ -58,3 +65,22 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.T
 
 
 rmsnorm.launches = 0
+
+
+class RMSNorm(torch.autograd.Function):
+    """``rmsnorm`` with a gradient: the kernel forward, the plain version's
+    gradient backward (its autograd graph, rebuilt from the saved inputs)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps: float):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return rmsnorm(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        with torch.enable_grad():
+            xd, wd = x.detach().requires_grad_(), weight.detach().requires_grad_()
+            dx, dw = torch.autograd.grad(ref.rmsnorm(xd, wd, ctx.eps), (xd, wd), dy)
+        return dx, dw, None

@@ -3,12 +3,16 @@
 
 ``init(cfg)`` builds a randomly initialised ``Transformer``; ``forward``
 returns float32 logits over ``cfg.padded_vocab`` (the padded ids are not
-masked, as in the reference); ``init_decode_state`` and ``decode_step``
-run prefill and cached decode.  The reference scans stacked per-layer
-leaves; the port keeps one ``DecoderBlock`` per layer in an
-``nn.ModuleList``.  ``constrain_activations``/``maybe_constrain`` are
-identities on one device and are dropped (sharding comes with
-``sharding/rules.py``).
+masked, as in the reference); ``lm_loss`` is the training loss;
+``init_decode_state`` and ``decode_step`` run prefill and cached decode.
+The reference scans stacked per-layer leaves; the port keeps one
+``DecoderBlock`` per layer in an ``nn.ModuleList``.  With
+``cfg.remat == "block"`` (the reference's ``_maybe_remat``) each block is
+an activation checkpoint while a graph is recorded: its activations are
+recomputed in the backward pass, so the flash forward and the block's
+norms run twice per training step.  ``constrain_activations`` and
+``maybe_constrain`` are identities on one device and are dropped (sharding
+comes with ``sharding/rules.py``).
 
 The ``moe``, ``ssm`` and ``hybrid`` families (and ``audio``, in
 ``models/encdec.py`` of the reference) are not ported yet and raise,
@@ -19,8 +23,10 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
@@ -82,15 +88,63 @@ def _readout(p: Transformer, h: torch.Tensor) -> torch.Tensor:
     return p.lm_head(h).to(torch.float32)
 
 
+def _checkpointed(blk: B.DecoderBlock, mode: str | None):
+    """``blk``'s output as a function of its input, run under the ``ops``
+    mode ``mode``.  The recompute of an activation checkpoint runs from the
+    backward pass, on autograd's thread for CUDA tensors, where the
+    caller's ``ops.forced`` context is not set; re-entering the mode read
+    at the first run keeps the recompute on the same kernels or plain
+    versions (else it could save other tensors, or mix the two)."""
+
+    def run(x, positions):
+        with ops.forced(mode):
+            return blk(x, positions)[0]
+
+    return run
+
+
 def forward(p: Transformer, tokens: torch.Tensor, *, embeddings=None) -> ForwardOut:
     """Logits of ``tokens (B, T)`` (or of the modality-stub ``embeddings
     (B, T, D)``) from a fresh causal pass."""
     b, t = tokens.shape[:2]
     x = p.embed.embed(tokens) if embeddings is None else embeddings
     positions = torch.arange(t, device=x.device).expand(b, t)
+    remat = p.cfg.remat == "block" and torch.is_grad_enabled()
+    mode = ops.current_mode()
     for blk in p.blocks:
-        x, _, _ = blk(x, positions)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _checkpointed(blk, mode), x, positions, use_reentrant=False)
+        else:
+            x, _, _ = blk(x, positions)
     return ForwardOut(logits=_readout(p, p.ln_f(x)), aux_losses={}, mtp_logits=None)
+
+
+def lm_loss(p: Transformer, tokens: torch.Tensor, labels: torch.Tensor, *,
+            embeddings=None) -> tuple[torch.Tensor, dict]:
+    """Mean next-token cross entropy over the labels ``>= 0`` (-100 =
+    ignore); returns ``(total_loss, metrics)`` with ``lm_loss``,
+    ``tokens`` (the count of valid labels) and ``total_loss``, as the
+    reference.  The dense/vlm families have no auxiliary losses."""
+    out = forward(p, tokens, embeddings=embeddings)
+    loss, denom = _xent(out.logits, labels)
+    return loss, {"lm_loss": loss, "tokens": denom, "total_loss": loss}
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(mean nll over valid labels, valid count)``.  The gold logit is a
+    ``gather``: exactly the reference's masked sum over the vocab axis
+    (whose only non-zero term is the gold logit), which the reference
+    writes so for a vocab sharded across devices.  On one device the
+    gather saves materialising a second (B, T, V) float32 tensor and its
+    gradient."""
+    valid = labels >= 0
+    safe = torch.clamp(labels, min=0)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * valid
+    denom = torch.clamp(torch.sum(valid), min=1)
+    return torch.sum(nll) / denom, denom
 
 
 def init_decode_state(cfg, batch: int, max_len: int, *, device="cuda") -> dict:

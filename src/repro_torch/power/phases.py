@@ -90,8 +90,8 @@ def training_timeline(
 ) -> tuple[np.ndarray, np.ndarray]:
     """A full job timeline: warmup ramp, steps (+checkpoint stalls), end drop.
 
-    Fully vectorized phase-list construction (tile + insert); compile the
-    result into a segment-table scenario (not yet ported; see ROADMAP.md).
+    Fully vectorized phase-list construction (tile + insert);
+    ``training_scenario`` compiles it into a segment-table scenario.
     """
     d = model.device
     p_idle = d.p_idle_w / d.p_peak_w
@@ -116,6 +116,25 @@ def training_timeline(
     durs = np.concatenate([warm_d, durs, [end_idle_s]])
     pows = np.concatenate([warm_p, pows, [p_idle]])
     return durs, pows.astype(np.float32)
+
+
+def training_scenario(
+    cost: StepCost,
+    hw: HardwareConstants,
+    model: PhaseModel,
+    n_steps: int,
+    sample_hz: float,
+    *,
+    edge_time_s: float = 0.1,
+    device="cuda",
+    **timeline_kwargs,
+):
+    """Compile a training job's phase timeline straight into the scenario
+    IR (``power.scenario``): a renderable segment-table ``Scenario``."""
+    from repro_torch.power import scenario as SC
+
+    durs, pows = training_timeline(cost, hw, model, n_steps, **timeline_kwargs)
+    return SC.from_phase_timeline(durs, pows, sample_hz, edge_time_s=edge_time_s, device=device)
 
 
 def step_fundamental_hz(cost: StepCost, hw: HardwareConstants, model: PhaseModel) -> float:

@@ -15,9 +15,12 @@ hash are bitwise; ``_floor_mod`` is exact; cos and erfinv are evaluated in
 float64 and rounded (torch's float32 versions differ from XLA's, and on
 the CPU torch's vectorized and scalar paths can differ by an ulp, which
 would break chunk invariance), so the rendered trace agrees with the
-reference to a tolerance (tests).  The segment-table timelines
-(``from_phase_timeline``) and the stochastic fault schedules
-(``faults``/``attach_faults``) are later slices (ROADMAP.md).
+reference to a tolerance (tests).  A scenario may instead carry an
+explicit segment table (``seg_bounds``/``seg_powers``, compiled from a
+phase timeline by ``from_phase_timeline``): the piecewise-constant base
+that ``power.integration.PowerSim`` renders each training step from.  The
+stochastic fault schedules (``faults``/``attach_faults``) are a later
+slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -136,10 +139,21 @@ def stack_workloads(params_list: list[WorkloadParams]) -> WorkloadParams:
 
 @dataclasses.dataclass(frozen=True)
 class Scenario(Struct):
-    """A renderable parametric scenario (the reference's segment-table and
-    fault-schedule fields come with their slices)."""
+    """A renderable scenario: parametric workloads or a segment table.
 
-    params: WorkloadParams
+    If ``seg_powers`` is present the base waveform is the piecewise-constant
+    segment lookup (``seg_bounds`` holds int32 start-sample indices,
+    ``seg_bounds[0] == 0``; ``seg_powers`` is ``(K,)`` shared or ``(R, K)``
+    per rack, noise at ``seg_noise_std``); otherwise it is the parametric
+    ``params`` workload.  (The reference's fault-schedule field comes with
+    its slice.)"""
+
+    params: WorkloadParams | None = None
+    seg_bounds: torch.Tensor | None = None
+    seg_powers: torch.Tensor | None = None
+    # Noise level of a segment-table scenario (parametric scenarios carry
+    # theirs in ``params.noise_std``); None = 0.
+    seg_noise_std: torch.Tensor | None = None
     # uint32 XORed into the noise lane hash (decorrelated noise streams of
     # otherwise identical scenarios); None keeps the unsalted stream.
     noise_salt: int | None = None
@@ -162,14 +176,17 @@ class Scenario(Struct):
 
     @property
     def device(self) -> torch.device:
-        return self.params.p_idle.device
+        return (self.seg_powers if self.seg_powers is not None else self.params.p_idle).device
 
     @property
     def n_racks(self) -> int | None:
         """Rack batch size, or None for an unbatched (T,) scenario."""
-        for leaf in self.params.leaves():
-            if leaf.ndim == 1:
-                return leaf.shape[0]
+        if self.seg_powers is not None and self.seg_powers.ndim == 2:
+            return self.seg_powers.shape[0]
+        if self.params is not None:
+            for leaf in self.params.leaves():
+                if leaf.ndim == 1:
+                    return leaf.shape[0]
         return None
 
 
@@ -270,7 +287,20 @@ def _parametric_base(w: WorkloadParams, t: torch.Tensor, dt: float) -> torch.Ten
     return torch.where((te < 0.0) | (t >= w.t_end_s), w.p_idle, p)
 
 
+def _segment_base(s: Scenario, idx: torch.Tensor) -> torch.Tensor:
+    """The segment table's power at each absolute sample index."""
+    j = torch.clamp(
+        torch.searchsorted(s.seg_bounds, idx.to(s.seg_bounds.dtype), right=True) - 1,
+        0, s.seg_bounds.shape[0] - 1,
+    )
+    if s.seg_powers.ndim == 2:
+        return s.seg_powers[:, j].T  # (n, R)
+    return s.seg_powers[j]
+
+
 def _base(s: Scenario, idx: torch.Tensor) -> torch.Tensor:
+    if s.seg_powers is not None:
+        return _segment_base(s, idx)
     return _parametric_base(s.params, idx.to(F32) * s.dt, s.dt)
 
 
@@ -371,15 +401,21 @@ def render(s: Scenario, t0: int, n: int) -> torch.Tensor:
         p = _base(s, idx)
 
     wp = s.params
-    # Fault window bypasses edge smoothing (paper Fig. 13).
-    t = idx.to(F32) * s.dt
-    tb = t[:, None] if p.ndim == 2 else t
-    in_fault = (tb >= wp.fault_at_s) & (tb < wp.fault_at_s + wp.fault_duration_s)
-    p = torch.where(in_fault, wp.p_fault, p)
+    if wp is not None:
+        # Fault window bypasses edge smoothing (paper Fig. 13).
+        t = idx.to(F32) * s.dt
+        tb = t[:, None] if p.ndim == 2 else t
+        in_fault = (tb >= wp.fault_at_s) & (tb < wp.fault_at_s + wp.fault_duration_s)
+        p = torch.where(in_fault, wp.p_fault, p)
     if s.noise_seed is not None:
         noise = _hash_normal(s.noise_seed, idx, tuple(p.shape[1:]), s.noise_salt)
-        p = torch.clamp(p + wp.noise_std * noise, 0.0, 1.0)
-    p = p * wp.scale
+        if wp is not None:
+            std = wp.noise_std
+        else:
+            std = s.seg_noise_std if s.seg_noise_std is not None else 0.0
+        p = torch.clamp(p + std * noise, 0.0, 1.0)
+    if wp is not None:
+        p = p * wp.scale
     return p.to(F32)
 
 
@@ -414,6 +450,40 @@ def chunk_provider(s: Scenario):
         return render(s, t0, int(n))
 
     return provider
+
+
+# ------------------------------------------------- compiled phase timelines
+
+
+def from_phase_timeline(
+    durations_s,
+    powers,
+    sample_hz: float,
+    *,
+    edge_time_s: float = 0.1,
+    noise_seed: int | None = None,
+    noise_std: float = 0.01,
+    device="cuda",
+) -> Scenario:
+    """Compile an explicit phase timeline into a segment-table scenario on
+    ``device``: each phase gets ``max(round(duration * hz), 1)`` samples
+    and transitions get boxcar edges of ``edge_time_s``.  ``powers`` may
+    be ``(K,)`` or a per-rack ``(R, K)``.  Measurement noise at
+    ``noise_std`` is enabled by passing ``noise_seed``."""
+    dev = resolve_device(device)
+    durations = np.asarray(durations_s, np.float64)
+    counts = np.maximum(np.round(durations * sample_hz).astype(np.int64), 1)
+    bounds = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    return Scenario(
+        params=None,
+        seg_bounds=torch.as_tensor(bounds, device=dev),
+        seg_powers=torch.as_tensor(np.asarray(powers, np.float32), device=dev),
+        seg_noise_std=torch.tensor(noise_std, dtype=F32, device=dev),
+        sample_hz=float(sample_hz),
+        total_samples=int(counts.sum()),
+        edge_width=_edge_width(edge_time_s, sample_hz),
+        noise_seed=noise_seed,
+    )
 
 
 # ------------------------------------------------------- model-derived racks

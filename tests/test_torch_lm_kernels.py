@@ -18,8 +18,8 @@ CUDA kernels are held against on the card.  Tolerances and their reasons:
 * the log-sum-exp is float32 on both sides: 2e-5.
 
 The dispatch: CPU tensors take the plain versions, the CUDA wrappers
-refuse CPU tensors, and recording a graph through the CUDA attention
-raises (its backward is not ported).
+refuse CPU tensors, and recording a graph through the CUDA attention goes
+through its autograd Function to the (CUDA-only) kernel.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -136,10 +136,11 @@ def test_lm_dispatch_on_cpu_tensors(monkeypatch):
         rmsnorm.rmsnorm(x, w)
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attention.flash_attention_fwd(q, k, k)
-    # Backward through the CUDA attention is not ported: recording a graph
-    # through the kernel path raises before anything launches.
+    # On the kernel path, recording a graph goes through the autograd
+    # Function to the (CUDA-only) kernel, and so does a call with no graph:
+    # neither falls back to the plain version.
     monkeypatch.setattr(tops, "_use_kernel", lambda t, force: True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         tops.attention(q.requires_grad_(), k, k)
     with torch.inference_mode(), pytest.raises(ValueError, match="CUDA tensors"):
-        tops.attention(q.detach(), k, k)  # no graph: goes on to the (CUDA-only) kernel
+        tops.attention(q.detach(), k, k)

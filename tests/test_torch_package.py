@@ -23,8 +23,12 @@ from repro_torch.configs import smoke_config
 from repro_torch.core import compliance, controller, fleet, pdu
 from repro_torch.kernels import admm_step, ops, pdu_health
 from repro_torch.models import transformer
-from repro_torch.power import scenario, trace
+from repro_torch.data import DataConfig
+from repro_torch.launch import train as launch_train
+from repro_torch.optim import AdamWConfig
+from repro_torch.power import integration, phases, scenario, trace
 from repro_torch.serve import ServeEngine
+from repro_torch.train import TrainConfig, train
 
 SRC = Path(repro_torch.__file__).resolve().parents[1]
 
@@ -39,6 +43,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
     mods = _all_modules()
     assert "repro_torch.kernels.ops" in mods and "repro_torch.core.fleet" in mods
     assert "repro_torch.serve.engine" in mods and "repro_torch.launch.serve" in mods
+    assert "repro_torch.train.loop" in mods and "repro_torch.launch.train" in mods
+    assert "repro_torch.power.integration" in mods and "repro_torch.optim.adamw" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -76,6 +82,14 @@ def _no_cuda(monkeypatch):
         lambda: convert.lm_params_from_numpy({}, smoke_config("llama3_2_1b")),
         lambda: ServeEngine(smoke_config("llama3_2_1b"),
                             transformer.Transformer(smoke_config("llama3_2_1b"), device="cpu")),
+        lambda: scenario.from_phase_timeline([1.0, 2.0], [1.0, 0.4], 200.0),
+        lambda: phases.training_scenario(phases.StepCost(1e17, 1e14, 1e14),
+                                         phases.HardwareConstants(), phases.PhaseModel(), 2, 200.0),
+        lambda: integration.PowerSim(phases.StepCost(1e17, 1e14, 1e14),
+                                     phases.HardwareConstants(), phases.PhaseModel()),
+        lambda: train(smoke_config("llama3_2_1b"), DataConfig(batch=2, seq_len=8), AdamWConfig(),
+                      TrainConfig(steps=1)),
+        lambda: launch_train.main(["--steps", "1"]),
     ],
 )
 def test_default_device_raises_without_a_card(monkeypatch, entry):

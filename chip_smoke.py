@@ -6,7 +6,7 @@
 Phases, each of which must pass (any failure raises and exits non-zero):
 
 1. Build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-   source, five sources, started together).
+   source, six sources, started together).
 2. Kernel phases at the main path's shapes: ``pdu_health_sim`` on one
    controller interval of the 1024-rack campus (T = 1000, R = 1024, slew
    and wear fold) and ``admm_iterate`` on the campus controller QP
@@ -77,10 +77,32 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    ``admm_step`` launched once per conditioned controller interval.  It
    prints the warm step's wall time, tokens/s and ``train_mfu`` (6 N
    tokens over the step time at 989 TFLOP/s; remat executes ~8 N).
+9. The ``rwkv6_scan`` kernel at the ssm slice's shapes, held against the
+   sequential plain version (output and final state): the prefill shape
+   (4, 64, 512, 64) in bf16 and f32 from a non-zero state, the same
+   from (B, T, H, D) views as the time mix hands them over (o returned in
+   that layout), a decode step (T = 1), a ragged T = 257 at D = 128, an
+   extreme decay w = 0.01, and a state carried across two calls equal to
+   one call; timed beside the sequential and the chunked plain versions.
+10. The ssm serving slice at full rwkv6-7b width (32 layers, bf16, 7.5 B
+   random parameters drawn on the card by ``transformer.init``): (a) the
+   prefill step on 4 prompts x 512 tokens must launch ``rwkv6_scan`` 32
+   and rmsnorm 97 times and call no plain scan, and its logits must match
+   the same step under ``ops.forced("ref")`` (chunked and sequential
+   plain scans) within ``RWKV_PREFILL_TOL``, and each block alone, fed
+   the kernel run's input to it, must match its plain run within
+   ``RWKV_BLOCK_ULPS``; (b) ``ServeEngine.generate``, 4 requests,
+   64-token prompts, 32 greedy tokens, must launch them 32 x 32 and
+   97 x 32 times, its tokens must be its logits' argmax, and its logits
+   must match ``forward``'s over the output within ``RWKV_PREFILL_TOL``;
+   (c) ``RWKV_SERVE_REF`` (4 layers of full width) must match
+   ``JAX_RWKV_SERVE`` (recorded on the CPU by ``python
+   tests/test_torch_rwkv6_serve_reference.py``) within ``RWKV_LOGIT_TOL``.
+   It prints the prefill wall time and the generation's tokens/s.
 
 With ``--profile DIR`` it also profiles one more campus run, prefill step,
-generation and training step (``torch.profiler``) and writes the tables
-and Chrome traces into DIR.
+generation and training step, and rwkv6-7b prefill and generation
+(``torch.profiler``) and writes the tables and Chrome traces into DIR.
 
 The script prints the card's name and power limit, then one JSON line
 describing each kernel, and ends with the line
@@ -200,7 +222,7 @@ SERVE = dict(arch="llama3_2_1b", seed=0, prompt_seed=1, prefill=(4, 512), gen=(4
 # of ServeEngine.generate, and the decode step's logits at each of them
 # with JAX's tokens fed back (teacher-forced), so that every generated
 # position is compared, whatever the tokens the port would choose.
-SERVE_REF = dict(requests=2, prompt_len=64, gen_tokens=8,
+SERVE_REF = dict(requests=2, prompt_len=64, gen_tokens=8, prompt_seed=SERVE["prompt_seed"],
                  rows=((0, 0), (0, 31), (0, 63), (1, 17), (1, 63)))
 
 # The JAX package's numbers for SERVE_REF at full llama3.2-1b width (bf16,
@@ -428,7 +450,7 @@ def _logit_summary(row, ids, fed=None) -> dict:
     return out
 
 
-def serve_summary(prefill_logits, tokens, step_logits, fed) -> dict:
+def serve_summary(prefill_logits, tokens, step_logits, fed, ref: dict = SERVE_REF) -> dict:
     """The numbers of a SERVE_REF run that the check compares (either
     package; numpy arrays): ``prefill_logits (R, T0, V)`` of the prefill
     step, ``tokens (R, T0 + n)`` of the greedy generation, and ``step_logits
@@ -436,28 +458,29 @@ def serve_summary(prefill_logits, tokens, step_logits, fed) -> dict:
     position with the tokens ``fed (R, n)`` fed back (JAX's, on both sides).
     Each prefill row and each step keeps its argmax, top-2 margin, max,
     log-sum-exp and the logits at seven fixed ids spread over the
-    vocabulary; each step also the logit of the token fed at it."""
+    vocabulary; each step also the logit of the token fed at it.  ``ref``
+    is SERVE_REF or RWKV_SERVE_REF."""
     import numpy as np
 
-    t0 = SERVE_REF["prompt_len"]
+    t0 = ref["prompt_len"]
     v = prefill_logits.shape[-1]
     ids = [int(f * (v - 1)) for f in (0.0, 0.1, 0.3, 0.5, 0.7, 0.9, 1.0)]
-    rows = [_logit_summary(prefill_logits[r, pos], ids) for r, pos in SERVE_REF["rows"]]
+    rows = [_logit_summary(prefill_logits[r, pos], ids) for r, pos in ref["rows"]]
     fed = np.asarray(fed)
     steps = [[_logit_summary(step_logits[r, p], ids, int(fed[r, p])) for p in range(fed.shape[1])]
              for r in range(fed.shape[0])]
     return {"rows": rows, "steps": steps, "tokens": np.asarray(tokens)[:, t0:].tolist()}
 
 
-def _compare_logits(g: dict, w: dict, what: str) -> list[str]:
+def _compare_logits(g: dict, w: dict, what: str, tol: float, margin_tol: float) -> list[str]:
     bad = []
-    if w["margin"] > JAX_MARGIN_TOL and g["argmax"] != w["argmax"]:
+    if w["margin"] > margin_tol and g["argmax"] != w["argmax"]:
         bad.append(f"{what}: argmax {g['argmax']} != {w['argmax']} (margin {w['margin']:.4f})")
     for k in ("max", "lse", "at_fed"):
-        if k in w and not abs(g[k] - w[k]) <= SERVE_LOGIT_TOL:
+        if k in w and not abs(g[k] - w[k]) <= tol:
             bad.append(f"{what}: {k} {g[k]!r} vs {w[k]!r}")
     for j, (a, b) in enumerate(zip(g["at_ids"], w["at_ids"])):
-        if not abs(a - b) <= SERVE_LOGIT_TOL:
+        if not abs(a - b) <= tol:
             bad.append(f"{what}: logit {j} {a!r} vs {b!r}")
     return bad
 
@@ -471,9 +494,11 @@ def serve_max_diff(got: dict, want: dict) -> float:
     return max(abs(a - b) for g, w in pairs for a, b in zip(keys(g), keys(w)))
 
 
-def compare_serve(got: dict, want: dict) -> tuple[list[str], int]:
-    """Failures of ``got`` against ``want`` under SERVE_LOGIT_TOL and
-    JAX_MARGIN_TOL, and the number of generated positions whose greedy
+def compare_serve(got: dict, want: dict, tol: float = SERVE_LOGIT_TOL,
+                  margin_tol: float = JAX_MARGIN_TOL) -> tuple[list[str], int]:
+    """Failures of ``got`` against ``want`` under the logit tolerance
+    ``tol`` and the margin tolerance ``margin_tol`` (by default
+    SERVE_LOGIT_TOL and JAX_MARGIN_TOL), and the number of generated positions whose greedy
     tokens were left uncompared.  Every prefill row and every teacher-forced
     step is compared (its argmax where ``want``'s top-2 margin exceeds the
     margin tolerance).  The free-running greedy tokens are walked request by
@@ -483,16 +508,16 @@ def compare_serve(got: dict, want: dict) -> tuple[list[str], int]:
     are not compared (its teacher-forced steps still are)."""
     bad = []
     for i, (g, w) in enumerate(zip(got["rows"], want["rows"])):
-        bad += _compare_logits(g, w, f"row {i}")
+        bad += _compare_logits(g, w, f"row {i}", tol, margin_tol)
     for r, (gs, ws) in enumerate(zip(got["steps"], want["steps"])):
         for p, (g, w) in enumerate(zip(gs, ws)):
-            bad += _compare_logits(g, w, f"request {r} step {p}")
+            bad += _compare_logits(g, w, f"request {r} step {p}", tol, margin_tol)
     skipped = 0
     for r, (gt, wt, ws) in enumerate(zip(got["tokens"], want["tokens"], want["steps"])):
         for p, (a, b, w) in enumerate(zip(gt, wt, ws)):
             if a == b:
                 continue
-            if w["margin"] > JAX_MARGIN_TOL:
+            if w["margin"] > margin_tol:
                 bad.append(f"request {r}: token {p} is {a}, JAX {b} (margin {w['margin']:.4f})")
             skipped += len(gt) - p - 1
             break
@@ -620,6 +645,211 @@ JAX_TRAIN = {'loss': [12.154769897460938, 12.04736328125],
                        -1.5510365756199462e-06, -1.1123843250970822e-06, -3.461095275270054e-06,
                        -2.577273335191421e-06, 7.057750281092012e-06, -9.295648851548322e-06,
                        1.7088099411921576e-05]}]}
+
+
+# The ssm serving slice (phases 9-10): rwkv6-7b at full width (32 layers,
+# d_model 4096, 64 heads of 64, d_ff 14336, vocab 65536 untied, bf16; 7.5 B
+# parameters), random weights drawn on the card by ``transformer.init``
+# from a ``torch.Generator`` seeded with RWKV["seed"] (a float32 numpy tree
+# of that size would take ~30 GB of host memory).  Prefill: 4 prompts x
+# 512 tokens; generation: 4 requests, 64-token prompts, 32 greedy tokens.
+RWKV = dict(arch="rwkv6_7b", seed=0, prompt_seed=1, prefill=(4, 512), gen=(4, 64),
+            gen_tokens=32)
+# What tests/test_torch_rwkv6_serve_reference.py runs through the JAX package
+# on the CPU and what the card's run is held to: the same width cut to 4
+# layers, weights ``convert.random_lm_tree(cfg, RWKV["seed"])`` (~5.6 GB of
+# float32), as SERVE_REF: 2 prompts x 64 tokens, the prefill rows, 8 greedy
+# tokens and the teacher-forced decode logits at each of them.
+RWKV_SERVE_REF = dict(SERVE_REF, n_layers=4, prompt_seed=RWKV["prompt_seed"])
+# The JAX package's numbers for RWKV_SERVE_REF (bf16), on the CPU (jax
+# 0.9.0), printed by ``python tests/test_torch_rwkv6_serve_reference.py``.
+JAX_RWKV_SERVE = {'rows': [{'argmax': 65141,
+                            'at_ids': [0.4140625, 0.9765625, -2.234375, -0.51953125, -0.380859375,
+                                       0.275390625, -0.08447265625],
+                            'lse': 11.556984921313276,
+                            'margin': 0.5,
+                            'max': 4.28125},
+                           {'argmax': 53382,
+                            'at_ids': [0.99609375, 0.55078125, -0.369140625, -1.1640625, -0.6171875,
+                                       0.5234375, -0.10986328125],
+                            'lse': 11.547920210193526,
+                            'margin': 0.234375,
+                            'max': 3.9375},
+                           {'argmax': 164,
+                            'at_ids': [2.5625, -0.97265625, -0.421875, 0.232421875, 1.046875,
+                                       0.671875, -0.0205078125],
+                            'lse': 11.551289348189295,
+                            'margin': 0.15625,
+                            'max': 3.859375},
+                           {'argmax': 10899,
+                            'at_ids': [-0.50390625, 0.1953125, 0.39453125, -0.1962890625,
+                                       0.73046875, -0.255859375, 0.6796875],
+                            'lse': 11.548107348426527,
+                            'margin': 0.234375,
+                            'max': 4.0625},
+                           {'argmax': 46687,
+                            'at_ids': [1.5, -1.375, -1.6640625, 0.13671875, -0.369140625, 1.265625,
+                                       0.34375],
+                            'lse': 11.556398042867066,
+                            'margin': 0.109375,
+                            'max': 4.0625}],
+                  'steps': [[{'argmax': 164,
+                              'at_fed': 3.859375,
+                              'at_ids': [2.5625, -0.97265625, -0.421875, 0.232421875, 1.046875,
+                                         0.671875, -0.0205078125],
+                              'lse': 11.551289348189295,
+                              'margin': 0.15625,
+                              'max': 3.859375},
+                             {'argmax': 36171,
+                              'at_fed': 4.21875,
+                              'at_ids': [0.1513671875, 0.09521484375, -0.546875, -0.2255859375,
+                                         -0.8125, 0.462890625, 0.87890625],
+                              'lse': 11.555668418951095,
+                              'margin': 0.0,
+                              'max': 4.21875},
+                             {'argmax': 12562,
+                              'at_fed': 4.15625,
+                              'at_ids': [-0.1025390625, 0.96484375, -1.4609375, 0.8984375,
+                                         -0.08154296875, 0.5078125, 0.0223388671875],
+                              'lse': 11.552363311847534,
+                              'margin': 0.15625,
+                              'max': 4.15625},
+                             {'argmax': 25068,
+                              'at_fed': 4.75,
+                              'at_ids': [-0.77734375, 0.68359375, 0.1533203125, 0.44921875,
+                                         0.671875, 0.34375, -0.53515625],
+                              'lse': 11.56002977551505,
+                              'margin': 0.828125,
+                              'max': 4.75},
+                             {'argmax': 26000,
+                              'at_fed': 4.125,
+                              'at_ids': [2.09375, 1.0234375, -1.140625, -0.796875, 1.3828125,
+                                         1.2265625, 0.220703125],
+                              'lse': 11.552600692583345,
+                              'margin': 0.03125,
+                              'max': 4.125},
+                             {'argmax': 16024,
+                              'at_fed': 4.3125,
+                              'at_ids': [0.9765625, 0.4921875, 0.56640625, 0.3828125, -0.5,
+                                         1.3828125, -0.7265625],
+                              'lse': 11.560096478205729,
+                              'margin': 0.21875,
+                              'max': 4.3125},
+                             {'argmax': 9498,
+                              'at_fed': 4.375,
+                              'at_ids': [-0.1806640625, -1.578125, -1.578125, 0.53125, -1.453125,
+                                         1.921875, 0.75],
+                              'lse': 11.551906069828991,
+                              'margin': 0.28125,
+                              'max': 4.375},
+                             {'argmax': 23209,
+                              'at_fed': 3.890625,
+                              'at_ids': [-0.404296875, 2.125, -2.546875, -0.5859375, 0.025390625,
+                                         -1.296875, 0.474609375],
+                              'lse': 11.561280672044113,
+                              'margin': 0.015625,
+                              'max': 3.890625}],
+                            [{'argmax': 46687,
+                              'at_fed': 4.0625,
+                              'at_ids': [1.5, -1.375, -1.6640625, 0.13671875, -0.369140625,
+                                         1.265625, 0.34375],
+                              'lse': 11.556398042867066,
+                              'margin': 0.109375,
+                              'max': 4.0625},
+                             {'argmax': 32591,
+                              'at_fed': 4.71875,
+                              'at_ids': [1.109375, -0.84765625, -0.640625, 0.9140625, 1.5,
+                                         1.1796875, 0.74609375],
+                              'lse': 11.557554292913274,
+                              'margin': 0.34375,
+                              'max': 4.71875},
+                             {'argmax': 38168,
+                              'at_fed': 3.90625,
+                              'at_ids': [0.38671875, 0.4921875, -0.255859375, -1.390625,
+                                         0.0283203125, 0.7265625, -0.8203125],
+                              'lse': 11.549035166011372,
+                              'margin': 0.109375,
+                              'max': 3.90625},
+                             {'argmax': 3292,
+                              'at_fed': 4.625,
+                              'at_ids': [0.8515625, -0.83203125, -2.1875, 0.259765625, -0.82421875,
+                                         0.1513671875, -0.333984375],
+                              'lse': 11.557626228836785,
+                              'margin': 0.59375,
+                              'max': 4.625},
+                             {'argmax': 42921,
+                              'at_fed': 3.8125,
+                              'at_ids': [0.76171875, -1.0546875, -1.5, -0.93359375, -1.3203125,
+                                         0.80078125, 0.71875],
+                              'lse': 11.543500242470522,
+                              'margin': 0.265625,
+                              'max': 3.8125},
+                             {'argmax': 11079,
+                              'at_fed': 4.0,
+                              'at_ids': [0.2421875, -1.109375, -0.14453125, -0.83203125,
+                                         -0.326171875, 0.4375, 1.546875],
+                              'lse': 11.56081022043342,
+                              'margin': 0.21875,
+                              'max': 4.0},
+                             {'argmax': 50568,
+                              'at_fed': 4.09375,
+                              'at_ids': [-0.1982421875, -1.2265625, -1.265625, 1.0859375, 0.3515625,
+                                         0.73828125, -0.6015625],
+                              'lse': 11.561809781813201,
+                              'margin': 0.15625,
+                              'max': 4.09375},
+                             {'argmax': 31296,
+                              'at_fed': 3.953125,
+                              'at_ids': [-0.4921875, -0.0732421875, -0.90625, 2.28125, 0.4375,
+                                         -0.46875, 2.84375],
+                              'lse': 11.557891978921273,
+                              'margin': 0.140625,
+                              'max': 3.953125}]],
+                  'tokens': [[164, 36171, 12562, 25068, 26000, 16024, 9498, 23209],
+                             [46687, 32591, 38168, 3292, 42921, 11079, 50568, 31296]]}
+
+# Tolerances of the card's full-width bf16 rwkv6-7b serving run, with their
+# reasons.  The logits are the untied head's bf16 outputs, ~N(0, 1) with
+# maxima ~4.5 (one bf16 ulp is 2^-5 = 0.031 at the top of the range, 2^-7
+# near 1).  The two packages round at the same points, but an RWKV-6 layer
+# chains more bf16 roundings than a llama layer (the token-shift mixes,
+# the LoRAs, the gates), each of which may land an ulp apart where the
+# bf16 products are summed in other orders, so the hidden state differs by
+# more than the readout's last ulp.
+# * RWKV_LOGIT_TOL: the card against JAX_RWKV_SERVE (4 layers; sampled
+#   logits, maxima, log-sum-exps, the logit of JAX's token at each
+#   teacher-forced step): 0.125, twice the largest difference of the port
+#   on the CPU (0.0625, ``tests/test_torch_rwkv6_serve_reference.py
+#   --port``; median 0.013) and on an H100 (0.0625), where the prompt
+#   runs the sequential kernel and JAX the chunked plain form;
+# * RWKV_MARGIN_TOL: argmaxes and greedy tokens may differ from JAX's where
+#   its top-1/top-2 margin is within twice that;
+# * RWKV_BLOCK_ULPS: each of the 32 blocks alone, fed the kernel run's
+#   input to it, on the kernels against the plain versions (sequential
+#   scan): max|diff| within 4 bf16 ulps of the block output's largest
+#   value.  The rmsnorm kernel moves some of ln1's and ln2's bf16 outputs
+#   by an ulp, which moves every GEMM output of the block by up to an ulp,
+#   and the scan's o is rounded once on each side; the block's output sums
+#   the residual, the time mix and the channel mix, each rounded.  On an
+#   H100 up to 2 ulps, 4 is twice that; the chunked plain form against
+#   the sequential one differs by up to 1 (no kernel involved);
+# * RWKV_PREFILL_TOL: every logit of the 4 x 512 prefill (32 layers) with
+#   the kernels against the same step on the plain versions (chunked and
+#   sequential scan), and the generation's logits against ``forward``'s:
+#   0.75, 24 ulps at the top of the range, 1.6 times the floor that the
+#   stack sets with no kernel involved.  The random-weight 32-layer stack
+#   amplifies a rounding difference: on an H100 the two plain runs, which
+#   differ only in the scan's float32 summation order, have layer-0
+#   states 8.8e-7 apart relative, layer 1's 1.8e-3 (an ulp flipped at a
+#   bf16 rounding point), layer 31's 1.8e-2, and logits 0.469 apart; the
+#   kernels against either plain run read 0.461 (chunked) and 0.346
+#   (sequential), within that floor, and the generation (GEMMs of other
+#   shapes) differs from forward by 0.356.  This is a gross-error gate;
+#   RWKV_BLOCK_ULPS and RWKV_LOGIT_TOL hold the layers tightly.
+RWKV_LOGIT_TOL = 0.125
+RWKV_MARGIN_TOL = 2 * RWKV_LOGIT_TOL
+RWKV_PREFILL_TOL = 0.75
+RWKV_BLOCK_ULPS = 4
 
 
 def train_indices(shape, leaf: int):
@@ -831,23 +1061,22 @@ def decode_logits(model, cfg, prompts, fed, max_len: int):
     return torch.stack(steps, dim=1)
 
 
-def port_serve_reference(model, cfg, dev, fed) -> dict:
-    """SERVE_REF through the port on ``dev`` (prefill step, greedy
-    generation, the decode steps with JAX's tokens ``fed (R, n)`` fed back);
-    returns ``serve_summary``."""
+def port_serve_reference(model, cfg, dev, fed, ref: dict = SERVE_REF) -> dict:
+    """``ref`` (SERVE_REF or RWKV_SERVE_REF) through the port on ``dev``
+    (prefill step, greedy generation, the decode steps with JAX's tokens
+    ``fed (R, n)`` fed back); returns ``serve_summary``."""
     import torch
 
     from repro_torch.serve import ServeEngine, build_prefill_step
 
-    ref = SERVE_REF
     t0, n = ref["prompt_len"], ref["gen_tokens"]
     prompts = torch.as_tensor(
-        serve_prompts(cfg.vocab_size, ref["requests"], t0, SERVE["prompt_seed"]), device=dev)
+        serve_prompts(cfg.vocab_size, ref["requests"], t0, ref["prompt_seed"]), device=dev)
     logits, _ = build_prefill_step(cfg)(model, prompts, t0 + n)
     out = ServeEngine(cfg, model, max_len=t0 + n, device=dev).generate(prompts, n)
     steps = decode_logits(model, cfg, prompts, torch.as_tensor(fed, device=dev), t0 + n)
     host = lambda t: t.cpu().numpy()
-    return serve_summary(host(logits), host(out), host(steps), fed)
+    return serve_summary(host(logits), host(out), host(steps), fed, ref)
 
 
 def _median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
@@ -1564,6 +1793,335 @@ def phase_train(dev, tree, profile_dir: Path | None = None) -> dict:
             "power_counts": power_counts}
 
 
+def _rwkv_inputs(gen, dev, b, h, t, d, dtype, w_val=None, time_major=False):
+    """Scan operands like the time mix's: r, k, v ~ N(0, 1/4); the decay
+    exp(-exp(-6 + N(0, 1))) as the reference's ``decay_base`` gives it
+    (in (0.98, 1): a memory of hundreds of tokens), or ``w_val``; u ~
+    N(0, 0.01); all rounded to ``dtype``; a float32 state ~ N(0, 1/4).
+    With ``time_major`` r, k, v, w are (B, H, T, D) views of (B, T, H, D)
+    tensors, as the time mix hands them over."""
+    import torch
+
+    shape = (b, t, h, d) if time_major else (b, h, t, d)
+    lay = (lambda x: x.transpose(1, 2)) if time_major else (lambda x: x)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    r, k, v = (0.5 * randn(*shape) for _ in range(3))
+    w = (torch.exp(-torch.exp(-6.0 + randn(*shape))) if w_val is None
+         else torch.full(shape, w_val, device=dev))
+    u = 0.1 * randn(h, d)
+    s0 = 0.5 * randn(b, h, d, d)
+    return [lay(x.to(dtype)) for x in (r, k, v, w)] + [u.to(dtype)], s0
+
+
+def _rwkv_bytes_ops(r) -> tuple[int, int]:
+    """Bytes the scan must move from a given state (r, k, v, w and u in, o
+    out, the float32 state in and out) and the float32 operations the
+    function needs: per state element per token 5 (o's r_i S_ij, one FMA;
+    the update w_i S_ij + k_i v_j, a multiply and an FMA), and per head
+    element per token 5 more for the bonus, which factors out of the
+    (D, D) work: r diag(u) k^T v = (sum_i r_i u_i k_i) v (a multiply and
+    an FMA per i, an FMA per j)."""
+    b, h, t, d = r.shape
+    nbytes = r.element_size() * (5 * r.numel() + h * d) + 2 * 4 * b * h * d * d
+    return nbytes, 5 * b * h * t * d * (d + 1)
+
+
+def phase_rwkv_kernel(dev) -> dict:
+    """The rwkv6_scan kernel against the sequential plain version at the
+    ssm slice's shapes (rwkv6-7b: 64 heads of 64), timed beside the
+    sequential and the chunked plain versions."""
+    import torch
+
+    from repro_torch.kernels import ops, ref, rwkv6_scan as rw
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bf16, f32 = torch.bfloat16, torch.float32
+    b, t = RWKV["prefill"]
+    h, d = 64, 64
+    # Tolerances, elementwise, with ``scale`` the largest |value| of the
+    # plain version's output or state: the kernel and the plain version do
+    # the same float32 operations per step but sum o over i in another
+    # order (four partial sums against cuBLAS's) and contract multiply-adds
+    # into FMAs, so o and S differ by float32 rounding that the recurrence
+    # carries along: 1e-5 x scale; bf16 o additionally one bf16 ulp of the
+    # element (2^-7 of it), since each side rounds its float32 o once.
+    # "time-major" hands the kernel (B, H, T, D) views of (B, T, H, D)
+    # tensors, as the time mix does, and o must come back in that layout.
+    cases = [("prefill", b, h, t, d, bf16, None, True, False),
+             ("time-major", b, h, t, d, bf16, None, True, True),
+             ("prefill f32", b, h, t, d, f32, None, True, False),
+             ("decode", b, h, 1, d, bf16, None, True, False),
+             ("ragged D128", b, 32, 257, 128, bf16, None, False, False),
+             ("w = 0.01", b, h, t, d, bf16, 0.01, True, False)]
+    err_max = 0.0
+    for name, bb, hh, tt, dd, dtype, w_val, with_s0, time_major in cases:
+        (r, k, v, w, u), s0 = _rwkv_inputs(gen, dev, bb, hh, tt, dd, dtype, w_val, time_major)
+        s0 = s0 if with_s0 else None
+        o, s = rw.rwkv6_scan(r, k, v, w, u, s0)
+        po, ps = ref.rwkv6_scan(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        ulp = 2.0**-7 if dtype == bf16 else 0.0
+        ok = bool(torch.isfinite(o).all()) and bool(torch.isfinite(s).all())
+        ok &= o.stride() == r.stride() and r.is_contiguous() != time_major
+        line = f"rwkv6_scan  {name:12s} {(bb, hh, tt, dd)} {str(dtype)[6:]}:"
+        for nm, g, p, u_ in (("o", o, po, ulp), ("S", s, ps, 0.0)):
+            g64, p64 = g.double(), p.double()
+            scale = float(p64.abs().max())
+            err = float((g64 - p64).abs().max())
+            ok &= bool(((g64 - p64).abs() <= u_ * p64.abs() + 1e-5 * scale).all())
+            line += f" {nm} {err:.3e} (max {scale:.3f})"
+            err_max = max(err_max, err)
+        print(line + f"  [max|kernel - sequential plain|; o strides {o.stride()}]")
+        _check(ok, f"rwkv6_scan {name} vs plain")
+    # A state carried across two calls equals one call: the kernel does the
+    # same operations per step, and the state passes through float32 memory
+    # exactly.
+    (r, k, v, w, u), s0 = _rwkv_inputs(gen, dev, b, h, t, d, bf16)
+    o, s = rw.rwkv6_scan(r, k, v, w, u, s0)
+    half = t // 2
+    o1, s1 = rw.rwkv6_scan(*(x[:, :, :half] for x in (r, k, v, w)), u, s0)
+    o2, s2 = rw.rwkv6_scan(*(x[:, :, half:] for x in (r, k, v, w)), u, s1)
+    same = torch.equal(torch.cat([o1, o2], dim=2), o) and torch.equal(s2, s)
+    print(f"rwkv6_scan  state carried across two calls of {half} == one call of {t}: {same}")
+    _check(same, "rwkv6_scan carried state")
+    # The kernel has no backward: a recording graph must raise, not fall
+    # back to the (differentiable) plain version.
+    try:
+        ops.rwkv6_scan(r.detach().requires_grad_(), k, v, w, u, s0)
+        refused = False
+    except NotImplementedError:
+        refused = True
+    print(f"rwkv6_scan  refuses a recording autograd graph on the card: {refused}")
+    _check(refused, "rwkv6_scan under a recording graph")
+
+    ms = _median_ms(lambda: rw.rwkv6_scan(r, k, v, w, u, s0))
+    seq_ms = _median_ms(lambda: ref.rwkv6_scan(r, k, v, w, u, s0), reps=5, warmup=1)
+    chunk_ms = _median_ms(lambda: ref.rwkv6_chunked(r, k, v, w, u, s0), reps=10)
+    dec = [x[:, :, :1] for x in (r, k, v, w)]
+    dec_ms = _median_ms(lambda: rw.rwkv6_scan(*dec, u, s0))
+    dec_plain = _median_ms(lambda: ref.rwkv6_scan(*dec, u, s0))
+    rw.rwkv6_scan.launches = 0
+    print(f"rwkv6_scan  prefill bf16: kernel {ms:.4f} ms, sequential plain {seq_ms:.4f} ms, "
+          f"chunked plain {chunk_ms:.4f} ms; decode (T = 1): kernel {dec_ms:.4f} ms, plain "
+          f"{dec_plain:.4f} ms")
+    nbytes, nops = _rwkv_bytes_ops(r)
+    dec_bytes, dec_ops = _rwkv_bytes_ops(dec[0])
+    dec_bound = max(dec_bytes / HBM_BYTES_PER_S, dec_ops / FP32_FLOP_PER_S) * 1e3
+    # No single PyTorch call computes this recurrence; "plain_ms" is the
+    # sequential plain version (what the kernel is held to).
+    return kernel_entry(
+        "rwkv6_scan", "src/repro_torch/csrc/rwkv6_scan.cu", "src/repro/kernels/rwkv6_scan.py:57",
+        err_max, ms, seq_ms, None, nbytes, nops, FP32_FLOP_PER_S, shape=[b, h, t, d],
+        dtype="bfloat16", chunked_plain_ms=chunk_ms, decode_ms=dec_ms, decode_plain_ms=dec_plain,
+        decode_bound_ms=dec_bound)
+
+
+class _PlainRwkvCalls:
+    """Counts calls of the plain RWKV-6 scans (``ref.rwkv6_scan`` and
+    ``ref.rwkv6_chunked``, as ``ops`` reaches them) inside the block."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ref
+
+        self.n, self._saved = 0, (ref.rwkv6_scan, ref.rwkv6_chunked)
+
+        def counted(fn):
+            def call(*a, **kw):
+                self.n += 1
+                return fn(*a, **kw)
+            return call
+
+        ref.rwkv6_scan, ref.rwkv6_chunked = (counted(f) for f in self._saved)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ref
+
+        ref.rwkv6_scan, ref.rwkv6_chunked = self._saved
+        return False
+
+
+def _rwkv_counts() -> dict:
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    return {"rwkv6_scan": rw.rwkv6_scan.launches, **_counts()}
+
+
+def _reset_rwkv_counts() -> None:
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    rw.rwkv6_scan.launches = 0
+    _reset_counts()
+
+
+def phase_rwkv_serve(dev, profile_dir: Path | None = None) -> dict:
+    """The ssm serving slice at full rwkv6-7b width: (a) the prefill step,
+    launches and logits against the plain versions; (b) greedy generation,
+    launches and logits against ``forward``'s; (c) RWKV_SERVE_REF against
+    JAX_RWKV_SERVE.  Returns the counts and the timings."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import full_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeEngine, build_prefill_step
+
+    cfg = full_config(RWKV["arch"])
+    _check(cfg.family == "ssm" and cfg.dtype == "bfloat16", "rwkv6-7b serves in bf16")
+    nl = cfg.n_layers
+    t0 = time.perf_counter()
+    model = T.init(cfg, device=dev, generator=torch.Generator(dev).manual_seed(RWKV["seed"]))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"rwkv serve: {cfg.name} {n_params} parameters ({cfg.dtype}, {nl} layers) drawn on the "
+          f"card in {time.perf_counter() - t0:.1f} s")
+    per_prefill = {"rwkv6_scan": nl, "rmsnorm": 3 * nl + 1, "flash_attention_fwd": 0}
+
+    # (a) Prefill: 4 prompts x 512 tokens through the prefill step.
+    b, tl = RWKV["prefill"]
+    prefill_prompts = torch.as_tensor(
+        serve_prompts(cfg.vocab_size, b, tl, RWKV["prompt_seed"]), device=dev)
+    step = build_prefill_step(cfg)
+    step(model, prefill_prompts, tl)  # warm-up
+    with _PlainRwkvCalls() as plain:
+        torch.cuda.synchronize()
+        _reset_rwkv_counts()
+        t = time.perf_counter()
+        logits, state = step(model, prefill_prompts, tl)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        prefill_counts = _rwkv_counts()
+    with ops.forced("ref"):
+        logits_ref, state_ref = step(model, prefill_prompts, tl)
+    with ops.forced("ref", algorithm="sequential"):
+        logits_seq, state_seq = step(model, prefill_prompts, tl)
+    torch.cuda.synchronize()
+    err = _max_err(logits, logits_ref)
+    seq_err = _max_err(logits, logits_seq)
+    # The two plain runs differ only in the scan's algorithm (float32
+    # summation order), with no kernel involved: the floor that the
+    # 32-layer stack's amplification of a rounding difference sets.
+    floor_err = _max_err(logits_ref, logits_seq)
+    # Per layer, the largest state difference relative to the layer's
+    # largest state value: how a rounding difference grows with depth.
+    rel = lambda a, b: [float((x - y).abs().max() / y.abs().max()) for x, y in zip(a, b)]
+    layers = sorted({i for i in (0, 1, 3, 7, 15, nl - 1) if i < nl})
+    lays = {name: rel(a["blocks"].wkv, c["blocks"].wkv) for name, a, c in (
+        ("kernels-chunked", state, state_ref), ("kernels-sequential", state, state_seq),
+        ("chunked-sequential", state_ref, state_seq))}
+    print(f"rwkv prefill {b} x {tl}: {prefill_s:.4f} s wall, launches {prefill_counts}, plain "
+          f"scan calls {plain.n}; logits max|kernels - plain| {err:.4f} with the chunked plain "
+          f"scan, {seq_err:.4f} with the sequential one, max|chunked plain - sequential plain| "
+          f"{floor_err:.4f} (max|logit| {float(logits_ref.abs().max()):.3f})")
+    for name, lay in lays.items():
+        print(f"rwkv prefill relative state differences {name:18s} at layers {layers}: "
+              f"{[f'{lay[i]:.1e}' for i in layers]}")
+    # Each block alone, fed the kernel run's input to it, on the kernels and
+    # on the sequential plain versions: the difference one layer makes
+    # before the stack amplifies it, in bf16 ulps of the block output's
+    # largest value; beside it the chunked plain form against the
+    # sequential one, with no kernel involved.
+    xs = []
+    hooks = [blk.register_forward_pre_hook(lambda m, a: xs.append(a[0].clone()))
+             for blk in model.blocks]
+    step(model, prefill_prompts, tl)
+    for hk in hooks:
+        hk.remove()
+    ulps_k, ulps_p, state_k = [], [], []
+    with torch.inference_mode():
+        for blk, x in zip(model.blocks, xs):
+            yk, sk = blk(x)
+            with ops.forced("ref", algorithm="sequential"):
+                yp, sp = blk(x)
+            with ops.forced("ref"):
+                yc, _ = blk(x)
+            unit = _bf16_ulp(float(yp.abs().max()))
+            ulps_k.append(_max_err(yk, yp) / unit)
+            ulps_p.append(_max_err(yc, yp) / unit)
+            state_k.append(float((sk.wkv - sp.wkv).abs().max() / sp.wkv.abs().max()))
+    del xs, yk, yp, yc
+    print(f"rwkv blocks alone, max|kernels - sequential plain| in bf16 ulps of the block "
+          f"output's largest value, layers 0-{nl - 1}: {[f'{u:g}' for u in ulps_k]}; chunked "
+          f"plain - sequential plain: {[f'{u:g}' for u in ulps_p]}; relative state differences "
+          f"(kernels - sequential plain) up to {max(state_k):.1e}")
+    _check(prefill_counts == per_prefill and plain.n == 0, f"rwkv prefill launches {prefill_counts}")
+    _check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (b, tl, cfg.padded_vocab)
+           and state["blocks"].length == tl, "rwkv prefill logits/state")
+    _check(max(ulps_k) <= RWKV_BLOCK_ULPS, "rwkv blocks alone, kernels vs plain versions")
+    _check(err <= RWKV_PREFILL_TOL and seq_err <= RWKV_PREFILL_TOL,
+           "rwkv prefill logits, kernels vs plain versions")
+    del logits_ref, state_ref, logits_seq, state_seq, state
+
+    # (b) Generation: 4 requests, 64-token prompts, 32 greedy tokens.
+    b, t0p = RWKV["gen"]
+    n = RWKV["gen_tokens"]
+    prompts = torch.as_tensor(serve_prompts(cfg.vocab_size, b, t0p, RWKV["prompt_seed"] + 1),
+                              device=dev)
+    eng = ServeEngine(cfg, model, max_len=t0p + n, device=dev)
+    eng.generate(prompts, 2)  # warm-up
+    with _PlainRwkvCalls() as plain:
+        torch.cuda.synchronize()
+        _reset_rwkv_counts()
+        t = time.perf_counter()
+        out = eng.generate(prompts, n)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t
+        gen_counts = _rwkv_counts()
+    with torch.inference_mode():
+        fwd = T.forward(model, out[:, :-1]).logits[:, t0p - 1:]
+    # The generation's own logits (its decode loop fed its own tokens: the
+    # state carried across 32 calls) against one fresh pass over the output.
+    # The loop repeats generate's calls exactly, so every greedy token is
+    # its logits' argmax; with those logits within RWKV_PREFILL_TOL of
+    # forward's, a token can differ from forward's argmax only where
+    # forward's top-2 margin is within twice that, so the agreement is
+    # printed, not checked.
+    gen_logits = decode_logits(model, cfg, prompts, out[:, t0p:], t0p + n)
+    gen_err = _max_err(gen_logits, fwd)
+    own = torch.equal(gen_logits.argmax(-1), out[:, t0p:])
+    margin = torch.as_tensor(_top2_margin(fwd.cpu().numpy()))
+    agree = fwd.argmax(-1).cpu() == out[:, t0p:].cpu()
+    worst = float(margin[~agree].max()) if bool((~agree).any()) else 0.0
+    print(f"rwkv generate {b} x ({t0p} + {n}): {gen_s:.4f} s wall, {b * n / gen_s:.1f} tokens/s, "
+          f"launches {gen_counts}, plain scan calls {plain.n}; greedy tokens == the argmax of "
+          f"their logits: {own}; logits max|generation - forward| {gen_err:.4f}; greedy == "
+          f"forward argmax at {int(agree.sum())}/{agree.numel()} positions (largest margin where "
+          f"not {worst:.4f}; largest margin {float(margin.max()):.4f})")
+    _check(gen_counts == {k: v * n for k, v in per_prefill.items()} and plain.n == 0,
+           f"rwkv generation launches {gen_counts}")
+    _check(own, "rwkv greedy tokens differ from their logits' argmax")
+    _check(gen_err <= RWKV_PREFILL_TOL, "rwkv generation logits vs forward")
+    if profile_dir is not None:
+        profile_run("rwkv_prefill", lambda: _timed(lambda: step(model, prefill_prompts, tl)),
+                    profile_dir)
+        profile_run("rwkv_generate", lambda: _timed(lambda: eng.generate(prompts, n)), profile_dir)
+    del model, eng, fwd, gen_logits, logits
+    torch.cuda.empty_cache()
+
+    # (c) RWKV_SERVE_REF: full width at 4 layers against the JAX package.
+    cfg4 = dataclasses.replace(cfg, n_layers=RWKV_SERVE_REF["n_layers"])
+    t = time.perf_counter()
+    model4 = convert.lm_params_from_numpy(convert.random_lm_tree(cfg4, RWKV["seed"]), cfg4,
+                                          device=dev)
+    print(f"rwkv vs JAX: random_lm_tree of {RWKV_SERVE_REF['n_layers']} layers moved to the card "
+          f"in {time.perf_counter() - t:.1f} s")
+    got = port_serve_reference(model4, cfg4, dev, JAX_RWKV_SERVE["tokens"], RWKV_SERVE_REF)
+    del model4
+    torch.cuda.empty_cache()
+    bad, skipped = compare_serve(got, JAX_RWKV_SERVE, RWKV_LOGIT_TOL, RWKV_MARGIN_TOL)
+    print(f"rwkv vs JAX: prefill rows and teacher-forced steps max|diff| "
+          f"{serve_max_diff(got, JAX_RWKV_SERVE):.4f}; row argmax "
+          f"{[g['argmax'] for g in got['rows']]} vs {[w['argmax'] for w in JAX_RWKV_SERVE['rows']]}; "
+          f"tokens {got['tokens']} vs {JAX_RWKV_SERVE['tokens']}; {skipped} tokens past a top-2 "
+          f"margin <= {RWKV_MARGIN_TOL} not compared")
+    _check(not bad, "rwkv serving differs from the JAX package: " + "; ".join(bad))
+    return {"prefill": prefill_counts, "generate": gen_counts, "prefill_s": prefill_s,
+            "generate_s": gen_s, "tokens_per_s": b * n / gen_s}
+
+
 def phase_quickstart(dev) -> None:
     """The quickstart flow through the port (a single rack: the kernels run
     one column)."""
@@ -1659,8 +2217,9 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", type=Path, default=None,
-                    help="also profile one campus run, prefill step, generation and training "
-                         "step; write the tables and traces here")
+                    help="also profile one campus run, prefill step, generation, training "
+                         "step and rwkv6-7b prefill and generation; write the tables and "
+                         "traces here")
     opts = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1711,9 +2270,18 @@ def main() -> int:
                              launches_per_train_step=trained["per_step"][name])
     for name, n in zip(("pdu_health", "admm_step"), trained["power_counts"]):
         kernels[name]["launches_train_powersim"] = n
+    torch.cuda.empty_cache()
+    kernels["rwkv6_scan"] = phase_rwkv_kernel(dev)
+    rwkv = phase_rwkv_serve(dev, opts.profile)
+    for name in ("rwkv6_scan", "rmsnorm"):
+        pre, gen = rwkv["prefill"][name], rwkv["generate"][name]
+        kernels[name].update(launches=(kernels[name]["launches"] or 0) + pre + gen,
+                             launches_rwkv_prefill=pre, launches_rwkv_generate=gen)
     print(json.dumps({"serve": {k: serve[k] for k in ("prefill_s", "generate_s", "tokens_per_s")},
                       "train": {k: trained[k] for k in ("step_s", "tokens_per_s", "train_mfu",
-                                                         "peak_gb")}}))
+                                                         "peak_gb")},
+                      "rwkv_serve": {k: rwkv[k] for k in ("prefill_s", "generate_s",
+                                                          "tokens_per_s")}}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import controller as ctrl, ess, filters, health as hlt, pdu
-from repro_torch.models import transformer as T
+from repro_torch.models import layers as L, transformer as T
 from repro_torch.power import scenario as SC
 from repro_torch.utils.devices import resolve_device
 
@@ -155,26 +155,23 @@ def lm_tree_shapes(cfg) -> dict:
 def random_lm_tree(cfg, seed: int) -> dict:
     """A parameter tree in the JAX package's layout (nested dicts of numpy
     arrays, blocks stacked on axis 0) filled from
-    ``numpy.random.default_rng(seed)``, leaf by leaf in sorted path order:
-    ``kernel`` leaves a standard normal clipped at +-2 and scaled by
-    1/sqrt(d_in), ``embedding`` the same at 0.02, ``bias`` zeros, ``scale``
-    ones (the reference's initialisers in distribution; the draws are
-    numpy's).  Leaves are float32: numpy has no bfloat16, so a bf16 config
-    is cast on the device by ``lm_params_from_numpy``."""
+    ``numpy.random.default_rng(seed)``, leaf by leaf in sorted path order,
+    with the reference's initialisers in distribution
+    (``layers.leaf_rule``: a standard normal clipped at +-2 and scaled, or
+    a constant; the draws are numpy's).  Leaves are float32: numpy has no
+    bfloat16, so a bf16 config is cast on the device by
+    ``lm_params_from_numpy`` (leaves that are float32 in the model, such as
+    RWKV-6's ``decay_base`` and ``u_bonus``, stay float32)."""
     rng = np.random.default_rng(seed)
     flat = {}
     for path, (shape, _) in sorted(lm_tree_shapes(cfg).items()):
-        leaf = path.rsplit(".", 1)[-1]
-        if leaf in ("kernel", "embedding"):
+        kind, val = L.leaf_rule(path, shape)
+        if kind == "constant":
+            a = np.full(shape, val, np.float32)
+        else:
             a = rng.standard_normal(shape, dtype=np.float32)
             np.clip(a, -2.0, 2.0, out=a)
-            a *= np.float32(0.02 if leaf == "embedding" else 1.0 / np.sqrt(shape[-2]))
-        elif leaf == "bias":
-            a = np.zeros(shape, np.float32)
-        elif leaf == "scale":
-            a = np.ones(shape, np.float32)
-        else:
-            raise ValueError(f"no initialiser for parameter {path!r}")
+            a *= np.float32(val)
         flat[path] = a
     return _unflatten(flat)
 

@@ -31,6 +31,7 @@ SOURCES = {
     "rmsnorm": ("rmsnorm.cu", []),
     "flash_attention": ("flash_attention.cu", []),
     "flash_attention_bwd": ("flash_attention_bwd.cu", []),
+    "rwkv6_scan": ("rwkv6_scan.cu", []),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

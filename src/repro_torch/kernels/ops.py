@@ -16,7 +16,8 @@ a forward from the backward pass (activation checkpointing) reads
 versions under autograd, the kernels through ``torch.autograd.Function``s
 whose backward runs on the card too (the flash-attention backward
 kernels; the plain rmsnorm gradient, as the reference has no rmsnorm
-backward kernel).
+backward kernel).  ``rwkv6_scan`` is differentiable only through its
+plain versions: the reference's kernel route has no gradient either.
 """
 from __future__ import annotations
 
@@ -27,20 +28,30 @@ import torch
 
 from repro_torch.kernels import (
     admm_step as _ad, flash_attention as _fa, pdu_health as _ph, ref as _ref, rmsnorm as _rn,
+    rwkv6_scan as _rw,
 )
 
 _FORCED: contextvars.ContextVar[str | None] = contextvars.ContextVar("force", default=None)
+_ALGORITHM: contextvars.ContextVar[str] = contextvars.ContextVar("algorithm", default="auto")
 
 
 @contextlib.contextmanager
-def forced(mode: str | None):
+def forced(mode: str | None, *, algorithm: str = "auto"):
     """Make ``mode`` (``"ref"``, ``"cuda"`` or None) the ``force`` of every
-    ``ops`` call inside the block that does not pass its own."""
-    token = _FORCED.set(mode)
+    ``ops`` call inside the block that does not pass its own, and
+    ``algorithm`` that of every ``rwkv6_scan`` call left at ``"auto"``."""
+    _check_algorithm(algorithm)
+    token, atoken = _FORCED.set(mode), _ALGORITHM.set(algorithm)
     try:
         yield
     finally:
         _FORCED.reset(token)
+        _ALGORITHM.reset(atoken)
+
+
+def _check_algorithm(algorithm: str) -> None:
+    if algorithm not in ("auto", "sequential"):
+        raise ValueError(f"algorithm must be 'auto' or 'sequential', got {algorithm!r}")
 
 
 def current_mode() -> str | None:
@@ -123,3 +134,29 @@ def attention(q, k, v, *, causal=True, scale=None, force=None):
     if _records_graph(q, k, v):
         return _fa.FlashAttention.apply(q, k, v, causal, scale)
     return _fa.flash_attention_fwd(q, k, v, causal=causal, scale=scale)[0]
+
+
+def rwkv6_scan(r, k, v, w, u, state0=None, *, force=None, algorithm="auto"):
+    """The RWKV-6 recurrence, ``r, k, v, w (B, H, T, D)``, ``u (H, D)``,
+    ``state0 (B, H, D, D)`` float32 or None; returns ``(o, S_T)`` (see
+    ``ref.rwkv6_scan``).  On the card it launches the kernel, which is the
+    sequential recurrence whatever ``algorithm`` says, and raises under a
+    recording autograd graph: the kernel has no backward, as the
+    reference's has none.  The
+    plain versions follow the reference's host rule: the chunk-parallel
+    ``rwkv6_chunked(chunk=32)`` when ``algorithm == "auto"`` and ``T`` is a
+    multiple of 32 above 32, else the sequential ``rwkv6_scan``
+    (``algorithm="sequential"``, given here or by ``forced``, forces it)."""
+    _check_algorithm(algorithm)
+    if _use_kernel(r, force):
+        if _records_graph(r, k, v, w, u, *(() if state0 is None else (state0,))):
+            raise NotImplementedError(
+                "rwkv6_scan has no backward kernel (nor has the reference's kernel route); "
+                "ssm training is an open question in ROADMAP.md")
+        return _rw.rwkv6_scan(r, k, v, w, u, state0)
+    if algorithm == "auto":
+        algorithm = _ALGORITHM.get()
+    t = r.shape[2]
+    if algorithm == "auto" and t > 32 and t % 32 == 0:
+        return _ref.rwkv6_chunked(r, k, v, w, u, state0, chunk=32)
+    return _ref.rwkv6_scan(r, k, v, w, u, state0)

@@ -383,3 +383,93 @@ def flash_attention_bwd(
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
     group_sum = lambda t: t.reshape(b, hkv, groups, tk, d).sum(dim=2)
     return dq.to(q.dtype), group_sum(dk).to(k.dtype), group_sum(dv).to(v.dtype)
+
+
+# ----------------------------------------------------------------- rwkv6 scan
+
+
+def rwkv6_scan(
+    r: torch.Tensor,  # (B, H, T, D) receptance
+    k: torch.Tensor,  # (B, H, T, D) key
+    v: torch.Tensor,  # (B, H, T, D) value
+    w: torch.Tensor,  # (B, H, T, D) per-channel decay in (0, 1)
+    u: torch.Tensor,  # (H, D) bonus of the current token
+    state0: torch.Tensor | None = None,  # (B, H, D, D) float32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The RWKV-6 (Finch) time-mix recurrence, step by step (see
+    ``repro.kernels.ref.rwkv6_scan``):
+
+        o_t = r_t (S_{t-1} + diag(u) k_t^T v_t),  S_t = diag(w_t) S_{t-1} + k_t^T v_t
+
+    Inputs are widened to float32 and the state stays float32; returns
+    ``(o (B, H, T, D) in r's type, S_T (B, H, D, D) float32)``.  The
+    reference's chunked remat stores fewer states for autodiff and changes
+    no number, so it is not carried over."""
+    b, h, t, d = r.shape
+    s = (torch.zeros((b, h, d, d), dtype=F32, device=r.device) if state0 is None
+         else state0.to(F32))
+    rf, kf, vf, wf = (a.to(F32) for a in (r, k, v, w))
+    uf = u.to(F32)[None, :, :, None]
+    outs = []
+    for i in range(t):
+        kv = kf[:, :, i, :, None] * vf[:, :, i, None, :]  # (B, H, D, D)
+        outs.append(torch.einsum("bhd,bhde->bhe", rf[:, :, i], s + uf * kv))
+        s = wf[:, :, i, :, None] * s + kv
+    out = torch.stack(outs, dim=2) if outs else rf.new_zeros((b, h, 0, d))
+    return out.to(r.dtype), s
+
+
+def rwkv6_chunked(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    state0: torch.Tensor | None = None,
+    *,
+    chunk: int = 32,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunk-parallel form of ``rwkv6_scan`` (see
+    ``repro.kernels.ref.rwkv6_chunked``): within a chunk of ``chunk``
+    tokens, with ``W_t`` the running product of the decays,
+
+        A[t, s] = (r_t W_{t-1}) . (k_s / W_s)   for s < t
+        o_t     = tril(A, -1) v + (r_t u k_t) v_t + (r_t W_{t-1}) S_in
+        S_out   = diag(W_L) S_in + (k_s W_L / W_s)^T v
+
+    with the log-decay exponents clamped to +-40 (the reference's guard
+    against float32 overflow under extreme decays, which makes the result
+    inexact once a chunk's total decay falls below e^-40).  Falls back to
+    the sequential scan when ``T`` is not a multiple of ``chunk`` or is at
+    most one chunk, as the reference does."""
+    b, h, t, d = r.shape
+    if state0 is None:
+        state0 = torch.zeros((b, h, d, d), dtype=F32, device=r.device)
+    if t % chunk != 0 or t <= chunk:
+        return rwkv6_scan(r, k, v, w, u, state0)
+    nc = t // chunk
+    shp = (b, h, nc, chunk, d)
+    rc, kc, vc = (a.to(F32).reshape(shp) for a in (r, k, v))
+    lw = torch.log(torch.clamp(w.to(F32), min=1e-30)).reshape(shp)
+    cum = torch.cumsum(lw, dim=3)  # inclusive
+    cum_prev = cum - lw  # exclusive: W_{t-1}
+    total = cum[:, :, :, -1:, :]  # log W_L
+    clamp = 40.0
+    r_tilde = rc * torch.exp(torch.clamp(cum_prev, -clamp, clamp))
+    k_tilde = kc * torch.exp(torch.clamp(-cum, -clamp, clamp))
+    k_tail = kc * torch.exp(torch.clamp(total - cum, -clamp, clamp))
+    a_mat = torch.einsum("bhctd,bhcsd->bhcts", r_tilde, k_tilde)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=r.device), diagonal=-1)
+    a_mat = torch.where(mask, a_mat, 0.0)
+    o_intra = torch.einsum("bhcts,bhcsd->bhctd", a_mat, vc)
+    o_diag = torch.einsum("bhctd,bhctd->bhct", rc * u.to(F32)[None, :, None, None, :],
+                          kc)[..., None] * vc
+    s_add = torch.einsum("bhcsd,bhcse->bhcde", k_tail, vc)  # (B, H, nc, D, D)
+    w_chunk = torch.exp(total[:, :, :, 0, :])  # (B, H, nc, D)
+    s = state0.to(F32)
+    o_inter = []
+    for c in range(nc):
+        o_inter.append(torch.einsum("bhtd,bhde->bhte", r_tilde[:, :, c], s))
+        s = w_chunk[:, :, c, :, None] * s + s_add[:, :, c]
+    out = (o_intra + o_diag + torch.stack(o_inter, dim=2)).reshape(b, h, t, d)
+    return out.to(r.dtype), s

@@ -1,8 +1,9 @@
 """Serving launcher: batched generation with a smoke-scale config of a
-``dense`` or ``vlm`` architecture, on the card by default.
+``dense``, ``vlm`` or ``ssm`` architecture, on the card by default.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b --requests 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --device cpu
 
 The flags are the JAX launcher's (``repro.launch.serve``) plus
 ``--device``.  Weights, prompts and sampling come from seeded

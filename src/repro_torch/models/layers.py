@@ -36,26 +36,47 @@ def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
+# The RWKV-6 leaves (``repro.models.rwkv6.init_rwkv6``): a truncated normal
+# at a fixed scale, or a constant.
+TRUNC_SCALES = {"mu_base": 0.02, "mix_lora_a": 0.02, "mix_lora_b": 0.02, "decay_lora.a": 0.02,
+                "decay_lora.b": 0.02, "mu_k": 0.02, "mu_r": 0.02, "u_bonus": 0.1}
+CONSTANTS = {"bias": 0.0, "scale": 1.0, "decay_base": -6.0}
+
+
+def leaf_rule(name: str, shape) -> tuple[str, float]:
+    """``("normal", std)`` or ``("constant", value)``: the JAX package's
+    initialiser of the parameter ``name`` (a dotted path) by its leaf name:
+    ``kernel`` a normal truncated at 2 sigma scaled by 1/sqrt(d_in) (its
+    second-to-last axis), ``embedding`` the same at 0.02, ``bias`` zeros,
+    ``scale`` ones, and the RWKV-6 leaves of ``TRUNC_SCALES`` and
+    ``CONSTANTS``."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf == "kernel":
+        return "normal", 1.0 / math.sqrt(shape[-2])
+    if leaf == "embedding":
+        return "normal", 0.02
+    for key in (".".join(name.split(".")[-2:]), leaf):
+        if key in TRUNC_SCALES:
+            return "normal", TRUNC_SCALES[key]
+        if key in CONSTANTS:
+            return "constant", CONSTANTS[key]
+    raise ValueError(f"no initialiser for parameter {name!r}")
+
+
 @torch.no_grad()
 def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter of ``module`` in registration order with the
-    JAX package's initialisers, by leaf name: ``kernel`` a normal truncated
-    at 2 sigma scaled by 1/sqrt(d_in), ``embedding`` the same at 0.02,
-    ``bias`` zeros, ``scale`` ones.  (The draws are PyTorch's, not
+    JAX package's initialisers (``leaf_rule``), drawn in float32 and cast
+    to the parameter's type.  (The draws are PyTorch's, not
     ``jax.random``'s; tests carry weights across with numpy instead.)"""
     for name, p in module.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf in ("kernel", "embedding"):
-            std = 0.02 if leaf == "embedding" else 1.0 / math.sqrt(p.shape[0])
+        kind, val = leaf_rule(name, p.shape)
+        if kind == "constant":
+            p.fill_(val)
+        else:
             t = torch.empty(p.shape, dtype=F32, device=p.device)
             nn.init.trunc_normal_(t, a=-2.0, b=2.0, generator=generator)
-            p.copy_(t * std)
-        elif leaf == "bias":
-            p.zero_()
-        elif leaf == "scale":
-            p.fill_(1.0)
-        else:
-            raise ValueError(f"no initialiser for parameter {name!r}")
+            p.copy_(t * val)
     return module
 
 

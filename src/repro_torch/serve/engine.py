@@ -21,7 +21,7 @@ from repro_torch.utils.devices import resolve_device
 def build_prefill_step(cfg) -> Callable:
     """``prefill(model, tokens (B, T), max_len) -> (logits, state)``: a fresh
     decode state filled with the prompt's keys and values."""
-    T.check_family(cfg)
+    T.check_serving(cfg)
 
     @torch.inference_mode()
     def prefill(params, tokens, max_len: int):
@@ -33,7 +33,7 @@ def build_prefill_step(cfg) -> Callable:
 
 def build_decode_step(cfg) -> Callable:
     """``decode(model, tokens, state, pos) -> (logits, state)``."""
-    T.check_family(cfg)
+    T.check_serving(cfg)
 
     @torch.inference_mode()
     def decode(params, tokens, state, pos: int):
@@ -48,7 +48,7 @@ class ServeEngine:
 
     def __init__(self, cfg, params: T.Transformer, max_len: int = 256, *, device="cuda"):
         self.device = resolve_device(device)
-        T.check_family(cfg)
+        T.check_serving(cfg)
         if params.embed.embedding.device != self.device:
             raise ValueError(f"the model lies on {params.embed.embedding.device}, "
                              f"the engine on {self.device}")

@@ -15,7 +15,8 @@ would accumulate in the parameters' bf16).
 
 Not ported yet (ROADMAP.md): the audio family's loss and the moe family's
 aux-loss-free router-bias nudge come with those families, and
-``check_family`` raises for them.  ``gather_small_weights_once`` is a
+``check_training`` raises for them; it raises for the ``ssm`` family too,
+whose recurrence has no backward kernel.  ``gather_small_weights_once`` is a
 sharding constraint of the reference's FSDP mesh; on one device it is an
 identity.
 """
@@ -45,7 +46,7 @@ def build_train_step(
     warmup_steps: int = 100,
     gather_small_weights_once: bool = False,
 ) -> Callable:
-    T.check_family(cfg)
+    T.check_training(cfg)
 
     def grads_of(model, names, params, batch):
         loss, metrics = loss_fn(model, batch)

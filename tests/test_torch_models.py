@@ -18,6 +18,8 @@ Tolerances and their reasons:
   ``atol=2e-4, rtol=1e-3``);
 * greedy tokens: equal.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -238,25 +240,56 @@ def test_temperature_sampling_follows_its_generator():
     assert int(runs[0].max()) < cfg.padded_vocab
 
 
-@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def _leaves(tree) -> dict:
+    """``{dotted path: (shape, numpy dtype)}`` of a parameter tree."""
+    return {".".join(k.key for k in p): (tuple(l.shape), np.dtype(l.dtype))
+            for p, l in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS + ("rwkv6_7b",))
 def test_random_lm_tree_matches_jax_layout(arch):
     cfg, jcfg = smoke_config(arch), jsmoke(arch)
     want = jax.eval_shape(lambda: JT.init(jax.random.key(0), jcfg))
     got = convert.random_lm_tree(cfg, 0)
-    wpaths = {jax.tree_util.keystr(p): (l.shape, l.dtype)
-              for p, l in jax.tree_util.tree_flatten_with_path(want)[0]}
-    gpaths = {jax.tree_util.keystr(p): (l.shape, l.dtype)
-              for p, l in jax.tree_util.tree_flatten_with_path(got)[0]}
-    assert gpaths == wpaths
+    assert _leaves(got) == _leaves(want)
     # Deterministic in the seed.
-    again = convert.random_lm_tree(cfg, 0)["blocks"]["attn"]["wq"]["kernel"]
-    np.testing.assert_array_equal(again, got["blocks"]["attn"]["wq"]["kernel"])
+    leaf = ("time", "wr") if cfg.family == "ssm" else ("attn", "wq")
+    again = convert.random_lm_tree(cfg, 0)["blocks"][leaf[0]][leaf[1]]["kernel"]
+    np.testing.assert_array_equal(again, got["blocks"][leaf[0]][leaf[1]]["kernel"])
+    # In a bf16 model every leaf has the reference's type: bf16, except
+    # RWKV-6's decay_base and u_bonus, which stay float32, also after
+    # lm_params_from_numpy.
+    bcfg = dataclasses.replace(cfg, dtype="bfloat16")
+    bwant = _leaves(jax.eval_shape(
+        lambda: JT.init(jax.random.key(0), dataclasses.replace(jcfg, dtype="bfloat16"))))
+    types = {p: str(t).removeprefix("torch.") for p, (_, t) in convert.lm_tree_shapes(bcfg).items()}
+    assert types == {p: str(t) for p, (_, t) in bwant.items()}
+    f32 = {p for p, t in types.items() if t == "float32"}
+    assert f32 == ({"blocks.time.decay_base", "blocks.time.u_bonus"} if cfg.family == "ssm"
+                   else set())
+    model = convert.lm_params_from_numpy(got, bcfg, device="cpu")
+    assert {n.replace(".0.", ".", 1) for n, p in model.named_parameters()
+            if p.dtype == torch.float32 and n.startswith("blocks.0.")} == f32
 
 
 @pytest.mark.parametrize("arch", ["deepseek_v2_236b", "rwkv6_7b", "zamba2_2_7b",
                                   "whisper_large_v3"])
 def test_unported_families_raise(arch):
+    """Families the port cannot serve raise at construction; the ``ssm``
+    family serves but raises for training (``lm_loss``,
+    ``build_train_step``)."""
     cfg = smoke_config(arch)
+    if cfg.family == "ssm":
+        from repro_torch.optim import AdamWConfig
+        from repro_torch.train import build_train_step
+
+        model = T.init(cfg, device="cpu")
+        tok = torch.zeros((1, 4), dtype=torch.int64)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            T.lm_loss(model, tok, tok)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_train_step(cfg, AdamWConfig())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.init(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

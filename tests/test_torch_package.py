@@ -45,6 +45,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
     assert "repro_torch.serve.engine" in mods and "repro_torch.launch.serve" in mods
     assert "repro_torch.train.loop" in mods and "repro_torch.launch.train" in mods
     assert "repro_torch.power.integration" in mods and "repro_torch.optim.adamw" in mods
+    assert "repro_torch.models.rwkv6" in mods and "repro_torch.kernels.rwkv6_scan" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -79,6 +80,8 @@ def _no_cuda(monkeypatch):
         lambda: transformer.init(smoke_config("llama3_2_1b")),
         lambda: transformer.Transformer(smoke_config("chameleon_34b")),
         lambda: transformer.init_decode_state(smoke_config("llama3_2_1b"), 1, 8),
+        lambda: transformer.init(smoke_config("rwkv6_7b")),
+        lambda: transformer.init_decode_state(smoke_config("rwkv6_7b"), 1, 8),
         lambda: convert.lm_params_from_numpy({}, smoke_config("llama3_2_1b")),
         lambda: ServeEngine(smoke_config("llama3_2_1b"),
                             transformer.Transformer(smoke_config("llama3_2_1b"), device="cpu")),

@@ -33,30 +33,41 @@ import chip_smoke  # noqa: E402
 torch.set_num_threads(4)
 
 
-def _jax_params(tree, dtype):
-    """The tree as JAX arrays of ``dtype``, converting (and dropping) one
-    numpy leaf at a time to bound the peak memory."""
+def jax_params(tree, jcfg):
+    """``tree`` (numpy, float32) as JAX arrays of the types the JAX
+    package's ``init`` gives each leaf for ``jcfg`` (the config's dtype;
+    RWKV-6's ``decay_base`` and ``u_bonus`` stay float32), converting (and
+    dropping) one numpy leaf at a time to bound the peak memory."""
+    import jax
     import jax.numpy as jnp
 
-    out = {}
-    for k in list(tree):
-        v = tree.pop(k)
-        out[k] = _jax_params(v, dtype) if isinstance(v, dict) else jnp.asarray(v, dtype)
-    return out
+    from repro.models import transformer as JT
+
+    like = jax.eval_shape(lambda: JT.init(jax.random.key(0), jcfg))
+
+    def conv(node, want):
+        out = {}
+        for k in list(node):
+            v = node.pop(k)
+            out[k] = conv(v, want[k]) if isinstance(v, dict) else jnp.asarray(v, want[k].dtype)
+        return out
+
+    return conv(tree, like)
 
 
-def jax_serve_summary(jcfg, tree) -> dict:
+def jax_serve_summary(jcfg, tree, ref=chip_smoke.SERVE_REF) -> dict:
+    """``ref`` (``chip_smoke.SERVE_REF`` or ``RWKV_SERVE_REF``) through the
+    JAX package on the CPU with the weights ``tree``; ``serve_summary``."""
     import jax
     import jax.numpy as jnp
 
     from repro.models import transformer as JT
     from repro.serve import ServeEngine, build_decode_step, build_prefill_step
 
-    ref = chip_smoke.SERVE_REF
     t0, n = ref["prompt_len"], ref["gen_tokens"]
-    params = _jax_params(tree, jnp.dtype(jcfg.dtype))
+    params = jax_params(tree, jcfg)
     prompts = jnp.asarray(chip_smoke.serve_prompts(jcfg.vocab_size, ref["requests"], t0,
-                                                   chip_smoke.SERVE["prompt_seed"]))
+                                                   ref["prompt_seed"]))
     logits, _ = build_prefill_step(jcfg)(params, prompts, t0 + n)
     out = ServeEngine(jcfg, params, max_len=t0 + n).generate(prompts, n)
     # ServeEngine.generate's loop with its own tokens fed back: the logits
@@ -72,14 +83,14 @@ def jax_serve_summary(jcfg, tree) -> dict:
     steps = np.stack([np.asarray(s) for s in steps], axis=1)
     assert (steps.argmax(-1) == np.asarray(out)[:, t0:]).all()
     return chip_smoke.serve_summary(np.asarray(logits), np.asarray(out), steps,
-                                    np.asarray(out)[:, t0:])
+                                    np.asarray(out)[:, t0:], ref)
 
 
-def port_serve_summary(cfg, tree, fed, device="cpu") -> dict:
+def port_serve_summary(cfg, tree, fed, device="cpu", ref=chip_smoke.SERVE_REF) -> dict:
     from repro_torch import convert
 
     model = convert.lm_params_from_numpy(tree, cfg, device=device)
-    return chip_smoke.port_serve_reference(model, cfg, torch.device(device), fed)
+    return chip_smoke.port_serve_reference(model, cfg, torch.device(device), fed, ref)
 
 
 def test_serve_check_passes_on_cpu_at_smoke_width():

@@ -6,7 +6,7 @@
 Phases, each of which must pass (any failure raises and exits non-zero):
 
 1. Build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-   source, six sources, started together).
+   source, nine sources, started together).
 2. Kernel phases at the main path's shapes: ``pdu_health_sim`` on one
    controller interval of the 1024-rack campus (T = 1000, R = 1024, slew
    and wear fold) and ``admm_iterate`` on the campus controller QP
@@ -99,6 +99,34 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    ``JAX_RWKV_SERVE`` (recorded on the CPU by ``python
    tests/test_torch_rwkv6_serve_reference.py``) within ``RWKV_LOGIT_TOL``.
    It prints the prefill wall time and the generation's tokens/s.
+
+11. The kernel-level entry (``ops.lc_filter``, ``ops.pdu_sim``,
+   ``ops.gemm_burn``) at real sizes, each main-path call through ``ops``
+   launching its kernel exactly once: (a) lc_filter and pdu_sim at
+   ``benchmarks/kernel_benches.py``'s shapes (T = 60000, R = 128, the
+   prototype-rack filter, dt = 1 ms, zero corrective; pdu_sim unweighted,
+   with the (T, R) weight of 12 % degraded racks ramping down over 4 s, and
+   with a (R,) 0/1 weight); (b) both over the whole acceptance campus in
+   one launch (T = 17600, R = 1024, the campus ``make_pdu`` filter;
+   pdu_sim unweighted and with the (T, R) weight), and pdu_sim's grid and
+   SoC against the plain ``ess.simulate`` -> ``filters.simulate`` within
+   ``UNFUSED_TOL``; (c) gemm_burn at 512^3 float32 (n_iters 4, and the
+   n_iters 1 vs 8 value) and 4096^3 bfloat16 (n_iters 1, 4, 8; time(8) /
+   time(1) >= 5).  lc_filter and pdu_sim must equal their plain versions
+   bit for bit (grid, SoC, every final); gemm_burn must match its plain
+   version within tests/test_kernels.py's tolerances.  Each is timed
+   beside its plain version (one call) and gemm_burn beside n_iters x
+   ``torch.matmul``.
+12. Paper Fig. 11 through the port: ``titanx_testbench`` (300 s at 200 Hz)
+   -> ``burn.calibrate`` -> ``burn_schedule(beta=0.1)`` ->
+   ``pdu.condition(qp_iters=40)`` -> ``compare_energy``; pdu_health and
+   admm_step must launch once per controller interval (60),
+   ``burn_vs_easyrider_frac`` lie in [0.10, 0.30], the EasyRider overhead
+   in [-1e-3, 0.02] and the burn envelope's ramp within 0.1 (1 + 1e-3);
+   the same pipeline on ``scenario_from_testbench(titanx_spec(),
+   noise_seed=2)`` must match the JAX package's numbers (``JAX_FIG11``,
+   recorded on the CPU by ``python tests/test_torch_burn_reference.py``)
+   within ``FIG11_TOLERANCES``.  It times the closed-form burn envelope.
 
 With ``--profile DIR`` it also profiles one more campus run, prefill step,
 generation and training step, and rwkv6-7b prefill and generation
@@ -1077,6 +1105,129 @@ def port_serve_reference(model, cfg, dev, fed, ref: dict = SERVE_REF) -> dict:
     steps = decode_logits(model, cfg, prompts, torch.as_tensor(fed, device=dev), t0 + n)
     host = lambda t: t.cpu().numpy()
     return serve_summary(host(logits), host(out), host(steps), fed, ref)
+
+
+# Paper Fig. 11 (phase 12): the Titan-X testbench (300 s at 200 Hz) through
+# the burn baseline (calibration, burn schedule at beta = 0.1) and through
+# EasyRider (``pdu.condition``, qp_iters = 40), and the energy comparison.
+# The card's run draws the trace noise from a torch.Generator (seed 2) and
+# the calibration noise from another (seed 3), as examples/power_conditioning.py
+# does with jax.random keys; the comparison with the JAX package runs both
+# packages on the counter-hashed noise of ``scenario_from_testbench(
+# titanx_spec(), noise_seed=2)``, whose bits are the same in both.
+FIG11 = dict(beta=0.1, qp_iters=40, trace_seed=2, cal_seed=3, noise_seed=2, p_idle=0.06,
+             p_peak=1.0)
+FIG11_BANDS = dict(burn_vs_easyrider_frac=(0.10, 0.30), easyrider_overhead_frac=(-1e-3, 0.02))
+
+# The JAX package's numbers for the noise_seed=2 pipeline, on the CPU (jax
+# 0.9.0), printed by ``python tests/test_torch_burn_reference.py``.
+JAX_FIG11 = {
+    'rack_energy': 208.68409729003906,
+    'easyrider_energy': 210.5052947998047,
+    'burn_energy': 249.42127990722656,
+    'easyrider_overhead_frac': 0.008727055042982101,
+    'burn_overhead_frac': 0.195209801197052,
+    'burn_vs_easyrider_frac': 0.18486939370632172,
+    'schedule_overhead_frac': 0.1944669783115387,
+    'burn_max_ramp': 0.10000467300415039,
+    'grid_max_ramp': 0.051027536392211914,
+    'soc_last': 0.43629035353660583,
+    'cal_a': 0.9389286041259766,
+    'cal_b': 0.06043790653347969,
+}
+
+# Tolerances of the port against JAX_FIG11, with their reasons:
+# * energies (~130-200 s x P_RATED): float32 sums of 60000 samples in
+#   another order (~1e-6 relative), and the EasyRider grid follows the
+#   controller's commands (ADMM sums in another order): 1e-5 relative;
+# * the fractions are differences of those energies over them: 1e-4
+#   absolute (a 1e-5 relative error of either energy moves them by ~1e-5);
+# * the burn envelope's max ramp: the closed form in float64 against the
+#   reference's float32 max-scans, which round each step of a ramp (up to
+#   ~1640 steps of ~3e-8 in each pass, ~1e-4 in all), over dt = 5 ms:
+#   0.02 /s absolute;
+# * the conditioned grid's max ramp: as the campus's, 5e-5 /s absolute;
+# * the SoC at the end: 1e-4 absolute (the controller's commands);
+# * the calibration (a, b): the two packages draw different noise, 16 duty
+#   means of 32 samples of std 0.01 (each ~1.8e-3): 1e-2 absolute.  It
+#   changes none of the energies.
+FIG11_TOLERANCES = {
+    "rack_energy": ("rel", 1e-5),
+    "easyrider_energy": ("rel", 1e-5),
+    "burn_energy": ("rel", 1e-5),
+    "easyrider_overhead_frac": ("abs", 1e-4),
+    "burn_overhead_frac": ("abs", 1e-4),
+    "burn_vs_easyrider_frac": ("abs", 1e-4),
+    "schedule_overhead_frac": ("abs", 1e-4),
+    "burn_max_ramp": ("abs", 2e-2),
+    "grid_max_ramp": ("abs", 5e-5),
+    "soc_last": ("abs", 1e-4),
+    "cal_a": ("abs", 1e-2),
+    "cal_b": ("abs", 1e-2),
+}
+
+
+def fig11_summary(rack, dt, cal, *, device: str = "cuda") -> dict:
+    """Fig. 11 through the port: ``rack (T,)`` through the burn schedule
+    and through ``pdu.condition``; returns the energy comparison and the
+    checks' inputs as floats."""
+    from repro_torch.core import burn, compliance, pdu
+
+    f = FIG11
+    sched = burn.burn_schedule(rack, dt, beta=f["beta"], cal=cal)
+    cfg = pdu.make_pdu(sample_dt=dt, device=device)
+    st = pdu.init_state(cfg, rack[0])
+    gez, _, telem = pdu.condition(cfg, st, rack, qp_iters=f["qp_iters"])
+    nwarm = sched.conditioned.shape[0] - rack.shape[0]
+    soc_last = float(telem.soc[-1])
+    cmp = burn.compare_energy(rack, gez, sched.conditioned[nwarm:], dt, soc_delta=soc_last - 0.5,
+                              q_max_seconds=float(cfg.ess_params.q_max))
+    out = {k: float(v) for k, v in cmp.items()}
+    out.update(
+        schedule_overhead_frac=float(sched.energy_overhead_frac),
+        burn_max_ramp=float(compliance.max_abs_ramp(sched.conditioned, dt)),
+        grid_max_ramp=float(compliance.max_abs_ramp(gez, dt)),
+        soc_last=soc_last, cal_a=float(cal.a), cal_b=float(cal.b),
+    )
+    return out
+
+
+def port_fig11_reference(n_samples: int | None = None, *, device: str = "cuda") -> dict:
+    """``fig11_summary`` on the trace ``JAX_FIG11`` was recorded on (its
+    first ``n_samples``), with the calibration noise from a generator."""
+    import torch
+
+    from repro_torch.core import burn
+    from repro_torch.power import scenario as SC, trace
+
+    f = FIG11
+    rack, dt = SC.render_trace(trace.scenario_from_testbench(
+        trace.titanx_spec(), noise_seed=f["noise_seed"], device=device))
+    gen = torch.Generator(device=device).manual_seed(f["cal_seed"])
+    cal = burn.calibrate(gen, f["p_idle"], f["p_peak"], device=device)
+    return fig11_summary(rack[:n_samples], dt, cal, device=device)
+
+
+def check_fig11(got: dict) -> list[str]:
+    """Fig. 11's acceptance bands (tests/test_burn.py) and the burn
+    envelope's ramp limit; returns what fails."""
+    bad = [f"{k} {got[k]} outside [{lo}, {hi}]" for k, (lo, hi) in FIG11_BANDS.items()
+           if not lo <= got[k] <= hi]
+    if got["burn_max_ramp"] > FIG11["beta"] * (1 + 1e-3):
+        bad.append(f"burn envelope ramp {got['burn_max_ramp']} > {FIG11['beta']} (1 + 1e-3)")
+    return bad
+
+
+def compare_fig11(got: dict, want: dict) -> list[str]:
+    """``got`` against ``want`` within ``FIG11_TOLERANCES``; returns what
+    differs."""
+    bad = []
+    for k, (kind, tol) in FIG11_TOLERANCES.items():
+        g, w = got[k], want[k]
+        lim = tol * abs(w) if kind == "rel" else tol
+        if not abs(g - w) <= lim:
+            bad.append(f"{k}: {g} vs {w} (|diff| {abs(g - w):.3e} > {lim:.3e})")
+    return bad
 
 
 def _median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
@@ -2122,6 +2273,332 @@ def phase_rwkv_serve(dev, profile_dir: Path | None = None) -> dict:
             "generate_s": gen_s, "tokens_per_s": b * n / gen_s}
 
 
+# The kernel-level entry (phase 11): benchmarks/kernel_benches.py's shapes
+# (60 s x 128 racks at 1 kHz, the prototype-rack filter sized for beta =
+# 0.0625, zero corrective; 12 % of racks degraded with a 4 s wind-down ramp
+# for the (T, R) weight) and the whole acceptance campus in one launch.
+SIM_BENCH = dict(t=60_000, r=128, dt=1e-3, beta=0.0625, seed=0, degraded=0.12, ramp_s=4.0)
+PDU_KW = dict(beta=0.0625, dt=1e-3, q_max=40.0, eta_c=0.97, eta_d=0.97, p_max=1.0, soc_min=0.1,
+              soc_max=0.9)
+# gemm_burn: bench_gemm_burn's 512^3 float32 with n_iters = 4, and 4096^3
+# bfloat16 with n_iters 1, 4 and 8.
+GEMM_CASES = (("float32", 512, (4,)), ("bfloat16", 4096, (1, 4, 8)))
+UNFUSED_TOL = 2e-5  # tests/test_kernels.py: the fused path vs ess -> filters
+
+
+def _gemm_tol(dtype: str, k: int) -> dict:
+    """tests/test_kernels.py's gemm_burn tolerances (atol scales with K)."""
+    if dtype == "bfloat16":
+        return dict(rtol=3e-2, atol=0.5 * (k / 128))
+    return dict(rtol=1e-4, atol=2e-3 * (k / 128))
+
+
+def _event_ms(fn):
+    """``fn()``'s result and its device time in ms (CUDA events, one call):
+    for the plain versions, whose one call takes seconds."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _bitwise(a, b) -> bool:
+    import torch
+
+    if isinstance(a, (tuple, list)):
+        return all(_bitwise(x, y) for x, y in zip(a, b))
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def degraded_weight(t: int, r: int, dt: float, dev):
+    """``bench_pdu_sim_masked``'s availability weights: a (R,) 0/1 row
+    with SIM_BENCH's share of racks degraded, and the (T, R) series in
+    which those racks wind down linearly over SIM_BENCH's ramp."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SIM_BENCH["seed"] + 7)
+    row = (torch.rand(r, generator=gen, device=dev) > SIM_BENCH["degraded"]).to(torch.float32)
+    ramp = torch.clamp(torch.arange(t, dtype=torch.float32, device=dev)[:, None]
+                       / (SIM_BENCH["ramp_s"] / dt), 0.0, 1.0)
+    return (row[None, :] + (1.0 - row[None, :]) * (1.0 - ramp)).contiguous(), row
+
+
+def sim_bench_problem(dev):
+    """kernel_benches.py's lc_filter / pdu_sim problem on ``dev``: the
+    filter, the node trace for lc_filter, the rack trace, the initial
+    state and the (T, R) and (R,) weights."""
+    import torch
+
+    from repro_torch.core import filters, pdu, sizing
+
+    c = SIM_BENCH
+    rack = sizing.prototype_rack()
+    pp = pdu.per_unit_filter(sizing.size_system(rack, beta=c["beta"]), rack, device=dev)
+    filt = filters.make_discrete_filter(pp, c["dt"])
+    gen = torch.Generator(device=dev).manual_seed(c["seed"])
+    t, r = c["t"], c["r"]
+    node = 0.5 + 0.3 * torch.rand((t, r), generator=gen, device=dev)
+    u = 0.3 + 0.6 * torch.rand((t, r), generator=gen, device=dev)
+    x0 = filters.steady_state(filt, torch.tensor([1.0, 0.5], device=dev)).expand(r, 3).contiguous()
+    return (filt, node, u, x0) + degraded_weight(t, r, c["dt"], dev)
+
+
+def sim_campus_problem(dev):
+    """The whole acceptance campus (CAMPUS), rendered in one piece, its
+    ``make_pdu`` filter and hardware scalars, the initial state and a
+    (T, R) weight (SIM_BENCH's degraded share and ramp)."""
+    from repro_torch.core import pdu
+    from repro_torch.power import scenario as SC
+
+    c = CAMPUS
+    s = SC.mixed_campus(c["n_racks"], ARCHS, duration_s=c["duration_s"], sample_hz=c["sample_hz"],
+                        seed=c["seed"], fault_at_s=c["duration_s"] * 0.6,
+                        noise_seed=c["noise_seed"], device=dev)
+    rack, dt = SC.render_trace(s)
+    cfg = pdu.make_pdu(sample_dt=dt, device=dev)
+    st = pdu.init_state(cfg, rack[0])
+    return cfg, st, rack.contiguous(), degraded_weight(*rack.shape, dt, dev)[0]
+
+
+def _sim_bytes_ops(t, r, n_in, n_out, ops_per_sample, per_rack_floats) -> tuple[int, int]:
+    """Bytes moved once (``n_in`` (T, R) arrays read, ``n_out`` written,
+    ``per_rack_floats`` per rack) and float operations of a trace kernel."""
+    return 4 * ((n_in + n_out) * t * r + per_rack_floats * r), ops_per_sample * t * r
+
+
+# Float operations per rack-sample counted from the kernel sources (an FMA
+# counts 2): lc_filter grid 5 + three states 8 each; pdu_sim ESS filter 3,
+# battery power 4, SoC 7, window + back-off 8, node 1, weight 3 (ignored
+# when unweighted), and lc_filter's 29.
+LC_OPS, PDU_OPS = 29, 52
+
+
+def phase_sim_kernels(dev) -> dict:
+    """Phase 11: lc_filter, pdu_sim (three weight variants) and gemm_burn
+    through ``ops`` at the kernel benches' shapes and over the whole
+    campus, each main-path call counted, held against its plain version
+    (bitwise for the trace kernels) and timed beside it."""
+    import torch
+
+    from repro_torch.core import ess, filters, pdu
+    from repro_torch.kernels import gemm_burn, lc_filter, ops, pdu_sim
+
+    kern = {"lc_filter": lc_filter.lc_filter, "pdu_sim": pdu_sim.pdu_sim,
+            "gemm_burn": gemm_burn.gemm_burn}
+    launches = {}  # main-path launches by kernel entry
+
+    def main_call(name, fn, entry_name=None):
+        """One main-path call through ``ops``: it must launch ``name``
+        once and nothing else of this phase (counted under ``entry_name``)."""
+        for f in kern.values():
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: f.launches for k, f in kern.items()}
+        _check(got == {k: int(k == name) for k in kern},
+               f"{name}: one main-path call must launch it once, got {got}")
+        key = entry_name or name
+        launches[key] = launches.get(key, 0) + 1
+        return out
+
+    def kernel_lc(filt, node, x0):
+        lc = tuple(m.cpu().numpy() for m in (filt.ad, filt.bd, filt.c[0]))
+        out_k = main_call("lc_filter", lambda: ops.lc_filter(*lc, x0, node))
+        out_p, plain_ms = _event_ms(lambda: ops.lc_filter(*lc, x0, node, force="ref"))
+        _check(_bitwise(out_k, out_p), f"lc_filter {tuple(node.shape)}: kernel vs plain bitwise")
+        ms = _median_ms(lambda: ops.lc_filter(*lc, x0, node), reps=10)
+        t, r = node.shape
+        print(f"lc_filter   T={t} R={r}: bitwise vs plain; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.1f} ms")
+        return out_k, ms, plain_ms, _sim_bytes_ops(t, r, 1, 1, LC_OPS, 6)
+
+    def kernel_pdu(label, filt, rack, g0, soc0, x0, corr, w, kw):
+        lc = tuple(m.cpu().numpy() for m in (filt.ad, filt.bd, filt.c[0]))
+        args = (rack, g0, soc0, x0, *lc, corr)
+        variant = {None: "pdu_sim", 1: "pdu_sim_weight_row", 2: "pdu_sim_weight_series"}
+        out_k = main_call("pdu_sim", lambda: ops.pdu_sim(*args, ess_on=w, **kw),
+                          variant[None if w is None else w.ndim])
+        out_p, plain_ms = _event_ms(lambda: ops.pdu_sim(*args, ess_on=w, force="ref", **kw))
+        same = {n: _bitwise(a, b) for n, a, b in zip(("grid", "soc", "finals"), out_k, out_p)}
+        t, r = rack.shape
+        _check(all(same.values()), f"pdu_sim {label} T={t} R={r}: kernel vs plain bitwise {same}")
+        ms = _median_ms(lambda: ops.pdu_sim(*args, ess_on=w, **kw), reps=10)
+        n_hi = int((out_k[1] >= kw["soc_max"]).any(0).sum())
+        print(f"pdu_sim     {label:<13} T={t} R={r}: grid, SoC, finals bitwise vs plain; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.1f} ms; racks reaching soc_max {n_hi}")
+        n_in = 2 + (w is not None and w.ndim == 2)
+        per_rack = 10 + (w is not None and w.ndim == 1)
+        return out_k, ms, plain_ms, _sim_bytes_ops(t, r, n_in, 2, PDU_OPS, per_rack)
+
+    def entry(name, source, replaces, ms, plain_ms, bo, flop_per_s, library_ms=None, err=0.0,
+              **extra):
+        # err 0.0: the trace kernels were checked bitwise against their
+        # plain versions above.
+        return kernel_entry(name, source, replaces, err, ms, plain_ms, library_ms, bo[0], bo[1],
+                            flop_per_s, launches=launches.get(name, 0), **extra)
+
+    lc_src, lc_rep = "src/repro_torch/csrc/lc_filter.cu", "src/repro/kernels/lc_filter.py:63"
+    ps_src, ps_rep = "src/repro_torch/csrc/pdu_sim.cu", "src/repro/kernels/pdu_sim.py:109"
+    gb_src, gb_rep = "src/repro_torch/csrc/gemm_burn.cu", "src/repro/kernels/gemm_burn.py:44"
+
+    # (a) the kernel benches' shapes
+    filt, node, u, x0, w_series, w_row = sim_bench_problem(dev)
+    _, lc_b_ms, lc_b_plain, lc_b_bo = kernel_lc(filt, node, x0)
+    r = u.shape[1]
+    g0, soc0 = u[0].contiguous(), torch.full((r,), 0.5, device=dev)
+    corr = torch.zeros_like(u)
+    bench = {label: kernel_pdu(label, filt, u, g0, soc0, x0, corr, w, PDU_KW)[1:]
+             for label, w in (("unweighted", None), ("(T, R) weight", w_series),
+                              ("(R,) weight", w_row))}
+    del node, u, corr, w_series
+
+    # (b) the whole campus trace in one launch
+    cfg, st, rack, w_series = sim_campus_problem(dev)
+    filt, kw = st.filter_obj, pdu.hw_kwargs(cfg)
+    t, r = rack.shape
+    print(f"campus trace rendered whole: T={t} R={r}, {rack.numel() * 4 / 1e6:.1f} MB per (T, R) "
+          f"array")
+    _, lc_c_ms, lc_c_plain, lc_c_bo = kernel_lc(filt, rack, st.filter_state)
+    corr = torch.zeros_like(rack)
+    args = (filt, rack, st.ess_state.g_filter, st.ess_state.soc, st.filter_state, corr)
+    (grid, soc_t, _), ps_ms, ps_plain, ps_bo = kernel_pdu("unweighted", *args, None, kw)
+    _, pw_ms, pw_plain, pw_bo = kernel_pdu("(T, R) weight", *args, w_series, kw)
+    # The unfused physics the fused kernel is held to (float32 alpha there,
+    # the reference kernel's float64 alpha here: 1.2e-5 relative at dt = 5 ms).
+    t0 = time.perf_counter()
+    node_u, soc_u, _ = ess.simulate(cfg.ess_params, st.ess_state, rack, cfg.sample_dt)
+    y_u, _ = filters.simulate(filt, st.filter_state,
+                              torch.stack([torch.ones_like(node_u), node_u], dim=-1))
+    torch.cuda.synchronize()
+    unf = (_max_err(grid, y_u[..., 0]), _max_err(soc_t, soc_u))
+    print(f"pdu_sim     campus vs plain ess.simulate -> filters.simulate: max|diff| grid "
+          f"{unf[0]:.3e} SoC {unf[1]:.3e} (limit {UNFUSED_TOL}; {time.perf_counter() - t0:.1f} s)")
+    _check(max(unf) <= UNFUSED_TOL, "pdu_sim vs the unfused ess -> filters pipeline")
+    del rack, corr, w_series, grid, soc_t, node_u, soc_u, y_u
+
+    # (c) gemm_burn
+    gen = torch.Generator(device=dev).manual_seed(1)
+    gemm = {}
+    for dtype_name, n, iters in GEMM_CASES:
+        dtype = getattr(torch, dtype_name)
+        a = torch.randn((n, n), generator=gen, device=dev).to(dtype)
+        b = torch.randn((n, n), generator=gen, device=dev).to(dtype)
+        tol = _gemm_tol(dtype_name, n)
+        outs, times = {}, {}
+        for it in iters:
+            outs[it] = main_call("gemm_burn", lambda: ops.gemm_burn(a, b, it),
+                                 "gemm_burn" if dtype_name == "bfloat16" else "gemm_burn_f32")
+            want, plain_ms = _event_ms(lambda: ops.gemm_burn(a, b, it, force="ref"))
+            err = _max_err(outs[it], want)
+            ok = torch.allclose(outs[it].float(), want.float(), **tol)
+            _check(ok, f"gemm_burn {dtype_name} {n}^3 n_iters={it}: kernel vs plain ({err:.3e})")
+            ms = _median_ms(lambda: ops.gemm_burn(a, b, it), reps=5, warmup=1)
+            lib_ms = _median_ms(lambda: [torch.matmul(a, b) for _ in range(it)], reps=5, warmup=1)
+            times[it] = ms
+            flops = 2 * n ** 3 * it
+            print(f"gemm_burn   {dtype_name} {n}^3 n_iters={it}: max|kernel - plain| {err:.3e} "
+                  f"(within rtol {tol['rtol']}, atol {tol['atol']}); kernel {ms:.3f} ms "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, {it} x "
+                  f"torch.matmul {lib_ms:.3f} ms")
+            gemm[(dtype_name, it)] = (err, ms, plain_ms, lib_ms,
+                                      (a.element_size() * 3 * n * n, flops))
+        if len(iters) > 1:
+            lo, hi = min(iters), max(iters)
+            inv = _max_err(outs[lo], outs[hi])
+            _check(torch.allclose(outs[lo].float(), outs[hi].float(), **tol),
+                   f"gemm_burn n_iters {lo} vs {hi} value")
+            ratio = times[hi] / times[lo]
+            print(f"gemm_burn   {dtype_name} {n}^3: max|o{lo} - o{hi}| {inv:.3e}; time(n={hi}) / "
+                  f"time(n={lo}) = {ratio:.2f}")
+            _check(ratio >= 5, f"gemm_burn: the FLOP knob must be real (time ratio {ratio:.2f})")
+        else:
+            o1 = main_call("gemm_burn", lambda: ops.gemm_burn(a, b, 1), "gemm_burn_f32")
+            o8 = main_call("gemm_burn", lambda: ops.gemm_burn(a, b, 8), "gemm_burn_f32")
+            inv = _max_err(o1, o8)
+            print(f"gemm_burn   {dtype_name} {n}^3: max|o1 - o8| {inv:.3e}")
+            _check(torch.allclose(o1, o8, rtol=1e-4, atol=1e-4), "gemm_burn o1 vs o8 (f32)")
+
+    gb32, gb16 = gemm[("float32", 4)], gemm[("bfloat16", 4)]
+    return {
+        "lc_filter": entry(
+            "lc_filter", lc_src, lc_rep, lc_c_ms, lc_c_plain, lc_c_bo, FP32_FLOP_PER_S,
+            shape=[t, r], bench_shape=[SIM_BENCH["t"], SIM_BENCH["r"]],
+            bench_ms=lc_b_ms, bench_plain_ms=lc_b_plain,
+            bench_bound_ms=lc_b_bo[0] / HBM_BYTES_PER_S * 1e3),
+        "pdu_sim": entry(
+            "pdu_sim", ps_src, ps_rep, ps_ms, ps_plain, ps_bo, FP32_FLOP_PER_S, shape=[t, r],
+            variant="unweighted", bench_ms=bench["unweighted"][0],
+            bench_plain_ms=bench["unweighted"][1],
+            bench_bound_ms=bench["unweighted"][2][0] / HBM_BYTES_PER_S * 1e3),
+        "pdu_sim_weight_series": entry(
+            "pdu_sim_weight_series", ps_src, ps_rep, pw_ms, pw_plain, pw_bo, FP32_FLOP_PER_S,
+            shape=[t, r], variant="(T, R) weight",
+            bench_ms=bench["(T, R) weight"][0], bench_plain_ms=bench["(T, R) weight"][1],
+            bench_bound_ms=bench["(T, R) weight"][2][0] / HBM_BYTES_PER_S * 1e3),
+        "pdu_sim_weight_row": entry(
+            "pdu_sim_weight_row", ps_src, ps_rep, bench["(R,) weight"][0],
+            bench["(R,) weight"][1], bench["(R,) weight"][2], FP32_FLOP_PER_S,
+            shape=[SIM_BENCH["t"], SIM_BENCH["r"]], variant="(R,) weight"),
+        "gemm_burn": entry(
+            "gemm_burn", gb_src, gb_rep, gb16[1], gb16[2], gb16[4], BF16_FLOP_PER_S,
+            library_ms=gb16[3], err=gb16[0], shape=[4096, 4096, 4096], dtype="bfloat16", n_iters=4,
+            n_iters_ms={str(it): gemm[("bfloat16", it)][1] for it in (1, 4, 8)}),
+        "gemm_burn_f32": entry(
+            "gemm_burn_f32", gb_src, gb_rep, gb32[1], gb32[2], gb32[4], FP32_FLOP_PER_S,
+            library_ms=gb32[3], err=gb32[0], shape=[512, 512, 512], dtype="float32", n_iters=4),
+    }
+
+
+def phase_fig11(dev) -> dict:
+    """Phase 12: paper Fig. 11 through the port (examples/power_conditioning.py
+    ``fig11``), its checks, and the same pipeline on the counter-hashed
+    noise against ``JAX_FIG11``."""
+    import torch
+
+    from repro_torch.core import burn
+    from repro_torch.kernels import admm_step, pdu_health
+    from repro_torch.power import trace
+
+    f = FIG11
+    gen = torch.Generator(device=dev).manual_seed(f["trace_seed"])
+    rack, dt = trace.titanx_testbench(gen, device=dev)
+    cal = burn.calibrate(torch.Generator(device=dev).manual_seed(f["cal_seed"]), f["p_idle"],
+                         f["p_peak"], device=dev)
+    pdu_health.pdu_health_sim.launches = 0
+    admm_step.admm_iterate.launches = 0
+    t0 = time.perf_counter()
+    got = fig11_summary(rack, dt, cal, device=dev)
+    wall = time.perf_counter() - t0
+    counts = (pdu_health.pdu_health_sim.launches, admm_step.admm_iterate.launches)
+    n_ctrl = rack.shape[0] // int(round(5.0 / dt))
+    print(f"fig11 titanx_testbench {rack.shape[0]} samples: {wall:.3f} s wall, launches "
+          f"pdu_health={counts[0]} admm_step={counts[1]}")
+    print("fig11: " + json.dumps(got))
+    print(f"[Fig 11] software burn uses {got['burn_vs_easyrider_frac'] * 100:.1f}% more energy "
+          f"than rack+EasyRider (paper: 19%)")
+    _check(counts == (n_ctrl, n_ctrl),
+           f"fig11: each kernel must launch {n_ctrl} times, got {counts}")
+    bad = check_fig11(got)
+    _check(not bad, "fig11: " + "; ".join(bad))
+    n_warm = int(round(30.0 / dt))
+    full = torch.cat([torch.full((n_warm,), 0.1, device=dev), rack])
+    env_ms = _median_ms(lambda: burn.ramp_compliant_envelope(full, dt, f["beta"]), reps=10)
+    print(f"fig11 ramp_compliant_envelope over {full.shape[0]} samples (closed form): "
+          f"{env_ms:.4f} ms")
+
+    got2 = port_fig11_reference(device=dev)
+    print("fig11 vs JAX: " + json.dumps({k: [got2[k], JAX_FIG11[k]] for k in got2}))
+    bad = check_fig11(got2) + compare_fig11(got2, JAX_FIG11)
+    _check(not bad, "fig11 differs from the JAX package: " + "; ".join(bad))
+    return {"counts": counts, "envelope_ms": env_ms, "wall_s": wall,
+            "burn_vs_easyrider_frac": got["burn_vs_easyrider_frac"]}
+
+
 def phase_quickstart(dev) -> None:
     """The quickstart flow through the port (a single rack: the kernels run
     one column)."""
@@ -2277,11 +2754,18 @@ def main() -> int:
         pre, gen = rwkv["prefill"][name], rwkv["generate"][name]
         kernels[name].update(launches=(kernels[name]["launches"] or 0) + pre + gen,
                              launches_rwkv_prefill=pre, launches_rwkv_generate=gen)
+    torch.cuda.empty_cache()
+    kernels.update(phase_sim_kernels(dev))
+    fig11 = phase_fig11(dev)
+    for name, n in zip(("pdu_health", "admm_step"), fig11["counts"]):
+        kernels[name]["launches_fig11"] = n
     print(json.dumps({"serve": {k: serve[k] for k in ("prefill_s", "generate_s", "tokens_per_s")},
                       "train": {k: trained[k] for k in ("step_s", "tokens_per_s", "train_mfu",
                                                          "peak_gb")},
                       "rwkv_serve": {k: rwkv[k] for k in ("prefill_s", "generate_s",
-                                                          "tokens_per_s")}}))
+                                                          "tokens_per_s")},
+                      "fig11": {k: fig11[k] for k in ("wall_s", "envelope_ms",
+                                                      "burn_vs_easyrider_frac")}}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

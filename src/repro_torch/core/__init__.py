@@ -1,2 +1,2 @@
 """EasyRider core: PDU (filter + ESS + controller), battery health, fleet
-engines and grid compliance, in PyTorch."""
+engines, grid compliance and the software-burn baseline, in PyTorch."""

@@ -7,7 +7,9 @@ observable ``i_L + i_D``.  The continuous matrices are built in float64
 numpy and discretized exactly under a zero-order hold with
 ``scipy.linalg.expm`` of the augmented matrix, then rounded to float32 —
 the same host computation as the reference, so ``Ad``/``Bd``/``C`` are
-bit-identical to it.
+bit-identical to it.  ``simulate`` runs the general state-space recurrence
+step by step (the physics the ``lc_filter`` and ``pdu_sim`` kernels are
+held to); the transfer functions evaluate the continuous circuit.
 """
 from __future__ import annotations
 
@@ -94,3 +96,41 @@ def steady_state(filt: DiscreteFilter, u: torch.Tensor) -> torch.Tensor:
     rhs = (u @ filt.bd.T)[..., None]  # (..., n, 1)
     lhs = (eye - filt.ad).expand(rhs.shape[:-2] + (n, n))
     return torch.linalg.solve(lhs, rhs)[..., 0]
+
+
+def simulate(
+    filt: DiscreteFilter, x0: torch.Tensor, u: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run the filter over inputs ``u (T, ..., m)`` from ``x0 (..., n)``
+    (leading dimensions broadcast over racks): ``y_t = x_t C^T``,
+    ``x_{t+1} = x_t Ad^T + u_t Bd^T``.  Returns ``(y (T, ..., p), x_final
+    (..., n))``."""
+    ad_t, bd_t, c_t = filt.ad.T, filt.bd.T, filt.c.T
+    x = x0
+    y = torch.empty((u.shape[0],) + torch.broadcast_shapes(x0.shape[:-1], u.shape[1:-1])
+                    + (c_t.shape[1],), dtype=x0.dtype, device=x0.device)
+    for t in range(u.shape[0]):
+        y[t] = x @ c_t
+        x = x @ ad_t + u[t] @ bd_t
+    return y, x
+
+
+def transfer_function_rack_to_grid(p: LCFilterParams, f_hz: torch.Tensor) -> torch.Tensor:
+    """``|H(j 2 pi f)|`` from rack (node) current to grid current with
+    ``v_in`` held fixed: ``H = Z_C / (Z_C + Z_series)``, ``Z_C = 1/(s C_F)``,
+    ``Z_series = s L_F || (R_Da + s L_Da)``."""
+    s = 2j * np.pi * f_hz
+    z_c = 1.0 / (s * p.c_f)
+    z_lf = s * p.l_f
+    z_d = p.r_da + s * p.l_da
+    z_series = z_lf * z_d / (z_lf + z_d)
+    return torch.abs(z_c / (z_c + z_series))
+
+
+def resonance_peak_db(p: LCFilterParams, n_points: int = 2048) -> torch.Tensor:
+    """Worst-case magnification (dB) of the damped filter over 1/30 to 30
+    times its cutoff, on ``n_points`` log-spaced frequencies."""
+    f0 = p.cutoff_hz()
+    f = 10.0 ** torch.linspace(float(torch.log10(f0 / 30.0)), float(torch.log10(f0 * 30.0)),
+                               n_points, dtype=torch.float32, device=f0.device)
+    return 20.0 * torch.log10(torch.max(transfer_function_rack_to_grid(p, f)))

@@ -341,3 +341,9 @@ def condition_campus(
         max_qp_residual=torch.amax(telem.qp_residual),
         health=hsnap,
     )
+
+
+def combined_transfer_function(cfg: PDUConfig, f_hz: torch.Tensor) -> torch.Tensor:
+    """``|H_total| = |H_ESS| |H_LC|`` from rack to grid current (paper Fig. 7)."""
+    return ess.transfer_function(cfg.ess_params, f_hz) * filters.transfer_function_rack_to_grid(
+        cfg.filter_params, f_hz)

@@ -22,11 +22,15 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# Per-kernel flags.  pdu_health pins rounding (-fmad=false; the fused
-# multiply-adds it needs are explicit __fmaf_rn), so it matches its plain
-# version bit for bit; the others keep nvcc's FP32 FMA contraction.
+# Per-kernel flags.  The hardware-path kernels (pdu_health, lc_filter,
+# pdu_sim) pin rounding (-fmad=false; the fused multiply-adds they need are
+# explicit __fmaf_rn), so each matches its plain version bit for bit; the
+# others keep nvcc's FP32 FMA contraction.
 SOURCES = {
     "pdu_health": ("pdu_health.cu", ["-fmad=false"]),
+    "lc_filter": ("lc_filter.cu", ["-fmad=false"]),
+    "pdu_sim": ("pdu_sim.cu", ["-fmad=false"]),
+    "gemm_burn": ("gemm_burn.cu", []),
     "admm_step": ("admm_step.cu", []),
     "rmsnorm": ("rmsnorm.cu", []),
     "flash_attention": ("flash_attention.cu", []),

@@ -18,6 +18,15 @@ whose backward runs on the card too (the flash-attention backward
 kernels; the plain rmsnorm gradient, as the reference has no rmsnorm
 backward kernel).  ``rwkv6_scan`` is differentiable only through its
 plain versions: the reference's kernel route has no gradient either.
+
+The kernel-level entry of the hardware path and the burn baseline:
+``lc_filter`` (the LC filter over a trace), ``pdu_sim`` (the fused ESS +
+SoC + LC path over a trace, unweighted or with an ``(R,)`` or ``(T, R)``
+ESS availability weight) and ``gemm_burn`` (the burn GEMM with a FLOP
+knob).  None of the three is differentiable on the kernel route (the
+reference's kernels have no ``custom_vjp`` either): on the card they raise
+under a recording autograd graph, as ``rwkv6_scan`` does; their plain
+versions are ordinary PyTorch code.
 """
 from __future__ import annotations
 
@@ -27,8 +36,8 @@ import contextvars
 import torch
 
 from repro_torch.kernels import (
-    admm_step as _ad, flash_attention as _fa, pdu_health as _ph, ref as _ref, rmsnorm as _rn,
-    rwkv6_scan as _rw,
+    admm_step as _ad, flash_attention as _fa, gemm_burn as _gb, lc_filter as _lc, pdu_health as _ph,
+    pdu_sim as _ps, ref as _ref, rmsnorm as _rn, rwkv6_scan as _rw,
 )
 
 _FORCED: contextvars.ContextVar[str | None] = contextvars.ContextVar("force", default=None)
@@ -160,3 +169,49 @@ def rwkv6_scan(r, k, v, w, u, state0=None, *, force=None, algorithm="auto"):
     if algorithm == "auto" and t > 32 and t % 32 == 0:
         return _ref.rwkv6_chunked(r, k, v, w, u, state0, chunk=32)
     return _ref.rwkv6_scan(r, k, v, w, u, state0)
+
+
+def _no_graph(name: str, *ts) -> None:
+    if _records_graph(*(t for t in ts if isinstance(t, torch.Tensor))):
+        raise NotImplementedError(
+            f"{name} has no backward kernel (nor has the reference's kernel route)")
+
+
+def lc_filter(ad, bd, c_row, x0, node_power, *, force=None):
+    """The LC filter with ``v_in = 1`` over ``node_power (T, R)`` from ``x0
+    (R, 3)``; returns ``(grid (T, R), x_final (R, 3))`` float32 (see
+    ``ref.lc_filter``).  The filter matrices may be tensors or host
+    arrays."""
+    if not _use_kernel(node_power, force):
+        return _ref.lc_filter(ad, bd, c_row, x0, node_power)
+    _no_graph("lc_filter", x0, node_power)
+    f32 = lambda t: t.to(torch.float32).contiguous()
+    return _lc.lc_filter(ad, bd, c_row, f32(x0), f32(node_power))
+
+
+def pdu_sim(rack_power, g0, soc0, x0, ad, bd, c_row, corrective=0.0, *, force=None,
+            ess_on=None, **kw):
+    """The fused hardware path (ESS ramp filter, SoC, LC filter) over
+    ``rack_power (T, R)``; ``corrective`` a scalar or ``(T, R)``, ``ess_on``
+    None, an ``(R,)`` or a ``(T, R)`` availability weight; ``kw`` the
+    hardware scalars (``beta, dt, q_max, eta_c, eta_d, p_max, soc_min,
+    soc_max``).  Returns ``(grid, soc, (g_f, soc_f, x_f))`` float32 (see
+    ``ref.pdu_sim``)."""
+    if not _use_kernel(rack_power, force):
+        return _ref.pdu_sim(rack_power, g0, soc0, x0, ad, bd, c_row, corrective,
+                            ess_on=ess_on, **kw)
+    _no_graph("pdu_sim", rack_power, g0, soc0, x0, corrective, ess_on)
+    f32 = lambda t: t if t is None else t.to(torch.float32).contiguous()
+    corr = torch.as_tensor(corrective, dtype=torch.float32, device=rack_power.device)
+    return _ps.pdu_sim(f32(rack_power), f32(g0), f32(soc0), f32(x0), ad, bd, c_row,
+                       f32(corr.expand(rack_power.shape)), ess_on=f32(ess_on), **kw)
+
+
+def gemm_burn(a, b, n_iters: int = 1, *, force=None):
+    """The burn GEMM: the mean of ``n_iters`` float32-accumulated products
+    ``a @ b`` in ``a``'s type (see ``ref.gemm_burn``).  ``n_iters`` scales
+    the work, not the value."""
+    if not _use_kernel(a, force):
+        return _ref.gemm_burn(a, b, n_iters)
+    _no_graph("gemm_burn", a, b)
+    return _gb.gemm_burn(a.contiguous(), b.contiguous(), n_iters)

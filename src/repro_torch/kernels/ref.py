@@ -32,9 +32,18 @@ F32 = torch.float32
 def fma(a, b, c) -> torch.Tensor:
     """``round_f32(a * b + c)`` with one rounding (see module docstring).
     Operands are float32 (or their exact float64 copies) tensors or Python
-    floats holding float32 values."""
+    floats holding float32 values.  The float64 product is exact, so one
+    ``add``/``addcmul`` of the widened operands rounds only the sum: one
+    launch instead of two where it matters (the plain versions run one small
+    op per step and rack batch, thousands of steps per call)."""
     d = lambda v: v.to(torch.float64) if isinstance(v, torch.Tensor) else float(v)
-    return (d(a) * d(b) + d(c)).to(F32)
+    a, b, c = d(a), d(b), d(c)
+    if isinstance(c, torch.Tensor):
+        if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+            return torch.addcmul(c, a, b).to(F32)
+        t, k = (a, b) if isinstance(a, torch.Tensor) else (b, a)
+        return torch.add(c, t, alpha=k).to(F32)
+    return (a * b + c).to(F32)
 
 
 def _f(v) -> float:
@@ -119,6 +128,33 @@ def pow_depth(depth: torch.Tensor, kappa: float) -> torch.Tensor:
     return torch.pow(depth, kappa)
 
 
+def lc_columns(lc, device) -> tuple:
+    """``lc_consts``' tuple as the columns ``lc_step`` takes: the three rows
+    of the state update stacked, float64 where they feed a fused
+    multiply-add, float32 where they feed a plain multiply or add."""
+    a, bl, bv, c = lc
+    col = lambda v, dt: torch.tensor(v, dtype=dt, device=device)[:, None]
+    f64 = torch.float64
+    return (col(a[0::3], f64), col(a[1::3], F32), col(a[2::3], f64), col(bl, f64), col(bv, F32),
+            c)
+
+
+def lc_step(cols, x: torch.Tensor, node: torch.Tensor):
+    """One step of the 3-state LC filter with ``v_in = 1`` for a rack batch:
+    the grid current ``y = c . x`` and the next state ``x' = A x + b_load
+    node + b_vin``, in the order and with the fused multiply-adds the
+    reference's compiled kernels use (shared by ``pdu_health_sim``,
+    ``pdu_sim`` and ``lc_filter``; the CUDA kernels write the same tree
+    with ``__fmaf_rn``).  ``cols`` is ``lc_columns``' tuple, ``x`` the
+    ``(3, R)`` float32 state (the three rows update at once).  Returns
+    ``(y (R,), x' (3, R))``."""
+    a0, a1, a2, bl, bv, c = cols
+    x64 = x.to(torch.float64)
+    y = fma(c[2], x64[2], fma(c[0], x64[0], c[1] * x[1]))
+    nxt = fma(bl, node.to(torch.float64), fma(a2, x64[2], fma(a0, x64[0], a1 * x[1]))) + bv
+    return y, nxt
+
+
 # ------------------------------------------------------------- pdu_health_sim
 
 
@@ -156,10 +192,9 @@ def pdu_health_sim(
         beta=beta, dt=dt, q_max=q_max, eta_c=eta_c, eta_d=eta_d,
         p_max=p_max, soc_min=soc_min, soc_max=soc_max,
     )
-    a, bl, bv, c = lc_consts(ad, bd, c_row)
     t_len, r = rack_power.shape
     rack_power = rack_power.to(F32)
-    f64 = torch.float64
+    lc = lc_columns(lc_consts(ad, bd, c_row), rack_power.device)
     if slew is not None:
         applied = slew[0].to(F32).expand(r)
         diff = slew[1].to(F32).expand(r) - applied
@@ -175,7 +210,7 @@ def pdu_health_sim(
     grid = torch.empty_like(rack_power)
     soc_t = torch.empty_like(rack_power)
     g, soc = g0.to(F32).expand(r), soc0.to(F32).expand(r)
-    s0, s1, s2 = (x0[:, i].to(F32) for i in range(3))
+    x = x0.to(F32).T
     if health is not None:
         c0, c1, eps, kappa = health_step_consts(health[0])
         prev, last_ext, dirn, half, dmg, mdod = (
@@ -193,13 +228,8 @@ def pdu_health_sim(
         over_lo = torch.clamp(k.soc_min - soc_new, min=0.0)
         p = fma(over_lo, k.bo_lo, fma(-over_hi, k.bo_hi, p))
         soc_new = torch.clamp(soc_new, k.soc_min, k.soc_max)
-        node = (r_t + p).to(f64)
-        d0, d2 = s0.to(f64), s2.to(f64)
-        grid[t] = fma(c[2], d2, fma(c[0], d0, c[1] * s1))
+        grid[t], x = lc_step(lc, x, r_t + p)
         soc_t[t] = soc_new
-        n0 = fma(bl[0], node, fma(a[2], d2, fma(a[0], d0, a[1] * s1))) + bv[0]
-        n1 = fma(bl[1], node, fma(a[5], d2, fma(a[3], d0, a[4] * s1))) + bv[1]
-        n2 = fma(bl[2], node, fma(a[8], d2, fma(a[6], d0, a[7] * s1))) + bv[2]
         if health is not None:
             delta = soc_new - prev
             sd = torch.where(delta > eps, 1.0, torch.where(delta < -eps, -1.0, 0.0))
@@ -213,8 +243,8 @@ def pdu_health_sim(
             dirn = torch.where(sd != 0.0, sd, dirn)
             half = half + revf
             prev = soc_new
-        g, soc, s0, s1, s2 = g_new, soc_new, n0, n1, n2
-    finals = (g, soc, torch.stack([s0, s1, s2], dim=-1))
+        g, soc = g_new, soc_new
+    finals = (g, soc, x.T.contiguous())
     if health is None:
         return grid, soc_t, finals, None
     return grid, soc_t, finals, (prev, last_ext, dirn, half, dmg, mdod) + block_sums(
@@ -243,6 +273,123 @@ def block_sums(soc_t: torch.Tensor, state) -> tuple:
         state[9] + torch.sum(soc_t * soc_t, dim=0),
         state[10].expand(r) + t_len,
     )
+
+
+# ------------------------------------------------------------------ lc_filter
+
+
+def lc_filter(ad, bd, c_row, x0: torch.Tensor, node_power: torch.Tensor):
+    """The 3-state LC filter over a trace with ``v_in = 1`` (see
+    ``repro.kernels.ref.lc_filter``): ``y_t = c . x_t``, ``x_{t+1} = A x_t
+    + b_load u_t + b_vin``, in the expression order of the reference's
+    Pallas kernel (``lc_step``).  ``x0 (R, 3)``, ``node_power (T, R)``,
+    both read as float32; ``ad``, ``bd``, ``c_row`` tensors or host
+    arrays.  Returns ``(grid (T, R), x_final (R, 3))``, float32."""
+    u = node_power.to(F32)
+    lc = lc_columns(lc_consts(ad, bd, c_row), u.device)
+    grid = torch.empty_like(u)
+    x = x0.to(F32).T
+    for t in range(u.shape[0]):
+        grid[t], x = lc_step(lc, x, u[t])
+    return grid, x.T.contiguous()
+
+
+# -------------------------------------------------------------------- pdu_sim
+
+
+def pdu_sim_consts(**kw) -> HwConsts:
+    """``hw_consts`` with the ramp-filter gain the reference's ``pdu_sim``
+    kernel bakes in: ``1 - exp(-beta dt)`` evaluated in float64 on the host
+    and rounded once to float32.  (Its jnp oracle and the unfused
+    ``ess.simulate`` evaluate it in float32, ``hw_consts.alpha``: at beta =
+    0.0625, dt = 1e-3 the two differ by 4.4e-4 relative.)  The CUDA kernel
+    and this plain version take this one value."""
+    k = hw_consts(**kw)
+    return dataclasses.replace(k, alpha=_f(1.0 - math.exp(-kw["beta"] * kw["dt"])))
+
+
+def pdu_sim(
+    rack_power: torch.Tensor,  # (T, R)
+    g0: torch.Tensor,  # (R,) ESS filter state
+    soc0: torch.Tensor,  # (R,)
+    x0: torch.Tensor,  # (R, 3) LC filter state
+    ad,
+    bd,
+    c_row,
+    corrective: torch.Tensor | float = 0.0,  # scalar or (T, R)
+    *,
+    beta: float,
+    dt: float,
+    q_max: float,
+    eta_c: float,
+    eta_d: float,
+    p_max: float,
+    soc_min: float,
+    soc_max: float,
+    ess_on: torch.Tensor | None = None,  # (R,) or (T, R) availability weight
+):
+    """The fused hardware path of one trace (see ``repro.kernels.ref.
+    pdu_sim`` and its Pallas kernel ``repro.kernels.pdu_sim``): ESS ramp
+    filter, battery power, SoC integration with the window clamp and its
+    power back-off, and the LC filter, per rack, time sequential.
+
+    ``ess_on`` is an availability weight in [0, 1], a ``(R,)`` row or a
+    ``(T, R)`` series: where ``w > 0`` the filter steps and the battery
+    delivers ``p w``; where ``w == 0`` the filter tracks the rack (``g =
+    r``), the battery delivers nothing and the SoC is frozen.  Rounding
+    follows the reference's kernel (``pdu_sim_consts``' float64 alpha; the
+    fused multiply-adds of ``pdu_health_sim``).  Returns ``(grid (T, R),
+    soc (T, R), (g_f, soc_f, x_f))``, float32."""
+    k = pdu_sim_consts(beta=beta, dt=dt, q_max=q_max, eta_c=eta_c, eta_d=eta_d,
+                       p_max=p_max, soc_min=soc_min, soc_max=soc_max)
+    rack_power = rack_power.to(F32)
+    t_len, r = rack_power.shape
+    dev = rack_power.device
+    lc = lc_columns(lc_consts(ad, bd, c_row), dev)
+    corr = torch.as_tensor(corrective, dtype=F32, device=dev).expand(t_len, r)
+    w_all = None if ess_on is None else ess_on.to(F32).expand(t_len, r)
+    grid = torch.empty_like(rack_power)
+    soc_t = torch.empty_like(rack_power)
+    g, soc = g0.to(F32).expand(r), soc0.to(F32).expand(r)
+    x = x0.to(F32).T
+    for t in range(t_len):
+        r_t = rack_power[t]
+        g_new = fma(k.alpha, r_t - g, g)
+        if w_all is not None:
+            w_t = w_all[t]
+            on = w_t > 0
+            g_new = torch.where(on, g_new, r_t)
+        p = torch.clamp(g_new - r_t + corr[t], -k.p_max, k.p_max)
+        if w_all is not None:
+            p = p * w_t
+        charge = torch.clamp(p, min=0.0)
+        discharge = torch.clamp(-p, min=0.0)
+        soc_new = fma(k.k_soc, fma(k.eta_c, charge, -(discharge * k.inv_eta_d)), soc)
+        over_hi = torch.clamp(soc_new - k.soc_max, min=0.0)
+        over_lo = torch.clamp(k.soc_min - soc_new, min=0.0)
+        p = fma(over_lo, k.bo_lo, fma(-over_hi, k.bo_hi, p))
+        soc_new = torch.clamp(soc_new, k.soc_min, k.soc_max)
+        if w_all is not None:
+            soc_new = torch.where(on, soc_new, soc)
+        grid[t], x = lc_step(lc, x, r_t + p)
+        soc_t[t] = soc_new
+        g, soc = g_new, soc_new
+    return grid, soc_t, (g, soc, x.T.contiguous())
+
+
+# ------------------------------------------------------------------ gemm_burn
+
+
+def gemm_burn(a: torch.Tensor, b: torch.Tensor, n_iters: int = 1) -> torch.Tensor:
+    """The burn kernel's function (see ``repro.kernels.ref.gemm_burn``): the
+    mean of ``n_iters`` float32 products ``A @ B`` of the widened operands,
+    cast to ``a``'s type.  Its value is ``A @ B``; ``n_iters`` only scales
+    the work."""
+    af, bf = a.to(F32), b.to(F32)
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=F32, device=a.device)
+    for _ in range(n_iters):
+        acc = acc + af @ bf
+    return (acc / n_iters).to(a.dtype)
 
 
 # -------------------------------------------------------------- admm_iterate

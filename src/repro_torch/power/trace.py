@@ -90,3 +90,63 @@ def testbench_trace(
         noise = torch.randn(p.shape, generator=generator, device=dev, dtype=torch.float32)
         p = torch.clamp(p + spec.noise_std * noise, 0.0, 1.0)
     return p, dt
+
+
+def choukse_spec() -> TestbenchSpec:
+    """The default evaluation trace's spec (paper Fig. 3/9): 240 s at
+    1 kHz, job end at 210 s."""
+    return TestbenchSpec(duration_s=240.0, terminate_at_s=210.0)
+
+
+def choukse_testbench(generator: torch.Generator | None = None, *, device="cuda"):
+    """``testbench_trace(choukse_spec(), generator)``."""
+    return testbench_trace(choukse_spec(), generator, device=device)
+
+
+def titanx_spec() -> TestbenchSpec:
+    """A 2-GPU Titan-X-style GPT-125M profile (paper §7.1): slower steps,
+    checkpoint stalls, normalized to blade TDP; 300 s at 200 Hz."""
+    return TestbenchSpec(
+        duration_s=300.0,
+        sample_hz=200.0,
+        iteration_period_s=1.2,
+        comm_fraction=0.15,
+        p_compute=0.88,
+        p_comm=0.55,
+        dip_period_s=30.0,
+        dip_duration_s=4.0,
+        p_dip=0.22,
+        warmup_s=5.0,
+        p_idle=0.06,  # 15 W / 250 W
+        terminate_at_s=280.0,
+    )
+
+
+def titanx_testbench(generator: torch.Generator | None = None, *, device="cuda"):
+    """``testbench_trace(titanx_spec(), generator)`` (paper Fig. 11's trace)."""
+    return testbench_trace(titanx_spec(), generator, device=device)
+
+
+def cluster_fault_spec() -> TestbenchSpec:
+    """Paper Fig. 13: a 40 MW cluster (scaled from H100 measurements) with a
+    computation fault at t = 400 s causing a near-instant full drop."""
+    return TestbenchSpec(
+        duration_s=600.0,
+        sample_hz=500.0,
+        iteration_period_s=4.0,
+        comm_fraction=0.2,
+        p_compute=0.95,
+        p_comm=0.42,
+        dip_period_s=60.0,
+        dip_duration_s=2.0,
+        p_dip=0.3,
+        warmup_s=20.0,
+        fault_at_s=400.0,
+        fault_duration_s=25.0,
+        terminate_at_s=560.0,
+    )
+
+
+def cluster_fault_trace(generator: torch.Generator | None = None, *, device="cuda"):
+    """``testbench_trace(cluster_fault_spec(), generator)``."""
+    return testbench_trace(cluster_fault_spec(), generator, device=device)

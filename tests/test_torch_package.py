@@ -20,8 +20,8 @@ import torch
 import repro_torch
 from repro_torch import convert
 from repro_torch.configs import smoke_config
-from repro_torch.core import compliance, controller, fleet, pdu
-from repro_torch.kernels import admm_step, ops, pdu_health
+from repro_torch.core import burn, compliance, controller, fleet, pdu
+from repro_torch.kernels import admm_step, gemm_burn, lc_filter, ops, pdu_health, pdu_sim
 from repro_torch.models import transformer
 from repro_torch.data import DataConfig
 from repro_torch.launch import train as launch_train
@@ -46,6 +46,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
     assert "repro_torch.train.loop" in mods and "repro_torch.launch.train" in mods
     assert "repro_torch.power.integration" in mods and "repro_torch.optim.adamw" in mods
     assert "repro_torch.models.rwkv6" in mods and "repro_torch.kernels.rwkv6_scan" in mods
+    assert {"repro_torch.core.burn", "repro_torch.kernels.lc_filter", "repro_torch.kernels.pdu_sim",
+            "repro_torch.kernels.gemm_burn"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -76,6 +78,8 @@ def _no_cuda(monkeypatch):
         lambda: scenario.workload(),
         lambda: scenario.mixed_campus(8, ("llama3_2_1b",), duration_s=10.0),
         lambda: trace.testbench_trace(trace.TestbenchSpec(duration_s=1.0)),
+        lambda: trace.titanx_testbench(),
+        lambda: burn.calibrate(None, 0.06, 1.0),
         lambda: convert.workload_params_from_numpy({"p_idle": 0.1}),
         lambda: transformer.init(smoke_config("llama3_2_1b")),
         lambda: transformer.Transformer(smoke_config("chameleon_34b")),
@@ -139,8 +143,25 @@ def test_dispatch_on_cpu_tensors():
                            torch.zeros(2, 3), torch.eye(3), torch.zeros(3, 2), torch.zeros(3),
                            ess_on=torch.ones(2), beta=0.1, dt=0.005, q_max=60.0, eta_c=0.97,
                            eta_d=0.97, p_max=1.0, soc_min=0.1, soc_max=0.9)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        lc_filter.lc_filter(torch.eye(3), torch.zeros(3, 2), torch.ones(3), torch.zeros(2, 3),
+                            torch.zeros(4, 2))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pdu_sim.pdu_sim(torch.zeros(4, 2), torch.zeros(2), torch.zeros(2), torch.zeros(2, 3),
+                        torch.eye(3), torch.zeros(3, 2), torch.zeros(3), torch.zeros(4, 2),
+                        beta=0.1, dt=0.005,
+                        q_max=60.0, eta_c=0.97, eta_d=0.97, p_max=1.0, soc_min=0.1, soc_max=0.9)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gemm_burn.gemm_burn(torch.zeros(4, 2), torch.zeros(2, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.gemm_burn(torch.zeros(4, 2), torch.zeros(2, 3), force="cuda")
     # Plain versions run on CPU tensors, in automatic mode and under "ref".
     assert pdu_health.pdu_health_sim.launches == 0 and admm_step.admm_iterate.launches == 0
+    for force in (None, "ref"):
+        assert ops.gemm_burn(torch.ones(4, 2), torch.ones(2, 3), 3, force=force).shape == (4, 3)
+        assert ops.lc_filter(torch.eye(3), torch.zeros(3, 2), torch.ones(3), torch.zeros(2, 3),
+                             torch.zeros(4, 2), force=force)[0].shape == (4, 2)
+    assert gemm_burn.gemm_burn.launches == 0 and lc_filter.lc_filter.launches == 0
     args = (torch.zeros(24, 60), torch.zeros(12, 24), x, torch.zeros(36, 3), torch.ones(36, 3),
             x, torch.zeros(36, 3), torch.zeros(36, 3))
     for force in (None, "ref"):

@@ -13,7 +13,14 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    (h = 12, R = 1024, 30 iterations), each held against its plain PyTorch
    version on the same inputs on the card and timed with CUDA events
    (median of 25 calls, the host's enqueueing hidden behind a device
-   sleep; ``_median_ms``) beside it.
+   sleep; ``_median_ms``) beside it.  Then ``pdu_health_sim`` in each ESS
+   availability mode on an interval of the degraded campus (phase 13's):
+   a 0/1 (R,) row, a fractional (T, R) wind-down, and the events tables of
+   its fault schedule at edge 1 and at the scenario's edge width (50), each
+   bitwise against its plain version, the events runs also bitwise against
+   the (T, R) run on ``faults.ess_weight``, each timed beside the clean
+   variant; the wear machine at kappa 1, 3 and 2.5; and the widened
+   shapes: rmsnorm at D = 100 and 9000, admm_step at horizons 6 and 24.
 3. The quickstart (``examples/quickstart.py`` through the port): the
    240 s testbench trace at 500 Hz through ``pdu.condition`` with
    ``qp_iters=40``; the raw rack must fail the grid spec, the conditioned
@@ -32,8 +39,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    bf16 (``F.rms_norm``); the flash-attention forward on q (4, 32, 512, 64)
    and k, v (4, 8, 512, 64), causal, bf16 and f32, a decode offset
    (Tq = 128, Tk = 1024), a ragged Tq = Tk = 300, a non-causal case and
-   a head dim of 30 (zero-padded to 32), output and log-sum-exp compared
-   (``F.scaled_dot_product_attention``).
+   a head dim of 30 (zero-padded to 32), head dims 160 and 192 (bf16 and
+   f32), and B x H = 65600 heads (float32), output and
+   log-sum-exp compared (``F.scaled_dot_product_attention``).
 6. The serving slice at full llama3.2-1b width (16 layers, bf16, 1.24 B
    random parameters from ``convert.random_lm_tree(cfg, 0)``):
    (a) the prefill step on 4 prompts x 512 tokens must launch flash 16
@@ -49,12 +57,16 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    ``python tests/test_torch_serve_reference.py``: prefill rows, and the
    decode step's logits at every generated position with JAX's tokens fed
    back) within ``SERVE_LOGIT_TOL``.  It prints the prefill wall time and
-   the generation's tokens/s.
+   the generation's tokens/s.  (c) stablelm-12b at full width (head dim
+   160, LayerNorm) cut to 4 layers (``STABLELM``): the prefill on 2 x 512
+   tokens must launch flash once per layer and match the same step under
+   ``ops.forced("ref")`` within ``SERVE_PREFILL_TOL``.
 
 7. The training kernels at the training slice's full-width shapes: the
    flash-attention backward (dK/dV and dQ kernels) on q (4, 32, 512, 64),
    k, v (4, 8, 512, 64), causal, bf16 and f32, a decode offset (Tq = 128,
-   Tk = 1024), a ragged 300, a non-causal case and a head dim of 30, each
+   Tk = 1024), a ragged 300, a non-causal case, a head dim of 30, head dims
+   160 and 192 (bf16 and f32) and B x H = 66560 heads, each
    gradient held against the plain backward on the same residuals and
    against autograd through the plain attention; both kernels timed
    beside the plain backward and the library's (autograd through
@@ -82,8 +94,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    (4, 64, 512, 64) in bf16 and f32 from a non-zero state, the same
    from (B, T, H, D) views as the time mix hands them over (o returned in
    that layout), a decode step (T = 1), a ragged T = 257 at D = 128, an
-   extreme decay w = 0.01, and a state carried across two calls equal to
-   one call; timed beside the sequential and the chunked plain versions.
+   extreme decay w = 0.01, D = 32, a D = 48 zero-padded to 64, and a state
+   carried across two calls equal to one call; timed beside the sequential
+   and the chunked plain versions.
 10. The ssm serving slice at full rwkv6-7b width (32 layers, bf16, 7.5 B
    random parameters drawn on the card by ``transformer.init``): (a) the
    prefill step on 4 prompts x 512 tokens must launch ``rwkv6_scan`` 32
@@ -127,10 +140,23 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    noise_seed=2)`` must match the JAX package's numbers (``JAX_FIG11``,
    recorded on the CPU by ``python tests/test_torch_burn_reference.py``)
    within ``FIG11_TOLERANCES``.  It times the closed-form burn envelope.
+13. Degraded-mode conditioning of ``FAULTY_CAMPUS`` (the campus of
+   ``bench_mixed_campus_faulty``: a stochastic fault soup and an injected
+   rack cascade over 1024 racks, 88 s at 200 Hz) through
+   ``fleet.condition`` with ``engine="host"`` (the fault schedule handed to
+   ``pdu.condition``; the kernel renders the ESS weight from the episode
+   tables) and ``engine="oneshot"`` (the streamed (T, R) weight), each run
+   twice: each run must launch pdu_health (in its engine's weight mode)
+   and admm_step 18 times and call no plain pdu_health, and the numbers
+   must match the JAX package's (``JAX_FAULTY_CAMPUS``, recorded on the CPU
+   by ``python tests/test_torch_faulty_campus_reference.py``) within
+   ``FAULTY_CAMPUS_TOLERANCES``, ``ess_online_frac`` and the verdicts
+   exactly.  It prints each engine's warm wall time.
 
 With ``--profile DIR`` it also profiles one more campus run, prefill step,
-generation and training step, and rwkv6-7b prefill and generation
-(``torch.profiler``) and writes the tables and Chrome traces into DIR.
+generation and training step, rwkv6-7b prefill and generation, and a host
+run of the degraded campus (``torch.profiler``) and writes the tables and
+Chrome traces into DIR.
 
 The script prints the card's name and power limit, then one JSON line
 describing each kernel, and ends with the line
@@ -1069,6 +1095,179 @@ def run_campus(n_racks: int, duration_s: float, *, device: str = "cuda"):
     return res, hsum, time.perf_counter() - t0
 
 
+# The degraded-mode acceptance campus (phase 13), as
+# benchmarks/paper_benches.py::bench_mixed_campus_faulty builds it: the
+# CAMPUS fleet with no scripted fault window and clamped edge smoothing,
+# a stochastic fault soup (ESS offline ~30 % of the time at steady state,
+# rack power losses, sensor dropouts) sampled with seed 6, and a rack
+# cascade injected over a tenth of the fleet from rack n // 3, starting at
+# 60 % of the trace, 5 s of ripple and 20 s outages.  Conditioned by a
+# degraded-mode PDU with qp_iters 30 and 4-interval chunks.
+FAULTY_CAMPUS = dict(n_racks=1024, duration_s=88.0, sample_hz=200.0, seed=3, noise_seed=2,
+                     sched_seed=6, qp_iters=30, chunk_intervals=4)
+
+# The JAX package's numbers for FAULTY_CAMPUS: its host engine on the CPU
+# (jax 0.9.0), printed by ``python tests/test_torch_faulty_campus_reference.py``.
+JAX_FAULTY_CAMPUS = {
+    'rack_max_ramp': 0.4151582717895508,
+    'grid_max_ramp': 0.08859634399414062,
+    'rack_worst_line_exact': 0.00021256112894012203,
+    'grid_worst_line_exact': 0.00011539100426595775,
+    'rack_ramp_ok': False,
+    'rack_spectrum_ok': False,
+    'grid_ramp_ok': True,
+    'grid_spectrum_ok': False,
+    'grid_ok': False,
+    'campus_rack_mean': 0.6283449018839746,
+    'campus_grid_mean': 0.5616183132288808,
+    'ess_online_frac': [1.0,
+                        0.9609375,
+                        0.93359375,
+                        0.90234375,
+                        0.8720703125,
+                        0.8505859375,
+                        0.828125,
+                        0.8173828125,
+                        0.8076171875,
+                        0.7900390625,
+                        0.783203125,
+                        0.7724609375,
+                        0.7724609375,
+                        0.765625,
+                        0.7578125,
+                        0.7412109375,
+                        0.734375,
+                        0.72265625],
+    'rack_worst_line': 0.00021321636450011283,
+    'grid_worst_line': 0.00011558195546967909,
+    'soc_mean_min': 0.3992605209350586,
+    'soc_mean_max': 0.4999118447303772,
+    'soc_mean_last': 0.40299588441848755,
+    'max_qp_residual': 0.004786832258105278,
+}
+
+# Tolerances of the port against JAX_FAULTY_CAMPUS, with their reasons (those
+# of CAMPUS_TOLERANCES, less the wear fold, which this campus does not run):
+# * the per-rack samples differ by ~1e-6 (erfinv/cos rounding); the fault
+#   tables, the NaN positions, the bridged holds' sources and the ESS
+#   weights are integer-exact, so the campus means differ as on the clean
+#   campus: 1e-6 rack, 1e-5 grid, and the ramps 5e-5 /s;
+# * exact spec lines: 1e-3 relative rack, 1e-2 grid (as CAMPUS_TOLERANCES);
+# * QP residual 1e-3 relative and SoC means 1e-5 (ADMM sums in another
+#   order on the card);
+# * ess_online_frac and the verdicts are compared exactly: the availability
+#   comes from integer tables and the finite guard from NaN positions.
+FAULTY_CAMPUS_TOLERANCES = {
+    "rack_max_ramp": ("abs", 5e-5),
+    "grid_max_ramp": ("abs", 5e-5),
+    "rack_worst_line_exact": ("rel", 1e-3),
+    "grid_worst_line_exact": ("rel", 1e-2),
+    "max_qp_residual": ("rel", 1e-3),
+    "campus_rack_mean": ("abs", 1e-6),
+    "campus_grid_mean": ("abs", 1e-5),
+    "soc_mean_min": ("abs", 1e-5),
+    "soc_mean_max": ("abs", 1e-5),
+    "soc_mean_last": ("abs", 1e-5),
+}
+
+
+def faulty_campus(SC, FLT, n_racks: int, duration_s: float, **kw):
+    """FAULTY_CAMPUS's scenario with its schedule attached, built by either
+    package's ``scenario`` and ``faults`` modules (``kw``: the port's
+    ``device``)."""
+    c = FAULTY_CAMPUS
+    hz = c["sample_hz"]
+    s = SC.mixed_campus(n_racks, ARCHS, duration_s=duration_s, sample_hz=hz, seed=c["seed"],
+                        fault_rack_fraction=0.0, edge_pad="clamp", noise_seed=c["noise_seed"],
+                        **kw)
+    proc = FLT.FaultProcess.create(
+        rack_mtbf_s=duration_s * 4.0, rack_mttr_s=duration_s * 0.25,
+        ess_mtbf_s=duration_s * 1.75, ess_mttr_s=duration_s * 0.75,
+        sensor_mtbf_s=duration_s * 3.0, sensor_mttr_s=duration_s * 0.1)
+    sched = FLT.sample_schedule(proc, n_racks, s.total_samples, hz, seed=c["sched_seed"], **kw)
+    n_cas, lo = max(n_racks // 10, 1), n_racks // 3
+    t0f, durf = int(0.6 * duration_s * hz), int(20.0 * hz)
+    step = max(int(5.0 * hz) // max(n_cas - 1, 1), 1)
+    sched = FLT.inject_episodes(sched, rack=[
+        (lo + i, t0f + i * step, min(t0f + i * step + durf, s.total_samples))
+        for i in range(n_cas)])
+    return SC.attach_faults(s, sched)
+
+
+def faulty_campus_summary(res, bank) -> dict:
+    """The scalars of a degraded campus run that the check compares (either
+    package, either engine); ``bank`` is the stream's spectrum bank (the
+    one-shot engine's result has none).  Fields an engine does not return
+    (the one-shot engine's SoC means and QP residual) are left out."""
+    import numpy as np
+
+    host = lambda x: np.asarray(x.detach().cpu() if hasattr(x, "detach") else x, np.float64)
+    rr, rg = res.report_rack, res.report_grid
+    out = {
+        "rack_max_ramp": float(rr.max_ramp), "grid_max_ramp": float(rg.max_ramp),
+        "rack_worst_line_exact": exact_worst_line(res.campus_rack, bank),
+        "grid_worst_line_exact": exact_worst_line(res.campus_grid, bank),
+        "rack_ramp_ok": bool(rr.ramp_ok), "rack_spectrum_ok": bool(rr.spectrum_ok),
+        "grid_ramp_ok": bool(rg.ramp_ok), "grid_spectrum_ok": bool(rg.spectrum_ok),
+        "grid_ok": bool(rg.ok),
+        "campus_rack_mean": float(np.mean(host(res.campus_rack))),
+        "campus_grid_mean": float(np.mean(host(res.campus_grid))),
+        "ess_online_frac": [float(v) for v in host(res.ess_online_frac)],
+    }
+    if res.bank is not None:
+        out["rack_worst_line"] = float(rr.worst_high_freq_mag)
+        out["grid_worst_line"] = float(rg.worst_high_freq_mag)
+    if res.soc_mean is not None:
+        soc = [float(v) for v in host(res.soc_mean)]
+        out.update(soc_mean_min=min(soc), soc_mean_max=max(soc), soc_mean_last=soc[-1],
+                   max_qp_residual=float(res.max_qp_residual))
+    return out
+
+
+def compare_faulty_campus(got: dict, want: dict) -> list[str]:
+    """Failures of ``got`` against ``want`` under FAULTY_CAMPUS_TOLERANCES
+    (the verdicts and ``ess_online_frac`` exactly)."""
+    bad = [f"{k}: {got[k]} != {want[k]}" for k in CAMPUS_VERDICTS + ("ess_online_frac",)
+           if got[k] != want[k]]
+    for k, (kind, tol) in FAULTY_CAMPUS_TOLERANCES.items():
+        if k not in got:
+            continue
+        err = abs(got[k] - want[k])
+        lim = tol * abs(want[k]) if kind == "rel" else tol
+        if not err <= lim:
+            bad.append(f"{k}: {got[k]!r} vs {want[k]!r} (|diff| {err:.3e} > {lim:.3e})")
+    for side in ("rack", "grid"):
+        if f"{side}_worst_line" in got:
+            line, exact = got[f"{side}_worst_line"], got[f"{side}_worst_line_exact"]
+            if not abs(line - exact) <= BANK_REL_TOL * exact:
+                bad.append(f"{side}_worst_line: streamed {line!r} vs exact DFT {exact!r}")
+    return bad
+
+
+def run_faulty_campus(n_racks: int, duration_s: float, engine: str, *, device: str = "cuda"):
+    """FAULTY_CAMPUS through the port's ``engine``; returns ``(result, its
+    summary, wall seconds)``."""
+    import torch
+
+    from repro_torch.core import compliance, fleet, pdu
+    from repro_torch.power import faults as FLT, scenario as SC
+
+    c = FAULTY_CAMPUS
+    s = faulty_campus(SC, FLT, n_racks, duration_s, device=device)
+    cfg = pdu.make_pdu(sample_dt=1.0 / c["sample_hz"], degraded_mode=True, device=device)
+    spec = compliance.GridSpec.create(device=device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fleet.condition(s, cfg, spec, engine=engine, qp_iters=c["qp_iters"], device=device,
+                          stream=fleet.StreamOptions(chunk_intervals=c["chunk_intervals"]))
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bank = res.bank or compliance.make_bank(s.total_samples, cfg.sample_dt, float(spec.f_c))
+    return res, faulty_campus_summary(res, bank), wall
+
+
 def decode_logits(model, cfg, prompts, fed, max_len: int):
     """``ServeEngine.generate``'s loop through the port's decode step with
     the tokens ``fed (B, n)`` fed back in place of the sampled ones: the
@@ -1415,6 +1614,169 @@ def phase_kernels(dev) -> dict:
     }
 
 
+def _pdu_health_cost(t_len: int, r: int, mask: str, n_ev: int = 0) -> tuple[int, int]:
+    """Bytes ``pdu_health`` must move once (rack power in, grid and SoC out,
+    the per-rack rows: slew 2, state 5 + 5, wear 11 + 11) and its float
+    operations (phase_kernels' count of 80 per rack-sample), plus what each
+    weight mode adds: the (R,) row or the (T, R) series read once and 3
+    operations a sample (the two selects and the product); the events
+    tables (E, R) twice and the base row once, and ~8 operations a sample
+    (the clamp, the ramp's two subtracts, adds, products and clips, 1 - i
+    and the product; the table walk is compares)."""
+    nbytes, nops = 4 * (3 * t_len * r + (2 + 5 + 11 + 5 + 11) * r), 80 * t_len * r
+    extra = {"none": (0, 0), "row": (4 * r, 3 * t_len * r),
+             "series": (4 * t_len * r, 3 * t_len * r),
+             "events": (8 * n_ev * r + 4 * r, 11 * t_len * r)}[mask]
+    return nbytes + extra[0], nops + extra[1]
+
+
+def phase_pdu_health_variants(dev) -> dict:
+    """Phase 2, continued: ``pdu_health`` in each ESS availability mode at
+    the campus shape (T = 1000, R = 1024, slew and wear fold), each bitwise
+    against its plain version and timed beside the clean variant: a 0/1
+    (R,) row, a fractional (T, R) wind-down, and the events tables of the
+    degraded campus's own fault schedule (FAULTY_CAMPUS) at edge 1 and at
+    the scenario's edge width, the events run also bitwise against the
+    (T, R) run on ``faults.ess_weight``; then the wear machine at kappa 1,
+    3 and 2.5 against its plain version."""
+    import torch
+
+    from repro_torch.core import health as hlt, pdu
+    from repro_torch.kernels import ops, pdu_health
+    from repro_torch.power import faults as FLT, scenario as SC
+
+    c = FAULTY_CAMPUS
+    s = faulty_campus(SC, FLT, c["n_racks"], c["duration_s"], device=dev)
+    cfg = pdu.make_pdu(sample_dt=1.0 / c["sample_hz"], track_health=True, degraded_mode=True,
+                       device=dev)
+    k = int(round(float(cfg.controller.dt) * c["sample_hz"]))
+    sched, r = s.faults, s.n_racks
+    # The interval in which most ESS trips and repairs fall (real episodes,
+    # inside the trace; the clamped empty slots sit at its end).
+    n_ctrl = -(-s.total_samples // k)
+    real = sched.ess_end > sched.ess_start
+    edges = torch.cat([sched.ess_start[real], sched.ess_end[real]])
+    edges = edges[edges < s.total_samples]
+    per = torch.bincount(torch.div(edges, k, rounding_mode="floor"), minlength=n_ctrl)
+    i_best = int(torch.argmax(per[: s.total_samples // k]))
+    i0 = i_best * k
+    chunk, _ = pdu.bridge_sensors(torch.full((r,), 0.5, device=dev), SC.render(s, i0, k))
+    st = pdu.init_state(cfg, chunk[0])
+    gen = torch.Generator(device=dev).manual_seed(5)
+    applied = (torch.rand(r, generator=gen, device=dev) - 0.5) * 1e-2
+    target = (torch.rand(r, generator=gen, device=dev) - 0.5) * 1e-2
+    hw = pdu.hw_kwargs(cfg)
+    lc = tuple(m.cpu().numpy() for m in (st.filter_obj.ad, st.filter_obj.bd, st.filter_obj.c[0]))
+    args = (chunk.contiguous(), st.ess_state.g_filter, st.ess_state.soc, st.filter_state, *lc)
+    hconsts = hlt.step_consts(cfg.health)
+    kw = dict(slew=(applied, target), health=(hconsts, tuple(st.health)), **hw)
+    sensed = FLT.interval_sensed(sched, i0, 1, k)[0].to(torch.float32)
+    row = FLT.interval_online(sched, i0, 1, k)[0] * sensed
+    series = degraded_weight(k, r, cfg.sample_dt, dev)[0]
+    events = (sched.ess_start.T.contiguous(), sched.ess_end.T.contiguous(), row.contiguous(), i0,
+              i0 + k - 1)
+    edge = s.edge_width
+    n_ev = events[0].shape[0]
+    print(f"pdu_health  degraded modes on interval {i_best} (samples {i0}..{i0 + k - 1}) of the "
+          f"degraded campus: {int(per[i_best])} ESS trips and repairs, {int((row == 0).sum())} "
+          f"racks dark in the (R,) row, E = {n_ev} episode rows, edge {edge}")
+    modes = {
+        "ess_row": ("row", dict(ess_on=row)),
+        "ess_series": ("series", dict(ess_on=series)),
+        "ess_events_edge1": ("events", dict(ess_events=events, ess_edge=1)),
+        f"ess_events_edge{edge}": ("events", dict(ess_events=events, ess_edge=edge)),
+    }
+    clean_p = pdu_health.prepare(*args, **kw)
+    clean_ms = _median_ms(lambda: pdu_health.launch(clean_p))
+    out = {}
+    for name, (mask, mkw) in modes.items():
+        got = ops.pdu_health_sim(*args, force="cuda", **kw, **mkw)
+        want, plain_ms = _event_ms(lambda: ops.pdu_health_sim(*args, force="ref", **kw, **mkw))
+        same = _bitwise((got[0], got[1], *got[2], *got[3]), (want[0], want[1], *want[2], *want[3]))
+        err = _max_err((got[0], got[1], *got[2], *got[3]), (want[0], want[1], *want[2], *want[3]))
+        frozen = int((got[1] == args[2][None, :]).all(0).sum())
+        prep = pdu_health.prepare(*args, **kw, **mkw)
+        ms = _median_ms(lambda: pdu_health.launch(prep))
+        nbytes, nops = _pdu_health_cost(k, r, mask, n_ev)
+        bound = max(nbytes / HBM_BYTES_PER_S, nops / FP32_FLOP_PER_S) * 1e3
+        line = (f"pdu_health  {name:17s} T={k} R={r} slew+wear: bitwise vs plain {same} "
+                f"(max|diff| {err:.3e}), {frozen} racks' SoC held all interval; kernel "
+                f"{ms:.4f} ms (clean {clean_ms:.4f} ms), plain {plain_ms:.1f} ms, bound "
+                f"{bound:.4f} ms")
+        ok = same
+        if mask == "events":
+            w = FLT.ess_weight(sched, i0, k, mkw["ess_edge"]) * row[None, :]
+            streamed = ops.pdu_health_sim(*args, force="cuda", ess_on=w.contiguous(), **kw)
+            eq = _bitwise((got[0], got[1], *got[2], *got[3]),
+                          (streamed[0], streamed[1], *streamed[2], *streamed[3]))
+            line += f"; == the (T, R) run on faults.ess_weight: {eq}"
+            ok = ok and eq
+        print(line)
+        _check(ok, f"pdu_health {name} vs plain")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, max_abs_err=err,
+                         clean_ms=clean_ms)
+    # The wear machine at the exponents the campus does not use.
+    for kappa in (1.0, 3.0, 2.5):
+        kkw = dict(kw, health=(tuple(hconsts[:3]) + (kappa,), tuple(st.health)))
+        got = ops.pdu_health_sim(*args, force="cuda", **kkw)
+        want = ops.pdu_health_sim(*args, force="ref", **kkw)
+        err = _max_err((got[0], got[1], *got[2], *got[3]), (want[0], want[1], *want[2], *want[3]))
+        same = _bitwise(got[3][:6], want[3][:6])
+        # Integer kappas multiply as the plain version does, bit for bit;
+        # 2.5 goes through powf, which may round an ulp apart from
+        # torch.pow on the card.
+        ok = same if kappa.is_integer() else err <= 1e-6
+        print(f"pdu_health  kappa {kappa}: wear carries bitwise vs plain {same}, max|diff| over "
+              f"every output {err:.3e}")
+        _check(ok and _bitwise(got[1], want[1]), f"pdu_health kappa {kappa} vs plain")
+    return out
+
+
+def phase_widened_shapes(dev) -> None:
+    """Phase 2, continued: the kernel shapes this port widened, each against
+    its plain version: rmsnorm at D = 100 (no 16-byte rows) and D = 9000
+    (past the vector path), admm_step at horizons 6 (padded to 12) and 24
+    (a second instantiation)."""
+    import torch
+
+    from repro_torch.core import controller as ctrl, pdu
+    from repro_torch.kernels import admm_step, ops
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for d, dtype in ((100, torch.bfloat16), (100, torch.float32), (9000, torch.float32)):
+        x = torch.randn(512, d, generator=gen, device=dev).to(dtype)
+        w = (1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(dtype)
+        got = ops.rmsnorm(x, w, force="cuda").double()
+        want = ops.rmsnorm(x, w, force="ref").double()
+        rel = 2.0**-7 if dtype == torch.bfloat16 else 1e-6
+        ok = bool(((got - want).abs() <= rel * want.abs() + 1e-6).all())
+        print(f"rmsnorm     (512, {d}) {str(dtype)[6:]}: max|kernel - plain| "
+              f"{float((got - want).abs().max()):.3e}")
+        _check(ok, f"rmsnorm D = {d} vs plain")
+    r = 1024
+    for horizon in (6, 24):
+        cc = ctrl.ControllerConfig.create(horizon=horizon, device=dev)
+        cfg = pdu.make_pdu(controller_cfg=cc, sample_dt=0.005, device=dev)
+        plan = ctrl.make_plan(cfg.controller, cfg.ess_params)
+        soc = 0.2 + 0.6 * torch.rand(r, generator=gen, device=dev)
+        u_prev = torch.rand(r, generator=gen, device=dev) - 0.5
+        q, lo, hi = ctrl._qp_state_terms(plan, soc, cfg.controller.s_mid.expand(r), u_prev)
+        h = plan.horizon
+        kq = plan.kkt_inv @ q
+        x0 = torch.zeros_like(q)
+        z0 = torch.clamp(plan.a_mat @ x0, lo, hi)
+        a = (torch.cat([plan.kkt_inv_sigma, plan.kkt_inv_at], dim=1), plan.a_mat[2 * h:], kq, lo,
+             hi, x0, z0, torch.zeros_like(z0))
+        before = admm_step.admm_iterate.launches
+        got = ops.admm_iterate(*a, rho=plan.rho, iters=30, force="cuda")
+        want = ops.admm_iterate(*a, rho=plan.rho, iters=30, force="ref")
+        err = _max_err(got, want)
+        print(f"admm_step   h={h} (kernel horizon {admm_step.kernel_horizon(h)}) R={r} iters=30: "
+              f"max|kernel - plain| {err:.3e}")
+        _check(err <= 2e-5 and admm_step.admm_iterate.launches == before + 1,
+               f"admm_step horizon {h} vs plain")
+
+
 def _visible_pairs(q, k, causal) -> int:
     """The (query, key) pairs of one head that the causal mask leaves
     visible."""
@@ -1490,13 +1852,24 @@ def phase_serve_kernels(dev) -> dict:
     # value) on o, 1e-5 on lse.
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     bsz, tl = SERVE["prefill"]
-    # Last: the qwen1.5-4b smoke config's head dim 30, zero-padded to 32.
+    # Then: the qwen1.5-4b smoke config's head dim 30, zero-padded to 32;
+    # stablelm-12b's 160 (32 heads, 8 KV heads) and the deepseek MLA configs'
+    # qk head dim 192, each instantiated exactly; and a batch of heads past
+    # the old grid limit of 65535, in float32,
+    # where the kernel and the plain version do the same arithmetic (its 4.2 M
+    # rows would also sample the bf16 plain version's rounding of the logits
+    # and probabilities far into its tail; the point of the case is the grid).
     cases = [("prefill", bsz, h, hkv, tl, tl, hd, True, bf16),
              ("prefill f32", bsz, h, hkv, tl, tl, hd, True, f32),
              ("decode offset", bsz, h, hkv, 128, 1024, hd, True, bf16),
              ("ragged", bsz, h, hkv, 300, 300, hd, True, bf16),
              ("non-causal", bsz, h, hkv, tl, tl, hd, False, bf16),
-             ("head dim 30", 2, 4, 4, 77, 77, 30, True, bf16)]
+             ("head dim 30", 2, 4, 4, 77, 77, 30, True, bf16),
+             ("head dim 160", 2, 32, 8, tl, tl, 160, True, bf16),
+             ("head dim 160 f32", 2, 32, 8, tl, tl, 160, True, f32),
+             ("head dim 192", 2, 16, 4, 300, 300, 192, True, bf16),
+             ("head dim 192 f32", 2, 16, 4, 300, 300, 192, True, f32),
+             ("B*H 65600 f32", 1025, 64, 16, 64, 64, 64, True, f32)]
     fa_err = 0.0
     for name, b, nh, nkv, tq, tk, dh, causal, dtype in cases:
         q, k, v = (randn(b, n, t, dh).to(dtype) for n, t in ((nh, tq), (nkv, tk), (nkv, tk)))
@@ -1504,7 +1877,7 @@ def phase_serve_kernels(dev) -> dict:
         o_p, lse_p = ref.attention(q, k, v, causal=causal, with_lse=True)
         torch.cuda.synchronize()
         err_o, err_l = _max_err(o, o_p), _max_err(lse, lse_p)
-        line = f"flash fwd   {name:13s} q {tuple(q.shape)} k {tuple(k.shape)} {str(dtype)[6:]}: " \
+        line = f"flash fwd   {name:16s} q {tuple(q.shape)} k {tuple(k.shape)} {str(dtype)[6:]}: " \
                f"max|kernel - plain| o {err_o:.3e} lse {err_l:.3e}"
         tol = 2e-2 if dtype == bf16 else 1e-5
         ok = err_o <= tol and err_l <= tol
@@ -1709,12 +2082,18 @@ def phase_train_kernels(dev) -> dict:
     #   bf16 one ulp of the element plus 2^-7 x scale, as the kernels'
     #   residuals o and dO are bf16 (delta = sum(dO o) moves by 2^-8 of
     #   its size, and dS, dQ, dK with it).
+    # As in phase 5: head dims 160 and 192 and a batch of heads past 65535.
     cases = [("train", bsz, h, hkv, tl, tl, hd, True, bf16),
              ("train f32", bsz, h, hkv, tl, tl, hd, True, f32),
              ("decode offset", bsz, h, hkv, 128, 1024, hd, True, bf16),
              ("ragged", bsz, h, hkv, 300, 300, hd, True, bf16),
              ("non-causal", bsz, h, hkv, tl, tl, hd, False, bf16),
-             ("head dim 30", 2, 4, 4, 77, 77, 30, True, bf16)]
+             ("head dim 30", 2, 4, 4, 77, 77, 30, True, bf16),
+             ("head dim 160", 2, 32, 8, tl, tl, 160, True, bf16),
+             ("head dim 160 f32", 2, 32, 8, tl, tl, 160, True, f32),
+             ("head dim 192", 2, 16, 4, 300, 300, 192, True, bf16),
+             ("head dim 192 f32", 2, 16, 4, 300, 300, 192, True, f32),
+             ("B*H 66560", 520, 128, 32, 64, 64, 32, True, bf16)]
     err_max = 0.0
     for name, b, nh, nkv, tq, tk, dh, causal, dtype in cases:
         q, k, v = (randn(b, n, t, dh).to(dtype) for n, t in ((nh, tq), (nkv, tk), (nkv, tk)))
@@ -1726,7 +2105,7 @@ def phase_train_kernels(dev) -> dict:
         auto = torch.autograd.grad(ref.attention(qw, kw, vw, causal=causal), (qw, kw, vw),
                                    do.float())
         torch.cuda.synchronize()
-        line = f"flash bwd   {name:13s} q {tuple(q.shape)} k {tuple(k.shape)} {str(dtype)[6:]}:"
+        line = f"flash bwd   {name:16s} q {tuple(q.shape)} k {tuple(k.shape)} {str(dtype)[6:]}:"
         ok = True
         for nm, g, p, a in zip(("dq", "dk", "dv"), got, plain, auto):
             g64, p64, a64 = g.double(), p.double(), a.double()
@@ -2003,7 +2382,9 @@ def phase_rwkv_kernel(dev) -> dict:
              ("prefill f32", b, h, t, d, f32, None, True, False),
              ("decode", b, h, 1, d, bf16, None, True, False),
              ("ragged D128", b, 32, 257, 128, bf16, None, False, False),
-             ("w = 0.01", b, h, t, d, bf16, 0.01, True, False)]
+             ("w = 0.01", b, h, t, d, bf16, 0.01, True, False),
+             ("D 32", b, 16, t, 32, bf16, None, True, False),
+             ("padded D48", b, 16, t, 48, bf16, None, True, False)]
     err_max = 0.0
     for name, bb, hh, tt, dd, dtype, w_val, with_s0, time_major in cases:
         (r, k, v, w, u), s0 = _rwkv_inputs(gen, dev, bb, hh, tt, dd, dtype, w_val, time_major)
@@ -2013,7 +2394,9 @@ def phase_rwkv_kernel(dev) -> dict:
         torch.cuda.synchronize()
         ulp = 2.0**-7 if dtype == bf16 else 0.0
         ok = bool(torch.isfinite(o).all()) and bool(torch.isfinite(s).all())
-        ok &= o.stride() == r.stride() and r.is_contiguous() != time_major
+        # o comes back in r's layout, but a padded head dim returns a view
+        # of the padded output.
+        ok &= (o.stride() == r.stride() or dd not in rw.HEAD_DIMS) and r.is_contiguous() != time_major
         line = f"rwkv6_scan  {name:12s} {(bb, hh, tt, dd)} {str(dtype)[6:]}:"
         for nm, g, p, u_ in (("o", o, po, ulp), ("S", s, ps, 0.0)):
             g64, p64 = g.double(), p.double()
@@ -2067,31 +2450,6 @@ def phase_rwkv_kernel(dev) -> dict:
         decode_bound_ms=dec_bound)
 
 
-class _PlainRwkvCalls:
-    """Counts calls of the plain RWKV-6 scans (``ref.rwkv6_scan`` and
-    ``ref.rwkv6_chunked``, as ``ops`` reaches them) inside the block."""
-
-    def __enter__(self):
-        from repro_torch.kernels import ref
-
-        self.n, self._saved = 0, (ref.rwkv6_scan, ref.rwkv6_chunked)
-
-        def counted(fn):
-            def call(*a, **kw):
-                self.n += 1
-                return fn(*a, **kw)
-            return call
-
-        ref.rwkv6_scan, ref.rwkv6_chunked = (counted(f) for f in self._saved)
-        return self
-
-    def __exit__(self, *exc):
-        from repro_torch.kernels import ref
-
-        ref.rwkv6_scan, ref.rwkv6_chunked = self._saved
-        return False
-
-
 def _rwkv_counts() -> dict:
     from repro_torch.kernels import rwkv6_scan as rw
 
@@ -2137,7 +2495,7 @@ def phase_rwkv_serve(dev, profile_dir: Path | None = None) -> dict:
         serve_prompts(cfg.vocab_size, b, tl, RWKV["prompt_seed"]), device=dev)
     step = build_prefill_step(cfg)
     step(model, prefill_prompts, tl)  # warm-up
-    with _PlainRwkvCalls() as plain:
+    with _PlainCalls("rwkv6_scan", "rwkv6_chunked") as plain:
         torch.cuda.synchronize()
         _reset_rwkv_counts()
         t = time.perf_counter()
@@ -2213,7 +2571,7 @@ def phase_rwkv_serve(dev, profile_dir: Path | None = None) -> dict:
                               device=dev)
     eng = ServeEngine(cfg, model, max_len=t0p + n, device=dev)
     eng.generate(prompts, 2)  # warm-up
-    with _PlainRwkvCalls() as plain:
+    with _PlainCalls("rwkv6_scan", "rwkv6_chunked") as plain:
         torch.cuda.synchronize()
         _reset_rwkv_counts()
         t = time.perf_counter()
@@ -2659,6 +3017,135 @@ def phase_campus(dev) -> tuple[int, int]:
     return counts
 
 
+# Phase 6, continued: stablelm-12b at full width (d_model 5120, 32 query
+# and 8 KV heads of 160, LayerNorm, d_ff 13824, bf16), its depth cut from 40
+# to 4 layers (~2.1 B parameters, drawn on the card by transformer.init);
+# the prefill step on 2 prompts x 512 tokens.
+STABLELM = dict(arch="stablelm_12b", n_layers=4, seed=0, prompt_seed=3, prefill=(2, 512))
+
+
+def phase_stablelm(dev) -> dict:
+    """The prefill of the cut-depth, full-width stablelm-12b on the kernels
+    against the same step on the plain versions (``ops.forced("ref")``):
+    flash must launch once per layer at head dim 160 (LayerNorm, so no
+    rmsnorm launch)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import full_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import build_prefill_step
+
+    cfg = dataclasses.replace(full_config(STABLELM["arch"]), n_layers=STABLELM["n_layers"])
+    _check(cfg.resolved_head_dim == 160 and cfg.norm == "layernorm", "stablelm-12b's layout")
+    t0 = time.perf_counter()
+    model = T.init(cfg, device=dev,
+                   generator=torch.Generator(dev).manual_seed(STABLELM["seed"]))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"stablelm: {cfg.name} {n_params} parameters ({cfg.dtype}, {cfg.n_layers} of 40 layers, "
+          f"d_model {cfg.d_model}, head dim {cfg.resolved_head_dim}) drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    b, tl = STABLELM["prefill"]
+    prompts = torch.as_tensor(serve_prompts(cfg.vocab_size, b, tl, STABLELM["prompt_seed"]),
+                              device=dev)
+    step = build_prefill_step(cfg)
+    step(model, prompts, tl)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t = time.perf_counter()
+    logits, state = step(model, prompts, tl)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = _counts()
+    with ops.forced("ref"):
+        logits_ref, _ = step(model, prompts, tl)
+    torch.cuda.synchronize()
+    err = _max_err(logits, logits_ref)
+    print(f"stablelm prefill {b} x {tl}: {wall:.4f} s wall, launches {counts}; logits "
+          f"max|kernels - plain| {err:.4f} (max|logit| {float(logits_ref.abs().max()):.3f})")
+    _check(counts == {"rmsnorm": 0, "flash_attention_fwd": cfg.n_layers},
+           f"stablelm prefill launches {counts}")
+    _check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (b, tl, cfg.padded_vocab)
+           and state["blocks"].length == tl, "stablelm prefill logits/state")
+    _check(err <= SERVE_PREFILL_TOL, "stablelm prefill logits, kernels vs plain versions")
+    del model
+    return {"prefill_s": wall, "flash_attention_fwd": counts["flash_attention_fwd"]}
+
+
+class _PlainCalls:
+    """Counts calls of the named plain versions (attributes of
+    ``kernels.ref``, as ``ops`` reaches them) inside the block."""
+
+    def __init__(self, *names: str):
+        self.names = names
+
+    def __enter__(self):
+        from repro_torch.kernels import ref
+
+        self.n, self._saved = 0, tuple(getattr(ref, n) for n in self.names)
+
+        def counted(fn):
+            def call(*a, **kw):
+                self.n += 1
+                return fn(*a, **kw)
+            return call
+
+        for n, fn in zip(self.names, self._saved):
+            setattr(ref, n, counted(fn))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ref
+
+        for n, fn in zip(self.names, self._saved):
+            setattr(ref, n, fn)
+        return False
+
+
+def phase_faulty_campus(dev) -> dict:
+    """Phase 13: FAULTY_CAMPUS at full size through the host engine (the
+    fault schedule handed to ``pdu.condition``, the ESS weight rendered in
+    the kernel from the episode tables) and the one-shot engine (the
+    streamed (T, R) weight).  Each run must launch pdu_health (in its
+    engine's weight mode) and admm_step 18 times and call no plain
+    pdu_health; the numbers must match JAX_FAULTY_CAMPUS within
+    FAULTY_CAMPUS_TOLERANCES (ess_online_frac and the verdicts exactly).
+    Returns each engine's warm wall time and launch counts."""
+    from repro_torch.kernels import admm_step, pdu_health
+
+    c = FAULTY_CAMPUS
+    mode = {"host": pdu_health.MASK_EVENTS, "oneshot": pdu_health.MASK_SERIES}
+    out = {}
+    for engine in ("host", "oneshot"):
+        for run in ("first", "second"):
+            pdu_health.pdu_health_sim.launches = 0
+            pdu_health.pdu_health_sim.launches_by_mask = [0, 0, 0, 0]
+            admm_step.admm_iterate.launches = 0
+            with _PlainCalls("pdu_health_sim") as plain:
+                res, got, wall = run_faulty_campus(c["n_racks"], c["duration_s"], engine,
+                                                   device=dev)
+            by_mask = list(pdu_health.pdu_health_sim.launches_by_mask)
+            counts = (pdu_health.pdu_health_sim.launches, admm_step.admm_iterate.launches)
+            print(f"faulty campus {engine} engine, {run} run: {wall:.3f} s wall, launches "
+                  f"pdu_health={counts[0]} (by weight mode none/row/series/events {by_mask}) "
+                  f"admm_step={counts[1]}, plain pdu_health calls {plain.n}")
+            _check(counts == (18, 18) and by_mask[mode[engine]] == 18 and plain.n == 0,
+                   f"faulty campus {engine}: launches {counts} {by_mask}, plain calls {plain.n}")
+        print(f"faulty campus {engine}: grid max ramp {got['grid_max_ramp']:.6f}/s "
+              f"ok={got['grid_ok']}, ESS online fraction min {min(got['ess_online_frac']):.4f}")
+        print(f"faulty campus {engine} vs JAX: "
+              + json.dumps({k: [got[k], JAX_FAULTY_CAMPUS[k]] for k in got}))
+        bad = compare_faulty_campus(got, JAX_FAULTY_CAMPUS)
+        _check(not bad, f"faulty campus ({engine}) differs from the JAX package: "
+               + "; ".join(bad))
+        out[engine] = dict(wall_s=wall, pdu_health=counts[0], admm_step=counts[1],
+                           by_mask=by_mask)
+    return out
+
+
 def profile_run(label: str, run, out_dir: Path) -> None:
     """``run()`` (which returns its wall seconds) once more under
     torch.profiler: device time by kernel and the device's busy share of
@@ -2695,8 +3182,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", type=Path, default=None,
                     help="also profile one campus run, prefill step, generation, training "
-                         "step and rwkv6-7b prefill and generation; write the tables and "
-                         "traces here")
+                         "step, rwkv6-7b prefill and generation and a degraded campus run; "
+                         "write the tables and traces here")
     opts = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2715,6 +3202,8 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     kernels = phase_kernels(dev)
+    kernels["pdu_health"]["variants"] = phase_pdu_health_variants(dev)
+    phase_widened_shapes(dev)
     phase_quickstart(dev)
     ph_count, ad_count = phase_campus(dev)
     kernels["pdu_health"]["launches"] = ph_count
@@ -2733,6 +3222,8 @@ def main() -> int:
     print(f"random_lm_tree({SERVE['arch']}, {SERVE['seed']}) in {time.perf_counter() - t0:.1f} s "
           f"(serving and training phases)")
     serve = phase_serve(dev, tree, opts.profile)
+    torch.cuda.empty_cache()
+    stablelm = phase_stablelm(dev)
     torch.cuda.empty_cache()
     kernels.update(phase_train_kernels(dev))
     trained = phase_train(dev, tree, opts.profile)
@@ -2759,13 +3250,24 @@ def main() -> int:
     fig11 = phase_fig11(dev)
     for name, n in zip(("pdu_health", "admm_step"), fig11["counts"]):
         kernels[name]["launches_fig11"] = n
+    faulty = phase_faulty_campus(dev)
+    if opts.profile is not None:
+        c = FAULTY_CAMPUS
+        profile_run("faulty_campus", lambda: run_faulty_campus(
+            c["n_racks"], c["duration_s"], "host", device=dev)[2], opts.profile)
+    for engine, mode in (("host", "events"), ("oneshot", "series")):
+        kernels["pdu_health"][f"launches_faulty_{engine}_{mode}"] = faulty[engine]["pdu_health"]
+        kernels["admm_step"][f"launches_faulty_{engine}"] = faulty[engine]["admm_step"]
+    kernels["flash_attention_fwd"]["launches_stablelm_prefill"] = stablelm["flash_attention_fwd"]
     print(json.dumps({"serve": {k: serve[k] for k in ("prefill_s", "generate_s", "tokens_per_s")},
                       "train": {k: trained[k] for k in ("step_s", "tokens_per_s", "train_mfu",
                                                          "peak_gb")},
                       "rwkv_serve": {k: rwkv[k] for k in ("prefill_s", "generate_s",
                                                           "tokens_per_s")},
                       "fig11": {k: fig11[k] for k in ("wall_s", "envelope_ms",
-                                                      "burn_vs_easyrider_frac")}}))
+                                                      "burn_vs_easyrider_frac")},
+                      "stablelm_prefill_s": stablelm["prefill_s"],
+                      "faulty_campus_s": {e: faulty[e]["wall_s"] for e in faulty}}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.core import controller as ctrl, ess, filters, health as hlt, pdu
 from repro_torch.models import layers as L, transformer as T
-from repro_torch.power import scenario as SC
+from repro_torch.power import faults as FLT, scenario as SC
 from repro_torch.utils.devices import resolve_device
 
 
@@ -36,11 +36,11 @@ def _fields(cls, d: dict, dev, static: tuple[str, ...] = ()):
 
 def pdu_config_from_numpy(d: dict, *, device="cuda") -> pdu.PDUConfig:
     """``PDUConfig`` from ``{"filter_params", "ess_params", "controller",
-    "health", "sample_dt", "software_enabled", "track_health", ...}``."""
+    "health", "sample_dt", "software_enabled", "track_health",
+    "degraded_mode", ...}``."""
     dev = resolve_device(device)
-    for flag in ("degraded_mode", "safemode"):
-        if d.get(flag):
-            raise NotImplementedError(f"{flag} configs are not ported yet (ROADMAP.md)")
+    if d.get("safemode"):
+        raise NotImplementedError("safemode configs are not ported yet (ROADMAP.md queue 1 item 4)")
     health = d.get("health")
     return pdu.PDUConfig(
         filter_params=_fields(filters.LCFilterParams, d["filter_params"], dev),
@@ -50,7 +50,14 @@ def pdu_config_from_numpy(d: dict, *, device="cuda") -> pdu.PDUConfig:
         sample_dt=float(d["sample_dt"]),
         software_enabled=bool(d.get("software_enabled", True)),
         track_health=bool(d.get("track_health", False)),
+        degraded_mode=bool(d.get("degraded_mode", False)),
     )
+
+
+def fault_schedule_from_numpy(d: dict, *, device="cuda") -> FLT.FaultSchedule:
+    """``FaultSchedule`` from its seven fields (the int32 episode tables
+    and ``p_fault``), e.g. ``numpy_tree`` of the JAX package's schedule."""
+    return _fields(FLT.FaultSchedule, d, resolve_device(device))
 
 
 def plan_from_numpy(d: dict, *, device="cuda") -> ctrl.ControllerPlan:
@@ -65,7 +72,8 @@ def pdu_state_from_numpy(d: dict, *, device="cuda") -> pdu.PDUState:
     """``PDUState`` from ``{"filter_state", "filter_obj": {"ad", "bd", "c",
     "dt"}, "ess_state": {"g_filter", "soc"}, "u_prev", "cmd_applied",
     "cmd_target", "soc_ema", "qp_warm": {"x", "z", "y"}, "health": {11
-    leaves}, "ess_online", "last_good"}``."""
+    leaves}, "ess_online", "last_good"}``: the degraded-mode override and
+    sensor-bridge seed ride along (None where absent)."""
     dev = resolve_device(device)
     t = lambda v: _tensor(v, dev)
     fo = d["filter_obj"]

@@ -15,7 +15,7 @@ Port of the plan-based path of ``repro.core.controller``:
 Everything is float32 with currents as fractions of rated rack power.  The
 per-step QP assembly and cold-start solver of the reference
 (``_build_qp``, ``solve_qp_admm``, ``inner_loop_step``) come with the
-``use_plan=False`` path in a later slice (ROADMAP.md, queue 1 item 8).
+``use_plan=False`` path in a later slice (ROADMAP.md, queue 1 item 2).
 """
 from __future__ import annotations
 

@@ -14,17 +14,23 @@ Engines:
   * ``"oneshot"``: materialize the whole ``(T, R)`` trace and grid
     waveform and check compliance on the whole campus means.
 
+Under a degraded-mode config a ``Scenario`` carrying a fault schedule runs
+degraded: the host engine hands the schedule to ``pdu.condition`` (the
+fast path), the one-shot engine the streamed mask and weight derived from
+it, and both return ``ess_online_frac``.
+
 The reference defaults to its ``"scanned"`` engine, one ``lax.scan`` jit
 over the chunk loop.  Its counterpart here, the chunk loop captured in a
-CUDA graph, is a later item of ROADMAP.md (queue 1 item 7), so
+CUDA graph, is a later item of ROADMAP.md (queue 1 item 3), so
 ``engine="scanned"`` raises and the facade defaults to ``"host"``.
-Multi-GPU rack sharding (``mesh=``) comes with the grid-region slice.
+Multi-GPU rack sharding (``mesh=``) comes with ROADMAP.md queue 1 item 9.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import compliance, controller as ctrl, health as hlt, pdu
@@ -35,8 +41,8 @@ F32 = torch.float32
 
 class ConditioningResult(NamedTuple):
     """The one result type every conditioning engine returns; fields an
-    engine does not track are ``None``.  The reference's degraded-mode,
-    safe-mode and grid-region fields come with those slices."""
+    engine does not track are ``None``.  The reference's safe-mode and
+    grid-region fields come with those slices."""
 
     campus_rack: torch.Tensor = None  # (T,) mean per-unit unconditioned load
     campus_grid: torch.Tensor = None  # (T,) mean per-unit conditioned load
@@ -48,6 +54,9 @@ class ConditioningResult(NamedTuple):
     state: pdu.PDUState = None  # final PDU state (the stream can resume)
     max_qp_residual: torch.Tensor = None  # worst QP primal residual seen
     health_trace: torch.Tensor = None  # (n_chunks, 3) [mean EFC, max fade, max DoD]
+    # (n_ctrl,) fraction of ESS units online per interval (ones unless the
+    # cfg runs degraded_mode).
+    ess_online_frac: torch.Tensor = None
     grid_spec: compliance.GridSpec = None
     bank: compliance.SpectrumBank = None
     observers: "_Observers" = None
@@ -68,6 +77,23 @@ class ConditioningResult(NamedTuple):
         )
 
 
+def apply_failures(traces: torch.Tensor, fail_times, p_idle: float = 0.1) -> torch.Tensor:
+    """Racks drop to ``p_idle`` from their failure sample on (-1 = never),
+    through a one-episode fault schedule (``power.faults``), as the
+    reference's compatibility shim does.  Prefer ``scenario.attach_faults``
+    for anything new."""
+    from repro_torch.power import faults as FLT
+
+    t, r = traces.shape
+    ft = fail_times.detach().cpu().numpy() if isinstance(fail_times, torch.Tensor) \
+        else np.asarray(fail_times)
+    sched = FLT.schedule_from_episodes(
+        r, rack=[(i, int(ft[i]), t) for i in range(r) if ft[i] >= 0],
+        p_fault=p_idle, device=traces.device,
+    )
+    return torch.where(FLT.rack_down(sched, 0, t), float(np.float32(p_idle)), traces)
+
+
 def _health_params(cfg: pdu.PDUConfig) -> hlt.HealthParams:
     return cfg.health if cfg.health is not None else hlt.HealthParams.create(device=cfg.device)
 
@@ -85,13 +111,16 @@ def _condition_fleet_impl(
     plan=None,
 ) -> ConditioningResult:
     """One-shot: condition every rack over the whole trace; check campus
-    compliance on the whole campus means."""
+    compliance on the whole campus means.  ``ess_online``/``ess_weight``
+    (degraded mode) as in ``pdu.condition``."""
     traces = traces.to(device=cfg.device, dtype=F32)
     state = pdu.init_state(cfg, traces[0], soc0=soc0)
     grid, state_f, telem = pdu.condition(
         cfg, state, traces, qp_iters=qp_iters, use_plan=use_plan,
         ess_online=ess_online, ess_weight=ess_weight, plan=plan,
     )
+    on_frac = (torch.mean(telem.ess_online, dim=1) if cfg.degraded_mode
+               else torch.ones(telem.soc.shape[0], dtype=F32, device=cfg.device))
     # The campus means from inside the conditioning loop: the same
     # per-interval reductions the host engine folds, so the two engines
     # agree bit for bit.
@@ -103,6 +132,7 @@ def _condition_fleet_impl(
         report_rack=compliance.check(campus_rack, cfg.sample_dt, grid_spec),
         report_grid=compliance.check(campus_grid, cfg.sample_dt, grid_spec),
         health=hlt.report(_health_params(cfg), cfg.ess_params, state_f.health, cfg.sample_dt),
+        ess_online_frac=on_frac,
     )
 
 
@@ -141,6 +171,7 @@ def _make_bank(grid_spec: compliance.GridSpec, cfg: pdu.PDUConfig, n_total: int)
 
 def _finish_streaming(
     cfg, grid_spec, state, campus_rack, campus_grid, soc_mean, worst, bank, obs, health_trace,
+    ess_frac,
 ) -> ConditioningResult:
     """Assemble the result from streaming state: the compliance reports
     come from the cross-chunk observers (exact ramp, spec lines)."""
@@ -154,6 +185,7 @@ def _finish_streaming(
         max_qp_residual=worst,
         health_trace=health_trace,
         health=hlt.report(_health_params(cfg), cfg.ess_params, state.health, cfg.sample_dt),
+        ess_online_frac=ess_frac,
         grid_spec=grid_spec,
         bank=bank,
         observers=obs,
@@ -172,6 +204,8 @@ def _condition_fleet_streaming_impl(
     state: pdu.PDUState | None = None,
     ess_online=None,
     ess_weight=None,
+    faults=None,
+    fault_edge: int = 1,
     plan=None,
 ) -> ConditioningResult:
     """The host engine: campus conditioning in chunks of whole controller
@@ -180,12 +214,27 @@ def _condition_fleet_streaming_impl(
     engine computes.  ``traces`` is a (T, R) tensor or a chunk provider
     ``f(start, length) -> (length, R)`` with ``total_samples``.  ``state``
     resumes a previous stream at a controller-interval boundary (``soc0``
-    is then ignored); the engine never writes into it."""
+    is then ignored); the engine never writes into it.
+
+    Degraded mode: ``ess_online`` is the availability of the whole stream,
+    ``(n_ctrl_total, R)`` rows (sliced per chunk) or one ``(R,)`` mask;
+    ``ess_weight`` the per-sample ``(T, R)`` hardware weight (sliced by
+    sample).  ``faults`` (exclusive with both) is the stream's
+    ``FaultSchedule``, handed to every chunk with its absolute start."""
     if ess_online is not None or ess_weight is not None:
-        raise NotImplementedError(
-            "ess_online/ess_weight are not ported yet (ROADMAP.md queue 1 item 8)"
-        )
+        if not cfg.degraded_mode:
+            raise ValueError(
+                "ess_online/ess_weight require a degraded-mode config "
+                "(make_pdu(..., degraded_mode=True))")
+        if faults is not None:
+            raise ValueError("faults is mutually exclusive with ess_online/ess_weight")
+    if faults is not None and not cfg.degraded_mode:
+        raise ValueError("faults requires a degraded-mode config (make_pdu(..., degraded_mode=True))")
     dev = cfg.device
+    if ess_online is not None:
+        ess_online = torch.as_tensor(ess_online, dtype=F32, device=dev)
+    if ess_weight is not None:
+        ess_weight = torch.as_tensor(ess_weight, dtype=F32, device=dev)
     k = max(int(round(float(cfg.controller.dt) / cfg.sample_dt)), 1)
     n_int = max(int(chunk_intervals), 1)
     chunk = n_int * k
@@ -206,6 +255,7 @@ def _condition_fleet_streaming_impl(
     soc_mean = torch.zeros(n_chunks * n_int, dtype=F32, device=dev)
     worst = torch.zeros((), dtype=F32, device=dev)
     health_trace = torch.zeros((n_chunks, 3), dtype=F32, device=dev)
+    ess_frac = torch.ones(n_chunks * n_int, dtype=F32, device=dev)
     obs = _observers_init(bank, dev)
     for c_idx, t0 in enumerate(range(0, t_total, chunk)):
         # The trailing partial chunk runs at its natural length;
@@ -214,17 +264,27 @@ def _condition_fleet_streaming_impl(
         tr = provider(t0, n).to(device=dev, dtype=F32)
         if tr.ndim == 1:  # unbatched trace: a 1-rack fleet
             tr = tr[:, None]
-        state, ch = pdu.condition_campus(cfg, state, tr, qp_iters=qp_iters, plan=plan)
+        deg = {}
+        if faults is not None:
+            deg = dict(faults=faults, chunk_start=t0, fault_edge=fault_edge)
+        elif cfg.degraded_mode:
+            on = ess_online
+            if on is not None and on.ndim >= 2:
+                on = on[c_idx * n_int : c_idx * n_int + -(-n // k)]
+            deg = dict(ess_online=on,
+                       ess_weight=None if ess_weight is None else ess_weight[t0 : t0 + n])
+        state, ch = pdu.condition_campus(cfg, state, tr, qp_iters=qp_iters, plan=plan, **deg)
         campus_rack[t0 : t0 + n] = ch.campus_rack
         campus_grid[t0 : t0 + n] = ch.campus_grid
         m = ch.soc_mean.shape[0]
         soc_mean[c_idx * n_int : c_idx * n_int + m] = ch.soc_mean
+        ess_frac[c_idx * n_int : c_idx * n_int + m] = ch.ess_online_frac
         worst = torch.maximum(worst, ch.max_qp_residual)
         health_trace[c_idx] = ch.health
         obs = _observers_update(obs, bank, ch, cfg.sample_dt)
     return _finish_streaming(
         cfg, grid_spec, state, campus_rack[:t_total], campus_grid[:t_total],
-        soc_mean[:n_ctrl], worst, bank, obs, health_trace,
+        soc_mean[:n_ctrl], worst, bank, obs, health_trace, ess_frac[:n_ctrl],
     )
 
 
@@ -234,6 +294,30 @@ def _check_scenario_rate(scenario, cfg: pdu.PDUConfig) -> None:
             f"scenario sample rate {scenario.sample_hz} Hz != PDU sample_dt "
             f"{cfg.sample_dt} s; build the PDU with sample_dt=1/sample_hz"
         )
+    if scenario.faults is not None and not cfg.degraded_mode:
+        raise ValueError(
+            "the scenario has a fault schedule attached; conditioning it requires a "
+            "degraded-mode config (make_pdu(..., degraded_mode=True)) so ESS trips are "
+            "masked and sensor-dropout NaN samples are bridged"
+        )
+
+
+def _scenario_fault_data(cfg: pdu.PDUConfig, scenario) -> dict:
+    """The streamed availability mask and hardware weight of a scenario's
+    fault schedule, for the engines that take them as data: the same
+    functions the fast path renders from the episode tables, so every
+    engine gives the same numbers."""
+    from repro_torch.power import faults as FLT
+
+    if not (cfg.degraded_mode and scenario.faults is not None):
+        return {}
+    k = max(int(round(float(cfg.controller.dt) / cfg.sample_dt)), 1)
+    n_ctrl = -(-scenario.total_samples // k)
+    return {
+        "ess_online": FLT.interval_online(scenario.faults, 0, n_ctrl, k),
+        "ess_weight": FLT.ess_weight(scenario.faults, 0, scenario.total_samples,
+                                     scenario.edge_width),
+    }
 
 
 @dataclasses.dataclass(frozen=True)
@@ -278,22 +362,22 @@ def condition(
     ``"oneshot"``.  ``device`` is where every tensor of the run lives; it
     defaults to ``"cuda"`` (raising without a card) and must be the
     config's device (``make_pdu(device=...)``).  Remaining keywords
-    (``soc0``, ``qp_iters``, ``use_plan``, ``plan``) pass through.
+    (``soc0``, ``qp_iters``, ``use_plan``, ``plan``, and under a
+    degraded-mode config ``ess_online``/``ess_weight``) pass through.
     """
     dev = resolve_device(device)
     if dev != cfg.device:
         raise ValueError(f"device {dev} does not match the config's device {cfg.device}")
     if mesh is not None:
         raise NotImplementedError(
-            "multi-GPU rack sharding (mesh=) comes with the grid-region slice "
-            "(ROADMAP.md queue 1 item 9)"
+            "multi-GPU rack sharding (mesh=) is not ported yet (ROADMAP.md queue 1 item 9)"
         )
     if hasattr(target, "campuses"):
-        raise NotImplementedError("grid regions are not ported yet (ROADMAP.md queue 1 item 9)")
+        raise NotImplementedError("grid regions are not ported yet (ROADMAP.md queue 1 item 5)")
     if engine == "scanned":
         raise NotImplementedError(
             "engine='scanned' (the chunk loop captured in a CUDA graph) is not "
-            "ported yet (ROADMAP.md queue 1 item 7); use engine='host'"
+            "ported yet (ROADMAP.md queue 1 item 3); use engine='host'"
         )
     spec = compliance.GridSpec.create(device=dev) if grid_spec is None else grid_spec
     so = _as_stream_options(stream)
@@ -308,12 +392,24 @@ def condition(
         if so.total_samples is not None:
             raise ValueError("stream total_samples is for chunk providers; a Scenario has its own")
         if engine == "host":
+            faulty = cfg.degraded_mode and target.faults is not None
+            if faulty and ("ess_online" in kwargs or "ess_weight" in kwargs):
+                # Caller overrides win; the missing half is derived the
+                # streamed way, so overriding one does not change the other.
+                for key, val in _scenario_fault_data(cfg, target).items():
+                    if kwargs.get(key) is None:
+                        kwargs[key] = val
+                faulty = False
+            if faulty:
+                kwargs.update(faults=target.faults, fault_edge=target.edge_width)
             return _condition_fleet_streaming_impl(
                 cfg, SC.chunk_provider(target), spec,
                 total_samples=target.total_samples,
                 chunk_intervals=so.chunk_intervals, state=so.state, **kwargs,
             )
         if engine == "oneshot":
+            for key, val in _scenario_fault_data(cfg, target).items():
+                kwargs.setdefault(key, val)
             tr = SC.render(target, 0, target.total_samples)
             if tr.ndim == 1:
                 tr = tr[:, None]

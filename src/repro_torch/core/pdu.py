@@ -1,6 +1,6 @@
 """The composed EasyRider PDU (paper §4-§6): filter + ESS + controller.
 
-Port of ``repro.core.pdu`` on the clean path.  Signal chain (per-unit,
+Port of ``repro.core.pdu`` with degraded mode.  Signal chain (per-unit,
 powers as fractions of rated rack power):
 
     rack power --(ESS ramp control, Eq. 2)--> node power g
@@ -15,10 +15,17 @@ then one batched ADMM solve (the ``admm_step`` kernel) produces the next
 command.  JAX scanned this loop with ``lax.scan``; here it is a Python
 loop of launches.
 
-Degraded mode, safe mode, fault schedules and the build-per-step
-(``use_plan=False``) controller are later slices of the port (ROADMAP.md,
-queue 1 item 8); asking for them raises ``NotImplementedError``.
-``PDUState`` keeps the reference's field names so they extend it.
+Degraded mode (``make_pdu(degraded_mode=True)``) honours ESS availability
+(offline units run in LC passthrough with zeroed commands), bridges NaN
+sensor dropouts with a last-good-sample hold and forces a rack that is
+dark for a whole interval into passthrough; ``condition`` takes the
+availability as streamed arrays (``ess_online``, ``ess_weight``) or, the
+fast path, as the fault schedule itself (``faults``), whose per-sample ESS
+weight the ``pdu_health`` kernel renders from the episode tables.  Safe
+mode and the build-per-step (``use_plan=False``) controller are later
+slices of the port (ROADMAP.md queue 1 items 2 and 4); asking for them
+raises ``NotImplementedError``.  ``PDUState`` keeps the reference's field
+names.
 """
 from __future__ import annotations
 
@@ -31,11 +38,14 @@ import torch
 from repro_torch.core import compliance, controller as ctrl, ess, filters, \
     health as hlt, sizing
 from repro_torch.kernels import ops
+from repro_torch.power import faults as flt
 from repro_torch.utils.devices import resolve_device
 from repro_torch.utils.structures import Struct
 
 F32 = torch.float32
-_LATER = "is not ported yet: it comes with ROADMAP.md queue 1 item 8 (degraded and safe mode)"
+_SAFEMODE = "safemode is not ported yet: it comes with ROADMAP.md queue 1 item 4 (safe mode)"
+_USE_PLAN = ("use_plan=False is not ported yet: it comes with ROADMAP.md queue 1 item 2 "
+             "(the controller's per-step oracle)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +59,8 @@ class PDUConfig(Struct):
     # Fold per-sample battery wear telemetry into the conditioning loop
     # (pure observation: grid/SoC outputs are unchanged).
     track_health: bool = False
+    # Honour ESS availability, bridge NaN sensor dropouts and trip
+    # measurement-blind racks into passthrough (see ``condition``).
     degraded_mode: bool = False
     safemode: bool = False
 
@@ -90,8 +102,8 @@ def make_pdu(
     ``capacity_margin``, the ESS designed to ``beta / ramp_margin``).
     The sizing runs in float64 on the host; the config's tensors land on
     ``device``."""
-    if degraded_mode or safemode:
-        raise NotImplementedError(f"degraded_mode/safemode {_LATER}")
+    if safemode:
+        raise NotImplementedError(_SAFEMODE)
     dev = resolve_device(device)
     rack = rack or sizing.prototype_rack()
     grid = grid or compliance.GridSpec.create(device=dev)
@@ -115,6 +127,7 @@ def make_pdu(
         sample_dt=sample_dt,
         software_enabled=software_enabled,
         track_health=track_health,
+        degraded_mode=degraded_mode,
     )
 
 
@@ -128,8 +141,9 @@ class PDUState(NamedTuple):
     soc_ema: torch.Tensor  # BMS measurement filter (slow SoC estimate)
     qp_warm: ctrl.QPWarmState  # ADMM iterates carried across intervals/chunks
     health: hlt.HealthState  # battery wear telemetry (zeros unless tracked)
-    # Degraded-mode state (manual ESS override, last finite sample) and the
-    # safe-mode supervisor: carried for the later slices that use them.
+    # Degraded-mode state: the operator's ESS availability override (1 =
+    # available) and the last finite sample per rack (seeds the sensor
+    # bridge).  The safe-mode supervisor comes with its slice.
     ess_online: torch.Tensor = None
     last_good: torch.Tensor = None
     safemode: object = None
@@ -168,8 +182,25 @@ class Telemetry(NamedTuple):
     command: torch.Tensor  # corrective power commanded per interval
     target: torch.Tensor  # outer-loop SoC target per interval
     qp_residual: torch.Tensor  # QP primal residual per interval (0 if sw off)
-    rack_mean: torch.Tensor = None  # (T,) campus mean of the input trace
+    rack_mean: torch.Tensor = None  # (T,) campus mean of the (bridged) input trace
     grid_mean: torch.Tensor = None  # (T,) campus mean of the grid trace
+    ess_online: torch.Tensor = None  # (n_ctrl, ...) applied availability (degraded mode)
+
+
+def bridge_sensors(last_good: torch.Tensor, rack_power: torch.Tensor):
+    """Replace NaN (sensor-dropout) samples with the most recent finite
+    sample per rack; ``last_good`` seeds racks whose first samples are dark.
+    Returns ``(bridged, new_last_good)``.  A gather of the last finite
+    sample at or before each index, so chunked bridging with the carried
+    ``last_good`` equals whole-trace bridging bit for bit."""
+    t = rack_power.shape[0]
+    finite = torch.isfinite(rack_power)
+    idx = torch.arange(t, device=rack_power.device).reshape((t,) + (1,) * (rack_power.ndim - 1))
+    last_pos = torch.cummax(torch.where(finite, idx, -1), dim=0).values
+    vals = torch.where(finite, rack_power, 0.0)
+    held = torch.gather(vals, 0, torch.clamp(last_pos, min=0))
+    bridged = torch.where(last_pos >= 0, held, last_good)
+    return bridged, bridged[-1]
 
 
 def hw_kwargs(cfg: PDUConfig) -> dict:
@@ -183,6 +214,11 @@ def hw_kwargs(cfg: PDUConfig) -> dict:
     )
 
 
+def _zoh_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """``x`` with its last row repeated ``pad`` more times."""
+    return torch.cat([x, x[-1:].expand((pad,) + x.shape[1:])], dim=0) if pad else x
+
+
 def condition(
     cfg: PDUConfig,
     state: PDUState,
@@ -193,7 +229,9 @@ def condition(
     use_plan: bool = True,
     ess_online=None,
     ess_weight=None,
-    faults=None,
+    faults: flt.FaultSchedule | None = None,
+    chunk_start: int = 0,
+    fault_edge: int = 1,
     plan: ctrl.ControllerPlan | None = None,
 ) -> tuple[torch.Tensor, PDUState, Telemetry]:
     """Condition a trace chunk; carries state across calls (streaming).
@@ -206,13 +244,38 @@ def condition(
     intervals and the pad discarded.  ``plan`` overrides the factor-once
     controller plan (``ctrl.make_plan``), e.g. with one carried from the
     JAX package (``convert.plan_from_numpy``).
+
+    Degraded mode (``cfg.degraded_mode``), as the reference's:
+    ``ess_online`` is the per-interval availability (``(n_ctrl, ...)`` rows
+    or one ``(...)`` mask for every interval); offline racks run in LC
+    passthrough with zeroed commands and reset warm iterates.  NaN samples
+    are bridged (``bridge_sensors`` from ``state.last_good``), and a rack
+    with no finite sample in an interval is forced into passthrough for it.
+    ``ess_weight`` (shaped like ``rack_power``) is the per-sample hardware
+    weight (``faults.ess_weight``); ``ess_online`` then still governs the
+    software plane.  ``faults`` (exclusive with both) is the fast path for
+    the same semantics: the chunk's absolute ``chunk_start`` and the
+    schedule's ``fault_edge`` let the interval masks, the sensor bridge and
+    the per-sample weight come from the episode tables, the last rendered
+    inside the ``pdu_health`` kernel (``ess_events``).  Its outputs equal
+    the streamed arrays' bit for bit at any chunk split.
     """
-    if cfg.degraded_mode or cfg.safemode:
-        raise NotImplementedError(f"degraded_mode/safemode {_LATER}")
-    if ess_online is not None or ess_weight is not None or faults is not None:
-        raise NotImplementedError(f"ess_online/ess_weight/faults {_LATER}")
+    degraded = cfg.degraded_mode
+    if cfg.safemode:
+        raise NotImplementedError(_SAFEMODE)
     if not use_plan:
-        raise NotImplementedError(f"use_plan=False {_LATER}")
+        raise NotImplementedError(_USE_PLAN)
+    if (ess_online is not None or ess_weight is not None) and not degraded:
+        raise ValueError("ess_online/ess_weight require a cfg with degraded_mode=True")
+    fast = faults is not None
+    if fast:
+        if not degraded:
+            raise ValueError("faults requires a cfg with degraded_mode=True")
+        if ess_online is not None or ess_weight is not None:
+            raise ValueError(
+                "pass either a FaultSchedule or explicit ess_online/ess_weight arrays, not both")
+        if rack_power.ndim < 2:
+            raise ValueError("the fault fast path needs a batched (T, R) trace")
     if rack_power.ndim > 2:
         raise ValueError("rack_power must be (T,) or (T, R)")
     dev = cfg.device
@@ -223,12 +286,42 @@ def condition(
     pad = n_ctrl * k - t
     batched = rack_power.ndim == 2
     rc_all = (rack_power if batched else rack_power[:, None]).to(device=dev, dtype=F32)
-    if pad:
-        rc_all = torch.cat([rc_all, rc_all[-1:].expand(pad, -1)], dim=0)
-    chunks = rc_all.contiguous().reshape(n_ctrl, k, rc_all.shape[1])
-
+    n_r = rc_all.shape[1]
     lift = (lambda x: x) if batched else (lambda x: x[None])
     drop = (lambda x: x) if batched else (lambda x: x[0])
+    last_good = state.last_good
+
+    # --- degraded mode: the interval masks and the hardware weight ---------
+    if degraded:
+        ess_base = lift(state.ess_online).to(F32).expand(n_r)
+    if fast:
+        cs = int(chunk_start)
+        t_last = cs + t - 1
+        sensed = flt.interval_sensed(faults, cs, n_ctrl, k, stop=cs + t)
+        arg_rows = flt.interval_online(faults, cs, n_ctrl, k)
+        hw_base = ess_base * sensed.to(F32)
+        on_rows = arg_rows * hw_base
+        ev_st = faults.ess_start.T.contiguous()
+        ev_en = faults.ess_end.T.contiguous()
+        lg = lift(last_good).to(F32)
+    elif degraded:
+        finite = _zoh_pad(torch.isfinite(rc_all), pad)
+        sensed = torch.any(finite.reshape(n_ctrl, k, n_r), dim=1)
+        rc_all, lg_new = bridge_sensors(lift(last_good).to(F32), rc_all)
+        last_good = drop(lg_new)
+        if ess_online is None:
+            arg_rows = torch.ones((n_ctrl, n_r), dtype=F32, device=dev)
+        else:
+            on = torch.as_tensor(ess_online, dtype=F32, device=dev)
+            arg_rows = (on if batched else on[..., None]).expand(n_ctrl, n_r)
+        hw_base = ess_base * sensed.to(F32)
+        on_rows = arg_rows * hw_base
+        if ess_weight is not None:
+            wt = torch.as_tensor(ess_weight, dtype=F32, device=dev)
+            wt = _zoh_pad(wt if batched else wt[:, None], pad)
+            hw_chunks = wt.reshape(n_ctrl, k, n_r) * hw_base[:, None]
+    chunks = _zoh_pad(rc_all, pad).contiguous().reshape(n_ctrl, k, n_r)
+
     filt = state.filter_obj
     meas_w = min(float(cfg.controller.dt) / float(cfg.controller.meas_tau), 1.0)
     if cfg.software_enabled and plan is None:
@@ -245,12 +338,37 @@ def condition(
     u_prev, soc_ema, warm, hstate = state.u_prev, state.soc_ema, state.qp_warm, state.health
     grids, socs, cmds, tgts, resids, rack_means, grid_means = ([] for _ in range(7))
     for i in range(n_ctrl):
-        # --- hardware path: one pdu_health launch per interval -----------
         rc = chunks[i]
+        mask_kw, on_row = {}, None
+        if fast:
+            # --- sensor bridge from the schedule --------------------------
+            # Dark samples take the raw value at the covering episode's
+            # start - 1 (always finite: episodes are coalesced), or the
+            # carried last-good row when that index precedes this interval;
+            # indices clamp to the last real sample, so ZOH pad rows repeat
+            # its bridge.  Equal to bridge_sensors over the whole chunk.
+            i0 = cs + i * k
+            idx = torch.clamp(i0 + torch.arange(k, dtype=torch.int32, device=dev), max=t_last)
+            dark, hold = flt.sensor_dark_hold(faults, idx)
+            loc = (hold - i0).to(torch.int64)
+            held = torch.gather(torch.where(dark, 0.0, rc), 0, torch.clamp(loc, 0, k - 1))
+            # (The schedule's signals are transposed views: without the copy
+            # the result would be column-major, and the campus mean below
+            # would sum in another order than the streamed path's.)
+            rc = torch.where(dark, torch.where(loc >= 0, held, lg), rc).contiguous()
+            lg = rc[-1]
+            on_row = on_rows[i]
+            mask_kw = dict(ess_events=(ev_st, ev_en, hw_base[i], i0, t_last),
+                           ess_edge=int(fault_edge))
+        elif degraded:
+            on_row = on_rows[i]
+            mask_kw = dict(ess_on=on_row if ess_weight is None else hw_chunks[i])
+
+        # --- hardware path: one pdu_health launch per interval -----------
         health_in = (hconsts, tuple(lift(leaf) for leaf in hstate)) if cfg.track_health else None
         grid, _soc_path, (g_f, soc_f, x_new), h_leaves = ops.pdu_health_sim(
             rc, lift(es.g_filter), lift(es.soc), lift(x_f), *lc,
-            slew=(lift(cmd_applied), lift(cmd_target)), health=health_in, **hw_kw,
+            slew=(lift(cmd_applied), lift(cmd_target)), health=health_in, **mask_kw, **hw_kw,
         )
         rack_means.append(torch.mean(rc, dim=1))
         grid_means.append(torch.mean(grid, dim=1))
@@ -276,6 +394,7 @@ def condition(
             out, warm = ctrl.inner_loop_step_plan(
                 cfg.controller, cfg.ess_params, plan, soc_meas, s_target,
                 u_prev, warm, qp_iters=qp_iters,
+                active=None if on_row is None else drop(on_row),
             )
             new_cmd, resid = out.corrective_power, out.qp_primal_residual
         else:
@@ -289,16 +408,20 @@ def condition(
         cmd_applied, cmd_target = cmd_target, new_cmd
         soc_ema, es, hstate = soc_meas, es2, hstate2
 
+    if fast:
+        last_good = drop(lg)
     grid = torch.cat(grids, dim=0)[:t]
     grid = grid if batched else grid[:, 0]
     new_state = state._replace(
         filter_state=x_f, ess_state=es, u_prev=u_prev, cmd_applied=cmd_applied,
         cmd_target=cmd_target, soc_ema=soc_ema, qp_warm=warm, health=hstate,
+        last_good=last_good,
     )
     return grid, new_state, Telemetry(
         soc=torch.stack(socs), command=torch.stack(cmds), target=torch.stack(tgts),
         qp_residual=torch.stack(resids),
         rack_mean=torch.cat(rack_means)[:t], grid_mean=torch.cat(grid_means)[:t],
+        ess_online=None if not degraded else (on_rows if batched else on_rows[:, 0]),
     )
 
 
@@ -310,6 +433,9 @@ class CampusChunk(NamedTuple):
     soc_mean: torch.Tensor  # (n_ctrl,) fleet-mean SoC per control interval
     max_qp_residual: torch.Tensor  # () worst QP primal residual in the chunk
     health: torch.Tensor  # (3,) [mean EFC, max fade, max DoD] at chunk end
+    # (n_ctrl,) fraction of ESS units online per interval (ones unless the
+    # cfg runs degraded_mode).
+    ess_online_frac: torch.Tensor = None
 
 
 def condition_campus(
@@ -322,13 +448,16 @@ def condition_campus(
     ess_online=None,
     ess_weight=None,
     faults=None,
+    chunk_start: int = 0,
+    fault_edge: int = 1,
     plan: ctrl.ControllerPlan | None = None,
 ) -> tuple[PDUState, CampusChunk]:
     """One streaming-campus step: condition a chunk and reduce it to campus
     aggregates (the per-rack grid block never leaves the step)."""
     _, state2, telem = condition(
         cfg, state, rack_power, qp_iters=qp_iters, use_plan=use_plan,
-        ess_online=ess_online, ess_weight=ess_weight, faults=faults, plan=plan,
+        ess_online=ess_online, ess_weight=ess_weight, faults=faults,
+        chunk_start=chunk_start, fault_edge=fault_edge, plan=plan,
     )
     if cfg.track_health:
         hsnap = hlt.chunk_aggregates(cfg.health, state2.health, cfg.sample_dt)
@@ -340,6 +469,8 @@ def condition_campus(
         soc_mean=torch.mean(telem.soc, dim=1),
         max_qp_residual=torch.amax(telem.qp_residual),
         health=hsnap,
+        ess_online_frac=(torch.mean(telem.ess_online, dim=1) if cfg.degraded_mode
+                         else torch.ones(telem.soc.shape[0], dtype=F32, device=cfg.device)),
     )
 
 

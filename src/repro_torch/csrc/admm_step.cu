@@ -16,8 +16,12 @@
 // are staged in shared memory once per block; every thread of a warp reads
 // the same element at the same time, so those reads are broadcasts.  The
 // column's x (2h), z (3h) and y (3h) stay in registers for all iterations
-// (h is a template parameter, instantiated for h = 12, so the arrays are
-// fully unrolled); the [x; rho z - y] operand is built in place of z
+// (h is a template parameter, instantiated for h = 12 and h = 24, so the
+// arrays are fully unrolled; the wrapper pads any other horizon up to the
+// next one with decoupled zero variables, which leaves the real iterates'
+// bits unchanged, and h = 24's plan, 27.6 kB, is the largest that fits the
+// 48 kB of static shared memory with room to spare); the [x; rho z - y]
+// operand is built in place of z
 // without being stored.  kq, lo and hi are re-read (coalesced) each
 // iteration to save registers.  FP32 FMA on the CUDA cores, no tensor
 // cores; y / rho stays a division, as in the reference.  The summation
@@ -107,7 +111,7 @@ admm_kernel(const float* __restrict__ ks, const float* __restrict__ gb,
 // kkt_stack: (2h, 5h); g_blk: (h, 2h); kq, x0, x_out: (2h, R);
 // lo, hi, z0, y0, z_out, y_out: (3h, R).  All float32, row-major, on the
 // device.  Returns the launch's cudaError_t (cudaErrorInvalidValue for a
-// horizon that is not instantiated).
+// horizon that is not instantiated: 12 and 24 are).
 extern "C" int admm_step_launch(const float* kkt_stack, const float* g_blk, const float* kq,
                                 const float* lo, const float* hi, const float* x0,
                                 const float* z0, const float* y0, float* x_out,
@@ -119,6 +123,10 @@ extern "C" int admm_step_launch(const float* kkt_stack, const float* g_blk, cons
   switch (h) {
     case 12:
       admm_kernel<12><<<grid_dim, kThreads, 0, s>>>(kkt_stack, g_blk, kq, lo, hi, x0, z0,
+                                                     y0, x_out, z_out, y_out, R, rho, iters);
+      break;
+    case 24:
+      admm_kernel<24><<<grid_dim, kThreads, 0, s>>>(kkt_stack, g_blk, kq, lo, hi, x0, z0,
                                                      y0, x_out, z_out, y_out, R, rho, iters);
       break;
     default:

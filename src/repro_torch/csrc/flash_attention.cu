@@ -15,7 +15,8 @@
 // This first kernel runs its products as FP32 FMAs on the CUDA cores
 // (67 TFLOP/s peak), so it is bound by its own arithmetic, not by the card.
 //
-// Design: one 256-thread block per (batch x head, 64-row query tile).  The
+// Design: one 256-thread block per (batch x head, 64-row query tile), the
+// batch-head index on gridDim.x (up to 2^31 - 1, so any B * H runs).  The
 // query tile and each 64-key K/V tile are staged in shared memory as
 // float32 (padded rows, so the column reads are free of bank conflicts).
 // Each thread owns a 4 x 4 patch of the 64 x 64 score tile (rows
@@ -28,7 +29,11 @@
 // tails: query rows past Tq are zero and not stored; key columns past Tk
 // get -inf (probability exactly 0).  Strides are passed per tensor (the
 // last axis contiguous), so the (B, T, H, D) projections are read without
-// a transposing copy.
+// a transposing copy.  Head dims 32, 64, 128, 160 and 192 are instantiated
+// exactly (D / 16 output columns per thread), those of the backward
+// kernels; the wrapper zero-pads any other D up to the next one.  Shared
+// memory is 4 (2 * 64 (D + 1) + 64 D + 64 * 65) bytes: 140,032 at D = 160
+// and 164,608 at 192, inside the 232,448 a block may opt into.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -92,15 +97,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int tid = threadIdx.x;
   const int tr = tid / 16;  // row group: tile rows 4 tr .. 4 tr + 3
   const int tc = tid % 16;  // column lane: columns tc + 16 j
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int hk = h / (H / Hkv);
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = blockIdx.y * kBQ;
   const int q_offset = causal ? Tk - Tq : 0;
 
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + hk * sk.h;
-  const T* vb = v + b * sv.b + hk * sv.h;
+  const T* qb = q + (long long)b * sq.b + (long long)h * sq.h;
+  const T* kb = k + (long long)b * sk.b + (long long)hk * sk.h;
+  const T* vb = v + (long long)b * sv.b + (long long)hk * sv.h;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
@@ -202,7 +207,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int qi = q0 + 4 * tr + ii;
     if (qi >= Tq) continue;
     const float lc = fmaxf(l[ii], 1e-30f);
-    T* orow = o + b * so.b + h * so.h + (long long)qi * so.t;
+    T* orow = o + (long long)b * so.b + (long long)h * so.h + (long long)qi * so.t;
 #pragma unroll
     for (int c = 0; c < DC; ++c) orow[tc + 16 * c] = from_f<T>(acc[ii][c] / lc);
     if (tc == 0) lse[(long long)bh * Tq + qi] = m[ii] + logf(lc);
@@ -217,7 +222,7 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v, void* o, f
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + kBQ - 1) / kBQ, B * H);
+  const dim3 grid(B * H, (Tq + kBQ - 1) / kBQ);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, H, Hkv, Tq, Tk, sq, sk, sv, so, scale, causal);
@@ -238,6 +243,12 @@ cudaError_t launch_dim(int D, const void* q, const void* k, const void* v, void*
     case 128:
       return launch_typed<T, 128>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, sq, sk, sv, so, scale,
                                   causal, s);
+    case 160:
+      return launch_typed<T, 160>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, sq, sk, sv, so, scale,
+                                  causal, s);
+    case 192:
+      return launch_typed<T, 192>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, sq, sk, sv, so, scale,
+                                  causal, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -248,16 +259,17 @@ cudaError_t launch_dim(int D, const void* q, const void* k, const void* v, void*
 // q: (B, H, Tq, D), k and v: (B, Hkv, Tk, D), o: (B, H, Tq, D), each given
 // by its batch/head/sequence element strides with the last axis
 // contiguous; lse: (B, H, Tq) float32 contiguous.  dtype 0 = float32,
-// 1 = bfloat16 (q, k, v and o alike).  D in {32, 64, 128}; H a multiple of
-// Hkv; causal needs Tq <= Tk.  Returns the launch's CUDA error code.
+// 1 = bfloat16 (q, k, v and o alike).  D in {32, 64, 128, 160, 192};
+// H a multiple of Hkv; B * H < 2^31 and Tq <= 64 * 65535; causal needs
+// Tq <= Tk.  Returns the launch's CUDA error code.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o, void* lse,
                                 int B, int H, int Hkv, int Tq, int Tk, int D, long long sqb,
                                 long long sqh, long long sqt, long long skb, long long skh,
                                 long long skt, long long svb, long long svh, long long svt,
                                 long long sob, long long soh, long long sot, float scale,
                                 int causal, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Tq <= 0 || Tk <= 0 || B * H > 65535 ||
-      (causal && Tq > Tk))
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Tq <= 0 || Tk <= 0 ||
+      (long long)B * H > 2147483647LL || (Tq + kBQ - 1) / kBQ > 65535 || (causal && Tq > Tk))
     return (int)cudaErrorInvalidValue;
   const Strides sq{sqb, sqh, sqt}, sk{skb, skh, skt}, sv{svb, svh, svt}, so{sob, soh, sot};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -39,7 +39,12 @@
 // dQ.  No atomics: every output element has one writer, so a training
 // step is deterministic.  Ragged tails: query rows past Tq and keys past
 // Tk load as zeros and get p = 0, and are not stored.  Strides are passed
-// per tensor (the last axis contiguous), as in the forward.
+// per tensor (the last axis contiguous), as in the forward.  The batch-head
+// index rides gridDim.x, so any B * H runs.  Head dims 32, 64, 128, 160
+// and 192 are instantiated exactly; the dK/dV kernel's shared memory is
+// 4 (4 * 64 (D + 1) + 2 * 64 * 65) bytes, 198,144 at D = 160 and 230,912 at
+// 192 of the 232,448 a block may opt into, so D = 256 (296 KB) does not fit
+// these FP32 tiles and is refused.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -135,10 +140,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int tid = threadIdx.x;
   const int tr = tid / 16;  // row group: tile rows 4 tr .. 4 tr + 3
   const int tc = tid % 16;  // column lane: columns tc + 16 j
-  const int bhk = blockIdx.y;
+  const int bhk = blockIdx.x;
   const int b = bhk / Hkv, hk = bhk % Hkv;
   const int groups = H / Hkv;
-  const int k0 = blockIdx.x * kBK;
+  const int k0 = blockIdx.y * kBK;
   const int q_offset = causal ? Tk - Tq : 0;
 
   stage<T, D>(sK, k + b * sk.b + hk * sk.h, sk.t, k0, Tk);
@@ -243,10 +248,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int tid = threadIdx.x;
   const int tr = tid / 16;
   const int tc = tid % 16;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int hk = h / (H / Hkv);
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = blockIdx.y * kBQ;
   const int q_offset = causal ? Tk - Tq : 0;
 
   stage<T, D>(sQ, q + b * sq.b + h * sq.h, sq.t, q0, Tq);
@@ -337,7 +342,7 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Tk + kBK - 1) / kBK, a.B * a.Hkv);
+  const dim3 grid(a.B * a.Hkv, (a.Tk + kBK - 1) / kBK);
   flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.out0),
@@ -352,7 +357,7 @@ cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Tq + kBQ - 1) / kBQ, a.B * a.H);
+  const dim3 grid(a.B * a.H, (a.Tq + kBQ - 1) / kBQ);
   flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.out0), a.H, a.Hkv, a.Tq,
@@ -375,6 +380,10 @@ cudaError_t launch_dim(int which, int D, const Args& a, cudaStream_t s) {
       return launch_which<T, 64>(which, a, s);
     case 128:
       return launch_which<T, 128>(which, a, s);
+    case 160:
+      return launch_which<T, 160>(which, a, s);
+    case 192:
+      return launch_which<T, 192>(which, a, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -384,9 +393,9 @@ int launch(int which, const void* q, const void* k, const void* v, const void* d
            const void* lse, const void* delta, void* out0, void* out1, int B, int H, int Hkv,
            int Tq, int Tk, int D, const long long* st, float scale, int causal, int dtype,
            void* stream) {
-  const int rows = which == 0 ? B * Hkv : B * H;
-  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Tq <= 0 || Tk <= 0 || rows > 65535 ||
-      (causal && Tq > Tk) || (which != 0 && which != 1))
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Tq <= 0 || Tk <= 0 ||
+      (long long)B * H > 2147483647LL || (Tq + kBQ - 1) / kBQ > 65535 ||
+      (Tk + kBK - 1) / kBK > 65535 || (causal && Tq > Tk) || (which != 0 && which != 1))
     return (int)cudaErrorInvalidValue;
   Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
          out0, out1, B, H, Hkv, Tq, Tk,
@@ -407,8 +416,8 @@ int launch(int which, const void* q, const void* k, const void* v, const void* d
 // and delta: (B, H, Tq) float32 contiguous.  strides holds 18 values: q,
 // k, v, dout, then dk and dv (of shape (B, Hkv, Tk, D)).  dtype 0 =
 // float32, 1 = bfloat16 (all of q, k, v, dout, dk, dv).  D in {32, 64,
-// 128}; H a multiple of Hkv; causal needs Tq <= Tk.  Returns the launch's
-// CUDA error code.
+// 128, 160, 192}; H a multiple of Hkv; causal needs Tq <= Tk.  Returns the
+// launch's CUDA error code.
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,
                                     void* dk, void* dv, int B, int H, int Hkv, int Tq, int Tk,

@@ -16,8 +16,11 @@
 // warp with shuffles and, for a block, across warps through shared memory.
 // The scale is 1 / sqrt(...) in round-to-nearest (not the approximate
 // rsqrtf), and the result is cast to the input type once, at the end.
-// Supports float32 and bfloat16 with D a multiple of 8 (so every row
-// starts on a 16-byte boundary).
+// Supports float32 and bfloat16.  Rows whose D is a multiple of 8 (so
+// every row starts on a 16-byte boundary) and fits 8 vectors per thread
+// take the vector path; any other D (or an unaligned tensor) takes a
+// scalar path: one 256-thread block per row, the sum of squares over a
+// strided loop, the row read a second time (from L1/L2) for the output.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,6 +37,20 @@ template <>
 struct Vec<__nv_bfloat16> {
   static constexpr int N = 8;
 };
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 template <typename T>
 __device__ __forceinline__ void unpack(const uint4& u, float* f);
@@ -130,6 +147,31 @@ __global__ void rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+constexpr int kAnyThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kAnyThreads)
+rmsnorm_any_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y, int d,
+                   float eps) {
+  const T* xr = x + (long long)blockIdx.x * d;
+  T* yr = y + (long long)blockIdx.x * d;
+  float ss = 0.f;
+  for (int i = threadIdx.x; i < d; i += kAnyThreads) {
+    const float f = to_float(xr[i]);
+    ss = fmaf(f, f, ss);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  __shared__ float part[kAnyThreads / 32];
+  if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = ss;
+  __syncthreads();
+  ss = 0.f;
+  for (int i = 0; i < kAnyThreads / 32; ++i) ss += part[i];  // same order in every thread
+  const float inv = 1.0f / sqrtf(ss / (float)d + eps);
+  for (int i = threadIdx.x; i < d; i += kAnyThreads)
+    yr[i] = from_float<T>((to_float(xr[i]) * inv) * to_float(w[i]));
+}
+
 template <typename T>
 cudaError_t launch_typed(const void* x, const void* w, void* y, int rows, int d, float eps,
                          cudaStream_t stream) {
@@ -137,6 +179,12 @@ cudaError_t launch_typed(const void* x, const void* w, void* y, int rows, int d,
   const T* wp = static_cast<const T*>(w);
   T* yp = static_cast<T*>(y);
   const int nvec = d / Vec<T>::N;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+                         reinterpret_cast<uintptr_t>(y)) % 16) == 0;
+  if (d % 8 != 0 || !aligned || nvec > 8 * 1024) {
+    rmsnorm_any_kernel<T><<<rows, kAnyThreads, 0, stream>>>(xp, wp, yp, d, eps);
+    return cudaGetLastError();
+  }
   if (d <= 256) {  // one warp per row, 8 rows per block
     const int blocks = (rows + 7) / 8;
     if (nvec <= 32)
@@ -164,11 +212,11 @@ cudaError_t launch_typed(const void* x, const void* w, void* y, int rows, int d,
 
 }  // namespace
 
-// x, y: (rows, d) contiguous, 16-byte aligned; w: (d,).  dtype 0 = float32,
-// 1 = bfloat16 (x, w and y alike).  Returns the launch's CUDA error code.
+// x, y: (rows, d) contiguous; w: (d,).  dtype 0 = float32, 1 = bfloat16 (x,
+// w and y alike).  Returns the launch's CUDA error code.
 extern "C" int rmsnorm_launch(const void* x, const void* w, void* y, int rows, int d, float eps,
                               int dtype, void* stream) {
-  if (rows <= 0 || d <= 0 || d % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 1 ? launch_typed<__nv_bfloat16>(x, w, y, rows, d, eps, s)
                     : dtype == 0 ? launch_typed<float>(x, w, y, rows, d, eps, s)

@@ -34,7 +34,9 @@
 // partial sums) and S_ij = w_i S_ij + k_i v_j in float32.  Inputs are bf16
 // or float32 and widened on load; o is rounded once to the input type.
 // Strides are passed per tensor (the last axis contiguous), so (B, T, H, D)
-// projections are read in place and o can be written in that layout.
+// projections are read in place and o can be written in that layout.  D is
+// instantiated at 32, 64 and 128 (a column of D floats per thread); the
+// wrapper zero-pads any smaller head dim up to the next one, which is exact.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -132,7 +134,10 @@ cudaError_t launch_dim(int D, const void* r, const void* k, const void* v, const
   const T* wt = static_cast<const T*>(w);
   const T* ut = static_cast<const T*>(u);
   T* ot = static_cast<T*>(o);
-  if (D == 64) {
+  if (D == 32) {
+    rwkv6_kernel<32, T><<<grid, 32, 0, stream>>>(rt, kt, vt, wt, ut, s0, ot, sf, H, Tn, sr, sk,
+                                                 sv, sw, so);
+  } else if (D == 64) {
     rwkv6_kernel<64, T><<<grid, 64, 0, stream>>>(rt, kt, vt, wt, ut, s0, ot, sf, H, Tn, sr, sk,
                                                  sv, sw, so);
   } else if (D == 128) {
@@ -149,8 +154,8 @@ cudaError_t launch_dim(int D, const void* r, const void* k, const void* v, const
 // r, k, v, w: (B, H, T, D) with the given element strides of the first three
 // axes and a contiguous last axis; u: (H, D) contiguous; s0 (may be null for
 // a zero state) and sf: (B, H, D, D) contiguous float32; o: (B, H, T, D) with
-// its strides.  dtype 0 = float32, 1 = bfloat16 (r, k, v, w, u and o).
-// Returns the CUDA error code of the launch.
+// its strides.  dtype 0 = float32, 1 = bfloat16 (r, k, v, w, u and o).  D in
+// {32, 64, 128}.  Returns the CUDA error code of the launch.
 extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v, const void* w,
                                  const void* u, const void* s0, void* o, void* sf, int B, int H,
                                  int Tn, int D, long long srb, long long srh, long long srt,

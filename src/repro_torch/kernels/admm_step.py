@@ -6,6 +6,12 @@ plan matrices in shared memory and each column's ``x, z, y`` iterates in
 registers (see ``csrc/admm_step.cu``).  ``prepare`` / ``launch`` split one
 call so the kernel can be timed alone; ``admm_iterate.launches`` counts
 kernel launches (``launch`` adds one).
+
+The kernel is instantiated for horizons 12 and 24; ``pad_horizon`` lifts
+any smaller horizon to the next one with decoupled variables whose rows of
+the KKT operator and of ``G`` are zero and whose bounds are ``lo = hi =
+0``, so they stay 0, and the real variables keep their order: every real
+sum gains only zero terms, and the real iterates come out bit for bit.
 """
 from __future__ import annotations
 
@@ -17,7 +23,58 @@ import torch
 from repro_torch.kernels import _build
 
 F32 = torch.float32
-HORIZONS = (12,)  # instantiated template horizons (ControllerConfig default)
+# Instantiated template horizons (12 is ControllerConfig's default).  A
+# larger one would not fit its plan in the kernel's static shared memory.
+HORIZONS = (12, 24)
+
+
+def kernel_horizon(h: int) -> int:
+    """The instantiated horizon that serves ``h`` (``h`` or the next one
+    up); raises above the largest."""
+    if h > HORIZONS[-1]:
+        raise ValueError(f"admm_step kernel takes horizons up to {HORIZONS[-1]}, got {h}")
+    return next(n for n in HORIZONS if n >= h)
+
+
+def _real_rows(h: int, hp: int, n_blocks: int) -> list[int]:
+    """Indices of the real rows when ``n_blocks`` blocks of ``h`` rows
+    each grow to ``hp`` rows (the layout [u; s] of x, [u; s; G x] of z)."""
+    return [i * hp + j for i in range(n_blocks) for j in range(h)]
+
+
+def _scatter(t: torch.Tensor, rows: list[int], n: int, dim: int = 0) -> torch.Tensor:
+    """``t`` placed at ``rows`` along ``dim`` of a zero tensor of size ``n``
+    there (an exact copy: no arithmetic)."""
+    shape = list(t.shape)
+    shape[dim] = n
+    idx = torch.tensor(rows, dtype=torch.long, device=t.device)
+    return t.new_zeros(shape).index_copy_(dim, idx, t)
+
+
+def pad_horizon(kkt_stack, g_blk, kq, lo, hi, x0, z0, y0, hp: int):
+    """The QP of horizon ``h`` embedded in horizon ``hp >= h``: each block
+    of x (2) and z (3) gains ``hp - h`` decoupled rows after its real ones,
+    with zero rows and columns in ``kkt_stack`` and ``G`` and zero
+    bounds."""
+    h = g_blk.shape[0]
+    if hp == h:
+        return kkt_stack, g_blk, kq, lo, hi, x0, z0, y0
+    xr, zr = _real_rows(h, hp, 2), _real_rows(h, hp, 3)
+    ks_cols = xr + [2 * hp + i for i in zr]  # [x; rho z - y] operand columns
+    ks = _scatter(_scatter(kkt_stack, xr, 2 * hp), ks_cols, 5 * hp, dim=1)
+    g = _scatter(_scatter(g_blk, list(range(h)), hp), xr, 2 * hp, dim=1)
+    pad2 = lambda t: _scatter(t, xr, 2 * hp)
+    pad3 = lambda t: _scatter(t, zr, 3 * hp)
+    return ks, g, pad2(kq), pad3(lo), pad3(hi), pad2(x0), pad3(z0), pad3(y0)
+
+
+def unpad_horizon(x, z, y, h: int):
+    """The real rows of padded iterates (see ``pad_horizon``)."""
+    hp = x.shape[0] // 2
+    if hp == h:
+        return x, z, y
+    take = lambda t, n: t[torch.tensor(_real_rows(h, hp, n), device=t.device)]
+    return take(x, 2), take(z, 3), take(y, 3)
 
 
 class Prepared(NamedTuple):
@@ -39,7 +96,8 @@ def prepare(kkt_stack, g_blk, kq, lo, hi, x0, z0, y0, *, rho, iters) -> Prepared
     h = g_blk.shape[0]
     if h not in HORIZONS:
         raise ValueError(
-            f"admm_step kernel is instantiated for horizons {HORIZONS}, got {h}"
+            f"admm_step kernel is instantiated for horizons {HORIZONS}, got {h} "
+            "(admm_iterate pads it)"
         )
     if kq.ndim != 2:
         raise ValueError("admm_step kernel needs a (2h, R) rack batch")
@@ -80,10 +138,13 @@ def launch(p: Prepared) -> None:
 
 def admm_iterate(kkt_stack, g_blk, kq, lo, hi, x0, z0, y0, *, rho, iters):
     """Launch the kernel on CUDA tensors with a rack batch in the trailing
-    axis; returns ``(x, z, y)`` like ``ref.admm_iterate``."""
-    p = prepare(kkt_stack, g_blk, kq, lo, hi, x0, z0, y0, rho=rho, iters=iters)
+    axis; returns ``(x, z, y)`` like ``ref.admm_iterate``.  A horizon that
+    is not instantiated runs padded (``pad_horizon``)."""
+    h = g_blk.shape[0]
+    args = pad_horizon(kkt_stack, g_blk, kq, lo, hi, x0, z0, y0, kernel_horizon(h))
+    p = prepare(*args, rho=rho, iters=iters)
     launch(p)
-    return p.x, p.z, p.y
+    return unpad_horizon(p.x, p.z, p.y, h)
 
 
 admm_iterate.launches = 0

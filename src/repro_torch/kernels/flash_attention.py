@@ -27,7 +27,26 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)  # instantiated template head dims; others are zero-padded up
+# Instantiated template head dims; a head dim between them is zero-padded up.
+# The backward's dK/dV kernel keeps four FP32 (64, D + 1) tiles in shared
+# memory, which above D = 192 exceed the 227 KB a block may use.
+HEAD_DIMS = (32, 64, 128, 160, 192)
+_MAX_ROWS = 64 * 65535  # query (or key) tiles of 64 ride gridDim.y
+
+
+def kernel_head_dim(d: int) -> int:
+    """The instantiated head dim that serves ``d``: ``d`` itself or the
+    next one up, whose extra zero columns change nothing.  Raises above the
+    largest."""
+    if d > HEAD_DIMS[-1]:
+        raise ValueError(f"flash_attention kernels take head dims up to {HEAD_DIMS[-1]}, got {d}")
+    return next(n for n in HEAD_DIMS if n >= d)
+
+
+def _check_grid(b: int, h: int, tq: int, tk: int) -> None:
+    if b * h > 2**31 - 1 or max(tq, tk) > _MAX_ROWS:
+        raise ValueError(f"flash_attention: B * H = {b * h} must stay below 2**31 and Tq, Tk "
+                         f"= {tq}, {tk} at most {_MAX_ROWS}")
 
 
 def flash_attention_fwd(
@@ -43,7 +62,8 @@ def flash_attention_fwd(
     as the last axis is contiguous; ``o`` is laid out ``(B, Tq, H, D)`` in
     memory (returned as its ``(B, H, Tq, D)`` view), so merging the heads
     afterwards is free.  A head dim between the instantiated ones (say 30)
-    is zero-padded to the next one.  Causal attention needs ``Tq <= Tk``."""
+    is zero-padded to the next one (``kernel_head_dim``).  Causal attention
+    needs ``Tq <= Tk``."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError("flash_attention kernel needs CUDA tensors")
@@ -56,15 +76,12 @@ def flash_attention_fwd(
     hkv, tk = k.shape[1], k.shape[2]
     if k.shape[0] != b or k.shape[3] != d or h % hkv:
         raise ValueError(f"flash_attention: incompatible q {tuple(q.shape)} and k {tuple(k.shape)}")
-    if d > HEAD_DIMS[-1]:
-        raise ValueError(f"flash_attention kernel takes head dims up to {HEAD_DIMS[-1]}, got {d}")
+    dk = kernel_head_dim(d)
     if causal and tq > tk:
         raise ValueError(f"flash_attention: causal attention needs Tq <= Tk, got {tq} > {tk}")
-    if b * h > 65535:
-        raise ValueError(f"flash_attention: B * H = {b * h} exceeds the grid's 65535")
+    _check_grid(b, h, tq, tk)
     if scale is None:
         scale = 1.0 / (d**0.5)
-    dk = next(n for n in HEAD_DIMS if n >= d)
     if dk != d:
         # Zero columns add nothing to q k^T, and the output's are cut off.
         o, lse = flash_attention_fwd(*(F.pad(t, (0, dk - d)) for t in (q, k, v)),
@@ -104,12 +121,10 @@ def _check_bwd_operands(q, k, v, o, lse, do, causal):
             or any(t.device != dev for t in (k, v, o, lse, do))):
         raise ValueError("flash_attention backward: q, o, do (B, H, Tq, D), k, v (B, Hkv, Tk, D) "
                          "and a float32 lse (B, H, Tq) on one device")
-    if d > HEAD_DIMS[-1]:
-        raise ValueError(f"flash_attention kernel takes head dims up to {HEAD_DIMS[-1]}, got {d}")
+    kernel_head_dim(d)
     if causal and tq > tk:
         raise ValueError(f"flash_attention: causal attention needs Tq <= Tk, got {tq} > {tk}")
-    if b * h > 65535:
-        raise ValueError(f"flash_attention: B * H = {b * h} exceeds the grid's 65535")
+    _check_grid(b, h, tq, tk)
 
 
 def _strides(*ts) -> ctypes.Array:
@@ -193,7 +208,7 @@ def flash_attention_bwd(
     d = q.shape[-1]
     if scale is None:
         scale = 1.0 / (d**0.5)
-    dk_ = next(n for n in HEAD_DIMS if n >= d)
+    dk_ = kernel_head_dim(d)
     if dk_ != d:
         # Zero columns add nothing to q k^T, dO V^T or delta; the padded
         # gradient columns are cut off.

@@ -88,20 +88,21 @@ def _use_kernel(t: torch.Tensor, force: str | None) -> bool:
 
 def pdu_health_sim(
     rack_power, g0, soc0, x0, ad, bd, c_row, *, health=None, force=None,
-    ess_on=None, ess_events=None, **kw,
+    ess_on=None, ess_events=None, ess_edge=1, **kw,
 ):
     """One controller interval of the rack hardware path for every rack
     (ESS + SoC + LC, command slew via ``slew=(applied, target)`` or a dense
     ``corrective``, wear fold via ``health=(step_consts, state_leaves)``);
-    see ``ref.pdu_health_sim``.  The per-sample ESS availability operands
-    (``ess_on``/``ess_events``) come with degraded mode (ROADMAP.md,
-    queue 2 item 1)."""
-    if ess_on is not None or ess_events is not None:
-        raise NotImplementedError(
-            "ess_on/ess_events are not ported yet (ROADMAP.md queue 2 item 1)"
-        )
+    see ``ref.pdu_health_sim``.  The ESS availability weight is ``ess_on``
+    (an ``(R,)`` row or a ``(T, R)`` series) or ``ess_events=(starts, ends,
+    base, i0, t_last)`` with ``ess_edge``, rendered per sample from the
+    fault schedule's ``(E, R)`` int32 episode tables; the kernel has a mode
+    for each."""
+    if ess_on is not None:
+        ess_on = ess_on.to(torch.float32)
     fn = _ph.pdu_health_sim if _use_kernel(rack_power, force) else _ref.pdu_health_sim
-    return fn(rack_power, g0, soc0, x0, ad, bd, c_row, health=health, **kw)
+    return fn(rack_power, g0, soc0, x0, ad, bd, c_row, health=health, ess_on=ess_on,
+              ess_events=ess_events, ess_edge=ess_edge, **kw)
 
 
 def admm_iterate(kkt_stack, g_blk, kq, lo, hi, x0, z0, y0, *, rho, iters, force=None):

@@ -4,15 +4,19 @@ Ports ``repro.kernels.pdu_health.pdu_health_sim`` (the Pallas megakernel):
 one launch runs one controller interval of every rack's hardware path —
 ESS ramp filter, SoC integration with the window clamp and its power
 back-off, the 3-state LC filter, the corrective-command slew rendered from
-``(applied, target)`` and the battery-wear turning-point machine.  The CUDA
-source (``csrc/pdu_health.cu``) keeps one rack per thread with its whole
-state in registers; see its header for the design.
+``(applied, target)``, the battery-wear turning-point machine and the ESS
+availability weight: none, an ``(R,)`` row or a ``(T, R)`` series
+(``ess_on``), or rendered in the kernel from the fault schedule's episode
+tables (``ess_events`` with ``ess_edge``).  The CUDA source
+(``csrc/pdu_health.cu``) keeps one rack per thread with its whole state in
+registers; see its header for the design.
 
 The block throughput/SoC sums of the health fold stay torch reductions in
 this wrapper at the reference's ``(t, r)`` reduce shape
 (``ref.block_sums``), shared with the plain version.  ``prepare`` /
 ``launch`` / ``finish`` split one call so the kernel can be timed alone;
-``pdu_health_sim.launches`` counts kernel launches (``launch`` adds one).
+``pdu_health_sim.launches`` counts kernel launches (``launch`` adds one),
+and ``pdu_health_sim.launches_by_mask`` them by weight mode (``MASK_*``).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from repro_torch.kernels import _build, ref
 
 F32 = torch.float32
 _NUM_CONSTS = 32
+MASK_NONE, MASK_ROW, MASK_SERIES, MASK_EVENTS = range(4)  # csrc/pdu_health.cu's Mask
 
 
 def _consts(kw: dict, ad, bd, c_row, t_len: int, health) -> np.ndarray:
@@ -65,6 +70,7 @@ class Prepared(NamedTuple):
     ``prepare``); ``launch`` runs the kernel on them any number of times."""
 
     args: tuple  # the C launch function's arguments (without the stream)
+    mask: int  # the weight mode (MASK_*)
     inputs: tuple  # operand tensors, referenced while the launch reads them
     grid: torch.Tensor
     soc_t: torch.Tensor
@@ -77,12 +83,15 @@ class Prepared(NamedTuple):
 def prepare(
     rack_power, g0, soc0, x0, ad, bd, c_row, *,
     beta, dt, q_max, eta_c, eta_d, p_max, soc_min, soc_max,
-    corrective=0.0, slew=None, health=None,
+    corrective=0.0, slew=None, health=None, ess_on=None, ess_events=None, ess_edge=1,
 ) -> Prepared:
     """Check the operands (CUDA, float32, shapes, contiguity), pack the
     step constants and allocate the outputs for ``launch``.  ``ad``,
     ``bd``, ``c_row`` may be tensors or host arrays (host arrays avoid a
-    device read per launch)."""
+    device read per launch).  ``ess_on`` is an ``(R,)`` or ``(T, R)``
+    float32 weight; ``ess_events = (starts, ends, base, i0, t_last)`` holds
+    ``(E, R)`` int32 tables, an ``(R,)`` float32 base row and two absolute
+    sample indices (ints or one-element tensors)."""
     dev = rack_power.device
     if dev.type != "cuda":
         raise ValueError("pdu_health kernel needs CUDA tensors")
@@ -103,6 +112,30 @@ def prepare(
         h0 = torch.stack([leaf.to(F32).expand(r) for leaf in health[1][:6]]).contiguous()
         _check("health state", h0, (6, r), dev)
         kappa_mode = _kappa_mode(float(health[0][3]))
+    if ess_on is not None and ess_events is not None:
+        raise ValueError("pass either ess_on or ess_events, not both")
+    mask, w, ev, ev_args = MASK_NONE, None, (), (None, None, None, 0, 0, 0, 1, 1.0)
+    if ess_on is not None:
+        w = ess_on.contiguous()
+        mask = MASK_ROW if w.ndim == 1 else MASK_SERIES
+        _check("ess_on", w, (r,) if w.ndim == 1 else (t_len, r), dev)
+    elif ess_events is not None:
+        st, en, base, i0, t_last = ess_events
+        st, en = st.contiguous(), en.contiguous()
+        n_ev = st.shape[0]
+        for name, tab in (("ess_events starts", st), ("ess_events ends", en)):
+            if (tab.device != dev or tab.dtype != torch.int32 or tab.ndim != 2
+                    or tuple(tab.shape) != (n_ev, r) or n_ev < 1):
+                raise ValueError(
+                    f"pdu_health: {name} must be a contiguous int32 (E >= 1, {r}) tensor "
+                    f"on {dev}, got {tab.dtype} {tuple(tab.shape)} on {tab.device}")
+        base = base.to(F32).expand(r).contiguous()
+        _check("ess_events base", base, (r,), dev)
+        edge = int(ess_edge)
+        inv = float(np.float32(1.0 / edge)) if edge > 1 else 1.0
+        mask, ev = MASK_EVENTS, (st, en, base)
+        ev_args = (st.data_ptr(), en.data_ptr(), base.data_ptr(), n_ev, int(i0), int(t_last),
+                   edge, inv)
     kw = dict(beta=beta, dt=dt, q_max=q_max, eta_c=eta_c, eta_d=eta_d,
               p_max=p_max, soc_min=soc_min, soc_max=soc_max)
     consts = _consts(kw, ad, bd, c_row, t_len, health)
@@ -114,9 +147,9 @@ def prepare(
     args = (
         ptr(rack_power), ptr(corr), int(slew is not None), ptr(s0), ptr(h0),
         ptr(grid), ptr(soc_t), ptr(sf), ptr(hf), t_len, r,
-        consts.ctypes.data, kappa_mode,
+        consts.ctypes.data, kappa_mode, mask, ptr(w), *ev_args,
     )
-    return Prepared(args, (rack_power, corr, s0, h0), grid, soc_t, sf, hf,
+    return Prepared(args, mask, (rack_power, corr, s0, h0, w, *ev), grid, soc_t, sf, hf,
                     None if health is None else tuple(health[1]), consts)
 
 
@@ -125,13 +158,15 @@ def launch(p: Prepared) -> None:
     synchronization) and count the launch."""
     dev = p.grid.device
     vp = ctypes.c_void_p
+    ci = ctypes.c_int
     fn = _build.launch_fn("pdu_health", "pdu_health_launch",
-                          [vp, vp, ctypes.c_int, vp, vp, vp, vp, vp, vp, ctypes.c_int,
-                           ctypes.c_int, vp, ctypes.c_int, vp])
+                          [vp, vp, ci, vp, vp, vp, vp, vp, vp, ci, ci, vp, ci,
+                           ci, vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_float, vp])
     with torch.cuda.device(dev):
         err = fn(*p.args, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("pdu_health", err)
     pdu_health_sim.launches += 1
+    pdu_health_sim.launches_by_mask[p.mask] += 1
 
 
 def finish(p: Prepared):
@@ -154,3 +189,4 @@ def pdu_health_sim(rack_power, g0, soc0, x0, ad, bd, c_row, **kw):
 
 
 pdu_health_sim.launches = 0
+pdu_health_sim.launches_by_mask = [0, 0, 0, 0]

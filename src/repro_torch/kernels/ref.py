@@ -158,6 +158,67 @@ def lc_step(cols, x: torch.Tensor, node: torch.Tensor):
 # ------------------------------------------------------------- pdu_health_sim
 
 
+def hw_step(k: HwConsts, lc, x, g, soc, r_t, c_t, w_t=None):
+    """One sample of the rack hardware path for a rack batch, shared by
+    ``pdu_health_sim`` and ``pdu_sim``: the ESS ramp filter, battery power,
+    SoC integration with the window clamp and its power back-off, and the LC
+    filter (``lc_step``).  ``w_t`` is the ESS availability weight of the
+    sample (None: fully available): where ``w > 0`` the filter steps and the
+    battery delivers ``p w``; where ``w == 0`` the filter tracks the rack
+    (``g = r``), the battery delivers nothing and the SoC holds.  Returns
+    ``(g', soc', y, x')``."""
+    g_new = fma(k.alpha, r_t - g, g)
+    if w_t is not None:
+        on = w_t > 0
+        g_new = torch.where(on, g_new, r_t)
+    p = torch.clamp(g_new - r_t + c_t, -k.p_max, k.p_max)
+    if w_t is not None:
+        p = p * w_t
+    charge = torch.clamp(p, min=0.0)
+    discharge = torch.clamp(-p, min=0.0)
+    soc_new = fma(k.k_soc, fma(k.eta_c, charge, -(discharge * k.inv_eta_d)), soc)
+    over_hi = torch.clamp(soc_new - k.soc_max, min=0.0)
+    over_lo = torch.clamp(k.soc_min - soc_new, min=0.0)
+    p = fma(over_lo, k.bo_lo, fma(-over_hi, k.bo_hi, p))
+    soc_new = torch.clamp(soc_new, k.soc_min, k.soc_max)
+    if w_t is not None:
+        soc_new = torch.where(on, soc_new, soc)
+    y, x = lc_step(lc, x, r_t + p)
+    return g_new, soc_new, y, x
+
+
+def events_weight(ess_events, t_len: int, ess_edge: int) -> torch.Tensor:
+    """The ``(T, R)`` ESS availability weight that ``ess_events = (starts,
+    ends, base, i0, t_last)`` renders (see ``repro.kernels.ref.
+    pdu_health_sim``): sorted ``(E, R)`` int32 episode tables, an ``(R,)``
+    base row, and the absolute index ``i0`` of sample 0, clamped at
+    ``t_last``.  Per sample ``w = (1 - intensity) base`` with the
+    reference's compares and selects: binary membership for ``ess_edge <=
+    1``, else the most recent episode's ramps ``clip((a + 1) inv) - clip((b
+    + 1) inv)`` with ``inv = float32(1 / edge)``, gated on a start."""
+    st, en, base, i0, t_last = ess_events
+    st, en = st.to(torch.int32), en.to(torch.int32)
+    dev = st.device
+    idx = torch.clamp(int(i0) + torch.arange(t_len, dtype=torch.int32, device=dev),
+                      max=int(t_last))[:, None]
+    started = [st[j][None, :] <= idx for j in range(st.shape[0])]
+    if ess_edge <= 1:
+        s_cnt = sum(s.to(torch.int32) for s in started)
+        e_cnt = sum((en[j][None, :] <= idx).to(torch.int32) for j in range(en.shape[0]))
+        intensity = ((s_cnt - e_cnt) > 0).to(F32)
+    else:
+        inv = _f(1.0 / float(ess_edge))
+        st_sel, en_sel = st[0].expand(t_len, -1), en[0].expand(t_len, -1)
+        for j in range(1, st.shape[0]):
+            st_sel = torch.where(started[j], st[j], st_sel)
+            en_sel = torch.where(started[j], en[j], en_sel)
+        a = (idx - st_sel).to(F32)
+        b = (idx - en_sel).to(F32)
+        w = torch.clamp((a + 1.0) * inv, 0.0, 1.0) - torch.clamp((b + 1.0) * inv, 0.0, 1.0)
+        intensity = torch.where(started[0], w, 0.0)
+    return (1.0 - intensity) * base.to(F32)
+
+
 def pdu_health_sim(
     rack_power: torch.Tensor,  # (T, R)
     g0: torch.Tensor,  # (R,)
@@ -178,16 +239,21 @@ def pdu_health_sim(
     corrective: torch.Tensor | float = 0.0,
     slew: tuple[torch.Tensor, torch.Tensor] | None = None,
     health: tuple | None = None,
+    ess_on: torch.Tensor | None = None,  # (R,) or (T, R) availability weight
+    ess_events: tuple | None = None,  # (starts, ends, base, i0, t_last)
+    ess_edge: int = 1,
 ):
     """One controller interval of the rack hardware path, per rack, time
-    sequential: ESS ramp filter, battery power, SoC integration with the
-    window clamp and its power back-off, the 3-state LC filter, the command
-    slew ``applied + (target - applied) (t+1)/T`` (``slew``) or a dense
-    ``(T, R)`` corrective profile, and with ``health=(step_consts,
-    state_leaves)`` the battery-wear turning-point machine plus the block
-    throughput/stress sums.  Same contract as ``repro.kernels.ref.
-    pdu_health_sim``.  Returns ``(grid, soc_t, (g_f, soc_f, x_f),
-    health_leaves_or_None)``."""
+    sequential (``hw_step``), with the command slew ``applied + (target -
+    applied) (t+1)/T`` (``slew``) or a dense ``(T, R)`` corrective profile,
+    with ``health=(step_consts, state_leaves)`` the battery-wear
+    turning-point machine plus the block throughput/stress sums, and with
+    an ESS availability weight: ``ess_on`` (an ``(R,)`` row or a ``(T,
+    R)`` series) or ``ess_events`` rendered by ``events_weight``.  Same
+    contract as ``repro.kernels.ref.pdu_health_sim``.  Returns ``(grid,
+    soc_t, (g_f, soc_f, x_f), health_leaves_or_None)``."""
+    if ess_on is not None and ess_events is not None:
+        raise ValueError("pass either ess_on or ess_events, not both")
     k = hw_consts(
         beta=beta, dt=dt, q_max=q_max, eta_c=eta_c, eta_d=eta_d,
         p_max=p_max, soc_min=soc_min, soc_max=soc_max,
@@ -207,6 +273,11 @@ def pdu_health_sim(
     else:
         corr = torch.as_tensor(corrective, dtype=F32, device=rack_power.device)
         corr = corr.expand(t_len, r)
+    w_all = None
+    if ess_on is not None:
+        w_all = ess_on.to(F32).expand(t_len, r)
+    elif ess_events is not None:
+        w_all = events_weight(ess_events, t_len, ess_edge)
     grid = torch.empty_like(rack_power)
     soc_t = torch.empty_like(rack_power)
     g, soc = g0.to(F32).expand(r), soc0.to(F32).expand(r)
@@ -217,18 +288,8 @@ def pdu_health_sim(
             leaf.to(F32).expand(r) for leaf in health[1][:6]
         )
     for t in range(t_len):
-        r_t = rack_power[t]
-        c_t = corr[t]
-        g_new = fma(k.alpha, r_t - g, g)
-        p = torch.clamp(g_new - r_t + c_t, -k.p_max, k.p_max)
-        charge = torch.clamp(p, min=0.0)
-        discharge = torch.clamp(-p, min=0.0)
-        soc_new = fma(k.k_soc, fma(k.eta_c, charge, -(discharge * k.inv_eta_d)), soc)
-        over_hi = torch.clamp(soc_new - k.soc_max, min=0.0)
-        over_lo = torch.clamp(k.soc_min - soc_new, min=0.0)
-        p = fma(over_lo, k.bo_lo, fma(-over_hi, k.bo_hi, p))
-        soc_new = torch.clamp(soc_new, k.soc_min, k.soc_max)
-        grid[t], x = lc_step(lc, x, r_t + p)
+        g, soc_new, grid[t], x = hw_step(k, lc, x, g, soc, rack_power[t], corr[t],
+                                         None if w_all is None else w_all[t])
         soc_t[t] = soc_new
         if health is not None:
             delta = soc_new - prev
@@ -243,7 +304,7 @@ def pdu_health_sim(
             dirn = torch.where(sd != 0.0, sd, dirn)
             half = half + revf
             prev = soc_new
-        g, soc = g_new, soc_new
+        soc = soc_new
     finals = (g, soc, x.T.contiguous())
     if health is None:
         return grid, soc_t, finals, None
@@ -334,9 +395,7 @@ def pdu_sim(
     power back-off, and the LC filter, per rack, time sequential.
 
     ``ess_on`` is an availability weight in [0, 1], a ``(R,)`` row or a
-    ``(T, R)`` series: where ``w > 0`` the filter steps and the battery
-    delivers ``p w``; where ``w == 0`` the filter tracks the rack (``g =
-    r``), the battery delivers nothing and the SoC is frozen.  Rounding
+    ``(T, R)`` series, with ``hw_step``'s semantics.  Rounding
     follows the reference's kernel (``pdu_sim_consts``' float64 alpha; the
     fused multiply-adds of ``pdu_health_sim``).  Returns ``(grid (T, R),
     soc (T, R), (g_f, soc_f, x_f))``, float32."""
@@ -353,27 +412,9 @@ def pdu_sim(
     g, soc = g0.to(F32).expand(r), soc0.to(F32).expand(r)
     x = x0.to(F32).T
     for t in range(t_len):
-        r_t = rack_power[t]
-        g_new = fma(k.alpha, r_t - g, g)
-        if w_all is not None:
-            w_t = w_all[t]
-            on = w_t > 0
-            g_new = torch.where(on, g_new, r_t)
-        p = torch.clamp(g_new - r_t + corr[t], -k.p_max, k.p_max)
-        if w_all is not None:
-            p = p * w_t
-        charge = torch.clamp(p, min=0.0)
-        discharge = torch.clamp(-p, min=0.0)
-        soc_new = fma(k.k_soc, fma(k.eta_c, charge, -(discharge * k.inv_eta_d)), soc)
-        over_hi = torch.clamp(soc_new - k.soc_max, min=0.0)
-        over_lo = torch.clamp(k.soc_min - soc_new, min=0.0)
-        p = fma(over_lo, k.bo_lo, fma(-over_hi, k.bo_hi, p))
-        soc_new = torch.clamp(soc_new, k.soc_min, k.soc_max)
-        if w_all is not None:
-            soc_new = torch.where(on, soc_new, soc)
-        grid[t], x = lc_step(lc, x, r_t + p)
-        soc_t[t] = soc_new
-        g, soc = g_new, soc_new
+        g, soc, grid[t], x = hw_step(k, lc, x, g, soc, rack_power[t], corr[t],
+                                     None if w_all is None else w_all[t])
+        soc_t[t] = soc
     return grid, soc_t, (g, soc, x.T.contiguous())
 
 

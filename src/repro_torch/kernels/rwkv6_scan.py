@@ -16,11 +16,25 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)  # instantiated template head dims
+# Instantiated template head dims.  A thread keeps a column of the (D, D)
+# float32 state in D registers, so D stops at 128 (255 registers a thread).
+HEAD_DIMS = (32, 64, 128)
+
+
+def kernel_head_dim(d: int) -> int:
+    """The instantiated head dim that serves ``d``: ``d`` or the next one
+    up.  Zero padding is exact: zero ``k`` rows keep the padded state rows
+    at zero from a zero-padded ``state0``, zero ``v`` columns keep the
+    padded state columns at zero, zero ``r`` and ``u`` add nothing to
+    ``o``, and the padded columns of ``o`` are cut off.  Raises above 128."""
+    if d > HEAD_DIMS[-1]:
+        raise ValueError(f"rwkv6_scan kernel takes head dims up to {HEAD_DIMS[-1]}, got {d}")
+    return next(n for n in HEAD_DIMS if n >= d)
 
 
 def rwkv6_scan(
@@ -36,7 +50,8 @@ def rwkv6_scan(
     float32)``.  ``r, k, v, w, u`` share one type (float32 or bfloat16);
     any strides are taken as long as the last axis is contiguous, and ``o``
     gets ``r``'s memory layout (so the time mix's ``(B, T, H, D)`` views go
-    in and come out without a copy).  ``D`` is 64 or 128 and ``T >= 1``."""
+    in and come out without a copy).  ``D <= 128`` (other than 32, 64 and
+    128 zero-padded, ``kernel_head_dim``) and ``T >= 1``."""
     dev = r.device
     if dev.type != "cuda":
         raise ValueError("rwkv6_scan kernel needs CUDA tensors")
@@ -46,8 +61,7 @@ def rwkv6_scan(
     if r.ndim != 4 or any(t.shape != r.shape for t in (k, v, w)):
         raise ValueError("rwkv6_scan: r, k, v, w must be (B, H, T, D) of one shape")
     b, h, t, d = r.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"rwkv6_scan kernel takes head dims {HEAD_DIMS}, got {d}")
+    dk = kernel_head_dim(d)
     if t < 1:
         raise ValueError("rwkv6_scan kernel needs T >= 1")
     if tuple(u.shape) != (h, d):
@@ -56,6 +70,11 @@ def rwkv6_scan(
         raise ValueError(f"rwkv6_scan: state0 must be float32 ({b}, {h}, {d}, {d})")
     if any(x.device != dev for x in (k, v, w, u) + (() if state0 is None else (state0,))):
         raise ValueError("rwkv6_scan: all operands must lie on one device")
+    if dk != d:
+        pad = dk - d
+        s0 = None if state0 is None else F.pad(state0, (0, pad, 0, pad))
+        o, sf = rwkv6_scan(*(F.pad(x, (0, pad)) for x in (r, k, v, w, u)), s0)
+        return o[..., :d], sf[..., :d, :d].contiguous()
     r, k, v, w = (x if x.stride(-1) == 1 else x.contiguous() for x in (r, k, v, w))
     u = u.contiguous()
     s0 = None if state0 is None else state0.contiguous()

@@ -13,7 +13,7 @@ package returns updated arrays); the returned ``KVCache`` holds the same
 tensors with the new length.  Within ``max_len`` both give the same
 result; a write past the end, which ``jax.lax.dynamic_update_slice``
 clamps to the last slots, raises here.  DeepSeek MLA is not ported yet
-(ROADMAP.md queue 1 item 13, the ``moe`` family) and raises.
+(ROADMAP.md queue 1 item 7, the ``moe`` family) and raises.
 """
 from __future__ import annotations
 
@@ -80,7 +80,7 @@ class GQAAttention(nn.Module):
         super().__init__()
         if cfg.attention != "gqa":
             raise NotImplementedError(
-                f"{cfg.attention!r} attention is not ported yet (ROADMAP.md queue 1 item 13)"
+                f"{cfg.attention!r} attention is not ported yet (ROADMAP.md queue 1 item 7)"
             )
         self.cfg = cfg
         d, hd = cfg.d_model, cfg.resolved_head_dim
@@ -155,6 +155,6 @@ def attention_fwd(p, cfg, x, positions, cache=None, *, causal: bool = True):
 def init_cache(cfg, batch: int, max_len: int, *, dtype, device) -> KVCache:
     if cfg.attention != "gqa":
         raise NotImplementedError(
-            f"{cfg.attention!r} caches are not ported yet (ROADMAP.md queue 1 item 13)"
+            f"{cfg.attention!r} caches are not ported yet (ROADMAP.md queue 1 item 7)"
         )
     return init_gqa_cache(cfg, batch, max_len, dtype=dtype, device=device)

@@ -3,7 +3,7 @@
 
 The MoE FFN, the Mamba2 block and the Zamba2 shared block are not ported
 yet: they come with the ``moe`` and ``hybrid`` family slices (ROADMAP.md
-queue 1 item 13); ``DecoderBlock(use_moe=True)`` raises.
+queue 1 item 7); ``DecoderBlock(use_moe=True)`` raises.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ class DecoderBlock(nn.Module):
     def __init__(self, cfg, *, dtype, device, use_moe: bool = False):
         super().__init__()
         if use_moe:
-            raise NotImplementedError("MoE blocks are not ported yet (ROADMAP.md queue 1 item 13)")
+            raise NotImplementedError("MoE blocks are not ported yet (ROADMAP.md queue 1 item 7)")
         self.cfg = cfg
         kw = dict(dtype=dtype, device=device)
         self.ln1 = L.init_norm(cfg.d_model, cfg.norm, cfg.norm_eps, **kw)

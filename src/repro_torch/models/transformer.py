@@ -37,9 +37,9 @@ from repro_torch.models import rwkv6 as R
 from repro_torch.utils.devices import resolve_device
 
 _NOT_PORTED = {
-    "moe": "the moe family (MLA attention, MoE FFN, MTP; ROADMAP.md queue 1 item 13)",
-    "hybrid": "the hybrid family (Mamba2 + Zamba2 shared block; ROADMAP.md queue 1 item 13)",
-    "audio": "the audio family (encoder-decoder; ROADMAP.md queue 1 item 13)",
+    "moe": "the moe family (MLA attention, MoE FFN, MTP; ROADMAP.md queue 1 item 7)",
+    "hybrid": "the hybrid family (Mamba2 + Zamba2 shared block; ROADMAP.md queue 1 item 7)",
+    "audio": "the audio family (encoder-decoder; ROADMAP.md queue 1 item 7)",
 }
 
 

@@ -18,9 +18,9 @@ would break chunk invariance), so the rendered trace agrees with the
 reference to a tolerance (tests).  A scenario may instead carry an
 explicit segment table (``seg_bounds``/``seg_powers``, compiled from a
 phase timeline by ``from_phase_timeline``): the piecewise-constant base
-that ``power.integration.PowerSim`` renders each training step from.  The
-stochastic fault schedules (``faults``/``attach_faults``) are a later
-slice (ROADMAP.md).
+that ``power.integration.PowerSim`` renders each training step from.  A
+stochastic fault schedule (``faults``, ``attach_faults``) sets rack power
+over rack-loss episodes and renders sensor dropouts as NaN.
 """
 from __future__ import annotations
 
@@ -29,6 +29,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.kernels import ref
+from repro_torch.power import faults as FLT
 from repro_torch.utils.devices import resolve_device
 from repro_torch.utils.structures import Struct
 
@@ -145,8 +147,8 @@ class Scenario(Struct):
     segment lookup (``seg_bounds`` holds int32 start-sample indices,
     ``seg_bounds[0] == 0``; ``seg_powers`` is ``(K,)`` shared or ``(R, K)``
     per rack, noise at ``seg_noise_std``); otherwise it is the parametric
-    ``params`` workload.  (The reference's fault-schedule field comes with
-    its slice.)"""
+    ``params`` workload.  ``faults`` is an attached
+    ``power.faults.FaultSchedule`` (or None)."""
 
     params: WorkloadParams | None = None
     seg_bounds: torch.Tensor | None = None
@@ -154,6 +156,8 @@ class Scenario(Struct):
     # Noise level of a segment-table scenario (parametric scenarios carry
     # theirs in ``params.noise_std``); None = 0.
     seg_noise_std: torch.Tensor | None = None
+    # Compiled stochastic fault schedule (``power.faults.FaultSchedule``).
+    faults: FLT.FaultSchedule | None = None
     # uint32 XORed into the noise lane hash (decorrelated noise streams of
     # otherwise identical scenarios); None keeps the unsalted stream.
     noise_salt: int | None = None
@@ -206,10 +210,6 @@ def make_scenario(
 ) -> Scenario:
     """Wrap parametric workloads into a renderable ``Scenario`` on the
     params' device.  A scripted ``fault_at_s`` past the end is rejected."""
-    if faults is not None:
-        raise NotImplementedError(
-            "fault schedules are not ported yet (ROADMAP.md queue 1 item 8)"
-        )
     total = int(round(duration_s * sample_hz))
     if edge_pad not in ("zero", "clamp"):
         raise ValueError(f"edge_pad must be 'zero' or 'clamp', got {edge_pad!r}")
@@ -223,12 +223,36 @@ def make_scenario(
         )
     return Scenario(
         params=params,
+        faults=faults,
         sample_hz=float(sample_hz),
         total_samples=total,
         edge_width=_edge_width(edge_time_s, sample_hz),
         edge_pad=edge_pad,
         noise_seed=noise_seed,
     )
+
+
+def attach_faults(
+    s: Scenario, process_or_schedule, *, seed: int = 0, max_episodes: int | None = None,
+) -> Scenario:
+    """Return ``s`` with a fault schedule attached: a ``faults.FaultProcess``
+    is sampled against the scenario's geometry, a ``faults.FaultSchedule``
+    is validated (``faults.validate_tables``) and moved to the scenario's
+    device.  The schedule's rack count must match the scenario's."""
+    n = s.n_racks or 1
+    if isinstance(process_or_schedule, FLT.FaultSchedule):
+        FLT.validate_tables(process_or_schedule)
+        sched = process_or_schedule.to(s.device)
+    else:
+        sched = FLT.sample_schedule(
+            process_or_schedule, n, s.total_samples, s.sample_hz,
+            seed=seed, max_episodes=max_episodes, device=s.device,
+        )
+    if sched.n_racks != n:
+        raise ValueError(
+            f"fault schedule covers {sched.n_racks} racks but the scenario has {n}"
+        )
+    return s.replace(faults=sched)
 
 
 # ------------------------------------------------------------------ rendering
@@ -407,6 +431,14 @@ def render(s: Scenario, t0: int, n: int) -> torch.Tensor:
         tb = t[:, None] if p.ndim == 2 else t
         in_fault = (tb >= wp.fault_at_s) & (tb < wp.fault_at_s + wp.fault_duration_s)
         p = torch.where(in_fault, wp.p_fault, p)
+    if s.faults is not None:
+        # Stochastic rack power loss, linearised over the edge window: ``p +
+        # wgt (p_fault - p)`` as one fused multiply-add, as XLA computes it.
+        wgt = FLT.fault_weight(s.faults, t0, n, max(w, 1))
+        pf = s.faults.p_fault
+        if p.ndim == 1:
+            wgt, pf = wgt[:, 0], pf[0]
+        p = ref.fma(wgt, pf - p, p)
     if s.noise_seed is not None:
         noise = _hash_normal(s.noise_seed, idx, tuple(p.shape[1:]), s.noise_salt)
         if wp is not None:
@@ -416,6 +448,10 @@ def render(s: Scenario, t0: int, n: int) -> torch.Tensor:
         p = torch.clamp(p + std * noise, 0.0, 1.0)
     if wp is not None:
         p = p * wp.scale
+    if s.faults is not None:
+        # Sensor dropout is a measurement fault: it lands last, as NaN.
+        dead = FLT.sensor_down(s.faults, t0, n)
+        p = torch.where(dead[:, 0] if p.ndim == 1 else dead, float("nan"), p)
     return p.to(F32)
 
 

@@ -138,11 +138,19 @@ def test_dispatch_on_cpu_tensors():
                                   torch.zeros(2, 3), torch.eye(3), torch.zeros(3, 2),
                                   torch.zeros(3), beta=0.1, dt=0.005, q_max=60.0,
                                   eta_c=0.97, eta_d=0.97, p_max=1.0, soc_min=0.1, soc_max=0.9)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.pdu_health_sim(torch.zeros(4, 2), torch.zeros(2), torch.zeros(2),
-                           torch.zeros(2, 3), torch.eye(3), torch.zeros(3, 2), torch.zeros(3),
-                           ess_on=torch.ones(2), beta=0.1, dt=0.005, q_max=60.0, eta_c=0.97,
-                           eta_d=0.97, p_max=1.0, soc_min=0.1, soc_max=0.9)
+    # The ESS availability operands run the plain version on CPU tensors
+    # and demand the kernel's CUDA tensors under force="cuda".
+    hw = dict(beta=0.1, dt=0.005, q_max=60.0, eta_c=0.97, eta_d=0.97, p_max=1.0,
+              soc_min=0.1, soc_max=0.9)
+    args = (torch.zeros(4, 2), torch.zeros(2), torch.zeros(2), torch.zeros(2, 3), torch.eye(3),
+            torch.zeros(3, 2), torch.zeros(3))
+    ev = (torch.zeros(1, 2, dtype=torch.int32), torch.ones(1, 2, dtype=torch.int32),
+          torch.ones(2), 0, 3)
+    for mask in (dict(ess_on=torch.ones(2)), dict(ess_on=torch.ones(4, 2)),
+                 dict(ess_events=ev, ess_edge=2)):
+        assert ops.pdu_health_sim(*args, **mask, **hw)[0].shape == (4, 2)
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.pdu_health_sim(*args, **mask, force="cuda", **hw)
     with pytest.raises(ValueError, match="CUDA tensors"):
         lc_filter.lc_filter(torch.eye(3), torch.zeros(3, 2), torch.ones(3), torch.zeros(2, 3),
                             torch.zeros(4, 2))

@@ -126,8 +126,4 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpdu.condition(cfg, st, tr, use_plan=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpdu.condition(cfg, st, tr, ess_online=torch.ones(4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpdu.make_pdu(degraded_mode=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpdu.make_pdu(safemode=True, device="cpu")

@@ -12,21 +12,29 @@
 // ~1.2 kB moved once per solve, so 30 iterations over 1024 racks are
 // ~117 MFLOP, about 1.7 us at the card's 67 TFLOP/s FP32 rate.
 //
-// Design: one thread per rack column.  kkt_stack and G (6.9 kB together)
-// are staged in shared memory once per block; every thread of a warp reads
-// the same element at the same time, so those reads are broadcasts.  The
-// column's x (2h), z (3h) and y (3h) stay in registers for all iterations
-// (h is a template parameter, instantiated for h = 12 and h = 24, so the
-// arrays are fully unrolled; the wrapper pads any other horizon up to the
-// next one with decoupled zero variables, which leaves the real iterates'
-// bits unchanged, and h = 24's plan, 27.6 kB, is the largest that fits the
-// 48 kB of static shared memory with room to spare); the [x; rho z - y]
-// operand is built in place of z
-// without being stored.  kq, lo and hi are re-read (coalesced) each
-// iteration to save registers.  FP32 FMA on the CUDA cores, no tensor
-// cores; y / rho stays a division, as in the reference.  The summation
-// order of the products differs from XLA's dot, so the kernel is held to
-// its plain version by a tolerance (2e-5 after 30 iterations), not bitwise.
+// Design: one thread per rack column, 32 a block.  kkt_stack and G are
+// staged in shared memory once per block; every thread of a warp reads the
+// same element at the same time, so those reads are broadcasts.  The
+// [x; rho z - y] operand is built in place of z without being stored; kq,
+// lo and hi are re-read (coalesced) each iteration to save registers.  FP32
+// FMA on the CUDA cores, no tensor cores; y / rho stays a division, as in
+// the reference.  Two variants:
+//  * h = 12 and h = 24 (admm_kernel<H>): the plan (27.6 kB at 24) in static
+//    shared memory, the column's x (2h), z (3h) and y (3h) in registers for
+//    all iterations, the arrays fully unrolled.  The wrapper pads any
+//    smaller horizon up to the next one with decoupled zero variables,
+//    which leaves the real iterates' bits unchanged.
+//  * 24 < h <= 57 (admm_kernel_dyn): h at run time.  The plan (48 h^2
+//    bytes, 110,592 at h = 48) goes in dynamic shared memory, opted in with
+//    cudaFuncSetAttribute, and so do the iterates, laid out [variable]
+//    [thread] (conflict-free): x, the next x, z and y, 10 h floats a thread
+//    (the new x is built while the old one is still read), 1280 h bytes a
+//    block; 8 h x 32 in registers would spill.  48 h^2 + 1280 h bytes fit
+//    the 232,448 a block may opt into up to h = 57.  Same operations in the
+//    same order as the register variant.
+// The summation order of the products differs from XLA's dot, so the
+// kernel is held to its plain version by a tolerance (2e-5 after 30
+// iterations), not bitwise.
 #include <cuda_runtime.h>
 
 namespace {
@@ -106,12 +114,81 @@ admm_kernel(const float* __restrict__ ks, const float* __restrict__ gb,
   }
 }
 
+// Largest horizon of the run-time variant: its plan and iterates, 48 h^2 +
+// 1280 h bytes, within the 232,448 of shared memory a block may opt into.
+constexpr int kMaxDynHorizon = 57;
+
+constexpr size_t dyn_smem_bytes(int h) {
+  return sizeof(float) * ((size_t)12 * h * h + (size_t)10 * h * kThreads);
+}
+
+__global__ void __launch_bounds__(kThreads)
+admm_kernel_dyn(const float* __restrict__ ks, const float* __restrict__ gb,
+                const float* __restrict__ kq, const float* __restrict__ lo,
+                const float* __restrict__ hi, const float* __restrict__ x0,
+                const float* __restrict__ z0, const float* __restrict__ y0,
+                float* __restrict__ xo, float* __restrict__ zo, float* __restrict__ yo, int H,
+                int R, float rho, int iters) {
+  const int N2 = 2 * H, N3 = 3 * H, N5 = 5 * H;
+  extern __shared__ __align__(16) float dsm[];
+  float* s_ks = dsm;             // N2 x N5
+  float* s_g = s_ks + N2 * N5;   // H x N2
+  float* s_it = s_g + H * N2;    // [10 H][kThreads]
+  for (int i = threadIdx.x; i < N2 * N5; i += blockDim.x) s_ks[i] = ks[i];
+  for (int i = threadIdx.x; i < H * N2; i += blockDim.x) s_g[i] = gb[i];
+  __syncthreads();
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+
+  // Variable i of this column at [i * kThreads]: x, the next x, v (z, and
+  // rho z - y during the x-update) and y.
+  float* x = s_it + threadIdx.x;
+  float* xn = x + N2 * kThreads;
+  float* v = xn + N2 * kThreads;
+  float* y = v + N3 * kThreads;
+  for (int i = 0; i < N2; ++i) x[i * kThreads] = x0[i * R + r];
+  for (int i = 0; i < N3; ++i) {
+    v[i * kThreads] = z0[i * R + r];
+    y[i * kThreads] = y0[i * R + r];
+  }
+  for (int it = 0; it < iters; ++it) {
+    for (int j = 0; j < N3; ++j) v[j * kThreads] = rho * v[j * kThreads] - y[j * kThreads];
+    for (int i = 0; i < N2; ++i) {
+      float acc = 0.f;
+      for (int j = 0; j < N2; ++j) acc = fmaf(s_ks[i * N5 + j], x[j * kThreads], acc);
+      for (int j = 0; j < N3; ++j) acc = fmaf(s_ks[i * N5 + N2 + j], v[j * kThreads], acc);
+      xn[i * kThreads] = acc - kq[i * R + r];
+    }
+    for (int i = 0; i < N3; ++i) {
+      float ax;
+      if (i < N2) {
+        ax = xn[i * kThreads];
+      } else {
+        ax = 0.f;
+        for (int j = 0; j < N2; ++j) ax = fmaf(s_g[(i - N2) * N2 + j], xn[j * kThreads], ax);
+      }
+      const float yi = y[i * kThreads];
+      const float zn = clamp_nan(ax + yi / rho, lo[i * R + r], hi[i * R + r]);
+      y[i * kThreads] = yi + rho * (ax - zn);
+      v[i * kThreads] = zn;
+    }
+    float* t = x;  // the next x becomes x
+    x = xn;
+    xn = t;
+  }
+  for (int i = 0; i < N2; ++i) xo[i * R + r] = x[i * kThreads];
+  for (int i = 0; i < N3; ++i) {
+    zo[i * R + r] = v[i * kThreads];
+    yo[i * R + r] = y[i * kThreads];
+  }
+}
+
 }  // namespace
 
 // kkt_stack: (2h, 5h); g_blk: (h, 2h); kq, x0, x_out: (2h, R);
 // lo, hi, z0, y0, z_out, y_out: (3h, R).  All float32, row-major, on the
 // device.  Returns the launch's cudaError_t (cudaErrorInvalidValue for a
-// horizon that is not instantiated: 12 and 24 are).
+// horizon that is not served: 12, 24 and 25-57 are).
 extern "C" int admm_step_launch(const float* kkt_stack, const float* g_blk, const float* kq,
                                 const float* lo, const float* hi, const float* x0,
                                 const float* z0, const float* y0, float* x_out,
@@ -129,8 +206,16 @@ extern "C" int admm_step_launch(const float* kkt_stack, const float* g_blk, cons
       admm_kernel<24><<<grid_dim, kThreads, 0, s>>>(kkt_stack, g_blk, kq, lo, hi, x0, z0,
                                                      y0, x_out, z_out, y_out, R, rho, iters);
       break;
-    default:
-      return (int)cudaErrorInvalidValue;
+    default: {
+      if (h <= 24 || h > kMaxDynHorizon) return (int)cudaErrorInvalidValue;
+      const size_t smem = dyn_smem_bytes(h);
+      cudaError_t err = cudaFuncSetAttribute(admm_kernel_dyn,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      admm_kernel_dyn<<<grid_dim, kThreads, smem, s>>>(kkt_stack, g_blk, kq, lo, hi, x0, z0, y0,
+                                                       x_out, z_out, y_out, h, R, rho, iters);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -12,31 +12,55 @@
 // tokens, head_dim 64, 8 KV heads, bf16) the call moves ~21 MB (q, k, v,
 // o, lse once each; 6.3 us at 3.35 TB/s) and does ~4.3 GFLOP with the
 // causal half (4.3 us at the 989 TFLOP/s bf16 tensor-core peak): bytes.
-// This first kernel runs its products as FP32 FMAs on the CUDA cores
-// (67 TFLOP/s peak), so it is bound by its own arithmetic, not by the card.
 //
-// Design: one 256-thread block per (batch x head, 64-row query tile), the
-// batch-head index on gridDim.x (up to 2^31 - 1, so any B * H runs).  The
-// query tile and each 64-key K/V tile are staged in shared memory as
-// float32 (padded rows, so the column reads are free of bank conflicts).
-// Each thread owns a 4 x 4 patch of the 64 x 64 score tile (rows
+// bf16 design (flash_fwd_tc, FlashAttention-2 on the tensor cores): one
+// 128-thread block per (batch x head, 64-row query tile), the batch-head
+// index on gridDim.x (up to 2^31 - 1).  Each warp owns 16 query rows.  The
+// query tile and 64-key K and V tiles are staged in shared memory as bf16
+// with cp.async (rows padded by 16 bytes, so ldmatrix is free of bank
+// conflicts), K and V double-buffered: the next tile loads while this one
+// is used.  s = q k^T runs on mma.sync m16n8k16 (bf16 operands, float32
+// sums: the products are exact, only the order of the sums differs from
+// the FP32 kernel) and stays in registers, 16 x 64 a warp; the row max and
+// sum are taken over the quad of threads that shares a row with two
+// shuffles.  The probabilities p stay float32 for the row sum l, and go
+// into the P V product as three bf16 A-fragments built in registers, p0 =
+// bf16(p), p1 = bf16(p - p0), p2 = bf16(p - p0 - p1), each multiplied by V
+// (read with ldmatrix.trans) into the one float32 accumulator: together
+// they are float32 p.  One bf16 rounding (2^-9 of p) would move an output
+// near zero far past one bf16 ulp of the float32 result, and two parts
+// (2^-18 of p) still do in rows that see few keys, so the kernel's outputs
+// stay within the float32 kernel's envelope only with three (the
+// tensor-core work of P V triples; q k^T is unchanged).  Head dims up to 128 keep
+// their q fragments in registers for the whole call; from 160 on the
+// (16 x D) float32 accumulator alone takes D / 2 registers a thread, so the
+// q fragments are re-read from shared memory at every key tile.  Causal key
+// tiles above the tile's last query row are never loaded; only tiles that
+// cross the diagonal apply the per-element mask; the query tiles that see
+// the most keys are launched first, so the short ones fill the tail.  Ragged tails: query rows
+// past Tq load as zeros and are not stored; keys past Tk load as zeros and
+// get -inf (probability exactly 0).  Rows are read through their strides
+// (16-byte aligned, the wrapper's check), so the (B, T, H, D) projections
+// are read without a transposing copy.  Head dims 32, 64, 128, 160, 192
+// and 256 are instantiated; shared memory is 10 x 64 (D + 8) bytes, 168,960
+// at D = 256.
+//
+// float32 design (flash_fwd_kernel, FP32 FMAs on the CUDA cores): one
+// 256-thread block per (batch x head, 64-row query tile).  The query tile
+// and each 64-key K/V tile are staged in shared memory as float32 (padded
+// rows); each thread owns a 4 x 4 patch of the 64 x 64 score tile (rows
 // 4*(tid/16) .., columns tid%16 + 16 j), reduces its rows' max and sum over
 // the 16 threads of its row group with shuffles, writes its probabilities
 // to a shared tile, and accumulates 4 rows x D/16 columns of the output in
-// registers.  GQA: the block reads KV head h / (H / Hkv) directly.  Causal:
-// key tiles entirely above the tile's last query row are never loaded;
-// only tiles that cross the diagonal apply the per-element mask.  Ragged
-// tails: query rows past Tq are zero and not stored; key columns past Tk
-// get -inf (probability exactly 0).  Strides are passed per tensor (the
-// last axis contiguous), so the (B, T, H, D) projections are read without
-// a transposing copy.  Head dims 32, 64, 128, 160 and 192 are instantiated
-// exactly (D / 16 output columns per thread), those of the backward
-// kernels; the wrapper zero-pads any other D up to the next one.  Shared
-// memory is 4 (2 * 64 (D + 1) + 64 D + 64 * 65) bytes: 140,032 at D = 160
-// and 164,608 at 192, inside the 232,448 a block may opt into.
+// registers.  Shared memory is 4 (2 * 64 (D + 1) + 64 D + 64 * 65) bytes:
+// 213,760 at D = 256, inside the 232,448 a block may opt into.  It is bound
+// by its FP32 arithmetic (67 TFLOP/s peak), not by the card's bytes.
+//
+// The wrapper zero-pads any other head dim up to the next instantiated one.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -48,20 +72,6 @@ constexpr float kMasked = -1e30f;  // the reference's causal mask value
 struct Strides {
   long long b, h, t;  // element strides of the batch, head and sequence axes
 };
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float group16_max(float v) {
 #pragma unroll
@@ -80,10 +90,11 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * kBQ * (D + 1) + kBK * D + kBQ * (kBK + 1));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int H, int Hkv, int Tq, int Tk,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                 int H, int Hkv, int Tq, int Tk,
                  Strides sq, Strides sk, Strides sv, Strides so, float scale, int causal) {
   constexpr int DP = D + 1;    // padded row of the Q and K tiles
   constexpr int PP = kBK + 1;  // padded row of the probability tile
@@ -103,14 +114,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int q0 = blockIdx.y * kBQ;
   const int q_offset = causal ? Tk - Tq : 0;
 
-  const T* qb = q + (long long)b * sq.b + (long long)h * sq.h;
-  const T* kb = k + (long long)b * sk.b + (long long)hk * sk.h;
-  const T* vb = v + (long long)b * sv.b + (long long)hk * sv.h;
+  const float* qb = q + (long long)b * sq.b + (long long)h * sq.h;
+  const float* kb = k + (long long)b * sk.b + (long long)hk * sk.h;
+  const float* vb = v + (long long)b * sv.b + (long long)hk * sv.h;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
     const int qi = q0 + r;
-    sQ[r * DP + c] = qi < Tq ? to_f(qb[(long long)qi * sq.t + c]) : 0.f;
+    sQ[r * DP + c] = qi < Tq ? qb[(long long)qi * sq.t + c] : 0.f;
   }
 
   float m[4], l[4], acc[4][DC];
@@ -135,8 +146,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int r = i / D, c = i % D;
       const int kj = k0 + r;
       const bool in = kj < Tk;
-      sK[r * DP + c] = in ? to_f(kb[(long long)kj * sk.t + c]) : 0.f;
-      sV[r * D + c] = in ? to_f(vb[(long long)kj * sv.t + c]) : 0.f;
+      sK[r * DP + c] = in ? kb[(long long)kj * sk.t + c] : 0.f;
+      sV[r * D + c] = in ? vb[(long long)kj * sv.t + c] : 0.f;
     }
     __syncthreads();
 
@@ -207,51 +218,335 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int qi = q0 + 4 * tr + ii;
     if (qi >= Tq) continue;
     const float lc = fmaxf(l[ii], 1e-30f);
-    T* orow = o + (long long)b * so.b + (long long)h * so.h + (long long)qi * so.t;
+    float* orow = o + (long long)b * so.b + (long long)h * so.h + (long long)qi * so.t;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) orow[tc + 16 * c] = from_f<T>(acc[ii][c] / lc);
+    for (int c = 0; c < DC; ++c) orow[tc + 16 * c] = acc[ii][c] / lc;
     if (tc == 0) lse[(long long)bh * Tq + qi] = m[ii] + logf(lc);
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_typed(const void* q, const void* k, const void* v, void* o, float* lse,
-                         int B, int H, int Hkv, int Tq, int Tk, Strides sq, Strides sk,
-                         Strides sv, Strides so, float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+// ------------------------------------------------- bf16 on the tensor cores
+
+constexpr int kTcThreads = 128;  // four warps of 16 query rows
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// c (16 x 8 float32) += a (16 x 16 bf16, row) b (16 x 8 bf16, col).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// p = p0 + p1 + p2 in three bf16 parts, for two neighbouring
+// probabilities, each part packed as an A-fragment register (the lower
+// column in the low half).  Each subtraction is exact, and the three parts
+// carry float32 p's 24 bits.
+__device__ __forceinline__ void split_pair(float pa, float pb, uint32_t (&part)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const __nv_bfloat16 ha = __float2bfloat16_rn(pa), hb = __float2bfloat16_rn(pb);
+    part[i] = pack_bf16(ha, hb);
+    pa -= __bfloat162float(ha);
+    pb -= __bfloat162float(hb);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <int D>
+constexpr size_t tc_smem_bytes() {
+  return sizeof(__nv_bfloat16) * 5 * 64 * (D + 8);  // Q, and K and V twice
+}
+
+// Stage rows [r0, r0 + 64) of a (T, D) bf16 slice (row stride st) into a
+// tile with rows of D + 8 elements; rows past n are zero.  One cp.async
+// group is committed by the caller.
+template <int D>
+__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                           long long st, int r0, int n) {
+  constexpr int C = D / 8, ROW = D + 8;
+  for (int i = threadIdx.x; i < 64 * C; i += kTcThreads) {
+    const int r = i / C, c = i % C;
+    const int ri = r0 + r;
+    const bool in = ri < n;
+    cp_async16(dst + r * ROW + 8 * c, in ? src + (long long)ri * st + 8 * c : src, in);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, D <= 64 ? 4 : 1)
+flash_fwd_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+             float* __restrict__ lse, int H, int Hkv, int Tq, int Tk, Strides sq, Strides sk,
+             Strides sv, Strides so, float scale, int causal) {
+  constexpr int ROW = D + 8;  // padded tile row, elements
+  constexpr int KC = D / 16;  // k-steps of q k^T
+  constexpr int ND = D / 8;   // 8-column tiles of the output
+  constexpr bool kQInRegs = D <= 128;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // 64 x ROW
+  __nv_bfloat16* sK = sQ + 64 * ROW;                                 // 2 x 64 x ROW
+  __nv_bfloat16* sV = sK + 2 * 64 * ROW;                             // 2 x 64 x ROW
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;  // fragment row and column pair
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int hk = h / (H / Hkv);
+  // The last query tiles see the most keys under the causal mask: launch
+  // them first, so the short ones fill the tail.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 64;
+  const int q_offset = causal ? Tk - Tq : 0;
+  const __nv_bfloat16* qb = q + (long long)b * sq.b + (long long)h * sq.h;
+  const __nv_bfloat16* kb = k + (long long)b * sk.b + (long long)hk * sk.h;
+  const __nv_bfloat16* vb = v + (long long)b * sv.b + (long long)hk * sv.h;
+
+  // Causal: the tile's last row (absolute q_offset + q0 + 63) sees no key
+  // past it, so later key tiles are skipped.
+  const int k_end = causal ? min(Tk, q_offset + q0 + 64) : Tk;
+  const int n_tiles = (k_end + 63) / 64;
+
+  stage_bf16<D>(sQ, qb, sq.t, q0, Tq);
+  stage_bf16<D>(sK, kb, sk.t, 0, Tk);
+  stage_bf16<D>(sV, vb, sv.t, 0, Tk);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+
+  // This lane's ldmatrix row addresses: q rows 16 warp .. (a-fragments),
+  // K rows of an 8-key group (b-fragments of two k-steps), V rows of a
+  // 16-key step (transposed b-fragments of two 8-column tiles).
+  const int a_row = 16 * warp + (lane % 8) + 8 * ((lane / 8) % 2), a_col = 8 * (lane / 16);
+  const int k_row = lane % 8, k_col = 8 * (lane / 8);
+  const int v_row = (lane % 8) + 8 * ((lane / 8) % 2), v_col = 8 * (lane / 16);
+
+  uint32_t qf[kQInRegs ? KC : 1][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m_r[2] = {kMasked, kMasked}, l_r[2] = {0.f, 0.f};
+  const int row_abs = q_offset + q0 + 16 * warp + g;  // absolute position of row g (+ 8)
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int buf = kt & 1, k0 = kt * 64;
+    if (kt + 1 < n_tiles) {
+      stage_bf16<D>(sK + (buf ^ 1) * 64 * ROW, kb, sk.t, k0 + 64, Tk);
+      stage_bf16<D>(sV + (buf ^ 1) * 64 * ROW, vb, sv.t, k0 + 64, Tk);
+      asm volatile("cp.async.commit_group;" ::: "memory");
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
+    __syncthreads();
+    const __nv_bfloat16* tK = sK + buf * 64 * ROW;
+    const __nv_bfloat16* tV = sV + buf * 64 * ROW;
+    if (kQInRegs && kt == 0) {
+#pragma unroll
+      for (int kc = 0; kc < (kQInRegs ? KC : 0); ++kc)
+        ldsm_x4(qf[kc], sQ + a_row * ROW + 16 * kc + a_col);
+    }
+
+    // s = q k^T: 16 rows x 64 keys a warp, eight 8-key tiles.
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kc2 = 0; kc2 < KC / 2; ++kc2) {
+      uint32_t a0[4], a1[4];
+      if constexpr (kQInRegs) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          a0[i] = qf[2 * kc2][i];
+          a1[i] = qf[2 * kc2 + 1][i];
+        }
+      } else {
+        ldsm_x4(a0, sQ + a_row * ROW + 32 * kc2 + a_col);
+        ldsm_x4(a1, sQ + a_row * ROW + 32 * kc2 + 16 + a_col);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t bk[4];
+        ldsm_x4(bk, tK + (8 * j + k_row) * ROW + 32 * kc2 + k_col);
+        mma_bf16(s[j], a0, bk[0], bk[1]);
+        mma_bf16(s[j], a1, bk[2], bk[3]);
+      }
+    }
+
+    // Mask, then the online softmax of rows g and g + 8.
+    const bool diag = causal && k0 + 63 > q_offset + q0;  // some key above the diagonal
+    const bool tail = k0 + 64 > Tk;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        float x = s[j][e] * scale;
+        if (diag && col > row_abs + 8 * (e >> 1)) x = kMasked;
+        if (tail && col >= Tk) x = -INFINITY;
+        s[j][e] = x;
+      }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = s[0][2 * hh];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hh], s[j][2 * hh + 1]));
+      const float m_new = fmaxf(m_r[hh], quad_max(mx));
+      const float corr = expf(m_r[hh] - m_new);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 2 * hh; e < 2 * hh + 2; ++e) {
+          s[j][e] = expf(s[j][e] - m_new);
+          ps += s[j][e];
+        }
+      l_r[hh] = l_r[hh] * corr + quad_sum(ps);
+      m_r[hh] = m_new;
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        acc[j][2 * hh] *= corr;
+        acc[j][2 * hh + 1] *= corr;
+      }
+    }
+
+    // acc += (p0 + p1 + p2) v over four 16-key steps; the s tiles 2 kc and
+    // 2 kc + 1 are the A-fragment of step kc.
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t pp[4][3], pa[3][4];  // A-fragment register r of part i: pa[i][r]
+      split_pair(s[2 * kc][0], s[2 * kc][1], pp[0]);
+      split_pair(s[2 * kc][2], s[2 * kc][3], pp[1]);
+      split_pair(s[2 * kc + 1][0], s[2 * kc + 1][1], pp[2]);
+      split_pair(s[2 * kc + 1][2], s[2 * kc + 1][3], pp[3]);
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) pa[i][r] = pp[r][i];
+#pragma unroll
+      for (int j2 = 0; j2 < ND / 2; ++j2) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, tV + (16 * kc + v_row) * ROW + 16 * j2 + v_col);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          mma_bf16(acc[2 * j2], pa[i], bv[0], bv[1]);
+          mma_bf16(acc[2 * j2 + 1], pa[i], bv[2], bv[3]);
+        }
+      }
+    }
+    __syncthreads();  // this buffer is restaged two tiles on
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int qi = q0 + 16 * warp + g + 8 * hh;
+    if (qi >= Tq) continue;
+    const float lc = fmaxf(l_r[hh], 1e-30f);
+    __nv_bfloat16* orow = o + (long long)b * so.b + (long long)h * so.h + (long long)qi * so.t;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(acc[j][2 * hh] / lc, acc[j][2 * hh + 1] / lc);
+    if (t == 0) lse[(long long)bh * Tq + qi] = m_r[hh] + logf(lc);
+  }
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                      int H, int Hkv, int Tq, int Tk, Strides sq, Strides sk, Strides sv,
+                      Strides so, float scale, int causal, cudaStream_t stream) {
+  constexpr size_t smem = tc_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Tq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, H, Hkv, Tq, Tk, sq, sk, sv, so, scale, causal);
+  flash_fwd_tc<D><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, H, Hkv, Tq, Tk,
+      sq, sk, sv, so, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dim(int D, const void* q, const void* k, const void* v, void* o, float* lse,
-                       int B, int H, int Hkv, int Tq, int Tk, Strides sq, Strides sk, Strides sv,
-                       Strides so, float scale, int causal, cudaStream_t s) {
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                       int H, int Hkv, int Tq, int Tk, Strides sq, Strides sk, Strides sv,
+                       Strides so, float scale, int causal, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Tq + kBQ - 1) / kBQ);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, H, Hkv, Tq, Tk, sq, sk, sv, so, scale, causal);
+  return cudaGetLastError();
+}
+
+// The kernel of one dtype (0 float32, 1 bfloat16) and head dim.
+template <int D>
+cudaError_t launch_d(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
+                     int B, int H, int Hkv, int Tq, int Tk, Strides sq, Strides sk, Strides sv,
+                     Strides so, float scale, int causal, cudaStream_t s) {
+  if (dtype == 1)
+    return launch_tc<D>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, sq, sk, sv, so, scale, causal, s);
+  if (dtype == 0)
+    return launch_f32<D>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, sq, sk, sv, so, scale, causal, s);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch_dim(int D, int dtype, const void* q, const void* k, const void* v, void* o,
+                       float* lse, int B, int H, int Hkv, int Tq, int Tk, Strides sq, Strides sk,
+                       Strides sv, Strides so, float scale, int causal, cudaStream_t s) {
+#define FLASH_FWD_CASE(DIM)                                                                    \
+  case DIM:                                                                                    \
+    return launch_d<DIM>(dtype, q, k, v, o, lse, B, H, Hkv, Tq, Tk, sq, sk, sv, so, scale,     \
+                         causal, s);
   switch (D) {
-    case 32:
-      return launch_typed<T, 32>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, sq, sk, sv, so, scale,
-                                 causal, s);
-    case 64:
-      return launch_typed<T, 64>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, sq, sk, sv, so, scale,
-                                 causal, s);
-    case 128:
-      return launch_typed<T, 128>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, sq, sk, sv, so, scale,
-                                  causal, s);
-    case 160:
-      return launch_typed<T, 160>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, sq, sk, sv, so, scale,
-                                  causal, s);
-    case 192:
-      return launch_typed<T, 192>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, sq, sk, sv, so, scale,
-                                  causal, s);
+    FLASH_FWD_CASE(32)
+    FLASH_FWD_CASE(64)
+    FLASH_FWD_CASE(128)
+    FLASH_FWD_CASE(160)
+    FLASH_FWD_CASE(192)
+    FLASH_FWD_CASE(256)
     default:
       return cudaErrorInvalidValue;
   }
+#undef FLASH_FWD_CASE
 }
 
 }  // namespace
@@ -259,9 +554,10 @@ cudaError_t launch_dim(int D, const void* q, const void* k, const void* v, void*
 // q: (B, H, Tq, D), k and v: (B, Hkv, Tk, D), o: (B, H, Tq, D), each given
 // by its batch/head/sequence element strides with the last axis
 // contiguous; lse: (B, H, Tq) float32 contiguous.  dtype 0 = float32,
-// 1 = bfloat16 (q, k, v and o alike).  D in {32, 64, 128, 160, 192};
-// H a multiple of Hkv; B * H < 2^31 and Tq <= 64 * 65535; causal needs
-// Tq <= Tk.  Returns the launch's CUDA error code.
+// 1 = bfloat16 (q, k, v and o alike; rows 16-byte aligned: base pointers
+// and the three strides multiples of 8 elements).  D in {32, 64, 128, 160,
+// 192, 256}; H a multiple of Hkv; B * H < 2^31 and Tq <= 64 * 65535;
+// causal needs Tq <= Tk.  Returns the launch's CUDA error code.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o, void* lse,
                                 int B, int H, int Hkv, int Tq, int Tk, int D, long long sqb,
                                 long long sqh, long long sqt, long long skb, long long skh,
@@ -272,13 +568,12 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
       (long long)B * H > 2147483647LL || (Tq + kBQ - 1) / kBQ > 65535 || (causal && Tq > Tk))
     return (int)cudaErrorInvalidValue;
   const Strides sq{sqb, sqh, sqt}, sk{skb, skh, skt}, sv{svb, svh, svt}, so{sob, soh, sot};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  cudaError_t err =
-      dtype == 1   ? launch_dim<__nv_bfloat16>(D, q, k, v, o, l, B, H, Hkv, Tq, Tk, sq, sk, sv,
-                                               so, scale, causal, s)
-      : dtype == 0 ? launch_dim<float>(D, q, k, v, o, l, B, H, Hkv, Tq, Tk, sq, sk, sv, so,
-                                       scale, causal, s)
-                   : cudaErrorInvalidValue;
-  return (int)err;
+  if (dtype == 1) {  // cp.async moves 16-byte row pieces
+    const long long st = sqb | sqh | sqt | skb | skh | skt | svb | svh | svt | sob | soh | sot;
+    const uintptr_t p = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+    if (st % 8 || p % 16) return (int)cudaErrorInvalidValue;
+  }
+  return (int)launch_dim(D, dtype, q, k, v, o, static_cast<float*>(lse), B, H, Hkv, Tq, Tk, sq,
+                         sk, sv, so, scale, causal, static_cast<cudaStream_t>(stream));
 }

@@ -18,25 +18,33 @@
 // r diag(u) k^T v = (sum_i r_i u_i k_i) v, 5 operations per head element
 // per token.  That is 2.7 GFLOP, 41 us at the 67 TFLOP/s FP32 peak, so
 // operations bound it.  A decode step (T = 1) moves the state twice
-// (8.4 MB, 2.5 us) and little else.  This first kernel keeps the bonus
+// (8.4 MB, 2.5 us) and little else.  The kernel keeps the bonus
 // inside the (D, D) loop as the reference writes it (7 operations per
 // state element: k v, u kv, S + ., r (.) summed over i, w S, + kv), and
 // runs one 64-thread block per head, far too few warps per SM to hide the
 // latency of its dependent chains, its per-step barrier and its loads one
 // step ahead, so it is bound by latency, not by the card's rates.
 //
-// Design: one block of D threads per (batch, head).  Thread j keeps column j
-// of S in D registers (the loops over i are unrolled at compile time).  At
-// each step thread j loads r_t[j], k_t[j], w_t[j], v_t[j] (consecutive
-// threads, consecutive addresses), stages r, k, w in a double-buffered
-// shared array (one barrier per step), prefetches step t + 1's values into
-// registers, then computes o_j = sum_i r_i (S_ij + u_i (k_i v_j)) (four
-// partial sums) and S_ij = w_i S_ij + k_i v_j in float32.  Inputs are bf16
-// or float32 and widened on load; o is rounded once to the input type.
-// Strides are passed per tensor (the last axis contiguous), so (B, T, H, D)
-// projections are read in place and o can be written in that layout.  D is
-// instantiated at 32, 64 and 128 (a column of D floats per thread); the
-// wrapper zero-pads any smaller head dim up to the next one, which is exact.
+// Design: thread j of a block keeps column j of S in registers (the loops
+// over i are unrolled at compile time); one block of D threads per (batch,
+// head) for D = 32, 64 and 128.  At each step a thread loads its element of
+// r_t, k_t, w_t and v_t[j] (consecutive threads, consecutive addresses),
+// stages r, k, w in a double-buffered shared array (one barrier per step),
+// prefetches step t + 1's values into registers, then computes o_j =
+// sum_i r_i (S_ij + u_i (k_i v_j)) (four partial sums) and S_ij = w_i S_ij +
+// k_i v_j in float32.  At D = 256 a column would take 256 registers, so it
+// is split over two adjacent lanes, each holding a 128-row half (as many
+// rows as a D = 128 thread holds); the halves' partial o_j are combined
+// with one __shfl_xor_sync(.., 1).  Columns are independent, so the head's
+// 512 threads run as two blocks of 256, 128 columns each (gridDim.y): a
+// block of 512 would cap a thread at 128 registers and spill the half
+// column.  The per-element arithmetic is the same at every D; the staged
+// halves sit one float apart so the two lanes' reads never share a bank.
+// Inputs are bf16 or float32 and widened on load; o is rounded once to the
+// input type.  Strides are passed per tensor (the last axis contiguous),
+// so (B, T, H, D) projections are read in place and o can be written in
+// that layout.  D is instantiated at 32, 64, 128 and 256; the wrapper
+// zero-pads any other head dim up to the next one, which is exact.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -60,6 +68,15 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
+// How a head's D columns are split: P threads a column (each holding
+// D / P rows of it), D / P columns a block, P blocks a head.  One thread a
+// column up to D = 128; two at D = 256, so a thread holds 128 rows (as at
+// D = 128) and a block of D threads may still give each 255 registers.
+template <int D>
+__host__ __device__ constexpr int parts() {
+  return D > 128 ? 2 : 1;
+}
+
 template <int D, typename T>
 __global__ void __launch_bounds__(D) rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
                                                   const T* __restrict__ v, const T* __restrict__ w,
@@ -68,38 +85,46 @@ __global__ void __launch_bounds__(D) rwkv6_kernel(const T* __restrict__ r, const
                                                   float* __restrict__ sf, int H, int Tn,
                                                   Strides sr_, Strides sk_, Strides sv_,
                                                   Strides sw_, Strides so_) {
-  __shared__ float su[D];
-  __shared__ float sr[2][D];
-  __shared__ float sk[2][D];
-  __shared__ float sw[2][D];
+  constexpr int P = parts<D>();
+  constexpr int R = D / P;  // rows of the column a thread holds
+  constexpr int SD = D + P - 1;  // staged vectors; part p's rows start at p (R + 1)
+  __shared__ float su[SD];
+  __shared__ float sr[2][SD];
+  __shared__ float sk[2][SD];
+  __shared__ float sw[2][SD];
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
-  const int j = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int part = tid % P;                          // which rows: part R ..
+  const int j = blockIdx.y * (D / P) + tid / P;      // the column
+  const int x = tid + tid / R;                       // where element tid is staged
+  const int i0 = part * (R + 1);                     // where this thread's rows are staged
 
-  float S[D];
-  const long long soff = (long long)bh * D * D + j;
+  float S[R];
+  const long long soff = (long long)bh * D * D + (long long)part * R * D + j;
   if (s0 != nullptr) {
 #pragma unroll
-    for (int i = 0; i < D; ++i) S[i] = s0[soff + (long long)i * D];
+    for (int i = 0; i < R; ++i) S[i] = s0[soff + (long long)i * D];
   } else {
 #pragma unroll
-    for (int i = 0; i < D; ++i) S[i] = 0.0f;
+    for (int i = 0; i < R; ++i) S[i] = 0.0f;
   }
-  su[j] = to_f(u[(long long)h * D + j]);
+  su[x] = to_f(u[(long long)h * D + tid]);
 
-  const T* rp = r + b * sr_.b + h * sr_.h + j;
-  const T* kp = k + b * sk_.b + h * sk_.h + j;
+  // Thread tid stages element tid of r, k and w; every thread reads v_j.
+  const T* rp = r + b * sr_.b + h * sr_.h + tid;
+  const T* kp = k + b * sk_.b + h * sk_.h + tid;
+  const T* wp = w + b * sw_.b + h * sw_.h + tid;
   const T* vp = v + b * sv_.b + h * sv_.h + j;
-  const T* wp = w + b * sw_.b + h * sw_.h + j;
   T* op = o + b * so_.b + h * so_.h + j;
 
   float rn = to_f(rp[0]), kn = to_f(kp[0]), vn = to_f(vp[0]), wn = to_f(wp[0]);
   for (int t = 0; t < Tn; ++t) {
     const int buf = t & 1;
-    sr[buf][j] = rn;
-    sk[buf][j] = kn;
-    sw[buf][j] = wn;
+    sr[buf][x] = rn;
+    sk[buf][x] = kn;
+    sw[buf][x] = wn;
     const float vj = vn;
     __syncthreads();
     if (t + 1 < Tn) {
@@ -111,15 +136,25 @@ __global__ void __launch_bounds__(D) rwkv6_kernel(const T* __restrict__ r, const
     }
     float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-    for (int i = 0; i < D; ++i) {
-      const float kv = sk[buf][i] * vj;
-      acc[i & 3] += sr[buf][i] * (S[i] + su[i] * kv);
-      S[i] = sw[buf][i] * S[i] + kv;
+    for (int i = 0; i < R; ++i) {
+      const float kv = sk[buf][i0 + i] * vj;
+      acc[i & 3] += sr[buf][i0 + i] * (S[i] + su[i0 + i] * kv);
+      S[i] = sw[buf][i0 + i] * S[i] + kv;
     }
-    op[(long long)t * so_.t] = from_f<T>((acc[0] + acc[1]) + (acc[2] + acc[3]));
+    float oj = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+    if constexpr (P == 2) oj += __shfl_xor_sync(0xffffffffu, oj, 1);  // the other half
+    if (part == 0) op[(long long)t * so_.t] = from_f<T>(oj);
   }
 #pragma unroll
-  for (int i = 0; i < D; ++i) sf[soff + (long long)i * D] = S[i];
+  for (int i = 0; i < R; ++i) sf[soff + (long long)i * D] = S[i];
+}
+
+template <int D, typename T>
+void launch_d(const T* r, const T* k, const T* v, const T* w, const T* u, const float* s0, T* o,
+              float* sf, int B, int H, int Tn, Strides sr, Strides sk, Strides sv, Strides sw,
+              Strides so, cudaStream_t stream) {
+  const dim3 grid(B * H, parts<D>());
+  rwkv6_kernel<D, T><<<grid, D, 0, stream>>>(r, k, v, w, u, s0, o, sf, H, Tn, sr, sk, sv, sw, so);
 }
 
 template <typename T>
@@ -127,24 +162,27 @@ cudaError_t launch_dim(int D, const void* r, const void* k, const void* v, const
                        const void* u, const float* s0, void* o, float* sf, int B, int H, int Tn,
                        Strides sr, Strides sk, Strides sv, Strides sw, Strides so,
                        cudaStream_t stream) {
-  const dim3 grid(B * H);
   const T* rt = static_cast<const T*>(r);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* wt = static_cast<const T*>(w);
   const T* ut = static_cast<const T*>(u);
   T* ot = static_cast<T*>(o);
-  if (D == 32) {
-    rwkv6_kernel<32, T><<<grid, 32, 0, stream>>>(rt, kt, vt, wt, ut, s0, ot, sf, H, Tn, sr, sk,
-                                                 sv, sw, so);
-  } else if (D == 64) {
-    rwkv6_kernel<64, T><<<grid, 64, 0, stream>>>(rt, kt, vt, wt, ut, s0, ot, sf, H, Tn, sr, sk,
-                                                 sv, sw, so);
-  } else if (D == 128) {
-    rwkv6_kernel<128, T><<<grid, 128, 0, stream>>>(rt, kt, vt, wt, ut, s0, ot, sf, H, Tn, sr, sk,
-                                                   sv, sw, so);
-  } else {
-    return cudaErrorInvalidValue;
+  switch (D) {
+    case 32:
+      launch_d<32>(rt, kt, vt, wt, ut, s0, ot, sf, B, H, Tn, sr, sk, sv, sw, so, stream);
+      break;
+    case 64:
+      launch_d<64>(rt, kt, vt, wt, ut, s0, ot, sf, B, H, Tn, sr, sk, sv, sw, so, stream);
+      break;
+    case 128:
+      launch_d<128>(rt, kt, vt, wt, ut, s0, ot, sf, B, H, Tn, sr, sk, sv, sw, so, stream);
+      break;
+    case 256:
+      launch_d<256>(rt, kt, vt, wt, ut, s0, ot, sf, B, H, Tn, sr, sk, sv, sw, so, stream);
+      break;
+    default:
+      return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
@@ -155,7 +193,7 @@ cudaError_t launch_dim(int D, const void* r, const void* k, const void* v, const
 // axes and a contiguous last axis; u: (H, D) contiguous; s0 (may be null for
 // a zero state) and sf: (B, H, D, D) contiguous float32; o: (B, H, T, D) with
 // its strides.  dtype 0 = float32, 1 = bfloat16 (r, k, v, w, u and o).  D in
-// {32, 64, 128}.  Returns the CUDA error code of the launch.
+// {32, 64, 128, 256}.  Returns the CUDA error code of the launch.
 extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v, const void* w,
                                  const void* u, const void* s0, void* o, void* sf, int B, int H,
                                  int Tn, int D, long long srb, long long srh, long long srt,

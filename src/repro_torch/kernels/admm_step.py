@@ -3,15 +3,18 @@
 Ports ``repro.kernels.admm_step.admm_iterate`` (Pallas ``_admm_kernel``):
 ``iters`` OSQP-style ADMM steps for every rack column in one launch, the
 plan matrices in shared memory and each column's ``x, z, y`` iterates in
-registers (see ``csrc/admm_step.cu``).  ``prepare`` / ``launch`` split one
-call so the kernel can be timed alone; ``admm_iterate.launches`` counts
-kernel launches (``launch`` adds one).
+registers (in shared memory above horizon 24; see ``csrc/admm_step.cu``).
+``prepare`` / ``launch`` split one call so the kernel can be timed alone;
+``admm_iterate.launches`` counts kernel launches (``launch`` adds one).
 
-The kernel is instantiated for horizons 12 and 24; ``pad_horizon`` lifts
-any smaller horizon to the next one with decoupled variables whose rows of
-the KKT operator and of ``G`` are zero and whose bounds are ``lo = hi =
-0``, so they stay 0, and the real variables keep their order: every real
-sum gains only zero terms, and the real iterates come out bit for bit.
+The kernel is instantiated for horizons 12 and 24, with the iterates in
+registers; ``pad_horizon`` lifts any smaller horizon to the next one with
+decoupled variables whose rows of the KKT operator and of ``G`` are zero
+and whose bounds are ``lo = hi = 0``, so they stay 0, and the real
+variables keep their order: every real sum gains only zero terms, and the
+real iterates come out bit for bit.  Horizons 25 to ``MAX_HORIZON`` run a
+variant that takes the horizon at run time and keeps the plan and the
+iterates in shared memory.
 """
 from __future__ import annotations
 
@@ -23,17 +26,19 @@ import torch
 from repro_torch.kernels import _build
 
 F32 = torch.float32
-# Instantiated template horizons (12 is ControllerConfig's default).  A
-# larger one would not fit its plan in the kernel's static shared memory.
+# Instantiated template horizons (12 is ControllerConfig's default); above
+# the largest, the run-time variant serves h itself up to MAX_HORIZON, whose
+# plan and iterates (48 h^2 + 1280 h bytes) fit a block's shared memory.
 HORIZONS = (12, 24)
+MAX_HORIZON = 57
 
 
 def kernel_horizon(h: int) -> int:
-    """The instantiated horizon that serves ``h`` (``h`` or the next one
-    up); raises above the largest."""
-    if h > HORIZONS[-1]:
-        raise ValueError(f"admm_step kernel takes horizons up to {HORIZONS[-1]}, got {h}")
-    return next(n for n in HORIZONS if n >= h)
+    """The horizon the kernel runs for ``h``: the instantiated one at or
+    above it up to 24, else ``h`` itself; raises above ``MAX_HORIZON``."""
+    if h > MAX_HORIZON:
+        raise ValueError(f"admm_step kernel takes horizons up to {MAX_HORIZON}, got {h}")
+    return next((n for n in HORIZONS if n >= h), h)
 
 
 def _real_rows(h: int, hp: int, n_blocks: int) -> list[int]:
@@ -94,10 +99,10 @@ def prepare(kkt_stack, g_blk, kq, lo, hi, x0, z0, y0, *, rho, iters) -> Prepared
     if dev.type != "cuda":
         raise ValueError("admm_step kernel needs CUDA tensors")
     h = g_blk.shape[0]
-    if h not in HORIZONS:
+    if kernel_horizon(h) != h:
         raise ValueError(
-            f"admm_step kernel is instantiated for horizons {HORIZONS}, got {h} "
-            "(admm_iterate pads it)"
+            f"admm_step kernel runs horizons {HORIZONS} and {HORIZONS[-1] + 1}-{MAX_HORIZON}, "
+            f"got {h} (admm_iterate pads it)"
         )
     if kq.ndim != 2:
         raise ValueError("admm_step kernel needs a (2h, R) rack batch")
@@ -138,8 +143,8 @@ def launch(p: Prepared) -> None:
 
 def admm_iterate(kkt_stack, g_blk, kq, lo, hi, x0, z0, y0, *, rho, iters):
     """Launch the kernel on CUDA tensors with a rack batch in the trailing
-    axis; returns ``(x, z, y)`` like ``ref.admm_iterate``.  A horizon that
-    is not instantiated runs padded (``pad_horizon``)."""
+    axis; returns ``(x, z, y)`` like ``ref.admm_iterate``.  A horizon below
+    24 that is not instantiated runs padded (``pad_horizon``)."""
     h = g_blk.shape[0]
     args = pad_horizon(kkt_stack, g_blk, kq, lo, hi, x0, z0, y0, kernel_horizon(h))
     p = prepare(*args, rho=rho, iters=iters)

@@ -4,9 +4,12 @@ Ports ``repro.kernels.flash_attention._flash_fwd`` (Pallas
 ``_flash_kernel``) together with the GQA grouping of its public wrapper:
 causal or non-causal online-softmax attention that returns the output in
 the input type and the row log-sum-exp in float32.  The CUDA source
-(``csrc/flash_attention.cu``) reads KV head ``h // (H // Hkv)`` directly
-(no repeated K/V), skips key tiles above the causal diagonal and masks
-ragged tails itself, so every sequence length runs the kernel.
+(``csrc/flash_attention.cu``) runs bf16 on the tensor cores (``mma.sync``
+with the float32 probabilities split into three bf16 parts, so the P V
+product multiplies float32 P) and float32 as FP32 FMAs; both read KV head
+``h // (H // Hkv)`` directly (no repeated K/V), skip key tiles above the
+causal diagonal and mask ragged tails themselves, so every sequence length
+runs the kernel.
 
 The backward ports ``_flash_bwd`` (Pallas ``_flash_bwd_dkv_kernel`` and
 ``_flash_bwd_dq_kernel``, ``csrc/flash_attention_bwd.cu``): two kernels
@@ -27,10 +30,10 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Instantiated template head dims; a head dim between them is zero-padded up.
-# The backward's dK/dV kernel keeps four FP32 (64, D + 1) tiles in shared
-# memory, which above D = 192 exceed the 227 KB a block may use.
-HEAD_DIMS = (32, 64, 128, 160, 192)
+# Instantiated template head dims, forward and backward alike; a head dim
+# between them is zero-padded up.  At D = 256 the backward kernels walk
+# 32-row tiles so their FP32 tiles fit the 227 KB a block may use.
+HEAD_DIMS = (32, 64, 128, 160, 192, 256)
 _MAX_ROWS = 64 * 65535  # query (or key) tiles of 64 ride gridDim.y
 
 
@@ -49,6 +52,17 @@ def _check_grid(b: int, h: int, tq: int, tk: int) -> None:
                          f"= {tq}, {tk} at most {_MAX_ROWS}")
 
 
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Whether the forward kernel can read ``t``'s rows in place: the last
+    axis contiguous and, for bf16 (which the tensor-core kernel stages with
+    16-byte copies), every row starting on a 16-byte boundary."""
+    if t.stride(-1) != 1:
+        return False
+    if t.dtype != torch.bfloat16:
+        return True
+    return t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
+
+
 def flash_attention_fwd(
     q: torch.Tensor,  # (B, H, Tq, D)
     k: torch.Tensor,  # (B, Hkv, Tk, D)
@@ -59,7 +73,8 @@ def flash_attention_fwd(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel on CUDA tensors; returns ``(o, lse)`` like
     ``ref.attention(..., with_lse=True)``.  Any strides are taken as long
-    as the last axis is contiguous; ``o`` is laid out ``(B, Tq, H, D)`` in
+    as the last axis is contiguous (bf16 rows not on 16-byte boundaries
+    are copied first); ``o`` is laid out ``(B, Tq, H, D)`` in
     memory (returned as its ``(B, H, Tq, D)`` view), so merging the heads
     afterwards is free.  A head dim between the instantiated ones (say 30)
     is zero-padded to the next one (``kernel_head_dim``).  Causal attention
@@ -87,7 +102,8 @@ def flash_attention_fwd(
         o, lse = flash_attention_fwd(*(F.pad(t, (0, dk - d)) for t in (q, k, v)),
                                      causal=causal, scale=scale)
         return o[..., :d], lse
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    q, k, v = (t if _rows_aligned(t) else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
     o = torch.empty((b, tq, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=dev)
     if b == 0 or tq == 0:

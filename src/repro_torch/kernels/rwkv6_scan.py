@@ -4,7 +4,8 @@ Ports ``repro.kernels.rwkv6_scan.rwkv6_scan`` (Pallas ``_rwkv6_kernel``):
 per (batch, head), with time sequential, ``o_t = r_t (S_{t-1} + diag(u)
 k_t^T v_t)`` and ``S_t = diag(w_t) S_{t-1} + k_t^T v_t`` with a (D, D)
 float32 state.  The CUDA source (``csrc/rwkv6_scan.cu``) keeps the state
-in registers for the whole sequence; see its header for the design.
+in registers for the whole sequence (a column split over two threads at
+D = 256); see its header for the design.
 ``rwkv6_scan.launches`` counts kernel launches.
 
 The reference's kernel route has no gradient (no ``custom_vjp``), and
@@ -22,8 +23,9 @@ from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Instantiated template head dims.  A thread keeps a column of the (D, D)
-# float32 state in D registers, so D stops at 128 (255 registers a thread).
-HEAD_DIMS = (32, 64, 128)
+# float32 state in registers, 128 rows at most: at D = 256 two threads share
+# a column (255 registers a thread).
+HEAD_DIMS = (32, 64, 128, 256)
 
 
 def kernel_head_dim(d: int) -> int:
@@ -31,7 +33,7 @@ def kernel_head_dim(d: int) -> int:
     up.  Zero padding is exact: zero ``k`` rows keep the padded state rows
     at zero from a zero-padded ``state0``, zero ``v`` columns keep the
     padded state columns at zero, zero ``r`` and ``u`` add nothing to
-    ``o``, and the padded columns of ``o`` are cut off.  Raises above 128."""
+    ``o``, and the padded columns of ``o`` are cut off.  Raises above 256."""
     if d > HEAD_DIMS[-1]:
         raise ValueError(f"rwkv6_scan kernel takes head dims up to {HEAD_DIMS[-1]}, got {d}")
     return next(n for n in HEAD_DIMS if n >= d)
@@ -50,8 +52,8 @@ def rwkv6_scan(
     float32)``.  ``r, k, v, w, u`` share one type (float32 or bfloat16);
     any strides are taken as long as the last axis is contiguous, and ``o``
     gets ``r``'s memory layout (so the time mix's ``(B, T, H, D)`` views go
-    in and come out without a copy).  ``D <= 128`` (other than 32, 64 and
-    128 zero-padded, ``kernel_head_dim``) and ``T >= 1``."""
+    in and come out without a copy).  ``D <= 256`` (other than 32, 64, 128
+    and 256 zero-padded, ``kernel_head_dim``) and ``T >= 1``."""
     dev = r.device
     if dev.type != "cuda":
         raise ValueError("rwkv6_scan kernel needs CUDA tensors")

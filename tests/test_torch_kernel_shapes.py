@@ -1,9 +1,9 @@
 """The widened kernel shapes of the port, on the CPU.
 
-On the card the flash kernels take head dims up to 192, the
-``rwkv6_scan`` kernel any head dim up to 128, ``rmsnorm`` any ``D`` and
-``admm_step`` any horizon up to 24; a shape between the instantiated ones
-is zero-padded up.  Here, without a card, these tests hold what runs on
+On the card the flash kernels take head dims up to 256, the
+``rwkv6_scan`` kernel any head dim up to 256, ``rmsnorm`` any ``D`` and
+``admm_step`` any horizon up to 57 (unpadded above 24); a shape between the
+instantiated ones is zero-padded up.  Here, without a card, these tests hold what runs on
 the CPU:
 
 * the routing decisions (``kernel_head_dim``, ``kernel_horizon``) and
@@ -47,8 +47,8 @@ def test_flash_head_dim_routing():
     for d, want in ((30, 32), (64, 64), (100, 128), (150, 160), (160, 160), (176, 192),
                     (192, 192)):
         assert fa.kernel_head_dim(d) == want
-    with pytest.raises(ValueError, match="up to 192"):
-        fa.kernel_head_dim(193)
+    with pytest.raises(ValueError, match="up to 256"):
+        fa.kernel_head_dim(257)
     fa._check_grid(4096, 64, 512, 512)  # B * H = 262144, past the old 65535
     with pytest.raises(ValueError):
         fa._check_grid(2**16, 2**15, 512, 512)
@@ -59,8 +59,8 @@ def test_flash_head_dim_routing():
 def test_rwkv_head_dim_routing_and_padding():
     assert [rw.kernel_head_dim(d) for d in (16, 32, 48, 64, 100, 128)] == [32, 32, 64, 64, 128,
                                                                             128]
-    with pytest.raises(ValueError, match="up to 128"):
-        rw.kernel_head_dim(129)
+    with pytest.raises(ValueError, match="up to 256"):
+        rw.kernel_head_dim(257)
     rng = np.random.default_rng(0)
     b, h, t, d, dp = 2, 3, 40, 48, 64
     r, k, v = (torch.from_numpy(rng.standard_normal((b, h, t, d)).astype(np.float32))
@@ -125,8 +125,8 @@ def test_admm_horizon_padding_is_exact(horizon):
     real = set(admm_step._real_rows(horizon, hp, 2))
     pad_rows = [i for i in range(2 * hp) if i not in real]
     assert torch.count_nonzero(got_p[0][pad_rows]) == 0
-    with pytest.raises(ValueError, match="up to 24"):
-        admm_step.kernel_horizon(25)
+    with pytest.raises(ValueError, match="up to 57"):
+        admm_step.kernel_horizon(58)
 
 
 def test_admm_horizon_6_matches_jax():

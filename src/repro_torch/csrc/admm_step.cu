@@ -32,6 +32,15 @@
 //    block; 8 h x 32 in registers would spill.  48 h^2 + 1280 h bytes fit
 //    the 232,448 a block may opt into up to h = 57.  Same operations in the
 //    same order as the register variant.
+//  * any h (admm_kernel_glb; the wrapper runs it above 57): the plan is
+//    read from global memory through the read-only path (__ldg; 0.66 MB at
+//    h = 128, which stays in the 50 MB L2, each element a broadcast to the
+//    warp), so only the iterates need a home: in dynamic shared memory as
+//    in admm_kernel_dyn, 1280 h bytes a block of 32 racks, up to h = 181,
+//    or above that in a global scratch laid out [variable][rack] (the
+//    accesses of a warp coalesced).  The same operations in the same order
+//    as admm_kernel_dyn, so where both run (25 <= h <= 57) the two agree
+//    bit for bit.
 // The summation order of the products differs from XLA's dot, so the
 // kernel is held to its plain version by a tolerance (2e-5 after 30
 // iterations), not bitwise.
@@ -183,20 +192,101 @@ admm_kernel_dyn(const float* __restrict__ ks, const float* __restrict__ gb,
   }
 }
 
+// Largest horizon whose iterates (10 h floats a thread, 32 threads) fit a
+// block's 232,448 bytes of shared memory in admm_kernel_glb.
+constexpr int kMaxSmemIterHorizon = 232448 / (sizeof(float) * 10 * kThreads);
+
+__global__ void __launch_bounds__(kThreads)
+admm_kernel_glb(const float* __restrict__ ks, const float* __restrict__ gb,
+                const float* __restrict__ kq, const float* __restrict__ lo,
+                const float* __restrict__ hi, const float* __restrict__ x0,
+                const float* __restrict__ z0, const float* __restrict__ y0,
+                float* __restrict__ xo, float* __restrict__ zo, float* __restrict__ yo,
+                float* __restrict__ scratch, int H, int R, float rho, int iters) {
+  const long long N2 = 2 * H, N3 = 3 * H, N5 = 5 * H;
+  extern __shared__ __align__(16) float dsm[];
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+
+  // Variable i of this column at [i * st]: x, the next x, v (z, and rho z
+  // - y during the x-update) and y, in shared memory or in the scratch.
+  const long long st = scratch == nullptr ? kThreads : R;
+  float* x = scratch == nullptr ? dsm + threadIdx.x : scratch + r;
+  float* xn = x + N2 * st;
+  float* v = xn + N2 * st;
+  float* y = v + N3 * st;
+  for (long long i = 0; i < N2; ++i) x[i * st] = x0[i * R + r];
+  for (long long i = 0; i < N3; ++i) {
+    v[i * st] = z0[i * R + r];
+    y[i * st] = y0[i * R + r];
+  }
+  for (int it = 0; it < iters; ++it) {
+    for (long long j = 0; j < N3; ++j) v[j * st] = rho * v[j * st] - y[j * st];
+    for (long long i = 0; i < N2; ++i) {
+      const float* row = ks + i * N5;
+      float acc = 0.f;
+      for (long long j = 0; j < N2; ++j) acc = fmaf(__ldg(row + j), x[j * st], acc);
+      for (long long j = 0; j < N3; ++j) acc = fmaf(__ldg(row + N2 + j), v[j * st], acc);
+      xn[i * st] = acc - kq[i * R + r];
+    }
+    for (long long i = 0; i < N3; ++i) {
+      float ax;
+      if (i < N2) {
+        ax = xn[i * st];
+      } else {
+        ax = 0.f;
+        const float* row = gb + (i - N2) * N2;
+        for (long long j = 0; j < N2; ++j) ax = fmaf(__ldg(row + j), xn[j * st], ax);
+      }
+      const float yi = y[i * st];
+      const float zn = clamp_nan(ax + yi / rho, lo[i * R + r], hi[i * R + r]);
+      y[i * st] = yi + rho * (ax - zn);
+      v[i * st] = zn;
+    }
+    float* t = x;  // the next x becomes x
+    x = xn;
+    xn = t;
+  }
+  for (long long i = 0; i < N2; ++i) xo[i * R + r] = x[i * st];
+  for (long long i = 0; i < N3; ++i) {
+    zo[i * R + r] = v[i * st];
+    yo[i * R + r] = y[i * st];
+  }
+}
+
 }  // namespace
 
 // kkt_stack: (2h, 5h); g_blk: (h, 2h); kq, x0, x_out: (2h, R);
 // lo, hi, z0, y0, z_out, y_out: (3h, R).  All float32, row-major, on the
-// device.  Returns the launch's cudaError_t (cudaErrorInvalidValue for a
-// horizon that is not served: 12, 24 and 25-57 are).
+// device.  variant 0 runs the kernel of the horizon (12 and 24 in
+// registers, 25-57 with the plan in shared memory); 1 reads the plan from
+// global memory with the iterates in shared memory (h up to 181); 2 the
+// same with the iterates in scratch, (10 h, R) float32 (any h).  Returns
+// the launch's cudaError_t (cudaErrorInvalidValue for a horizon the
+// variant does not serve).
 extern "C" int admm_step_launch(const float* kkt_stack, const float* g_blk, const float* kq,
                                 const float* lo, const float* hi, const float* x0,
                                 const float* z0, const float* y0, float* x_out,
-                                float* z_out, float* y_out, int h, int R, float rho,
-                                int iters, void* stream) {
-  if (R <= 0 || iters < 0) return (int)cudaErrorInvalidValue;
+                                float* z_out, float* y_out, float* scratch, int h, int R,
+                                float rho, int iters, int variant, void* stream) {
+  if (R <= 0 || iters < 0 || h <= 0) return (int)cudaErrorInvalidValue;
   const dim3 grid_dim((R + kThreads - 1) / kThreads);
   cudaStream_t s = (cudaStream_t)stream;
+  if (variant == 1 || variant == 2) {
+    if (variant == 1 ? h > kMaxSmemIterHorizon : scratch == nullptr)
+      return (int)cudaErrorInvalidValue;
+    const size_t smem = variant == 1 ? sizeof(float) * 10 * (size_t)h * kThreads : 0;
+    cudaError_t err = cudaFuncSetAttribute(admm_kernel_glb,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    admm_kernel_glb<<<grid_dim, kThreads, smem, s>>>(kkt_stack, g_blk, kq, lo, hi, x0, z0, y0,
+                                                     x_out, z_out, y_out,
+                                                     variant == 1 ? nullptr : scratch, h, R,
+                                                     rho, iters);
+    return (int)cudaGetLastError();
+  }
+  if (variant != 0) return (int)cudaErrorInvalidValue;
   switch (h) {
     case 12:
       admm_kernel<12><<<grid_dim, kThreads, 0, s>>>(kkt_stack, g_blk, kq, lo, hi, x0, z0,

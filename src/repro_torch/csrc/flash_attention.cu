@@ -43,20 +43,31 @@
 // (16-byte aligned, the wrapper's check), so the (B, T, H, D) projections
 // are read without a transposing copy.  Head dims 32, 64, 128, 160, 192
 // and 256 are instantiated; shared memory is 10 x 64 (D + 8) bytes, 168,960
-// at D = 256.
+// at D = 256.  Above 256 bf16 runs the float32 design's column chunks.
 //
 // float32 design (flash_fwd_kernel, FP32 FMAs on the CUDA cores): one
-// 256-thread block per (batch x head, 64-row query tile).  The query tile
-// and each 64-key K/V tile are staged in shared memory as float32 (padded
-// rows); each thread owns a 4 x 4 patch of the 64 x 64 score tile (rows
-// 4*(tid/16) .., columns tid%16 + 16 j), reduces its rows' max and sum over
-// the 16 threads of its row group with shuffles, writes its probabilities
-// to a shared tile, and accumulates 4 rows x D/16 columns of the output in
-// registers.  Shared memory is 4 (2 * 64 (D + 1) + 64 D + 64 * 65) bytes:
-// 213,760 at D = 256, inside the 232,448 a block may opt into.  It is bound
-// by its FP32 arithmetic (67 TFLOP/s peak), not by the card's bytes.
+// 256-thread block per (batch x head, 64-row query tile, column chunk).
+// The query tile and each 64-key K/V tile are staged in shared memory as
+// float32 (padded rows); each thread owns a 4 x 4 patch of the 64 x 64
+// score tile (rows 4*(tid/16) .., columns tid%16 + 16 j), reduces its rows'
+// max and sum over the 16 threads of its row group with shuffles, writes
+// its probabilities to a shared tile, and accumulates 4 rows x W/16
+// columns of the output in registers.  Shared memory is 4 (2 * 64 (W + 1)
+// + 64 W + 64 * 65) bytes: 213,760 at W = 256, inside the 232,448 a block
+// may opt into.  It is bound by its FP32 arithmetic (67 TFLOP/s peak), not
+// by the card's bytes.
 //
-// The wrapper zero-pads any other head dim up to the next instantiated one.
+// Head dims above 256 (both types; bf16 widened to float32 on staging):
+// the head dim is split into n_chunks column chunks of W = 160, 192 or 256
+// on gridDim.z.  Each block computes s = q k^T over the full head dim,
+// streaming Q and K through its tiles one chunk at a time in the same
+// order in every chunk's block, so all of them hold the same s, m and l
+// bit for bit; it stages only its own chunk of V, accumulates and writes
+// only its chunk of o, and the first chunk's block writes the lse.  With
+// one chunk the query tile is staged once, as before the chunks.
+//
+// The wrapper zero-pads any other head dim up to n_chunks x W, W in {32,
+// 64, 128, 160, 192, 256}.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -85,25 +96,41 @@ __device__ __forceinline__ float group16_sum(float v) {
   return v;
 }
 
-template <int D>
+template <int W>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (2 * kBQ * (D + 1) + kBK * D + kBQ * (kBK + 1));
+  return sizeof(float) * (2 * kBQ * (W + 1) + kBK * W + kBQ * (kBK + 1));
 }
 
-template <int D>
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// Stage rows [r0, r0 + 64) of a (T, W) slice (sequence stride st) into a
+// float32 tile with rows of RP elements; rows past n are zero.
+template <int W, int RP, typename T>
+__device__ __forceinline__ void stage_f32(float* dst, const T* src, long long st, int r0, int n) {
+  for (int i = threadIdx.x; i < 64 * W; i += kThreads) {
+    const int r = i / W, c = i % W;
+    const int ri = r0 + r;
+    dst[r * RP + c] = ri < n ? to_f(src[(long long)ri * st + c]) : 0.f;
+  }
+}
+
+template <typename T, int W>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-                 int H, int Hkv, int Tq, int Tk,
-                 Strides sq, Strides sk, Strides sv, Strides so, float scale, int causal) {
-  constexpr int DP = D + 1;    // padded row of the Q and K tiles
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 T* __restrict__ o, float* __restrict__ lse, int H, int Hkv, int Tq, int Tk,
+                 Strides sq, Strides sk, Strides sv, Strides so, float scale, int causal,
+                 int nc) {
+  constexpr int DP = W + 1;    // padded row of the Q and K tiles
   constexpr int PP = kBK + 1;  // padded row of the probability tile
-  constexpr int DC = D / 16;   // output columns per thread
+  constexpr int DC = W / 16;   // output columns per thread
   extern __shared__ float smem[];
   float* sQ = smem;            // kBQ x DP
   float* sK = sQ + kBQ * DP;   // kBK x DP
-  float* sV = sK + kBK * DP;   // kBK x D
-  float* sP = sV + kBK * D;    // kBQ x PP
+  float* sV = sK + kBK * DP;   // kBK x W
+  float* sP = sV + kBK * W;    // kBQ x PP
 
   const int tid = threadIdx.x;
   const int tr = tid / 16;  // row group: tile rows 4 tr .. 4 tr + 3
@@ -112,17 +139,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int b = bh / H, h = bh % H;
   const int hk = h / (H / Hkv);
   const int q0 = blockIdx.y * kBQ;
+  const int c0 = blockIdx.z * W;  // this block's output columns
   const int q_offset = causal ? Tk - Tq : 0;
 
-  const float* qb = q + (long long)b * sq.b + (long long)h * sq.h;
-  const float* kb = k + (long long)b * sk.b + (long long)hk * sk.h;
-  const float* vb = v + (long long)b * sv.b + (long long)hk * sv.h;
+  const T* qb = q + (long long)b * sq.b + (long long)h * sq.h;
+  const T* kb = k + (long long)b * sk.b + (long long)hk * sk.h;
+  const T* vb = v + (long long)b * sv.b + (long long)hk * sv.h;
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    const int qi = q0 + r;
-    sQ[r * DP + c] = qi < Tq ? qb[(long long)qi * sq.t + c] : 0.f;
-  }
+  if (nc == 1) stage_f32<W, DP>(sQ, qb, sq.t, q0, Tq);
 
   float m[4], l[4], acc[4][DC];
 #pragma unroll
@@ -141,32 +165,31 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's K, V and P are no longer read
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      const int kj = k0 + r;
-      const bool in = kj < Tk;
-      sK[r * DP + c] = in ? kb[(long long)kj * sk.t + c] : 0.f;
-      sV[r * D + c] = in ? vb[(long long)kj * sv.t + c] : 0.f;
-    }
-    __syncthreads();
-
     float s[4][4];
 #pragma unroll
     for (int ii = 0; ii < 4; ++ii)
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) s[ii][jj] = 0.f;
+    // s over the full head dim, one column chunk at a time in the same
+    // order in every chunk's block, so all of them hold the same s, m, l.
+    for (int cc = 0; cc < nc; ++cc) {
+      __syncthreads();  // the previous tile's (or chunk's) Q, K, V and P are no longer read
+      if (nc > 1) stage_f32<W, DP>(sQ, qb + cc * W, sq.t, q0, Tq);
+      stage_f32<W, DP>(sK, kb + cc * W, sk.t, k0, Tk);
+      if (cc == nc - 1) stage_f32<W, W>(sV, vb + c0, sv.t, k0, Tk);
+      __syncthreads();
 #pragma unroll 8
-    for (int dd = 0; dd < D; ++dd) {
-      float qv[4], kv[4];
+      for (int dd = 0; dd < W; ++dd) {
+        float qv[4], kv[4];
 #pragma unroll
-      for (int ii = 0; ii < 4; ++ii) qv[ii] = sQ[(4 * tr + ii) * DP + dd];
+        for (int ii = 0; ii < 4; ++ii) qv[ii] = sQ[(4 * tr + ii) * DP + dd];
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) kv[jj] = sK[(tc + 16 * jj) * DP + dd];
+        for (int jj = 0; jj < 4; ++jj) kv[jj] = sK[(tc + 16 * jj) * DP + dd];
 #pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
+        for (int ii = 0; ii < 4; ++ii)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) s[ii][jj] = fmaf(qv[ii], kv[jj], s[ii][jj]);
+          for (int jj = 0; jj < 4; ++jj) s[ii][jj] = fmaf(qv[ii], kv[jj], s[ii][jj]);
+      }
     }
 
     const bool diag = causal && k0 + kBK - 1 > q_offset + q0;  // some key above the diagonal
@@ -205,7 +228,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int ii = 0; ii < 4; ++ii) pv[ii] = sP[(4 * tr + ii) * PP + j];
 #pragma unroll
-      for (int c = 0; c < DC; ++c) vv[c] = sV[j * D + tc + 16 * c];
+      for (int c = 0; c < DC; ++c) vv[c] = sV[j * W + tc + 16 * c];
 #pragma unroll
       for (int ii = 0; ii < 4; ++ii)
 #pragma unroll
@@ -218,10 +241,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qi = q0 + 4 * tr + ii;
     if (qi >= Tq) continue;
     const float lc = fmaxf(l[ii], 1e-30f);
-    float* orow = o + (long long)b * so.b + (long long)h * so.h + (long long)qi * so.t;
+    T* orow = o + (long long)b * so.b + (long long)h * so.h + (long long)qi * so.t + c0;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) orow[tc + 16 * c] = acc[ii][c] / lc;
-    if (tc == 0) lse[(long long)bh * Tq + qi] = m[ii] + logf(lc);
+    for (int c = 0; c < DC; ++c) store_f(orow + tc + 16 * c, acc[ii][c] / lc);
+    // Every chunk's block holds the same m and l; the first writes lse.
+    if (tc == 0 && c0 == 0) lse[(long long)bh * Tq + qi] = m[ii] + logf(lc);
   }
 }
 
@@ -486,67 +510,74 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
   }
 }
 
+struct Args {
+  const void *q, *k, *v;
+  void* o;
+  float* lse;
+  int B, H, Hkv, Tq, Tk, nc;
+  Strides sq, sk, sv, so;
+  float scale;
+  int causal;
+};
+
 template <int D>
-cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                      int H, int Hkv, int Tq, int Tk, Strides sq, Strides sk, Strides sv,
-                      Strides so, float scale, int causal, cudaStream_t stream) {
+cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = tc_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (Tq + kBQ - 1) / kBQ);
+  const dim3 grid(a.B * a.H, (a.Tq + kBQ - 1) / kBQ);
   flash_fwd_tc<D><<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, H, Hkv, Tq, Tk,
-      sq, sk, sv, so, scale, causal);
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.o), a.lse, a.H,
+      a.Hkv, a.Tq, a.Tk, a.sq, a.sk, a.sv, a.so, a.scale, a.causal);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                       int H, int Hkv, int Tq, int Tk, Strides sq, Strides sk, Strides sv,
-                       Strides so, float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
+template <typename T, int W>
+cudaError_t launch_fma(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<W>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, W>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (Tq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, H, Hkv, Tq, Tk, sq, sk, sv, so, scale, causal);
+  const dim3 grid(a.B * a.H, (a.Tq + kBQ - 1) / kBQ, a.nc);
+  flash_fwd_kernel<T, W><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<T*>(a.o), a.lse, a.H, a.Hkv, a.Tq, a.Tk, a.sq, a.sk, a.sv, a.so, a.scale,
+      a.causal, a.nc);
   return cudaGetLastError();
 }
 
-// The kernel of one dtype (0 float32, 1 bfloat16) and head dim.
-template <int D>
-cudaError_t launch_d(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
-                     int B, int H, int Hkv, int Tq, int Tk, Strides sq, Strides sk, Strides sv,
-                     Strides so, float scale, int causal, cudaStream_t s) {
-  if (dtype == 1)
-    return launch_tc<D>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, sq, sk, sv, so, scale, causal, s);
-  if (dtype == 0)
-    return launch_f32<D>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, sq, sk, sv, so, scale, causal, s);
+// The kernel of one dtype (0 float32, 1 bfloat16), chunk width W and chunk
+// count: bf16 with one chunk on the tensor cores, everything else on the
+// FP32 FMA kernel (bf16 only in column chunks, at widths 160 and up).
+template <int W>
+cudaError_t launch_w(int dtype, const Args& a, cudaStream_t s) {
+  if (dtype == 1 && a.nc == 1) return launch_tc<W>(a, s);
+  if (dtype == 0) return launch_fma<float, W>(a, s);
+  if constexpr (W >= 160) {
+    if (dtype == 1) return launch_fma<__nv_bfloat16, W>(a, s);
+  }
   return cudaErrorInvalidValue;
 }
 
-cudaError_t launch_dim(int D, int dtype, const void* q, const void* k, const void* v, void* o,
-                       float* lse, int B, int H, int Hkv, int Tq, int Tk, Strides sq, Strides sk,
-                       Strides sv, Strides so, float scale, int causal, cudaStream_t s) {
-#define FLASH_FWD_CASE(DIM)                                                                    \
-  case DIM:                                                                                    \
-    return launch_d<DIM>(dtype, q, k, v, o, lse, B, H, Hkv, Tq, Tk, sq, sk, sv, so, scale,     \
-                         causal, s);
-  switch (D) {
-    FLASH_FWD_CASE(32)
-    FLASH_FWD_CASE(64)
-    FLASH_FWD_CASE(128)
-    FLASH_FWD_CASE(160)
-    FLASH_FWD_CASE(192)
-    FLASH_FWD_CASE(256)
+cudaError_t launch_route(int dtype, int W, const Args& a, cudaStream_t s) {
+  switch (W) {
+    case 32:
+      return launch_w<32>(dtype, a, s);
+    case 64:
+      return launch_w<64>(dtype, a, s);
+    case 128:
+      return launch_w<128>(dtype, a, s);
+    case 160:
+      return launch_w<160>(dtype, a, s);
+    case 192:
+      return launch_w<192>(dtype, a, s);
+    case 256:
+      return launch_w<256>(dtype, a, s);
     default:
       return cudaErrorInvalidValue;
   }
-#undef FLASH_FWD_CASE
 }
 
 }  // namespace
@@ -554,26 +585,30 @@ cudaError_t launch_dim(int D, int dtype, const void* q, const void* k, const voi
 // q: (B, H, Tq, D), k and v: (B, Hkv, Tk, D), o: (B, H, Tq, D), each given
 // by its batch/head/sequence element strides with the last axis
 // contiguous; lse: (B, H, Tq) float32 contiguous.  dtype 0 = float32,
-// 1 = bfloat16 (q, k, v and o alike; rows 16-byte aligned: base pointers
-// and the three strides multiples of 8 elements).  D in {32, 64, 128, 160,
-// 192, 256}; H a multiple of Hkv; B * H < 2^31 and Tq <= 64 * 65535;
-// causal needs Tq <= Tk.  Returns the launch's CUDA error code.
+// 1 = bfloat16 (q, k, v and o alike; with one chunk, rows 16-byte aligned:
+// base pointers and the three strides multiples of 8 elements).  D =
+// n_chunks x W with W in {32, 64, 128, 160, 192, 256} (W >= 160 for bf16
+// in more than one chunk); H a multiple of Hkv; B * H < 2^31, Tq <= 64 *
+// 65535 and n_chunks <= 65535; causal needs Tq <= Tk.  Returns the
+// launch's CUDA error code.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o, void* lse,
-                                int B, int H, int Hkv, int Tq, int Tk, int D, long long sqb,
-                                long long sqh, long long sqt, long long skb, long long skh,
-                                long long skt, long long svb, long long svh, long long svt,
-                                long long sob, long long soh, long long sot, float scale,
-                                int causal, int dtype, void* stream) {
+                                int B, int H, int Hkv, int Tq, int Tk, int D, int n_chunks,
+                                long long sqb, long long sqh, long long sqt, long long skb,
+                                long long skh, long long skt, long long svb, long long svh,
+                                long long svt, long long sob, long long soh, long long sot,
+                                float scale, int causal, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Tq <= 0 || Tk <= 0 ||
-      (long long)B * H > 2147483647LL || (Tq + kBQ - 1) / kBQ > 65535 || (causal && Tq > Tk))
+      (long long)B * H > 2147483647LL || (Tq + kBQ - 1) / kBQ > 65535 || (causal && Tq > Tk) ||
+      n_chunks <= 0 || n_chunks > 65535 || D % n_chunks != 0)
     return (int)cudaErrorInvalidValue;
   const Strides sq{sqb, sqh, sqt}, sk{skb, skh, skt}, sv{svb, svh, svt}, so{sob, soh, sot};
-  if (dtype == 1) {  // cp.async moves 16-byte row pieces
+  if (dtype == 1 && n_chunks == 1) {  // cp.async moves 16-byte row pieces
     const long long st = sqb | sqh | sqt | skb | skh | skt | svb | svh | svt | sob | soh | sot;
     const uintptr_t p = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
     if (st % 8 || p % 16) return (int)cudaErrorInvalidValue;
   }
-  return (int)launch_dim(D, dtype, q, k, v, o, static_cast<float*>(lse), B, H, Hkv, Tq, Tk, sq,
-                         sk, sv, so, scale, causal, static_cast<cudaStream_t>(stream));
+  const Args a{q, k, v, o, static_cast<float*>(lse), B, H, Hkv, Tq, Tk, n_chunks,
+               sq, sk, sv, so, scale, causal};
+  return (int)launch_route(dtype, D / n_chunks, a, static_cast<cudaStream_t>(stream));
 }

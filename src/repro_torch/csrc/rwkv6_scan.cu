@@ -44,7 +44,22 @@
 // input type.  Strides are passed per tensor (the last axis contiguous),
 // so (B, T, H, D) projections are read in place and o can be written in
 // that layout.  D is instantiated at 32, 64, 128 and 256; the wrapper
-// zero-pads any other head dim up to the next one, which is exact.
+// zero-pads any other head dim up to 256 to the next one, which is exact.
+//
+// Head dims above 256 (rwkv6_wide_kernel): D zero-padded to a multiple of
+// 128, up to 4096.  A column is held by L = D / 128 lanes of 128 rows each
+// (as many as a D = 128 thread holds), in a group of G lanes, L rounded up
+// to a power of two (the G - L extra lanes hold no rows and add zero); the
+// L partial o_j combine with log2 G __shfl_xor_sync steps in a fixed
+// order, within one warp since G <= 32.  A block has 256 threads (255
+// registers each), 256 / G columns, so a head's columns spread over L G /
+// 2 blocks, with no synchronisation between them: S[:, j] needs only k, w
+// and v_j.  Every block stages all D elements of r, k and w per step
+// (D / 256 a thread, loaded a step ahead into registers) in dynamic shared
+// memory, lane p's rows one float past lane p - 1's so the lanes of a
+// column read distinct banks.  The per-element arithmetic is the same as
+// at D <= 256.  D = 4096 is the limit: a column's 32 lanes fill a warp,
+// and the state is a 64 MB float32 (D, D) matrix a head.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -149,19 +164,149 @@ __global__ void __launch_bounds__(D) rwkv6_kernel(const T* __restrict__ r, const
   for (int i = 0; i < R; ++i) sf[soff + (long long)i * D] = S[i];
 }
 
+constexpr int kWideRows = 128;     // rows of a column a lane holds above D = 256
+constexpr int kWideThreads = 256;  // a block of 256 keeps 255 registers a thread
+constexpr int kMaxWideD = 4096;    // 32 lanes a column: one warp
+
+__host__ __device__ constexpr size_t wide_smem_bytes(int D) {
+  return sizeof(float) * 7 * (size_t)(D + D / kWideRows);  // u, and r, k, w twice
+}
+
+// NS: elements of each of r, k, w a thread stages per step (>= D / 256);
+// G: lanes of a column's shuffle group (the caller's plan, a power of two
+// from D / 128 to 32).
+template <typename T, int NS>
+__global__ void __launch_bounds__(kWideThreads)
+rwkv6_wide_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                  const T* __restrict__ w, const T* __restrict__ u,
+                  const float* __restrict__ s0, T* __restrict__ o, float* __restrict__ sf,
+                  int H, int Tn, int D, int G, Strides sr_, Strides sk_, Strides sv_,
+                  Strides sw_, Strides so_) {
+  const int L = D / kWideRows;       // lanes holding a column
+  const int SD = D + L;              // staged vector; lane p's rows start at p (kWideRows + 1)
+  extern __shared__ float dsm[];
+  float* su = dsm;
+  float* sr = su + SD;  // 2 x SD
+  float* sk = sr + 2 * SD;
+  float* sw = sk + 2 * SD;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int tid = threadIdx.x;
+  const int part = tid % G;                                 // which rows: part 128 ..
+  const int j = blockIdx.y * (kWideThreads / G) + tid / G;  // the column
+  const bool holds = part < L;
+  const int i0 = part * (kWideRows + 1);  // where this lane's rows are staged
+
+  float S[kWideRows];
+  const long long soff = (long long)bh * D * D + (long long)part * kWideRows * D + j;
+#pragma unroll
+  for (int i = 0; i < kWideRows; ++i)
+    S[i] = holds && s0 != nullptr ? s0[soff + (long long)i * D] : 0.0f;
+  for (int x = tid; x < D; x += kWideThreads) su[x + x / kWideRows] = to_f(u[(long long)h * D + x]);
+
+  // Thread tid stages elements tid + 256 n of r, k and w; every lane of a
+  // column reads v_j.
+  const T* rp = r + b * sr_.b + h * sr_.h;
+  const T* kp = k + b * sk_.b + h * sk_.h;
+  const T* wp = w + b * sw_.b + h * sw_.h;
+  const T* vp = v + b * sv_.b + h * sv_.h + j;
+  T* op = o + b * so_.b + h * so_.h + j;
+
+  float rn[NS], kn[NS], wn[NS];
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+    const int x = tid + kWideThreads * n;
+    if (x < D) {
+      rn[n] = to_f(rp[x]);
+      kn[n] = to_f(kp[x]);
+      wn[n] = to_f(wp[x]);
+    }
+  }
+  float vn = to_f(vp[0]);
+  for (int t = 0; t < Tn; ++t) {
+    const int buf = t & 1;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      const int x = tid + kWideThreads * n;
+      if (x < D) {
+        const int pos = buf * SD + x + x / kWideRows;
+        sr[pos] = rn[n];
+        sk[pos] = kn[n];
+        sw[pos] = wn[n];
+      }
+    }
+    const float vj = vn;
+    __syncthreads();
+    if (t + 1 < Tn) {
+      const long long nt = t + 1;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        const int x = tid + kWideThreads * n;
+        if (x < D) {
+          rn[n] = to_f(rp[nt * sr_.t + x]);
+          kn[n] = to_f(kp[nt * sk_.t + x]);
+          wn[n] = to_f(wp[nt * sw_.t + x]);
+        }
+      }
+      vn = to_f(vp[nt * sv_.t]);
+    }
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (holds) {
+      const float* rb = sr + buf * SD + i0;
+      const float* kb = sk + buf * SD + i0;
+      const float* wb = sw + buf * SD + i0;
+      const float* ub = su + i0;
+#pragma unroll
+      for (int i = 0; i < kWideRows; ++i) {
+        const float kv = kb[i] * vj;
+        acc[i & 3] += rb[i] * (S[i] + ub[i] * kv);
+        S[i] = wb[i] * S[i] + kv;
+      }
+    }
+    float oj = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+    for (int off = 1; off < G; off <<= 1) oj += __shfl_xor_sync(0xffffffffu, oj, off);
+    if (part == 0) op[(long long)t * so_.t] = from_f<T>(oj);
+  }
+  if (holds) {
+#pragma unroll
+    for (int i = 0; i < kWideRows; ++i) sf[soff + (long long)i * D] = S[i];
+  }
+}
+
+template <typename T, int NS>
+cudaError_t launch_wide(const T* r, const T* k, const T* v, const T* w, const T* u,
+                        const float* s0, T* o, float* sf, int B, int H, int Tn, int D, int G,
+                        Strides sr, Strides sk, Strides sv, Strides sw, Strides so,
+                        cudaStream_t stream) {
+  const size_t smem = wide_smem_bytes(D);
+  cudaError_t err = cudaFuncSetAttribute(rwkv6_wide_kernel<T, NS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, D / (kWideThreads / G));  // blocks of 256 / G columns
+  rwkv6_wide_kernel<T, NS><<<grid, kWideThreads, smem, stream>>>(r, k, v, w, u, s0, o, sf, H,
+                                                                  Tn, D, G, sr, sk, sv, sw, so);
+  return cudaGetLastError();
+}
+
+// The instantiated kernel of head dim D, if the plan (group lanes a
+// column, cols columns a block) is the one it was built for.
 template <int D, typename T>
-void launch_d(const T* r, const T* k, const T* v, const T* w, const T* u, const float* s0, T* o,
-              float* sf, int B, int H, int Tn, Strides sr, Strides sk, Strides sv, Strides sw,
-              Strides so, cudaStream_t stream) {
+cudaError_t launch_d(const T* r, const T* k, const T* v, const T* w, const T* u,
+                     const float* s0, T* o, float* sf, int B, int H, int Tn, int group, int cols,
+                     Strides sr, Strides sk, Strides sv, Strides sw, Strides so,
+                     cudaStream_t stream) {
+  if (group != parts<D>() || cols != D / parts<D>()) return cudaErrorInvalidValue;
   const dim3 grid(B * H, parts<D>());
   rwkv6_kernel<D, T><<<grid, D, 0, stream>>>(r, k, v, w, u, s0, o, sf, H, Tn, sr, sk, sv, sw, so);
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_dim(int D, const void* r, const void* k, const void* v, const void* w,
                        const void* u, const float* s0, void* o, float* sf, int B, int H, int Tn,
-                       Strides sr, Strides sk, Strides sv, Strides sw, Strides so,
-                       cudaStream_t stream) {
+                       int group, int cols, Strides sr, Strides sk, Strides sv, Strides sw,
+                       Strides so, cudaStream_t stream) {
   const T* rt = static_cast<const T*>(r);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -170,21 +315,35 @@ cudaError_t launch_dim(int D, const void* r, const void* k, const void* v, const
   T* ot = static_cast<T*>(o);
   switch (D) {
     case 32:
-      launch_d<32>(rt, kt, vt, wt, ut, s0, ot, sf, B, H, Tn, sr, sk, sv, sw, so, stream);
-      break;
+      return launch_d<32>(rt, kt, vt, wt, ut, s0, ot, sf, B, H, Tn, group, cols, sr, sk, sv, sw,
+                          so, stream);
     case 64:
-      launch_d<64>(rt, kt, vt, wt, ut, s0, ot, sf, B, H, Tn, sr, sk, sv, sw, so, stream);
-      break;
+      return launch_d<64>(rt, kt, vt, wt, ut, s0, ot, sf, B, H, Tn, group, cols, sr, sk, sv, sw,
+                          so, stream);
     case 128:
-      launch_d<128>(rt, kt, vt, wt, ut, s0, ot, sf, B, H, Tn, sr, sk, sv, sw, so, stream);
-      break;
+      return launch_d<128>(rt, kt, vt, wt, ut, s0, ot, sf, B, H, Tn, group, cols, sr, sk, sv, sw,
+                          so, stream);
     case 256:
-      launch_d<256>(rt, kt, vt, wt, ut, s0, ot, sf, B, H, Tn, sr, sk, sv, sw, so, stream);
-      break;
-    default:
-      return cudaErrorInvalidValue;
+      return launch_d<256>(rt, kt, vt, wt, ut, s0, ot, sf, B, H, Tn, group, cols, sr, sk, sv, sw,
+                          so, stream);
+    default: {
+      // L = D / 128 lanes a column, in a shuffle group of G >= L lanes (a
+      // power of two within a warp), 256 / G columns a block.
+      const int L = D / kWideRows, G = group;
+      if (D <= 256 || D % kWideRows != 0 || D > kMaxWideD || G < L || G > 32 || (G & (G - 1)) ||
+          cols * G != kWideThreads)
+        return cudaErrorInvalidValue;
+      const int ns = (D + kWideThreads - 1) / kWideThreads;
+      return ns <= 2   ? launch_wide<T, 2>(rt, kt, vt, wt, ut, s0, ot, sf, B, H, Tn, D, G, sr,
+                                           sk, sv, sw, so, stream)
+             : ns <= 4 ? launch_wide<T, 4>(rt, kt, vt, wt, ut, s0, ot, sf, B, H, Tn, D, G, sr,
+                                           sk, sv, sw, so, stream)
+             : ns <= 8 ? launch_wide<T, 8>(rt, kt, vt, wt, ut, s0, ot, sf, B, H, Tn, D, G, sr,
+                                           sk, sv, sw, so, stream)
+                       : launch_wide<T, 16>(rt, kt, vt, wt, ut, s0, ot, sf, B, H, Tn, D, G,
+                                            sr, sk, sv, sw, so, stream);
+    }
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -193,10 +352,16 @@ cudaError_t launch_dim(int D, const void* r, const void* k, const void* v, const
 // axes and a contiguous last axis; u: (H, D) contiguous; s0 (may be null for
 // a zero state) and sf: (B, H, D, D) contiguous float32; o: (B, H, T, D) with
 // its strides.  dtype 0 = float32, 1 = bfloat16 (r, k, v, w, u and o).  D in
-// {32, 64, 128, 256}.  Returns the CUDA error code of the launch.
+// {32, 64, 128, 256} or a multiple of 128 up to 4096.  group and cols are
+// the caller's lane plan (rwkv6_scan.lane_plan): a column's state rows are
+// held by one lane up to D = 128, two at 256 and D / 128 above, in a
+// shuffle group of `group` lanes, `cols` columns a block; a plan that D's
+// kernel does not run is refused.  Returns the CUDA error code of the
+// launch.
 extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v, const void* w,
                                  const void* u, const void* s0, void* o, void* sf, int B, int H,
-                                 int Tn, int D, long long srb, long long srh, long long srt,
+                                 int Tn, int D, int group, int cols, long long srb,
+                                 long long srh, long long srt,
                                  long long skb, long long skh, long long skt, long long svb,
                                  long long svh, long long svt, long long swb, long long swh,
                                  long long swt, long long sob, long long soh, long long sot,
@@ -210,10 +375,10 @@ extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v, co
   const float* s0f = static_cast<const float*>(s0);
   float* sff = static_cast<float*>(sf);
   cudaError_t err =
-      dtype == 1   ? launch_dim<__nv_bfloat16>(D, r, k, v, w, u, s0f, o, sff, B, H, Tn, sr, sk,
-                                               sv, sw, so, s)
-      : dtype == 0 ? launch_dim<float>(D, r, k, v, w, u, s0f, o, sff, B, H, Tn, sr, sk, sv, sw,
-                                       so, s)
+      dtype == 1   ? launch_dim<__nv_bfloat16>(D, r, k, v, w, u, s0f, o, sff, B, H, Tn, group,
+                                               cols, sr, sk, sv, sw, so, s)
+      : dtype == 0 ? launch_dim<float>(D, r, k, v, w, u, s0f, o, sff, B, H, Tn, group, cols, sr,
+                                       sk, sv, sw, so, s)
                    : cudaErrorInvalidValue;
   return (int)err;
 }

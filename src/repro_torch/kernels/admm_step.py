@@ -2,8 +2,10 @@
 
 Ports ``repro.kernels.admm_step.admm_iterate`` (Pallas ``_admm_kernel``):
 ``iters`` OSQP-style ADMM steps for every rack column in one launch, the
-plan matrices in shared memory and each column's ``x, z, y`` iterates in
-registers (in shared memory above horizon 24; see ``csrc/admm_step.cu``).
+plan matrices in shared memory (read from global memory above horizon 57)
+and each column's ``x, z, y`` iterates in registers (in shared memory
+above horizon 24, in a global scratch above 181; see
+``csrc/admm_step.cu``).
 ``prepare`` / ``launch`` split one call so the kernel can be timed alone;
 ``admm_iterate.launches`` counts kernel launches (``launch`` adds one).
 
@@ -12,9 +14,11 @@ registers; ``pad_horizon`` lifts any smaller horizon to the next one with
 decoupled variables whose rows of the KKT operator and of ``G`` are zero
 and whose bounds are ``lo = hi = 0``, so they stay 0, and the real
 variables keep their order: every real sum gains only zero terms, and the
-real iterates come out bit for bit.  Horizons 25 to ``MAX_HORIZON`` run a
-variant that takes the horizon at run time and keeps the plan and the
-iterates in shared memory.
+real iterates come out bit for bit.  Horizons 25 to ``SHARED_PLAN_MAX``
+run a variant that takes the horizon at run time and keeps the plan and
+the iterates in shared memory; any larger horizon one that reads the plan
+from global memory and keeps the iterates in shared memory up to
+``SHARED_ITERATES_MAX``, in a global scratch above (``kernel_variant``).
 """
 from __future__ import annotations
 
@@ -27,18 +31,36 @@ from repro_torch.kernels import _build
 
 F32 = torch.float32
 # Instantiated template horizons (12 is ControllerConfig's default); above
-# the largest, the run-time variant serves h itself up to MAX_HORIZON, whose
-# plan and iterates (48 h^2 + 1280 h bytes) fit a block's shared memory.
+# the largest the kernel takes h itself: up to SHARED_PLAN_MAX with the
+# plan and iterates in shared memory (48 h^2 + 1280 h bytes of a block's
+# 232,448), then with the plan read from global memory and the iterates in
+# shared memory (1280 h bytes) up to SHARED_ITERATES_MAX, then with the
+# iterates in a (10 h, R) float32 global scratch.
 HORIZONS = (12, 24)
-MAX_HORIZON = 57
+SHARED_PLAN_MAX = 57
+SHARED_ITERATES_MAX = 181
+# The C launch function's variant codes.
+VARIANTS = {"registers": 0, "shared plan": 0, "global plan": 1, "global plan and iterates": 2}
 
 
 def kernel_horizon(h: int) -> int:
     """The horizon the kernel runs for ``h``: the instantiated one at or
-    above it up to 24, else ``h`` itself; raises above ``MAX_HORIZON``."""
-    if h > MAX_HORIZON:
-        raise ValueError(f"admm_step kernel takes horizons up to {MAX_HORIZON}, got {h}")
+    above it up to 24, else ``h`` itself (any horizon whose plan and
+    iterates the card's memory holds)."""
+    if h < 1:
+        raise ValueError(f"admm_step: horizon must be positive, got {h}")
     return next((n for n in HORIZONS if n >= h), h)
+
+
+def kernel_variant(h: int) -> str:
+    """Which kernel serves the (padded) horizon ``h``: ``"registers"`` (12,
+    24), ``"shared plan"`` (25-57), ``"global plan"`` (58-181) or ``"global
+    plan and iterates"``."""
+    if h in HORIZONS:
+        return "registers"
+    if h <= SHARED_PLAN_MAX:
+        return "shared plan"
+    return "global plan" if h <= SHARED_ITERATES_MAX else "global plan and iterates"
 
 
 def _real_rows(h: int, hp: int, n_blocks: int) -> list[int]:
@@ -86,24 +108,33 @@ class Prepared(NamedTuple):
     """One launch's checked operands and allocated outputs."""
 
     args: tuple  # the C launch function's arguments (without the stream)
-    inputs: tuple  # the operands, referenced while the launch reads them
+    inputs: tuple  # the operands and scratch, referenced while the launch uses them
     x: torch.Tensor
     z: torch.Tensor
     y: torch.Tensor
 
 
-def prepare(kkt_stack, g_blk, kq, lo, hi, x0, z0, y0, *, rho, iters) -> Prepared:
+def prepare(kkt_stack, g_blk, kq, lo, hi, x0, z0, y0, *, rho, iters,
+            variant: str | None = None) -> Prepared:
     """Check the operands (CUDA, float32, shapes, contiguity) and allocate
-    the outputs for ``launch``."""
+    the outputs for ``launch``.  ``variant`` (``kernel_variant``'s names)
+    forces a kernel where it serves ``h``: the global-plan ones serve every
+    horizon from 25 (up to 181 with shared iterates), to hold them against
+    the shared-plan kernel where both run."""
     dev = kq.device
     if dev.type != "cuda":
         raise ValueError("admm_step kernel needs CUDA tensors")
     h = g_blk.shape[0]
     if kernel_horizon(h) != h:
         raise ValueError(
-            f"admm_step kernel runs horizons {HORIZONS} and {HORIZONS[-1] + 1}-{MAX_HORIZON}, "
+            f"admm_step kernel runs horizons {HORIZONS} and every one above {HORIZONS[-1]}, "
             f"got {h} (admm_iterate pads it)"
         )
+    variant = kernel_variant(h) if variant is None else variant
+    forcible = {"global plan": HORIZONS[-1] < h <= SHARED_ITERATES_MAX,
+                "global plan and iterates": h > HORIZONS[-1]}
+    if variant != kernel_variant(h) and not forcible.get(variant, False):
+        raise ValueError(f"admm_step: the {variant!r} kernel does not serve horizon {h}")
     if kq.ndim != 2:
         raise ValueError("admm_step kernel needs a (2h, R) rack batch")
     r = kq.shape[1]
@@ -121,10 +152,13 @@ def prepare(kkt_stack, g_blk, kq, lo, hi, x0, z0, y0, *, rho, iters) -> Prepared
     x = torch.empty((2 * h, r), dtype=F32, device=dev)
     z = torch.empty((3 * h, r), dtype=F32, device=dev)
     y = torch.empty((3 * h, r), dtype=F32, device=dev)
+    scratch = (torch.empty((10 * h, r), dtype=F32, device=dev)
+               if variant == "global plan and iterates" else None)
     return Prepared(
         tuple(t.data_ptr() for t in (kkt_stack, g_blk, kq, lo, hi, x0, z0, y0, x, z, y))
-        + (h, r, float(rho), int(iters)),
-        (kkt_stack, g_blk, kq, lo, hi, x0, z0, y0), x, z, y,
+        + (None if scratch is None else scratch.data_ptr(), h, r, float(rho), int(iters),
+           VARIANTS[variant]),
+        (kkt_stack, g_blk, kq, lo, hi, x0, z0, y0, scratch), x, z, y,
     )
 
 
@@ -133,8 +167,9 @@ def launch(p: Prepared) -> None:
     synchronization) and count the launch."""
     dev = p.x.device
     vp = ctypes.c_void_p
+    ii = ctypes.c_int
     fn = _build.launch_fn("admm_step", "admm_step_launch",
-                          [vp] * 11 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, vp])
+                          [vp] * 12 + [ii, ii, ctypes.c_float, ii, ii, vp])
     with torch.cuda.device(dev):
         err = fn(*p.args, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("admm_step", err)
@@ -144,7 +179,8 @@ def launch(p: Prepared) -> None:
 def admm_iterate(kkt_stack, g_blk, kq, lo, hi, x0, z0, y0, *, rho, iters):
     """Launch the kernel on CUDA tensors with a rack batch in the trailing
     axis; returns ``(x, z, y)`` like ``ref.admm_iterate``.  A horizon below
-    24 that is not instantiated runs padded (``pad_horizon``)."""
+    24 that is not instantiated runs padded (``pad_horizon``); any other
+    runs as it is, on the kernel ``kernel_variant`` names."""
     h = g_blk.shape[0]
     args = pad_horizon(kkt_stack, g_blk, kq, lo, hi, x0, z0, y0, kernel_horizon(h))
     p = prepare(*args, rho=rho, iters=iters)

@@ -14,11 +14,19 @@ runs the kernel.
 The backward ports ``_flash_bwd`` (Pallas ``_flash_bwd_dkv_kernel`` and
 ``_flash_bwd_dq_kernel``, ``csrc/flash_attention_bwd.cu``): two kernels
 that recompute the probabilities from the forward's log-sum-exp, the
-dK/dV one summing the GQA head group in float32.  ``FlashAttention`` is
-the ``torch.autograd.Function`` that pairs them, the counterpart of the
+dK/dV one summing the GQA head group in float32.  bf16 at head dims 32,
+64 and 128 runs them on the tensor cores (``mma.sync``, the float32
+probabilities and dS split into three bf16 parts); float32, and bf16 at
+160 and up, on FP32 FMAs.  ``FlashAttention`` is the
+``torch.autograd.Function`` that pairs them, the counterpart of the
 reference's ``_flash_core`` with ``defvjp``.  ``flash_attention_fwd``,
 ``flash_bwd_dkv`` and ``flash_bwd_dq`` each count their launches in
-``.launches``.
+``.launches``, the backward ones also by route (``bwd_route``, which the
+launches follow) in ``.route_launches``.
+
+Any head dim runs: above 256 the kernels split the head dim into column
+chunks (``column_chunks``) on a grid axis, each block computing the scores
+over the full head dim and writing only its chunk of the output.
 """
 from __future__ import annotations
 
@@ -30,23 +38,45 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Instantiated template head dims, forward and backward alike; a head dim
-# between them is zero-padded up.  At D = 256 the backward kernels walk
-# 32-row tiles so their FP32 tiles fit the 227 KB a block may use.
+# Instantiated column-chunk widths, forward and backward alike: a head dim
+# up to 256 is one chunk of the next width up (zero-padded), a larger one
+# n chunks of a width from 160 up (``column_chunks``).  At W = 256 the
+# FP32-FMA backward kernels walk 32-row tiles so their tiles fit the 227 KB
+# a block may use.
 HEAD_DIMS = (32, 64, 128, 160, 192, 256)
+# Head dims whose bf16 backward runs on the tensor cores; from 160 on the
+# dK/dV kernel's float32 accumulators (D floats a thread) would spill.
+TC_BWD_HEAD_DIMS = (32, 64, 128)
+# The backward's routes (``bwd_route``); each backward wrapper counts its
+# launches by route in ``.route_launches``.
+BWD_ROUTES = ("tensor cores", "fp32 fma")
 _MAX_ROWS = 64 * 65535  # query (or key) tiles of 64 ride gridDim.y
 
 
+def column_chunks(d: int) -> tuple[int, int]:
+    """``(n_chunks, width)`` of head dim ``d``: as few chunks as a width of
+    at most 256 allows, each of the narrowest instantiated width that
+    covers ``d`` in that many.  The kernels run one block per chunk of
+    output columns (``gridDim.z``); ``n_chunks * width >= d``, and the
+    padding columns are zero."""
+    if d < 1:
+        raise ValueError(f"flash_attention: head dim must be positive, got {d}")
+    n = -(-d // HEAD_DIMS[-1])
+    return n, next(w for w in HEAD_DIMS if n * w >= d)
+
+
 def kernel_head_dim(d: int) -> int:
-    """The instantiated head dim that serves ``d``: ``d`` itself or the
-    next one up, whose extra zero columns change nothing.  Raises above the
-    largest."""
-    if d > HEAD_DIMS[-1]:
-        raise ValueError(f"flash_attention kernels take head dims up to {HEAD_DIMS[-1]}, got {d}")
-    return next(n for n in HEAD_DIMS if n >= d)
+    """The head dim the kernels run for ``d``: ``n_chunks * width`` of
+    ``column_chunks``, whose extra zero columns change nothing (``d``
+    itself or the next instantiated one up to 256)."""
+    n, w = column_chunks(d)
+    return n * w
 
 
 def _check_grid(b: int, h: int, tq: int, tk: int) -> None:
+    """The kernels' only shape limits: the batch-head index rides
+    ``gridDim.x`` (``B * H < 2**31``) and the 64-row query or key tiles
+    ``gridDim.y`` (``Tq, Tk <= 64 * 65535``)."""
     if b * h > 2**31 - 1 or max(tq, tk) > _MAX_ROWS:
         raise ValueError(f"flash_attention: B * H = {b * h} must stay below 2**31 and Tq, Tk "
                          f"= {tq}, {tk} at most {_MAX_ROWS}")
@@ -76,9 +106,10 @@ def flash_attention_fwd(
     as the last axis is contiguous (bf16 rows not on 16-byte boundaries
     are copied first); ``o`` is laid out ``(B, Tq, H, D)`` in
     memory (returned as its ``(B, H, Tq, D)`` view), so merging the heads
-    afterwards is free.  A head dim between the instantiated ones (say 30)
-    is zero-padded to the next one (``kernel_head_dim``).  Causal attention
-    needs ``Tq <= Tk``."""
+    afterwards is free.  Any head dim runs: one between the instantiated
+    widths (say 30) is zero-padded to the next one, one above 256 to whole
+    column chunks (``kernel_head_dim``).  Causal attention needs ``Tq <=
+    Tk``."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError("flash_attention kernel needs CUDA tensors")
@@ -110,12 +141,12 @@ def flash_attention_fwd(
         return o, lse
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
     fn = _build.launch_fn("flash_attention", "flash_fwd_launch",
-                          [vp] * 5 + [ctypes.c_int] * 6 + [ll] * 12
+                          [vp] * 5 + [ctypes.c_int] * 7 + [ll] * 12
                           + [ctypes.c_float, ctypes.c_int, ctypes.c_int, vp])
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                 b, h, hkv, tq, tk, d, *strides, float(scale), int(causal),
+                 b, h, hkv, tq, tk, d, column_chunks(d)[0], *strides, float(scale), int(causal),
                  _DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("flash_attention", err)
     flash_attention_fwd.launches += 1
@@ -137,7 +168,7 @@ def _check_bwd_operands(q, k, v, o, lse, do, causal):
             or any(t.device != dev for t in (k, v, o, lse, do))):
         raise ValueError("flash_attention backward: q, o, do (B, H, Tq, D), k, v (B, Hkv, Tk, D) "
                          "and a float32 lse (B, H, Tq) on one device")
-    kernel_head_dim(d)
+    column_chunks(d)
     if causal and tq > tk:
         raise ValueError(f"flash_attention: causal attention needs Tq <= Tk, got {tq} > {tk}")
     _check_grid(b, h, tq, tk)
@@ -150,34 +181,57 @@ def _strides(*ts) -> ctypes.Array:
 def _bwd_args(q, k, v, do, lse, delta):
     b, h, tq, d = q.shape
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr()), (b, h, k.shape[1], tq, k.shape[2], d)
+            delta.data_ptr()), (b, h, k.shape[1], tq, k.shape[2], d, column_chunks(d)[0])
+
+
+def bwd_route(d: int, dtype: torch.dtype) -> str:
+    """Which backward kernels serve head dim ``d`` (after padding) in
+    ``dtype``: ``"tensor cores"`` (bf16 in one chunk of 32, 64 or 128
+    columns) or ``"fp32 fma"`` (everything else, in ``column_chunks(d)``
+    chunks).  The launches take their route from here; the launcher
+    refuses a route its kernels do not run."""
+    n, w = column_chunks(d)
+    tc = dtype == torch.bfloat16 and n == 1 and w in TC_BWD_HEAD_DIMS
+    return "tensor cores" if tc else "fp32 fma"
+
+
+def _launch_bwd(which: str, wrapper, symbol: str, n_out: int, q, k, v, do, lse, delta, outs,
+                causal: bool, scale: float) -> None:
+    """Launch one backward kernel on the route ``bwd_route`` picks and
+    count the launch in ``wrapper.launches`` and ``wrapper.route_launches``."""
+    dev = q.device
+    vp, ii = ctypes.c_void_p, ctypes.c_int
+    fn = _build.launch_fn("flash_attention_bwd", symbol,
+                          [vp] * (6 + n_out) + [ii] * 7 + [vp, ctypes.c_float, ii, ii, ii, vp])
+    ptrs, dims = _bwd_args(q, k, v, do, lse, delta)
+    route = bwd_route(q.shape[-1], q.dtype)
+    with torch.cuda.device(dev):
+        err = fn(*ptrs, *(t.data_ptr() for t in outs), *dims, _strides(q, k, v, do, *outs),
+                 float(scale), int(causal), _DTYPES[q.dtype], int(route == "tensor cores"),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(f"flash_attention_bwd ({which})", err)
+    wrapper.launches += 1
+    wrapper.route_launches[route] += 1
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float):
-    """Launch the dK/dV kernel on prepared operands (head dim instantiated,
-    last axes contiguous, ``lse`` and ``delta`` contiguous float32
-    ``(B, H, Tq)``); returns ``(dk, dv)`` in ``k``'s type, laid out
-    ``(B, Tk, Hkv, D)`` in memory."""
+    """Launch the dK/dV kernel on prepared operands (head dim
+    ``kernel_head_dim``, last axes contiguous, bf16 rows 16-byte aligned,
+    ``lse`` and ``delta`` contiguous float32 ``(B, H, Tq)``); returns
+    ``(dk, dv)`` in ``k``'s type, laid out ``(B, Tk, Hkv, D)`` in memory."""
     b, hkv, tk, d = k.shape
     dev = q.device
     if dev.type != "cuda":
         raise ValueError("flash_attention backward kernels need CUDA tensors")
     dk = torch.empty((b, tk, hkv, d), dtype=k.dtype, device=dev).transpose(1, 2)
     dv = torch.empty_like(dk)
-    vp, ii = ctypes.c_void_p, ctypes.c_int
-    fn = _build.launch_fn("flash_attention_bwd", "flash_bwd_dkv_launch",
-                          [vp] * 8 + [ii] * 6 + [vp, ctypes.c_float, ii, ii, vp])
-    ptrs, dims = _bwd_args(q, k, v, do, lse, delta)
-    with torch.cuda.device(dev):
-        err = fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *dims, _strides(q, k, v, do, dk, dv),
-                 float(scale), int(causal), _DTYPES[q.dtype],
-                 torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch("flash_attention_bwd (dK/dV)", err)
-    flash_bwd_dkv.launches += 1
+    _launch_bwd("dK/dV", flash_bwd_dkv, "flash_bwd_dkv_launch", 2, q, k, v, do, lse, delta,
+                (dk, dv), causal, scale)
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.route_launches = dict.fromkeys(BWD_ROUTES, 0)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float):
@@ -188,19 +242,13 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float):
     if dev.type != "cuda":
         raise ValueError("flash_attention backward kernels need CUDA tensors")
     dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
-    vp, ii = ctypes.c_void_p, ctypes.c_int
-    fn = _build.launch_fn("flash_attention_bwd", "flash_bwd_dq_launch",
-                          [vp] * 7 + [ii] * 6 + [vp, ctypes.c_float, ii, ii, vp])
-    ptrs, dims = _bwd_args(q, k, v, do, lse, delta)
-    with torch.cuda.device(dev):
-        err = fn(*ptrs, dq.data_ptr(), *dims, _strides(q, k, v, do, dq), float(scale),
-                 int(causal), _DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch("flash_attention_bwd (dQ)", err)
-    flash_bwd_dq.launches += 1
+    _launch_bwd("dQ", flash_bwd_dq, "flash_bwd_dq_launch", 1, q, k, v, do, lse, delta, (dq,),
+                causal, scale)
     return dq
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.route_launches = dict.fromkeys(BWD_ROUTES, 0)
 
 
 def flash_attention_bwd(
@@ -218,8 +266,9 @@ def flash_attention_bwd(
     kernels: ``delta = sum(do * o)`` in float32 (as the reference computes
     it before its ``pallas_call``s), then dK/dV and dQ.  Any strides are
     taken (a tensor whose last axis is not contiguous, such as an expanded
-    ``do``, is copied first); a head dim between the instantiated ones is
-    zero-padded, with the scale taken from the unpadded one."""
+    ``do``, or a bf16 one whose rows are not 16-byte aligned, is copied
+    first); any head dim runs, zero-padded to ``kernel_head_dim`` with the
+    scale taken from the unpadded one."""
     _check_bwd_operands(q, k, v, o, lse, do, causal)
     d = q.shape[-1]
     if scale is None:
@@ -231,7 +280,8 @@ def flash_attention_bwd(
         dq, dk, dv = flash_attention_bwd(*(F.pad(t, (0, dk_ - d)) for t in (q, k, v, o)), lse,
                                          F.pad(do, (0, dk_ - d)), causal=causal, scale=scale)
         return dq[..., :d], dk[..., :d], dv[..., :d]
-    q, k, v, do = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, do))
+    q, k, v, do = (t if _rows_aligned(t) else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v, do))
     lse = lse.contiguous()
     delta = torch.sum(do.to(torch.float32) * o.to(torch.float32), dim=-1).contiguous()
     if q.shape[0] == 0 or q.shape[2] == 0:

@@ -5,7 +5,8 @@ per (batch, head), with time sequential, ``o_t = r_t (S_{t-1} + diag(u)
 k_t^T v_t)`` and ``S_t = diag(w_t) S_{t-1} + k_t^T v_t`` with a (D, D)
 float32 state.  The CUDA source (``csrc/rwkv6_scan.cu``) keeps the state
 in registers for the whole sequence (a column split over two threads at
-D = 256); see its header for the design.
+D = 256, over D / 128 lanes above; ``lane_plan``); see its header for the
+design.
 ``rwkv6_scan.launches`` counts kernel launches.
 
 The reference's kernel route has no gradient (no ``custom_vjp``), and
@@ -22,21 +23,51 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Instantiated template head dims.  A thread keeps a column of the (D, D)
-# float32 state in registers, 128 rows at most: at D = 256 two threads share
-# a column (255 registers a thread).
+# Instantiated template head dims up to 256.  A thread keeps a column of
+# the (D, D) float32 state in registers, 128 rows at most: at D = 256 two
+# threads share a column (255 registers a thread); above 256, D is padded
+# to a multiple of 128 and D / 128 lanes share a column (``lane_plan``).
 HEAD_DIMS = (32, 64, 128, 256)
+LANE_ROWS = 128
+# A column's lanes must fit one warp (32 x 128 rows); the state is then a
+# 64 MB float32 matrix a head.
+MAX_HEAD_DIM = 32 * LANE_ROWS
 
 
 def kernel_head_dim(d: int) -> int:
-    """The instantiated head dim that serves ``d``: ``d`` or the next one
-    up.  Zero padding is exact: zero ``k`` rows keep the padded state rows
-    at zero from a zero-padded ``state0``, zero ``v`` columns keep the
-    padded state columns at zero, zero ``r`` and ``u`` add nothing to
-    ``o``, and the padded columns of ``o`` are cut off.  Raises above 256."""
+    """The head dim the kernel runs for ``d``: ``d`` or the next
+    instantiated one up to 256, else ``d`` rounded up to a multiple of 128.
+    Zero padding is exact: zero ``k`` rows keep the padded state rows at
+    zero from a zero-padded ``state0``, zero ``v`` columns keep the padded
+    state columns at zero, zero ``r`` and ``u`` add nothing to ``o``, and
+    the padded columns of ``o`` are cut off.  Raises above 4096, where a
+    column would need more lanes than a warp has (and a head's float32
+    state is 64 MB)."""
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"rwkv6_scan kernel takes head dims up to {MAX_HEAD_DIM} (a column's "
+                         f"{MAX_HEAD_DIM // LANE_ROWS} lanes of {LANE_ROWS} rows fill a warp; a "
+                         f"head's float32 state is 64 MB), got {d}")
     if d > HEAD_DIMS[-1]:
-        raise ValueError(f"rwkv6_scan kernel takes head dims up to {HEAD_DIMS[-1]}, got {d}")
+        return -(-d // LANE_ROWS) * LANE_ROWS
     return next(n for n in HEAD_DIMS if n >= d)
+
+
+def lane_plan(d: int) -> tuple[int, int, int, int]:
+    """How the kernel splits the state of head dim ``d``: ``(D, lanes,
+    group, columns)`` with ``D = kernel_head_dim(d)``, ``lanes`` threads
+    holding ``D / lanes`` rows of a column each, in a shuffle group of
+    ``group`` adjacent lanes (``lanes`` rounded up to a power of two; the
+    extra lanes hold no rows) and ``columns`` columns a block (a head's
+    ``D`` columns over ``D / columns`` blocks).  The launch takes ``group``
+    and ``columns`` from here; the launcher refuses a plan that ``D``'s
+    kernel does not run."""
+    dk = kernel_head_dim(d)
+    if dk <= HEAD_DIMS[-1]:
+        lanes = 2 if dk > LANE_ROWS else 1
+        return dk, lanes, lanes, dk // lanes
+    lanes = dk // LANE_ROWS
+    group = 1 << (lanes - 1).bit_length()
+    return dk, lanes, group, 256 // group
 
 
 def rwkv6_scan(
@@ -52,8 +83,9 @@ def rwkv6_scan(
     float32)``.  ``r, k, v, w, u`` share one type (float32 or bfloat16);
     any strides are taken as long as the last axis is contiguous, and ``o``
     gets ``r``'s memory layout (so the time mix's ``(B, T, H, D)`` views go
-    in and come out without a copy).  ``D <= 256`` (other than 32, 64, 128
-    and 256 zero-padded, ``kernel_head_dim``) and ``T >= 1``."""
+    in and come out without a copy).  ``D <= 4096`` (other than 32, 64, 128,
+    256 and multiples of 128 above zero-padded, ``kernel_head_dim``) and
+    ``T >= 1``."""
     dev = r.device
     if dev.type != "cuda":
         raise ValueError("rwkv6_scan kernel needs CUDA tensors")
@@ -86,12 +118,14 @@ def rwkv6_scan(
         return o, sf
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
     fn = _build.launch_fn("rwkv6_scan", "rwkv6_scan_launch",
-                          [vp] * 8 + [ctypes.c_int] * 4 + [ll] * 15 + [ctypes.c_int, vp])
+                          [vp] * 8 + [ctypes.c_int] * 6 + [ll] * 15 + [ctypes.c_int, vp])
     strides = [s for x in (r, k, v, w, o) for s in x.stride()[:3]]
+    _, _, group, cols = lane_plan(d)
     with torch.cuda.device(dev):
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
                  None if s0 is None else s0.data_ptr(), o.data_ptr(), sf.data_ptr(),
-                 b, h, t, d, *strides, _DTYPES[r.dtype], torch.cuda.current_stream(dev).cuda_stream)
+                 b, h, t, d, group, cols, *strides, _DTYPES[r.dtype],
+                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("rwkv6_scan", err)
     rwkv6_scan.launches += 1
     return o, sf

@@ -1,13 +1,13 @@
 """The widened kernel shapes of the port, on the CPU.
 
-On the card the flash kernels take head dims up to 256, the
-``rwkv6_scan`` kernel any head dim up to 256, ``rmsnorm`` any ``D`` and
-``admm_step`` any horizon up to 57 (unpadded above 24); a shape between the
+On the card the flash kernels take any head dim (column chunks above
+256), the ``rwkv6_scan`` kernel any head dim up to 4096, ``rmsnorm`` any
+``D`` and ``admm_step`` any horizon (unpadded above 24); a shape between the
 instantiated ones is zero-padded up.  Here, without a card, these tests hold what runs on
 the CPU:
 
 * the routing decisions (``kernel_head_dim``, ``kernel_horizon``) and
-  their refusals;
+  the one refusal left (rwkv above 4096);
 * the padding routes against the plain versions: ``admm_step``'s padded
   QP gives the real block's iterates bit for bit (every real sum only gains
   zero terms); the zero-padded RWKV-6 scan keeps its padded state rows and
@@ -47,8 +47,8 @@ def test_flash_head_dim_routing():
     for d, want in ((30, 32), (64, 64), (100, 128), (150, 160), (160, 160), (176, 192),
                     (192, 192)):
         assert fa.kernel_head_dim(d) == want
-    with pytest.raises(ValueError, match="up to 256"):
-        fa.kernel_head_dim(257)
+    # Above 256: whole column chunks of at most 256 (no refusal).
+    assert [fa.kernel_head_dim(d) for d in (257, 320, 400, 512, 513)] == [320, 320, 512, 512, 576]
     fa._check_grid(4096, 64, 512, 512)  # B * H = 262144, past the old 65535
     with pytest.raises(ValueError):
         fa._check_grid(2**16, 2**15, 512, 512)
@@ -59,8 +59,10 @@ def test_flash_head_dim_routing():
 def test_rwkv_head_dim_routing_and_padding():
     assert [rw.kernel_head_dim(d) for d in (16, 32, 48, 64, 100, 128)] == [32, 32, 64, 64, 128,
                                                                             128]
-    with pytest.raises(ValueError, match="up to 256"):
-        rw.kernel_head_dim(257)
+    # Above 256: a multiple of 128 (D / 128 lanes a column) up to 4096.
+    assert [rw.kernel_head_dim(d) for d in (257, 400, 512, 4096)] == [384, 512, 512, 4096]
+    with pytest.raises(ValueError, match="up to 4096"):
+        rw.kernel_head_dim(4097)
     rng = np.random.default_rng(0)
     b, h, t, d, dp = 2, 3, 40, 48, 64
     r, k, v = (torch.from_numpy(rng.standard_normal((b, h, t, d)).astype(np.float32))
@@ -125,8 +127,9 @@ def test_admm_horizon_padding_is_exact(horizon):
     real = set(admm_step._real_rows(horizon, hp, 2))
     pad_rows = [i for i in range(2 * hp) if i not in real]
     assert torch.count_nonzero(got_p[0][pad_rows]) == 0
-    with pytest.raises(ValueError, match="up to 57"):
-        admm_step.kernel_horizon(58)
+    # Above 24 a horizon runs as it is, past 57 too (the plan from global
+    # memory): only horizons below 24 are padded.
+    assert admm_step.kernel_horizon(58) == 58 and admm_step.kernel_horizon(200) == 200
 
 
 def test_admm_horizon_6_matches_jax():

@@ -1,10 +1,11 @@
 """The kernel shapes widened to the reference's, and the tensor-core
 kernels' arithmetic, on the CPU.
 
-On the card the flash kernels take head dims up to 256 (forward and
-backward), ``rwkv6_scan`` any head dim up to 256 (a state column split over
-two threads at 256) and ``admm_step`` any horizon up to 57 (a run-time
-variant above 24).  Without a card these tests hold the same seeded numpy
+On the card the flash kernels take head dims up to 256 in one column
+chunk (forward and backward), ``rwkv6_scan`` any head dim up to 256 (a
+state column split over two threads at 256) and ``admm_step`` any horizon
+up to 57 with the plan in shared memory (a run-time variant above 24);
+``tests/test_torch_wider_kernels.py`` takes the shapes past those.  Without a card these tests hold the same seeded numpy
 inputs through the JAX package (its Pallas kernels in interpret mode, and
 its jnp references) and through the port's plain versions, on the operands
 the port's kernel routes hand to their kernels (a head dim between the
@@ -21,7 +22,8 @@ instantiated ones zero-padded up):
 * ``admm_iterate`` at horizons 48 and 30, which the card runs unpadded,
   against JAX's reference and Pallas kernel within 2e-5 after 30
   iterations (the reference's envelope);
-* the routing: ``kernel_head_dim``, ``kernel_horizon`` and their limits;
+* the routing: ``kernel_head_dim``, ``kernel_horizon`` and where their
+  variants change;
 * the bf16 flash forward's split-P arithmetic, emulated on float64 (exact
   products of bf16 operands, float32 online softmax over 64-key tiles, P
   split into three bf16 parts): on phase 5's shapes at smoke size it stays
@@ -65,17 +67,19 @@ def test_routing_reaches_the_reference_shapes():
     assert fa.kernel_head_dim(200) == 256 and fa.HEAD_DIMS[-1] == 256
     assert rw.kernel_head_dim(256) == 256 and rw.kernel_head_dim(129) == 256
     assert rw.kernel_head_dim(200) == 256
-    with pytest.raises(ValueError, match="up to 256"):
-        fa.kernel_head_dim(257)
-    with pytest.raises(ValueError, match="up to 256"):
-        rw.kernel_head_dim(257)
-    assert [admm_step.kernel_horizon(h) for h in (6, 12, 13, 24, 25, 30, 48, 57)] == \
-        [12, 12, 24, 24, 25, 30, 48, 57]
-    with pytest.raises(ValueError, match="up to 57"):
-        admm_step.kernel_horizon(58)
-    # 48 h^2 + 1280 h bytes of shared memory, within a block's 232,448.
+    # Past the instantiated widths: flash in column chunks of at most 256,
+    # rwkv in lanes of 128 rows up to 4096 (a warp's 32 lanes a column).
+    assert fa.kernel_head_dim(257) == 320 and fa.column_chunks(257) == (2, 160)
+    assert rw.kernel_head_dim(257) == 384 and rw.kernel_head_dim(4096) == 4096
+    with pytest.raises(ValueError, match="up to 4096"):
+        rw.kernel_head_dim(4097)
+    assert [admm_step.kernel_horizon(h) for h in (6, 12, 13, 24, 25, 30, 48, 57, 58, 128)] == \
+        [12, 12, 24, 24, 25, 30, 48, 57, 58, 128]
+    # The shared-plan variant's 48 h^2 + 1280 h bytes fit a block's 232,448
+    # up to SHARED_PLAN_MAX; above it the plan is read from global memory.
     fits = lambda h: 48 * h * h + 1280 * h <= 232_448
-    assert fits(admm_step.MAX_HORIZON) and not fits(admm_step.MAX_HORIZON + 1)
+    assert fits(admm_step.SHARED_PLAN_MAX) and not fits(admm_step.SHARED_PLAN_MAX + 1)
+    assert admm_step.kernel_variant(admm_step.SHARED_PLAN_MAX + 1) == "global plan"
 
 
 # ------------------------------------------------------- flash attention

@@ -10,8 +10,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 2. Kernel phases at the main path's shapes: ``pdu_health_sim`` on one
    controller interval of the 1024-rack campus (T = 1000, R = 1024, slew
    and wear fold) and ``admm_iterate`` on the campus controller QP
-   (h = 12, R = 1024, 30 iterations), each held against its plain PyTorch
-   version on the same inputs on the card and timed with CUDA events
+   (h = 12, R = 1024, 30 iterations; also bit for bit against the
+   shared-plan kernel, timed beside it), each held against its plain
+   PyTorch version on the same inputs on the card and timed with CUDA events
    (median of 25 calls, the host's enqueueing hidden behind a device
    sleep; ``_median_ms``) beside it.  Then ``pdu_health_sim`` in each ESS
    availability mode on an interval of the degraded campus (phase 13's):
@@ -20,13 +21,16 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    bitwise against its plain version, the events runs also bitwise against
    the (T, R) run on ``faults.ess_weight``, each timed beside the clean
    variant; the wear machine at kappa 1, 3 and 2.5; and the widened
-   shapes: rmsnorm at D = 100 and 9000, admm_step at horizons 6, 24, 48
-   (the shared-plan variant) and 64, 96 and 128 (the plan read from global
-   memory), each in one launch within 2e-5 of its plain version after 30
-   iterations and from 48 up timed beside its bound and beside each
-   home of the global-plan variant's iterates (shared memory, a global
-   scratch) that does not serve h, bit for bit against the kernel that
-   does.
+   shapes: rmsnorm at D = 100 and 9000, admm_step at horizons 6 (padded
+   to 12), 24, 48 (the shared-plan variant) and 64, 96 and 128 (the plan
+   read from global memory), each in one launch within 2e-5 of its plain
+   version after 30 iterations and timed beside its bound: at 6, 12 and 24
+   the row-parallel kernel bit for bit against the shared-plan kernel
+   forced on the same QP (timed beside it), from 48 up each home of the
+   global-plan variant's iterates (shared memory, a global scratch) that
+   does not serve h bit for bit against the kernel that does.  The
+   one-thread-a-rack kernel's time before the row-parallel redesign is
+   printed on a line of its own, marked as a recorded constant.
 3. The quickstart (``examples/quickstart.py`` through the port): the
    240 s testbench trace at 500 Hz through ``pdu.condition`` with
    ``qp_iters=40``; the raw rack must fail the grid spec, the conditioned
@@ -114,16 +118,24 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    that layout), a decode step (T = 1), a ragged T = 257 at D = 128, an
    extreme decay w = 0.01, D = 32, a D = 48 zero-padded to 64, D = 256
    (bf16 at the prefill shape with 16 heads, timed, and f32), a D = 200
-   zero-padded to 256, and above 256 (D / 128 lanes a state column) D = 512
-   (bf16, timed, and f32), a D = 400 zero-padded to 512, D = 384 and D =
-   4096 (each also through ``ops.rwkv6_scan``: one launch, the same bits),
-   and a state carried across two calls equal to one call; timed beside
-   the sequential and the chunked plain versions.
+   zero-padded to 256, and above 256 (threads of 128 rows a state column)
+   D = 512 (bf16, timed, and f32), a D = 400 zero-padded to 512, D = 384
+   and D = 4096, and past it D = 4224 (f32, 33 threads of 128 rows a
+   column) and D = 8192 (bf16, timed), in slabs whose partial outputs a
+   second pass sums (one ``rwkv6_slab_sum`` launch a call above 1024),
+   each above 256 also through ``ops.rwkv6_scan`` (one launch, the same
+   bits), and a state carried across two calls equal to one call, the
+   second call a decode step too; a decode step on the step kernel
+   (D = 32, 64 and 128) bitwise equal to the chunk kernel's single step;
+   timed beside the sequential and the chunked plain versions and the
+   chunk kernel's single step, with the kernel's prefill and decode times
+   before its redesign printed on a line of their own, marked as recorded
+   constants.
 10. The ssm serving slice at full rwkv6-7b width (32 layers, bf16, 7.5 B
    random parameters drawn on the card by ``transformer.init``): (a) the
    prefill step on 4 prompts x 512 tokens must launch ``rwkv6_scan`` 32
-   and rmsnorm 97 times and call no plain scan, and its logits must match
-   the same step under ``ops.forced("ref")`` (chunked and sequential
+   and rmsnorm 97 times, no slab sum, and call no plain scan, and its
+   logits must match the same step under ``ops.forced("ref")`` (chunked and sequential
    plain scans) within ``RWKV_PREFILL_TOL``, and each block alone, fed
    the kernel run's input to it, must match its plain run within
    ``RWKV_BLOCK_ULPS``; (b) ``ServeEngine.generate``, 4 requests,
@@ -1610,19 +1622,31 @@ def phase_kernels(dev) -> dict:
     # the reference's own Pallas-vs-ref envelope after 30 iterations.
     _check(ad_err <= 2e-5, "admm_step vs plain")
     prep = admm_step.prepare(*ad_args, **ad_kw)
+    # The row-parallel kernel against the one-thread-a-rack shared-plan
+    # kernel forced at the same horizon: the same FMA chains in the same
+    # order, so the same bits.
+    sp = admm_step.prepare(*ad_args, **ad_kw, variant="shared plan")
+    admm_step.launch(sp)
+    same = all(torch.equal(a, b) for a, b in zip((sp.x, sp.z, sp.y), out_k))
+    print(f"admm_step   h={h} row-parallel kernel == shared-plan kernel bit for bit: {same}")
+    _check(same, f"admm_step h = {h} row-parallel vs shared-plan kernel")
     ad_ms = _median_ms(lambda: admm_step.launch(prep))
+    ad_sp_ms = _median_ms(lambda: admm_step.launch(sp))
     ad_call_ms = _median_ms(lambda: ops.admm_iterate(*ad_args, force="cuda", **ad_kw))
     ad_plain_ms = _median_ms(lambda: ops.admm_iterate(*ad_args, force="ref", **ad_kw))
-    print(f"admm_step   kernel {ad_ms:.4f} ms, wrapper call {ad_call_ms:.4f} ms, "
-          f"plain {ad_plain_ms:.3f} ms")
+    print(f"admm_step   kernel {ad_ms:.4f} ms, shared-plan kernel {ad_sp_ms:.4f} ms, wrapper "
+          f"call {ad_call_ms:.4f} ms, plain {ad_plain_ms:.3f} ms")
+    print(f"admm_step   h={h} R={r}: the one-thread-a-rack kernel before the row-parallel "
+          f"redesign took {PREVIOUS_KERNEL_MS['admm_step']:.4f} ms (a recorded constant, not "
+          f"this run's)")
     ad_bytes, ad_ops = _admm_bytes_ops(h, r, c["qp_iters"])
 
-    def entry(name, source, replaces, err, ms, call_ms, plain_ms, nbytes, nops):
+    def entry(name, source, replaces, err, ms, call_ms, plain_ms, nbytes, nops, **extra):
         # No single PyTorch call computes either function.  "ms" is the
         # kernel launch alone; the wrapper call adds its host-side checks,
         # packing and (pdu_health) epilogue sums.
         return kernel_entry(name, source, replaces, err, ms, plain_ms, None, nbytes, nops,
-                            FP32_FLOP_PER_S, kernel_ms=ms, wrapper_ms=call_ms)
+                            FP32_FLOP_PER_S, kernel_ms=ms, wrapper_ms=call_ms, **extra)
 
     return {
         "pdu_health": entry(
@@ -1632,7 +1656,7 @@ def phase_kernels(dev) -> dict:
         "admm_step": entry(
             "admm_step", "src/repro_torch/csrc/admm_step.cu",
             "src/repro/kernels/admm_step.py:65", ad_err, ad_ms, ad_call_ms, ad_plain_ms,
-            ad_bytes, ad_ops),
+            ad_bytes, ad_ops, shared_plan_ms=ad_sp_ms),
     }
 
 
@@ -1813,10 +1837,30 @@ def phase_widened_shapes(dev) -> dict:
               f"iters={iters}: max|kernel - plain| {err:.3e}")
         _check(err <= 2e-5 and admm_step.admm_iterate.launches == before + 1,
                f"admm_step horizon {h} vs plain")
-        if h < 48:
-            continue
         nbytes, nops = _admm_bytes_ops(h, r, iters)
         bound = max(nbytes / HBM_BYTES_PER_S, nops / FP32_FLOP_PER_S) * 1e3
+        if h < 48:
+            # The row-parallel kernel (h = 6 padded to 12, and 24) against
+            # the shared-plan kernel forced on the same (padded) QP.
+            hp = admm_step.kernel_horizon(h)
+            pa = admm_step.pad_horizon(*a, hp)
+            rows = admm_step.prepare(*pa, rho=plan.rho, iters=iters)
+            sp = admm_step.prepare(*pa, rho=plan.rho, iters=iters, variant="shared plan")
+            admm_step.launch(rows)
+            admm_step.launch(sp)
+            same = all(torch.equal(u, w_) for u, w_ in zip((rows.x, rows.z, rows.y),
+                                                            (sp.x, sp.z, sp.y)))
+            same &= all(torch.equal(u, w_) for u, w_ in zip(
+                admm_step.unpad_horizon(rows.x, rows.z, rows.y, h), got))
+            wide[f"h{h}_ms"] = _median_ms(lambda: admm_step.launch(rows))
+            wide[f"h{h}_shared_plan_ms"] = _median_ms(lambda: admm_step.launch(sp))
+            wide[f"h{h}_bound_ms"] = bound
+            print(f"admm_step   h={h} R={r} iters={iters} (row-parallel at {hp}): kernel "
+                  f"{wide[f'h{h}_ms']:.4f} ms, shared-plan kernel "
+                  f"{wide[f'h{h}_shared_plan_ms']:.4f} ms, bitwise equal: {same} (bound "
+                  f"{bound:.4f} ms)")
+            _check(same, f"admm_step h = {h} row-parallel vs shared-plan kernel")
+            continue
         prep = admm_step.prepare(*a, rho=plan.rho, iters=iters)
         wide[f"h{h}_ms"] = _median_ms(lambda: admm_step.launch(prep), reps=5 if h > 64 else 25)
         wide[f"h{h}_bound_ms"] = bound
@@ -2538,11 +2582,14 @@ def phase_rwkv_kernel(dev) -> dict:
     h, d = 64, 64
     # Tolerances, elementwise, with ``scale`` the largest |value| of the
     # plain version's output or state: the kernel and the plain version do
-    # the same float32 operations per step but sum o over i in another
-    # order (four partial sums against cuBLAS's) and contract multiply-adds
-    # into FMAs, so o and S differ by float32 rounding that the recurrence
-    # carries along: 1e-5 x scale; bf16 o additionally one bf16 ulp of the
-    # element (2^-7 of it), since each side rounds its float32 o once.
+    # the same float32 operations on the state per step, but the kernel
+    # factors the bonus out of o (o_j = sum_i r_i S_ij + v_j sum_i r_i u_i
+    # k_i), sums o over i in another order (partial sums per lane, then
+    # shuffles, then the slabs above 4096, against cuBLAS's) and contracts
+    # multiply-adds into FMAs, so o and S differ by float32 rounding that the
+    # recurrence carries along: 1e-5 x scale; bf16 o additionally one bf16
+    # ulp of the element (2^-7 of it), since each side rounds its float32 o
+    # once.
     # "time-major" hands the kernel (B, H, T, D) views of (B, T, H, D)
     # tensors, as the time mix does, and o must come back in that layout.
     cases = [("prefill", b, h, t, d, bf16, None, True, False),
@@ -2556,18 +2603,26 @@ def phase_rwkv_kernel(dev) -> dict:
              ("D 256", b, 16, t, 256, bf16, None, True, False),
              ("D 256 f32", 2, 8, 129, 256, f32, None, True, False),
              ("padded D200", 2, 8, 129, 200, bf16, None, True, False),
-             # Above 256: D / 128 lanes a column (4 at 512 and a padded 400,
-             # 3 in groups of 4 at 384, a warp's 32 at 4096).
+             # Above 256: threads of 128 rows a column (4 at 512 and a padded
+             # 400, 3 at 384); above 1024 in slabs of at most 8 such threads,
+             # summed by a second pass (4 slabs of 8 at 4096).
              ("D 512", 2, 8, 257, 512, bf16, None, True, False),
              ("D 512 f32", 1, 4, 129, 512, f32, None, True, False),
              ("padded D400", 2, 4, 129, 400, bf16, None, True, False),
              ("D 384 f32", 1, 4, 65, 384, f32, None, True, False),
-             ("D 4096 f32", 1, 1, 16, 4096, f32, None, True, False)]
+             ("D 4096 f32", 1, 1, 16, 4096, f32, None, True, False),
+             # Above 4096, the old limit: 33 threads at 4224 (5 slabs of 7
+             # and a short one; its float32 state 71 MB), 8 slabs of 8 at
+             # 8192.
+             ("D 4224 f32", 1, 1, 16, 4224, f32, None, True, False),
+             ("D 8192 bf16", 1, 2, 8, 8192, bf16, None, True, False)]
     err_max, wide = 0.0, {}
     for name, bb, hh, tt, dd, dtype, w_val, with_s0, time_major in cases:
         (r, k, v, w, u), s0 = _rwkv_inputs(gen, dev, bb, hh, tt, dd, dtype, w_val, time_major)
         s0 = s0 if with_s0 else None
+        sums = rw.rwkv6_scan.sum_launches
         o, s = rw.rwkv6_scan(r, k, v, w, u, s0)
+        sums = rw.rwkv6_scan.sum_launches - sums
         po, ps = ref.rwkv6_scan(r, k, v, w, u, s0)
         torch.cuda.synchronize()
         ulp = 2.0**-7 if dtype == bf16 else 0.0
@@ -2583,8 +2638,12 @@ def phase_rwkv_kernel(dev) -> dict:
             ok &= bool(((g64 - p64).abs() <= u_ * p64.abs() + 1e-5 * scale).all())
             line += f" {nm} {err:.3e} (max {scale:.3f})"
             err_max = max(err_max, err)
-        print(line + f"  [max|kernel - sequential plain|; o strides {o.stride()}]")
+        plan = rw.lane_plan(dd, tt)
+        print(line + f"  [max|kernel - sequential plain|; o strides {o.stride()}; plan "
+                     f"{tuple(plan)}, slab sums {sums}]")
         _check(ok, f"rwkv6_scan {name} vs plain")
+        _check(sums == int(plan.slabs > 1),
+               f"rwkv6_scan {name}: a slab-sum launch exactly where the plan has slabs")
         if dd > 256:
             # Through the entry the time mix calls: one launch, the same bits.
             before = rw.rwkv6_scan.launches
@@ -2595,12 +2654,14 @@ def phase_rwkv_kernel(dev) -> dict:
                   f"{rw.rwkv6_scan.launches - before} launch, the same bits: {same}")
             _check(same and rw.rwkv6_scan.launches == before + 1,
                    f"rwkv6_scan {name} through ops.rwkv6_scan")
-        if name in ("D 256", "D 512"):
+        if name in ("D 256", "D 512", "D 8192 bf16"):
             nb, no = _rwkv_bytes_ops(r)
-            wide[dd] = (_median_ms(lambda: rw.rwkv6_scan(r, k, v, w, u, s0)),
+            wide[dd] = (_median_ms(lambda: rw.rwkv6_scan(r, k, v, w, u, s0),
+                                   reps=5 if dd > 4096 else 25),
                         max(nb / HBM_BYTES_PER_S, no / FP32_FLOP_PER_S) * 1e3, [bb, hh, tt, dd])
             print(f"rwkv6_scan  {name} {(bb, hh, tt, dd)} bf16: kernel {wide[dd][0]:.4f} ms "
                   f"(bound {wide[dd][1]:.4f} ms)")
+        del r, k, v, w, u, s0, o, s, po, ps
     # A state carried across two calls equals one call: the kernel does the
     # same operations per step, and the state passes through float32 memory
     # exactly.
@@ -2612,6 +2673,24 @@ def phase_rwkv_kernel(dev) -> dict:
     same = torch.equal(torch.cat([o1, o2], dim=2), o) and torch.equal(s2, s)
     print(f"rwkv6_scan  state carried across two calls of {half} == one call of {t}: {same}")
     _check(same, "rwkv6_scan carried state")
+    # The same with a decode step last: T - 1 steps on the chunk kernel,
+    # then one on the step kernel, which does the chunk kernel's arithmetic.
+    o1, s1 = rw.rwkv6_scan(*(x[:, :, :t - 1] for x in (r, k, v, w)), u, s0)
+    o2, s2 = rw.rwkv6_scan(*(x[:, :, t - 1:] for x in (r, k, v, w)), u, s1)
+    same = torch.equal(torch.cat([o1, o2], dim=2), o) and torch.equal(s2, s)
+    print(f"rwkv6_scan  state carried across calls of {t - 1} and 1 (a decode step) == one call "
+          f"of {t}: {same}")
+    _check(same, "rwkv6_scan carried state into a decode step")
+    # The step kernel against the chunk kernel's single step (its plan for
+    # longer calls, forced): the same bits, at every head dim it runs.
+    for dd, dtype in ((32, bf16), (64, bf16), (64, f32), (128, bf16)):
+        (r1, k1, v1, w1, u1), s01 = _rwkv_inputs(gen, dev, b, 16, 1, dd, dtype)
+        os_, ss_ = rw.rwkv6_scan(r1, k1, v1, w1, u1, s01)
+        oc_, sc_ = rw.rwkv6_scan(r1, k1, v1, w1, u1, s01, plan=rw.lane_plan(dd, 2))
+        same = torch.equal(os_, oc_) and torch.equal(ss_, sc_)
+        print(f"rwkv6_scan  decode D {dd} {str(dtype)[6:]}: step kernel {tuple(rw.lane_plan(dd, 1))} "
+              f"== chunk kernel {tuple(rw.lane_plan(dd, 2))}: {same}")
+        _check(same, f"rwkv6_scan decode D {dd}: step kernel vs chunk kernel")
     # The kernel has no backward: a recording graph must raise, not fall
     # back to the (differentiable) plain version.
     try:
@@ -2627,11 +2706,17 @@ def phase_rwkv_kernel(dev) -> dict:
     chunk_ms = _median_ms(lambda: ref.rwkv6_chunked(r, k, v, w, u, s0), reps=10)
     dec = [x[:, :, :1] for x in (r, k, v, w)]
     dec_ms = _median_ms(lambda: rw.rwkv6_scan(*dec, u, s0))
+    chunk_plan = rw.lane_plan(d, 2)
+    dec_chunk_ms = _median_ms(lambda: rw.rwkv6_scan(*dec, u, s0, plan=chunk_plan))
     dec_plain = _median_ms(lambda: ref.rwkv6_scan(*dec, u, s0))
-    rw.rwkv6_scan.launches = 0
+    rw.rwkv6_scan.launches = rw.rwkv6_scan.sum_launches = 0
     print(f"rwkv6_scan  prefill bf16: kernel {ms:.4f} ms, sequential plain {seq_ms:.4f} ms, "
-          f"chunked plain {chunk_ms:.4f} ms; decode (T = 1): kernel {dec_ms:.4f} ms, plain "
+          f"chunked plain {chunk_ms:.4f} ms; decode (T = 1): kernel (the step kernel) "
+          f"{dec_ms:.5f} ms, the chunk kernel's single step {dec_chunk_ms:.5f} ms, plain "
           f"{dec_plain:.4f} ms")
+    print(f"rwkv6_scan  the kernel before its redesign took {PREVIOUS_KERNEL_MS['rwkv6_scan']:.4f} "
+          f"ms a prefill and {PREVIOUS_KERNEL_MS['rwkv6_scan_decode']:.5f} ms a decode step (recorded "
+          f"constants, not this run's)")
     nbytes, nops = _rwkv_bytes_ops(r)
     dec_bytes, dec_ops = _rwkv_bytes_ops(dec[0])
     dec_bound = max(dec_bytes / HBM_BYTES_PER_S, dec_ops / FP32_FLOP_PER_S) * 1e3
@@ -2640,8 +2725,9 @@ def phase_rwkv_kernel(dev) -> dict:
     return kernel_entry(
         "rwkv6_scan", "src/repro_torch/csrc/rwkv6_scan.cu", "src/repro/kernels/rwkv6_scan.py:57",
         err_max, ms, seq_ms, None, nbytes, nops, FP32_FLOP_PER_S, shape=[b, h, t, d],
-        dtype="bfloat16", chunked_plain_ms=chunk_ms, decode_ms=dec_ms, decode_plain_ms=dec_plain,
-        decode_bound_ms=dec_bound,
+        dtype="bfloat16", chunked_plain_ms=chunk_ms, decode_ms=dec_ms,
+        decode_chunk_kernel_ms=dec_chunk_ms, decode_plain_ms=dec_plain,
+        decode_bound_ms=dec_bound, second_pass="rwkv6_slab_sum",
         **{k_: v_ for dd, (ms_, bound_, shape_) in wide.items() for k_, v_ in (
             (f"d{dd}_shape", shape_), (f"d{dd}_ms", ms_), (f"d{dd}_bound_ms", bound_))})
 
@@ -2649,13 +2735,14 @@ def phase_rwkv_kernel(dev) -> dict:
 def _rwkv_counts() -> dict:
     from repro_torch.kernels import rwkv6_scan as rw
 
-    return {"rwkv6_scan": rw.rwkv6_scan.launches, **_counts()}
+    return {"rwkv6_scan": rw.rwkv6_scan.launches, "rwkv6_slab_sum": rw.rwkv6_scan.sum_launches,
+            **_counts()}
 
 
 def _reset_rwkv_counts() -> None:
     from repro_torch.kernels import rwkv6_scan as rw
 
-    rw.rwkv6_scan.launches = 0
+    rw.rwkv6_scan.launches = rw.rwkv6_scan.sum_launches = 0
     _reset_counts()
 
 
@@ -2683,7 +2770,8 @@ def phase_rwkv_serve(dev, profile_dir: Path | None = None) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     print(f"rwkv serve: {cfg.name} {n_params} parameters ({cfg.dtype}, {nl} layers) drawn on the "
           f"card in {time.perf_counter() - t0:.1f} s")
-    per_prefill = {"rwkv6_scan": nl, "rmsnorm": 3 * nl + 1, "flash_attention_fwd": 0}
+    per_prefill = {"rwkv6_scan": nl, "rwkv6_slab_sum": 0, "rmsnorm": 3 * nl + 1,
+                   "flash_attention_fwd": 0}
 
     # (a) Prefill: 4 prompts x 512 tokens through the prefill step.
     b, tl = RWKV["prefill"]
@@ -2851,6 +2939,14 @@ FMA_KERNEL_MS = {"gemm_burn": 18.972000122070312, "gemm_burn_f32": 0.34099200367
                  "flash_attention_fwd": 0.22044800221920013,
                  "flash_attention_bwd_dkv": 0.46799999475479126,
                  "flash_attention_bwd_dq": 0.3270080089569092}
+# The times of admm_step and rwkv6_scan before their redesign for the H100
+# (one thread a rack; one thread a state column with the bonus inside the
+# (D, D) loop and a barrier a step), from this script's kernels line on an
+# NVIDIA H100 80GB HBM3 at 700 W: the campus QP (h = 12, R = 1024), the
+# rwkv prefill (4, 64, 512, 64) bf16 and its decode step.  Recorded
+# constants: printed, marked as such, and kept out of the kernels line.
+PREVIOUS_KERNEL_MS = {"admm_step": 0.350271999835968, "rwkv6_scan": 0.43558400869369507,
+                      "rwkv6_scan_decode": 0.0072639998979866505}
 UNFUSED_TOL = 2e-5  # tests/test_kernels.py: the fused path vs ess -> filters
 # The 4096^3 bf16 burn's cost of one more round, from n_iters 1 -> 4 and
 # 4 -> 8, must agree within this fraction: the work grows with n_iters and
@@ -3456,9 +3552,13 @@ def main() -> int:
     _build.build()
     print(f"built kernels in {time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
     for name, log in _build.build_logs.items():
+        fn = ""  # the kernel ptxas reports on: its mangled name past the file's namespace
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                print(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line and "'" in line:
+                mangled = line.split("'")[1]
+                fn = mangled[mangled.find("_cu_") + 12:][:60] if "_cu_" in mangled else mangled[:60]
+            elif "registers" in line or "spill" in line or "error" in line.lower():
+                print(f"  {name}: {fn}: {line.strip()}")
 
     kernels = phase_kernels(dev)
     kernels["pdu_health"]["variants"] = phase_pdu_health_variants(dev)
@@ -3504,6 +3604,8 @@ def main() -> int:
         pre, gen = rwkv["prefill"][name], rwkv["generate"][name]
         kernels[name].update(launches=(kernels[name]["launches"] or 0) + pre + gen,
                              launches_rwkv_prefill=pre, launches_rwkv_generate=gen)
+    kernels["rwkv6_scan"]["second_pass_launches"] = (rwkv["prefill"]["rwkv6_slab_sum"]
+                                                     + rwkv["generate"]["rwkv6_slab_sum"])
     torch.cuda.empty_cache()
     kernels.update(phase_sim_kernels(dev))
     fig11 = phase_fig11(dev)

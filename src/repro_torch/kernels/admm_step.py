@@ -1,24 +1,28 @@
 """The batched controller-QP ADMM loop on Hopper: wrapper and launch.
 
 Ports ``repro.kernels.admm_step.admm_iterate`` (Pallas ``_admm_kernel``):
-``iters`` OSQP-style ADMM steps for every rack column in one launch, the
-plan matrices in shared memory (read from global memory above horizon 57)
-and each column's ``x, z, y`` iterates in registers (in shared memory
-above horizon 24, in a global scratch above 181; see
-``csrc/admm_step.cu``).
+``iters`` OSQP-style ADMM steps for every rack column in one launch.  At
+horizons 12 and 24 the kernel is row-parallel: a rack a warp (two at 24),
+lane i holding x-row i of the plan in registers; above 24 one thread
+solves one rack, the plan in shared memory up to horizon 57 and read from
+global memory above, the iterates in shared memory (in a global scratch
+above 181; see ``csrc/admm_step.cu``).
 ``prepare`` / ``launch`` split one call so the kernel can be timed alone;
 ``admm_iterate.launches`` counts kernel launches (``launch`` adds one).
 
-The kernel is instantiated for horizons 12 and 24, with the iterates in
-registers; ``pad_horizon`` lifts any smaller horizon to the next one with
-decoupled variables whose rows of the KKT operator and of ``G`` are zero
-and whose bounds are ``lo = hi = 0``, so they stay 0, and the real
-variables keep their order: every real sum gains only zero terms, and the
-real iterates come out bit for bit.  Horizons 25 to ``SHARED_PLAN_MAX``
-run a variant that takes the horizon at run time and keeps the plan and
-the iterates in shared memory; any larger horizon one that reads the plan
-from global memory and keeps the iterates in shared memory up to
+The row-parallel kernel is instantiated for horizons 12 and 24;
+``pad_horizon`` lifts any smaller horizon to the next one with decoupled
+variables whose rows of the KKT operator and of ``G`` are zero and whose
+bounds are ``lo = hi = 0``, so they stay 0, and the real variables keep
+their order: every real sum gains only zero terms, and the real iterates
+come out bit for bit.  Horizons 25 to ``SHARED_PLAN_MAX`` run a variant
+that takes the horizon at run time and keeps the plan and the iterates in
+shared memory; any larger horizon one that reads the plan from global
+memory and keeps the iterates in shared memory up to
 ``SHARED_ITERATES_MAX``, in a global scratch above (``kernel_variant``).
+Every variant runs each row's FMA chain in one order, so where two serve
+a horizon they agree bit for bit: ``prepare(..., variant=...)`` forces
+one, the shared-plan kernel at any horizon up to ``SHARED_PLAN_MAX``.
 """
 from __future__ import annotations
 
@@ -30,8 +34,8 @@ import torch
 from repro_torch.kernels import _build
 
 F32 = torch.float32
-# Instantiated template horizons (12 is ControllerConfig's default); above
-# the largest the kernel takes h itself: up to SHARED_PLAN_MAX with the
+# The row-parallel kernel's horizons (12 is ControllerConfig's default);
+# above the largest the kernel takes h itself: up to SHARED_PLAN_MAX with the
 # plan and iterates in shared memory (48 h^2 + 1280 h bytes of a block's
 # 232,448), then with the plan read from global memory and the iterates in
 # shared memory (1280 h bytes) up to SHARED_ITERATES_MAX, then with the
@@ -39,8 +43,9 @@ F32 = torch.float32
 HORIZONS = (12, 24)
 SHARED_PLAN_MAX = 57
 SHARED_ITERATES_MAX = 181
-# The C launch function's variant codes.
-VARIANTS = {"registers": 0, "shared plan": 0, "global plan": 1, "global plan and iterates": 2}
+# The C launch function's variant codes ("registers": the row-parallel
+# kernel, a plan row in each lane's registers).
+VARIANTS = {"registers": 0, "global plan": 1, "global plan and iterates": 2, "shared plan": 3}
 
 
 def kernel_horizon(h: int) -> int:
@@ -104,6 +109,47 @@ def unpad_horizon(x, z, y, h: int):
     return take(x, 2), take(z, 3), take(y, 3)
 
 
+def resolve_variant(h: int, variant: str | None = None) -> str:
+    """The kernel that runs the (padded) horizon ``h``: ``kernel_variant``'s,
+    or ``variant`` where that kernel serves ``h`` too (to hold one kernel
+    against another where both run): the shared-plan one every horizon up
+    to ``SHARED_PLAN_MAX``, 12 and 24 too; the global-plan ones every
+    horizon from 25 (up to 181 with shared iterates).  Raises for a horizon
+    that ``admm_iterate`` would pad, or a kernel that does not serve it."""
+    if kernel_horizon(h) != h:
+        raise ValueError(
+            f"admm_step kernel runs horizons {HORIZONS} and every one above {HORIZONS[-1]}, "
+            f"got {h} (admm_iterate pads it)"
+        )
+    if variant is None or variant == kernel_variant(h):
+        return kernel_variant(h)
+    forcible = {"shared plan": h <= SHARED_PLAN_MAX,
+                "global plan": HORIZONS[-1] < h <= SHARED_ITERATES_MAX,
+                "global plan and iterates": h > HORIZONS[-1]}
+    if not forcible.get(variant, False):
+        raise ValueError(f"admm_step: the {variant!r} kernel does not serve horizon {h}")
+    return variant
+
+
+ROW_THREADS = 128  # a block of the row-parallel kernel
+
+
+class RowPlan(NamedTuple):
+    """The row-parallel kernel's split of the racks at horizon ``h``: lane i
+    of a rack computes x-row i and updates z/y row i (i < 2h), and lane
+    i < h computes G-row i and updates z/y row 2h + i."""
+
+    warps: int  # warps a rack: a lane per x-row
+    racks: int  # racks a block of ROW_THREADS
+
+
+def row_plan(h: int) -> RowPlan:
+    """The row-parallel kernel's warps a rack and racks a block at horizon
+    ``h``; the launch refuses any others."""
+    warps = -(-2 * h // 32)
+    return RowPlan(warps, ROW_THREADS // (32 * warps))
+
+
 class Prepared(NamedTuple):
     """One launch's checked operands and allocated outputs."""
 
@@ -118,23 +164,15 @@ def prepare(kkt_stack, g_blk, kq, lo, hi, x0, z0, y0, *, rho, iters,
             variant: str | None = None) -> Prepared:
     """Check the operands (CUDA, float32, shapes, contiguity) and allocate
     the outputs for ``launch``.  ``variant`` (``kernel_variant``'s names)
-    forces a kernel where it serves ``h``: the global-plan ones serve every
-    horizon from 25 (up to 181 with shared iterates), to hold them against
-    the shared-plan kernel where both run."""
+    forces a kernel where it serves ``h``, to hold one against another
+    where both run: the shared-plan one serves every horizon up to
+    ``SHARED_PLAN_MAX`` (12 and 24 too), the global-plan ones every horizon
+    from 25 (up to 181 with shared iterates)."""
     dev = kq.device
     if dev.type != "cuda":
         raise ValueError("admm_step kernel needs CUDA tensors")
     h = g_blk.shape[0]
-    if kernel_horizon(h) != h:
-        raise ValueError(
-            f"admm_step kernel runs horizons {HORIZONS} and every one above {HORIZONS[-1]}, "
-            f"got {h} (admm_iterate pads it)"
-        )
-    variant = kernel_variant(h) if variant is None else variant
-    forcible = {"global plan": HORIZONS[-1] < h <= SHARED_ITERATES_MAX,
-                "global plan and iterates": h > HORIZONS[-1]}
-    if variant != kernel_variant(h) and not forcible.get(variant, False):
-        raise ValueError(f"admm_step: the {variant!r} kernel does not serve horizon {h}")
+    variant = resolve_variant(h, variant)
     if kq.ndim != 2:
         raise ValueError("admm_step kernel needs a (2h, R) rack batch")
     r = kq.shape[1]
@@ -154,10 +192,11 @@ def prepare(kkt_stack, g_blk, kq, lo, hi, x0, z0, y0, *, rho, iters,
     y = torch.empty((3 * h, r), dtype=F32, device=dev)
     scratch = (torch.empty((10 * h, r), dtype=F32, device=dev)
                if variant == "global plan and iterates" else None)
+    rp = row_plan(h) if variant == "registers" else RowPlan(0, 0)
     return Prepared(
         tuple(t.data_ptr() for t in (kkt_stack, g_blk, kq, lo, hi, x0, z0, y0, x, z, y))
         + (None if scratch is None else scratch.data_ptr(), h, r, float(rho), int(iters),
-           VARIANTS[variant]),
+           VARIANTS[variant], rp.warps, rp.racks),
         (kkt_stack, g_blk, kq, lo, hi, x0, z0, y0, scratch), x, z, y,
     )
 
@@ -169,7 +208,7 @@ def launch(p: Prepared) -> None:
     vp = ctypes.c_void_p
     ii = ctypes.c_int
     fn = _build.launch_fn("admm_step", "admm_step_launch",
-                          [vp] * 12 + [ii, ii, ctypes.c_float, ii, ii, vp])
+                          [vp] * 12 + [ii, ii, ctypes.c_float, ii, ii, ii, ii, vp])
     with torch.cuda.device(dev):
         err = fn(*p.args, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("admm_step", err)

@@ -1,13 +1,13 @@
 """The widened kernel shapes of the port, on the CPU.
 
 On the card the flash kernels take any head dim (column chunks above
-256), the ``rwkv6_scan`` kernel any head dim up to 4096, ``rmsnorm`` any
-``D`` and ``admm_step`` any horizon (unpadded above 24); a shape between the
-instantiated ones is zero-padded up.  Here, without a card, these tests hold what runs on
-the CPU:
+256), the ``rwkv6_scan`` kernel any head dim (slabs of rows above 1024),
+``rmsnorm`` any ``D`` and ``admm_step`` any horizon (unpadded above 24); a
+shape between the instantiated ones is zero-padded up.  Here, without a
+card, these tests hold what runs on the CPU:
 
-* the routing decisions (``kernel_head_dim``, ``kernel_horizon``) and
-  the one refusal left (rwkv above 4096);
+* the routing decisions (``kernel_head_dim``, ``kernel_horizon``; rwkv
+  past 4096 in slabs);
 * the padding routes against the plain versions: ``admm_step``'s padded
   QP gives the real block's iterates bit for bit (every real sum only gains
   zero terms); the zero-padded RWKV-6 scan keeps its padded state rows and
@@ -59,10 +59,11 @@ def test_flash_head_dim_routing():
 def test_rwkv_head_dim_routing_and_padding():
     assert [rw.kernel_head_dim(d) for d in (16, 32, 48, 64, 100, 128)] == [32, 32, 64, 64, 128,
                                                                             128]
-    # Above 256: a multiple of 128 (D / 128 lanes a column) up to 4096.
+    # Above 256: a multiple of 128 (threads of 128 rows a column), past 4096
+    # too, a column's rows in slabs of at most 8 such threads.
     assert [rw.kernel_head_dim(d) for d in (257, 400, 512, 4096)] == [384, 512, 512, 4096]
-    with pytest.raises(ValueError, match="up to 4096"):
-        rw.kernel_head_dim(4097)
+    assert [rw.kernel_head_dim(d) for d in (4097, 4224, 8192)] == [4224, 4224, 8192]
+    assert [rw.lane_plan(d).slabs for d in (4096, 4224, 8192)] == [4, 5, 8]
     rng = np.random.default_rng(0)
     b, h, t, d, dp = 2, 3, 40, 48, 64
     r, k, v = (torch.from_numpy(rng.standard_normal((b, h, t, d)).astype(np.float32))

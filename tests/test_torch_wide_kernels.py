@@ -68,11 +68,12 @@ def test_routing_reaches_the_reference_shapes():
     assert rw.kernel_head_dim(256) == 256 and rw.kernel_head_dim(129) == 256
     assert rw.kernel_head_dim(200) == 256
     # Past the instantiated widths: flash in column chunks of at most 256,
-    # rwkv in lanes of 128 rows up to 4096 (a warp's 32 lanes a column).
+    # rwkv in threads of 128 rows (slabs of at most 8 threads a column above
+    # 1024, summed by a second pass, past 4096 too).
     assert fa.kernel_head_dim(257) == 320 and fa.column_chunks(257) == (2, 160)
     assert rw.kernel_head_dim(257) == 384 and rw.kernel_head_dim(4096) == 4096
-    with pytest.raises(ValueError, match="up to 4096"):
-        rw.kernel_head_dim(4097)
+    assert rw.kernel_head_dim(4097) == 4224 and rw.kernel_head_dim(8192) == 8192
+    assert rw.lane_plan(4224)[-2:] == (5, 1) and rw.lane_plan(8192)[-2:] == (8, 1)
     assert [admm_step.kernel_horizon(h) for h in (6, 12, 13, 24, 25, 30, 48, 57, 58, 128)] == \
         [12, 12, 24, 24, 25, 30, 48, 57, 58, 128]
     # The shared-plan variant's 48 h^2 + 1280 h bytes fit a block's 232,448

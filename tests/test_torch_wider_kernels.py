@@ -3,8 +3,8 @@ and the tensor-core flash backward's arithmetic, on the CPU.
 
 On the card the flash kernels take any head dim (above 256 in column
 chunks of at most 256 on a grid axis, every block computing the scores
-over the full head dim), ``rwkv6_scan`` head dims up to 4096 (D / 128
-lanes a state column) and ``admm_step`` any horizon (the plan read from
+over the full head dim), ``rwkv6_scan`` any head dim (threads of 128 rows a
+state column above 256, in slabs of 8 above 1024) and ``admm_step`` any horizon (the plan read from
 global memory above 57).  Without a card these tests hold the same seeded
 numpy inputs through the JAX package (its Pallas kernels in interpret
 mode, and its jnp references) and through the port's plain versions, on
@@ -90,19 +90,30 @@ def test_column_chunk_plan_covers_every_column():
 
 def test_rwkv_lane_plan_covers_every_row_up_to_4096():
     for d in range(1, 4097):
-        dk, lanes, group, cols = rw.lane_plan(d)
-        assert dk == rw.kernel_head_dim(d) >= d
-        rows = dk // lanes
-        assert rows * lanes == dk and rows <= 128  # a lane's rows fit its registers
-        assert lanes <= group <= 32 and group & (group - 1) == 0  # one warp's shuffle group
-        assert dk % cols == 0 and cols * group <= 256  # whole blocks of at most 256 threads
-        if dk > 256:
-            assert dk % 128 == 0 and rows == 128 and dk - d < 128
-    assert rw.lane_plan(512) == (512, 4, 4, 64) and rw.lane_plan(400) == (512, 4, 4, 64)
-    assert rw.lane_plan(384) == (384, 3, 4, 64) and rw.lane_plan(4096) == (4096, 32, 32, 8)
-    assert rw.lane_plan(256) == (256, 2, 2, 128) and rw.lane_plan(64) == (64, 1, 1, 64)
-    with pytest.raises(ValueError, match="up to 4096"):
-        rw.kernel_head_dim(4097)
+        p = rw.lane_plan(d)
+        sr = p.parts * p.rows  # a slab's rows
+        assert p.d == rw.kernel_head_dim(d) >= d
+        assert p.d % p.rows == 0 and p.rows <= 128  # a thread's rows fit its registers
+        assert 1 <= p.parts <= 8 and p.cols // p.span * p.parts <= 256  # blocks of <= 256
+        assert p.d % p.cols == 0 and (p.slabs - 1) * sr < p.d <= p.slabs * sr
+        if p.d > 256:
+            assert p.d % 128 == 0 and p.rows == 128 and p.span == 1 and p.d - d < 128
+            assert p.chunk == 1 and p.slabs == -(-p.d // p.rows // 8)
+        else:
+            assert p.rows == max(8, p.d // 8) and p.span == 2 and p.slabs == 1
+            assert p.chunk == (16 if p.d <= 128 else 8)
+    assert rw.lane_plan(512) == (512, 128, 1, 4, 64, 1, 1) == rw.lane_plan(400)
+    assert rw.lane_plan(384) == (384, 128, 1, 3, 64, 1, 1)
+    assert rw.lane_plan(4096) == (4096, 128, 1, 8, 32, 4, 1)
+    assert rw.lane_plan(256) == (256, 32, 2, 8, 64, 1, 8)
+    assert rw.lane_plan(64) == (64, 8, 2, 8, 64, 1, 16)
+    # A single step up to 128 runs the step kernel: a thread a column, summed
+    # in the chunk kernel's parts; at 256 the chunk kernel.
+    assert rw.lane_plan(64, 1) == (64, 8, 1, 8, 64, 1, 1)
+    assert rw.lane_plan(256, 1) == rw.lane_plan(256)
+    # Past 4096 as below it: slabs of at most 8 threads of 128 rows.
+    assert rw.lane_plan(4224) == (4224, 128, 1, 7, 32, 5, 1)
+    assert rw.lane_plan(8192) == (8192, 128, 1, 8, 32, 8, 1)
 
 
 def test_admm_horizon_routing_has_no_limit():

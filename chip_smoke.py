@@ -31,10 +31,25 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    does not serve h bit for bit against the kernel that does.  The
    one-thread-a-rack kernel's time before the row-parallel redesign is
    printed on a line of its own, marked as a recorded constant.
+   ``pdu_health`` runs the warp-specialised pipeline of
+   ``csrc/hw_stages.cuh``; its campus interval is also run with the
+   pipeline's cp.async route forced (the same bits, timed beside the TMA
+   route the plan picks at R = 1024), and at ragged shapes
+   (``phase_pdu_health_ragged``: R = 1, 3, 33, 1000 and T = 1, 7, S - 1,
+   S + 1, 2500 in every weight mode with the slew and wear fold on and off,
+   against the first R columns of one plain run at 1024 racks); its times
+   before the redesign, in each mode, are printed as recorded constants.
+   A latency probe (``chain_probe``: one warp's chain of dependent FMAs
+   timed at two lengths) gives the card's time per dependent operation,
+   from which the script prints the chain bound of pdu_health and pdu_sim
+   (T x the LC update's 5 dependent operations) beside their byte bound.
 3. The quickstart (``examples/quickstart.py`` through the port): the
    240 s testbench trace at 500 Hz through ``pdu.condition`` with
    ``qp_iters=40``; the raw rack must fail the grid spec, the conditioned
-   grid must pass it, and the SoC must stay inside [0.10, 0.90].
+   grid must pass it, and the SoC must stay inside [0.10, 0.90];
+   ``pdu_health`` and ``admm_step`` must launch once per 5 s interval (48
+   each, T = 2500, R = 1: one rack, its copies and stores spread over 32
+   samples a warp instruction).
 4. The acceptance campus: 1024 racks, four model families plus an
    inference-diurnal block, staggered starts, early stops and a fault
    cascade, 88 s at 200 Hz, conditioned by ``fleet.condition(engine=
@@ -153,9 +168,13 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    ``benchmarks/kernel_benches.py``'s shapes (T = 60000, R = 128, the
    prototype-rack filter, dt = 1 ms, zero corrective; pdu_sim unweighted,
    with the (T, R) weight of 12 % degraded racks ramping down over 4 s, and
-   with a (R,) 0/1 weight); (b) both over the whole acceptance campus in
+   with a (R,) 0/1 weight; each pdu_sim variant also on the first 1 and
+   3 racks against the plain run's first columns); (b) both over the
+   whole acceptance campus in
    one launch (T = 17600, R = 1024, the campus ``make_pdu`` filter;
-   pdu_sim unweighted and with the (T, R) weight), and pdu_sim's grid and
+   pdu_sim unweighted and with the (T, R) weight, unweighted also with the
+   cp.async route forced, the same bits, timed beside the TMA route; its
+   times before the pipeline redesign printed as recorded constants), and pdu_sim's grid and
    SoC against the plain ``ess.simulate`` -> ``filters.simulate`` within
    ``UNFUSED_TOL``; (c) gemm_burn at 512^3 float32 (n_iters 4, and the
    n_iters 1 vs 8 value), 4096^3 bfloat16 (n_iters 1, 4, 8; time(8) /
@@ -204,8 +223,10 @@ no result.  It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -1517,12 +1538,28 @@ def _check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+@contextlib.contextmanager
+def _cp_async_route():
+    """Plan every ``pdu_health``/``pdu_sim`` launch inside the block on the
+    pipeline's cp.async route (the one R % 4 != 0 takes), so that it can be
+    timed beside the TMA route the plan picks at R = 1024: the reason the
+    kernel keeps both."""
+    from repro_torch.kernels import hw_plan
+
+    orig = hw_plan.plan
+    hw_plan.plan = lambda r, mask, **kw: orig(r, mask, **{**kw, "aligned": False})
+    try:
+        yield
+    finally:
+        hw_plan.plan = orig
+
+
 def phase_kernels(dev) -> dict:
     """Each kernel against its plain version at the campus shapes."""
     import torch
 
     from repro_torch.core import controller as ctrl, health as hlt, pdu
-    from repro_torch.kernels import admm_step, ops, pdu_health
+    from repro_torch.kernels import admm_step, hw_plan, ops, pdu_health
     from repro_torch.power import scenario as SC
 
     c = CAMPUS
@@ -1592,7 +1629,19 @@ def phase_kernels(dev) -> dict:
     ph_call_ms = _median_ms(lambda: ops.pdu_health_sim(*ph_args, force="cuda", **ph_kw))
     ph_plain_ms = _median_ms(lambda: ops.pdu_health_sim(*ph_args, force="ref", **ph_kw), reps=20)
     print(f"pdu_health  kernel {ph_ms:.4f} ms, wrapper call {ph_call_ms:.4f} ms, "
-          f"plain {ph_plain_ms:.1f} ms (median of CUDA-event timings)")
+          f"plain {ph_plain_ms:.1f} ms (median of CUDA-event timings); plan {prep.plan}")
+    print(f"pdu_health  T={t_len} R={r}: the one-thread-a-rack kernel before the pipeline "
+          f"redesign took {PREVIOUS_KERNEL_MS['pdu_health']:.4f} ms (a recorded constant, not "
+          f"this run's)")
+    with _cp_async_route():
+        pc = pdu_health.prepare(*ph_args, **ph_kw)
+    pdu_health.launch(pc)
+    same = _bitwise((pc.grid, pc.soc_t, pc.sf, pc.hf), (prep.grid, prep.soc_t, prep.sf, prep.hf))
+    ph_cp_ms = _median_ms(lambda: pdu_health.launch(pc))
+    print(f"pdu_health  the {pc.plan.route} route forced at R={r}: {ph_cp_ms:.4f} ms against the "
+          f"{prep.plan.route} route's {ph_ms:.4f}, the same bits: {same}")
+    _check(same and pc.plan.route == "cp.async", "pdu_health cp.async route vs the TMA route")
+    ph_chunk = prep.plan.chunk
     # Bytes moved once: rack power in, grid and SoC out (T x R each), plus
     # the per-rack rows (slew 2, state 5 in + 5 out, wear 11 in + 11 out).
     ph_bytes = 4 * (3 * t_len * r + (2 + 5 + 11 + 5 + 11) * r)
@@ -1652,7 +1701,7 @@ def phase_kernels(dev) -> dict:
         "pdu_health": entry(
             "pdu_health", "src/repro_torch/csrc/pdu_health.cu",
             "src/repro/kernels/pdu_health.py:224", max(errs.values()), ph_ms, ph_call_ms,
-            ph_plain_ms, ph_bytes, ph_ops),
+            ph_plain_ms, ph_bytes, ph_ops, chunk=ph_chunk, cp_async_ms=ph_cp_ms),
         "admm_step": entry(
             "admm_step", "src/repro_torch/csrc/admm_step.cu",
             "src/repro/kernels/admm_step.py:65", ad_err, ad_ms, ad_call_ms, ad_plain_ms,
@@ -1699,12 +1748,7 @@ def phase_pdu_health_variants(dev) -> dict:
     sched, r = s.faults, s.n_racks
     # The interval in which most ESS trips and repairs fall (real episodes,
     # inside the trace; the clamped empty slots sit at its end).
-    n_ctrl = -(-s.total_samples // k)
-    real = sched.ess_end > sched.ess_start
-    edges = torch.cat([sched.ess_start[real], sched.ess_end[real]])
-    edges = edges[edges < s.total_samples]
-    per = torch.bincount(torch.div(edges, k, rounding_mode="floor"), minlength=n_ctrl)
-    i_best = int(torch.argmax(per[: s.total_samples // k]))
+    i_best, n_edges = _busiest_interval(s, k)
     i0 = i_best * k
     chunk, _ = pdu.bridge_sensors(torch.full((r,), 0.5, device=dev), SC.render(s, i0, k))
     st = pdu.init_state(cfg, chunk[0])
@@ -1724,7 +1768,7 @@ def phase_pdu_health_variants(dev) -> dict:
     edge = s.edge_width
     n_ev = events[0].shape[0]
     print(f"pdu_health  degraded modes on interval {i_best} (samples {i0}..{i0 + k - 1}) of the "
-          f"degraded campus: {int(per[i_best])} ESS trips and repairs, {int((row == 0).sum())} "
+          f"degraded campus: {n_edges} ESS trips and repairs, {int((row == 0).sum())} "
           f"racks dark in the (R,) row, E = {n_ev} episode rows, edge {edge}")
     modes = {
         "ess_row": ("row", dict(ess_on=row)),
@@ -1757,7 +1801,8 @@ def phase_pdu_health_variants(dev) -> dict:
                           (streamed[0], streamed[1], *streamed[2], *streamed[3]))
             line += f"; == the (T, R) run on faults.ess_weight: {eq}"
             ok = ok and eq
-        print(line)
+        prev = PREVIOUS_KERNEL_MS[f"pdu_health_{name}"]
+        print(line + f" (before the pipeline redesign {prev:.4f} ms, a recorded constant)")
         _check(ok, f"pdu_health {name} vs plain")
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, max_abs_err=err,
                          clean_ms=clean_ms)
@@ -1776,6 +1821,203 @@ def phase_pdu_health_variants(dev) -> dict:
               f"every output {err:.3e}")
         _check(ok and _bitwise(got[1], want[1]), f"pdu_health kappa {kappa} vs plain")
     return out
+
+
+# The LC state update's dependent operations a step (x1 -> a1 x1 -> three
+# FMAs -> + bv): the longest loop-carried chain of pdu_health and pdu_sim,
+# so their floor is T times this chain.
+LC_CHAIN_OPS = 5
+# pdu_health's ragged shapes (phase 2): racks (one partial block; three
+# blocks, the last holding one rack; 32 racks a row but a partial last block)
+# and samples (T = S - 1 and S + 1 around the chunk; 2500, the
+# quickstart's interval).
+RAGGED_R = (1, 3, 33, 1000)
+RAGGED_T_LONG = 2500
+
+
+def chain_probe(dev) -> dict:
+    """The card's time per dependent FP32 operation: one warp's chain of
+    dependent FMAs (``csrc/fma_chain.cu``, a library of its own) timed with
+    CUDA events at two lengths, the difference over the extra length; in
+    cycles at the SM clock ``nvidia-smi`` reports as its maximum.  Not a
+    port of a TPU kernel; not counted."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import _build
+
+    fn = _build.launch_fn("fma_chain", "fma_chain_launch",
+                          [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    out = torch.ones(32, device=dev)
+
+    def chain(n):
+        _build.check_launch("fma_chain", fn(out.data_ptr(), n,
+                                            torch.cuda.current_stream(dev).cuda_stream))
+
+    n1, n2 = 1 << 20, 1 << 21
+    t1 = _median_ms(lambda: chain(n1), reps=7)
+    t2 = _median_ms(lambda: chain(n2), reps=7)
+    ns = (t2 - t1) * 1e6 / (n2 - n1)
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+    cyc = ns * mhz * 1e-3
+    print(f"chain probe: one warp, {n1} and {n2} dependent FMAs: {t1:.4f} and {t2:.4f} ms, "
+          f"{ns:.4f} ns a dependent operation = {cyc:.3f} cycles at the {mhz:.0f} MHz maximum "
+          f"SM clock")
+    return {"ns_per_op": ns, "clock_mhz": mhz, "cycles_per_op": cyc}
+
+
+def chain_bound_ms(t_len: int, probe: dict) -> float:
+    """T x the LC chain's dependent operations x cycles per operation /
+    clock: the time the longest loop-carried chain takes, however many
+    racks run beside it."""
+    return t_len * LC_CHAIN_OPS * probe["cycles_per_op"] / (probe["clock_mhz"] * 1e3)
+
+
+def _busiest_interval(s, k: int) -> tuple[int, int]:
+    """The controller interval of the degraded campus in which most ESS
+    trips and repairs fall (real episodes, inside the trace), and their
+    count there."""
+    import torch
+
+    sched = s.faults
+    n_ctrl = -(-s.total_samples // k)
+    real = sched.ess_end > sched.ess_start
+    edges = torch.cat([sched.ess_start[real], sched.ess_end[real]])
+    edges = edges[edges < s.total_samples]
+    per = torch.bincount(torch.div(edges, k, rounding_mode="floor"), minlength=n_ctrl)
+    i_best = int(torch.argmax(per[: s.total_samples // k]))
+    return i_best, int(per[i_best])
+
+
+def phase_pdu_health_ragged(dev) -> dict:
+    """Phase 2, continued: ``pdu_health`` at ragged shapes, R in RAGGED_R and
+    T in (1, 7, S - 1, S + 1, 2500) for the plan's chunk S, in every weight
+    mode (none, the (R,) row, the (T, R) series, the events tables at edge 1
+    and 50), with the slew and the wear fold both on and both off (and,
+    at T = S + 1, one on and one off), on the degraded campus's busiest
+    interval.  The plain version is elementwise across racks, so one plain
+    run at R = 1024 serves every R: the kernel on the first R racks must
+    equal its first R columns, bit for bit in the masked modes, within
+    phase 2's tolerances in the clean mode (1e-6 for the SoC and the wear
+    carries, 1e-5 for the grid and the ESS and LC finals; the line says whether
+    it is bitwise).  Every (slew, wear, mode) instantiation launches here;
+    the line prints each one's plan (chunk, slots, shared memory)."""
+    import torch
+
+    from repro_torch.core import health as hlt, pdu
+    from repro_torch.kernels import hw_plan, ops
+    from repro_torch.power import faults as FLT, scenario as SC
+
+    c = FAULTY_CAMPUS
+    s = faulty_campus(SC, FLT, c["n_racks"], c["duration_s"], device=dev)
+    cfg = pdu.make_pdu(sample_dt=1.0 / c["sample_hz"], track_health=True, degraded_mode=True,
+                       device=dev)
+    k = int(round(float(cfg.controller.dt) * c["sample_hz"]))
+    sched, r_all = s.faults, s.n_racks
+    i0 = min(_busiest_interval(s, k)[0] * k, s.total_samples - RAGGED_T_LONG)
+    chunk = hw_plan.CHUNK
+    t_list = (1, 7, chunk - 1, chunk + 1, RAGGED_T_LONG)
+    trace, _ = pdu.bridge_sensors(torch.full((r_all,), 0.5, device=dev),
+                                  SC.render(s, i0, RAGGED_T_LONG))
+    st = pdu.init_state(cfg, trace[0])
+    gen = torch.Generator(device=dev).manual_seed(9)
+    applied = (torch.rand(r_all, generator=gen, device=dev) - 0.5) * 1e-2
+    target = (torch.rand(r_all, generator=gen, device=dev) - 0.5) * 1e-2
+    hw = pdu.hw_kwargs(cfg)
+    lc = tuple(m.cpu().numpy() for m in (st.filter_obj.ad, st.filter_obj.bd, st.filter_obj.c[0]))
+    hconsts = hlt.step_consts(cfg.health)
+    sensed = FLT.interval_sensed(sched, i0, 1, k)[0].to(torch.float32)
+    row = FLT.interval_online(sched, i0, 1, k)[0] * sensed
+    ev_st, ev_en = sched.ess_start.T.contiguous(), sched.ess_end.T.contiguous()
+    # the first r racks of an operand (racks on its last axis) or a result
+    cols = lambda x, r: x if not isinstance(x, torch.Tensor) or x.ndim == 0 else (
+        x[..., :r].contiguous() if x.shape[-1] == r_all else x)
+
+    def operands(t, mode, slew_on, wear_on):
+        args = (trace[:t].contiguous(), st.ess_state.g_filter, st.ess_state.soc, st.filter_state,
+                *lc)
+        kw = dict(hw)
+        if slew_on:
+            kw["slew"] = (applied, target)
+        else:
+            kw["corrective"] = torch.outer(torch.linspace(-1, 1, t, device=dev), target)
+        if wear_on:
+            kw["health"] = (hconsts, tuple(st.health))
+        if mode == "row":
+            kw["ess_on"] = row
+        elif mode == "series":
+            kw["ess_on"] = degraded_weight(t, r_all, cfg.sample_dt, dev)[0]
+        elif mode.startswith("events"):
+            kw["ess_events"] = (ev_st, ev_en, row, i0, i0 + t - 1)
+            kw["ess_edge"] = 1 if mode == "events_edge1" else s.edge_width
+        return args, kw
+
+    def sliced(args, kw, r):
+        a = tuple(cols(x, r) for x in args[:3]) + (args[3][:r].contiguous(),) + args[4:]
+        out = {}
+        for name, v in kw.items():
+            if name in ("slew", "ess_events"):
+                out[name] = tuple(cols(x, r) for x in v)
+            elif name == "health":
+                out[name] = (v[0], tuple(cols(x, r) for x in v[1]))
+            else:
+                out[name] = cols(v, r)
+        return a, out
+
+    def flat(o, r=None):
+        """grid, SoC, g, SoC and LC finals and the wear carries (of the first
+        r racks)."""
+        out = (o[0], o[1], o[2][0], o[2][1], o[2][2].T) + (
+            tuple(o[3][:6]) if o[3] is not None else ())
+        return out if r is None else tuple(cols(x, r) for x in out)
+
+    modes = ("none", "row", "series", "events_edge1", "events_edge50")
+    flag_sets = [(True, True), (False, False)]
+    summary, worst_clean = {}, 0.0
+    for mode in modes:
+        for slew_on, wear_on in flag_sets + [(True, False), (False, True)]:
+            ts = t_list if (slew_on, wear_on) in flag_sets else (chunk + 1,)
+            mask = hw_plan.MASK_NONE if mode == "none" else (
+                hw_plan.MASK_ROW if mode == "row" else hw_plan.MASK_SERIES if mode == "series"
+                else hw_plan.MASK_EVENTS)
+            plan = hw_plan.plan(1024, mask)
+            n_bit, n_all = 0, 0
+            for t in ts:
+                args, kw = operands(t, mode, slew_on, wear_on)
+                want = ops.pdu_health_sim(*args, force="ref", **kw)
+                for r in RAGGED_R:
+                    a, skw = sliced(args, kw, r)
+                    got = ops.pdu_health_sim(*a, force="cuda", **skw)
+                    ref_cols = flat(want, r)
+                    torch.cuda.synchronize()
+                    same = _bitwise(flat(got), ref_cols)
+                    n_bit += same
+                    n_all += 1
+                    if mode == "none":
+                        # phase 2's tolerances: the SoC trace and the wear
+                        # carries; the grid and the ESS and LC finals
+                        g_out = flat(got)
+                        err_soc = _max_err((g_out[1], *g_out[5:]), (ref_cols[1], *ref_cols[5:]))
+                        err_lc = _max_err((g_out[0], *g_out[2:5]), (ref_cols[0], *ref_cols[2:5]))
+                        worst_clean = max(worst_clean, err_soc, err_lc)
+                        _check(err_soc <= 1e-6 and err_lc <= 1e-5,
+                               f"pdu_health ragged clean T={t} R={r}: SoC/wear {err_soc:.3e}, "
+                               f"grid/LC {err_lc:.3e}")
+                    else:
+                        _check(same, f"pdu_health ragged {mode} T={t} R={r} slew={slew_on} "
+                                     f"wear={wear_on}: kernel vs plain not bitwise")
+            flags = ("slew" if slew_on else "dense") + ("+wear" if wear_on else "")
+            print(f"pdu_health  ragged {mode:13s} {flags:10s} R in {RAGGED_R} x T in {ts}: "
+                  f"{n_bit}/{n_all} bitwise vs plain; plan chunk {plan.chunk}, {plan.slots} "
+                  f"slots, {hw_plan.WARPS} warps, {plan.smem_bytes} bytes of shared memory")
+            summary[f"{mode}_{flags}"] = dict(bitwise=n_bit, runs=n_all, smem=plan.smem_bytes)
+    largest = max(v["smem"] for v in summary.values())
+    print(f"pdu_health  ragged: every instantiation launched, the largest plan {largest} bytes "
+          f"of the {hw_plan.SMEM_LIMIT} a block may use; clean mode max|diff| {worst_clean:.3e}")
+    return {"ragged_clean_max_abs_err": worst_clean, "ragged_largest_smem": largest}
 
 
 def _admm_bytes_ops(h: int, r: int, iters: int) -> tuple[int, int]:
@@ -2946,7 +3188,19 @@ FMA_KERNEL_MS = {"gemm_burn": 18.972000122070312, "gemm_burn_f32": 0.34099200367
 # rwkv prefill (4, 64, 512, 64) bf16 and its decode step.  Recorded
 # constants: printed, marked as such, and kept out of the kernels line.
 PREVIOUS_KERNEL_MS = {"admm_step": 0.350271999835968, "rwkv6_scan": 0.43558400869369507,
-                      "rwkv6_scan_decode": 0.0072639998979866505}
+                      "rwkv6_scan_decode": 0.0072639998979866505,
+                      # pdu_health and pdu_sim before the warp-specialised
+                      # pipeline (one thread a rack, 32 a block, loads 8
+                      # samples ahead): the campus interval clean and in each
+                      # weight mode; pdu_sim at 17600 x 1024 and 60000 x 128
+                      "pdu_health": 0.10364799946546555, "pdu_health_ess_row": 0.1252799928188324,
+                      "pdu_health_ess_series": 0.12051200121641159,
+                      "pdu_health_ess_events_edge1": 0.29843199253082275,
+                      "pdu_health_ess_events_edge50": 0.3129599988460541,
+                      "pdu_sim": 2.272752046585083, "pdu_sim_weight_series": 2.5074559450149536,
+                      "pdu_sim_bench": 7.231215953826904,
+                      "pdu_sim_weight_series_bench": 8.196144104003906,
+                      "pdu_sim_weight_row_bench": 7.667616128921509}
 UNFUSED_TOL = 2e-5  # tests/test_kernels.py: the fused path vs ess -> filters
 # The 4096^3 bf16 burn's cost of one more round, from n_iters 1 -> 4 and
 # 4 -> 8, must agree within this fraction: the work grows with n_iters and
@@ -3056,7 +3310,7 @@ def phase_sim_kernels(dev) -> dict:
     import torch
 
     from repro_torch.core import ess, filters, pdu
-    from repro_torch.kernels import gemm_burn, lc_filter, ops, pdu_sim
+    from repro_torch.kernels import gemm_burn, hw_plan, lc_filter, ops, pdu_sim
 
     kern = {"lc_filter": lc_filter.lc_filter, "pdu_sim": pdu_sim.pdu_sim,
             "gemm_burn": gemm_burn.gemm_burn}
@@ -3093,7 +3347,7 @@ def phase_sim_kernels(dev) -> dict:
               f"{plain_ms:.1f} ms")
         return out_k, ms, plain_ms, _sim_bytes_ops(t, r, 1, 1, LC_OPS, 6)
 
-    def kernel_pdu(label, filt, rack, g0, soc0, x0, corr, w, kw):
+    def kernel_pdu(label, filt, rack, g0, soc0, x0, corr, w, kw, prev, narrow=()):
         lc = tuple(m.cpu().numpy() for m in (filt.ad, filt.bd, filt.c[0]))
         args = (rack, g0, soc0, x0, *lc, corr)
         variant = {None: "pdu_sim", 1: "pdu_sim_weight_row", 2: "pdu_sim_weight_series"}
@@ -3106,7 +3360,22 @@ def phase_sim_kernels(dev) -> dict:
         ms = _median_ms(lambda: ops.pdu_sim(*args, ess_on=w, **kw), reps=10)
         n_hi = int((out_k[1] >= kw["soc_max"]).any(0).sum())
         print(f"pdu_sim     {label:<13} T={t} R={r}: grid, SoC, finals bitwise vs plain; kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.1f} ms; racks reaching soc_max {n_hi}")
+              f"{ms:.4f} ms, plain {plain_ms:.1f} ms; racks reaching soc_max {n_hi}; before the "
+              f"pipeline redesign {PREVIOUS_KERNEL_MS[prev]:.4f} ms (a recorded constant)")
+        # The kernel on the first rn racks against the plain run's first rn
+        # columns (the plain version is elementwise across racks): the
+        # cp.async route and a block of one or three racks over the whole
+        # trace.
+        for rn in narrow:
+            cut = lambda x: x[..., :rn].contiguous()
+            a = (cut(rack), g0[:rn], soc0[:rn], x0[:rn].contiguous(), *lc, cut(corr))
+            got = ops.pdu_sim(*a, ess_on=None if w is None else cut(w), force="cuda", **kw)
+            want = (cut(out_p[0]), cut(out_p[1]),
+                    (out_p[2][0][:rn], out_p[2][1][:rn], out_p[2][2][:rn]))
+            ok = all(_bitwise(x, y) for x, y in zip(got, want))
+            print(f"pdu_sim     {label:<13} T={t} R={rn}: grid, SoC, finals bitwise vs the plain "
+                  f"run's first {rn} racks: {ok}")
+            _check(ok, f"pdu_sim {label} T={t} R={rn}: kernel vs plain not bitwise")
         n_in = 2 + (w is not None and w.ndim == 2)
         per_rack = 10 + (w is not None and w.ndim == 1)
         return out_k, ms, plain_ms, _sim_bytes_ops(t, r, n_in, 2, PDU_OPS, per_rack)
@@ -3128,9 +3397,11 @@ def phase_sim_kernels(dev) -> dict:
     r = u.shape[1]
     g0, soc0 = u[0].contiguous(), torch.full((r,), 0.5, device=dev)
     corr = torch.zeros_like(u)
-    bench = {label: kernel_pdu(label, filt, u, g0, soc0, x0, corr, w, PDU_KW)[1:]
-             for label, w in (("unweighted", None), ("(T, R) weight", w_series),
-                              ("(R,) weight", w_row))}
+    bench = {label: kernel_pdu(label, filt, u, g0, soc0, x0, corr, w, PDU_KW, prev,
+                               narrow=(1, 3))[1:]
+             for label, w, prev in (("unweighted", None, "pdu_sim_bench"),
+                                    ("(T, R) weight", w_series, "pdu_sim_weight_series_bench"),
+                                    ("(R,) weight", w_row, "pdu_sim_weight_row_bench"))}
     del node, u, corr, w_series
 
     # (b) the whole campus trace in one launch
@@ -3142,8 +3413,21 @@ def phase_sim_kernels(dev) -> dict:
     _, lc_c_ms, lc_c_plain, lc_c_bo = kernel_lc(filt, rack, st.filter_state)
     corr = torch.zeros_like(rack)
     args = (filt, rack, st.ess_state.g_filter, st.ess_state.soc, st.filter_state, corr)
-    (grid, soc_t, _), ps_ms, ps_plain, ps_bo = kernel_pdu("unweighted", *args, None, kw)
-    _, pw_ms, pw_plain, pw_bo = kernel_pdu("(T, R) weight", *args, w_series, kw)
+    (grid, soc_t, _), ps_ms, ps_plain, ps_bo = kernel_pdu("unweighted", *args, None, kw,
+                                                          "pdu_sim")
+    _, pw_ms, pw_plain, pw_bo = kernel_pdu("(T, R) weight", *args, w_series, kw,
+                                           "pdu_sim_weight_series")
+    # The cp.async route forced on the same trace: the same bits, timed.
+    lc = tuple(m.cpu().numpy() for m in (filt.ad, filt.bd, filt.c[0]))
+    sim_args = (rack, st.ess_state.g_filter, st.ess_state.soc, st.filter_state, *lc, corr)
+    ps_tma_ms = _median_ms(lambda: pdu_sim.pdu_sim(*sim_args, **kw), reps=10)
+    with _cp_async_route():
+        out = pdu_sim.pdu_sim(*sim_args, **kw)
+        same = _bitwise((out[0], out[1]), (grid, soc_t))
+        ps_cp_ms = _median_ms(lambda: pdu_sim.pdu_sim(*sim_args, **kw), reps=10)
+    print(f"pdu_sim     the cp.async route forced at T={t} R={r}: {ps_cp_ms:.4f} ms against the "
+          f"TMA route's {ps_tma_ms:.4f} (both through the kernel module), the same bits: {same}")
+    _check(same, "pdu_sim cp.async route vs the TMA route")
     # The unfused physics the fused kernel is held to (float32 alpha there,
     # the reference kernel's float64 alpha here: 1.2e-5 relative at dt = 5 ms).
     t0 = time.perf_counter()
@@ -3243,7 +3527,8 @@ def phase_sim_kernels(dev) -> dict:
             bench_bound_ms=lc_b_bo[0] / HBM_BYTES_PER_S * 1e3),
         "pdu_sim": entry(
             "pdu_sim", ps_src, ps_rep, ps_ms, ps_plain, ps_bo, FP32_FLOP_PER_S, shape=[t, r],
-            variant="unweighted", bench_ms=bench["unweighted"][0],
+            variant="unweighted", chunk=hw_plan.CHUNK, cp_async_ms=ps_cp_ms,
+            bench_ms=bench["unweighted"][0],
             bench_plain_ms=bench["unweighted"][1],
             bench_bound_ms=bench["unweighted"][2][0] / HBM_BYTES_PER_S * 1e3),
         "pdu_sim_weight_series": entry(
@@ -3312,12 +3597,13 @@ def phase_fig11(dev) -> dict:
             "burn_vs_easyrider_frac": got["burn_vs_easyrider_frac"]}
 
 
-def phase_quickstart(dev) -> None:
+def phase_quickstart(dev) -> tuple[int, int]:
     """The quickstart flow through the port (a single rack: the kernels run
-    one column)."""
+    one column); returns the kernels' launch counts."""
     import torch
 
     from repro_torch.core import compliance, pdu
+    from repro_torch.kernels import admm_step, pdu_health
     from repro_torch.power import trace
 
     spec = compliance.GridSpec.create(beta=0.1, alpha=1e-4, f_c=2.0, device=dev)
@@ -3326,6 +3612,8 @@ def phase_quickstart(dev) -> None:
     rack, dt = trace.testbench_trace(
         trace.TestbenchSpec(duration_s=240.0, sample_hz=500.0, terminate_at_s=210.0),
         gen, device=dev)
+    pdu_health.pdu_health_sim.launches = 0
+    admm_step.admm_iterate.launches = 0
     t0 = time.perf_counter()
     state = pdu.init_state(cfg, rack[0])
     grid, state, telem = pdu.condition(cfg, state, rack, qp_iters=40)
@@ -3340,9 +3628,16 @@ def phase_quickstart(dev) -> None:
           f"S(f>=2Hz) {float(after.worst_high_freq_mag):.2e}  ok={bool(after.ok)}")
     print(f"quickstart SoC in [{soc_lo:.4f}, {soc_hi:.4f}], {rack.shape[0]} samples, "
           f"{wall:.3f} s wall")
+    counts = (pdu_health.pdu_health_sim.launches, admm_step.admm_iterate.launches)
+    k = int(round(float(cfg.controller.dt) / dt))
+    print(f"quickstart launches pdu_health={counts[0]} admm_step={counts[1]} (intervals of "
+          f"T = {k} samples, R = {rack.shape[1] if rack.ndim == 2 else 1})")
+    _check(counts == (rack.shape[0] // k,) * 2,
+           f"quickstart: each kernel must launch once an interval, got {counts}")
     _check(not bool(before.ok), "quickstart: the raw rack trace must fail the grid spec")
     _check(bool(after.ok), "quickstart: the conditioned grid must meet the spec")
     _check(0.10 <= soc_lo and soc_hi <= 0.90, "quickstart: SoC must stay in [0.10, 0.90]")
+    return counts
 
 
 def phase_campus(dev) -> tuple[int, int]:
@@ -3557,13 +3852,21 @@ def main() -> int:
             if "Compiling entry function" in line and "'" in line:
                 mangled = line.split("'")[1]
                 fn = mangled[mangled.find("_cu_") + 12:][:60] if "_cu_" in mangled else mangled[:60]
+                tmpl = re.search(r"pipeline_kernelI((?:L[bi]n?\d+E)+)E", mangled)
+                if tmpl:  # hw::pipeline_kernel<SLEW, HEALTH, KAPPA, MASK>
+                    args = [("-" if a[2] == "n" else "") + a.lstrip("Lbin")
+                            for a in tmpl.group(1).split("E") if a]
+                    fn = f"hw::pipeline_kernel<{', '.join(args)}>"
             elif "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"  {name}: {fn}: {line.strip()}")
 
+    probe = chain_probe(dev)
     kernels = phase_kernels(dev)
     kernels["pdu_health"]["variants"] = phase_pdu_health_variants(dev)
+    kernels["pdu_health"].update(phase_pdu_health_ragged(dev))
     kernels["admm_step"].update(phase_widened_shapes(dev))
-    phase_quickstart(dev)
+    for name, n in zip(("pdu_health", "admm_step"), phase_quickstart(dev)):
+        kernels[name]["launches_quickstart"] = n
     ph_count, ad_count = phase_campus(dev)
     kernels["pdu_health"]["launches"] = ph_count
     kernels["admm_step"]["launches"] = ad_count
@@ -3608,6 +3911,22 @@ def main() -> int:
                                                      + rwkv["generate"]["rwkv6_slab_sum"])
     torch.cuda.empty_cache()
     kernels.update(phase_sim_kernels(dev))
+    # The chain bound of the hardware-path kernels beside their byte bound.
+    for name in ("pdu_health", "pdu_sim", "pdu_sim_weight_series", "pdu_sim_weight_row"):
+        e = kernels[name]
+        t_len = e["shape"][0] if "shape" in e else 1000
+        e["chain_bound_ms"] = chain_bound_ms(t_len, probe)
+        e["chain_cycles_per_op"] = probe["cycles_per_op"]
+        line = (f"chain bound {name}: T = {t_len} x {LC_CHAIN_OPS} dependent operations x "
+                f"{probe['cycles_per_op']:.3f} cycles / {probe['clock_mhz']:.0f} MHz = "
+                f"{e['chain_bound_ms']:.5f} ms (bytes bound {e['bound_ms']:.5f} ms, kernel "
+                f"{e['ms']:.5f} ms)")
+        if "bench_shape" in e or name.startswith("pdu_sim"):
+            line += f"; at T = {SIM_BENCH['t']}: {chain_bound_ms(SIM_BENCH['t'], probe):.5f} ms"
+        if name == "pdu_health":
+            line += f"; at the quickstart's T = {RAGGED_T_LONG}: " \
+                    f"{chain_bound_ms(RAGGED_T_LONG, probe):.5f} ms"
+        print(line)
     fig11 = phase_fig11(dev)
     for name, n in zip(("pdu_health", "admm_step"), fig11["counts"]):
         kernels[name]["launches_fig11"] = n

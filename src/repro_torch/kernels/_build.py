@@ -2,9 +2,10 @@
 
 Each ``csrc/*.cu`` file exposes a plain C launch function and is compiled
 on its own into a shared library under ``<repo>/build/kernels`` (listed in
-``.gitignore``), named by a hash of its source and flags, so an edited
-source rebuilds and an unchanged one is reused.  Builds start together,
-one ``nvcc`` process per source.  Nothing here runs at import time: the
+``.gitignore``), named by a hash of its source, of every ``csrc`` header it
+includes (``#include "..."``, followed through headers) and of its flags,
+so an edited source or header rebuilds and an unchanged one is reused.
+Builds start together, one ``nvcc`` process per source.  Nothing here runs at import time: the
 CPU tests import every module of the port, and this machine may have no
 ``nvcc``.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -36,6 +38,9 @@ SOURCES = {
     "flash_attention": ("flash_attention.cu", []),
     "flash_attention_bwd": ("flash_attention_bwd.cu", []),
     "rwkv6_scan": ("rwkv6_scan.cu", []),
+    # Not a port of a TPU kernel: the dependent-FMA latency probe that
+    # chip_smoke.py's chain bound reads, in a library of its own.
+    "fma_chain": ("fma_chain.cu", []),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -54,10 +59,31 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(src: str) -> list[Path]:
+    """``src`` and every file under ``csrc`` it includes with quotes,
+    directly or through another such header, each once, in the order met."""
+    seen: list[Path] = []
+    todo = [_CSRC / src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = (path.parent / inc.decode()).resolve()
+            if dep.is_relative_to(_CSRC.resolve()):
+                todo.append(dep)
+    return seen
+
+
 def _lib_path(name: str) -> Path:
     src, flags = SOURCES[name]
     h = hashlib.sha256()
-    h.update((_CSRC / src).read_bytes())
+    for path in _sources(src):
+        h.update(path.read_bytes())
     h.update(" ".join(_ARCH + _COMMON + flags).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

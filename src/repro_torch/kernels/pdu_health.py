@@ -8,8 +8,10 @@ back-off, the 3-state LC filter, the corrective-command slew rendered from
 availability weight: none, an ``(R,)`` row or a ``(T, R)`` series
 (``ess_on``), or rendered in the kernel from the fault schedule's episode
 tables (``ess_events`` with ``ess_edge``).  The CUDA source
-(``csrc/pdu_health.cu``) keeps one rack per thread with its whole state in
-registers; see its header for the design.
+(``csrc/pdu_health.cu``) runs the warp-specialised pipeline of
+``csrc/hw_stages.cuh`` (a block of 32 racks, a warp a stage, fed by a
+shared-memory ring); ``hw_plan.plan`` gives each launch its chunk, ring
+depth, shared-memory bytes and load route.
 
 The block throughput/SoC sums of the health fold stay torch reductions in
 this wrapper at the reference's ``(t, r)`` reduce shape
@@ -26,15 +28,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, hw_plan, ref
 
 F32 = torch.float32
 _NUM_CONSTS = 32
-MASK_NONE, MASK_ROW, MASK_SERIES, MASK_EVENTS = range(4)  # csrc/pdu_health.cu's Mask
+MASK_NONE, MASK_ROW, MASK_SERIES, MASK_EVENTS = (hw_plan.MASK_NONE, hw_plan.MASK_ROW,
+                                                 hw_plan.MASK_SERIES, hw_plan.MASK_EVENTS)
 
 
 def _consts(kw: dict, ad, bd, c_row, t_len: int, health) -> np.ndarray:
-    """Pack the step scalars in ``csrc/pdu_health.cu``'s ``PduConsts``
+    """Pack the step scalars in ``csrc/hw_stages.cuh``'s ``StepConsts``
     order: the same float32 values the plain version uses."""
     k = ref.hw_consts(**kw)
     a, bl, bv, c = ref.lc_consts(ad, bd, c_row)
@@ -71,6 +74,7 @@ class Prepared(NamedTuple):
 
     args: tuple  # the C launch function's arguments (without the stream)
     mask: int  # the weight mode (MASK_*)
+    plan: hw_plan.Plan  # chunk, ring depth, shared memory, load route
     inputs: tuple  # operand tensors, referenced while the launch reads them
     grid: torch.Tensor
     soc_t: torch.Tensor
@@ -143,13 +147,17 @@ def prepare(
     soc_t = torch.empty((t_len, r), dtype=F32, device=dev)
     sf = torch.empty((5, r), dtype=F32, device=dev)
     hf = torch.empty((6, r), dtype=F32, device=dev) if health is not None else None
+    # The TMA route copies the rack power, the dense corrective and the
+    # (T, R) weight; each must start on 16 bytes for it.
+    plan = hw_plan.plan(r, mask, aligned=hw_plan.aligned(
+        rack_power, None if slew is not None else corr, w if mask == MASK_SERIES else None))
     ptr = lambda x: None if x is None else x.data_ptr()
     args = (
         ptr(rack_power), ptr(corr), int(slew is not None), ptr(s0), ptr(h0),
         ptr(grid), ptr(soc_t), ptr(sf), ptr(hf), t_len, r,
-        consts.ctypes.data, kappa_mode, mask, ptr(w), *ev_args,
+        consts.ctypes.data, kappa_mode, mask, ptr(w), *ev_args, *hw_plan.launch_args(plan),
     )
-    return Prepared(args, mask, (rack_power, corr, s0, h0, w, *ev), grid, soc_t, sf, hf,
+    return Prepared(args, mask, plan, (rack_power, corr, s0, h0, w, *ev), grid, soc_t, sf, hf,
                     None if health is None else tuple(health[1]), consts)
 
 
@@ -161,7 +169,8 @@ def launch(p: Prepared) -> None:
     ci = ctypes.c_int
     fn = _build.launch_fn("pdu_health", "pdu_health_launch",
                           [vp, vp, ci, vp, vp, vp, vp, vp, vp, ci, ci, vp, ci,
-                           ci, vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_float, vp])
+                           ci, vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_float,
+                           ci, ci, ci, ctypes.c_longlong, vp])
     with torch.cuda.device(dev):
         err = fn(*p.args, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("pdu_health", err)

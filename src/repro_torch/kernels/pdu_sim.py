@@ -4,8 +4,9 @@ Ports ``repro.kernels.pdu_sim.pdu_sim`` (Pallas ``_pdu_kernel``): ESS ramp
 filter, SoC integration with the window clamp and its power back-off, and
 the LC filter over a whole ``(T, R)`` trace in one launch, unweighted or
 with an ``(R,)`` or ``(T, R)`` ESS availability weight (one kernel, three
-instantiations).  The CUDA source (``csrc/pdu_sim.cu``) keeps one rack per
-thread with its state in registers; see its header for the design.
+instantiations).  The CUDA source (``csrc/pdu_sim.cu``) runs the
+warp-specialised pipeline of ``csrc/hw_stages.cuh`` (producer, ESS + SoC
+and LC warps over a shared-memory ring), planned by ``hw_plan.plan``.
 ``pdu_sim.launches`` counts kernel launches.  No gradient: the reference's
 kernel route has none.
 """
@@ -16,14 +17,14 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, hw_plan, ref
 from repro_torch.kernels.lc_filter import check_trace
 
 F32 = torch.float32
 
 
 def _consts(kw: dict, ad, bd, c_row) -> np.ndarray:
-    """The step constants in ``csrc/pdu_sim.cu``'s ``SimConsts`` order: the
+    """The first 27 step constants in ``csrc/hw_stages.cuh``'s ``StepConsts`` order: the
     float32 values of ``ref.pdu_sim``."""
     k = ref.pdu_sim_consts(**kw)
     a, bl, bv, c = ref.lc_consts(ad, bd, c_row)
@@ -55,15 +56,17 @@ def pdu_sim(rack_power, g0, soc0, x0, ad, bd, c_row, corrective, *, ess_on=None,
     grid = torch.empty((t_len, r), dtype=F32, device=dev)
     soc_t = torch.empty((t_len, r), dtype=F32, device=dev)
     sf = torch.empty((5, r), dtype=F32, device=dev)
-    vp = ctypes.c_void_p
+    plan = hw_plan.plan(r, mask, aligned=hw_plan.aligned(rack_power, corrective,
+                                                         ess_on if mask == 2 else None))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
     fn = _build.launch_fn("pdu_sim", "pdu_sim_launch",
-                          [vp, vp, vp, ctypes.c_int, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int,
-                           vp, vp])
+                          [vp, vp, vp, ci, vp, vp, vp, vp, ci, ci, vp, ci, ci, ci,
+                           ctypes.c_longlong, vp])
     ptr = lambda x: None if x is None else x.data_ptr()
     with torch.cuda.device(dev):
         err = fn(rack_power.data_ptr(), corrective.data_ptr(), ptr(ess_on), mask, s0.data_ptr(),
                  grid.data_ptr(), soc_t.data_ptr(), sf.data_ptr(), t_len, r, consts.ctypes.data,
-                 torch.cuda.current_stream(dev).cuda_stream)
+                 *hw_plan.launch_args(plan), torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("pdu_sim", err)
     pdu_sim.launches += 1
     return grid, soc_t, (sf[0], sf[1], sf[2:5].T)

@@ -41,8 +41,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    before the redesign, in each mode, are printed as recorded constants.
    A latency probe (``chain_probe``: one warp's chain of dependent FMAs
    timed at two lengths) gives the card's time per dependent operation,
-   from which the script prints the chain bound of pdu_health and pdu_sim
-   (T x the LC update's 5 dependent operations) beside their byte bound.
+   from which the script prints the chain bound of pdu_health, pdu_sim and
+   lc_filter (T x the LC update's 5 dependent operations) beside their
+   byte bound.
 3. The quickstart (``examples/quickstart.py`` through the port): the
    240 s testbench trace at 500 Hz through ``pdu.condition`` with
    ``qp_iters=40``; the raw rack must fail the grid spec, the conditioned
@@ -174,7 +175,13 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    one launch (T = 17600, R = 1024, the campus ``make_pdu`` filter;
    pdu_sim unweighted and with the (T, R) weight, unweighted also with the
    cp.async route forced, the same bits, timed beside the TMA route; its
-   times before the pipeline redesign printed as recorded constants), and pdu_sim's grid and
+   times before the pipeline redesign printed as recorded constants);
+   lc_filter at both shapes also with its cp.async route (copies and spread
+   stores) forced, the same bits, timed beside the route the plan picks,
+   on the first 1, 3 and 33 racks against the plain run's first columns
+   and on the first 1, 7, S - 1 and S + 1 samples (S its chunk) on both
+   routes against plain runs of those samples, with its times before the
+   redesign printed as recorded constants; and pdu_sim's grid and
    SoC against the plain ``ess.simulate`` -> ``filters.simulate`` within
    ``UNFUSED_TOL``; (c) gemm_burn at 512^3 float32 (n_iters 4, and the
    n_iters 1 vs 8 value), 4096^3 bfloat16 (n_iters 1, 4, 8; time(8) /
@@ -3200,7 +3207,11 @@ PREVIOUS_KERNEL_MS = {"admm_step": 0.350271999835968, "rwkv6_scan": 0.4355840086
                       "pdu_sim": 2.272752046585083, "pdu_sim_weight_series": 2.5074559450149536,
                       "pdu_sim_bench": 7.231215953826904,
                       "pdu_sim_weight_series_bench": 8.196144104003906,
-                      "pdu_sim_weight_row_bench": 7.667616128921509}
+                      "pdu_sim_weight_row_bench": 7.667616128921509,
+                      # lc_filter before its redesign on the pipeline (one
+                      # thread a rack, 32 a block, loads 8 samples ahead):
+                      # 17600 x 1024 and 60000 x 128
+                      "lc_filter": 1.5339040160179138, "lc_filter_bench": 4.760495901107788}
 UNFUSED_TOL = 2e-5  # tests/test_kernels.py: the fused path vs ess -> filters
 # The 4096^3 bf16 burn's cost of one more round, from n_iters 1 -> 4 and
 # 4 -> 8, must agree within this fraction: the work grows with n_iters and
@@ -3336,16 +3347,45 @@ def phase_sim_kernels(dev) -> dict:
             launches["gemm_burn_f32_sum"] = launches.get("gemm_burn_f32_sum", 0) + sums
         return out
 
-    def kernel_lc(filt, node, x0):
+    def kernel_lc(filt, node, x0, prev):
         lc = tuple(m.cpu().numpy() for m in (filt.ad, filt.bd, filt.c[0]))
         out_k = main_call("lc_filter", lambda: ops.lc_filter(*lc, x0, node))
         out_p, plain_ms = _event_ms(lambda: ops.lc_filter(*lc, x0, node, force="ref"))
+        t, r = node.shape
         _check(_bitwise(out_k, out_p), f"lc_filter {tuple(node.shape)}: kernel vs plain bitwise")
         ms = _median_ms(lambda: ops.lc_filter(*lc, x0, node), reps=10)
-        t, r = node.shape
-        print(f"lc_filter   T={t} R={r}: bitwise vs plain; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.1f} ms")
-        return out_k, ms, plain_ms, _sim_bytes_ops(t, r, 1, 1, LC_OPS, 6)
+        # The cp.async route (4-byte copies, spread stores) forced on the
+        # same trace, timed beside the route the plan picks (TMA at R % 4 ==
+        # 0): the same bits.
+        plan = hw_plan.lc_plan(r)
+        forced = hw_plan.lc_plan(r, loads="cp.async", stores="spread")
+        lc_call = lambda p: lc_filter.lc_filter(*lc, x0.contiguous(), node, plan=p)
+        planned_ms = _median_ms(lambda: lc_call(plan), reps=10)
+        _check(_bitwise(lc_call(forced), out_p), f"lc_filter T={t} R={r}: cp.async route vs plain")
+        cp_ms = _median_ms(lambda: lc_call(forced), reps=10)
+        print(f"lc_filter   T={t} R={r}: grid and final state bitwise vs plain; kernel {ms:.4f} "
+              f"ms, plain {plain_ms:.1f} ms; the {plan.loads} + {plan.stores} route "
+              f"{planned_ms:.4f} ms and the cp.async + spread route forced {cp_ms:.4f} ms (both "
+              f"through the kernel module; the same bits); before the redesign "
+              f"{PREVIOUS_KERNEL_MS[prev]:.4f} ms (a recorded constant)")
+        # The first 1, 3 and 33 racks (the cp.async route, blocks of fewer
+        # than 32 racks) over the whole trace, against the plain run's first
+        # columns; and the first 1, 7, S - 1 and S + 1 samples of every rack
+        # on both routes, against plain runs of those samples.
+        for rn in (1, 3, 33):
+            got = ops.lc_filter(*lc, x0[:rn], node[:, :rn].contiguous(), force="cuda")
+            ok = _bitwise(got, (out_p[0][:, :rn].contiguous(), out_p[1][:rn]))
+            _check(ok, f"lc_filter T={t} R={rn}: kernel vs the plain run's first racks")
+        cuts = (1, 7, plan.chunk - 1, plan.chunk + 1)
+        for tn in cuts:
+            sub = node[:tn].contiguous()
+            want = ops.lc_filter(*lc, x0, sub, force="ref")
+            for p in (plan, forced):
+                ok = _bitwise(lc_filter.lc_filter(*lc, x0.contiguous(), sub, plan=p), want)
+                _check(ok, f"lc_filter T={tn} R={r} {p.loads} + {p.stores}: kernel vs plain")
+        print(f"lc_filter   T={t}: the first 1, 3 and 33 racks bitwise vs the plain run's first "
+              f"racks; T = {', '.join(map(str, cuts))} at R={r} on both routes bitwise vs plain")
+        return out_k, ms, plain_ms, _sim_bytes_ops(t, r, 1, 1, LC_OPS, 6), cp_ms
 
     def kernel_pdu(label, filt, rack, g0, soc0, x0, corr, w, kw, prev, narrow=()):
         lc = tuple(m.cpu().numpy() for m in (filt.ad, filt.bd, filt.c[0]))
@@ -3393,7 +3433,7 @@ def phase_sim_kernels(dev) -> dict:
 
     # (a) the kernel benches' shapes
     filt, node, u, x0, w_series, w_row = sim_bench_problem(dev)
-    _, lc_b_ms, lc_b_plain, lc_b_bo = kernel_lc(filt, node, x0)
+    _, lc_b_ms, lc_b_plain, lc_b_bo, lc_b_cp = kernel_lc(filt, node, x0, "lc_filter_bench")
     r = u.shape[1]
     g0, soc0 = u[0].contiguous(), torch.full((r,), 0.5, device=dev)
     corr = torch.zeros_like(u)
@@ -3410,7 +3450,7 @@ def phase_sim_kernels(dev) -> dict:
     t, r = rack.shape
     print(f"campus trace rendered whole: T={t} R={r}, {rack.numel() * 4 / 1e6:.1f} MB per (T, R) "
           f"array")
-    _, lc_c_ms, lc_c_plain, lc_c_bo = kernel_lc(filt, rack, st.filter_state)
+    _, lc_c_ms, lc_c_plain, lc_c_bo, lc_c_cp = kernel_lc(filt, rack, st.filter_state, "lc_filter")
     corr = torch.zeros_like(rack)
     args = (filt, rack, st.ess_state.g_filter, st.ess_state.soc, st.filter_state, corr)
     (grid, soc_t, _), ps_ms, ps_plain, ps_bo = kernel_pdu("unweighted", *args, None, kw,
@@ -3522,9 +3562,10 @@ def phase_sim_kernels(dev) -> dict:
     return {
         "lc_filter": entry(
             "lc_filter", lc_src, lc_rep, lc_c_ms, lc_c_plain, lc_c_bo, FP32_FLOP_PER_S,
-            shape=[t, r], bench_shape=[SIM_BENCH["t"], SIM_BENCH["r"]],
-            bench_ms=lc_b_ms, bench_plain_ms=lc_b_plain,
-            bench_bound_ms=lc_b_bo[0] / HBM_BYTES_PER_S * 1e3),
+            shape=[t, r], chunk=hw_plan.lc_plan(r).chunk, cp_async_ms=lc_c_cp,
+            bench_shape=[SIM_BENCH["t"], SIM_BENCH["r"]], bench_ms=lc_b_ms,
+            bench_plain_ms=lc_b_plain, bench_bound_ms=lc_b_bo[0] / HBM_BYTES_PER_S * 1e3,
+            bench_cp_async_ms=lc_b_cp),
         "pdu_sim": entry(
             "pdu_sim", ps_src, ps_rep, ps_ms, ps_plain, ps_bo, FP32_FLOP_PER_S, shape=[t, r],
             variant="unweighted", chunk=hw_plan.CHUNK, cp_async_ms=ps_cp_ms,
@@ -3912,7 +3953,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels.update(phase_sim_kernels(dev))
     # The chain bound of the hardware-path kernels beside their byte bound.
-    for name in ("pdu_health", "pdu_sim", "pdu_sim_weight_series", "pdu_sim_weight_row"):
+    for name in ("pdu_health", "pdu_sim", "pdu_sim_weight_series", "pdu_sim_weight_row",
+                 "lc_filter"):
         e = kernels[name]
         t_len = e["shape"][0] if "shape" in e else 1000
         e["chain_bound_ms"] = chain_bound_ms(t_len, probe)
@@ -3923,6 +3965,9 @@ def main() -> int:
                 f"{e['ms']:.5f} ms)")
         if "bench_shape" in e or name.startswith("pdu_sim"):
             line += f"; at T = {SIM_BENCH['t']}: {chain_bound_ms(SIM_BENCH['t'], probe):.5f} ms"
+        if "bench_ms" in e:
+            e["bench_chain_bound_ms"] = chain_bound_ms(SIM_BENCH["t"], probe)
+            line += f" (kernel {e['bench_ms']:.5f} ms)"
         if name == "pdu_health":
             line += f"; at the quickstart's T = {RAGGED_T_LONG}: " \
                     f"{chain_bound_ms(RAGGED_T_LONG, probe):.5f} ms"

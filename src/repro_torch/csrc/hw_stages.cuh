@@ -29,7 +29,9 @@
 //           instruction).  The wrapper picks the route by R
 //           (kernels/hw_plan.py); both are this kernel's.  Where both can
 //           run (R = 1024), the cp.async route, loads and stores, took up
-//           to 2.1x the TMA route's time (PERF.md section 6).
+//           to 2.1x the TMA route's time; timed apart in the LC-only
+//           kernel, its spread stores cost more than its copies (PERF.md
+//           section 6).
 //   warp 1  render (slew or events; idle otherwise): the slewed command
 //           c_t and the events weight (the episode cursor walk, straight-
 //           line where no boundary falls in a batch), written into the
@@ -53,6 +55,9 @@
 // (store_chunk).  Each stage walks a chunk in batches of kBatch samples
 // (reads, arithmetic, writes), so the samples' work overlaps beside the
 // loop-carried chains.
+//
+// csrc/lc_filter.cu runs the LC filter alone on the same ring and helpers
+// (lc_kernel below): a producer, an LC warp and a store warp.
 //
 // Rounding: compiled with -fmad=false, so no multiply-add is contracted
 // except where this source says __fmaf_rn: exactly the places where the
@@ -152,11 +157,12 @@ struct Layout {
 };
 
 // Dynamic shared memory of a launch: nslot input and hand-off slots of
-// S x 32 floats an array, and five mbarriers a slot.  kernels/hw_plan.py
-// computes the same number; the launch refuses a plan whose bytes differ.
-constexpr size_t ring_bytes(int S, int nslot, int n_in, int n_hand) {
+// S x 32 floats an array, and n_bar mbarriers a slot (five in the
+// pipeline, four in the LC-only kernel).  kernels/hw_plan.py computes the
+// same number; the launch refuses a plan whose bytes differ.
+constexpr size_t ring_bytes(int S, int nslot, int n_in, int n_hand, int n_bar = 5) {
   return (size_t)nslot * (n_in + n_hand) * S * kRacks * sizeof(float) +
-         5 * (size_t)nslot * sizeof(uint64_t);
+         (size_t)n_bar * nslot * sizeof(uint64_t);
 }
 
 // ------------------------------------------------------------ primitives
@@ -531,12 +537,67 @@ __device__ __forceinline__ void render_batch(const StepConsts& k, const Events& 
   }
 }
 
-// Run batch<B>(j) over j = 0..n-1: whole batches of kBatch, then single
+// One array of a producer's chunk copy: the (T, R) source, its tensor map
+// (TMA route) and the slot array it lands in (S x 32 floats).
+struct Load {
+  const CUtensorMap* map;
+  const float* src;
+  float* dst;
+};
+
+// The lanes of the cp.async route's copies: lane t_off * rb + j copies
+// rack j of rows t_off, t_off + rows, ... of each chunk.  The producer
+// computes it once, outside its chunk loop: computed in the loop, it moved
+// the register allocation of the whole pipeline kernel, and pdu_sim's time
+// by 6-13 % either way by variant (PERF.md section 6).
+struct Spread {
+  int rows, j, t_off;
+  __device__ __forceinline__ Spread(int rb, int lane)
+      : rows(kRacks / rb), j(lane % rb), t_off(lane / rb) {}
+};
+
+// The producer's copy of the chunk at row t0 into its slot.  TMA route: one
+// lane arms the slot's full barrier with the boxes' bytes and issues one
+// 2-D box per array (rows past T and racks past R zero-filled).  cp.async
+// route: 4-byte copies spread over the chunk's rows by sp (R = 1 copies 32
+// samples an instruction), and every lane arrives on the full barrier once
+// its copies land.
+template <int N>
+__device__ __forceinline__ void load_chunk(bool tma, const Load (&ld)[N], uint64_t* full,
+                                           const Spread& sp, int S, int T, int t0, int R, int r0,
+                                           int lane) {
+  if (tma) {
+    if (lane == 0) {
+      mbar_expect_tx(full, N * S * kRacks * (unsigned)sizeof(float));
+#pragma unroll
+      for (int i = 0; i < N; ++i) tma_load_2d(ld[i].dst, ld[i].map, full, r0, t0);
+    }
+  } else {
+    if (sp.t_off < sp.rows) {
+      const int n = min(S, T - t0);
+      size_t g = (size_t)(t0 + sp.t_off) * R + r0 + sp.j;
+      const size_t step = (size_t)sp.rows * R;
+      for (int t = sp.t_off; t < n; t += sp.rows, g += step) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) cp_async4(ld[i].dst + t * kRacks + sp.j, ld[i].src + g);
+      }
+    }
+    cp_async_arrive(full);
+  }
+}
+
+// The LC-only kernel's LC warp walks a chunk in batches of 16: with the
+// arithmetic alone on its warp, a larger batch leaves fewer batch
+// boundaries, where a batch's slot reads wait for the previous batch's slot
+// writes (on the card, batches of 8 and of 32 both ran slower).
+constexpr int kLcBatch = 16;
+
+// Run batch<B>(j) over j = 0..n-1: whole batches of BATCH, then single
 // samples.
-template <typename F>
+template <int BATCH = kBatch, typename F>
 __device__ __forceinline__ void for_batches(int n, F&& batch) {
   int j = 0;
-  for (; j + kBatch <= n; j += kBatch) batch(j, std::integral_constant<int, kBatch>{});
+  for (; j + BATCH <= n; j += BATCH) batch(j, std::integral_constant<int, BATCH>{});
   for (; j < n; ++j) batch(j, std::integral_constant<int, 1>{});
 }
 
@@ -567,9 +628,11 @@ __device__ __forceinline__ void store_chunk(bool tma, const CUtensorMap* map, co
   for (int t = t_off; t < n; t += rows, g += step) dst[g] = slot[t * kRacks + j];
 }
 
-// Before a warp writes a slot array it stores from: its store of that
-// slot's last chunk has read it (one bulk group a chunk, at least two
-// slots, so at most one group of a later chunk may still be reading).
+// Until at most one of this warp's box stores (one bulk group a chunk)
+// still reads its slot: before a warp writes a slot array it stores from
+// (at least two slots, so its store of that slot's last chunk has read
+// it), or before a store warp frees the slot of the chunk before the one
+// it just stored.
 __device__ __forceinline__ void store_slot_free(bool tma, int lane) {
   if (tma && lane == 0) bulk_wait_read<1>();
   __syncwarp();
@@ -609,34 +672,18 @@ pipeline_kernel(const __grid_constant__ Operands op, const __grid_constant__ Map
   __syncthreads();
 
   if (warp == 0) {
-    // Producer.  cp.async route: lane = t_off * rb + j copies rack j of
-    // rows t_off, t_off + rows, ... of each chunk.
-    const int rows = kRacks / rb, j = lane % rb, t_off = lane / rb;
-    const bool copier = t_off < rows;
+    // Producer: rack power, [the dense corrective], [the (T, R) weight]
+    // into slot arrays 0, 1, 2.
+    const Spread sp(rb, lane);
     for (int c = 0; c < nchunk; ++c) {
       const int s = slot_of(c, nslot), t0 = c * S;
       if (c >= nslot) mbar_wait(&in_empty[s], parity_of(c, nslot) ^ 1);
       float* slot = ring + (size_t)s * slot_in;
-      if (op.tma) {
-        if (lane == 0) {
-          mbar_expect_tx(&in_full[s], L::kLoads * S * kRacks * (unsigned)sizeof(float));
-          tma_load_2d(slot, &maps.rack, &in_full[s], r0, t0);
-          if (L::kLoadC) tma_load_2d(slot + S * kRacks, &maps.corr, &in_full[s], r0, t0);
-          if (L::kLoadW) tma_load_2d(slot + 2 * S * kRacks, &maps.w, &in_full[s], r0, t0);
-        }
-      } else {
-        if (copier) {
-          const int n = min(S, T - t0);
-          size_t g = (size_t)(t0 + t_off) * R + r0 + j;
-          const size_t step = (size_t)rows * R;
-          for (int t = t_off; t < n; t += rows, g += step) {
-            cp_async4(slot + t * kRacks + j, op.rack + g);
-            if (L::kLoadC) cp_async4(slot + (S + t) * kRacks + j, op.corr + g);
-            if (L::kLoadW) cp_async4(slot + (2 * S + t) * kRacks + j, op.w + g);
-          }
-        }
-        cp_async_arrive(&in_full[s]);
-      }
+      Load ld[L::kLoads];
+      ld[0] = Load{&maps.rack, op.rack, slot};
+      if constexpr (L::kLoadC) ld[1] = Load{&maps.corr, op.corr, slot + S * kRacks};
+      if constexpr (L::kLoadW) ld[L::kLoads - 1] = Load{&maps.w, op.w, slot + 2 * S * kRacks};
+      load_chunk(op.tma, ld, &in_full[s], sp, S, T, t0, R, r0, lane);
     }
     if (!op.tma) asm volatile("cp.async.wait_all;" ::: "memory");
     return;
@@ -801,6 +848,136 @@ pipeline_kernel(const __grid_constant__ Operands op, const __grid_constant__ Map
         default: wear(std::integral_constant<int, 4>{}); break;
       }
     }
+  }
+}
+
+// ---------------------------------------------------- the LC-only pipeline
+
+// The LC filter alone (csrc/lc_filter.cu): y_t = c . x_t and x stepped from
+// the node power u_t, the rack-major (R, 3) state in and out.
+struct LcOperands {
+  const float* node;  // (T, R)
+  const float* x0;    // (R, 3)
+  float* grid;        // (T, R)
+  float* xf;          // (R, 3)
+  int T, R;
+  int S;      // samples a chunk
+  int nslot;  // ring depth in chunks
+};
+
+struct LcMaps {  // TMA descriptors (the TMA load and store routes only)
+  CUtensorMap node, grid;
+};
+
+struct LcLayout {
+  static constexpr int kIn = 1;    // input slot arrays: node
+  static constexpr int kOut = 1;   // output slot arrays: grid
+  static constexpr int kBars = 4;  // a slot's mbarriers: input full, empty; output full, empty
+  static constexpr int kLoadWarp = 0, kLcWarp = 1, kStoreWarp = 2;
+  static constexpr int kWarps = 3;  // each on its own sub-partition (warp w issues from w % 4)
+};
+
+// A block of 32 racks, one a lane, in three warps linked by an input ring
+// and an output ring of nslot chunks of S samples:
+//   warp 0  producer: copies each chunk of node power into an input slot
+//           (load_chunk: TMA boxes, or 4-byte cp.async spread over rows);
+//   warp 1  LC: lc_batch from the input slot into an output slot in
+//           batches of kLcBatch, the state in registers; it issues no
+//           device store, so it paces nothing but the LC chain (5 dependent
+//           operations a sample, ~22 cycles, beside ~20 instructions that
+//           fill the chain's gaps);
+//   warp 2  store: stores each output slot whole (store_chunk: one TMA box
+//           store, or 4-byte stores spread over rows) and frees the slot
+//           once its store has read it.
+// TMA_LOAD and TMA_STORE pick the two halves' routes apart (the wrapper
+// plans them together; kernels/hw_plan.py::lc_plan), so that each half of
+// the cp.async route can be timed alone.
+template <bool TMA_LOAD, bool TMA_STORE>
+__global__ void __launch_bounds__(32 * LcLayout::kWarps)
+lc_kernel(const __grid_constant__ LcOperands op, const __grid_constant__ LcMaps maps,
+          const __grid_constant__ StepConsts k) {
+  using L = LcLayout;
+  extern __shared__ __align__(128) float smem[];
+  const int T = op.T, R = op.R, S = op.S, nslot = op.nslot;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = blockIdx.x * kRacks, rb = min(kRacks, R - r0), r = r0 + lane;
+  const int nchunk = (T + S - 1) / S;
+  const int slot = S * kRacks;  // floats a slot array
+  float* in = smem;
+  float* out = smem + (size_t)nslot * slot;
+  uint64_t* in_full = reinterpret_cast<uint64_t*>(out + (size_t)nslot * slot);
+  uint64_t* in_empty = in_full + nslot;
+  uint64_t* out_full = in_empty + nslot;
+  uint64_t* out_empty = out_full + nslot;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < nslot; ++s) {
+      mbar_init(&in_full[s], TMA_LOAD ? 1 : 32);
+      mbar_init(&in_empty[s], 32);   // LC
+      mbar_init(&out_full[s], 32);   // LC
+      mbar_init(&out_empty[s], 32);  // store
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == L::kLoadWarp) {
+    const Spread sp(rb, lane);
+    for (int c = 0; c < nchunk; ++c) {
+      const int s = slot_of(c, nslot);
+      if (c >= nslot) mbar_wait(&in_empty[s], parity_of(c, nslot) ^ 1);
+      const Load ld[1] = {Load{&maps.node, op.node, in + (size_t)s * slot}};
+      load_chunk(TMA_LOAD, ld, &in_full[s], sp, S, T, c * S, R, r0, lane);
+    }
+    if (!TMA_LOAD) asm volatile("cp.async.wait_all;" ::: "memory");
+    return;
+  }
+
+  if (warp == L::kLcWarp) {
+    float x0 = 0.f, x1 = 0.f, x2 = 0.f;
+    if (lane < rb) {
+      x0 = op.x0[3 * r];
+      x1 = op.x0[3 * r + 1];
+      x2 = op.x0[3 * r + 2];
+    }
+    for (int c = 0; c < nchunk; ++c) {
+      const int s = slot_of(c, nslot), n = min(S, T - c * S);
+      const unsigned ph = parity_of(c, nslot);
+      mbar_wait(&in_full[s], ph);
+      if (c >= nslot) mbar_wait(&out_empty[s], ph ^ 1);
+      const float* ns = in + (size_t)s * slot + lane;
+      float* gs = out + (size_t)s * slot + lane;
+      for_batches<kLcBatch>(n, [&](int j, auto bsz) {
+        lc_batch<decltype(bsz)::value>(k, ns + j * kRacks, gs + j * kRacks, x0, x1, x2);
+      });
+      mbar_arrive(&in_empty[s]);
+      // the box store reads the slot through the async proxy
+      if (TMA_STORE) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      mbar_arrive(&out_full[s]);
+    }
+    if (lane < rb) {
+      op.xf[3 * r] = x0;
+      op.xf[3 * r + 1] = x1;
+      op.xf[3 * r + 2] = x2;
+    }
+    return;
+  }
+
+  if (warp == L::kStoreWarp) {
+    for (int c = 0; c < nchunk; ++c) {
+      const int s = slot_of(c, nslot), t0 = c * S;
+      mbar_wait(&out_full[s], parity_of(c, nslot));
+      store_chunk(TMA_STORE, &maps.grid, out + (size_t)s * slot, op.grid, t0, min(S, T - t0), R,
+                  r0, rb, lane);
+      store_slot_free(TMA_STORE, lane);
+      // A spread store has read its slot; a box store may still read it,
+      // but the one before it has (store_slot_free).
+      if (!TMA_STORE)
+        mbar_arrive(&out_empty[s]);
+      else if (c > 0)
+        mbar_arrive(&out_empty[slot_of(c - 1, nslot)]);
+    }
+    if (TMA_STORE && lane == 0) bulk_wait_all();
   }
 }
 

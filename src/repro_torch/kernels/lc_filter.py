@@ -2,10 +2,11 @@
 
 Ports ``repro.kernels.lc_filter.lc_filter`` (Pallas ``_lc_kernel``): the
 3-state LC filter with ``v_in = 1`` over a whole ``(T, R)`` trace in one
-launch.  The CUDA source (``csrc/lc_filter.cu``) keeps one rack per thread
-with its state in registers; see its header for the design.
-``lc_filter.launches`` counts kernel launches.  No gradient: the
-reference's kernel route has none.
+launch.  The CUDA source (``csrc/lc_filter.cu``) runs the LC-only instance
+of the pipeline of ``csrc/hw_stages.cuh`` (producer, LC and store warps a
+block of 32 racks over shared-memory rings), planned by ``hw_plan.lc_plan``;
+see its header for the design.  ``lc_filter.launches`` counts kernel
+launches.  No gradient: the reference's kernel route has none.
 """
 from __future__ import annotations
 
@@ -14,13 +15,14 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, hw_plan, ref
 
 F32 = torch.float32
 
 
 def _consts(ad, bd, c_row) -> np.ndarray:
-    """The filter constants in ``csrc/lc_filter.cu``'s ``LcConsts`` order."""
+    """The 18 filter constants in the order of the LC fields of
+    ``csrc/hw_stages.cuh``'s ``StepConsts`` (``a``, ``bl``, ``bv``, ``c``)."""
     a, bl, bv, c = ref.lc_consts(ad, bd, c_row)
     return np.asarray([*a, *bl, *bv, *c], np.float32)
 
@@ -34,11 +36,15 @@ def check_trace(name: str, t: torch.Tensor, shape: tuple, dev) -> None:
             f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def lc_filter(ad, bd, c_row, x0: torch.Tensor, node_power: torch.Tensor):
+def lc_filter(ad, bd, c_row, x0: torch.Tensor, node_power: torch.Tensor, *,
+              plan: hw_plan.LcPlan | None = None):
     """Launch the kernel on CUDA tensors; same contract as
     ``ref.lc_filter``: ``node_power (T, R)`` and ``x0 (R, 3)`` float32 (``ops``
     converts), ``ad``, ``bd``, ``c_row`` tensors or host arrays; returns
-    ``(grid (T, R), x_final (R, 3))``.  Any ``T >= 1``."""
+    ``(grid (T, R), x_final (R, 3))``.  Any ``T >= 1``, any ``R >= 1``.
+    ``plan`` (default ``hw_plan.lc_plan`` for ``R`` and the trace's
+    alignment) runs the call on other routes or another chunk, the same
+    bits; the launch refuses one it does not run."""
     dev = node_power.device
     if dev.type != "cuda":
         raise ValueError("lc_filter kernel needs CUDA tensors")
@@ -51,12 +57,15 @@ def lc_filter(ad, bd, c_row, x0: torch.Tensor, node_power: torch.Tensor):
     consts = _consts(ad, bd, c_row)
     grid = torch.empty((t_len, r), dtype=F32, device=dev)
     xf = torch.empty((r, 3), dtype=F32, device=dev)
-    vp = ctypes.c_void_p
+    if plan is None:
+        plan = hw_plan.lc_plan(r, aligned=hw_plan.aligned(node_power))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
     fn = _build.launch_fn("lc_filter", "lc_filter_launch",
-                          [vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, vp, vp])
+                          [vp, vp, vp, vp, ci, ci, vp, ci, ci, ci, ci, ctypes.c_longlong, vp])
     with torch.cuda.device(dev):
         err = fn(node_power.data_ptr(), x0.data_ptr(), grid.data_ptr(), xf.data_ptr(), t_len, r,
-                 consts.ctypes.data, torch.cuda.current_stream(dev).cuda_stream)
+                 consts.ctypes.data, *hw_plan.lc_launch_args(plan),
+                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("lc_filter", err)
     lc_filter.launches += 1
     return grid, xf

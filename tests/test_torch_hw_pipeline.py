@@ -29,13 +29,19 @@ float32 on the CPU and holds it, bit for bit, against the plain versions
   of samples in which no lane reaches a boundary takes the steady weights
   without walking, as the kernel's render warp does.
 
-Also: the launch plan (``kernels/hw_plan.py``): ring depth, shared memory
+``lc_filter`` runs the header's LC-only kernel (``hw::lc_kernel``: producer,
+LC and store warps over an input and an output ring), emulated the same way
+on each of its four (load, store) routes and held bit for bit against
+``ref.lc_filter``.
+
+Also: the launch plans (``kernels/hw_plan.py``): ring depth, shared memory
 within the H100's 232,448 bytes for every instantiation, the load route by
-R % 4; the lane map by which the cp.async route's copies and stores cover
-a chunk; and ``_build``'s library name following the headers a source
-includes.
+R % 4, the LC plan's constants against the header's; the lane map by which
+the cp.async route's copies and stores cover a chunk; and ``_build``'s
+library name following the headers a source includes.
 """
 import random
+import re
 
 import numpy as np
 import pytest
@@ -439,6 +445,15 @@ def emulate(rack, g0, soc0, x0, ad, bd, c_row, *, k, plan, slew=None, corrective
         stages["render"] = render_stage()
     if health is not None:
         stages["wear"] = wear_stage()
+    _schedule(stages, pending, seed)
+    return grid, soc_t, (out["g"], out["soc"], out["x"]), out.get("wear")
+
+
+def _schedule(stages, pending, seed):
+    """Run the stage generators to their ends under a seeded scheduler.  A
+    stage yields what it waits for: ``(barrier, parity)`` or a predicate;
+    ``pending`` holds the issued copies and stores, each landing when the
+    scheduler picks it."""
     waits = {name: None for name in stages}
     rng = random.Random(seed)
     while stages or pending:
@@ -455,7 +470,92 @@ def emulate(rack, g0, soc0, x0, ad, bd, c_row, *, k, plan, slew=None, corrective
             waits[pick] = next(stages[pick])
         except StopIteration:
             del stages[pick], waits[pick]
-    return grid, soc_t, (out["g"], out["soc"], out["x"]), out.get("wear")
+
+
+def emulate_lc(x0, node, ad, bd, c_row, *, plan, seed=0):
+    """Run ``csrc/hw_stages.cuh``'s LC-only kernel (``hw::lc_kernel``) on the
+    CPU under ``plan`` (``hw_plan.lc_plan``): the producer copies each chunk
+    of node power into an input slot (TMA boxes zero-filling past T and R, or
+    ``cp.async`` leaving those rows and racks as they were), the LC stage
+    steps the state from the input slot into an output slot, the store stage
+    stores each output slot whole (a box store landing at a random later
+    point, or the spread stores at once) and frees it: a spread-stored slot
+    at once, a box-stored one's predecessor once at most one of its stores
+    still reads (``cp.async.bulk.wait_group.read 1``).  Returns ``(grid,
+    x_final)``."""
+    t_len, r = node.shape
+    rpad = -(-r // hw_plan.RACKS) * hw_plan.RACKS
+    chunk, nslot = plan.chunk, plan.slots
+    tma_load, tma_store = plan.loads == "tma", plan.stores == "tma"
+    nchunk = -(-t_len // chunk)
+    lc = ref.lc_consts(ad, bd, c_row)
+    box = chunk * hw_plan.RACKS * 4
+    ins = torch.full((nslot, chunk, rpad), float("nan"), dtype=F32)
+    outs = torch.full((nslot, chunk, rpad), float("nan"), dtype=F32)
+    in_full = [Bar(1 if tma_load else 32) for _ in range(nslot)]
+    in_empty, out_full, out_empty = ([Bar(32) for _ in range(nslot)] for _ in range(3))
+    grid = torch.full((t_len, r), float("nan"), dtype=F32)
+    out, pending, issued, done = {}, [], [], set()
+
+    def land(s, t0):
+        n = min(chunk, t_len - t0)
+        if tma_load:
+            ins[s] = 0.0
+        ins[s, :n, :r] = node[t0:t0 + n].to(F32)
+        if tma_load:
+            in_full[s].complete_tx(box)
+        else:
+            in_full[s].arrive(32)
+
+    def producer():
+        for ci in range(nchunk):
+            s = ci % nslot
+            if ci >= nslot:
+                yield in_empty[s], ((ci // nslot) - 1) & 1
+            if tma_load:
+                in_full[s].arrive(1, tx=box)
+            pending.append(lambda s=s, t0=ci * chunk: land(s, t0))
+
+    def lc_stage():
+        x = tuple(torch.cat([x0[:, i].to(F32), torch.zeros(rpad - r, dtype=F32)])
+                  for i in range(3))
+        for ci in range(nchunk):
+            s, ph = ci % nslot, (ci // nslot) & 1
+            yield in_full[s], ph
+            if ci >= nslot:
+                yield out_empty[s], ph ^ 1
+            for j in range(min(chunk, t_len - ci * chunk)):
+                outs[s, j], x = _lc_step(lc, ins[s, j].clone(), x)
+            in_empty[s].arrive(32)
+            out_full[s].arrive(32)
+        out["x"] = torch.stack([v[:r] for v in x], dim=1)
+
+    def box_store(s, t0):
+        n = min(chunk, t_len - t0)
+
+        def store():
+            grid[t0:t0 + n] = outs[s, :n, :r]
+            done.add(store)
+
+        return store
+
+    def store_stage():
+        for ci in range(nchunk):
+            s = ci % nslot
+            yield out_full[s], (ci // nslot) & 1
+            store = box_store(s, ci * chunk)
+            issued.append(store)
+            if not tma_store:
+                store()
+                out_empty[s].arrive(32)
+                continue
+            pending.append(store)
+            yield lambda: all(f in done for f in issued[:-1])
+            if ci > 0:
+                out_empty[(ci - 1) % nslot].arrive(32)
+
+    _schedule({"producer": producer(), "lc": lc_stage(), "store": store_stage()}, pending, seed)
+    return grid, out["x"]
 
 
 # ------------------------------------------------------------- pdu_health
@@ -534,6 +634,79 @@ def test_staged_pdu_sim_matches_plain(t, r, variant):
     for name, a, b in zip(("grid", "soc", "g_f", "soc_f", "x_f"), (got[0], got[1], *got[2]),
                           (want[0], want[1], *want[2])):
         assert torch.equal(a, b), f"{name}: {int((a != b).sum())} values differ"
+
+
+# -------------------------------------------------------------- lc_filter
+
+LC_S = hw_plan.lc_plan(1).chunk
+LC_T_SHAPES = (1, 7, LC_S - 1, LC_S + 1)
+# (loads, stores): the plan's two routes, and the two mixed ones that time
+# each half of the cp.async route alone
+LC_ROUTES = (("tma", "tma"), ("cp.async", "spread"), ("tma", "spread"), ("cp.async", "tma"))
+
+
+def _check_lc(t, r, loads, stores, chunk=None, seed=0):
+    args = _inputs(t, r, seed=7 + t + r)[0]
+    node, x0, lc = args[0], args[3], args[4:7]
+    want = ref.lc_filter(*lc, x0, node)
+    kw = {} if chunk is None else dict(chunk=chunk)
+    p = hw_plan.lc_plan(r, loads=loads, stores=stores, **kw)
+    got = emulate_lc(x0, node, *lc, plan=p, seed=seed)
+    for name, a, b in zip(("grid", "x_f"), got, want):
+        assert torch.equal(a, b), f"{name}: {int((a != b).sum())} values differ"
+
+
+@pytest.mark.parametrize("loads,stores", LC_ROUTES)
+@pytest.mark.parametrize("r", R_SHAPES)
+@pytest.mark.parametrize("t", LC_T_SHAPES)
+def test_staged_lc_filter_matches_plain_at_ragged_shapes(t, r, loads, stores):
+    """Every route at every ragged shape (the kernel itself refuses a TMA
+    route at R % 4 != 0; emulated there, the zero fill and the clipped box
+    stores still leave the bits)."""
+    _check_lc(t, r, loads, stores)
+
+
+@pytest.mark.parametrize("loads,stores", LC_ROUTES)
+def test_staged_lc_filter_matches_plain_at_the_quickstart_length(loads, stores):
+    """T = 2500, R = 1: a copy and a store spread over 32 samples."""
+    _check_lc(2500, 1, loads, stores)
+
+
+@pytest.mark.parametrize("chunk", [16, 64, 1, 96])
+@pytest.mark.parametrize("seed", [1, 2])
+def test_staged_lc_schedule_is_the_same_at_every_chunk_and_interleaving(chunk, seed):
+    for i, (loads, stores) in enumerate(LC_ROUTES):
+        _check_lc((3 + i) * chunk + 5, 35 + i, loads, stores, chunk=chunk, seed=seed)
+
+
+def test_lc_plan_matches_the_header():
+    """``hw_plan``'s LC constants are ``hw::LcLayout``'s (read from the
+    source), and every chunk's plan holds its ring in the block's shared
+    memory at the header's ``ring_bytes`` for that instantiation."""
+    src = (_build._CSRC / "hw_stages.cuh").read_text()
+    layout = src[src.index("struct LcLayout"):]
+    layout = layout[:layout.index("};")]
+    field = lambda name: int(re.search(rf"\b{name} = (\d+);", layout).group(1))
+    assert (hw_plan.LC_N_IN, hw_plan.LC_N_OUT, hw_plan.LC_MBARRIERS, hw_plan.LC_WARPS) == (
+        field("kIn"), field("kOut"), field("kBars"), field("kWarps"))
+    assert re.search(r"ring_bytes\(chunk, slots, L::kIn, L::kOut, L::kBars\)",
+                     (_build._CSRC / "lc_filter.cu").read_text())
+    for chunk in range(1, hw_plan.MAX_CHUNK + 1):
+        p = hw_plan.lc_plan(1024, chunk=chunk)
+        ring = p.slots * (field("kIn") + field("kOut")) * chunk * 32 * 4 + field("kBars") * p.slots * 8
+        assert p.smem_bytes == ring <= hw_plan.SMEM_LIMIT == 232_448
+        assert p.chunk == chunk and p.slots >= 2 and p.slots * chunk >= hw_plan.AHEAD
+    assert hw_plan.lc_plan(1024)[3:] == ("tma", "tma")
+    for r in (1, 3, 33, 1026):
+        assert hw_plan.lc_plan(r)[3:] == ("cp.async", "spread")
+    assert hw_plan.lc_plan(1024, aligned=False)[3:] == ("cp.async", "spread")
+    assert hw_plan.lc_plan(1, loads="tma", stores="spread")[3:] == ("tma", "spread")
+    assert hw_plan.lc_launch_args(hw_plan.lc_plan(1024, chunk=64, stores="spread")) == (
+        64, 3, 1, 0, hw_plan.lc_plan(1024, chunk=64).smem_bytes)
+    for kw in (dict(chunk=0), dict(chunk=hw_plan.MAX_CHUNK + 1), dict(loads="spread"),
+               dict(stores="cp.async")):
+        with pytest.raises(ValueError):
+            hw_plan.lc_plan(8, **kw)
 
 
 # ------------------------------------------------------------ launch plan

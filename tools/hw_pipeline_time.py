@@ -1,21 +1,28 @@
-"""Time the checkout's ``pdu_health`` and ``pdu_sim`` kernels on the card.
+"""Time the checkout's ``pdu_health``, ``pdu_sim`` and ``lc_filter`` kernels on the card.
 
 Run from the root of a checkout (``PYTHONPATH=src python3
-tools/hw_pipeline_time.py LABEL [--chunks 16,32,64,96]``).  Inputs are made from a seed with
-numpy, the same in every checkout: ``pdu_health`` on one controller
-interval (T = 1000, R = 1024, the campus filter at 200 Hz, slew and wear
-fold) clean, with an (R,) row, a (T, R) series and episode tables at edges
-1 and 50, and on the quickstart's interval (T = 2500, R = 1); ``pdu_sim``
-unweighted over 17600 x 1024 and 60000 x 128.  Each time is the median of
-25 launches timed with CUDA events (the card kept busy while the host
-enqueues, as ``chip_smoke.py``'s ``_median_ms`` does).  Prints ``LABEL
-{"case": [ms, sha256 of the outputs' bytes], ...}``: two checkouts whose
-kernels compute the same bits print the same digests.
-``tools/hw_pipeline_compare.sh`` runs it in two checkouts, interleaved.
-``--chunks`` times every case again with each chunk given passed to
-``hw_plan.plan`` in place of ``hw_plan.CHUNK`` (cases ``name@chunk``; every
-chunk must give the same digests), the sweep from which ``CHUNK`` was
-chosen.
+tools/hw_pipeline_time.py LABEL [--chunks 16,32,64,96] [--routes]``).  Inputs are made from a
+seed with numpy, the same in every checkout: ``pdu_health`` on one
+controller interval (T = 1000, R = 1024, the campus filter at 200 Hz, slew
+and wear fold) clean, with an (R,) row, a (T, R) series and episode tables
+at edges 1 and 50, and on the quickstart's interval (T = 2500, R = 1);
+``pdu_sim`` unweighted over 17600 x 1024 and 60000 x 128; ``lc_filter``
+over 17600 x 1024, 60000 x 128 and 2500 x 1.  Each time is the median of
+25 launches (10 for ``pdu_sim``) timed with CUDA events (the card kept
+busy while the host enqueues, as ``chip_smoke.py``'s ``_median_ms``
+does).  Prints ``LABEL {"case": [ms, sha256 of the outputs' bytes],
+...}``: two checkouts whose kernels compute the same bits print the same
+digests.  ``tools/hw_pipeline_compare.sh`` runs it in two checkouts,
+interleaved.  ``--chunks`` times every case again with each chunk given
+passed to ``hw_plan.plan`` and ``hw_plan.lc_plan`` in place of their
+default (cases ``name@chunk``; every chunk must give the same digests; a
+case whose plan does not fit the shared memory at that chunk is left
+out), the sweep from which ``CHUNK`` and ``LC_CHUNK`` were chosen.
+``--routes`` also times ``lc_filter`` at its two bench shapes and at
+2500 x 4 on each of its four (load, store) routes (TMA boxes or 4-byte ``cp.async`` copies;
+box stores or spread 4-byte stores), in turns 1 2 3 4 4 3 2 1 (cases
+``lc_filter_TxR[loads+stores]``, two times each; every route must give the
+same digests): which half of the ``cp.async`` route costs it.
 """
 import argparse
 import contextlib
@@ -29,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import health as hlt, pdu
-from repro_torch.kernels import hw_plan, ops, pdu_health
+from repro_torch.kernels import hw_plan, lc_filter, ops, pdu_health
 
 
 def median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
@@ -85,12 +92,45 @@ def interval(t, r, rng, dev):
 @contextlib.contextmanager
 def planned(chunk: int):
     """Plan every launch inside the block with ``chunk`` samples a slot."""
-    orig = hw_plan.plan
+    orig, orig_lc = hw_plan.plan, hw_plan.lc_plan
     hw_plan.plan = functools.partial(orig, chunk=chunk)
+    hw_plan.lc_plan = functools.partial(orig_lc, chunk=chunk)
     try:
         yield
     finally:
-        hw_plan.plan = orig
+        hw_plan.plan, hw_plan.lc_plan = orig, orig_lc
+
+
+def timed(out: dict, name: str, call, outputs, reps: int = 25) -> None:
+    """``out[name] = [median ms of call(), digest of outputs(call())]``;
+    left out where the plan does not fit at a swept chunk."""
+    try:
+        res = call()
+    except ValueError as e:
+        print(f"hw_pipeline_time: {name}: {e}", file=sys.stderr)
+        return
+    out[name] = [median_ms(call, reps=reps), digest(*outputs(res))]
+
+
+def timed_health(out: dict, name: str, args, kw) -> None:
+    """A ``pdu_health`` case: prepared once, its launch timed."""
+    try:
+        p = pdu_health.prepare(*args, **kw)
+    except ValueError as e:
+        print(f"hw_pipeline_time: {name}: {e}", file=sys.stderr)
+        return
+    pdu_health.launch(p)
+    out[name] = [median_ms(lambda: pdu_health.launch(p)), digest(p.grid, p.soc_t, p.sf, p.hf)]
+
+
+LC_SHAPES = ((17600, 1024), (60000, 128), (2500, 1))
+
+
+def lc_problem(t, r, rng, dev):
+    """lc_filter's operands: the campus filter, its state and a rack trace
+    as the node power."""
+    args, _, _ = interval(t, r, rng, dev)
+    return args[4:], args[3], args[0]
 
 
 def cases(dev, suffix: str = "") -> dict:
@@ -99,23 +139,43 @@ def cases(dev, suffix: str = "") -> dict:
     out = {}
     args, kw, modes = interval(1000, 1024, rng, dev)
     for name, mkw in modes.items():
-        p = pdu_health.prepare(*args, **kw, **mkw)
-        pdu_health.launch(p)
-        out[f"pdu_health_{name}{suffix}"] = [median_ms(lambda: pdu_health.launch(p)),
-                                              digest(p.grid, p.soc_t, p.sf, p.hf)]
+        timed_health(out, f"pdu_health_{name}{suffix}", args, {**kw, **mkw})
     args, kw, _ = interval(2500, 1, rng, dev)
-    p = pdu_health.prepare(*args, **kw)
-    pdu_health.launch(p)
-    out[f"pdu_health_quickstart_2500x1{suffix}"] = [median_ms(lambda: pdu_health.launch(p)),
-                                                    digest(p.grid, p.soc_t, p.sf, p.hf)]
+    timed_health(out, f"pdu_health_quickstart_2500x1{suffix}", args, kw)
     for t, r in ((17600, 1024), (60000, 128)):
         args, kw, _ = interval(t, r, rng, dev)
         hw = {k: v for k, v in kw.items() if k not in ("slew", "health")}
         corr = torch.zeros_like(args[0])
-        call = lambda: ops.pdu_sim(*args, corr, **hw)
-        res = call()
-        out[f"pdu_sim_{t}x{r}{suffix}"] = [median_ms(call, reps=10),
-                                           digest(res[0], res[1], *res[2])]
+        timed(out, f"pdu_sim_{t}x{r}{suffix}", lambda: ops.pdu_sim(*args, corr, **hw),
+              lambda res: (res[0], res[1], *res[2]), reps=10)
+    rng = np.random.default_rng(5)
+    for t, r in LC_SHAPES:
+        lc, x0, node = lc_problem(t, r, rng, dev)
+        timed(out, f"lc_filter_{t}x{r}{suffix}", lambda: ops.lc_filter(*lc, x0, node),
+              lambda res: res)
+    return out
+
+
+LC_ROUTES = (("tma", "tma"), ("cp.async", "spread"), ("tma", "spread"), ("cp.async", "tma"))
+
+
+def routes(dev) -> dict:
+    """lc_filter at its two bench shapes, and at the quickstart's T = 2500
+    on the fewest racks the TMA route takes (4), on each (load, store)
+    route, in turns 1 2 3 4 4 3 2 1: ``[ms, ms, digest]`` a route."""
+    rng = np.random.default_rng(5)
+    out = {}
+    for t, r in LC_SHAPES[:2] + ((2500, 4),):
+        lc, x0, node = lc_problem(t, r, rng, dev)
+        for loads, stores in LC_ROUTES + LC_ROUTES[::-1]:
+            plan = hw_plan.lc_plan(r, loads=loads, stores=stores)
+            call = lambda: lc_filter.lc_filter(*lc, x0, node, plan=plan)
+            name = f"lc_filter_{t}x{r}[{loads}+{stores}]"
+            ms = median_ms(call)
+            if name in out:
+                out[name].insert(1, ms)
+            else:
+                out[name] = [ms, digest(*call())]
     return out
 
 
@@ -123,6 +183,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("label", nargs="?", default="this")
     ap.add_argument("--chunks", default="", help="comma-separated chunks to time beside the plan's")
+    ap.add_argument("--routes", action="store_true",
+                    help="time lc_filter on each of its four (load, store) routes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("hw_pipeline_time: no CUDA device available", file=sys.stderr)
@@ -138,6 +200,14 @@ def main() -> int:
                       file=sys.stderr)
                 return 1
         out.update(swept)
+    if args.routes:
+        by_route = routes(dev)
+        for name, (*_, dig) in by_route.items():
+            shape = name.split("[")[0]
+            if dig != by_route[f"{shape}[tma+tma]"][-1] or dig != out.get(shape, (0, dig))[1]:
+                print(f"hw_pipeline_time: {name} differs from the TMA route", file=sys.stderr)
+                return 1
+        out.update(by_route)
     print(args.label, json.dumps(out))
     return 0
 

@@ -58,7 +58,22 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    Each kernel must launch 18 times (one per controller interval), and the
    campus numbers must match the JAX package's (``JAX_CAMPUS``, recorded
    on the CPU by ``python tests/test_torch_campus_reference.py``) within
-   ``CAMPUS_TOLERANCES``.
+   ``CAMPUS_TOLERANCES``.  Then the same campus through the scanned engine
+   (``fleet.condition``'s default: the whole window as one CUDA graph;
+   ``phase_scanned``): after its cache is emptied, one cold run (warm-up
+   and capture) and three warm runs.  The capture must record pdu_health
+   and admm_step 18 times each with no plain pdu_health call, a warm run
+   must launch nothing from Python (a replay), every output (the campus
+   arrays, the QP residual, the wear and online-fraction traces, every
+   leaf of the state, both reports) must equal the host engine's bit for
+   bit, so ``JAX_CAMPUS`` holds too.  Successive one-chunk windows
+   (``start_sample`` / ``stop_sample``), each resumed from the last one's
+   state, must replay one graph (no launch from Python after the first)
+   with ``torch.cuda.memory_reserved`` flat, and together equal the
+   one-call run.  It prints the cold wall, the warm walls (median and
+   spread), the warm walls of the resumed windows, the graph's nodes by
+   type and the peak memory beside the host engine's, and drops the cached
+   graphs at the end.
 5. The serving kernels at the serving slice's full-width shapes, each held
    against its plain version on the card and timed as in phase 2 beside
    the plain version and the library call: ``rmsnorm`` on (4 x 512, 2048) bf16 and f32 and (4, 2048)
@@ -215,12 +230,16 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    must match the JAX package's (``JAX_FAULTY_CAMPUS``, recorded on the CPU
    by ``python tests/test_torch_faulty_campus_reference.py``) within
    ``FAULTY_CAMPUS_TOLERANCES``, ``ess_online_frac`` and the verdicts
-   exactly.  It prints each engine's warm wall time.
+   exactly.  It prints each engine's warm wall time.  Then the scanned
+   engine as in phase 4 (its capture records pdu_health in the events
+   mode 18 times), bit for bit the host engine's run.
 
 With ``--profile DIR`` it also profiles one more campus run, prefill step,
-generation and training step, rwkv6-7b prefill and generation, and a host
-run of the degraded campus (``torch.profiler``) and writes the tables and
-Chrome traces into DIR.
+generation and training step, rwkv6-7b prefill and generation, a host run
+of the degraded campus and a warm replay of each campus's scanned engine
+(``torch.profiler``), writes the tables and Chrome traces into DIR, and
+prints each campus's host engine split into ``core.profiling``'s
+``render`` / ``solve`` / ``host-sync`` spans.
 
 The script prints the card's name and power limit, then one JSON line
 describing each kernel, and ends with the line
@@ -1134,8 +1153,10 @@ def compare_campus(got: dict, want: dict) -> list[str]:
     return bad
 
 
-def run_campus(n_racks: int, duration_s: float, *, device: str = "cuda"):
-    """The acceptance campus through the port's host engine; returns
+def run_campus(n_racks: int, duration_s: float, *, device: str = "cuda", engine: str = "host",
+               **window):
+    """The acceptance campus through the port's ``engine`` (``window``:
+    further ``StreamOptions``, e.g. ``start_sample``, ``state``); returns
     ``(result, health fleet summary, wall seconds)``."""
     import torch
 
@@ -1152,8 +1173,8 @@ def run_campus(n_racks: int, duration_s: float, *, device: str = "cuda"):
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = fleet.condition(
-        s, cfg, spec, engine="host", qp_iters=c["qp_iters"], device=device,
-        stream=fleet.StreamOptions(chunk_intervals=c["chunk_intervals"]),
+        s, cfg, spec, engine=engine, qp_iters=c["qp_iters"], device=device,
+        stream=fleet.StreamOptions(chunk_intervals=c["chunk_intervals"], **window),
     )
     hsum = hlt.fleet_summary(res.health)  # reads back to the host
     if device != "cpu":
@@ -1310,9 +1331,10 @@ def compare_faulty_campus(got: dict, want: dict) -> list[str]:
     return bad
 
 
-def run_faulty_campus(n_racks: int, duration_s: float, engine: str, *, device: str = "cuda"):
-    """FAULTY_CAMPUS through the port's ``engine``; returns ``(result, its
-    summary, wall seconds)``."""
+def run_faulty_campus(n_racks: int, duration_s: float, engine: str, *, device: str = "cuda",
+                      **window):
+    """FAULTY_CAMPUS through the port's ``engine`` (``window``: further
+    ``StreamOptions``); returns ``(result, its summary, wall seconds)``."""
     import torch
 
     from repro_torch.core import compliance, fleet, pdu
@@ -1326,7 +1348,8 @@ def run_faulty_campus(n_racks: int, duration_s: float, engine: str, *, device: s
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = fleet.condition(s, cfg, spec, engine=engine, qp_iters=c["qp_iters"], device=device,
-                          stream=fleet.StreamOptions(chunk_intervals=c["chunk_intervals"]))
+                          stream=fleet.StreamOptions(chunk_intervals=c["chunk_intervals"],
+                                                     **window))
     if device != "cpu":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -3681,8 +3704,12 @@ def phase_quickstart(dev) -> tuple[int, int]:
     return counts
 
 
-def phase_campus(dev) -> tuple[int, int]:
-    """The acceptance campus; returns the kernels' launch counts."""
+def phase_campus(dev, profile_dir: Path | None = None) -> dict:
+    """The acceptance campus through the host engine, then through the
+    scanned engine (``phase_scanned``); returns the kernels' launch counts
+    on the host engine's run and the scanned engine's numbers."""
+    import torch
+
     from repro_torch.kernels import admm_step, pdu_health
 
     c = CAMPUS
@@ -3690,11 +3717,15 @@ def phase_campus(dev) -> tuple[int, int]:
     for run in ("first", "second"):
         pdu_health.pdu_health_sim.launches = 0
         admm_step.admm_iterate.launches = 0
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         res, hsum, wall = run_campus(c["n_racks"], c["duration_s"], device=dev)
+        peak = torch.cuda.max_memory_allocated() - base
         counts = (pdu_health.pdu_health_sim.launches, admm_step.admm_iterate.launches)
         print(f"campus {run} run: {wall:.3f} s wall, launches pdu_health={counts[0]} "
-              f"admm_step={counts[1]}")
+              f"admm_step={counts[1]}, peak memory {peak / 2**20:.1f} MiB above the base")
         _check(counts == (18, 18), f"campus: each kernel must launch 18 times, got {counts}")
+    host_res, host_peak = res, peak
     got = campus_summary(res, hsum)
     print(f"campus rack: max ramp {got['rack_max_ramp']:.6f}/s ramp_ok={got['rack_ramp_ok']} "
           f"worst line {got['rack_worst_line']:.3e} spectrum_ok={got['rack_spectrum_ok']}")
@@ -3705,7 +3736,18 @@ def phase_campus(dev) -> tuple[int, int]:
     print("campus vs JAX: " + json.dumps({k: [got[k], JAX_CAMPUS[k]] for k in got}))
     bad = compare_campus(got, JAX_CAMPUS)
     _check(not bad, "campus differs from the JAX package: " + "; ".join(bad))
-    return counts
+
+    def run(engine="scanned", **window):
+        r, h, w = run_campus(c["n_racks"], c["duration_s"], device=dev, engine=engine, **window)
+        return r, w, h
+
+    scanned = phase_scanned("campus", run, host_res, host_peak, pdu_health.MASK_NONE,
+                            c["chunk_intervals"], profile_dir)
+    got = campus_summary(scanned["res"], scanned["extra"])
+    print("campus scanned vs JAX: " + json.dumps({k: [got[k], JAX_CAMPUS[k]] for k in got}))
+    bad = compare_campus(got, JAX_CAMPUS)
+    _check(not bad, "scanned campus differs from the JAX package: " + "; ".join(bad))
+    return dict(counts=counts, host_s=wall, scanned=scanned)
 
 
 # Phase 6, continued: stablelm-12b at full width (d_model 5120, 32 query
@@ -3796,7 +3838,7 @@ class _PlainCalls:
         return False
 
 
-def phase_faulty_campus(dev) -> dict:
+def phase_faulty_campus(dev, profile_dir: Path | None = None) -> dict:
     """Phase 13: FAULTY_CAMPUS at full size through the host engine (the
     fault schedule handed to ``pdu.condition``, the ESS weight rendered in
     the kernel from the episode tables) and the one-shot engine (the
@@ -3804,8 +3846,12 @@ def phase_faulty_campus(dev) -> dict:
     engine's weight mode) and admm_step 18 times and call no plain
     pdu_health; the numbers must match JAX_FAULTY_CAMPUS within
     FAULTY_CAMPUS_TOLERANCES (ess_online_frac and the verdicts exactly).
-    Returns each engine's warm wall time and launch counts."""
+    Then the scanned engine (``phase_scanned``), its numbers bit for bit
+    the host engine's.  Returns each engine's warm wall time and launch
+    counts."""
     from repro_torch.kernels import admm_step, pdu_health
+
+    import torch
 
     c = FAULTY_CAMPUS
     mode = {"host": pdu_health.MASK_EVENTS, "oneshot": pdu_health.MASK_SERIES}
@@ -3815,9 +3861,12 @@ def phase_faulty_campus(dev) -> dict:
             pdu_health.pdu_health_sim.launches = 0
             pdu_health.pdu_health_sim.launches_by_mask = [0, 0, 0, 0]
             admm_step.admm_iterate.launches = 0
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             with _PlainCalls("pdu_health_sim") as plain:
                 res, got, wall = run_faulty_campus(c["n_racks"], c["duration_s"], engine,
                                                    device=dev)
+            peak = torch.cuda.max_memory_allocated() - base
             by_mask = list(pdu_health.pdu_health_sim.launches_by_mask)
             counts = (pdu_health.pdu_health_sim.launches, admm_step.admm_iterate.launches)
             print(f"faulty campus {engine} engine, {run} run: {wall:.3f} s wall, launches "
@@ -3834,7 +3883,218 @@ def phase_faulty_campus(dev) -> dict:
                + "; ".join(bad))
         out[engine] = dict(wall_s=wall, pdu_health=counts[0], admm_step=counts[1],
                            by_mask=by_mask)
+        if engine == "host":
+            host_res, host_peak = res, peak
+
+    def run_scanned(engine="scanned", **window):
+        r, g, w = run_faulty_campus(c["n_racks"], c["duration_s"], engine, device=dev, **window)
+        return r, w, g
+
+    scanned = phase_scanned("faulty campus", run_scanned, host_res, host_peak,
+                            pdu_health.MASK_EVENTS, c["chunk_intervals"], profile_dir)
+    got = scanned["extra"]
+    print("faulty campus scanned vs JAX: "
+          + json.dumps({k: [got[k], JAX_FAULTY_CAMPUS[k]] for k in got}))
+    bad = compare_faulty_campus(got, JAX_FAULTY_CAMPUS)
+    _check(not bad, "scanned faulty campus differs from the JAX package: " + "; ".join(bad))
+    out["scanned"] = scanned
     return out
+
+
+def _result_leaves(x, prefix: str = "") -> dict:
+    """Every tensor of a conditioning result by its path (the reports, the
+    state's leaves, the campus arrays)."""
+    import dataclasses as dc
+
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return {prefix: x}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        items = zip(x._fields, x)
+    elif isinstance(x, (tuple, list)):
+        items = ((str(i), v) for i, v in enumerate(x))
+    elif dc.is_dataclass(x) and not isinstance(x, type):
+        items = ((f.name, getattr(x, f.name)) for f in dc.fields(x))
+    else:
+        return {}
+    out = {}
+    for name, v in items:
+        out.update(_result_leaves(v, f"{prefix}.{name}" if prefix else name))
+    return out
+
+
+# What the scanned engine must return bit for bit as the host engine does.
+SCANNED_BITWISE = ("campus_rack", "campus_grid", "soc_mean", "ess_online_frac",
+                   "max_qp_residual", "health_trace", "state", "report_rack", "report_grid")
+
+
+def _differing_bits(a, b) -> list[str]:
+    """The tensors of ``SCANNED_BITWISE`` in which two results differ."""
+    bad = []
+    for field in SCANNED_BITWISE:
+        la, lb = _result_leaves(getattr(a, field), field), _result_leaves(getattr(b, field), field)
+        if la.keys() != lb.keys():
+            bad.append(f"{field}: fields {sorted(la)} != {sorted(lb)}")
+            continue
+        bad += [k for k in la if not _bitwise(la[k], lb[k])]
+    return bad
+
+
+def _graph_nodes(graph) -> dict:
+    """The captured graph's node count by type (kernel, memcpy, memset,
+    other), read from the raw graph the scanned engine keeps."""
+    import ctypes
+
+    lib = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    _check(lib.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    _check(lib.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    names = {0: "kernel", 1: "memcpy", 2: "memset"}
+    out = {"total": n.value}
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        lib.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t))
+        key = names.get(t.value, "other")
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def phase_scanned(label: str, run, host_res, host_peak: int, mask: int, chunk_intervals: int,
+                  profile_dir: Path | None = None) -> dict:
+    """The scanned engine (``fleet.condition``'s default: the window as one
+    CUDA graph) on a campus of phase 4 or 13.  ``run(engine, **window)``
+    returns ``(result, wall seconds, extra)``.  One cold run (warm-up and
+    capture) and three warm runs, after the engine's cache is emptied:
+    the capture must record pdu_health (in weight mode ``mask``) and
+    admm_step 18 times each with no plain pdu_health call, a warm run must
+    launch nothing from Python (a replay), and every output must equal the
+    host engine's ``host_res`` bit for bit; successive one-chunk windows,
+    each resumed from the last one's state, must replay one graph with the
+    reserved memory flat and together equal the one-call run.  With
+    ``profile_dir`` a warm replay is profiled, and one host-engine run is
+    timed by ``core.profiling``'s spans.  The cached graphs are dropped at
+    the end.  Returns the last warm result, its ``extra``, the walls, the
+    capture's counts, the graph's nodes and the peak memory."""
+    import torch
+
+    from repro_torch.core import fleet, profiling
+    from repro_torch.kernels import admm_step, pdu_health
+
+    def reset():
+        pdu_health.pdu_health_sim.launches = 0
+        pdu_health.pdu_health_sim.launches_by_mask = [0, 0, 0, 0]
+        admm_step.admm_iterate.launches = 0
+
+    def counts():
+        return (pdu_health.pdu_health_sim.launches, admm_step.admm_iterate.launches)
+
+    fleet._ENGINE_CACHE.clear()
+    torch.cuda.empty_cache()
+    reset()
+    base, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    with _PlainCalls("pdu_health_sim") as plain:
+        res, cold_s, _ = run()
+    cold_peak = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_reserved() - reserved
+    (engine,) = fleet._ENGINE_CACHE.values()
+    cap = engine.launches_at_capture
+    nodes = _graph_nodes(engine.graph)
+    print(f"{label} scanned cold run: {cold_s:.4f} s wall (warm-up, capture and one replay), "
+          f"launches {counts()} (warm-up and capture), at capture pdu_health={cap['pdu_health']} "
+          f"(by weight mode none/row/series/events {cap['pdu_health_by_mask']}) "
+          f"admm_step={cap['admm_step']}, plain pdu_health calls {plain.n}; graph nodes {nodes}")
+    _check(cap["pdu_health"] == 18 and cap["admm_step"] == 18
+           and cap["pdu_health_by_mask"][mask] == 18 and plain.n == 0,
+           f"{label} scanned: capture launches {cap}, plain calls {plain.n}")
+    bad = _differing_bits(res, host_res)
+    _check(not bad, f"{label} scanned cold run differs from the host engine in {bad}")
+    walls = []
+    for i in range(3):
+        reset()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with _PlainCalls("pdu_health_sim") as plain:
+            res, wall, extra = run()
+        warm_peak = torch.cuda.max_memory_allocated() - base
+        walls.append(wall)
+        _check(counts() == (0, 0) and plain.n == 0,
+               f"{label} scanned warm run {i + 1}: launches {counts()} from Python, plain calls "
+               f"{plain.n} (a replay launches none)")
+        bad = _differing_bits(res, host_res)
+        _check(not bad, f"{label} scanned warm run {i + 1} differs from the host engine in {bad}")
+    warm_s = statistics.median(walls)
+    print(f"{label} scanned warm runs: {', '.join(f'{w:.4f}' for w in walls)} s wall (median "
+          f"{warm_s:.4f}, spread {max(walls) - min(walls):.4f}), launches from Python 0, every "
+          f"output bit for bit the host engine's")
+    print(f"{label} peak memory above the base: host engine {host_peak / 2**20:.1f} MiB, scanned "
+          f"cold {cold_peak / 2**20:.1f} MiB, scanned warm {warm_peak / 2**20:.1f} MiB (the "
+          f"cached graph keeps {held / 2**20:.1f} MiB reserved: its pool and static buffers)")
+    # Successive windows of one chunk each, each resumed from the last
+    # one's state.  The start is read on the card, so the windows of one
+    # length replay one graph: after the first captures it, they launch
+    # nothing from Python and the reserved memory stays flat.  The ragged
+    # last window is a key of its own.  Together they are the one-call run.
+    w = chunk_intervals * engine.geometry["k"]
+    total = host_res.campus_grid.shape[0]
+    fields = ("campus_rack", "campus_grid", "soc_mean", "ess_online_frac", "health_trace")
+    parts, state, resumed, reserved = {f: [] for f in fields}, None, [], []
+    worst = None
+    for s0 in range(0, total, w):
+        reset()
+        part, wall, _ = run(start_sample=s0, stop_sample=min(s0 + w, total), state=state)
+        state = part.state
+        for f in fields:
+            parts[f].append(getattr(part, f).cpu())
+        worst = part.max_qp_residual if worst is None else torch.maximum(worst,
+                                                                         part.max_qp_residual)
+        del part
+        if s0 and s0 + w <= total:
+            _check(counts() == (0, 0), f"{label} scanned window at {s0}: launches {counts()} "
+                   "from Python (a window of a cached length is a replay)")
+            resumed.append(wall)
+        if s0 + w <= total:
+            reserved.append(torch.cuda.memory_reserved())
+    bad = [f for f in fields if not _bitwise(torch.cat(parts[f]), getattr(host_res, f).cpu())]
+    bad += [k for k, v in _result_leaves(state, "state").items()
+            if not _bitwise(v, _result_leaves(host_res.state, "state")[k])]
+    if not _bitwise(worst, host_res.max_qp_residual):
+        bad.append("max_qp_residual")
+    n_win = -(-total // w)
+    print(f"{label} scanned windows: {n_win} windows of {w} samples (the last "
+          f"{total - (n_win - 1) * w}), each resumed from the last one's state: "
+          f"{'bit for bit the one-call run' if not bad else 'differs in ' + str(bad)}; warm "
+          f"resumed windows {', '.join(f'{x:.4f}' for x in resumed)} s wall (median "
+          f"{statistics.median(resumed):.4f}); memory reserved after each full window "
+          f"{[round(x / 2**20, 1) for x in reserved]} MiB; cached graphs "
+          f"{len(fleet._ENGINE_CACHE)}")
+    _check(not bad, f"{label} scanned windows of {w} samples differ from one call in {bad}")
+    _check(len(set(reserved)) == 1,
+           f"{label} scanned windows: memory reserved grew across windows of one length "
+           f"({reserved})")
+    if profile_dir is not None:
+        tag = label.replace(" ", "_")
+        profile_run(f"{tag}_scanned", lambda: run()[1], profile_dir)
+        profiling.enable()
+        try:
+            _, wall, _ = run("host")
+            ph = profiling.phases()
+        finally:
+            profiling.disable()
+        print(f"profile: {label} host engine under core.profiling spans, {wall:.4f} s wall: "
+              + ", ".join(f"{k} {v:.4f} s" for k, v in ph.items())
+              + f" (sum {sum(ph.values()):.4f})")
+    fleet._ENGINE_CACHE.clear()
+    torch.cuda.empty_cache()
+    return dict(res=res, extra=extra, cold_s=cold_s, warm_s=warm_s, warm_walls=walls,
+                window_warm_s=statistics.median(resumed), reserved_mib=reserved[-1] / 2**20,
+                capture=cap, nodes=nodes, peak_mib=dict(host=host_peak / 2**20,
+                                                        cold=cold_peak / 2**20,
+                                                        warm=warm_peak / 2**20,
+                                                        held_reserved=held / 2**20))
 
 
 def profile_run(label: str, run, out_dir: Path) -> None:
@@ -3908,9 +4168,10 @@ def main() -> int:
     kernels["admm_step"].update(phase_widened_shapes(dev))
     for name, n in zip(("pdu_health", "admm_step"), phase_quickstart(dev)):
         kernels[name]["launches_quickstart"] = n
-    ph_count, ad_count = phase_campus(dev)
-    kernels["pdu_health"]["launches"] = ph_count
-    kernels["admm_step"]["launches"] = ad_count
+    campus = phase_campus(dev, opts.profile)
+    kernels["pdu_health"]["launches"], kernels["admm_step"]["launches"] = campus["counts"]
+    for name in ("pdu_health", "admm_step"):
+        kernels[name]["launches_scanned_capture"] = campus["scanned"]["capture"][name]
     if opts.profile is not None:
         c = CAMPUS
         profile_run("campus", lambda: run_campus(c["n_racks"], c["duration_s"], device=dev)[2],
@@ -3975,14 +4236,17 @@ def main() -> int:
     fig11 = phase_fig11(dev)
     for name, n in zip(("pdu_health", "admm_step"), fig11["counts"]):
         kernels[name]["launches_fig11"] = n
-    faulty = phase_faulty_campus(dev)
     if opts.profile is not None:
         c = FAULTY_CAMPUS
         profile_run("faulty_campus", lambda: run_faulty_campus(
             c["n_racks"], c["duration_s"], "host", device=dev)[2], opts.profile)
+    faulty = phase_faulty_campus(dev, opts.profile)
     for engine, mode in (("host", "events"), ("oneshot", "series")):
         kernels["pdu_health"][f"launches_faulty_{engine}_{mode}"] = faulty[engine]["pdu_health"]
         kernels["admm_step"][f"launches_faulty_{engine}"] = faulty[engine]["admm_step"]
+    kernels["pdu_health"]["launches_faulty_scanned_capture_events"] = \
+        faulty["scanned"]["capture"]["pdu_health_by_mask"][3]
+    kernels["admm_step"]["launches_faulty_scanned_capture"] = faulty["scanned"]["capture"]["admm_step"]
     kernels["flash_attention_fwd"]["launches_stablelm_prefill"] = stablelm["flash_attention_fwd"]
     print(json.dumps({"serve": {k: serve[k] for k in ("prefill_s", "generate_s", "tokens_per_s")},
                       "train": {k: trained[k] for k in ("step_s", "tokens_per_s", "train_mfu",
@@ -3992,7 +4256,20 @@ def main() -> int:
                       "fig11": {k: fig11[k] for k in ("wall_s", "envelope_ms",
                                                       "burn_vs_easyrider_frac")},
                       "stablelm_prefill_s": stablelm["prefill_s"],
-                      "faulty_campus_s": {e: faulty[e]["wall_s"] for e in faulty}}))
+                      "campus_s": {"host": campus["host_s"],
+                                   "scanned_cold": campus["scanned"]["cold_s"],
+                                   "scanned_warm": campus["scanned"]["warm_s"],
+                                   "scanned_window_warm": campus["scanned"]["window_warm_s"]},
+                      "faulty_campus_s": {"host": faulty["host"]["wall_s"],
+                                          "oneshot": faulty["oneshot"]["wall_s"],
+                                          "scanned_cold": faulty["scanned"]["cold_s"],
+                                          "scanned_warm": faulty["scanned"]["warm_s"],
+                                          "scanned_window_warm":
+                                              faulty["scanned"]["window_warm_s"]},
+                      "scanned_peak_mib": {"campus": campus["scanned"]["peak_mib"],
+                                           "faulty_campus": faulty["scanned"]["peak_mib"]},
+                      "scanned_graph_nodes": {"campus": campus["scanned"]["nodes"],
+                                              "faulty_campus": faulty["scanned"]["nodes"]}}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

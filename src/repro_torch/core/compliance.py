@@ -30,6 +30,7 @@ held to the reference's own contract of agreeing with
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -235,6 +236,14 @@ def spectrum_observer_init(bank: SpectrumBank, *, device="cuda") -> SpectrumObse
     )
 
 
+@functools.cache
+def _bins_tensor(bins: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """A bank's line indices on ``device``, made once: a copy from host
+    memory cannot be captured in a CUDA graph (the scanned engine folds
+    its observers inside one), and the graph keeps reading this tensor."""
+    return torch.tensor(bins, dtype=torch.int64, device=device)
+
+
 def spectrum_observer_update(
     bank: SpectrumBank, obs: SpectrumObserver, chunk: torch.Tensor
 ) -> SpectrumObserver:
@@ -255,7 +264,7 @@ def spectrum_observer_update(
         x = x * (0.5 - 0.5 * torch.cos(wp.to(torch.float64) * two_pi_n))
     elif bank.window is not None:
         raise ValueError(f"unknown window {bank.window!r}")
-    bins = torch.tensor(bank.bins, dtype=torch.int64, device=dev)
+    bins = _bins_tensor(bank.bins, dev)
     ang = torch.remainder(bins[:, None] * j[None, :], mod).to(torch.float64) * two_pi_n
     xb_re = torch.cos(ang) @ x
     xb_im = -(torch.sin(ang) @ x)

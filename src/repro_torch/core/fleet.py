@@ -6,34 +6,47 @@ trailing dimension of every tensor and of the kernels' launches.
 
 Engines:
 
-  * ``"host"`` (the port's default): walk the trace in chunks of
-    ``chunk_intervals`` controller intervals — render each chunk on the
-    card, condition it (``pdu.condition_campus``), fold the streaming
-    compliance observers — so live memory stays O(chunk x R); the stream
-    can resume from a result's ``state``.
+  * ``"scanned"`` (the default, as in the reference): a ``Scenario``
+    window rendered and conditioned chunk by chunk — every full chunk,
+    the ragged tail at its natural length, the compliance observers'
+    folds and the stacking of the campus aggregates — as ONE CUDA graph,
+    captured once per key (config, chunk geometry, window length, the
+    scenario's structure) and replayed; the reference's one ``lax.scan``
+    jit.  ``StreamOptions.start_sample`` / ``stop_sample`` window it and
+    ``state`` resumes it; the start is read on the card, so every window
+    of one length replays one graph.  Its numbers are the host engine's
+    bit for bit.  On the CPU (``device="cpu"``, which only a caller that
+    asks for it gets) the same chunk loop runs eagerly, with no graph and
+    no cache: the CPU path, as the kernels' plain versions are.
+  * ``"host"``: walk the trace in chunks of ``chunk_intervals`` controller
+    intervals from Python — render each chunk on the card, condition it
+    (``pdu.condition_campus``), fold the streaming compliance observers —
+    so live memory stays O(chunk x R); takes raw traces and chunk
+    providers too, and the stream can resume from a result's ``state``.
+    ``profiling`` spans time its phases.
   * ``"oneshot"``: materialize the whole ``(T, R)`` trace and grid
     waveform and check compliance on the whole campus means.
 
 Under a degraded-mode config a ``Scenario`` carrying a fault schedule runs
-degraded: the host engine hands the schedule to ``pdu.condition`` (the
-fast path), the one-shot engine the streamed mask and weight derived from
-it, and both return ``ess_online_frac``.
-
-The reference defaults to its ``"scanned"`` engine, one ``lax.scan`` jit
-over the chunk loop.  Its counterpart here, the chunk loop captured in a
-CUDA graph, is a later item of ROADMAP.md (queue 1 item 3), so
-``engine="scanned"`` raises and the facade defaults to ``"host"``.
-Multi-GPU rack sharding (``mesh=``) comes with ROADMAP.md queue 1 item 9.
+degraded: the scanned and host engines hand the schedule to
+``pdu.condition`` (the fast path), the one-shot engine the streamed mask
+and weight derived from it, and all return ``ess_online_frac``.
+Grid regions come with ROADMAP.md queue 1 item 5 and multi-GPU rack
+sharding (``mesh=``) with item 9.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import traceback
+from pathlib import Path
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
-from repro_torch.core import compliance, controller as ctrl, health as hlt, pdu
+from repro_torch.core import compliance, controller as ctrl, health as hlt, pdu, \
+    profiling as _prof
 from repro_torch.utils.devices import resolve_device
 
 F32 = torch.float32
@@ -169,23 +182,72 @@ def _make_bank(grid_spec: compliance.GridSpec, cfg: pdu.PDUConfig, n_total: int)
     return compliance.make_bank(n_total, cfg.sample_dt, float(grid_spec.f_c))
 
 
-def _finish_streaming(
-    cfg, grid_spec, state, campus_rack, campus_grid, soc_mean, worst, bank, obs, health_trace,
-    ess_frac,
-) -> ConditioningResult:
+class _Stream(NamedTuple):
+    """What a streaming run accumulates besides the state."""
+
+    campus_rack: torch.Tensor  # (T,)
+    campus_grid: torch.Tensor  # (T,)
+    soc_mean: torch.Tensor  # (n_ctrl,)
+    worst: torch.Tensor  # () running max QP primal residual
+    health_trace: torch.Tensor  # (n_chunks, 3) fleet wear snapshot per chunk
+    ess_frac: torch.Tensor  # (n_ctrl,) online fraction
+    obs: _Observers  # streaming compliance state
+
+
+class _CampusAccum:
+    """Preallocated campus outputs of a streaming run, written chunk by
+    chunk at the *full* chunk geometry (``chunk`` samples, ``n_int``
+    intervals), so a ragged tail lands at its place; the worst QP residual
+    is a running max and the observers fold each chunk.  Both streaming
+    engines write through it, so they run the same ops."""
+
+    def __init__(self, cfg: pdu.PDUConfig, bank, t_total: int, chunk: int, n_int: int):
+        dev = cfg.device
+        n_chunks = -(-t_total // chunk)
+        self.dt, self.bank, self.n_int = cfg.sample_dt, bank, n_int
+        self.t_total, self.n_ctrl = t_total, -(-t_total // (chunk // n_int))
+        self.campus_rack = torch.zeros(n_chunks * chunk, dtype=F32, device=dev)
+        self.campus_grid = torch.zeros(n_chunks * chunk, dtype=F32, device=dev)
+        self.soc_mean = torch.zeros(n_chunks * n_int, dtype=F32, device=dev)
+        self.worst = torch.zeros((), dtype=F32, device=dev)
+        self.health_trace = torch.zeros((n_chunks, 3), dtype=F32, device=dev)
+        self.ess_frac = torch.ones(n_chunks * n_int, dtype=F32, device=dev)
+        self.obs = _observers_init(bank, dev)
+
+    def add(self, c_idx: int, t0: int, ch: pdu.CampusChunk) -> None:
+        n, m = ch.campus_rack.shape[0], ch.soc_mean.shape[0]
+        i0 = c_idx * self.n_int
+        self.campus_rack[t0 : t0 + n] = ch.campus_rack
+        self.campus_grid[t0 : t0 + n] = ch.campus_grid
+        self.soc_mean[i0 : i0 + m] = ch.soc_mean
+        self.ess_frac[i0 : i0 + m] = ch.ess_online_frac
+        self.worst = torch.maximum(self.worst, ch.max_qp_residual)
+        self.health_trace[c_idx] = ch.health
+        self.obs = _observers_update(self.obs, self.bank, ch, self.dt)
+
+    def result(self) -> _Stream:
+        return _Stream(
+            self.campus_rack[: self.t_total], self.campus_grid[: self.t_total],
+            self.soc_mean[: self.n_ctrl], self.worst, self.health_trace,
+            self.ess_frac[: self.n_ctrl], self.obs,
+        )
+
+
+def _finish_streaming(cfg, grid_spec, state, out: _Stream, bank) -> ConditioningResult:
     """Assemble the result from streaming state: the compliance reports
     come from the cross-chunk observers (exact ramp, spec lines)."""
+    obs = out.obs
     return ConditioningResult(
-        campus_rack=campus_rack,
-        campus_grid=campus_grid,
-        soc_mean=soc_mean,
+        campus_rack=out.campus_rack,
+        campus_grid=out.campus_grid,
+        soc_mean=out.soc_mean,
         report_rack=compliance.report_from_observers(grid_spec, obs.ramp_rack, bank, obs.spec_rack),
         report_grid=compliance.report_from_observers(grid_spec, obs.ramp_grid, bank, obs.spec_grid),
         state=state,
-        max_qp_residual=worst,
-        health_trace=health_trace,
+        max_qp_residual=out.worst,
+        health_trace=out.health_trace,
         health=hlt.report(_health_params(cfg), cfg.ess_params, state.health, cfg.sample_dt),
-        ess_online_frac=ess_frac,
+        ess_online_frac=out.ess_frac,
         grid_spec=grid_spec,
         bank=bank,
         observers=obs,
@@ -214,7 +276,9 @@ def _condition_fleet_streaming_impl(
     engine computes.  ``traces`` is a (T, R) tensor or a chunk provider
     ``f(start, length) -> (length, R)`` with ``total_samples``.  ``state``
     resumes a previous stream at a controller-interval boundary (``soc0``
-    is then ignored); the engine never writes into it.
+    is then ignored); the engine never writes into it.  With
+    ``profiling.enable()`` it times ``render`` and ``solve`` per chunk and
+    ``host-sync`` around the result.
 
     Degraded mode: ``ess_online`` is the availability of the whole stream,
     ``(n_ctrl_total, R)`` rows (sliced per chunk) or one ``(R,)`` mask;
@@ -244,24 +308,17 @@ def _condition_fleet_streaming_impl(
         provider, t_total = traces, int(total_samples)
     else:
         provider, t_total = (lambda t0, n: traces[t0 : t0 + n]), traces.shape[0]
-    n_chunks = -(-t_total // chunk)
-    n_ctrl = -(-t_total // k)
     if state is None:
         state = pdu.init_state(cfg, provider(0, 1)[0], soc0=soc0)
 
     bank = _make_bank(grid_spec, cfg, t_total)
-    campus_rack = torch.zeros(n_chunks * chunk, dtype=F32, device=dev)
-    campus_grid = torch.zeros(n_chunks * chunk, dtype=F32, device=dev)
-    soc_mean = torch.zeros(n_chunks * n_int, dtype=F32, device=dev)
-    worst = torch.zeros((), dtype=F32, device=dev)
-    health_trace = torch.zeros((n_chunks, 3), dtype=F32, device=dev)
-    ess_frac = torch.ones(n_chunks * n_int, dtype=F32, device=dev)
-    obs = _observers_init(bank, dev)
+    acc = _CampusAccum(cfg, bank, t_total, chunk, n_int)
     for c_idx, t0 in enumerate(range(0, t_total, chunk)):
         # The trailing partial chunk runs at its natural length;
         # pdu.condition ZOH-pads its trailing partial interval internally.
         n = min(chunk, t_total - t0)
-        tr = provider(t0, n).to(device=dev, dtype=F32)
+        with _prof.span("render") as sync:
+            tr = sync(provider(t0, n).to(device=dev, dtype=F32))
         if tr.ndim == 1:  # unbatched trace: a 1-rack fleet
             tr = tr[:, None]
         deg = {}
@@ -273,19 +330,303 @@ def _condition_fleet_streaming_impl(
                 on = on[c_idx * n_int : c_idx * n_int + -(-n // k)]
             deg = dict(ess_online=on,
                        ess_weight=None if ess_weight is None else ess_weight[t0 : t0 + n])
-        state, ch = pdu.condition_campus(cfg, state, tr, qp_iters=qp_iters, plan=plan, **deg)
-        campus_rack[t0 : t0 + n] = ch.campus_rack
-        campus_grid[t0 : t0 + n] = ch.campus_grid
-        m = ch.soc_mean.shape[0]
-        soc_mean[c_idx * n_int : c_idx * n_int + m] = ch.soc_mean
-        ess_frac[c_idx * n_int : c_idx * n_int + m] = ch.ess_online_frac
-        worst = torch.maximum(worst, ch.max_qp_residual)
-        health_trace[c_idx] = ch.health
-        obs = _observers_update(obs, bank, ch, cfg.sample_dt)
-    return _finish_streaming(
-        cfg, grid_spec, state, campus_rack[:t_total], campus_grid[:t_total],
-        soc_mean[:n_ctrl], worst, bank, obs, health_trace, ess_frac[:n_ctrl],
+        with _prof.span("solve") as sync:
+            state, ch = pdu.condition_campus(cfg, state, tr, qp_iters=qp_iters, plan=plan, **deg)
+            acc.add(c_idx, t0, ch)
+            sync(acc.worst)
+    with _prof.span("host-sync") as sync:
+        res = _finish_streaming(cfg, grid_spec, state, acc.result(), bank)
+        sync((res.campus_grid, res.report_grid))
+    return res
+
+
+def _condition_chunk(cfg, scen, st, t0, n, *, k, qp_iters, plan=None, consts=None):
+    """Render + condition one ``n``-sample chunk at absolute sample ``t0``.
+
+    The per-chunk building block of the scanned engine (and of the grid
+    regions of ROADMAP.md queue 1 item 5).  An unbatched scenario is lifted
+    to a 1-rack fleet.  With a fault schedule attached to the scenario and
+    a degraded-mode config the schedule itself is handed to
+    ``pdu.condition`` with the chunk's absolute start (the fast path):
+    every rendered quantity is pure in the absolute sample index, so the
+    result is chunk- and resume-invariant.  ``plan`` and ``consts``
+    (``pdu.host_consts``) pass through to ``pdu.condition``.
+    """
+    from repro_torch.power import scenario as SC
+
+    faulty = cfg.degraded_mode and scen.faults is not None
+    tr = SC.render(scen, t0, n)
+    if tr.ndim == 1:  # unbatched scenario: lift to a 1-rack fleet
+        tr = tr[:, None]
+    return pdu.condition_campus(
+        cfg, st, tr, qp_iters=qp_iters,
+        faults=scen.faults if faulty else None,
+        chunk_start=t0,
+        fault_edge=scen.edge_width if faulty else 1,
+        plan=plan, consts=consts,
     )
+
+
+def _scanned_run(cfg, scen, st, plan, consts, *, start, chunk, k, n_full, rem, qp_iters, bank):
+    """The scanned engine's window from ``start`` (a 0-d int32 tensor on the
+    device): every full chunk, then the ``rem``-sample ragged tail at its
+    natural length (``pdu.condition`` ZOH-pads its trailing partial
+    interval, as a one-shot call would, so the state, ``soc_mean`` and the
+    QP residual never see pad intervals), the observer folds and the
+    stacked campus aggregates.  On the card this is what the CUDA graph
+    captures; on the CPU it runs as it is."""
+    acc = _CampusAccum(cfg, bank, n_full * chunk + rem, chunk, chunk // k)
+    for c_idx in range(n_full + (rem > 0)):
+        t0 = c_idx * chunk
+        st, ch = _condition_chunk(cfg, scen, st, start + t0, chunk if c_idx < n_full else rem,
+                                  k=k, qp_iters=qp_iters, plan=plan, consts=consts)
+        acc.add(c_idx, t0, ch)
+    return st, acc.result()
+
+
+# --------------------------------------------------- the scanned engine's cache
+
+
+def _tree_map(fn, x):
+    """``x`` with ``fn`` applied to every tensor leaf of its NamedTuples,
+    tuples, lists and dataclasses."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_tree_map(fn, v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_tree_map(fn, v) for v in x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(
+            x, **{f.name: _tree_map(fn, getattr(x, f.name)) for f in dataclasses.fields(x)})
+    return x
+
+
+def _tree_leaves(x) -> list[torch.Tensor]:
+    out = []
+    _tree_map(out.append, x)
+    return out
+
+
+def _tree_spec(x):
+    """A hashable description of ``x``'s structure: each tensor's shape,
+    dtype and device, and every other leaf by value."""
+    if isinstance(x, torch.Tensor):
+        return ("tensor", tuple(x.shape), str(x.dtype), str(x.device))
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return (type(x).__qualname__,) + tuple(_tree_spec(v) for v in x)
+    if isinstance(x, (tuple, list)):
+        return (type(x).__name__,) + tuple(_tree_spec(v) for v in x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return (type(x).__qualname__,) + tuple(
+            (f.name, _tree_spec(getattr(x, f.name))) for f in dataclasses.fields(x))
+    return x
+
+
+def _values_key(x) -> bytes:
+    """The values of every tensor leaf of ``x``, read back in one copy."""
+    leaves = _tree_leaves(x)
+    if not leaves:
+        return b""
+    flat = torch.cat([t.detach().reshape(-1).to(torch.float64) for t in leaves])
+    return flat.cpu().numpy().tobytes()
+
+
+# The scanned engine's captured graphs, one per key, as the reference
+# caches its jitted engine, the most recently used last.  A graph holds its
+# memory pool while it stays here, so the cache keeps at most
+# ``_ENGINE_CACHE_MAX``: the start sample is not in the key (a window's
+# start lives on the card), but each scenario structure, noise seed or
+# window length is, as each is static in the reference's jit.  An evicted
+# graph's pool goes back to the allocator, which frees it under pressure.
+_ENGINE_CACHE: collections.OrderedDict = collections.OrderedDict()
+_ENGINE_CACHE_MAX = 4
+
+
+def _cached_engine(key, build):
+    engine = _ENGINE_CACHE.get(key)
+    if engine is None:
+        engine = _ENGINE_CACHE[key] = build()
+        while len(_ENGINE_CACHE) > _ENGINE_CACHE_MAX:
+            _ENGINE_CACHE.popitem(last=False)
+    else:
+        _ENGINE_CACHE.move_to_end(key)
+    return engine
+
+
+def _scanned_key(cfg, scenario, state, plan, geometry: dict) -> tuple:
+    """What a scanned engine's graph bakes in: the config (with its
+    values), the chunk geometry and the window's length (``geometry``), the
+    scenario's structure (its non-tensor fields by value), the state's
+    shapes and filter, and whether a plan is given.  Not the start."""
+    return ("scanned", _tree_spec(cfg), _values_key(cfg), tuple(geometry.items()),
+            _tree_spec(scenario), _tree_spec(state), _values_key(state.filter_obj),
+            None if plan is None else _tree_spec(plan))
+
+
+def _launch_counts() -> tuple:
+    from repro_torch.kernels import admm_step, pdu_health
+
+    return (pdu_health.pdu_health_sim.launches, tuple(pdu_health.pdu_health_sim.launches_by_mask),
+            admm_step.admm_iterate.launches)
+
+
+class _ScannedEngine:
+    """One key of the scanned engine on the card: static buffers for the
+    start sample (a 0-d int32 tensor), the scenario's tensor leaves, the
+    ``PDUState`` (and a caller's controller plan), and the CUDA graph of
+    ``_scanned_run`` over them.
+
+    A call fills the start and copies its scenario, state and plan into the
+    buffers, replays the graph and clones the outputs, so a later call
+    cannot overwrite a returned result and the caller's state is never
+    written.  The graph bakes in the config (kept alive here: the graph
+    reads its tensors), the host scalars (``pdu.host_consts``), the chunk
+    geometry and the scenario's structure; all of these are in the key.
+
+    Capture: one eager warm-up on throwaway copies, on a side stream (it
+    builds and loads the kernels, makes their ``cudaFuncSetAttribute``
+    calls and creates the side stream's cuBLAS handle), of the first full
+    chunk and of the ragged tail, then the capture on that stream.
+    ``launches_at_capture`` holds the kernels' launches in the capture: the
+    Python counters tick at capture, not on replay.  A capture that fails
+    raises, naming the call that broke it; there is no eager fallback.
+    """
+
+    def __init__(self, cfg, scenario, state, plan, *, chunk, k, n_full, rem, qp_iters, bank):
+        self.cfg = cfg
+        self.own_plan = plan is None
+        if plan is None:
+            plan = ctrl.make_plan(cfg.controller, cfg.ess_params) if cfg.software_enabled else None
+        else:
+            plan = _tree_map(torch.clone, plan)
+        self.plan = plan
+        self.consts = pdu.host_consts(cfg, state.filter_obj)
+        self.start = torch.zeros((), dtype=torch.int32, device=cfg.device)
+        self.scenario = _tree_map(torch.clone, scenario)
+        self.state = _tree_map(torch.clone, state)
+        self.geometry = dict(chunk=chunk, k=k, n_full=n_full, rem=rem, qp_iters=qp_iters,
+                             bank=bank)
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept, to count its nodes
+        self.out = None
+        self.launches_at_capture = None
+        self._capture()
+
+    def _capture(self) -> None:
+        dev = self.cfg.device
+        g = self.geometry
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        warm = [(0, g["chunk"])] if g["n_full"] else []
+        if g["rem"]:
+            warm.append((g["n_full"] * g["chunk"], g["rem"]))
+        with torch.cuda.stream(side):
+            for t0, n in warm:
+                _, ch = _condition_chunk(
+                    self.cfg, self.scenario, _tree_map(torch.clone, self.state), self.start + t0,
+                    n, k=g["k"], qp_iters=g["qp_iters"], plan=self.plan, consts=self.consts)
+                _observers_update(_observers_init(g["bank"], dev), g["bank"], ch, self.cfg.sample_dt)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = _launch_counts()
+        try:
+            with torch.cuda.graph(self.graph, stream=side):
+                self.out = _scanned_run(self.cfg, self.scenario, self.state, self.plan,
+                                        self.consts, start=self.start, **g)
+        except Exception as exc:
+            ours = [f for f in traceback.extract_tb(exc.__traceback__) if "repro_torch" in f.filename]
+            where = f"{Path(ours[-1].filename).name}:{ours[-1].lineno} ({ours[-1].line})" if ours \
+                else "an unknown call"
+            raise RuntimeError(
+                f"the scanned engine's CUDA graph capture failed at {where}: {exc}") from exc
+        after = _launch_counts()
+        self.launches_at_capture = dict(
+            pdu_health=after[0] - before[0],
+            pdu_health_by_mask=[a - b for a, b in zip(after[1], before[1])],
+            admm_step=after[2] - before[2])
+        self.graph.instantiate()
+
+    def __call__(self, scenario, state, plan, start: int):
+        pairs = [(self.scenario, scenario), (self.state, state)]
+        if not self.own_plan:
+            pairs.append((self.plan, plan))
+        with torch.no_grad():
+            self.start.fill_(start)
+            for static, given in pairs:
+                for dst, src in zip(_tree_leaves(static), _tree_leaves(given)):
+                    dst.copy_(src)
+            self.graph.replay()
+            return _tree_map(torch.clone, self.out)
+
+
+def _condition_scenario_scanned_impl(
+    cfg: pdu.PDUConfig,
+    scenario,
+    grid_spec: compliance.GridSpec,
+    *,
+    soc0: float = 0.5,
+    qp_iters: int = 30,
+    chunk_intervals: int = 16,
+    state: pdu.PDUState | None = None,
+    start_sample: int = 0,
+    stop_sample: int | None = None,
+    plan=None,
+) -> ConditioningResult:
+    """The scanned engine: render + condition a scenario window as one CUDA
+    graph (``_ScannedEngine``), bit for bit the host engine's numbers.
+
+    ``state`` + ``start_sample`` / ``stop_sample`` window the stream: pass
+    a previous call's returned state and the absolute sample index to
+    resume at (a multiple of the controller interval; any multiple of the
+    chunk size qualifies); aggregates cover ``[start_sample, stop_sample)``
+    of the *unmodified* scenario, so a split-and-resume run reproduces the
+    one-call run.  The start is read on the card, so windows of one length
+    share one graph.  A caller-supplied ``state`` is copied, never written,
+    so the same checkpoint can seed several continuations.  ``plan``
+    overrides the controller plan the engine factors once.  On the CPU the
+    same ``_scanned_run`` runs eagerly on the caller's scenario and a copy
+    of the state, with no graph and no cache.
+    """
+    from repro_torch.power import scenario as SC
+
+    _check_scenario_rate(scenario, cfg)
+    _check_scenario_faults(scenario, cfg)
+    k = max(int(round(float(cfg.controller.dt) / cfg.sample_dt)), 1)
+    chunk = max(int(chunk_intervals), 1) * k
+    start = int(start_sample)
+    stop = scenario.total_samples if stop_sample is None else int(stop_sample)
+    if not 0 <= stop <= scenario.total_samples:
+        raise ValueError(
+            f"stop_sample {stop} outside the scenario ({scenario.total_samples} samples)")
+    if start < 0 or start % k:
+        raise ValueError(
+            f"start_sample {start} must be a non-negative multiple of the controller "
+            f"interval ({k} samples) so the resumed state stays interval-aligned")
+    t_total = stop - start
+    if t_total <= 0:
+        raise ValueError(
+            f"start_sample {start} is past the scenario end (stop at {stop} samples)")
+    n_full, rem = divmod(t_total, chunk)
+
+    if state is None:
+        r0 = SC.render(scenario, start, 1)[0]
+        if r0.ndim == 0:
+            r0 = r0[None]  # unbatched scenario: the engine lifts to 1 rack
+        state = pdu.init_state(cfg, r0, soc0=soc0)
+
+    bank = _make_bank(grid_spec, cfg, t_total)
+    geometry = dict(chunk=chunk, k=k, n_full=n_full, rem=rem, qp_iters=qp_iters, bank=bank)
+    if cfg.device.type != "cuda":  # the CPU path
+        if plan is None and cfg.software_enabled:
+            plan = ctrl.make_plan(cfg.controller, cfg.ess_params)
+        state_f, out = _scanned_run(
+            cfg, scenario, _tree_map(torch.clone, state), plan,
+            pdu.host_consts(cfg, state.filter_obj),
+            start=torch.full((), start, dtype=torch.int32, device=cfg.device), **geometry)
+        return _finish_streaming(cfg, grid_spec, state_f, out, bank)
+    engine = _cached_engine(_scanned_key(cfg, scenario, state, plan, geometry),
+                            lambda: _ScannedEngine(cfg, scenario, state, plan, **geometry))
+    state_f, out = engine(scenario, state, plan, start)
+    return _finish_streaming(cfg, grid_spec, state_f, out, bank)
 
 
 def _check_scenario_rate(scenario, cfg: pdu.PDUConfig) -> None:
@@ -294,6 +635,9 @@ def _check_scenario_rate(scenario, cfg: pdu.PDUConfig) -> None:
             f"scenario sample rate {scenario.sample_hz} Hz != PDU sample_dt "
             f"{cfg.sample_dt} s; build the PDU with sample_dt=1/sample_hz"
         )
+
+
+def _check_scenario_faults(scenario, cfg: pdu.PDUConfig) -> None:
     if scenario.faults is not None and not cfg.degraded_mode:
         raise ValueError(
             "the scenario has a fault schedule attached; conditioning it requires a "
@@ -322,13 +666,20 @@ def _scenario_fault_data(cfg: pdu.PDUConfig, scenario) -> dict:
 
 @dataclasses.dataclass(frozen=True)
 class StreamOptions:
-    """Streaming window options for the ``condition`` facade:
-    ``chunk_intervals`` (controller intervals per chunk), ``state`` (resume
-    a previous stream; host engine only) and ``total_samples`` (raw chunk
-    providers only)."""
+    """Streaming window options for the ``condition`` facade.
+
+    ``chunk_intervals`` sizes the streaming chunk (controller intervals per
+    chunk); ``state`` resumes a previous stream (a prior result's
+    ``.state``); ``start_sample`` / ``stop_sample`` window the scanned
+    engine over ``[start, stop)`` of the unmodified scenario;
+    ``total_samples`` is required (and only meaningful) for raw chunk
+    providers.
+    """
 
     chunk_intervals: int = 16
     state: object = None
+    start_sample: int = 0
+    stop_sample: int | None = None
     total_samples: int | None = None
 
 
@@ -342,12 +693,19 @@ def _as_stream_options(stream) -> StreamOptions:
     raise TypeError(f"stream must be a StreamOptions, dict or None, got {type(stream)!r}")
 
 
+def _reject_stream_options(so: StreamOptions, engine: str, *fields: str) -> None:
+    defaults = StreamOptions()
+    for f in fields:
+        if getattr(so, f) != getattr(defaults, f):
+            raise ValueError(f"stream option {f!r} is not supported by the {engine!r} engine")
+
+
 def condition(
     target,
     cfg: pdu.PDUConfig,
     grid_spec: compliance.GridSpec | None = None,
     *,
-    engine: str = "host",
+    engine: str = "scanned",
     mesh=None,
     stream: StreamOptions | dict | None = None,
     device="cuda",
@@ -358,12 +716,14 @@ def condition(
     ``target`` is a ``power.scenario.Scenario`` (rendered chunk by chunk
     on the device), a materialized ``(T, R)`` tensor, or a chunk provider
     ``f(start, length) -> (length, R)`` (with ``stream.total_samples``).
-    ``engine`` is ``"host"`` (default, see the module docstring) or
-    ``"oneshot"``.  ``device`` is where every tensor of the run lives; it
-    defaults to ``"cuda"`` (raising without a card) and must be the
-    config's device (``make_pdu(device=...)``).  Remaining keywords
-    (``soc0``, ``qp_iters``, ``use_plan``, ``plan``, and under a
-    degraded-mode config ``ess_online``/``ess_weight``) pass through.
+    ``engine`` is ``"scanned"`` (default; scenarios only), ``"host"`` or
+    ``"oneshot"`` (see the module docstring).  ``stream`` bundles the
+    windowing and resume options (``StreamOptions``).  ``device`` is where
+    every tensor of the run lives; it defaults to ``"cuda"`` (raising
+    without a card) and must be the config's device (``make_pdu(device=
+    ...)``).  Remaining keywords (``soc0``, ``qp_iters``, ``plan``; for the
+    host and one-shot engines ``use_plan``, and under a degraded-mode config
+    ``ess_online``/``ess_weight``) pass through.
     """
     dev = resolve_device(device)
     if dev != cfg.device:
@@ -374,24 +734,23 @@ def condition(
         )
     if hasattr(target, "campuses"):
         raise NotImplementedError("grid regions are not ported yet (ROADMAP.md queue 1 item 5)")
-    if engine == "scanned":
-        raise NotImplementedError(
-            "engine='scanned' (the chunk loop captured in a CUDA graph) is not "
-            "ported yet (ROADMAP.md queue 1 item 3); use engine='host'"
-        )
     spec = compliance.GridSpec.create(device=dev) if grid_spec is None else grid_spec
     so = _as_stream_options(stream)
-    if engine == "oneshot" and so.state is not None:
-        raise ValueError("stream state resumes the 'host' engine only")
 
     is_scenario = hasattr(target, "total_samples") and not callable(target)
     if is_scenario:
         from repro_torch.power import scenario as SC
 
-        _check_scenario_rate(target, cfg)
-        if so.total_samples is not None:
-            raise ValueError("stream total_samples is for chunk providers; a Scenario has its own")
+        if engine == "scanned":
+            _reject_stream_options(so, "scanned", "total_samples")
+            return _condition_scenario_scanned_impl(
+                cfg, target, spec, chunk_intervals=so.chunk_intervals, state=so.state,
+                start_sample=so.start_sample, stop_sample=so.stop_sample, **kwargs,
+            )
         if engine == "host":
+            _reject_stream_options(so, "host", "start_sample", "stop_sample", "total_samples")
+            _check_scenario_rate(target, cfg)
+            _check_scenario_faults(target, cfg)
             faulty = cfg.degraded_mode and target.faults is not None
             if faulty and ("ess_online" in kwargs or "ess_weight" in kwargs):
                 # Caller overrides win; the missing half is derived the
@@ -408,26 +767,39 @@ def condition(
                 chunk_intervals=so.chunk_intervals, state=so.state, **kwargs,
             )
         if engine == "oneshot":
+            _reject_stream_options(
+                so, "oneshot", "state", "start_sample", "stop_sample", "total_samples")
+            _check_scenario_rate(target, cfg)
+            _check_scenario_faults(target, cfg)
             for key, val in _scenario_fault_data(cfg, target).items():
                 kwargs.setdefault(key, val)
             tr = SC.render(target, 0, target.total_samples)
             if tr.ndim == 1:
                 tr = tr[:, None]
             return _condition_fleet_impl(cfg, tr, spec, **kwargs)
-        raise ValueError(f"unknown engine {engine!r} (expected 'host' or 'oneshot')")
+        raise ValueError(f"unknown engine {engine!r} (expected 'scanned', 'host' or 'oneshot')")
 
+    # Raw (T, R) tensor or chunk provider.
     if engine == "oneshot":
         if callable(target):
             raise ValueError(
                 "engine='oneshot' needs a materialized (T, R) tensor "
                 "(chunk providers stream via engine='host')")
+        _reject_stream_options(
+            so, "oneshot", "state", "start_sample", "stop_sample", "total_samples")
         return _condition_fleet_impl(cfg, target, spec, **kwargs)
     if engine == "host":
+        _reject_stream_options(so, "host", "start_sample", "stop_sample")
         return _condition_fleet_streaming_impl(
             cfg, target, spec, chunk_intervals=so.chunk_intervals, state=so.state,
             total_samples=so.total_samples, **kwargs,
         )
-    raise ValueError(f"unknown engine {engine!r} (expected 'host' or 'oneshot')")
+    if engine == "scanned":
+        raise ValueError(
+            "engine='scanned' renders a declarative Scenario on the device; raw trace "
+            "tensors and chunk providers stream via engine='host' (or engine='oneshot' "
+            "for materialized tensors)")
+    raise ValueError(f"unknown engine {engine!r} (expected 'scanned', 'host' or 'oneshot')")
 
 
 def make_condition_step(cfg: pdu.PDUConfig, *, qp_iters: int = 30) -> Callable:

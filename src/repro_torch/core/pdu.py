@@ -26,6 +26,12 @@ mode and the build-per-step (``use_plan=False``) controller are later
 slices of the port (ROADMAP.md queue 1 items 2 and 4); asking for them
 raises ``NotImplementedError``.  ``PDUState`` keeps the reference's field
 names.
+
+``condition`` runs inside the scanned engine's CUDA graph
+(``fleet.condition``'s default): given its ``plan`` and its host scalars
+(``host_consts``), it reads nothing back from the card and copies nothing
+from host memory, and every choice it makes depends on shapes and host
+values only.
 """
 from __future__ import annotations
 
@@ -214,6 +220,35 @@ def hw_kwargs(cfg: PDUConfig) -> dict:
     )
 
 
+class HostConsts(NamedTuple):
+    """The host scalars ``condition`` hands its launches, read from the
+    config and the state's filter once (``host_consts``): samples per
+    controller interval, the SoC measurement weight, the hardware path's
+    constants, host copies of the filter matrices (launch arguments of
+    ``pdu_health``) and the wear fold's step constants (None unless
+    ``track_health``)."""
+
+    k: int
+    meas_w: float
+    hw: dict
+    lc: tuple
+    health: tuple | None
+
+
+def host_consts(cfg: PDUConfig, filt: filters.DiscreteFilter) -> HostConsts:
+    """``condition``'s host scalars for ``cfg`` and the filter ``filt`` (a
+    state's ``filter_obj``).  Reading them synchronizes with the card, so a
+    caller that conditions many chunks (the scanned engine) reads them once
+    and passes them in."""
+    return HostConsts(
+        k=max(int(round(float(cfg.controller.dt) / cfg.sample_dt)), 1),
+        meas_w=min(float(cfg.controller.dt) / float(cfg.controller.meas_tau), 1.0),
+        hw=hw_kwargs(cfg),
+        lc=tuple(m.detach().cpu().numpy() for m in (filt.ad, filt.bd, filt.c[0])),
+        health=hlt.step_consts(cfg.health) if cfg.track_health else None,
+    )
+
+
 def _zoh_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
     """``x`` with its last row repeated ``pad`` more times."""
     return torch.cat([x, x[-1:].expand((pad,) + x.shape[1:])], dim=0) if pad else x
@@ -230,9 +265,10 @@ def condition(
     ess_online=None,
     ess_weight=None,
     faults: flt.FaultSchedule | None = None,
-    chunk_start: int = 0,
+    chunk_start: int | torch.Tensor = 0,
     fault_edge: int = 1,
     plan: ctrl.ControllerPlan | None = None,
+    consts: HostConsts | None = None,
 ) -> tuple[torch.Tensor, PDUState, Telemetry]:
     """Condition a trace chunk; carries state across calls (streaming).
 
@@ -254,11 +290,17 @@ def condition(
     ``ess_weight`` (shaped like ``rack_power``) is the per-sample hardware
     weight (``faults.ess_weight``); ``ess_online`` then still governs the
     software plane.  ``faults`` (exclusive with both) is the fast path for
-    the same semantics: the chunk's absolute ``chunk_start`` and the
+    the same semantics: the chunk's absolute ``chunk_start`` (an int, or a
+    0-d int32 tensor on the card: ``faults.start_index``) and the
     schedule's ``fault_edge`` let the interval masks, the sensor bridge and
     the per-sample weight come from the episode tables, the last rendered
     inside the ``pdu_health`` kernel (``ess_events``).  Its outputs equal
     the streamed arrays' bit for bit at any chunk split.
+
+    ``consts`` (``host_consts(cfg, state.filter_obj)``) and ``plan`` are
+    read from the card when not given; with both given (and
+    ``idle_remaining_s`` a tensor or a Python number) the call can be
+    captured in a CUDA graph.
     """
     degraded = cfg.degraded_mode
     if cfg.safemode:
@@ -280,7 +322,9 @@ def condition(
         raise ValueError("rack_power must be (T,) or (T, R)")
     dev = cfg.device
     dt = cfg.sample_dt
-    k = max(int(round(float(cfg.controller.dt) / dt)), 1)
+    if consts is None:
+        consts = host_consts(cfg, state.filter_obj)
+    k = consts.k
     t = rack_power.shape[0]
     n_ctrl = -(-t // k)
     pad = n_ctrl * k - t
@@ -295,14 +339,18 @@ def condition(
     if degraded:
         ess_base = lift(state.ess_online).to(F32).expand(n_r)
     if fast:
-        cs = int(chunk_start)
+        cs = flt.start_index(chunk_start)
         t_last = cs + t - 1
         sensed = flt.interval_sensed(faults, cs, n_ctrl, k, stop=cs + t)
         arg_rows = flt.interval_online(faults, cs, n_ctrl, k)
         hw_base = ess_base * sensed.to(F32)
         on_rows = arg_rows * hw_base
-        ev_st = faults.ess_start.T.contiguous()
-        ev_en = faults.ess_end.T.contiguous()
+        # The kernel reads the ESS tables in the chunk's frame (sample 0 =
+        # chunk_start), so its index arguments are host ints even when the
+        # start is a tensor on the card (the scanned engine's graph); its
+        # compares and differences are the same integers in either frame.
+        ev_st = (faults.ess_start - cs).T.contiguous()
+        ev_en = (faults.ess_end - cs).T.contiguous()
         lg = lift(last_good).to(F32)
     elif degraded:
         finite = _zoh_pad(torch.isfinite(rc_all), pad)
@@ -322,16 +370,18 @@ def condition(
             hw_chunks = wt.reshape(n_ctrl, k, n_r) * hw_base[:, None]
     chunks = _zoh_pad(rc_all, pad).contiguous().reshape(n_ctrl, k, n_r)
 
-    filt = state.filter_obj
-    meas_w = min(float(cfg.controller.dt) / float(cfg.controller.meas_tau), 1.0)
+    meas_w = consts.meas_w
     if cfg.software_enabled and plan is None:
         plan = ctrl.make_plan(cfg.controller, cfg.ess_params)
-    hw_kw = hw_kwargs(cfg)
-    # Host copies of the filter matrices, read once per call: the kernel
-    # takes them as launch arguments (no device read per interval).
-    lc = tuple(filt_m.detach().cpu().numpy() for filt_m in (filt.ad, filt.bd, filt.c[0]))
-    hconsts = hlt.step_consts(cfg.health) if cfg.track_health else None
-    idle = torch.as_tensor(idle_remaining_s, dtype=F32, device=dev)
+    hw_kw = consts.hw
+    # Host copies of the filter matrices: the kernel takes them as launch
+    # arguments (no device read per interval).
+    lc = consts.lc
+    hconsts = consts.health
+    # A Python number is filled on the card (a fill kernel; a copy from
+    # host memory could not be captured in a CUDA graph).
+    idle = (idle_remaining_s.to(device=dev, dtype=F32) if isinstance(idle_remaining_s, torch.Tensor)
+            else torch.full((), float(idle_remaining_s), dtype=F32, device=dev))
 
     x_f, es = state.filter_state, state.ess_state
     cmd_applied, cmd_target = state.cmd_applied, state.cmd_target
@@ -358,7 +408,7 @@ def condition(
             rc = torch.where(dark, torch.where(loc >= 0, held, lg), rc).contiguous()
             lg = rc[-1]
             on_row = on_rows[i]
-            mask_kw = dict(ess_events=(ev_st, ev_en, hw_base[i], i0, t_last),
+            mask_kw = dict(ess_events=(ev_st, ev_en, hw_base[i], i * k, t - 1),
                            ess_edge=int(fault_edge))
         elif degraded:
             on_row = on_rows[i]
@@ -448,16 +498,17 @@ def condition_campus(
     ess_online=None,
     ess_weight=None,
     faults=None,
-    chunk_start: int = 0,
+    chunk_start: int | torch.Tensor = 0,
     fault_edge: int = 1,
     plan: ctrl.ControllerPlan | None = None,
+    consts: HostConsts | None = None,
 ) -> tuple[PDUState, CampusChunk]:
     """One streaming-campus step: condition a chunk and reduce it to campus
     aggregates (the per-rack grid block never leaves the step)."""
     _, state2, telem = condition(
         cfg, state, rack_power, qp_iters=qp_iters, use_plan=use_plan,
         ess_online=ess_online, ess_weight=ess_weight, faults=faults,
-        chunk_start=chunk_start, fault_edge=fault_edge, plan=plan,
+        chunk_start=chunk_start, fault_edge=fault_edge, plan=plan, consts=consts,
     )
     if cfg.track_health:
         hsnap = hlt.chunk_aggregates(cfg.health, state2.health, cfg.sample_dt)

@@ -27,6 +27,7 @@ one, the shared-plan kernel at any horizon up to ``SHARED_PLAN_MAX``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -74,13 +75,20 @@ def _real_rows(h: int, hp: int, n_blocks: int) -> list[int]:
     return [i * hp + j for i in range(n_blocks) for j in range(h)]
 
 
+@functools.cache
+def _index(rows: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """``rows`` as an index tensor on ``device``, made once: a copy from
+    host memory cannot be captured in a CUDA graph (the scanned engine's),
+    and the graph keeps reading this tensor."""
+    return torch.tensor(rows, dtype=torch.long, device=device)
+
+
 def _scatter(t: torch.Tensor, rows: list[int], n: int, dim: int = 0) -> torch.Tensor:
     """``t`` placed at ``rows`` along ``dim`` of a zero tensor of size ``n``
     there (an exact copy: no arithmetic)."""
     shape = list(t.shape)
     shape[dim] = n
-    idx = torch.tensor(rows, dtype=torch.long, device=t.device)
-    return t.new_zeros(shape).index_copy_(dim, idx, t)
+    return t.new_zeros(shape).index_copy_(dim, _index(tuple(rows), t.device), t)
 
 
 def pad_horizon(kkt_stack, g_blk, kq, lo, hi, x0, z0, y0, hp: int):
@@ -105,7 +113,7 @@ def unpad_horizon(x, z, y, h: int):
     hp = x.shape[0] // 2
     if hp == h:
         return x, z, y
-    take = lambda t, n: t[torch.tensor(_real_rows(h, hp, n), device=t.device)]
+    take = lambda t, n: t[_index(tuple(_real_rows(h, hp, n)), t.device)]
     return take(x, 2), take(z, 3), take(y, 3)
 
 
@@ -227,4 +235,6 @@ def admm_iterate(kkt_stack, g_blk, kq, lo, hi, x0, z0, y0, *, rho, iters):
     return unpad_horizon(p.x, p.z, p.y, h)
 
 
+# Launches made from Python: a launch captured in a CUDA graph (the scanned
+# engine's) counts once, at capture, and not when the graph is replayed.
 admm_iterate.launches = 0

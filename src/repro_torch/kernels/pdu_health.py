@@ -197,5 +197,7 @@ def pdu_health_sim(rack_power, g0, soc0, x0, ad, bd, c_row, **kw):
     return finish(p)
 
 
+# Launches made from Python: a launch captured in a CUDA graph (the scanned
+# engine's) counts once, at capture, and not when the graph is replayed.
 pdu_health_sim.launches = 0
 pdu_health_sim.launches_by_mask = [0, 0, 0, 0]

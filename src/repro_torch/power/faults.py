@@ -419,8 +419,16 @@ def _active(starts, ends, idx, method="auto") -> torch.Tensor:
     return (_started(starts, idx, method) - _started(ends, idx, method) > 0).T
 
 
+def start_index(t0):
+    """A window's absolute start sample as the window functions (and
+    ``scenario.render``) take it: a Python int, or a 0-d int32 tensor on
+    the schedule's device, which a CUDA graph reads at replay, so one
+    captured graph serves every start."""
+    return t0 if isinstance(t0, torch.Tensor) else int(t0)
+
+
 def _window(s: FaultSchedule, t0, n: int) -> torch.Tensor:
-    return int(t0) + torch.arange(n, dtype=I32, device=s.device)
+    return start_index(t0) + torch.arange(n, dtype=I32, device=s.device)
 
 
 def rack_down(s: FaultSchedule, t0, n: int, *, method: str = "auto") -> torch.Tensor:
@@ -462,7 +470,7 @@ def sensor_down(s: FaultSchedule, t0, n: int, *, method: str = "auto") -> torch.
 
 
 def _interval_starts(s: FaultSchedule, start_sample, n_intervals: int, k: int) -> torch.Tensor:
-    return int(start_sample) + k * torch.arange(n_intervals, dtype=I32, device=s.device)
+    return start_index(start_sample) + k * torch.arange(n_intervals, dtype=I32, device=s.device)
 
 
 def interval_online(s: FaultSchedule, start_sample, n_intervals: int, k: int, *,
@@ -481,7 +489,7 @@ def interval_sensed(s: FaultSchedule, start_sample, n_intervals: int, k: int, *,
     episode active at ``i0`` ends at or after ``min(i0 + k, stop)``
     (``stop`` is where real samples end; padding repeats the last one)."""
     i0 = _interval_starts(s, start_sample, n_intervals, k)
-    hi = i0 + k if stop is None else torch.clamp(i0 + k, max=int(stop))
+    hi = i0 + k if stop is None else torch.clamp(i0 + k, max=start_index(stop))
     cnt, _, en_sel = _select_boundaries(s.sensor_start, s.sensor_end, i0, method)
     active = (cnt - _started(s.sensor_end, i0, method)) > 0
     return (~(active & (en_sel >= hi[None, :]))).T

@@ -400,20 +400,22 @@ def _hash_normal(
     return z if tail else z[:, 0]
 
 
-def render(s: Scenario, t0: int, n: int) -> torch.Tensor:
+def render(s: Scenario, t0, n: int) -> torch.Tensor:
     """Render ``n`` samples starting at absolute sample ``t0`` on the
     scenario's device: ``(n,)`` unbatched or ``(n, R)``.  Pure in the
     absolute index, so any chunking concatenates to the whole trace bit
-    for bit."""
+    for bit.  ``t0`` is an int or a 0-d int32 tensor on the device
+    (``faults.start_index``)."""
     dev = s.device
-    idx = int(t0) + torch.arange(n, dtype=torch.int32, device=dev)
+    t0 = FLT.start_index(t0)
+    idx = t0 + torch.arange(n, dtype=torch.int32, device=dev)
     w = s.edge_width
     if w > 1:
         # Zero-padded window mean over [i-(w-1-c), i+c], c=(w-1)//2 — the
         # window of np.convolve(p, ones(w)/w, mode="same").
         c = (w - 1) // 2
         lo = w - 1 - c
-        eidx = (int(t0) - lo) + torch.arange(n + w - 1, dtype=torch.int32, device=dev)
+        eidx = (t0 - lo) + torch.arange(n + w - 1, dtype=torch.int32, device=dev)
         if s.edge_pad == "clamp":
             base = _base(s, torch.clamp(eidx, 0, s.total_samples - 1))
         else:

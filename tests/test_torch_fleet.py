@@ -151,6 +151,4 @@ def test_scenario_host_resume_is_bitwise(setup):
 def test_unported_engines_raise(setup):
     p = setup["port"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfleet.condition(setup["ts"], p["cfg"], p["spec"], engine="scanned", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfleet.condition(setup["ts"], p["cfg"], p["spec"], mesh=object(), device="cpu")

@@ -233,11 +233,33 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    exactly.  It prints each engine's warm wall time.  Then the scanned
    engine as in phase 4 (its capture records pdu_health in the events
    mode 18 times), bit for bit the host engine's run.
+14. The controller's per-step oracle and the paper benches that need it,
+   at the reference's sizes (``benchmarks/paper_benches.py``), each with
+   the launch counters set to 0 just before its timed run and read just
+   after: (a) Fig. 12 (``FIG12``: ``simulate_soc_management`` from SoC
+   0.62, 400 steps of 80 cold iterations through the plan) must launch
+   admm_step once a step (the unbatched solve lifted to one column), end
+   within the deadband of 0.5 and stay inside [0.10, 0.90], and match the
+   same run on the plain versions (``ops.forced("ref")``) within
+   ``FIG12_SOC_TOL`` with the same convergence step; it prints the
+   convergence time and both walls.  (b) ``fleet_1024racks``
+   (``FLEET_SCALE``: 1024 racks of a 44 s testbench trace at 200 Hz,
+   staggered by ``fleet.staggered_fleet``) through ``pdu.condition`` cold
+   (``use_plan=False``, the per-step oracle, 120 iterations) and warm
+   (the plan, 30), each after a warm-up run: pdu_health once an interval
+   in both, admm_step never cold and once an interval warm, the campus
+   ramp within 0.1 /s and the two campus means within
+   ``FLEET_COLD_WARM_TOL``; it prints per-rack microseconds, their ratio,
+   the QP residuals and the ramp.  (c) ``controller_throughput``
+   (``CONTROLLER_THROUGHPUT``: 2048 racks, cold ``inner_loop_step``
+   batched at 120 iterations, warm 4 warm-started plan steps at 30): it
+   prints both rates in rack-solves/s and the last warm residual.
 
 With ``--profile DIR`` it also profiles one more campus run, prefill step,
 generation and training step, rwkv6-7b prefill and generation, a host run
-of the degraded campus and a warm replay of each campus's scanned engine
-(``torch.profiler``), writes the tables and Chrome traces into DIR, and
+of the degraded campus, a warm replay of each campus's scanned engine and
+phase 14's runs (Fig. 12, ``fleet_1024racks`` and ``controller_throughput``
+cold and warm) (``torch.profiler``), writes the tables and Chrome traces into DIR, and
 prints each campus's host engine split into ``core.profiling``'s
 ``render`` / ``solve`` / ``host-sync`` spans.
 
@@ -1516,6 +1538,47 @@ def compare_fig11(got: dict, want: dict) -> list[str]:
         if not abs(g - w) <= lim:
             bad.append(f"{k}: {g} vs {w} (|diff| {abs(g - w):.3e} > {lim:.3e})")
     return bad
+
+
+# Phase 14: the controller's per-step oracle (``pdu.condition(use_plan=
+# False)``) and the paper benches that need it, at the reference's sizes
+# (benchmarks/paper_benches.py).  Fig. 12 (``bench_fig12_soc_management``,
+# examples/power_conditioning.py ``fig12``): one battery from SoC 0.62 back
+# toward S_mid = 0.5, 400 control steps of 5 s, 80 cold ADMM iterations a
+# step through the factor-once plan.
+FIG12 = dict(i_max=4e-3, q_max_seconds=40.0, soc0=0.62, n_steps=400, qp_iters=80)
+# Two float32 runs of Fig. 12 whose ADMM products sum in another order (the
+# port against the JAX package on the CPU, the admm_step kernel against its
+# plain version on the card) hold the SoC trajectory within a few float32
+# ulps of a SoC near 0.5 (6e-8 each; the port vs JAX measured 6e-8) and the
+# convergence step exactly; tests/test_torch_controller.py holds the port to
+# the JAX package with the same bound.  The closest SoC comes to the
+# deadband's edge is 3.6e-5 (step 293 of the cold run), so a flip would
+# take ~600 ulps.
+FIG12_SOC_TOL = 1e-6
+# ``bench_fleet_scale`` (``fleet_1024racks``): 1024 racks of a 44 s
+# testbench trace at 200 Hz with measurement noise, each rolled by up to 800
+# samples; conditioned cold (the per-step oracle, 120 iterations) and warm
+# (the plan, 30 iterations).  Neither draw can be JAX's (threefry).
+FLEET_SCALE = dict(n_racks=1024, duration_s=44.0, sample_hz=200.0, trace_seed=7,
+                   stagger_seed=8, max_offset_samples=800, cold_iters=120, warm_iters=30)
+# The reference's own bound between the cold and warm paths' outputs
+# (tests/test_controller_plan.py::test_condition_plan_matches_per_step_path:
+# grid and SoC within 1e-3, well under the compliance scales).
+FLEET_COLD_WARM_TOL = 1e-3
+# ``bench_controller_throughput``: 2048 racks at SoCs drawn in [0.3, 0.7),
+# cold = ``inner_loop_step`` batched (per-rack build + factor + 120
+# iterations), warm = 4 warm-started steps of ``inner_loop_step_plan`` (30).
+CONTROLLER_THROUGHPUT = dict(n_racks=2048, n_steps=4, soc_seed=12, cold_iters=120, warm_iters=30)
+
+
+def convergence_step(soc, deadband: float, target: float = 0.5) -> int | None:
+    """The first step whose SoC lies within ``deadband`` of ``target``, as
+    the reference's Fig. 12 reads it (None if no step does)."""
+    import numpy as np
+
+    hit = np.flatnonzero(np.abs(np.asarray(soc) - np.float32(target)) <= np.float32(deadband))
+    return int(hit[0]) if hit.size else None
 
 
 def _median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
@@ -3661,6 +3724,191 @@ def phase_fig11(dev) -> dict:
             "burn_vs_easyrider_frac": got["burn_vs_easyrider_frac"]}
 
 
+def phase_fig12(dev, profile_dir: Path | None = None) -> dict:
+    """Phase 14a: paper Fig. 12 through the port (a warm-up run, then the
+    timed one), its checks, and the same run on the plain versions
+    (``ops.forced("ref")``) held to it; with ``profile_dir`` one more run
+    under the profiler."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import controller as ctrl, ess
+    from repro_torch.kernels import admm_step, ops
+
+    f = FIG12
+    cfg = ctrl.ControllerConfig.create(i_max=f["i_max"], device=dev)
+    es = ess.ESSParams.create(q_max_seconds=f["q_max_seconds"], device=dev)
+
+    def run():
+        t0 = time.perf_counter()
+        out = ctrl.simulate_soc_management(cfg, es, f["soc0"], n_steps=f["n_steps"],
+                                           qp_iters=f["qp_iters"])
+        soc = out["soc"].cpu().numpy()
+        return soc, time.perf_counter() - t0
+
+    run()  # warm-up: the timed run below finds the handles and caches made
+    admm_step.admm_iterate.launches = 0
+    soc, wall = run()
+    launches = admm_step.admm_iterate.launches
+    with ops.forced("ref"):
+        soc_ref, plain_wall = run()
+    db = float(cfg.deadband)
+    hit, hit_ref = convergence_step(soc, db), convergence_step(soc_ref, db)
+    err = float(np.max(np.abs(soc.astype(np.float64) - soc_ref)))
+    minutes = None if hit is None else hit * float(cfg.dt) / 60.0
+    print(f"[Fig 12] SoC {f['soc0']} -> {soc[-1]:.6f} in "
+          f"{'never' if minutes is None else f'{minutes:.2f} min'} (step {hit}; paper: converges "
+          f"to S_mid=0.5 in ~20 min), {f['n_steps']} steps in {wall:.3f} s wall "
+          f"(plain versions {plain_wall:.3f} s), admm_step launches {launches}")
+    print(f"fig12 kernels vs plain versions: SoC max |diff| {err:.3e} (tolerance "
+          f"{FIG12_SOC_TOL:.0e}), convergence step {hit} vs {hit_ref}")
+    _check(launches == f["n_steps"], f"fig12: admm_step must launch once a step, got {launches}")
+    _check(hit is not None and abs(float(soc[-1]) - 0.5) <= db,
+           f"fig12: SoC must end within the deadband {db} of 0.5, got {soc[-1]}")
+    _check(0.10 <= float(soc.min()) and float(soc.max()) <= 0.90, "fig12: SoC must stay in [0.10, 0.90]")
+    if hit != hit_ref:
+        k = min(i for i in (hit, hit_ref) if i is not None)
+        _check(False, f"fig12: convergence step {hit} vs {hit_ref} on the plain versions; margin "
+                      f"|S - S*| - deadband at step {k}: {abs(float(soc[k]) - 0.5) - db:.3e} "
+                      f"(kernel), {abs(float(soc_ref[k]) - 0.5) - db:.3e} (plain)")
+    _check(err <= FIG12_SOC_TOL, f"fig12: SoC trajectory vs the plain versions {err:.3e}")
+    if profile_dir is not None:
+        profile_run("fig12", lambda: run()[1], profile_dir)
+    return dict(launches=launches, wall_s=wall, plain_wall_s=plain_wall, soc_final=float(soc[-1]),
+                converge_step=hit, converge_min=minutes, max_abs_err=err)
+
+
+def phase_fleet_scale(dev, profile_dir: Path | None = None) -> dict:
+    """Phase 14b: ``bench_fleet_scale`` at 1024 racks: ``pdu.condition`` on
+    the per-step oracle (cold) and on the plan (warm), each run once to warm
+    up and once timed with the launch counts read around it; with
+    ``profile_dir`` each once more under the profiler."""
+    import torch
+
+    from repro_torch.core import compliance, fleet, pdu
+    from repro_torch.kernels import admm_step, pdu_health
+    from repro_torch.power import trace
+
+    f = FLEET_SCALE
+    sp = trace.TestbenchSpec(duration_s=f["duration_s"], sample_hz=f["sample_hz"])
+    t1, dt = trace.testbench_trace(sp, torch.Generator(device=dev).manual_seed(f["trace_seed"]),
+                                   device=dev)
+    racks = fleet.staggered_fleet(
+        t1, f["n_racks"], torch.Generator(device=dev).manual_seed(f["stagger_seed"]),
+        max_offset_samples=f["max_offset_samples"], device=dev)
+    cfg = pdu.make_pdu(sample_dt=dt, device=dev)
+    n_ctrl = -(-racks.shape[0] // int(round(float(cfg.controller.dt) / dt)))
+
+    def run(use_plan, iters):
+        t0 = time.perf_counter()
+        st = pdu.init_state(cfg, racks[0])
+        grid, _, telem = pdu.condition(cfg, st, racks, qp_iters=iters, use_plan=use_plan)
+        campus, resid = torch.mean(grid, dim=1), torch.amax(telem.qp_residual)
+        torch.cuda.synchronize()
+        return campus, resid, time.perf_counter() - t0
+
+    res, campus = {}, {}
+    cases = (("cold", False, f["cold_iters"]), ("warm", True, f["warm_iters"]))
+    for name, use_plan, iters in cases:
+        run(use_plan, iters)
+        pdu_health.pdu_health_sim.launches = 0
+        admm_step.admm_iterate.launches = 0
+        campus[name], resid, wall = run(use_plan, iters)
+        res[name] = dict(resid=float(resid), wall_s=wall,
+                         us_per_rack=wall * 1e6 / f["n_racks"],
+                         launches=(pdu_health.pdu_health_sim.launches,
+                                   admm_step.admm_iterate.launches),
+                         ramp=float(compliance.max_abs_ramp(campus[name], dt)))
+    cold, warm = res["cold"], res["warm"]
+    diff = float(torch.max(torch.abs(campus["cold"] - campus["warm"])))
+    print(f"fleet_1024racks {f['n_racks']} racks x {racks.shape[0]} samples ({n_ctrl} intervals): "
+          f"cold (per-step oracle, {f['cold_iters']} iterations) {cold['wall_s']:.4f} s = "
+          f"{cold['us_per_rack']:.1f} us/rack, warm (plan, {f['warm_iters']}) {warm['wall_s']:.4f} s "
+          f"= {warm['us_per_rack']:.1f} us/rack, cold / warm {cold['wall_s'] / warm['wall_s']:.2f}x")
+    print(f"fleet_1024racks campus_ramp warm {warm['ramp']:.6f}/s cold {cold['ramp']:.6f}/s, "
+          f"qp_resid cold {cold['resid']:.3e} warm {warm['resid']:.3e}, campus mean cold vs warm "
+          f"{diff:.3e}; launches pdu_health/admm_step cold {cold['launches']} warm {warm['launches']}")
+    for name in ("cold", "warm"):
+        _check(res[name]["ramp"] <= 0.1, f"fleet_1024racks {name}: campus ramp {res[name]['ramp']}")
+    _check(diff <= FLEET_COLD_WARM_TOL, f"fleet_1024racks: campus means cold vs warm {diff:.3e}")
+    _check(cold["launches"] == (n_ctrl, 0),
+           f"fleet_1024racks cold: pdu_health once an interval, admm_step never, got {cold['launches']}")
+    _check(warm["launches"] == (n_ctrl, n_ctrl),
+           f"fleet_1024racks warm: each kernel once an interval, got {warm['launches']}")
+    if profile_dir is not None:
+        for name, use_plan, iters in cases:
+            profile_run(f"fleet_1024racks_{name}", lambda: run(use_plan, iters)[2], profile_dir)
+    return dict(res, n_ctrl=n_ctrl, cold_warm_ratio=cold["wall_s"] / warm["wall_s"],
+                campus_cold_warm_diff=diff)
+
+
+def phase_controller_throughput(dev, profile_dir: Path | None = None) -> dict:
+    """Phase 14c: ``bench_controller_throughput`` at 2048 racks: rack-solves/s
+    of the per-step oracle (cold, batched) and of warm-started plan steps;
+    with ``profile_dir`` each once more under the profiler."""
+    import torch
+
+    from repro_torch.core import controller as ctrl, ess
+    from repro_torch.kernels import admm_step
+
+    f = CONTROLLER_THROUGHPUT
+    n = f["n_racks"]
+    cfg = ctrl.ControllerConfig.create(device=dev)
+    es = ess.ESSParams.create(q_max_seconds=40.0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(f["soc_seed"])
+    socs = 0.3 + 0.4 * torch.rand(n, generator=gen, device=dev)
+    tgt = torch.tensor(0.5, device=dev)
+    ups = torch.zeros(n, device=dev)
+    plan = ctrl.make_plan(cfg, es)
+
+    def cold():
+        return ctrl.inner_loop_step(cfg, es, socs, tgt, ups, qp_iters=f["cold_iters"]).corrective_power
+
+    def warm():
+        soc, up, w = socs, torch.zeros_like(socs), ctrl.init_warm(plan, socs.shape, device=dev)
+        resid = []
+        for _ in range(f["n_steps"]):
+            out, w = ctrl.inner_loop_step_plan(cfg, es, plan, soc, tgt, up, w,
+                                               qp_iters=f["warm_iters"])
+            soc = soc - out.corrective_power * cfg.dt / es.q_max
+            up = out.corrective_power / cfg.i_max
+            resid.append(out.qp_primal_residual)
+        return torch.stack(resid)
+
+    def wall(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def timed(fn):
+        wall(fn)
+        admm_step.admm_iterate.launches = 0
+        return (*wall(fn), admm_step.admm_iterate.launches)
+
+    cmd, cold_s, cold_launches = timed(cold)
+    resid, warm_s, warm_launches = timed(warm)
+    cold_rate = n / cold_s
+    warm_rate = n / (warm_s / f["n_steps"])
+    last = float(torch.max(resid[-1]))
+    print(f"controller_throughput {n} racks: racksolves_per_s cold {cold_rate:.0f} "
+          f"(per-step oracle, {f['cold_iters']} iterations, {cold_s:.4f} s) warm {warm_rate:.0f} "
+          f"(plan, {f['warm_iters']} iterations, {f['n_steps']} steps in {warm_s:.4f} s), "
+          f"warm / cold {warm_rate / cold_rate:.2f}x, warm_resid {last:.3e}; admm_step launches "
+          f"cold {cold_launches} warm {warm_launches}")
+    i_max = float(cfg.i_max)
+    _check(tuple(cmd.shape) == (n,) and bool(torch.isfinite(cmd).all())
+           and float(cmd.abs().max()) <= i_max, "controller_throughput: cold commands")
+    _check(bool(torch.isfinite(resid).all()), "controller_throughput: warm residuals")
+    _check((cold_launches, warm_launches) == (0, f["n_steps"]),
+           f"controller_throughput: admm_step launches cold/warm {(cold_launches, warm_launches)}")
+    if profile_dir is not None:
+        for name, fn in (("cold", cold), ("warm", warm)):
+            profile_run(f"controller_throughput_{name}", lambda: wall(fn)[1], profile_dir)
+    return dict(cold_racksolves_per_s=cold_rate, warm_racksolves_per_s=warm_rate, cold_s=cold_s,
+                warm_s=warm_s, warm_resid=last, launches_warm=warm_launches)
+
+
 def phase_quickstart(dev) -> tuple[int, int]:
     """The quickstart flow through the port (a single rack: the kernels run
     one column); returns the kernels' launch counts."""
@@ -4133,8 +4381,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", type=Path, default=None,
                     help="also profile one campus run, prefill step, generation, training "
-                         "step, rwkv6-7b prefill and generation and a degraded campus run; "
-                         "write the tables and traces here")
+                         "step, rwkv6-7b prefill and generation, a degraded campus run and "
+                         "phase 14's runs; write the tables and traces here")
     opts = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -4236,6 +4484,15 @@ def main() -> int:
     fig11 = phase_fig11(dev)
     for name, n in zip(("pdu_health", "admm_step"), fig11["counts"]):
         kernels[name]["launches_fig11"] = n
+    fig12 = phase_fig12(dev, opts.profile)
+    fleet_scale = phase_fleet_scale(dev, opts.profile)
+    throughput = phase_controller_throughput(dev, opts.profile)
+    kernels["admm_step"].update(
+        launches_fig12=fig12["launches"], launches_fleet_cold=fleet_scale["cold"]["launches"][1],
+        launches_fleet_warm=fleet_scale["warm"]["launches"][1],
+        launches_controller_throughput_warm=throughput["launches_warm"])
+    kernels["pdu_health"].update(launches_fleet_cold=fleet_scale["cold"]["launches"][0],
+                                 launches_fleet_warm=fleet_scale["warm"]["launches"][0])
     if opts.profile is not None:
         c = FAULTY_CAMPUS
         profile_run("faulty_campus", lambda: run_faulty_campus(
@@ -4256,6 +4513,20 @@ def main() -> int:
                       "fig11": {k: fig11[k] for k in ("wall_s", "envelope_ms",
                                                       "burn_vs_easyrider_frac")},
                       "stablelm_prefill_s": stablelm["prefill_s"],
+                      "fig12": {k: fig12[k] for k in ("wall_s", "plain_wall_s", "soc_final",
+                                                      "converge_min")},
+                      "fleet_1024racks": {
+                          "cold_s": fleet_scale["cold"]["wall_s"],
+                          "warm_s": fleet_scale["warm"]["wall_s"],
+                          "cold_us_per_rack": fleet_scale["cold"]["us_per_rack"],
+                          "warm_us_per_rack": fleet_scale["warm"]["us_per_rack"],
+                          "cold_warm_ratio": fleet_scale["cold_warm_ratio"],
+                          "campus_ramp": fleet_scale["warm"]["ramp"],
+                          "qp_resid_cold": fleet_scale["cold"]["resid"],
+                          "qp_resid_warm": fleet_scale["warm"]["resid"]},
+                      "controller_throughput": {
+                          k: throughput[k] for k in ("cold_racksolves_per_s",
+                                                     "warm_racksolves_per_s", "warm_resid")},
                       "campus_s": {"host": campus["host_s"],
                                    "scanned_cold": campus["scanned"]["cold_s"],
                                    "scanned_warm": campus["scanned"]["warm_s"],

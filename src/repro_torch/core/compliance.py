@@ -64,6 +64,12 @@ def max_abs_ramp(power: torch.Tensor, dt: float) -> torch.Tensor:
     return torch.amax(torch.abs(ramp_rate(power, dt)), dim=0)
 
 
+def violation_fraction(power: torch.Tensor, dt: float, spec: GridSpec) -> torch.Tensor:
+    """Fraction of time steps whose local ramp exceeds beta (diagnostics)."""
+    r = torch.abs(ramp_rate(power, dt))
+    return torch.mean((r > spec.beta).to(torch.float32), dim=0)
+
+
 def _hann(n: int, device) -> torch.Tensor:
     """Periodic Hann window ``0.5 - 0.5 cos(2 pi i / n)`` (float64)."""
     i = torch.arange(n, dtype=torch.float64, device=device)

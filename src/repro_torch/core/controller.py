@@ -1,27 +1,38 @@
 """Battery lifetime management controller (paper §6, Appendix B).
 
-Port of the plan-based path of ``repro.core.controller``:
+Port of ``repro.core.controller``:
 
   * **Outer loop** (``select_target``): the SoC target S* — S_mid while
     training, dropping toward S_idle in long idle windows, bounded by the
     usable idle budget and scaled by consumed cycle life (``wear_gain``).
   * **Inner loop** (every 5 s): the receding-horizon QP (paper Eq. 13-17)
     over H intervals with the corrective current split ``i = c - d``,
-    factored once per configuration (``make_plan``) and solved for every
-    rack at once by a fixed number of warm-started OSQP-style ADMM
-    iterations (``solve_qp_admm_plan``), whose iteration loop is the
-    ``admm_step`` kernel (``kernels.ops.admm_iterate``).
+    solved by a fixed number of OSQP-style ADMM iterations.  Two paths
+    compute it:
 
-Everything is float32 with currents as fractions of rated rack power.  The
-per-step QP assembly and cold-start solver of the reference
-(``_build_qp``, ``solve_qp_admm``, ``inner_loop_step``) come with the
-``use_plan=False`` path in a later slice (ROADMAP.md, queue 1 item 2).
+    - the factor-once plan (``make_plan``), solved for every rack at once
+      by warm-started iterations (``solve_qp_admm_plan``,
+      ``inner_loop_step_plan``) whose loop is the ``admm_step`` kernel
+      (``kernels.ops.admm_iterate``): what ``pdu.condition`` runs by
+      default;
+    - the per-step oracle: the QP assembled per rack and step
+      (``_build_qp``), its KKT matrix factored per rack and solved cold
+      (``solve_qp_admm``, ``inner_loop_step``) in ``torch.linalg``, as the
+      reference does it in ``jax.scipy.linalg`` (no TPU kernel): the
+      baseline ``pdu.condition(use_plan=False)`` runs, and the oracle the
+      plan is held against.
+
+    ``simulate_soc_management`` closes the loop over one battery (paper
+    Fig. 12) through the plan.
+
+Everything is float32 with currents as fractions of rated rack power.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.ess import ESSParams
@@ -36,6 +47,57 @@ class QPSolution(NamedTuple):
     x: torch.Tensor
     primal_residual: torch.Tensor
     dual_residual: torch.Tensor
+
+
+def _mv(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Batched matrix-vector product ``(..., m, n) x (..., n) -> (..., m)``."""
+    return (m @ v[..., None])[..., 0]
+
+
+def solve_qp_admm(
+    p_mat: torch.Tensor,  # (..., n, n)
+    q: torch.Tensor,  # (..., n)
+    a_mat: torch.Tensor,  # (..., m, n)
+    lo: torch.Tensor,  # (..., m)
+    hi: torch.Tensor,
+    *,
+    rho: float = 1.0,
+    sigma: float = 1e-6,
+    iters: int = 250,
+) -> QPSolution:
+    """OSQP-style ADMM for ``min 1/2 x'Px + q'x  s.t.  lo <= Ax <= hi``,
+    cold-started, with the KKT matrix ``P + sigma I + rho A'A`` Cholesky-
+    factored once per call and per batch entry (leading axes are a batch,
+    as the reference's ``jax.vmap``), then ``iters`` fixed steps.  The
+    residuals are maxima over the constraint (primal) and variable (dual)
+    axes.  A factorization that fails raises ``torch.linalg.LinAlgError``
+    naming the batch entry; its ``info`` is read once, after the loop."""
+    n = q.shape[-1]
+    eye = torch.eye(n, dtype=q.dtype, device=q.device)
+    a_mat = a_mat.contiguous()  # a batch expanded from one matrix: copied once, not per product
+    a_t = a_mat.transpose(-1, -2)
+    kkt = p_mat + sigma * eye + rho * (a_t @ a_mat)
+    chol, info = torch.linalg.cholesky_ex(kkt)
+    x = torch.zeros_like(q)
+    z = torch.clamp(_mv(a_mat, x), lo, hi)
+    y = torch.zeros_like(z)
+    for _ in range(iters):
+        rhs = sigma * x - q + _mv(a_t, rho * z - y)
+        x = torch.cholesky_solve(rhs[..., None], chol)[..., 0]
+        ax = _mv(a_mat, x)
+        z_new = torch.clamp(ax + y / rho, lo, hi)
+        y = y + rho * (ax - z_new)
+        z = z_new
+    bad = torch.nonzero(info.reshape(-1)).reshape(-1).tolist()
+    if bad:
+        where = np.unravel_index(bad[0], info.shape) if info.ndim else ()
+        raise torch.linalg.LinAlgError(
+            f"solve_qp_admm: the KKT matrix of batch entry {tuple(map(int, where))} is not "
+            f"positive definite ({len(bad)} of {info.numel()} entries failed)")
+    ax = _mv(a_mat, x)
+    primal = torch.amax(torch.abs(ax - torch.clamp(ax, lo, hi)), dim=-1)
+    dual = torch.amax(torch.abs(_mv(p_mat, x) + q + _mv(a_t, y)), dim=-1)
+    return QPSolution(x=x, primal_residual=primal, dual_residual=dual)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +175,80 @@ def select_target(
     useful = (cfg.s_mid - target) >= cfg.delta_s_min
     in_storage = (idle_remaining_s >= cfg.t_enter) & useful
     return torch.where(in_storage, target, cfg.s_mid)
+
+
+# --------------------------------------------------------------------------
+# Inner loop: the per-step QP (paper Eq. 13-17)
+# --------------------------------------------------------------------------
+
+
+def _build_qp(
+    cfg: ControllerConfig,
+    ess: ESSParams,
+    soc_now: torch.Tensor,
+    s_target: torch.Tensor,
+    u_prev: torch.Tensor,
+):
+    """Assemble ``(P, q, A, lo, hi)`` for ``x = [c_0..c_{H-1}, d_0..d_{H-1}]``
+    (see ``repro.core.controller._build_qp``).
+
+    SoC trajectory ``S_k = S_0 + (dt/Q)(eta_c cumsum(c) - cumsum(d)/eta_d)``,
+    error ``e_k = (S_k - S*) / dS_ref``, command ``u_k = (c_k - d_k)/imax``;
+    objective ``sum_k e_{k+1}^2 + lam_i (c_k^2 + d_k^2)/imax^2 +
+    lam_delta (u_k - u_{k-1})^2 + lam_term e_H^2``; constraints ``0 <= c, d
+    <= imax`` and the SoC safe band.  The leading shape of ``soc_now``,
+    ``s_target`` and ``u_prev`` (broadcast together) is a batch of racks:
+    ``P (..., 2h, 2h)``, ``q (..., 2h)``, ``A (..., 3h, 2h)``, ``lo``/``hi
+    (..., 3h)``, the config-only ``P`` and ``A`` expanded over it.  Kept
+    independent of ``make_plan``, which the tests hold against it."""
+    h = cfg.horizon
+    dt = cfg.dt
+    dev = dt.device
+    as32 = lambda v: torch.as_tensor(v, dtype=F32, device=dev)
+    soc_now, s_target, u_prev = as32(soc_now), as32(s_target), as32(u_prev)
+    batch = torch.broadcast_shapes(soc_now.shape, s_target.shape, u_prev.shape)
+    eye = lambda n: torch.eye(n, dtype=F32, device=dev)
+    ds_ref = torch.clamp(torch.abs(cfg.s_mid - cfg.s_idle), min=0.05)
+
+    # S_{k+1} = S_0 + rows of L @ (eta_c c - d / eta_d) dt / Q.
+    ltri = torch.tril(torch.ones((h, h), dtype=F32, device=dev))
+    g_c = (dt / ess.q_max) * ess.eta_c * ltri
+    g_d = -(dt / ess.q_max) / ess.eta_d * ltri
+    g = torch.cat([g_c, g_d], dim=1)  # (h, 2h): S_{1..H} = S_0 + G x
+
+    e0 = (soc_now - s_target) / ds_ref
+    w = torch.ones(h, dtype=F32, device=dev)
+    w[h - 1] += cfg.lam_term  # stage + terminal weight
+    ge = g / ds_ref
+    p_track = 2.0 * (ge.T * w) @ ge
+    q_track = _mv(2.0 * ge.T, w * e0[..., None])
+
+    p_mag = 2.0 * cfg.lam_i / (cfg.i_max**2) * eye(2 * h)
+
+    # Smoothness on u = (c - d) / imax, the first row against u_prev.
+    diff = eye(h) - torch.diag(torch.ones(h - 1, dtype=F32, device=dev), -1)
+    sel = torch.cat([eye(h), -eye(h)], dim=1) / cfg.i_max
+    dmat = diff @ sel  # (h, 2h)
+    p_smooth = 2.0 * cfg.lam_delta * dmat.T @ dmat
+    q_smooth = _mv(-2.0 * cfg.lam_delta * dmat.T, eye(h)[:, 0] * u_prev[..., None])
+
+    p_mat = p_track + p_mag + p_smooth
+    q_vec = q_track + q_smooth
+
+    a_mat = torch.cat([eye(2 * h), g], dim=0)
+    lo_box = torch.zeros(2 * h, dtype=F32, device=dev)
+    hi_box = cfg.i_max.expand(2 * h)
+    lo_soc = ess.soc_safe_min.expand(h) - soc_now[..., None]
+    hi_soc = ess.soc_safe_max.expand(h) - soc_now[..., None]
+    lo = torch.cat([lo_box.expand(batch + (2 * h,)), lo_soc.expand(batch + (h,))], dim=-1)
+    hi = torch.cat([hi_box.expand(batch + (2 * h,)), hi_soc.expand(batch + (h,))], dim=-1)
+    return (
+        p_mat.expand(batch + p_mat.shape),
+        q_vec.expand(batch + (2 * h,)),
+        a_mat.expand(batch + a_mat.shape),
+        lo,
+        hi,
+    )
 
 
 # --------------------------------------------------------------------------
@@ -285,6 +421,39 @@ class ControllerOutput(NamedTuple):
     qp_primal_residual: torch.Tensor
 
 
+def inner_loop_step(
+    cfg: ControllerConfig,
+    ess: ESSParams,
+    soc_now: torch.Tensor,
+    s_target: torch.Tensor,
+    u_prev: torch.Tensor,
+    *,
+    qp_iters: int = 250,
+) -> ControllerOutput:
+    """One 5-second control step on the per-step oracle: build the QP
+    (``_build_qp``), solve it cold (``solve_qp_admm``), apply the first
+    action ``c_0 - d_0``, clipped to the current limit and zeroed inside the
+    deadband ``|S - S*| <= eps``.  Any batch shape of ``soc_now`` /
+    ``s_target`` / ``u_prev`` (broadcast together) is a batch of racks, each
+    with its own factorization, as the reference's ``jax.vmap`` of it."""
+    soc_now = torch.as_tensor(soc_now, dtype=F32, device=cfg.dt.device)
+    s_target = torch.as_tensor(s_target, dtype=F32, device=cfg.dt.device)
+    p_mat, q_vec, a_mat, lo, hi = _build_qp(cfg, ess, soc_now, s_target, u_prev)
+    sol = solve_qp_admm(p_mat, q_vec, a_mat, lo, hi, iters=qp_iters)
+    h = cfg.horizon
+    # The command is a current limit; ADMM's iterate may sit slightly
+    # outside the box before full convergence.
+    i0 = torch.clamp(sol.x[..., 0] - sol.x[..., h], -cfg.i_max, cfg.i_max)
+    in_deadband = torch.abs(soc_now - s_target) <= cfg.deadband
+    i0 = torch.where(in_deadband, 0.0, i0)
+    return ControllerOutput(
+        corrective_power=i0,
+        s_target=s_target.expand(i0.shape),
+        in_deadband=in_deadband.expand(i0.shape),
+        qp_primal_residual=sol.primal_residual,
+    )
+
+
 def inner_loop_step_plan(
     cfg: ControllerConfig,
     ess: ESSParams,
@@ -322,3 +491,56 @@ def inner_loop_step_plan(
         qp_primal_residual=resid,
     )
     return out, w2
+
+
+def simulate_soc_management(
+    cfg: ControllerConfig,
+    ess: ESSParams,
+    soc0: torch.Tensor | float,
+    n_steps: int,
+    *,
+    idle_remaining_s: torch.Tensor | float = 0.0,
+    drift_power: torch.Tensor | float = 0.0,
+    qp_iters: int = 120,
+    warm_start: bool = False,
+) -> dict:
+    """Closed-loop SoC trajectory of one battery under the controller
+    (paper Fig. 12), a Python loop of ``n_steps`` control steps on the
+    config's device.
+
+    The plan is factored once (``make_plan``); each step runs
+    ``inner_loop_step_plan`` (its unbatched solve lifted to one column of
+    the ``admm_step`` kernel on the card), cold-started by default as the
+    reference's Fig. 12 is (a fixed-iteration cold solve lands slightly
+    above the optimum's command magnitude near the target, the regime the
+    paper's ~20 min matches), warm-started with ``warm_start=True``.
+    ``drift_power`` is a constant parasitic charge (+) / discharge (-)
+    power.  The SoC is clipped to the safe band and ``u_prev`` is the
+    command over ``i_max``.  Returns ``{"soc", "command", "target"}``, each
+    of shape ``(n_steps,)``."""
+    dev = cfg.dt.device
+    idle = torch.as_tensor(idle_remaining_s, dtype=F32, device=dev)
+    drift = torch.as_tensor(drift_power, dtype=F32, device=dev)
+    plan = make_plan(cfg, ess)
+    soc = torch.as_tensor(soc0, dtype=F32, device=dev)
+    u_prev = torch.zeros((), dtype=F32, device=dev)
+    warm = init_warm(plan, device=dev)
+    socs, cmds, tgts = [], [], []
+    for k in range(n_steps):
+        idle_left = torch.clamp(idle - float(k) * cfg.dt, min=0.0)
+        s_target = select_target(cfg, ess, idle_left)
+        out, warm2 = inner_loop_step_plan(
+            cfg, ess, plan, soc, s_target, u_prev,
+            warm if warm_start else None, qp_iters=qp_iters,
+        )
+        p_batt = out.corrective_power + drift
+        charge = torch.clamp(p_batt, min=0.0)
+        discharge = torch.clamp(-p_batt, min=0.0)
+        soc = soc + (cfg.dt / ess.q_max) * (ess.eta_c * charge - discharge / ess.eta_d)
+        soc = torch.clamp(soc, ess.soc_safe_min, ess.soc_safe_max)
+        u_prev = out.corrective_power / cfg.i_max
+        warm = warm2
+        socs.append(soc)
+        cmds.append(out.corrective_power)
+        tgts.append(s_target)
+    return {"soc": torch.stack(socs), "command": torch.stack(cmds), "target": torch.stack(tgts)}

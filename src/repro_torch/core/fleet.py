@@ -25,7 +25,8 @@ Engines:
     providers too, and the stream can resume from a result's ``state``.
     ``profiling`` spans time its phases.
   * ``"oneshot"``: materialize the whole ``(T, R)`` trace and grid
-    waveform and check compliance on the whole campus means.
+    waveform and check compliance on the whole campus means; the one
+    engine that takes ``use_plan=False`` (the per-step controller oracle).
 
 Under a degraded-mode config a ``Scenario`` carrying a fault schedule runs
 degraded: the scanned and host engines hand the schedule to
@@ -90,6 +91,46 @@ class ConditioningResult(NamedTuple):
         )
 
 
+def synchronous_aggregate(rack_power: torch.Tensor, n_racks: int) -> torch.Tensor:
+    """Eq. 19: ``P_IT = N P_i`` for lockstep racks; per-unit traces are
+    scale-invariant (Eq. 20), so the per-unit campus trace is the rack's."""
+    return rack_power
+
+
+def staggered_fleet(
+    rack_trace: torch.Tensor,  # (T,)
+    n_racks: int,
+    generator: torch.Generator | None = None,
+    *,
+    max_offset_samples: int = 0,
+    scale_jitter: float = 0.0,
+    device="cuda",
+) -> torch.Tensor:
+    """``(T, n_racks)`` traces: copies of ``rack_trace`` rolled by offsets
+    drawn uniformly from ``[0, max_offset_samples)`` and scaled by ``1 +
+    scale_jitter u`` with ``u`` uniform in ``[-1, 1)``, both drawn from
+    ``generator`` on ``device`` (torch's default generator if None).  The
+    port cannot reproduce ``jax.random``'s threefry bits, so one seed gives
+    other offsets and scales than the reference's key; ``_stagger`` takes
+    drawn ones, e.g. the reference's."""
+    dev = resolve_device(device)
+    if max_offset_samples > 0:
+        offsets = torch.randint(0, max_offset_samples, (n_racks,), generator=generator,
+                                device=dev)
+    else:
+        offsets = torch.zeros(n_racks, dtype=torch.int64, device=dev)
+    u = torch.rand(n_racks, generator=generator, dtype=F32, device=dev) * 2.0 - 1.0
+    return _stagger(rack_trace.to(device=dev, dtype=F32), offsets, 1.0 + scale_jitter * u)
+
+
+def _stagger(rack_trace: torch.Tensor, offsets: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Column r is ``roll(rack_trace, offsets[r]) * scales[r]``."""
+    t = rack_trace.shape[0]
+    idx = torch.remainder(
+        torch.arange(t, device=rack_trace.device)[:, None] - offsets.to(torch.int64)[None, :], t)
+    return rack_trace[idx] * scales.to(rack_trace.dtype)[None, :]
+
+
 def apply_failures(traces: torch.Tensor, fail_times, p_idle: float = 0.1) -> torch.Tensor:
     """Racks drop to ``p_idle`` from their failure sample on (-1 = never),
     through a one-episode fault schedule (``power.faults``), as the
@@ -124,8 +165,8 @@ def _condition_fleet_impl(
     plan=None,
 ) -> ConditioningResult:
     """One-shot: condition every rack over the whole trace; check campus
-    compliance on the whole campus means.  ``ess_online``/``ess_weight``
-    (degraded mode) as in ``pdu.condition``."""
+    compliance on the whole campus means.  ``use_plan`` and
+    ``ess_online``/``ess_weight`` (degraded mode) as in ``pdu.condition``."""
     traces = traces.to(device=cfg.device, dtype=F32)
     state = pdu.init_state(cfg, traces[0], soc0=soc0)
     grid, state_f, telem = pdu.condition(
@@ -721,9 +762,11 @@ def condition(
     windowing and resume options (``StreamOptions``).  ``device`` is where
     every tensor of the run lives; it defaults to ``"cuda"`` (raising
     without a card) and must be the config's device (``make_pdu(device=
-    ...)``).  Remaining keywords (``soc0``, ``qp_iters``, ``plan``; for the
-    host and one-shot engines ``use_plan``, and under a degraded-mode config
-    ``ess_online``/``ess_weight``) pass through.
+    ...)``).  Remaining keywords pass through to the engine: ``soc0``,
+    ``qp_iters`` and ``plan`` to every engine; ``use_plan`` to the
+    one-shot engine only (the scanned and host engines refuse it, as the
+    reference's do); under a degraded-mode config ``ess_online`` /
+    ``ess_weight`` to the host and one-shot engines.
     """
     dev = resolve_device(device)
     if dev != cfg.device:

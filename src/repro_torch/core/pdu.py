@@ -21,11 +21,12 @@ sensor dropouts with a last-good-sample hold and forces a rack that is
 dark for a whole interval into passthrough; ``condition`` takes the
 availability as streamed arrays (``ess_online``, ``ess_weight``) or, the
 fast path, as the fault schedule itself (``faults``), whose per-sample ESS
-weight the ``pdu_health`` kernel renders from the episode tables.  Safe
-mode and the build-per-step (``use_plan=False``) controller are later
-slices of the port (ROADMAP.md queue 1 items 2 and 4); asking for them
-raises ``NotImplementedError``.  ``PDUState`` keeps the reference's field
-names.
+weight the ``pdu_health`` kernel renders from the episode tables.
+``use_plan=False`` swaps the controller step for the reference's per-step
+oracle (the QP built, factored and solved cold for every rack each
+interval in ``torch.linalg``; no ``admm_step`` launch).  Safe mode is a
+later slice of the port (ROADMAP.md queue 1 item 4); asking for it raises
+``NotImplementedError``.  ``PDUState`` keeps the reference's field names.
 
 ``condition`` runs inside the scanned engine's CUDA graph
 (``fleet.condition``'s default): given its ``plan`` and its host scalars
@@ -50,8 +51,6 @@ from repro_torch.utils.structures import Struct
 
 F32 = torch.float32
 _SAFEMODE = "safemode is not ported yet: it comes with ROADMAP.md queue 1 item 4 (safe mode)"
-_USE_PLAN = ("use_plan=False is not ported yet: it comes with ROADMAP.md queue 1 item 2 "
-             "(the controller's per-step oracle)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -279,12 +278,18 @@ def condition(
     next target.  A ragged trace is zero-order-hold padded to whole
     intervals and the pad discarded.  ``plan`` overrides the factor-once
     controller plan (``ctrl.make_plan``), e.g. with one carried from the
-    JAX package (``convert.plan_from_numpy``).
+    JAX package (``convert.plan_from_numpy``).  ``use_plan=False`` builds
+    no plan (and refuses ``plan=``): each interval runs the per-step oracle
+    ``ctrl.inner_loop_step`` cold on every rack with ``qp_iters``
+    iterations, the warm iterates carried through unchanged; it reads the
+    factorizations' status back from the card once an interval, so it is
+    not for a CUDA graph.
 
     Degraded mode (``cfg.degraded_mode``), as the reference's:
     ``ess_online`` is the per-interval availability (``(n_ctrl, ...)`` rows
     or one ``(...)`` mask for every interval); offline racks run in LC
-    passthrough with zeroed commands and reset warm iterates.  NaN samples
+    passthrough with zeroed commands (and residuals) and, on the plan's
+    path, reset warm iterates.  NaN samples
     are bridged (``bridge_sensors`` from ``state.last_good``), and a rack
     with no finite sample in an interval is forced into passthrough for it.
     ``ess_weight`` (shaped like ``rack_power``) is the per-sample hardware
@@ -305,8 +310,8 @@ def condition(
     degraded = cfg.degraded_mode
     if cfg.safemode:
         raise NotImplementedError(_SAFEMODE)
-    if not use_plan:
-        raise NotImplementedError(_USE_PLAN)
+    if plan is not None and not use_plan:
+        raise ValueError("plan= is the factor-once controller's: it needs use_plan=True")
     if (ess_online is not None or ess_weight is not None) and not degraded:
         raise ValueError("ess_online/ess_weight require a cfg with degraded_mode=True")
     fast = faults is not None
@@ -371,7 +376,7 @@ def condition(
     chunks = _zoh_pad(rc_all, pad).contiguous().reshape(n_ctrl, k, n_r)
 
     meas_w = consts.meas_w
-    if cfg.software_enabled and plan is None:
+    if cfg.software_enabled and use_plan and plan is None:
         plan = ctrl.make_plan(cfg.controller, cfg.ess_params)
     hw_kw = consts.hw
     # Host copies of the filter matrices: the kernel takes them as launch
@@ -440,13 +445,25 @@ def condition(
         idle_left = torch.clamp(idle - elapsed, min=0.0)
         s_target = ctrl.select_target(cfg.controller, cfg.ess_params, idle_left, wear)
         soc_meas = soc_ema + meas_w * (es2.soc - soc_ema)
-        if cfg.software_enabled:
+        if cfg.software_enabled and use_plan:
             out, warm = ctrl.inner_loop_step_plan(
                 cfg.controller, cfg.ess_params, plan, soc_meas, s_target,
                 u_prev, warm, qp_iters=qp_iters,
                 active=None if on_row is None else drop(on_row),
             )
             new_cmd, resid = out.corrective_power, out.qp_primal_residual
+        elif cfg.software_enabled:
+            # The per-step oracle: every rack's QP built, factored and
+            # solved cold; the warm iterates ride through untouched.
+            out = ctrl.inner_loop_step(
+                cfg.controller, cfg.ess_params, soc_meas, s_target.expand(soc_meas.shape),
+                u_prev.expand(soc_meas.shape), qp_iters=qp_iters,
+            )
+            new_cmd, resid = out.corrective_power, out.qp_primal_residual
+            if on_row is not None:
+                act = drop(on_row) > 0
+                new_cmd = torch.where(act, new_cmd, 0.0)
+                resid = torch.where(act, resid, 0.0)
         else:
             new_cmd = torch.zeros_like(soc_meas)
             resid = torch.zeros_like(soc_meas)

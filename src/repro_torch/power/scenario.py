@@ -572,6 +572,27 @@ def workload_from_model(
     return workload(**knobs, device=device)
 
 
+def scenario_from_model(
+    arch: str,
+    *,
+    duration_s: float = 240.0,
+    sample_hz: float = 200.0,
+    edge_time_s: float = 0.25,
+    noise_seed: int | None = None,
+    device="cuda",
+    **kwargs,
+) -> Scenario:
+    """One rack running one assigned model, as a renderable scenario
+    (``workload_from_model`` with ``kwargs``, on ``device``)."""
+    return make_scenario(
+        workload_from_model(arch, device=device, **kwargs),
+        duration_s=duration_s,
+        sample_hz=sample_hz,
+        edge_time_s=edge_time_s,
+        noise_seed=noise_seed,
+    )
+
+
 def inference_workload(
     *,
     p_idle: float = 0.15,

@@ -1,15 +1,18 @@
 """Workload power-trace synthesis (paper §7.1 testbench, Fig. 3/9/13).
 
-Port of the ``TestbenchSpec`` entry points of ``repro.power.trace``: the
-testbench trace (iteration compute/communicate square waves, periodic
-checkpoint dips, a warm-up ramp, an abrupt job termination, an optional
-mid-trace fault) compiled into the scenario IR and rendered by
-``scenario.render``.
+Port of ``repro.power.trace``: the testbench trace (iteration
+compute/communicate square waves, periodic checkpoint dips, a warm-up
+ramp, an abrupt job termination, an optional mid-trace fault) and explicit
+phase timelines, compiled into the scenario IR and rendered by
+``scenario.render``, and the reference's two golden oracles for them
+(``testbench_trace_reference``, ``phase_timeline_trace_reference``), each
+kept as an independent implementation.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.power import scenario as SC
@@ -92,6 +95,45 @@ def testbench_trace(
     return p, dt
 
 
+def testbench_trace_reference(
+    spec: TestbenchSpec,
+    generator: torch.Generator | None = None,
+    *,
+    device="cuda",
+) -> tuple[torch.Tensor, float]:
+    """The reference's original whole-trace implementation, kept as the
+    golden oracle for the scenario engine (``testbench_trace``): the
+    square wave, dips, warm-up ramp and termination evaluated on the sample
+    times, boxcar edges of ``edge_time_s`` as a centred window sum (zero
+    beyond the ends, ``np.convolve(..., "same")``), then the fault.  The
+    noise is drawn from ``generator`` as in ``testbench_trace``."""
+    dev = resolve_device(device)
+    dt = 1.0 / spec.sample_hz
+    t = torch.arange(int(round(spec.duration_s * spec.sample_hz)), device=dev) * dt
+    # fmod is the reference's floor mod for the non-negative times.
+    phase = torch.fmod(t, spec.iteration_period_s) / spec.iteration_period_s
+    in_comm = phase >= (1.0 - spec.comm_fraction)
+    p = torch.where(in_comm, spec.p_comm, spec.p_compute).to(torch.float32)
+    in_dip = torch.fmod(t, spec.dip_period_s) < spec.dip_duration_s
+    p = torch.where(in_dip, spec.p_dip, p)
+    ramp = torch.clamp(t / max(spec.warmup_s, dt), 0.0, 1.0)
+    p = spec.p_idle + ramp * (p - spec.p_idle)
+    if spec.terminate_at_s is not None:
+        p = torch.where(t >= spec.terminate_at_s, spec.p_idle, p)
+    if spec.edge_time_s > 0:
+        width = max(int(round(spec.edge_time_s * spec.sample_hz)), 1)
+        kernel = torch.full((width,), 1.0 / width, dtype=torch.float32, device=dev)
+        padded = torch.nn.functional.pad(p, (width // 2, (width - 1) // 2))
+        p = (padded.unfold(0, width, 1) * kernel).sum(dim=-1)
+    if spec.fault_at_s is not None:
+        in_fault = (t >= spec.fault_at_s) & (t < spec.fault_at_s + spec.fault_duration_s)
+        p = torch.where(in_fault, 0.02, p)
+    if generator is not None and spec.noise_std > 0:
+        noise = torch.randn(p.shape, generator=generator, device=dev, dtype=torch.float32)
+        p = torch.clamp(p + spec.noise_std * noise, 0.0, 1.0)
+    return p, dt
+
+
 def choukse_spec() -> TestbenchSpec:
     """The default evaluation trace's spec (paper Fig. 3/9): 240 s at
     1 kHz, job end at 210 s."""
@@ -150,3 +192,36 @@ def cluster_fault_spec() -> TestbenchSpec:
 def cluster_fault_trace(generator: torch.Generator | None = None, *, device="cuda"):
     """``testbench_trace(cluster_fault_spec(), generator)``."""
     return testbench_trace(cluster_fault_spec(), generator, device=device)
+
+
+def phase_timeline_trace(
+    durations_s,
+    powers,
+    sample_hz: float,
+    *,
+    edge_time_s: float = 0.1,
+    device="cuda",
+) -> tuple[torch.Tensor, float]:
+    """Render an explicit phase timeline to a sampled trace on ``device``:
+    ``scenario.from_phase_timeline``'s segment table (phase transitions get
+    ``edge_time_s`` boxcar edges) rendered whole.  Returns ``(trace,
+    dt)``."""
+    s = SC.from_phase_timeline(durations_s, powers, sample_hz, edge_time_s=edge_time_s,
+                               device=device)
+    return SC.render_trace(s)
+
+
+def phase_timeline_trace_reference(
+    durations_s, powers, sample_hz: float, *, edge_time_s: float = 0.1, device="cuda"
+) -> tuple[torch.Tensor, float]:
+    """The reference's original numpy implementation, kept as the golden
+    oracle for ``phase_timeline_trace``; the trace lands on ``device``."""
+    durations = np.asarray(durations_s, np.float64)
+    powers_np = np.asarray(powers, np.float32)
+    counts = np.maximum(np.round(durations * sample_hz).astype(np.int64), 1)
+    trace = np.repeat(powers_np, counts)
+    if edge_time_s > 0:
+        width = max(int(round(edge_time_s * sample_hz)), 1)
+        kernel = np.ones((width,), np.float32) / width
+        trace = np.convolve(trace, kernel, mode="same")
+    return torch.as_tensor(trace, device=resolve_device(device)), 1.0 / sample_hz

@@ -90,6 +90,11 @@ def _no_cuda(monkeypatch):
         lambda: ServeEngine(smoke_config("llama3_2_1b"),
                             transformer.Transformer(smoke_config("llama3_2_1b"), device="cpu")),
         lambda: scenario.from_phase_timeline([1.0, 2.0], [1.0, 0.4], 200.0),
+        lambda: scenario.scenario_from_model("llama3_2_1b", duration_s=10.0),
+        lambda: trace.phase_timeline_trace([1.0, 2.0], [1.0, 0.4], 200.0),
+        lambda: trace.phase_timeline_trace_reference([1.0, 2.0], [1.0, 0.4], 200.0),
+        lambda: trace.testbench_trace_reference(trace.TestbenchSpec(duration_s=1.0)),
+        lambda: fleet.staggered_fleet(torch.full((100,), 0.5), 4, max_offset_samples=10),
         lambda: phases.training_scenario(phases.StepCost(1e17, 1e14, 1e14),
                                          phases.HardwareConstants(), phases.PhaseModel(), 2, 200.0),
         lambda: integration.PowerSim(phases.StepCost(1e17, 1e14, 1e14),

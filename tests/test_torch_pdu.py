@@ -120,10 +120,5 @@ def test_condition_streaming_split_is_bitwise(trace):
 
 
 def test_unported_paths_raise():
-    cfg = tpdu.make_pdu(sample_dt=1.0 / HZ, device="cpu")
-    st = tpdu.init_state(cfg, torch.full((4,), 0.5))
-    tr = torch.full((2000, 4), 0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpdu.condition(cfg, st, tr, use_plan=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpdu.make_pdu(safemode=True, device="cpu")

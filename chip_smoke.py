@@ -254,6 +254,29 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    (``CONTROLLER_THROUGHPUT``: 2048 racks, cold ``inner_loop_step``
    batched at 120 iterations, warm 4 warm-started plan steps at 30): it
    prints both rates in rack-solves/s and the last warm residual.
+15. Safe mode (``core.safemode``, ``make_pdu(safemode=True)``): (a) the
+   acceptance campus of phase 4 supervised with the default
+   ``SafeModeConfig`` (``bench_mixed_campus_safemode``) through the host
+   engine and then the scanned engine as in phase 4 (``phase_scanned``):
+   each must launch pdu_health 18 times, all in its (T, R) series mode (the
+   supervisor's weight of ones), and admm_step 18 times, and equal phase
+   4's unsupervised run bit for bit (so ``JAX_CAMPUS`` holds too), with
+   every ``safemode_trace`` row [1, 0, 0, 0, 0, 0] and every rack NORMAL;
+   it prints the graph's nodes beside phase 4's and the supervision
+   overhead, three alternating warm runs unsupervised and supervised on
+   each engine (recorded, not asserted).  (b) The drill
+   (``SAFEMODE_DRILL``: ``FAULTY_CAMPUS`` supervised, from an initial state
+   with a poisoned warm start on two racks, a NaN SoC, a NaN LC state and
+   an operator's offline override) through the host engine (twice) and the
+   scanned engine (a cold run and three warm ones): pdu_health in the
+   series mode 18 times a run (at capture on the scanned engine), the two
+   engines bit for bit, each within ``FAULTY_CAMPUS_TOLERANCES`` of
+   ``JAX_SAFEMODE_DRILL`` (recorded on the CPU by ``python
+   tests/test_torch_safemode_campus_reference.py``) with the verdicts,
+   ``ess_online_frac``, the ``safemode_trace`` rows and the supervisor's
+   summary exactly, every campus sample finite, and the scanned run split
+   at sample 8000 and resumed equal to one call; it prints each engine's
+   warm walls.
 
 With ``--profile DIR`` it also profiles one more campus run, prefill step,
 generation and training step, rwkv6-7b prefill and generation, a host run
@@ -1176,10 +1199,11 @@ def compare_campus(got: dict, want: dict) -> list[str]:
 
 
 def run_campus(n_racks: int, duration_s: float, *, device: str = "cuda", engine: str = "host",
-               **window):
+               safemode: bool = False, **window):
     """The acceptance campus through the port's ``engine`` (``window``:
-    further ``StreamOptions``, e.g. ``start_sample``, ``state``); returns
-    ``(result, health fleet summary, wall seconds)``."""
+    further ``StreamOptions``, e.g. ``start_sample``, ``state``), supervised
+    with the default ``SafeModeConfig`` if ``safemode``; returns ``(result,
+    health fleet summary, wall seconds)``."""
     import torch
 
     from repro_torch.core import compliance, fleet, health as hlt, pdu
@@ -1189,7 +1213,8 @@ def run_campus(n_racks: int, duration_s: float, *, device: str = "cuda", engine:
     s = SC.mixed_campus(n_racks, ARCHS, duration_s=duration_s, sample_hz=c["sample_hz"],
                         seed=c["seed"], fault_at_s=duration_s * 0.6,
                         noise_seed=c["noise_seed"], device=device)
-    cfg = pdu.make_pdu(sample_dt=1.0 / c["sample_hz"], track_health=True, device=device)
+    cfg = pdu.make_pdu(sample_dt=1.0 / c["sample_hz"], track_health=True, safemode=safemode,
+                       device=device)
     spec = compliance.GridSpec.create(device=device)
     if device != "cpu":
         torch.cuda.synchronize()
@@ -1377,6 +1402,163 @@ def run_faulty_campus(n_racks: int, duration_s: float, engine: str, *, device: s
     wall = time.perf_counter() - t0
     bank = res.bank or compliance.make_bank(s.total_samples, cfg.sample_dt, float(spec.f_c))
     return res, faulty_campus_summary(res, bank), wall
+
+
+# The safe-mode drill (phase 15b), the engine-level form of the reference's
+# chaos drill (tests/test_chaos.py::test_fast_chaos_drill): FAULTY_CAMPUS
+# conditioned with safemode=True (the default SafeModeConfig) from an
+# initial state corrupted on racks that the schedule keeps online (no ESS,
+# sensor or rack episode) through the first 12 controller intervals, at both
+# the full size and the 64-rack, 30 s cut: the warm ADMM iterates x set to
+# 1e12 on two racks (their solves diverge: the watchdog trips them), the SoC
+# NaN on one and the LC filter state NaN on another (the sanitizer
+# quarantines them), and the operator's ess_online override 0 on a fifth.
+SAFEMODE_DRILL = dict(warm=(9, 41), soc_nan=18, lc_nan=27, offline=44)
+
+# The JAX package's numbers for the drill: its host engine on the CPU
+# (jax 0.9.0), printed by ``python tests/test_torch_safemode_campus_reference.py``.
+JAX_SAFEMODE_DRILL = {'rack_max_ramp': 0.4151582717895508,
+ 'grid_max_ramp': 0.09058713912963867,
+ 'rack_worst_line_exact': 0.00021256112894012203,
+ 'grid_worst_line_exact': 0.00011567547373729067,
+ 'rack_ramp_ok': False,
+ 'rack_spectrum_ok': False,
+ 'grid_ramp_ok': True,
+ 'grid_spectrum_ok': False,
+ 'grid_ok': False,
+ 'campus_rack_mean': 0.6283449018839746,
+ 'campus_grid_mean': 0.5619212644123895,
+ 'ess_online_frac': [0.9990234375,
+                     0.9599609375,
+                     0.9326171875,
+                     0.9013671875,
+                     0.87109375,
+                     0.849609375,
+                     0.8271484375,
+                     0.81640625,
+                     0.806640625,
+                     0.7890625,
+                     0.7822265625,
+                     0.771484375,
+                     0.771484375,
+                     0.7646484375,
+                     0.7568359375,
+                     0.740234375,
+                     0.7333984375,
+                     0.7216796875],
+ 'rack_worst_line': 0.00021321636450011283,
+ 'grid_worst_line': 0.00011560069106053561,
+ 'soc_mean_min': 0.39970704913139343,
+ 'soc_mean_max': 0.4999103248119354,
+ 'soc_mean_last': 0.4034321904182434,
+ 'max_qp_residual': 1.5155540704727173,
+ 'safemode_trace': [[0.99609375, 2.0, 2.0, 4.0, 0.0, 3.0],
+                    [0.998046875, 2.0, 0.0, 4.0, 2.0, 3.0],
+                    [1.0, 0.0, 0.0, 4.0, 4.0, 3.0],
+                    [1.0, 0.0, 0.0, 4.0, 4.0, 3.0],
+                    [1.0, 0.0, 0.0, 4.0, 4.0, 3.0]],
+ 'safemode_summary': {'n_normal': 1024,
+                      'n_passthrough': 0,
+                      'n_quarantined': 0,
+                      'passthrough_racks': [],
+                      'quarantined_racks': [],
+                      'passthrough_entries': 2,
+                      'quarantine_entries': 2,
+                      'readmissions': 4,
+                      'worst_resid_streak': 3}}
+
+
+def safemode_drill_state(state, put):
+    """``state`` with SAFEMODE_DRILL's corruption; ``put(leaf, index,
+    value)`` returns a copy of ``leaf`` with ``value`` at ``index`` (either
+    package's arrays; indices are numpy arrays)."""
+    import numpy as np
+
+    d = SAFEMODE_DRILL
+    rows = lambda *r: np.asarray(r, np.int64)
+    nan = float("nan")
+    warm = state.qp_warm
+    return state._replace(
+        qp_warm=warm._replace(x=put(warm.x, (slice(None), rows(*d["warm"])), 1e12)),
+        ess_state=state.ess_state._replace(soc=put(state.ess_state.soc, rows(d["soc_nan"]), nan)),
+        filter_state=put(state.filter_state, rows(d["lc_nan"]), nan),
+        ess_online=put(state.ess_online, rows(d["offline"]), 0.0),
+    )
+
+
+def safemode_drill_summary(res, bank) -> dict:
+    """``faulty_campus_summary`` of a supervised run, with its
+    ``safemode_trace`` rows and ``safemode_summary()`` (either package)."""
+    import numpy as np
+
+    host = lambda x: np.asarray(x.detach().cpu() if hasattr(x, "detach") else x, np.float64)
+    out = faulty_campus_summary(res, bank)
+    out["safemode_trace"] = [[float(v) for v in row] for row in host(res.safemode_trace)]
+    out["safemode_summary"] = res.safemode_summary()
+    return out
+
+
+def compare_safemode_drill(got: dict, want: dict) -> list[str]:
+    """Failures of ``got`` against ``want``: ``compare_faulty_campus``, and
+    the supervisor's trace rows and summary (modes, racks, counters)
+    exactly."""
+    bad = compare_faulty_campus(got, want)
+    bad += [f"{k}: {got[k]} != {want[k]}" for k in ("safemode_trace", "safemode_summary")
+            if got[k] != want[k]]
+    return bad
+
+
+def drill_online_racks(sched, n_intervals: int, k: int) -> list[int]:
+    """The racks that ``sched`` (a port ``FaultSchedule``) keeps free of
+    every episode (ESS, sensor, rack) over the first ``n_intervals``
+    controller intervals of ``k`` samples."""
+    import torch
+
+    stop = n_intervals * k
+    hit = torch.zeros(sched.ess_start.shape[0], dtype=torch.bool, device=sched.ess_start.device)
+    for st, en in ((sched.ess_start, sched.ess_end), (sched.sensor_start, sched.sensor_end),
+                   (sched.rack_start, sched.rack_end)):
+        hit |= ((st < stop) & (en > st)).any(dim=1)
+    return [int(r) for r in torch.nonzero(~hit).reshape(-1).cpu()]
+
+
+def run_safemode_drill(n_racks: int, duration_s: float, engine: str, *, device: str = "cuda",
+                       **window):
+    """The drill through the port's ``engine`` (``window``: further
+    ``StreamOptions``; without a ``state`` the run starts from the drilled
+    initial state); returns ``(result, its summary, wall seconds)``."""
+    import torch
+
+    from repro_torch.core import compliance, fleet, pdu
+    from repro_torch.power import faults as FLT, scenario as SC
+
+    c = FAULTY_CAMPUS
+    s = faulty_campus(SC, FLT, n_racks, duration_s, device=device)
+    online = set(drill_online_racks(s.faults, 12, int(round(5.0 * c["sample_hz"]))))
+    used = {*SAFEMODE_DRILL["warm"], SAFEMODE_DRILL["soc_nan"], SAFEMODE_DRILL["lc_nan"],
+            SAFEMODE_DRILL["offline"]}
+    _check(used <= online, f"safemode drill: racks {sorted(used - online)} are not online "
+           "through the first 12 intervals")
+    cfg = pdu.make_pdu(sample_dt=1.0 / c["sample_hz"], degraded_mode=True, safemode=True,
+                       device=device)
+    if window.get("state") is None:
+        def put(a, idx, v):
+            a = a.clone()
+            a[idx] = v
+            return a
+
+        window["state"] = safemode_drill_state(pdu.init_state(cfg, SC.render(s, 0, 1)[0]), put)
+    spec = compliance.GridSpec.create(device=device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fleet.condition(s, cfg, spec, engine=engine, qp_iters=c["qp_iters"], device=device,
+                          stream=fleet.StreamOptions(chunk_intervals=c["chunk_intervals"],
+                                                     **window))
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, safemode_drill_summary(res, res.bank), wall
 
 
 def decode_logits(model, cfg, prompts, fed, max_len: int):
@@ -3995,7 +4177,7 @@ def phase_campus(dev, profile_dir: Path | None = None) -> dict:
     print("campus scanned vs JAX: " + json.dumps({k: [got[k], JAX_CAMPUS[k]] for k in got}))
     bad = compare_campus(got, JAX_CAMPUS)
     _check(not bad, "scanned campus differs from the JAX package: " + "; ".join(bad))
-    return dict(counts=counts, host_s=wall, scanned=scanned)
+    return dict(counts=counts, host_s=wall, scanned=scanned, host_res=host_res)
 
 
 # Phase 6, continued: stablelm-12b at full width (d_model 5120, 32 query
@@ -4147,6 +4329,170 @@ def phase_faulty_campus(dev, profile_dir: Path | None = None) -> dict:
     _check(not bad, "scanned faulty campus differs from the JAX package: " + "; ".join(bad))
     out["scanned"] = scanned
     return out
+
+
+def phase_safemode(dev, campus: dict, profile_dir: Path | None = None) -> dict:
+    """Phase 15: safe mode on the card.  (a) The acceptance campus supervised
+    (``bench_mixed_campus_safemode``): the host engine, then the scanned
+    engine (``phase_scanned``), each bit for bit phase 4's unsupervised run
+    with pdu_health in its series mode (18 launches, a weight of ones) and
+    admm_step 18, every safemode_trace row [1, 0, 0, 0, 0, 0] and 1024
+    racks NORMAL; then the supervision overhead, timed interleaved (three
+    alternating warm runs, unsupervised and supervised, on each engine),
+    and the graph's nodes beside phase 4's.  (b) The safe-mode drill
+    (``SAFEMODE_DRILL`` on ``FAULTY_CAMPUS``) through the host and scanned
+    engines: pdu_health in the series mode throughout, the two engines bit
+    for bit, each against ``JAX_SAFEMODE_DRILL`` (``compare_safemode_drill``),
+    every campus sample finite, and the scanned run split at sample 8000 and
+    resumed equal to one call.  Returns the launch counts, walls, overhead
+    and nodes."""
+    import torch
+
+    from repro_torch.core import fleet
+    from repro_torch.kernels import admm_step, pdu_health
+
+    c, fc = CAMPUS, FAULTY_CAMPUS
+    series = pdu_health.MASK_SERIES
+
+    def reset():
+        pdu_health.pdu_health_sim.launches = 0
+        pdu_health.pdu_health_sim.launches_by_mask = [0, 0, 0, 0]
+        admm_step.admm_iterate.launches = 0
+
+    def counts():
+        return (pdu_health.pdu_health_sim.launches, admm_step.admm_iterate.launches,
+                list(pdu_health.pdu_health_sim.launches_by_mask))
+
+    def clean_supervisor(res, what):
+        trace = res.safemode_trace.cpu()
+        summ = res.safemode_summary()
+        _check(bool((trace == torch.tensor([1.0, 0, 0, 0, 0, 0])).all()),
+               f"{what}: safemode_trace rows {trace.tolist()} (want [1, 0, 0, 0, 0, 0])")
+        _check(summ["n_normal"] == c["n_racks"] and summ["passthrough_entries"] == 0
+               and summ["quarantine_entries"] == 0, f"{what}: summary {summ}")
+
+    # (a) The supervised acceptance campus.
+    host_ref = campus["host_res"]
+    reset()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with _PlainCalls("pdu_health_sim") as plain:
+        res, _, wall = run_campus(c["n_racks"], c["duration_s"], device=dev, safemode=True)
+    peak = torch.cuda.max_memory_allocated() - base
+    n = counts()
+    print(f"supervised campus host engine: {wall:.3f} s wall, launches pdu_health={n[0]} (by "
+          f"weight mode none/row/series/events {n[2]}) admm_step={n[1]}, plain pdu_health calls "
+          f"{plain.n}")
+    _check(n[:2] == (18, 18) and n[2][series] == 18 and plain.n == 0,
+           f"supervised campus host: launches {n}, plain calls {plain.n}")
+    bad = _differing_bits(res, host_ref)
+    _check(not bad, "supervised campus host engine differs from phase 4's unsupervised run in "
+           f"{bad}")
+    clean_supervisor(res, "supervised campus host")
+    host_counts = n
+
+    def run(engine="scanned", **window):
+        r, h, w = run_campus(c["n_racks"], c["duration_s"], device=dev, engine=engine,
+                             safemode=True, **window)
+        return r, w, h
+
+    scanned = phase_scanned("supervised campus", run, host_ref, peak, series,
+                            c["chunk_intervals"], profile_dir)
+    clean_supervisor(scanned["res"], "supervised campus scanned")
+    nodes, nodes_off = scanned["nodes"], campus["scanned"]["nodes"]
+    print(f"supervised campus scanned graph nodes {nodes} against phase 4's {nodes_off} "
+          f"(+{nodes['total'] - nodes_off['total']})")
+
+    # The supervision overhead, timed interleaved on each engine.
+    overhead = {}
+    for engine in ("scanned", "host"):
+        walls = {False: [], True: []}
+        for sm in (False, True):  # warm-up (the scanned engine captures here)
+            run_campus(c["n_racks"], c["duration_s"], device=dev, engine=engine, safemode=sm)
+        for _ in range(3):
+            for sm in (False, True):
+                walls[sm].append(run_campus(c["n_racks"], c["duration_s"], device=dev,
+                                            engine=engine, safemode=sm)[2])
+        off, on = statistics.median(walls[False]), statistics.median(walls[True])
+        overhead[engine] = dict(off_s=walls[False], on_s=walls[True], off_median_s=off,
+                                on_median_s=on, overhead_median=on / off - 1.0,
+                                overhead_min=min(walls[True]) / min(walls[False]) - 1.0)
+        print(f"supervised campus {engine} engine, interleaved warm walls: unsupervised "
+              f"{', '.join(f'{w:.4f}' for w in walls[False])} s, supervised "
+              f"{', '.join(f'{w:.4f}' for w in walls[True])} s; overhead (median) "
+              f"{100 * overhead[engine]['overhead_median']:+.1f} %, (min) "
+              f"{100 * overhead[engine]['overhead_min']:+.1f} % (the reference's budget: 10 %)")
+    fleet._ENGINE_CACHE.clear()
+    torch.cuda.empty_cache()
+
+    # (b) The drill.
+    n_r, dur = fc["n_racks"], fc["duration_s"]
+    drill_walls = {}
+    for i in range(2):
+        reset()
+        with _PlainCalls("pdu_health_sim") as plain:
+            res_h, got_h, wall = run_safemode_drill(n_r, dur, "host", device=dev)
+        n = counts()
+        drill_walls.setdefault("host", []).append(wall)
+        print(f"safemode drill host engine, run {i + 1}: {wall:.3f} s wall, launches "
+              f"pdu_health={n[0]} (by weight mode {n[2]}) admm_step={n[1]}, plain calls {plain.n}")
+        _check(n[:2] == (18, 18) and n[2][series] == 18 and plain.n == 0,
+               f"safemode drill host: launches {n}, plain calls {plain.n}")
+    drill_host_counts = n
+    fleet._ENGINE_CACHE.clear()
+    torch.cuda.empty_cache()
+    reset()
+    with _PlainCalls("pdu_health_sim") as plain:
+        res_s, got_s, cold = run_safemode_drill(n_r, dur, "scanned", device=dev)
+    (engine,) = fleet._ENGINE_CACHE.values()
+    cap = engine.launches_at_capture
+    print(f"safemode drill scanned cold run: {cold:.4f} s wall, at capture pdu_health="
+          f"{cap['pdu_health']} (by weight mode {cap['pdu_health_by_mask']}) admm_step="
+          f"{cap['admm_step']}, plain calls {plain.n}; graph nodes {_graph_nodes(engine.graph)}")
+    _check(cap["pdu_health"] == 18 and cap["pdu_health_by_mask"][series] == 18
+           and cap["admm_step"] == 18 and plain.n == 0,
+           f"safemode drill scanned: capture launches {cap}, plain calls {plain.n}")
+    for i in range(3):
+        reset()
+        res_s, got_s, wall = run_safemode_drill(n_r, dur, "scanned", device=dev)
+        drill_walls.setdefault("scanned", []).append(wall)
+        _check(counts()[:2] == (0, 0), f"safemode drill scanned warm run {i + 1}: launches "
+               f"{counts()} from Python (a replay launches none)")
+    bad = _differing_bits(res_s, res_h)
+    if not _bitwise(res_s.safemode_trace, res_h.safemode_trace):
+        bad.append("safemode_trace")
+    print(f"safemode drill: scanned vs host engine "
+          f"{'bit for bit' if not bad else 'differ in ' + str(bad)}; warm walls host "
+          f"{', '.join(f'{w:.4f}' for w in drill_walls['host'])} s, scanned "
+          f"{', '.join(f'{w:.4f}' for w in drill_walls['scanned'])} s")
+    _check(not bad, f"safemode drill: scanned and host engines differ in {bad}")
+    for name, r, got in (("host", res_h, got_h), ("scanned", res_s, got_s)):
+        finite = bool(torch.isfinite(r.campus_grid).all() and torch.isfinite(r.campus_rack).all())
+        print(f"safemode drill {name} vs JAX: "
+              + json.dumps({k: [got[k], JAX_SAFEMODE_DRILL[k]] for k in got}))
+        bad = compare_safemode_drill(got, JAX_SAFEMODE_DRILL)
+        _check(finite, f"safemode drill {name}: a campus sample is not finite")
+        _check(not bad, f"safemode drill ({name}) differs from the JAX package: " + "; ".join(bad))
+    cut = 8000
+    a, _, _ = run_safemode_drill(n_r, dur, "scanned", device=dev, stop_sample=cut)
+    b, _, _ = run_safemode_drill(n_r, dur, "scanned", device=dev, start_sample=cut, state=a.state)
+    fields = ("campus_rack", "campus_grid", "soc_mean", "ess_online_frac", "health_trace",
+              "safemode_trace")
+    bad = [f for f in fields
+           if not _bitwise(torch.cat([getattr(a, f), getattr(b, f)]), getattr(res_s, f))]
+    ref_leaves = _result_leaves(res_s.state, "state")
+    bad += [k for k, v in _result_leaves(b.state, "state").items()
+            if not _bitwise(v, ref_leaves[k])]
+    if not _bitwise(torch.maximum(a.max_qp_residual, b.max_qp_residual), res_s.max_qp_residual):
+        bad.append("max_qp_residual")
+    print(f"safemode drill scanned split at sample {cut} and resumed: "
+          f"{'bit for bit the one-call run' if not bad else 'differs in ' + str(bad)}")
+    _check(not bad, f"safemode drill split at {cut} differs from one call in {bad}")
+    fleet._ENGINE_CACHE.clear()
+    torch.cuda.empty_cache()
+    return dict(host_counts=host_counts, scanned=scanned, nodes=nodes, nodes_off=nodes_off,
+                overhead=overhead, drill_host_counts=drill_host_counts, drill_capture=cap,
+                drill_walls=drill_walls, drill_cold_s=cold)
 
 
 def _result_leaves(x, prefix: str = "") -> dict:
@@ -4504,6 +4850,20 @@ def main() -> int:
     kernels["pdu_health"]["launches_faulty_scanned_capture_events"] = \
         faulty["scanned"]["capture"]["pdu_health_by_mask"][3]
     kernels["admm_step"]["launches_faulty_scanned_capture"] = faulty["scanned"]["capture"]["admm_step"]
+    safemode = phase_safemode(dev, campus, opts.profile)
+    from repro_torch.kernels.pdu_health import MASK_SERIES as series
+    kernels["pdu_health"].update(
+        launches_safemode_host_series=safemode["host_counts"][2][series],
+        launches_safemode_scanned_capture_series=safemode["scanned"]["capture"]
+        ["pdu_health_by_mask"][series],
+        launches_drill_host_series=safemode["drill_host_counts"][2][series],
+        launches_drill_scanned_capture_series=safemode["drill_capture"]["pdu_health_by_mask"]
+        [series])
+    kernels["admm_step"].update(
+        launches_safemode_host=safemode["host_counts"][1],
+        launches_safemode_scanned_capture=safemode["scanned"]["capture"]["admm_step"],
+        launches_drill_host=safemode["drill_host_counts"][1],
+        launches_drill_scanned_capture=safemode["drill_capture"]["admm_step"])
     kernels["flash_attention_fwd"]["launches_stablelm_prefill"] = stablelm["flash_attention_fwd"]
     print(json.dumps({"serve": {k: serve[k] for k in ("prefill_s", "generate_s", "tokens_per_s")},
                       "train": {k: trained[k] for k in ("step_s", "tokens_per_s", "train_mfu",
@@ -4540,7 +4900,14 @@ def main() -> int:
                       "scanned_peak_mib": {"campus": campus["scanned"]["peak_mib"],
                                            "faulty_campus": faulty["scanned"]["peak_mib"]},
                       "scanned_graph_nodes": {"campus": campus["scanned"]["nodes"],
-                                              "faulty_campus": faulty["scanned"]["nodes"]}}))
+                                              "faulty_campus": faulty["scanned"]["nodes"],
+                                              "supervised_campus": safemode["nodes"]},
+                      "safemode": {
+                          "campus_scanned_cold_s": safemode["scanned"]["cold_s"],
+                          "campus_scanned_warm_s": safemode["scanned"]["warm_s"],
+                          "overhead": safemode["overhead"],
+                          "drill_walls_s": safemode["drill_walls"],
+                          "drill_scanned_cold_s": safemode["drill_cold_s"]}}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -14,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import controller as ctrl, ess, filters, health as hlt, pdu
+from repro_torch.core import controller as ctrl, ess, filters, health as hlt, pdu, \
+    safemode as smode
 from repro_torch.models import layers as L, transformer as T
 from repro_torch.power import faults as FLT, scenario as SC
 from repro_torch.utils.devices import resolve_device
@@ -36,21 +37,26 @@ def _fields(cls, d: dict, dev, static: tuple[str, ...] = ()):
 
 def pdu_config_from_numpy(d: dict, *, device="cuda") -> pdu.PDUConfig:
     """``PDUConfig`` from ``{"filter_params", "ess_params", "controller",
-    "health", "sample_dt", "software_enabled", "track_health",
-    "degraded_mode", ...}``."""
+    "health", "safemode_params", "sample_dt", "software_enabled",
+    "track_health", "degraded_mode", "safemode"}`` (``safemode_params``:
+    ``resid_threshold`` a tensor, the two interval counts host ints)."""
     dev = resolve_device(device)
-    if d.get("safemode"):
-        raise NotImplementedError("safemode configs are not ported yet (ROADMAP.md queue 1 item 4)")
     health = d.get("health")
+    smp = d.get("safemode_params")
     return pdu.PDUConfig(
         filter_params=_fields(filters.LCFilterParams, d["filter_params"], dev),
         ess_params=_fields(ess.ESSParams, d["ess_params"], dev),
         controller=_fields(ctrl.ControllerConfig, d["controller"], dev, static=("horizon",)),
         health=None if health is None else _fields(hlt.HealthParams, health, dev, static=("kappa",)),
+        safemode_params=None if smp is None else smode.SafeModeConfig(
+            resid_threshold=_tensor(smp["resid_threshold"], dev),
+            trip_intervals=int(smp["trip_intervals"]),
+            readmit_intervals=int(smp["readmit_intervals"])),
         sample_dt=float(d["sample_dt"]),
         software_enabled=bool(d.get("software_enabled", True)),
         track_health=bool(d.get("track_health", False)),
         degraded_mode=bool(d.get("degraded_mode", False)),
+        safemode=bool(d.get("safemode", False)),
     )
 
 
@@ -72,8 +78,9 @@ def pdu_state_from_numpy(d: dict, *, device="cuda") -> pdu.PDUState:
     """``PDUState`` from ``{"filter_state", "filter_obj": {"ad", "bd", "c",
     "dt"}, "ess_state": {"g_filter", "soc"}, "u_prev", "cmd_applied",
     "cmd_target", "soc_ema", "qp_warm": {"x", "z", "y"}, "health": {11
-    leaves}, "ess_online", "last_good"}``: the degraded-mode override and
-    sensor-bridge seed ride along (None where absent)."""
+    leaves}, "ess_online", "last_good", "safemode": {8 leaves}}``: the
+    degraded-mode override, the sensor-bridge seed and the supervisor ride
+    along (None where absent)."""
     dev = resolve_device(device)
     t = lambda v: _tensor(v, dev)
     fo = d["filter_obj"]
@@ -92,6 +99,8 @@ def pdu_state_from_numpy(d: dict, *, device="cuda") -> pdu.PDUState:
         health=hlt.HealthState(**{k: t(v) for k, v in d["health"].items()}),
         ess_online=opt("ess_online"),
         last_good=opt("last_good"),
+        safemode=None if d.get("safemode") is None else smode.SafeModeState(
+            **{k: t(v) for k, v in d["safemode"].items()}),
     )
 
 

@@ -31,9 +31,13 @@ Engines:
 Under a degraded-mode config a ``Scenario`` carrying a fault schedule runs
 degraded: the scanned and host engines hand the schedule to
 ``pdu.condition`` (the fast path), the one-shot engine the streamed mask
-and weight derived from it, and all return ``ess_online_frac``.
-Grid regions come with ROADMAP.md queue 1 item 5 and multi-GPU rack
-sharding (``mesh=``) with item 9.
+and weight derived from it, and all return ``ess_online_frac``.  Under a
+safe-mode config every engine returns ``safemode_trace`` and the streaming
+ones ``safemode_summary()``.  The reference's four deprecated entry points
+(``condition_fleet``, ``condition_fleet_streaming``,
+``condition_scenario_scanned``, ``condition_scenario_streaming``) are thin
+aliases of the facade.  Grid regions come with ROADMAP.md queue 1 item 5
+and multi-GPU rack sharding (``mesh=``) with item 9.
 """
 from __future__ import annotations
 
@@ -47,7 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import compliance, controller as ctrl, health as hlt, pdu, \
-    profiling as _prof
+    profiling as _prof, safemode as smode
 from repro_torch.utils.devices import resolve_device
 
 F32 = torch.float32
@@ -55,8 +59,8 @@ F32 = torch.float32
 
 class ConditioningResult(NamedTuple):
     """The one result type every conditioning engine returns; fields an
-    engine does not track are ``None``.  The reference's safe-mode and
-    grid-region fields come with those slices."""
+    engine does not track are ``None``.  The reference's grid-region fields
+    come with that slice."""
 
     campus_rack: torch.Tensor = None  # (T,) mean per-unit unconditioned load
     campus_grid: torch.Tensor = None  # (T,) mean per-unit conditioned load
@@ -71,6 +75,9 @@ class ConditioningResult(NamedTuple):
     # (n_ctrl,) fraction of ESS units online per interval (ones unless the
     # cfg runs degraded_mode).
     ess_online_frac: torch.Tensor = None
+    # (n_chunks, 6) supervisor snapshot per chunk (``pdu.CampusChunk.
+    # safemode``; zeros unless the cfg runs safemode; (1, 6) one-shot).
+    safemode_trace: torch.Tensor = None
     grid_spec: compliance.GridSpec = None
     bank: compliance.SpectrumBank = None
     observers: "_Observers" = None
@@ -89,6 +96,14 @@ class ConditioningResult(NamedTuple):
             self.bank,
             getattr(self.observers, f"spec_{which}"),
         )
+
+    def safemode_summary(self) -> dict | None:
+        """Host summary of the supervisor's final state (``safemode.
+        summary``); None when the engine carried no state (one-shot)."""
+        if self.state is None or self.state.safemode is None:
+            return None
+        return smode.summary(self.state.safemode)
+
 
 
 def synchronous_aggregate(rack_power: torch.Tensor, n_racks: int) -> torch.Tensor:
@@ -187,6 +202,8 @@ def _condition_fleet_impl(
         report_grid=compliance.check(campus_grid, cfg.sample_dt, grid_spec),
         health=hlt.report(_health_params(cfg), cfg.ess_params, state_f.health, cfg.sample_dt),
         ess_online_frac=on_frac,
+        safemode_trace=(smode.chunk_snapshot(state_f.safemode)[None] if cfg.safemode
+                        else torch.zeros((1, 6), dtype=F32, device=cfg.device)),
     )
 
 
@@ -232,6 +249,7 @@ class _Stream(NamedTuple):
     worst: torch.Tensor  # () running max QP primal residual
     health_trace: torch.Tensor  # (n_chunks, 3) fleet wear snapshot per chunk
     ess_frac: torch.Tensor  # (n_ctrl,) online fraction
+    sm_trace: torch.Tensor  # (n_chunks, 6) supervisor snapshot per chunk
     obs: _Observers  # streaming compliance state
 
 
@@ -245,7 +263,7 @@ class _CampusAccum:
     def __init__(self, cfg: pdu.PDUConfig, bank, t_total: int, chunk: int, n_int: int):
         dev = cfg.device
         n_chunks = -(-t_total // chunk)
-        self.dt, self.bank, self.n_int = cfg.sample_dt, bank, n_int
+        self.dt, self.bank, self.n_int, self.safemode = cfg.sample_dt, bank, n_int, cfg.safemode
         self.t_total, self.n_ctrl = t_total, -(-t_total // (chunk // n_int))
         self.campus_rack = torch.zeros(n_chunks * chunk, dtype=F32, device=dev)
         self.campus_grid = torch.zeros(n_chunks * chunk, dtype=F32, device=dev)
@@ -253,6 +271,7 @@ class _CampusAccum:
         self.worst = torch.zeros((), dtype=F32, device=dev)
         self.health_trace = torch.zeros((n_chunks, 3), dtype=F32, device=dev)
         self.ess_frac = torch.ones(n_chunks * n_int, dtype=F32, device=dev)
+        self.sm_trace = torch.zeros((n_chunks, 6), dtype=F32, device=dev)
         self.obs = _observers_init(bank, dev)
 
     def add(self, c_idx: int, t0: int, ch: pdu.CampusChunk) -> None:
@@ -264,13 +283,15 @@ class _CampusAccum:
         self.ess_frac[i0 : i0 + m] = ch.ess_online_frac
         self.worst = torch.maximum(self.worst, ch.max_qp_residual)
         self.health_trace[c_idx] = ch.health
+        if self.safemode:  # (zeros otherwise, as allocated)
+            self.sm_trace[c_idx] = ch.safemode
         self.obs = _observers_update(self.obs, self.bank, ch, self.dt)
 
     def result(self) -> _Stream:
         return _Stream(
             self.campus_rack[: self.t_total], self.campus_grid[: self.t_total],
             self.soc_mean[: self.n_ctrl], self.worst, self.health_trace,
-            self.ess_frac[: self.n_ctrl], self.obs,
+            self.ess_frac[: self.n_ctrl], self.sm_trace, self.obs,
         )
 
 
@@ -289,6 +310,7 @@ def _finish_streaming(cfg, grid_spec, state, out: _Stream, bank) -> Conditioning
         health_trace=out.health_trace,
         health=hlt.report(_health_params(cfg), cfg.ess_params, state.health, cfg.sample_dt),
         ess_online_frac=out.ess_frac,
+        safemode_trace=out.sm_trace,
         grid_spec=grid_spec,
         bank=bank,
         observers=obs,
@@ -858,3 +880,61 @@ def make_condition_step(cfg: pdu.PDUConfig, *, qp_iters: int = 30) -> Callable:
         return pdu.condition(cfg, state, trace, qp_iters=qp_iters, plan=plan)
 
     return step
+
+
+# ---------------------------------------------------- deprecated entry points
+# The reference's thin wrappers over ``condition``, kept for its call sites
+# (its safe-mode bench enters through ``condition_scenario_streaming``).
+# Each runs on the config's device.  Prefer the facade in new code.
+
+
+def condition_fleet(cfg: pdu.PDUConfig, traces: torch.Tensor, grid_spec, *, soc0: float = 0.5,
+                    qp_iters: int = 60, use_plan: bool = True, ess_online=None,
+                    ess_weight=None) -> ConditioningResult:
+    """One-shot conditioning of a (T, R) trace: ``condition(traces, cfg,
+    spec, engine="oneshot")``."""
+    return condition(traces, cfg, grid_spec, engine="oneshot", device=cfg.device, soc0=soc0,
+                     qp_iters=qp_iters, use_plan=use_plan, ess_online=ess_online,
+                     ess_weight=ess_weight)
+
+
+def condition_fleet_streaming(cfg: pdu.PDUConfig, traces, grid_spec, *, soc0: float = 0.5,
+                              qp_iters: int = 30, chunk_intervals: int = 16,
+                              total_samples: int | None = None, mesh=None, state=None,
+                              ess_online=None, ess_weight=None) -> ConditioningResult:
+    """The host engine over a (T, R) trace or a chunk provider:
+    ``condition(traces, cfg, spec, engine="host", stream=...)``."""
+    return condition(traces, cfg, grid_spec, engine="host", mesh=mesh, device=cfg.device,
+                     stream=StreamOptions(chunk_intervals=chunk_intervals, state=state,
+                                          total_samples=total_samples),
+                     soc0=soc0, qp_iters=qp_iters, ess_online=ess_online,
+                     ess_weight=ess_weight)
+
+
+def condition_scenario_scanned(cfg: pdu.PDUConfig, scenario, grid_spec, *, soc0: float = 0.5,
+                               qp_iters: int = 30, chunk_intervals: int = 16, mesh=None,
+                               state=None, start_sample: int = 0,
+                               stop_sample: int | None = None) -> ConditioningResult:
+    """A scenario through the scanned engine: ``condition(scenario, cfg,
+    spec)``."""
+    return condition(scenario, cfg, grid_spec, engine="scanned", mesh=mesh, device=cfg.device,
+                     stream=StreamOptions(chunk_intervals=chunk_intervals, state=state,
+                                          start_sample=start_sample, stop_sample=stop_sample),
+                     soc0=soc0, qp_iters=qp_iters)
+
+
+def condition_scenario_streaming(cfg: pdu.PDUConfig, scenario, grid_spec, *,
+                                 engine: str = "scanned", **kwargs) -> ConditioningResult:
+    """A scenario through the scanned or host engine: ``condition(scenario,
+    cfg, spec, engine=engine, stream=...)``, the stream options taken from
+    ``kwargs``."""
+    if engine not in ("scanned", "host"):
+        raise ValueError(f"unknown engine {engine!r} (expected 'scanned' or 'host')")
+    stream = StreamOptions(
+        chunk_intervals=kwargs.pop("chunk_intervals", 16),
+        state=kwargs.pop("state", None),
+        start_sample=kwargs.pop("start_sample", 0),
+        stop_sample=kwargs.pop("stop_sample", None),
+    )
+    return condition(scenario, cfg, grid_spec, engine=engine, mesh=kwargs.pop("mesh", None),
+                     device=cfg.device, stream=stream, **kwargs)

@@ -16,7 +16,11 @@ calendar_life_s``; capacity fade is ``eol_fade`` at combined damage 1.
 
 The per-sample fold runs inside the ``pdu_health`` kernel (and its plain
 version), one controller interval per call, so every engine folds the same
-blocks and agrees on the whole state.
+blocks and agrees on the whole state.  ``update`` / ``update_consts`` are
+the same fold outside the kernel (``ref.wear_step`` and ``ref.block_sums``,
+the plain version's own code), for callers that hold a SoC trace;
+``reinit_where`` restarts the history of racks the safe-mode sanitizer
+quarantines.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import ess
+from repro_torch.kernels import ref
 from repro_torch.utils.devices import resolve_device
 from repro_torch.utils.structures import Struct
 
@@ -111,6 +116,49 @@ def step_consts(p: HealthParams) -> tuple:
     g = float(p.soc_stress_gain)
     ref = float(p.soc_ref)
     return 0.5 * (1.0 - g * ref), 0.25 * g, float(p.rest_eps), p.kappa
+
+
+def reinit_where(state: HealthState, mask: torch.Tensor, soc0) -> HealthState:
+    """The masked racks' wear telemetry restarted as a fresh history at
+    ``soc0`` (a float or a tensor): the safe-mode sanitizer's reset of a
+    quarantined rack, whose accumulators may be the non-finite leaf.  An
+    all-false mask is the identity."""
+    mask = mask.to(torch.bool)
+    s0 = torch.as_tensor(soc0, dtype=F32, device=state.prev_soc.device).expand(
+        state.prev_soc.shape)
+    pick = lambda new, old: torch.where(mask, new, old)
+    zf = torch.zeros_like(state.direction)
+    return HealthState(
+        prev_soc=pick(s0, state.prev_soc),
+        last_ext=pick(s0, state.last_ext),
+        **{name: pick(zf, getattr(state, name)) for name in HealthState._fields[2:10]},
+        samples=pick(torch.zeros_like(state.samples), state.samples),
+    )
+
+
+def update_consts(consts: tuple, state: HealthState, soc: torch.Tensor) -> HealthState:
+    """Fold one ``(T, ...)`` block of SoC samples with ``step_consts``: the
+    turning-point machine sample by sample (``ref.wear_step``; its leaves
+    equal under any split of the stream) and the throughput / stress sums as
+    one block reduction (``ref.block_sums``; equal under any split into the
+    same blocks)."""
+    shape = soc.shape[1:]
+    flat = soc.to(F32).reshape(soc.shape[0], -1)
+    r = flat.shape[1]
+    leaves = tuple(leaf.reshape(-1).expand(r) for leaf in state)
+    wc = ref.health_step_consts(consts)
+    wear = leaves[:6]
+    for t in range(flat.shape[0]):
+        wear = ref.wear_step(wc, wear, flat[t])
+    out = wear + ref.block_sums(flat, leaves)
+    return HealthState(*(leaf.reshape(shape) for leaf in out))
+
+
+def update(p: HealthParams, state: HealthState, soc: torch.Tensor, dt: float) -> HealthState:
+    """Fold one block of SoC samples into the health state (``dt`` is
+    unused: the time integrals are scaled in the derived reports)."""
+    del dt
+    return update_consts(step_consts(p), state, soc)
 
 
 # ------------------------------------------------------------------ derived

@@ -1,7 +1,7 @@
 """The composed EasyRider PDU (paper §4-§6): filter + ESS + controller.
 
-Port of ``repro.core.pdu`` with degraded mode.  Signal chain (per-unit,
-powers as fractions of rated rack power):
+Port of ``repro.core.pdu`` with degraded and safe mode.  Signal chain
+(per-unit, powers as fractions of rated rack power):
 
     rack power --(ESS ramp control, Eq. 2)--> node power g
                --(passive LC + damping)-----> grid power
@@ -24,9 +24,12 @@ fast path, as the fault schedule itself (``faults``), whose per-sample ESS
 weight the ``pdu_health`` kernel renders from the episode tables.
 ``use_plan=False`` swaps the controller step for the reference's per-step
 oracle (the QP built, factored and solved cold for every rack each
-interval in ``torch.linalg``; no ``admm_step`` launch).  Safe mode is a
-later slice of the port (ROADMAP.md queue 1 item 4); asking for it raises
-``NotImplementedError``.  ``PDUState`` keeps the reference's field names.
+interval in ``torch.linalg``; no ``admm_step`` launch).  Safe mode
+(``make_pdu(safemode=True)``) supervises the conditioner's own failures
+with ``core.safemode``: each interval starts with a sanitizer that
+quarantines racks whose carried state went non-finite, and a watchdog
+after the solve trips racks whose QP diverged (see ``condition``).
+``PDUState`` keeps the reference's field names.
 
 ``condition`` runs inside the scanned engine's CUDA graph
 (``fleet.condition``'s default): given its ``plan`` and its host scalars
@@ -43,14 +46,13 @@ import numpy as np
 import torch
 
 from repro_torch.core import compliance, controller as ctrl, ess, filters, \
-    health as hlt, sizing
+    health as hlt, safemode as smode, sizing
 from repro_torch.kernels import ops
 from repro_torch.power import faults as flt
 from repro_torch.utils.devices import resolve_device
 from repro_torch.utils.structures import Struct
 
 F32 = torch.float32
-_SAFEMODE = "safemode is not ported yet: it comes with ROADMAP.md queue 1 item 4 (safe mode)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +61,7 @@ class PDUConfig(Struct):
     ess_params: ess.ESSParams
     controller: ctrl.ControllerConfig
     health: hlt.HealthParams = None  # aging model (used when track_health)
+    safemode_params: smode.SafeModeConfig = None  # watchdog knobs (when safemode)
     sample_dt: float = 1e-3  # trace sample period [s]
     software_enabled: bool = True
     # Fold per-sample battery wear telemetry into the conditioning loop
@@ -67,6 +70,8 @@ class PDUConfig(Struct):
     # Honour ESS availability, bridge NaN sensor dropouts and trip
     # measurement-blind racks into passthrough (see ``condition``).
     degraded_mode: bool = False
+    # Supervise the conditioner's own failures (``core.safemode``); off, the
+    # loop runs exactly the unsupervised ops.
     safemode: bool = False
 
     @property
@@ -100,15 +105,15 @@ def make_pdu(
     track_health: bool = False,
     degraded_mode: bool = False,
     safemode: bool = False,
+    safemode_params: smode.SafeModeConfig | None = None,
     device="cuda",
 ) -> PDUConfig:
     """Size and assemble an EasyRider PDU for a rack + grid spec (see
     ``repro.core.pdu.make_pdu``: Appendix A.1 Eq. 8 capacity with
     ``capacity_margin``, the ESS designed to ``beta / ramp_margin``).
     The sizing runs in float64 on the host; the config's tensors land on
-    ``device``."""
-    if safemode:
-        raise NotImplementedError(_SAFEMODE)
+    ``device``.  ``safemode`` takes ``safemode_params`` or the default
+    ``SafeModeConfig``."""
     dev = resolve_device(device)
     rack = rack or sizing.prototype_rack()
     grid = grid or compliance.GridSpec.create(device=dev)
@@ -129,10 +134,13 @@ def make_pdu(
         ess_params=ess_params,
         controller=controller_cfg or ctrl.ControllerConfig.create(device=dev),
         health=health_params or hlt.HealthParams.create(device=dev),
+        safemode_params=(safemode_params or smode.SafeModeConfig.create(device=dev))
+        if safemode else None,
         sample_dt=sample_dt,
         software_enabled=software_enabled,
         track_health=track_health,
         degraded_mode=degraded_mode,
+        safemode=safemode,
     )
 
 
@@ -148,10 +156,12 @@ class PDUState(NamedTuple):
     health: hlt.HealthState  # battery wear telemetry (zeros unless tracked)
     # Degraded-mode state: the operator's ESS availability override (1 =
     # available) and the last finite sample per rack (seeds the sensor
-    # bridge).  The safe-mode supervisor comes with its slice.
+    # bridge).  Then the safe-mode supervisor (all NORMAL unless the config
+    # supervises).  Every state carries them, so its structure does not
+    # depend on the config.
     ess_online: torch.Tensor = None
     last_good: torch.Tensor = None
-    safemode: object = None
+    safemode: smode.SafeModeState = None
 
 
 def init_state(cfg: PDUConfig, rack_power0: torch.Tensor, soc0: float = 0.5) -> PDUState:
@@ -179,6 +189,7 @@ def init_state(cfg: PDUConfig, rack_power0: torch.Tensor, soc0: float = 0.5) -> 
         health=hlt.init_state(torch.full_like(r0, soc0)),
         ess_online=torch.ones_like(r0),
         last_good=r0.clone(),
+        safemode=smode.init_state(tuple(r0.shape), device=dev),
     )
 
 
@@ -190,6 +201,8 @@ class Telemetry(NamedTuple):
     rack_mean: torch.Tensor = None  # (T,) campus mean of the (bridged) input trace
     grid_mean: torch.Tensor = None  # (T,) campus mean of the grid trace
     ess_online: torch.Tensor = None  # (n_ctrl, ...) applied availability (degraded mode)
+    # (n_ctrl, ...) int32 supervisor mode after the watchdog (safe mode).
+    safemode_mode: torch.Tensor = None
 
 
 def bridge_sensors(last_good: torch.Tensor, rack_power: torch.Tensor):
@@ -224,14 +237,31 @@ class HostConsts(NamedTuple):
     config and the state's filter once (``host_consts``): samples per
     controller interval, the SoC measurement weight, the hardware path's
     constants, host copies of the filter matrices (launch arguments of
-    ``pdu_health``) and the wear fold's step constants (None unless
-    ``track_health``)."""
+    ``pdu_health``), the wear fold's step constants (None unless
+    ``track_health``) and the supervisor's (None unless ``safemode``)."""
 
     k: int
     meas_w: float
     hw: dict
     lc: tuple
     health: tuple | None
+    safemode: "SupervisorConsts | None" = None
+
+
+class SupervisorConsts(NamedTuple):
+    """What safe mode's sanitizer and converter ramp need, made before a
+    capture: the LC steady-state map ``(I - Ad)^-1 Bd`` as its two float64
+    columns ``ss`` (the filter restarts at ``ss[0] + r0 ss[1]``, one
+    rounding), the SoC it restarts at (``s_mid``, the float32 value), the
+    reinit value of each row the sanitizer resets for a whole rack
+    (``fill``: ``u_prev``, the command target, the ten float wear leaves,
+    the warm iterates) and the converter's slew ``(1..k) / k``
+    (``ramp``)."""
+
+    ss: torch.Tensor
+    s_mid: float
+    fill: torch.Tensor
+    ramp: torch.Tensor
 
 
 def host_consts(cfg: PDUConfig, filt: filters.DiscreteFilter) -> HostConsts:
@@ -239,13 +269,34 @@ def host_consts(cfg: PDUConfig, filt: filters.DiscreteFilter) -> HostConsts:
     state's ``filter_obj``).  Reading them synchronizes with the card, so a
     caller that conditions many chunks (the scanned engine) reads them once
     and passes them in."""
+    k = max(int(round(float(cfg.controller.dt) / cfg.sample_dt)), 1)
     return HostConsts(
-        k=max(int(round(float(cfg.controller.dt) / cfg.sample_dt)), 1),
+        k=k,
         meas_w=min(float(cfg.controller.dt) / float(cfg.controller.meas_tau), 1.0),
         hw=hw_kwargs(cfg),
         lc=tuple(m.detach().cpu().numpy() for m in (filt.ad, filt.bd, filt.c[0])),
         health=hlt.step_consts(cfg.health) if cfg.track_health else None,
+        safemode=_supervisor_consts(cfg, filt, k) if cfg.safemode else None,
     )
+
+
+def _supervisor_consts(cfg: PDUConfig, filt: filters.DiscreteFilter, k: int) -> SupervisorConsts:
+    """The steady-state map is solved on the host in float32 (on the card
+    ``torch.linalg.solve`` reads its status back); the ramp is ``(1..k)``
+    times float32(1 / k), as the reference's compiled program evaluates the
+    division."""
+    dev = cfg.device
+    ad, bd = filt.ad.detach().cpu(), filt.bd.detach().cpu()
+    ss = torch.linalg.solve(torch.eye(ad.shape[0], dtype=ad.dtype) - ad, bd)
+    s_mid = float(cfg.controller.s_mid)
+    n_warm = sum(w.shape[0] for w in ctrl.init_warm(cfg.controller.horizon, (), device="cpu"))
+    # u_prev, cmd_target, then the wear leaves: prev_soc and last_ext
+    # restart at s_mid, the accumulators at 0; the warm iterates at 0.
+    fill = [0.0, 0.0, s_mid, s_mid] + [0.0] * (8 + n_warm)
+    ramp = torch.arange(1, k + 1, dtype=F32) * float(np.float32(1.0 / k))
+    return SupervisorConsts(
+        ss=ss.T.to(device=dev, dtype=torch.float64), s_mid=s_mid,
+        fill=torch.tensor(fill, dtype=F32, device=dev), ramp=ramp.to(dev))
 
 
 def _zoh_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -302,14 +353,37 @@ def condition(
     inside the ``pdu_health`` kernel (``ess_events``).  Its outputs equal
     the streamed arrays' bit for bit at any chunk split.
 
+    Safe mode (``cfg.safemode``), as the reference's: each interval starts
+    with the sanitizer, which quarantines every rack holding a non-finite
+    leaf of the carried state (``safemode.quarantine``) and reinitializes
+    it: the leaves that shape the waveform (SoC, ESS filter, LC state,
+    applied command, SoC EMA) where they went non-finite, the supervisor's
+    own (``u_prev``, the command target, the warm iterates, the wear
+    history) for the whole rack.  A quarantined rack winds its converter
+    down to LC passthrough over one interval once its command has slewed to
+    zero (the supervised weight ``hw + (gate - hw) (1..k) / k`` goes to
+    ``pdu_health`` as its ``(k, R)`` series, times the degraded weight),
+    and the kernel's output guard swaps non-finite grid samples for the
+    rack's.  After the solve a command whose residual is over
+    ``safemode_params.resid_threshold`` (or non-finite) is vetoed, the
+    watchdog folds the raw residual (``safemode.residual_update``), and
+    racks that are not NORMAL get zero command and residual and cold warm
+    iterates.  ``Telemetry.safemode_mode`` carries the modes.  With
+    ``faults`` a supervised call takes the streamed arrays derived from the
+    schedule (``faults.interval_online`` and ``faults.ess_weight`` at
+    ``chunk_start``), not the events mode.  A clean supervised run equals
+    the unsupervised one bit for bit (a weight of ones is exact in the
+    kernel).
+
     ``consts`` (``host_consts(cfg, state.filter_obj)``) and ``plan`` are
     read from the card when not given; with both given (and
     ``idle_remaining_s`` a tensor or a Python number) the call can be
     captured in a CUDA graph.
     """
     degraded = cfg.degraded_mode
-    if cfg.safemode:
-        raise NotImplementedError(_SAFEMODE)
+    safemode = cfg.safemode
+    if safemode and state.safemode is None:
+        raise ValueError("a safe-mode config needs a state with its supervisor (init_state)")
     if plan is not None and not use_plan:
         raise ValueError("plan= is the factor-once controller's: it needs use_plan=True")
     if (ess_online is not None or ess_weight is not None) and not degraded:
@@ -333,6 +407,13 @@ def condition(
     t = rack_power.shape[0]
     n_ctrl = -(-t // k)
     pad = n_ctrl * k - t
+    if fast and safemode:
+        # The supervisor composes its own per-sample weight with the
+        # schedule's, so a supervised call takes the streamed arrays (the
+        # same values, by the fast path's contract).
+        ess_online = flt.interval_online(faults, chunk_start, n_ctrl, k)
+        ess_weight = flt.ess_weight(faults, chunk_start, t, fault_edge)
+        faults, fast = None, False
     batched = rack_power.ndim == 2
     rc_all = (rack_power if batched else rack_power[:, None]).to(device=dev, dtype=F32)
     n_r = rc_all.shape[1]
@@ -387,6 +468,9 @@ def condition(
     # host memory could not be captured in a CUDA graph).
     idle = (idle_remaining_s.to(device=dev, dtype=F32) if isinstance(idle_remaining_s, torch.Tensor)
             else torch.full((), float(idle_remaining_s), dtype=F32, device=dev))
+    if safemode:
+        sm_cfg, sm, sc = cfg.safemode_params, state.safemode, consts.safemode
+        modes = []
 
     x_f, es = state.filter_state, state.ess_state
     cmd_applied, cmd_target = state.cmd_applied, state.cmd_target
@@ -394,7 +478,12 @@ def condition(
     grids, socs, cmds, tgts, resids, rack_means, grid_means = ([] for _ in range(7))
     for i in range(n_ctrl):
         rc = chunks[i]
-        mask_kw, on_row = {}, None
+        mask_kw, on_row, sm_w = {}, None, None
+        if safemode:
+            (es, x_f, u_prev, cmd_applied, cmd_target, soc_ema, warm, hstate, sm,
+             sm_w) = _sanitize(sc, sm, drop(rc[0]), es, x_f, u_prev, cmd_applied, cmd_target,
+                               soc_ema, warm, hstate)
+            sm_w_lifted = sm_w if batched else sm_w[:, None]
         if fast:
             # --- sensor bridge from the schedule --------------------------
             # Dark samples take the raw value at the covering episode's
@@ -417,13 +506,17 @@ def condition(
                            ess_edge=int(fault_edge))
         elif degraded:
             on_row = on_rows[i]
-            mask_kw = dict(ess_on=on_row if ess_weight is None else hw_chunks[i])
+            hw = on_row if ess_weight is None else hw_chunks[i]
+            mask_kw = dict(ess_on=hw if sm_w is None else hw * sm_w_lifted)
+        elif safemode:
+            mask_kw = dict(ess_on=sm_w_lifted)
 
         # --- hardware path: one pdu_health launch per interval -----------
         health_in = (hconsts, tuple(lift(leaf) for leaf in hstate)) if cfg.track_health else None
         grid, _soc_path, (g_f, soc_f, x_new), h_leaves = ops.pdu_health_sim(
             rc, lift(es.g_filter), lift(es.soc), lift(x_f), *lc,
-            slew=(lift(cmd_applied), lift(cmd_target)), health=health_in, **mask_kw, **hw_kw,
+            slew=(lift(cmd_applied), lift(cmd_target)), health=health_in, guard=safemode,
+            **mask_kw, **hw_kw,
         )
         rack_means.append(torch.mean(rc, dim=1))
         grid_means.append(torch.mean(grid, dim=1))
@@ -467,7 +560,24 @@ def condition(
         else:
             new_cmd = torch.zeros_like(soc_meas)
             resid = torch.zeros_like(soc_meas)
-        socs.append(es2.soc)
+        soc_row = es2.soc
+        if safemode:
+            # The watchdog: an over-threshold (or non-finite) solve's
+            # command is vetoed (the rack holds its target), the raw
+            # residual is folded, and no rack outside NORMAL commands its
+            # battery; its warm iterates reset for a cold probe.  A SoC the
+            # interval drove non-finite stays in the carry (the sanitizer
+            # takes it next interval) but not in the telemetry.
+            bad = smode.over_threshold(sm_cfg, resid)
+            new_cmd = torch.where(bad, cmd_target, new_cmd)
+            sm = smode.residual_update(sm_cfg, sm, resid, bad=bad)
+            held = sm.mode != smode.NORMAL
+            new_cmd = torch.where(held, 0.0, new_cmd)
+            resid = torch.where(held, 0.0, resid)
+            warm = ctrl.QPWarmState(*(torch.where(held, 0.0, w) for w in warm))
+            soc_row = _fin(soc_row, sc.s_mid)
+            modes.append(sm.mode)
+        socs.append(soc_row)
         cmds.append(new_cmd)
         tgts.append(s_target.expand(soc_meas.shape))
         resids.append(resid)
@@ -482,14 +592,70 @@ def condition(
     new_state = state._replace(
         filter_state=x_f, ess_state=es, u_prev=u_prev, cmd_applied=cmd_applied,
         cmd_target=cmd_target, soc_ema=soc_ema, qp_warm=warm, health=hstate,
-        last_good=last_good,
+        last_good=last_good, safemode=sm if safemode else state.safemode,
     )
     return grid, new_state, Telemetry(
         soc=torch.stack(socs), command=torch.stack(cmds), target=torch.stack(tgts),
         qp_residual=torch.stack(resids),
         rack_mean=torch.cat(rack_means)[:t], grid_mean=torch.cat(grid_means)[:t],
         ess_online=None if not degraded else (on_rows if batched else on_rows[:, 0]),
+        safemode_mode=torch.stack(modes) if safemode else None,
     )
+
+
+def _fin(x: torch.Tensor, v: float) -> torch.Tensor:
+    """``x`` with its non-finite entries replaced by ``v``: ``where(isfinite(x),
+    x, v)`` in one launch."""
+    return torch.nan_to_num(x, nan=v, posinf=v, neginf=v)
+
+
+def _sanitize(sc: SupervisorConsts, sm, r0, es, x_f, u_prev, cmd_applied, cmd_target, soc_ema,
+              warm, hstate):
+    """Safe mode's start of an interval: quarantine every rack holding a
+    non-finite carried leaf and reinitialize it, then gate its hardware
+    plane.  ``r0`` is the interval's first rack sample (the steady state
+    the filters restart at).  One finite test covers every float leaf at
+    once.  The leaves that shape the waveform (ESS filter, LC state, SoC,
+    applied command, SoC EMA) keep their finite values, so containment
+    never steps the grid; the supervisor's own (``u_prev``, the command
+    target, the wear history, the warm iterates) reset for the whole rack,
+    in one select, so the next probe is a deterministic cold start.  The
+    hardware plane reads the pre-watchdog mode: only a QUARANTINE rack
+    whose command has slewed to zero winds its converter down, slewing the
+    applied weight across the interval.  Returns the repaired leaves, the
+    supervisor state and the ``(k, ...)`` weight."""
+    row = lambda leaf: leaf[None]
+    wear = [row(leaf) for leaf in hstate if leaf.is_floating_point()]
+    # Rows 0-6 are repaired where they went non-finite, the rest (from 7)
+    # for the whole rack.
+    # (Contiguous pieces: one batched copy; a strided one makes the
+    # concatenation copy piece by piece.)
+    carried = torch.cat([row(es.g_filter), x_f.movedim(-1, 0).contiguous(), row(es.soc),
+                         row(cmd_applied), row(soc_ema), row(u_prev), row(cmd_target), *wear,
+                         *warm])
+    ok = smode.finite(carried)
+    corrupt = ~ok.all(0)
+    r0 = _fin(r0, 0.5)
+    x_ss = torch.addcmul(sc.ss[0], r0.double()[..., None], sc.ss[1]).float()  # one rounding
+    g = torch.where(ok[0], es.g_filter, r0)
+    x_f = torch.where(ok[1:4].movedim(0, -1), x_f, x_ss)
+    reset = torch.where(corrupt, sc.fill.reshape((-1,) + (1,) * r0.ndim), carried[7:])
+    u_prev, cmd_target = reset[0], reset[1]
+    wear = iter(reset[2 : 2 + len(wear)])
+    hstate = hlt.HealthState(*(next(wear) if leaf.is_floating_point()
+                               else torch.where(corrupt, 0, leaf) for leaf in hstate))
+    ends = np.cumsum([2 + len(hlt.HealthState._fields) - 1] + [w.shape[0] for w in warm])
+    warm = ctrl.QPWarmState(*(reset[a:b] for a, b in zip(ends[:-1], ends[1:])))
+    cmd_applied = _fin(cmd_applied, 0.0)
+    sm = smode.quarantine(sm, corrupt)
+    gate = ((sm.mode != smode.QUARANTINE) | (cmd_applied != 0.0) | (cmd_target != 0.0)).to(F32)
+    # hw + (gate - hw) ramp: XLA fuses it into one rounding, and so does
+    # float32 here, since hw holds a gate (0 or 1) and (gate - hw) ramp is
+    # exact.  A clean rack computes 1 + 0 ramp = 1 exactly.
+    w = sm.hw_weight + (gate - sm.hw_weight) * sc.ramp.reshape((-1,) + (1,) * gate.ndim)
+    es = ess.ESSState(g_filter=g, soc=_fin(es.soc, sc.s_mid))
+    return (es, x_f, u_prev, cmd_applied, cmd_target, _fin(soc_ema, sc.s_mid), warm, hstate,
+            sm._replace(hw_weight=gate), w)
 
 
 class CampusChunk(NamedTuple):
@@ -503,6 +669,10 @@ class CampusChunk(NamedTuple):
     # (n_ctrl,) fraction of ESS units online per interval (ones unless the
     # cfg runs degraded_mode).
     ess_online_frac: torch.Tensor = None
+    # (6,) supervisor snapshot at the chunk's end (zeros unless the cfg
+    # runs safemode): [frac_normal, n_passthrough, n_quarantined,
+    # entries_total, readmissions_total, worst_resid_streak].
+    safemode: torch.Tensor = None
 
 
 def condition_campus(
@@ -539,6 +709,8 @@ def condition_campus(
         health=hsnap,
         ess_online_frac=(torch.mean(telem.ess_online, dim=1) if cfg.degraded_mode
                          else torch.ones(telem.soc.shape[0], dtype=F32, device=cfg.device)),
+        safemode=(smode.chunk_snapshot(state2.safemode) if cfg.safemode
+                  else torch.zeros(6, dtype=F32, device=cfg.device)),
     )
 
 

@@ -87,7 +87,7 @@ def _use_kernel(t: torch.Tensor, force: str | None) -> bool:
 
 
 def pdu_health_sim(
-    rack_power, g0, soc0, x0, ad, bd, c_row, *, health=None, force=None,
+    rack_power, g0, soc0, x0, ad, bd, c_row, *, health=None, guard=False, force=None,
     ess_on=None, ess_events=None, ess_edge=1, **kw,
 ):
     """One controller interval of the rack hardware path for every rack
@@ -97,12 +97,23 @@ def pdu_health_sim(
     (an ``(R,)`` row or a ``(T, R)`` series) or ``ess_events=(starts, ends,
     base, i0, t_last)`` with ``ess_edge``, rendered per sample from the
     fault schedule's ``(E, R)`` int32 episode tables; the kernel has a mode
-    for each."""
+    for each.
+
+    ``guard=True`` (safe mode's output guard) replaces every non-finite
+    sample of the grid trace with the rack sample passed in, so the
+    grid-facing waveform degrades to passthrough instead of exporting NaN;
+    one ``torch.where`` after either route, the identity on finite outputs.
+    The carried machine state is not guarded: the sanitizer quarantines the
+    rack from it at the next interval."""
     if ess_on is not None:
         ess_on = ess_on.to(torch.float32)
     fn = _ph.pdu_health_sim if _use_kernel(rack_power, force) else _ref.pdu_health_sim
-    return fn(rack_power, g0, soc0, x0, ad, bd, c_row, health=health, ess_on=ess_on,
-              ess_events=ess_events, ess_edge=ess_edge, **kw)
+    grid, soc_t, finals, h_leaves = fn(
+        rack_power, g0, soc0, x0, ad, bd, c_row, health=health, ess_on=ess_on,
+        ess_events=ess_events, ess_edge=ess_edge, **kw)
+    if guard:  # (grid * 0 == 0: isfinite in two launches)
+        grid = torch.where(grid * 0.0 == 0.0, grid, rack_power)
+    return grid, soc_t, finals, h_leaves
 
 
 def admm_iterate(kkt_stack, g_blk, kq, lo, hi, x0, z0, y0, *, rho, iters, force=None):

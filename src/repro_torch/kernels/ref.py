@@ -283,33 +283,45 @@ def pdu_health_sim(
     g, soc = g0.to(F32).expand(r), soc0.to(F32).expand(r)
     x = x0.to(F32).T
     if health is not None:
-        c0, c1, eps, kappa = health_step_consts(health[0])
-        prev, last_ext, dirn, half, dmg, mdod = (
-            leaf.to(F32).expand(r) for leaf in health[1][:6]
-        )
+        wc = health_step_consts(health[0])
+        wear = tuple(leaf.to(F32).expand(r) for leaf in health[1][:6])
     for t in range(t_len):
         g, soc_new, grid[t], x = hw_step(k, lc, x, g, soc, rack_power[t], corr[t],
                                          None if w_all is None else w_all[t])
         soc_t[t] = soc_new
         if health is not None:
-            delta = soc_new - prev
-            sd = torch.where(delta > eps, 1.0, torch.where(delta < -eps, -1.0, 0.0))
-            rev = (sd * dirn) < 0.0
-            revf = rev.to(F32)
-            depth = torch.abs(prev - last_ext)
-            half_w = torch.clamp(fma(c1, prev + last_ext, c0), min=0.0)
-            dmg = dmg + revf * (half_w * pow_depth(depth, kappa))
-            mdod = torch.maximum(mdod, revf * depth)
-            last_ext = torch.where(rev, prev, last_ext)
-            dirn = torch.where(sd != 0.0, sd, dirn)
-            half = half + revf
-            prev = soc_new
+            wear = wear_step(wc, wear, soc_new)
         soc = soc_new
     finals = (g, soc, x.T.contiguous())
     if health is None:
         return grid, soc_t, finals, None
-    return grid, soc_t, finals, (prev, last_ext, dirn, half, dmg, mdod) + block_sums(
-        soc_t, health[1]
+    return grid, soc_t, finals, wear + block_sums(soc_t, health[1])
+
+
+def wear_step(wc, carry, soc_new: torch.Tensor) -> tuple:
+    """One sample of the battery-wear turning-point machine (the scan of
+    ``repro.core.health.update_consts``): ``carry`` is ``(prev_soc,
+    last_ext, direction, half_cycles, cycle_damage, max_dod)``, ``wc`` is
+    ``health_step_consts``' tuple.  Every reversal of the SoC's direction
+    closes a half-cycle of depth ``|prev - last_ext|``, weighted by
+    ``max(c0 + c1 (prev + last_ext), 0)`` (one fused multiply-add, as the
+    reference's compiled scan evaluates it).  Shared by ``pdu_health_sim``
+    and ``core.health.update_consts``."""
+    c0, c1, eps, kappa = wc
+    prev, last_ext, dirn, half, dmg, mdod = carry
+    delta = soc_new - prev
+    sd = torch.where(delta > eps, 1.0, torch.where(delta < -eps, -1.0, 0.0))
+    rev = (sd * dirn) < 0.0
+    revf = rev.to(F32)
+    depth = torch.abs(prev - last_ext)
+    half_w = torch.clamp(fma(c1, prev + last_ext, c0), min=0.0)
+    return (
+        soc_new,
+        torch.where(rev, prev, last_ext),
+        torch.where(sd != 0.0, sd, dirn),
+        half + revf,
+        dmg + revf * (half_w * pow_depth(depth, kappa)),
+        torch.maximum(mdod, revf * depth),
     )
 
 

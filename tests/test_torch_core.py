@@ -59,6 +59,46 @@ def test_make_pdu_matches_jax_bitwise(configs):
     assert t["sample_dt"] == j["sample_dt"] and t["track_health"] == j["track_health"]
 
 
+def test_supervised_config_and_state_round_trip():
+    """A safe-mode config and a state with a moved supervisor carry across
+    from the JAX package (``resid_threshold`` a tensor, the interval counts
+    host ints, the eight supervisor leaves), equal the port's own make_pdu
+    and round-trip through ``numpy_tree``; a state tree without the
+    supervisor carries None."""
+    from repro.core import safemode as jsm
+    from repro_torch.core import safemode as tsm
+
+    params = dict(resid_threshold=0.07, trip_intervals=2, readmit_intervals=5)
+    jcfg = jpdu.make_pdu(sample_dt=1.0 / HZ, degraded_mode=True, safemode=True,
+                         safemode_params=jsm.SafeModeConfig.create(**params))
+    tcfg = convert.pdu_config_from_numpy(convert.numpy_tree(jcfg), device="cpu")
+    own = tpdu.make_pdu(sample_dt=1.0 / HZ, degraded_mode=True, safemode=True, device="cpu",
+                        safemode_params=tsm.SafeModeConfig.create(**params, device="cpu"))
+    assert tcfg.safemode and tcfg.degraded_mode
+    for cfg in (tcfg, own):
+        smp = cfg.safemode_params
+        assert (smp.trip_intervals, smp.readmit_intervals) == (2, 5)
+        assert smp.resid_threshold.dtype == torch.float32
+        assert float(smp.resid_threshold) == float(np.float32(0.07))
+    assert convert.numpy_tree(tcfg)["safemode_params"] == {**convert.numpy_tree(jcfg)[
+        "safemode_params"], "resid_threshold": np.float32(0.07)}
+    assert tpdu.make_pdu(sample_dt=1.0 / HZ, device="cpu").safemode_params is None
+    jst = jpdu.init_state(jcfg, jnp.full((5,), 0.6, jnp.float32))
+    jst = jst._replace(safemode=jst.safemode._replace(
+        mode=jnp.asarray([0, 1, 2, 0, 1], jnp.int32),
+        readmissions=jnp.asarray([0, 0, 3, 1, 0], jnp.int32),
+        hw_weight=jnp.asarray([1.0, 1.0, 0.25, 1.0, 1.0], jnp.float32)))
+    tree = convert.numpy_tree(jst)
+    tst = convert.pdu_state_from_numpy(tree, device="cpu")
+    for name, a, b in zip(jst.safemode._fields, jst.safemode, tst.safemode):
+        assert b.dtype == (torch.float32 if name == "hw_weight" else torch.int32), name
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=name)
+    back = convert.numpy_tree(tst)["safemode"]
+    for name, val in tree["safemode"].items():
+        np.testing.assert_array_equal(back[name], val, err_msg=name)
+    assert convert.pdu_state_from_numpy({**tree, "safemode": None}, device="cpu").safemode is None
+
+
 def test_discrete_filter_bitwise_and_steady_state(configs):
     jcfg, tcfg = configs
     jf = jfilt.make_discrete_filter(jcfg.filter_params, 1.0 / HZ)

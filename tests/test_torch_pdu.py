@@ -120,5 +120,13 @@ def test_condition_streaming_split_is_bitwise(trace):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpdu.make_pdu(safemode=True, device="cpu")
+    """A grid-region target is the conditioning path still to be ported
+    (ROADMAP.md queue 1 item 5): the facade refuses it by name."""
+    from types import SimpleNamespace
+
+    from repro_torch.core import fleet as tfleet
+
+    cfg = tpdu.make_pdu(sample_dt=1.0 / HZ, device="cpu")
+    region = SimpleNamespace(campuses=())
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
+        tfleet.condition(region, cfg, device="cpu")

@@ -277,6 +277,38 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    summary exactly, every campus sample finite, and the scanned run split
    at sample 8000 and resumed equal to one call; it prints each engine's
    warm walls.
+16. Grid regions and the operator service (``core.grid``,
+   ``serve.conditioner``): (a) ``GRID_REGION`` (``bench_grid_region``'s 4
+   campuses x 256 racks of checkpoint stalls, 200 s at 50 Hz) through
+   ``fleet.condition`` on the scanned engine, synchronized and then
+   staggered, one cold and three warm runs each: the 8 campus runs must
+   make one capture (40 clean pdu_health and 40 admm_step launches) and
+   launch nothing from Python after it; the synchronized POI must ring the
+   inter-area band and pass the local-plant band, the staggered one pass
+   both, at least 10x apart, both POI ramps within spec; ``poi_rack`` /
+   ``poi_grid`` must equal the left-to-right weighted sum of the campus
+   aggregates and ``poi_freq_dev`` / ``poi_volt_dev`` ``grid.poi_response``
+   of it, each campus's result ``fleet.condition`` of that salted campus
+   alone, bit for bit; both regions must match ``JAX_GRID_REGION``
+   (recorded on the CPU by ``python
+   tests/test_torch_grid_region_reference.py``) under ``compare_region``,
+   the mode lines also the exact DFT of the port's POI.  It prints the
+   walls, the graph's nodes and the host-side POI fold and
+   ``poi_response`` times.  (b) ``ConditionerService`` over the
+   synchronized region (4-interval windows, an fsync'd audit log): a trip
+   of global rack 261 (campus 1) shown by ``status()`` and cleared, a
+   checkpoint restored into a second service whose next window equals the
+   live one bit for bit (``poi_grid``, ``campus_rack``, ``poi_freq_dev``,
+   every state leaf), then drained: ``mode_band_violation`` events, all
+   inter-area above threshold, every line strict JSON.  (c) The degraded
+   ``FAULTY_CAMPUS`` under ``ConditionerService`` (4-interval windows)
+   drained whole, killed after window 2 and recovered over a directory
+   holding a torn ``.npz``, and auto-checkpointed every window keeping 3:
+   the three bit for bit equal, the windows together within
+   ``FAULTY_CAMPUS_TOLERANCES`` of phase 13's scanned run
+   (``ess_online_frac`` exactly), the fault, repair and degraded events as
+   the schedule's ``episodes_in_window`` and the online fraction give
+   them, three checkpoints kept, pdu_health captured in its events mode.
 
 With ``--profile DIR`` it also profiles one more campus run, prefill step,
 generation and training step, rwkv6-7b prefill and generation, a host run
@@ -1559,6 +1591,281 @@ def run_safemode_drill(n_racks: int, duration_s: float, engine: str, *, device: 
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return res, safemode_drill_summary(res, res.bank), wall
+
+
+# The grid region of phase 16a, as benchmarks/paper_benches.py::
+# bench_grid_region builds it: 4 campuses x 256 racks of checkpoint stalls
+# (a stall every 8 s, compute plateau, no comm wave), 200 s at 50 Hz, the
+# default POI and mode bands, ``make_pdu(sample_dt=1/50)``, the scanned
+# engine's defaults (qp_iters 30, 16-interval chunks); synchronized, then
+# its staggered twin (campus c offset by c/4 of the stall period).
+GRID_REGION = dict(n_campuses=4, n_racks=256, duration_s=200.0, sample_hz=50.0, qp_iters=30,
+                   chunk_intervals=16)
+
+# The JAX package's numbers for GRID_REGION, synchronized and staggered:
+# its region composed from pieces that run on jax 0.9.0 (each campus through
+# the scanned ``fleet.condition``, the POI summed left to right,
+# ``grid._poi_fold`` and ``grid._assemble_region_result``) on the CPU,
+# printed by ``python tests/test_torch_grid_region_reference.py``.
+JAX_GRID_REGION = {'synchronized': {'mode_mags': [0.014346247538924217, 0.0003370149352122098],
+                                   'mode_mags_exact': [0.014285486031422337, 0.0003378028401011392],
+                                   'mode_ok': [False, True],
+                                   'modes_ok': False,
+                                   'poi_max_ramp': 0.05616620182991028,
+                                   'poi_rack_max_ramp': 3.3940017223358154,
+                                   'poi_ramp_ok': True,
+                                   'poi_spectrum_ok': True,
+                                   'poi_ok': False,
+                                   'max_freq_dev_hz': 0.13485008478164673,
+                                   'max_volt_dev': 0.028554094955325127,
+                                   'poi_grid_mean': 0.6715167226441204,
+                                   'poi_rack_mean': 0.7198593588419259,
+                                   'campuses': [{'rack_max_ramp': 3.4577994346618652,
+                                                 'grid_max_ramp': 0.056164711713790894,
+                                                 'rack_ramp_ok': False,
+                                                 'rack_spectrum_ok': False,
+                                                 'grid_ramp_ok': True,
+                                                 'grid_spectrum_ok': True,
+                                                 'grid_ok': True,
+                                                 'campus_rack_mean': 0.7198652780100703,
+                                                 'campus_grid_mean': 0.6715054398551583},
+                                                {'rack_max_ramp': 3.462648391723633,
+                                                 'grid_max_ramp': 0.05621574819087982,
+                                                 'rack_ramp_ok': False,
+                                                 'rack_spectrum_ok': False,
+                                                 'grid_ramp_ok': True,
+                                                 'grid_spectrum_ok': True,
+                                                 'grid_ok': True,
+                                                 'campus_rack_mean': 0.7198572585821151,
+                                                 'campus_grid_mean': 0.6714757766887546},
+                                                {'rack_max_ramp': 3.4481897354125977,
+                                                 'grid_max_ramp': 0.056173279881477356,
+                                                 'rack_ramp_ok': False,
+                                                 'rack_spectrum_ok': False,
+                                                 'grid_ramp_ok': True,
+                                                 'grid_spectrum_ok': True,
+                                                 'grid_ok': True,
+                                                 'campus_rack_mean': 0.7198604618884623,
+                                                 'campus_grid_mean': 0.6715195635780692},
+                                                {'rack_max_ramp': 3.453092336654663,
+                                                 'grid_max_ramp': 0.056111812591552734,
+                                                 'rack_ramp_ok': False,
+                                                 'rack_spectrum_ok': False,
+                                                 'grid_ramp_ok': True,
+                                                 'grid_spectrum_ok': True,
+                                                 'grid_ok': True,
+                                                 'campus_rack_mean': 0.7198544369496405,
+                                                 'campus_grid_mean': 0.6715661110334098}]},
+                  'staggered': {'mode_mags': [0.00016362612950615585, 1.7581861584403669e-06],
+                                'mode_mags_exact': [3.690787813835106e-05, 1.3508824414405797e-07],
+                                'mode_ok': [True, True],
+                                'modes_ok': True,
+                                'poi_max_ramp': 0.03512650728225708,
+                                'poi_rack_max_ramp': 0.8911266922950745,
+                                'poi_ramp_ok': True,
+                                'poi_spectrum_ok': True,
+                                'poi_ok': True,
+                                'max_freq_dev_hz': 0.1580348163843155,
+                                'max_volt_dev': 0.02808746136724949,
+                                'poi_grid_mean': 0.6619964199826122,
+                                'poi_rack_mean': 0.7075693835943937,
+                                'campuses': [{'rack_max_ramp': 3.4577994346618652,
+                                              'grid_max_ramp': 0.056164711713790894,
+                                              'rack_ramp_ok': False,
+                                              'rack_spectrum_ok': False,
+                                              'grid_ramp_ok': True,
+                                              'grid_spectrum_ok': True,
+                                              'grid_ok': True,
+                                              'campus_rack_mean': 0.7198652780100703,
+                                              'campus_grid_mean': 0.6715054398551583},
+                                             {'rack_max_ramp': 3.4735469818115234,
+                                              'grid_max_ramp': 0.05618780851364136,
+                                              'rack_ramp_ok': False,
+                                              'rack_spectrum_ok': False,
+                                              'grid_ramp_ok': True,
+                                              'grid_spectrum_ok': True,
+                                              'grid_ok': True,
+                                              'campus_rack_mean': 0.711657291907072,
+                                              'campus_grid_mean': 0.664964661718905},
+                                             {'rack_max_ramp': 3.473508358001709,
+                                              'grid_max_ramp': 0.05621127784252167,
+                                              'rack_ramp_ok': False,
+                                              'rack_spectrum_ok': False,
+                                              'grid_ramp_ok': True,
+                                              'grid_spectrum_ok': True,
+                                              'grid_ok': True,
+                                              'campus_rack_mean': 0.703460494659096,
+                                              'campus_grid_mean': 0.6587324350871145},
+                                             {'rack_max_ramp': 3.4711389541625977,
+                                              'grid_max_ramp': 0.05624815821647644,
+                                              'rack_ramp_ok': False,
+                                              'rack_spectrum_ok': False,
+                                              'grid_ramp_ok': True,
+                                              'grid_spectrum_ok': True,
+                                              'grid_ok': True,
+                                              'campus_rack_mean': 0.6952944698646665,
+                                              'campus_grid_mean': 0.652783144813776}]}}
+
+# Tolerances of the port against JAX_GRID_REGION, with their reasons:
+# * the campus means as CAMPUS_TOLERANCES (1e-6 rack, 1e-5 grid) and the
+#   campus and POI ramps 5e-5 /s: the rendered samples differ by ~1e-6;
+# * the mode magnitudes: the reference's float32 Goertzel bank drifts from
+#   the exact DFT of its own POI at these sub-Hz lines by up to 1.27e-4
+#   absolute (the staggered inter-area line reads 1.636e-4 against an exact
+#   3.69e-5; synchronized 1.4346e-2 against 1.4285e-2), while the port's
+#   lines stay within 2e-4 relative of theirs.  So the port's lines are held
+#   to the exact float64 DFT of the JAX POI within 1e-3 relative plus 1e-8
+#   (measured: 4e-5 relative, 7e-10 absolute), to the JAX bank's lines
+#   within 2e-4 absolute, and to the exact DFT of their own POI within
+#   BANK_REL_TOL plus 1e-9;
+# * max |df| 2e-3 relative and max |dV| 1e-6 absolute: the swing model is
+#   linear in the POI deviation, and both POI traces differ by ~1e-6;
+# * every verdict exactly.
+GRID_REGION_TOLERANCES = {
+    "poi_max_ramp": ("abs", 5e-5),
+    "poi_rack_max_ramp": ("abs", 5e-5),
+    "max_freq_dev_hz": ("rel", 2e-3),
+    "max_volt_dev": ("abs", 1e-6),
+    "poi_grid_mean": ("abs", 1e-5),
+    "poi_rack_mean": ("abs", 1e-6),
+}
+GRID_CAMPUS_TOLERANCES = {
+    "rack_max_ramp": ("abs", 5e-5),
+    "grid_max_ramp": ("abs", 5e-5),
+    "campus_rack_mean": ("abs", 1e-6),
+    "campus_grid_mean": ("abs", 1e-5),
+}
+MODE_JAX_EXACT_TOL = (1e-3, 1e-8)  # (relative, absolute) against the JAX POI's exact DFT
+MODE_JAX_BANK_ABS = 2e-4  # against the JAX bank's streamed lines
+MODE_EXACT_ABS = 1e-9  # beside BANK_REL_TOL against the port POI's own exact DFT
+GRID_VERDICTS = ("mode_ok", "modes_ok", "poi_ramp_ok", "poi_spectrum_ok", "poi_ok")
+GRID_CAMPUS_VERDICTS = ("rack_ramp_ok", "rack_spectrum_ok", "grid_ramp_ok", "grid_spectrum_ok",
+                        "grid_ok")
+
+
+def grid_region(grid, stagger: bool, n_racks: int, duration_s: float, **kw):
+    """GRID_REGION's region (``stagger``: its staggered twin) at ``n_racks``
+    a campus and ``duration_s``, built by either package's ``grid`` module
+    (``kw``: the port's ``device``)."""
+    c = GRID_REGION
+    build = grid.staggered_region if stagger else grid.synchronized_region
+    return build(n_campuses=c["n_campuses"], n_racks=n_racks, duration_s=duration_s,
+                 sample_hz=c["sample_hz"], **kw)
+
+
+def exact_band_lines(trace, bank, bands) -> list[float]:
+    """Each band's largest line of a whole trace at the mode bank's bins,
+    from a float64 FFT of the Hann-windowed trace (0 for a band with no
+    line), as ``grid.mode_verdicts`` selects them."""
+    import numpy as np
+
+    x = np.asarray(trace.detach().cpu() if hasattr(trace, "detach") else trace, np.float64)
+    n = x.shape[0]
+    assert bank.modulus == n and bank.window == "hann", (bank.modulus, n, bank.window)
+    w = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)
+    bins = np.asarray(bank.bins, np.int64)
+    scale = np.where((n % 2 == 0) & (bins == n // 2), 1.0, 2.0)
+    mags = np.abs(np.fft.rfft(x * w))[bins] * scale / (n * np.mean(w))
+    freqs = bins / (bank.modulus * bank.dt)
+    out = []
+    for b in bands:
+        sel = (freqs >= b.lo_hz) & (freqs < b.hi_hz)
+        out.append(float(mags[sel].max()) if sel.any() else 0.0)
+    return out
+
+
+def region_summary(res, reg, mbank) -> dict:
+    """The scalars of a region run that the check compares (either package);
+    ``mbank`` is the window's mode bank (``grid.mode_bank``)."""
+    import numpy as np
+
+    host = lambda x: np.asarray(x.detach().cpu() if hasattr(x, "detach") else x, np.float64)
+    rp, rr = res.report_poi, res.report_rack
+    out = {
+        "mode_mags": [float(v) for v in host(rp.mode_mags)],
+        "mode_mags_exact": exact_band_lines(res.poi_grid, mbank, reg.bands),
+        "mode_ok": [bool(v) for v in host(rp.mode_ok)],
+        "modes_ok": bool(rp.modes_ok),
+        "poi_max_ramp": float(rp.max_ramp), "poi_rack_max_ramp": float(rr.max_ramp),
+        "poi_ramp_ok": bool(rp.ramp_ok), "poi_spectrum_ok": bool(rp.spectrum_ok),
+        "poi_ok": bool(rp.ok),
+        "max_freq_dev_hz": float(np.max(np.abs(host(res.poi_freq_dev)))),
+        "max_volt_dev": float(np.max(np.abs(host(res.poi_volt_dev)))),
+        "poi_grid_mean": float(np.mean(host(res.poi_grid))),
+        "poi_rack_mean": float(np.mean(host(res.poi_rack))),
+        "campuses": [],
+    }
+    for p in res.per_campus:
+        r, g = p.report_rack, p.report_grid
+        out["campuses"].append({
+            "rack_max_ramp": float(r.max_ramp), "grid_max_ramp": float(g.max_ramp),
+            "rack_ramp_ok": bool(r.ramp_ok), "rack_spectrum_ok": bool(r.spectrum_ok),
+            "grid_ramp_ok": bool(g.ramp_ok), "grid_spectrum_ok": bool(g.spectrum_ok),
+            "grid_ok": bool(g.ok),
+            "campus_rack_mean": float(np.mean(host(p.campus_rack))),
+            "campus_grid_mean": float(np.mean(host(p.campus_grid))),
+        })
+    return out
+
+
+def _within(got: float, want: float, kind: str, tol: float) -> bool:
+    return abs(got - want) <= (tol * abs(want) if kind == "rel" else tol)
+
+
+def compare_region(got: dict, want: dict) -> list[str]:
+    """Failures of ``got`` against ``want`` under GRID_REGION_TOLERANCES,
+    GRID_CAMPUS_TOLERANCES, MODE_JAX_EXACT_TOL and MODE_JAX_BANK_ABS (every
+    verdict exactly), and of ``got``'s mode lines against its exact DFT
+    (BANK_REL_TOL plus MODE_EXACT_ABS)."""
+    bad = [f"{k}: {got[k]} != {want[k]}" for k in GRID_VERDICTS if got[k] != want[k]]
+    for k, (kind, tol) in GRID_REGION_TOLERANCES.items():
+        if not _within(got[k], want[k], kind, tol):
+            bad.append(f"{k}: {got[k]!r} vs {want[k]!r} (tolerance {kind} {tol:g})")
+    rel, ab = MODE_JAX_EXACT_TOL
+    for i, (g, x, w, wx) in enumerate(zip(got["mode_mags"], got["mode_mags_exact"],
+                                          want["mode_mags"], want["mode_mags_exact"],
+                                          strict=True)):
+        if not abs(g - wx) <= rel * wx + ab:
+            bad.append(f"mode_mags[{i}]: {g!r} vs the JAX POI's exact DFT {wx!r}")
+        if not abs(g - w) <= MODE_JAX_BANK_ABS:
+            bad.append(f"mode_mags[{i}]: {g!r} vs the JAX bank's {w!r}")
+        if not abs(g - x) <= BANK_REL_TOL * x + MODE_EXACT_ABS:
+            bad.append(f"mode_mags[{i}]: streamed {g!r} vs exact DFT {x!r}")
+    if len(got["campuses"]) != len(want["campuses"]):
+        return bad + [f"{len(got['campuses'])} campuses != {len(want['campuses'])}"]
+    for c, (g, w) in enumerate(zip(got["campuses"], want["campuses"])):
+        bad += [f"campus {c} {k}: {g[k]} != {w[k]}" for k in GRID_CAMPUS_VERDICTS if g[k] != w[k]]
+        for k, (kind, tol) in GRID_CAMPUS_TOLERANCES.items():
+            if not _within(g[k], w[k], kind, tol):
+                bad.append(f"campus {c} {k}: {g[k]!r} vs {w[k]!r} (tolerance {kind} {tol:g})")
+    return bad
+
+
+def run_region(stagger: bool, n_racks: int, duration_s: float, *, device: str = "cuda",
+               **window):
+    """GRID_REGION's region (or its staggered twin) through the port's
+    ``fleet.condition`` on the scanned engine (``window``: further
+    ``StreamOptions``); returns ``(region, config, spec, result, its
+    summary, wall seconds)``."""
+    import torch
+
+    from repro_torch.core import compliance, fleet, grid, pdu
+
+    c = GRID_REGION
+    reg = grid_region(grid, stagger, n_racks, duration_s, device=device)
+    cfg = pdu.make_pdu(sample_dt=1.0 / c["sample_hz"], device=device)
+    spec = compliance.GridSpec.create(device=device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fleet.condition(reg, cfg, spec, qp_iters=c["qp_iters"], device=device,
+                          stream=fleet.StreamOptions(chunk_intervals=c["chunk_intervals"],
+                                                     **window))
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mbank = grid.mode_bank(res.poi_grid.shape[0], cfg.sample_dt, reg.bands)
+    return reg, cfg, spec, res, region_summary(res, reg, mbank), wall
 
 
 def decode_logits(model, cfg, prompts, fed, max_len: int):
@@ -4495,6 +4802,381 @@ def phase_safemode(dev, campus: dict, profile_dir: Path | None = None) -> dict:
                 drill_walls=drill_walls, drill_cold_s=cold)
 
 
+def _region_counts() -> tuple:
+    from repro_torch.kernels import admm_step, pdu_health
+
+    return (pdu_health.pdu_health_sim.launches, admm_step.admm_iterate.launches)
+
+
+def _reset_region_counts() -> None:
+    from repro_torch.kernels import admm_step, pdu_health
+
+    pdu_health.pdu_health_sim.launches = 0
+    pdu_health.pdu_health_sim.launches_by_mask = [0, 0, 0, 0]
+    admm_step.admm_iterate.launches = 0
+
+
+def _weighted_sum_bitwise(res, name: str, poi) -> bool:
+    """Whether ``poi`` is ``w[0] * a[0] + w[1] * a[1] + ...`` of the
+    per-campus ``name`` aggregates, summed left to right, bit for bit."""
+    acc = None
+    for c, p in enumerate(res.per_campus):
+        term = res.weights[c] * getattr(p, name)
+        acc = term if acc is None else acc + term
+    return _bitwise(acc, poi)
+
+
+def phase_grid_region(dev, profile_dir: Path | None = None) -> dict:
+    """Phase 16a: GRID_REGION synchronized, then its staggered twin, through
+    ``fleet.condition`` on the scanned engine (its cache emptied first):
+    one cold run and three warm runs of each.  The synchronized POI must
+    ring the inter-area band and pass the local-plant band, the staggered
+    one pass both, the inter-area lines at least 10x apart, both POI ramps
+    within spec; the POI equal to the left-to-right weighted sum of the
+    per-campus aggregates and ``poi_freq_dev`` / ``poi_volt_dev`` equal to
+    ``grid.poi_response`` of it, bit for bit; each per-campus result equal
+    to ``fleet.condition`` of that salted campus alone, bit for bit; both
+    regions within tolerance of JAX_GRID_REGION (``compare_region``).  The
+    8 campus runs must make one capture (40 clean pdu_health and 40
+    admm_step launches) and launch nothing from Python after it.  Returns
+    the walls, the capture's counts and the graph's nodes."""
+    import torch
+
+    from repro_torch.core import fleet, grid
+    from repro_torch.kernels import pdu_health
+
+    c = GRID_REGION
+    n_int = int(c["duration_s"] / 5.0)  # controller intervals of 5 s a campus
+    fleet._ENGINE_CACHE.clear()
+    torch.cuda.empty_cache()
+    out, mags = {}, {}
+    for name, stagger in (("synchronized", False), ("staggered", True)):
+        walls = []
+        for i in range(4):
+            _reset_region_counts()
+            with _PlainCalls("pdu_health_sim") as plain:
+                reg, cfg, spec, res, got, wall = run_region(stagger, c["n_racks"], c["duration_s"],
+                                                            device=dev)
+            walls.append(wall)
+            counts = _region_counts()
+            if name == "synchronized" and i == 0:
+                (engine,) = fleet._ENGINE_CACHE.values()
+                cap = engine.launches_at_capture
+                nodes = _graph_nodes(engine.graph)
+                print(f"grid region {name} cold run: {wall:.4f} s wall (one capture, four campus "
+                      f"replays), launches {counts} (warm-up and capture), at capture "
+                      f"pdu_health={cap['pdu_health']} (by weight mode none/row/series/events "
+                      f"{cap['pdu_health_by_mask']}) admm_step={cap['admm_step']}, plain "
+                      f"pdu_health calls {plain.n}; graph nodes {nodes}")
+                _check(cap["pdu_health"] == n_int and cap["admm_step"] == n_int
+                       and cap["pdu_health_by_mask"][pdu_health.MASK_NONE] == n_int
+                       and plain.n == 0,
+                       f"grid region capture: launches {cap}, plain calls {plain.n}")
+            else:
+                _check(counts == (0, 0) and plain.n == 0 and len(fleet._ENGINE_CACHE) == 1,
+                       f"grid region {name} run {i + 1}: launches {counts} from Python, plain "
+                       f"calls {plain.n}, {len(fleet._ENGINE_CACHE)} cached graphs (every "
+                       "campus run of both regions replays one graph)")
+        cold_s, warm_s = (walls[0] if name == "synchronized" else None), statistics.median(walls[1:])
+        print(f"grid region {name}: walls {', '.join(f'{w:.4f}' for w in walls)} s (first "
+              f"{'cold' if cold_s else 'a replay'}; warm median {warm_s:.4f}, spread "
+              f"{max(walls[1:]) - min(walls[1:]):.4f}); inter-area {got['mode_mags'][0]:.6e} "
+              f"(exact DFT {got['mode_mags_exact'][0]:.6e}), local-plant "
+              f"{got['mode_mags'][1]:.6e}, modes_ok={got['modes_ok']}, POI ramp "
+              f"{got['poi_max_ramp']:.6f}/s, max |df| {got['max_freq_dev_hz']:.6f} Hz, "
+              f"max |dV| {got['max_volt_dev']:.6f} pu")
+        rp = res.report_poi
+        ring = [bool(v) for v in rp.mode_ok.cpu()]
+        _check(ring == ([False, True] if name == "synchronized" else [True, True])
+               and bool(rp.ramp_ok) and bool(rp.ok) is (name == "staggered"),
+               f"grid region {name}: mode verdicts {ring}, ramp_ok {bool(rp.ramp_ok)}, "
+               f"ok {bool(rp.ok)}")
+        bad = [f for f in ("campus_rack", "campus_grid")
+               if not _weighted_sum_bitwise(res, f, res.poi_rack if f == "campus_rack"
+                                            else res.poi_grid)]
+        resp = grid.poi_response(res.poi_grid, reg.poi, cfg.sample_dt)
+        bad += [f for f, a, b in (("poi_freq_dev", resp.freq_dev_hz, res.poi_freq_dev),
+                                  ("poi_volt_dev", resp.volt_dev, res.poi_volt_dev))
+                if not _bitwise(a, b)]
+        for ci, p in enumerate(res.per_campus):
+            bad += [f"{f}[{ci}]" for f in ("campus_rack", "campus_grid", "soc_mean",
+                                            "ess_online_frac", "health_trace")
+                    if not _bitwise(getattr(res, f)[ci], getattr(p, f))]
+        _reset_region_counts()
+        for ci, scen in enumerate(reg.campuses):
+            alone = fleet.condition(scen, cfg, spec, qp_iters=c["qp_iters"], device=dev,
+                                    stream=fleet.StreamOptions(
+                                        chunk_intervals=c["chunk_intervals"]))
+            bad += [f"campus {ci} alone: {d}" for d in _differing_bits(alone, res.per_campus[ci])]
+        _check(_region_counts() == (0, 0), "grid region: a campus alone did not replay the graph")
+        print(f"grid region {name}: POI left-to-right weighted sum, poi_response, stacked "
+              f"aggregates and each campus alone: "
+              f"{'bit for bit' if not bad else 'differ in ' + str(bad)}")
+        _check(not bad, f"grid region {name}: {bad}")
+        want = JAX_GRID_REGION[name]
+        print(f"grid region {name} vs JAX: " + json.dumps(
+            {k: [got[k], want[k]] for k in got if k != "campuses"}))
+        bad = compare_region(got, want)
+        _check(not bad, f"grid region {name} differs from the JAX package: " + "; ".join(bad))
+        # The host-side parts of a region run on this result's POI traces.
+        k, chunk, _, _, t_total, n_full, rem = fleet._window_geometry(
+            cfg, reg.total_samples, c["chunk_intervals"], 0, None)
+        bank, mbank = fleet._make_bank(spec, cfg, t_total), grid.mode_bank(t_total, cfg.sample_dt,
+                                                                            reg.bands)
+        fold_s = _timed(lambda: grid._poi_fold(bank, mbank, chunk, n_full, rem, cfg.sample_dt,
+                                               res.poi_rack, res.poi_grid))
+        resp_s = _timed(lambda: grid.poi_response(res.poi_grid, reg.poi, cfg.sample_dt))
+        print(f"grid region {name}: of the warm wall, the POI fold takes {fold_s:.4f} s and the "
+              f"host poi_response {resp_s:.4f} s ({t_total} samples)")
+        mags[name] = got["mode_mags"][0]
+        out[name] = dict(cold_s=cold_s, warm_s=warm_s, walls=walls, fold_s=fold_s,
+                         poi_response_s=resp_s, summary=got)
+    sep = mags["synchronized"] / mags["staggered"]
+    print(f"grid region: inter-area separation synchronized / staggered {sep:.1f}x (JAX bank "
+          f"{JAX_GRID_REGION['synchronized']['mode_mags'][0] / JAX_GRID_REGION['staggered']['mode_mags'][0]:.1f}x, "
+          f"JAX POI's exact DFT "
+          f"{JAX_GRID_REGION['synchronized']['mode_mags_exact'][0] / JAX_GRID_REGION['staggered']['mode_mags_exact'][0]:.1f}x)")
+    _check(sep >= 10.0, f"grid region: inter-area separation {sep:.2f}x < 10x")
+    out.update(capture=cap, nodes=nodes, separation=sep)
+    if profile_dir is not None:
+        profile_run("grid_region_synchronized",
+                    lambda: run_region(False, c["n_racks"], c["duration_s"], device=dev)[-1],
+                    profile_dir)
+    return out
+
+
+def _strict_json_lines(path) -> list[dict]:
+    """Every line of a JSONL file, parsed as strict JSON (no NaN or
+    Infinity literals)."""
+    def refuse(x):
+        raise ValueError(f"non-standard JSON constant {x}")
+
+    with open(path) as f:
+        return [json.loads(line, parse_constant=refuse) for line in f]
+
+
+def phase_region_service(dev) -> dict:
+    """Phase 16b: ``ConditionerService`` over GRID_REGION's synchronized
+    region with 4-interval windows and an audit log: advance once, trip a
+    global rack of campus 1 (``inject_fault``), read ``status()``, clear
+    it; checkpoint, advance, restore into a second service and advance
+    there: both windows bit for bit equal in ``poi_grid``, ``campus_rack``
+    and ``poi_freq_dev``, and so are the states; then drain.  The log must
+    hold ``mode_band_violation`` events, all of the inter-area band above
+    its threshold, and every line must be strict JSON.  Windows of one
+    length replay one graph.  Returns the walls."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import compliance, fleet, grid, pdu
+    from repro_torch.serve import ConditionerService
+
+    c = GRID_REGION
+    reg = grid_region(grid, False, c["n_racks"], c["duration_s"], device=dev)
+    cfg = pdu.make_pdu(sample_dt=1.0 / c["sample_hz"], device=dev)
+    spec = compliance.GridSpec.create(device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        log = Path(tmp) / "audit.jsonl"
+        svc = ConditionerService(cfg, reg, spec, chunk_intervals=4, qp_iters=c["qp_iters"],
+                                 audit_path=log, audit_fsync=True)
+        _check(svc.n_racks == c["n_campuses"] * c["n_racks"], f"service racks {svc.n_racks}")
+        walls = []
+
+        def advance(s):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = s.advance()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            return r
+
+        advance(svc)
+        rack = c["n_racks"] + 5  # campus 1's local rack 5
+        svc.inject_fault([rack])
+        st = svc.status()
+        _check(float(svc.state[1].ess_online[5]) == 0.0
+               and st["manual_offline_racks"] == [rack]
+               and st["region"]["campus_racks"] == [c["n_racks"]] * c["n_campuses"]
+               and {"peak_power_pu", "max_freq_dev_hz", "mode_bands"} <= set(st["poi"])
+               and len(st["campuses"]) == c["n_campuses"],
+               f"region service status after inject_fault({rack}): {json.dumps(st)[:400]}")
+        svc.clear_fault([rack])
+        ck = svc.checkpoint(Path(tmp) / "ck")
+        _reset_region_counts()
+        live = advance(svc)
+        svc2 = ConditionerService(cfg, reg, spec, chunk_intervals=4, qp_iters=c["qp_iters"])
+        svc2.restore(ck)
+        resumed = advance(svc2)
+        _check(_region_counts() == (0, 0), f"region service windows: launches "
+               f"{_region_counts()} from Python (a window of a cached length is a replay)")
+        bad = [f for f in ("poi_grid", "campus_rack", "poi_freq_dev")
+               if not _bitwise(getattr(live, f), getattr(resumed, f))]
+        bad += [k for k, v in _result_leaves(svc.state, "state").items()
+                if not _bitwise(v, _result_leaves(svc2.state, "state")[k])]
+        print(f"region service: a window after restore vs the live one: "
+              f"{'bit for bit (poi_grid, campus_rack, poi_freq_dev, every state leaf)' if not bad else 'differs in ' + str(bad)}")
+        _check(not bad, f"region service resume differs in {bad}")
+        while not svc.exhausted:
+            advance(svc)
+        events = _strict_json_lines(log)
+        mv = [e for e in events if e["event"] == "mode_band_violation"]
+        n_win = sum(e["event"] == "window" for e in events)
+        print(f"region service: {n_win} windows of 4 intervals, {len(events)} audit lines (strict "
+              f"JSON), {len(mv)} mode_band_violation events "
+              f"({sorted({e['band'] for e in mv})}, magnitudes "
+              f"{min((e['magnitude'] for e in mv), default=0):.4e}-"
+              f"{max((e['magnitude'] for e in mv), default=0):.4e}); window walls "
+              f"{', '.join(f'{w:.4f}' for w in walls)} s (the first cold)")
+        _check(len(events) == len(svc.audit) and mv
+               and all(e["band"] == "inter_area" and e["magnitude"] > e["threshold"] for e in mv),
+               f"region service log: {len(events)} lines for {len(svc.audit)} events, "
+               f"mode_band_violation {mv[:3]}")
+    fleet._ENGINE_CACHE.clear()
+    torch.cuda.empty_cache()
+    return dict(cold_window_s=walls[0], warm_window_s=statistics.median(walls[2:]),
+                windows=n_win, mode_band_violations=len(mv))
+
+
+def phase_campus_service(dev, scanned_ref) -> dict:
+    """Phase 16c: FAULTY_CAMPUS under ``ConditionerService`` with
+    4-interval windows, three ways: drained whole; killed after window 2
+    (auto-checkpoints every window) and brought back by ``recover`` over
+    the checkpoint directory, which also holds a torn ``.npz``, then
+    drained; drained with auto-checkpoints every window, keeping 3.  The
+    three must be bit for bit equal in the campus arrays, ``soc_mean`` and
+    ``ess_online_frac``; the windows put together must equal
+    ``scanned_ref`` (phase 13's scanned run) within
+    FAULTY_CAMPUS_TOLERANCES (``ess_online_frac`` exactly); the fault and
+    repair events must be the schedule's ``episodes_in_window`` of each
+    window and the degraded events follow the online fraction; exactly
+    three checkpoints must remain.  pdu_health runs in its events mode.
+    Returns the walls."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import compliance, fleet, pdu
+    from repro_torch.kernels import pdu_health
+    from repro_torch.power import faults as FLT, scenario as SC
+    from repro_torch.serve import ConditionerService
+
+    c = FAULTY_CAMPUS
+    s = faulty_campus(SC, FLT, c["n_racks"], c["duration_s"], device=dev)
+    cfg = pdu.make_pdu(sample_dt=1.0 / c["sample_hz"], degraded_mode=True, device=dev)
+    spec = compliance.GridSpec.create(device=dev)
+    fields = ("campus_rack", "campus_grid", "soc_mean", "ess_online_frac")
+    fleet._ENGINE_CACHE.clear()
+    torch.cuda.empty_cache()
+
+    def make(**kw):
+        return ConditionerService(cfg, s, spec, chunk_intervals=4, qp_iters=c["qp_iters"], **kw)
+
+    walls = []
+
+    def drain(svc, parts, n=None):
+        while not svc.exhausted and (n is None or n > 0):
+            start = svc.sample_pos
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = svc.advance()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            parts[start] = {f: getattr(r, f).cpu() for f in fields}
+            parts[start]["max_qp_residual"] = r.max_qp_residual.cpu()
+            n = None if n is None else n - 1
+        return parts
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _reset_region_counts()
+        whole = drain(make(audit_path=tmp / "audit.jsonl"), {})
+        caps = [e.launches_at_capture for e in fleet._ENGINE_CACHE.values()]
+        killed = drain(make(checkpoint_dir=tmp / "ck", checkpoint_every=1), {}, n=2)
+        (tmp / "ck" / "torn.npz").write_bytes(b"PK\x03\x04" + b"\x00" * 32)
+        back = make()
+        got = back.recover(tmp / "ck")
+        skipped = [e for e in back.audit.tail(50) if e["event"] == "recover_skipped"]
+        _check(got is not None and got.endswith("ckpt_000000008000.npz") and len(skipped) == 1,
+               f"campus service recover: {got}, skipped {skipped}")
+        drain(back, killed)
+        auto = drain(make(checkpoint_dir=tmp / "auto", checkpoint_every=1, keep_checkpoints=3), {})
+        kept = sorted(os.listdir(tmp / "auto"))
+        events = _strict_json_lines(tmp / "audit.jsonl")
+    bad = []
+    for label, run in (("killed and recovered", killed), ("auto-checkpointed", auto)):
+        if run.keys() != whole.keys():
+            bad.append(f"{label}: windows {sorted(run)} != {sorted(whole)}")
+            continue
+        bad += [f"{label} {f} at {k}" for k in whole for f in fields + ("max_qp_residual",)
+                if not _bitwise(whole[k][f], run[k][f])]
+    starts = sorted(whole)
+    edges = [dict(e) for k in starts
+             for e in FLT.episodes_in_window(s.faults, k, min(k + 4000, s.total_samples))]
+    logged = [{k: v for k, v in e.items() if k != "seq"} for e in events
+              if e["event"] in ("fault", "repair")]
+    if logged != edges:
+        bad.append(f"fault/repair events: {len(logged)} logged, {len(edges)} in the schedule")
+    frac = [float(whole[k]["ess_online_frac"].min()) for k in starts]
+    want_deg, deg = [], False
+    for k, f in zip(starts, frac):
+        if f < 1.0 and not deg:
+            want_deg.append(("degraded_enter", k))
+        elif deg and f >= 1.0:
+            want_deg.append(("degraded_exit", k))
+        deg = f < 1.0
+    got_deg = [(e["event"], e["sample"]) for e in events
+               if e["event"] in ("degraded_enter", "degraded_exit")]
+    if got_deg != want_deg:
+        bad.append(f"degraded events {got_deg} != {want_deg}")
+    if kept != ["ckpt_000000012000.npz", "ckpt_000000016000.npz", "ckpt_000000017600.npz"]:
+        bad.append(f"checkpoints kept {kept}")
+    # The windows put together against phase 13's scanned run.
+    cat = {f: torch.cat([whole[k][f] for k in starts]) for f in fields}
+    ref = {f: getattr(scanned_ref, f).cpu() for f in fields}
+    total = s.total_samples
+    bank = compliance.make_bank(total, cfg.sample_dt, float(spec.f_c))
+    ramp = lambda x: float(compliance.max_abs_ramp(x, cfg.sample_dt))
+    summ = lambda d, worst: {
+        "rack_max_ramp": ramp(d["campus_rack"]), "grid_max_ramp": ramp(d["campus_grid"]),
+        "rack_worst_line_exact": exact_worst_line(d["campus_rack"], bank),
+        "grid_worst_line_exact": exact_worst_line(d["campus_grid"], bank),
+        "campus_rack_mean": float(d["campus_rack"].double().mean()),
+        "campus_grid_mean": float(d["campus_grid"].double().mean()),
+        "soc_mean_min": float(d["soc_mean"].min()), "soc_mean_max": float(d["soc_mean"].max()),
+        "soc_mean_last": float(d["soc_mean"][-1]), "max_qp_residual": float(worst)}
+    got_s = summ(cat, max(float(whole[k]["max_qp_residual"]) for k in starts))
+    want_s = summ(ref, scanned_ref.max_qp_residual)
+    for k, (kind, tol) in FAULTY_CAMPUS_TOLERANCES.items():
+        if not _within(got_s[k], want_s[k], kind, tol):
+            bad.append(f"windows vs phase 13 {k}: {got_s[k]!r} vs {want_s[k]!r}")
+    if not _bitwise(cat["ess_online_frac"], ref["ess_online_frac"]):
+        bad.append("windows vs phase 13 ess_online_frac")
+    same = [f for f in fields if _bitwise(cat[f], ref[f])]
+    by_mask = [sum(cap["pdu_health_by_mask"][m] for cap in caps) for m in range(4)]
+    print(f"campus service: {len(starts)} windows of 4 intervals (the last "
+          f"{total - starts[-1]} samples) drained whole, killed after window 2 and recovered "
+          f"({got.rsplit('/', 1)[-1]}, {len(skipped)} torn file skipped), and auto-checkpointed "
+          f"(kept {kept}); {len(logged)} fault/repair events, degraded events {got_deg}; captures "
+          f"pdu_health by weight mode none/row/series/events {by_mask}, admm_step "
+          f"{sum(cap['admm_step'] for cap in caps)}; windows vs phase 13's scanned run: bit for "
+          f"bit in {same}, within FAULTY_CAMPUS_TOLERANCES "
+          + json.dumps({k: [got_s[k], want_s[k]] for k in got_s}))
+    _check(not bad, f"campus service: {bad}")
+    _check(by_mask[pdu_health.MASK_EVENTS] == sum(by_mask) == 6,
+           f"campus service captures: pdu_health by mask {by_mask} (events mode, 4 + 2)")
+    n = len(starts)
+    warm = [walls[i] for i in range(n, len(walls)) if (i % n) not in (0, n - 1)] or walls[1:]
+    print(f"campus service window walls {', '.join(f'{w:.4f}' for w in walls)} s (the first "
+          f"full and the ragged window cold); warm full window median {statistics.median(warm):.4f} s")
+    fleet._ENGINE_CACHE.clear()
+    torch.cuda.empty_cache()
+    return dict(warm_window_s=statistics.median(warm), windows=n, walls=walls,
+                capture_by_mask=by_mask)
+
+
 def _result_leaves(x, prefix: str = "") -> dict:
     """Every tensor of a conditioning result by its path (the reports, the
     state's leaves, the campus arrays)."""
@@ -4851,6 +5533,7 @@ def main() -> int:
         faulty["scanned"]["capture"]["pdu_health_by_mask"][3]
     kernels["admm_step"]["launches_faulty_scanned_capture"] = faulty["scanned"]["capture"]["admm_step"]
     safemode = phase_safemode(dev, campus, opts.profile)
+    from repro_torch.kernels import pdu_health
     from repro_torch.kernels.pdu_health import MASK_SERIES as series
     kernels["pdu_health"].update(
         launches_safemode_host_series=safemode["host_counts"][2][series],
@@ -4864,6 +5547,14 @@ def main() -> int:
         launches_safemode_scanned_capture=safemode["scanned"]["capture"]["admm_step"],
         launches_drill_host=safemode["drill_host_counts"][1],
         launches_drill_scanned_capture=safemode["drill_capture"]["admm_step"])
+    region = phase_grid_region(dev, opts.profile)
+    region_service = phase_region_service(dev)
+    campus_service = phase_campus_service(dev, faulty["scanned"]["res"])
+    kernels["pdu_health"].update(
+        launches_region_capture=region["capture"]["pdu_health"],
+        launches_campus_service_capture_events=campus_service["capture_by_mask"][
+            pdu_health.MASK_EVENTS])
+    kernels["admm_step"]["launches_region_capture"] = region["capture"]["admm_step"]
     kernels["flash_attention_fwd"]["launches_stablelm_prefill"] = stablelm["flash_attention_fwd"]
     print(json.dumps({"serve": {k: serve[k] for k in ("prefill_s", "generate_s", "tokens_per_s")},
                       "train": {k: trained[k] for k in ("step_s", "tokens_per_s", "train_mfu",
@@ -4907,7 +5598,19 @@ def main() -> int:
                           "campus_scanned_warm_s": safemode["scanned"]["warm_s"],
                           "overhead": safemode["overhead"],
                           "drill_walls_s": safemode["drill_walls"],
-                          "drill_scanned_cold_s": safemode["drill_cold_s"]}}))
+                          "drill_scanned_cold_s": safemode["drill_cold_s"]},
+                      "grid_region": {
+                          "synchronized_cold_s": region["synchronized"]["cold_s"],
+                          "synchronized_warm_s": region["synchronized"]["warm_s"],
+                          "staggered_warm_s": region["staggered"]["warm_s"],
+                          "poi_fold_s": region["synchronized"]["fold_s"],
+                          "poi_response_s": region["synchronized"]["poi_response_s"],
+                          "inter_area_separation": region["separation"],
+                          "graph_nodes": region["nodes"]},
+                      "service": {
+                          "region_cold_window_s": region_service["cold_window_s"],
+                          "region_warm_window_s": region_service["warm_window_s"],
+                          "campus_warm_window_s": campus_service["warm_window_s"]}}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

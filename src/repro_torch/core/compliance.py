@@ -113,6 +113,23 @@ class ComplianceReport(NamedTuple):
     worst_high_freq_mag: torch.Tensor
     spectrum_ok: torch.Tensor
     ok: torch.Tensor
+    # Wide-area oscillation-mode verdicts (grid-region POI reports only;
+    # trailing defaults keep every constructor and unpacking working):
+    # ``mode_mags`` / ``mode_ok`` are (B,) per band of the detector's table,
+    # ``modes_ok`` all bands, already folded into ``ok``.  None = untracked.
+    mode_mags: torch.Tensor | None = None
+    mode_ok: torch.Tensor | None = None
+    modes_ok: torch.Tensor | None = None
+
+
+def with_mode_verdicts(
+    report: ComplianceReport, mode_mags: torch.Tensor, mode_ok: torch.Tensor
+) -> ComplianceReport:
+    """Fold per-band oscillation-mode verdicts into a report: ``ok`` becomes
+    the conjunction of the ramp, spectrum and all-bands mode verdicts."""
+    modes_ok = torch.all(mode_ok)
+    return report._replace(mode_mags=mode_mags, mode_ok=mode_ok, modes_ok=modes_ok,
+                           ok=report.ok & modes_ok)
 
 
 def check(power: torch.Tensor, dt: float, spec: GridSpec) -> ComplianceReport:

@@ -36,8 +36,10 @@ safe-mode config every engine returns ``safemode_trace`` and the streaming
 ones ``safemode_summary()``.  The reference's four deprecated entry points
 (``condition_fleet``, ``condition_fleet_streaming``,
 ``condition_scenario_scanned``, ``condition_scenario_streaming``) are thin
-aliases of the facade.  Grid regions come with ROADMAP.md queue 1 item 5
-and multi-GPU rack sharding (``mesh=``) with item 9.
+aliases of the facade.  A ``core.grid.GridRegion`` target runs the region
+engine (``grid.condition_region``: each campus through the scanned engine,
+the POI summed and observed); multi-GPU rack and campus sharding
+(``mesh=``) come with ROADMAP.md queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -59,8 +61,7 @@ F32 = torch.float32
 
 class ConditioningResult(NamedTuple):
     """The one result type every conditioning engine returns; fields an
-    engine does not track are ``None``.  The reference's grid-region fields
-    come with that slice."""
+    engine does not track are ``None``."""
 
     campus_rack: torch.Tensor = None  # (T,) mean per-unit unconditioned load
     campus_grid: torch.Tensor = None  # (T,) mean per-unit conditioned load
@@ -69,40 +70,74 @@ class ConditioningResult(NamedTuple):
     health: hlt.HealthReport = None  # per-rack wear report
     grid_traces: torch.Tensor = None  # (T, R) conditioned per-rack (oneshot)
     soc_mean: torch.Tensor = None  # (n_ctrl,) fleet-mean SoC per interval
-    state: pdu.PDUState = None  # final PDU state (the stream can resume)
+    # Final PDU state (the stream can resume); a grid region carries the
+    # tuple of per-campus states.
+    state: pdu.PDUState = None
     max_qp_residual: torch.Tensor = None  # worst QP primal residual seen
     health_trace: torch.Tensor = None  # (n_chunks, 3) [mean EFC, max fade, max DoD]
     # (n_ctrl,) fraction of ESS units online per interval (ones unless the
     # cfg runs degraded_mode).
     ess_online_frac: torch.Tensor = None
     # (n_chunks, 6) supervisor snapshot per chunk (``pdu.CampusChunk.
-    # safemode``; zeros unless the cfg runs safemode; (1, 6) one-shot).
+    # safemode``; zeros unless the cfg runs safemode; (1, 6) one-shot; a
+    # grid region stacks a leading campus axis).
     safemode_trace: torch.Tensor = None
+    # Grid-region fields (``core.grid``); a region's campus arrays above
+    # carry a leading campus axis.
+    poi_rack: torch.Tensor = None  # (T,) POI unconditioned (weighted campus sum)
+    poi_grid: torch.Tensor = None  # (T,) POI conditioned
+    report_poi: compliance.ComplianceReport = None  # POI report + mode verdicts
+    poi_freq_dev: torch.Tensor = None  # (T,) swing-model frequency deviation [Hz]
+    poi_volt_dev: torch.Tensor = None  # (T,) first-order voltage deviation [pu]
+    per_campus: tuple = None  # per-campus ConditioningResults
+    weights: torch.Tensor = None  # (C,) campus POI weights
     grid_spec: compliance.GridSpec = None
     bank: compliance.SpectrumBank = None
     observers: "_Observers" = None
 
     def report(self, which: str = "grid") -> compliance.ComplianceReport:
-        """Compliance report of ``"rack"`` or ``"grid"``, re-derived from
-        the streaming observers when the engine carried them."""
-        stored = {"rack": self.report_rack, "grid": self.report_grid}
+        """Compliance report of ``"rack"``, ``"grid"`` or ``"poi"`` (grid
+        regions: the conditioned POI with the mode-band verdicts folded
+        in), re-derived from the streaming observers when the engine
+        carried them."""
+        stored = {"rack": self.report_rack, "grid": self.report_grid, "poi": self.report_poi}
         if which not in stored:
-            raise ValueError(f"which={which!r} (expected 'rack' or 'grid')")
+            raise ValueError(f"which={which!r} (expected 'rack', 'grid' or 'poi')")
+        pre = stored[which]
         if self.observers is None or self.bank is None or self.grid_spec is None:
-            return stored[which]
-        return compliance.report_from_observers(
+            return pre
+        key = "grid" if which == "poi" else which
+        rep = compliance.report_from_observers(
             self.grid_spec,
-            getattr(self.observers, f"ramp_{which}"),
+            getattr(self.observers, f"ramp_{key}"),
             self.bank,
-            getattr(self.observers, f"spec_{which}"),
+            getattr(self.observers, f"spec_{key}"),
         )
+        if pre is not None and pre.mode_mags is not None:
+            rep = compliance.with_mode_verdicts(rep, pre.mode_mags, pre.mode_ok)
+        return rep
 
     def safemode_summary(self) -> dict | None:
         """Host summary of the supervisor's final state (``safemode.
-        summary``); None when the engine carried no state (one-shot)."""
-        if self.state is None or self.state.safemode is None:
+        summary``); None when the engine carried no state (one-shot).  A
+        grid region sums its campuses' counts and keys the rack lists by
+        campus index."""
+        if self.state is None:
             return None
-        return smode.summary(self.state.safemode)
+        # PDUState is a NamedTuple too: only a plain tuple is a region's.
+        states = (self.state,) if isinstance(self.state, pdu.PDUState) else tuple(self.state)
+        if any(st.safemode is None for st in states):
+            return None
+        parts = [smode.summary(st.safemode) for st in states]
+        out = dict(parts[0])
+        if len(parts) > 1:
+            for key in ("n_normal", "n_passthrough", "n_quarantined", "passthrough_entries",
+                        "quarantine_entries", "readmissions"):
+                out[key] = sum(p[key] for p in parts)
+            out["worst_resid_streak"] = max(p["worst_resid_streak"] for p in parts)
+            out["passthrough_racks"] = {c: p["passthrough_racks"] for c, p in enumerate(parts)}
+            out["quarantined_racks"] = {c: p["quarantined_racks"] for c, p in enumerate(parts)}
+        return out
 
 
 
@@ -406,8 +441,8 @@ def _condition_fleet_streaming_impl(
 def _condition_chunk(cfg, scen, st, t0, n, *, k, qp_iters, plan=None, consts=None):
     """Render + condition one ``n``-sample chunk at absolute sample ``t0``.
 
-    The per-chunk building block of the scanned engine (and of the grid
-    regions of ROADMAP.md queue 1 item 5).  An unbatched scenario is lifted
+    The per-chunk building block of the scanned engine (and so of every
+    campus of a grid region).  An unbatched scenario is lifted
     to a 1-rack fleet.  With a fault schedule attached to the scenario and
     a degraded-mode config the schedule itself is handed to
     ``pdu.condition`` with the chunk's absolute start (the fast path):
@@ -653,22 +688,8 @@ def _condition_scenario_scanned_impl(
 
     _check_scenario_rate(scenario, cfg)
     _check_scenario_faults(scenario, cfg)
-    k = max(int(round(float(cfg.controller.dt) / cfg.sample_dt)), 1)
-    chunk = max(int(chunk_intervals), 1) * k
-    start = int(start_sample)
-    stop = scenario.total_samples if stop_sample is None else int(stop_sample)
-    if not 0 <= stop <= scenario.total_samples:
-        raise ValueError(
-            f"stop_sample {stop} outside the scenario ({scenario.total_samples} samples)")
-    if start < 0 or start % k:
-        raise ValueError(
-            f"start_sample {start} must be a non-negative multiple of the controller "
-            f"interval ({k} samples) so the resumed state stays interval-aligned")
-    t_total = stop - start
-    if t_total <= 0:
-        raise ValueError(
-            f"start_sample {start} is past the scenario end (stop at {stop} samples)")
-    n_full, rem = divmod(t_total, chunk)
+    k, chunk, start, stop, t_total, n_full, rem = _window_geometry(
+        cfg, scenario.total_samples, chunk_intervals, start_sample, stop_sample)
 
     if state is None:
         r0 = SC.render(scenario, start, 1)[0]
@@ -690,6 +711,30 @@ def _condition_scenario_scanned_impl(
                             lambda: _ScannedEngine(cfg, scenario, state, plan, **geometry))
     state_f, out = engine(scenario, state, plan, start)
     return _finish_streaming(cfg, grid_spec, state_f, out, bank)
+
+
+def _window_geometry(cfg, total_samples, chunk_intervals, start, stop, what="scenario"):
+    """Validate the window ``[start, stop)`` of a ``total_samples`` stream
+    and split it into chunks: ``(k, chunk, start, stop, t_total, n_full,
+    rem)``, ``k`` samples a controller interval, ``n_full`` chunks of
+    ``chunk`` samples and a remainder of ``rem``.  The scanned engine, the
+    region engine and the service share it."""
+    k = max(int(round(float(cfg.controller.dt) / cfg.sample_dt)), 1)
+    chunk = max(int(chunk_intervals), 1) * k
+    total = int(total_samples)
+    start = int(start)
+    stop = total if stop is None else int(stop)
+    if not 0 <= stop <= total:
+        raise ValueError(f"stop_sample {stop} outside the {what} ({total} samples)")
+    if start < 0 or start % k:
+        raise ValueError(
+            f"start_sample {start} must be a non-negative multiple of the controller "
+            f"interval ({k} samples) so the resumed state stays interval-aligned")
+    t_total = stop - start
+    if t_total <= 0:
+        raise ValueError(f"start_sample {start} is past the {what} end (stop at {stop} samples)")
+    n_full, rem = divmod(t_total, chunk)
+    return k, chunk, start, stop, t_total, n_full, rem
 
 
 def _check_scenario_rate(scenario, cfg: pdu.PDUConfig) -> None:
@@ -777,15 +822,19 @@ def condition(
     """THE conditioning entry point: one facade over the engines.
 
     ``target`` is a ``power.scenario.Scenario`` (rendered chunk by chunk
-    on the device), a materialized ``(T, R)`` tensor, or a chunk provider
-    ``f(start, length) -> (length, R)`` (with ``stream.total_samples``).
-    ``engine`` is ``"scanned"`` (default; scenarios only), ``"host"`` or
+    on the device), a ``core.grid.GridRegion`` (N campuses at a point of
+    interconnection, on the scanned engine only; ``stream.state`` is then
+    the tuple of per-campus states), a materialized ``(T, R)`` tensor, or
+    a chunk provider ``f(start, length) -> (length, R)`` (with
+    ``stream.total_samples``).
+    ``engine`` is ``"scanned"`` (default; scenarios and regions), ``"host"`` or
     ``"oneshot"`` (see the module docstring).  ``stream`` bundles the
     windowing and resume options (``StreamOptions``).  ``device`` is where
     every tensor of the run lives; it defaults to ``"cuda"`` (raising
     without a card) and must be the config's device (``make_pdu(device=
-    ...)``).  Remaining keywords pass through to the engine: ``soc0``,
-    ``qp_iters`` and ``plan`` to every engine; ``use_plan`` to the
+    ...)``).  Remaining keywords pass through to the engine: ``soc0``
+    and ``qp_iters`` to every engine; ``plan`` to every engine but the
+    region's (which, as the reference's, has none); ``use_plan`` to the
     one-shot engine only (the scanned and host engines refuse it, as the
     reference's do); under a degraded-mode config ``ess_online`` /
     ``ess_weight`` to the host and one-shot engines.
@@ -795,12 +844,22 @@ def condition(
         raise ValueError(f"device {dev} does not match the config's device {cfg.device}")
     if mesh is not None:
         raise NotImplementedError(
-            "multi-GPU rack sharding (mesh=) is not ported yet (ROADMAP.md queue 1 item 9)"
+            "multi-GPU rack and campus sharding (mesh=) is not ported yet "
+            "(ROADMAP.md queue 1 item 9)"
         )
-    if hasattr(target, "campuses"):
-        raise NotImplementedError("grid regions are not ported yet (ROADMAP.md queue 1 item 5)")
     spec = compliance.GridSpec.create(device=dev) if grid_spec is None else grid_spec
     so = _as_stream_options(stream)
+
+    if hasattr(target, "campuses"):  # a grid region (duck-typed: grid imports us)
+        from repro_torch.core import grid as _grid
+
+        if engine != "scanned":
+            raise ValueError(f"grid regions run the scanned engine only (got {engine!r})")
+        _reject_stream_options(so, "grid-region", "total_samples")
+        return _grid.condition_region(
+            cfg, target, spec, chunk_intervals=so.chunk_intervals, states=so.state,
+            start_sample=so.start_sample, stop_sample=so.stop_sample, **kwargs,
+        )
 
     is_scenario = hasattr(target, "total_samples") and not callable(target)
     if is_scenario:

@@ -159,8 +159,11 @@ class Scenario(Struct):
     # Compiled stochastic fault schedule (``power.faults.FaultSchedule``).
     faults: FLT.FaultSchedule | None = None
     # uint32 XORed into the noise lane hash (decorrelated noise streams of
-    # otherwise identical scenarios); None keeps the unsalted stream.
-    noise_salt: int | None = None
+    # otherwise identical scenarios): a 0-d int64 tensor holding the uint32
+    # value, a tensor leaf like any other, so salted scenarios of one
+    # structure share one scanned-engine graph (``with_noise_salt``); None
+    # keeps the unsalted stream.
+    noise_salt: torch.Tensor | None = None
     sample_hz: float = 1000.0
     total_samples: int = 0
     # Edge smoothing window in samples (0/1 = off).
@@ -192,6 +195,22 @@ class Scenario(Struct):
                 if leaf.ndim == 1:
                     return leaf.shape[0]
         return None
+
+
+def with_noise_salt(s: Scenario, salt) -> Scenario:
+    """Return ``s`` drawing a decorrelated measurement-noise stream.
+
+    The salt (an int or an integer tensor) is stored as a 0-d int64 tensor
+    on the scenario's device holding its uint32 value, and XORed into the
+    counter hash's lane seed, as the reference's traced uint32 leaf is.  A
+    scenario without noise is returned unchanged."""
+    if s.noise_seed is None:
+        return s
+    if isinstance(salt, torch.Tensor):
+        t = salt.to(device=s.device, dtype=torch.int64).reshape(()) & _MASK32
+    else:
+        t = torch.tensor(int(salt) & _MASK32, dtype=torch.int64, device=s.device)
+    return s.replace(noise_salt=t)
 
 
 def _edge_width(edge_time_s: float, sample_hz: float) -> int:
@@ -368,25 +387,27 @@ def _fmix32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _hash_bits(
-    seed: int, idx: torch.Tensor, r: int, salt: int | None = None
+    seed: int, idx: torch.Tensor, r: int, salt: torch.Tensor | int | None = None
 ) -> torch.Tensor:
     """The 24 uniform bits ``h >> 8`` of the reference's noise hash, an
     ``(n, r)`` int64 tensor: per-rack lane seeds mixed once, then one
     murmur3 finalizer per sample (uint32 wraparound emulated in int64
-    masked to 32 bits)."""
+    masked to 32 bits).  ``salt`` (a 0-d integer tensor on ``idx``'s
+    device, read there, or an int) is XORed into the lane seeds."""
     s = int(seed) & _MASK32
     seed_mix = ((s * 0x85EBCA6B) + 0x2545F491) & _MASK32
     lanes = torch.arange(r, dtype=torch.int64, device=idx.device)
     lane_seed = _mul32(lanes, 0x9E3779B9) ^ seed_mix
     if salt is not None:
-        lane_seed = lane_seed ^ (int(salt) & _MASK32)
+        lane_seed = lane_seed ^ (torch.as_tensor(salt, dtype=torch.int64, device=idx.device)
+                                 & _MASK32)
     lane = _fmix32(lane_seed)
     h = _fmix32((idx.to(torch.int64) & _MASK32)[:, None] ^ lane[None, :])
     return h >> 8
 
 
 def _hash_normal(
-    seed: int, idx: torch.Tensor, tail: tuple[int, ...], salt: int | None = None
+    seed: int, idx: torch.Tensor, tail: tuple[int, ...], salt: torch.Tensor | int | None = None
 ) -> torch.Tensor:
     """Counter-hashed standard-normal noise, pure in the absolute sample
     index: ``sqrt(2) erfinv(2u - 1)`` with ``u`` centred in

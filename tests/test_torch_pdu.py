@@ -120,13 +120,13 @@ def test_condition_streaming_split_is_bitwise(trace):
 
 
 def test_unported_paths_raise():
-    """A grid-region target is the conditioning path still to be ported
-    (ROADMAP.md queue 1 item 5): the facade refuses it by name."""
-    from types import SimpleNamespace
-
-    from repro_torch.core import fleet as tfleet
+    """Multi-GPU sharding (``mesh=``) is the conditioning path still to be
+    ported (ROADMAP.md queue 1 item 9): the facade refuses it by name, for a
+    grid region as for a campus."""
+    from repro_torch.core import fleet as tfleet, grid as tgrid
 
     cfg = tpdu.make_pdu(sample_dt=1.0 / HZ, device="cpu")
-    region = SimpleNamespace(campuses=())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
-        tfleet.condition(region, cfg, device="cpu")
+    region = tgrid.checkpoint_region(2, 2, duration_s=20.0, sample_hz=HZ, device="cpu")
+    for target in (region, region.campuses[0]):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
+            tfleet.condition(target, cfg, device="cpu", mesh=object())

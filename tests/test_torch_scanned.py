@@ -115,7 +115,8 @@ def _assert_bitwise(a, b, fields=FIELDS, reports=("report_rack", "report_grid"))
         assert x.shape == y.shape and torch.equal(x, y)
     for which in reports:
         for x, y in zip(getattr(a, which), getattr(b, which), strict=True):
-            assert torch.equal(x, y), which
+            assert (x is None) == (y is None), which
+            assert x is None or torch.equal(x, y), which
 
 
 def _close(a, b, atol, what, rtol=0.0):

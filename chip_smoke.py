@@ -309,12 +309,39 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    (``ess_online_frac`` exactly), the fault, repair and degraded events as
    the schedule's ``episodes_in_window`` and the online fraction give
    them, three checkpoints kept, pdu_health captured in its events mode.
+17. The ``moe`` family (DeepSeek MLA, the capacity-bounded MoE FFN, MTP)
+   at its published widths, cut in depth (``MOE_V2``, ``MOE_V3``).  (a)
+   Flash at MLA's prefill shape (q, k (4, 128, 512, 192), v (4, 128, 512,
+   128), v zero-padded to 192 in the wrapper) and a ragged T = 300 against
+   the plain version, rmsnorm at 1536, 512, 5120 and 7168 columns; each
+   timed beside its plain version and the library call.  (b)
+   deepseek-v2-236b at 2 layers (1 dense + 1 MoE, 160 experts top-6,
+   capacity factor 1.25; 5.36 B parameters from ``random_lm_leaves``, one
+   leaf on the host at a time): ``MOE_SERVE_REF`` against
+   ``JAX_MOE_SERVE`` (recorded on the CPU by ``python
+   tests/test_torch_moe_serve_reference.py``) under ``compare_moe_serve``:
+   every logit within ``MOE_LOGIT_TOL`` on JAX's routing (``routed_as``),
+   the MoE layer's own routing in the prefill step, every decode call and
+   ``forward`` pick for pick and ``forward``'s expert counts and dropped
+   fraction exactly, but where a routing near-tie (``ROUTE_TIE_LOGIT``)
+   moved a pick (the exempt tokens counted and printed); prefill 4 x 512
+   (flash 2, rmsnorm 9 launches) against the same step on the plain
+   versions and generation 4 x (64 + 32) (rmsnorm 9 a token) against the
+   decode loop on the plain versions, every logit within
+   ``MOE_PREFILL_TOL`` on the kernel run's routing, the two runs' own
+   routings compared as above.  (c) deepseek-v3-671b at 4 layers (3 dense
+   + 1 MoE, 256 experts top-8, the sigmoid-bias router, MTP; 15.8 B
+   parameters drawn on the card): the same prefill and generation checks
+   (flash 4, rmsnorm 17 launches a prefill), and ``forward``'s
+   ``mtp_logits`` (flash 5, rmsnorm 22) on the kernels against the plain
+   versions the same way.  It prints each model's prefill wall, tokens/s,
+   peak memory and launches, and the phase's seconds.
 
 With ``--profile DIR`` it also profiles one more campus run, prefill step,
 generation and training step, rwkv6-7b prefill and generation, a host run
-of the degraded campus, a warm replay of each campus's scanned engine and
+of the degraded campus, a warm replay of each campus's scanned engine,
 phase 14's runs (Fig. 12, ``fleet_1024racks`` and ``controller_throughput``
-cold and warm) (``torch.profiler``), writes the tables and Chrome traces into DIR, and
+cold and warm) and phase 17's prefills and generations (``torch.profiler``), writes the tables and Chrome traces into DIR, and
 prints each campus's host engine split into ``core.profiling``'s
 ``render`` / ``solve`` / ``host-sync`` spans.
 
@@ -711,15 +738,18 @@ def serve_max_diff(got: dict, want: dict) -> float:
 
 
 def compare_serve(got: dict, want: dict, tol: float = SERVE_LOGIT_TOL,
-                  margin_tol: float = JAX_MARGIN_TOL) -> tuple[list[str], int]:
+                  margin_tol: float = JAX_MARGIN_TOL,
+                  free_steps=frozenset()) -> tuple[list[str], int]:
     """Failures of ``got`` against ``want`` under the logit tolerance
     ``tol`` and the margin tolerance ``margin_tol`` (by default
     SERVE_LOGIT_TOL and JAX_MARGIN_TOL), and the number of generated positions whose greedy
     tokens were left uncompared.  Every prefill row and every teacher-forced
     step is compared (its argmax where ``want``'s top-2 margin exceeds the
-    margin tolerance).  The free-running greedy tokens are walked request by
-    request: where ``want``'s margin exceeds the tolerance they must agree;
-    where it does not, they may differ, and if they do, the two runs
+    margin tolerance).  The free-running greedy tokens
+    are walked request by request: where ``want``'s margin exceeds the
+    tolerance and the ``(request, step)`` is not in ``free_steps`` (a
+    token whose MoE routing may differ: ``compare_routing``) they must
+    agree; elsewhere they may differ, and if they do, the two runs
     continue from different contexts and the rest of the request's tokens
     are not compared (its teacher-forced steps still are)."""
     bad = []
@@ -733,7 +763,7 @@ def compare_serve(got: dict, want: dict, tol: float = SERVE_LOGIT_TOL,
         for p, (a, b, w) in enumerate(zip(gt, wt, ws)):
             if a == b:
                 continue
-            if w["margin"] > margin_tol:
+            if w["margin"] > margin_tol and (r, p) not in free_steps:
                 bad.append(f"request {r}: token {p} is {a}, JAX {b} (margin {w['margin']:.4f})")
             skipped += len(gt) - p - 1
             break
@@ -3739,6 +3769,1214 @@ def phase_rwkv_serve(dev, profile_dir: Path | None = None) -> dict:
             "generate_s": gen_s, "tokens_per_s": b * n / gen_s}
 
 
+# The moe serving slice (phase 17): deepseek-v2-236b and deepseek-v3-671b at
+# their published widths (bf16), cut in depth to their leading dense layers
+# and one MoE layer.  v2: 2 layers (1 dense + 1 MoE; 160 experts top-6, 2
+# shared, capacity factor 1.25; 5.36 B parameters), weights
+# ``convert.random_lm_leaves(cfg, seed)`` drawn on the host and moved to the
+# card one leaf at a time (its float32 tree is 20 GB); v3: 4 layers (3 dense
+# + 1 MoE; 256 experts top-8, the sigmoid-bias router, MTP; 15.8 B
+# parameters), drawn on the card by ``transformer.init`` (its float32 tree,
+# 58.8 GB, would not fit the host beside it).  Prefill 4 x 512 tokens;
+# generation 4 requests, 64-token prompts, 32 greedy tokens.
+MOE_V2 = dict(arch="deepseek_v2_236b", n_layers=2, seed=0, prompt_seed=1, prefill=(4, 512),
+              gen=(4, 64), gen_tokens=32)
+MOE_V3 = dict(arch="deepseek_v3_671b", n_layers=4, seed=0, prompt_seed=1, prefill=(4, 512),
+              gen=(4, 64), gen_tokens=32)
+# What tests/test_torch_moe_serve_reference.py runs through the JAX package
+# on the CPU (v2 at MOE_V2's width and depth) and what the card's run is
+# held to: SERVE_REF's prefill rows, 8 greedy tokens and the teacher-forced
+# decode logits; the routing of the MoE layer (``routing_record``) in the
+# prefill step, in each call of the teacher-forced decode loop and in
+# ``forward`` on the 2 x 64 prompts; ``forward``'s expert load (as counts)
+# and dropped fraction on the prompts: 128 tokens at capacity max(int(1.25 *
+# 128 * 6 / 160), 6) = 6 slots an expert drop pairs at the published
+# factor.
+MOE_SERVE_REF = dict(SERVE_REF, prompt_seed=MOE_V2["prompt_seed"])
+# The JAX package's numbers for MOE_SERVE_REF (bf16, weights
+# ``random_lm_leaves(cfg, MOE_V2["seed"])``), on the CPU (jax 0.9.0), printed by
+# ``python tests/test_torch_moe_serve_reference.py``.
+JAX_MOE_SERVE = {'aux': {'dropped_fraction': 0.4544270634651184,
+         'expert_counts': [0, 1, 8, 0, 2, 5, 2, 26, 6, 0, 2, 1, 0, 0, 2, 4, 0, 0, 1, 6, 4, 6, 0, 1,
+                           0, 7, 0, 24, 0, 1, 6, 13, 11, 3, 0, 0, 1, 0, 12, 4, 26, 0, 6, 0, 4, 11,
+                           3, 1, 5, 0, 3, 8, 9, 2, 2, 2, 2, 0, 2, 7, 2, 1, 2, 33, 2, 2, 4, 0, 15, 1,
+                           0, 22, 0, 27, 9, 1, 3, 1, 1, 2, 0, 2, 5, 2, 0, 1, 1, 1, 2, 1, 1, 14, 0,
+                           3, 40, 2, 0, 0, 2, 3, 0, 0, 3, 10, 22, 1, 16, 0, 0, 2, 36, 0, 1, 7, 0, 0,
+                           0, 2, 1, 21, 1, 1, 3, 0, 5, 6, 6, 0, 10, 13, 2, 4, 3, 3, 0, 0, 4, 8, 8,
+                           3, 0, 1, 21, 3, 0, 0, 1, 3, 0, 8, 5, 0, 27, 0, 6, 17, 2, 1, 7, 4]},
+ 'routing': {'decode': [{'margin': [0.117493, 0.012803, 0.0568406, 0.0579893, 0.0765822, 0.0796589,
+                                    0.0044342, 0.00839006, 0.0105039, 0.231076, 0.0300507, 0.235994,
+                                    0.128921, 0.0336905, 0.0877183, 0.065331, 0.0936591, 0.140386,
+                                    0.113572, 0.062317, 0.169876, 0.260963, 0.0619655, 0.167151,
+                                    0.00713262, 0.107093, 0.018889, 0.027612, 0.221679, 0.00221987,
+                                    0.0363553, 0.0671759, 0.0408986, 0.0060672, 0.240879, 0.0525568,
+                                    0.243942, 0.099451, 0.00213593, 0.0672668, 0.0169291, 0.0755787,
+                                    0.053512, 0.0180227, 0.139886, 0.0801049, 0.179759, 0.0513099,
+                                    0.00516943, 0.227425, 0.0274481, 0.0209044, 0.17132, 0.1541,
+                                    0.30399, 0.018186, 0.120361, 0.116167, 0.00211625, 0.138238,
+                                    0.0408718, 0.0330812, 0.0297725, 0.145154, 0.20693, 0.0195702,
+                                    0.152758, 0.0766375, 0.379166, 0.181868, 0.13818, 0.363224,
+                                    0.3341, 0.0625282, 0.120865, 0.0445889, 0.0149873, 0.262462,
+                                    0.325042, 0.0615339, 0.0237258, 0.00858062, 0.0293499, 0.132494,
+                                    0.116657, 0.0634176, 0.217113, 0.0579004, 0.259366, 0.0537992,
+                                    0.0113976, 0.0434985, 0.0944401, 0.104843, 0.00535796,
+                                    0.0491974, 0.0513843, 0.0501449, 0.16946, 0.0226195, 0.0166075,
+                                    0.0859678, 0.0200253, 0.122086, 0.0626944, 0.0304216, 0.0117891,
+                                    0.146079, 0.141787, 0.0502434, 0.195716, 0.00642688, 0.214552,
+                                    0.0151696, 0.0724931, 0.00727575, 0.0261783, 0.015844, 0.128768,
+                                    0.011229, 0.0448228, 0.0816496, 0.163918, 0.042522, 0.0301517,
+                                    0.0132073, 0.0726968, 0.152615],
+                         'picks': [[7, 104, 33, 74, 59, 73], [7, 104, 66, 52, 59, 63],
+                                   [7, 126, 122, 63, 68, 40], [132, 104, 136, 7, 40, 68],
+                                   [126, 158, 117, 40, 93, 27], [40, 63, 59, 117, 45, 143],
+                                   [93, 21, 68, 126, 7, 138], [122, 59, 63, 7, 27, 158],
+                                   [39, 63, 138, 126, 129, 78], [59, 63, 52, 68, 51, 126],
+                                   [63, 158, 68, 152, 52, 45], [59, 63, 45, 152, 32, 150],
+                                   [63, 94, 7, 136, 152, 52], [63, 7, 59, 104, 99, 129],
+                                   [152, 45, 40, 63, 68, 58], [152, 27, 63, 7, 104, 128],
+                                   [63, 152, 40, 104, 99, 27], [152, 129, 104, 126, 102, 124],
+                                   [7, 152, 102, 45, 104, 21], [152, 73, 27, 63, 129, 25],
+                                   [93, 52, 98, 63, 27, 42], [152, 27, 63, 131, 158, 45],
+                                   [152, 66, 147, 27, 128, 10], [63, 152, 25, 68, 98, 104],
+                                   [7, 152, 40, 63, 104, 159], [99, 63, 25, 158, 152, 51],
+                                   [66, 7, 42, 104, 51, 40], [68, 60, 76, 130, 152, 50],
+                                   [152, 68, 27, 63, 56, 129], [68, 152, 73, 42, 58, 53],
+                                   [129, 40, 73, 131, 71, 139], [65, 68, 152, 7, 21, 73],
+                                   [63, 104, 143, 159, 132, 73], [73, 63, 131, 158, 91, 45],
+                                   [152, 40, 131, 25, 73, 136], [63, 91, 52, 40, 152, 129],
+                                   [40, 7, 152, 136, 104, 27], [129, 63, 51, 152, 48, 7],
+                                   [30, 63, 128, 8, 53, 27], [7, 42, 52, 152, 86, 129],
+                                   [69, 40, 7, 63, 128, 27], [138, 68, 91, 104, 124, 7],
+                                   [104, 68, 130, 40, 7, 52], [27, 50, 7, 60, 118, 128],
+                                   [51, 19, 42, 91, 158, 40], [30, 128, 27, 7, 122, 21],
+                                   [143, 30, 68, 40, 104, 27], [51, 138, 104, 19, 25, 91],
+                                   [27, 64, 63, 65, 137, 88], [11, 91, 42, 45, 40, 129],
+                                   [40, 73, 150, 27, 30, 129], [23, 30, 152, 25, 150, 40],
+                                   [129, 7, 51, 132, 138, 150], [91, 8, 30, 27, 128, 104],
+                                   [27, 7, 104, 14, 139, 82], [128, 66, 133, 7, 68, 104],
+                                   [27, 19, 78, 152, 128, 138], [27, 18, 40, 137, 95, 102],
+                                   [7, 91, 129, 128, 56, 138], [104, 39, 7, 45, 91, 139],
+                                   [73, 27, 64, 39, 45, 36], [133, 27, 91, 77, 73, 51],
+                                   [1, 91, 152, 39, 121, 159], [27, 91, 133, 14, 104, 52],
+                                   [138, 103, 48, 119, 2, 89], [119, 25, 103, 155, 48, 2],
+                                   [48, 71, 119, 15, 95, 10], [71, 119, 74, 15, 2, 154],
+                                   [74, 155, 31, 71, 4, 110], [74, 119, 110, 155, 94, 73],
+                                   [110, 94, 2, 155, 32, 124], [119, 125, 155, 15, 74, 154],
+                                   [142, 32, 110, 73, 103, 94], [94, 74, 119, 21, 103, 82],
+                                   [94, 32, 38, 74, 76, 31], [142, 103, 94, 110, 31, 82],
+                                   [21, 94, 31, 2, 155, 32], [94, 125, 31, 110, 142, 73],
+                                   [32, 110, 142, 155, 94, 106], [94, 110, 124, 71, 31, 137],
+                                   [38, 71, 110, 31, 4, 5], [155, 73, 71, 146, 31, 83],
+                                   [154, 63, 31, 103, 110, 73], [110, 94, 119, 20, 147, 76],
+                                   [110, 142, 147, 125, 31, 74], [94, 73, 71, 2, 154, 155],
+                                   [94, 31, 44, 19, 157, 106], [110, 94, 38, 63, 31, 33],
+                                   [103, 71, 106, 142, 20, 63], [94, 15, 154, 5, 32, 74],
+                                   [110, 50, 44, 106, 71, 94], [71, 81, 142, 73, 19, 48],
+                                   [142, 94, 103, 20, 46, 44], [94, 63, 155, 119, 106, 149],
+                                   [94, 110, 142, 8, 73, 83], [94, 32, 110, 47, 27, 119],
+                                   [110, 94, 106, 2, 119, 152], [71, 106, 110, 32, 87, 155],
+                                   [137, 142, 110, 71, 106, 19], [94, 8, 71, 82, 113, 32],
+                                   [110, 119, 63, 38, 31, 137], [54, 154, 106, 110, 79, 103],
+                                   [155, 94, 141, 125, 142, 119], [94, 156, 106, 29, 38, 137],
+                                   [73, 20, 106, 142, 155, 62], [119, 149, 54, 110, 94, 113],
+                                   [94, 103, 38, 5, 119, 46], [38, 155, 5, 94, 110, 63],
+                                   [94, 33, 85, 110, 106, 40], [62, 125, 38, 149, 142, 110],
+                                   [94, 110, 40, 142, 38, 91], [8, 155, 106, 110, 94, 38],
+                                   [119, 94, 149, 71, 55, 110], [73, 142, 110, 119, 94, 5],
+                                   [94, 71, 149, 119, 142, 73], [71, 113, 110, 32, 94, 40],
+                                   [71, 94, 81, 110, 40, 73], [110, 155, 112, 124, 46, 119],
+                                   [106, 110, 6, 125, 38, 142], [73, 110, 79, 109, 6, 72],
+                                   [71, 142, 38, 113, 110, 156], [119, 94, 113, 2, 61, 142],
+                                   [159, 149, 73, 94, 71, 82], [119, 38, 110, 137, 142, 55],
+                                   [90, 119, 155, 105, 113, 94], [71, 113, 106, 40, 109, 44],
+                                   [137, 142, 53, 71, 149, 73], [94, 73, 40, 149, 120, 8]],
+                         'sel_k': [0.0267296, 0.0305833, 0.0360003, 0.0256791, 0.0267602, 0.0325515,
+                                   0.0318478, 0.0349868, 0.031862, 0.0348182, 0.0298442, 0.0385842,
+                                   0.029834, 0.0321741, 0.0285199, 0.0266722, 0.0247294, 0.0323696,
+                                   0.0247338, 0.0226627, 0.0278393, 0.0288425, 0.0263215, 0.0305182,
+                                   0.0297671, 0.0288247, 0.0217126, 0.0217715, 0.0358186, 0.0283027,
+                                   0.0288785, 0.0298379, 0.02923, 0.033604, 0.0395393, 0.0338801,
+                                   0.0313197, 0.0330124, 0.0289116, 0.029895, 0.0336338, 0.0274694,
+                                   0.028419, 0.0228919, 0.0319873, 0.0328, 0.0341596, 0.0425579,
+                                   0.0281455, 0.0237062, 0.0192194, 0.0431649, 0.0326964, 0.0274285,
+                                   0.0284577, 0.0303975, 0.0233533, 0.0315341, 0.0289683, 0.040047,
+                                   0.0290407, 0.0388726, 0.0255459, 0.0311579, 0.0239364, 0.0264727,
+                                   0.0297239, 0.0326553, 0.0364086, 0.0337594, 0.0297569, 0.0386977,
+                                   0.0379442, 0.027301, 0.0251774, 0.0390003, 0.0350063, 0.0250796,
+                                   0.0441634, 0.0184216, 0.0406997, 0.019288, 0.0304927, 0.0276992,
+                                   0.0323517, 0.0284221, 0.037206, 0.0185504, 0.0375551, 0.0281801,
+                                   0.0139017, 0.0319042, 0.0254793, 0.02522, 0.0213258, 0.0277345,
+                                   0.0245765, 0.0243925, 0.0428061, 0.0268006, 0.0294488, 0.0313956,
+                                   0.0291993, 0.0251085, 0.0233591, 0.0238727, 0.0300992, 0.0359524,
+                                   0.0295572, 0.0358564, 0.0374465, 0.0276872, 0.0363946, 0.0253985,
+                                   0.0331141, 0.0265893, 0.0349446, 0.0271952, 0.0277486, 0.0354949,
+                                   0.0261413, 0.0296385, 0.0399805, 0.0265738, 0.0398578, 0.0287645,
+                                   0.0276593, 0.032304],
+                         'slope': [0.0260152, 0.029648, 0.0347043, 0.0250197, 0.0260441, 0.0314919,
+                                   0.0308335, 0.0337627, 0.0308469, 0.0336059, 0.0289535, 0.0370955,
+                                   0.0289439, 0.0311389, 0.0277065, 0.0259608, 0.0241178, 0.0313218,
+                                   0.0241221, 0.0221491, 0.0270643, 0.0280106, 0.0256287, 0.0295868,
+                                   0.028881, 0.0279938, 0.0212411, 0.0212975, 0.0345356, 0.0275016,
+                                   0.0280446, 0.0289476, 0.0283756, 0.0324747, 0.037976, 0.0327322,
+                                   0.0303388, 0.0319226, 0.0280757, 0.0290013, 0.0325025, 0.0267148,
+                                   0.0276114, 0.0223679, 0.0309641, 0.0317242, 0.0329928, 0.0407467,
+                                   0.0273533, 0.0231442, 0.01885, 0.0413017, 0.0316273, 0.0266762,
+                                   0.0276478, 0.0294735, 0.0228079, 0.0305397, 0.0281291, 0.0384432,
+                                   0.0281973, 0.0373616, 0.0248933, 0.0301871, 0.0233635, 0.0257719,
+                                   0.0288404, 0.0315889, 0.035083, 0.0326197, 0.0288715, 0.0372002,
+                                   0.0365044, 0.0265557, 0.0245435, 0.0374793, 0.0337809, 0.0244506,
+                                   0.042213, 0.0180823, 0.0390432, 0.018916, 0.0295629, 0.026932,
+                                   0.031305, 0.0276143, 0.0358217, 0.0182063, 0.0361447, 0.027386,
+                                   0.0137084, 0.0308864, 0.0248301, 0.0245839, 0.020871, 0.0269653,
+                                   0.0239725, 0.0237975, 0.0409738, 0.0260823, 0.0285816, 0.03041,
+                                   0.0283467, 0.0244781, 0.0228135, 0.0233028, 0.0291933, 0.0346598,
+                                   0.0286836, 0.0345707, 0.0360443, 0.0269206, 0.0350701, 0.0247535,
+                                   0.0320176, 0.0258823, 0.0337235, 0.0264556, 0.0269787, 0.034235,
+                                   0.0254579, 0.0287601, 0.038382, 0.0258676, 0.0382692, 0.0279371,
+                                   0.0268942, 0.0312604]},
+                        {'margin': [0.020319, 0.100283],
+                         'picks': [[93, 119, 52, 8, 133, 27], [73, 12, 71, 133, 142, 108]],
+                         'sel_k': [0.0269955, 0.029967],
+                         'slope': [0.0262667, 0.029069]},
+                        {'margin': [0.0230136, 0.0264737],
+                         'picks': [[27, 73, 45, 137, 60, 39], [4, 33, 110, 149, 38, 5]],
+                         'sel_k': [0.0317488, 0.0279389],
+                         'slope': [0.0307408, 0.0271584]},
+                        {'margin': [0.00761635, 0.144437],
+                         'picks': [[153, 14, 1, 91, 89, 27], [71, 110, 87, 55, 40, 130]],
+                         'sel_k': [0.0305324, 0.0349996],
+                         'slope': [0.0296002, 0.0337747]},
+                        {'margin': [0.03134, 0.00218227],
+                         'picks': [[27, 60, 40, 68, 133, 73], [47, 71, 133, 24, 149, 108]],
+                         'sel_k': [0.0325096, 0.0360947],
+                         'slope': [0.0314527, 0.0347919]},
+                        {'margin': [0.0321397, 0.364496],
+                         'picks': [[158, 40, 152, 32, 93, 71], [38, 108, 142, 94, 81, 44]],
+                         'sel_k': [0.0277162, 0.0461636],
+                         'slope': [0.026948, 0.0440326]},
+                        {'margin': [0.102274, 0.0392021],
+                         'picks': [[129, 51, 27, 158, 144, 130], [113, 94, 8, 149, 105, 125]],
+                         'sel_k': [0.0285732, 0.029],
+                         'slope': [0.0277568, 0.028159]},
+                        {'margin': [0.0100523, 0.0474314],
+                         'picks': [[30, 152, 138, 64, 27, 7], [40, 87, 134, 94, 82, 140]],
+                         'sel_k': [0.0265308, 0.0327407],
+                         'slope': [0.0258269, 0.0316688]}],
+             'forward': {'margin': [0.117493, 0.0353162, 0.0702235, 0.0707795, 0.0794145, 0.0925574,
+                                    0.00378577, 0.0188434, 0.0233973, 0.231095, 0.0308346, 0.247235,
+                                    0.123999, 0.035203, 0.0761077, 0.0564374, 0.0709632, 0.149929,
+                                    0.135809, 0.0871758, 0.168349, 0.263302, 0.0804013, 0.191332,
+                                    0.00512431, 0.107775, 0.0352835, 0.0402006, 0.215061,
+                                    0.00742296, 0.0416637, 0.0938842, 0.0543211, 0.000672136,
+                                    0.252273, 0.0430372, 0.235335, 0.0818043, 0.0052209, 0.0764421,
+                                    0.0380796, 0.0701034, 0.0444257, 0.00069104, 0.140032, 0.117362,
+                                    0.14892, 0.0221717, 0.0302089, 0.229377, 0.039345, 0.0404339,
+                                    0.161515, 0.139335, 0.309602, 0.0177067, 0.124474, 0.134472,
+                                    0.00670342, 0.131544, 0.0409234, 0.011552, 0.0380291, 0.121777,
+                                    0.20693, 0.0158409, 0.154177, 0.0686995, 0.392793, 0.207984,
+                                    0.123523, 0.355083, 0.340861, 0.0307054, 0.120016, 0.0595996,
+                                    0.0480053, 0.250123, 0.310421, 0.0385352, 0.0199895, 0.0281485,
+                                    0.0029318, 0.121481, 0.136786, 0.0812364, 0.20061, 0.0596181,
+                                    0.272767, 0.0542741, 0.000227383, 0.0689399, 0.0958972,
+                                    0.0965825, 0.0220748, 0.0399502, 0.0794494, 0.0580491, 0.159064,
+                                    0.0376504, 0.0322465, 0.0835607, 0.00953413, 0.11634, 0.0482843,
+                                    0.016303, 0.0344376, 0.141141, 0.156175, 0.0712992, 0.196741,
+                                    0.0105569, 0.204375, 0.00385307, 0.0874827, 0.0306522,
+                                    0.0235795, 0.000990244, 0.119615, 0.00544378, 0.0596898,
+                                    0.0745427, 0.141043, 0.0447164, 0.0273367, 0.0536267, 0.069913,
+                                    0.154478],
+                         'picks': [[7, 104, 33, 74, 59, 73], [7, 104, 66, 52, 59, 63],
+                                   [7, 126, 122, 63, 68, 40], [132, 104, 136, 7, 40, 68],
+                                   [126, 158, 117, 40, 93, 27], [40, 63, 59, 117, 45, 143],
+                                   [93, 21, 68, 126, 7, 138], [122, 59, 63, 7, 27, 158],
+                                   [39, 63, 138, 126, 129, 45], [59, 63, 52, 68, 51, 126],
+                                   [63, 158, 68, 152, 52, 45], [59, 63, 45, 152, 32, 150],
+                                   [63, 94, 7, 136, 152, 52], [63, 7, 59, 104, 99, 129],
+                                   [152, 45, 40, 63, 68, 58], [152, 27, 63, 7, 104, 128],
+                                   [63, 152, 40, 104, 99, 27], [152, 129, 104, 126, 102, 124],
+                                   [7, 152, 102, 45, 104, 21], [152, 73, 27, 63, 129, 25],
+                                   [93, 52, 98, 27, 63, 42], [152, 27, 63, 131, 158, 45],
+                                   [152, 66, 147, 27, 128, 10], [63, 152, 68, 25, 98, 104],
+                                   [7, 152, 40, 63, 104, 91], [99, 63, 25, 152, 158, 51],
+                                   [66, 7, 42, 104, 51, 40], [68, 60, 76, 130, 152, 50],
+                                   [152, 68, 27, 63, 56, 129], [68, 152, 73, 42, 58, 150],
+                                   [129, 40, 73, 131, 71, 139], [65, 68, 152, 7, 21, 73],
+                                   [63, 104, 143, 159, 73, 132], [73, 63, 131, 158, 91, 45],
+                                   [152, 40, 131, 25, 73, 136], [63, 91, 52, 40, 152, 129],
+                                   [40, 7, 152, 136, 104, 27], [129, 63, 51, 152, 48, 7],
+                                   [30, 63, 128, 8, 53, 75], [7, 42, 52, 152, 86, 129],
+                                   [69, 40, 7, 63, 128, 27], [138, 68, 91, 104, 124, 7],
+                                   [104, 68, 130, 40, 7, 52], [27, 50, 7, 60, 128, 118],
+                                   [51, 19, 42, 91, 158, 40], [30, 128, 27, 7, 122, 21],
+                                   [143, 30, 68, 40, 104, 27], [51, 138, 104, 19, 25, 91],
+                                   [27, 64, 63, 65, 137, 88], [11, 91, 42, 45, 40, 129],
+                                   [40, 73, 150, 27, 30, 129], [23, 30, 152, 25, 150, 40],
+                                   [129, 7, 51, 132, 138, 150], [91, 8, 27, 30, 128, 104],
+                                   [27, 7, 104, 14, 139, 82], [128, 66, 133, 7, 68, 104],
+                                   [27, 19, 78, 152, 128, 138], [27, 18, 40, 137, 95, 102],
+                                   [7, 91, 129, 128, 56, 138], [104, 39, 7, 45, 91, 139],
+                                   [73, 27, 64, 39, 45, 36], [133, 27, 91, 77, 73, 51],
+                                   [1, 91, 152, 39, 121, 159], [27, 91, 133, 104, 14, 52],
+                                   [138, 103, 48, 119, 2, 89], [119, 25, 103, 155, 48, 2],
+                                   [48, 71, 119, 15, 95, 10], [71, 119, 74, 15, 2, 154],
+                                   [74, 155, 31, 71, 4, 110], [74, 119, 110, 155, 94, 73],
+                                   [110, 94, 2, 155, 32, 124], [119, 125, 155, 15, 74, 154],
+                                   [142, 32, 110, 73, 103, 94], [94, 74, 119, 21, 103, 82],
+                                   [94, 32, 38, 74, 76, 31], [142, 103, 94, 110, 31, 82],
+                                   [94, 21, 31, 2, 155, 32], [94, 125, 31, 110, 142, 73],
+                                   [32, 110, 142, 155, 94, 106], [94, 110, 124, 71, 31, 137],
+                                   [38, 71, 110, 31, 4, 5], [155, 73, 71, 146, 31, 83],
+                                   [154, 63, 31, 103, 110, 73], [110, 94, 119, 20, 147, 76],
+                                   [110, 142, 147, 125, 31, 74], [94, 73, 71, 2, 154, 155],
+                                   [94, 31, 44, 19, 157, 106], [110, 94, 38, 63, 31, 33],
+                                   [103, 71, 106, 142, 63, 20], [94, 15, 154, 5, 32, 74],
+                                   [110, 50, 44, 106, 71, 94], [71, 81, 142, 73, 19, 48],
+                                   [142, 94, 103, 20, 46, 44], [94, 63, 155, 119, 106, 149],
+                                   [94, 110, 142, 8, 73, 83], [94, 32, 110, 47, 27, 119],
+                                   [110, 94, 106, 2, 119, 152], [71, 106, 110, 32, 87, 155],
+                                   [137, 142, 110, 71, 106, 19], [94, 8, 71, 82, 113, 32],
+                                   [110, 119, 63, 38, 31, 137], [54, 154, 106, 79, 110, 103],
+                                   [155, 94, 141, 125, 142, 106], [94, 156, 106, 29, 38, 137],
+                                   [73, 20, 106, 142, 155, 62], [119, 54, 149, 110, 94, 113],
+                                   [94, 103, 38, 5, 119, 46], [38, 155, 5, 94, 110, 63],
+                                   [94, 33, 85, 110, 106, 40], [62, 125, 38, 149, 142, 110],
+                                   [94, 110, 40, 142, 38, 91], [8, 155, 106, 110, 94, 88],
+                                   [119, 94, 149, 71, 55, 110], [73, 142, 110, 119, 94, 5],
+                                   [94, 71, 149, 119, 142, 73], [71, 113, 110, 32, 94, 40],
+                                   [71, 94, 81, 110, 40, 73], [110, 155, 112, 124, 46, 119],
+                                   [106, 110, 6, 125, 142, 38], [73, 110, 79, 109, 6, 159],
+                                   [71, 142, 38, 113, 110, 156], [119, 94, 113, 2, 61, 142],
+                                   [159, 149, 73, 94, 71, 82], [119, 38, 110, 137, 142, 55],
+                                   [90, 119, 155, 105, 113, 94], [71, 113, 106, 40, 109, 44],
+                                   [137, 142, 53, 71, 149, 73], [94, 73, 40, 149, 120, 8]],
+                         'sel_k': [0.0267296, 0.0309432, 0.0361319, 0.0259752, 0.0269285, 0.0327512,
+                                   0.0321715, 0.0348023, 0.0318118, 0.0345693, 0.0297321, 0.0391971,
+                                   0.0298698, 0.0316615, 0.0280714, 0.0264353, 0.0248791, 0.032375,
+                                   0.0248116, 0.0230674, 0.0278991, 0.0284709, 0.0263445, 0.0310245,
+                                   0.0298029, 0.0288965, 0.021548, 0.0218924, 0.0357576, 0.028386,
+                                   0.0292367, 0.0301164, 0.0294829, 0.0332935, 0.0399462, 0.0334483,
+                                   0.0306582, 0.0328542, 0.0287931, 0.0298851, 0.0344952, 0.0272592,
+                                   0.0285299, 0.0229273, 0.0321452, 0.0336661, 0.0336144, 0.0421149,
+                                   0.0284798, 0.0239696, 0.0191131, 0.044064, 0.0325628, 0.0274184,
+                                   0.0287681, 0.0302496, 0.0235339, 0.0317245, 0.02932, 0.0402,
+                                   0.0282328, 0.0384974, 0.0259519, 0.0310276, 0.0239364, 0.026411,
+                                   0.0296214, 0.0327234, 0.0369519, 0.0342201, 0.0293891, 0.038369,
+                                   0.0379361, 0.0269924, 0.0253266, 0.0396096, 0.0353267, 0.0249022,
+                                   0.0437726, 0.0181041, 0.0405028, 0.0195911, 0.0303168, 0.0279472,
+                                   0.0322816, 0.0288579, 0.0370517, 0.0188735, 0.0381647, 0.0284261,
+                                   0.0136493, 0.0325636, 0.0253655, 0.0253857, 0.0215777, 0.0266756,
+                                   0.0247382, 0.0242346, 0.0427974, 0.026691, 0.0296337, 0.0315739,
+                                   0.028924, 0.0252897, 0.0231128, 0.0241054, 0.0305778, 0.035623,
+                                   0.0293885, 0.0361354, 0.0372122, 0.028125, 0.0365, 0.0247268,
+                                   0.0333237, 0.0269397, 0.0347405, 0.0265736, 0.0273941, 0.0351616,
+                                   0.0264089, 0.0297452, 0.0390756, 0.0266435, 0.0396156, 0.0296616,
+                                   0.0275672, 0.0321219],
+                         'slope': [0.0260152, 0.0299858, 0.0348264, 0.0253005, 0.0262034, 0.0316786,
+                                   0.0311365, 0.0335911, 0.0307998, 0.0333742, 0.0288481, 0.0376607,
+                                   0.0289776, 0.0306591, 0.0272834, 0.0257365, 0.0242601, 0.0313269,
+                                   0.024196, 0.0225353, 0.0271208, 0.0276603, 0.0256505, 0.0300619,
+                                   0.0289147, 0.0280615, 0.0210837, 0.0214131, 0.034479, 0.0275802,
+                                   0.0283819, 0.0292094, 0.0286136, 0.0321851, 0.0383505, 0.0323295,
+                                   0.0297183, 0.0317748, 0.0279641, 0.028992, 0.0333053, 0.0265161,
+                                   0.0277159, 0.0224017, 0.0311118, 0.0325327, 0.0324845, 0.0403413,
+                                   0.0276687, 0.023395, 0.0187478, 0.0421223, 0.0315024, 0.0266666,
+                                   0.0279405, 0.0293346, 0.02298, 0.0307181, 0.0284603, 0.038584,
+                                   0.0274357, 0.0370153, 0.0252784, 0.0300649, 0.0233635, 0.0257135,
+                                   0.028744, 0.0316526, 0.0355865, 0.0330491, 0.0285254, 0.0368968,
+                                   0.036497, 0.0262638, 0.0246852, 0.0380407, 0.0340787, 0.024282,
+                                   0.0418566, 0.0177764, 0.0388623, 0.0192073, 0.0293977, 0.0271661,
+                                   0.0312395, 0.0280251, 0.0356789, 0.0185173, 0.0367081, 0.027618,
+                                   0.013463, 0.0315032, 0.0247221, 0.0247413, 0.0211121, 0.0259641,
+                                   0.0241262, 0.0236473, 0.0409658, 0.0259786, 0.0287555, 0.030577,
+                                   0.0280874, 0.0246502, 0.0225786, 0.0235243, 0.0296428, 0.034354,
+                                   0.0285249, 0.0348296, 0.0358274, 0.027334, 0.0351677, 0.0241154,
+                                   0.0322133, 0.0262139, 0.0335336, 0.0258675, 0.0266436, 0.0339252,
+                                   0.0257114, 0.0288605, 0.0375487, 0.0259337, 0.0380462, 0.0287818,
+                                   0.0268073, 0.0310901]},
+             'prefill': {'margin': [0.117493, 0.0353162, 0.0702235, 0.0707795, 0.0794145, 0.0925574,
+                                    0.00378577, 0.0188434, 0.0233973, 0.231095, 0.0308346, 0.247235,
+                                    0.123999, 0.035203, 0.0761077, 0.0564374, 0.0709632, 0.149929,
+                                    0.135809, 0.0871758, 0.168349, 0.263302, 0.0804013, 0.191332,
+                                    0.00512431, 0.107775, 0.0352835, 0.0402006, 0.215061,
+                                    0.00742296, 0.0416637, 0.0938842, 0.0543211, 0.000672136,
+                                    0.252273, 0.0430372, 0.235335, 0.0818043, 0.0052209, 0.0764421,
+                                    0.0380796, 0.0701034, 0.0444257, 0.00069104, 0.140032, 0.117362,
+                                    0.14892, 0.0221717, 0.0302089, 0.229377, 0.039345, 0.0404339,
+                                    0.161515, 0.139335, 0.309602, 0.0177067, 0.124474, 0.134472,
+                                    0.00670342, 0.131544, 0.0409234, 0.011552, 0.0380291, 0.121777,
+                                    0.20693, 0.0158409, 0.154177, 0.0686995, 0.392793, 0.207984,
+                                    0.123523, 0.355083, 0.340861, 0.0307054, 0.120016, 0.0595996,
+                                    0.0480053, 0.250123, 0.310421, 0.0385352, 0.0199895, 0.0281485,
+                                    0.0029318, 0.121481, 0.136786, 0.0812364, 0.20061, 0.0596181,
+                                    0.272767, 0.0542741, 0.000227383, 0.0689399, 0.0958972,
+                                    0.0965825, 0.0220748, 0.0399502, 0.0794494, 0.0580491, 0.159064,
+                                    0.0376504, 0.0322465, 0.0835607, 0.00953413, 0.11634, 0.0482843,
+                                    0.016303, 0.0344376, 0.141141, 0.156175, 0.0712992, 0.196741,
+                                    0.0105569, 0.204375, 0.00385307, 0.0874827, 0.0306522,
+                                    0.0235795, 0.000990244, 0.119615, 0.00544378, 0.0596898,
+                                    0.0745427, 0.141043, 0.0447164, 0.0273367, 0.0536267, 0.069913,
+                                    0.154478],
+                         'picks': [[7, 104, 33, 74, 59, 73], [7, 104, 66, 52, 59, 63],
+                                   [7, 126, 122, 63, 68, 40], [132, 104, 136, 7, 40, 68],
+                                   [126, 158, 117, 40, 93, 27], [40, 63, 59, 117, 45, 143],
+                                   [93, 21, 68, 126, 7, 138], [122, 59, 63, 7, 27, 158],
+                                   [39, 63, 138, 126, 129, 45], [59, 63, 52, 68, 51, 126],
+                                   [63, 158, 68, 152, 52, 45], [59, 63, 45, 152, 32, 150],
+                                   [63, 94, 7, 136, 152, 52], [63, 7, 59, 104, 99, 129],
+                                   [152, 45, 40, 63, 68, 58], [152, 27, 63, 7, 104, 128],
+                                   [63, 152, 40, 104, 99, 27], [152, 129, 104, 126, 102, 124],
+                                   [7, 152, 102, 45, 104, 21], [152, 73, 27, 63, 129, 25],
+                                   [93, 52, 98, 27, 63, 42], [152, 27, 63, 131, 158, 45],
+                                   [152, 66, 147, 27, 128, 10], [63, 152, 68, 25, 98, 104],
+                                   [7, 152, 40, 63, 104, 91], [99, 63, 25, 152, 158, 51],
+                                   [66, 7, 42, 104, 51, 40], [68, 60, 76, 130, 152, 50],
+                                   [152, 68, 27, 63, 56, 129], [68, 152, 73, 42, 58, 150],
+                                   [129, 40, 73, 131, 71, 139], [65, 68, 152, 7, 21, 73],
+                                   [63, 104, 143, 159, 73, 132], [73, 63, 131, 158, 91, 45],
+                                   [152, 40, 131, 25, 73, 136], [63, 91, 52, 40, 152, 129],
+                                   [40, 7, 152, 136, 104, 27], [129, 63, 51, 152, 48, 7],
+                                   [30, 63, 128, 8, 53, 75], [7, 42, 52, 152, 86, 129],
+                                   [69, 40, 7, 63, 128, 27], [138, 68, 91, 104, 124, 7],
+                                   [104, 68, 130, 40, 7, 52], [27, 50, 7, 60, 128, 118],
+                                   [51, 19, 42, 91, 158, 40], [30, 128, 27, 7, 122, 21],
+                                   [143, 30, 68, 40, 104, 27], [51, 138, 104, 19, 25, 91],
+                                   [27, 64, 63, 65, 137, 88], [11, 91, 42, 45, 40, 129],
+                                   [40, 73, 150, 27, 30, 129], [23, 30, 152, 25, 150, 40],
+                                   [129, 7, 51, 132, 138, 150], [91, 8, 27, 30, 128, 104],
+                                   [27, 7, 104, 14, 139, 82], [128, 66, 133, 7, 68, 104],
+                                   [27, 19, 78, 152, 128, 138], [27, 18, 40, 137, 95, 102],
+                                   [7, 91, 129, 128, 56, 138], [104, 39, 7, 45, 91, 139],
+                                   [73, 27, 64, 39, 45, 36], [133, 27, 91, 77, 73, 51],
+                                   [1, 91, 152, 39, 121, 159], [27, 91, 133, 104, 14, 52],
+                                   [138, 103, 48, 119, 2, 89], [119, 25, 103, 155, 48, 2],
+                                   [48, 71, 119, 15, 95, 10], [71, 119, 74, 15, 2, 154],
+                                   [74, 155, 31, 71, 4, 110], [74, 119, 110, 155, 94, 73],
+                                   [110, 94, 2, 155, 32, 124], [119, 125, 155, 15, 74, 154],
+                                   [142, 32, 110, 73, 103, 94], [94, 74, 119, 21, 103, 82],
+                                   [94, 32, 38, 74, 76, 31], [142, 103, 94, 110, 31, 82],
+                                   [94, 21, 31, 2, 155, 32], [94, 125, 31, 110, 142, 73],
+                                   [32, 110, 142, 155, 94, 106], [94, 110, 124, 71, 31, 137],
+                                   [38, 71, 110, 31, 4, 5], [155, 73, 71, 146, 31, 83],
+                                   [154, 63, 31, 103, 110, 73], [110, 94, 119, 20, 147, 76],
+                                   [110, 142, 147, 125, 31, 74], [94, 73, 71, 2, 154, 155],
+                                   [94, 31, 44, 19, 157, 106], [110, 94, 38, 63, 31, 33],
+                                   [103, 71, 106, 142, 63, 20], [94, 15, 154, 5, 32, 74],
+                                   [110, 50, 44, 106, 71, 94], [71, 81, 142, 73, 19, 48],
+                                   [142, 94, 103, 20, 46, 44], [94, 63, 155, 119, 106, 149],
+                                   [94, 110, 142, 8, 73, 83], [94, 32, 110, 47, 27, 119],
+                                   [110, 94, 106, 2, 119, 152], [71, 106, 110, 32, 87, 155],
+                                   [137, 142, 110, 71, 106, 19], [94, 8, 71, 82, 113, 32],
+                                   [110, 119, 63, 38, 31, 137], [54, 154, 106, 79, 110, 103],
+                                   [155, 94, 141, 125, 142, 106], [94, 156, 106, 29, 38, 137],
+                                   [73, 20, 106, 142, 155, 62], [119, 54, 149, 110, 94, 113],
+                                   [94, 103, 38, 5, 119, 46], [38, 155, 5, 94, 110, 63],
+                                   [94, 33, 85, 110, 106, 40], [62, 125, 38, 149, 142, 110],
+                                   [94, 110, 40, 142, 38, 91], [8, 155, 106, 110, 94, 88],
+                                   [119, 94, 149, 71, 55, 110], [73, 142, 110, 119, 94, 5],
+                                   [94, 71, 149, 119, 142, 73], [71, 113, 110, 32, 94, 40],
+                                   [71, 94, 81, 110, 40, 73], [110, 155, 112, 124, 46, 119],
+                                   [106, 110, 6, 125, 142, 38], [73, 110, 79, 109, 6, 159],
+                                   [71, 142, 38, 113, 110, 156], [119, 94, 113, 2, 61, 142],
+                                   [159, 149, 73, 94, 71, 82], [119, 38, 110, 137, 142, 55],
+                                   [90, 119, 155, 105, 113, 94], [71, 113, 106, 40, 109, 44],
+                                   [137, 142, 53, 71, 149, 73], [94, 73, 40, 149, 120, 8]],
+                         'sel_k': [0.0267296, 0.0309432, 0.0361319, 0.0259752, 0.0269285, 0.0327512,
+                                   0.0321715, 0.0348023, 0.0318118, 0.0345693, 0.0297321, 0.0391971,
+                                   0.0298698, 0.0316615, 0.0280714, 0.0264353, 0.0248791, 0.032375,
+                                   0.0248116, 0.0230674, 0.0278991, 0.0284709, 0.0263445, 0.0310245,
+                                   0.0298029, 0.0288965, 0.021548, 0.0218924, 0.0357576, 0.028386,
+                                   0.0292367, 0.0301164, 0.0294829, 0.0332935, 0.0399462, 0.0334483,
+                                   0.0306582, 0.0328542, 0.0287931, 0.0298851, 0.0344952, 0.0272592,
+                                   0.0285299, 0.0229273, 0.0321452, 0.0336661, 0.0336144, 0.0421149,
+                                   0.0284798, 0.0239696, 0.0191131, 0.044064, 0.0325628, 0.0274184,
+                                   0.0287681, 0.0302496, 0.0235339, 0.0317245, 0.02932, 0.0402,
+                                   0.0282328, 0.0384974, 0.0259519, 0.0310276, 0.0239364, 0.026411,
+                                   0.0296214, 0.0327234, 0.0369519, 0.0342201, 0.0293891, 0.038369,
+                                   0.0379361, 0.0269924, 0.0253266, 0.0396096, 0.0353267, 0.0249022,
+                                   0.0437726, 0.0181041, 0.0405028, 0.0195911, 0.0303168, 0.0279472,
+                                   0.0322816, 0.0288579, 0.0370517, 0.0188735, 0.0381647, 0.0284261,
+                                   0.0136493, 0.0325636, 0.0253655, 0.0253857, 0.0215777, 0.0266756,
+                                   0.0247382, 0.0242346, 0.0427974, 0.026691, 0.0296337, 0.0315739,
+                                   0.028924, 0.0252897, 0.0231128, 0.0241054, 0.0305778, 0.035623,
+                                   0.0293885, 0.0361354, 0.0372122, 0.028125, 0.0365, 0.0247268,
+                                   0.0333237, 0.0269397, 0.0347405, 0.0265736, 0.0273941, 0.0351616,
+                                   0.0264089, 0.0297452, 0.0390756, 0.0266435, 0.0396156, 0.0296616,
+                                   0.0275672, 0.0321219],
+                         'slope': [0.0260152, 0.0299858, 0.0348264, 0.0253005, 0.0262034, 0.0316786,
+                                   0.0311365, 0.0335911, 0.0307998, 0.0333742, 0.0288481, 0.0376607,
+                                   0.0289776, 0.0306591, 0.0272834, 0.0257365, 0.0242601, 0.0313269,
+                                   0.024196, 0.0225353, 0.0271208, 0.0276603, 0.0256505, 0.0300619,
+                                   0.0289147, 0.0280615, 0.0210837, 0.0214131, 0.034479, 0.0275802,
+                                   0.0283819, 0.0292094, 0.0286136, 0.0321851, 0.0383505, 0.0323295,
+                                   0.0297183, 0.0317748, 0.0279641, 0.028992, 0.0333053, 0.0265161,
+                                   0.0277159, 0.0224017, 0.0311118, 0.0325327, 0.0324845, 0.0403413,
+                                   0.0276687, 0.023395, 0.0187478, 0.0421223, 0.0315024, 0.0266666,
+                                   0.0279405, 0.0293346, 0.02298, 0.0307181, 0.0284603, 0.038584,
+                                   0.0274357, 0.0370153, 0.0252784, 0.0300649, 0.0233635, 0.0257135,
+                                   0.028744, 0.0316526, 0.0355865, 0.0330491, 0.0285254, 0.0368968,
+                                   0.036497, 0.0262638, 0.0246852, 0.0380407, 0.0340787, 0.024282,
+                                   0.0418566, 0.0177764, 0.0388623, 0.0192073, 0.0293977, 0.0271661,
+                                   0.0312395, 0.0280251, 0.0356789, 0.0185173, 0.0367081, 0.027618,
+                                   0.013463, 0.0315032, 0.0247221, 0.0247413, 0.0211121, 0.0259641,
+                                   0.0241262, 0.0236473, 0.0409658, 0.0259786, 0.0287555, 0.030577,
+                                   0.0280874, 0.0246502, 0.0225786, 0.0235243, 0.0296428, 0.034354,
+                                   0.0285249, 0.0348296, 0.0358274, 0.027334, 0.0351677, 0.0241154,
+                                   0.0322133, 0.0262139, 0.0335336, 0.0258675, 0.0266436, 0.0339252,
+                                   0.0257114, 0.0288605, 0.0375487, 0.0259337, 0.0380462, 0.0287818,
+                                   0.0268073, 0.0310901]}},
+ 'rows': [{'argmax': 61080,
+           'at_ids': [-1.0234375, -1.4921875, 0.609375, 0.62890625, -0.1513671875, 0.06884765625,
+                      -0.228515625],
+           'lse': 11.99868339345508,
+           'margin': 0.484375,
+           'max': 4.21875},
+          {'argmax': 69319,
+           'at_ids': [-1.2578125, -1.109375, 1.046875, 0.92578125, 0.8046875, 0.0179443359375,
+                      0.33203125],
+           'lse': 12.000453996364213,
+           'margin': 0.203125,
+           'max': 4.03125},
+          {'argmax': 2753,
+           'at_ids': [-2.671875, -1.5703125, 1.2421875, -0.08251953125, -0.2080078125, 0.20703125,
+                      0.0286865234375],
+           'lse': 11.99818941002643,
+           'margin': 0.28125,
+           'max': 4.40625},
+          {'argmax': 68291,
+           'at_ids': [-0.1494140625, 0.57421875, -1.21875, 0.91796875, 1.140625, -1.265625,
+                      0.8203125],
+           'lse': 11.992502936848737,
+           'margin': 0.28125,
+           'max': 4.625},
+          {'argmax': 38633,
+           'at_ids': [-0.439453125, -0.3828125, 2.265625, -0.67578125, 0.4609375, 0.1845703125,
+                      -0.92578125],
+           'lse': 11.99613136168189,
+           'margin': 0.03125,
+           'max': 4.03125}],
+ 'steps': [[{'argmax': 2753,
+             'at_fed': 4.40625,
+             'at_ids': [-2.65625, -1.5703125, 1.234375, -0.09033203125, -0.2060546875, 0.22265625,
+                        0.0296630859375],
+             'lse': 11.998315451179838,
+             'margin': 0.28125,
+             'max': 4.40625},
+            {'argmax': 53311,
+             'at_fed': 4.09375,
+             'at_ids': [0.006927490234375, -0.0031890869140625, 0.0830078125, -0.62109375, 1.109375,
+                        1.6875, -0.470703125],
+             'lse': 11.99852770279005,
+             'margin': 0.25,
+             'max': 4.09375},
+            {'argmax': 82307,
+             'at_fed': 4.21875,
+             'at_ids': [-0.94140625, 0.000942230224609375, 0.2734375, -0.94140625, -1.2109375,
+                        1.6171875, -0.054443359375],
+             'lse': 11.99893936983181,
+             'margin': 0.0625,
+             'max': 4.21875},
+            {'argmax': 38511,
+             'at_fed': 3.78125,
+             'at_ids': [-0.447265625, -0.1455078125, 0.396484375, -0.53125, 0.546875, 0.107421875,
+                        -0.8203125],
+             'lse': 11.999061238209242,
+             'margin': 0.0,
+             'max': 3.78125},
+            {'argmax': 18958,
+             'at_fed': 5.0,
+             'at_ids': [-1.0859375, 0.0673828125, 2.875, -0.83203125, 0.2265625, 1.15625,
+                        -0.462890625],
+             'lse': 12.000327226006448,
+             'margin': 0.65625,
+             'max': 5.0},
+            {'argmax': 26294,
+             'at_fed': 4.0,
+             'at_ids': [0.71875, -1.203125, -0.2236328125, -1.953125, 0.18359375, 0.8984375,
+                        -1.4765625],
+             'lse': 11.99937415059021,
+             'margin': 0.09375,
+             'max': 4.0},
+            {'argmax': 30541,
+             'at_fed': 4.15625,
+             'at_ids': [-0.47265625, -1.921875, 0.73046875, 0.1357421875, 1.3359375, 0.8359375,
+                        0.60546875],
+             'lse': 11.998443442831265,
+             'margin': 0.1875,
+             'max': 4.15625},
+            {'argmax': 99865,
+             'at_fed': 3.796875,
+             'at_ids': [1.234375, -0.328125, 1.40625, 1.3359375, 0.404296875, -0.6953125,
+                        -0.35546875],
+             'lse': 11.997846420704866,
+             'margin': 0.125,
+             'max': 3.796875}],
+           [{'argmax': 2580,
+             'at_fed': 4.0,
+             'at_ids': [-0.451171875, -0.380859375, 2.28125, -0.671875, 0.455078125, 0.19140625,
+                        -0.9296875],
+             'lse': 11.996102457828934,
+             'margin': 0.0,
+             'max': 4.0},
+            {'argmax': 70098,
+             'at_fed': 4.1875,
+             'at_ids': [-0.4765625, 0.41015625, 1.03125, -1.2421875, 0.546875, 0.447265625,
+                        0.0269775390625],
+             'lse': 11.997997280175113,
+             'margin': 0.375,
+             'max': 4.1875},
+            {'argmax': 47278,
+             'at_fed': 4.46875,
+             'at_ids': [-0.6015625, 0.419921875, -0.64453125, -1.109375, 0.470703125, 0.64453125,
+                        -0.29296875],
+             'lse': 11.997491696182934,
+             'margin': 0.34375,
+             'max': 4.46875},
+            {'argmax': 86881,
+             'at_fed': 4.375,
+             'at_ids': [-0.453125, 0.134765625, 0.734375, -1.53125, 0.54296875, -0.400390625,
+                        0.4296875],
+             'lse': 11.993701561089674,
+             'margin': 0.40625,
+             'max': 4.375},
+            {'argmax': 21826,
+             'at_fed': 4.0,
+             'at_ids': [-1.984375, -0.57421875, 0.283203125, -1.3359375, 0.7109375, -0.734375,
+                        0.271484375],
+             'lse': 11.99200129646623,
+             'margin': 0.125,
+             'max': 4.0},
+            {'argmax': 63098,
+             'at_fed': 4.5625,
+             'at_ids': [-0.205078125, 0.34765625, 0.59375, 0.25, 1.6796875, -0.59375, -0.255859375],
+             'lse': 11.994224905325606,
+             'margin': 0.59375,
+             'max': 4.5625},
+            {'argmax': 32920,
+             'at_fed': 5.09375,
+             'at_ids': [-0.05517578125, -1.265625, -0.91015625, -0.953125, -0.4453125, 0.162109375,
+                        -0.0810546875],
+             'lse': 11.9918256278996,
+             'margin': 1.34375,
+             'max': 5.09375},
+            {'argmax': 40698,
+             'at_fed': 4.28125,
+             'at_ids': [-1.859375, 1.4765625, -0.020751953125, -1.0234375, 0.9609375, -0.37109375,
+                        0.482421875],
+             'lse': 11.998319617873918,
+             'margin': 0.5,
+             'max': 4.28125}]],
+ 'tokens': [[2753, 53311, 82307, 38511, 18958, 26294, 30541, 99865],
+            [2580, 70098, 47278, 86881, 21826, 63098, 32920, 40698]]}
+
+# Tolerances of the moe comparisons and their reasons.  Every logit
+# comparison runs both sides on the same routing: the port is made to pick
+# the experts the other run picked (``routed_as``; its gates still come from
+# its own scores), so a rounding difference cannot move a token to another
+# expert and every logit is compared.  The routing itself is compared
+# apart, run against run (``compare_routing``):
+# * ROUTE_TIE_LOGIT: a token whose k-th and (k+1)-th selection scores lie
+#   within this margin (in router-logit units: the score gap over the k-th
+#   score's slope s (1 - s), on either side of a comparison) may pick
+#   another expert when its MoE input differs by rounding.  The JAX
+#   package's bf16 attention rounds its logits and probabilities to bf16
+#   where the flash kernel keeps float32, and the plain versions on the
+#   card do the same, so the MoE input differs by more than an ulp: on an
+#   H100 the k-th score moved by up to ~0.05 in these units (deepseek-v2
+#   against JAX and kernels against plain), and a gap moves by at most
+#   twice what one score does; 0.2 is twice that.  Such a token is exempt
+#   from the pick comparison and counted; a pick that differs past the
+#   margin fails.  A changed pick moves the slots of later pairs of its
+#   group at the two experts involved, so a later token whose kept choices
+#   differ only at such experts is exempt too (counted as a cascade).  The
+#   free-running greedy tokens may part at an exempt token's step.
+# * MOE_LOGIT_TOL / MOE_MARGIN_TOL: the card against JAX_MOE_SERVE on JAX's
+#   routing, as SERVE_LOGIT_TOL / JAX_MARGIN_TOL for llama (bf16 rounding
+#   points on both sides, two layers);
+# * MOE_PREFILL_TOL: every logit of the 4 x 512 prefill, of v3's
+#   ``mtp_logits`` and of the generation's decode loop with the kernels
+#   against the same step on the plain versions on the kernel run's
+#   routing: the flash kernel keeps the attention's probabilities in
+#   float32 where the plain version rounds them to bf16, as
+#   SERVE_PREFILL_TOL.
+ROUTE_TIE_LOGIT = 0.2
+MOE_LOGIT_TOL = 0.0625
+MOE_MARGIN_TOL = 2 * MOE_LOGIT_TOL
+MOE_PREFILL_TOL = 0.125
+
+
+def moe_config(spec: dict):
+    """The full-width config of ``spec`` (MOE_V2 or MOE_V3) cut to its
+    ``n_layers``."""
+    import dataclasses
+
+    from repro_torch.configs import full_config
+
+    return dataclasses.replace(full_config(spec["arch"]), n_layers=spec["n_layers"])
+
+
+def routing_record(idx, select, scores) -> dict:
+    """One MoE call's routing from either package (numpy): the experts each
+    of its ``N`` tokens picked, ``idx (N, k)`` in selection order; from the
+    selection scores ``select (N, E)`` (softmax scores, or sigmoid scores
+    plus the bias) the k-th score ``sel_k``; the slope ``s (1 - s)`` of the
+    k-th expert's raw score ``s`` (``scores (N, E)``) by its logit; and the
+    margin ``(sel_k - sel_(k+1)) / slope`` to the first expert left out, in
+    router-logit units to first order (for softmax the log of the two
+    scores' ratio)."""
+    import numpy as np
+
+    idx = np.asarray(idx)
+    k = idx.shape[1]
+    top = -np.sort(-np.asarray(select, np.float64), axis=-1)[:, :k + 1]
+    s = np.take_along_axis(np.asarray(scores, np.float64), idx[:, k - 1:k], -1)[:, 0]
+    slope = s * (1.0 - s)
+    short = lambda a: [float(f"{x:.6g}") for x in a]  # 6 digits: a margin, not a bit pattern
+    return {"picks": idx.tolist(), "sel_k": short(top[:, k - 1]), "slope": short(slope),
+            "margin": short((top[:, k - 1] - top[:, k]) / slope)}
+
+
+def keep_flags(picks, n_experts: int, capacity_factor: float, group_size: int = 256):
+    """``models.moe.slots``' kept flags ``(N, k)`` for the picks ``(N, k)``
+    (numpy): groups of ``group_size`` rows, zero-padded rows choosing expert
+    0, a pair kept while fewer than the capacity earlier pairs of its group
+    went to its expert."""
+    import numpy as np
+
+    p = np.asarray(picks)
+    n, k = p.shape
+    s = min(group_size, n)
+    pad = -n % s
+    cap = max(int(capacity_factor * s * k / n_experts), k)
+    flat = np.concatenate([p, np.zeros((pad, k), p.dtype)]).reshape(-1, s * k)
+    keep = np.zeros(flat.shape, bool)
+    for g, row in enumerate(flat):
+        count = np.zeros(n_experts, np.int64)
+        for j, e in enumerate(row):
+            keep[g, j] = count[e] < cap
+            count[e] += 1
+    return keep.reshape(-1, k)[:n]
+
+
+def compare_routing(got: list, want: list, cfg, tie: float = ROUTE_TIE_LOGIT,
+                    group_size: int = 256) -> dict:
+    """Hold the routing records of two runs of the same calls (each a list of
+    ``routing_record``s, call by call) against each other.  A token whose
+    picks differ as a set is exempt where either side's margin is within
+    ``tie`` (a flip), else a failure; a token with the same picks whose kept
+    flags differ is exempt where they differ only at experts that an
+    earlier flip of its group moved (a cascade), else a failure.  Returns
+    ``bad``, the counts of tokens within the margin (``ties``), of flips and
+    of cascades, per call the exempt tokens (``affected``), the experts the
+    flips moved (``touched``) and the pairs they moved, the largest
+    difference of the k-th selection score over the tokens whose picks
+    agree, in logit units (``max_dlogit``: over ``want``'s slope), and the
+    largest margin at which a token flipped (``max_flip_margin``)."""
+    import numpy as np
+
+    mo = cfg.moe
+    out = {"bad": [], "ties": 0, "flipped": 0, "cascaded": 0, "affected": [], "touched": [],
+           "moved_pairs": [], "max_dlogit": 0.0, "max_flip_margin": 0.0}
+    for c, (g, w) in enumerate(zip(got, want)):
+        gp, wp = np.asarray(g["picks"]), np.asarray(w["picks"])
+        aff, touched, moved = set(), set(), 0
+        out["affected"].append(aff)
+        out["touched"].append(touched)
+        if gp.shape != wp.shape:
+            out["bad"].append(f"call {c}: picks {gp.shape} vs {wp.shape}")
+            out["moved_pairs"].append(0)
+            continue
+        n = gp.shape[0]
+        s = min(group_size, n)
+        gk = keep_flags(gp, mo.n_experts, mo.capacity_factor, group_size)
+        wk = keep_flags(wp, mo.n_experts, mo.capacity_factor, group_size)
+        moved_at: dict = {}  # group -> experts whose pair counts an earlier flip changed
+        for i in range(n):
+            near = min(g["margin"][i], w["margin"][i]) <= tie
+            out["ties"] += int(near)
+            gs, ws = set(gp[i].tolist()), set(wp[i].tolist())
+            if gs != ws:
+                if not near:
+                    out["bad"].append(f"call {c} token {i}: experts {sorted(gs)} vs {sorted(ws)} "
+                                      f"(margins {g['margin'][i]:.3e}, {w['margin'][i]:.3e})")
+                    continue
+                out["flipped"] += 1
+                out["max_flip_margin"] = max(out["max_flip_margin"],
+                                             min(g["margin"][i], w["margin"][i]))
+                moved += len(gs - ws)
+                moved_at.setdefault(i // s, set()).update(gs ^ ws)
+                touched.update(gs ^ ws)
+                aff.add(i)
+                continue
+            out["max_dlogit"] = max(out["max_dlogit"],
+                                    abs(g["sel_k"][i] - w["sel_k"][i]) / w["slope"][i])
+            kg, kw = dict(zip(gp[i].tolist(), gk[i])), dict(zip(wp[i].tolist(), wk[i]))
+            diff = {e for e in gs if kg[e] != kw[e]}
+            if not diff:
+                continue
+            if diff <= moved_at.get(i // s, set()):
+                out["cascaded"] += 1
+                aff.add(i)
+            else:
+                out["bad"].append(f"call {c} token {i}: kept flags differ at experts {sorted(diff)} "
+                                  f"that no earlier flip of its group moved")
+        out["moved_pairs"].append(moved)
+    return out
+
+
+def compare_moe_aux(got: dict, want: dict, n_pairs: int, touched: set, moved: int) -> list[str]:
+    """``forward``'s expert counts and dropped fraction (``{"expert_counts",
+    "dropped_fraction"}``) against another run's: the counts equal at every
+    expert no routing flip moved (``touched``), the dropped fraction equal
+    when no pair moved and otherwise within ``moved`` of ``n_pairs`` pairs
+    (each moved pair changes the kept count by at most one)."""
+    bad = [f"expert {e}: {a} vs {b} tokens" for e, (a, b) in
+           enumerate(zip(got["expert_counts"], want["expert_counts"])) if a != b and e not in touched]
+    d = abs(got["dropped_fraction"] - want["dropped_fraction"])
+    if (moved == 0 and d != 0.0) or d > moved / n_pairs + 1e-7:
+        bad.append(f"dropped_fraction {got['dropped_fraction']!r} vs {want['dropped_fraction']!r} "
+                   f"({moved} moved pairs of {n_pairs})")
+    return bad
+
+
+def moe_aux_summary(aux: dict, n_tokens: int) -> dict:
+    """``forward``'s ``expert_load`` (assignments per token, exactly count x
+    float32(1 / N)) as integer counts, and its ``dropped_fraction``."""
+    import numpy as np
+
+    load = np.asarray(aux["expert_load"].cpu() if hasattr(aux["expert_load"], "cpu")
+                      else aux["expert_load"], np.float64)
+    return {"expert_counts": np.rint(load * n_tokens).astype(int).tolist(),
+            "dropped_fraction": float(aux["dropped_fraction"])}
+
+
+@contextlib.contextmanager
+def capture_routing(model):
+    """Record the routing of every call of the model's MoE layers while the
+    block runs: yields a list of lists, one per MoE layer, of
+    ``routing_record``s, computed by a forward pre-hook on each MoE FFN
+    from its input (``moe.route`` as it is where the block starts, which the
+    layer then repeats: a ``routed_as`` entered inside the block does not
+    change what is recorded)."""
+    from repro_torch.models import moe as MOE
+
+    calls = [[] for _ in model.moe_blocks]
+    route = MOE.route
+
+    def hook_for(i):
+        def hook(mod, args):
+            x = args[0]
+            _, idx, scores, _ = route(mod, mod.cfg, x.reshape(-1, x.shape[-1]))
+            calls[i].append(routing_record(
+                idx.cpu().numpy(), MOE.select_scores(mod, mod.cfg, scores).cpu().numpy(),
+                scores.cpu().numpy()))
+        return hook
+
+    hooks = [blk.moe.register_forward_pre_hook(hook_for(i))
+             for i, blk in enumerate(model.moe_blocks)]
+    try:
+        yield calls
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+@contextlib.contextmanager
+def routed_as(calls: list):
+    """Inside the block, the i-th call of ``moe.route`` picks the experts of
+    ``calls[i]["picks"]`` (another run's ``routing_record``s, in call
+    order), its gates computed from its own scores as ``route`` computes
+    them; its scores and logits are its own.  Raises if the calls run out
+    or are not all used."""
+    import torch
+
+    from repro_torch.models import moe as MOE
+
+    orig, it = MOE.route, iter(calls)
+    used = []
+
+    def route(p, cfg, x_flat):
+        _, _, scores, logits = orig(p, cfg, x_flat)
+        idx = torch.as_tensor(next(it)["picks"], device=x_flat.device)
+        _check(tuple(idx.shape) == (x_flat.shape[0], cfg.moe.experts_per_token),
+               f"routed_as: call {len(used)} has {tuple(idx.shape)} picks for {x_flat.shape[0]} "
+               f"tokens")
+        used.append(1)
+        w = torch.gather(scores, -1, idx)
+        return w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-9), idx, scores, logits
+
+    MOE.route = route
+    try:
+        yield
+    finally:
+        MOE.route = orig
+    _check(len(used) == len(calls), f"routed_as: {len(used)} of {len(calls)} calls used")
+
+
+def moe_walk_exempt(routing: dict, ref: dict) -> set:
+    """The ``(request, step)`` pairs of ``ref``'s teacher-forced decode loop
+    whose token ``compare_routing`` exempted: step 0 from the prompt call
+    (token ``r * T0 + T0 - 1``), step p from call p (token r)."""
+    t0, dec = ref["prompt_len"], routing["affected"]
+    return {(r, p) for r in range(ref["requests"]) for p in range(ref["gen_tokens"])
+            if (r * t0 + t0 - 1 if p == 0 else r) in dec[p]}
+
+
+def port_moe_serve_reference(model, cfg, dev, want: dict, ref: dict = MOE_SERVE_REF) -> dict:
+    """``ref`` through the port on ``dev`` (a model with one MoE layer),
+    against ``want`` (JAX_MOE_SERVE: its tokens are fed back, its routing
+    imposed): the prefill step's rows and the teacher-forced decode loop's
+    steps on ``want``'s routing (``routed_as``), the free-running greedy
+    tokens, and on the port's own routing the MoE layer's records of the
+    prefill step, the decode loop and ``forward`` on the prompts
+    (``capture_routing``) with ``forward``'s expert counts and dropped
+    fraction (``moe_aux_summary``)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeEngine, build_prefill_step
+
+    _check(len(model.moe_blocks) == 1, "the moe serve reference runs one MoE layer")
+    t0, n = ref["prompt_len"], ref["gen_tokens"]
+    prompts = torch.as_tensor(
+        serve_prompts(cfg.vocab_size, ref["requests"], t0, ref["prompt_seed"]), device=dev)
+    fed = torch.as_tensor(want["tokens"], device=dev)
+    prefill = build_prefill_step(cfg)
+    with capture_routing(model) as pre:
+        prefill(model, prompts, t0 + n)
+    with routed_as([want["routing"]["prefill"]]):
+        logits, _ = prefill(model, prompts, t0 + n)
+    out = ServeEngine(cfg, model, max_len=t0 + n, device=dev).generate(prompts, n)
+    with capture_routing(model) as dec:
+        decode_logits(model, cfg, prompts, fed, t0 + n)
+    with routed_as(want["routing"]["decode"]):
+        steps = decode_logits(model, cfg, prompts, fed, t0 + n)
+    with capture_routing(model) as fwd, torch.inference_mode():
+        aux = T.forward(model, prompts).aux_losses
+    host = lambda t: t.cpu().numpy()
+    summary = serve_summary(host(logits), host(out), host(steps), want["tokens"], ref)
+    summary["routing"] = {"prefill": pre[0][0], "decode": dec[0], "forward": fwd[0][0]}
+    summary["aux"] = moe_aux_summary(aux, prompts.numel())
+    return summary
+
+
+def compare_moe_serve(got: dict, want: dict, cfg, ref: dict = MOE_SERVE_REF,
+                      tol: float = MOE_LOGIT_TOL, margin_tol: float = MOE_MARGIN_TOL):
+    """``got`` (``port_moe_serve_reference``) against ``want`` (the JAX
+    package's, ``JAX_MOE_SERVE``): the routing of the prefill step, of every
+    decode call and of ``forward`` (``compare_routing``), ``forward``'s
+    expert counts and dropped fraction (``compare_moe_aux``), and
+    ``compare_serve`` (every row and step, on JAX's routing; the greedy
+    tokens may part at a routing-exempt step).  Returns the failures and a
+    dict of what was exempted and measured."""
+    routing = {k: compare_routing([got["routing"][k]], [want["routing"][k]], cfg)
+               for k in ("prefill", "forward")}
+    routing["decode"] = compare_routing(got["routing"]["decode"], want["routing"]["decode"], cfg)
+    walk = moe_walk_exempt(routing["decode"], ref)
+    fr = routing["forward"]
+    bad = [b for r in routing.values() for b in r["bad"]]
+    n_pairs = ref["requests"] * ref["prompt_len"] * cfg.moe.experts_per_token
+    bad += compare_moe_aux(got["aux"], want["aux"], n_pairs, fr["touched"][0],
+                           fr["moved_pairs"][0])
+    sbad, skipped = compare_serve(got, want, tol, margin_tol, walk)
+    info = {"skipped": skipped, "walk_exempt": len(walk),
+            **{f"{c}_{k}": r[c] for k, r in routing.items()
+               for c in ("ties", "flipped", "cascaded", "max_dlogit", "max_flip_margin")}}
+    return bad + sbad, info
+
+
+def _mla_flash_bytes_ops(q, k, v, causal) -> tuple[int, int, int]:
+    """Bytes the flash forward must move at a value head dim other than the
+    query's (q, k, v in, o of v's width and the float32 lse out, once each),
+    the model's product operations on the visible pairs (2 Dqk for q k^T and
+    2 Dv for p v each), and those the kernel does with v zero-padded to
+    Dqk (2 Dqk for each product)."""
+    b, h, tq, dqk = q.shape
+    dv = v.shape[-1]
+    pairs = b * h * _visible_pairs(q, k, causal)
+    nbytes = q.element_size() * (q.numel() + k.numel() + v.numel() + b * h * tq * dv) \
+        + 4 * b * h * tq
+    return nbytes, (2 * dqk + 2 * dv) * pairs, 4 * dqk * pairs
+
+
+def phase_moe_kernels(dev) -> dict:
+    """17a: the kernels of the moe path at its shapes.  Flash at deepseek's
+    MLA prefill (q and k (4, 128, 512, 192), v (4, 128, 512, 128), bf16,
+    causal: v zero-padded to 192 in the wrapper) and at a ragged T = 300,
+    each against its plain version as phase 5 holds it; rmsnorm at
+    ``q_a_norm``'s 1536 and ``kv_a_norm``'s 512 and at the block norms'
+    5120 (v2) and 7168 (v3) over the prefill's 2048 rows.  Each timed
+    beside its plain version and the library call."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    cfg = moe_config(MOE_V2)
+    m = cfg.mla
+    gen = torch.Generator(device=dev).manual_seed(17)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    bf16 = torch.bfloat16
+    bsz, tl = MOE_V2["prefill"]
+    dqk, dv = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+    scale = dqk ** -0.5
+    out = {"err": 0.0}
+    for name, t in (("mla", tl), ("mla ragged", 300)):
+        q, k = (randn(bsz, cfg.n_heads, t, dqk).to(bf16) for _ in range(2))
+        v = randn(bsz, cfg.n_heads, t, dv).to(bf16)
+        o, lse = _fa_kernel(q, k, v, True)  # its default scale is 1/sqrt(192)
+        o_p, lse_p = ref.attention(q, k, v, causal=True, scale=scale, with_lse=True)
+        o_w, lse_w = ref.attention(q.float(), k.float(), v.float(), causal=True, scale=scale,
+                                   with_lse=True)
+        torch.cuda.synchronize()
+        err_o, err_l = _max_err(o, o_p), _max_err(lse, lse_p)
+        dev_o = (o.double() - o_w.double()).abs()
+        # Held as phase 5 holds head dims above 256: to the float32 plain
+        # version on the same inputs, within one bf16 ulp of each element of
+        # o (the kernel's only rounding is its output's) and 1e-5 on lse.
+        # The bf16 plain version rounds the logits and the probabilities to
+        # bf16 where the kernel keeps them in float32, so against it the two
+        # roundings may land an ulp apart where |o| >= 2 (an H100 read
+        # 2.344e-2 at T = 300, the kernel within 7.8e-3 of float32): its
+        # difference is printed, not held to phase 5's 2e-2.
+        ok = (tuple(o.shape) == (bsz, cfg.n_heads, t, dv)
+              and bool((dev_o <= 2.0**-7 * o_w.double().abs() + 1e-6).all())
+              and _max_err(lse, lse_w) <= 1e-5)
+        print(f"flash fwd   {name:11s} q, k {tuple(q.shape)} v {tuple(v.shape)} bf16: "
+              f"max|kernel - plain| o {err_o:.3e} lse {err_l:.3e}; vs float32 plain o "
+              f"{float(dev_o.max()):.3e} lse {_max_err(lse, lse_w):.3e}")
+        _check(ok, f"flash forward {name} vs plain")
+        out["err"] = max(out["err"], err_o, err_l)
+        if name == "mla":
+            ms = _median_ms(lambda: _fa_kernel(q, k, v, True))
+            plain = _median_ms(lambda: ref.attention(q, k, v, causal=True, scale=scale,
+                                                     with_lse=True))
+            # The library's causal mask is aligned to the top left: Tq == Tk here.
+            lib = _median_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=scale))
+            nbytes, nops, nops_pad = _mla_flash_bytes_ops(q, k, v, True)
+            t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, nops / BF16_FLOP_PER_S * 1e3
+            out.update(mla_shape=[list(q.shape), list(v.shape)], mla_ms=ms, mla_plain_ms=plain,
+                       mla_library_ms=lib, mla_bound_ms=max(t_b, t_o),
+                       mla_bound_by="bytes" if t_b >= t_o else "operations",
+                       mla_bound_padded_ms=max(t_b, nops_pad / BF16_FLOP_PER_S * 1e3))
+            print(f"flash fwd   mla bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                  f"F.scaled_dot_product_attention {lib:.4f} ms; bound {out['mla_bound_ms']:.4f} "
+                  f"ms ({out['mla_bound_by']}: {nops / 1e9:.2f} GFLOP of the model's), "
+                  f"{out['mla_bound_padded_ms']:.4f} ms for the padded value work "
+                  f"({nops_pad / 1e9:.2f} GFLOP)")
+    rows = bsz * tl
+    widths = {}
+    for d in (m.q_lora_rank, m.kv_lora_rank, cfg.d_model, moe_config(MOE_V3).d_model):
+        x, w = randn(rows, d).to(bf16), (1.0 + 0.1 * randn(d)).to(bf16)
+        got = ops.rmsnorm(x, w, cfg.norm_eps, force="cuda").double()
+        want = ops.rmsnorm(x, w, cfg.norm_eps, force="ref").double()
+        err = float((got - want).abs().max())
+        # As phase 5: one bf16 ulp (2^-7 of the value).
+        _check(bool(((got - want).abs() <= 2.0**-7 * want.abs() + 1e-6).all()),
+               f"rmsnorm ({rows}, {d}) vs plain")
+        ms = _median_ms(lambda: ops.rmsnorm(x, w, cfg.norm_eps, force="cuda"))
+        plain = _median_ms(lambda: ops.rmsnorm(x, w, cfg.norm_eps, force="ref"))
+        lib = _median_ms(lambda: F.rms_norm(x, (d,), w, cfg.norm_eps))
+        bound = x.element_size() * (2 * x.numel() + d) / HBM_BYTES_PER_S * 1e3
+        widths[d] = {"shape": [rows, d], "ms": ms, "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": bound, "max_abs_err": err}
+        print(f"rmsnorm     ({rows}, {d}) bf16: max|kernel - plain| {err:.3e}; kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, F.rms_norm {lib:.4f} ms, bound {bound:.4f} ms (bytes)")
+    out["rmsnorm_widths"] = widths
+    return out
+
+
+def _routing_line(what: str, r: dict) -> str:
+    return (f"{what}: {r['ties']} tokens within the tie margin ({ROUTE_TIE_LOGIT:g} in logit "
+            f"units), {r['flipped']} picked other experts there (at margins up to "
+            f"{r['max_flip_margin']:.3e}), {r['cascaded']} kept other pairs after them; max|k-th "
+            f"selection score difference| {r['max_dlogit']:.3e} in logit units")
+
+
+def _moe_model(spec: dict, dev):
+    """The model of ``spec`` on the card: v2 from ``random_lm_leaves`` (one
+    leaf on the host at a time), v3 drawn on the card."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.models import transformer as T
+
+    cfg = moe_config(spec)
+    t0 = time.perf_counter()
+    if spec is MOE_V2:
+        model = convert.lm_params_from_leaves(convert.random_lm_leaves(cfg, spec["seed"]), cfg,
+                                              device=dev)
+        how = "drawn on the host leaf by leaf and moved to the card"
+    else:
+        model = T.init(cfg, device=dev, generator=torch.Generator(dev).manual_seed(spec["seed"]))
+        how = "drawn on the card"
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    gib = sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30
+    print(f"moe serve: {cfg.name} {n_params} parameters ({gib:.1f} GiB, {cfg.n_layers} layers: "
+          f"{cfg.moe.first_dense_layers} dense + {cfg.n_layers - cfg.moe.first_dense_layers} MoE"
+          f"{', MTP' if cfg.mtp_depth else ''}) {how} in {time.perf_counter() - t0:.1f} s")
+    return cfg, model
+
+
+def _kernels_vs_plain(model, cfg, run, label: str) -> tuple[object, float, dict]:
+    """``run()`` (returning a logits tensor) on the kernels with its routing
+    captured, on the plain versions (``ops.forced("ref")``) on its own
+    routing and then on the kernel run's: returns the kernel run's logits,
+    max|kernels - plain| on the same routing, and ``compare_routing`` of
+    the two runs' own routings (which must pass)."""
+    from repro_torch.kernels import ops
+
+    with capture_routing(model) as rk:
+        got = run()
+    with capture_routing(model) as rp, ops.forced("ref"):
+        run()
+    with routed_as(rk[0]), ops.forced("ref"):
+        want = run()
+    routing = compare_routing(rk[0], rp[0], cfg)
+    _check(not routing["bad"], f"{label} routing, kernels vs plain: " + "; ".join(routing["bad"][:10]))
+    return got, _max_err(got, want), routing
+
+
+def phase_moe_serve(dev, spec: dict, profile_dir: Path | None = None) -> dict:
+    """17b / 17c: ``spec`` (MOE_V2 or MOE_V3) at full width.  (a) v2 only:
+    MOE_SERVE_REF against JAX_MOE_SERVE (``compare_moe_serve``).  (b) The
+    prefill step on 4 x 512 tokens: launches, wall, peak memory, and every
+    logit against the same step on the plain versions on the kernel run's
+    routing; the two runs' own routings under ``compare_routing``.  (c)
+    Greedy generation 4 x (64 + 32): launches, tokens/s, its tokens the
+    argmax of its logits, and the decode loop's logits on the kernels
+    against the plain versions the same way.  (d) v3: ``forward``'s
+    ``mtp_logits`` on the kernels against the plain versions the same
+    way."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeEngine, build_prefill_step
+
+    t_phase = time.perf_counter()
+    cfg, model = _moe_model(spec, dev)
+    nl = cfg.n_layers
+    label = "v2" if spec is MOE_V2 else "v3"
+    per_call = {"rmsnorm": 4 * nl + 1, "flash_attention_fwd": nl}
+    out = {}
+
+    if spec is MOE_V2:
+        got = port_moe_serve_reference(model, cfg, dev, JAX_MOE_SERVE)
+        bad, info = compare_moe_serve(got, JAX_MOE_SERVE, cfg)
+        print(f"moe {label} vs JAX (on JAX's routing): prefill rows and teacher-forced steps "
+              f"max|diff| {serve_max_diff(got, JAX_MOE_SERVE):.4f} (tolerance {MOE_LOGIT_TOL}); "
+              f"row argmax {[g['argmax'] for g in got['rows']]} vs "
+              f"{[w['argmax'] for w in JAX_MOE_SERVE['rows']]}; tokens {got['tokens']} vs "
+              f"{JAX_MOE_SERVE['tokens']}; {info['skipped']} tokens past a top-2 margin <= "
+              f"{MOE_MARGIN_TOL} or a routing-exempt step ({info['walk_exempt']} such steps) not "
+              f"compared")
+        for what in ("prefill", "decode", "forward"):
+            print(f"moe {label} vs JAX routing, " + _routing_line(what, {
+                c: info[f"{c}_{what}"] for c in ("ties", "flipped", "cascaded", "max_dlogit",
+                                                 "max_flip_margin")}))
+        same = sum(a == b for a, b in zip(got["aux"]["expert_counts"],
+                                          JAX_MOE_SERVE["aux"]["expert_counts"]))
+        print(f"moe {label} vs JAX forward: dropped_fraction {got['aux']['dropped_fraction']!r} vs "
+              f"{JAX_MOE_SERVE['aux']['dropped_fraction']!r}; expert counts equal at "
+              f"{same}/{cfg.moe.n_experts} experts (the others moved by routing flips)")
+        _check(not bad, f"moe {label} serving differs from the JAX package: " + "; ".join(bad[:10]))
+        out["jax"] = info
+
+    # (b) Prefill: 4 prompts x 512 tokens through the prefill step.
+    b, tl = spec["prefill"]
+    prompts = torch.as_tensor(serve_prompts(cfg.vocab_size, b, tl, spec["prompt_seed"]),
+                              device=dev)
+    step = build_prefill_step(cfg)
+    step(model, prompts, tl)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    t = time.perf_counter()
+    logits, state = step(model, prompts, tl)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    prefill_counts = _counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    _check(prefill_counts == per_call, f"moe {label} prefill launches {prefill_counts}")
+    _check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (b, tl, cfg.padded_vocab)
+           and state["moe"].length == tl and state["dense"].length == tl,
+           f"moe {label} prefill logits/state")
+    del logits, state
+    logits, err, routing = _kernels_vs_plain(model, cfg, lambda: step(model, prompts, tl)[0],
+                                             f"moe {label} prefill")
+    print(f"moe {label} prefill {b} x {tl}: {prefill_s:.4f} s wall, {b * tl / prefill_s:.0f} "
+          f"tokens/s, peak {peak:.2f} GiB allocated, launches {prefill_counts}; logits "
+          f"max|kernels - plain| {err:.4f} on the kernel run's routing (max|logit| "
+          f"{float(logits.abs().max()):.3f})")
+    print(f"moe {label} prefill routing, kernels vs plain, " + _routing_line("prefill", routing))
+    _check(err <= MOE_PREFILL_TOL, f"moe {label} prefill logits, kernels vs plain versions")
+    del logits
+
+    # (d) v3's MTP head through forward, kernels against plain versions.
+    if cfg.mtp_depth:
+        _reset_counts()
+        with torch.inference_mode():
+            fo = T.forward(model, prompts)
+        fwd_counts = _counts()
+        _check(fwd_counts == {"rmsnorm": per_call["rmsnorm"] + 5, "flash_attention_fwd": nl + 1},
+               f"moe {label} forward launches {fwd_counts}")
+        _check(bool(torch.isfinite(fo.mtp_logits).all())
+               and tuple(fo.mtp_logits.shape) == (b, tl, cfg.padded_vocab), "mtp_logits")
+        del fo
+
+        def mtp():
+            with torch.inference_mode():
+                return T.forward(model, prompts).mtp_logits
+
+        _, mtp_err, fr = _kernels_vs_plain(model, cfg, mtp, f"moe {label} forward")
+        print(f"moe {label} forward {b} x {tl}: launches {fwd_counts}; mtp_logits max|kernels - "
+              f"plain| {mtp_err:.4f} on the kernel run's routing; " + _routing_line("routing", fr))
+        _check(mtp_err <= MOE_PREFILL_TOL, f"moe {label} mtp_logits, kernels vs plain versions")
+    torch.cuda.empty_cache()
+
+    # (c) Generation: 4 requests, 64-token prompts, 32 greedy tokens.
+    b, t0p = spec["gen"]
+    n = spec["gen_tokens"]
+    gprompts = torch.as_tensor(serve_prompts(cfg.vocab_size, b, t0p, spec["prompt_seed"] + 1),
+                               device=dev)
+    eng = ServeEngine(cfg, model, max_len=t0p + n, device=dev)
+    eng.generate(gprompts, 2)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t = time.perf_counter()
+    gen = eng.generate(gprompts, n)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    gen_counts = _counts()
+    fed = gen[:, t0p:]
+    gl, gen_err, dr = _kernels_vs_plain(
+        model, cfg, lambda: decode_logits(model, cfg, gprompts, fed, t0p + n),
+        f"moe {label} generation")
+    own = torch.equal(gl.argmax(-1), fed)
+    print(f"moe {label} generate {b} x ({t0p} + {n}): {gen_s:.4f} s wall, {b * n / gen_s:.1f} "
+          f"tokens/s, launches {gen_counts}; greedy tokens == the argmax of their logits: {own}; "
+          f"logits max|kernels - plain| {gen_err:.4f} on the kernel run's routing; "
+          + _routing_line("routing", dr))
+    _check(gen_counts == {"rmsnorm": per_call["rmsnorm"] * n, "flash_attention_fwd": 0},
+           f"moe {label} generation launches {gen_counts}")
+    _check(own, f"moe {label} greedy tokens differ from their logits' argmax")
+    _check(gen_err <= MOE_PREFILL_TOL, f"moe {label} generation logits, kernels vs plain")
+    if profile_dir is not None:
+        profile_run(f"moe_{label}_prefill", lambda: _timed(lambda: step(model, prompts, tl)),
+                    profile_dir)
+        profile_run(f"moe_{label}_generate", lambda: _timed(lambda: eng.generate(gprompts, n)),
+                    profile_dir)
+    del model, eng, gl
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"moe {label}: phase {wall:.1f} s")
+    return {**out, "prefill": prefill_counts, "generate": gen_counts, "prefill_s": prefill_s,
+            "prefill_tokens_per_s": b * tl / prefill_s, "generate_s": gen_s,
+            "tokens_per_s": b * n / gen_s, "peak_gib": peak, "phase_s": wall,
+            "routing_flips": {"prefill": routing["flipped"], "generate": dr["flipped"]}}
+
+
 # The kernel-level entry (phase 11): benchmarks/kernel_benches.py's shapes
 # (60 s x 128 racks at 1 kHz, the prototype-rack filter sized for beta =
 # 0.0625, zero corrective; 12 % of racks degraded with a 4 s wind-down ramp
@@ -5409,8 +6647,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", type=Path, default=None,
                     help="also profile one campus run, prefill step, generation, training "
-                         "step, rwkv6-7b prefill and generation, a degraded campus run and "
-                         "phase 14's runs; write the tables and traces here")
+                         "step, rwkv6-7b prefill and generation, a degraded campus run, "
+                         "phase 14's runs and the moe prefills and generations; write the "
+                         "tables and traces here")
     opts = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -5556,6 +6795,20 @@ def main() -> int:
             pdu_health.MASK_EVENTS])
     kernels["admm_step"]["launches_region_capture"] = region["capture"]["admm_step"]
     kernels["flash_attention_fwd"]["launches_stablelm_prefill"] = stablelm["flash_attention_fwd"]
+    t17 = time.perf_counter()
+    moe_kernels = phase_moe_kernels(dev)
+    moe = {label: phase_moe_serve(dev, spec, opts.profile)
+           for label, spec in (("v2", MOE_V2), ("v3", MOE_V3))}
+    print(f"phase 17 (moe): {time.perf_counter() - t17:.1f} s")
+    fa, rn = kernels["flash_attention_fwd"], kernels["rmsnorm"]
+    fa.update({k: v for k, v in moe_kernels.items() if k.startswith("mla_")},
+              mla_max_abs_err=moe_kernels["err"])
+    rn["widths"] = moe_kernels["rmsnorm_widths"]
+    for label, r in moe.items():
+        for name, e in (("flash_attention_fwd", fa), ("rmsnorm", rn)):
+            pre, gen = r["prefill"][name], r["generate"][name]
+            e.update({"launches": e["launches"] + pre + gen, f"launches_moe_{label}_prefill": pre,
+                      f"launches_moe_{label}_generate": gen})
     print(json.dumps({"serve": {k: serve[k] for k in ("prefill_s", "generate_s", "tokens_per_s")},
                       "train": {k: trained[k] for k in ("step_s", "tokens_per_s", "train_mfu",
                                                          "peak_gb")},
@@ -5610,7 +6863,10 @@ def main() -> int:
                       "service": {
                           "region_cold_window_s": region_service["cold_window_s"],
                           "region_warm_window_s": region_service["warm_window_s"],
-                          "campus_warm_window_s": campus_service["warm_window_s"]}}))
+                          "campus_warm_window_s": campus_service["warm_window_s"]},
+                      "moe_serve": {label: {k: r[k] for k in (
+                          "prefill_s", "prefill_tokens_per_s", "generate_s", "tokens_per_s",
+                          "peak_gib", "phase_s", "routing_flips")} for label, r in moe.items()}}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -151,22 +151,50 @@ def _unflatten(flat: dict) -> dict:
     return tree
 
 
+# The module lists whose per-layer leaves the reference stacks on a leading
+# layer axis (its scan layout): ``blocks`` (dense, vlm, ssm), and for moe
+# ``dense_blocks`` and ``moe_blocks``.
+STACKS = ("blocks", "dense_blocks", "moe_blocks")
+
+
+def _stack_sizes(model: T.Transformer) -> dict:
+    return {st: len(getattr(model, st)) for st in STACKS if hasattr(model, st)}
+
+
 def lm_tree_shapes(cfg) -> dict:
     """``{dotted path: (shape, dtype)}`` of the JAX package's parameter tree
     for ``cfg`` (``repro.models.transformer.init``): the port's own module
-    tree, with the per-layer ``blocks.{i}.*`` leaves stacked on a leading
-    ``n_layers`` axis (the reference's scan layout)."""
+    tree, with the per-layer ``{stack}.{i}.*`` leaves of each of
+    ``STACKS`` stacked on a leading axis of the stack's length."""
     model = T.Transformer(cfg, device="meta")
+    sizes = _stack_sizes(model)
     out = {}
     for name, p in model.named_parameters():
-        if name.startswith("blocks."):
-            _, i, rest = name.split(".", 2)
-            if i != "0":
-                continue
-            out["blocks." + rest] = ((cfg.n_layers, *p.shape), p.dtype)
+        head, _, tail = name.partition(".")
+        if head in sizes:
+            i, rest = tail.split(".", 1)
+            if i == "0":
+                out[f"{head}.{rest}"] = ((sizes[head], *p.shape), p.dtype)
         else:
             out[name] = (tuple(p.shape), p.dtype)
     return out
+
+
+def random_lm_leaves(cfg, seed: int):
+    """``(path, leaf)`` pairs of ``random_lm_tree(cfg, seed)``, drawn one at
+    a time in the same order and with the same values, so that a caller can
+    move each leaf on and drop it before the next is drawn."""
+    rng = np.random.default_rng(seed)
+    for path, (shape, _) in sorted(lm_tree_shapes(cfg).items()):
+        kind, val = L.leaf_rule(path, shape)
+        if kind == "constant":
+            a = np.full(shape, val, np.float32)
+        else:
+            a = rng.standard_normal(shape, dtype=np.float32)
+            np.clip(a, -2.0, 2.0, out=a)
+            a *= np.float32(val)
+        yield path, a
+        del a  # the caller holds the only reference while the next leaf is drawn
 
 
 def random_lm_tree(cfg, seed: int) -> dict:
@@ -178,63 +206,69 @@ def random_lm_tree(cfg, seed: int) -> dict:
     a constant; the draws are numpy's).  Leaves are float32: numpy has no
     bfloat16, so a bf16 config is cast on the device by
     ``lm_params_from_numpy`` (leaves that are float32 in the model, such as
-    RWKV-6's ``decay_base`` and ``u_bonus``, stay float32)."""
-    rng = np.random.default_rng(seed)
-    flat = {}
-    for path, (shape, _) in sorted(lm_tree_shapes(cfg).items()):
-        kind, val = L.leaf_rule(path, shape)
-        if kind == "constant":
-            a = np.full(shape, val, np.float32)
-        else:
-            a = rng.standard_normal(shape, dtype=np.float32)
-            np.clip(a, -2.0, 2.0, out=a)
-            a *= np.float32(val)
-        flat[path] = a
-    return _unflatten(flat)
+    RWKV-6's ``decay_base`` and ``u_bonus`` or the MoE router, stay
+    float32)."""
+    return _unflatten(dict(random_lm_leaves(cfg, seed)))
 
 
 @torch.no_grad()
-def lm_params_from_numpy(tree: dict, cfg, *, device="cuda") -> T.Transformer:
-    """A ``Transformer`` holding the JAX package's parameter tree ``tree``
-    (nested dicts of numpy arrays, blocks stacked on axis 0).  Each leaf is
-    moved to the device as it is and cast there to the config's dtype.
-    Raises unless the tree's leaves and shapes match the model's exactly."""
+def lm_params_from_leaves(leaves, cfg, *, device="cuda") -> T.Transformer:
+    """A ``Transformer`` holding the parameter leaves ``leaves``, an
+    iterable of ``(dotted path, numpy array)`` in the JAX package's layout
+    (stacked layers on axis 0), consumed one at a time: each leaf is moved
+    to the device as it is and cast there to the parameter's type.  Raises
+    unless the leaves and their shapes match the model's exactly."""
     model = T.Transformer(cfg, device=device)
     dev = model.embed.embedding.device
     params = dict(model.named_parameters())
+    sizes = _stack_sizes(model)
+    want = lm_tree_shapes(cfg)
+    seen = set()
+    for path, arr in leaves:
+        if path not in want:
+            raise ValueError(f"parameter tree differs from the model: unexpected {path!r}")
+        shape = want[path][0]
+        if tuple(np.shape(arr)) != shape:
+            raise ValueError(f"{path}: shape {np.shape(arr)}, the model's is {shape}")
+        t = torch.as_tensor(np.asarray(arr), device=dev)
+        head, _, rest = path.partition(".")
+        if head in sizes:
+            for i in range(sizes[head]):
+                params[f"{head}.{i}.{rest}"].copy_(t[i])
+        else:
+            params[path].copy_(t)
+        seen.add(path)
+        del t, arr
+    if seen != set(want):
+        raise ValueError(f"parameter tree differs from the model: missing {sorted(set(want) - seen)}")
+    return model
+
+
+def lm_params_from_numpy(tree: dict, cfg, *, device="cuda") -> T.Transformer:
+    """A ``Transformer`` holding the JAX package's parameter tree ``tree``
+    (nested dicts of numpy arrays, stacked layers on axis 0): see
+    ``lm_params_from_leaves``."""
+    device = resolve_device(device)
     flat = _flatten(tree)
     want = lm_tree_shapes(cfg)
     if set(flat) != set(want):
         raise ValueError(f"parameter tree differs from the model: missing "
                          f"{sorted(set(want) - set(flat))}, unexpected {sorted(set(flat) - set(want))}")
-    for path, arr in flat.items():
-        shape = want[path][0]
-        if tuple(np.shape(arr)) != shape:
-            raise ValueError(f"{path}: shape {np.shape(arr)}, the model's is {shape}")
-        t = torch.as_tensor(np.asarray(arr), device=dev)
-        if path.startswith("blocks."):
-            rest = path[len("blocks."):]
-            for i in range(cfg.n_layers):
-                params[f"blocks.{i}.{rest}"].copy_(t[i])
-        else:
-            params[path].copy_(t)
-    return model
+    return lm_params_from_leaves(flat.items(), cfg, device=device)
 
 
 @torch.no_grad()
 def lm_tree_to_numpy(named: dict, cfg) -> dict:
     """The JAX package's parameter-tree layout (nested dicts of float32
-    numpy arrays, blocks stacked on axis 0) of a dict keyed by the port's
+    numpy arrays, stacked layers on axis 0) of a dict keyed by the port's
     parameter names: the parameters themselves, their gradients or an
     optimizer moment.  bf16 leaves are widened to float32 (exactly; numpy
     has no bfloat16)."""
     flat = {}
-    want = lm_tree_shapes(cfg)
-    for path in want:
-        if path.startswith("blocks."):
-            rest = path[len("blocks."):]
-            leaves = [named[f"blocks.{i}.{rest}"] for i in range(cfg.n_layers)]
-            t = torch.stack([x.detach() for x in leaves])
+    for path, (shape, _) in lm_tree_shapes(cfg).items():
+        head, _, rest = path.partition(".")
+        if head in STACKS:
+            t = torch.stack([named[f"{head}.{i}.{rest}"].detach() for i in range(shape[0])])
         else:
             t = named[path].detach()
         flat[path] = t.to(torch.float32).cpu().numpy()

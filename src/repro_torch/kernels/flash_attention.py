@@ -26,7 +26,13 @@ launches follow) in ``.route_launches``.
 
 Any head dim runs: above 256 the kernels split the head dim into column
 chunks (``column_chunks``) on a grid axis, each block computing the scores
-over the full head dim and writing only its chunk of the output.
+over the full head dim and writing only its chunk of the output.  The
+kernels take one head dim for q, k and v; a value head dim other than the
+query's (DeepSeek MLA: q and k 192, v 128) is zero-padded to the wider of
+the two and the output cut back (``flash_attention_fwd`` and
+``FlashAttention``): zero value columns add zero output columns, and the
+backward's ``dv`` is cut the same way.  At 192/128 this costs 1.5x the P V
+work.
 """
 from __future__ import annotations
 
@@ -93,41 +99,57 @@ def _rows_aligned(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
 
 
+def pad_value(v: torch.Tensor, d: int) -> torch.Tensor:
+    """``v (B, Hkv, Tk, Dv)`` zero-padded to head dim ``d >= Dv`` (``v``
+    itself when ``Dv == d``): the kernels' operand for a value head dim
+    narrower than the query's."""
+    return v if v.shape[-1] == d else F.pad(v, (0, d - v.shape[-1]))
+
+
 def flash_attention_fwd(
     q: torch.Tensor,  # (B, H, Tq, D)
     k: torch.Tensor,  # (B, Hkv, Tk, D)
-    v: torch.Tensor,  # (B, Hkv, Tk, D)
+    v: torch.Tensor,  # (B, Hkv, Tk, Dv)
     *,
     causal: bool = True,
     scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel on CUDA tensors; returns ``(o, lse)`` like
-    ``ref.attention(..., with_lse=True)``.  Any strides are taken as long
+    ``ref.attention(..., with_lse=True)``, ``o`` of head dim ``Dv``.  Any
+    strides are taken as long
     as the last axis is contiguous (bf16 rows not on 16-byte boundaries
     are copied first); ``o`` is laid out ``(B, Tq, H, D)`` in
     memory (returned as its ``(B, H, Tq, D)`` view), so merging the heads
     afterwards is free.  Any head dim runs: one between the instantiated
     widths (say 30) is zero-padded to the next one, one above 256 to whole
-    column chunks (``kernel_head_dim``).  Causal attention needs ``Tq <=
-    Tk``."""
+    column chunks (``kernel_head_dim``).  A value head dim ``Dv < D`` is
+    zero-padded to ``D`` and the output cut back to ``Dv`` (a view of the
+    padded output).  Causal attention needs ``Tq <= Tk``."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError("flash_attention kernel needs CUDA tensors")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention kernel takes float32 or bfloat16 q, k, v of one "
                          f"type, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape or k.device != dev or v.device != dev:
-        raise ValueError("flash_attention: q (B, H, Tq, D), k and v (B, Hkv, Tk, D) on one device")
+    if (q.ndim != 4 or k.ndim != 4 or v.ndim != 4 or k.shape[:3] != v.shape[:3]
+            or k.device != dev or v.device != dev):
+        raise ValueError("flash_attention: q (B, H, Tq, D), k (B, Hkv, Tk, D) and v (B, Hkv, Tk, "
+                         "Dv) on one device")
     b, h, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
-    if k.shape[0] != b or k.shape[3] != d or h % hkv:
-        raise ValueError(f"flash_attention: incompatible q {tuple(q.shape)} and k {tuple(k.shape)}")
+    if k.shape[0] != b or k.shape[3] != d or h % hkv or v.shape[3] > d:
+        raise ValueError(f"flash_attention: incompatible q {tuple(q.shape)}, k {tuple(k.shape)} "
+                         f"and v {tuple(v.shape)} (the value head dim at most the query's)")
     dk = kernel_head_dim(d)
     if causal and tq > tk:
         raise ValueError(f"flash_attention: causal attention needs Tq <= Tk, got {tq} > {tk}")
     _check_grid(b, h, tq, tk)
     if scale is None:
         scale = 1.0 / (d**0.5)
+    if v.shape[3] != d:
+        # Zero value columns add zero output columns, which are cut off.
+        o, lse = flash_attention_fwd(q, k, pad_value(v, d), causal=causal, scale=scale)
+        return o[..., :v.shape[3]], lse
     if dk != d:
         # Zero columns add nothing to q k^T, and the output's are cut off.
         o, lse = flash_attention_fwd(*(F.pad(t, (0, dk - d)) for t in (q, k, v)),
@@ -294,17 +316,24 @@ def flash_attention_bwd(
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention on the card: the forward kernel saves
     ``q, k, v, o, lse``; the backward launches the dK/dV and dQ kernels
-    (``repro.kernels.flash_attention._flash_core`` with ``defvjp``)."""
+    (``repro.kernels.flash_attention._flash_core`` with ``defvjp``).  A
+    value head dim narrower than the query's runs zero-padded (``v`` and
+    the cotangent), and its ``dv`` is cut back."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float | None):
+        dv = v.shape[-1]
+        if scale is None:
+            scale = 1.0 / (q.shape[-1] ** 0.5)
+        v = pad_value(v, q.shape[-1])
         o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return o
+        ctx.causal, ctx.scale, ctx.dv = causal, scale, dv
+        return o if dv == o.shape[-1] else o[..., :dv]
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, pad_value(do, q.shape[-1]),
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv[..., :ctx.dv], None, None

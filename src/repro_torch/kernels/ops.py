@@ -144,11 +144,14 @@ def rmsnorm(x, weight, eps: float = 1e-6, *, force=None):
 
 
 def attention(q, k, v, *, causal=True, scale=None, force=None):
-    """Softmax attention with GQA, ``q (B, H, Tq, D)``, ``k, v (B, Hkv, Tk,
-    D)`` (see ``ref.attention``).  On the card the flash-attention forward
-    kernel serves every shape (it masks ragged tails itself), so the
-    reference's dense fallback for sequences its tiles do not divide is
-    not carried over.  Differentiable: on the card the backward launches
+    """Softmax attention with GQA, ``q (B, H, Tq, D)``, ``k (B, Hkv, Tk,
+    D)``, ``v (B, Hkv, Tk, Dv)`` (see ``ref.attention``).  On the card the
+    flash-attention forward kernel serves every shape (it masks ragged
+    tails itself), so the reference's dense fallback for sequences its
+    tiles do not divide is not carried over; a value head dim ``Dv < D``
+    (DeepSeek MLA's 128 beside 192) runs the kernel on ``v`` zero-padded to
+    ``D``, the output cut back (the reference's Pallas route cannot take
+    it: ROADMAP.md).  Differentiable: on the card the backward launches
     the dK/dV and dQ kernels (``flash_attention.FlashAttention``)."""
     if not _use_kernel(q, force):
         return _ref.attention(q, k, v, causal=causal, scale=scale)

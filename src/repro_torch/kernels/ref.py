@@ -499,7 +499,7 @@ NEG_INF = -1e30  # the reference's mask value (not -inf: masked rows stay finite
 def attention(
     q: torch.Tensor,  # (B, H, Tq, D)
     k: torch.Tensor,  # (B, Hkv, Tk, D)
-    v: torch.Tensor,  # (B, Hkv, Tk, D)
+    v: torch.Tensor,  # (B, Hkv, Tk, Dv): any value head dim
     *,
     causal: bool = True,
     scale: float | None = None,

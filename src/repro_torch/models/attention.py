@@ -1,19 +1,26 @@
-"""Grouped-query attention (counterpart of ``repro.models.attention``'s GQA
-half): bias, partial RoPE and qk-norm, with the serve substrate's
-interface
+"""Attention variants (counterpart of ``repro.models.attention``):
+grouped-query attention with bias, partial RoPE and qk-norm, and DeepSeek
+multi-head latent attention (MLA), with the serve substrate's interface
 
-  * ``gqa_fwd(p, cfg, x, positions, cache=None)`` — training / prefill
+  * ``*_fwd(p, cfg, x, positions, cache=None)`` — training / prefill
     through ``ops.attention`` (the flash-attention kernel on the card);
     returns the fresh cache;
-  * ``gqa_fwd(..., cache=KVCache)`` — token decode against a preallocated
-    cache ``(B, S, Hkv, Dh)`` through ``_grouped_softmax_attention``.
+  * ``*_fwd(..., cache=KVCache)`` — token decode against a preallocated
+    cache.
+
+KV caches: GQA ``(B, S, Hkv, Dh)`` keys and values; MLA the compressed
+``c_kv (B, S, kv_lora_rank)`` in the ``k`` slot and the shared RoPE key
+``(B, S, qk_rope_head_dim)`` in the ``v`` slot.  MLA's prefill expands
+keys and values per head (query/key head dim ``qk_nope + qk_rope``, value
+head dim ``v_head_dim``; the flash kernel takes the narrower value zero-
+padded); its decode is the absorbed form (``wk_b`` folded into the query,
+``wv_b`` into the output) over the compressed cache.
 
 The port writes new keys and values into the cache in place (the JAX
 package returns updated arrays); the returned ``KVCache`` holds the same
 tensors with the new length.  Within ``max_len`` both give the same
 result; a write past the end, which ``jax.lax.dynamic_update_slice``
-clamps to the last slots, raises here.  DeepSeek MLA is not ported yet
-(ROADMAP.md queue 1 item 7, the ``moe`` family) and raises.
+clamps to the last slots, raises here.
 """
 from __future__ import annotations
 
@@ -78,10 +85,6 @@ class GQAAttention(nn.Module):
 
     def __init__(self, cfg, *, dtype, device):
         super().__init__()
-        if cfg.attention != "gqa":
-            raise NotImplementedError(
-                f"{cfg.attention!r} attention is not ported yet (ROADMAP.md queue 1 item 7)"
-            )
         self.cfg = cfg
         d, hd = cfg.d_model, cfg.resolved_head_dim
         kw = dict(dtype=dtype, device=device)
@@ -144,17 +147,126 @@ def init_gqa_cache(cfg, batch: int, max_len: int, *, dtype, device) -> KVCache:
                    v=torch.zeros(shape, dtype=dtype, device=device), length=0)
 
 
+# ================================================================== MLA ====
+
+
+class MLAAttention(nn.Module):
+    """``init_mla``: ``wq_a``, ``q_a_norm`` and ``wq_b`` with
+    ``q_lora_rank`` (else ``wq``), the joint KV compression ``wkv_a`` (to
+    ``kv_lora_rank + qk_rope_head_dim``), ``kv_a_norm``, the per-head
+    up-projections ``wk_b``, ``wv_b``, and ``wo``.  Both norms are RMSNorms
+    whatever ``cfg.norm``."""
+
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+        qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+        kw = dict(dtype=dtype, device=device)
+        if m.q_lora_rank:
+            self.wq_a = L.Linear(d, m.q_lora_rank, **kw)
+            self.q_a_norm = L.RMSNorm(m.q_lora_rank, cfg.norm_eps, **kw)
+            self.wq_b = L.Linear(m.q_lora_rank, h * qk_dim, **kw)
+        else:
+            self.wq = L.Linear(d, h * qk_dim, **kw)
+        self.wkv_a = L.Linear(d, m.kv_lora_rank + m.qk_rope_head_dim, **kw)
+        self.kv_a_norm = L.RMSNorm(m.kv_lora_rank, cfg.norm_eps, **kw)
+        self.wk_b = L.Linear(m.kv_lora_rank, h * m.qk_nope_head_dim, **kw)
+        self.wv_b = L.Linear(m.kv_lora_rank, h * m.v_head_dim, **kw)
+        self.wo = L.Linear(h * m.v_head_dim, d, **kw)
+
+    def forward(self, x, positions, cache=None, *, causal=True):
+        return mla_fwd(self, self.cfg, x, positions, cache)
+
+
+def _mla_q(p: MLAAttention, cfg, x, positions):
+    """``(q_nope, q_rope, (sin, cos))``: the queries split at
+    ``qk_nope_head_dim``, RoPE on the rope half only."""
+    m = cfg.mla
+    b, t, _ = x.shape
+    if m.q_lora_rank:
+        q = p.wq_b(p.q_a_norm(p.wq_a(x)))
+    else:
+        q = p.wq(x)
+    q = q.reshape(b, t, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    sin, cos = L.rope_frequencies(m.qk_rope_head_dim, cfg.rope_theta, positions)
+    return q_nope, L.apply_rope(q_rope, sin, cos, 1.0), (sin, cos)
+
+
+def mla_fwd(
+    p: MLAAttention,
+    cfg,
+    x: torch.Tensor,  # (B, T, D)
+    positions: torch.Tensor,  # (B, T) absolute positions
+    cache: KVCache | None = None,
+) -> tuple[torch.Tensor, KVCache]:
+    """Causal MLA.  Without a cache: the expanded prefill through
+    ``ops.attention`` (q, k of head dim ``qk_nope + qk_rope``, v of
+    ``v_head_dim``, scale ``1/sqrt(qk_nope + qk_rope)``), returning the
+    compressed cache ``KVCache(k=c_kv, v=k_rope)``.  With one: the absorbed
+    decode over the compressed cache, written in place at ``cache.length``;
+    the two score products are added in the model's type before the float32
+    softmax, and the probabilities cast to ``x.dtype``, as in the
+    reference."""
+    m = cfg.mla
+    b, t, _ = x.shape
+    h = cfg.n_heads
+    q_nope, q_rope, (sin, cos) = _mla_q(p, cfg, x, positions)
+    kv_a = p.wkv_a(x)
+    c_kv = p.kv_a_norm(kv_a[..., :m.kv_lora_rank])
+    k_rope = L.apply_rope(kv_a[..., None, m.kv_lora_rank:], sin, cos, 1.0)[:, :, 0, :]
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+
+    if cache is None:
+        k_nope = p.wk_b(c_kv).reshape(b, t, h, m.qk_nope_head_dim)
+        v = p.wv_b(c_kv).reshape(b, t, h, m.v_head_dim)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, t, h, m.qk_rope_head_dim)],
+                           dim=-1)
+        out = ops.attention(q_full.transpose(1, 2), k_full.transpose(1, 2), v.transpose(1, 2),
+                            causal=True, scale=scale).transpose(1, 2)
+        return p.wo(out.reshape(b, t, h * m.v_head_dim)), KVCache(k=c_kv, v=k_rope, length=t)
+
+    idx = cache.length
+    write_cache(cache.k, c_kv, idx)
+    write_cache(cache.v, k_rope, idx)
+    # Keys past idx + t are masked for every query (probability exactly 0).
+    cc, cr = cache.k[:, :idx + t], cache.v[:, :idx + t]
+    s = cc.shape[1]
+    wk_b = p.wk_b.kernel.reshape(m.kv_lora_rank, h, m.qk_nope_head_dim)
+    q_c = torch.einsum("bthd,rhd->bthr", q_nope, wk_b)
+    logits = (torch.einsum("bthr,bsr->bhts", q_c, cc)
+              + torch.einsum("bthd,bsd->bhts", q_rope, cr)).to(F32) * scale
+    rows = idx + torch.arange(t, device=x.device)
+    mask = torch.arange(s, device=x.device)[None, :] <= rows[:, None]
+    probs = torch.softmax(logits.masked_fill(~mask, NEG_INF), dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhts,bsr->bthr", probs, cc)
+    wv_b = p.wv_b.kernel.reshape(m.kv_lora_rank, h, m.v_head_dim)
+    out = torch.einsum("bthr,rhe->bthe", ctx, wv_b).reshape(b, t, h * m.v_head_dim)
+    return p.wo(out), KVCache(k=cache.k, v=cache.v, length=idx + t)
+
+
+def init_mla_cache(cfg, batch: int, max_len: int, *, dtype, device) -> KVCache:
+    m = cfg.mla
+    return KVCache(k=torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype, device=device),
+                   v=torch.zeros((batch, max_len, m.qk_rope_head_dim), dtype=dtype, device=device),
+                   length=0)
+
+
 def init_attention(cfg, *, dtype, device) -> nn.Module:
+    if cfg.attention == "mla":
+        return MLAAttention(cfg, dtype=dtype, device=device)
     return GQAAttention(cfg, dtype=dtype, device=device)
 
 
 def attention_fwd(p, cfg, x, positions, cache=None, *, causal: bool = True):
+    if cfg.attention == "mla":
+        return mla_fwd(p, cfg, x, positions, cache)
     return gqa_fwd(p, cfg, x, positions, cache, causal=causal)
 
 
 def init_cache(cfg, batch: int, max_len: int, *, dtype, device) -> KVCache:
-    if cfg.attention != "gqa":
-        raise NotImplementedError(
-            f"{cfg.attention!r} caches are not ported yet (ROADMAP.md queue 1 item 7)"
-        )
+    if cfg.attention == "mla":
+        return init_mla_cache(cfg, batch, max_len, dtype=dtype, device=device)
     return init_gqa_cache(cfg, batch, max_len, dtype=dtype, device=device)

@@ -36,26 +36,35 @@ def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
-# The RWKV-6 leaves (``repro.models.rwkv6.init_rwkv6``): a truncated normal
-# at a fixed scale, or a constant.
+# A truncated normal at a fixed scale, or a constant: the RWKV-6 leaves
+# (``repro.models.rwkv6.init_rwkv6``) and the MoE router's kernel (0.02)
+# and bias (zeros; ``repro.models.moe.init_moe``).
 TRUNC_SCALES = {"mu_base": 0.02, "mix_lora_a": 0.02, "mix_lora_b": 0.02, "decay_lora.a": 0.02,
-                "decay_lora.b": 0.02, "mu_k": 0.02, "mu_r": 0.02, "u_bonus": 0.1}
+                "decay_lora.b": 0.02, "mu_k": 0.02, "mu_r": 0.02, "u_bonus": 0.1,
+                "router.kernel": 0.02}
 CONSTANTS = {"bias": 0.0, "scale": 1.0, "decay_base": -6.0}
+# The stacked routed experts' leaves ``(E, d_in, d_out)``, named without
+# ``kernel`` and scaled as one (``init_moe``'s ``stack_init``).
+EXPERT_LEAVES = ("experts.w_gate", "experts.w_up", "experts.w_down")
 
 
 def leaf_rule(name: str, shape) -> tuple[str, float]:
     """``("normal", std)`` or ``("constant", value)``: the JAX package's
     initialiser of the parameter ``name`` (a dotted path) by its leaf name:
-    ``kernel`` a normal truncated at 2 sigma scaled by 1/sqrt(d_in) (its
-    second-to-last axis), ``embedding`` the same at 0.02, ``bias`` zeros,
-    ``scale`` ones, and the RWKV-6 leaves of ``TRUNC_SCALES`` and
-    ``CONSTANTS``."""
+    ``kernel`` (and the routed experts' ``w_gate``/``w_up``/``w_down``) a
+    normal truncated at 2 sigma scaled by 1/sqrt(d_in) (its second-to-last
+    axis), ``embedding`` the same at 0.02, ``bias`` zeros, ``scale`` ones,
+    and the leaves of ``TRUNC_SCALES`` and ``CONSTANTS`` (the two-level
+    name first: the router's ``kernel`` is drawn at 0.02)."""
     leaf = name.rsplit(".", 1)[-1]
-    if leaf == "kernel":
+    pair = ".".join(name.split(".")[-2:])
+    if pair in TRUNC_SCALES:
+        return "normal", TRUNC_SCALES[pair]
+    if leaf == "kernel" or pair in EXPERT_LEAVES:
         return "normal", 1.0 / math.sqrt(shape[-2])
     if leaf == "embedding":
         return "normal", 0.02
-    for key in (".".join(name.split(".")[-2:]), leaf):
+    for key in (pair, leaf):
         if key in TRUNC_SCALES:
             return "normal", TRUNC_SCALES[key]
         if key in CONSTANTS:
@@ -76,7 +85,8 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
         else:
             t = torch.empty(p.shape, dtype=F32, device=p.device)
             nn.init.trunc_normal_(t, a=-2.0, b=2.0, generator=generator)
-            p.copy_(t * val)
+            p.copy_(t.mul_(val))
+            del t  # one float32 leaf at a time (an expert stack is ~15 GB)
     return module
 
 

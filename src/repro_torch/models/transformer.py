@@ -1,5 +1,5 @@
-"""Top-level language model for the ``dense``, ``vlm`` and ``ssm``
-families (counterpart of ``repro.models.transformer``).
+"""Top-level language model for the ``dense``, ``vlm``, ``ssm`` and
+``moe`` families (counterpart of ``repro.models.transformer``).
 
 ``init(cfg)`` builds a randomly initialised ``Transformer``; ``forward``
 returns float32 logits over ``cfg.padded_vocab`` (the padded ids are not
@@ -7,7 +7,10 @@ masked, as in the reference); ``lm_loss`` is the training loss;
 ``init_decode_state`` and ``decode_step`` run prefill and cached decode.
 The reference scans stacked per-layer leaves; the port keeps one
 ``DecoderBlock`` (``RWKV6Block`` for ``ssm``) per layer in an
-``nn.ModuleList``.  With
+``nn.ModuleList``; the ``moe`` family (DeepSeek-V2/V3) keeps two,
+``dense_blocks`` (the leading ``first_dense_layers``) and ``moe_blocks``,
+and with ``mtp_depth`` an ``mtp`` head (``proj``, one dense ``block``,
+``ln``).  With
 ``cfg.remat == "block"`` (the reference's ``_maybe_remat``) each block is
 an activation checkpoint while a graph is recorded: its activations are
 recomputed in the backward pass, so the flash forward and the block's
@@ -18,8 +21,11 @@ comes with ``sharding/rules.py``).
 The ``ssm`` family (RWKV-6) serves but does not train: the reference's
 kernel route for its recurrence has no gradient, so ``lm_loss`` (and
 ``train.build_train_step``) raise for it (``check_training``).  The
-``moe`` and ``hybrid`` families (and ``audio``, in ``models/encdec.py`` of
-the reference) are not ported yet and raise, naming their ROADMAP.md item.
+``moe`` family serves; its training (the aux and MTP losses, the router
+bias update, the flash backward at MLA's head dims) is the next slice and
+raises too.  The ``hybrid`` family (and ``audio``, in
+``models/encdec.py`` of the reference) is not ported yet and raises,
+naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -37,7 +43,6 @@ from repro_torch.models import rwkv6 as R
 from repro_torch.utils.devices import resolve_device
 
 _NOT_PORTED = {
-    "moe": "the moe family (MLA attention, MoE FFN, MTP; ROADMAP.md queue 1 item 7)",
     "hybrid": "the hybrid family (Mamba2 + Zamba2 shared block; ROADMAP.md queue 1 item 7)",
     "audio": "the audio family (encoder-decoder; ROADMAP.md queue 1 item 7)",
 }
@@ -45,19 +50,25 @@ _NOT_PORTED = {
 
 def check_serving(cfg) -> None:
     """Raise for the families the port cannot build and serve yet."""
-    if cfg.family not in ("dense", "vlm", "ssm"):
+    if cfg.family not in ("dense", "vlm", "ssm", "moe"):
         raise NotImplementedError(f"{_NOT_PORTED.get(cfg.family, cfg.family)} is not ported yet")
 
 
 def check_training(cfg) -> None:
-    """Raise for the families the port cannot train: those it cannot serve,
-    and ``ssm``, whose recurrence has no backward kernel (nor has the
-    reference's kernel route; ROADMAP.md, open question)."""
+    """Raise for the families the port cannot train: those it cannot serve;
+    ``ssm``, whose recurrence has no backward kernel (nor has the
+    reference's kernel route; ROADMAP.md, open question); and ``moe``,
+    whose training is the next slice."""
     check_serving(cfg)
     if cfg.family == "ssm":
         raise NotImplementedError(
             "ssm training is not ported: rwkv6_scan has no backward kernel, as the reference's "
             "kernel route has none (ROADMAP.md, open question)")
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            "moe training is not ported yet: the aux and MTP losses, update_router_bias in the "
+            "train step, the flash backward at MLA's head dims and AdamW's memory at full width "
+            "(ROADMAP.md queue 1 item 7)")
 
 
 class ForwardOut(NamedTuple):
@@ -66,8 +77,21 @@ class ForwardOut(NamedTuple):
     mtp_logits: torch.Tensor | None
 
 
+class MTPHead(nn.Module):
+    """The single-depth multi-token-prediction head (deepseek-v3): ``proj``
+    ``(2 d, d)``, one dense decoder ``block`` and ``ln``."""
+
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.proj = L.Linear(2 * cfg.d_model, cfg.d_model, **kw)
+        self.block = B.DecoderBlock(cfg, **kw)
+        self.ln = L.init_norm(cfg.d_model, cfg.norm, cfg.norm_eps, **kw)
+
+
 class Transformer(nn.Module):
-    """``{"embed", "ln_f", "lm_head"?, "blocks"}`` with uninitialised
+    """``{"embed", "ln_f", "lm_head"?, "blocks"}`` (``moe``: ``"dense_blocks",
+    "moe_blocks", "mtp"?`` in place of ``"blocks"``) with uninitialised
     parameters on ``device`` (``init`` fills them, ``convert`` copies
     them in)."""
 
@@ -80,6 +104,13 @@ class Transformer(nn.Module):
         self.embed = L.Embedding(cfg.padded_vocab, cfg.d_model, **kw)
         self.ln_f = L.init_norm(cfg.d_model, cfg.norm, cfg.norm_eps, **kw)
         self.lm_head = None if cfg.tie_embeddings else L.Linear(cfg.d_model, cfg.padded_vocab, **kw)
+        if cfg.family == "moe":
+            nd = cfg.moe.first_dense_layers
+            self.dense_blocks = nn.ModuleList(B.DecoderBlock(cfg, **kw) for _ in range(nd))
+            self.moe_blocks = nn.ModuleList(B.DecoderBlock(cfg, use_moe=True, **kw)
+                                            for _ in range(cfg.n_layers - nd))
+            self.mtp = MTPHead(cfg, **kw) if cfg.mtp_depth else None
+            return
         block = R.RWKV6Block if cfg.family == "ssm" else B.DecoderBlock
         self.blocks = nn.ModuleList(block(cfg, **kw) for _ in range(cfg.n_layers))
 
@@ -129,6 +160,8 @@ def forward(p: Transformer, tokens: torch.Tensor, *, embeddings=None) -> Forward
             x, _ = blk(x)
         return ForwardOut(logits=_readout(p, p.ln_f(x)), aux_losses={}, mtp_logits=None)
     positions = torch.arange(t, device=x.device).expand(b, t)
+    if p.cfg.family == "moe":
+        return _forward_moe(p, tokens, x, positions)
     remat = p.cfg.remat == "block" and torch.is_grad_enabled()
     mode = ops.current_mode()
     for blk in p.blocks:
@@ -138,6 +171,33 @@ def forward(p: Transformer, tokens: torch.Tensor, *, embeddings=None) -> Forward
         else:
             x, _, _ = blk(x, positions)
     return ForwardOut(logits=_readout(p, p.ln_f(x)), aux_losses={}, mtp_logits=None)
+
+
+def _forward_moe(p: Transformer, tokens, x, positions) -> ForwardOut:
+    """The ``moe`` forward: the dense stack, then the MoE stack, whose
+    ``MoEAux`` is averaged over its layers (the two losses scaled by their
+    weights), and with an MTP head the logits of token t + 2 from ``[h_t ;
+    embed(token t + 1)]`` (the last position's next embedding wraps to the
+    first, as ``jnp.roll``)."""
+    cfg = p.cfg
+    for blk in p.dense_blocks:
+        x, _, _ = blk(x, positions)
+    auxes = []
+    for blk in p.moe_blocks:
+        x, _, a = blk(x, positions)
+        auxes.append(a)
+    lb, zl, load, drop = (torch.stack(v) for v in zip(*auxes))
+    aux = {"load_balance": torch.mean(lb) * cfg.moe.router_aux_weight,
+           "router_z": torch.mean(zl) * cfg.moe.router_z_weight,
+           "expert_load": torch.mean(load, dim=0), "dropped_fraction": torch.mean(drop)}
+    h_final = p.ln_f(x)
+    mtp_logits = None
+    if p.mtp is not None:
+        emb_next = torch.roll(p.embed.embed(tokens), -1, dims=1)
+        hm = p.mtp.proj(torch.cat([h_final, emb_next], dim=-1))
+        hm, _, _ = p.mtp.block(hm, positions)
+        mtp_logits = _readout(p, p.mtp.ln(hm))
+    return ForwardOut(logits=_readout(p, h_final), aux_losses=aux, mtp_logits=mtp_logits)
 
 
 def lm_loss(p: Transformer, tokens: torch.Tensor, labels: torch.Tensor, *,
@@ -175,9 +235,17 @@ def init_decode_state(cfg, batch: int, max_len: int, *, device="cuda") -> dict:
     for ``ssm`` ``{"blocks": RWKVState}`` with the shift states ``(n_layers,
     B, 1, D)`` and the float32 ``wkv`` ``(n_layers, B, H, hd, hd)``
     stacked the same way (``max_len`` is not read: the state has a fixed
-    size)."""
+    size); for ``moe`` ``{"dense": KVCache, "moe": KVCache}``, each stack's
+    compressed MLA caches ``(n, B, max_len, kv_lora_rank)`` and ``(n, B,
+    max_len, qk_rope_head_dim)``."""
     check_serving(cfg)
     dev = resolve_device(device)
+    if cfg.family == "moe":
+        c = A.init_cache(cfg, batch, max_len, dtype=L.dtype_of(cfg), device=dev)
+        nd = cfg.moe.first_dense_layers
+        stacked = lambda n: A.KVCache(k=c.k.new_zeros((n,) + tuple(c.k.shape)),
+                                      v=c.v.new_zeros((n,) + tuple(c.v.shape)), length=0)
+        return {"dense": stacked(nd), "moe": stacked(cfg.n_layers - nd)}
     if cfg.family == "ssm":
         s = R.init_rwkv_state(cfg, batch, dtype=L.dtype_of(cfg), device=dev)
         n = cfg.n_layers
@@ -204,7 +272,8 @@ def decode_step(
     layer attends over its cache.  The cache tensors are updated in place
     and returned with the new length.  For ``ssm`` each block advances its
     recurrence from its layer's state, which is then overwritten in place
-    (``prefill`` is not read, as in the reference)."""
+    (``prefill`` is not read, as in the reference).  For ``moe`` the dense
+    stack runs before the MoE stack, each on its own caches."""
     b, t = tokens.shape
     x = p.embed.embed(tokens)
     if p.cfg.family == "ssm":
@@ -217,13 +286,17 @@ def decode_step(
             st.wkv[i].copy_(ns.wkv)
         return _readout(p, p.ln_f(x)), {"blocks": st._replace(length=st.length + t)}
     positions = pos_offset + torch.arange(t, device=x.device).expand(b, t)
-    kvs: A.KVCache = state["blocks"]
-    for i, blk in enumerate(p.blocks):
-        if prefill:
-            x, fresh, _ = blk(x, positions, None)
-            A.write_cache(kvs.k[i], fresh.k, kvs.length)
-            A.write_cache(kvs.v[i], fresh.v, kvs.length)
-        else:
-            x, _, _ = blk(x, positions, A.KVCache(k=kvs.k[i], v=kvs.v[i], length=kvs.length))
-    new_state = {"blocks": A.KVCache(k=kvs.k, v=kvs.v, length=kvs.length + t)}
+    stacks = ((p.dense_blocks, "dense"), (p.moe_blocks, "moe")) if p.cfg.family == "moe" else \
+        ((p.blocks, "blocks"),)
+    new_state = {}
+    for blocks, key in stacks:
+        kvs: A.KVCache = state[key]
+        for i, blk in enumerate(blocks):
+            if prefill:
+                x, fresh, _ = blk(x, positions, None)
+                A.write_cache(kvs.k[i], fresh.k, kvs.length)
+                A.write_cache(kvs.v[i], fresh.v, kvs.length)
+            else:
+                x, _, _ = blk(x, positions, A.KVCache(k=kvs.k[i], v=kvs.v[i], length=kvs.length))
+        new_state[key] = A.KVCache(k=kvs.k, v=kvs.v, length=kvs.length + t)
     return _readout(p, p.ln_f(x)), new_state

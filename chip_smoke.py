@@ -76,9 +76,15 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    graphs at the end.
 5. The serving kernels at the serving slice's full-width shapes, each held
    against its plain version on the card and timed as in phase 2 beside
-   the plain version and the library call: ``rmsnorm`` on (4 x 512, 2048) bf16 and f32 and (4, 2048)
-   bf16 (``F.rms_norm``); the flash-attention forward on q (4, 32, 512, 64)
-   and k, v (4, 8, 512, 64), causal, bf16 and f32, a decode offset
+   the plain version and the library call: ``rmsnorm`` on (4 x 512,
+   2048) bf16 and f32 and (4, 2048) bf16, then at every shape of
+   ``RMSNORM_SHAPES`` (``_rmsnorm_case``: the main paths' prefill rows
+   from 512 to 7168 columns, (2048, 2048) float32, the decode step's 4
+   rows, and the edge cases), each also giving the same bits twice and, on
+   the row route, the bits of ``fold_rmsnorm``, and timed warm and cold (the L2 filled by zeroing a 256 MiB buffer
+   before each call) beside ``F.rms_norm``, the kernel's times before its
+   redesign printed as recorded constants; the flash-attention forward on
+   q (4, 32, 512, 64) and k, v (4, 8, 512, 64), causal, bf16 and f32, a decode offset
    (Tq = 128, Tk = 1024), a ragged Tq = Tk = 300, a non-causal case and
    a head dim of 30 (zero-padded to 32), head dims 160, 192 and 256 (bf16
    and f32; 256 timed), B x H = 65600 heads (float32), and head dims 320
@@ -313,8 +319,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    at its published widths, cut in depth (``MOE_V2``, ``MOE_V3``).  (a)
    Flash at MLA's prefill shape (q, k (4, 128, 512, 192), v (4, 128, 512,
    128), v zero-padded to 192 in the wrapper) and a ragged T = 300 against
-   the plain version, rmsnorm at 1536, 512, 5120 and 7168 columns; each
-   timed beside its plain version and the library call.  (b)
+   the plain version, timed beside it and the library call, and rmsnorm
+   at 1536, 512, 5120 and 7168 columns at the model's eps, held as phase 5
+   holds it (phase 5 times these shapes).  (b)
    deepseek-v2-236b at 2 layers (1 dense + 1 MoE, 160 experts top-6,
    capacity factor 1.25; 5.36 B parameters from ``random_lm_leaves``, one
    leaf on the host at a time): ``MOE_SERVE_REF`` against
@@ -2100,10 +2107,13 @@ def convergence_step(soc, deadband: float, target: float = 0.5) -> int | None:
     return int(hit[0]) if hit.size else None
 
 
-def _median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
+def _median_ms(fn, reps: int = 25, warmup: int = 3, flush=None) -> float:
     """Median device time of one ``fn()`` call, from CUDA events, with the
     card kept busy (``torch.cuda._sleep``, ~1 ms) while the host enqueues the
-    call, so that up to ~1 ms of its host-side overhead is not counted."""
+    call, so that up to ~1 ms of its host-side overhead is not counted.
+    With ``flush`` (a tensor past the 50 MB L2) that buffer is zeroed before
+    each timed call: the call finds the L2 full of other data, dirty, as
+    after a caller's GEMM (a cold time)."""
     import torch
 
     for _ in range(warmup):
@@ -2111,6 +2121,8 @@ def _median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if flush is not None:
+            flush.zero_()
         torch.cuda._sleep(2_000_000)
         start.record()
         fn()
@@ -2756,6 +2768,110 @@ def _flash_bytes_ops(q, k, causal) -> tuple[int, int]:
     return nbytes, 4 * d * b * h * _visible_pairs(q, k, causal)
 
 
+# The rmsnorm shapes the main paths launch, (rows, D, dtype, offset), each
+# held and timed warm and cold in phase 5: the prefill's 2048 rows in bf16
+# at llama3.2-1b's 2048, rwkv6-7b's 4096 and deepseek-v2/v3's kv_a_norm 512,
+# q_a_norm 1536 and blocks 5120 and 7168; (2048, 2048) in float32; the
+# decode step's 4 rows; and the edge cases: D = 100 (the scalar route) and
+# 9000, rows 1, 3 and 133, x one element past an aligned address (the
+# scalar route), D = 16384 (the weight too wide to stage), and the staged
+# plan at 2048 vectors a row (10240 bf16, 8192 float32).
+# tools/rmsnorm_time.py times the same list.
+RMSNORM_SHAPES = (
+    (2048, 512, "bfloat16", False), (2048, 1536, "bfloat16", False),
+    (2048, 2048, "bfloat16", False), (2048, 4096, "bfloat16", False),
+    (2048, 5120, "bfloat16", False), (2048, 7168, "bfloat16", False),
+    (2048, 2048, "float32", False),
+    (4, 2048, "bfloat16", False), (4, 4096, "bfloat16", False),
+    (4, 5120, "bfloat16", False), (4, 7168, "bfloat16", False),
+    (512, 100, "bfloat16", False), (512, 100, "float32", False), (512, 9000, "float32", False),
+    (1, 2048, "bfloat16", False), (3, 5120, "bfloat16", False), (133, 7168, "bfloat16", False),
+    (2048, 2048, "bfloat16", True), (64, 16384, "bfloat16", False),
+    (2048, 10240, "bfloat16", False), (2048, 8192, "float32", False),
+)
+FLUSH_BYTES = 256 << 20  # past the H100's 50 MB L2
+
+
+def _rmsnorm_inputs(rows: int, d: int, dtype: str, offset: bool, gen, dev):
+    """x (rows, d) and w (d,) of ``dtype`` drawn from ``gen``; with
+    ``offset`` x is a view one element into its buffer (not 16-byte
+    aligned)."""
+    import torch
+
+    t = getattr(torch, dtype)
+    flat = torch.randn(rows * d + int(offset), generator=gen, device=dev).to(t)
+    w = (1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(t)
+    return flat[int(offset):].view(rows, d), w
+
+
+def _rmsnorm_case(x, w, eps: float, flush=None, label: str = "") -> dict:
+    """``rmsnorm`` on ``x`` and ``w`` held to its plain version (one bf16
+    ulp, 2^-7 of the value, or 1e-6 relative in float32: the float32
+    statistics sum in another order and 1/sqrt is not torch.rsqrt, which
+    can move a bf16 result across one rounding boundary), giving the same
+    bits twice and, on the row route, the bits of ``fold_rmsnorm`` (the
+    kernel's order in plain float32 operations).  With ``flush`` (see
+    ``_median_ms``) also timed warm and cold beside the plain version
+    (warm) and ``F.rms_norm`` (warm and cold), with its byte bound (x read
+    and y written once, the weight once)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, rmsnorm as rn
+
+    rows, d = x.numel() // x.shape[-1], x.shape[-1]
+    kernel = lambda: ops.rmsnorm(x, w, eps, force="cuda")
+    got, again, want = kernel(), kernel(), ops.rmsnorm(x, w, eps, force="ref")
+    plan = rn.plan_for(x, w)
+    same = [again] + ([rn.fold_rmsnorm(x, w, eps)] if plan.route == "rows" else [])
+    torch.cuda.synchronize()
+    err = (got.double() - want.double()).abs()
+    rel = 2.0**-7 if x.dtype == torch.bfloat16 else 1e-6
+    what = f"rmsnorm ({rows}, {d}) {str(x.dtype)[6:]}{label}"
+    _check(got.shape == x.shape and bool((err <= rel * want.double().abs() + 1e-6).all()),
+           f"{what} vs plain")
+    _check(all(torch.equal(got, o) for o in same),
+           f"{what}: the same bits twice, and as fold_rmsnorm on the row route")
+    route = (f"G {plan.warps_per_row}, CH {plan.chunks}, weight "
+             f"{'staged' if plan.stage else 'in registers'}, {plan.blocks} blocks"
+             if plan.route == "rows" else f"scalar, {plan.blocks} blocks")
+    case = {"shape": [rows, d], "dtype": str(x.dtype)[6:], "offset": bool(label),
+            "plan": plan._asdict(), "max_abs_err": float(err.max()),
+            "runs_bit_for_bit": len(same)}
+    if flush is None:
+        print(f"rmsnorm     ({rows}, {d}) {case['dtype']}{label} eps {eps:g} [{route}]: "
+              f"max|kernel - plain| {case['max_abs_err']:.3e}, {len(same)} more runs bit for bit")
+        return case
+    lib = lambda: F.rms_norm(x, (d,), w, eps)
+    case.update({
+        "ms": _median_ms(kernel), "cold_ms": _median_ms(kernel, flush=flush),
+        "plain_ms": _median_ms(lambda: ops.rmsnorm(x, w, eps, force="ref")),
+        "library_ms": _median_ms(lib), "library_cold_ms": _median_ms(lib, flush=flush),
+        "bound_ms": x.element_size() * (2 * rows * d + d) / HBM_BYTES_PER_S * 1e3})
+    prev = (PREVIOUS_KERNEL_MS.get(f"rmsnorm_{d}")
+            if rows == 2048 and case["dtype"] == "bfloat16" and not label else None)
+    print(f"rmsnorm     ({rows}, {d}) {case['dtype']}{label} [{route}]: max|kernel - plain| "
+          f"{case['max_abs_err']:.3e}, {len(same)} more runs bit for bit; kernel warm "
+          f"{case['ms']:.5f} ms, cold {case['cold_ms']:.5f} ms; plain {case['plain_ms']:.5f} ms; "
+          f"F.rms_norm warm {case['library_ms']:.5f}, cold {case['library_cold_ms']:.5f} ms; "
+          f"bound {case['bound_ms']:.5f} ms (bytes; {100 * case['bound_ms'] / case['cold_ms']:.1f} "
+          f"% of it cold)" + (f"; the kernel before its redesign {prev:.5f} ms warm (a recorded "
+                              f"constant)" if prev is not None else ""))
+    return case
+
+
+def phase_rmsnorm_shapes(dev) -> list[dict]:
+    """Phase 5, rmsnorm: every shape of ``RMSNORM_SHAPES`` through
+    ``_rmsnorm_case``."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(28)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    return [_rmsnorm_case(*_rmsnorm_inputs(rows, d, dtype, offset, gen, dev), 1e-5, flush,
+                          " offset" if offset else "")
+            for rows, d, dtype, offset in RMSNORM_SHAPES]
+
+
 def phase_serve_kernels(dev) -> dict:
     """The serving kernels against their plain versions at the slice's
     full-width shapes (llama3.2-1b: d_model 2048, 32 query and 8 KV heads of
@@ -2789,18 +2905,17 @@ def phase_serve_kernels(dev) -> dict:
         print(f"rmsnorm     ({n}, {d}) {str(dtype)[6:]}  max|kernel - plain| = {err:.3e}")
         _check(ok, f"rmsnorm ({n}, {d}) {dtype} vs plain")
         rn_err = max(rn_err, err)
-    x, w = randn(rows, d).to(bf16), (1.0 + 0.1 * randn(d)).to(bf16)
-    rn_ms = _median_ms(lambda: ops.rmsnorm(x, w, eps, force="cuda"))
-    rn_plain = _median_ms(lambda: ops.rmsnorm(x, w, eps, force="ref"))
-    rn_lib = _median_ms(lambda: F.rms_norm(x, (d,), w, eps))
-    print(f"rmsnorm     ({rows}, {d}) bf16: kernel {rn_ms:.4f} ms, plain {rn_plain:.4f} ms, "
-          f"F.rms_norm {rn_lib:.4f} ms")
+    shapes = phase_rmsnorm_shapes(dev)
+    main = next(c for c in shapes if c["shape"] == [rows, d] and c["dtype"] == "bfloat16"
+                and not c["offset"])
     # Bytes: x in, y out, the weight once; operations per element: the
-    # square-accumulate (an FMA, 2), the scale and the weight (float32).
+    # square and its sum (2), the scale and the weight (float32).
     rn_entry = kernel_entry(
         "rmsnorm", "src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:25",
-        rn_err, rn_ms, rn_plain, rn_lib, x.element_size() * (2 * x.numel() + d), 4 * x.numel(),
-        FP32_FLOP_PER_S, shape=[rows, d], dtype="bfloat16")
+        max([rn_err] + [c["max_abs_err"] for c in shapes]), main["ms"], main["plain_ms"],
+        main["library_ms"], 2 * (2 * rows * d + d), 4 * rows * d, FP32_FLOP_PER_S,
+        shape=[rows, d], dtype="bfloat16", cold_ms=main["cold_ms"],
+        library_cold_ms=main["library_cold_ms"], plan=main["plan"], shapes=shapes)
 
     # Flash forward.  Tolerances: float32, 1e-5 on o and lse (sums in
     # another order; the kernel accumulates across key tiles).  bf16: the
@@ -4702,14 +4817,15 @@ def phase_moe_kernels(dev) -> dict:
     """17a: the kernels of the moe path at its shapes.  Flash at deepseek's
     MLA prefill (q and k (4, 128, 512, 192), v (4, 128, 512, 128), bf16,
     causal: v zero-padded to 192 in the wrapper) and at a ragged T = 300,
-    each against its plain version as phase 5 holds it; rmsnorm at
-    ``q_a_norm``'s 1536 and ``kv_a_norm``'s 512 and at the block norms'
-    5120 (v2) and 7168 (v3) over the prefill's 2048 rows.  Each timed
-    beside its plain version and the library call."""
+    each against its plain version as phase 5 holds it, timed beside its
+    plain version and the library call; rmsnorm at ``q_a_norm``'s 1536 and
+    ``kv_a_norm``'s 512 and at the block norms' 5120 (v2) and 7168 (v3)
+    over the prefill's 2048 rows, held at the model's eps as phase 5 holds
+    it (``_rmsnorm_case``, untimed: phase 5 times these shapes)."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ref
 
     cfg = moe_config(MOE_V2)
     m = cfg.mla
@@ -4765,24 +4881,9 @@ def phase_moe_kernels(dev) -> dict:
                   f"{out['mla_bound_padded_ms']:.4f} ms for the padded value work "
                   f"({nops_pad / 1e9:.2f} GFLOP)")
     rows = bsz * tl
-    widths = {}
-    for d in (m.q_lora_rank, m.kv_lora_rank, cfg.d_model, moe_config(MOE_V3).d_model):
-        x, w = randn(rows, d).to(bf16), (1.0 + 0.1 * randn(d)).to(bf16)
-        got = ops.rmsnorm(x, w, cfg.norm_eps, force="cuda").double()
-        want = ops.rmsnorm(x, w, cfg.norm_eps, force="ref").double()
-        err = float((got - want).abs().max())
-        # As phase 5: one bf16 ulp (2^-7 of the value).
-        _check(bool(((got - want).abs() <= 2.0**-7 * want.abs() + 1e-6).all()),
-               f"rmsnorm ({rows}, {d}) vs plain")
-        ms = _median_ms(lambda: ops.rmsnorm(x, w, cfg.norm_eps, force="cuda"))
-        plain = _median_ms(lambda: ops.rmsnorm(x, w, cfg.norm_eps, force="ref"))
-        lib = _median_ms(lambda: F.rms_norm(x, (d,), w, cfg.norm_eps))
-        bound = x.element_size() * (2 * x.numel() + d) / HBM_BYTES_PER_S * 1e3
-        widths[d] = {"shape": [rows, d], "ms": ms, "plain_ms": plain, "library_ms": lib,
-                     "bound_ms": bound, "max_abs_err": err}
-        print(f"rmsnorm     ({rows}, {d}) bf16: max|kernel - plain| {err:.3e}; kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms, F.rms_norm {lib:.4f} ms, bound {bound:.4f} ms (bytes)")
-    out["rmsnorm_widths"] = widths
+    out["rmsnorm_widths"] = {
+        d: _rmsnorm_case(randn(rows, d).to(bf16), (1.0 + 0.1 * randn(d)).to(bf16), cfg.norm_eps)
+        for d in (m.q_lora_rank, m.kv_lora_rank, cfg.d_model, moe_config(MOE_V3).d_model)}
     return out
 
 
@@ -5024,7 +5125,14 @@ PREVIOUS_KERNEL_MS = {"admm_step": 0.350271999835968, "rwkv6_scan": 0.4355840086
                       # lc_filter before its redesign on the pipeline (one
                       # thread a rack, 32 a block, loads 8 samples ahead):
                       # 17600 x 1024 and 60000 x 128
-                      "lc_filter": 1.5339040160179138, "lc_filter_bench": 4.760495901107788}
+                      "lc_filter": 1.5339040160179138, "lc_filter_bench": 4.760495901107788,
+                      # rmsnorm before its redesign (one block a row above
+                      # D = 256, the weight read after the reduction), warm,
+                      # over 2048 rows bf16 by D, from this script's kernels
+                      # line on an NVIDIA H100 80GB HBM3 at 700 W
+                      "rmsnorm_512": 0.00723200011998415, "rmsnorm_1536": 0.007935999892652035,
+                      "rmsnorm_2048": 0.008704000152647495, "rmsnorm_5120": 0.01945599913597107,
+                      "rmsnorm_7168": 0.02630399912595749}
 UNFUSED_TOL = 2e-5  # tests/test_kernels.py: the fused path vs ess -> filters
 # The 4096^3 bf16 burn's cost of one more round, from n_iters 1 -> 4 and
 # 4 -> 8, must agree within this fraction: the work grows with n_iters and

@@ -51,7 +51,10 @@ def _close(got: torch.Tensor, want, name):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **_tol(name))
 
 
-@pytest.mark.parametrize("shape", [(8, 128), (37, 256), (4, 7, 512), (1, 1024), (3, 2, 4, 32)])
+@pytest.mark.parametrize("shape", [(8, 128), (37, 256), (4, 7, 512), (1, 1024), (3, 2, 4, 32),
+                                   # the main paths' widths: deepseek's kv_a_norm and
+                                   # q_a_norm, rwkv6-7b, deepseek-v2's and v3's blocks
+                                   (3, 512), (2, 1536), (2, 4096), (2, 5120), (2, 7168)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_plain_matches_jax(shape, dtype):
     rng = np.random.default_rng(0)

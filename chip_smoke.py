@@ -343,12 +343,43 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    ``mtp_logits`` (flash 5, rmsnorm 22) on the kernels against the plain
    versions the same way.  It prints each model's prefill wall, tokens/s,
    peak memory and launches, and the phase's seconds.
+18. The ``moe`` family trained (the aux and MTP losses, the router-bias
+   nudge, remat of the MoE stack, AdamW's sliced update).  (a) The flash
+   backward at MLA's training shape (q, k (4, 128, 512, 192), v (4, 128,
+   512, 128), causal bf16) through ``FlashAttention``, held as phase 7
+   holds it against the plain backward on the same residuals and autograd
+   through the plain attention; dK/dV and dQ timed beside the plain
+   backward and SDPA's backward at 192/128, with the bound of the model's
+   work and the route the launches took.  (b) deepseek-v2-236b at full
+   width cut to 2 layers (17b's model, 5.36 B parameters, bf16,
+   ``remat="block"``, AdamW(lr=1e-3) with float32 moments; 4 x 512 tokens
+   a step): step 1 on the plain versions, the same step from the same
+   start (a host copy) on the kernels on the plain run's routing
+   (``routed_as`` keyed by layer and forward pass, the recompute replaying
+   its forward), within ``MOE_TRAIN_TOL`` (loss, ``lm_loss``, the aux
+   losses, grad norm, sampled moments and parameters; ``expert_load`` and
+   ``dropped_fraction`` exactly) with the routings compared apart; the
+   kernel step once more from the same start (the same bits, or the
+   differing leaves printed); two more kernel steps.  Each kernel step
+   launches flash forward 4, dK/dV 2, dQ 2 and rmsnorm 17 times
+   (``moe_train_launches``), the plain step none.  It prints the step
+   walls, tokens/s, ``train_mfu`` over the active parameters and the peak
+   memory.  (c) ``MOE_TRAIN_REF`` (the v2 and v3 smoke configs, float32, 3
+   layers, capacity factor 1.25, 2 steps of 4 x 128) on the kernels on
+   JAX's routing against ``JAX_MOE_TRAIN`` (recorded on the CPU by
+   ``python tests/test_torch_moe_train_reference.py``) within
+   ``MOE_REF_TOL``, v3's router bias within 1e-7, the port's own routing
+   against JAX's picks but at near-ties (``MOE_REF_TIE``).  (d)
+   ``train()`` with the launcher's PowerSim for deepseek-v2 at full width
+   (2 layers, 4 steps), checked as phase 8c.  It prints the phase's
+   seconds.
 
 With ``--profile DIR`` it also profiles one more campus run, prefill step,
 generation and training step, rwkv6-7b prefill and generation, a host run
 of the degraded campus, a warm replay of each campus's scanned engine,
 phase 14's runs (Fig. 12, ``fleet_1024racks`` and ``controller_throughput``
-cold and warm) and phase 17's prefills and generations (``torch.profiler``), writes the tables and Chrome traces into DIR, and
+cold and warm), phase 17's prefills and generations and one deepseek-v2
+training step (``torch.profiler``), writes the tables and Chrome traces into DIR, and
 prints each campus's host engine split into ``core.profiling``'s
 ``render`` / ``solve`` / ``host-sync`` spans.
 
@@ -1115,14 +1146,14 @@ def train_indices(shape, leaf: int):
     return np.sort(rng.choice(n, size=TRAIN_REF["samples"], replace=False))
 
 
-def train_samples(leaf_array) -> dict:
-    """``{path: values at train_indices}`` of a JAX-layout tree's leaves
-    (numpy, float64), given ``leaf_array(path)`` -> that leaf (layer 0 for
-    block leaves) as a numpy array."""
+def train_samples(leaf_array, leaves=TRAIN_LEAVES) -> dict:
+    """``{path: values at train_indices}`` of a JAX-layout tree's
+    ``leaves`` (numpy, float64), given ``leaf_array(path)`` -> that leaf
+    (layer 0 for block leaves) as a numpy array."""
     import numpy as np
 
     out = {}
-    for i, path in enumerate(TRAIN_LEAVES):
+    for i, path in enumerate(leaves):
         a = np.asarray(leaf_array(path), np.float64)
         out[path] = a.reshape(-1)[train_indices(a.shape, i)].tolist()
     return out
@@ -1136,15 +1167,25 @@ def train_summary(losses, grad_norms, params: dict, moments: list[dict]) -> dict
             "params": params, "m": moments}
 
 
-def _bf16_ulp(x: float) -> float:
+def _ulp(x: float, bits: int) -> float:
+    """The spacing of a ``bits``-bit significand at ``x`` (8: bf16, 24:
+    float32)."""
     import math
 
-    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0**-133
+    return 2.0 ** (math.floor(math.log2(abs(x))) - bits + 1) if x else 2.0 ** (-126 - bits + 1)
 
 
-def compare_train(got: dict, want: dict, lr: float) -> list[str]:
-    """Failures of ``got`` against ``want`` under TRAIN_TOL (see there)."""
-    t = TRAIN_TOL
+def _bf16_ulp(x: float) -> float:
+    return _ulp(x, 8)
+
+
+def compare_train(got: dict, want: dict, lr: float, tol: dict = TRAIN_TOL,
+                  leaves=TRAIN_LEAVES) -> list[str]:
+    """Failures of ``got`` against ``want`` under ``tol`` (TRAIN_TOL: see
+    there; ``ulp_bits`` the significand of the parameters' type, 8 if
+    absent) on the sampled ``leaves``."""
+    t = tol
+    ulp = lambda x: _ulp(x, t.get("ulp_bits", 8))
     bad = []
     for i, (g, w) in enumerate(zip(got["loss"], want["loss"])):
         if not abs(g - w) <= t["loss"]:
@@ -1153,7 +1194,7 @@ def compare_train(got: dict, want: dict, lr: float) -> list[str]:
         if not abs(g - w) <= t["grad_norm"] * abs(w):
             bad.append(f"step {i}: grad norm {g!r} vs {w!r}")
     steps = len(want["m"])
-    for path in TRAIN_LEAVES:
+    for path in leaves:
         wm = [m[path] for m in want["m"]]
         scale = max(abs(x) for ms in wm for x in ms) or 1.0
         for s, (gs, ws) in enumerate(zip((m[path] for m in got["m"]), wm)):
@@ -1162,31 +1203,33 @@ def compare_train(got: dict, want: dict, lr: float) -> list[str]:
                     bad.append(f"{path}[{j}] step {s}: m {a!r} vs {b!r}")
         for j, (a, b) in enumerate(zip(got["params"][path], want["params"][path])):
             clear = all(abs(ms[j]) > t["grad_margin"] * scale for ms in wm)
-            tol = (t["param_ulps"] * _bf16_ulp(b) + t["update_frac"] * lr * steps if clear
-                   else 2 * lr * steps + _bf16_ulp(b))
-            if not abs(a - b) <= tol:
-                bad.append(f"{path}[{j}]: param {a!r} vs {b!r} (tolerance {tol:.3g})")
+            within = (t["param_ulps"] * ulp(b) + t["update_frac"] * lr * steps if clear
+                      else 2 * lr * steps + ulp(b))
+            if not abs(a - b) <= within:
+                bad.append(f"{path}[{j}]: param {a!r} vs {b!r} (tolerance {within:.3g})")
     return bad
 
 
-def train_max_diff(got: dict, want: dict, lr: float) -> dict:
+def train_max_diff(got: dict, want: dict, lr: float, tol: dict = TRAIN_TOL,
+                   leaves=TRAIN_LEAVES) -> dict:
     """The largest differences that ``compare_train`` holds to its
     tolerances: loss (absolute), grad norm (relative), m (relative to the
     leaf's largest sampled |m|) and the parameters of clear gradient sign
-    (in units of lr per step, beyond their bf16 ulps)."""
-    t = TRAIN_TOL
+    (in units of lr per step, beyond their ulps)."""
+    t = tol
+    ulp = lambda x: _ulp(x, t.get("ulp_bits", 8))
     out = {"loss": max(abs(g - w) for g, w in zip(got["loss"], want["loss"])),
            "grad_norm": max(abs(g - w) / abs(w)
                             for g, w in zip(got["grad_norm"], want["grad_norm"])),
            "m": 0.0, "update_frac": 0.0}
-    for path in TRAIN_LEAVES:
+    for path in leaves:
         wm = [m[path] for m in want["m"]]
         scale = max(abs(x) for ms in wm for x in ms) or 1.0
         for gs, ws in zip((m[path] for m in got["m"]), wm):
             out["m"] = max([out["m"]] + [abs(a - b) / scale for a, b in zip(gs, ws)])
         for j, (a, b) in enumerate(zip(got["params"][path], want["params"][path])):
             if all(abs(ms[j]) > t["grad_margin"] * scale for ms in wm):
-                beyond = max(abs(a - b) - t["param_ulps"] * _bf16_ulp(b), 0.0)
+                beyond = max(abs(a - b) - t["param_ulps"] * ulp(b), 0.0)
                 out["update_frac"] = max(out["update_frac"], beyond / (lr * len(wm)))
     return out
 
@@ -3149,18 +3192,22 @@ def phase_serve(dev, tree, profile_dir: Path | None = None) -> dict:
             "generate_s": gen_s, "tokens_per_s": b * n / gen_s}
 
 
-def _flash_bwd_bytes_ops(q, k, causal) -> dict:
+def _flash_bwd_bytes_ops(q, k, causal, v=None) -> dict:
     """Bytes each backward kernel must move and the product operations it
-    does on the visible (query, key) pairs.  dK/dV reads q, k, v, dO and
-    the float32 lse and delta once and writes dk, dv; its products per pair
-    are q k^T, dO V^T, p^T dO and dS^T Q (8 D).  dQ reads the same and
-    writes dq; q k^T, dO V^T and dS K (6 D)."""
+    does on the visible (query, key) pairs, for a value head dim ``Dv``
+    (``v``'s; the query's D without it).  dK/dV reads q, k, v, dO and the
+    float32 lse and delta once and writes dk, dv; its products per pair are
+    q k^T (2 D), dO V^T (2 Dv), p^T dO (2 Dv) and dS^T Q (2 D): 8 D when
+    Dv = D.  dQ reads the same and writes dq; q k^T, dO V^T and dS K (4 D +
+    2 Dv)."""
     b, h, tq, d = q.shape
+    dv = d if v is None else v.shape[-1]
+    v_numel = k.numel() // d * dv
     pairs = _visible_pairs(q, k, causal)
     e = q.element_size()
-    reads = e * (2 * q.numel() + 2 * k.numel()) + 2 * 4 * b * h * tq
-    return {"dkv": (reads + e * 2 * k.numel(), 8 * d * b * h * pairs),
-            "dq": (reads + e * q.numel(), 6 * d * b * h * pairs)}
+    reads = e * (q.numel() + b * h * tq * dv + k.numel() + v_numel) + 2 * 4 * b * h * tq
+    return {"dkv": (reads + e * (k.numel() + v_numel), 4 * (d + dv) * b * h * pairs),
+            "dq": (reads + e * q.numel(), (4 * d + 2 * dv) * b * h * pairs)}
 
 
 def _flash_bwd_tc_ops(q, k, causal) -> dict:
@@ -4671,19 +4718,26 @@ def capture_routing(model):
     ``routing_record``s, computed by a forward pre-hook on each MoE FFN
     from its input (``moe.route`` as it is where the block starts, which the
     layer then repeats: a ``routed_as`` entered inside the block does not
-    change what is recorded)."""
-    from repro_torch.models import moe as MOE
+    change what is recorded).  The recompute of a checkpointed block (in
+    the backward pass, ``transformer.recomputing()``) is not a call of its
+    own and is not recorded."""
+    import torch
+
+    from repro_torch.models import moe as MOE, transformer as T
 
     calls = [[] for _ in model.moe_blocks]
     route = MOE.route
 
     def hook_for(i):
         def hook(mod, args):
+            if T.recomputing():
+                return
             x = args[0]
-            _, idx, scores, _ = route(mod, mod.cfg, x.reshape(-1, x.shape[-1]))
-            calls[i].append(routing_record(
-                idx.cpu().numpy(), MOE.select_scores(mod, mod.cfg, scores).cpu().numpy(),
-                scores.cpu().numpy()))
+            with torch.no_grad():
+                _, idx, scores, _ = route(mod, mod.cfg, x.reshape(-1, x.shape[-1]))
+                calls[i].append(routing_record(
+                    idx.cpu().numpy(), MOE.select_scores(mod, mod.cfg, scores).cpu().numpy(),
+                    scores.cpu().numpy()))
         return hook
 
     hooks = [blk.moe.register_forward_pre_hook(hook_for(i))
@@ -4696,26 +4750,47 @@ def capture_routing(model):
 
 
 @contextlib.contextmanager
-def routed_as(calls: list):
+def routed_as(calls: list, model=None):
     """Inside the block, the i-th call of ``moe.route`` picks the experts of
     ``calls[i]["picks"]`` (another run's ``routing_record``s, in call
     order), its gates computed from its own scores as ``route`` computes
-    them; its scores and logits are its own.  Raises if the calls run out
+    them; its scores and logits are its own.  With ``model``, ``calls``
+    holds one list per MoE layer of ``model`` (as ``capture_routing``
+    yields them), keyed by (layer, forward pass): a layer's forward calls
+    take its records in order, and the recompute of a checkpointed block
+    (in the backward pass, on autograd's thread on the card:
+    ``transformer.recomputing()``) replays the record its forward took, so
+    the recompute dispatches the same pairs.  Raises if the calls run out
     or are not all used."""
     import torch
 
-    from repro_torch.models import moe as MOE
+    from repro_torch.models import moe as MOE, transformer as T
 
-    orig, it = MOE.route, iter(calls)
-    used = []
+    orig = MOE.route
+    if model is None:
+        layer_of, lists = None, [calls]
+    else:
+        layer_of = {id(blk.moe): i for i, blk in enumerate(model.moe_blocks)}
+        lists = calls
+        _check(len(lists) == len(layer_of), f"routed_as: {len(lists)} layers of records for "
+                                             f"{len(layer_of)} MoE layers")
+    its = [iter(c) for c in lists]
+    last = [None] * len(lists)
+    used = [0] * len(lists)
 
     def route(p, cfg, x_flat):
         _, _, scores, logits = orig(p, cfg, x_flat)
-        idx = torch.as_tensor(next(it)["picks"], device=x_flat.device)
+        i = 0 if layer_of is None else layer_of[id(p)]
+        if layer_of is None or not T.recomputing():
+            last[i] = next(its[i], None)
+            _check(last[i] is not None, f"routed_as: layer {i} ran out of records")
+            used[i] += 1
+        else:
+            _check(last[i] is not None, f"routed_as: a recompute of layer {i} before its forward")
+        idx = torch.as_tensor(last[i]["picks"], device=x_flat.device)
         _check(tuple(idx.shape) == (x_flat.shape[0], cfg.moe.experts_per_token),
-               f"routed_as: call {len(used)} has {tuple(idx.shape)} picks for {x_flat.shape[0]} "
-               f"tokens")
-        used.append(1)
+               f"routed_as: layer {i} call {used[i] - 1} has {tuple(idx.shape)} picks for "
+               f"{x_flat.shape[0]} tokens")
         w = torch.gather(scores, -1, idx)
         return w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-9), idx, scores, logits
 
@@ -4724,7 +4799,8 @@ def routed_as(calls: list):
         yield
     finally:
         MOE.route = orig
-    _check(len(used) == len(calls), f"routed_as: {len(used)} of {len(calls)} calls used")
+    _check(used == [len(c) for c in lists],
+           f"routed_as: {used} of {[len(c) for c in lists]} calls used")
 
 
 def moe_walk_exempt(routing: dict, ref: dict) -> set:
@@ -4939,7 +5015,7 @@ def _kernels_vs_plain(model, cfg, run, label: str) -> tuple[object, float, dict]
     return got, _max_err(got, want), routing
 
 
-def phase_moe_serve(dev, spec: dict, profile_dir: Path | None = None) -> dict:
+def phase_moe_serve(dev, spec: dict, profile_dir: Path | None = None, model=None) -> dict:
     """17b / 17c: ``spec`` (MOE_V2 or MOE_V3) at full width.  (a) v2 only:
     MOE_SERVE_REF against JAX_MOE_SERVE (``compare_moe_serve``).  (b) The
     prefill step on 4 x 512 tokens: launches, wall, peak memory, and every
@@ -4949,14 +5025,15 @@ def phase_moe_serve(dev, spec: dict, profile_dir: Path | None = None) -> dict:
     argmax of its logits, and the decode loop's logits on the kernels
     against the plain versions the same way.  (d) v3: ``forward``'s
     ``mtp_logits`` on the kernels against the plain versions the same
-    way."""
+    way.  ``model``: the model of ``spec`` if the caller drew it (and keeps
+    it), else drawn here (``_moe_model``)."""
     import torch
 
     from repro_torch.models import transformer as T
     from repro_torch.serve import ServeEngine, build_prefill_step
 
     t_phase = time.perf_counter()
-    cfg, model = _moe_model(spec, dev)
+    cfg, model = _moe_model(spec, dev) if model is None else (moe_config(spec), model)
     nl = cfg.n_layers
     label = "v2" if spec is MOE_V2 else "v3"
     per_call = {"rmsnorm": 4 * nl + 1, "flash_attention_fwd": nl}
@@ -5076,6 +5153,1120 @@ def phase_moe_serve(dev, spec: dict, profile_dir: Path | None = None) -> dict:
             "prefill_tokens_per_s": b * tl / prefill_s, "generate_s": gen_s,
             "tokens_per_s": b * n / gen_s, "peak_gib": peak, "phase_s": wall,
             "routing_flips": {"prefill": routing["flipped"], "generate": dr["flipped"]}}
+
+
+# The moe training slice (phase 18): deepseek-v2-236b at its published width
+# cut to 2 layers (MOE_V2's model, drawn once for phases 17b and 18b: 1 dense
+# + 1 MoE layer, 160 experts top-6, capacity factor 1.25; bf16,
+# remat="block"), AdamW(lr=1e-3) with its default float32 moments and weight
+# decay 0.1, 4 x 512 tokens of ``SyntheticLMDataset`` a step, the schedule
+# warmed up in one step as TRAIN's; ``train()`` with the launcher's PowerSim
+# for ``power_steps`` steps at the same width.  deepseek-v3 does not train
+# at its width on one card (one MoE layer's 256 x 3 x 7168 x 2048 = 11.3 B
+# routed-expert parameters, with their gradients and moments, pass 80 GB):
+# its pieces (the sigmoid-bias router, the bias nudge, MTP) train at its
+# smoke width in MOE_TRAIN_REF.
+MOE_TRAIN = dict(seed=0, batch=4, seq_len=512, lr=1e-3, total_steps=10, warmup_steps=1, steps=3,
+                 power_steps=4)
+# The leaves whose first moment and updated values the checks sample, layer
+# 0 of a stack: the embedding, a dense-block MLA projection, the routed
+# experts' ``w_up`` cut to one expert that received tokens in the first step
+# (``expert``: the largest expert_load), the router kernel and ln_f.
+MOE_TRAIN_LEAVES = ("embed.embedding", "dense_blocks.attn.wq_b.kernel",
+                    "moe_blocks.moe.experts.w_up", "moe_blocks.moe.router.kernel", "ln_f.scale")
+MOE_EXPERT_LEAF = "moe_blocks.moe.experts.w_up"
+# A step's scalars that the checks hold (those a config has: v2 has no
+# mtp_loss, v3's load_balance is 0), beside expert_load.
+MOE_STEP_SCALARS = ("loss", "lm_loss", "load_balance", "router_z", "mtp_loss", "grad_norm",
+                    "dropped_fraction")
+# What tests/test_torch_moe_train_reference.py runs through the JAX package
+# on the CPU and what the card's run is held to (phase 18c): both smoke
+# configs (3 layers: 1 dense + 2 MoE, so the bias nudge averages two
+# layers' loads) at the published capacity factor 1.25, so pairs drop, in
+# float32; 4 x 128 tokens (two routing groups of 256) a step, 2 steps from
+# ``random_lm_tree(cfg, 0)``, AdamW and the schedule of MOE_TRAIN.
+MOE_TRAIN_REF = dict(archs=("deepseek_v2_236b", "deepseek_v3_671b"), capacity_factor=1.25,
+                     dtype="float32", seed=0, batch=4, seq_len=128, steps=2)
+
+# Tolerances of MOE_TRAIN_REF against the JAX package, float32, on JAX's
+# routing (the port's own routing is compared apart, its picks equal JAX's
+# but at a near-tie: a token within MOE_REF_TIE router-logit units of its
+# (k+1)-th expert, 100x the float32 noise of router logits whose inputs
+# differ by ~1e-6 relative; the smallest margins of the two runs are ~5e-6
+# and ~3e-5).  The two packages sum matmuls, softmax and the MoE combine
+# in other orders; measured with the port on the CPU (the card's, phase
+# 18c, printed beside them):
+# * loss, lm_loss, mtp_loss: 2e-5 absolute (measured 9.5e-7, 1.9e-6 mtp);
+# * grad_norm, load_balance, router_z: 2e-5 relative (1.3e-6, 3.3e-7);
+# * m: 1e-3 of the leaf's largest sampled |m| (5.8e-5);
+# * updated parameters: 4 float32 ulps plus 1e-3 lr per step where the
+#   moment is clear of zero (``grad_margin``, 4x the moment tolerance, of
+#   the leaf's largest), as TRAIN_TOL argues (9.7e-5); else 2 lr per step;
+# * the router bias, decay plus the nudge of +-1e-3 a step: 1e-7 (0).
+MOE_REF_TIE = 1e-4
+MOE_REF_TOL = dict(loss=2e-5, grad_norm=2e-5, aux=2e-5, m=1e-3, grad_margin=4e-3, param_ulps=4,
+                   update_frac=1e-3, ulp_bits=24, bias=1e-7)
+# The JAX package's numbers for MOE_TRAIN_REF, on the CPU (jax 0.9.0), printed by
+# ``python tests/test_torch_moe_train_reference.py``.
+JAX_MOE_TRAIN = {'deepseek_v2_236b': {'dropped_fraction': [0.22607421875, 0.2763671875],
+                      'expert': 3,
+                      'expert_load': [[0.3642578125, 0.1181640625, 0.193359375, 0.513671875,
+                                       0.126953125, 0.2822265625, 0.1005859375, 0.30078125],
+                                      [0.1640625, 0.130859375, 0.3955078125, 0.2822265625,
+                                       0.1474609375, 0.2578125, 0.4453125, 0.1767578125]],
+                      'grad_norm': [14.708057403564453, 11.432653427124023],
+                      'lm_loss': [6.591271877288818, 6.644425392150879],
+                      'load_balance': [0.010543644428253174, 0.010390838608145714],
+                      'loss': [6.605942249298096, 6.659082889556885],
+                      'm': [{'dense_blocks.attn.wq_b.kernel': [9.137564484262839e-05,
+                                                               5.836563286720775e-05,
+                                                               2.167327875213232e-05,
+                                                               -4.093208190170117e-05,
+                                                               -3.032715176232159e-05,
+                                                               -5.2259165386203676e-05,
+                                                               1.4029799785930663e-05,
+                                                               -8.269800673588179e-06,
+                                                               0.00010837061563506722,
+                                                               2.436445174680557e-05,
+                                                               -2.0815392417716794e-05,
+                                                               2.215333552157972e-05,
+                                                               -4.857548901782138e-06,
+                                                               -4.384874409879558e-05,
+                                                               -4.2581518755469006e-06,
+                                                               0.00010836950968950987],
+                             'embed.embedding': [0.0002466815640218556, 2.383796345384326e-05,
+                                                 0.00015710679872427136, 0.00011385860852897167,
+                                                 0.0005857422365806997, 0.0, 0.0, 0.0, 0.0, 0.0,
+                                                 0.0, 0.0, 0.0004843163478653878, 0.0, 0.0, 0.0],
+                             'ln_f.scale': [0.00012526067439466715, 0.00019091775175184011,
+                                            -2.5497176466160454e-05, 1.9521519789122976e-05,
+                                            2.2245685613597743e-05, -1.954556501004845e-05,
+                                            -4.12664157920517e-05, 7.99084227764979e-05,
+                                            0.00014089203614275903, 1.9795137632172555e-05,
+                                            7.382932381005958e-05, -3.5734516131924465e-05,
+                                            0.00010822949843714014, -1.4947212548577227e-05,
+                                            5.739572225138545e-05, -5.819213038193993e-05],
+                             'moe_blocks.moe.experts.w_up': [-1.5821915440028533e-06,
+                                                             3.425501972742495e-06,
+                                                             4.99007583130151e-05,
+                                                             2.142604955679417e-07,
+                                                             -2.432752523873205e-07,
+                                                             1.0857520464924164e-05,
+                                                             1.6772077287896536e-05,
+                                                             -5.766252343164524e-06,
+                                                             2.447238330205437e-06,
+                                                             -1.586139092069061e-06,
+                                                             -3.936345365218585e-06,
+                                                             5.8288419495511334e-06,
+                                                             -4.399651515996084e-06,
+                                                             3.5860284697264433e-06,
+                                                             -7.060481493681436e-06,
+                                                             1.582842628522485e-06],
+                             'moe_blocks.moe.router.kernel': [-1.8249795175506733e-05,
+                                                              3.8143112760735676e-05,
+                                                              -1.9886845166183775e-06,
+                                                              6.564554837495962e-07,
+                                                              3.009586907865014e-05,
+                                                              4.0164057281799614e-05,
+                                                              9.815792509471066e-06,
+                                                              1.843149402702693e-05,
+                                                              6.137795571703464e-05,
+                                                              -3.759913670364767e-05,
+                                                              -1.951558624568861e-05,
+                                                              -1.9014807548956014e-05,
+                                                              7.255098171299323e-05,
+                                                              1.1311682101222686e-05,
+                                                              4.410276596900076e-05,
+                                                              8.572221122449264e-05]},
+                            {'dense_blocks.attn.wq_b.kernel': [0.00013400634634308517,
+                                                               2.9944920242996886e-05,
+                                                               0.00013506031245924532,
+                                                               7.86234304541722e-05,
+                                                               -2.478231181157753e-05,
+                                                               -8.532538777217269e-05,
+                                                               7.25277786841616e-05,
+                                                               -3.925290729966946e-05,
+                                                               0.00018478069978300482,
+                                                               1.1216445273021236e-05,
+                                                               1.708562922431156e-05,
+                                                               -5.0338421715423465e-05,
+                                                               5.936277375440113e-06,
+                                                               -4.294657628634013e-05,
+                                                               -7.569600711576641e-06,
+                                                               0.0002098643162753433],
+                             'embed.embedding': [0.000222013404709287, 1.5956751667545177e-05,
+                                                 0.00021952293172944337, 0.00031041359761729836,
+                                                 0.0005671213148161769, 0.0, -0.0008900712127797306,
+                                                 -0.000621771439909935, 0.0, 0.0, 0.0, 0.0,
+                                                 0.0004358846927061677, 0.0, 0.0, 0.0],
+                             'ln_f.scale': [0.00021117873257026076, 0.00019421949400566518,
+                                            0.00011111998901469633, 7.470035779988393e-05,
+                                            2.110906279995106e-05, 4.0049148083198816e-05,
+                                            -0.0001728217612253502, 0.00015317864017561078,
+                                            0.00020783382933586836, 5.594841422862373e-05,
+                                            0.00021948522771708667, 0.00016201514517888427,
+                                            5.3980154916644096e-05, -0.00012052160309394822,
+                                            0.0002116638352163136, 8.30755234346725e-05],
+                             'moe_blocks.moe.experts.w_up': [1.9616605641203932e-05,
+                                                             1.7335104018911807e-07,
+                                                             3.157600440317765e-05,
+                                                             -8.102899300865829e-06,
+                                                             -2.7653925371851074e-06,
+                                                             1.4833900422672741e-05,
+                                                             2.2403963157557882e-05,
+                                                             -7.869647561165038e-06,
+                                                             9.317819831267116e-07,
+                                                             1.036272351484513e-06,
+                                                             -3.6361600450618425e-06,
+                                                             1.25073665913078e-05,
+                                                             -2.7919654144170636e-07,
+                                                             -3.3164553315145895e-05,
+                                                             -1.653275467106141e-05,
+                                                             -1.7760223727236735e-06],
+                             'moe_blocks.moe.router.kernel': [-4.3272983020870015e-05,
+                                                              -7.618447853019461e-05,
+                                                              9.88100582617335e-05,
+                                                              -7.287977496162057e-05,
+                                                              6.859594577690586e-05,
+                                                              -9.026861107486184e-07,
+                                                              -6.982825289014727e-05,
+                                                              -3.823783845291473e-05,
+                                                              3.20667058986146e-05,
+                                                              -2.9674454708583653e-05,
+                                                              -7.797212310833856e-05,
+                                                              -2.9295320928213187e-05,
+                                                              3.8918697100598365e-05,
+                                                              2.6897105271928012e-05,
+                                                              -3.291363827884197e-05,
+                                                              5.6139273510780185e-05]}],
+                      'params': {'dense_blocks.attn.wq_b.kernel': [0.11923827975988388,
+                                                                   -0.052443381398916245,
+                                                                   0.09855322539806366,
+                                                                   -0.004757130518555641,
+                                                                   0.09621170163154602,
+                                                                   0.06069829687476158,
+                                                                   0.09540225565433502,
+                                                                   -0.2706497013568878,
+                                                                   -0.09076868742704391,
+                                                                   -0.02536032348871231,
+                                                                   0.03664243593811989,
+                                                                   -0.00964423082768917,
+                                                                   -0.052147313952445984,
+                                                                   0.01589319109916687,
+                                                                   0.0973779559135437,
+                                                                   0.1328432410955429],
+                                 'embed.embedding': [-0.017833568155765533, -0.013214262202382088,
+                                                     -0.003709834534674883, -0.008812393993139267,
+                                                     0.013715624809265137, -0.03870707377791405,
+                                                     -0.010480686090886593, -0.011172626167535782,
+                                                     0.014743790961802006, 0.000651156937237829,
+                                                     -0.03999199718236923, 0.0023125940933823586,
+                                                     -3.92615984310396e-05, 0.02286127768456936,
+                                                     -0.03999199718236923, 0.006640085484832525],
+                                 'ln_f.scale': [0.9980103969573975, 0.9982384443283081,
+                                                1.0004010200500488, 0.9980883598327637,
+                                                0.9982854723930359, 1.000515103340149,
+                                                1.0018974542617798, 0.9979998469352722,
+                                                0.9980420470237732, 0.9980379343032837,
+                                                0.9980461597442627, 1.0003963708877563,
+                                                0.9986522197723389, 1.0018196105957031,
+                                                0.9980822801589966, 1.0005841255187988],
+                                 'moe_blocks.moe.experts.w_up': [0.14847666025161743,
+                                                                 -0.09267956018447876,
+                                                                 -0.10402040183544159,
+                                                                 -0.17701907455921173,
+                                                                 -0.10994929075241089,
+                                                                 0.08631718903779984,
+                                                                 -0.039777129888534546,
+                                                                 0.08502358943223953,
+                                                                 -0.04134518280625343,
+                                                                 -0.05140461027622223,
+                                                                 0.0030013227369636297,
+                                                                 0.10723143815994263,
+                                                                 0.023228663951158524,
+                                                                 0.08307699114084244,
+                                                                 -0.014439143240451813,
+                                                                 -0.07054764777421951],
+                                 'moe_blocks.moe.router.kernel': [0.022028641775250435,
+                                                                  -0.008284284733235836,
+                                                                  -0.00794817041605711,
+                                                                  -0.015196352265775204,
+                                                                  -0.03295310586690903,
+                                                                  0.028591837733983994,
+                                                                  0.012127058580517769,
+                                                                  0.02731928415596485,
+                                                                  -0.01466286275535822,
+                                                                  -0.011319500394165516,
+                                                                  0.03394634649157524,
+                                                                  0.03247230499982834,
+                                                                  -0.006623246241360903,
+                                                                  0.005501185543835163,
+                                                                  -0.008861604146659374,
+                                                                  -0.0320131778717041]},
+                      'router_z': [0.004126400221139193, 0.004266769625246525],
+                      'routing': [[('0501011601101460060701146007146167071017607414606770101706741460677010170674146167701017'
+                                    '6074146167701017017414616773171704741461677017170474146167701717047414616770171704741461'
+                                    '6773171704741461677017170474146167737117047441616773711704744161677371170474416175354040'
+                                    '3403033030200203030303370303033002020303030337033003300702030303033703300330070203030303'
+                                    '3703300330070203030303370330033007020303030337033003300702030303033703300330070203030303'
+                                    '3703300330070203030303370330033007020303030337033003300702033003033703306261516041065014'
+                                    '0157015745171656465045436505455057055754751665455040434550455757055754171665455040435450'
+                                    '4575570557541716564550404354354575750557451716504650404354354574750557451714504650404354'
+                                    '5345747505575417145046574045545345747505575417145046574045545345267072747371737471714776'
+                                    '7674034630344336747314477627747374373435743770372773347335733735473770377675353232377437'
+                                    '5327755723375737753047355773327573756534753574625453735337353557737554573265233703650770'
+                                    '35535373372135420620303212530227363553323752212537757502'),
+                                   ('7173377473167153616337606136303036367536546535745374363635643663036236363565363650633662'
+                                    '5365563635353553365056505005533553600345305675305065676535753554020553235353566053067550'
+                                    '5063560303366506075353560636235363060230320335060660535235305235523575520305050574737373'
+                                    '7372727070737637010770757307750575737073730701040773730775077573707073070407077373077270'
+                                    '7575707373070407077373077270757570737307047070747307720775757073730704707074730775077575'
+                                    '7073730704747074730775077575707373700474707473077507757570737370047470744747372337472736'
+                                    '7213202326323237323224272627372423623132733234232726277124216231237332342327262771422162'
+                                    '3123733234262762277142216231237332342627622117242162312373323426216121172421623123733234'
+                                    '2621612171242162312371323426216121172421623124713234262163211624070506055604262526626262'
+                                    '2762622625266262622662262626266262622662262626266262622662262626266262622626262626266262'
+                                    '6226262626262662626226262626262662626226262626262662626226262026262662626226262626262662'
+                                    '62622626202626266262622626262626266262622626202626266262')],
+                                  [('6767733773700662253230033230062323233036320320232732033031030223273703033103202327370330'
+                                    '3103022327370330210302232737033013032023273703301307022327370330130702232737033013070223'
+                                    '2737030313070223273703031307022127370303130702212737030313070221273703301307022140020507'
+                                    '7403040556565004030507530303505750050405030753033005535350020303075307300553535002030307'
+                                    '5303300535535002030303350330053553530203030335033205355353020303033503350535505302030303'
+                                    '3503350535055302030303350335053550530203030335033505535353020330033503353634322332322332'
+                                    '2323233235343223343232322325322553235335323232353131323225322553253535353223353131323525'
+                                    '3225532535353532233531323235253223532535353532233535323235253232532535353532233535323235'
+                                    '5232325325353535322335353232355232325325355335322335353232322332677073757073737173737572'
+                                    '7070717063727063360270767370757075707305233730273773577372733723323723737075756075377507'
+                                    '3756537335672775321765353737723551532572373572074235536735303653367535377235363756370235'
+                                    '56232372635676270303655353567373037356363035360116233536'),
+                                   ('4234311212211334214131124002424264324223422624522424605025233402202324542524256323232626'
+                                    '2424252527274325023654255364253430432356323223255356542523575223022335536223243554625223'
+                                    '2427636253563626566523262663422727602065623065625330236236355362043426256223324202434520'
+                                    '1216141216202324411012244213121243421340231245011324421312124345134023134531132443131212'
+                                    '4341134323134531132443131221434513433231453113244312122143451443341345011024431212214345'
+                                    '1443344145131424431412414343144343414113144243141242434314434343411314241261631660601660'
+                                    '6126366160626026326160616061266062632670203263606162612660626326732031636062626226606260'
+                                    '2637203263606262622360626026372032636062622126606260263720326360266321266062602637203263'
+                                    '6026632626606260263702326360266326266062606263013263602660262360656565566565656565656565'
+                                    '6565656565656565656565656565656565656565656565656565656565656565656565656565656565656565'
+                                    '6565656565656565656565656565656565656565656565656565656565656565656565656565656565656565'
+                                    '65656565656565656565656565656565656565656565656565656565')]]},
+ 'deepseek_v3_671b': {'dropped_fraction': [0.1953125, 0.259765625],
+                      'expert': 3,
+                      'expert_load': [[0.359375, 0.1650390625, 0.1494140625, 0.4541015625,
+                                       0.1259765625, 0.3232421875, 0.1435546875, 0.279296875],
+                                      [0.142578125, 0.21875, 0.419921875, 0.279296875, 0.1572265625,
+                                       0.15625, 0.4375, 0.1884765625]],
+                      'grad_norm': [18.484281539916992, 13.928427696228027],
+                      'lm_loss': [6.761205673217773, 6.5951128005981445],
+                      'load_balance': [0.0, 0.0],
+                      'loss': [8.741442680358887, 8.533012390136719],
+                      'm': [{'dense_blocks.attn.wq_b.kernel': [0.0001397312298649922,
+                                                               4.416722367750481e-05,
+                                                               -3.818891127593815e-05,
+                                                               -5.543639053939842e-05,
+                                                               -1.002342742140172e-05,
+                                                               -8.007743417692836e-06,
+                                                               -2.664140447450336e-05,
+                                                               1.660563430050388e-05,
+                                                               6.49864596198313e-05,
+                                                               0.00010384561028331518,
+                                                               -0.00011413136962801218,
+                                                               3.5771452076005517e-06,
+                                                               4.719496064353734e-05,
+                                                               -8.559207344660535e-05,
+                                                               -4.84662314192974e-06,
+                                                               0.0001975581981241703],
+                             'embed.embedding': [0.00012739241356030107, -5.4069394536782056e-05,
+                                                 0.0002954014344140887, 2.1752990505774505e-05,
+                                                 -0.00017243808542843908, 0.0, 0.0, 0.0, 0.0, 0.0,
+                                                 0.0, 0.0, 0.0007874789880588651, 0.0, 0.0, 0.0],
+                             'ln_f.scale': [3.253625982324593e-05, 0.00013012155250180513,
+                                            -8.506671292707324e-05, -4.950320089847082e-06,
+                                            3.7695604987675324e-05, -6.476695853052661e-05,
+                                            -1.1628058018686716e-05, 3.417685366002843e-05,
+                                            0.00014060991816222668, 0.0001764927146723494,
+                                            0.00010147815191885456, -2.7693395168171264e-06,
+                                            7.711550279054791e-05, -0.00010499540803721175,
+                                            5.2579674957087263e-05, -1.186653389595449e-05],
+                             'moe_blocks.moe.experts.w_up': [3.9861711229605135e-06,
+                                                             1.943184088304406e-06,
+                                                             3.63040562660899e-05,
+                                                             1.4084336044106749e-06,
+                                                             -9.407792276761029e-06,
+                                                             1.2347962183412164e-05,
+                                                             1.2520031305029988e-05,
+                                                             -5.938074082223466e-06,
+                                                             3.3590793009352637e-06,
+                                                             -3.8959751691436395e-06,
+                                                             -1.6365389683414833e-06,
+                                                             3.91749517802964e-06,
+                                                             -1.1769454886234598e-06,
+                                                             2.7702130864781793e-06,
+                                                             -7.791139978508e-06,
+                                                             5.345673343981616e-06],
+                             'moe_blocks.moe.router.kernel': [-1.3527225064535742e-06,
+                                                              2.5549993551976513e-06,
+                                                              -1.144261477747932e-05,
+                                                              3.7226332096906845e-06,
+                                                              7.665132216061465e-06,
+                                                              1.9723876903299242e-05,
+                                                              5.427550149761373e-06,
+                                                              3.1160761864157394e-06,
+                                                              4.818969614461821e-07,
+                                                              -1.535261981189251e-05,
+                                                              -7.874787115724757e-07,
+                                                              9.51403853832744e-06,
+                                                              1.9688426618813537e-05,
+                                                              -1.4347462638397701e-05,
+                                                              3.4508233511587605e-05,
+                                                              -2.1040737919975072e-05]},
+                            {'dense_blocks.attn.wq_b.kernel': [8.711124974070117e-05,
+                                                               1.543091275379993e-05,
+                                                               5.771556243416853e-05,
+                                                               -5.5697219067951664e-05,
+                                                               -2.2167461793287657e-05,
+                                                               -5.798629558739776e-07,
+                                                               -5.2300245442893356e-05,
+                                                               7.68925565353129e-06,
+                                                               0.00016461225459352136,
+                                                               0.0001259125128854066,
+                                                               -3.796795499511063e-05,
+                                                               -5.127159602125175e-05,
+                                                               5.2557657909346744e-05,
+                                                               -0.00011664546764222905,
+                                                               3.229931462556124e-05,
+                                                               0.0002694798167794943],
+                             'embed.embedding': [0.00011465317220427096, 0.00013929315900895745,
+                                                 0.00069081672700122, 0.00012951325334142894,
+                                                 -0.0002461872063577175, 0.0,
+                                                 -3.318727613077499e-05, -0.00046388874761760235,
+                                                 0.0, 0.0, 0.0, 0.0, 0.0007087310659699142, 0.0,
+                                                 0.0, 0.0],
+                             'ln_f.scale': [0.00016890592814888805, 6.69884102535434e-05,
+                                            1.1067759260185994e-05, 6.0092723288107663e-05,
+                                            -4.020263020265702e-07, 1.6752030205680057e-05,
+                                            -0.0001018060720525682, 0.00011135785462101921,
+                                            0.00016553100431337953, 0.00019956960750278085,
+                                            0.00021529255900532007, 0.00013971175940241665,
+                                            0.00011299733887426555, -0.0001688713819021359,
+                                            0.00012216344475746155, 5.058000169810839e-05],
+                             'moe_blocks.moe.experts.w_up': [1.7752739950083196e-05,
+                                                             -8.930416697694454e-06,
+                                                             2.763259362836834e-05,
+                                                             -1.4196177289704792e-05,
+                                                             -1.086136035155505e-05,
+                                                             8.691516995895654e-06,
+                                                             1.1747431017283816e-05,
+                                                             -3.819415269390447e-06,
+                                                             2.4215303255914478e-06,
+                                                             -1.8424373138259398e-06,
+                                                             -3.41305417350668e-06,
+                                                             4.361349510872969e-06,
+                                                             1.460695784771815e-06,
+                                                             6.972240953473374e-06,
+                                                             -5.3846710216021165e-05,
+                                                             5.526467248273548e-06],
+                             'moe_blocks.moe.router.kernel': [1.3956095017420012e-06,
+                                                              2.4016886527533643e-05,
+                                                              9.545358807372395e-06,
+                                                              -1.425623213435756e-05,
+                                                              6.934935754543403e-06,
+                                                              1.1617463314905763e-05,
+                                                              -2.273933387186844e-05,
+                                                              9.351660992251709e-06,
+                                                              -6.33099580227281e-06,
+                                                              -7.206556801975239e-06,
+                                                              -3.669524812721647e-05,
+                                                              -4.5808728827978484e-06,
+                                                              3.967824341088999e-06,
+                                                              -5.181597316550324e-06,
+                                                              3.527038643369451e-05,
+                                                              2.3020531443762593e-05]}],
+                      'mtp_loss': [6.586953163146973, 6.445296287536621],
+                      'params': {'dense_blocks.attn.wq_b.kernel': [0.11974209547042847,
+                                                                   -0.052313182502985,
+                                                                   0.10097088664770126,
+                                                                   -0.003530856454744935,
+                                                                   0.09659230709075928,
+                                                                   0.059755731374025345,
+                                                                   0.0992698147892952,
+                                                                   -0.2738470137119293,
+                                                                   -0.09075629711151123,
+                                                                   -0.02591455914080143,
+                                                                   0.03716430068016052,
+                                                                   -0.009457106702029705,
+                                                                   -0.05458255112171173,
+                                                                   0.016085408627986908,
+                                                                   0.0957399308681488,
+                                                                   0.13291485607624054],
+                                 'embed.embedding': [-0.017833560705184937, -0.011247809045016766,
+                                                     -0.0037604286335408688, -0.008694601245224476,
+                                                     0.01739041693508625, -0.03870707377791405,
+                                                     -0.01048071589320898, -0.011172627098858356,
+                                                     0.014743790961802006, 0.000651156937237829,
+                                                     -0.03999199718236923, 0.0023125940933823586,
+                                                     -3.926295539713465e-05, 0.02286127768456936,
+                                                     -0.03999199718236923, 0.006640085484832525],
+                                 'ln_f.scale': [0.9981330037117004, 0.9986389875411987,
+                                                1.0009325742721558, 1.0003174543380737,
+                                                0.999005913734436, 1.000874400138855,
+                                                1.0018128156661987, 0.9980615973472595,
+                                                0.9981461763381958, 0.9981703162193298,
+                                                0.9980022311210632, 1.0002777576446533,
+                                                0.9980442523956299, 1.0019811391830444,
+                                                0.9980101585388184, 1.000403642654419],
+                                 'moe_blocks.moe.experts.w_up': [0.14627286791801453,
+                                                                 -0.09204550087451935,
+                                                                 -0.10412842035293579,
+                                                                 -0.17706851661205292,
+                                                                 -0.10989738255739212,
+                                                                 0.08672614395618439,
+                                                                 -0.03956454619765282,
+                                                                 0.08456379920244217,
+                                                                 -0.041626449674367905,
+                                                                 -0.05081600695848465,
+                                                                 0.0033030337654054165,
+                                                                 0.10740861296653748,
+                                                                 0.022804198786616325,
+                                                                 0.0814308449625969,
+                                                                 -0.014593909494578838,
+                                                                 -0.07168743759393692],
+                                 'moe_blocks.moe.router.kernel': [0.020690202713012695,
+                                                                  -0.009571564383804798,
+                                                                  -0.007534190081059933,
+                                                                  -0.015343801118433475,
+                                                                  -0.03264325112104416,
+                                                                  0.0281564611941576,
+                                                                  0.01207367517054081,
+                                                                  0.02588033862411976,
+                                                                  -0.013607416301965714,
+                                                                  -0.011587094515562057,
+                                                                  0.03378953039646149,
+                                                                  0.02971121110022068,
+                                                                  -0.006367741152644157,
+                                                                  0.008726248517632484,
+                                                                  -0.009912985377013683,
+                                                                  -0.029896805062890053]},
+                      'router_bias': [[[-0.0010000000474974513, 0.0010000000474974513,
+                                        0.0010000000474974513, -0.0010000000474974513,
+                                        0.0010000000474974513, -0.0010000000474974513,
+                                        0.0010000000474974513, -0.0010000000474974513],
+                                       [-0.0010000000474974513, 0.0010000000474974513,
+                                        0.0010000000474974513, -0.0010000000474974513,
+                                        0.0010000000474974513, -0.0010000000474974513,
+                                        0.0010000000474974513, -0.0010000000474974513]],
+                                      [[1.00000761449337e-07, 0.001999900210648775,
+                                        -1.00000761449337e-07, -0.001999900210648775,
+                                        0.001999900210648775, 1.00000761449337e-07,
+                                        -1.00000761449337e-07, 1.00000761449337e-07],
+                                       [1.00000761449337e-07, 0.001999900210648775,
+                                        -1.00000761449337e-07, -0.001999900210648775,
+                                        0.001999900210648775, 1.00000761449337e-07,
+                                        -1.00000761449337e-07, 1.00000761449337e-07]]],
+                      'router_z': [0.004151131957769394, 0.004311129916459322],
+                      'routing': [[('0501011601101460060701146007146167071017607414606770101706741460677010170674146167701017'
+                                    '6074146167701017017414616773171704741461677017170474146167701717047414616770171704741461'
+                                    '6773171704741461677017170474146167737117047441616773711704744161677371170474416175354040'
+                                    '3403033030200203030303370303033002020303030337033003300702030303033703300330070203030303'
+                                    '3703300330070203030303370330033007020303030337033003300702030303033703300330070203030303'
+                                    '3703300330070203030303370330033007020303030337033003300702033003033703306261516041065014'
+                                    '0157015745171656465045436505455057055754751665455040434550455757055754171665455040435450'
+                                    '4575570557541716564550404354354575750557451716504650404354354574750557451714504650404354'
+                                    '5345747505575417145046574045545345747505575417145046574045545345267072747371737471714776'
+                                    '7674034630344336747314477627747374373435743770372773347335733735473770377675353232377437'
+                                    '5327755723375737753047355773327573756534753574625453735337353557737554573265233703650770'
+                                    '35535373372135420620303212530227363553323752212537757502'),
+                                   ('7174137414161753166337616136313536711613136523743527323435463636302637373263353656363706'
+                                    '3562753623325327365026755226235635606043365675307561676532701364625253272523656252067550'
+                                    '5163652030066506753553266052212523060230232135200206352632372521253075250605052574737373'
+                                    '7371727373737673067070737370720575737073737001707073730772707573707373700474707373077270'
+                                    '7373707373700474707373077270737370737370407470737307727073737073737040747073730772707573'
+                                    '7073737040747073730772707573707373704074707373077270757370737370407470734747372337422736'
+                                    '7231232326323237323224272627372423623232733234242726277324236232237332342327262771422362'
+                                    '3223733234262762277342216232237332342627622717242162362371324326276223172421623623713243'
+                                    '2623612117242162362471324326236121162421623624713234262363216124070505505605262526626262'
+                                    '2762262626266262262626262626266262262626262626266262262626262626266262262626262626266262'
+                                    '2626262026262626622626262026262626622626262026262626622626262026262626622626262026262626'
+                                    '62262626202626262662262626202626262662262626202626262662')],
+                                  [('7661671652070562103256105305026215231610310502261532161013050226513210011306026215321601'
+                                    '1505022651531001120502625153010115560226155301011205022615530101120602265135010712050226'
+                                    '5135010312060226153501061206022615350106120502265135010612050226513501061205022640520505'
+                                    '3713075056565740075407530730050557505005030753073005055305050703075307300505530305070307'
+                                    '5303300330533535030307530335033053353503030353033503305335350703035303350330533535070303'
+                                    '3503350330533530033030353735303053353003303035733530355335300330303570353234313235233232'
+                                    '2332323535343232323535353213322332233535313232353132353531323535233535353232351335353531'
+                                    '3235352535353532323531353535353232352335353532233531353535353235352535353532233531353535'
+                                    '5332353525353535322335353535355332353523353535322335353535323532600773707073707175717071'
+                                    '0707176760717263730767703072747437077007177603733273567027737023737263707257757175725670'
+                                    '3627057131763256637167625373736717652330733563702535566527653263646556736732367063630235'
+                                    '72325727636567563006653565677275737365633657350602653536'),
+                                   ('4143131312121335124231211321242163232324702021272320060225213203322320522426232020232062'
+                                    '0727255202272626023625022126422306622352622125236752262320705362022532656224652364636564'
+                                    '2462366342633602612623652636646225320660266526267232326536235232022064566062367202434324'
+                                    '1414411414414143411414421414121242411441411441141242141412124141124141144114124214141212'
+                                    '4141124141144114124114131212414512414141411414411414122142451241414141141441141412214245'
+                                    '1241414141141441141412234245124141414114144114141223424512414141411414411661636263606062'
+                                    '6062366360623030366360016260266336636230303263606062612363636362370332636061266123363663'
+                                    '6230033263606126612363133662300332636061266123631336623003323660162623236331366230033263'
+                                    '6025322123633136623003323660256223236331366236033236602362232363676567566565616565656165'
+                                    '6565656161616565656561656161616565656162656161616565656162656161616565656162656161616765'
+                                    '6561616561616165656565616561616565656565616561676565656565616561676565656565616561656565'
+                                    '65656561656167656565656561656167656565656565656165656565')]]}}
+
+
+def moe_train_config(arch: str):
+    """MOE_TRAIN_REF's config of ``arch``: its smoke config at the published
+    capacity factor, in float32."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+
+    cfg = smoke_config(arch)
+    return dataclasses.replace(cfg, dtype=MOE_TRAIN_REF["dtype"], moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_TRAIN_REF["capacity_factor"]))
+
+
+def moe_train_launches(cfg) -> dict:
+    """The kernel launches of one ``build_train_step`` step of the ``moe``
+    config ``cfg`` with ``remat="block"``: each of the ``L`` blocks runs its
+    norms (ln1, ln2 and MLA's ``q_a_norm`` and ``kv_a_norm``) and the flash
+    forward twice (forward and recompute), ln_f once, an MTP head once more
+    (its block, not checkpointed, and its norm); the flash backward once a
+    block and an MTP block."""
+    nl, mtp = cfg.n_layers, cfg.mtp_depth
+    norms = 4 if cfg.mla.q_lora_rank else 3
+    return {"flash_attention_fwd": 2 * nl + mtp, "flash_attention_bwd_dkv": nl + mtp,
+            "flash_attention_bwd_dq": nl + mtp, "rmsnorm": 2 * norms * nl + 1 + (norms + 1) * mtp}
+
+
+def _host(x):
+    import numpy as np
+
+    return np.asarray(x.detach().float().cpu() if hasattr(x, "detach") else x, np.float64)
+
+
+def moe_step_record(metrics) -> dict:
+    """A step's scalars (``MOE_STEP_SCALARS`` present in ``metrics``) and
+    its ``expert_load``, as floats, from either package's metrics."""
+    rec = {k: float(_host(metrics[k])) for k in MOE_STEP_SCALARS if k in metrics}
+    rec["expert_load"] = _host(metrics["expert_load"]).tolist()
+    return rec
+
+
+def moe_train_samples(leaf_array, expert: int) -> dict:
+    """``train_samples`` of ``MOE_TRAIN_LEAVES`` (``leaf_array(path)``: layer
+    0 of a stacked leaf), the routed experts' leaf cut to ``expert``."""
+    return train_samples(lambda p: leaf_array(p)[expert] if p == MOE_EXPERT_LEAF
+                         else leaf_array(p), MOE_TRAIN_LEAVES)
+
+
+def moe_train_summary(records: list, expert: int, params: dict, moments: list,
+                      biases: list | None = None) -> dict:
+    """The numbers of a moe training run that the checks compare (either
+    package): per step each of ``moe_step_record``'s entries, the sampled
+    expert, the sampled updated parameters (after the last step) and first
+    moments (after each step), and with a sigmoid-bias router every MoE
+    layer's whole bias after each step."""
+    out = {k: [r[k] for r in records] for k in records[0]}
+    out.update(expert=expert, params=params, m=moments)
+    if biases is not None:
+        out["router_bias"] = biases
+    return out
+
+
+def _port_leaf(path: str) -> str:
+    return path.replace("blocks.", "blocks.0.", 1)
+
+
+def port_moe_train_reference(cfg, dev, want: dict | None = None) -> dict:
+    """MOE_TRAIN_REF's steps of ``cfg`` through the port on ``dev`` from
+    ``random_lm_tree(cfg, seed)``: ``moe_train_summary`` of the run.  With
+    ``want`` (a ``JAX_MOE_TRAIN`` entry) every MoE layer routes as
+    ``want["routing"]`` says (``routed_as``, the recompute replaying its
+    forward) and ``want["expert"]`` is sampled; else its own routing, and
+    the largest load of the first step.  Also its own routing, as
+    ``capture_routing`` records it (``routing``), and the smallest margin
+    of any of its tokens (``min_margin``, in router-logit units)."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import build_train_step
+
+    ref = MOE_TRAIN_REF
+    model = convert.lm_params_from_numpy(convert.random_lm_tree(cfg, ref["seed"]), cfg,
+                                         device=dev)
+    opt = AdamWConfig(lr=MOE_TRAIN["lr"])
+    params = dict(model.named_parameters())
+    state = adamw_init(params, opt)
+    step = build_train_step(cfg, opt, total_steps=MOE_TRAIN["total_steps"],
+                            warmup_steps=MOE_TRAIN["warmup_steps"])
+    ds = SyntheticLMDataset(DataConfig(seed=ref["seed"], batch=ref["batch"],
+                                       seq_len=ref["seq_len"], vocab_size=cfg.vocab_size))
+    host = lambda t: t.detach().to(torch.float32).cpu().numpy()
+    expert = None if want is None else want["expert"]
+    bias = cfg.moe.router == "sigmoid_bias"
+    records, moments, biases = [], [], []
+    imposed = contextlib.nullcontext() if want is None else routed_as(picks_records(want), model)
+    with capture_routing(model) as own, imposed:
+        for i in range(ref["steps"]):
+            model, state, metrics = step(model, state, ds.batch_at(i), i)
+            records.append(moe_step_record(metrics))
+            if expert is None:
+                expert = int(torch.argmax(metrics["expert_load"]))
+            moments.append(moe_train_samples(lambda p: host(state.m[_port_leaf(p)]), expert))
+            if bias:
+                biases.append([host(b.moe.router.bias).tolist() for b in model.moe_blocks])
+    sampled = moe_train_samples(lambda p: host(params[_port_leaf(p)]), expert)
+    out = moe_train_summary(records, expert, sampled, moments, biases if bias else None)
+    out["routing"] = own
+    out["min_margin"] = min(min(r["margin"]) for layer in own for r in layer)
+    return out
+
+
+def picks_text(picks) -> str:
+    """A MoE call's picks ``(N, k)`` as one hex digit an expert (up to 16
+    experts, as the smoke configs have), row by row: ``JAX_MOE_TRAIN``'s
+    compact record of a routing."""
+    import numpy as np
+
+    p = np.asarray(picks)
+    assert p.max() < 16
+    return "".join(f"{e:x}" for e in p.reshape(-1))
+
+
+def picks_records(want: dict) -> list:
+    """``want["routing"]`` (``picks_text`` per MoE layer per forward pass of
+    MOE_TRAIN_REF's tokens) as ``routed_as``' records."""
+    n = MOE_TRAIN_REF["batch"] * MOE_TRAIN_REF["seq_len"]
+
+    def record(text):
+        k = len(text) // n
+        return {"picks": [[int(c, 16) for c in text[i:i + k]] for i in range(0, len(text), k)]}
+
+    return [[record(text) for text in layer] for layer in want["routing"]]
+
+
+def compare_moe_picks(got: list, want: list, tie: float) -> tuple[list[str], int]:
+    """The picks of ``got`` (``capture_routing``'s records, per MoE layer
+    per forward pass) against ``want``'s (the same layout): a token whose
+    experts differ as a set is a failure unless its own margin is within
+    ``tie`` (a near-tie flip, counted)."""
+    import numpy as np
+
+    bad, flipped = [], 0
+    for layer, (gs, ws) in enumerate(zip(got, want)):
+        for call, (g, w) in enumerate(zip(gs, ws)):
+            gp, wp = np.sort(np.asarray(g["picks"]), -1), np.sort(np.asarray(w["picks"]), -1)
+            for i in np.flatnonzero((gp != wp).any(-1)):
+                if g["margin"][i] <= tie:
+                    flipped += 1
+                else:
+                    bad.append(f"layer {layer} pass {call} token {i}: experts {gp[i].tolist()} vs "
+                               f"{wp[i].tolist()} (margin {g['margin'][i]:.3e})")
+    return bad, flipped
+
+
+def compare_moe_train(got: dict, want: dict, lr: float, tol: dict) -> list[str]:
+    """Failures of ``got`` against ``want`` (``moe_train_summary``s) under
+    ``tol``: ``compare_train``'s loss, grad norm, moments and parameters on
+    ``MOE_TRAIN_LEAVES``; ``lm_loss`` and ``mtp_loss`` as the loss;
+    ``load_balance`` and ``router_z`` to ``tol["aux"]`` relative;
+    ``expert_load`` and ``dropped_fraction`` exactly; the router bias to
+    ``tol["bias"]``."""
+    bad = []
+    if got["expert"] != want["expert"]:
+        return [f"sampled expert {got['expert']} vs {want['expert']}"]
+    info = {"routing", "min_margin"}
+    if set(got) - info != set(want) - info:
+        return [f"summary keys {sorted(got)} vs {sorted(want)}"]
+    bad += compare_train(got, want, lr, tol, MOE_TRAIN_LEAVES)
+    for i in range(len(want["loss"])):
+        for k in ("lm_loss", "mtp_loss"):
+            if k in want and not abs(got[k][i] - want[k][i]) <= tol["loss"]:
+                bad.append(f"step {i}: {k} {got[k][i]!r} vs {want[k][i]!r}")
+        for k in ("load_balance", "router_z"):
+            g, w = got[k][i], want[k][i]
+            if not abs(g - w) <= tol["aux"] * abs(w):
+                bad.append(f"step {i}: {k} {g!r} vs {w!r}")
+        for k in ("expert_load", "dropped_fraction"):
+            if got[k][i] != want[k][i]:
+                bad.append(f"step {i}: {k} {got[k][i]!r} vs {want[k][i]!r}")
+        if "router_bias" in want:
+            for layer, (g, w) in enumerate(zip(got["router_bias"][i], want["router_bias"][i])):
+                far = [(e, a, b) for e, (a, b) in enumerate(zip(g, w))
+                       if not abs(a - b) <= tol["bias"]]
+                if far:
+                    bad.append(f"step {i}: layer {layer} router bias differs at {far[:4]}")
+    return bad
+
+
+def moe_train_max_diff(got: dict, want: dict, lr: float, tol: dict) -> dict:
+    """``train_max_diff`` on ``MOE_TRAIN_LEAVES`` plus the largest absolute
+    differences of ``lm_loss`` and ``mtp_loss``, the relative ones of the two
+    aux losses, and the router bias's absolute one."""
+    out = train_max_diff(got, want, lr, tol, MOE_TRAIN_LEAVES)
+    for k in ("lm_loss", "mtp_loss", "load_balance", "router_z"):
+        if k in want:
+            rel = k in ("load_balance", "router_z")
+            out[k] = max(abs(g - w) / (abs(w) if rel and w else 1.0)
+                         for g, w in zip(got[k], want[k]))
+    if "router_bias" in want:
+        out["router_bias"] = max(abs(a - b)
+                                 for gs, ws in zip(got["router_bias"], want["router_bias"])
+                                 for g, w in zip(gs, ws) for a, b in zip(g, w))
+    return out
+
+
+# Tolerances of phase 18b, step 1 on the kernels against the same step on
+# the plain versions on one routing (the plain run's, imposed): TRAIN_TOL
+# (its reasons hold: bf16 gradients summed in other orders, the flash
+# kernels keeping the attention's probabilities in float32), and for
+# ``load_balance`` and ``router_z`` 5e-3 relative, as the grad norm: means
+# over the 2048 tokens of float32 functions of router logits whose bf16
+# inputs differ by an ulp or two between the two routes.
+MOE_TRAIN_TOL = dict(TRAIN_TOL, aux=5e-3)
+
+
+def _moe_step_summary(model, state, metrics, expert: int) -> dict:
+    """``moe_train_summary`` of one step of a port model."""
+    import torch
+
+    params = dict(model.named_parameters())
+    host = lambda t: t.detach().to(torch.float32).cpu().numpy()
+    return moe_train_summary(
+        [moe_step_record(metrics)], expert,
+        moe_train_samples(lambda p: host(params[_port_leaf(p)]), expert),
+        [moe_train_samples(lambda p: host(state.m[_port_leaf(p)]), expert)])
+
+
+def _bit_prints(tensors: dict) -> dict:
+    """Per tensor two sums of its bits read as integers, plain and weighted
+    by position (mod 65521, + 1), over slices of 2^25 elements: equal
+    tensors give equal prints, and a changed bit changes the first."""
+    import torch
+
+    out = {}
+    for name, x in tensors.items():
+        flat = x.detach().reshape(-1).view(torch.int16 if x.element_size() == 2 else torch.int32)
+        s = w = 0
+        for i in range(0, flat.numel(), 1 << 25):
+            b = flat[i:i + (1 << 25)].to(torch.int64)
+            pos = torch.arange(i, i + b.numel(), device=b.device) % 65521 + 1
+            s, w = s + torch.sum(b), w + torch.sum(b * pos)
+        out[name] = (int(s), int(w))
+    return out
+
+
+def phase_moe_train_kernels(dev) -> dict:
+    """18a: the flash backward at deepseek's MLA training shape (q, k (4,
+    128, 512, 192), v (4, 128, 512, 128), causal bf16) through
+    ``FlashAttention`` (v and the cotangent zero-padded to 192, dv cut
+    back), held as phase 7 holds it against the plain backward on the same
+    residuals and against autograd through the plain attention, and both
+    kernels timed beside the plain backward and the library's (autograd
+    through ``F.scaled_dot_product_attention`` at 192/128, backward only),
+    with the bound of the model's work (``_flash_bwd_bytes_ops`` at v's
+    width) and the padded work the kernels do."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa, ref
+
+    cfg = moe_config(MOE_V2)
+    m = cfg.mla
+    gen = torch.Generator(device=dev).manual_seed(18)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    bf16 = torch.bfloat16
+    b, t, h = MOE_TRAIN["batch"], MOE_TRAIN["seq_len"], cfg.n_heads
+    dqk, dv = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+    scale = dqk ** -0.5
+    q, k = (randn(b, h, t, dqk).to(bf16) for _ in range(2))
+    v, do = (randn(b, h, t, dv).to(bf16) for _ in range(2))
+    by_route = lambda: [dict(f.route_launches) for f in (fa.flash_bwd_dkv, fa.flash_bwd_dq)]
+    before = by_route()
+    ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+    got = torch.autograd.grad(fa.FlashAttention.apply(ql, kl, vl, True, None), (ql, kl, vl), do)
+    took = {r for b_, a_ in zip(before, by_route()) for r in a_ if a_[r] != b_[r]}
+    _check(len(took) == 1, f"flash backward mla: one route for both kernels, took {took}")
+    route = next(iter(took))
+    vp, dop = fa.pad_value(v, dqk), fa.pad_value(do, dqk)
+    o, lse = fa.flash_attention_fwd(q, k, vp, causal=True, scale=scale)
+    plain = ref.flash_attention_bwd(q, k, vp, o, lse, dop, causal=True, scale=scale)
+    plain = (plain[0], plain[1], plain[2][..., :dv])
+    qw, kw, vw = (x.float().requires_grad_() for x in (q, k, v))
+    auto = torch.autograd.grad(ref.attention(qw, kw, vw, causal=True, scale=scale), (qw, kw, vw),
+                               do.float())
+    torch.cuda.synchronize()
+    line = f"flash bwd   mla q, k {tuple(q.shape)} v {tuple(v.shape)} bf16 [{route}]:"
+    ok, err = True, 0.0
+    for nm, g, p, a in zip(("dq", "dk", "dv"), got, plain, auto):
+        g64, p64, a64 = g.double(), p.double(), a.double()
+        sc = float(p64.abs().max())
+        e_p, e_a = float((g64 - p64).abs().max()), float((g64 - a64).abs().max())
+        # As phase 7 holds bf16: one bf16 ulp of the element plus 1e-5 x
+        # scale against the plain backward, plus 2^-7 x scale against
+        # autograd of the plain attention (bf16 residuals o and dO).
+        ok &= tuple(g.shape) == tuple(p.shape) and bool(
+            ((g64 - p64).abs() <= 2.0**-7 * p64.abs() + 1e-5 * sc).all())
+        ok &= bool(((g64 - a64).abs() <= 2.0**-7 * a64.abs() + 2.0**-7 * sc).all())
+        line += f" {nm} {e_p:.3e}/{e_a:.3e} (max {sc:.3f})"
+        err = max(err, e_p)
+    print(line + "  [kernel - plain backward / - autograd of plain attention]")
+    _check(ok, "flash backward at MLA's shape vs plain")
+    lse_c, delta = lse.contiguous(), torch.sum(dop.float() * o.float(), dim=-1)
+    dkv_ms = _median_ms(lambda: fa.flash_bwd_dkv(q, k, vp, dop, lse_c, delta, causal=True,
+                                                 scale=scale))
+    dq_ms = _median_ms(lambda: fa.flash_bwd_dq(q, k, vp, dop, lse_c, delta, causal=True,
+                                               scale=scale))
+    plain_ms = _median_ms(lambda: ref.flash_attention_bwd(q, k, vp, o, lse, dop, causal=True,
+                                                          scale=scale))
+    ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, scale=scale)
+    lib_ms = _median_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True))
+    costs = _flash_bwd_bytes_ops(q, k, True, v=v)
+    padded = _flash_bwd_bytes_ops(q, k, True)
+    bound = lambda c: max(c[0] / HBM_BYTES_PER_S, c[1] / BF16_FLOP_PER_S) * 1e3
+    rows = {}
+    for key, which in (("dkv", "flash_attention_bwd_dkv"), ("dq", "flash_attention_bwd_dq")):
+        t_b, t_o = costs[key][0] / HBM_BYTES_PER_S * 1e3, costs[key][1] / BF16_FLOP_PER_S * 1e3
+        rows[which] = dict(mla_shape=[list(q.shape), list(v.shape)], mla_route=route,
+                           mla_ms=dkv_ms if key == "dkv" else dq_ms, mla_plain_ms=plain_ms,
+                           mla_library_ms=lib_ms, mla_bound_ms=max(t_b, t_o),
+                           mla_bound_by="bytes" if t_b >= t_o else "operations",
+                           mla_bound_padded_ms=bound(padded[key]), mla_max_abs_err=err)
+    print(f"flash bwd   mla bf16 [{route}]: dK/dV {dkv_ms:.4f} ms (bound "
+          f"{rows['flash_attention_bwd_dkv']['mla_bound_ms']:.4f}, padded work "
+          f"{bound(padded['dkv']):.4f}), dQ {dq_ms:.4f} ms (bound "
+          f"{rows['flash_attention_bwd_dq']['mla_bound_ms']:.4f}, padded "
+          f"{bound(padded['dq']):.4f}); plain backward {plain_ms:.4f} ms, SDPA backward at "
+          f"192/128 {lib_ms:.4f} ms")
+    return rows
+
+
+def phase_moe_train(dev, model, profile_dir: Path | None = None) -> dict:
+    """18b: deepseek-v2 at full width cut to 2 layers (``model``: MOE_V2's,
+    bf16) trained with ``build_train_step``, ``remat="block"`` and AdamW's
+    float32 moments.  Step 1 on the plain versions (its routing captured),
+    then from the same start (a host copy of the parameters: a clone on the
+    card would be 10.7 GB) the same step on the kernels on the plain run's
+    routing (``routed_as``, the recompute replaying its forward), held to it
+    under MOE_TRAIN_TOL with the kernel run's own routing compared apart
+    (``compare_routing``); the kernel step once more from the same start on
+    the same routing, whose parameters and first moment must equal the
+    first kernel run's bit for bit (``_bit_prints``, or the differing
+    leaves are printed); then two more kernel steps on their own routing.
+    Every kernel step must launch the flash forward, dK/dV, dQ and rmsnorm
+    ``moe_train_launches`` times, the plain step none.  The model's
+    parameters are those of its last step when this returns."""
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels import ops
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import build_train_step
+
+    t_phase = time.perf_counter()
+    cfg, tr = model.cfg, MOE_TRAIN
+    _check(cfg.remat == "block" and cfg.dtype == "bfloat16" and cfg.family == "moe",
+           "the moe config trains in bf16 with remat")
+    b, t = tr["batch"], tr["seq_len"]
+    opt = AdamWConfig(lr=tr["lr"])
+    step = build_train_step(cfg, opt, total_steps=tr["total_steps"],
+                            warmup_steps=tr["warmup_steps"])
+    ds = SyntheticLMDataset(DataConfig(seed=tr["seed"], batch=b, seq_len=t,
+                                       vocab_size=cfg.vocab_size))
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    mo = cfg.moe
+    # Active parameters a token: all but the routed experts it is not sent to.
+    n_active = n_params - (cfg.n_layers - mo.first_dense_layers) * (
+        mo.n_experts - mo.experts_per_token) * 3 * cfg.d_model * mo.d_expert
+    t0 = time.perf_counter()
+    start = {n: p.detach().to("cpu", copy=True) for n, p in params.items()}
+    copy_s = time.perf_counter() - t0
+
+    def restore():
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(start[n])
+
+    per_step = moe_train_launches(cfg)
+    none = dict.fromkeys(per_step, 0)
+    batch0 = ds.batch_at(0)
+
+    # (1) Step 1 on the plain versions, its routing captured.
+    _reset_train_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with capture_routing(model) as rp, ops.forced("ref"):
+        _, st, mp = step(model, adamw_init(params, opt), batch0, 0)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    _check(_train_counts() == none, f"moe train plain step launched {_train_counts()}")
+    expert = int(torch.argmax(mp["expert_load"]))
+    want = _moe_step_summary(model, st, mp, expert)
+    del st, mp
+    restore()
+
+    # (2) The same step on the kernels on the plain run's routing.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls, counts = [], []
+
+    def kernel_step(i, state, routing=None):
+        _reset_train_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.nullcontext() if routing is None else routed_as(routing, model):
+            _, state, metrics = step(model, state, ds.batch_at(i), i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts.append(_train_counts())
+        return state, metrics
+
+    with capture_routing(model) as rk:
+        state, mk = kernel_step(0, adamw_init(params, opt), rp)
+    got = _moe_step_summary(model, state, mk, expert)
+    prints = _bit_prints({**params, **{"m." + n: x for n, x in state.m.items()}})
+    del state, mk
+    restore()
+    # (3) Once more from the same start on the same routing.
+    state, mk = kernel_step(0, adamw_init(params, opt), rp)
+    again = _bit_prints({**params, **{"m." + n: x for n, x in state.m.items()}})
+    differ = sorted(n for n in prints if prints[n] != again[n])
+    del start
+    # (4) Two more kernel steps, each on its own routing.
+    losses = [float(mk["loss"])]
+    for i in range(1, tr["steps"]):
+        state, mk = kernel_step(i, state)
+        losses.append(float(mk["loss"]))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    routing = compare_routing(rk[0], rp[0], cfg)
+    bad = compare_moe_train(got, want, tr["lr"], MOE_TRAIN_TOL)
+    step_s = walls[-1]
+    tokens = b * t
+    mfu = 6.0 * n_active * tokens / (step_s * BF16_FLOP_PER_S)
+    print(f"moe train {cfg.name} {cfg.n_layers} layers, {n_params} parameters ({n_active} active a "
+          f"token; bf16, remat={cfg.remat}, AdamW float32 moments), {b} x {t} tokens: plain step "
+          f"{plain_s:.3f} s, kernel step walls {[round(w, 4) for w in walls]} s (two step-1 runs, "
+          f"then steps 2-{tr['steps']}), losses {losses}, launches a step {counts[-1]}, peak "
+          f"{peak:.2f} GiB allocated; the parameters' host copy {copy_s:.1f} s")
+    print("moe train step 1, kernels vs plain versions on the plain run's routing: "
+          + json.dumps(moe_train_max_diff(got, want, tr["lr"], MOE_TRAIN_TOL))
+          + "; expert_load and dropped_fraction equal: "
+          + str(all(got[k] == want[k] for k in ("expert_load", "dropped_fraction"))))
+    print("moe train step 1 routing, kernels vs plain, " + _routing_line("routing", routing))
+    print(f"moe train step 1 twice on the kernels from the same start: "
+          + ("the same bits (parameters and first moment)" if not differ else
+             f"{len(differ)} leaves differ: {differ[:12]} (the dispatch's index-put and the "
+             f"combine's gather accumulate their backward in an order the card may vary)"))
+    print(f"moe train warm step {step_s:.4f} s, {tokens / step_s:.1f} tokens/s, train_mfu "
+          f"{mfu:.4f} (6 N_active tokens / (step time x 989 TFLOP/s); remat executes ~8 N)")
+    _check(all(c == per_step for c in counts), f"moe train launches {counts}, want {per_step}")
+    _check(all(map(math.isfinite, losses)), f"moe train losses {losses}")
+    _check(not routing["bad"],
+           "moe train routing, kernels vs plain: " + "; ".join(routing["bad"][:10]))
+    _check(not bad, "moe train step 1, kernels vs plain versions: " + "; ".join(bad[:10]))
+    _check(peak * 2**30 < torch.cuda.get_device_properties(dev).total_memory, "peak memory")
+    if profile_dir is not None:
+        bp = ds.batch_at(tr["steps"])
+        profile_run("moe_v2_train_step",
+                    lambda: _timed(lambda: step(model, state, bp, tr["steps"])), profile_dir)
+    del state, mk
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"moe train: phase {wall:.1f} s")
+    return {"counts": {k: sum(c[k] for c in counts) for k in per_step}, "per_step": per_step,
+            "walls": walls, "step_s": step_s, "tokens_per_s": tokens / step_s, "train_mfu": mfu,
+            "peak_gib": peak, "plain_step_s": plain_s, "routing_flips": routing["flipped"],
+            "same_bits": not differ, "phase_s": wall}
+
+
+def phase_moe_train_reference(dev) -> dict:
+    """18c: MOE_TRAIN_REF's two steps of the v2 and v3 smoke configs
+    (float32, 3 layers) on the kernels (flash at head dim 48, v padded from
+    32, and rmsnorm; ``moe_train_launches`` a step) on JAX's routing,
+    against JAX_MOE_TRAIN under MOE_REF_TOL; the port's own routing
+    against JAX's picks apart (``compare_moe_picks``, near-ties within
+    MOE_REF_TIE counted)."""
+    out = {}
+    for arch in MOE_TRAIN_REF["archs"]:
+        cfg, want = moe_train_config(arch), JAX_MOE_TRAIN[arch]
+        _reset_train_counts()
+        got = port_moe_train_reference(cfg, dev, want)
+        counts = _train_counts()
+        per = {k: v * MOE_TRAIN_REF["steps"] for k, v in moe_train_launches(cfg).items()}
+        bad = compare_moe_train(got, want, MOE_TRAIN["lr"], MOE_REF_TOL)
+        pbad, flipped = compare_moe_picks(got["routing"], picks_records(want), MOE_REF_TIE)
+        print(f"moe train vs JAX {arch} smoke (float32, {cfg.n_layers} layers, "
+              f"{MOE_TRAIN_REF['steps']} steps of {MOE_TRAIN_REF['batch']} x "
+              f"{MOE_TRAIN_REF['seq_len']}): losses {got['loss']} vs {want['loss']}; largest "
+              f"differences "
+              f"{json.dumps(moe_train_max_diff(got, want, MOE_TRAIN['lr'], MOE_REF_TOL))}; "
+              f"own routing: {flipped} tokens flipped within {MOE_REF_TIE:g} (smallest margin "
+              f"{got['min_margin']:.3e}); launches {counts}")
+        _check(counts == per, f"moe train reference {arch} launches {counts}, want {per}")
+        _check(not pbad, f"moe train {arch} routing vs JAX: " + "; ".join(pbad[:10]))
+        _check(not bad,
+               f"moe training differs from the JAX package ({arch}): " + "; ".join(bad[:10]))
+        out[arch] = {"counts": counts, "flipped": flipped}
+    return out
+
+
+def phase_moe_train_power(dev) -> dict:
+    """18d: ``train()`` with the launcher's PowerSim for deepseek-v2 at full
+    width cut to 2 layers (weights drawn on the card from ``seed``), as
+    phase 8c holds llama: the grid ramp, the SoC, pdu_health and admm_step
+    once per conditioned controller interval, the training kernels
+    ``moe_train_launches`` a step."""
+    import torch
+
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import admm_step, pdu_health
+    from repro_torch.launch.train import power_sim_for
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.power import phases as P, scenario as SC
+    from repro_torch.train import TrainConfig, train
+
+    cfg, tr = moe_config(MOE_V2), MOE_TRAIN
+    b, t = tr["batch"], tr["seq_len"]
+    sim = power_sim_for(cfg, b, t, device=dev)
+    durs, pows = P.step_phases(sim.cost, sim.hw, sim.model)
+    step_samples = SC.from_phase_timeline(durs, pows, sim.cfg.sample_hz, device=dev).total_samples
+    intervals = step_samples * tr["power_steps"] // sim._k
+    pdu_health.pdu_health_sim.launches = admm_step.admm_iterate.launches = 0
+    _reset_train_counts()
+    t0 = time.perf_counter()
+    res = train(cfg, DataConfig(seed=tr["seed"], batch=b, seq_len=t, vocab_size=cfg.vocab_size),
+                AdamWConfig(lr=tr["lr"]), TrainConfig(steps=tr["power_steps"], log_every=1,
+                                                      seed=tr["seed"]),
+                power_sim=sim, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rep = res["power_report"]
+    losses = [r["loss"] for r in res["history"]]
+    power_counts = (pdu_health.pdu_health_sim.launches, admm_step.admm_iterate.launches)
+    counts = _train_counts()
+    per = {k: v * tr["power_steps"] for k, v in moe_train_launches(cfg).items()}
+    print(f"moe train() + PowerSim ({cfg.name}, {cfg.n_layers} layers): {tr['power_steps']} steps "
+          f"in {wall:.2f} s wall, losses {[round(x, 4) for x in losses]}; {intervals} controller "
+          f"intervals conditioned; launches pdu_health={power_counts[0]} "
+          f"admm_step={power_counts[1]}, training kernels {counts}")
+    print("moe train() + PowerSim report: " + json.dumps(rep))
+    del res
+    torch.cuda.empty_cache()
+    _check(all(map(math.isfinite, losses)), f"moe train() losses {losses}")
+    _check(rep["grid_max_ramp"] <= 0.1 + 1e-3, f"PowerSim grid ramp {rep['grid_max_ramp']}")
+    _check(rep["rack_max_ramp"] > rep["grid_max_ramp"], "PowerSim rack ramp <= grid ramp")
+    _check(0.1 <= rep["final_soc"] <= 0.9, f"PowerSim SoC {rep['final_soc']}")
+    _check(power_counts == (intervals, intervals),
+           f"PowerSim launches {power_counts}, want {intervals} each")
+    _check(counts == per, f"moe train() launches {counts}, want {per}")
+    return {"counts": counts, "power_counts": power_counts, "wall_s": wall}
 
 
 # The kernel-level entry (phase 11): benchmarks/kernel_benches.py's shapes
@@ -6756,8 +7947,8 @@ def main() -> int:
     ap.add_argument("--profile", type=Path, default=None,
                     help="also profile one campus run, prefill step, generation, training "
                          "step, rwkv6-7b prefill and generation, a degraded campus run, "
-                         "phase 14's runs and the moe prefills and generations; write the "
-                         "tables and traces here")
+                         "phase 14's runs, the moe prefills and generations and a "
+                         "deepseek-v2 training step; write the tables and traces here")
     opts = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -6905,9 +8096,20 @@ def main() -> int:
     kernels["flash_attention_fwd"]["launches_stablelm_prefill"] = stablelm["flash_attention_fwd"]
     t17 = time.perf_counter()
     moe_kernels = phase_moe_kernels(dev)
-    moe = {label: phase_moe_serve(dev, spec, opts.profile)
-           for label, spec in (("v2", MOE_V2), ("v3", MOE_V3))}
+    _, v2_model = _moe_model(MOE_V2, dev)  # served in 17b, trained in 18b
+    moe = {"v2": phase_moe_serve(dev, MOE_V2, opts.profile, model=v2_model),
+           "v3": phase_moe_serve(dev, MOE_V3, opts.profile)}
     print(f"phase 17 (moe): {time.perf_counter() - t17:.1f} s")
+    t18 = time.perf_counter()
+    for name, row in phase_moe_train_kernels(dev).items():
+        kernels[name].update(row)
+    moe_train = phase_moe_train(dev, v2_model, opts.profile)
+    del v2_model
+    torch.cuda.empty_cache()
+    moe_train_ref = phase_moe_train_reference(dev)
+    moe_train_power = phase_moe_train_power(dev)
+    torch.cuda.empty_cache()
+    print(f"phase 18 (moe training): {time.perf_counter() - t18:.1f} s")
     fa, rn = kernels["flash_attention_fwd"], kernels["rmsnorm"]
     fa.update({k: v for k, v in moe_kernels.items() if k.startswith("mla_")},
               mla_max_abs_err=moe_kernels["err"])
@@ -6917,6 +8119,14 @@ def main() -> int:
             pre, gen = r["prefill"][name], r["generate"][name]
             e.update({"launches": e["launches"] + pre + gen, f"launches_moe_{label}_prefill": pre,
                       f"launches_moe_{label}_generate": gen})
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+                 "rmsnorm"):
+        n = moe_train["counts"][name]
+        kernels[name].update(launches=kernels[name]["launches"] + n, launches_moe_v2_train=n,
+                             launches_per_moe_v2_train_step=moe_train["per_step"][name],
+                             launches_moe_v2_train_powersim=moe_train_power["counts"][name])
+    for name, n in zip(("pdu_health", "admm_step"), moe_train_power["power_counts"]):
+        kernels[name]["launches_moe_train_powersim"] = n
     print(json.dumps({"serve": {k: serve[k] for k in ("prefill_s", "generate_s", "tokens_per_s")},
                       "train": {k: trained[k] for k in ("step_s", "tokens_per_s", "train_mfu",
                                                          "peak_gb")},
@@ -6974,7 +8184,12 @@ def main() -> int:
                           "campus_warm_window_s": campus_service["warm_window_s"]},
                       "moe_serve": {label: {k: r[k] for k in (
                           "prefill_s", "prefill_tokens_per_s", "generate_s", "tokens_per_s",
-                          "peak_gib", "phase_s", "routing_flips")} for label, r in moe.items()}}))
+                          "peak_gib", "phase_s", "routing_flips")} for label, r in moe.items()},
+                      "moe_train": {k: moe_train[k] for k in (
+                          "walls", "step_s", "tokens_per_s", "train_mfu", "peak_gib",
+                          "plain_step_s", "routing_flips", "same_bits", "phase_s")},
+                      "moe_train_vs_jax_flips": {a: r["flipped"] for a, r in moe_train_ref.items()},
+                      "moe_train_powersim_s": moe_train_power["wall_s"]}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

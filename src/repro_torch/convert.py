@@ -151,21 +151,15 @@ def _unflatten(flat: dict) -> dict:
     return tree
 
 
-# The module lists whose per-layer leaves the reference stacks on a leading
-# layer axis (its scan layout): ``blocks`` (dense, vlm, ssm), and for moe
-# ``dense_blocks`` and ``moe_blocks``.
-STACKS = ("blocks", "dense_blocks", "moe_blocks")
-
-
 def _stack_sizes(model: T.Transformer) -> dict:
-    return {st: len(getattr(model, st)) for st in STACKS if hasattr(model, st)}
+    return {st: len(getattr(model, st)) for st in T.STACKS if hasattr(model, st)}
 
 
 def lm_tree_shapes(cfg) -> dict:
     """``{dotted path: (shape, dtype)}`` of the JAX package's parameter tree
     for ``cfg`` (``repro.models.transformer.init``): the port's own module
     tree, with the per-layer ``{stack}.{i}.*`` leaves of each of
-    ``STACKS`` stacked on a leading axis of the stack's length."""
+    ``transformer.STACKS`` stacked on a leading axis of the stack's length."""
     model = T.Transformer(cfg, device="meta")
     sizes = _stack_sizes(model)
     out = {}
@@ -267,7 +261,7 @@ def lm_tree_to_numpy(named: dict, cfg) -> dict:
     flat = {}
     for path, (shape, _) in lm_tree_shapes(cfg).items():
         head, _, rest = path.partition(".")
-        if head in STACKS:
+        if head in T.STACKS:
             t = torch.stack([named[f"{head}.{i}.{rest}"].detach() for i in range(shape[0])])
         else:
             t = named[path].detach()

@@ -44,7 +44,8 @@ class MoEAux(NamedTuple):
 class Router(nn.Module):
     """``{"kernel": (d, E) float32, "bias"?: (E,) float32}``: the router runs
     in float32 whatever the model's type; the bias (``sigmoid_bias`` only)
-    is updated outside the gradient path (``update_router_bias``)."""
+    gets no gradient and is updated outside the gradient path
+    (``update_router_bias``, which the train step calls after AdamW)."""
 
     def __init__(self, d: int, n_experts: int, *, with_bias: bool, device):
         super().__init__()
@@ -202,7 +203,9 @@ def moe_fwd(p: MoE, cfg, x: torch.Tensor, *, group_size: int = 256):
 @torch.no_grad()
 def update_router_bias(p: MoE, cfg, expert_load: torch.Tensor, lr: float = 1e-3) -> None:
     """The V3 aux-loss-free balancer: nudge the routing bias against the load
-    skew, in place (outside the gradient path).  A router without a bias
+    skew, in place (outside the gradient path).  ``train.build_train_step``
+    calls it for every MoE layer with the layer-averaged ``expert_load``,
+    as the reference's step does.  A router without a bias
     (``softmax_topk``) is left as it is."""
     if p.router.bias is None:
         return

@@ -18,17 +18,22 @@ norms run twice per training step.  ``constrain_activations`` and
 ``maybe_constrain`` are identities on one device and are dropped (sharding
 comes with ``sharding/rules.py``).
 
-The ``ssm`` family (RWKV-6) serves but does not train: the reference's
-kernel route for its recurrence has no gradient, so ``lm_loss`` (and
-``train.build_train_step``) raise for it (``check_training``).  The
-``moe`` family serves; its training (the aux and MTP losses, the router
-bias update, the flash backward at MLA's head dims) is the next slice and
-raises too.  The ``hybrid`` family (and ``audio``, in
+The ``moe`` family trains as the reference does: ``lm_loss`` adds the
+averaged ``load_balance`` and ``router_z`` terms and ``0.3 x`` the MTP
+cross entropy to the total, and with ``remat="block"`` each dense and MoE
+block is a checkpoint whose ``MoEAux`` comes out beside its output (the
+MTP block is not checkpointed).  ``recomputing()`` tells code that runs
+inside a block (a hook, a patched function) the backward's recompute from
+the forward.  The ``ssm`` family (RWKV-6) serves but does not train: the
+reference's kernel route for its recurrence has no gradient, so
+``lm_loss`` (and ``train.build_train_step``) raise for it
+(``check_training``).  The ``hybrid`` family (and ``audio``, in
 ``models/encdec.py`` of the reference) is not ported yet and raises,
 naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
+import contextvars
 from typing import NamedTuple
 
 import torch
@@ -41,6 +46,11 @@ from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv6 as R
 from repro_torch.utils.devices import resolve_device
+
+# The module lists whose per-layer leaves the reference stacks on a leading
+# layer axis (its scan layout): ``blocks`` (dense, vlm, ssm), and for moe
+# ``dense_blocks`` and ``moe_blocks``.  The MTP head is not stacked.
+STACKS = ("blocks", "dense_blocks", "moe_blocks")
 
 _NOT_PORTED = {
     "hybrid": "the hybrid family (Mamba2 + Zamba2 shared block; ROADMAP.md queue 1 item 7)",
@@ -55,20 +65,14 @@ def check_serving(cfg) -> None:
 
 
 def check_training(cfg) -> None:
-    """Raise for the families the port cannot train: those it cannot serve;
-    ``ssm``, whose recurrence has no backward kernel (nor has the
-    reference's kernel route; ROADMAP.md, open question); and ``moe``,
-    whose training is the next slice."""
+    """Raise for the families the port cannot train: those it cannot serve,
+    and ``ssm``, whose recurrence has no backward kernel (nor has the
+    reference's kernel route; ROADMAP.md, open question)."""
     check_serving(cfg)
     if cfg.family == "ssm":
         raise NotImplementedError(
             "ssm training is not ported: rwkv6_scan has no backward kernel, as the reference's "
             "kernel route has none (ROADMAP.md, open question)")
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            "moe training is not ported yet: the aux and MTP losses, update_router_bias in the "
-            "train step, the flash backward at MLA's head dims and AdamW's memory at full width "
-            "(ROADMAP.md queue 1 item 7)")
 
 
 class ForwardOut(NamedTuple):
@@ -134,19 +138,55 @@ def _readout(p: Transformer, h: torch.Tensor) -> torch.Tensor:
     return p.lm_head(h).to(torch.float32)
 
 
+_RECOMPUTING: contextvars.ContextVar[bool] = contextvars.ContextVar("recomputing", default=False)
+
+
+def recomputing() -> bool:
+    """True inside the recompute of a checkpointed block (run from the
+    backward pass), False in its first run and outside any block."""
+    return _RECOMPUTING.get()
+
+
 def _checkpointed(blk: B.DecoderBlock, mode: str | None):
-    """``blk``'s output as a function of its input, run under the ``ops``
-    mode ``mode``.  The recompute of an activation checkpoint runs from the
-    backward pass, on autograd's thread for CUDA tensors, where the
-    caller's ``ops.forced`` context is not set; re-entering the mode read
-    at the first run keeps the recompute on the same kernels or plain
-    versions (else it could save other tensors, or mix the two)."""
+    """``(output, aux)`` of ``blk`` as a function of its input, run under
+    the ``ops`` mode ``mode``.  The recompute of an activation checkpoint
+    runs from the backward pass, on autograd's thread for CUDA tensors,
+    where the caller's ``ops.forced`` context is not set; re-entering the
+    mode read at the first run keeps the recompute on the same kernels or
+    plain versions (else it could save other tensors, or mix the two).
+    Every run after the first is a recompute (``recomputing()``)."""
+    runs = []
 
     def run(x, positions):
-        with ops.forced(mode):
-            return blk(x, positions)[0]
+        token = _RECOMPUTING.set(bool(runs))
+        runs.append(None)
+        try:
+            with ops.forced(mode):
+                out, _, aux = blk(x, positions)
+        finally:
+            _RECOMPUTING.reset(token)
+        return out, aux
 
     return run
+
+
+def _run_stack(cfg, blocks, x, positions) -> tuple[torch.Tensor, list]:
+    """``blocks`` in order from ``x``: the output and each block's aux (its
+    ``MoEAux``, None for a dense FFN).  With ``cfg.remat == "block"`` while
+    a graph is recorded, each block is an activation checkpoint (the
+    reference's ``_maybe_remat``), its aux carried out beside its
+    output."""
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
+    mode = ops.current_mode()
+    auxes = []
+    for blk in blocks:
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                _checkpointed(blk, mode), x, positions, use_reentrant=False)
+        else:
+            x, _, aux = blk(x, positions)
+        auxes.append(aux)
+    return x, auxes
 
 
 def forward(p: Transformer, tokens: torch.Tensor, *, embeddings=None) -> ForwardOut:
@@ -162,30 +202,20 @@ def forward(p: Transformer, tokens: torch.Tensor, *, embeddings=None) -> Forward
     positions = torch.arange(t, device=x.device).expand(b, t)
     if p.cfg.family == "moe":
         return _forward_moe(p, tokens, x, positions)
-    remat = p.cfg.remat == "block" and torch.is_grad_enabled()
-    mode = ops.current_mode()
-    for blk in p.blocks:
-        if remat:
-            x = torch.utils.checkpoint.checkpoint(
-                _checkpointed(blk, mode), x, positions, use_reentrant=False)
-        else:
-            x, _, _ = blk(x, positions)
+    x, _ = _run_stack(p.cfg, p.blocks, x, positions)
     return ForwardOut(logits=_readout(p, p.ln_f(x)), aux_losses={}, mtp_logits=None)
 
 
 def _forward_moe(p: Transformer, tokens, x, positions) -> ForwardOut:
-    """The ``moe`` forward: the dense stack, then the MoE stack, whose
-    ``MoEAux`` is averaged over its layers (the two losses scaled by their
-    weights), and with an MTP head the logits of token t + 2 from ``[h_t ;
-    embed(token t + 1)]`` (the last position's next embedding wraps to the
-    first, as ``jnp.roll``)."""
+    """The ``moe`` forward: the dense stack, then the MoE stack (each block
+    checkpointed as ``forward``'s), whose ``MoEAux`` is averaged over its
+    layers (the two losses scaled by their weights), and with an MTP head
+    (not checkpointed, as the reference's) the logits of token t + 2 from
+    ``[h_t ; embed(token t + 1)]`` (the last position's next embedding wraps
+    to the first, as ``jnp.roll``)."""
     cfg = p.cfg
-    for blk in p.dense_blocks:
-        x, _, _ = blk(x, positions)
-    auxes = []
-    for blk in p.moe_blocks:
-        x, _, a = blk(x, positions)
-        auxes.append(a)
+    x, _ = _run_stack(cfg, p.dense_blocks, x, positions)
+    x, auxes = _run_stack(cfg, p.moe_blocks, x, positions)
     lb, zl, load, drop = (torch.stack(v) for v in zip(*auxes))
     aux = {"load_balance": torch.mean(lb) * cfg.moe.router_aux_weight,
            "router_z": torch.mean(zl) * cfg.moe.router_z_weight,
@@ -203,14 +233,31 @@ def _forward_moe(p: Transformer, tokens, x, positions) -> ForwardOut:
 def lm_loss(p: Transformer, tokens: torch.Tensor, labels: torch.Tensor, *,
             embeddings=None) -> tuple[torch.Tensor, dict]:
     """Mean next-token cross entropy over the labels ``>= 0`` (-100 =
-    ignore); returns ``(total_loss, metrics)`` with ``lm_loss``,
-    ``tokens`` (the count of valid labels) and ``total_loss``, as the
-    reference.  The dense/vlm families have no auxiliary losses; ``ssm``
-    raises (``check_training``)."""
+    ignore) plus the ``moe`` family's auxiliary terms, as the reference:
+    returns ``(total_loss, metrics)`` with ``lm_loss``, ``tokens`` (the
+    count of valid labels), every entry of ``forward``'s ``aux_losses``
+    (``load_balance`` and ``router_z`` are added to the total,
+    ``expert_load`` and ``dropped_fraction`` reported), with an MTP head
+    ``mtp_loss`` (the cross entropy of ``mtp_logits`` against the labels
+    rolled one step left, the last column ignored; ``0.3 x`` it is added)
+    and ``total_loss``.  ``ssm`` raises (``check_training``)."""
     check_training(p.cfg)
     out = forward(p, tokens, embeddings=embeddings)
     loss, denom = _xent(out.logits, labels)
-    return loss, {"lm_loss": loss, "tokens": denom, "total_loss": loss}
+    metrics = {"lm_loss": loss, "tokens": denom}
+    total = loss
+    for k, v in out.aux_losses.items():
+        if k in ("load_balance", "router_z"):
+            total = total + v
+        metrics[k] = v
+    if out.mtp_logits is not None:
+        mtp_labels = torch.roll(labels, -1, dims=1)
+        mtp_labels[:, -1] = -100
+        mtp_loss, _ = _xent(out.mtp_logits, mtp_labels)
+        total = total + 0.3 * mtp_loss
+        metrics["mtp_loss"] = mtp_loss
+    metrics["total_loss"] = total
+    return total, metrics
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

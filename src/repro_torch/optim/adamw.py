@@ -9,11 +9,21 @@ step allocates no second copy of the weights) and returned.
 
 Weight decay follows the reference's layout, not the port's.  The
 reference decays a leaf iff its rank is at least 2, and its decoder-block
-leaves are stacked over layers, so every in-block norm scale is a
-``(n_layers, d)`` matrix there and is decayed; only the unstacked final
-norm is exempt.  The port keeps one module per layer (``blocks.{i}.*``,
-the norm scale ``(d,)``), so ``reference_ndim`` adds the stacking axis
-back before the rank test.
+leaves are stacked over layers (``blocks``; for ``moe`` ``dense_blocks``
+and ``moe_blocks``), so every in-block norm scale is a ``(n_layers, d)``
+matrix there and is decayed, and so is the sigmoid router's ``(n_layers,
+E)`` bias; only the unstacked norms (``ln_f``, the MTP head's) are exempt.
+The port keeps one module per layer (``blocks.{i}.*``, the norm scale
+``(d,)``), so ``reference_ndim`` adds the stacking axis back before the
+rank test.
+
+The update runs a leaf of more than ``CHUNK_ELEMENTS`` elements over
+slices of its leading axis, and ``global_norm`` sums such a leaf's squares
+slice by slice, so their float32 temporaries stay bounded (a routed-expert
+matrix of deepseek-v2 holds 1.26 B elements: 5 GB a float32 copy).  The
+update is elementwise, so the slices give the same bits as the whole leaf.
+The moments are updated in place: the state returned holds the tensors of
+the state passed in (one copy of the moments, not two, at any time).
 """
 from __future__ import annotations
 
@@ -22,8 +32,13 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.models.transformer import STACKS
+
 F32 = torch.float32
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# Leaves larger than this run over slices of their leading axis (each slice
+# at least one row): 128 MiB a float32 temporary.
+CHUNK_ELEMENTS = 1 << 25
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,15 +70,30 @@ def adamw_init(params: dict, cfg: AdamWConfig) -> AdamWState:
     )
 
 
+def _slices(x: torch.Tensor):
+    """``x`` whole, or over slices of its leading axis of at most
+    ``CHUNK_ELEMENTS`` elements (at least one row) if it is larger."""
+    if x.numel() <= CHUNK_ELEMENTS:
+        yield ...
+        return
+    rows = max(1, CHUNK_ELEMENTS // x[0].numel())
+    for i in range(0, x.shape[0], rows):
+        yield slice(i, i + rows)
+
+
 def global_norm(tree: dict) -> torch.Tensor:
-    """``sqrt(sum of squares)`` of every leaf, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(F32))) for x in tree.values()))
+    """``sqrt(sum of squares)`` of every leaf, in float32 (a large leaf
+    summed slice by slice)."""
+    return torch.sqrt(sum(torch.sum(torch.square(x[s].to(F32)))
+                          for x in tree.values() for s in _slices(x)))
 
 
 def reference_ndim(name: str, p: torch.Tensor) -> int:
     """The rank of parameter ``name`` in the reference's parameter tree,
-    where the ``blocks.{i}.*`` leaves are stacked on a leading layer axis."""
-    return p.ndim + (1 if name.startswith("blocks.") else 0)
+    where the leaves of ``transformer.STACKS`` (``blocks.{i}.*``,
+    ``dense_blocks.{i}.*``, ``moe_blocks.{i}.*``) are stacked on a leading
+    layer axis (the MTP head's are not)."""
+    return p.ndim + (1 if name.partition(".")[0] in STACKS else 0)
 
 
 @torch.no_grad()
@@ -76,7 +106,8 @@ def adamw_update(
 ) -> tuple[dict, AdamWState, dict]:
     """One clipped AdamW step; returns ``(params, state, metrics)`` with
     ``grad_norm`` (before clipping) and ``lr``.  Matrices in the
-    reference's layout are decayed (``reference_ndim``)."""
+    reference's layout are decayed (``reference_ndim``).  Parameters and
+    moments are updated in place, a large leaf slice by slice."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1
@@ -84,16 +115,18 @@ def adamw_update(
     b1c = 1.0 - torch.pow(cfg.b1, stepf)
     b2c = 1.0 - torch.pow(cfg.b2, stepf)
     lr = cfg.lr * torch.as_tensor(lr_scale, dtype=F32, device=gnorm.device)
-    dt = _DTYPES[cfg.state_dtype]
-    new_m, new_v = {}, {}
     for name, p in params.items():
-        g32 = grads[name].to(F32) * scale
-        m32 = cfg.b1 * state.m[name].to(F32) + (1 - cfg.b1) * g32
-        v32 = cfg.b2 * state.v[name].to(F32) + (1 - cfg.b2) * torch.square(g32)
-        delta = (m32 / b1c) / (torch.sqrt(v32 / b2c) + cfg.eps)
-        if reference_ndim(name, p) >= 2:
-            delta = delta + cfg.weight_decay * p.to(F32)
-        p.copy_(p.to(F32) - lr * delta)
-        new_m[name], new_v[name] = m32.to(dt), v32.to(dt)
+        decay = reference_ndim(name, p) >= 2
+        for s in _slices(p):
+            pp, m, v = p[s], state.m[name][s], state.v[name][s]
+            g32 = grads[name][s].to(F32) * scale
+            m32 = cfg.b1 * m.to(F32) + (1 - cfg.b1) * g32
+            v32 = cfg.b2 * v.to(F32) + (1 - cfg.b2) * torch.square(g32)
+            delta = (m32 / b1c) / (torch.sqrt(v32 / b2c) + cfg.eps)
+            if decay:
+                delta = delta + cfg.weight_decay * pp.to(F32)
+            pp.copy_(pp.to(F32) - lr * delta)
+            m.copy_(m32)
+            v.copy_(v32)
     metrics = {"grad_norm": gnorm, "lr": lr}
-    return params, AdamWState(step=step, m=new_m, v=new_v), metrics
+    return params, AdamWState(step=step, m=state.m, v=state.v), metrics

@@ -7,18 +7,24 @@ accumulation (counterpart of ``repro.train.step``).
 
 which updates the model's parameters in place (``adamw_update``) and
 returns the new optimizer state and the metrics of the reference:
-``lm_loss``, ``tokens`` and ``total_loss`` of the last microbatch,
-``grad_norm``, ``lr`` and ``loss`` (the mean over microbatches).
-Microbatching splits the batch on the leading axis and accumulates the
-gradients in float32 buffers, as the reference's scan does (``.grad``
-would accumulate in the parameters' bf16).
+``lm_loss``, ``tokens`` and ``total_loss`` of the last microbatch (for the
+``moe`` family also ``load_balance``, ``router_z``, ``expert_load``,
+``dropped_fraction`` and, with an MTP head, ``mtp_loss``), ``grad_norm``,
+``lr`` and ``loss`` (the mean over microbatches).  Microbatching splits
+the batch on the leading axis and accumulates the gradients in float32
+buffers, as the reference's scan does (``.grad`` would accumulate in the
+parameters' bf16).  A parameter that no path of the loss reaches (the
+``sigmoid_bias`` router's bias, which enters only the top-k selection)
+gets a zero gradient, as ``jax.value_and_grad`` gives it: it counts in
+``grad_norm`` and AdamW still decays it.  After the update the
+``sigmoid_bias`` router's bias of every MoE layer is nudged against the
+skew of ``expert_load`` (the layer-averaged load of the last microbatch),
+as the reference's aux-loss-free balancing does.
 
-Not ported yet (ROADMAP.md): the audio family's loss and the moe family's
-aux-loss-free router-bias nudge come with those families, and
-``check_training`` raises for them; it raises for the ``ssm`` family too,
-whose recurrence has no backward kernel.  ``gather_small_weights_once`` is a
-sharding constraint of the reference's FSDP mesh; on one device it is an
-identity.
+``check_training`` raises for the ``ssm`` family, whose recurrence has no
+backward kernel, and for the families not ported yet.
+``gather_small_weights_once`` is a sharding constraint of the reference's
+FSDP mesh; on one device it is an identity.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models import transformer as T
+from repro_torch.models import moe as MOE, transformer as T
 from repro_torch.optim import AdamWConfig, adamw_update
 from repro_torch.optim.schedules import cosine_schedule
 
@@ -50,8 +56,9 @@ def build_train_step(
 
     def grads_of(model, names, params, batch):
         loss, metrics = loss_fn(model, batch)
-        grads = torch.autograd.grad(loss, [params[n] for n in names])
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, dict(zip(names, grads))
+        grads = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
+        grads = {n: torch.zeros_like(params[n]) if g is None else g for n, g in zip(names, grads)}
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def train_step(model, opt_state, batch, step_idx):
         params = dict(model.named_parameters())
@@ -75,6 +82,10 @@ def build_train_step(
             loss, metrics, grads = grads_of(model, names, params, batch)
         lr_scale = cosine_schedule(torch.as_tensor(step_idx, device=dev), total_steps, warmup_steps)
         _, opt_state, opt_metrics = adamw_update(grads, opt_state, params, opt_cfg, lr_scale)
+        del grads
+        if cfg.moe is not None and cfg.moe.router == "sigmoid_bias":
+            for blk in model.moe_blocks:
+                MOE.update_router_bias(blk.moe, cfg, metrics["expert_load"])
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss

@@ -19,6 +19,7 @@ Tolerances and their reasons:
 * greedy tokens: equal.
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -276,17 +277,24 @@ def test_random_lm_tree_matches_jax_layout(arch):
                                   "whisper_large_v3"])
 def test_unported_families_raise(arch):
     """Families the port cannot serve raise at construction; the ``ssm``
-    and ``moe`` families serve but raise for training (``lm_loss``,
-    ``build_train_step``)."""
+    family serves but raises for training (``lm_loss``,
+    ``build_train_step``); the ``moe`` family serves and trains."""
     cfg = smoke_config(arch)
     if cfg.family in ("ssm", "moe"):
-        from repro_torch.optim import AdamWConfig
+        from repro_torch.optim import AdamWConfig, adamw_init
         from repro_torch.train import build_train_step
 
         model = T.init(cfg, device="cpu")
         tok = torch.zeros((1, 4), dtype=torch.int64)
         with torch.inference_mode():
             assert build_prefill_step(cfg)(model, tok, 8)[0].shape == (1, 4, cfg.padded_vocab)
+        if cfg.family == "moe":
+            assert torch.isfinite(T.lm_loss(model, tok, tok)[0])
+            step = build_train_step(cfg, AdamWConfig())
+            _, _, metrics = step(model, adamw_init(dict(model.named_parameters()), AdamWConfig()),
+                                 {"tokens": tok, "labels": tok}, 0)
+            assert math.isfinite(float(metrics["loss"]))
+            return
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.lm_loss(model, tok, tok)
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -373,13 +373,47 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    ``train()`` with the launcher's PowerSim for deepseek-v2 at full width
    (2 layers, 4 steps), checked as phase 8c.  It prints the phase's
    seconds.
+19. The ``hybrid`` family (zamba2: Mamba2 SSD blocks, the Zamba2 shared
+   attention block) served at zamba2-2.7b's published width and full depth
+   (``HYBRID``: 54 Mamba2 layers in 9 groups of 6, the shared block of 32
+   heads of 80 visited after each group; 2.44 B parameters drawn on the
+   card; the SSD scan is plain float32 PyTorch, as it is ``jnp`` in the
+   reference).  (a) Flash at the shared block's (4, 32, 512, 80), causal
+   bf16 (zero-padded to 128 in the wrapper; the backward on the
+   tensor-core route), forward and backward held as phases 5 and 7 hold
+   them and timed beside the plain versions and SDPA (which takes 80),
+   with the bounds of the model's work and of the padded work; rmsnorm at
+   2560 is in ``RMSNORM_SHAPES``.  (b) Prefill 4 x 512 (rmsnorm 127, flash
+   9 launches: ``hybrid_launches``) against the same step on the plain
+   versions within ``HYBRID_PREFILL_TOL`` beside the plain run with another
+   SSD chunk (the stack's floor with no kernel), each block alone within
+   ``HYBRID_BLOCK_ULPS`` of its plain run; generation 4 x (64 + 32)
+   (rmsnorm 127 a token, flash 0) against ``forward``; ``HYBRID_SERVE_REF``
+   (full width, 12 layers) against ``JAX_HYBRID_SERVE`` (recorded on the
+   CPU by ``python tests/test_torch_hybrid_serve_reference.py``) within
+   ``HYBRID_LOGIT_TOL``.  It prints the prefill wall, tokens/s and peak
+   memory.
+20. The ``hybrid`` family trained.  (a) 19's model, ``remat="block"`` (one
+   checkpoint a group), AdamW(lr=1e-3) with float32 moments, 4 x 512
+   tokens a step: step 1 on the kernels against the same step on the
+   plain versions from the same start (a copy on the card) within
+   ``TRAIN_TOL`` on ``HYBRID_TRAIN_LEAVES``, once more the same bits, two
+   more steps; each kernel step launches flash forward 18, dK/dV 9 and dQ
+   9 (all on the tensor cores) and rmsnorm 253.  It prints the step walls,
+   tokens/s, ``train_mfu`` over ``cfg.param_count()`` and the peak memory.
+   (b) ``HYBRID_TRAIN_REF`` (the smoke config, float32, 2 steps of 4 x
+   128) on the kernels against ``JAX_HYBRID_TRAIN`` (``python
+   tests/test_torch_hybrid_train_reference.py``) within ``HYBRID_REF_TOL``.
+   (c) ``train()`` with the launcher's PowerSim at full width and depth,
+   4 steps, checked as phase 8c.
 
 With ``--profile DIR`` it also profiles one more campus run, prefill step,
 generation and training step, rwkv6-7b prefill and generation, a host run
 of the degraded campus, a warm replay of each campus's scanned engine,
 phase 14's runs (Fig. 12, ``fleet_1024racks`` and ``controller_throughput``
-cold and warm), phase 17's prefills and generations and one deepseek-v2
-training step (``torch.profiler``), writes the tables and Chrome traces into DIR, and
+cold and warm), phase 17's prefills and generations, one deepseek-v2
+training step, zamba2's prefill and generation and one zamba2 training
+step (``torch.profiler``), writes the tables and Chrome traces into DIR, and
 prints each campus's host engine split into ``core.profiling``'s
 ``render`` / ``solve`` / ``host-sync`` spans.
 
@@ -1138,12 +1172,12 @@ RWKV_BLOCK_ULPS = 4
 
 def train_indices(shape, leaf: int):
     """``TRAIN_REF["samples"]`` flat indices into a leaf of ``shape`` (layer
-    0's slice for block leaves), from numpy."""
+    0's slice for block leaves; all of a smaller leaf's), from numpy."""
     import numpy as np
 
     n = int(np.prod(shape))
     rng = np.random.default_rng(TRAIN_REF["sample_seed"] + leaf)
-    return np.sort(rng.choice(n, size=TRAIN_REF["samples"], replace=False))
+    return np.sort(rng.choice(n, size=min(TRAIN_REF["samples"], n), replace=False))
 
 
 def train_samples(leaf_array, leaves=TRAIN_LEAVES) -> dict:
@@ -1234,9 +1268,21 @@ def train_max_diff(got: dict, want: dict, lr: float, tol: dict = TRAIN_TOL,
     return out
 
 
-def port_train_reference(model, cfg, dev) -> dict:
-    """TRAIN_REF's steps through the port on ``model`` (whose parameters
-    they update); ``train_summary`` of the run."""
+def _port_leaf(path: str) -> str:
+    """The port's parameter name of layer 0 of the JAX-layout leaf
+    ``path`` (``blocks.x`` -> ``blocks.0.x``, ``groups.x`` ->
+    ``groups.0.0.x``; an unstacked leaf keeps its name)."""
+    from repro_torch.models.transformer import STACK_DEPTH
+
+    head, _, rest = path.partition(".")
+    return ".".join([head] + ["0"] * STACK_DEPTH[head] + [rest]) if head in STACK_DEPTH else path
+
+
+def port_train_reference(model, cfg, dev, ref: dict = TRAIN_REF, leaves=TRAIN_LEAVES) -> dict:
+    """``ref``'s steps (TRAIN_REF or HYBRID_TRAIN_REF: batch, seq_len,
+    steps) through the port on ``model`` (whose parameters they update),
+    AdamW and the schedule of TRAIN; ``train_summary`` of the run on the
+    sampled ``leaves``."""
     import numpy as np
     import torch
 
@@ -1249,17 +1295,16 @@ def port_train_reference(model, cfg, dev) -> dict:
     state = adamw_init(params, opt)
     step = build_train_step(cfg, opt, total_steps=TRAIN["total_steps"],
                             warmup_steps=TRAIN["warmup_steps"])
-    ds = SyntheticLMDataset(DataConfig(seed=TRAIN["seed"], batch=TRAIN_REF["batch"],
-                                       seq_len=TRAIN_REF["seq_len"], vocab_size=cfg.vocab_size))
-    port_name = lambda path: path.replace("blocks.", "blocks.0.", 1)
+    ds = SyntheticLMDataset(DataConfig(seed=TRAIN["seed"], batch=ref["batch"],
+                                       seq_len=ref["seq_len"], vocab_size=cfg.vocab_size))
     host = lambda t: t.detach().to(torch.float32).cpu().numpy()
     losses, norms, moments = [], [], []
-    for i in range(TRAIN_REF["steps"]):
+    for i in range(ref["steps"]):
         model, state, metrics = step(model, state, ds.batch_at(i), i)
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
-        moments.append(train_samples(lambda p: host(state.m[port_name(p)])))
-    sampled = train_samples(lambda p: host(params[port_name(p)]))
+        moments.append(train_samples(lambda p: host(state.m[_port_leaf(p)]), leaves))
+    sampled = train_samples(lambda p: host(params[_port_leaf(p)]), leaves)
     assert all(np.isfinite(losses)) and all(np.isfinite(norms))
     return train_summary(losses, norms, sampled, moments)
 
@@ -2813,8 +2858,9 @@ def _flash_bytes_ops(q, k, causal) -> tuple[int, int]:
 
 # The rmsnorm shapes the main paths launch, (rows, D, dtype, offset), each
 # held and timed warm and cold in phase 5: the prefill's 2048 rows in bf16
-# at llama3.2-1b's 2048, rwkv6-7b's 4096 and deepseek-v2/v3's kv_a_norm 512,
-# q_a_norm 1536 and blocks 5120 and 7168; (2048, 2048) in float32; the
+# at llama3.2-1b's 2048, rwkv6-7b's 4096, deepseek-v2/v3's kv_a_norm 512,
+# q_a_norm 1536 and blocks 5120 and 7168, and zamba2-2.7b's blocks 2560
+# (its Mamba out_norm runs at d_inner 5120); (2048, 2048) in float32; the
 # decode step's 4 rows; and the edge cases: D = 100 (the scalar route) and
 # 9000, rows 1, 3 and 133, x one element past an aligned address (the
 # scalar route), D = 16384 (the weight too wide to stage), and the staged
@@ -2824,8 +2870,9 @@ RMSNORM_SHAPES = (
     (2048, 512, "bfloat16", False), (2048, 1536, "bfloat16", False),
     (2048, 2048, "bfloat16", False), (2048, 4096, "bfloat16", False),
     (2048, 5120, "bfloat16", False), (2048, 7168, "bfloat16", False),
+    (2048, 2560, "bfloat16", False),
     (2048, 2048, "float32", False),
-    (4, 2048, "bfloat16", False), (4, 4096, "bfloat16", False),
+    (4, 2048, "bfloat16", False), (4, 4096, "bfloat16", False), (4, 2560, "bfloat16", False),
     (4, 5120, "bfloat16", False), (4, 7168, "bfloat16", False),
     (512, 100, "bfloat16", False), (512, 100, "float32", False), (512, 9000, "float32", False),
     (1, 2048, "bfloat16", False), (3, 5120, "bfloat16", False), (133, 7168, "bfloat16", False),
@@ -3406,15 +3453,16 @@ def _reset_train_counts() -> None:
     rmsnorm.rmsnorm.launches = 0
 
 
-def _step_summary(model, state, metrics) -> dict:
+def _step_summary(model, state, metrics, leaves=TRAIN_LEAVES) -> dict:
+    """``train_summary`` of one step of a port model on the sampled
+    ``leaves``."""
     import torch
 
-    port_name = lambda path: path.replace("blocks.", "blocks.0.", 1)
     params = dict(model.named_parameters())
     host = lambda t: t.detach().to(torch.float32).cpu().numpy()
     return train_summary([metrics["loss"]], [metrics["grad_norm"]],
-                         train_samples(lambda p: host(params[port_name(p)])),
-                         [train_samples(lambda p: host(state.m[port_name(p)]))])
+                         train_samples(lambda p: host(params[_port_leaf(p)]), leaves),
+                         [train_samples(lambda p: host(state.m[_port_leaf(p)]), leaves)])
 
 
 def phase_train(dev, tree, profile_dir: Path | None = None) -> dict:
@@ -5776,10 +5824,6 @@ def moe_train_summary(records: list, expert: int, params: dict, moments: list,
     return out
 
 
-def _port_leaf(path: str) -> str:
-    return path.replace("blocks.", "blocks.0.", 1)
-
-
 def port_moe_train_reference(cfg, dev, want: dict | None = None) -> dict:
     """MOE_TRAIN_REF's steps of ``cfg`` through the port on ``dev`` from
     ``random_lm_tree(cfg, seed)``: ``moe_train_summary`` of the run.  With
@@ -6217,12 +6261,13 @@ def phase_moe_train_reference(dev) -> dict:
     return out
 
 
-def phase_moe_train_power(dev) -> dict:
-    """18d: ``train()`` with the launcher's PowerSim for deepseek-v2 at full
-    width cut to 2 layers (weights drawn on the card from ``seed``), as
-    phase 8c holds llama: the grid ramp, the SoC, pdu_health and admm_step
-    once per conditioned controller interval, the training kernels
-    ``moe_train_launches`` a step."""
+def phase_train_power(dev, cfg, tr: dict, per_step: dict) -> dict:
+    """``train()`` with the launcher's PowerSim for ``cfg`` (weights drawn
+    on the card from ``tr["seed"]``; ``tr["power_steps"]`` steps of
+    ``tr["batch"]`` x ``tr["seq_len"]``), as phase 8c holds llama: the grid
+    ramp, the SoC, pdu_health and admm_step once per conditioned
+    controller interval, the training kernels ``per_step`` a step.  18d:
+    deepseek-v2 at full width cut to 2 layers; 20c: zamba2-2.7b whole."""
     import torch
 
     from repro_torch.data import DataConfig
@@ -6232,7 +6277,6 @@ def phase_moe_train_power(dev) -> dict:
     from repro_torch.power import phases as P, scenario as SC
     from repro_torch.train import TrainConfig, train
 
-    cfg, tr = moe_config(MOE_V2), MOE_TRAIN
     b, t = tr["batch"], tr["seq_len"]
     sim = power_sim_for(cfg, b, t, device=dev)
     durs, pows = P.step_phases(sim.cost, sim.hw, sim.model)
@@ -6251,22 +6295,1170 @@ def phase_moe_train_power(dev) -> dict:
     losses = [r["loss"] for r in res["history"]]
     power_counts = (pdu_health.pdu_health_sim.launches, admm_step.admm_iterate.launches)
     counts = _train_counts()
-    per = {k: v * tr["power_steps"] for k, v in moe_train_launches(cfg).items()}
-    print(f"moe train() + PowerSim ({cfg.name}, {cfg.n_layers} layers): {tr['power_steps']} steps "
-          f"in {wall:.2f} s wall, losses {[round(x, 4) for x in losses]}; {intervals} controller "
+    per = {k: v * tr["power_steps"] for k, v in per_step.items()}
+    print(f"{cfg.name} train() + PowerSim ({cfg.n_layers} layers): {tr['power_steps']} steps in "
+          f"{wall:.2f} s wall, losses {[round(x, 4) for x in losses]}; {intervals} controller "
           f"intervals conditioned; launches pdu_health={power_counts[0]} "
           f"admm_step={power_counts[1]}, training kernels {counts}")
-    print("moe train() + PowerSim report: " + json.dumps(rep))
+    print(f"{cfg.name} train() + PowerSim report: " + json.dumps(rep))
     del res
     torch.cuda.empty_cache()
-    _check(all(map(math.isfinite, losses)), f"moe train() losses {losses}")
+    _check(all(map(math.isfinite, losses)), f"{cfg.name} train() losses {losses}")
     _check(rep["grid_max_ramp"] <= 0.1 + 1e-3, f"PowerSim grid ramp {rep['grid_max_ramp']}")
     _check(rep["rack_max_ramp"] > rep["grid_max_ramp"], "PowerSim rack ramp <= grid ramp")
     _check(0.1 <= rep["final_soc"] <= 0.9, f"PowerSim SoC {rep['final_soc']}")
     _check(power_counts == (intervals, intervals),
            f"PowerSim launches {power_counts}, want {intervals} each")
-    _check(counts == per, f"moe train() launches {counts}, want {per}")
+    _check(counts == per, f"{cfg.name} train() launches {counts}, want {per}")
     return {"counts": counts, "power_counts": power_counts, "wall_s": wall}
+
+
+# The hybrid slice (phases 19-20): zamba2-2.7b at its published width and
+# full depth (d_model 2560, 54 Mamba2 layers in 9 groups of 6, one shared
+# attention block of 32 heads of 80 visited after each group; bf16; 2.44 B
+# parameters), weights drawn on the card by ``transformer.init`` from
+# ``seed``, served (prefill 4 x 512; generation 4 requests, 64-token
+# prompts, 32 greedy tokens) and trained (``remat="block"``: one checkpoint
+# a group; AdamW(lr=1e-3) with its float32 moments and weight decay 0.1;
+# 4 x 512 tokens of ``SyntheticLMDataset`` a step, the schedule warmed up in
+# one step as TRAIN's; ``train()`` with the launcher's PowerSim for
+# ``power_steps`` steps).  Nothing is cut: the model, its gradients and
+# moments take ~29 GB.
+HYBRID = dict(arch="zamba2_2_7b", seed=0, prompt_seed=1, prefill=(4, 512), gen=(4, 64),
+              gen_tokens=32, batch=4, seq_len=512, lr=1e-3, total_steps=10, warmup_steps=1,
+              steps=3, power_steps=4)
+# What tests/test_torch_hybrid_serve_reference.py runs through the JAX
+# package on the CPU and what the card's run is held to: SERVE_REF's
+# prefill rows, 8 greedy tokens and the teacher-forced decode logits, at
+# full width cut to 12 layers (2 groups, so the shared block is visited
+# twice, each visit on its own cache).
+HYBRID_SERVE_REF = dict(SERVE_REF, n_layers=12, prompt_seed=HYBRID["prompt_seed"])
+# The JAX package's numbers for HYBRID_SERVE_REF (bf16, weights
+# ``random_lm_tree(cfg, HYBRID["seed"])``), on the CPU (jax 0.9.0), printed by
+# ``python tests/test_torch_hybrid_serve_reference.py``.
+JAX_HYBRID_SERVE = {'rows': [{'argmax': 26534,
+           'at_ids': [0.6171875,
+                      -1.3046875,
+                      -0.609375,
+                      -0.07373046875,
+                      -0.76171875,
+                      -0.83203125,
+                      -1.578125],
+           'lse': 10.838436981880733,
+           'margin': 0.125,
+           'max': 3.78125},
+          {'argmax': 25992,
+           'at_ids': [0.74609375,
+                      0.3984375,
+                      0.49609375,
+                      0.349609375,
+                      0.404296875,
+                      -1.34375,
+                      0.2119140625],
+           'lse': 10.842583204211127,
+           'margin': 0.671875,
+           'max': 4.15625},
+          {'argmax': 4530,
+           'at_ids': [-0.023681640625,
+                      -0.92578125,
+                      0.34765625,
+                      -0.2080078125,
+                      1.125,
+                      0.76171875,
+                      -1.40625],
+           'lse': 10.837438277422535,
+           'margin': 0.125,
+           'max': 3.9375},
+          {'argmax': 30880,
+           'at_ids': [1.390625,
+                      0.5546875,
+                      0.51953125,
+                      -0.7421875,
+                      -0.0947265625,
+                      1.8203125,
+                      -0.052978515625],
+           'lse': 10.823328495754332,
+           'margin': 0.265625,
+           'max': 3.765625},
+          {'argmax': 14795,
+           'at_ids': [2.0625, -1.4921875, 0.306640625, -0.53515625, 1.25, -0.166015625, 0.80859375],
+           'lse': 10.81903532308704,
+           'margin': 0.265625,
+           'max': 4.1875}],
+ 'steps': [[{'argmax': 4530,
+             'at_fed': 3.9375,
+             'at_ids': [-0.0281982421875,
+                        -0.94140625,
+                        0.341796875,
+                        -0.21484375,
+                        1.109375,
+                        0.7578125,
+                        -1.3984375],
+             'lse': 10.837491255263682,
+             'margin': 0.109375,
+             'max': 3.9375},
+            {'argmax': 57,
+             'at_fed': 3.71875,
+             'at_ids': [-0.41015625,
+                        -0.0181884765625,
+                        -1.7109375,
+                        0.57421875,
+                        -1.25,
+                        0.9140625,
+                        0.361328125],
+             'lse': 10.848671446056539,
+             'margin': 0.03125,
+             'max': 3.71875},
+            {'argmax': 30728,
+             'at_fed': 4.15625,
+             'at_ids': [-1.1953125,
+                        0.25390625,
+                        -0.98828125,
+                        -0.96484375,
+                        0.3046875,
+                        -0.875,
+                        0.051513671875],
+             'lse': 10.837883232071068,
+             'margin': 0.53125,
+             'max': 4.15625},
+            {'argmax': 21013,
+             'at_fed': 3.96875,
+             'at_ids': [0.4296875,
+                        1.921875,
+                        -0.53515625,
+                        -0.9609375,
+                        0.62109375,
+                        1.046875,
+                        -0.41015625],
+             'lse': 10.832589024398578,
+             'margin': 0.15625,
+             'max': 3.96875},
+            {'argmax': 21803,
+             'at_fed': 3.609375,
+             'at_ids': [-0.8046875,
+                        0.90234375,
+                        -1.2890625,
+                        0.034423828125,
+                        1.1484375,
+                        0.375,
+                        1.046875],
+             'lse': 10.823144082850824,
+             'margin': 0.078125,
+             'max': 3.609375},
+            {'argmax': 20186,
+             'at_fed': 3.671875,
+             'at_ids': [-0.042236328125,
+                        1.0078125,
+                        1.6328125,
+                        -0.7265625,
+                        -0.7265625,
+                        0.60546875,
+                        -1.0390625],
+             'lse': 10.834794717595061,
+             'margin': 0.171875,
+             'max': 3.671875},
+            {'argmax': 12226,
+             'at_fed': 3.78125,
+             'at_ids': [-1.03125,
+                        0.21875,
+                        1.625,
+                        0.361328125,
+                        -0.318359375,
+                        0.7578125,
+                        0.169921875],
+             'lse': 10.831561115397268,
+             'margin': 0.203125,
+             'max': 3.78125},
+            {'argmax': 2698,
+             'at_fed': 3.796875,
+             'at_ids': [0.7109375,
+                        1.1015625,
+                        1.328125,
+                        0.03955078125,
+                        -0.6484375,
+                        -1.296875,
+                        0.380859375],
+             'lse': 10.840359091756063,
+             'margin': 0.015625,
+             'max': 3.796875}],
+           [{'argmax': 14795,
+             'at_fed': 4.1875,
+             'at_ids': [2.0625, -1.484375, 0.31640625, -0.5546875, 1.2421875, -0.18359375, 0.8125],
+             'lse': 10.819069358427656,
+             'margin': 0.28125,
+             'max': 4.1875},
+            {'argmax': 22321,
+             'at_fed': 3.609375,
+             'at_ids': [1.28125,
+                        -0.0030670166015625,
+                        0.546875,
+                        -1.421875,
+                        -1.109375,
+                        0.328125,
+                        -0.244140625],
+             'lse': 10.833841504434524,
+             'margin': 0.015625,
+             'max': 3.609375},
+            {'argmax': 12774,
+             'at_fed': 4.125,
+             'at_ids': [0.16796875,
+                        0.578125,
+                        0.255859375,
+                        0.10791015625,
+                        -0.03564453125,
+                        1.2109375,
+                        0.2451171875],
+             'lse': 10.836426247569374,
+             'margin': 0.25,
+             'max': 4.125},
+            {'argmax': 7686,
+             'at_fed': 4.0,
+             'at_ids': [-0.06884765625,
+                        -0.3984375,
+                        -0.76171875,
+                        0.06787109375,
+                        0.33984375,
+                        1.03125,
+                        2.015625],
+             'lse': 10.840921310486788,
+             'margin': 0.265625,
+             'max': 4.0},
+            {'argmax': 5342,
+             'at_fed': 4.125,
+             'at_ids': [0.03125,
+                        0.01043701171875,
+                        -1.59375,
+                        -1.7265625,
+                        1.3203125,
+                        0.01300048828125,
+                        1.1015625],
+             'lse': 10.852837391430803,
+             'margin': 0.265625,
+             'max': 4.125},
+            {'argmax': 25799,
+             'at_fed': 3.796875,
+             'at_ids': [-1.1328125,
+                        0.6796875,
+                        -0.2294921875,
+                        0.73828125,
+                        -0.201171875,
+                        -0.1171875,
+                        -0.61328125],
+             'lse': 10.833291972413326,
+             'margin': 0.0625,
+             'max': 3.796875},
+            {'argmax': 31721,
+             'at_fed': 3.703125,
+             'at_ids': [-0.48828125,
+                        -0.033203125,
+                        0.7890625,
+                        0.04833984375,
+                        -0.890625,
+                        -0.1513671875,
+                        0.19921875],
+             'lse': 10.840688720021966,
+             'margin': 0.171875,
+             'max': 3.703125},
+            {'argmax': 26012,
+             'at_fed': 4.03125,
+             'at_ids': [-1.7265625,
+                        1.484375,
+                        -0.061767578125,
+                        0.375,
+                        -1.5390625,
+                        0.58203125,
+                        -0.1005859375],
+             'lse': 10.836953805668738,
+             'margin': 0.15625,
+             'max': 4.03125}]],
+ 'tokens': [[4530, 57, 30728, 21013, 21803, 20186, 12226, 2698],
+            [14795, 22321, 12774, 7686, 5342, 25799, 31721, 26012]]}
+# Tolerance of HYBRID_SERVE_REF against the JAX package.  A 1-ulp bf16
+# difference anywhere in this stack spreads: the shared block's attention
+# carries it to every position, and 12 layers later the logits (|logit| up
+# to ~4.5, a bf16 ulp 2^-5 there) of two bf16 runs lie several ulps apart.
+# Measured on the CPU against the JAX package's float32 run on the same
+# (bf16-rounded) weights, the prefill rows of JAX's bf16 run lie up to
+# 0.125 from it and the port's 0.219; the port's bf16 run lies up to 0.196
+# from JAX's over the rows and the teacher-forced steps (an H100's kernels
+# 0.1807).  Each Mamba block
+# alone matches JAX's in bf16 but for one ulp in 0.006 % of its outputs
+# (both silu gates round as XLA's do: ``mamba2.silu``); the shared block's
+# FFN keeps ``F.silu``, as every dense FFN of the port (ROADMAP.md queue 3,
+# "bf16 silu"; rounding it as XLA's moved these numbers by < 0.01).
+HYBRID_LOGIT_TOL = 0.25
+HYBRID_MARGIN_TOL = 2 * HYBRID_LOGIT_TOL
+# Tolerances of the full-depth runs on the card (phase 19b), as RWKV_*'s:
+# * the prefill's logits, kernels against the plain versions, and the
+#   generation's against ``forward``'s: 0.75 (24 ulps at the top of the
+#   logit range), a gross-error gate above the floor the 54-layer stack
+#   sets with no kernel involved.  The stack amplifies any one-ulp bf16
+#   difference (the shared block's attention spreads it over every
+#   position and the next visit takes it up again): the two plain runs
+#   that differ only in the SSD's chunk (64 and 32, a float32 summation
+#   order) are printed beside the kernels' difference and held to it too;
+#   on an H100 80GB HBM3 at 700 W the kernels read 0.4961 against the
+#   plain run, the two plain runs 0.5010 apart, the generation 0.2402
+#   from ``forward``;
+# * each block alone (every Mamba block and every visit of the shared
+#   block, fed the kernel run's input to it), kernels against the plain
+#   versions: HYBRID_BLOCK_ULPS bf16 ulps of the block output's largest
+#   value (the plain attention rounds its logits and probabilities to bf16
+#   where the flash kernel keeps them in float32, phase 5's envelope; an
+#   H100 read at most 1 ulp, the Mamba blocks' only kernel being rmsnorm).
+HYBRID_PREFILL_TOL = 0.75
+HYBRID_BLOCK_ULPS = 4
+# The leaves whose first moment and updated values the training checks
+# sample (layer 0 of the groups' stack): the embedding, a Mamba layer's
+# input projection, conv kernel and dt_bias (float32, from zero), the
+# shared block's concat projection and query projection, and ln_f.
+HYBRID_TRAIN_LEAVES = ("embed.embedding", "groups.mamba.w_in.kernel", "groups.mamba.conv.kernel",
+                       "groups.mamba.dt_bias", "shared.w_concat.kernel",
+                       "shared.block.attn.wq.kernel", "ln_f.scale")
+# What tests/test_torch_hybrid_train_reference.py runs through the JAX
+# package on the CPU and what the card's run is held to (phase 20b): the
+# zamba2 smoke config (4 layers: 2 groups of 2) in float32, 4 x 128 tokens
+# (8 chunks of 16 a sequence) a step, 2 steps from ``random_lm_tree(cfg,
+# TRAIN["seed"])``, the data seed, AdamW and the schedule of TRAIN (those
+# of HYBRID).
+HYBRID_TRAIN_REF = dict(dtype="float32", batch=4, seq_len=128, steps=2)
+# Tolerances of HYBRID_TRAIN_REF against the JAX package, float32 (the
+# port's plain versions on the CPU measured against it; the card's run,
+# on the kernels, printed beside them): loss 2e-5 absolute, grad norm 2e-5
+# relative, m 1e-3 of the leaf's largest sampled |m|, parameters 4 float32
+# ulps plus 1e-3 lr per step where the moment is clear of zero, as
+# MOE_REF_TOL argues.
+HYBRID_REF_TOL = dict(loss=2e-5, grad_norm=2e-5, m=1e-3, grad_margin=4e-3, param_ulps=4,
+                      update_frac=1e-3, ulp_bits=24)
+# The JAX package's numbers for HYBRID_TRAIN_REF, on the CPU (jax 0.9.0),
+# printed by ``python tests/test_torch_hybrid_train_reference.py``.
+JAX_HYBRID_TRAIN = {'grad_norm': [27.380722045898438, 24.294818878173828],
+ 'loss': [6.790250778198242, 6.337066650390625],
+ 'm': [{'embed.embedding': [-0.0013578588841482997,
+                            -2.8757931431755424e-05,
+                            0.00016017263988032937,
+                            0.00014639775326941162,
+                            -0.0015660839853808284,
+                            0.0,
+                            0.0,
+                            0.0,
+                            0.0,
+                            0.0,
+                            0.0,
+                            0.0,
+                            -0.000173323875060305,
+                            0.0,
+                            0.0,
+                            0.0],
+        'groups.mamba.conv.kernel': [5.665608841809444e-05,
+                                     -3.5875825687980978e-06,
+                                     9.195207530865446e-05,
+                                     -1.0628994459693786e-05,
+                                     1.030706425808603e-05,
+                                     -2.7656933525577188e-06,
+                                     -3.080238457187079e-05,
+                                     8.565044481656514e-06,
+                                     1.354119012830779e-05,
+                                     1.750967749103438e-05,
+                                     4.029493356938474e-05,
+                                     1.034218348650029e-05,
+                                     -6.9448674366867635e-06,
+                                     5.078168396721594e-05,
+                                     4.633269054465927e-05,
+                                     1.629314101592172e-05],
+        'groups.mamba.dt_bias': [9.440971189178526e-05,
+                                 -3.0410479666898027e-05,
+                                 -0.000175952329300344,
+                                 -5.934395085205324e-05,
+                                 7.524566171923652e-05,
+                                 -9.894780669128522e-05,
+                                 -0.00012837011308874935,
+                                 0.0001452136639272794],
+        'groups.mamba.w_in.kernel': [3.076085340580903e-05,
+                                     3.558229309419403e-06,
+                                     -4.140352029935457e-05,
+                                     7.684959200560115e-06,
+                                     -1.9135868569719605e-05,
+                                     9.723885341372807e-06,
+                                     -0.0001342480245511979,
+                                     -1.4014110092830379e-05,
+                                     7.031315908534452e-05,
+                                     2.5789771825657226e-05,
+                                     -0.00014742462371941656,
+                                     9.628290172258858e-06,
+                                     -2.0341442450444447e-06,
+                                     -7.052623004710767e-06,
+                                     -6.669898084510351e-06,
+                                     -4.7511737648164853e-05],
+        'ln_f.scale': [-2.181893796660006e-05,
+                       5.1163689931854606e-05,
+                       -2.141422010026872e-05,
+                       0.00011095929949078709,
+                       4.0677077777218074e-05,
+                       3.640031354734674e-05,
+                       -2.7622443667496555e-05,
+                       3.2174804800888523e-05,
+                       6.049930743756704e-05,
+                       3.949265737901442e-05,
+                       3.998325701104477e-05,
+                       2.4976861823233776e-05,
+                       -3.016765185748227e-05,
+                       1.1877235920110252e-05,
+                       -5.77600212636753e-06,
+                       6.507692887680605e-05],
+        'shared.block.attn.wq.kernel': [-4.647579771699384e-06,
+                                        4.248510776960757e-06,
+                                        -1.6619984535282128e-06,
+                                        -4.962530510965735e-06,
+                                        6.2906105995352846e-06,
+                                        1.7658912838669494e-06,
+                                        -6.701038273604354e-06,
+                                        -1.1673495237118914e-07,
+                                        -7.04460774159088e-07,
+                                        -6.691352609777823e-06,
+                                        2.857044273696374e-05,
+                                        3.469236389719299e-06,
+                                        -6.847247277619317e-06,
+                                        -2.6937243092106655e-05,
+                                        -1.8911362076323712e-06,
+                                        5.278449407342123e-06],
+        'shared.w_concat.kernel': [-8.004752453416586e-05,
+                                   -4.440670454641804e-05,
+                                   -9.773531201062724e-05,
+                                   3.065082125885965e-07,
+                                   2.707500470933155e-06,
+                                   -3.5283656529827567e-07,
+                                   -9.849279791751542e-08,
+                                   -6.429494305848493e-07,
+                                   -2.1460137133999524e-07,
+                                   1.1013457701380958e-08,
+                                   -8.057026548158319e-07,
+                                   5.1617177199148045e-09,
+                                   -1.579256604600232e-06,
+                                   5.986282189951453e-07,
+                                   1.0524146318857674e-06,
+                                   1.141551365435589e-06]},
+       {'embed.embedding': [-0.0012220729840919375,
+                            -6.214145287231077e-08,
+                            0.0001677018590271473,
+                            0.0002137310366379097,
+                            -0.0014317758614197373,
+                            0.0,
+                            9.947988291969523e-05,
+                            0.000815408886410296,
+                            0.0,
+                            0.0,
+                            0.0,
+                            0.0,
+                            -0.0001559914817335084,
+                            0.0,
+                            0.0,
+                            0.0],
+        'groups.mamba.conv.kernel': [1.3292119547259063e-05,
+                                     -9.439499262953177e-05,
+                                     5.5184224038384855e-05,
+                                     5.9403537306934595e-05,
+                                     0.00014490169996861368,
+                                     8.304291986860335e-05,
+                                     -7.101257506292313e-05,
+                                     -3.5312211821292294e-06,
+                                     -5.625719131785445e-05,
+                                     8.634589903522283e-05,
+                                     5.6907276302808896e-05,
+                                     5.1448158046696335e-05,
+                                     4.822813571081497e-05,
+                                     5.814517135149799e-05,
+                                     0.00014603865565732121,
+                                     1.9965407773270272e-05],
+        'groups.mamba.dt_bias': [-0.0002602124586701393,
+                                 -0.00020133053476456553,
+                                 -3.8364974898286164e-05,
+                                 -1.3595456039183773e-05,
+                                 -2.283668982272502e-05,
+                                 -0.00015004265878815204,
+                                 -1.938659443112556e-05,
+                                 3.2700081646908075e-05],
+        'groups.mamba.w_in.kernel': [6.505107012344524e-05,
+                                     -3.0058798074605875e-05,
+                                     -0.00010600644600344822,
+                                     -4.7955392801668495e-05,
+                                     -1.6298665286740288e-05,
+                                     1.735734986141324e-05,
+                                     -0.0002494012878742069,
+                                     -5.4869411542313173e-05,
+                                     6.111770926509053e-05,
+                                     -7.90301855886355e-05,
+                                     2.129853965016082e-05,
+                                     -2.6695659471442923e-05,
+                                     -8.518736285623163e-05,
+                                     -1.1165449905092828e-05,
+                                     0.0001092114980565384,
+                                     -4.0148432162823156e-05],
+        'ln_f.scale': [2.208651312685106e-05,
+                       4.878632171312347e-05,
+                       6.013412348693237e-05,
+                       0.00018908972560893744,
+                       4.204145079711452e-05,
+                       0.00010766853665700182,
+                       1.6112177036120556e-05,
+                       4.843567876378074e-05,
+                       6.870321522001177e-05,
+                       3.636515612015501e-05,
+                       9.879772551357746e-05,
+                       0.00011736181477317587,
+                       -7.250791531987488e-05,
+                       8.362387598026544e-05,
+                       2.8361944714561105e-05,
+                       0.00011492627527331933],
+        'shared.block.attn.wq.kernel': [-9.928276085702237e-06,
+                                        -9.634398338675965e-06,
+                                        -2.649363705131691e-05,
+                                        -1.5545276255579665e-05,
+                                        1.0753145716080326e-06,
+                                        7.137938382584252e-07,
+                                        -5.645578085022862e-07,
+                                        -1.9936009266530164e-05,
+                                        1.4504072169074789e-05,
+                                        -1.0486935025255661e-05,
+                                        3.284586637164466e-05,
+                                        6.928494258318096e-06,
+                                        -1.3906568710808642e-05,
+                                        -1.966672789421864e-05,
+                                        -1.2973040611541364e-05,
+                                        4.045476998726372e-06],
+        'shared.w_concat.kernel': [-7.735176041023806e-05,
+                                   -9.96033995761536e-05,
+                                   -7.125709089450538e-05,
+                                   8.149681889335625e-07,
+                                   4.076146979059558e-06,
+                                   -2.6070449621329317e-06,
+                                   2.1999780130954605e-07,
+                                   -1.3009859003432211e-06,
+                                   5.868758421456732e-07,
+                                   -6.46448995667015e-07,
+                                   -2.075690019864851e-07,
+                                   1.3110180816511274e-06,
+                                   -1.2822858934669057e-06,
+                                   3.846593017442501e-07,
+                                   1.9886902009602636e-06,
+                                   1.2941018212586641e-06]}],
+ 'params': {'embed.embedding': [0.0416705459356308,
+                                -0.002194146392866969,
+                                -0.019654978066682816,
+                                0.036699388176202774,
+                                0.008060083724558353,
+                                0.0017371743451803923,
+                                -0.00895601324737072,
+                                -0.01886209100484848,
+                                0.035673391073942184,
+                                0.02475750260055065,
+                                -0.021736549213528633,
+                                0.0026698315050452948,
+                                -0.0011612437665462494,
+                                0.0075742704793810844,
+                                0.017404036596417427,
+                                0.01551321242004633],
+            'groups.mamba.conv.kernel': [0.029688239097595215,
+                                         -0.5005592107772827,
+                                         -0.06863521039485931,
+                                         -0.4862769842147827,
+                                         0.4723551869392395,
+                                         -0.44190385937690735,
+                                         -0.28729042410850525,
+                                         -0.25000709295272827,
+                                         0.24014121294021606,
+                                         -0.06210470572113991,
+                                         0.40678873658180237,
+                                         -0.6014360189437866,
+                                         0.07986295223236084,
+                                         0.2896691858768463,
+                                         0.20152512192726135,
+                                         0.3833276331424713],
+            'groups.mamba.dt_bias': [-0.0004645430890377611,
+                                     0.0018383676651865244,
+                                     0.0011346080573275685,
+                                     0.0011421784292906523,
+                                     -0.0008558578556403518,
+                                     0.0019662813283503056,
+                                     0.0010901883943006396,
+                                     -0.0011394994799047709],
+            'groups.mamba.w_in.kernel': [0.11194170266389847,
+                                         -0.007394945714622736,
+                                         0.012196538038551807,
+                                         -0.030912086367607117,
+                                         0.06187286227941513,
+                                         0.17474515736103058,
+                                         -0.10753635317087173,
+                                         0.02802588976919651,
+                                         0.05386549234390259,
+                                         -0.16788767278194427,
+                                         -0.17581576108932495,
+                                         0.07988035678863525,
+                                         -0.034418728202581406,
+                                         0.09536229819059372,
+                                         -0.04782582446932793,
+                                         0.11237286031246185],
+            'ln_f.scale': [1.0006532669067383,
+                           0.9982820749282837,
+                           1.0004616975784302,
+                           0.9980087876319885,
+                           0.9982278943061829,
+                           0.9980453252792358,
+                           1.000758409500122,
+                           0.9980357885360718,
+                           0.9981676936149597,
+                           0.9983058571815491,
+                           0.9980177283287048,
+                           0.9981194734573364,
+                           1.001985788345337,
+                           0.9981678128242493,
+                           1.0003873109817505,
+                           0.9980045557022095],
+            'shared.block.attn.wq.kernel': [-0.04041193425655365,
+                                            0.00885764416307211,
+                                            -0.1749647706747055,
+                                            0.0014680804451927543,
+                                            -0.1503271758556366,
+                                            0.03943392261862755,
+                                            -0.14656829833984375,
+                                            -0.13084201514720917,
+                                            -0.011987914331257343,
+                                            0.020365530624985695,
+                                            -0.02396952174603939,
+                                            -0.12829597294330597,
+                                            -0.08799172937870026,
+                                            0.06267300248146057,
+                                            0.05224623158574104,
+                                            0.05995561182498932],
+            'shared.w_concat.kernel': [0.12670184671878815,
+                                       0.10104726254940033,
+                                       -0.0732581838965416,
+                                       0.024215662851929665,
+                                       -0.06732243299484253,
+                                       0.041396137326955795,
+                                       -0.07522846758365631,
+                                       -0.012588836252689362,
+                                       0.10180063545703888,
+                                       0.02000991813838482,
+                                       0.006537476554512978,
+                                       -0.0077431038953363895,
+                                       0.043248336762189865,
+                                       0.006725300569087267,
+                                       -0.028955677524209023,
+                                       0.013662661425769329]}}
+
+
+def hybrid_launches(cfg) -> dict:
+    """The kernel launches of the ``hybrid`` config ``cfg``: a prefill (or
+    one decode call: flash 0) runs each Mamba block's ``ln`` and
+    ``out_norm``, each shared visit's ``ln1`` and ``ln2`` and the flash
+    forward, and ``ln_f``; a ``build_train_step`` step with
+    ``remat="block"`` runs the forward's and, from the backward, each
+    group's recompute (every norm but ``ln_f`` and every flash forward
+    again), and the flash backward once a visit."""
+    groups = cfg.n_layers // cfg.hybrid.shared_every
+    norms = 2 * cfg.n_layers + 2 * groups
+    return {"prefill": {"rmsnorm": norms + 1, "flash_attention_fwd": groups},
+            "train": {"flash_attention_fwd": 2 * groups, "flash_attention_bwd_dkv": groups,
+                      "flash_attention_bwd_dq": groups, "rmsnorm": 2 * norms + 1}}
+
+
+def hybrid_train_config():
+    """HYBRID_TRAIN_REF's config: the zamba2 smoke config in float32."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+
+    return dataclasses.replace(smoke_config(HYBRID["arch"]), dtype=HYBRID_TRAIN_REF["dtype"])
+
+
+def port_hybrid_train_reference(cfg, dev, ref: dict = HYBRID_TRAIN_REF) -> dict:
+    """``ref``'s steps of ``cfg`` through the port on ``dev`` from
+    ``random_lm_tree(cfg, TRAIN["seed"])`` (``port_train_reference``)."""
+    from repro_torch import convert
+
+    model = convert.lm_params_from_numpy(convert.random_lm_tree(cfg, TRAIN["seed"]), cfg,
+                                         device=dev)
+    return port_train_reference(model, cfg, dev, ref, HYBRID_TRAIN_LEAVES)
+
+
+def _hybrid_flash_cost(q, dk: int) -> dict:
+    """Bytes and product operations of the flash forward and backward at
+    ``q``'s head dim (the model's work) and those the kernels do on head
+    dim ``dk`` (zero-padded): ``{"fwd", "dkv", "dq"}`` of ``(bytes, ops,
+    padded ops)``."""
+    import torch
+
+    qp = torch.empty(q.shape[:-1] + (dk,), dtype=q.dtype, device="meta")
+    nbytes, nops = _flash_bytes_ops(q, q, True)
+    bwd, bwd_pad = _flash_bwd_bytes_ops(q, q, True), _flash_bwd_tc_ops(qp, qp, True)
+    return {"fwd": (nbytes, nops, _flash_bytes_ops(qp, qp, True)[1]),
+            **{k: (*bwd[k], bwd_pad[k]) for k in ("dkv", "dq")}}
+
+
+def phase_hybrid_kernels(dev) -> dict:
+    """19a: flash forward and backward at zamba2's shared block (q, k, v (4,
+    32, 512, 80), causal, bf16: the kernels run head dim 80 zero-padded to
+    ``kernel_head_dim(80)`` = 128, the backward on the tensor-core route),
+    held as phase 5 and phase 7 hold them: the forward within one bf16 ulp
+    of the float32 plain version (1e-5 on lse) and 2e-2 of the bf16 one;
+    the backward through ``FlashAttention`` against the plain backward on
+    the same residuals (one bf16 ulp plus 1e-5 of the scale) and autograd
+    through the plain attention (2^-7 of the element and of the scale).
+    Each is timed beside its plain version and the library's
+    (``F.scaled_dot_product_attention``, which takes 80 natively; its
+    backward through autograd), with the bound of the model's work at 80
+    and of the padded work the kernels do (the tensor-core backward's
+    three-part products counted).  rmsnorm at zamba2's widths is timed in
+    phase 5 (RMSNORM_SHAPES)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import full_config
+    from repro_torch.kernels import flash_attention as fa, ref
+
+    cfg = full_config(HYBRID["arch"])
+    h = cfg.hybrid.shared_block_heads
+    d = cfg.d_model // h
+    b, t = HYBRID["prefill"]
+    dk = fa.kernel_head_dim(d)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    q, k, v, do = (randn(b, h, t, d).to(torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    o, lse = _fa_kernel(q, k, v, True)
+    o_p, lse_p = ref.attention(q, k, v, causal=True, with_lse=True)
+    o_w, lse_w = ref.attention(q.float(), k.float(), v.float(), causal=True, with_lse=True)
+    torch.cuda.synchronize()
+    dev_o = (o.double() - o_w.double()).abs()
+    err = max(_max_err(o, o_p), _max_err(lse, lse_p))
+    ok = (tuple(o.shape) == (b, h, t, d) and err <= 2e-2
+          and bool((dev_o <= 2.0**-7 * o_w.double().abs() + 1e-6).all())
+          and _max_err(lse, lse_w) <= 1e-5)
+    print(f"flash fwd   head dim {d} (padded to {dk}) q {tuple(q.shape)} bf16: max|kernel - plain| "
+          f"o {_max_err(o, o_p):.3e} lse {_max_err(lse, lse_p):.3e}; vs float32 plain o "
+          f"{float(dev_o.max()):.3e} lse {_max_err(lse, lse_w):.3e}")
+    _check(ok, f"flash forward head dim {d} vs plain")
+    cost = _hybrid_flash_cost(q, dk)
+    bound = lambda c, padded=False: max(
+        c[0] / HBM_BYTES_PER_S, (c[2] if padded else c[1]) / BF16_FLOP_PER_S) * 1e3
+    by = lambda c: "bytes" if c[0] / HBM_BYTES_PER_S >= c[1] / BF16_FLOP_PER_S else "operations"
+    fwd = dict(hd80_shape=list(q.shape), hd80_kernel_head_dim=dk,
+               hd80_ms=_median_ms(lambda: _fa_kernel(q, k, v, True)),
+               hd80_plain_ms=_median_ms(lambda: ref.attention(q, k, v, causal=True,
+                                                              with_lse=True)),
+               hd80_library_ms=_median_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=True)),
+               hd80_bound_ms=bound(cost["fwd"]), hd80_bound_by=by(cost["fwd"]),
+               hd80_bound_padded_ms=bound(cost["fwd"], True), hd80_max_abs_err=err)
+    print(f"flash fwd   head dim {d} bf16: kernel {fwd['hd80_ms']:.4f} ms, plain "
+          f"{fwd['hd80_plain_ms']:.4f} ms, F.scaled_dot_product_attention "
+          f"{fwd['hd80_library_ms']:.4f} ms; bound {fwd['hd80_bound_ms']:.4f} ms "
+          f"({fwd['hd80_bound_by']}), {fwd['hd80_bound_padded_ms']:.4f} ms for the work at {dk}")
+
+    by_route = lambda: [dict(f.route_launches) for f in (fa.flash_bwd_dkv, fa.flash_bwd_dq)]
+    before = by_route()
+    ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+    got = torch.autograd.grad(fa.FlashAttention.apply(ql, kl, vl, True, None), (ql, kl, vl), do)
+    took = {r for b_, a_ in zip(before, by_route()) for r in a_ if a_[r] != b_[r]}
+    _check(took == {"tensor cores"}, f"flash backward head dim {d}: routes {took}")
+    plain = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=scale)
+    qw, kw, vw = (x.float().requires_grad_() for x in (q, k, v))
+    auto = torch.autograd.grad(ref.attention(qw, kw, vw, causal=True, scale=scale), (qw, kw, vw),
+                               do.float())
+    torch.cuda.synchronize()
+    line, ok, berr = f"flash bwd   head dim {d} q {tuple(q.shape)} bf16 [tensor cores]:", True, 0.0
+    for nm, g, p, a in zip(("dq", "dk", "dv"), got, plain, auto):
+        g64, p64, a64 = g.double(), p.double(), a.double()
+        sc = float(p64.abs().max())
+        ok &= tuple(g.shape) == tuple(p.shape) and bool(
+            ((g64 - p64).abs() <= 2.0**-7 * p64.abs() + 1e-5 * sc).all())
+        ok &= bool(((g64 - a64).abs() <= 2.0**-7 * a64.abs() + 2.0**-7 * sc).all())
+        line += (f" {nm} {float((g64 - p64).abs().max()):.3e}/"
+                 f"{float((g64 - a64).abs().max()):.3e} (max {sc:.3f})")
+        berr = max(berr, float((g64 - p64).abs().max()))
+    print(line + "  [kernel - plain backward / - autograd of plain attention]")
+    _check(ok, f"flash backward head dim {d} vs plain")
+    pad = lambda x: F.pad(x, (0, dk - d))
+    qp, kp, vp, dop, op = map(pad, (q, k, v, do, o))
+    lse_c, delta = lse.contiguous(), torch.sum(dop.float() * op.float(), dim=-1)
+    dkv_ms = _median_ms(lambda: fa.flash_bwd_dkv(qp, kp, vp, dop, lse_c, delta, causal=True,
+                                                 scale=scale))
+    dq_ms = _median_ms(lambda: fa.flash_bwd_dq(qp, kp, vp, dop, lse_c, delta, causal=True,
+                                               scale=scale))
+    plain_ms = _median_ms(lambda: ref.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                                          scale=scale))
+    ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lib_ms = _median_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True))
+    rows = {"flash_attention_fwd": fwd}
+    for key, which, ms in (("dkv", "flash_attention_bwd_dkv", dkv_ms),
+                           ("dq", "flash_attention_bwd_dq", dq_ms)):
+        c = cost[key]
+        rows[which] = dict(hd80_shape=list(q.shape), hd80_route="tensor cores", hd80_ms=ms,
+                           hd80_plain_ms=plain_ms, hd80_library_ms=lib_ms,
+                           hd80_bound_ms=bound(c), hd80_bound_by=by(c),
+                           hd80_bound_padded_ms=bound(c, True), hd80_max_abs_err=berr)
+    print(f"flash bwd   head dim {d} bf16 [tensor cores at {dk}]: dK/dV {dkv_ms:.4f} ms (bound "
+          f"{rows['flash_attention_bwd_dkv']['hd80_bound_ms']:.4f}, padded work "
+          f"{rows['flash_attention_bwd_dkv']['hd80_bound_padded_ms']:.4f}), dQ {dq_ms:.4f} ms "
+          f"(bound {rows['flash_attention_bwd_dq']['hd80_bound_ms']:.4f}, padded "
+          f"{rows['flash_attention_bwd_dq']['hd80_bound_padded_ms']:.4f}); plain backward "
+          f"{plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms")
+    return rows
+
+
+@contextlib.contextmanager
+def ssd_chunk(model, chunk: int):
+    """Run every Mamba block of ``model`` with the SSD chunk ``chunk``
+    inside the block (its float32 summation order; the result is the same
+    function)."""
+    import dataclasses
+
+    mods = [blk.mamba for group in model.groups for blk in group]
+    old = mods[0].cfg
+    new = dataclasses.replace(old, ssm=dataclasses.replace(old.ssm, chunk=chunk))
+    for m in mods:
+        m.cfg = new
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.cfg = old
+
+
+def _hybrid_blocks_alone(model, run) -> dict:
+    """Each Mamba block and each visit of the shared block of ``model``,
+    fed its input in ``run()`` (the prefill on the kernels), once more on
+    the kernels and on the plain versions: the largest difference of each
+    in bf16 ulps of its output's largest value, ``{"mamba": [...],
+    "shared": [...]}``."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    inputs = {"mamba": [], "shared": []}
+    hooks = [blk.register_forward_pre_hook(
+        lambda m, a: inputs["mamba"].append((m, a[0].clone())))
+        for group in model.groups for blk in group]
+    hooks.append(model.shared.register_forward_pre_hook(
+        lambda m, a: inputs["shared"].append((m, tuple(t.clone() for t in a[:3])))))
+    run()
+    for hk in hooks:
+        hk.remove()
+    out = {"mamba": [], "shared": []}
+    with torch.inference_mode():
+        for kind, calls in inputs.items():
+            for m, args in calls:
+                args = args if kind == "shared" else (args,)
+                yk = m(*args)[0]
+                with ops.forced("ref"):
+                    yp = m(*args)[0]
+                out[kind].append(_max_err(yk, yp) / _bf16_ulp(float(yp.abs().max())))
+    return out
+
+
+def _hybrid_model(dev):
+    """zamba2-2.7b at full width and depth, drawn on the card."""
+    import torch
+
+    from repro_torch.configs import full_config
+    from repro_torch.models import transformer as T
+
+    cfg = full_config(HYBRID["arch"])
+    _check(cfg.family == "hybrid" and cfg.dtype == "bfloat16" and cfg.remat == "block",
+           "zamba2-2.7b serves and trains in bf16 with remat")
+    t0 = time.perf_counter()
+    model = T.init(cfg, device=dev, generator=torch.Generator(dev).manual_seed(HYBRID["seed"]))
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    gib = sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30
+    print(f"hybrid: {cfg.name} {n} parameters ({gib:.2f} GiB; {cfg.n_layers} Mamba2 layers in "
+          f"{len(model.groups)} groups, one shared block of {cfg.hybrid.shared_block_heads} heads "
+          f"of {cfg.d_model // cfg.hybrid.shared_block_heads}) drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def phase_hybrid_serve(dev, model, profile_dir: Path | None = None) -> dict:
+    """19b: ``model`` (zamba2-2.7b, ``_hybrid_model``) served.  (a) The
+    prefill step on 4 x 512 tokens: launches, wall, peak memory, and every
+    logit against the same step on the plain versions
+    (``ops.forced("ref")``) within HYBRID_PREFILL_TOL, beside the plain run
+    with another SSD chunk (``ssd_chunk``: the floor with no kernel), and
+    each block alone against its plain run within HYBRID_BLOCK_ULPS
+    (``_hybrid_blocks_alone``).  (b) Greedy generation 4 x (64 + 32):
+    launches, tokens/s, its logits against ``forward``'s within
+    HYBRID_PREFILL_TOL and its tokens the forward's argmax where the top-2
+    margin exceeds twice their largest difference.  (c) HYBRID_SERVE_REF at full
+    width cut to 12 layers (weights ``random_lm_leaves``) against
+    JAX_HYBRID_SERVE."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeEngine, build_prefill_step
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    per_call = hybrid_launches(cfg)["prefill"]
+
+    # (a) Prefill: 4 prompts x 512 tokens through the prefill step.
+    b, tl = HYBRID["prefill"]
+    prompts = torch.as_tensor(serve_prompts(cfg.vocab_size, b, tl, HYBRID["prompt_seed"]),
+                              device=dev)
+    step = build_prefill_step(cfg)
+    step(model, prompts, tl)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    t = time.perf_counter()
+    logits, state = step(model, prompts, tl)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    prefill_counts = _counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    with ops.forced("ref"):
+        logits_ref, _ = step(model, prompts, tl)
+        with ssd_chunk(model, cfg.ssm.chunk // 2):
+            logits_half, _ = step(model, prompts, tl)
+    torch.cuda.synchronize()
+    err = _max_err(logits, logits_ref)
+    floor_err = _max_err(logits_half, logits_ref)
+    print(f"hybrid prefill {b} x {tl}: {prefill_s:.4f} s wall, {b * tl / prefill_s:.0f} tokens/s, "
+          f"peak {peak:.2f} GiB allocated, launches {prefill_counts}; logits max|kernels - plain| "
+          f"{err:.4f}, max|plain (SSD chunk {cfg.ssm.chunk // 2}) - plain| {floor_err:.4f} (no "
+          f"kernel involved; max|logit| {float(logits_ref.abs().max()):.3f})")
+    del logits_half
+    ulps = _hybrid_blocks_alone(model, lambda: step(model, prompts, tl))
+    print(f"hybrid blocks alone, max|kernels - plain| in bf16 ulps of the block output's largest "
+          f"value: Mamba blocks 0-{len(ulps['mamba']) - 1} "
+          f"{[f'{u:g}' for u in ulps['mamba']]}; shared visits {[f'{u:g}' for u in ulps['shared']]}")
+    _check(max(ulps["mamba"] + ulps["shared"]) <= HYBRID_BLOCK_ULPS,
+           "hybrid blocks alone, kernels vs plain versions")
+    _check(prefill_counts == per_call, f"hybrid prefill launches {prefill_counts}, want {per_call}")
+    g, sh = state["groups"], state["shared"]
+    _check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (b, tl, cfg.padded_vocab)
+           and g.length == sh.length == tl and bool(torch.isfinite(g.ssm).all()),
+           "hybrid prefill logits/state")
+    _check(err <= HYBRID_PREFILL_TOL and floor_err <= HYBRID_PREFILL_TOL,
+           "hybrid prefill logits, kernels vs plain versions")
+    del logits, logits_ref, state, g, sh
+    torch.cuda.empty_cache()
+
+    # (b) Generation: 4 requests, 64-token prompts, 32 greedy tokens.
+    b, t0p = HYBRID["gen"]
+    n = HYBRID["gen_tokens"]
+    gprompts = torch.as_tensor(serve_prompts(cfg.vocab_size, b, t0p, HYBRID["prompt_seed"] + 1),
+                               device=dev)
+    eng = ServeEngine(cfg, model, max_len=t0p + n, device=dev)
+    eng.generate(gprompts, 2)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t = time.perf_counter()
+    out = eng.generate(gprompts, n)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    gen_counts = _counts()
+    with torch.inference_mode():
+        fwd = T.forward(model, out[:, :-1]).logits[:, t0p - 1:]
+    gen_logits = decode_logits(model, cfg, gprompts, out[:, t0p:], t0p + n)
+    gen_err = _max_err(gen_logits, fwd)
+    own = torch.equal(gen_logits.argmax(-1), out[:, t0p:])
+    margin = torch.as_tensor(_top2_margin(fwd.cpu().numpy()))
+    agree = fwd.argmax(-1).cpu() == out[:, t0p:].cpu()
+    # With every logit within gen_err of forward's, a greedy token can
+    # differ from forward's argmax only where forward's top-2 margin is
+    # within 2 gen_err.
+    sure = margin > 2 * gen_err
+    worst = float(margin[~agree].max()) if bool((~agree).any()) else 0.0
+    print(f"hybrid generate {b} x ({t0p} + {n}): {gen_s:.4f} s wall, {b * n / gen_s:.1f} "
+          f"tokens/s, launches {gen_counts}; greedy tokens == the argmax of their logits: {own}; "
+          f"logits max|generation - forward| {gen_err:.4f}; greedy == forward argmax at "
+          f"{int(agree.sum())}/{agree.numel()} positions (largest margin where not {worst:.4f}), "
+          f"{int(sure.sum())} with a top-2 margin > 2 x {gen_err:.4f}")
+    _check(gen_counts == {"rmsnorm": per_call["rmsnorm"] * n, "flash_attention_fwd": 0},
+           f"hybrid generation launches {gen_counts}")
+    _check(own, "hybrid greedy tokens differ from their logits' argmax")
+    _check(gen_err <= HYBRID_PREFILL_TOL, "hybrid generation logits vs forward")
+    _check(bool(sure.any()) and bool(agree[sure].all()),
+           "hybrid greedy tokens differ from the forward argmax")
+    if profile_dir is not None:
+        profile_run("hybrid_prefill", lambda: _timed(lambda: step(model, prompts, tl)),
+                    profile_dir)
+        profile_run("hybrid_generate", lambda: _timed(lambda: eng.generate(gprompts, n)),
+                    profile_dir)
+    del eng, fwd, gen_logits
+    torch.cuda.empty_cache()
+
+    # (c) HYBRID_SERVE_REF: full width at 12 layers against the JAX package.
+    cfg12 = dataclasses.replace(cfg, n_layers=HYBRID_SERVE_REF["n_layers"])
+    t = time.perf_counter()
+    model12 = convert.lm_params_from_leaves(convert.random_lm_leaves(cfg12, HYBRID["seed"]),
+                                            cfg12, device=dev)
+    print(f"hybrid vs JAX: random_lm_leaves of {cfg12.n_layers} layers moved to the card in "
+          f"{time.perf_counter() - t:.1f} s")
+    got = port_serve_reference(model12, cfg12, dev, JAX_HYBRID_SERVE["tokens"], HYBRID_SERVE_REF)
+    del model12
+    torch.cuda.empty_cache()
+    bad, skipped = compare_serve(got, JAX_HYBRID_SERVE, HYBRID_LOGIT_TOL, HYBRID_MARGIN_TOL)
+    print(f"hybrid vs JAX ({cfg12.n_layers} layers): prefill rows and teacher-forced steps "
+          f"max|diff| {serve_max_diff(got, JAX_HYBRID_SERVE):.4f} (tolerance {HYBRID_LOGIT_TOL}); "
+          f"row argmax {[g['argmax'] for g in got['rows']]} vs "
+          f"{[w['argmax'] for w in JAX_HYBRID_SERVE['rows']]}; tokens {got['tokens']} vs "
+          f"{JAX_HYBRID_SERVE['tokens']}; {skipped} tokens past a top-2 margin <= "
+          f"{HYBRID_MARGIN_TOL} not compared")
+    _check(not bad, "hybrid serving differs from the JAX package: " + "; ".join(bad[:10]))
+    wall = time.perf_counter() - t_phase
+    print(f"hybrid serve: phase {wall:.1f} s")
+    return {"prefill": prefill_counts, "generate": gen_counts, "prefill_s": prefill_s,
+            "prefill_tokens_per_s": b * tl / prefill_s, "generate_s": gen_s,
+            "tokens_per_s": b * n / gen_s, "peak_gib": peak, "phase_s": wall}
+
+
+def phase_hybrid_train(dev, model, profile_dir: Path | None = None) -> dict:
+    """20a: ``model`` (zamba2-2.7b at full width and depth, bf16) trained
+    with ``build_train_step``, ``remat="block"`` (one checkpoint a group)
+    and AdamW's float32 moments.  Step 1 on the plain versions, then from
+    the same start (a copy of the parameters on the card) the same step on
+    the kernels, held to it under TRAIN_TOL on HYBRID_TRAIN_LEAVES; the
+    kernel step once more from the same start, whose parameters and first
+    moment must equal the first kernel run's bit for bit (``_bit_prints``);
+    then two more kernel steps, timed.  Every kernel step must launch
+    ``hybrid_launches(cfg)["train"]``, the backward on the tensor-core
+    route only; the plain step none.  ``train_mfu`` counts 6
+    ``cfg.param_count()`` tokens a step."""
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels import flash_attention as fa, ops
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import build_train_step
+
+    t_phase = time.perf_counter()
+    cfg, tr = model.cfg, HYBRID
+    b, t = tr["batch"], tr["seq_len"]
+    opt = AdamWConfig(lr=tr["lr"])
+    step = build_train_step(cfg, opt, total_steps=tr["total_steps"],
+                            warmup_steps=tr["warmup_steps"])
+    ds = SyntheticLMDataset(DataConfig(seed=tr["seed"], batch=b, seq_len=t,
+                                       vocab_size=cfg.vocab_size))
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    start = {n: p.detach().clone() for n, p in params.items()}
+
+    def restore():
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(start[n])
+
+    per_step = hybrid_launches(cfg)["train"]
+    none = dict.fromkeys(per_step, 0)
+    batch0 = ds.batch_at(0)
+
+    # (1) Step 1 on the plain versions.
+    _reset_train_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ops.forced("ref"):
+        _, st, mp = step(model, adamw_init(params, opt), batch0, 0)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    _check(_train_counts() == none, f"hybrid train plain step launched {_train_counts()}")
+    want = _step_summary(model, st, mp, HYBRID_TRAIN_LEAVES)
+    del st, mp
+    restore()
+
+    # (2) The same step on the kernels, (3) once more, (4) two more steps.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls, counts, routes = [], [], []
+
+    def kernel_step(i, state):
+        _reset_train_counts()
+        before = [dict(f.route_launches) for f in (fa.flash_bwd_dkv, fa.flash_bwd_dq)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, metrics = step(model, state, ds.batch_at(i), i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts.append(_train_counts())
+        routes.append({r for f, b_ in zip((fa.flash_bwd_dkv, fa.flash_bwd_dq), before)
+                       for r in f.route_launches if f.route_launches[r] != b_[r]})
+        return state, metrics
+
+    state, mk = kernel_step(0, adamw_init(params, opt))
+    got = _step_summary(model, state, mk, HYBRID_TRAIN_LEAVES)
+    prints = _bit_prints({**params, **{"m." + n: x for n, x in state.m.items()}})
+    del state, mk
+    restore()
+    state, mk = kernel_step(0, adamw_init(params, opt))
+    again = _bit_prints({**params, **{"m." + n: x for n, x in state.m.items()}})
+    differ = sorted(n for n in prints if prints[n] != again[n])
+    del start
+    losses = [float(mk["loss"])]
+    for i in range(1, tr["steps"]):
+        state, mk = kernel_step(i, state)
+        losses.append(float(mk["loss"]))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    bad = compare_train(got, want, tr["lr"], TRAIN_TOL, HYBRID_TRAIN_LEAVES)
+    step_s = walls[-1]
+    tokens = b * t
+    mfu = 6.0 * cfg.param_count() * tokens / (step_s * BF16_FLOP_PER_S)
+    print(f"hybrid train {cfg.name} {cfg.n_layers} layers, {n_params} parameters (bf16, "
+          f"remat={cfg.remat} a group, AdamW float32 moments), {b} x {t} tokens: plain step "
+          f"{plain_s:.3f} s, kernel step walls {[round(w, 4) for w in walls]} s (two step-1 runs, "
+          f"then steps 2-{tr['steps']}), losses {losses}, launches a step {counts[-1]}, backward "
+          f"routes {sorted(set().union(*routes))}, peak {peak:.2f} GiB allocated")
+    print("hybrid train step 1, kernels vs plain versions: "
+          + json.dumps(train_max_diff(got, want, tr["lr"], TRAIN_TOL, HYBRID_TRAIN_LEAVES)))
+    print("hybrid train step 1 twice on the kernels from the same start: "
+          + ("the same bits (parameters and first moment)" if not differ else
+             f"{len(differ)} leaves differ: {differ[:12]}"))
+    print(f"hybrid train warm step {step_s:.4f} s, {tokens / step_s:.1f} tokens/s, train_mfu "
+          f"{mfu:.4f} (6 N tokens / (step time x 989 TFLOP/s), N = param_count() "
+          f"{cfg.param_count()}; remat executes ~8 N)")
+    _check(all(c == per_step for c in counts), f"hybrid train launches {counts}, want {per_step}")
+    _check(all(r == {"tensor cores"} for r in routes), f"hybrid train backward routes {routes}")
+    _check(all(map(math.isfinite, losses)), f"hybrid train losses {losses}")
+    _check(not bad, "hybrid train step 1, kernels vs plain versions: " + "; ".join(bad[:10]))
+    _check(not differ, f"hybrid train step 1 twice on the kernels: {differ[:12]} differ")
+    if profile_dir is not None:
+        bp = ds.batch_at(tr["steps"])
+        profile_run("hybrid_train_step",
+                    lambda: _timed(lambda: step(model, state, bp, tr["steps"])), profile_dir)
+    del state, mk
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"hybrid train: phase {wall:.1f} s")
+    return {"counts": {k: sum(c[k] for c in counts) for k in per_step}, "per_step": per_step,
+            "walls": walls, "step_s": step_s, "tokens_per_s": tokens / step_s, "train_mfu": mfu,
+            "peak_gib": peak, "plain_step_s": plain_s, "same_bits": not differ, "phase_s": wall}
+
+
+def phase_hybrid_train_reference(dev) -> dict:
+    """20b: HYBRID_TRAIN_REF's two steps of the zamba2 smoke config
+    (float32, 2 groups of 2 Mamba blocks) on the kernels (flash at head
+    dim 32 on the FP32-FMA route, rmsnorm; ``hybrid_launches`` a step)
+    against JAX_HYBRID_TRAIN under HYBRID_REF_TOL."""
+    cfg = hybrid_train_config()
+    _reset_train_counts()
+    got = port_hybrid_train_reference(cfg, dev)
+    counts = _train_counts()
+    per = {k: v * HYBRID_TRAIN_REF["steps"] for k, v in hybrid_launches(cfg)["train"].items()}
+    bad = compare_train(got, JAX_HYBRID_TRAIN, TRAIN["lr"], HYBRID_REF_TOL, HYBRID_TRAIN_LEAVES)
+    print(f"hybrid train vs JAX smoke (float32, {cfg.n_layers} layers, "
+          f"{HYBRID_TRAIN_REF['steps']} steps of {HYBRID_TRAIN_REF['batch']} x "
+          f"{HYBRID_TRAIN_REF['seq_len']}): losses {got['loss']} vs {JAX_HYBRID_TRAIN['loss']}; "
+          f"largest differences " + json.dumps(train_max_diff(
+              got, JAX_HYBRID_TRAIN, TRAIN["lr"], HYBRID_REF_TOL, HYBRID_TRAIN_LEAVES))
+          + f"; launches {counts}")
+    _check(counts == per, f"hybrid train reference launches {counts}, want {per}")
+    _check(not bad, "hybrid training differs from the JAX package: " + "; ".join(bad[:10]))
+    return {"counts": counts}
 
 
 # The kernel-level entry (phase 11): benchmarks/kernel_benches.py's shapes
@@ -7947,8 +9139,9 @@ def main() -> int:
     ap.add_argument("--profile", type=Path, default=None,
                     help="also profile one campus run, prefill step, generation, training "
                          "step, rwkv6-7b prefill and generation, a degraded campus run, "
-                         "phase 14's runs, the moe prefills and generations and a "
-                         "deepseek-v2 training step; write the tables and traces here")
+                         "phase 14's runs, the moe prefills and generations, a "
+                         "deepseek-v2 training step, the zamba2 prefill and generation "
+                         "and a zamba2 training step; write the tables and traces here")
     opts = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -8107,9 +9300,26 @@ def main() -> int:
     del v2_model
     torch.cuda.empty_cache()
     moe_train_ref = phase_moe_train_reference(dev)
-    moe_train_power = phase_moe_train_power(dev)
+    moe_train_power = phase_train_power(dev, moe_config(MOE_V2), MOE_TRAIN,
+                                        moe_train_launches(moe_config(MOE_V2)))
     torch.cuda.empty_cache()
     print(f"phase 18 (moe training): {time.perf_counter() - t18:.1f} s")
+    t19 = time.perf_counter()
+    for name, row in phase_hybrid_kernels(dev).items():
+        kernels[name].update(row)
+    hybrid_model = _hybrid_model(dev)  # served in 19b, trained in 20a
+    hybrid = phase_hybrid_serve(dev, hybrid_model, opts.profile)
+    print(f"phase 19 (hybrid serving): {time.perf_counter() - t19:.1f} s")
+    t20 = time.perf_counter()
+    hybrid_train = phase_hybrid_train(dev, hybrid_model, opts.profile)
+    del hybrid_model
+    torch.cuda.empty_cache()
+    hybrid_train_ref = phase_hybrid_train_reference(dev)
+    hybrid_cfg = full_config(HYBRID["arch"])
+    hybrid_train_power = phase_train_power(dev, hybrid_cfg, HYBRID,
+                                           hybrid_launches(hybrid_cfg)["train"])
+    torch.cuda.empty_cache()
+    print(f"phase 20 (hybrid training): {time.perf_counter() - t20:.1f} s")
     fa, rn = kernels["flash_attention_fwd"], kernels["rmsnorm"]
     fa.update({k: v for k, v in moe_kernels.items() if k.startswith("mla_")},
               mla_max_abs_err=moe_kernels["err"])
@@ -8127,6 +9337,19 @@ def main() -> int:
                              launches_moe_v2_train_powersim=moe_train_power["counts"][name])
     for name, n in zip(("pdu_health", "admm_step"), moe_train_power["power_counts"]):
         kernels[name]["launches_moe_train_powersim"] = n
+    for name in ("flash_attention_fwd", "rmsnorm"):
+        pre, gen = hybrid["prefill"][name], hybrid["generate"][name]
+        kernels[name].update(launches=kernels[name]["launches"] + pre + gen,
+                             launches_hybrid_prefill=pre, launches_hybrid_generate=gen)
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+                 "rmsnorm"):
+        n = hybrid_train["counts"][name]
+        kernels[name].update(launches=kernels[name]["launches"] + n, launches_hybrid_train=n,
+                             launches_per_hybrid_train_step=hybrid_train["per_step"][name],
+                             launches_hybrid_train_reference=hybrid_train_ref["counts"][name],
+                             launches_hybrid_train_powersim=hybrid_train_power["counts"][name])
+    for name, n in zip(("pdu_health", "admm_step"), hybrid_train_power["power_counts"]):
+        kernels[name]["launches_hybrid_train_powersim"] = n
     print(json.dumps({"serve": {k: serve[k] for k in ("prefill_s", "generate_s", "tokens_per_s")},
                       "train": {k: trained[k] for k in ("step_s", "tokens_per_s", "train_mfu",
                                                          "peak_gb")},
@@ -8189,7 +9412,14 @@ def main() -> int:
                           "walls", "step_s", "tokens_per_s", "train_mfu", "peak_gib",
                           "plain_step_s", "routing_flips", "same_bits", "phase_s")},
                       "moe_train_vs_jax_flips": {a: r["flipped"] for a, r in moe_train_ref.items()},
-                      "moe_train_powersim_s": moe_train_power["wall_s"]}))
+                      "moe_train_powersim_s": moe_train_power["wall_s"],
+                      "hybrid_serve": {k: hybrid[k] for k in (
+                          "prefill_s", "prefill_tokens_per_s", "generate_s", "tokens_per_s",
+                          "peak_gib", "phase_s")},
+                      "hybrid_train": {k: hybrid_train[k] for k in (
+                          "walls", "step_s", "tokens_per_s", "train_mfu", "peak_gib",
+                          "plain_step_s", "same_bits", "phase_s")},
+                      "hybrid_train_powersim_s": hybrid_train_power["wall_s"]}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

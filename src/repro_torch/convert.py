@@ -11,6 +11,8 @@ a few ulp, which would otherwise mix into every downstream comparison.
 """
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import torch
 
@@ -152,23 +154,41 @@ def _unflatten(flat: dict) -> dict:
 
 
 def _stack_sizes(model: T.Transformer) -> dict:
-    return {st: len(getattr(model, st)) for st in T.STACKS if hasattr(model, st)}
+    """``{stack: its leading axes}``: ``(n,)`` for a list of blocks,
+    ``(n_groups, shared_every)`` for the hybrid ``groups``."""
+    out = {}
+    for st, depth in T.STACK_DEPTH.items():
+        if hasattr(model, st):
+            node, sizes = getattr(model, st), []
+            for _ in range(depth):
+                sizes.append(len(node))
+                node = node[0]
+            out[st] = tuple(sizes)
+    return out
+
+
+def _layer_names(head: str, sizes: tuple, rest: str):
+    """``(index, port name)`` of every layer's copy of the stacked leaf
+    ``{head}.{rest}``, in the stacked array's order."""
+    for idx in itertools.product(*map(range, sizes)):
+        yield idx, ".".join([head, *map(str, idx), rest])
 
 
 def lm_tree_shapes(cfg) -> dict:
     """``{dotted path: (shape, dtype)}`` of the JAX package's parameter tree
     for ``cfg`` (``repro.models.transformer.init``): the port's own module
     tree, with the per-layer ``{stack}.{i}.*`` leaves of each of
-    ``transformer.STACKS`` stacked on a leading axis of the stack's length."""
+    ``transformer.STACKS`` stacked on a leading axis of the stack's length
+    (``groups.{g}.{k}.*`` on two, ``(n_groups, shared_every)``)."""
     model = T.Transformer(cfg, device="meta")
     sizes = _stack_sizes(model)
     out = {}
     for name, p in model.named_parameters():
         head, _, tail = name.partition(".")
         if head in sizes:
-            i, rest = tail.split(".", 1)
-            if i == "0":
-                out[f"{head}.{rest}"] = ((sizes[head], *p.shape), p.dtype)
+            parts = tail.split(".", len(sizes[head]))
+            if all(i == "0" for i in parts[:-1]):
+                out[f"{head}.{parts[-1]}"] = ((*sizes[head], *p.shape), p.dtype)
         else:
             out[name] = (tuple(p.shape), p.dtype)
     return out
@@ -183,6 +203,8 @@ def random_lm_leaves(cfg, seed: int):
         kind, val = L.leaf_rule(path, shape)
         if kind == "constant":
             a = np.full(shape, val, np.float32)
+        elif kind == "log_linspace":
+            a = np.broadcast_to(L.log_linspace(*val, shape[-1]).numpy(), shape).copy()
         else:
             a = rng.standard_normal(shape, dtype=np.float32)
             np.clip(a, -2.0, 2.0, out=a)
@@ -196,8 +218,8 @@ def random_lm_tree(cfg, seed: int) -> dict:
     arrays, blocks stacked on axis 0) filled from
     ``numpy.random.default_rng(seed)``, leaf by leaf in sorted path order,
     with the reference's initialisers in distribution
-    (``layers.leaf_rule``: a standard normal clipped at +-2 and scaled, or
-    a constant; the draws are numpy's).  Leaves are float32: numpy has no
+    (``layers.leaf_rule``: a standard normal clipped at +-2 and scaled, a
+    constant, or Mamba2's ``a_log`` vector; the draws are numpy's).  Leaves are float32: numpy has no
     bfloat16, so a bf16 config is cast on the device by
     ``lm_params_from_numpy`` (leaves that are float32 in the model, such as
     RWKV-6's ``decay_base`` and ``u_bonus`` or the MoE router, stay
@@ -227,8 +249,8 @@ def lm_params_from_leaves(leaves, cfg, *, device="cuda") -> T.Transformer:
         t = torch.as_tensor(np.asarray(arr), device=dev)
         head, _, rest = path.partition(".")
         if head in sizes:
-            for i in range(sizes[head]):
-                params[f"{head}.{i}.{rest}"].copy_(t[i])
+            for idx, name in _layer_names(head, sizes[head], rest):
+                params[name].copy_(t[idx])
         else:
             params[path].copy_(t)
         seen.add(path)
@@ -261,8 +283,10 @@ def lm_tree_to_numpy(named: dict, cfg) -> dict:
     flat = {}
     for path, (shape, _) in lm_tree_shapes(cfg).items():
         head, _, rest = path.partition(".")
-        if head in T.STACKS:
-            t = torch.stack([named[f"{head}.{i}.{rest}"].detach() for i in range(shape[0])])
+        if head in T.STACK_DEPTH:
+            lead = shape[:T.STACK_DEPTH[head]]
+            t = torch.stack([named[name].detach() for _, name in _layer_names(head, lead, rest)])
+            t = t.reshape(shape)
         else:
             t = named[path].detach()
         flat[path] = t.to(torch.float32).cpu().numpy()

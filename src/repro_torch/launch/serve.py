@@ -1,11 +1,13 @@
 """Serving launcher: batched generation with a smoke-scale config of a
-``dense``, ``vlm``, ``ssm`` or ``moe`` architecture, on the card by default.
+``dense``, ``vlm``, ``ssm``, ``moe`` or ``hybrid`` architecture, on the card
+by default.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b --requests 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --device cpu
 
 The flags are the JAX launcher's (``repro.launch.serve``) plus
 ``--device``.  Weights, prompts and sampling come from seeded

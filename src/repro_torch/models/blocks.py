@@ -1,16 +1,17 @@
-"""The pre-norm decoder block (counterpart of ``repro.models.blocks``'s
-``init_decoder_block``/``decoder_block_fwd``), with a dense FFN or, for
-the ``moe`` family's MoE layers, the MoE FFN (``models/moe.py``).
-
-The Mamba2 block and the Zamba2 shared block are not ported yet: they come
-with the ``hybrid`` family slice (ROADMAP.md queue 1 item 7).
+"""Block compositions (counterpart of ``repro.models.blocks``): the
+pre-norm decoder block with a dense FFN or, for the ``moe`` family's MoE
+layers, the MoE FFN (``models/moe.py``); the Mamba2 block wrapper; and the
+Zamba2 shared attention block of the ``hybrid`` family.
 """
 from __future__ import annotations
 
+import torch
 from torch import nn
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
 
 
@@ -46,3 +47,52 @@ def decoder_block_fwd(p: DecoderBlock, cfg, x, positions, cache: A.KVCache | Non
         out, aux = p.moe(h)
         return x + out, new_cache, aux
     return x + p.ffn(h), new_cache, None
+
+
+class MambaBlock(nn.Module):
+    """``{"ln", "mamba"}``: ``x + mamba(ln x)``; returns ``(x, SSMState)``."""
+
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.ln = L.init_norm(cfg.d_model, cfg.norm, cfg.norm_eps, **kw)
+        self.mamba = M.Mamba2(cfg, **kw)
+
+    def forward(self, x, state: M.SSMState | None = None):
+        out, new_state = self.mamba(self.ln(x), state)
+        return x + out, new_state
+
+
+def shared_sub_config(cfg):
+    """The dense one-layer config of the Zamba2 shared block (the
+    reference's ``sub``): ``hybrid.shared_block_heads`` query and key/value
+    heads of ``d_model / heads`` each, the model's FFN and norms."""
+    return ModelConfig(
+        name=cfg.name + "-shared", family="dense",
+        n_layers=1, d_model=cfg.d_model, n_heads=cfg.hybrid.shared_block_heads,
+        n_kv_heads=cfg.hybrid.shared_block_heads, d_ff=cfg.d_ff,
+        vocab_size=cfg.vocab_size, norm=cfg.norm, norm_eps=cfg.norm_eps,
+        ffn=cfg.ffn, rope_theta=cfg.rope_theta, dtype=cfg.dtype,
+    )
+
+
+class SharedBlock(nn.Module):
+    """``{"w_concat": (2 d, d), "block", "_sub_heads"}``: one dense decoder
+    block whose weights every visit shares, fed ``w_concat(concat(x,
+    emb0))`` (the Zamba2 concatenated residual), its output added to ``x``.
+    ``_sub_heads`` is the reference's empty float32 marker leaf, carried so
+    that the two trees match leaf for leaf; nothing reads it."""
+
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__()
+        self.sub = shared_sub_config(cfg)
+        kw = dict(dtype=dtype, device=device)
+        self.w_concat = L.Linear(2 * cfg.d_model, cfg.d_model, **kw)
+        self.block = DecoderBlock(self.sub, **kw)
+        self._sub_heads = L._param((0,), torch.float32, device)
+
+    def forward(self, x, emb0, positions, cache: A.KVCache | None = None):
+        """``(x + block(w_concat [x ; emb0]), the block's cache)``."""
+        h = self.w_concat(torch.cat([x, emb0], dim=-1))
+        out, new_cache, _ = self.block(h, positions, cache)
+        return x + out, new_cache

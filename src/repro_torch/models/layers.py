@@ -37,19 +37,32 @@ def _param(shape, dtype, device) -> nn.Parameter:
 
 
 # A truncated normal at a fixed scale, or a constant: the RWKV-6 leaves
-# (``repro.models.rwkv6.init_rwkv6``) and the MoE router's kernel (0.02)
-# and bias (zeros; ``repro.models.moe.init_moe``).
+# (``repro.models.rwkv6.init_rwkv6``), the MoE router's kernel (0.02)
+# and bias (zeros; ``repro.models.moe.init_moe``), and Mamba2's conv kernel
+# (0.5), ``dt_bias`` (zeros) and ``d_skip`` (ones; ``repro.models.mamba2.
+# init_mamba2``); the Zamba2 shared block's empty marker ``_sub_heads``.
 TRUNC_SCALES = {"mu_base": 0.02, "mix_lora_a": 0.02, "mix_lora_b": 0.02, "decay_lora.a": 0.02,
                 "decay_lora.b": 0.02, "mu_k": 0.02, "mu_r": 0.02, "u_bonus": 0.1,
-                "router.kernel": 0.02}
-CONSTANTS = {"bias": 0.0, "scale": 1.0, "decay_base": -6.0}
+                "router.kernel": 0.02, "conv.kernel": 0.5}
+CONSTANTS = {"bias": 0.0, "scale": 1.0, "decay_base": -6.0, "dt_bias": 0.0, "d_skip": 1.0,
+             "_sub_heads": 0.0}
+# Deterministic vectors over the last axis: Mamba2's ``a_log = log(linspace(1,
+# 16, H))`` (``("log_linspace", (1, 16))``; ``log_linspace``).
+VECTORS = {"a_log": (1.0, 16.0)}
 # The stacked routed experts' leaves ``(E, d_in, d_out)``, named without
 # ``kernel`` and scaled as one (``init_moe``'s ``stack_init``).
 EXPERT_LEAVES = ("experts.w_gate", "experts.w_up", "experts.w_down")
 
 
-def leaf_rule(name: str, shape) -> tuple[str, float]:
-    """``("normal", std)`` or ``("constant", value)``: the JAX package's
+def log_linspace(lo: float, hi: float, n: int) -> torch.Tensor:
+    """``log(linspace(lo, hi, n))`` in float64, rounded to float32 (the
+    reference computes it in float32: the two may differ by an ulp)."""
+    return torch.log(torch.linspace(lo, hi, n, dtype=torch.float64)).to(F32)
+
+
+def leaf_rule(name: str, shape) -> tuple[str, object]:
+    """``("normal", std)``, ``("constant", value)`` or ``("log_linspace",
+    (lo, hi))`` (a vector over the last axis, ``log_linspace``): the JAX package's
     initialiser of the parameter ``name`` (a dotted path) by its leaf name:
     ``kernel`` (and the routed experts' ``w_gate``/``w_up``/``w_down``) a
     normal truncated at 2 sigma scaled by 1/sqrt(d_in) (its second-to-last
@@ -64,6 +77,8 @@ def leaf_rule(name: str, shape) -> tuple[str, float]:
         return "normal", 1.0 / math.sqrt(shape[-2])
     if leaf == "embedding":
         return "normal", 0.02
+    if leaf in VECTORS:
+        return "log_linspace", VECTORS[leaf]
     for key in (pair, leaf):
         if key in TRUNC_SCALES:
             return "normal", TRUNC_SCALES[key]
@@ -82,6 +97,8 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
         kind, val = leaf_rule(name, p.shape)
         if kind == "constant":
             p.fill_(val)
+        elif kind == "log_linspace":
+            p.copy_(log_linspace(*val, p.shape[-1]).expand(p.shape))
         else:
             t = torch.empty(p.shape, dtype=F32, device=p.device)
             nn.init.trunc_normal_(t, a=-2.0, b=2.0, generator=generator)

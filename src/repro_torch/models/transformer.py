@@ -1,5 +1,5 @@
-"""Top-level language model for the ``dense``, ``vlm``, ``ssm`` and
-``moe`` families (counterpart of ``repro.models.transformer``).
+"""Top-level language model for the ``dense``, ``vlm``, ``ssm``, ``moe``
+and ``hybrid`` families (counterpart of ``repro.models.transformer``).
 
 ``init(cfg)`` builds a randomly initialised ``Transformer``; ``forward``
 returns float32 logits over ``cfg.padded_vocab`` (the padded ids are not
@@ -10,7 +10,9 @@ The reference scans stacked per-layer leaves; the port keeps one
 ``nn.ModuleList``; the ``moe`` family (DeepSeek-V2/V3) keeps two,
 ``dense_blocks`` (the leading ``first_dense_layers``) and ``moe_blocks``,
 and with ``mtp_depth`` an ``mtp`` head (``proj``, one dense ``block``,
-``ln``).  With
+``ln``); the ``hybrid`` family (Zamba2) keeps ``groups``, a list of
+``n_layers / shared_every`` lists of ``shared_every`` ``MambaBlock``s, and
+the one ``shared`` attention block visited after each group.  With
 ``cfg.remat == "block"`` (the reference's ``_maybe_remat``) each block is
 an activation checkpoint while a graph is recorded: its activations are
 recomputed in the backward pass, so the flash forward and the block's
@@ -27,9 +29,12 @@ inside a block (a hook, a patched function) the backward's recompute from
 the forward.  The ``ssm`` family (RWKV-6) serves but does not train: the
 reference's kernel route for its recurrence has no gradient, so
 ``lm_loss`` (and ``train.build_train_step``) raise for it
-(``check_training``).  The ``hybrid`` family (and ``audio``, in
-``models/encdec.py`` of the reference) is not ported yet and raises,
-naming its ROADMAP.md item.
+(``check_training``).  The ``hybrid`` family serves and trains as the
+reference does: with ``remat="block"`` each group (its Mamba blocks and
+the shared block's visit) is one checkpoint, the reference's
+``_maybe_remat(group_body)``; its loss is the plain cross entropy.  The
+``audio`` family (``models/encdec.py`` of the reference) is not ported
+yet and raises, naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -44,23 +49,26 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 from repro_torch.models import rwkv6 as R
 from repro_torch.utils.devices import resolve_device
 
-# The module lists whose per-layer leaves the reference stacks on a leading
-# layer axis (its scan layout): ``blocks`` (dense, vlm, ssm), and for moe
-# ``dense_blocks`` and ``moe_blocks``.  The MTP head is not stacked.
-STACKS = ("blocks", "dense_blocks", "moe_blocks")
+# The module lists whose per-layer leaves the reference stacks on leading
+# layer axes (its scan layout), and how many: ``blocks`` (dense, vlm, ssm),
+# for moe ``dense_blocks`` and ``moe_blocks``, one axis each; for hybrid
+# ``groups``, two ``(n_groups, shared_every)``.  The MTP head and the
+# hybrid ``shared`` block are not stacked.
+STACK_DEPTH = {"blocks": 1, "dense_blocks": 1, "moe_blocks": 1, "groups": 2}
+STACKS = tuple(STACK_DEPTH)
 
 _NOT_PORTED = {
-    "hybrid": "the hybrid family (Mamba2 + Zamba2 shared block; ROADMAP.md queue 1 item 7)",
     "audio": "the audio family (encoder-decoder; ROADMAP.md queue 1 item 7)",
 }
 
 
 def check_serving(cfg) -> None:
     """Raise for the families the port cannot build and serve yet."""
-    if cfg.family not in ("dense", "vlm", "ssm", "moe"):
+    if cfg.family not in ("dense", "vlm", "ssm", "moe", "hybrid"):
         raise NotImplementedError(f"{_NOT_PORTED.get(cfg.family, cfg.family)} is not ported yet")
 
 
@@ -95,7 +103,8 @@ class MTPHead(nn.Module):
 
 class Transformer(nn.Module):
     """``{"embed", "ln_f", "lm_head"?, "blocks"}`` (``moe``: ``"dense_blocks",
-    "moe_blocks", "mtp"?`` in place of ``"blocks"``) with uninitialised
+    "moe_blocks", "mtp"?`` in place of ``"blocks"``; ``hybrid``: ``"groups",
+    "shared"``) with uninitialised
     parameters on ``device`` (``init`` fills them, ``convert`` copies
     them in)."""
 
@@ -114,6 +123,13 @@ class Transformer(nn.Module):
             self.moe_blocks = nn.ModuleList(B.DecoderBlock(cfg, use_moe=True, **kw)
                                             for _ in range(cfg.n_layers - nd))
             self.mtp = MTPHead(cfg, **kw) if cfg.mtp_depth else None
+            return
+        if cfg.family == "hybrid":
+            k_every = cfg.hybrid.shared_every
+            self.groups = nn.ModuleList(
+                nn.ModuleList(B.MambaBlock(cfg, **kw) for _ in range(k_every))
+                for _ in range(cfg.n_layers // k_every))
+            self.shared = B.SharedBlock(cfg, **kw)
             return
         block = R.RWKV6Block if cfg.family == "ssm" else B.DecoderBlock
         self.blocks = nn.ModuleList(block(cfg, **kw) for _ in range(cfg.n_layers))
@@ -147,9 +163,9 @@ def recomputing() -> bool:
     return _RECOMPUTING.get()
 
 
-def _checkpointed(blk: B.DecoderBlock, mode: str | None):
-    """``(output, aux)`` of ``blk`` as a function of its input, run under
-    the ``ops`` mode ``mode``.  The recompute of an activation checkpoint
+def _checkpointed(fn, mode: str | None):
+    """``fn`` (a block's or a group's body) run under the ``ops`` mode
+    ``mode``.  The recompute of an activation checkpoint
     runs from the backward pass, on autograd's thread for CUDA tensors,
     where the caller's ``ops.forced`` context is not set; re-entering the
     mode read at the first run keeps the recompute on the same kernels or
@@ -157,17 +173,25 @@ def _checkpointed(blk: B.DecoderBlock, mode: str | None):
     Every run after the first is a recompute (``recomputing()``)."""
     runs = []
 
-    def run(x, positions):
+    def run(*args):
         token = _RECOMPUTING.set(bool(runs))
         runs.append(None)
         try:
             with ops.forced(mode):
-                out, _, aux = blk(x, positions)
+                return fn(*args)
         finally:
             _RECOMPUTING.reset(token)
-        return out, aux
 
     return run
+
+
+def _block_out_aux(blk: B.DecoderBlock):
+    """``(output, aux)`` of ``blk`` as a function of its input."""
+    def body(x, positions):
+        out, _, aux = blk(x, positions)
+        return out, aux
+
+    return body
 
 
 def _run_stack(cfg, blocks, x, positions) -> tuple[torch.Tensor, list]:
@@ -182,7 +206,7 @@ def _run_stack(cfg, blocks, x, positions) -> tuple[torch.Tensor, list]:
     for blk in blocks:
         if remat:
             x, aux = torch.utils.checkpoint.checkpoint(
-                _checkpointed(blk, mode), x, positions, use_reentrant=False)
+                _checkpointed(_block_out_aux(blk), mode), x, positions, use_reentrant=False)
         else:
             x, _, aux = blk(x, positions)
         auxes.append(aux)
@@ -202,8 +226,40 @@ def forward(p: Transformer, tokens: torch.Tensor, *, embeddings=None) -> Forward
     positions = torch.arange(t, device=x.device).expand(b, t)
     if p.cfg.family == "moe":
         return _forward_moe(p, tokens, x, positions)
+    if p.cfg.family == "hybrid":
+        return ForwardOut(logits=_readout(p, p.ln_f(_forward_groups(p, x, positions))),
+                          aux_losses={}, mtp_logits=None)
     x, _ = _run_stack(p.cfg, p.blocks, x, positions)
     return ForwardOut(logits=_readout(p, p.ln_f(x)), aux_losses={}, mtp_logits=None)
+
+
+def _group_body(p: Transformer, group):
+    """A hybrid group as a function of ``(x, emb0, positions)``: its Mamba
+    blocks from a zero state, then the shared block's visit."""
+    def body(x, emb0, positions):
+        for blk in group:
+            x, _ = blk(x)
+        return p.shared(x, emb0, positions)[0]
+
+    return body
+
+
+def _forward_groups(p: Transformer, x, positions) -> torch.Tensor:
+    """The ``hybrid`` stack from the embedding ``x`` (also ``emb0``, the
+    shared block's second input): each group then the shared block.  With
+    ``remat == "block"`` while a graph is recorded each group is one
+    activation checkpoint (the reference's ``_maybe_remat(group_body)``)."""
+    remat = p.cfg.remat == "block" and torch.is_grad_enabled()
+    mode = ops.current_mode()
+    emb0 = x
+    for group in p.groups:
+        body = _group_body(p, group)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(_checkpointed(body, mode), x, emb0, positions,
+                                                  use_reentrant=False)
+        else:
+            x = body(x, emb0, positions)
+    return x
 
 
 def _forward_moe(p: Transformer, tokens, x, positions) -> ForwardOut:
@@ -240,7 +296,8 @@ def lm_loss(p: Transformer, tokens: torch.Tensor, labels: torch.Tensor, *,
     ``expert_load`` and ``dropped_fraction`` reported), with an MTP head
     ``mtp_loss`` (the cross entropy of ``mtp_logits`` against the labels
     rolled one step left, the last column ignored; ``0.3 x`` it is added)
-    and ``total_loss``.  ``ssm`` raises (``check_training``)."""
+    and ``total_loss`` (``dense``, ``vlm`` and ``hybrid``: the cross entropy
+    alone).  ``ssm`` raises (``check_training``)."""
     check_training(p.cfg)
     out = forward(p, tokens, embeddings=embeddings)
     loss, denom = _xent(out.logits, labels)
@@ -284,7 +341,10 @@ def init_decode_state(cfg, batch: int, max_len: int, *, device="cuda") -> dict:
     stacked the same way (``max_len`` is not read: the state has a fixed
     size); for ``moe`` ``{"dense": KVCache, "moe": KVCache}``, each stack's
     compressed MLA caches ``(n, B, max_len, kv_lora_rank)`` and ``(n, B,
-    max_len, qk_rope_head_dim)``."""
+    max_len, qk_rope_head_dim)``; for ``hybrid`` ``{"groups": SSMState,
+    "shared": KVCache}``, the Mamba states stacked ``(n_groups,
+    shared_every, ...)`` (conv in the model's type, ssm float32) and one
+    cache a visit of the shared block, ``(n_groups, B, max_len, H, Dh)``."""
     check_serving(cfg)
     dev = resolve_device(device)
     if cfg.family == "moe":
@@ -293,6 +353,15 @@ def init_decode_state(cfg, batch: int, max_len: int, *, device="cuda") -> dict:
         stacked = lambda n: A.KVCache(k=c.k.new_zeros((n,) + tuple(c.k.shape)),
                                       v=c.v.new_zeros((n,) + tuple(c.v.shape)), length=0)
         return {"dense": stacked(nd), "moe": stacked(cfg.n_layers - nd)}
+    if cfg.family == "hybrid":
+        k_every = cfg.hybrid.shared_every
+        n_groups = cfg.n_layers // k_every
+        s = M.init_ssm_state(cfg, batch, dtype=L.dtype_of(cfg), device=dev)
+        c = A.init_cache(cfg, batch, max_len, dtype=L.dtype_of(cfg), device=dev)
+        lead = lambda t, *n: t.new_zeros(n + tuple(t.shape))
+        return {"groups": M.SSMState(conv=lead(s.conv, n_groups, k_every),
+                                     ssm=lead(s.ssm, n_groups, k_every), length=0),
+                "shared": A.KVCache(k=lead(c.k, n_groups), v=lead(c.v, n_groups), length=0)}
     if cfg.family == "ssm":
         s = R.init_rwkv_state(cfg, batch, dtype=L.dtype_of(cfg), device=dev)
         n = cfg.n_layers
@@ -320,9 +389,15 @@ def decode_step(
     and returned with the new length.  For ``ssm`` each block advances its
     recurrence from its layer's state, which is then overwritten in place
     (``prefill`` is not read, as in the reference).  For ``moe`` the dense
-    stack runs before the MoE stack, each on its own caches."""
+    stack runs before the MoE stack, each on its own caches.  For
+    ``hybrid`` each Mamba block advances from its state, overwritten in
+    place, and each visit of the shared block attends over its own cache
+    (on prefill through ``ops.attention``, its keys and values then
+    written)."""
     b, t = tokens.shape
     x = p.embed.embed(tokens)
+    if p.cfg.family == "hybrid":
+        return _decode_hybrid(p, x, state, pos_offset, prefill)
     if p.cfg.family == "ssm":
         st: R.RWKVState = state["blocks"]
         for i, blk in enumerate(p.blocks):
@@ -346,4 +421,28 @@ def decode_step(
             else:
                 x, _, _ = blk(x, positions, A.KVCache(k=kvs.k[i], v=kvs.v[i], length=kvs.length))
         new_state[key] = A.KVCache(k=kvs.k, v=kvs.v, length=kvs.length + t)
+    return _readout(p, p.ln_f(x)), new_state
+
+
+def _decode_hybrid(p: Transformer, x, state: dict, pos_offset: int, prefill: bool):
+    """``decode_step`` of the ``hybrid`` family from the embedded tokens
+    ``x``."""
+    b, t, _ = x.shape
+    positions = pos_offset + torch.arange(t, device=x.device).expand(b, t)
+    gs: M.SSMState = state["groups"]
+    sh: A.KVCache = state["shared"]
+    emb0 = x
+    for g, group in enumerate(p.groups):
+        for k, blk in enumerate(group):
+            x, ns = blk(x, M.SSMState(conv=gs.conv[g, k], ssm=gs.ssm[g, k], length=gs.length))
+            gs.conv[g, k].copy_(ns.conv)
+            gs.ssm[g, k].copy_(ns.ssm)
+        if prefill:
+            x, fresh = p.shared(x, emb0, positions)
+            A.write_cache(sh.k[g], fresh.k, sh.length)
+            A.write_cache(sh.v[g], fresh.v, sh.length)
+        else:
+            x, _ = p.shared(x, emb0, positions, A.KVCache(k=sh.k[g], v=sh.v[g], length=sh.length))
+    new_state = {"groups": gs._replace(length=gs.length + t),
+                 "shared": A.KVCache(k=sh.k, v=sh.v, length=sh.length + t)}
     return _readout(p, p.ln_f(x)), new_state

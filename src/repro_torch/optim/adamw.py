@@ -13,6 +13,10 @@ leaves are stacked over layers (``blocks``; for ``moe`` ``dense_blocks``
 and ``moe_blocks``), so every in-block norm scale is a ``(n_layers, d)``
 matrix there and is decayed, and so is the sigmoid router's ``(n_layers,
 E)`` bias; only the unstacked norms (``ln_f``, the MTP head's) are exempt.
+The hybrid family's Mamba leaves are stacked twice (``(n_groups,
+shared_every, ...)``), so every one of them is decayed, ``a_log``,
+``dt_bias``, ``d_skip`` and ``out_norm.scale`` too; its ``shared`` block
+is not stacked, so its norm scales are not.
 The port keeps one module per layer (``blocks.{i}.*``, the norm scale
 ``(d,)``), so ``reference_ndim`` adds the stacking axis back before the
 rank test.
@@ -32,7 +36,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.models.transformer import STACKS
+from repro_torch.models.transformer import STACK_DEPTH
 
 F32 = torch.float32
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -92,8 +96,9 @@ def reference_ndim(name: str, p: torch.Tensor) -> int:
     """The rank of parameter ``name`` in the reference's parameter tree,
     where the leaves of ``transformer.STACKS`` (``blocks.{i}.*``,
     ``dense_blocks.{i}.*``, ``moe_blocks.{i}.*``) are stacked on a leading
-    layer axis (the MTP head's are not)."""
-    return p.ndim + (1 if name.partition(".")[0] in STACKS else 0)
+    layer axis and the hybrid ``groups.{g}.{k}.*`` on two (the MTP head's
+    and the hybrid ``shared.*`` are not)."""
+    return p.ndim + STACK_DEPTH.get(name.partition(".")[0], 0)
 
 
 @torch.no_grad()

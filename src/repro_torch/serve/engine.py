@@ -6,11 +6,12 @@ loop over a preallocated KV cache.  Everything runs under
 ``torch.inference_mode()``.  Greedy decoding follows the reference token
 for token; temperature sampling draws from a ``torch.Generator``
 (``jax.random.categorical``'s draws cannot be reproduced).  The
-``dense``, ``vlm``, ``ssm`` and ``moe`` families serve (``moe``: the
-compressed MLA caches of its dense and MoE stacks; its MoE layers route
-each call's tokens in capacity-bounded groups, so a token's output depends
-on the batch it is served in, as in the reference).  The ``hybrid`` and
-``audio`` families are not ported yet and raise.
+``dense``, ``vlm``, ``ssm``, ``moe`` and ``hybrid`` families serve
+(``moe``: the compressed MLA caches of its dense and MoE stacks; its MoE
+layers route each call's tokens in capacity-bounded groups, so a token's
+output depends on the batch it is served in, as in the reference;
+``hybrid``: the Mamba2 conv and SSM states and one KV cache a visit of the
+shared block).  The ``audio`` family is not ported yet and raises.
 """
 from __future__ import annotations
 

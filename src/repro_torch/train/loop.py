@@ -2,8 +2,8 @@
 EasyRider's PowerSim, composed (counterpart of ``repro.train.loop``).
 
 ``train()`` initialises a model (any family ``check_training`` lets
-through: ``dense``, ``vlm``, ``moe``) from ``tc.seed`` on ``device``, runs
-``tc.steps`` steps of ``build_train_step`` on ``SyntheticLMDataset``
+through: ``dense``, ``vlm``, ``moe``, ``hybrid``) from ``tc.seed`` on
+``device``, runs ``tc.steps`` steps of ``build_train_step`` on ``SyntheticLMDataset``
 batches, saves checkpoints (scheduled, and SoC-triggered emergency saves
 through ``PowerAwareCheckpointer``), resumes from the newest one with
 ``tc.resume``, and reports each step to ``power_sim``.

@@ -22,7 +22,9 @@ skew of ``expert_load`` (the layer-averaged load of the last microbatch),
 as the reference's aux-loss-free balancing does.
 
 ``check_training`` raises for the ``ssm`` family, whose recurrence has no
-backward kernel, and for the families not ported yet.
+backward kernel, and for the families not ported yet (``audio``); the
+``hybrid`` family trains with the plain cross entropy and, under
+``remat="block"``, one checkpoint a group.
 ``gather_small_weights_once`` is a sharding constraint of the reference's
 FSDP mesh; on one device it is an identity.
 """

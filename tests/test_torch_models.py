@@ -278,9 +278,10 @@ def test_random_lm_tree_matches_jax_layout(arch):
 def test_unported_families_raise(arch):
     """Families the port cannot serve raise at construction; the ``ssm``
     family serves but raises for training (``lm_loss``,
-    ``build_train_step``); the ``moe`` family serves and trains."""
+    ``build_train_step``); the ``moe`` and ``hybrid`` families serve and
+    train."""
     cfg = smoke_config(arch)
-    if cfg.family in ("ssm", "moe"):
+    if cfg.family in ("ssm", "moe", "hybrid"):
         from repro_torch.optim import AdamWConfig, adamw_init
         from repro_torch.train import build_train_step
 
@@ -288,7 +289,7 @@ def test_unported_families_raise(arch):
         tok = torch.zeros((1, 4), dtype=torch.int64)
         with torch.inference_mode():
             assert build_prefill_step(cfg)(model, tok, 8)[0].shape == (1, 4, cfg.padded_vocab)
-        if cfg.family == "moe":
+        if cfg.family in ("moe", "hybrid"):
             assert torch.isfinite(T.lm_loss(model, tok, tok)[0])
             step = build_train_step(cfg, AdamWConfig())
             _, _, metrics = step(model, adamw_init(dict(model.named_parameters()), AdamWConfig()),

@@ -24,7 +24,7 @@ from repro_torch.core import burn, compliance, controller, fleet, pdu
 from repro_torch.kernels import admm_step, gemm_burn, lc_filter, ops, pdu_health, pdu_sim
 from repro_torch.models import transformer
 from repro_torch.data import DataConfig
-from repro_torch.launch import train as launch_train
+from repro_torch.launch import serve as launch_serve, train as launch_train
 from repro_torch.optim import AdamWConfig
 from repro_torch.power import integration, phases, scenario, trace
 from repro_torch.serve import ServeEngine
@@ -46,6 +46,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
     assert "repro_torch.train.loop" in mods and "repro_torch.launch.train" in mods
     assert "repro_torch.power.integration" in mods and "repro_torch.optim.adamw" in mods
     assert "repro_torch.models.rwkv6" in mods and "repro_torch.kernels.rwkv6_scan" in mods
+    assert "repro_torch.models.mamba2" in mods
     assert {"repro_torch.core.burn", "repro_torch.kernels.lc_filter", "repro_torch.kernels.pdu_sim",
             "repro_torch.kernels.gemm_burn"} <= set(mods)
     code = (
@@ -86,6 +87,13 @@ def _no_cuda(monkeypatch):
         lambda: transformer.init_decode_state(smoke_config("llama3_2_1b"), 1, 8),
         lambda: transformer.init(smoke_config("rwkv6_7b")),
         lambda: transformer.init_decode_state(smoke_config("rwkv6_7b"), 1, 8),
+        lambda: transformer.init(smoke_config("zamba2_2_7b")),
+        lambda: transformer.Transformer(smoke_config("zamba2_2_7b")),
+        lambda: transformer.init_decode_state(smoke_config("zamba2_2_7b"), 1, 8),
+        lambda: ServeEngine(smoke_config("zamba2_2_7b"),
+                            transformer.Transformer(smoke_config("zamba2_2_7b"), device="cpu")),
+        lambda: launch_train.main(["--arch", "zamba2-2.7b", "--steps", "1"]),
+        lambda: launch_serve.main(["--arch", "zamba2-2.7b"]),
         lambda: convert.lm_params_from_numpy({}, smoke_config("llama3_2_1b")),
         lambda: ServeEngine(smoke_config("llama3_2_1b"),
                             transformer.Transformer(smoke_config("llama3_2_1b"), device="cpu")),

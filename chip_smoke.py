@@ -406,14 +406,40 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    tests/test_torch_hybrid_train_reference.py``) within ``HYBRID_REF_TOL``.
    (c) ``train()`` with the launcher's PowerSim at full width and depth,
    4 steps, checked as phase 8c.
+21. The ``audio`` family (Whisper: the encoder-decoder of
+   ``models/encdec.py``) at whisper-large-v3's published width and full
+   depth (``WHISPER``: 32 encoder and 32 decoder layers, d_model 1280, 20
+   heads of 64, 1500 frames a request; 1.643 B parameters drawn on the
+   card; its layernorms and cross-attention are plain PyTorch, as they are
+   ``jnp`` in the reference).  (a) Flash at the encoder's (4, 20, 1500, 64)
+   non-causal (a ragged last tile) forward and backward, the decoder's
+   prefill (4, 20, 64, 64) causal forward and its training (4, 20, 512,
+   64) causal backward, held as phases 5 and 7 hold them and timed beside
+   the plain versions and SDPA.  (b) Prefill 4 x 64 with the frames (flash
+   32 non-causal + 32 causal: ``whisper_launches``) against the same step
+   on the plain versions within ``WHISPER_PREFILL_TOL``, each block alone
+   within ``WHISPER_BLOCK_ULPS``; generation 4 x (64 + 32) (the encoder's
+   32 once, none a token) against ``forward``.  (c) Training 4 x 512 with
+   the reference loop's frames: step 1 on the kernels against the plain
+   versions within ``TRAIN_TOL`` on ``WHISPER_TRAIN_LEAVES``, once more
+   the same bits, two more steps (flash forward 128, dK/dV 64, dQ 64 a
+   step, the backward on the tensor cores); ``train()`` with the
+   launcher's PowerSim, 4 steps, checked as phase 8c.  (d)
+   ``WHISPER_SERVE_REF`` (full width, 2 + 2 layers) against
+   ``JAX_WHISPER_SERVE`` within ``WHISPER_LOGIT_TOL`` and
+   ``WHISPER_TRAIN_REF`` (the smoke config, float32, 2 steps) against
+   ``JAX_WHISPER_TRAIN`` within ``WHISPER_REF_TOL`` (both recorded on the
+   CPU by ``python tests/test_torch_encdec_{serve,train}_reference.py``).
+   It prints each part's seconds.
 
 With ``--profile DIR`` it also profiles one more campus run, prefill step,
 generation and training step, rwkv6-7b prefill and generation, a host run
 of the degraded campus, a warm replay of each campus's scanned engine,
 phase 14's runs (Fig. 12, ``fleet_1024racks`` and ``controller_throughput``
 cold and warm), phase 17's prefills and generations, one deepseek-v2
-training step, zamba2's prefill and generation and one zamba2 training
-step (``torch.profiler``), writes the tables and Chrome traces into DIR, and
+training step, zamba2's prefill and generation, one zamba2 training
+step, whisper's prefill and generation and one whisper training step
+(``torch.profiler``), writes the tables and Chrome traces into DIR, and
 prints each campus's host engine split into ``core.profiling``'s
 ``render`` / ``solve`` / ``host-sync`` spans.
 
@@ -1279,10 +1305,10 @@ def _port_leaf(path: str) -> str:
 
 
 def port_train_reference(model, cfg, dev, ref: dict = TRAIN_REF, leaves=TRAIN_LEAVES) -> dict:
-    """``ref``'s steps (TRAIN_REF or HYBRID_TRAIN_REF: batch, seq_len,
-    steps) through the port on ``model`` (whose parameters they update),
-    AdamW and the schedule of TRAIN; ``train_summary`` of the run on the
-    sampled ``leaves``."""
+    """``ref``'s steps (TRAIN_REF, HYBRID_TRAIN_REF or WHISPER_TRAIN_REF:
+    batch, seq_len, steps) through the port on ``model`` (whose parameters
+    they update), AdamW and the schedule of TRAIN; ``train_summary`` of the
+    run on the sampled ``leaves``."""
     import numpy as np
     import torch
 
@@ -1300,7 +1326,12 @@ def port_train_reference(model, cfg, dev, ref: dict = TRAIN_REF, leaves=TRAIN_LE
     host = lambda t: t.detach().to(torch.float32).cpu().numpy()
     losses, norms, moments = [], [], []
     for i in range(ref["steps"]):
-        model, state, metrics = step(model, state, ds.batch_at(i), i)
+        batch = ds.batch_at(i)
+        if cfg.family == "audio":  # the reference loop's frames of step i
+            from repro_torch.train.loop import audio_frames
+
+            batch["frames"] = audio_frames(cfg, ref["batch"], i, dev)
+        model, state, metrics = step(model, state, batch, i)
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
         moments.append(train_samples(lambda p: host(state.m[_port_leaf(p)]), leaves))
@@ -1993,18 +2024,23 @@ def run_region(stagger: bool, n_racks: int, duration_s: float, *, device: str = 
     return reg, cfg, spec, res, region_summary(res, reg, mbank), wall
 
 
-def decode_logits(model, cfg, prompts, fed, max_len: int):
+def decode_logits(model, cfg, prompts, fed, max_len: int, frames=None):
     """``ServeEngine.generate``'s loop through the port's decode step with
     the tokens ``fed (B, n)`` fed back in place of the sampled ones: the
-    last-position logits at each generated position, ``(B, n, V)``."""
+    last-position logits at each generated position, ``(B, n, V)`` (the
+    ``audio`` family from the encoder ``frames``)."""
     import torch
 
-    from repro_torch.models import transformer as T
+    from repro_torch.models import encdec as ED, transformer as T
     from repro_torch.serve import build_decode_step
 
     decode = build_decode_step(cfg)
     b, t0 = prompts.shape
-    state = T.init_decode_state(cfg, b, max_len, device=prompts.device)
+    if cfg.family == "audio":
+        with torch.inference_mode():
+            state = ED.init_decode_state(model, frames, b, max_len)
+    else:
+        state = T.init_decode_state(cfg, b, max_len, device=prompts.device)
     logits, state = decode(model, prompts, state, 0)
     steps = [logits[:, -1]]
     for i in range(fed.shape[1] - 1):
@@ -2016,17 +2052,26 @@ def decode_logits(model, cfg, prompts, fed, max_len: int):
 def port_serve_reference(model, cfg, dev, fed, ref: dict = SERVE_REF) -> dict:
     """``ref`` (SERVE_REF or RWKV_SERVE_REF) through the port on ``dev``
     (prefill step, greedy generation, the decode steps with JAX's tokens
-    ``fed (R, n)`` fed back); returns ``serve_summary``."""
+    ``fed (R, n)`` fed back); returns ``serve_summary``.  The ``audio``
+    family serves from the frames of ``ref["frame_seed"]``
+    (``train.loop.audio_frames``; the JAX side draws the same bits), its
+    prefill step sizing the caches to the prompt as the reference's."""
     import torch
 
     from repro_torch.serve import ServeEngine, build_prefill_step
+    from repro_torch.train.loop import audio_frames
 
     t0, n = ref["prompt_len"], ref["gen_tokens"]
     prompts = torch.as_tensor(
         serve_prompts(cfg.vocab_size, ref["requests"], t0, ref["prompt_seed"]), device=dev)
-    logits, _ = build_prefill_step(cfg)(model, prompts, t0 + n)
-    out = ServeEngine(cfg, model, max_len=t0 + n, device=dev).generate(prompts, n)
-    steps = decode_logits(model, cfg, prompts, torch.as_tensor(fed, device=dev), t0 + n)
+    frames = None
+    if cfg.family == "audio":
+        frames = audio_frames(cfg, ref["requests"], ref["frame_seed"], dev)
+        logits, _ = build_prefill_step(cfg)(model, prompts, frames)
+    else:
+        logits, _ = build_prefill_step(cfg)(model, prompts, t0 + n)
+    out = ServeEngine(cfg, model, max_len=t0 + n, device=dev).generate(prompts, n, frames=frames)
+    steps = decode_logits(model, cfg, prompts, torch.as_tensor(fed, device=dev), t0 + n, frames)
     host = lambda t: t.cpu().numpy()
     return serve_summary(host(logits), host(out), host(steps), fed, ref)
 
@@ -7461,6 +7506,958 @@ def phase_hybrid_train_reference(dev) -> dict:
     return {"counts": counts}
 
 
+# The audio slice (phase 21): whisper-large-v3 at its published width and
+# full depth (32 encoder and 32 decoder layers, d_model 1280, 20 heads of
+# 64 (kv 20), d_ff 5120, vocab 51866 padded to 51968, 1500 encoder frames,
+# bf16; 1.643 B parameters, of which ``dec_pos`` (32832 x 1280) is 42 M),
+# weights drawn on the card by ``encdec.init`` from ``seed``, the stub
+# frontend's frames drawn as the reference loop draws them
+# (``train.loop.audio_frames``: numpy's normal at 0.02, seed
+# ``frame_seed`` for serving, the step index for training).  Served
+# (prefill 4 x 64 with 1500 frames a request; generation 4 requests,
+# 64-token prompts, 32 greedy tokens) and trained (``remat="block"``: one
+# checkpoint an encoder and a decoder block; AdamW(lr=1e-3) with its
+# float32 moments and weight decay 0.1; 4 x 512 tokens and 4 x 1500 frames
+# a step, the schedule warmed up in one step as TRAIN's; ``train()`` with
+# the launcher's PowerSim for ``power_steps`` steps).  Nothing is cut.
+WHISPER = dict(arch="whisper_large_v3", seed=0, prompt_seed=1, frame_seed=2, prefill=(4, 64),
+               gen=(4, 64), gen_tokens=32, batch=4, seq_len=512, lr=1e-3, total_steps=10,
+               warmup_steps=1, steps=3, power_steps=4)
+# What tests/test_torch_encdec_serve_reference.py runs through the JAX
+# package on the CPU and what the card's run is held to: SERVE_REF's
+# prefill rows, 8 greedy tokens and the teacher-forced decode logits, with
+# the 1500 frames of ``frame_seed`` a request, at full width cut to 2
+# encoder and 2 decoder layers (the full-width tree in float32 is ~2 GB
+# with ``dec_pos``, the embedding and the head; the cut keeps the JAX run
+# on the CPU near a minute).
+WHISPER_SERVE_REF = dict(SERVE_REF, n_layers=2, encoder_layers=2,
+                         prompt_seed=WHISPER["prompt_seed"], frame_seed=WHISPER["frame_seed"])
+# The JAX package's numbers for WHISPER_SERVE_REF (bf16, weights
+# ``random_lm_tree(cfg, WHISPER["seed"])``, the frames of ``frame_seed``), on
+# the CPU (jax 0.9.0), printed by
+# ``python tests/test_torch_encdec_serve_reference.py``.
+JAX_WHISPER_SERVE = {'rows': [{'argmax': 19815,
+           'at_ids': [0.396484375, -1.0234375, 0.462890625, 0.04296875, 0.24609375, -1.21875,
+                      0.0751953125],
+           'lse': 11.325138237893409,
+           'margin': 0.09375,
+           'max': 3.96875},
+          {'argmax': 45375,
+           'at_ids': [0.53515625, 0.796875, -1.1796875, -0.0247802734375, 0.365234375, -1.25,
+                      1.09375],
+           'lse': 11.315253879054604,
+           'margin': 0.203125,
+           'max': 3.796875},
+          {'argmax': 26225,
+           'at_ids': [0.97265625, 0.4609375, -0.83984375, -0.1103515625, 0.66015625, -1.25,
+                      0.98828125],
+           'lse': 11.313870349563455,
+           'margin': 0.21875,
+           'max': 3.734375},
+          {'argmax': 10446,
+           'at_ids': [0.33203125, 0.515625, -0.43359375, -0.1318359375, 0.021484375, -1.1875,
+                      1.15625],
+           'lse': 11.313345662909574,
+           'margin': 0.046875,
+           'max': 3.703125},
+          {'argmax': 26225,
+           'at_ids': [0.49609375, 0.435546875, -0.8359375, -0.2451171875, 0.455078125, -1.59375,
+                      1.171875],
+           'lse': 11.310558865766254,
+           'margin': 0.015625,
+           'max': 3.5625}],
+ 'steps': [[{'argmax': 26225,
+             'at_fed': 3.734375,
+             'at_ids': [0.96875, 0.46484375, -0.84765625, -0.10107421875, 0.65234375, -1.25,
+                        0.9921875],
+             'lse': 11.313807757048366,
+             'margin': 0.21875,
+             'max': 3.734375},
+            {'argmax': 26225,
+             'at_fed': 3.71875,
+             'at_ids': [0.7109375, 0.52734375, -1.0546875, -0.228515625, 0.6171875, -1.1875,
+                        1.1171875],
+             'lse': 11.313042918503609,
+             'margin': 0.296875,
+             'max': 3.71875},
+            {'argmax': 26225,
+             'at_fed': 3.875,
+             'at_ids': [0.6015625, 0.53515625, -0.875, -0.12255859375, 0.7734375, -1.3359375,
+                        1.15625],
+             'lse': 11.313316162838053,
+             'margin': 0.34375,
+             'max': 3.875},
+            {'argmax': 26225,
+             'at_fed': 3.796875,
+             'at_ids': [0.60546875, 0.4140625, -0.9765625, -0.087890625, 0.6171875, -1.296875,
+                        1.1328125],
+             'lse': 11.313312108206823,
+             'margin': 0.296875,
+             'max': 3.796875},
+            {'argmax': 26225,
+             'at_fed': 3.78125,
+             'at_ids': [0.6796875, 0.5703125, -0.9375, -0.1318359375, 0.6875, -1.15625, 1.1015625],
+             'lse': 11.313093249062675,
+             'margin': 0.34375,
+             'max': 3.78125},
+            {'argmax': 26225,
+             'at_fed': 3.78125,
+             'at_ids': [0.703125, 0.419921875, -0.8046875, -0.10693359375, 0.72265625, -1.1796875,
+                        1.1953125],
+             'lse': 11.312959648975074,
+             'margin': 0.34375,
+             'max': 3.78125},
+            {'argmax': 26225,
+             'at_fed': 3.84375,
+             'at_ids': [0.625, 0.478515625, -1.0703125, -0.1259765625, 0.7421875, -1.1875,
+                        1.0546875],
+             'lse': 11.312787391970927,
+             'margin': 0.359375,
+             'max': 3.84375},
+            {'argmax': 26225,
+             'at_fed': 3.71875,
+             'at_ids': [0.59765625, 0.578125, -0.9921875, -0.0181884765625, 0.609375, -1.203125,
+                        1.1015625],
+             'lse': 11.313083380300316,
+             'margin': 0.1875,
+             'max': 3.71875}],
+           [{'argmax': 15914,
+             'at_fed': 3.5625,
+             'at_ids': [0.5078125, 0.435546875, -0.83203125, -0.251953125, 0.44921875, -1.59375,
+                        1.1796875],
+             'lse': 11.310496316726727,
+             'margin': 0.0,
+             'max': 3.5625},
+            {'argmax': 26225,
+             'at_fed': 3.578125,
+             'at_ids': [0.50390625, 0.396484375, -0.765625, -0.392578125, 0.51953125, -1.46875,
+                        1.2265625],
+             'lse': 11.310033529748676,
+             'margin': 0.140625,
+             'max': 3.578125},
+            {'argmax': 26225,
+             'at_fed': 3.75,
+             'at_ids': [0.53515625, 0.484375, -0.78515625, -0.10595703125, 0.625, -1.4765625,
+                        1.34375],
+             'lse': 11.311650772931976,
+             'margin': 0.3125,
+             'max': 3.75},
+            {'argmax': 26225,
+             'at_fed': 3.71875,
+             'at_ids': [0.478515625, 0.3125, -0.74609375, -0.193359375, 0.46484375, -1.5546875,
+                        1.2890625],
+             'lse': 11.311869559012266,
+             'margin': 0.109375,
+             'max': 3.71875},
+            {'argmax': 26225,
+             'at_fed': 3.71875,
+             'at_ids': [0.63671875, 0.390625, -0.78125, -0.1494140625, 0.462890625, -1.46875,
+                        1.4296875],
+             'lse': 11.312239742328199,
+             'margin': 0.234375,
+             'max': 3.71875},
+            {'argmax': 26225,
+             'at_fed': 3.78125,
+             'at_ids': [0.578125, 0.43359375, -0.703125, -0.051513671875, 0.58984375, -1.3984375,
+                        1.34375],
+             'lse': 11.310662103483065,
+             'margin': 0.140625,
+             'max': 3.78125},
+            {'argmax': 26225,
+             'at_fed': 3.765625,
+             'at_ids': [0.5625, 0.478515625, -0.75, -0.2099609375, 0.51953125, -1.390625, 1.25],
+             'lse': 11.31117742303043,
+             'margin': 0.171875,
+             'max': 3.765625},
+            {'argmax': 20627,
+             'at_fed': 3.65625,
+             'at_ids': [0.5625, 0.4921875, -0.78515625, -0.036865234375, 0.6015625, -1.40625,
+                        1.171875],
+             'lse': 11.311888324573879,
+             'margin': 0.046875,
+             'max': 3.65625}]],
+ 'tokens': [[26225, 26225, 26225, 26225, 26225, 26225, 26225, 26225],
+            [15914, 26225, 26225, 26225, 26225, 26225, 26225, 20627]]}
+# Tolerance of WHISPER_SERVE_REF against the JAX package: SERVE_LOGIT_TOL
+# (two bf16 ulps at the top of the logit range; the port's plain versions
+# on the CPU read 0.0156).
+WHISPER_LOGIT_TOL = SERVE_LOGIT_TOL
+WHISPER_MARGIN_TOL = 2 * WHISPER_LOGIT_TOL
+# Tolerances of the full-depth runs on the card (phase 21b): the
+# prefill's logits, kernels against the plain versions, and the
+# generation's against ``forward``'s, within SERVE_PREFILL_TOL (four bf16
+# ulps at the top of the logit range; an H100 80GB HBM3 at 700 W read
+# 0.0703 and 0.0625 over the 64-layer stack); each encoder and decoder
+# block alone, fed the kernel run's input to it, kernels against the plain
+# versions within WHISPER_BLOCK_ULPS bf16 ulps of the block output's
+# largest value, HYBRID_BLOCK_ULPS (the plain attention rounds its logits
+# and probabilities to bf16 where the flash kernel keeps them in float32,
+# phase 5's envelope; the H100 read at most 3).
+WHISPER_PREFILL_TOL = SERVE_PREFILL_TOL
+WHISPER_BLOCK_ULPS = HYBRID_BLOCK_ULPS
+# The leaves whose first moment and updated values the training checks
+# sample (layer 0 of the stacks): the embedding, the decoder positions,
+# an encoder block's query projection and ln1 scale (stacked, so decayed),
+# a decoder block's cross-attention key projection and ln_x scale
+# (stacked, decayed), and ``ln_enc``, ``ln_f`` (rank 1, not decayed).
+WHISPER_TRAIN_LEAVES = ("embed.embedding", "dec_pos", "enc_blocks.attn.wq.kernel",
+                        "enc_blocks.ln1.scale", "dec_blocks.xattn.wk.kernel",
+                        "dec_blocks.ln_x.scale", "ln_enc.scale", "ln_f.scale")
+# What tests/test_torch_encdec_train_reference.py runs through the JAX
+# package on the CPU and what the card's run is held to (phase 21d): the
+# whisper smoke config (2 + 2 layers, 64 frames) in float32, 4 x 64 tokens
+# a step with the reference loop's frames of the step, 2 steps from
+# ``random_lm_tree(cfg, TRAIN["seed"])``, the data seed, AdamW and the
+# schedule of TRAIN (those of WHISPER).
+WHISPER_TRAIN_REF = dict(dtype="float32", batch=4, seq_len=64, steps=2)
+# Tolerances of WHISPER_TRAIN_REF against the JAX package: HYBRID_REF_TOL's
+# (float32; the port's plain versions on the CPU read loss 9.5e-7, grad norm
+# 1.5e-7 relative, m 3.1e-6 of the leaf's largest, 2.8e-7 lr beyond the
+# parameters' ulps; on the card the flash kernels run the FP32-FMA routes).
+WHISPER_REF_TOL = HYBRID_REF_TOL
+# The JAX package's numbers for WHISPER_TRAIN_REF, on the CPU (jax 0.9.0),
+# printed by ``python tests/test_torch_encdec_train_reference.py``.
+JAX_WHISPER_TRAIN = {'grad_norm': [4.260893821716309, 3.1253180503845215],
+ 'loss': [6.465755462646484, 6.475581169128418],
+ 'm': [{'dec_blocks.ln_x.scale': [-6.998771340249732e-08, 5.527796020032838e-06,
+                                  -6.667175512120593e-06, 5.4498423196491785e-06,
+                                  -3.8854132071719505e-06, 1.1361890756234061e-05,
+                                  2.4960215796454577e-06, 1.3991991181683261e-05,
+                                  -2.0458423932723235e-07, 3.946935521526029e-06,
+                                  3.837446911347797e-07, 1.0772865607577842e-05,
+                                  -1.3630505236505996e-05, 1.2532035498225014e-06,
+                                  -8.871359568729531e-06, 9.963585398509167e-06],
+        'dec_blocks.xattn.wk.kernel': [-1.8398134216113249e-06, -4.1508374124532565e-06,
+                                       -1.628622703719884e-05, 8.282883754873183e-06,
+                                       -3.7807498642905557e-07, -6.205074896570295e-06,
+                                       -1.3060356423011399e-06, 1.7151401721093862e-07,
+                                       -6.546135409735143e-06, -3.0407934445975116e-06,
+                                       5.257049451756757e-06, 2.2105446078057867e-06,
+                                       7.91098500485532e-07, 1.4753894674868206e-06,
+                                       -9.030883347804775e-07, -4.428369265951915e-06],
+        'dec_pos': [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+        'embed.embedding': [0.00013239399413578212, 0.00019396956486161798, 0.00012683161185123026,
+                            1.3596319149655756e-05, -0.00039774124161340296, 0.0, 0.0, 0.0, 0.0,
+                            0.0, 0.0, 0.0, 0.00038517944631166756, 0.0, 0.0, 0.0],
+        'enc_blocks.attn.wq.kernel': [2.995551585627254e-05, 7.355374236794887e-06,
+                                      -1.945719850482419e-05, -7.768839168420527e-06,
+                                      -1.4543287761625834e-05, -1.705225986370351e-05,
+                                      -2.0973384380340576e-05, 2.152245542674791e-05,
+                                      -1.6026742741814815e-05, 2.4387101802858524e-05,
+                                      -5.729463373427279e-05, -5.498128666658886e-05,
+                                      -0.00010435191506985575, -2.6483276087674312e-05,
+                                      5.659290400217287e-05, -2.4978211513371207e-05],
+        'enc_blocks.ln1.scale': [-0.00018184415239375085, 3.2840795029187575e-05,
+                                 0.0002493840584065765, -1.409442484145984e-05,
+                                 0.0003401994763407856, -0.00019353997777216136,
+                                 -0.00028813464450649917, 7.379310409305617e-05,
+                                 -9.415468957740813e-05, -0.0001394622231600806,
+                                 0.00028573579038493335, -0.00031590258004143834,
+                                 -0.00036451639607548714, -0.0004912785952910781,
+                                 -0.0001645572338020429, -0.0001232184295076877],
+        'ln_enc.scale': [0.0002684828359633684, -4.0536826418247074e-05, -0.00014572282088920474,
+                         -1.0024173207057174e-05, -7.503441884182394e-05, 0.00011328636173857376,
+                         0.0001893556909635663, -8.675635763211176e-05, -0.00023111874179448932,
+                         0.0002497943351045251, -0.0002926807792391628, -2.405490340606775e-05,
+                         9.143767783825751e-06, 5.7703677157405764e-05, 2.7942718588747084e-05,
+                         0.00017330942500848323],
+        'ln_f.scale': [4.936358527629636e-05, 0.0002284632355440408, -0.00013314769603312016,
+                       2.3844926545280032e-05, -1.6797665011836216e-05, 0.0006816490204073489,
+                       5.1701052143471316e-05, 0.00043239264050498605, 8.4068211435806e-05,
+                       0.0004608056624419987, 0.00012199638149468228, 0.0003061434836126864,
+                       3.099149353147368e-06, -8.383912063436583e-05, 0.0005114267696626484,
+                       0.00011195878323633224]},
+       {'dec_blocks.ln_x.scale': [-8.097321369859856e-06, 2.464908902766183e-05,
+                                  -6.526302513520932e-06, 4.9841601139632985e-06,
+                                  -1.0813730568770552e-06, 9.591299203748349e-06,
+                                  1.8020089100900805e-06, 1.7495598513050936e-05,
+                                  -2.391585212535574e-06, -2.9262375846883515e-06,
+                                  5.303260877553839e-06, 7.974588697834406e-06,
+                                  -6.049801413610112e-06, 6.823805506428471e-06,
+                                  -6.029517408023821e-06, 8.011981663003098e-06],
+        'dec_blocks.xattn.wk.kernel': [1.659711415413767e-05, -7.532815288868733e-06,
+                                       -1.5576708392472938e-05, -1.0521980584599078e-05,
+                                       -1.344102383882273e-05, -2.3136739457640942e-07,
+                                       -2.0274414964660536e-06, -8.026978321140632e-06,
+                                       -8.109352165774908e-06, -4.941445240547182e-06,
+                                       6.12221401752322e-06, 2.478244596204604e-06,
+                                       2.6919774427369703e-06, 1.264991624339018e-06,
+                                       -3.96871746488614e-06, -8.556082320865244e-06],
+        'dec_pos': [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+        'embed.embedding': [0.00011915458890143782, 0.00012800430704373866, -3.0508983400068246e-05,
+                            2.845847666321788e-05, -0.00035796710290014744, 0.0,
+                            0.0002466391015332192, -0.0003174814337398857, 0.0, 0.0, 0.0, 0.0,
+                            0.0003466614871285856, 0.0, 0.0, 0.0],
+        'enc_blocks.attn.wq.kernel': [3.322373959235847e-05, -2.1923913209320744e-06,
+                                      -3.355209264555015e-05, -4.452727807802148e-06,
+                                      -1.292286833631806e-05, -8.071748015936464e-05,
+                                      -8.823124517221004e-05, -6.7629821387527045e-06,
+                                      -1.4011093298904598e-05, 8.257356967078522e-05,
+                                      -6.614928861381486e-05, -7.6758922659792e-05,
+                                      -0.00016332285304088145, 2.172347558371257e-05,
+                                      0.00013513297017198056, -2.714850961638149e-05],
+        'enc_blocks.ln1.scale': [-0.0003211800940334797, 0.00014789642591495067,
+                                 0.00013489370758179575, 6.708962609991431e-05,
+                                 0.0003850576758850366, -9.815515659283847e-05,
+                                 -0.0002258679160149768, -7.236332749016583e-05,
+                                 5.877940930076875e-05, -0.00018626484961714596,
+                                 0.00048624450573697686, -0.0006465189508162439,
+                                 -0.0003942699986509979, -0.0004754986730404198,
+                                 -0.00037548880209214985, -0.00017434987239539623],
+        'ln_enc.scale': [0.0002852188190445304, -6.400430265784962e-06, -0.0003869360953103751,
+                         2.2196583813638426e-05, -0.0002625673951115459, 8.312845602631569e-05,
+                         -0.00011998488480458036, -0.00010535010369494557, -0.00016170466551557183,
+                         0.00019543542293831706, 0.00013392216351348907, 9.51545416683075e-07,
+                         0.000251683930400759, -6.402059079846367e-05, 2.2978185370448045e-05,
+                         2.4781320462352596e-05],
+        'ln_f.scale': [-0.000240721128648147, 7.991048914846033e-05, 0.00023379706544801593,
+                       0.00022612218162976205, 5.823495303047821e-05, 0.0010235914960503578,
+                       4.2661293264245614e-05, 0.00035401491913944483, 3.5559571642806986e-06,
+                       0.00036752494634129107, 0.00028456293512135744, 0.00037537552998401225,
+                       -0.0005296606686897576, 0.0001365729549434036, 0.0008370790746994317,
+                       0.0005217507714405656]}],
+ 'params': {'dec_blocks.ln_x.scale': [1.0015264749526978, 0.9979122281074524, 1.0015352964401245,
+                                      0.9981109499931335, 1.0009765625, 0.9981648325920105,
+                                      0.9982653260231018, 0.9979130029678345, 1.0015876293182373,
+                                      0.9990857243537903, 0.9980190396308899, 0.9982494711875916,
+                                      1.0011029243469238, 0.997940182685852, 1.0012996196746826,
+                                      0.9981968998908997],
+            'dec_blocks.xattn.wk.kernel': [-0.07216205447912216, 0.011882355436682701,
+                                           0.09428664296865463, 0.027071498334407806,
+                                           -0.028232073411345482, 0.1257498413324356,
+                                           -0.07315468043088913, -0.11318355798721313,
+                                           -0.10011513531208038, 0.17872370779514313,
+                                           -0.11799454689025879, -0.05035785958170891,
+                                           -0.032165370881557465, 0.013955747708678246,
+                                           -0.09881983697414398, -0.06401456147432327],
+            'dec_pos': [-0.018323861062526703, 0.03644528612494469, -0.01745499111711979,
+                        -0.004582796711474657, 0.004553125239908695, 0.028936225920915604,
+                        0.03999199718236923, 0.0030896926764398813, -0.006167132407426834,
+                        0.018361659720540047, -0.023885542526841164, -0.008444922044873238,
+                        -0.008291979320347309, -0.009087832644581795, 0.002840979490429163,
+                        0.025822173804044724],
+            'embed.embedding': [-0.01248038187623024, 0.038508933037519455, -0.000399585347622633,
+                                -0.019727632403373718, 0.012159952893853188, 0.010170583613216877,
+                                -0.004691695794463158, 0.00598044041544199, -0.03249194100499153,
+                                -0.03605956584215164, -0.0063145398162305355, -0.032150544226169586,
+                                -0.004231439437717199, -0.03999199718236923, -0.003344098338857293,
+                                -0.018350213766098022],
+            'enc_blocks.attn.wq.kernel': [0.029800087213516235, 0.005770848598331213,
+                                          -0.06064227223396301, 0.08858196437358856,
+                                          0.010879909619688988, 0.11346891522407532,
+                                          -0.1748446524143219, -0.0021143474150449038,
+                                          0.17840009927749634, -0.051553480327129364,
+                                          -0.051915209740400314, 0.08969593793153763,
+                                          0.054927315562963486, -0.035810887813568115,
+                                          0.010991073213517666, -0.032546766102313995],
+            'enc_blocks.ln1.scale': [1.0017954111099243, 0.9979135394096375, 0.9984173774719238,
+                                     1.0001907348632812, 0.9979698061943054, 1.0011546611785889,
+                                     1.0013868808746338, 0.9991403818130493, 1.0005463361740112,
+                                     1.001719355583191, 0.997809112071991, 1.001799464225769,
+                                     1.0016016960144043, 1.001528024673462, 1.0017917156219482,
+                                     1.0017433166503906],
+            'ln_enc.scale': [0.9982098340988159, 1.0010946989059448, 1.0019720792770386,
+                             1.000501275062561, 1.0019264221191406, 0.9984545707702637,
+                             0.9992563128471375, 1.0018714666366577, 1.0015168190002441,
+                             0.9984142780303955, 1.0007988214492798, 1.0009784698486328,
+                             0.9982408285140991, 0.9993650913238525, 0.9983819127082825,
+                             0.9989148378372192],
+            'ln_f.scale': [0.9996117949485779, 0.9987703561782837, 1.0005438327789307,
+                           0.9981932044029236, 1.0004304647445679, 0.9980365037918091,
+                           0.998379647731781, 0.9983847737312317, 0.9989760518074036,
+                           0.9984018802642822, 0.9980106353759766, 0.9981232285499573,
+                           0.9997314214706421, 1.0005582571029663, 0.9980154633522034,
+                           0.9981182813644409]}}
+
+
+def whisper_launches(cfg) -> dict:
+    """The kernel launches of the ``audio`` config ``cfg`` (its layernorms
+    and cross-attention are plain, as the reference's ``jnp``, so no
+    rmsnorm): a prefill runs the encoder's non-causal flash forward once a
+    layer and the decoder's causal one once a layer; ``generate`` encodes
+    once (the encoder's launches) and then runs the cached decode (none a
+    token); a ``build_train_step`` step with ``remat="block"`` runs every
+    block's forward twice (the recompute) and its backward once."""
+    enc, dec = cfg.encdec.encoder_layers, cfg.n_layers
+    return {"prefill": {"rmsnorm": 0, "flash_attention_fwd": enc + dec},
+            "generate": {"rmsnorm": 0, "flash_attention_fwd": enc},
+            "train": {"flash_attention_fwd": 2 * (enc + dec), "flash_attention_bwd_dkv": enc + dec,
+                      "flash_attention_bwd_dq": enc + dec, "rmsnorm": 0}}
+
+
+def whisper_step_flops(model, batch: int, seq_len: int) -> float:
+    """6 x the matmul work of one ``batch`` x ``seq_len`` training step of
+    the ``EncDec`` ``model``: the encoder's parameters and the decoder's
+    cross-attention key/value projections over the frames, the rest of the
+    decoder and the head over the tokens (the attention products not
+    counted, as ``train_mfu``'s 6 N tokens of the other families)."""
+    frames = model.cfg.encdec.encoder_seq
+    per_frame = per_token = 0
+    for name, p in model.named_parameters():
+        if name.startswith(("enc_blocks.", "ln_enc.")) or ".xattn.wk." in name \
+                or ".xattn.wv." in name:
+            per_frame += p.numel()
+        elif name.startswith(("dec_blocks.", "ln_f.", "lm_head.")):
+            per_token += p.numel()
+    return 6.0 * batch * (per_frame * frames + per_token * seq_len)
+
+
+def whisper_train_config():
+    """WHISPER_TRAIN_REF's config: the whisper smoke config in float32."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+
+    return dataclasses.replace(smoke_config(WHISPER["arch"]), dtype=WHISPER_TRAIN_REF["dtype"])
+
+
+def whisper_serve_config():
+    """WHISPER_SERVE_REF's config: whisper-large-v3 at full width with its
+    depth cut."""
+    import dataclasses
+
+    from repro_torch.configs import full_config
+
+    cfg = full_config(WHISPER["arch"])
+    r = WHISPER_SERVE_REF
+    return dataclasses.replace(cfg, n_layers=r["n_layers"], encdec=dataclasses.replace(
+        cfg.encdec, encoder_layers=r["encoder_layers"]))
+
+
+def port_whisper_train_reference(cfg, dev, ref: dict = WHISPER_TRAIN_REF) -> dict:
+    """``ref``'s steps of ``cfg`` through the port on ``dev`` from
+    ``random_lm_tree(cfg, TRAIN["seed"])`` (``port_train_reference``)."""
+    from repro_torch import convert
+
+    model = convert.lm_params_from_numpy(convert.random_lm_tree(cfg, TRAIN["seed"]), cfg,
+                                         device=dev)
+    return port_train_reference(model, cfg, dev, ref, WHISPER_TRAIN_LEAVES)
+
+
+def phase_whisper_kernels(dev) -> dict:
+    """21a: the flash kernels at whisper's shapes (20 heads of 64 on 20 KV
+    heads, bf16): the forward at the encoder's (4, 20, 1500, 64),
+    non-causal (1500 = 23 x 64 + 28: a ragged last tile), and at the
+    decoder's prefill (4, 20, 64, 64), causal; the backward (dK/dV and dQ,
+    the tensor-core route at 64) at the encoder's shape and at the
+    decoder's training shape (4, 20, 512, 64), causal.  Each is held as
+    phases 5 and 7 hold it: the forward within one bf16 ulp of the float32
+    plain version (1e-5 on lse) and 2e-2 of the bf16 one; the backward
+    through ``FlashAttention`` against the plain backward on the same
+    residuals (one bf16 ulp plus 1e-5 of the scale) and autograd through
+    the float32 plain attention (2^-7 of the element and of the scale).
+    Each is timed beside its plain version and the library's
+    (``F.scaled_dot_product_attention``; its backward through autograd),
+    with its bound (the backward's also for the three-part tensor-core
+    products)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import full_config
+    from repro_torch.kernels import flash_attention as fa, ref
+
+    cfg = full_config(WHISPER["arch"])
+    h, d = cfg.n_heads, cfg.resolved_head_dim
+    b, t_enc = WHISPER["batch"], cfg.encdec.encoder_seq
+    _check(cfg.n_kv_heads == h and d == 64, "whisper's attention: 20 heads of 64 on 20 KV heads")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    randn = lambda t: torch.randn((b, h, t, d), generator=gen, device=dev).to(torch.bfloat16)
+    scale = d ** -0.5
+    bound = lambda c: max(c[0] / HBM_BYTES_PER_S, c[1] / BF16_FLOP_PER_S) * 1e3
+    by = lambda c: "bytes" if c[0] / HBM_BYTES_PER_S >= c[1] / BF16_FLOP_PER_S else "operations"
+    rows = {"flash_attention_fwd": {}, "flash_attention_bwd_dkv": {}, "flash_attention_bwd_dq": {}}
+    for label, t, causal in (("whisper_enc", t_enc, False),
+                             ("whisper_dec_prefill", WHISPER["prefill"][1], True)):
+        q, k, v = randn(t), randn(t), randn(t)
+        o, lse = _fa_kernel(q, k, v, causal)
+        o_p, lse_p = ref.attention(q, k, v, causal=causal, with_lse=True)
+        o_w, lse_w = ref.attention(q.float(), k.float(), v.float(), causal=causal, with_lse=True)
+        torch.cuda.synchronize()
+        dev_o = (o.double() - o_w.double()).abs()
+        err = max(_max_err(o, o_p), _max_err(lse, lse_p))
+        ok = (tuple(o.shape) == (b, h, t, d) and err <= 2e-2
+              and bool((dev_o <= 2.0**-7 * o_w.double().abs() + 1e-6).all())
+              and _max_err(lse, lse_w) <= 1e-5)
+        print(f"flash fwd   {label} q {tuple(q.shape)} {'causal' if causal else 'non-causal'} bf16: "
+              f"max|kernel - plain| o {_max_err(o, o_p):.3e} lse {_max_err(lse, lse_p):.3e}; vs "
+              f"float32 plain o {float(dev_o.max()):.3e} lse {_max_err(lse, lse_w):.3e}")
+        _check(ok, f"flash forward {label} vs plain")
+        cost = _flash_bytes_ops(q, k, causal)
+        row = {f"{label}_shape": list(q.shape), f"{label}_causal": causal,
+               f"{label}_ms": _median_ms(lambda: _fa_kernel(q, k, v, causal)),
+               f"{label}_plain_ms": _median_ms(lambda: ref.attention(q, k, v, causal=causal,
+                                                                     with_lse=True)),
+               f"{label}_library_ms": _median_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=causal)),
+               f"{label}_bound_ms": bound(cost), f"{label}_bound_by": by(cost),
+               f"{label}_max_abs_err": err}
+        rows["flash_attention_fwd"].update(row)
+        print(f"flash fwd   {label}: kernel {row[f'{label}_ms']:.4f} ms, plain "
+              f"{row[f'{label}_plain_ms']:.4f} ms, F.scaled_dot_product_attention "
+              f"{row[f'{label}_library_ms']:.4f} ms; bound {row[f'{label}_bound_ms']:.4f} ms "
+              f"({row[f'{label}_bound_by']}; {cost[0] / 1e6:.1f} MB, {cost[1] / 1e9:.2f} GFLOP)")
+        del o_p, o_w
+    by_route = lambda: [dict(f.route_launches) for f in (fa.flash_bwd_dkv, fa.flash_bwd_dq)]
+    for label, t, causal in (("whisper_enc", t_enc, False),
+                             ("whisper_dec_train", WHISPER["seq_len"], True)):
+        q, k, v, do = randn(t), randn(t), randn(t), randn(t)
+        o, lse = _fa_kernel(q, k, v, causal)
+        before = by_route()
+        ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+        got = torch.autograd.grad(fa.FlashAttention.apply(ql, kl, vl, causal, None), (ql, kl, vl),
+                                  do)
+        took = {r for b_, a_ in zip(before, by_route()) for r in a_ if a_[r] != b_[r]}
+        _check(took == {"tensor cores"}, f"flash backward {label}: routes {took}")
+        plain = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
+        qw, kw, vw = (x.float().requires_grad_() for x in (q, k, v))
+        auto = torch.autograd.grad(ref.attention(qw, kw, vw, causal=causal, scale=scale),
+                                   (qw, kw, vw), do.float())
+        torch.cuda.synchronize()
+        line, ok, berr = f"flash bwd   {label} q {tuple(q.shape)} bf16 [tensor cores]:", True, 0.0
+        for nm, g, p, a in zip(("dq", "dk", "dv"), got, plain, auto):
+            g64, p64, a64 = g.double(), p.double(), a.double()
+            sc = float(p64.abs().max())
+            ok &= tuple(g.shape) == tuple(p.shape) and bool(
+                ((g64 - p64).abs() <= 2.0**-7 * p64.abs() + 1e-5 * sc).all())
+            ok &= bool(((g64 - a64).abs() <= 2.0**-7 * a64.abs() + 2.0**-7 * sc).all())
+            line += (f" {nm} {float((g64 - p64).abs().max()):.3e}/"
+                     f"{float((g64 - a64).abs().max()):.3e} (max {sc:.3f})")
+            berr = max(berr, float((g64 - p64).abs().max()))
+        print(line + "  [kernel - plain backward / - autograd of plain attention]")
+        _check(ok, f"flash backward {label} vs plain")
+        del got, plain, auto, qw, kw, vw
+        lse_c, delta = lse.contiguous(), torch.sum(do.float() * o.float(), dim=-1)
+        dkv_ms = _median_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse_c, delta, causal=causal,
+                                                     scale=scale))
+        dq_ms = _median_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse_c, delta, causal=causal,
+                                                   scale=scale))
+        plain_ms = _median_ms(lambda: ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                                              scale=scale))
+        ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+        lib_ms = _median_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True))
+        cost, tc = _flash_bwd_bytes_ops(q, k, causal), _flash_bwd_tc_ops(q, k, causal)
+        for key, which, ms in (("dkv", "flash_attention_bwd_dkv", dkv_ms),
+                               ("dq", "flash_attention_bwd_dq", dq_ms)):
+            c = cost[key]
+            rows[which].update({
+                f"{label}_shape": list(q.shape), f"{label}_causal": causal,
+                f"{label}_route": "tensor cores", f"{label}_ms": ms, f"{label}_plain_ms": plain_ms,
+                f"{label}_library_ms": lib_ms, f"{label}_bound_ms": bound(c),
+                f"{label}_bound_by": by(c), f"{label}_bound_tc_ms": bound((c[0], tc[key])),
+                f"{label}_max_abs_err": berr})
+        print(f"flash bwd   {label}: dK/dV {dkv_ms:.4f} ms (bound "
+              f"{rows['flash_attention_bwd_dkv'][f'{label}_bound_ms']:.4f}, three-part work "
+              f"{rows['flash_attention_bwd_dkv'][f'{label}_bound_tc_ms']:.4f}), dQ {dq_ms:.4f} ms "
+              f"(bound {rows['flash_attention_bwd_dq'][f'{label}_bound_ms']:.4f}, three-part "
+              f"{rows['flash_attention_bwd_dq'][f'{label}_bound_tc_ms']:.4f}); plain backward "
+              f"{plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms")
+        del out, ql, kl, vl
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_whisper_cross(dev) -> dict:
+    """21a (cross-attention): the decoder's cross-attention core
+    (``encdec._full_attention``, plain PyTorch as the reference's ``jnp``)
+    at the training step's shape, q (4, 512, 20, 64) against the memory's
+    k, v (4, 1500, 20, 64) bf16, timed forward and forward + backward
+    (autograd), beside the flash kernels at the same non-causal Tq != Tk
+    shape (their forward held within one bf16 ulp of the float32 plain
+    version): ROADMAP's held lead of routing cross-attention through flash.
+    Returns the four times (ms) and the flash forward's error."""
+    import torch
+
+    from repro_torch.configs import full_config
+    from repro_torch.kernels import flash_attention as fa, ref
+    from repro_torch.models import encdec as ED
+
+    cfg = full_config(WHISPER["arch"])
+    h, d = cfg.n_heads, cfg.resolved_head_dim
+    b, tq, tm = WHISPER["batch"], WHISPER["seq_len"], cfg.encdec.encoder_seq
+    gen = torch.Generator(device=dev).manual_seed(22)
+    randn = lambda t: torch.randn((b, t, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v, do = randn(tq), randn(tm), randn(tm), randn(tq)
+    scale = d ** -0.5
+    with torch.no_grad():
+        plain_fwd = _median_ms(lambda: ED._full_attention(q, k, v, scale))
+    ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+    plain_fb = _median_ms(lambda: torch.autograd.grad(ED._full_attention(ql, kl, vl, scale),
+                                                      (ql, kl, vl), do))
+    qf, kf, vf, dof = (x.transpose(1, 2) for x in (q, k, v, do))
+    o, _ = _fa_kernel(qf, kf, vf, False)
+    o_w = ref.attention(qf.float(), kf.float(), vf.float(), causal=False)
+    err = float((o.double() - o_w.double()).abs().max())
+    _check(bool((((o.double() - o_w.double()).abs()) <= 2.0**-7 * o_w.double().abs() + 1e-6).all()),
+           "flash forward at the cross-attention shape vs float32 plain")
+    flash_fwd = _median_ms(lambda: _fa_kernel(qf, kf, vf, False))
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qf, kf, vf))
+    flash_fb = _median_ms(lambda: torch.autograd.grad(
+        fa.FlashAttention.apply(qg, kg, vg, False, None), (qg, kg, vg), dof))
+    print(f"audio cross-attention core q ({b}, {tq}, {h}, {d}) x memory {tm}, bf16: plain forward "
+          f"{plain_fwd:.4f} ms, forward + backward {plain_fb:.4f} ms; flash forward {flash_fwd:.4f} "
+          f"ms (max|flash - float32 plain| {err:.3e}), forward + backward {flash_fb:.4f} ms "
+          f"(timed here; the port runs the plain core, as the reference)")
+    return {"plain_fwd_ms": plain_fwd, "plain_fwd_bwd_ms": plain_fb, "flash_fwd_ms": flash_fwd,
+            "flash_fwd_bwd_ms": flash_fb, "flash_max_abs_err": err}
+
+
+def _whisper_blocks_alone(model, run) -> dict:
+    """Each encoder and decoder block of ``model``, fed its inputs in
+    ``run()`` (the prefill on the kernels), once more on the kernels and on
+    the plain versions: the largest difference of each in bf16 ulps of its
+    output's largest value, ``{"encoder": [...], "decoder": [...]}``."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    inputs = {"encoder": [], "decoder": []}
+    keep = lambda kind: lambda m, a, kw: inputs[kind].append(
+        (m, tuple(x.clone() for x in a), dict(kw)))
+    hooks = [blk.register_forward_pre_hook(keep("encoder"), with_kwargs=True)
+             for blk in model.enc_blocks]
+    hooks += [blk.register_forward_pre_hook(keep("decoder"), with_kwargs=True)
+              for blk in model.dec_blocks]
+    run()
+    for hk in hooks:
+        hk.remove()
+    out = {"encoder": [], "decoder": []}
+    with torch.inference_mode():
+        for kind, calls in inputs.items():
+            for m, args, kw in calls:
+                yk = m(*args, **kw)[0]
+                with ops.forced("ref"):
+                    yp = m(*args, **kw)[0]
+                out[kind].append(_max_err(yk, yp) / _bf16_ulp(float(yp.abs().max())))
+    return out
+
+
+def _whisper_model(dev):
+    """whisper-large-v3 at full width and depth, drawn on the card."""
+    import torch
+
+    from repro_torch.configs import full_config
+    from repro_torch.models import encdec as ED
+
+    cfg = full_config(WHISPER["arch"])
+    _check(cfg.family == "audio" and cfg.dtype == "bfloat16" and cfg.remat == "block",
+           "whisper-large-v3 serves and trains in bf16 with remat")
+    t0 = time.perf_counter()
+    model = ED.init(cfg, device=dev, generator=torch.Generator(dev).manual_seed(WHISPER["seed"]))
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    gib = sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30
+    print(f"audio: {cfg.name} {n} parameters ({gib:.2f} GiB; {len(model.enc_blocks)} encoder + "
+          f"{len(model.dec_blocks)} decoder layers, {cfg.n_heads} heads of "
+          f"{cfg.resolved_head_dim}, dec_pos {tuple(model.dec_pos.shape)}) drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def phase_whisper_serve(dev, model, profile_dir: Path | None = None) -> dict:
+    """21b: ``model`` (whisper-large-v3, ``_whisper_model``) served with the
+    1500 frames of ``WHISPER["frame_seed"]`` a request.  (a) The prefill
+    step on 4 x 64 tokens (the caches sized to the prompt): launches
+    (``whisper_launches``: 32 non-causal + 32 causal flash), wall, peak
+    memory, every logit against the same step on the plain versions
+    (``ops.forced("ref")``) within WHISPER_PREFILL_TOL, and each block
+    alone within WHISPER_BLOCK_ULPS (``_whisper_blocks_alone``).  (b)
+    Greedy generation 4 x (64 + 32) (``ServeEngine.generate(frames=)``):
+    launches (the encoder's 32 once, none a token), tokens/s, its logits
+    against ``forward``'s within WHISPER_PREFILL_TOL and its tokens the
+    forward's argmax where the top-2 margin exceeds twice their largest
+    difference."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec as ED
+    from repro_torch.serve import ServeEngine, build_prefill_step
+    from repro_torch.train.loop import audio_frames
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    per = whisper_launches(cfg)
+
+    # (a) Prefill: 4 prompts x 64 tokens and 4 x 1500 frames.
+    b, tl = WHISPER["prefill"]
+    prompts = torch.as_tensor(serve_prompts(cfg.vocab_size, b, tl, WHISPER["prompt_seed"]),
+                              device=dev)
+    frames = audio_frames(cfg, b, WHISPER["frame_seed"], dev)
+    step = build_prefill_step(cfg)
+    step(model, prompts, frames)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    t = time.perf_counter()
+    logits, state = step(model, prompts, frames)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    prefill_counts = _counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    with ops.forced("ref"):
+        logits_ref, _ = step(model, prompts, frames)
+    torch.cuda.synchronize()
+    err = _max_err(logits, logits_ref)
+    print(f"audio prefill {b} x {tl} tokens, {b} x {frames.shape[1]} frames: {prefill_s:.4f} s "
+          f"wall, {b * tl / prefill_s:.0f} tokens/s, peak {peak:.2f} GiB allocated, launches "
+          f"{prefill_counts}; logits max|kernels - plain| {err:.4f} (max|logit| "
+          f"{float(logits_ref.abs().max()):.3f})")
+    ulps = _whisper_blocks_alone(model, lambda: step(model, prompts, frames))
+    print(f"audio blocks alone, max|kernels - plain| in bf16 ulps of the block output's largest "
+          f"value: encoder {[f'{u:g}' for u in ulps['encoder']]}; decoder "
+          f"{[f'{u:g}' for u in ulps['decoder']]}")
+    _check(max(ulps["encoder"] + ulps["decoder"]) <= WHISPER_BLOCK_ULPS,
+           "audio blocks alone, kernels vs plain versions")
+    _check(prefill_counts == per["prefill"],
+           f"audio prefill launches {prefill_counts}, want {per['prefill']}")
+    sk = state.self_kv
+    _check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (b, tl, cfg.padded_vocab)
+           and sk.length == tl and tuple(sk.k.shape[:3]) == (cfg.n_layers, b, tl)
+           and tuple(state.cross_k.shape[:3]) == (cfg.n_layers, b, frames.shape[1]),
+           "audio prefill logits/state")
+    _check(err <= WHISPER_PREFILL_TOL, "audio prefill logits, kernels vs plain versions")
+    del logits, logits_ref, state, sk
+    torch.cuda.empty_cache()
+
+    # (b) Generation: 4 requests, 64-token prompts, 32 greedy tokens.
+    b, t0p = WHISPER["gen"]
+    n = WHISPER["gen_tokens"]
+    gprompts = torch.as_tensor(serve_prompts(cfg.vocab_size, b, t0p, WHISPER["prompt_seed"] + 1),
+                               device=dev)
+    eng = ServeEngine(cfg, model, max_len=t0p + n, device=dev)
+    eng.generate(gprompts, 2, frames=frames)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t = time.perf_counter()
+    out = eng.generate(gprompts, n, frames=frames)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    gen_counts = _counts()
+    with torch.inference_mode():
+        fwd = ED.forward(model, out[:, :-1], frames).logits[:, t0p - 1:]
+    gen_logits = decode_logits(model, cfg, gprompts, out[:, t0p:], t0p + n, frames)
+    gen_err = _max_err(gen_logits, fwd)
+    own = torch.equal(gen_logits.argmax(-1), out[:, t0p:])
+    margin = torch.as_tensor(_top2_margin(fwd.cpu().numpy()))
+    agree = fwd.argmax(-1).cpu() == out[:, t0p:].cpu()
+    # With every logit within gen_err of forward's, a greedy token can
+    # differ from forward's argmax only where forward's top-2 margin is
+    # within 2 gen_err.
+    sure = margin > 2 * gen_err
+    worst = float(margin[~agree].max()) if bool((~agree).any()) else 0.0
+    print(f"audio generate {b} x ({t0p} + {n}): {gen_s:.4f} s wall (the {frames.shape[1]} frames "
+          f"encoded once), {b * n / gen_s:.1f} tokens/s, launches {gen_counts}; greedy tokens == "
+          f"the argmax of their logits: {own}; logits max|generation - forward| {gen_err:.4f}; "
+          f"greedy == forward argmax at {int(agree.sum())}/{agree.numel()} positions (largest "
+          f"margin where not {worst:.4f}), {int(sure.sum())} with a top-2 margin > 2 x "
+          f"{gen_err:.4f}")
+    _check(gen_counts == per["generate"], f"audio generation launches {gen_counts}")
+    _check(own, "audio greedy tokens differ from their logits' argmax")
+    _check(gen_err <= WHISPER_PREFILL_TOL, "audio generation logits vs forward")
+    _check(bool(sure.any()) and bool(agree[sure].all()),
+           "audio greedy tokens differ from the forward argmax")
+    if profile_dir is not None:
+        profile_run("whisper_prefill", lambda: _timed(lambda: step(model, prompts, frames)),
+                    profile_dir)
+        profile_run("whisper_generate",
+                    lambda: _timed(lambda: eng.generate(gprompts, n, frames=frames)), profile_dir)
+    del eng, fwd, gen_logits
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"audio serve: phase {wall:.1f} s")
+    return {"prefill": prefill_counts, "generate": gen_counts, "prefill_s": prefill_s,
+            "prefill_tokens_per_s": b * tl / prefill_s, "generate_s": gen_s,
+            "tokens_per_s": b * n / gen_s, "peak_gib": peak, "phase_s": wall}
+
+
+def phase_whisper_train(dev, model, cross: dict, profile_dir: Path | None = None) -> dict:
+    """21c: ``model`` (whisper-large-v3 at full width and depth, bf16)
+    trained with ``build_train_step``, ``remat="block"`` and AdamW's
+    float32 moments, 4 x 512 tokens and the reference loop's 4 x 1500
+    frames of the step.  Step 1 on the plain versions, then from the same
+    start (a copy of the parameters on the card) the same step on the
+    kernels, held to it under TRAIN_TOL on WHISPER_TRAIN_LEAVES; the kernel
+    step once more from the same start, whose parameters and first moment
+    must equal the first kernel run's bit for bit (``_bit_prints``); then
+    two more kernel steps, timed.  Every kernel step must launch
+    ``whisper_launches(cfg)["train"]``, the backward on the tensor-core
+    route only; the plain step none.  ``train_mfu`` counts
+    ``whisper_step_flops``.  With ``cross`` (``phase_whisper_cross``) it
+    prints the cross-attention core's share of the warm step: each of the
+    32 decoder blocks runs it forward twice (the recompute) and backward
+    once, beside what the flash kernels would take at that shape."""
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels import flash_attention as fa, ops
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import build_train_step
+    from repro_torch.train.loop import audio_frames
+
+    t_phase = time.perf_counter()
+    cfg, tr = model.cfg, WHISPER
+    b, t = tr["batch"], tr["seq_len"]
+    opt = AdamWConfig(lr=tr["lr"])
+    step = build_train_step(cfg, opt, total_steps=tr["total_steps"],
+                            warmup_steps=tr["warmup_steps"])
+    ds = SyntheticLMDataset(DataConfig(seed=tr["seed"], batch=b, seq_len=t,
+                                       vocab_size=cfg.vocab_size))
+    batch_at = lambda i: {**ds.batch_at(i), "frames": audio_frames(cfg, b, i, dev)}
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    start = {n: p.detach().clone() for n, p in params.items()}
+
+    def restore():
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(start[n])
+
+    per_step = whisper_launches(cfg)["train"]
+    none = dict.fromkeys(per_step, 0)
+    batch0 = batch_at(0)
+
+    # (1) Step 1 on the plain versions.
+    _reset_train_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ops.forced("ref"):
+        _, st, mp = step(model, adamw_init(params, opt), batch0, 0)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    _check(_train_counts() == none, f"audio train plain step launched {_train_counts()}")
+    want = _step_summary(model, st, mp, WHISPER_TRAIN_LEAVES)
+    del st, mp
+    restore()
+
+    # (2) The same step on the kernels, (3) once more, (4) two more steps.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls, counts, routes = [], [], []
+
+    def kernel_step(i, state, batch):
+        _reset_train_counts()
+        before = [dict(f.route_launches) for f in (fa.flash_bwd_dkv, fa.flash_bwd_dq)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, metrics = step(model, state, batch, i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts.append(_train_counts())
+        routes.append({r for f, b_ in zip((fa.flash_bwd_dkv, fa.flash_bwd_dq), before)
+                       for r in f.route_launches if f.route_launches[r] != b_[r]})
+        return state, metrics
+
+    state, mk = kernel_step(0, adamw_init(params, opt), batch0)
+    got = _step_summary(model, state, mk, WHISPER_TRAIN_LEAVES)
+    prints = _bit_prints({**params, **{"m." + n: x for n, x in state.m.items()}})
+    del state, mk
+    restore()
+    state, mk = kernel_step(0, adamw_init(params, opt), batch0)
+    again = _bit_prints({**params, **{"m." + n: x for n, x in state.m.items()}})
+    differ = sorted(n for n in prints if prints[n] != again[n])
+    del start
+    losses = [float(mk["loss"])]
+    for i in range(1, tr["steps"]):
+        state, mk = kernel_step(i, state, batch_at(i))
+        losses.append(float(mk["loss"]))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    bad = compare_train(got, want, tr["lr"], TRAIN_TOL, WHISPER_TRAIN_LEAVES)
+    step_s = walls[-1]
+    tokens = b * t
+    flops = whisper_step_flops(model, b, t)
+    mfu = flops / (step_s * BF16_FLOP_PER_S)
+    print(f"audio train {cfg.name} {cfg.encdec.encoder_layers} + {cfg.n_layers} layers, {n_params} "
+          f"parameters (bf16, remat={cfg.remat} a block, AdamW float32 moments), {b} x {t} tokens "
+          f"and {b} x {cfg.encdec.encoder_seq} frames: plain step {plain_s:.3f} s, kernel step "
+          f"walls {[round(w, 4) for w in walls]} s (two step-1 runs, then steps 2-{tr['steps']}), "
+          f"losses {losses}, launches a step {counts[-1]}, backward routes "
+          f"{sorted(set().union(*routes))}, peak {peak:.2f} GiB allocated")
+    print("audio train step 1, kernels vs plain versions: "
+          + json.dumps(train_max_diff(got, want, tr["lr"], TRAIN_TOL, WHISPER_TRAIN_LEAVES)))
+    print("audio train step 1 twice on the kernels from the same start: "
+          + ("the same bits (parameters and first moment)" if not differ else
+             f"{len(differ)} leaves differ: {differ[:12]}"))
+    print(f"audio train warm step {step_s:.4f} s, {tokens / step_s:.1f} tokens/s, train_mfu "
+          f"{mfu:.4f} ({flops / 1e12:.2f} TFLOP of matmul work a step, whisper_step_flops, over "
+          f"step time x 989 TFLOP/s; remat executes ~4/3 of it)")
+    cross_ms = cfg.n_layers * (cross["plain_fwd_ms"] + cross["plain_fwd_bwd_ms"])
+    flash_ms = cfg.n_layers * (cross["flash_fwd_ms"] + cross["flash_fwd_bwd_ms"])
+    print(f"audio train cross-attention core: {cfg.n_layers} x (forward + forward and backward) "
+          f"= {cross_ms:.1f} ms of device time a step, {100 * cross_ms / 1e3 / step_s:.1f} % of "
+          f"the warm step; through the flash kernels {flash_ms:.1f} ms")
+    _check(all(c == per_step for c in counts), f"audio train launches {counts}, want {per_step}")
+    _check(all(r == {"tensor cores"} for r in routes), f"audio train backward routes {routes}")
+    _check(all(map(math.isfinite, losses)), f"audio train losses {losses}")
+    _check(not bad, "audio train step 1, kernels vs plain versions: " + "; ".join(bad[:10]))
+    _check(not differ, f"audio train step 1 twice on the kernels: {differ[:12]} differ")
+    if profile_dir is not None:
+        bp = batch_at(tr["steps"])
+        profile_run("whisper_train_step",
+                    lambda: _timed(lambda: step(model, state, bp, tr["steps"])), profile_dir)
+    del state, mk
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"audio train: phase {wall:.1f} s")
+    return {"counts": {k: sum(c[k] for c in counts) for k in per_step}, "per_step": per_step,
+            "walls": walls, "step_s": step_s, "tokens_per_s": tokens / step_s, "train_mfu": mfu,
+            "peak_gib": peak, "plain_step_s": plain_s, "same_bits": not differ,
+            "cross_attention_ms": cross_ms, "cross_attention_share": cross_ms / 1e3 / step_s,
+            "phase_s": wall}
+
+
+def phase_whisper_serve_reference(dev) -> dict:
+    """21d (serving): WHISPER_SERVE_REF at full width cut to 2 + 2 layers
+    (weights ``random_lm_leaves``, moved to the card leaf by leaf) on the
+    kernels against JAX_WHISPER_SERVE under WHISPER_LOGIT_TOL."""
+    import torch
+
+    from repro_torch import convert
+
+    cfg = whisper_serve_config()
+    t = time.perf_counter()
+    model = convert.lm_params_from_leaves(convert.random_lm_leaves(cfg, WHISPER["seed"]), cfg,
+                                          device=dev)
+    print(f"audio vs JAX: random_lm_leaves of {cfg.encdec.encoder_layers} + {cfg.n_layers} layers "
+          f"moved to the card in {time.perf_counter() - t:.1f} s")
+    _reset_counts()
+    got = port_serve_reference(model, cfg, dev, JAX_WHISPER_SERVE["tokens"], WHISPER_SERVE_REF)
+    counts = _counts()
+    del model
+    torch.cuda.empty_cache()
+    bad, skipped = compare_serve(got, JAX_WHISPER_SERVE, WHISPER_LOGIT_TOL, WHISPER_MARGIN_TOL)
+    print(f"audio vs JAX ({cfg.encdec.encoder_layers} + {cfg.n_layers} layers): prefill rows and "
+          f"teacher-forced steps max|diff| {serve_max_diff(got, JAX_WHISPER_SERVE):.4f} "
+          f"(tolerance {WHISPER_LOGIT_TOL}); row argmax {[g['argmax'] for g in got['rows']]} vs "
+          f"{[w['argmax'] for w in JAX_WHISPER_SERVE['rows']]}; tokens {got['tokens']} vs "
+          f"{JAX_WHISPER_SERVE['tokens']}; {skipped} tokens past a top-2 margin <= "
+          f"{WHISPER_MARGIN_TOL} not compared; launches {counts}")
+    _check(counts["flash_attention_fwd"] > 0, "audio vs JAX ran no flash kernel")
+    _check(not bad, "audio serving differs from the JAX package: " + "; ".join(bad[:10]))
+    return {"counts": counts}
+
+
+def phase_whisper_train_reference(dev) -> dict:
+    """21d (training): WHISPER_TRAIN_REF's two steps of the whisper smoke
+    config (float32, 2 + 2 layers, 64 frames: flash at head dim 32 on the
+    FP32-FMA route; ``whisper_launches`` a step) on the kernels against
+    JAX_WHISPER_TRAIN under WHISPER_REF_TOL."""
+    cfg = whisper_train_config()
+    _reset_train_counts()
+    got = port_whisper_train_reference(cfg, dev)
+    counts = _train_counts()
+    per = {k: v * WHISPER_TRAIN_REF["steps"] for k, v in whisper_launches(cfg)["train"].items()}
+    bad = compare_train(got, JAX_WHISPER_TRAIN, TRAIN["lr"], WHISPER_REF_TOL, WHISPER_TRAIN_LEAVES)
+    print(f"audio train vs JAX smoke (float32, {cfg.encdec.encoder_layers} + {cfg.n_layers} "
+          f"layers, {WHISPER_TRAIN_REF['steps']} steps of {WHISPER_TRAIN_REF['batch']} x "
+          f"{WHISPER_TRAIN_REF['seq_len']}): losses {got['loss']} vs {JAX_WHISPER_TRAIN['loss']}; "
+          f"largest differences " + json.dumps(train_max_diff(
+              got, JAX_WHISPER_TRAIN, TRAIN["lr"], WHISPER_REF_TOL, WHISPER_TRAIN_LEAVES))
+          + f"; launches {counts}")
+    _check(counts == per, f"audio train reference launches {counts}, want {per}")
+    _check(not bad, "audio training differs from the JAX package: " + "; ".join(bad[:10]))
+    return {"counts": counts}
+
+
 # The kernel-level entry (phase 11): benchmarks/kernel_benches.py's shapes
 # (60 s x 128 racks at 1 kHz, the prototype-rack filter sized for beta =
 # 0.0625, zero corrective; 12 % of racks degraded with a 4 s wind-down ramp
@@ -9140,8 +10137,9 @@ def main() -> int:
                     help="also profile one campus run, prefill step, generation, training "
                          "step, rwkv6-7b prefill and generation, a degraded campus run, "
                          "phase 14's runs, the moe prefills and generations, a "
-                         "deepseek-v2 training step, the zamba2 prefill and generation "
-                         "and a zamba2 training step; write the tables and traces here")
+                         "deepseek-v2 training step, the zamba2 prefill and generation, "
+                         "a zamba2 training step, the whisper prefill and generation and a "
+                         "whisper training step; write the tables and traces here")
     opts = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -9320,6 +10318,29 @@ def main() -> int:
                                            hybrid_launches(hybrid_cfg)["train"])
     torch.cuda.empty_cache()
     print(f"phase 20 (hybrid training): {time.perf_counter() - t20:.1f} s")
+    t21 = time.perf_counter()
+    for name, row in phase_whisper_kernels(dev).items():
+        kernels[name].update(row)
+    whisper_cross = phase_whisper_cross(dev)
+    print(f"phase 21a (audio kernels): {time.perf_counter() - t21:.1f} s")
+    t21b = time.perf_counter()
+    whisper_model = _whisper_model(dev)  # served in 21b, trained in 21c
+    whisper = phase_whisper_serve(dev, whisper_model, opts.profile)
+    print(f"phase 21b (audio serving): {time.perf_counter() - t21b:.1f} s")
+    t21c = time.perf_counter()
+    whisper_train = phase_whisper_train(dev, whisper_model, whisper_cross, opts.profile)
+    del whisper_model
+    torch.cuda.empty_cache()
+    whisper_cfg = full_config(WHISPER["arch"])
+    whisper_train_power = phase_train_power(dev, whisper_cfg, WHISPER,
+                                            whisper_launches(whisper_cfg)["train"])
+    torch.cuda.empty_cache()
+    print(f"phase 21c (audio training): {time.perf_counter() - t21c:.1f} s")
+    t21d = time.perf_counter()
+    whisper_serve_ref = phase_whisper_serve_reference(dev)
+    whisper_train_ref = phase_whisper_train_reference(dev)
+    print(f"phase 21d (audio vs JAX): {time.perf_counter() - t21d:.1f} s")
+    print(f"phase 21 (audio): {time.perf_counter() - t21:.1f} s")
     fa, rn = kernels["flash_attention_fwd"], kernels["rmsnorm"]
     fa.update({k: v for k, v in moe_kernels.items() if k.startswith("mla_")},
               mla_max_abs_err=moe_kernels["err"])
@@ -9350,6 +10371,19 @@ def main() -> int:
                              launches_hybrid_train_powersim=hybrid_train_power["counts"][name])
     for name, n in zip(("pdu_health", "admm_step"), hybrid_train_power["power_counts"]):
         kernels[name]["launches_hybrid_train_powersim"] = n
+    n = whisper["prefill"]["flash_attention_fwd"] + whisper["generate"]["flash_attention_fwd"]
+    fa.update(launches=fa["launches"] + n,
+              launches_whisper_prefill=whisper["prefill"]["flash_attention_fwd"],
+              launches_whisper_generate=whisper["generate"]["flash_attention_fwd"],
+              launches_whisper_serve_reference=whisper_serve_ref["counts"]["flash_attention_fwd"])
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        n = whisper_train["counts"][name]
+        kernels[name].update(launches=kernels[name]["launches"] + n, launches_whisper_train=n,
+                             launches_per_whisper_train_step=whisper_train["per_step"][name],
+                             launches_whisper_train_reference=whisper_train_ref["counts"][name],
+                             launches_whisper_train_powersim=whisper_train_power["counts"][name])
+    for name, n in zip(("pdu_health", "admm_step"), whisper_train_power["power_counts"]):
+        kernels[name]["launches_whisper_train_powersim"] = n
     print(json.dumps({"serve": {k: serve[k] for k in ("prefill_s", "generate_s", "tokens_per_s")},
                       "train": {k: trained[k] for k in ("step_s", "tokens_per_s", "train_mfu",
                                                          "peak_gb")},
@@ -9419,7 +10453,15 @@ def main() -> int:
                       "hybrid_train": {k: hybrid_train[k] for k in (
                           "walls", "step_s", "tokens_per_s", "train_mfu", "peak_gib",
                           "plain_step_s", "same_bits", "phase_s")},
-                      "hybrid_train_powersim_s": hybrid_train_power["wall_s"]}))
+                      "hybrid_train_powersim_s": hybrid_train_power["wall_s"],
+                      "whisper_serve": {k: whisper[k] for k in (
+                          "prefill_s", "prefill_tokens_per_s", "generate_s", "tokens_per_s",
+                          "peak_gib", "phase_s")},
+                      "whisper_train": {k: whisper_train[k] for k in (
+                          "walls", "step_s", "tokens_per_s", "train_mfu", "peak_gib",
+                          "plain_step_s", "same_bits", "cross_attention_share", "phase_s")},
+                      "whisper_cross_attention_ms": whisper_cross,
+                      "whisper_train_powersim_s": whisper_train_power["wall_s"]}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

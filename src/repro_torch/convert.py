@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.core import controller as ctrl, ess, filters, health as hlt, pdu, \
     safemode as smode
-from repro_torch.models import layers as L, transformer as T
+from repro_torch.models import encdec as ED, layers as L, transformer as T
 from repro_torch.power import faults as FLT, scenario as SC
 from repro_torch.utils.devices import resolve_device
 
@@ -153,7 +153,14 @@ def _unflatten(flat: dict) -> dict:
     return tree
 
 
-def _stack_sizes(model: T.Transformer) -> dict:
+def lm_model(cfg, *, device="cuda") -> T.Transformer | ED.EncDec:
+    """The port's module tree for ``cfg`` with uninitialised parameters:
+    an ``EncDec`` for ``audio`` (the reference's ``encdec.init`` tree), a
+    ``Transformer`` otherwise."""
+    return (ED.EncDec if cfg.family == "audio" else T.Transformer)(cfg, device=device)
+
+
+def _stack_sizes(model: T.Transformer | ED.EncDec) -> dict:
     """``{stack: its leading axes}``: ``(n,)`` for a list of blocks,
     ``(n_groups, shared_every)`` for the hybrid ``groups``."""
     out = {}
@@ -176,11 +183,12 @@ def _layer_names(head: str, sizes: tuple, rest: str):
 
 def lm_tree_shapes(cfg) -> dict:
     """``{dotted path: (shape, dtype)}`` of the JAX package's parameter tree
-    for ``cfg`` (``repro.models.transformer.init``): the port's own module
-    tree, with the per-layer ``{stack}.{i}.*`` leaves of each of
+    for ``cfg`` (``repro.models.transformer.init``; ``audio``:
+    ``repro.models.encdec.init``): the port's own module tree
+    (``lm_model``), with the per-layer ``{stack}.{i}.*`` leaves of each of
     ``transformer.STACKS`` stacked on a leading axis of the stack's length
     (``groups.{g}.{k}.*`` on two, ``(n_groups, shared_every)``)."""
-    model = T.Transformer(cfg, device="meta")
+    model = lm_model(cfg, device="meta")
     sizes = _stack_sizes(model)
     out = {}
     for name, p in model.named_parameters():
@@ -228,13 +236,14 @@ def random_lm_tree(cfg, seed: int) -> dict:
 
 
 @torch.no_grad()
-def lm_params_from_leaves(leaves, cfg, *, device="cuda") -> T.Transformer:
-    """A ``Transformer`` holding the parameter leaves ``leaves``, an
+def lm_params_from_leaves(leaves, cfg, *, device="cuda") -> T.Transformer | ED.EncDec:
+    """A ``Transformer`` (``audio``: ``EncDec``) holding the parameter
+    leaves ``leaves``, an
     iterable of ``(dotted path, numpy array)`` in the JAX package's layout
     (stacked layers on axis 0), consumed one at a time: each leaf is moved
     to the device as it is and cast there to the parameter's type.  Raises
     unless the leaves and their shapes match the model's exactly."""
-    model = T.Transformer(cfg, device=device)
+    model = lm_model(cfg, device=device)
     dev = model.embed.embedding.device
     params = dict(model.named_parameters())
     sizes = _stack_sizes(model)
@@ -260,8 +269,9 @@ def lm_params_from_leaves(leaves, cfg, *, device="cuda") -> T.Transformer:
     return model
 
 
-def lm_params_from_numpy(tree: dict, cfg, *, device="cuda") -> T.Transformer:
-    """A ``Transformer`` holding the JAX package's parameter tree ``tree``
+def lm_params_from_numpy(tree: dict, cfg, *, device="cuda") -> T.Transformer | ED.EncDec:
+    """A ``Transformer`` (``audio``: ``EncDec``) holding the JAX package's
+    parameter tree ``tree``
     (nested dicts of numpy arrays, stacked layers on axis 0): see
     ``lm_params_from_leaves``."""
     device = resolve_device(device)
@@ -293,7 +303,7 @@ def lm_tree_to_numpy(named: dict, cfg) -> dict:
     return _unflatten(flat)
 
 
-def lm_params_to_numpy(model: T.Transformer) -> dict:
+def lm_params_to_numpy(model: T.Transformer | ED.EncDec) -> dict:
     """The inverse of ``lm_params_from_numpy``: ``model``'s parameters as
     the JAX package's tree (bf16 widened to float32)."""
     return lm_tree_to_numpy(dict(model.named_parameters()), model.cfg)

@@ -40,10 +40,12 @@ def _param(shape, dtype, device) -> nn.Parameter:
 # (``repro.models.rwkv6.init_rwkv6``), the MoE router's kernel (0.02)
 # and bias (zeros; ``repro.models.moe.init_moe``), and Mamba2's conv kernel
 # (0.5), ``dt_bias`` (zeros) and ``d_skip`` (ones; ``repro.models.mamba2.
-# init_mamba2``); the Zamba2 shared block's empty marker ``_sub_heads``.
+# init_mamba2``); the Zamba2 shared block's empty marker ``_sub_heads``;
+# the encoder-decoder's learned decoder positions ``dec_pos`` (0.02;
+# ``repro.models.encdec.init``).
 TRUNC_SCALES = {"mu_base": 0.02, "mix_lora_a": 0.02, "mix_lora_b": 0.02, "decay_lora.a": 0.02,
                 "decay_lora.b": 0.02, "mu_k": 0.02, "mu_r": 0.02, "u_bonus": 0.1,
-                "router.kernel": 0.02, "conv.kernel": 0.5}
+                "router.kernel": 0.02, "conv.kernel": 0.5, "dec_pos": 0.02}
 CONSTANTS = {"bias": 0.0, "scale": 1.0, "decay_base": -6.0, "dt_bias": 0.0, "d_skip": 1.0,
              "_sub_heads": 0.0}
 # Deterministic vectors over the last axis: Mamba2's ``a_log = log(linspace(1,
@@ -208,8 +210,17 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor, fraction: 
 # --------------------------------------------------------------------- FFN
 
 
-def _gelu(x):
-    return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+def gelu(x):
+    """``jax.nn.gelu`` (its default tanh form) as XLA evaluates it, ``x *
+    (0.5 * (1 + tanh(c * (x + k * x^3))))`` with the constants ``c =
+    sqrt(2 / pi)`` and ``k = 0.044715`` in ``x``'s type and every operation
+    rounded to it (``x^3`` is ``x * (x * x)``).  In bf16 ``F.gelu``
+    (computed in float32 with the exact constants, rounded once) differs
+    from it in ~43 % of the elements, by up to an ulp; this form matches
+    the JAX package's bits on the CPU."""
+    c = torch.tensor(math.sqrt(2.0 / math.pi), dtype=F32).to(x.dtype)
+    k = torch.tensor(0.044715, dtype=F32).to(x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * (x * x))))))
 
 
 class FFN(nn.Module):
@@ -230,8 +241,8 @@ class FFN(nn.Module):
         if self.kind == "swiglu":
             return self.w_down(F.silu(self.w_gate(x)) * self.w_up(x))
         if self.kind == "geglu":
-            return self.w_down(_gelu(self.w_gate(x)) * self.w_up(x))
-        return self.w_down(_gelu(self.w_up(x)))
+            return self.w_down(gelu(self.w_gate(x)) * self.w_up(x))
+        return self.w_down(gelu(self.w_up(x)))
 
 
 # --------------------------------------------------------------- embedding

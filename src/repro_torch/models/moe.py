@@ -175,7 +175,7 @@ def moe_fwd(p: MoE, cfg, x: torch.Tensor, *, group_size: int = 256):
     xe = xe.reshape(e, g * cap, d)
 
     ex = p.experts
-    act = F.silu if cfg.ffn == "swiglu" else L._gelu
+    act = F.silu if cfg.ffn == "swiglu" else L.gelu
     ye = torch.bmm(act(torch.bmm(xe, ex.w_gate)) * torch.bmm(xe, ex.w_up), ex.w_down)
 
     # Combine: each real token's kept choices, the gate rounded to the

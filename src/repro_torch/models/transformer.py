@@ -33,8 +33,9 @@ reference's kernel route for its recurrence has no gradient, so
 reference does: with ``remat="block"`` each group (its Mamba blocks and
 the shared block's visit) is one checkpoint, the reference's
 ``_maybe_remat(group_body)``; its loss is the plain cross entropy.  The
-``audio`` family (``models/encdec.py`` of the reference) is not ported
-yet and raises, naming its ROADMAP.md item.
+``audio`` family (Whisper) is the encoder-decoder of ``models/encdec.py``,
+as in the reference: ``Transformer`` refuses it, and ``encdec`` reuses
+``_run_stack``, ``_readout`` and ``_xent`` from here.
 """
 from __future__ import annotations
 
@@ -55,21 +56,20 @@ from repro_torch.utils.devices import resolve_device
 
 # The module lists whose per-layer leaves the reference stacks on leading
 # layer axes (its scan layout), and how many: ``blocks`` (dense, vlm, ssm),
-# for moe ``dense_blocks`` and ``moe_blocks``, one axis each; for hybrid
-# ``groups``, two ``(n_groups, shared_every)``.  The MTP head and the
-# hybrid ``shared`` block are not stacked.
-STACK_DEPTH = {"blocks": 1, "dense_blocks": 1, "moe_blocks": 1, "groups": 2}
+# for moe ``dense_blocks`` and ``moe_blocks``, for audio ``enc_blocks`` and
+# ``dec_blocks``, one axis each; for hybrid ``groups``, two ``(n_groups,
+# shared_every)``.  The MTP head and the hybrid ``shared`` block are not
+# stacked.
+STACK_DEPTH = {"blocks": 1, "dense_blocks": 1, "moe_blocks": 1, "groups": 2, "enc_blocks": 1,
+               "dec_blocks": 1}
 STACKS = tuple(STACK_DEPTH)
-
-_NOT_PORTED = {
-    "audio": "the audio family (encoder-decoder; ROADMAP.md queue 1 item 7)",
-}
 
 
 def check_serving(cfg) -> None:
-    """Raise for the families the port cannot build and serve yet."""
-    if cfg.family not in ("dense", "vlm", "ssm", "moe", "hybrid"):
-        raise NotImplementedError(f"{_NOT_PORTED.get(cfg.family, cfg.family)} is not ported yet")
+    """Raise for a family the port does not know (``audio`` is built by
+    ``models/encdec.py``)."""
+    if cfg.family not in ("dense", "vlm", "ssm", "moe", "hybrid", "audio"):
+        raise NotImplementedError(f"the {cfg.family} family is not ported")
 
 
 def check_training(cfg) -> None:
@@ -111,6 +111,8 @@ class Transformer(nn.Module):
     def __init__(self, cfg, *, device="cuda"):
         super().__init__()
         check_serving(cfg)
+        if cfg.family == "audio":
+            raise ValueError("the audio family is built by models.encdec (EncDec)")
         dev = resolve_device(device)
         kw = dict(dtype=L.dtype_of(cfg), device=dev)
         self.cfg = cfg
@@ -186,29 +188,31 @@ def _checkpointed(fn, mode: str | None):
 
 
 def _block_out_aux(blk: B.DecoderBlock):
-    """``(output, aux)`` of ``blk`` as a function of its input."""
-    def body(x, positions):
-        out, _, aux = blk(x, positions)
+    """``(output, aux)`` of ``blk`` as a function of its inputs."""
+    def body(x, positions, *extra):
+        out, _, aux = blk(x, positions, *extra)
         return out, aux
 
     return body
 
 
-def _run_stack(cfg, blocks, x, positions) -> tuple[torch.Tensor, list]:
-    """``blocks`` in order from ``x``: the output and each block's aux (its
-    ``MoEAux``, None for a dense FFN).  With ``cfg.remat == "block"`` while
-    a graph is recorded, each block is an activation checkpoint (the
-    reference's ``_maybe_remat``), its aux carried out beside its
-    output."""
+def _run_stack(cfg, blocks, x, positions, *extra) -> tuple[torch.Tensor, list]:
+    """``blocks`` in order from ``x``, each called ``blk(x, positions,
+    *extra)`` (``extra``: the encoder-decoder's memory): the output and each
+    block's aux (its ``MoEAux``, None for a dense FFN).  With ``cfg.remat ==
+    "block"`` while a graph is recorded, each block is an activation
+    checkpoint (the reference's ``_maybe_remat``), its aux carried out
+    beside its output."""
     remat = cfg.remat == "block" and torch.is_grad_enabled()
     mode = ops.current_mode()
     auxes = []
     for blk in blocks:
         if remat:
             x, aux = torch.utils.checkpoint.checkpoint(
-                _checkpointed(_block_out_aux(blk), mode), x, positions, use_reentrant=False)
+                _checkpointed(_block_out_aux(blk), mode), x, positions, *extra,
+                use_reentrant=False)
         else:
-            x, _, aux = blk(x, positions)
+            x, _, aux = blk(x, positions, *extra)
         auxes.append(aux)
     return x, auxes
 
@@ -344,8 +348,12 @@ def init_decode_state(cfg, batch: int, max_len: int, *, device="cuda") -> dict:
     max_len, qk_rope_head_dim)``; for ``hybrid`` ``{"groups": SSMState,
     "shared": KVCache}``, the Mamba states stacked ``(n_groups,
     shared_every, ...)`` (conv in the model's type, ssm float32) and one
-    cache a visit of the shared block, ``(n_groups, B, max_len, H, Dh)``."""
+    cache a visit of the shared block, ``(n_groups, B, max_len, H, Dh)``.
+    ``audio`` raises: its state holds the encoder's memory
+    (``encdec.init_decode_state``)."""
     check_serving(cfg)
+    if cfg.family == "audio":
+        raise ValueError("the audio family's decode state is encdec.init_decode_state")
     dev = resolve_device(device)
     if cfg.family == "moe":
         c = A.init_cache(cfg, batch, max_len, dtype=L.dtype_of(cfg), device=dev)

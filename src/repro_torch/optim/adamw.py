@@ -95,9 +95,11 @@ def global_norm(tree: dict) -> torch.Tensor:
 def reference_ndim(name: str, p: torch.Tensor) -> int:
     """The rank of parameter ``name`` in the reference's parameter tree,
     where the leaves of ``transformer.STACKS`` (``blocks.{i}.*``,
-    ``dense_blocks.{i}.*``, ``moe_blocks.{i}.*``) are stacked on a leading
+    ``dense_blocks.{i}.*``, ``moe_blocks.{i}.*``, the encoder-decoder's
+    ``enc_blocks.{i}.*`` and ``dec_blocks.{i}.*``) are stacked on a leading
     layer axis and the hybrid ``groups.{g}.{k}.*`` on two (the MTP head's
-    and the hybrid ``shared.*`` are not)."""
+    and the hybrid ``shared.*`` are not): a stacked layernorm scale is
+    decayed, ``ln_f``'s is not."""
     return p.ndim + STACK_DEPTH.get(name.partition(".")[0], 0)
 
 

@@ -11,7 +11,10 @@ for token; temperature sampling draws from a ``torch.Generator``
 layers route each call's tokens in capacity-bounded groups, so a token's
 output depends on the batch it is served in, as in the reference;
 ``hybrid``: the Mamba2 conv and SSM states and one KV cache a visit of the
-shared block).  The ``audio`` family is not ported yet and raises.
+shared block).  The ``audio`` family (Whisper, ``models/encdec.py``)
+serves from the encoder frames: its prefill step takes ``frames`` and
+``generate`` needs them; its decode state holds every layer's cross K/V,
+computed once from the encoder memory.
 """
 from __future__ import annotations
 
@@ -19,14 +22,27 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models import transformer as T
+from repro_torch.models import encdec as ED, transformer as T
 from repro_torch.utils.devices import resolve_device
 
 
 def build_prefill_step(cfg) -> Callable:
     """``prefill(model, tokens (B, T), max_len) -> (logits, state)``: a fresh
-    decode state filled with the prompt's keys and values."""
+    decode state filled with the prompt's keys and values.  For ``audio``
+    ``prefill(model, tokens, frames (B, T_enc, D), max_len=None)``: the
+    frames encoded and every layer's cross K/V projected first; the caches
+    hold ``max_len`` positions, by default the prompt's, as the
+    reference's (a cache to generate into needs more: the port refuses a
+    write past its end)."""
     T.check_serving(cfg)
+    if cfg.family == "audio":
+        @torch.inference_mode()
+        def prefill_audio(params, tokens, frames, max_len: int | None = None):
+            b, t = tokens.shape
+            state = ED.init_decode_state(params, frames, b, t if max_len is None else max_len)
+            return ED.decode_step(params, tokens, state, 0, prefill=True)
+
+        return prefill_audio
 
     @torch.inference_mode()
     def prefill(params, tokens, max_len: int):
@@ -39,19 +55,21 @@ def build_prefill_step(cfg) -> Callable:
 def build_decode_step(cfg) -> Callable:
     """``decode(model, tokens, state, pos) -> (logits, state)``."""
     T.check_serving(cfg)
+    step = ED.decode_step if cfg.family == "audio" else T.decode_step
 
     @torch.inference_mode()
     def decode(params, tokens, state, pos: int):
-        return T.decode_step(params, tokens, state, pos)
+        return step(params, tokens, state, pos)
 
     return decode
 
 
 class ServeEngine:
     """Batched generation over the decode step.  ``params`` is a
-    ``Transformer`` on ``device``."""
+    ``Transformer`` (``audio``: an ``EncDec``) on ``device``."""
 
-    def __init__(self, cfg, params: T.Transformer, max_len: int = 256, *, device="cuda"):
+    def __init__(self, cfg, params: T.Transformer | ED.EncDec, max_len: int = 256, *,
+                 device="cuda"):
         self.device = resolve_device(device)
         T.check_serving(cfg)
         if params.embed.embedding.device != self.device:
@@ -63,14 +81,21 @@ class ServeEngine:
         self._decode = build_decode_step(cfg)
 
     @torch.inference_mode()
-    def generate(self, prompts: torch.Tensor, n_tokens: int, *, temperature: float = 0.0,
+    def generate(self, prompts: torch.Tensor, n_tokens: int, *,
+                 frames: torch.Tensor | None = None, temperature: float = 0.0,
                  generator: torch.Generator | None = None) -> torch.Tensor:
         """``prompts (B, T0)`` followed by ``n_tokens`` new tokens, ``(B, T0 +
         n_tokens)``.  As in the reference, the prompt runs through the
-        cached decode path (not the prefill step)."""
+        cached decode path (not the prefill step).  The ``audio`` family
+        needs the encoder ``frames (B, T_enc, D)``, encoded once."""
         b, t0 = prompts.shape
         prompts = prompts.to(self.device)
-        state = T.init_decode_state(self.cfg, b, self.max_len, device=self.device)
+        if self.cfg.family == "audio":
+            if frames is None:
+                raise ValueError("the audio family generates from encoder frames: pass frames=")
+            state = ED.init_decode_state(self.params, frames.to(self.device), b, self.max_len)
+        else:
+            state = T.init_decode_state(self.cfg, b, self.max_len, device=self.device)
         logits, state = self._decode(self.params, prompts, state, 0)
         out = [prompts]
         tok = self._sample(logits[:, -1:], temperature, generator)

@@ -2,10 +2,11 @@
 EasyRider's PowerSim, composed (counterpart of ``repro.train.loop``).
 
 ``train()`` initialises a model (any family ``check_training`` lets
-through: ``dense``, ``vlm``, ``moe``, ``hybrid``) from ``tc.seed`` on
+through: ``dense``, ``vlm``, ``moe``, ``hybrid``, ``audio``) from ``tc.seed`` on
 ``device``, runs ``tc.steps`` steps of ``build_train_step`` on ``SyntheticLMDataset``
-batches, saves checkpoints (scheduled, and SoC-triggered emergency saves
-through ``PowerAwareCheckpointer``), resumes from the newest one with
+batches (``audio``: with the encoder frames of ``audio_frames``), saves
+checkpoints (scheduled, and SoC-triggered emergency saves through
+``PowerAwareCheckpointer``), resumes from the newest one with
 ``tc.resume``, and reports each step to ``power_sim``.
 """
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.data import DataConfig, SyntheticLMDataset
-from repro_torch.models import transformer as T
+from repro_torch.models import encdec as ED, layers as L, transformer as T
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.power.integration import PowerSim
 from repro_torch.train.checkpoint import Checkpointer
@@ -38,6 +39,19 @@ class TrainConfig:
     resume: bool = False
 
 
+def audio_frames(cfg, batch: int, step: int, device) -> torch.Tensor:
+    """The reference loop's stub-frontend frames of step ``step``:
+    ``numpy.random.default_rng(step).normal(scale=0.02)`` of shape
+    ``(batch, encoder_seq, d_model)`` in float64, rounded to float32 on the
+    host and then to ``cfg.dtype`` on ``device``: the JAX package's
+    ``jnp.asarray(..., bfloat16)`` rounds through float32 too (a double
+    rounding, which moves ~1 element in 1.3e5 of a direct float64 -> bf16
+    rounding by an ulp), so the bits are the reference's."""
+    x = np.random.default_rng(step).normal(scale=0.02,
+                                           size=(batch, cfg.encdec.encoder_seq, cfg.d_model))
+    return torch.from_numpy(x.astype(np.float32)).to(device).to(L.dtype_of(cfg))
+
+
 def _world_size() -> int:
     dist = torch.distributed
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
@@ -53,11 +67,12 @@ def train(
     callbacks: list[Callable] | None = None,
     device="cuda",
 ) -> dict:
-    """Returns ``{"params": the trained Transformer, "opt_state",
-    "history": [{"step", "loss", "grad_norm"}, ...], "first_loss",
-    "last_loss": mean of the last five, "power_report"?}``."""
+    """Returns ``{"params": the trained Transformer (``audio``: EncDec),
+    "opt_state", "history": [{"step", "loss", "grad_norm"}, ...],
+    "first_loss", "last_loss": mean of the last five, "power_report"?}``."""
     dev = resolve_device(device)
-    model = T.init(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(tc.seed))
+    init = ED.init if cfg.family == "audio" else T.init
+    model = init(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(tc.seed))
     params = dict(model.named_parameters())
     opt_state = adamw_init(params, opt_cfg)
     step_fn = build_train_step(
@@ -85,6 +100,8 @@ def train(
     t_prev = time.monotonic()
     for step in range(start_step, tc.steps):
         batch = ds.batch_at(step)
+        if cfg.family == "audio":
+            batch["frames"] = audio_frames(cfg, data_cfg.batch, step, dev)
         model, opt_state, metrics = step_fn(model, opt_state, batch, step)
         loss = float(metrics["loss"])
         losses.append(loss)

@@ -22,9 +22,10 @@ skew of ``expert_load`` (the layer-averaged load of the last microbatch),
 as the reference's aux-loss-free balancing does.
 
 ``check_training`` raises for the ``ssm`` family, whose recurrence has no
-backward kernel, and for the families not ported yet (``audio``); the
-``hybrid`` family trains with the plain cross entropy and, under
-``remat="block"``, one checkpoint a group.
+backward kernel; the ``hybrid`` family trains with the plain cross entropy
+and, under ``remat="block"``, one checkpoint a group; the ``audio`` family
+(``encdec.lm_loss``) reads the encoder frames from ``batch["frames"]``,
+with one checkpoint an encoder and a decoder block.
 ``gather_small_weights_once`` is a sharding constraint of the reference's
 FSDP mesh; on one device it is an identity.
 """
@@ -34,14 +35,16 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models import moe as MOE, transformer as T
+from repro_torch.models import encdec as ED, moe as MOE, transformer as T
 from repro_torch.optim import AdamWConfig, adamw_update
 from repro_torch.optim.schedules import cosine_schedule
 
 F32 = torch.float32
 
 
-def loss_fn(model: T.Transformer, batch: dict) -> tuple[torch.Tensor, dict]:
+def loss_fn(model: T.Transformer | ED.EncDec, batch: dict) -> tuple[torch.Tensor, dict]:
+    if model.cfg.family == "audio":
+        return ED.lm_loss(model, batch["tokens"], batch["labels"], batch["frames"])
     return T.lm_loss(model, batch["tokens"], batch["labels"])
 
 

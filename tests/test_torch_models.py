@@ -28,7 +28,7 @@ import pytest
 import torch
 
 from repro.configs import smoke_config as jsmoke
-from repro.models import attention as JA, blocks as JB, layers as JL, transformer as JT
+from repro.models import attention as JA, blocks as JB, encdec as JED, layers as JL, transformer as JT
 from repro.serve import ServeEngine as JServeEngine
 from repro_torch import convert
 from repro_torch.configs import smoke_config
@@ -247,22 +247,24 @@ def _leaves(tree) -> dict:
             for p, l in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-@pytest.mark.parametrize("arch", SERVE_ARCHS + ("rwkv6_7b",))
+@pytest.mark.parametrize("arch", SERVE_ARCHS + ("rwkv6_7b", "whisper_large_v3"))
 def test_random_lm_tree_matches_jax_layout(arch):
     cfg, jcfg = smoke_config(arch), jsmoke(arch)
-    want = jax.eval_shape(lambda: JT.init(jax.random.key(0), jcfg))
+    init = JED.init if cfg.family == "audio" else JT.init
+    stack = "dec_blocks" if cfg.family == "audio" else "blocks"
+    want = jax.eval_shape(lambda: init(jax.random.key(0), jcfg))
     got = convert.random_lm_tree(cfg, 0)
     assert _leaves(got) == _leaves(want)
     # Deterministic in the seed.
     leaf = ("time", "wr") if cfg.family == "ssm" else ("attn", "wq")
-    again = convert.random_lm_tree(cfg, 0)["blocks"][leaf[0]][leaf[1]]["kernel"]
-    np.testing.assert_array_equal(again, got["blocks"][leaf[0]][leaf[1]]["kernel"])
+    again = convert.random_lm_tree(cfg, 0)[stack][leaf[0]][leaf[1]]["kernel"]
+    np.testing.assert_array_equal(again, got[stack][leaf[0]][leaf[1]]["kernel"])
     # In a bf16 model every leaf has the reference's type: bf16, except
     # RWKV-6's decay_base and u_bonus, which stay float32, also after
     # lm_params_from_numpy.
     bcfg = dataclasses.replace(cfg, dtype="bfloat16")
     bwant = _leaves(jax.eval_shape(
-        lambda: JT.init(jax.random.key(0), dataclasses.replace(jcfg, dtype="bfloat16"))))
+        lambda: init(jax.random.key(0), dataclasses.replace(jcfg, dtype="bfloat16"))))
     types = {p: str(t).removeprefix("torch.") for p, (_, t) in convert.lm_tree_shapes(bcfg).items()}
     assert types == {p: str(t) for p, (_, t) in bwant.items()}
     f32 = {p for p, t in types.items() if t == "float32"}
@@ -270,41 +272,54 @@ def test_random_lm_tree_matches_jax_layout(arch):
                    else set())
     model = convert.lm_params_from_numpy(got, bcfg, device="cpu")
     assert {n.replace(".0.", ".", 1) for n, p in model.named_parameters()
-            if p.dtype == torch.float32 and n.startswith("blocks.0.")} == f32
+            if p.dtype == torch.float32 and n.startswith(f"{stack}.0.")} == f32
 
 
 @pytest.mark.parametrize("arch", ["deepseek_v2_236b", "rwkv6_7b", "zamba2_2_7b",
                                   "whisper_large_v3"])
 def test_unported_families_raise(arch):
-    """Families the port cannot serve raise at construction; the ``ssm``
-    family serves but raises for training (``lm_loss``,
-    ``build_train_step``); the ``moe`` and ``hybrid`` families serve and
-    train."""
-    cfg = smoke_config(arch)
-    if cfg.family in ("ssm", "moe", "hybrid"):
-        from repro_torch.optim import AdamWConfig, adamw_init
-        from repro_torch.train import build_train_step
+    """Every family of the configs builds and serves; the ``ssm`` family
+    raises for training (``lm_loss``, ``build_train_step``); the ``moe``,
+    ``hybrid`` and ``audio`` families train (``audio``: the prefill step,
+    ``generate`` and the train step take the encoder frames, and its tree
+    is ``encdec.EncDec``, which ``transformer.Transformer`` refuses)."""
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import build_train_step
 
-        model = T.init(cfg, device="cpu")
+    cfg = smoke_config(arch)
+    if cfg.family == "audio":
+        from repro_torch.models import encdec as ED
+
+        with pytest.raises(ValueError, match="encdec"):
+            T.init(cfg, device="cpu")
+        model = ED.init(cfg, device="cpu")
         tok = torch.zeros((1, 4), dtype=torch.int64)
+        frames = torch.zeros((1, cfg.encdec.encoder_seq, cfg.d_model))
         with torch.inference_mode():
-            assert build_prefill_step(cfg)(model, tok, 8)[0].shape == (1, 4, cfg.padded_vocab)
-        if cfg.family in ("moe", "hybrid"):
-            assert torch.isfinite(T.lm_loss(model, tok, tok)[0])
-            step = build_train_step(cfg, AdamWConfig())
-            _, _, metrics = step(model, adamw_init(dict(model.named_parameters()), AdamWConfig()),
-                                 {"tokens": tok, "labels": tok}, 0)
-            assert math.isfinite(float(metrics["loss"]))
-            return
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.lm_loss(model, tok, tok)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_train_step(cfg, AdamWConfig())
+            logits, state = build_prefill_step(cfg)(model, tok, frames, 8)
+        assert logits.shape == (1, 4, cfg.padded_vocab) and state.self_kv.length == 4
+        out = ServeEngine(cfg, model, max_len=8, device="cpu").generate(tok, 3, frames=frames)
+        assert out.shape == (1, 7)
+        step = build_train_step(cfg, AdamWConfig())
+        _, _, metrics = step(model, adamw_init(dict(model.named_parameters()), AdamWConfig()),
+                             {"tokens": tok, "labels": tok, "frames": frames}, 0)
+        assert math.isfinite(float(metrics["loss"]))
+        return
+    model = T.init(cfg, device="cpu")
+    tok = torch.zeros((1, 4), dtype=torch.int64)
+    with torch.inference_mode():
+        assert build_prefill_step(cfg)(model, tok, 8)[0].shape == (1, 4, cfg.padded_vocab)
+    if cfg.family in ("moe", "hybrid"):
+        assert torch.isfinite(T.lm_loss(model, tok, tok)[0])
+        step = build_train_step(cfg, AdamWConfig())
+        _, _, metrics = step(model, adamw_init(dict(model.named_parameters()), AdamWConfig()),
+                             {"tokens": tok, "labels": tok}, 0)
+        assert math.isfinite(float(metrics["loss"]))
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init(cfg, device="cpu")
+        T.lm_loss(model, tok, tok)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_prefill_step(cfg)
+        build_train_step(cfg, AdamWConfig())
 
 
 def test_serve_launcher_runs_on_cpu(capsys):

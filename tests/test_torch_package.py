@@ -22,7 +22,7 @@ from repro_torch import convert
 from repro_torch.configs import smoke_config
 from repro_torch.core import burn, compliance, controller, fleet, pdu
 from repro_torch.kernels import admm_step, gemm_burn, lc_filter, ops, pdu_health, pdu_sim
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.data import DataConfig
 from repro_torch.launch import serve as launch_serve, train as launch_train
 from repro_torch.optim import AdamWConfig
@@ -46,7 +46,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
     assert "repro_torch.train.loop" in mods and "repro_torch.launch.train" in mods
     assert "repro_torch.power.integration" in mods and "repro_torch.optim.adamw" in mods
     assert "repro_torch.models.rwkv6" in mods and "repro_torch.kernels.rwkv6_scan" in mods
-    assert "repro_torch.models.mamba2" in mods
+    assert "repro_torch.models.mamba2" in mods and "repro_torch.models.encdec" in mods
     assert {"repro_torch.core.burn", "repro_torch.kernels.lc_filter", "repro_torch.kernels.pdu_sim",
             "repro_torch.kernels.gemm_burn"} <= set(mods)
     code = (
@@ -94,6 +94,15 @@ def _no_cuda(monkeypatch):
                             transformer.Transformer(smoke_config("zamba2_2_7b"), device="cpu")),
         lambda: launch_train.main(["--arch", "zamba2-2.7b", "--steps", "1"]),
         lambda: launch_serve.main(["--arch", "zamba2-2.7b"]),
+        lambda: encdec.init(smoke_config("whisper_large_v3")),
+        lambda: encdec.EncDec(smoke_config("whisper_large_v3")),
+        lambda: ServeEngine(smoke_config("whisper_large_v3"),
+                            encdec.EncDec(smoke_config("whisper_large_v3"), device="cpu")),
+        lambda: convert.lm_params_from_numpy({}, smoke_config("whisper_large_v3")),
+        lambda: train(smoke_config("whisper_large_v3"), DataConfig(batch=2, seq_len=8),
+                      AdamWConfig(), TrainConfig(steps=1)),
+        lambda: launch_train.main(["--arch", "whisper-large-v3", "--steps", "1"]),
+        lambda: launch_serve.main(["--arch", "whisper-large-v3"]),
         lambda: convert.lm_params_from_numpy({}, smoke_config("llama3_2_1b")),
         lambda: ServeEngine(smoke_config("llama3_2_1b"),
                             transformer.Transformer(smoke_config("llama3_2_1b"), device="cpu")),

@@ -431,6 +431,21 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    ``JAX_WHISPER_TRAIN`` within ``WHISPER_REF_TOL`` (both recorded on the
    CPU by ``python tests/test_torch_encdec_{serve,train}_reference.py``).
    It prints each part's seconds.
+22. The ssm training slice (``RWKV_TRAIN``): rwkv6-7b at full width cut to
+   16 layers, drawn on the card, trained with remat per block and AdamW,
+   4 x 512 tokens a step.  (a-b) Step 1 on the kernels against the plain
+   versions within ``TRAIN_TOL`` on ``RWKV_TRAIN_LEAVES``, once more the
+   same bits, three more steps; a step launches rmsnorm 97 times and
+   ``rwkv6_scan`` never (a recorded graph takes the plain chunked form, 32
+   calls, the reference's training route); ``train()`` with the
+   launcher's PowerSim, 4 steps.  (c) ``RWKV_TRAIN_REF`` (the smoke
+   config, float32, 2 steps) against ``JAX_RWKV_TRAIN`` within
+   ``RWKV_REF_TOL`` (recorded on the CPU by ``python
+   tests/test_torch_rwkv6_train_reference.py``).  (d) ``compress_int8`` /
+   ``decompress_int8`` on the step's gradients of ``blocks.0.*`` and the
+   head, bit for bit against the CPU, the summed residual over 8 rounds
+   below one quantization step (``COMPRESS``).  It prints the phase's
+   seconds.
 
 With ``--profile DIR`` it also profiles one more campus run, prefill step,
 generation and training step, rwkv6-7b prefill and generation, a host run
@@ -438,8 +453,8 @@ of the degraded campus, a warm replay of each campus's scanned engine,
 phase 14's runs (Fig. 12, ``fleet_1024racks`` and ``controller_throughput``
 cold and warm), phase 17's prefills and generations, one deepseek-v2
 training step, zamba2's prefill and generation, one zamba2 training
-step, whisper's prefill and generation and one whisper training step
-(``torch.profiler``), writes the tables and Chrome traces into DIR, and
+step, whisper's prefill and generation, one whisper training step and
+one rwkv6-7b training step (``torch.profiler``), writes the tables and Chrome traces into DIR, and
 prints each campus's host engine split into ``core.profiling``'s
 ``render`` / ``solve`` / ``host-sync`` spans.
 
@@ -3800,15 +3815,25 @@ def phase_rwkv_kernel(dev) -> dict:
         print(f"rwkv6_scan  decode D {dd} {str(dtype)[6:]}: step kernel {tuple(rw.lane_plan(dd, 1))} "
               f"== chunk kernel {tuple(rw.lane_plan(dd, 2))}: {same}")
         _check(same, f"rwkv6_scan decode D {dd}: step kernel vs chunk kernel")
-    # The kernel has no backward: a recording graph must raise, not fall
-    # back to the (differentiable) plain version.
+    # The kernel has no backward (nor has the reference's): under a
+    # recording graph the call takes the plain chunked form, the
+    # reference's training route, launching nothing, and ``force="cuda"``
+    # raises rather than launch a kernel that cannot differentiate.
+    before = rw.rwkv6_scan.launches
+    rg = r.detach().requires_grad_()
+    o_graph, s_graph = ops.rwkv6_scan(rg, k, v, w, u, s0)
+    o_plain, s_plain = ref.rwkv6_chunked(r, k, v, w, u, s0, chunk=32)
+    plain_route = (rw.rwkv6_scan.launches == before and torch.equal(o_graph.detach(), o_plain)
+                   and torch.equal(s_graph.detach(), s_plain))
     try:
-        ops.rwkv6_scan(r.detach().requires_grad_(), k, v, w, u, s0)
+        ops.rwkv6_scan(rg, k, v, w, u, s0, force="cuda")
         refused = False
     except NotImplementedError:
         refused = True
-    print(f"rwkv6_scan  refuses a recording autograd graph on the card: {refused}")
-    _check(refused, "rwkv6_scan under a recording graph")
+    del rg, o_graph, s_graph, o_plain, s_plain
+    print(f"rwkv6_scan  under a recording autograd graph on the card: the plain chunked form, "
+          f"no launch: {plain_route}; force='cuda' refused: {refused}")
+    _check(plain_route and refused, "rwkv6_scan under a recording graph")
 
     ms = _median_ms(lambda: rw.rwkv6_scan(r, k, v, w, u, s0))
     seq_ms = _median_ms(lambda: ref.rwkv6_scan(r, k, v, w, u, s0), reps=5, warmup=1)
@@ -8458,6 +8483,555 @@ def phase_whisper_train_reference(dev) -> dict:
     return {"counts": counts}
 
 
+# The ssm training slice (phase 22): rwkv6-7b at its published width (d_model
+# 4096, 64 heads of 64, d_ff 14336, vocab 65536, bf16) cut to 16 of its 32
+# layers and nothing else (4.06 B parameters: its bf16 weights and
+# gradients and AdamW's float32 moments take ~49 GB, where the whole model's
+# 7.58 B would take ~91 GB, past one 80 GB card), weights drawn on the card
+# by ``transformer.init`` from ``seed``; trained with ``remat="block"`` (one
+# checkpoint a block), AdamW(lr=1e-3) with its float32 moments and weight
+# decay 0.1, 4 x 512 tokens of ``SyntheticLMDataset`` a step, the schedule
+# warmed up in one step as TRAIN's; ``train()`` with the launcher's PowerSim
+# for ``power_steps`` steps.  The recurrence runs the plain chunk-parallel
+# form under the recorded graph (``ops.rwkv6_scan``), as the reference
+# trains it: its kernel, and the port's, have no backward.
+RWKV_TRAIN = dict(arch="rwkv6_7b", n_layers=16, seed=0, batch=4, seq_len=512, lr=1e-3,
+                  total_steps=10, warmup_steps=1, steps=4, power_steps=4)
+# The leaves whose first moment and updated values the training checks
+# sample (layer 0 of the stack): the time mix's receptance projection,
+# decay base and bonus (both float32, the last two rank-1/2 leaves decayed
+# as stacked), the channel mix's key projection, an in-block norm scale,
+# ln_f and the head.
+RWKV_TRAIN_LEAVES = ("blocks.time.wr.kernel", "blocks.time.decay_base", "blocks.time.u_bonus",
+                     "blocks.channel.wk.kernel", "blocks.ln1.scale", "ln_f.scale",
+                     "lm_head.kernel")
+# What tests/test_torch_rwkv6_train_reference.py runs through the JAX
+# package on the CPU and what the card's run is held to (phase 22c): the
+# rwkv6 smoke config (2 layers, d_model 128, 2 heads of 64) in float32, 4 x
+# 128 tokens (4 chunks of 32 a sequence: the chunk-parallel form on both
+# sides) a step, 2 steps from ``random_lm_tree(cfg, TRAIN["seed"])``, the
+# data seed, AdamW and the schedule of TRAIN (those of RWKV_TRAIN).
+RWKV_TRAIN_REF = dict(dtype="float32", batch=4, seq_len=128, steps=2)
+# Tolerances of RWKV_TRAIN_REF against the JAX package, float32: those of
+# HYBRID_REF_TOL (loss 2e-5 absolute, grad norm 2e-5 relative, m 1e-3 of
+# the leaf's largest sampled |m|, parameters 4 float32 ulps plus 1e-3 lr
+# per step where the moment is clear of zero; MOE_REF_TOL's reasons).  The
+# port's plain versions on the CPU measured against it (``train_max_diff``,
+# printed by ``python tests/test_torch_rwkv6_train_reference.py --port``):
+# RWKV_REF_MEASURED, 20-140x inside each bound.
+RWKV_REF_TOL = HYBRID_REF_TOL
+RWKV_REF_MEASURED = {"loss": 4.76837158203125e-07, "grad_norm": 9.230038637710908e-07,
+                     "m": 9.726383894905214e-06, "update_frac": 6.984919309616089e-06}
+# The JAX package's numbers for RWKV_TRAIN_REF, on the CPU (jax 0.9.0),
+# printed by ``python tests/test_torch_rwkv6_train_reference.py``.
+JAX_RWKV_TRAIN = {'grad_norm': [24.208961486816406, 24.797494888305664],
+                  'loss': [6.804034233093262, 6.318443298339844],
+                  'm': [{'blocks.channel.wk.kernel': [3.9903267179397517e-07, 4.518956848187372e-05,
+                                                      3.3772765164030716e-05, 2.711888555495534e-05,
+                                                      9.775291982805356e-05, -1.6340256934199715e-06,
+                                                      -3.0353316105902195e-05, -6.926159403519705e-05,
+                                                      8.633958714199252e-06, -5.243258783593774e-05,
+                                                      2.1375972210080363e-05, 1.4748006833542604e-05,
+                                                      -3.7237957712932257e-06, -9.939421033777762e-06,
+                                                      -3.386006210348569e-05, -1.111283836507937e-05],
+                         'blocks.ln1.scale': [-0.0002874102792702615, -1.818866076064296e-05,
+                                              1.0951152034976985e-05, 0.0001252395595656708,
+                                              -0.00011747309326892719, -1.1386152436898556e-05,
+                                              -5.554278686759062e-05, -0.00014828890562057495,
+                                              -0.00012065167538821697, 0.0001933256135089323,
+                                              -0.0001377436419716105, -7.734825339866802e-05,
+                                              0.00015440963034052402, 0.0001492621813667938,
+                                              0.00020319312170613557, 0.00012577150482684374],
+                         'blocks.time.decay_base': [3.5370594559935853e-06, 4.116242507734569e-06,
+                                                    9.46812292568211e-07, -5.615383429358189e-07,
+                                                    6.204823876032606e-06, -7.335385362239322e-06,
+                                                    -2.296991397088277e-06, 1.0466577577972203e-06,
+                                                    -4.127639840589836e-06, 6.128772838565055e-06,
+                                                    9.768283234734554e-06, -1.6169342416105792e-06,
+                                                    -7.752601050015073e-06, -6.242677955015097e-06,
+                                                    -4.526297288975911e-06, -1.0175384659305564e-06],
+                         'blocks.time.u_bonus': [5.1555357458710205e-06, 8.183978934539482e-05,
+                                                 -5.6286993640242144e-05, -4.2282794311176986e-05,
+                                                 -6.206173111422686e-06, -1.5191180864349008e-05,
+                                                 2.8673546239588177e-06, 8.342120963789057e-06,
+                                                 -4.2138930439250544e-05, 1.680937384662684e-05,
+                                                 -5.680103276972659e-05, 1.0130210284842178e-05,
+                                                 -3.3318188798148185e-05, -1.389549993291439e-06,
+                                                 1.2505685845098924e-05, -2.611618947412353e-05],
+                         'blocks.time.wr.kernel': [-0.00010393578850198537, -6.986188236624002e-05,
+                                                   1.7740503608365543e-05, 7.618492963956669e-05,
+                                                   -2.938663055829238e-05, 2.288276118633803e-05,
+                                                   -1.794637501006946e-05, -0.00010274577653035522,
+                                                   0.00013370973465498537, -4.655265001929365e-05,
+                                                   8.677036385051906e-05, 7.297257980098948e-05,
+                                                   0.00017168068734463304, 6.453151581808925e-05,
+                                                   6.622004002565518e-05, -9.343001147499308e-05],
+                         'lm_head.kernel': [-8.096398232737556e-05, -1.3787172292722971e-06,
+                                            -7.839115028218657e-07, -2.8137271783634787e-06,
+                                            -6.751826276740758e-06, 5.083479663881008e-06, -8.353226235158218e-07,
+                                            -2.266229785163887e-06, -1.5575095630993019e-06, 7.882803032543961e-08,
+                                            -8.17451291368343e-06, -1.3163866015020176e-06, 1.3821090760757215e-06,
+                                            -9.945939893896139e-08, -4.226867531542666e-06,
+                                            -1.993836121982895e-06],
+                         'ln_f.scale': [1.9690600311150774e-05, 1.8335204003960826e-05, -2.1525669581023976e-05,
+                                        4.587029980029911e-05, 3.965809446526691e-05, 0.00011862234532600269,
+                                        4.3736668885685503e-05, 5.8638561313273385e-05, 4.117183561902493e-05,
+                                        -4.82830409964663e-06, 5.0797239964595065e-05, -4.7128094593063e-05,
+                                        -3.373336949152872e-05, 2.3778840841259807e-05, 3.9871458284324035e-05,
+                                        7.081525109242648e-05]},
+                        {'blocks.channel.wk.kernel': [4.643667580239708e-06, 3.4720349503913894e-05,
+                                                      6.28506313660182e-05, 3.135176302748732e-05,
+                                                      3.75651397916954e-05, 5.2695919293910265e-05,
+                                                      -1.9453631466603838e-05, -0.00021327096328604966,
+                                                      9.272790521208663e-06, -6.943581684026867e-05,
+                                                      -2.1072584786452353e-05, 3.72845861420501e-05,
+                                                      1.0142141036340035e-05, -5.217679790803231e-05,
+                                                      -3.2881747756619006e-05, -8.905101822165307e-06],
+                         'blocks.ln1.scale': [-0.0004126426938455552, 0.00029926534625701606,
+                                              -9.617613977752626e-05, 0.00036880900734104216,
+                                              -0.00017236173152923584, 5.873350892215967e-05,
+                                              -4.3837615521624684e-05, 0.00016998525825329125,
+                                              -9.106695506488904e-05, 0.00011467936565168202,
+                                              -0.00012772927584592253, 0.0001781421306077391,
+                                              0.0001940158399520442, 0.00012418671394698322,
+                                              0.00015293816977646202, -7.465152157237753e-05],
+                         'blocks.time.decay_base': [-4.060688297613524e-06, 1.156993312179111e-05,
+                                                    -1.18523553283012e-06, 5.556929409067379e-06,
+                                                    1.547331157780718e-05, -9.721049536892679e-06,
+                                                    -3.4039428555843187e-06, 4.499096576182637e-06,
+                                                    1.704700366644829e-06, 3.633672804426169e-06,
+                                                    7.056380127323791e-06, -4.024716872663703e-06,
+                                                    -3.454172485817253e-07, -5.6317680900974665e-06,
+                                                    -5.630219675367698e-06, -5.446972863865085e-06],
+                         'blocks.time.u_bonus': [-5.995323704155453e-07, 6.41425940557383e-05,
+                                                 -5.20721405337099e-05, -3.4801596484612674e-05,
+                                                 -5.93481104260718e-07, -2.514787411200814e-05,
+                                                 -3.2603536965325475e-05, -8.764088852331042e-05,
+                                                 -4.767527207150124e-05, 5.959686404821696e-06,
+                                                 -8.862252434482798e-05, -0.00010927727271337062,
+                                                 -5.8408397308085114e-05, -7.810149691067636e-05,
+                                                 2.8889939130749553e-05, -8.845412594382651e-06],
+                         'blocks.time.wr.kernel': [-8.179394353646785e-05, -0.0001244839804712683,
+                                                   5.9020625485572964e-05, 4.210046972730197e-05,
+                                                   2.085937921947334e-06, -7.981371709320229e-06,
+                                                   -5.371997303882381e-06, -6.527044024551287e-05,
+                                                   0.00014030399324838072, 3.2246778573608026e-05,
+                                                   7.185604317783145e-06, 1.9082666767644696e-05,
+                                                   0.00014889822341501713, 6.868708442198113e-05,
+                                                   -3.2901600206969306e-05, -7.21388787496835e-05],
+                         'lm_head.kernel': [-7.177898078225553e-05, -7.589081292280753e-07, 0.0001288020721403882,
+                                            -3.877183189615607e-06, -1.6462650819448754e-05,
+                                            6.5593717408773955e-06, -1.970614221136202e-06, -6.687615496048238e-06,
+                                            2.8258994007046567e-06, 2.2494357381219743e-06, -1.411733956047101e-05,
+                                            -3.965553332818672e-06, 2.6131936010642676e-06, 5.35045387550781e-07,
+                                            -1.0310425750503782e-05, -5.328923180059064e-06],
+                         'ln_f.scale': [7.809984526829794e-05, 2.3553129722131416e-05, -1.7424148609279655e-05,
+                                        -5.572372174356133e-05, 3.731853939825669e-05, 0.00013340555597096682,
+                                        0.00012378014798741788, 3.447047856752761e-05, 0.00010542218660702929,
+                                        3.444387039053254e-05, 2.971560570586007e-05, -2.6994979634764604e-05,
+                                        5.726516246795654e-05, 5.119597335578874e-05, 3.389504490769468e-05,
+                                        6.001982546877116e-05]}],
+                  'params': {'blocks.channel.wk.kernel': [-0.09318860620260239, 0.09781331568956375,
+                                                          0.0973394513130188, 0.13156911730766296,
+                                                          -0.02077224664390087, -0.043810829520225525,
+                                                          0.00279451091773808, -0.03948444128036499,
+                                                          -0.07052335888147354, -0.06441696733236313,
+                                                          -0.0016441586194559932, 0.047927819192409515,
+                                                          0.1772075742483139, -0.07296875864267349,
+                                                          0.1647704690694809, -0.039342209696769714],
+                             'blocks.ln1.scale': [1.0017486810684204, 1.0001040697097778, 0.9994634985923767,
+                                                  0.9978446364402771, 1.001756191253662, 1.000182032585144,
+                                                  1.0013912916183472, 1.0004281997680664, 1.001362919807434,
+                                                  0.9983734488487244, 1.0014989376068115, 1.0002943277359009,
+                                                  0.9979103207588196, 0.998174250125885, 0.9982389211654663,
+                                                  0.9990447163581848],
+                             'blocks.time.decay_base': [-5.999427795410156, -6.000762462615967,
+                                                        -5.9994096755981445, -5.998472690582275,
+                                                        -6.000781059265137, -5.996884822845459,
+                                                        -5.9968414306640625, -6.000692367553711, -5.99798583984375,
+                                                        -6.0002264976501465, -6.000335693359375,
+                                                        -5.996819972991943, -5.997775077819824, -5.997120380401611,
+                                                        -5.9969162940979, -5.996938705444336],
+                             'blocks.time.u_bonus': [0.026058489456772804, 0.19837328791618347,
+                                                     -0.022178972139954567, 0.05376410484313965,
+                                                     -0.012829500250518322, -0.08005740493535995,
+                                                     -0.007561278063803911, 0.15085266530513763,
+                                                     -0.012682542204856873, 0.01282851118594408,
+                                                     -0.05123031511902809, 0.022145774215459824,
+                                                     0.10128791630268097, 0.15630069375038147, 0.19496579468250275,
+                                                     0.074583999812603],
+                             'blocks.time.wr.kernel': [-0.15534445643424988, 0.022534292191267014,
+                                                       0.03874018415808678, -0.06889539211988449,
+                                                       0.07164468616247177, -0.025657253339886665,
+                                                       -0.050426676869392395, -0.07961621135473251,
+                                                       -0.033954475075006485, 0.06623782962560654,
+                                                       -0.10700678825378418, -0.07942654937505722,
+                                                       0.037188779562711716, -0.05698637291789055,
+                                                       -0.026640135794878006, 0.029485436156392097],
+                             'lm_head.kernel': [-0.01264712680131197, 0.08589508384466171, -0.02055339515209198,
+                                                -0.029765287414193153, 0.05324278771877289, 0.04439357668161392,
+                                                -0.02473299391567707, -0.031056955456733704, -0.1450079083442688,
+                                                0.06318812072277069, 0.13150335848331451, 0.13258692622184753,
+                                                0.12403741478919983, 0.04432746767997742, 0.044479165226221085,
+                                                -0.0040787700563669205],
+                             'ln_f.scale': [0.9980940818786621, 0.9980990886688232, 1.0016076564788818,
+                                            0.9993834495544434, 0.9982910752296448, 0.9981736540794373,
+                                            0.9980380535125732, 0.998577892780304, 0.9980226755142212,
+                                            1.000351905822754, 0.998580276966095, 1.0014094114303589,
+                                            1.0005502700805664, 0.9980032444000244, 0.9983598589897156,
+                                            0.9983618259429932]}}
+# Phase 22d: int8 compression with error feedback on the step's gradients
+# of ``blocks.0.*`` and the head (488 M elements; the whole tree's float32
+# error state would take 16 GB).  ``rounds`` rounds on the card, round 0 on
+# the bf16 gradients and round i > 0 on them widened and scaled by the
+# float32 factor ``factors[i]`` (numpy, ``seed``); the first ``host_rounds``
+# held bit for bit to the same functions on host copies on the CPU (each
+# operation is correctly rounded on both); after all rounds the summed
+# residual |sum(sent) - sum(true)| of every leaf, in float64, below one
+# quantization step (the last round's scale).
+COMPRESS = dict(rounds=8, host_rounds=2, seed=11)
+
+
+def rwkv_train_config():
+    """RWKV_TRAIN's config: rwkv6-7b at full width with its depth cut."""
+    import dataclasses
+
+    from repro_torch.configs import full_config
+
+    return dataclasses.replace(full_config(RWKV_TRAIN["arch"]), n_layers=RWKV_TRAIN["n_layers"])
+
+
+def rwkv_ref_config():
+    """RWKV_TRAIN_REF's config: the rwkv6 smoke config in float32."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+
+    return dataclasses.replace(smoke_config(RWKV_TRAIN["arch"]), dtype=RWKV_TRAIN_REF["dtype"])
+
+
+def rwkv_train_launches(cfg, seq_len: int) -> dict:
+    """The kernel launches and plain scan calls of a ``build_train_step``
+    step of the ``ssm`` config ``cfg`` with ``remat="block"`` on
+    ``seq_len`` tokens: each block's three norms (``ln1``, ``ln_x``,
+    ``ln2``) in the forward and again in its recompute, ``ln_f`` once; no
+    ``rwkv6_scan`` launch (a recorded graph takes the plain forms), and
+    the plain chunked form (``seq_len`` a multiple of 32 above 32) or the
+    sequential scan twice a block (the forward and the recompute)."""
+    nl = cfg.n_layers
+    chunked = seq_len > 32 and seq_len % 32 == 0
+    return {"kernels": {"flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0,
+                        "flash_attention_bwd_dq": 0, "rmsnorm": 2 * 3 * nl + 1},
+            "rwkv6_scan": 0,
+            "plain": {"rwkv6_chunked": 2 * nl if chunked else 0,
+                      "rwkv6_scan": 0 if chunked else 2 * nl}}
+
+
+def port_rwkv_train_reference(cfg, dev, ref: dict = RWKV_TRAIN_REF) -> dict:
+    """``ref``'s steps of ``cfg`` through the port on ``dev`` from
+    ``random_lm_tree(cfg, TRAIN["seed"])`` (``port_train_reference``)."""
+    from repro_torch import convert
+
+    model = convert.lm_params_from_numpy(convert.random_lm_tree(cfg, TRAIN["seed"]), cfg,
+                                         device=dev)
+    return port_train_reference(model, cfg, dev, ref, RWKV_TRAIN_LEAVES)
+
+
+class _RwkvTrainCalls:
+    """The training kernels' launches, ``rwkv6_scan``'s, and the plain
+    scan forms' calls inside the block (``.counts``, ``.scan``,
+    ``.plain``), the counters set to 0 on entry."""
+
+    def __enter__(self):
+        from repro_torch.kernels import rwkv6_scan as rw
+
+        self._plain = {n: _PlainCalls(n) for n in ("rwkv6_chunked", "rwkv6_scan")}
+        for p in self._plain.values():
+            p.__enter__()
+        _reset_train_counts()
+        rw.rwkv6_scan.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import rwkv6_scan as rw
+
+        self.counts, self.scan = _train_counts(), rw.rwkv6_scan.launches
+        self.plain = {n: p.n for n, p in self._plain.items()}
+        for p in self._plain.values():
+            p.__exit__(*exc)
+        return False
+
+
+def _rwkv_train_model(dev):
+    """RWKV_TRAIN's model, drawn on the card."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    cfg = rwkv_train_config()
+    _check(cfg.family == "ssm" and cfg.dtype == "bfloat16" and cfg.remat == "block"
+           and cfg.d_model == 4096 and cfg.d_ff == 14336 and cfg.vocab_size == 65536,
+           "rwkv6-7b trains at its published width in bf16 with remat")
+    t0 = time.perf_counter()
+    model = T.init(cfg, device=dev, generator=torch.Generator(dev).manual_seed(RWKV_TRAIN["seed"]))
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    gib = sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30
+    print(f"rwkv train: {cfg.name} cut to {cfg.n_layers} layers, {n} parameters ({gib:.2f} GiB) "
+          f"drawn on the card in {time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def phase_rwkv_train(dev, model, profile_dir: Path | None = None) -> dict:
+    """22a-b: ``model`` (RWKV_TRAIN: rwkv6-7b at full width, 16 layers,
+    bf16) trained with ``build_train_step``, ``remat="block"`` and AdamW's
+    float32 moments.  Step 1 on the plain versions (``ops.forced("ref")``),
+    then from the same start (the weights drawn again from the seed, fresh
+    moments) the same step on the kernels, held to it under TRAIN_TOL on
+    RWKV_TRAIN_LEAVES; the kernel step once more from the same start, whose
+    parameters and first moment must equal the first kernel run's bit for
+    bit (``_bit_prints``); then ``steps - 1`` more kernel steps, timed.
+    Every kernel step must launch ``rwkv_train_launches``: rmsnorm 97,
+    ``rwkv6_scan`` none, the plain chunked form 32 times; the plain step
+    no kernel.  ``train_mfu`` counts 6 ``cfg.param_count()`` tokens a
+    step.  Returns the numbers and the gradients of ``blocks.0.*`` and the
+    head at the trained weights (22d's input)."""
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import build_train_step
+    from repro_torch.train.step import loss_fn
+
+    t_phase = time.perf_counter()
+    cfg, tr = model.cfg, RWKV_TRAIN
+    b, t = tr["batch"], tr["seq_len"]
+    opt = AdamWConfig(lr=tr["lr"])
+    step = build_train_step(cfg, opt, total_steps=tr["total_steps"],
+                            warmup_steps=tr["warmup_steps"])
+    ds = SyntheticLMDataset(DataConfig(seed=tr["seed"], batch=b, seq_len=t,
+                                       vocab_size=cfg.vocab_size))
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+
+    def restore():  # the start again: T.init's draws from the same seed
+        L.init_weights_(model, torch.Generator(dev).manual_seed(tr["seed"]))
+
+    want_calls = rwkv_train_launches(cfg, t)
+    per_step = want_calls["kernels"]
+    batch0 = ds.batch_at(0)
+
+    # (1) Step 1 on the plain versions.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _RwkvTrainCalls() as plain_calls, ops.forced("ref"):
+        _, st, mp = step(model, adamw_init(params, opt), batch0, 0)
+        torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    _check(plain_calls.counts == dict.fromkeys(per_step, 0) and plain_calls.scan == 0
+           and plain_calls.plain == want_calls["plain"],
+           f"rwkv train plain step launched {plain_calls.counts}, rwkv6_scan {plain_calls.scan}, "
+           f"plain scans {plain_calls.plain}")
+    want = _step_summary(model, st, mp, RWKV_TRAIN_LEAVES)
+    del st, mp
+    restore()
+
+    # (2) The same step on the kernels, (3) once more, (4) the other steps.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls, calls = [], []
+
+    def kernel_step(i, state):
+        with _RwkvTrainCalls() as c:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, state, metrics = step(model, state, ds.batch_at(i), i)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        calls.append(c)
+        return state, metrics
+
+    state, mk = kernel_step(0, adamw_init(params, opt))
+    got = _step_summary(model, state, mk, RWKV_TRAIN_LEAVES)
+    prints = _bit_prints({**params, **{"m." + n: x for n, x in state.m.items()}})
+    del state, mk
+    restore()
+    state, mk = kernel_step(0, adamw_init(params, opt))
+    again = _bit_prints({**params, **{"m." + n: x for n, x in state.m.items()}})
+    differ = sorted(n for n in prints if prints[n] != again[n])
+    losses = [float(mk["loss"])]
+    for i in range(1, tr["steps"]):
+        state, mk = kernel_step(i, state)
+        losses.append(float(mk["loss"]))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if profile_dir is not None:
+        bp = ds.batch_at(tr["steps"])
+        profile_run("rwkv_train_step",
+                    lambda: _timed(lambda: step(model, state, bp, tr["steps"])), profile_dir)
+    del state, mk
+    bad = compare_train(got, want, tr["lr"], TRAIN_TOL, RWKV_TRAIN_LEAVES)
+    warm = walls[2:]
+    step_s = statistics.median(warm)
+    tokens = b * t
+    mfu = 6.0 * cfg.param_count() * tokens / (step_s * BF16_FLOP_PER_S)
+    last = calls[-1]
+    print(f"rwkv train {cfg.name} {cfg.n_layers} layers, {n_params} parameters (bf16, "
+          f"remat={cfg.remat} a block, AdamW float32 moments), {b} x {t} tokens: plain step "
+          f"{plain_s:.3f} s, kernel step walls {[round(w, 4) for w in walls]} s (two step-1 runs, "
+          f"then steps 2-{tr['steps']}), losses {losses}, launches a step {last.counts}, "
+          f"rwkv6_scan {last.scan}, plain scan calls {last.plain}, peak {peak:.2f} GiB allocated")
+    print("rwkv train step 1, kernels vs plain versions: "
+          + json.dumps(train_max_diff(got, want, tr["lr"], TRAIN_TOL, RWKV_TRAIN_LEAVES)))
+    print("rwkv train step 1 twice on the kernels from the same start: "
+          + ("the same bits (parameters and first moment)" if not differ else
+             f"{len(differ)} leaves differ: {differ[:12]}"))
+    print(f"rwkv train warm steps {[round(w, 4) for w in warm]} s, median {step_s:.4f} s, "
+          f"{tokens / step_s:.1f} tokens/s, train_mfu {mfu:.4f} (6 N tokens / (step time x 989 "
+          f"TFLOP/s), N = param_count() {cfg.param_count()}; the model holds {n_params}; remat "
+          f"executes ~8 N)")
+    _check(all(c.counts == per_step and c.scan == 0 and c.plain == want_calls["plain"]
+               for c in calls),
+           f"rwkv train launches {[(c.counts, c.scan, c.plain) for c in calls]}, want "
+           f"{want_calls}")
+    _check(all(map(math.isfinite, losses)), f"rwkv train losses {losses}")
+    _check(not bad, "rwkv train step 1, kernels vs plain versions: " + "; ".join(bad[:10]))
+    _check(not differ, f"rwkv train step 1 twice on the kernels: {differ[:12]} differ")
+
+    # The gradients of blocks.0.* and the head at the trained weights.
+    sel = [n for n in params if n.startswith("blocks.0.")] + ["lm_head.kernel"]
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in ds.batch_at(tr["steps"] + 1).items()}
+    loss, _ = loss_fn(model, batch)
+    grads = dict(zip(sel, torch.autograd.grad(loss, [params[n] for n in sel])))
+    del loss
+    wall = time.perf_counter() - t_phase
+    print(f"rwkv train: phase {wall:.1f} s")
+    return {"counts": {k: sum(c.counts[k] for c in calls) for k in per_step},
+            "per_step": per_step, "plain_per_step": want_calls["plain"], "walls": walls,
+            "step_s": step_s, "tokens_per_s": tokens / step_s, "train_mfu": mfu,
+            "peak_gib": peak, "plain_step_s": plain_s, "same_bits": not differ,
+            "phase_s": wall, "grads": grads}
+
+
+def phase_rwkv_compression(dev, grads: dict) -> dict:
+    """22d: ``compress_int8`` / ``decompress_int8`` (COMPRESS) on the card
+    on ``grads`` (bf16, ``blocks.0.*`` and the head), the first
+    ``host_rounds`` held bit for bit (int8 values, scales and the error
+    state) to the same functions on host copies on the CPU, and the summed
+    residual of every leaf after all rounds below one quantization step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.optim import compress_int8, decompress_int8, init_compression
+
+    c = COMPRESS
+    t_phase = time.perf_counter()
+    factors = [1.0] + [float(np.float32(f)) for f in
+                       1.0 + 0.5 * np.random.default_rng(c["seed"]).standard_normal(c["rounds"] - 1)]
+    n_el = sum(g.numel() for g in grads.values())
+
+    def round_input(g: dict, i: int) -> dict:
+        return g if i == 0 else {n: x.float() * factors[i] for n, x in g.items()}
+
+    state = init_compression(grads)
+    sum_true = {n: torch.zeros(g.shape, dtype=torch.float64, device=dev) for n, g in grads.items()}
+    sum_sent = {n: torch.zeros_like(s) for n, s in sum_true.items()}
+    card, ms = [], []
+    for i in range(c["rounds"]):
+        g = round_input(grads, i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q, state = compress_int8(g, state)
+        sent = decompress_int8(q)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        for n in grads:
+            sum_true[n] += g[n].double()
+            sum_sent[n] += sent[n].double()
+        if i < c["host_rounds"]:
+            card.append(({n: v.cpu() for n, v in q.values.items()},
+                         {n: s.cpu() for n, s in q.scales.items()},
+                         {n: e.cpu() for n, e in state.error.items()}))
+        del g, sent
+    resid = {n: float((sum_sent[n] - sum_true[n]).abs().max()) for n in grads}
+    steps = {n: float(s) for n, s in q.scales.items()}
+    over = sorted(n for n in grads if not resid[n] < steps[n])
+    del sum_true, sum_sent, state, q
+    t0 = time.perf_counter()
+    host = {n: g.cpu() for n, g in grads.items()}
+    hstate = init_compression(host)
+    differ = []
+    for i in range(c["host_rounds"]):
+        hq, hstate = compress_int8(round_input(host, i), hstate)
+        values, scales, error = card[i]
+        for n in host:
+            for what, a, b in (("values", values[n], hq.values[n]),
+                               ("scale", scales[n], hq.scales[n]),
+                               ("error", error[n], hstate.error[n])):
+                if not torch.equal(a, b):
+                    differ.append(f"round {i} {n} {what}")
+    host_s = time.perf_counter() - t0
+    del host, hstate, card
+    wall = time.perf_counter() - t_phase
+    worst = max(resid, key=lambda n: resid[n] / steps[n])
+    print(f"rwkv compression: {len(grads)} leaves, {n_el} elements (blocks.0.* and the head), "
+          f"{c['rounds']} rounds of compress_int8 + decompress_int8 on the card "
+          f"{[round(x, 3) for x in ms]} ms; rounds 1-{c['host_rounds']} against the CPU: "
+          + ("the same bits (int8 values, scales, error state)" if not differ else
+             f"{len(differ)} differ: {differ[:8]}")
+          + f" ({host_s:.1f} s on the host); summed residual / last scale up to "
+          f"{resid[worst] / steps[worst]:.4f} ({worst}: {resid[worst]:.3e} / {steps[worst]:.3e}); "
+          f"phase {wall:.1f} s")
+    _check(not differ, f"compression on the card vs the CPU: {differ[:8]}")
+    _check(not over, f"compression summed residual past one quantization step: {over[:8]}")
+    return {"round_ms": ms, "elements": n_el, "same_bits": not differ,
+            "resid_over_step": resid[worst] / steps[worst], "phase_s": wall}
+
+
+def phase_rwkv_train_reference(dev) -> dict:
+    """22c: RWKV_TRAIN_REF's two steps of the rwkv6 smoke config (float32,
+    2 layers, 4 x 128 tokens: the plain chunked form, rmsnorm on the
+    kernel, ``rwkv_train_launches`` a step) against JAX_RWKV_TRAIN under
+    RWKV_REF_TOL."""
+    cfg = rwkv_ref_config()
+    r = RWKV_TRAIN_REF
+    with _RwkvTrainCalls() as calls:
+        got = port_rwkv_train_reference(cfg, dev)
+    want_calls = rwkv_train_launches(cfg, r["seq_len"])
+    per = {k: v * r["steps"] for k, v in want_calls["kernels"].items()}
+    plain = {k: v * r["steps"] for k, v in want_calls["plain"].items()}
+    bad = compare_train(got, JAX_RWKV_TRAIN, TRAIN["lr"], RWKV_REF_TOL, RWKV_TRAIN_LEAVES)
+    print(f"rwkv train vs JAX smoke (float32, {cfg.n_layers} layers, {r['steps']} steps of "
+          f"{r['batch']} x {r['seq_len']}): losses {got['loss']} vs {JAX_RWKV_TRAIN['loss']}; "
+          f"largest differences " + json.dumps(train_max_diff(
+              got, JAX_RWKV_TRAIN, TRAIN["lr"], RWKV_REF_TOL, RWKV_TRAIN_LEAVES))
+          + f" (the port on the CPU: {json.dumps(RWKV_REF_MEASURED)}); launches {calls.counts}, "
+          f"rwkv6_scan {calls.scan}, plain scan calls {calls.plain}")
+    _check(calls.counts == per and calls.scan == 0 and calls.plain == plain,
+           f"rwkv train reference launches {calls.counts}, {calls.scan}, {calls.plain}")
+    _check(not bad, "rwkv training differs from the JAX package: " + "; ".join(bad[:10]))
+    return {"counts": calls.counts}
+
+
+def phase_rwkv_train_power(dev) -> dict:
+    """22a (``train()``): RWKV_TRAIN's model through ``train()`` with the
+    launcher's PowerSim (``phase_train_power``), no ``rwkv6_scan`` launch
+    and the plain chunked form twice a block a step."""
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    cfg = rwkv_train_config()
+    want = rwkv_train_launches(cfg, RWKV_TRAIN["seq_len"])
+    with _PlainCalls("rwkv6_chunked") as plain:
+        rw.rwkv6_scan.launches = 0
+        out = phase_train_power(dev, cfg, RWKV_TRAIN, want["kernels"])
+        scans = rw.rwkv6_scan.launches
+    n = RWKV_TRAIN["power_steps"]
+    _check(scans == 0 and plain.n == want["plain"]["rwkv6_chunked"] * n,
+           f"rwkv train() rwkv6_scan {scans}, plain chunked calls {plain.n}")
+    return dict(out, plain_chunked=plain.n)
+
+
 # The kernel-level entry (phase 11): benchmarks/kernel_benches.py's shapes
 # (60 s x 128 racks at 1 kHz, the prototype-rack filter sized for beta =
 # 0.0625, zero corrective; 12 % of racks degraded with a 4 s wind-down ramp
@@ -10138,8 +10712,9 @@ def main() -> int:
                          "step, rwkv6-7b prefill and generation, a degraded campus run, "
                          "phase 14's runs, the moe prefills and generations, a "
                          "deepseek-v2 training step, the zamba2 prefill and generation, "
-                         "a zamba2 training step, the whisper prefill and generation and a "
-                         "whisper training step; write the tables and traces here")
+                         "a zamba2 training step, the whisper prefill and generation, a "
+                         "whisper training step and an rwkv6-7b training step; write the "
+                         "tables and traces here")
     opts = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -10341,6 +10916,23 @@ def main() -> int:
     whisper_train_ref = phase_whisper_train_reference(dev)
     print(f"phase 21d (audio vs JAX): {time.perf_counter() - t21d:.1f} s")
     print(f"phase 21 (audio): {time.perf_counter() - t21:.1f} s")
+    t22 = time.perf_counter()
+    rwkv_model = _rwkv_train_model(dev)
+    rwkv_train = phase_rwkv_train(dev, rwkv_model, opts.profile)
+    del rwkv_model
+    rwkv_grads = rwkv_train.pop("grads")
+    torch.cuda.empty_cache()
+    print(f"phase 22a-b (ssm training): {time.perf_counter() - t22:.1f} s")
+    rwkv_compress = phase_rwkv_compression(dev, rwkv_grads)
+    del rwkv_grads
+    torch.cuda.empty_cache()
+    t22c = time.perf_counter()
+    rwkv_train_ref = phase_rwkv_train_reference(dev)
+    print(f"phase 22c (ssm training vs JAX): {time.perf_counter() - t22c:.1f} s")
+    rwkv_train_power = phase_rwkv_train_power(dev)
+    torch.cuda.empty_cache()
+    phase22_s = time.perf_counter() - t22
+    print(f"phase 22 (ssm training): {phase22_s:.1f} s")
     fa, rn = kernels["flash_attention_fwd"], kernels["rmsnorm"]
     fa.update({k: v for k, v in moe_kernels.items() if k.startswith("mla_")},
               mla_max_abs_err=moe_kernels["err"])
@@ -10384,6 +10976,16 @@ def main() -> int:
                              launches_whisper_train_powersim=whisper_train_power["counts"][name])
     for name, n in zip(("pdu_health", "admm_step"), whisper_train_power["power_counts"]):
         kernels[name]["launches_whisper_train_powersim"] = n
+    n = rwkv_train["counts"]["rmsnorm"]
+    rn.update(launches=rn["launches"] + n, launches_rwkv_train=n,
+              launches_per_rwkv_train_step=rwkv_train["per_step"]["rmsnorm"],
+              launches_rwkv_train_reference=rwkv_train_ref["counts"]["rmsnorm"],
+              launches_rwkv_train_powersim=rwkv_train_power["counts"]["rmsnorm"])
+    kernels["rwkv6_scan"].update(launches_rwkv_train=0, launches_per_rwkv_train_step=0,
+                                 plain_chunked_per_rwkv_train_step=rwkv_train["plain_per_step"]
+                                 ["rwkv6_chunked"])
+    for name, n in zip(("pdu_health", "admm_step"), rwkv_train_power["power_counts"]):
+        kernels[name]["launches_rwkv_train_powersim"] = n
     print(json.dumps({"serve": {k: serve[k] for k in ("prefill_s", "generate_s", "tokens_per_s")},
                       "train": {k: trained[k] for k in ("step_s", "tokens_per_s", "train_mfu",
                                                          "peak_gb")},
@@ -10461,7 +11063,14 @@ def main() -> int:
                           "walls", "step_s", "tokens_per_s", "train_mfu", "peak_gib",
                           "plain_step_s", "same_bits", "cross_attention_share", "phase_s")},
                       "whisper_cross_attention_ms": whisper_cross,
-                      "whisper_train_powersim_s": whisper_train_power["wall_s"]}))
+                      "whisper_train_powersim_s": whisper_train_power["wall_s"],
+                      "rwkv_train": {k: rwkv_train[k] for k in (
+                          "walls", "step_s", "tokens_per_s", "train_mfu", "peak_gib",
+                          "plain_step_s", "same_bits", "phase_s")},
+                      "rwkv_train_powersim_s": rwkv_train_power["wall_s"],
+                      "rwkv_compression": {k: rwkv_compress[k] for k in (
+                          "round_ms", "elements", "same_bits", "resid_over_step", "phase_s")},
+                      "phase22_s": phase22_s}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -16,17 +16,18 @@ a forward from the backward pass (activation checkpointing) reads
 versions under autograd, the kernels through ``torch.autograd.Function``s
 whose backward runs on the card too (the flash-attention backward
 kernels; the plain rmsnorm gradient, as the reference has no rmsnorm
-backward kernel).  ``rwkv6_scan`` is differentiable only through its
-plain versions: the reference's kernel route has no gradient either.
+backward kernel).  ``rwkv6_scan`` is differentiable through its plain
+versions, which a recording autograd graph takes on every device (the
+reference's training route: its kernel has no gradient either).
 
 The kernel-level entry of the hardware path and the burn baseline:
 ``lc_filter`` (the LC filter over a trace), ``pdu_sim`` (the fused ESS +
 SoC + LC path over a trace, unweighted or with an ``(R,)`` or ``(T, R)``
 ESS availability weight) and ``gemm_burn`` (the burn GEMM with a FLOP
 knob).  None of the three is differentiable on the kernel route (the
-reference's kernels have no ``custom_vjp`` either): on the card they raise
-under a recording autograd graph, as ``rwkv6_scan`` does; their plain
-versions are ordinary PyTorch code.
+reference's kernels have no ``custom_vjp`` either, and no training path
+reaches them): on the card they raise under a recording autograd graph;
+their plain versions are ordinary PyTorch code.
 """
 from __future__ import annotations
 
@@ -66,6 +67,12 @@ def _check_algorithm(algorithm: str) -> None:
 def current_mode() -> str | None:
     """The ``force`` that ``forced`` set for this context (None if unset)."""
     return _FORCED.get()
+
+
+def current_algorithm() -> str:
+    """The ``rwkv6_scan`` algorithm that ``forced`` set for this context
+    (``"auto"`` if unset)."""
+    return _ALGORITHM.get()
 
 
 def _records_graph(*ts) -> bool:
@@ -163,20 +170,33 @@ def attention(q, k, v, *, causal=True, scale=None, force=None):
 def rwkv6_scan(r, k, v, w, u, state0=None, *, force=None, algorithm="auto"):
     """The RWKV-6 recurrence, ``r, k, v, w (B, H, T, D)``, ``u (H, D)``,
     ``state0 (B, H, D, D)`` float32 or None; returns ``(o, S_T)`` (see
-    ``ref.rwkv6_scan``).  On the card it launches the kernel, which is the
-    sequential recurrence whatever ``algorithm`` says, and raises under a
-    recording autograd graph: the kernel has no backward, as the
-    reference's has none.  The
-    plain versions follow the reference's host rule: the chunk-parallel
-    ``rwkv6_chunked(chunk=32)`` when ``algorithm == "auto"`` and ``T`` is a
-    multiple of 32 above 32, else the sequential ``rwkv6_scan``
-    (``algorithm="sequential"``, given here or by ``forced``, forces it)."""
+    ``ref.rwkv6_scan``).  Outside a recording autograd graph on the card it
+    launches the kernel, which is the sequential recurrence whatever
+    ``algorithm`` says.  Everywhere else (a CPU tensor, ``force="ref"``, or
+    a recording graph on any device) it takes the plain versions by the
+    reference's host rule: the chunk-parallel ``rwkv6_chunked(chunk=32)``
+    when ``algorithm == "auto"`` and ``T`` is a multiple of 32 above 32,
+    else the sequential ``rwkv6_scan`` (``algorithm="sequential"``, given
+    here or by ``forced``, forces it).
+
+    The graph rule is the reference's training route, not a fallback: the
+    reference's kernel has no gradient (no ``custom_vjp``), so every step
+    the JAX package trains runs these jnp forms, and the port's training
+    step runs their PyTorch counterparts on the card.  The rule reads only
+    whether a graph is recorded, so a block's forward and its activation
+    checkpoint's recompute take the same route.  ``force="cuda"`` (given
+    here or by ``forced``) demands the kernel and raises under a recording
+    graph."""
     _check_algorithm(algorithm)
+    graph = _records_graph(r, k, v, w, u, *(() if state0 is None else (state0,)))
+    if force is None:
+        force = _FORCED.get()
+    if force is None and graph:
+        force = "ref"
     if _use_kernel(r, force):
-        if _records_graph(r, k, v, w, u, *(() if state0 is None else (state0,))):
-            raise NotImplementedError(
-                "rwkv6_scan has no backward kernel (nor has the reference's kernel route); "
-                "ssm training is an open question in ROADMAP.md")
+        if graph:
+            raise NotImplementedError("rwkv6_scan has no backward kernel (nor has the "
+                                      "reference's kernel route); leave force unset to train")
         return _rw.rwkv6_scan(r, k, v, w, u, state0)
     if algorithm == "auto":
         algorithm = _ALGORITHM.get()

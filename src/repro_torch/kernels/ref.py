@@ -25,6 +25,7 @@ import math
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 F32 = torch.float32
 
@@ -595,6 +596,8 @@ def rwkv6_scan(
     w: torch.Tensor,  # (B, H, T, D) per-channel decay in (0, 1)
     u: torch.Tensor,  # (H, D) bonus of the current token
     state0: torch.Tensor | None = None,  # (B, H, D, D) float32
+    *,
+    chunk: int = 128,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The RWKV-6 (Finch) time-mix recurrence, step by step (see
     ``repro.kernels.ref.rwkv6_scan``):
@@ -602,21 +605,39 @@ def rwkv6_scan(
         o_t = r_t (S_{t-1} + diag(u) k_t^T v_t),  S_t = diag(w_t) S_{t-1} + k_t^T v_t
 
     Inputs are widened to float32 and the state stays float32; returns
-    ``(o (B, H, T, D) in r's type, S_T (B, H, D, D) float32)``.  The
-    reference's chunked remat stores fewer states for autodiff and changes
-    no number, so it is not carried over."""
+    ``(o (B, H, T, D) in r's type, S_T (B, H, D, D) float32)``.  Under a
+    recording autograd graph with ``T`` a multiple of ``chunk`` above it,
+    each ``chunk`` steps run as one activation checkpoint, as the
+    reference's chunked remat: the backward keeps one (B, H, D, D) state a
+    chunk instead of one a step (4 MiB a step at 4 x 64 heads of 64) and
+    recomputes the steps inside.  The numbers are the same either way."""
     b, h, t, d = r.shape
     s = (torch.zeros((b, h, d, d), dtype=F32, device=r.device) if state0 is None
          else state0.to(F32))
     rf, kf, vf, wf = (a.to(F32) for a in (r, k, v, w))
     uf = u.to(F32)[None, :, :, None]
+
+    def steps(s, rs, ks, vs, ws):
+        outs = []
+        for i in range(rs.shape[2]):
+            kv = ks[:, :, i, :, None] * vs[:, :, i, None, :]  # (B, H, D, D)
+            outs.append(torch.einsum("bhd,bhde->bhe", rs[:, :, i], s + uf * kv))
+            s = ws[:, :, i, :, None] * s + kv
+        return torch.stack(outs, dim=2), s
+
+    if t == 0:
+        return rf.new_zeros((b, h, 0, d)).to(r.dtype), s
+    graph = torch.is_grad_enabled() and any(
+        a.requires_grad for a in (r, k, v, w, u, s))
+    if not (graph and t % chunk == 0 and t > chunk):
+        out, s = steps(s, rf, kf, vf, wf)
+        return out.to(r.dtype), s
     outs = []
-    for i in range(t):
-        kv = kf[:, :, i, :, None] * vf[:, :, i, None, :]  # (B, H, D, D)
-        outs.append(torch.einsum("bhd,bhde->bhe", rf[:, :, i], s + uf * kv))
-        s = wf[:, :, i, :, None] * s + kv
-    out = torch.stack(outs, dim=2) if outs else rf.new_zeros((b, h, 0, d))
-    return out.to(r.dtype), s
+    for c in range(0, t, chunk):
+        part = tuple(a[:, :, c:c + chunk] for a in (rf, kf, vf, wf))
+        o, s = torch.utils.checkpoint.checkpoint(steps, s, *part, use_reentrant=False)
+        outs.append(o)
+    return torch.cat(outs, dim=2).to(r.dtype), s
 
 
 def rwkv6_chunked(

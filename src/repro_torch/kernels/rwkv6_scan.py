@@ -15,8 +15,9 @@ either.  See the source's header for both.
 ``rwkv6_scan.sum_launches`` those that also launch the slab sum.
 
 The reference's kernel route has no gradient (no ``custom_vjp``), and
-neither does this one: ``ops.rwkv6_scan`` refuses a recording autograd
-graph on the card.
+neither does this one: under a recording autograd graph ``ops.rwkv6_scan``
+takes the plain forms, the reference's training route, and launches
+nothing.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Training launcher: a smoke-scale config of a ``dense``, ``vlm``, ``moe``,
-``hybrid`` or ``audio`` architecture, on the card by default.
+"""Training launcher: a smoke-scale config of a ``dense``, ``vlm``, ``ssm``,
+``moe``, ``hybrid`` or ``audio`` architecture, on the card by default.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b --steps 50
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b --steps 3 \\
@@ -7,6 +7,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v3-671b --steps 2 \\
         --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b --steps 2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b --steps 2 --device cpu \\
+        --power-sim
     PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-large-v3 --steps 2 \\
         --device cpu
 

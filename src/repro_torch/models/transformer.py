@@ -26,10 +26,13 @@ cross entropy to the total, and with ``remat="block"`` each dense and MoE
 block is a checkpoint whose ``MoEAux`` comes out beside its output (the
 MTP block is not checkpointed).  ``recomputing()`` tells code that runs
 inside a block (a hook, a patched function) the backward's recompute from
-the forward.  The ``ssm`` family (RWKV-6) serves but does not train: the
-reference's kernel route for its recurrence has no gradient, so
-``lm_loss`` (and ``train.build_train_step``) raise for it
-(``check_training``).  The ``hybrid`` family serves and trains as the
+the forward.  The ``ssm`` family (RWKV-6) serves and trains as the
+reference does: its loss is the plain cross entropy, with
+``remat="block"`` each block is one checkpoint (the reference's
+``_maybe_remat(rwkv_body)``), and under a recording graph the recurrence
+runs the plain forms that the reference trains through
+(``ops.rwkv6_scan``), since neither package's kernel has a backward.  The
+``hybrid`` family serves and trains as the
 reference does: with ``remat="block"`` each group (its Mamba blocks and
 the shared block's visit) is one checkpoint, the reference's
 ``_maybe_remat(group_body)``; its loss is the plain cross entropy.  The
@@ -73,14 +76,9 @@ def check_serving(cfg) -> None:
 
 
 def check_training(cfg) -> None:
-    """Raise for the families the port cannot train: those it cannot serve,
-    and ``ssm``, whose recurrence has no backward kernel (nor has the
-    reference's kernel route; ROADMAP.md, open question)."""
+    """Raise for the families the port cannot train: those it cannot serve.
+    Every family the port serves trains, as in the reference."""
     check_serving(cfg)
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            "ssm training is not ported: rwkv6_scan has no backward kernel, as the reference's "
-            "kernel route has none (ROADMAP.md, open question)")
 
 
 class ForwardOut(NamedTuple):
@@ -165,21 +163,23 @@ def recomputing() -> bool:
     return _RECOMPUTING.get()
 
 
-def _checkpointed(fn, mode: str | None):
-    """``fn`` (a block's or a group's body) run under the ``ops`` mode
-    ``mode``.  The recompute of an activation checkpoint
-    runs from the backward pass, on autograd's thread for CUDA tensors,
-    where the caller's ``ops.forced`` context is not set; re-entering the
-    mode read at the first run keeps the recompute on the same kernels or
-    plain versions (else it could save other tensors, or mix the two).
-    Every run after the first is a recompute (``recomputing()``)."""
+def _checkpointed(fn):
+    """``fn`` (a block's or a group's body) run under the ``ops`` mode and
+    ``rwkv6_scan`` algorithm of the caller's context, read now.  The
+    recompute of an activation checkpoint runs from the backward pass, on
+    autograd's thread for CUDA tensors, where the caller's ``ops.forced``
+    context is not set; re-entering the mode and algorithm read at the
+    first run keeps the recompute on the same kernels or plain versions
+    (else it could save other tensors, or mix the two).  Every run after
+    the first is a recompute (``recomputing()``)."""
+    mode, algorithm = ops.current_mode(), ops.current_algorithm()
     runs = []
 
     def run(*args):
         token = _RECOMPUTING.set(bool(runs))
         runs.append(None)
         try:
-            with ops.forced(mode):
+            with ops.forced(mode, algorithm=algorithm):
                 return fn(*args)
         finally:
             _RECOMPUTING.reset(token)
@@ -204,13 +204,11 @@ def _run_stack(cfg, blocks, x, positions, *extra) -> tuple[torch.Tensor, list]:
     checkpoint (the reference's ``_maybe_remat``), its aux carried out
     beside its output."""
     remat = cfg.remat == "block" and torch.is_grad_enabled()
-    mode = ops.current_mode()
     auxes = []
     for blk in blocks:
         if remat:
             x, aux = torch.utils.checkpoint.checkpoint(
-                _checkpointed(_block_out_aux(blk), mode), x, positions, *extra,
-                use_reentrant=False)
+                _checkpointed(_block_out_aux(blk)), x, positions, *extra, use_reentrant=False)
         else:
             x, _, aux = blk(x, positions, *extra)
         auxes.append(aux)
@@ -224,9 +222,8 @@ def forward(p: Transformer, tokens: torch.Tensor, *, embeddings=None) -> Forward
     b, t = tokens.shape[:2]
     x = p.embed.embed(tokens) if embeddings is None else embeddings
     if p.cfg.family == "ssm":
-        for blk in p.blocks:
-            x, _ = blk(x)
-        return ForwardOut(logits=_readout(p, p.ln_f(x)), aux_losses={}, mtp_logits=None)
+        return ForwardOut(logits=_readout(p, p.ln_f(_forward_rwkv(p, x))), aux_losses={},
+                          mtp_logits=None)
     positions = torch.arange(t, device=x.device).expand(b, t)
     if p.cfg.family == "moe":
         return _forward_moe(p, tokens, x, positions)
@@ -235,6 +232,19 @@ def forward(p: Transformer, tokens: torch.Tensor, *, embeddings=None) -> Forward
                           aux_losses={}, mtp_logits=None)
     x, _ = _run_stack(p.cfg, p.blocks, x, positions)
     return ForwardOut(logits=_readout(p, p.ln_f(x)), aux_losses={}, mtp_logits=None)
+
+
+def _forward_rwkv(p: Transformer, x) -> torch.Tensor:
+    """The ``ssm`` stack from the embedding ``x``, each block from a zero
+    state.  With ``remat == "block"`` while a graph is recorded each block
+    is one activation checkpoint (the reference's
+    ``_maybe_remat(rwkv_body)``)."""
+    remat = p.cfg.remat == "block" and torch.is_grad_enabled()
+    for blk in p.blocks:
+        body = lambda h, blk=blk: blk(h)[0]
+        x = (torch.utils.checkpoint.checkpoint(_checkpointed(body), x, use_reentrant=False)
+             if remat else body(x))
+    return x
 
 
 def _group_body(p: Transformer, group):
@@ -254,12 +264,11 @@ def _forward_groups(p: Transformer, x, positions) -> torch.Tensor:
     ``remat == "block"`` while a graph is recorded each group is one
     activation checkpoint (the reference's ``_maybe_remat(group_body)``)."""
     remat = p.cfg.remat == "block" and torch.is_grad_enabled()
-    mode = ops.current_mode()
     emb0 = x
     for group in p.groups:
         body = _group_body(p, group)
         if remat:
-            x = torch.utils.checkpoint.checkpoint(_checkpointed(body, mode), x, emb0, positions,
+            x = torch.utils.checkpoint.checkpoint(_checkpointed(body), x, emb0, positions,
                                                   use_reentrant=False)
         else:
             x = body(x, emb0, positions)
@@ -300,8 +309,8 @@ def lm_loss(p: Transformer, tokens: torch.Tensor, labels: torch.Tensor, *,
     ``expert_load`` and ``dropped_fraction`` reported), with an MTP head
     ``mtp_loss`` (the cross entropy of ``mtp_logits`` against the labels
     rolled one step left, the last column ignored; ``0.3 x`` it is added)
-    and ``total_loss`` (``dense``, ``vlm`` and ``hybrid``: the cross entropy
-    alone).  ``ssm`` raises (``check_training``)."""
+    and ``total_loss`` (``dense``, ``vlm``, ``ssm`` and ``hybrid``: the
+    cross entropy alone)."""
     check_training(p.cfg)
     out = forward(p, tokens, embeddings=embeddings)
     loss, denom = _xent(out.logits, labels)

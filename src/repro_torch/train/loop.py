@@ -2,7 +2,7 @@
 EasyRider's PowerSim, composed (counterpart of ``repro.train.loop``).
 
 ``train()`` initialises a model (any family ``check_training`` lets
-through: ``dense``, ``vlm``, ``moe``, ``hybrid``, ``audio``) from ``tc.seed`` on
+through: ``dense``, ``vlm``, ``ssm``, ``moe``, ``hybrid``, ``audio``) from ``tc.seed`` on
 ``device``, runs ``tc.steps`` steps of ``build_train_step`` on ``SyntheticLMDataset``
 batches (``audio``: with the encoder frames of ``audio_frames``), saves
 checkpoints (scheduled, and SoC-triggered emergency saves through

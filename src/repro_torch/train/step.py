@@ -21,13 +21,16 @@ gets a zero gradient, as ``jax.value_and_grad`` gives it: it counts in
 skew of ``expert_load`` (the layer-averaged load of the last microbatch),
 as the reference's aux-loss-free balancing does.
 
-``check_training`` raises for the ``ssm`` family, whose recurrence has no
-backward kernel; the ``hybrid`` family trains with the plain cross entropy
+The ``ssm`` family (RWKV-6) trains with the plain cross entropy and, under
+``remat="block"``, one checkpoint a block, its recurrence on the plain
+forms the reference trains through (``ops.rwkv6_scan``); the ``hybrid``
+family trains with the plain cross entropy
 and, under ``remat="block"``, one checkpoint a group; the ``audio`` family
 (``encdec.lm_loss``) reads the encoder frames from ``batch["frames"]``,
 with one checkpoint an encoder and a decoder block.
 ``gather_small_weights_once`` is a sharding constraint of the reference's
-FSDP mesh; on one device it is an identity.
+FSDP mesh; on one device it is an identity (its port is ROADMAP.md's item
+9).
 """
 from __future__ import annotations
 

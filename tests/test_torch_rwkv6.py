@@ -169,9 +169,13 @@ def test_cpu_dispatch_rule():
 
 
 def test_kernel_path_wiring(monkeypatch):
-    """With the launch replaced by a plain stand-in: the kernel path gets
-    the operands as given (no fallback, no algorithm choice) and refuses a
-    recording autograd graph; the plain path is differentiable."""
+    """With the launch replaced by a plain stand-in (the card's route on
+    CPU tensors): outside a graph the kernel path gets the operands as
+    given (no fallback, no algorithm choice); under a recording autograd
+    graph the call takes the plain chunked form by the reference's host
+    rule, launching nothing, and its gradient is the plain form's;
+    ``force="cuda"`` under a graph raises, since the kernel has no
+    backward."""
     ts, _ = _scan_inputs(1, 2, 64, 64, torch.float32, seed=4)
     calls = []
 
@@ -179,19 +183,23 @@ def test_kernel_path_wiring(monkeypatch):
         calls.append(r.shape)
         return ref.rwkv6_scan(r, k, v, w, u, state0)
 
-    monkeypatch.setattr(ops, "_use_kernel", lambda t, force: True)
+    monkeypatch.setattr(ops, "_use_kernel",
+                        lambda t, force: force != "ref")
     monkeypatch.setattr(ops._rw, "rwkv6_scan", stand_in)
     o, _ = ops.rwkv6_scan(*ts)
     assert calls == [ts[0].shape] and torch.equal(o, ref.rwkv6_scan(*ts)[0])
     r = ts[0].clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.rwkv6_scan(r, *ts[1:])
+    o, _ = ops.rwkv6_scan(r, *ts[1:])
+    assert calls == [ts[0].shape]
+    (g,) = torch.autograd.grad(o.sum(), r)
+    r2 = ts[0].clone().requires_grad_()
+    (want,) = torch.autograd.grad(ref.rwkv6_chunked(r2, *ts[1:], chunk=32)[0].sum(), r2)
+    assert torch.equal(g, want) and float(g.abs().max()) > 0
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.rwkv6_scan(r, *ts[1:], force="cuda")
     with torch.no_grad():
         ops.rwkv6_scan(r, *ts[1:])
-    monkeypatch.undo()
-    o, _ = ops.rwkv6_scan(r, *ts[1:])
-    (g,) = torch.autograd.grad(o.sum(), r)
-    assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+    assert len(calls) == 2
 
 
 # -------------------------------------------------------------- the model

@@ -446,6 +446,26 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    head, bit for bit against the CPU, the summed residual over 8 rounds
    below one quantization step (``COMPRESS``).  It prints the phase's
    seconds.
+23. The sharded engines (``SHARDED``) over worlds of ranks that share the
+   one card: one process a rank, a ``torch.distributed`` world each
+   (``launch.mesh.init_world``, a ``file://`` store, collectives timed out
+   after 120 s), the kernels built by phase 1 loaded, not rebuilt.  (a)
+   Four gloo ranks on a (4, 1) region mesh (``sharding.region_mesh``):
+   GRID_REGION synchronized and staggered through ``fleet.condition(...,
+   mesh=)``, a cold run and two warm ones, every leaf of every rank's
+   result bit for bit phase 16a's sequential one; each rank's capture
+   records ``pdu_health`` and ``admm_step`` 40 times (its campus's
+   intervals), with no plain ``pdu_health_sim`` call.  (c) On the same
+   world, ``ConditionerService(..., mesh=)``: one window bit for bit the
+   one-rank service's.  (b) Phase 4's 1024-rack campus rack-sharded
+   (``fleet.condition(..., mesh=)``) over two gloo ranks and over a world
+   of one nccl rank, on the host and scanned engines: every per-rack leaf
+   (the state, the wear report) bit for bit phase 4's, the campus means
+   within 1e-6, the online fraction, the QP residual and every verdict
+   equal (over one rank, every leaf bit for bit).  It prints each rank's
+   cold and warm walls and its gather's seconds and bytes, marked as ranks
+   sharing one card (no multi-GPU scaling figure), and the phase's
+   seconds; a rank that fails or hangs fails the run.
 
 With ``--profile DIR`` it also profiles one more campus run, prefill step,
 generation and training step, rwkv6-7b prefill and generation, a host run
@@ -1402,11 +1422,12 @@ def compare_campus(got: dict, want: dict) -> list[str]:
 
 
 def run_campus(n_racks: int, duration_s: float, *, device: str = "cuda", engine: str = "host",
-               safemode: bool = False, **window):
+               safemode: bool = False, mesh=None, **window):
     """The acceptance campus through the port's ``engine`` (``window``:
     further ``StreamOptions``, e.g. ``start_sample``, ``state``), supervised
-    with the default ``SafeModeConfig`` if ``safemode``; returns ``(result,
-    health fleet summary, wall seconds)``."""
+    with the default ``SafeModeConfig`` if ``safemode``, its racks sharded
+    over ``mesh`` if given; returns ``(result, health fleet summary, wall
+    seconds)``."""
     import torch
 
     from repro_torch.core import compliance, fleet, health as hlt, pdu
@@ -1423,7 +1444,7 @@ def run_campus(n_racks: int, duration_s: float, *, device: str = "cuda", engine:
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = fleet.condition(
-        s, cfg, spec, engine=engine, qp_iters=c["qp_iters"], device=device,
+        s, cfg, spec, engine=engine, qp_iters=c["qp_iters"], device=device, mesh=mesh,
         stream=fleet.StreamOptions(chunk_intervals=c["chunk_intervals"], **window),
     )
     hsum = hlt.fleet_summary(res.health)  # reads back to the host
@@ -2013,11 +2034,11 @@ def compare_region(got: dict, want: dict) -> list[str]:
 
 
 def run_region(stagger: bool, n_racks: int, duration_s: float, *, device: str = "cuda",
-               **window):
+               mesh=None, **window):
     """GRID_REGION's region (or its staggered twin) through the port's
     ``fleet.condition`` on the scanned engine (``window``: further
-    ``StreamOptions``); returns ``(region, config, spec, result, its
-    summary, wall seconds)``."""
+    ``StreamOptions``; ``mesh``: the sharded region engine's); returns
+    ``(region, config, spec, result, its summary, wall seconds)``."""
     import torch
 
     from repro_torch.core import compliance, fleet, grid, pdu
@@ -2029,7 +2050,7 @@ def run_region(stagger: bool, n_racks: int, duration_s: float, *, device: str = 
     if device != "cpu":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = fleet.condition(reg, cfg, spec, qp_iters=c["qp_iters"], device=device,
+    res = fleet.condition(reg, cfg, spec, qp_iters=c["qp_iters"], device=device, mesh=mesh,
                           stream=fleet.StreamOptions(chunk_intervals=c["chunk_intervals"],
                                                      **window))
     if device != "cpu":
@@ -10230,7 +10251,7 @@ def phase_grid_region(dev, profile_dir: Path | None = None) -> dict:
               f"host poi_response {resp_s:.4f} s ({t_total} samples)")
         mags[name] = got["mode_mags"][0]
         out[name] = dict(cold_s=cold_s, warm_s=warm_s, walls=walls, fold_s=fold_s,
-                         poi_response_s=resp_s, summary=got)
+                         poi_response_s=resp_s, summary=got, res=res)
     sep = mags["synchronized"] / mags["staggered"]
     print(f"grid region: inter-area separation synchronized / staggered {sep:.1f}x (JAX bank "
           f"{JAX_GRID_REGION['synchronized']['mode_mags'][0] / JAX_GRID_REGION['staggered']['mode_mags'][0]:.1f}x, "
@@ -10701,6 +10722,318 @@ def profile_run(label: str, run, out_dir: Path) -> None:
         print(f"profile:   {us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
 
 
+# Phase 23: the sharded engines over ranks that share the one card (gloo:
+# nccl refuses two ranks on one device), and a world of one nccl rank.
+SHARDED = dict(region_ranks=4, campus_ranks=2, warm_runs=2, join_s=240.0)
+
+
+def _gather_alone(tree, mesh, axis: str) -> dict:
+    """The bytes of ``tree``'s leaves (what one rank sends into a gather of
+    it, from the shapes) and the median seconds of five gathers of it over
+    ``axis`` alone, each after a barrier: the engines' ``gather`` spans
+    also hold the wait for the slowest rank."""
+    import torch.distributed as dist
+
+    from repro_torch import sharding
+    from repro_torch.utils.trees import tree_leaves
+
+    walls = []
+    for _ in range(5):
+        dist.barrier()
+        walls.append(_timed(lambda: sharding.all_gather_tree(tree, mesh, axis)))
+    return dict(bytes=sum(t.numel() * t.element_size() for t in tree_leaves(tree)),
+                alone_s=statistics.median(walls))
+
+
+def _sharded_rank(rank: int, world: int, store: str, backend: str, job: str, out_dir: str):
+    """One rank of a phase-23 world: joins it, runs ``job`` and writes its
+    results (every result leaf on the host, walls, launch counts) to
+    ``out_dir/rank{rank}.pt``.  ``job`` is ``"region"`` (23a and 23c) or
+    ``"campus"`` (23b)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import sharding
+    from repro_torch.core import compliance, fleet, grid, pdu, profiling
+    from repro_torch.launch.mesh import init_world
+    from repro_torch.serve import ConditionerService
+
+    init_world(rank, world, f"file://{store}", device_type="cuda", backend=backend)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    host = lambda res: {k: v.detach().cpu() for k, v in _result_leaves(res).items()}
+    out: dict = {"backend": backend}
+    profiling.enable()
+    if job == "region":
+        c = GRID_REGION
+        mesh = sharding.region_mesh(world, device_type="cuda")
+        for name, stagger in (("synchronized", False), ("staggered", True)):
+            fleet._ENGINE_CACHE.clear()
+            walls, spans = [], []
+            for i in range(1 + SHARDED["warm_runs"]):
+                _reset_region_counts()
+                profiling.enable()
+                with _PlainCalls("pdu_health_sim") as plain:
+                    reg, cfg, spec, res, _, wall = run_region(stagger, c["n_racks"],
+                                                              c["duration_s"], device=dev,
+                                                              mesh=mesh)
+                walls.append(wall)
+                spans.append(profiling.phases())
+                if i == 0:
+                    (engine,) = fleet._ENGINE_CACHE.values()
+                    out[f"{name}/capture"] = dict(engine.launches_at_capture, plain=plain.n,
+                                                  counts=_region_counts())
+                else:
+                    _check(_region_counts() == (0, 0) and plain.n == 0,
+                           f"sharded region {name} rank {rank}: warm run {i} launched "
+                           f"{_region_counts()} from Python, {plain.n} plain calls")
+            p = res.per_campus[sharding.axis_index(mesh, sharding.CAMPUS_AXIS)]
+            out[f"{name}/walls"], out[f"{name}/spans"] = walls, spans
+            out[f"{name}/gather"] = _gather_alone(
+                (p.state, p.campus_rack, p.campus_grid, p.soc_mean, p.max_qp_residual,
+                 p.health_trace, p.ess_online_frac, p.safemode_trace, p.observers),
+                mesh, sharding.CAMPUS_AXIS)
+            out[f"{name}/res"] = host(res)
+        fleet._ENGINE_CACHE.clear()
+        reg = grid_region(grid, False, c["n_racks"], c["duration_s"], device=dev)
+        cfg = pdu.make_pdu(sample_dt=1.0 / c["sample_hz"], device=dev)
+        svc = ConditionerService(cfg, reg, compliance.GridSpec.create(device=dev),
+                                 chunk_intervals=4, qp_iters=c["qp_iters"], mesh=mesh)
+        out["service/wall"] = _timed(lambda: out.__setitem__("service/res", host(svc.advance())))
+    else:
+        c = CAMPUS
+        mesh = sharding.make_mesh((world,), (sharding.RACK_AXIS,), device_type="cuda")
+        for engine in ("host", "scanned"):
+            fleet._ENGINE_CACHE.clear()
+            walls, spans = [], []
+            for i in range(1 + SHARDED["warm_runs"]):
+                _reset_region_counts()
+                profiling.enable()
+                with _PlainCalls("pdu_health_sim") as plain:
+                    res, hsum, wall = run_campus(c["n_racks"], c["duration_s"], device=dev,
+                                                 engine=engine, mesh=mesh)
+                walls.append(wall)
+                spans.append(profiling.phases())
+                if i == 0:
+                    counts = _region_counts()
+                    if engine == "scanned":
+                        (eng,) = fleet._ENGINE_CACHE.values()
+                        counts = (eng.launches_at_capture["pdu_health"],
+                                  eng.launches_at_capture["admm_step"])
+                    out[f"{engine}/launches"] = dict(pdu_health=counts[0], admm_step=counts[1],
+                                                     plain=plain.n)
+            lo, hi = sharding.rack_block(c["n_racks"], mesh)
+            out[f"{engine}/walls"], out[f"{engine}/spans"] = walls, spans
+            out[f"{engine}/gather"] = _gather_alone(
+                (fleet._map_state_racks(res.state, lambda t, ax: t.narrow(ax, lo, hi - lo)),
+                 res.campus_rack, res.campus_grid, res.soc_mean, res.max_qp_residual,
+                 res.health_trace, res.ess_online_frac, res.safemode_trace), mesh, sharding.RACK_AXIS)
+            out[f"{engine}/res"], out[f"{engine}/health"] = host(res), hsum
+    profiling.disable()
+    fleet._ENGINE_CACHE.clear()
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _walls(walls) -> str:
+    return ", ".join(f"{w:.4f}" for w in walls)
+
+
+def _span_line(spans) -> str:
+    """``core.profiling`` spans of each run (``replay``: the scanned
+    engine's graph, its capture in a cold run; ``gather``: the engine's
+    collectives and the wait for the slowest rank)."""
+    names = sorted({k for s in spans for k in s})
+    return "; ".join(f"{k} {_walls([s.get(k, 0.0) for s in spans])}" for k in names)
+
+
+def _gather_line(g: dict) -> str:
+    return f"a gather alone {g['alone_s']:.5f} s for {g['bytes']} bytes a rank"
+
+
+def _run_world(world: int, backend: str, job: str) -> list[dict]:
+    """Every rank's results of one phase-23 world, its ranks started
+    together (``spawn``); a rank that fails, or a world that outlasts
+    ``SHARDED["join_s"]``, fails the run."""
+    import multiprocessing as mp
+    import tempfile
+
+    import torch
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        procs = [ctx.Process(target=_sharded_rank, args=(r, world, f"{tmp}/store", backend, job,
+                                                         tmp)) for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SHARDED["join_s"]
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+        alive = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        _check(not alive and all(code == 0 for code in codes),
+               f"phase 23 {job} world of {world} {backend} ranks: exit codes {codes}, still "
+               f"running after {SHARDED['join_s']} s: {alive}")
+        return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+# A rack-sharded campus's envelope against the unsharded run: the campus
+# means combine the ranks' block means in rank order, within SHARDED_AGG_TOL
+# of the one-rank mean (the reference's LC-chain envelope).
+SHARDED_AGG_TOL = 1e-6
+
+
+def sharded_campus_tolerance(k: str, dt: float, n_samples: int) -> float | None:
+    """The absolute tolerance of the leaf at path ``k`` of a rack-sharded
+    campus result against the unsharded run's (0.0: bit for bit), derived
+    from the means' envelope ``e = SHARDED_AGG_TOL``, or None for a leaf no
+    rule covers.  Per-rack leaves, counts, maxima and verdicts are exact; a
+    campus mean and an observer's last sample are within e; a ramp is a
+    difference of two such samples over dt (2 e / dt); a spectrum line is a
+    window-weighted sum of the trace scaled by 2 over the window's sum of
+    weights, so it moves by at most 2 e; an observer's unscaled line sum, a
+    sum of at most ``n_samples`` weights <= 1, by ``n_samples`` e."""
+    e = SHARDED_AGG_TOL
+    if k.startswith(("state.", "health.", "grid_spec.")) or k.endswith(
+            ("_ok", ".ok", ".n", ".phase")) or k in (
+            "ess_online_frac", "max_qp_residual", "safemode_trace"):
+        return 0.0
+    if k in ("campus_rack", "campus_grid", "soc_mean", "health_trace") or k.endswith(".last"):
+        return e  # health_trace: [mean EFC, max fade, max DoD], the maxima checked exactly
+    if k.endswith(".max_ramp"):
+        return 2 * e / dt
+    if k.endswith(".worst_high_freq_mag"):
+        return 2 * e
+    if k.endswith((".acc_re", ".acc_im")):
+        return n_samples * e
+    return None
+
+
+def _sharded_campus_check(label: str, got: dict, want: dict, one_rank: bool,
+                          dt: float) -> list[str]:
+    """What differs between a rack-sharded campus result and the unsharded
+    one (leaves by path), each leaf held to ``sharded_campus_tolerance``
+    (a leaf no rule covers fails); over one rank, every leaf bit for bit."""
+    import torch
+
+    bad = [f"{label} {k}: not in the unsharded result" for k in got.keys() - want.keys()]
+    n_samples = want["campus_rack"].shape[0]
+    for k, w in want.items():
+        g = got.get(k)
+        tol = 0.0 if one_rank else sharded_campus_tolerance(k, dt, n_samples)
+        if g is None or g.shape != w.shape or g.dtype != w.dtype:
+            bad.append(f"{label} {k}: missing, or shape or dtype")
+        elif tol is None:
+            bad.append(f"{label} {k}: no rule holds this leaf")
+        elif k == "health_trace" and not torch.equal(g[:, 1:], w[:, 1:]):
+            bad.append(f"{label} {k}: the maxima not bit for bit")
+        elif tol == 0.0:
+            if not torch.equal(g, w):
+                bad.append(f"{label} {k}: not bit for bit")
+        else:
+            err = float((g.double() - w.double()).abs().max())
+            if not err <= tol:
+                bad.append(f"{label} {k}: {err:.3e} > {tol:.3e}")
+    return bad
+
+
+def phase_sharded(dev, campus: dict, region: dict) -> dict:
+    """Phase 23: the sharded region engine, the region service and rack
+    sharding over worlds of ranks that share the one card (``SHARDED``);
+    ``campus`` is phase 4's return, ``region`` phase 16a's.  Returns the
+    walls, the gathers and the ranks' capture launches."""
+    import torch
+
+    from repro_torch.core import compliance, fleet, grid, pdu
+    from repro_torch.serve import ConditionerService
+
+    t_phase = time.perf_counter()
+    fleet._ENGINE_CACHE.clear()
+    torch.cuda.empty_cache()
+    c = GRID_REGION
+    n_int = int(c["duration_s"] / 5.0)
+    # (c)'s reference: the one-rank service's first window.
+    reg = grid_region(grid, False, c["n_racks"], c["duration_s"], device=dev)
+    cfg = pdu.make_pdu(sample_dt=1.0 / c["sample_hz"], device=dev)
+    svc = ConditionerService(cfg, reg, compliance.GridSpec.create(device=dev), chunk_intervals=4,
+                             qp_iters=c["qp_iters"])
+    service_ref = {k: v.cpu() for k, v in _result_leaves(svc.advance()).items()}
+    fleet._ENGINE_CACHE.clear()
+    torch.cuda.empty_cache()
+    note = "ranks sharing one card: not a multi-GPU scaling figure"
+    out = {}
+
+    t0 = time.perf_counter()
+    ranks = _run_world(SHARDED["region_ranks"], "gloo", "region")
+    out["region_world_s"] = time.perf_counter() - t0
+    captures = []
+    for name in ("synchronized", "staggered"):
+        want = {k: v.cpu() for k, v in _result_leaves(region[name]["res"]).items()}
+        for r, o in enumerate(ranks):
+            cap = o[f"{name}/capture"]
+            captures.append(cap)
+            bad = [k for k, w in want.items()
+                   if k not in o[f"{name}/res"] or not _bitwise(o[f"{name}/res"][k], w)]
+            print(f"23a sharded region {name}, rank {r} of {len(ranks)} ({o['backend']}; {note}):"
+                  f" walls {_walls(o[f'{name}/walls'])} s (first cold), spans "
+                  f"{_span_line(o[f'{name}/spans'])}; {_gather_line(o[f'{name}/gather'])}; "
+                  f"capture pdu_health="
+                  f"{cap['pdu_health']} admm_step={cap['admm_step']}, plain pdu_health calls "
+                  f"{cap['plain']}; vs phase 16a "
+                  f"{'bit for bit (' + str(len(want)) + ' leaves)' if not bad else bad[:6]}")
+            _check(not bad and cap["pdu_health"] == n_int and cap["admm_step"] == n_int
+                   and cap["plain"] == 0,
+                   f"23a sharded region {name} rank {r}: differs in {bad[:6]}, capture {cap}")
+    bad = [r for r, o in enumerate(ranks)
+           if not all(_bitwise(o["service/res"][k], v) for k, v in service_ref.items())]
+    print(f"23c region service with the mesh: one window on each rank ("
+          f"{', '.join(f'{o['service/wall']:.4f}' for o in ranks)} s, cold; {note}) vs the "
+          f"one-rank service's: {'bit for bit' if not bad else 'differs on ranks ' + str(bad)}")
+    _check(not bad, f"23c region service window differs on ranks {bad}")
+
+    worlds, counts = {}, {"pdu_health": 0, "admm_step": 0}
+    for world, backend in ((SHARDED["campus_ranks"], "gloo"), (1, "nccl")):
+        t0 = time.perf_counter()
+        ranks = _run_world(world, backend, "campus")
+        worlds[f"{world}x{backend}"] = time.perf_counter() - t0
+        for engine, ref in (("host", campus["host_res"]), ("scanned", campus["scanned"]["res"])):
+            want = {k: v.cpu() for k, v in _result_leaves(ref).items()}
+            for r, o in enumerate(ranks):
+                bad = _sharded_campus_check(f"{engine} rank {r}", o[f"{engine}/res"], want,
+                                            world == 1, 1.0 / CAMPUS["sample_hz"])
+                err = {k: float((o[f"{engine}/res"][k].double() - want[k].double()).abs().max())
+                       for k in ("campus_rack", "campus_grid", "soc_mean",
+                                 "report_rack.max_ramp", "report_grid.max_ramp",
+                                 "report_rack.worst_high_freq_mag",
+                                 "report_grid.worst_high_freq_mag")}
+                n = o[f"{engine}/launches"]
+                for k in counts:
+                    counts[k] += n[k]
+                print(f"23b rack-sharded campus, {engine} engine, rank {r} of {world} "
+                      f"({backend}; {note}): walls {_walls(o[f'{engine}/walls'])} s (first "
+                      f"cold), spans {_span_line(o[f'{engine}/spans'])}; "
+                      f"{_gather_line(o[f'{engine}/gather'])}; launches pdu_health="
+                      f"{n['pdu_health']} admm_step={n['admm_step']} (plain {n['plain']}); vs "
+                      f"phase 4: per-rack leaves bit for bit, differences "
+                      f"{', '.join(f'{k} {v:.3e}' for k, v in err.items())} (each within "
+                      f"sharded_campus_tolerance)"
+                      f"{'' if not bad else '; DIFFERS ' + str(bad[:6])}")
+                _check(not bad and n["pdu_health"] == 18 and n["admm_step"] == 18
+                       and n["plain"] == 0,
+                       f"23b {engine} over {world} {backend} ranks, rank {r}: {bad[:6]}, "
+                       f"launches {n}")
+    out.update(worlds_s=worlds, captures=captures, campus_counts=counts,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"phase 23 (sharded engines): {out['phase_s']:.1f} s (region world "
+          f"{out['region_world_s']:.1f} s, campus worlds "
+          f"{', '.join(f'{k} {v:.1f} s' for k, v in worlds.items())})")
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -10933,6 +11266,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase22_s = time.perf_counter() - t22
     print(f"phase 22 (ssm training): {phase22_s:.1f} s")
+    sharded = phase_sharded(dev, campus, region)
+    for name in ("pdu_health", "admm_step"):
+        kernels[name].update(
+            launches_sharded_region_capture=sum(c[name] for c in sharded["captures"]),
+            launches_sharded_campus=sharded["campus_counts"][name])
     fa, rn = kernels["flash_attention_fwd"], kernels["rmsnorm"]
     fa.update({k: v for k, v in moe_kernels.items() if k.startswith("mla_")},
               mla_max_abs_err=moe_kernels["err"])
@@ -11070,7 +11408,9 @@ def main() -> int:
                       "rwkv_train_powersim_s": rwkv_train_power["wall_s"],
                       "rwkv_compression": {k: rwkv_compress[k] for k in (
                           "round_ms", "elements", "same_bits", "resid_over_step", "phase_s")},
-                      "phase22_s": phase22_s}))
+                      "phase22_s": phase22_s,
+                      "sharded": {k: sharded[k] for k in ("region_world_s", "worlds_s",
+                                                          "phase_s")}}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

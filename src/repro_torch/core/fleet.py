@@ -38,13 +38,29 @@ ones ``safemode_summary()``.  The reference's four deprecated entry points
 ``condition_scenario_scanned``, ``condition_scenario_streaming``) are thin
 aliases of the facade.  A ``core.grid.GridRegion`` target runs the region
 engine (``grid.condition_region``: each campus through the scanned engine,
-the POI summed and observed); multi-GPU rack and campus sharding
-(``mesh=``) come with ROADMAP.md queue 1 item 9.
+the POI summed and observed).
+
+``mesh=`` (a ``torch.distributed`` ``DeviceMesh``, ``sharding.make_mesh``)
+shards a campus's racks over the mesh axis ``"data"`` on the scanned
+and host engines: every rank of the world makes the same call, renders
+the whole chunk, conditions its contiguous block of racks
+(``sharding.rack_block``) as a fleet of its own, and at the window's end
+gathers the blocks (``sharding.all_gather_tree``), so every rank returns
+the whole result.  Racks are independent in the controller and in
+``pdu_health``, so every per-rack quantity (the state, the wear report)
+is bit for bit the one-rank run's; the campus means combine the ranks'
+block means in rank order, weighted by rack share (within float32
+rounding of the one-rank means), and counts (the ESS online fraction, the
+safe-mode snapshot) combine exactly.  The compliance observers then fold
+over the combined campus traces on the engine's chunk partition.  A grid
+region with a mesh runs the sharded region engine
+(``grid.condition_region_sharded``); the one-shot engine takes no mesh.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import traceback
 from pathlib import Path
 from typing import Callable, NamedTuple
@@ -54,7 +70,9 @@ import torch
 
 from repro_torch.core import compliance, controller as ctrl, health as hlt, pdu, \
     profiling as _prof, safemode as smode
+from repro_torch.sharding import rules
 from repro_torch.utils.devices import resolve_device
+from repro_torch.utils.trees import tree_leaves as _tree_leaves, tree_map as _tree_map
 
 F32 = torch.float32
 
@@ -261,13 +279,15 @@ def _observers_init(bank: compliance.SpectrumBank, device) -> _Observers:
 
 
 def _observers_update(
-    obs: _Observers, bank: compliance.SpectrumBank, ch: pdu.CampusChunk, dt: float
+    obs: _Observers, bank: compliance.SpectrumBank, rack: torch.Tensor, grid: torch.Tensor,
+    dt: float,
 ) -> _Observers:
+    """Fold one chunk of the campus traces (``rack``, ``grid``)."""
     return _Observers(
-        ramp_rack=compliance.ramp_observer_update(obs.ramp_rack, ch.campus_rack, dt),
-        ramp_grid=compliance.ramp_observer_update(obs.ramp_grid, ch.campus_grid, dt),
-        spec_rack=compliance.spectrum_observer_update(bank, obs.spec_rack, ch.campus_rack),
-        spec_grid=compliance.spectrum_observer_update(bank, obs.spec_grid, ch.campus_grid),
+        ramp_rack=compliance.ramp_observer_update(obs.ramp_rack, rack, dt),
+        ramp_grid=compliance.ramp_observer_update(obs.ramp_grid, grid, dt),
+        spec_rack=compliance.spectrum_observer_update(bank, obs.spec_rack, rack),
+        spec_grid=compliance.spectrum_observer_update(bank, obs.spec_grid, grid),
     )
 
 
@@ -292,10 +312,12 @@ class _CampusAccum:
     """Preallocated campus outputs of a streaming run, written chunk by
     chunk at the *full* chunk geometry (``chunk`` samples, ``n_int``
     intervals), so a ragged tail lands at its place; the worst QP residual
-    is a running max and the observers fold each chunk.  Both streaming
-    engines write through it, so they run the same ops."""
+    is a running max and the observers fold each chunk (unless ``observe``
+    is off: a rack block's run, whose observers fold after the join).
+    Both streaming engines write through it, so they run the same ops."""
 
-    def __init__(self, cfg: pdu.PDUConfig, bank, t_total: int, chunk: int, n_int: int):
+    def __init__(self, cfg: pdu.PDUConfig, bank, t_total: int, chunk: int, n_int: int,
+                 observe: bool = True):
         dev = cfg.device
         n_chunks = -(-t_total // chunk)
         self.dt, self.bank, self.n_int, self.safemode = cfg.sample_dt, bank, n_int, cfg.safemode
@@ -307,7 +329,7 @@ class _CampusAccum:
         self.health_trace = torch.zeros((n_chunks, 3), dtype=F32, device=dev)
         self.ess_frac = torch.ones(n_chunks * n_int, dtype=F32, device=dev)
         self.sm_trace = torch.zeros((n_chunks, 6), dtype=F32, device=dev)
-        self.obs = _observers_init(bank, dev)
+        self.obs = _observers_init(bank, dev) if observe else None
 
     def add(self, c_idx: int, t0: int, ch: pdu.CampusChunk) -> None:
         n, m = ch.campus_rack.shape[0], ch.soc_mean.shape[0]
@@ -320,7 +342,9 @@ class _CampusAccum:
         self.health_trace[c_idx] = ch.health
         if self.safemode:  # (zeros otherwise, as allocated)
             self.sm_trace[c_idx] = ch.safemode
-        self.obs = _observers_update(self.obs, self.bank, ch, self.dt)
+        if self.obs is not None:
+            self.obs = _observers_update(self.obs, self.bank, ch.campus_rack, ch.campus_grid,
+                                         self.dt)
 
     def result(self) -> _Stream:
         return _Stream(
@@ -352,6 +376,85 @@ def _finish_streaming(cfg, grid_spec, state, out: _Stream, bank) -> Conditioning
     )
 
 
+def _fold_chunks(obs, update, chunk: int, *traces):
+    """``obs`` folded by ``update(obs, *pieces)`` over whole traces on the
+    engines' chunk partition (``chunk`` samples, then the ragged tail), as
+    the engines fold their observers chunk by chunk: the observers' float32
+    accumulation depends on the partition."""
+    for t0 in range(0, traces[0].shape[0], chunk):
+        obs = update(obs, *(x[t0:t0 + chunk] for x in traces))
+    return obs
+
+
+def _map_state_racks(state: pdu.PDUState, fn) -> pdu.PDUState:
+    """``state`` with ``fn(leaf, axis)`` applied to every per-rack leaf, in
+    ``_tree_leaves`` order, ``axis`` the leaf's rack axis: the last for the
+    QP iterates ``(2h | 3h, R)``, the first for the rest (``filter_state``
+    is ``(R, 3)``).  The filter, a config constant, stays as it is."""
+    return state._replace(**{
+        f: _tree_map(lambda t, ax=(-1 if f == "qp_warm" else 0): fn(t, ax), getattr(state, f))
+        for f in state._fields if f != "filter_obj"})
+
+
+class _RackShard:
+    """This rank's block ``[lo, hi)`` of a campus's ``n_racks`` racks along
+    the mesh's rack axis (``sharding.rack_block``).  The rank conditions
+    its block as a fleet of its own; ``join`` puts the whole campus back on
+    every rank."""
+
+    def __init__(self, mesh, n_racks: int):
+        self.mesh, self.n_racks = mesh, int(n_racks)
+        self.lo, self.hi = rules.rack_block(self.n_racks, mesh)
+
+    def traces(self, tr: torch.Tensor) -> torch.Tensor:
+        return rules.shard_racks(tr, self.mesh)
+
+    def state(self, st: pdu.PDUState) -> pdu.PDUState:
+        n = self.hi - self.lo
+        return _map_state_racks(st, lambda t, ax: t.narrow(ax, self.lo, n).contiguous())
+
+    def join(self, cfg, st: pdu.PDUState, out: _Stream, bank,
+             chunk: int) -> tuple[pdu.PDUState, _Stream]:
+        """The whole campus from every rank's block run, in one gather: the
+        final states concatenated along each leaf's rack axis in rank order
+        (bit for bit the one-rank state); the campus, SoC and mean-EFC
+        means as the ranks' block means weighted by rack share, summed in
+        rank order; maxima as maxima; the ESS online fraction and the
+        safe-mode snapshot from exact integer counts, finished as the
+        one-rank reductions finish them; the observers folded over the
+        combined traces."""
+        with _prof.span("gather") as sync:
+            parts = rules.all_gather_tree((st._replace(filter_obj=None), out._replace(obs=None)),
+                                          self.mesh, rules.RACK_AXIS)
+            sync(parts[-1][1].campus_grid)
+        states, outs = zip(*parts)
+        blocks = iter(zip(*(_tree_leaves(s) for s in states)))  # a leaf's blocks, rank order
+        whole = _map_state_racks(states[0], lambda t, ax: torch.cat(next(blocks), dim=ax))
+        whole = whole._replace(filter_obj=st.filter_obj)
+        sizes = [s.u_prev.shape[0] for s in states]
+        w = [float(np.float32(n / self.n_racks)) for n in sizes]
+        wsum = lambda xs: functools.reduce(torch.add, [wb * x for wb, x in zip(w, xs)])
+        total = lambda xs: functools.reduce(torch.add, xs)
+        count = lambda fracs: total([torch.round(f * n) for f, n in zip(fracs, sizes)])
+        top = lambda xs: torch.amax(torch.stack(xs), dim=0)
+        dev = outs[0].campus_rack.device
+        on = count([o.ess_frac for o in outs])
+        ess_frac = (torch.arange(self.n_racks, device=dev) < on[:, None]).to(F32).mean(dim=1)
+        sm = [o.sm_trace for o in outs]
+        inv_n = float(np.float32(1.0 / self.n_racks))  # as smode.chunk_snapshot
+        sm_trace = torch.cat([count([s[:, :1] for s in sm]) * inv_n,
+                              total([s[:, 1:5] for s in sm]), top([s[:, 5:] for s in sm])], 1)
+        health = torch.cat([wsum([o.health_trace[:, :1] for o in outs]),
+                            top([o.health_trace[:, 1:] for o in outs])], 1)
+        rack, grid = wsum([o.campus_rack for o in outs]), wsum([o.campus_grid for o in outs])
+        return whole, _Stream(
+            campus_rack=rack, campus_grid=grid, soc_mean=wsum([o.soc_mean for o in outs]),
+            worst=top([o.worst for o in outs]), health_trace=health, ess_frac=ess_frac,
+            sm_trace=sm_trace, obs=_fold_chunks(
+                _observers_init(bank, dev), lambda o, r, g: _observers_update(
+                    o, bank, r, g, cfg.sample_dt), chunk, rack, grid))
+
+
 def _condition_fleet_streaming_impl(
     cfg: pdu.PDUConfig,
     traces: torch.Tensor | Callable[[int, int], torch.Tensor],
@@ -367,6 +470,7 @@ def _condition_fleet_streaming_impl(
     faults=None,
     fault_edge: int = 1,
     plan=None,
+    mesh=None,
 ) -> ConditioningResult:
     """The host engine: campus conditioning in chunks of whole controller
     intervals with the PDU state (and the warm-started QP iterates) carried
@@ -382,7 +486,13 @@ def _condition_fleet_streaming_impl(
     ``(n_ctrl_total, R)`` rows (sliced per chunk) or one ``(R,)`` mask;
     ``ess_weight`` the per-sample ``(T, R)`` hardware weight (sliced by
     sample).  ``faults`` (exclusive with both) is the stream's
-    ``FaultSchedule``, handed to every chunk with its absolute start."""
+    ``FaultSchedule``, handed to every chunk with its absolute start.
+
+    ``mesh`` shards the racks over its ``"data"`` axis (module docstring):
+    each rank takes its block of every chunk, of ``state`` (the whole
+    campus's), of the masks and of the schedule's tables, and the blocks
+    join at the end.  ``ess_online`` must then be a 0/1 mask: its online
+    fraction combines as exact counts."""
     if ess_online is not None or ess_weight is not None:
         if not cfg.degraded_mode:
             raise ValueError(
@@ -406,11 +516,26 @@ def _condition_fleet_streaming_impl(
         provider, t_total = traces, int(total_samples)
     else:
         provider, t_total = (lambda t0, n: traces[t0 : t0 + n]), traces.shape[0]
-    if state is None:
+    shard = None
+    if mesh is not None:
+        r0 = provider(0, 1)[0]
+        if state is None:  # the whole campus's: NaN racks seed from the fleet mean
+            state = pdu.init_state(cfg, r0 if r0.ndim else r0[None], soc0=soc0)
+        shard = _RackShard(mesh, state.u_prev.shape[0])
+        if ess_online is not None and not bool(torch.all((ess_online == 0) | (ess_online == 1))):
+            raise ValueError("rack sharding combines the ESS online fraction as exact counts: "
+                             "ess_online must be a 0/1 mask")
+        from repro_torch.power import faults as FLT
+
+        state = shard.state(state)
+        faults = None if faults is None else FLT.select_racks(faults, shard.lo, shard.hi)
+        take = lambda x: None if x is None else x[..., shard.lo:shard.hi]
+        ess_online, ess_weight = take(ess_online), take(ess_weight)
+    elif state is None:
         state = pdu.init_state(cfg, provider(0, 1)[0], soc0=soc0)
 
     bank = _make_bank(grid_spec, cfg, t_total)
-    acc = _CampusAccum(cfg, bank, t_total, chunk, n_int)
+    acc = _CampusAccum(cfg, bank, t_total, chunk, n_int, observe=shard is None)
     for c_idx, t0 in enumerate(range(0, t_total, chunk)):
         # The trailing partial chunk runs at its natural length;
         # pdu.condition ZOH-pads its trailing partial interval internally.
@@ -419,6 +544,8 @@ def _condition_fleet_streaming_impl(
             tr = sync(provider(t0, n).to(device=dev, dtype=F32))
         if tr.ndim == 1:  # unbatched trace: a 1-rack fleet
             tr = tr[:, None]
+        if shard is not None:
+            tr = shard.traces(tr)
         deg = {}
         if faults is not None:
             deg = dict(faults=faults, chunk_start=t0, fault_edge=fault_edge)
@@ -428,17 +555,22 @@ def _condition_fleet_streaming_impl(
                 on = on[c_idx * n_int : c_idx * n_int + -(-n // k)]
             deg = dict(ess_online=on,
                        ess_weight=None if ess_weight is None else ess_weight[t0 : t0 + n])
+        if shard is not None:
+            deg["rack_span"] = (shard.lo, shard.n_racks)
         with _prof.span("solve") as sync:
             state, ch = pdu.condition_campus(cfg, state, tr, qp_iters=qp_iters, plan=plan, **deg)
             acc.add(c_idx, t0, ch)
             sync(acc.worst)
+    out = acc.result()
+    if shard is not None:
+        state, out = shard.join(cfg, state, out, bank, chunk)
     with _prof.span("host-sync") as sync:
-        res = _finish_streaming(cfg, grid_spec, state, acc.result(), bank)
+        res = _finish_streaming(cfg, grid_spec, state, out, bank)
         sync((res.campus_grid, res.report_grid))
     return res
 
 
-def _condition_chunk(cfg, scen, st, t0, n, *, k, qp_iters, plan=None, consts=None):
+def _condition_chunk(cfg, scen, st, t0, n, *, k, qp_iters, plan=None, consts=None, racks=None):
     """Render + condition one ``n``-sample chunk at absolute sample ``t0``.
 
     The per-chunk building block of the scanned engine (and so of every
@@ -448,62 +580,54 @@ def _condition_chunk(cfg, scen, st, t0, n, *, k, qp_iters, plan=None, consts=Non
     ``pdu.condition`` with the chunk's absolute start (the fast path):
     every rendered quantity is pure in the absolute sample index, so the
     result is chunk- and resume-invariant.  ``plan`` and ``consts``
-    (``pdu.host_consts``) pass through to ``pdu.condition``.
+    (``pdu.host_consts``) pass through to ``pdu.condition``.  ``racks =
+    (lo, hi)`` conditions that block of the rendered chunk, with the
+    schedule's rows of those racks and the wear sums' campus columns
+    (``rack_span``, ``ref.block_sums``): a rank of a rack-sharded run.
     """
-    from repro_torch.power import scenario as SC
+    from repro_torch.power import faults as FLT, scenario as SC
 
     faulty = cfg.degraded_mode and scen.faults is not None
     tr = SC.render(scen, t0, n)
     if tr.ndim == 1:  # unbatched scenario: lift to a 1-rack fleet
         tr = tr[:, None]
+    sched = scen.faults if faulty else None
+    span = None
+    if racks is not None:
+        span = (racks[0], tr.shape[1])
+        tr = tr[:, racks[0]:racks[1]].contiguous()
+        sched = None if sched is None else FLT.select_racks(sched, *racks)
     return pdu.condition_campus(
         cfg, st, tr, qp_iters=qp_iters,
-        faults=scen.faults if faulty else None,
+        faults=sched,
         chunk_start=t0,
         fault_edge=scen.edge_width if faulty else 1,
-        plan=plan, consts=consts,
+        plan=plan, consts=consts, rack_span=span,
     )
 
 
-def _scanned_run(cfg, scen, st, plan, consts, *, start, chunk, k, n_full, rem, qp_iters, bank):
+def _scanned_run(cfg, scen, st, plan, consts, *, start, chunk, k, n_full, rem, qp_iters, bank,
+                 racks=None):
     """The scanned engine's window from ``start`` (a 0-d int32 tensor on the
     device): every full chunk, then the ``rem``-sample ragged tail at its
     natural length (``pdu.condition`` ZOH-pads its trailing partial
     interval, as a one-shot call would, so the state, ``soc_mean`` and the
     QP residual never see pad intervals), the observer folds and the
     stacked campus aggregates.  On the card this is what the CUDA graph
-    captures; on the CPU it runs as it is."""
-    acc = _CampusAccum(cfg, bank, n_full * chunk + rem, chunk, chunk // k)
+    captures; on the CPU it runs as it is.  ``racks`` runs a rank's block
+    (``_condition_chunk``), without the observers, which fold after the
+    join."""
+    acc = _CampusAccum(cfg, bank, n_full * chunk + rem, chunk, chunk // k,
+                       observe=racks is None)
     for c_idx in range(n_full + (rem > 0)):
         t0 = c_idx * chunk
         st, ch = _condition_chunk(cfg, scen, st, start + t0, chunk if c_idx < n_full else rem,
-                                  k=k, qp_iters=qp_iters, plan=plan, consts=consts)
+                                  k=k, qp_iters=qp_iters, plan=plan, consts=consts, racks=racks)
         acc.add(c_idx, t0, ch)
     return st, acc.result()
 
 
 # --------------------------------------------------- the scanned engine's cache
-
-
-def _tree_map(fn, x):
-    """``x`` with ``fn`` applied to every tensor leaf of its NamedTuples,
-    tuples, lists and dataclasses."""
-    if isinstance(x, torch.Tensor):
-        return fn(x)
-    if isinstance(x, tuple) and hasattr(x, "_fields"):
-        return type(x)(*(_tree_map(fn, v) for v in x))
-    if isinstance(x, (tuple, list)):
-        return type(x)(_tree_map(fn, v) for v in x)
-    if dataclasses.is_dataclass(x) and not isinstance(x, type):
-        return dataclasses.replace(
-            x, **{f.name: _tree_map(fn, getattr(x, f.name)) for f in dataclasses.fields(x)})
-    return x
-
-
-def _tree_leaves(x) -> list[torch.Tensor]:
-    out = []
-    _tree_map(out.append, x)
-    return out
 
 
 def _tree_spec(x):
@@ -591,7 +715,8 @@ class _ScannedEngine:
     raises, naming the call that broke it; there is no eager fallback.
     """
 
-    def __init__(self, cfg, scenario, state, plan, *, chunk, k, n_full, rem, qp_iters, bank):
+    def __init__(self, cfg, scenario, state, plan, *, chunk, k, n_full, rem, qp_iters, bank,
+                 racks=None):
         self.cfg = cfg
         self.own_plan = plan is None
         if plan is None:
@@ -604,7 +729,7 @@ class _ScannedEngine:
         self.scenario = _tree_map(torch.clone, scenario)
         self.state = _tree_map(torch.clone, state)
         self.geometry = dict(chunk=chunk, k=k, n_full=n_full, rem=rem, qp_iters=qp_iters,
-                             bank=bank)
+                             bank=bank, racks=racks)
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept, to count its nodes
         self.out = None
         self.launches_at_capture = None
@@ -622,8 +747,10 @@ class _ScannedEngine:
             for t0, n in warm:
                 _, ch = _condition_chunk(
                     self.cfg, self.scenario, _tree_map(torch.clone, self.state), self.start + t0,
-                    n, k=g["k"], qp_iters=g["qp_iters"], plan=self.plan, consts=self.consts)
-                _observers_update(_observers_init(g["bank"], dev), g["bank"], ch, self.cfg.sample_dt)
+                    n, k=g["k"], qp_iters=g["qp_iters"], plan=self.plan, consts=self.consts,
+                    racks=g["racks"])
+                _observers_update(_observers_init(g["bank"], dev), g["bank"], ch.campus_rack,
+                                  ch.campus_grid, self.cfg.sample_dt)
         torch.cuda.current_stream(dev).wait_stream(side)
         before = _launch_counts()
         try:
@@ -668,6 +795,7 @@ def _condition_scenario_scanned_impl(
     start_sample: int = 0,
     stop_sample: int | None = None,
     plan=None,
+    mesh=None,
 ) -> ConditioningResult:
     """The scanned engine: render + condition a scenario window as one CUDA
     graph (``_ScannedEngine``), bit for bit the host engine's numbers.
@@ -682,8 +810,20 @@ def _condition_scenario_scanned_impl(
     so the same checkpoint can seed several continuations.  ``plan``
     overrides the controller plan the engine factors once.  On the CPU the
     same ``_scanned_run`` runs eagerly on the caller's scenario and a copy
-    of the state, with no graph and no cache.
+    of the state, with no graph and no cache.  ``mesh`` shards the racks
+    over its ``"data"`` axis (module docstring): each rank's graph conditions its
+    block of every rendered chunk, and the blocks join after the replay.
     """
+    state_f, out, bank = _scanned_window(
+        cfg, scenario, grid_spec, soc0=soc0, qp_iters=qp_iters, chunk_intervals=chunk_intervals,
+        state=state, start_sample=start_sample, stop_sample=stop_sample, plan=plan, mesh=mesh)
+    return _finish_streaming(cfg, grid_spec, state_f, out, bank)
+
+
+def _scanned_window(cfg, scenario, grid_spec, *, soc0, qp_iters, chunk_intervals, state,
+                    start_sample, stop_sample, plan=None, mesh=None):
+    """``_condition_scenario_scanned_impl`` up to its result: the final
+    state, the window's ``_Stream`` and the spectrum bank."""
     from repro_torch.power import scenario as SC
 
     _check_scenario_rate(scenario, cfg)
@@ -696,9 +836,13 @@ def _condition_scenario_scanned_impl(
         if r0.ndim == 0:
             r0 = r0[None]  # unbatched scenario: the engine lifts to 1 rack
         state = pdu.init_state(cfg, r0, soc0=soc0)
+    shard = None if mesh is None else _RackShard(mesh, state.u_prev.shape[0])
+    if shard is not None:
+        state = shard.state(state)
 
     bank = _make_bank(grid_spec, cfg, t_total)
-    geometry = dict(chunk=chunk, k=k, n_full=n_full, rem=rem, qp_iters=qp_iters, bank=bank)
+    geometry = dict(chunk=chunk, k=k, n_full=n_full, rem=rem, qp_iters=qp_iters, bank=bank,
+                    racks=None if shard is None else (shard.lo, shard.hi))
     if cfg.device.type != "cuda":  # the CPU path
         if plan is None and cfg.software_enabled:
             plan = ctrl.make_plan(cfg.controller, cfg.ess_params)
@@ -706,11 +850,15 @@ def _condition_scenario_scanned_impl(
             cfg, scenario, _tree_map(torch.clone, state), plan,
             pdu.host_consts(cfg, state.filter_obj),
             start=torch.full((), start, dtype=torch.int32, device=cfg.device), **geometry)
-        return _finish_streaming(cfg, grid_spec, state_f, out, bank)
-    engine = _cached_engine(_scanned_key(cfg, scenario, state, plan, geometry),
-                            lambda: _ScannedEngine(cfg, scenario, state, plan, **geometry))
-    state_f, out = engine(scenario, state, plan, start)
-    return _finish_streaming(cfg, grid_spec, state_f, out, bank)
+    else:
+        engine = _cached_engine(_scanned_key(cfg, scenario, state, plan, geometry),
+                                lambda: _ScannedEngine(cfg, scenario, state, plan, **geometry))
+        with _prof.span("replay") as sync:
+            state_f, out = engine(scenario, state, plan, start)
+            sync(out.campus_grid)
+    if shard is not None:
+        state_f, out = shard.join(cfg, state_f, out, bank, chunk)
+    return state_f, out, bank
 
 
 def _window_geometry(cfg, total_samples, chunk_intervals, start, stop, what="scenario"):
@@ -828,8 +976,13 @@ def condition(
     a chunk provider ``f(start, length) -> (length, R)`` (with
     ``stream.total_samples``).
     ``engine`` is ``"scanned"`` (default; scenarios and regions), ``"host"`` or
-    ``"oneshot"`` (see the module docstring).  ``stream`` bundles the
-    windowing and resume options (``StreamOptions``).  ``device`` is where
+    ``"oneshot"`` (see the module docstring).  ``mesh`` (a ``DeviceMesh``;
+    every rank of its world makes the same call) shards a campus's racks
+    over its ``"data"`` axis on the scanned and host engines, or runs a grid
+    region's campuses in parallel over its ``"campus"`` axis
+    (``grid.condition_region_sharded``); its device type must be the
+    config's.  ``stream`` bundles the windowing and resume options
+    (``StreamOptions``).  ``device`` is where
     every tensor of the run lives; it defaults to ``"cuda"`` (raising
     without a card) and must be the config's device (``make_pdu(device=
     ...)``).  Remaining keywords pass through to the engine: ``soc0``
@@ -843,10 +996,10 @@ def condition(
     if dev != cfg.device:
         raise ValueError(f"device {dev} does not match the config's device {cfg.device}")
     if mesh is not None:
-        raise NotImplementedError(
-            "multi-GPU rack and campus sharding (mesh=) is not ported yet "
-            "(ROADMAP.md queue 1 item 9)"
-        )
+        rules.check_mesh(mesh, device_type=dev.type)
+        if engine == "oneshot":
+            raise ValueError("the one-shot engine runs in one process; rack sharding (mesh=) "
+                             "runs on the 'scanned' and 'host' engines")
     spec = compliance.GridSpec.create(device=dev) if grid_spec is None else grid_spec
     so = _as_stream_options(stream)
 
@@ -857,7 +1010,7 @@ def condition(
             raise ValueError(f"grid regions run the scanned engine only (got {engine!r})")
         _reject_stream_options(so, "grid-region", "total_samples")
         return _grid.condition_region(
-            cfg, target, spec, chunk_intervals=so.chunk_intervals, states=so.state,
+            cfg, target, spec, mesh=mesh, chunk_intervals=so.chunk_intervals, states=so.state,
             start_sample=so.start_sample, stop_sample=so.stop_sample, **kwargs,
         )
 
@@ -869,7 +1022,7 @@ def condition(
             _reject_stream_options(so, "scanned", "total_samples")
             return _condition_scenario_scanned_impl(
                 cfg, target, spec, chunk_intervals=so.chunk_intervals, state=so.state,
-                start_sample=so.start_sample, stop_sample=so.stop_sample, **kwargs,
+                start_sample=so.start_sample, stop_sample=so.stop_sample, mesh=mesh, **kwargs,
             )
         if engine == "host":
             _reject_stream_options(so, "host", "start_sample", "stop_sample", "total_samples")
@@ -888,7 +1041,7 @@ def condition(
             return _condition_fleet_streaming_impl(
                 cfg, SC.chunk_provider(target), spec,
                 total_samples=target.total_samples,
-                chunk_intervals=so.chunk_intervals, state=so.state, **kwargs,
+                chunk_intervals=so.chunk_intervals, state=so.state, mesh=mesh, **kwargs,
             )
         if engine == "oneshot":
             _reject_stream_options(
@@ -916,7 +1069,7 @@ def condition(
         _reject_stream_options(so, "host", "start_sample", "stop_sample")
         return _condition_fleet_streaming_impl(
             cfg, target, spec, chunk_intervals=so.chunk_intervals, state=so.state,
-            total_samples=so.total_samples, **kwargs,
+            total_samples=so.total_samples, mesh=mesh, **kwargs,
         )
     if engine == "scanned":
         raise ValueError(

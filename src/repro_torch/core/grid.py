@@ -10,9 +10,11 @@ campuses at one point of interconnection (POI):
   each campus through the scanned engine in turn (one CUDA graph per
   campus structure, so campuses of one shape replay one graph), the POI
   summed left to right in float32 with the region's weights, and the POI
-  observers folded over the campus engines' own chunk partition.  The
-  reference's sharded engine (``shard_map`` over a campus mesh) waits for
-  multi-GPU support (ROADMAP.md queue 1 item 9): a ``mesh`` raises.
+  observers folded over the campus engines' own chunk partition.  With a
+  ``mesh`` (``sharding.region_mesh``) it runs the sharded engine
+  (``condition_region_sharded``): the campuses in parallel, one a rank of
+  the mesh's ``"campus"`` axis, gathered over that axis, and the same POI
+  on every rank, bit for bit the sequential engine's.
 * ``poi_response`` — first-order grid coupling: a swing-equation style
   frequency deviation and a proportional voltage deviation at the POI.
   The swing recurrence is a T-step scalar chain, so it runs on the host in
@@ -32,14 +34,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import compliance, fleet, pdu
+from repro_torch.core import compliance, fleet, pdu, profiling as _prof
+from repro_torch.sharding import rules
 from repro_torch.utils.devices import resolve_device
 from repro_torch.utils.structures import Struct
 
 F32 = torch.float32
-
-_MESH_MESSAGE = ("the sharded region engine (mesh=) is not ported yet "
-                 "(ROADMAP.md queue 1 item 9); mesh=None runs the sequential engine")
 
 
 # ------------------------------------------------------------ POI coupling
@@ -353,14 +353,10 @@ def _poi_fold(bank, mbank, chunk: int, n_full: int, rem: int, dt: float, pr, pg)
     campus engines' chunk partition (``n_full`` chunks of ``chunk`` samples,
     then the ``rem``-sample tail), as the reference's ``_poi_fold``: the
     observers' float32 accumulation depends on the partition."""
-    po = _poi_observers_init(bank, mbank, pr.device)
-    for c in range(n_full):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        po = _poi_observers_update(po, bank, mbank, pr[sl], pg[sl], dt)
-    if rem:
-        sl = slice(n_full * chunk, n_full * chunk + rem)
-        po = _poi_observers_update(po, bank, mbank, pr[sl], pg[sl], dt)
-    return po
+    t = n_full * chunk + rem
+    return fleet._fold_chunks(
+        _poi_observers_init(bank, mbank, pr.device),
+        lambda po, r, g: _poi_observers_update(po, bank, mbank, r, g, dt), chunk, pr[:t], pg[:t])
 
 
 # -------------------------------------------------------------- engine
@@ -434,12 +430,75 @@ def condition_region_sequential(
             state=states[c], start_sample=start, stop_sample=stop)
         for c, scen in enumerate(reg.campuses)
     ]
+    return _region_result(cfg, reg, grid_spec, per, chunk, n_full, rem, t_total)
+
+
+def _region_result(cfg, reg, grid_spec, per, chunk, n_full, rem, t_total):
+    """The region's result from its campuses' results: the POI summed left
+    to right, its observers folded with the campus engines' chunk
+    partition, the reports and ``poi_response``."""
     poi_rack = _weighted_sum(reg.weights, [p.campus_rack for p in per])
     poi_grid = _weighted_sum(reg.weights, [p.campus_grid for p in per])
     bank = fleet._make_bank(grid_spec, cfg, t_total)
     mbank = mode_bank(t_total, cfg.sample_dt, reg.bands)
     po = _poi_fold(bank, mbank, chunk, n_full, rem, cfg.sample_dt, poi_rack, poi_grid)
     return _assemble_region_result(cfg, reg, grid_spec, per, poi_rack, poi_grid, po, bank, mbank)
+
+
+def condition_region_sharded(
+    cfg: pdu.PDUConfig,
+    reg: GridRegion,
+    grid_spec: compliance.GridSpec,
+    mesh,
+    *,
+    soc0: float = 0.5,
+    qp_iters: int = 30,
+    chunk_intervals: int = 16,
+    states=None,
+    start_sample: int = 0,
+    stop_sample: int | None = None,
+) -> fleet.ConditioningResult:
+    """The region's campuses in parallel: every rank of ``mesh``'s world
+    makes the call; the rank at coordinate ``c`` of the ``"campus"`` axis
+    runs campus ``c`` through the scanned engine (ranks along the other
+    axes repeat it: a campus's racks stay whole), the campus results are
+    gathered over the campus axis, and every rank forms the POI, folds its
+    observers and runs ``poi_response`` as ``condition_region_sequential``
+    does, so every rank returns that engine's result bit for bit.  Requires
+    a ``"campus"`` axis of exactly ``n_campuses`` ranks
+    (``sharding.region_mesh``); campuses may differ in structure and rack
+    count.  ``states`` resumes as in the sequential engine, all of them or
+    none."""
+    rules.check_mesh(mesh, device_type=cfg.device.type)
+    C, axis = reg.n_campuses, rules.CAMPUS_AXIS
+    sizes = rules.axis_sizes(mesh)
+    if axis not in sizes:
+        raise ValueError(f"mesh axes {tuple(sizes)} lack the {axis!r} axis; build the region "
+                         "mesh with sharding.region_mesh(n_campuses)")
+    if sizes[axis] != C:
+        raise ValueError(
+            f"mesh has {sizes[axis]} campus shards for {C} campuses; exactly one campus per "
+            "shard keeps the POI sum in the sequential engine's left-to-right order (the "
+            "bitwise-parity contract)")
+    for scen in reg.campuses:  # on every rank, before any collective
+        fleet._check_scenario_rate(scen, cfg)
+        fleet._check_scenario_faults(scen, cfg)
+    k, chunk, start, stop, t_total, n_full, rem = fleet._window_geometry(
+        cfg, reg.total_samples, chunk_intervals, start_sample, stop_sample, what="region")
+    states = (None,) * C if states is None else tuple(states)
+    if len(states) != C:
+        raise ValueError(f"{len(states)} states for {C} campuses")
+    if any(s is None for s in states) and not all(s is None for s in states):
+        raise ValueError("per-campus resume states must be all-None (fresh start) or all present")
+    c = rules.axis_index(mesh, axis)
+    st, out, bank = fleet._scanned_window(
+        cfg, reg.campuses[c], grid_spec, soc0=soc0, qp_iters=qp_iters,
+        chunk_intervals=chunk_intervals, state=states[c], start_sample=start, stop_sample=stop)
+    with _prof.span("gather") as sync:
+        parts = rules.all_gather_tree((st, out), mesh, axis)
+        sync(parts[-1][1].campus_grid)
+    per = [fleet._finish_streaming(cfg, grid_spec, s, o, bank) for s, o in parts]
+    return _region_result(cfg, reg, grid_spec, per, chunk, n_full, rem, t_total)
 
 
 def condition_region(
@@ -450,8 +509,8 @@ def condition_region(
     mesh=None,
     **kwargs,
 ) -> fleet.ConditioningResult:
-    """Region dispatch behind ``fleet.condition``: ``mesh=None`` runs the
-    sequential engine; a mesh (the sharded engine) raises."""
+    """Region dispatch behind ``fleet.condition``: a mesh selects the
+    sharded engine, ``mesh=None`` the sequential one."""
     if mesh is not None:
-        raise NotImplementedError(_MESH_MESSAGE)
+        return condition_region_sharded(cfg, reg, grid_spec, mesh, **kwargs)
     return condition_region_sequential(cfg, reg, grid_spec, **kwargs)

@@ -319,6 +319,7 @@ def condition(
     fault_edge: int = 1,
     plan: ctrl.ControllerPlan | None = None,
     consts: HostConsts | None = None,
+    rack_span: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, PDUState, Telemetry]:
     """Condition a trace chunk; carries state across calls (streaming).
 
@@ -334,7 +335,9 @@ def condition(
     ``ctrl.inner_loop_step`` cold on every rack with ``qp_iters``
     iterations, the warm iterates carried through unchanged; it reads the
     factorizations' status back from the card once an interval, so it is
-    not for a CUDA graph.
+    not for a CUDA graph.  ``rack_span=(lo, n)`` says the racks are columns
+    ``[lo, lo + R)`` of a campus of ``n``, for the wear fold's block sums
+    (``ref.block_sums``).
 
     Degraded mode (``cfg.degraded_mode``), as the reference's:
     ``ess_online`` is the per-interval availability (``(n_ctrl, ...)`` rows
@@ -515,7 +518,8 @@ def condition(
         health_in = (hconsts, tuple(lift(leaf) for leaf in hstate)) if cfg.track_health else None
         grid, _soc_path, (g_f, soc_f, x_new), h_leaves = ops.pdu_health_sim(
             rc, lift(es.g_filter), lift(es.soc), lift(x_f), *lc,
-            slew=(lift(cmd_applied), lift(cmd_target)), health=health_in, guard=safemode,
+            slew=(lift(cmd_applied), lift(cmd_target)), health=health_in, rack_span=rack_span,
+            guard=safemode,
             **mask_kw, **hw_kw,
         )
         rack_means.append(torch.mean(rc, dim=1))
@@ -689,13 +693,18 @@ def condition_campus(
     fault_edge: int = 1,
     plan: ctrl.ControllerPlan | None = None,
     consts: HostConsts | None = None,
+    rack_span: tuple[int, int] | None = None,
 ) -> tuple[PDUState, CampusChunk]:
     """One streaming-campus step: condition a chunk and reduce it to campus
-    aggregates (the per-rack grid block never leaves the step)."""
+    aggregates (the per-rack grid block never leaves the step).
+    ``rack_span=(lo, n)``: the racks are columns ``[lo, lo + R)`` of a
+    campus of ``n`` (a rank's block of a rack-sharded run; the wear fold's
+    block sums, ``ref.block_sums``)."""
     _, state2, telem = condition(
         cfg, state, rack_power, qp_iters=qp_iters, use_plan=use_plan,
         ess_online=ess_online, ess_weight=ess_weight, faults=faults,
         chunk_start=chunk_start, fault_edge=fault_edge, plan=plan, consts=consts,
+        rack_span=rack_span,
     )
     if cfg.track_health:
         hsnap = hlt.chunk_aggregates(cfg.health, state2.health, cfg.sample_dt)

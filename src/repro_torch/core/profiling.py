@@ -14,7 +14,8 @@ its body a ``sync`` that blocks on a value (``torch.cuda.synchronize`` of
 the value's device; nothing for CPU tensors) before the clock closes:
 profiling serializes the phases it measures, so their sum lies close to
 (a little above) the unprofiled wall.  The scanned engine replays one CUDA
-graph of the whole window and has no host-visible phases to time.
+graph of the whole window: one span, ``replay`` (a cold call's capture
+included).  The sharded engines time their collectives as ``gather``.
 """
 from __future__ import annotations
 

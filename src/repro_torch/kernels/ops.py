@@ -94,13 +94,14 @@ def _use_kernel(t: torch.Tensor, force: str | None) -> bool:
 
 
 def pdu_health_sim(
-    rack_power, g0, soc0, x0, ad, bd, c_row, *, health=None, guard=False, force=None,
-    ess_on=None, ess_events=None, ess_edge=1, **kw,
+    rack_power, g0, soc0, x0, ad, bd, c_row, *, health=None, rack_span=None, guard=False,
+    force=None, ess_on=None, ess_events=None, ess_edge=1, **kw,
 ):
     """One controller interval of the rack hardware path for every rack
     (ESS + SoC + LC, command slew via ``slew=(applied, target)`` or a dense
-    ``corrective``, wear fold via ``health=(step_consts, state_leaves)``);
-    see ``ref.pdu_health_sim``.  The ESS availability weight is ``ess_on``
+    ``corrective``, wear fold via ``health=(step_consts, state_leaves)``,
+    its block sums of campus columns ``rack_span=(lo, n)`` when given);
+    see ``ref.pdu_health_sim`` and ``ref.block_sums``.  The ESS availability weight is ``ess_on``
     (an ``(R,)`` row or a ``(T, R)`` series) or ``ess_events=(starts, ends,
     base, i0, t_last)`` with ``ess_edge``, rendered per sample from the
     fault schedule's ``(E, R)`` int32 episode tables; the kernel has a mode
@@ -116,8 +117,8 @@ def pdu_health_sim(
         ess_on = ess_on.to(torch.float32)
     fn = _ph.pdu_health_sim if _use_kernel(rack_power, force) else _ref.pdu_health_sim
     grid, soc_t, finals, h_leaves = fn(
-        rack_power, g0, soc0, x0, ad, bd, c_row, health=health, ess_on=ess_on,
-        ess_events=ess_events, ess_edge=ess_edge, **kw)
+        rack_power, g0, soc0, x0, ad, bd, c_row, health=health, rack_span=rack_span,
+        ess_on=ess_on, ess_events=ess_events, ess_edge=ess_edge, **kw)
     if guard:  # (grid * 0 == 0: isfinite in two launches)
         grid = torch.where(grid * 0.0 == 0.0, grid, rack_power)
     return grid, soc_t, finals, h_leaves

@@ -82,12 +82,14 @@ class Prepared(NamedTuple):
     hf: torch.Tensor | None
     health_state: tuple | None
     consts: np.ndarray  # kept alive while the launch may read it
+    rack_span: tuple[int, int] | None = None  # the campus columns (``ref.block_sums``)
 
 
 def prepare(
     rack_power, g0, soc0, x0, ad, bd, c_row, *,
     beta, dt, q_max, eta_c, eta_d, p_max, soc_min, soc_max,
-    corrective=0.0, slew=None, health=None, ess_on=None, ess_events=None, ess_edge=1,
+    corrective=0.0, slew=None, health=None, rack_span=None, ess_on=None, ess_events=None,
+    ess_edge=1,
 ) -> Prepared:
     """Check the operands (CUDA, float32, shapes, contiguity), pack the
     step constants and allocate the outputs for ``launch``.  ``ad``,
@@ -158,7 +160,7 @@ def prepare(
         consts.ctypes.data, kappa_mode, mask, ptr(w), *ev_args, *hw_plan.launch_args(plan),
     )
     return Prepared(args, mask, plan, (rack_power, corr, s0, h0, w, *ev), grid, soc_t, sf, hf,
-                    None if health is None else tuple(health[1]), consts)
+                    None if health is None else tuple(health[1]), consts, rack_span)
 
 
 def launch(p: Prepared) -> None:
@@ -185,7 +187,8 @@ def finish(p: Prepared):
     if p.hf is None:
         return p.grid, p.soc_t, finals, None
     return (p.grid, p.soc_t, finals,
-            tuple(p.hf[i] for i in range(6)) + ref.block_sums(p.soc_t, p.health_state))
+            tuple(p.hf[i] for i in range(6))
+            + ref.block_sums(p.soc_t, p.health_state, p.rack_span))
 
 
 def pdu_health_sim(rack_power, g0, soc0, x0, ad, bd, c_row, **kw):

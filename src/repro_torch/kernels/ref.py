@@ -240,6 +240,7 @@ def pdu_health_sim(
     corrective: torch.Tensor | float = 0.0,
     slew: tuple[torch.Tensor, torch.Tensor] | None = None,
     health: tuple | None = None,
+    rack_span: tuple[int, int] | None = None,
     ess_on: torch.Tensor | None = None,  # (R,) or (T, R) availability weight
     ess_events: tuple | None = None,  # (starts, ends, base, i0, t_last)
     ess_edge: int = 1,
@@ -248,7 +249,8 @@ def pdu_health_sim(
     sequential (``hw_step``), with the command slew ``applied + (target -
     applied) (t+1)/T`` (``slew``) or a dense ``(T, R)`` corrective profile,
     with ``health=(step_consts, state_leaves)`` the battery-wear
-    turning-point machine plus the block throughput/stress sums, and with
+    turning-point machine plus the block throughput/stress sums (of the
+    campus columns ``rack_span``, ``block_sums``), and with
     an ESS availability weight: ``ess_on`` (an ``(R,)`` row or a ``(T,
     R)`` series) or ``ess_events`` rendered by ``events_weight``.  Same
     contract as ``repro.kernels.ref.pdu_health_sim``.  Returns ``(grid,
@@ -296,7 +298,7 @@ def pdu_health_sim(
     finals = (g, soc, x.T.contiguous())
     if health is None:
         return grid, soc_t, finals, None
-    return grid, soc_t, finals, wear + block_sums(soc_t, health[1])
+    return grid, soc_t, finals, wear + block_sums(soc_t, health[1], rack_span)
 
 
 def wear_step(wc, carry, soc_new: torch.Tensor) -> tuple:
@@ -332,19 +334,38 @@ def _ramp(t: int, inv_t: float) -> float:
     return float(np.float32(np.float32(t + 1) * np.float32(inv_t)))
 
 
-def block_sums(soc_t: torch.Tensor, state) -> tuple:
+def block_sums(soc_t: torch.Tensor, state, rack_span: tuple[int, int] | None = None) -> tuple:
     """The health fold's whole-interval block reductions (charge/discharge
     throughput, SoC and SoC^2 sums, sample count) over one interval's SoC
     path, at the reference's (t, r) reduce shape.  Shared by the kernel
-    wrapper's epilogue and the plain version."""
+    wrapper's epilogue and the plain version.
+
+    ``rack_span = (lo, n)`` says these racks are columns ``[lo, lo + r)``
+    of a campus of ``n`` (a rank's block of a rack-sharded run).  A column
+    sum's order follows the tensor's width, on the CPU (its vectorised
+    reduction groups columns by the vector width) and on the card
+    (``tools/rack_span_probe.py``), so the sums then run at the whole
+    campus's (t, n) shape, these racks at their columns and zeros
+    elsewhere: a rack's sums are those of the one-rank run, bit for bit,
+    however the racks are split."""
     t_len, r = soc_t.shape
     prev_t = torch.cat([state[0].to(F32).expand(r)[None], soc_t[:-1]], dim=0)
     delta = soc_t - prev_t
+    if rack_span is None:
+        colsum = lambda x: torch.sum(x, dim=0)
+    else:
+        lo, n = rack_span
+
+        def colsum(x):
+            wide = x.new_zeros((t_len, n))
+            wide[:, lo:lo + r] = x
+            return torch.sum(wide, dim=0)[lo:lo + r]
+
     return (
-        state[6] + torch.sum(torch.clamp(delta, min=0.0), dim=0),
-        state[7] + torch.sum(torch.clamp(-delta, min=0.0), dim=0),
-        state[8] + torch.sum(soc_t, dim=0),
-        state[9] + torch.sum(soc_t * soc_t, dim=0),
+        state[6] + colsum(torch.clamp(delta, min=0.0)),
+        state[7] + colsum(torch.clamp(-delta, min=0.0)),
+        state[8] + colsum(soc_t),
+        state[9] + colsum(soc_t * soc_t),
         state[10].expand(r) + t_len,
     )
 

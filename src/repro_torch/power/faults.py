@@ -341,6 +341,13 @@ def inject_episodes(s: FaultSchedule, *, rack=(), ess=(), sensor=()) -> FaultSch
     return _schedule(tables, _host(s.p_fault), s.n_racks, s.device)
 
 
+def select_racks(s: FaultSchedule, lo: int, hi: int) -> FaultSchedule:
+    """The schedule of racks ``[lo, hi)``: their rows of every table (the
+    episode width kept), as views on the device (a rank's block of a
+    rack-sharded run; no host read, so a CUDA graph may capture it)."""
+    return FaultSchedule(**{f.name: getattr(s, f.name)[lo:hi] for f in dataclasses.fields(s)})
+
+
 def validate_tables(s: FaultSchedule) -> None:
     """Check the invariants the membership primitives assume: matching
     ``(R, K)`` tables, no inverted episode, rows sorted, real episodes

@@ -31,8 +31,15 @@ Resume safety rests on two properties of the scanned engine:
 The checkpoint is the port's own: an ``.npz`` of the state's tensor leaves
 with the service's fingerprint, a sha256 over the structure and the leaf
 bytes of the config, the scenario or region and the grid spec.  A
-checkpoint of the JAX package (another magic) is never loaded.  Campus
-sharding (``mesh=``) waits for ROADMAP.md queue 1 item 9.
+checkpoint of the JAX package (another magic) is never loaded.
+
+A region service takes a ``mesh`` (``sharding.region_mesh``): every rank
+of its world builds the same service and makes the same calls, each window
+runs the sharded region engine (``grid.condition_region_sharded``), and
+only rank 0 writes the audit log's file and the checkpoints (every rank
+keeps the events in memory; a checkpoint waits for all ranks, so any rank
+may restore from it).  A window and its resume are the one-rank service's
+bit for bit.
 
 The audit log is strict JSON (``allow_nan=False``): health summaries go
 through ``health.fleet_summary(..., json_safe=True)``, so an empty wear
@@ -49,8 +56,10 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import compliance, fleet, health as hlt, pdu, safemode as smode
+from repro_torch.sharding import rules
 
 _CKPT_MAGIC = "easyrider-torch-conditioner-ckpt-v1"
 _LOAD_ERRORS = (OSError, ValueError, KeyError, zipfile.BadZipFile, EOFError)
@@ -154,6 +163,8 @@ class ConditionerService:
     ``fleet.condition`` on the config's device.  The service owns the
     carried state (one ``PDUState``, or a tuple of per-campus states) and
     the absolute stream position in samples; both ride in checkpoints.
+    ``mesh`` (regions only) runs the campuses in parallel (module
+    docstring).
     """
 
     def __init__(
@@ -176,8 +187,11 @@ class ConditionerService:
         from repro_torch.power import scenario as SC
 
         if mesh is not None:
-            raise NotImplementedError(
-                "campus sharding (mesh=) is not ported yet (ROADMAP.md queue 1 item 9)")
+            rules.check_mesh(mesh, device_type=cfg.device.type)
+            if not hasattr(scenario, "campuses"):
+                raise ValueError("mesh is only meaningful for GridRegion targets")
+        self.mesh = mesh
+        self._writer = mesh is None or dist.get_rank() == 0
         self.cfg = cfg
         self.scenario = scenario
         self.grid_spec = grid_spec
@@ -185,7 +199,8 @@ class ConditionerService:
         self.qp_iters = int(qp_iters)
         self._k = fleet._window_geometry(cfg, scenario.total_samples, chunk_intervals, 0, None)[0]
         self.sample_pos = 0
-        self.audit = AuditLog(audit_path, fsync=audit_fsync, max_bytes=audit_max_bytes)
+        self.audit = AuditLog(audit_path if self._writer else None, fsync=audit_fsync,
+                              max_bytes=audit_max_bytes)
         self.checkpoint_dir = os.fspath(checkpoint_dir) if checkpoint_dir is not None else None
         self.checkpoint_every = None if checkpoint_every is None else int(checkpoint_every)
         if self.checkpoint_every is not None and self.checkpoint_dir is None:
@@ -256,7 +271,7 @@ class ConditionerService:
         start = self.sample_pos
         stop = min(start + n * self._k, int(self.scenario.total_samples))
         res = fleet.condition(
-            self.scenario, self.cfg, self.grid_spec, device=self.cfg.device,
+            self.scenario, self.cfg, self.grid_spec, device=self.cfg.device, mesh=self.mesh,
             stream=fleet.StreamOptions(chunk_intervals=self.chunk_intervals, state=self.state,
                                        start_sample=start, stop_sample=stop),
             qp_iters=self.qp_iters,
@@ -316,12 +331,14 @@ class ConditionerService:
             )
 
     def _auto_checkpoint(self) -> None:
-        os.makedirs(self.checkpoint_dir, exist_ok=True)
+        if self._writer:
+            os.makedirs(self.checkpoint_dir, exist_ok=True)
         self.checkpoint(os.path.join(self.checkpoint_dir, f"ckpt_{self.sample_pos:012d}.npz"))
         self._windows_since_ckpt = 0
-        kept = sorted(_glob.glob(os.path.join(self.checkpoint_dir, "ckpt_*.npz")))
-        for old in kept[: max(0, len(kept) - self.keep_checkpoints)]:
-            os.remove(old)
+        if self._writer:
+            kept = sorted(_glob.glob(os.path.join(self.checkpoint_dir, "ckpt_*.npz")))
+            for old in kept[: max(0, len(kept) - self.keep_checkpoints)]:
+                os.remove(old)
 
     def _log_window(self, start: int, stop: int, res: fleet.ConditioningResult) -> None:
         from repro_torch.power import faults as FLT
@@ -416,10 +433,20 @@ class ConditionerService:
         fsync'd, then ``os.replace``'d over the target and the directory
         fsync'd, so a crash leaves the previous checkpoint or the whole new
         one, never a torn file at the target.  Every ``advance`` stops at an
-        interval boundary, so the state is always the interval carry."""
+        interval boundary, so the state is always the interval carry.  With
+        a mesh, rank 0 writes and every rank returns once the file is
+        there."""
         path = os.fspath(path)
         if not path.endswith(".npz"):
             path += ".npz"
+        if self._writer:
+            self._write_checkpoint(path)
+        if self.mesh is not None:
+            dist.barrier()
+        self.audit.append("checkpoint_saved", sample=self.sample_pos, path=path)
+        return path
+
+    def _write_checkpoint(self, path: str) -> None:
         leaves = fleet._tree_leaves(self.state)
         payload = dict(
             magic=np.asarray(_CKPT_MAGIC),
@@ -443,8 +470,6 @@ class ConditionerService:
             os.fsync(dfd)
         finally:
             os.close(dfd)
-        self.audit.append("checkpoint_saved", sample=self.sample_pos, path=path)
-        return path
 
     def restore(self, path: str | os.PathLike) -> None:
         """Load a checkpoint written by ``checkpoint`` into this service,

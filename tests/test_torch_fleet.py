@@ -149,6 +149,10 @@ def test_scenario_host_resume_is_bitwise(setup):
 
 
 def test_unported_engines_raise(setup):
+    """Rack sharding takes a ``DeviceMesh`` (``sharding.make_mesh``); any
+    other object is refused before a run starts (the sharded runs
+    themselves: ``tests/test_torch_distributed.py``)."""
     p = setup["port"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="mesh must be a torch.distributed DeviceMesh with "
+                                        "named axes .* got object"):
         tfleet.condition(setup["ts"], p["cfg"], p["spec"], mesh=object(), device="cpu")

@@ -217,9 +217,11 @@ def test_facade_refuses_other_engines_stream_options_and_a_mesh():
         tfleet.condition(reg, cfg, _TSPEC, engine="host", device=_DEV)
     with pytest.raises(ValueError, match="total_samples"):
         tfleet.condition(reg, cfg, _TSPEC, device=_DEV, stream=dict(total_samples=100))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # A mesh must be a DeviceMesh (the sharded engine itself:
+    # tests/test_torch_distributed.py).
+    with pytest.raises(TypeError, match="mesh must be a torch.distributed DeviceMesh"):
         tfleet.condition(reg, cfg, _TSPEC, device=_DEV, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(TypeError, match="mesh must be a torch.distributed DeviceMesh"):
         tgrid.condition_region(cfg, reg, _TSPEC, mesh=object())
     # As the reference's region engine, this one takes no controller plan.
     with pytest.raises(TypeError, match="plan"):

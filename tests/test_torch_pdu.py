@@ -120,13 +120,15 @@ def test_condition_streaming_split_is_bitwise(trace):
 
 
 def test_unported_paths_raise():
-    """Multi-GPU sharding (``mesh=``) is the conditioning path still to be
-    ported (ROADMAP.md queue 1 item 9): the facade refuses it by name, for a
-    grid region as for a campus."""
+    """The facade's ``mesh=`` (rack sharding of a campus, the sharded region
+    engine) takes a ``DeviceMesh``; anything else is refused by name before
+    a run starts, for a grid region as for a campus (the sharded runs:
+    ``tests/test_torch_distributed.py``)."""
     from repro_torch.core import fleet as tfleet, grid as tgrid
 
     cfg = tpdu.make_pdu(sample_dt=1.0 / HZ, device="cpu")
     region = tgrid.checkpoint_region(2, 2, duration_s=20.0, sample_hz=HZ, device="cpu")
     for target in (region, region.campuses[0]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
+        with pytest.raises(TypeError, match="mesh must be a torch.distributed DeviceMesh with "
+                                            "named axes .* got object"):
             tfleet.condition(target, cfg, device="cpu", mesh=object())

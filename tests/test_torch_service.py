@@ -218,7 +218,11 @@ def test_campus_service_matches_the_jax_service(tmp_path, faulty):
 
 
 def test_service_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 9"):
+    """A service's mesh must be a DeviceMesh (a real one on a campus target
+    raises "mesh is only meaningful for GridRegion targets":
+    tests/test_torch_distributed.py)."""
+    with pytest.raises(TypeError, match="mesh must be a torch.distributed DeviceMesh with "
+                                        "named axes .* got object"):
         _service(_scenario(duration_s=20.0, faulty=False, device=_DEV), mesh=object())
 
 

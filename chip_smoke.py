@@ -191,10 +191,12 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    prototype-rack filter, dt = 1 ms, zero corrective; pdu_sim unweighted,
    with the (T, R) weight of 12 % degraded racks ramping down over 4 s, and
    with a (R,) 0/1 weight; each pdu_sim variant also on the first 1 and
-   3 racks against the plain run's first columns); (b) both over the
-   whole acceptance campus in
+   3 racks against the plain run's first columns; the plain versions over
+   the first ``SIM_BENCH["plain_t"]`` samples, against the main-path run's
+   first samples and a kernel run over them); (b) both over the whole
+   acceptance campus in
    one launch (T = 17600, R = 1024, the campus ``make_pdu`` filter;
-   pdu_sim unweighted and with the (T, R) weight, unweighted also with the
+   pdu_sim unweighted and with the (T, R) and (R,) weights, unweighted also with the
    cp.async route forced, the same bits, timed beside the TMA route; its
    times before the pipeline redesign printed as recorded constants);
    lc_filter at both shapes also with its cp.async route (copies and spread
@@ -466,6 +468,22 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    cold and warm walls and its gather's seconds and bytes, marked as ranks
    sharing one card (no multi-GPU scaling figure), and the phase's
    seconds; a rank that fails or hangs fails the run.
+24. FSDP training (``FSDP``, ``sharding.fsdp``) on ``make_host_mesh()``'s
+   ``("data", "model")`` mesh of model 1.  (a) A world of one nccl rank
+   trains llama3.2-1b as phase 8a (full width and depth, phase 8a's start
+   weights, which phase 8 returns, its batches): every
+   loss, grad norm, parameter and moment bit for bit phase 8a's three
+   kernel steps, its launches (flash forward 32, dK/dV 16, dQ 16, rmsnorm
+   65 a step); it prints the walls, the peak memory and the collectives'
+   share of a synchronized step (one rank, not a scaling figure).  (b)
+   Two gloo ranks sharing the card, full width cut to 4 layers, 4 x 512
+   global: ``microbatches`` 1, and 2 with ``gather_small_weights_once``, 2
+   steps each, every rank's loss, grad norm and reassembled parameters
+   against one process's unsharded run within ``TRAIN_TOL``, replicated
+   leaves bit for bit across the ranks, the launches one process's.  (c)
+   (b)'s checkpoint restored into one process and back into the two
+   ranks bit for bit, and a step from it bit for bit the step without the
+   restore.  A failing collective or rank fails the run.
 
 With ``--profile DIR`` it also profiles one more campus run, prefill step,
 generation and training step, rwkv6-7b prefill and generation, a host run
@@ -3550,7 +3568,12 @@ def phase_train(dev, tree, profile_dir: Path | None = None) -> dict:
     """The training slice at full llama3.2-1b width: (a) three
     ``build_train_step`` steps, launch counts and step 1 against the plain
     versions; (b) TRAIN_REF against JAX_TRAIN; (c) ``train()`` with the
-    launcher's PowerSim.  Returns the counts and the timings."""
+    launcher's PowerSim.  Returns the counts and the timings, and under
+    ``"steps_8a"`` (a)'s kernel steps: each loss and grad norm and the bit
+    prints of every parameter and moment after them, and under
+    ``"start_8a"`` their start weights (on the host, the parameters'
+    type), which phase 24a starts from and holds its one-rank FSDP run
+    to."""
     import dataclasses
 
     import torch
@@ -3578,6 +3601,7 @@ def phase_train(dev, tree, profile_dir: Path | None = None) -> dict:
     params = dict(model.named_parameters())
     n_params = sum(p.numel() for p in params.values())
     start = {n: p.detach().clone() for n, p in params.items()}
+    start_8a = {n: t.cpu() for n, t in start.items()}
 
     # (a) Step 1 on the plain versions, then from the same start on the
     # kernels, then two more kernel steps.
@@ -3593,18 +3617,20 @@ def phase_train(dev, tree, profile_dir: Path | None = None) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     _reset_train_counts()
-    walls, losses = [], []
+    walls, losses, norms = [], [], []
     for i in range(TRAIN["steps"]):
         batch = ds.batch_at(i)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         model, state, metrics = step(model, state, batch, i)
         losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         if i == 0:
             got = _step_summary(model, state, metrics)
     counts = _train_counts()
+    steps_8a = dict(loss=losses, grad_norm=norms, prints=_bit_prints(_train_state(params, state)))
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     per_step = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dkv": L,
                 "flash_attention_bwd_dq": L, "rmsnorm": (2 * L + 1) + 2 * L}
@@ -3677,7 +3703,16 @@ def phase_train(dev, tree, profile_dir: Path | None = None) -> dict:
            f"train() launches {power_train_counts}")
     return {"counts": counts, "per_step": per_step, "step_s": step_s,
             "tokens_per_s": tokens / step_s, "train_mfu": mfu, "peak_gb": peak_gb,
-            "power_counts": power_counts}
+            "power_counts": power_counts, "steps_8a": steps_8a, "start_8a": start_8a}
+
+
+def _train_state(params: dict, state) -> dict:
+    """``{"param/name", "m/name", "v/name": tensor}`` of a training state
+    (a sharded one's are this rank's shards)."""
+    out = {f"param/{n}": p.detach() for n, p in params.items()}
+    out.update({f"m/{n}": t for n, t in state.m.items()})
+    out.update({f"v/{n}": t for n, t in state.v.items()})
+    return out
 
 
 def _rwkv_inputs(gen, dev, b, h, t, d, dtype, w_val=None, time_major=False):
@@ -9057,7 +9092,18 @@ def phase_rwkv_train_power(dev) -> dict:
 # (60 s x 128 racks at 1 kHz, the prototype-rack filter sized for beta =
 # 0.0625, zero corrective; 12 % of racks degraded with a 4 s wind-down ramp
 # for the (T, R) weight) and the whole acceptance campus in one launch.
-SIM_BENCH = dict(t=60_000, r=128, dt=1e-3, beta=0.0625, seed=0, degraded=0.12, ramp_s=4.0)
+# At the bench shape the plain versions run over the first ``plain_t``
+# samples only: their Python loop of ~60 small operations a sample took
+# ~3.5 minutes over all 60000 samples of the four runs, and the script
+# must stay within its time limit.  The kernel runs and is timed over all
+# of them, its first ``plain_t`` samples held bit for bit to the plain run.
+# The kernels line carries those plain times as ``bench_plain_ms_<plain_t>``
+# (``bench_plain_ms``, of earlier versions of this script, timed all 60000
+# samples).  The (R,)-weight row's ``ms``, ``plain_ms`` and ``bound_ms`` are
+# the campus's, as its two siblings' (earlier versions: the bench shape's,
+# which its ``bench_ms`` and ``bench_bound_ms`` carry now).
+SIM_BENCH = dict(t=60_000, r=128, dt=1e-3, beta=0.0625, seed=0, degraded=0.12, ramp_s=4.0,
+                 plain_t=6000)
 PDU_KW = dict(beta=0.0625, dt=1e-3, q_max=40.0, eta_c=0.97, eta_d=0.97, p_max=1.0, soc_min=0.1,
               soc_max=0.9)
 # gemm_burn: bench_gemm_burn's 512^3 float32 with n_iters = 4, and 4096^3
@@ -9181,8 +9227,8 @@ def sim_bench_problem(dev):
 
 def sim_campus_problem(dev):
     """The whole acceptance campus (CAMPUS), rendered in one piece, its
-    ``make_pdu`` filter and hardware scalars, the initial state and a
-    (T, R) weight (SIM_BENCH's degraded share and ramp)."""
+    ``make_pdu`` filter and hardware scalars, the initial state and the
+    (T, R) and (R,) weights (SIM_BENCH's degraded share and ramp)."""
     from repro_torch.core import pdu
     from repro_torch.power import scenario as SC
 
@@ -9193,7 +9239,7 @@ def sim_campus_problem(dev):
     rack, dt = SC.render_trace(s)
     cfg = pdu.make_pdu(sample_dt=dt, device=dev)
     st = pdu.init_state(cfg, rack[0])
-    return cfg, st, rack.contiguous(), degraded_weight(*rack.shape, dt, dev)[0]
+    return (cfg, st, rack.contiguous()) + degraded_weight(*rack.shape, dt, dev)
 
 
 def _sim_bytes_ops(t, r, n_in, n_out, ops_per_sample, per_rack_floats) -> tuple[int, int]:
@@ -9243,24 +9289,33 @@ def phase_sim_kernels(dev) -> dict:
             launches["gemm_burn_f32_sum"] = launches.get("gemm_burn_f32_sum", 0) + sums
         return out
 
-    def kernel_lc(filt, node, x0, prev):
+    def kernel_lc(filt, node, x0, prev, plain_t=None):
+        """``plain_t``: the plain run covers the first ``plain_t`` samples
+        (the kernel's run over them checked whole, the main-path run's
+        grid over them)."""
         lc = tuple(m.cpu().numpy() for m in (filt.ad, filt.bd, filt.c[0]))
         out_k = main_call("lc_filter", lambda: ops.lc_filter(*lc, x0, node))
-        out_p, plain_ms = _event_ms(lambda: ops.lc_filter(*lc, x0, node, force="ref"))
         t, r = node.shape
-        _check(_bitwise(out_k, out_p), f"lc_filter {tuple(node.shape)}: kernel vs plain bitwise")
+        tp = t if plain_t is None else plain_t
+        node_p = node if tp == t else node[:tp].contiguous()
+        out_p, plain_ms = _event_ms(lambda: ops.lc_filter(*lc, x0, node_p, force="ref"))
+        out_kp = out_k if tp == t else ops.lc_filter(*lc, x0, node_p, force="cuda")
+        _check(_bitwise(out_kp, out_p) and _bitwise(out_k[0][:tp], out_p[0]),
+               f"lc_filter {tuple(node.shape)}: kernel vs plain bitwise over {tp} samples")
         ms = _median_ms(lambda: ops.lc_filter(*lc, x0, node), reps=10)
         # The cp.async route (4-byte copies, spread stores) forced on the
         # same trace, timed beside the route the plan picks (TMA at R % 4 ==
         # 0): the same bits.
         plan = hw_plan.lc_plan(r)
         forced = hw_plan.lc_plan(r, loads="cp.async", stores="spread")
-        lc_call = lambda p: lc_filter.lc_filter(*lc, x0.contiguous(), node, plan=p)
+        lc_call = lambda p, x=node: lc_filter.lc_filter(*lc, x0.contiguous(), x, plan=p)
         planned_ms = _median_ms(lambda: lc_call(plan), reps=10)
-        _check(_bitwise(lc_call(forced), out_p), f"lc_filter T={t} R={r}: cp.async route vs plain")
+        _check(_bitwise(lc_call(forced, node_p), out_p),
+               f"lc_filter T={tp} R={r}: cp.async route vs plain")
         cp_ms = _median_ms(lambda: lc_call(forced), reps=10)
-        print(f"lc_filter   T={t} R={r}: grid and final state bitwise vs plain; kernel {ms:.4f} "
-              f"ms, plain {plain_ms:.1f} ms; the {plan.loads} + {plan.stores} route "
+        print(f"lc_filter   T={t} R={r}: grid and final state bitwise vs plain over the first "
+              f"{tp} samples; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms over {tp}; the "
+              f"{plan.loads} + {plan.stores} route "
               f"{planned_ms:.4f} ms and the cp.async + spread route forced {cp_ms:.4f} ms (both "
               f"through the kernel module; the same bits); before the redesign "
               f"{PREVIOUS_KERNEL_MS[prev]:.4f} ms (a recorded constant)")
@@ -9269,9 +9324,9 @@ def phase_sim_kernels(dev) -> dict:
         # columns; and the first 1, 7, S - 1 and S + 1 samples of every rack
         # on both routes, against plain runs of those samples.
         for rn in (1, 3, 33):
-            got = ops.lc_filter(*lc, x0[:rn], node[:, :rn].contiguous(), force="cuda")
+            got = ops.lc_filter(*lc, x0[:rn], node_p[:, :rn].contiguous(), force="cuda")
             ok = _bitwise(got, (out_p[0][:, :rn].contiguous(), out_p[1][:rn]))
-            _check(ok, f"lc_filter T={t} R={rn}: kernel vs the plain run's first racks")
+            _check(ok, f"lc_filter T={tp} R={rn}: kernel vs the plain run's first racks")
         cuts = (1, 7, plan.chunk - 1, plan.chunk + 1)
         for tn in cuts:
             sub = node[:tn].contiguous()
@@ -9279,39 +9334,51 @@ def phase_sim_kernels(dev) -> dict:
             for p in (plan, forced):
                 ok = _bitwise(lc_filter.lc_filter(*lc, x0.contiguous(), sub, plan=p), want)
                 _check(ok, f"lc_filter T={tn} R={r} {p.loads} + {p.stores}: kernel vs plain")
-        print(f"lc_filter   T={t}: the first 1, 3 and 33 racks bitwise vs the plain run's first "
+        print(f"lc_filter   T={tp}: the first 1, 3 and 33 racks bitwise vs the plain run's first "
               f"racks; T = {', '.join(map(str, cuts))} at R={r} on both routes bitwise vs plain")
         return out_k, ms, plain_ms, _sim_bytes_ops(t, r, 1, 1, LC_OPS, 6), cp_ms
 
-    def kernel_pdu(label, filt, rack, g0, soc0, x0, corr, w, kw, prev, narrow=()):
+    def kernel_pdu(label, filt, rack, g0, soc0, x0, corr, w, kw, prev, narrow=(), plain_t=None):
+        """``plain_t``: as ``kernel_lc``'s (the main-path run's grid and SoC
+        over the first ``plain_t`` samples, a kernel run over them whole);
+        ``prev``: the recorded time before the redesign, or None."""
         lc = tuple(m.cpu().numpy() for m in (filt.ad, filt.bd, filt.c[0]))
         args = (rack, g0, soc0, x0, *lc, corr)
         variant = {None: "pdu_sim", 1: "pdu_sim_weight_row", 2: "pdu_sim_weight_series"}
         out_k = main_call("pdu_sim", lambda: ops.pdu_sim(*args, ess_on=w, **kw),
                           variant[None if w is None else w.ndim])
-        out_p, plain_ms = _event_ms(lambda: ops.pdu_sim(*args, ess_on=w, force="ref", **kw))
-        same = {n: _bitwise(a, b) for n, a, b in zip(("grid", "soc", "finals"), out_k, out_p)}
         t, r = rack.shape
-        _check(all(same.values()), f"pdu_sim {label} T={t} R={r}: kernel vs plain bitwise {same}")
+        tp = t if plain_t is None else plain_t
+        head = lambda x: x if tp == t else x[:tp].contiguous()
+        args_p = (head(rack), g0, soc0, x0, *lc, head(corr))
+        w_p = w if w is None or w.ndim == 1 else head(w)
+        out_p, plain_ms = _event_ms(lambda: ops.pdu_sim(*args_p, ess_on=w_p, force="ref", **kw))
+        out_kp = out_k if tp == t else ops.pdu_sim(*args_p, ess_on=w_p, force="cuda", **kw)
+        same = {n: _bitwise(a, b) for n, a, b in zip(("grid", "soc", "finals"), out_kp, out_p)}
+        same["main run"] = _bitwise(out_k[0][:tp], out_p[0]) and _bitwise(out_k[1][:tp], out_p[1])
+        _check(all(same.values()),
+               f"pdu_sim {label} T={t} R={r}: kernel vs plain bitwise over {tp} samples {same}")
         ms = _median_ms(lambda: ops.pdu_sim(*args, ess_on=w, **kw), reps=10)
         n_hi = int((out_k[1] >= kw["soc_max"]).any(0).sum())
-        print(f"pdu_sim     {label:<13} T={t} R={r}: grid, SoC, finals bitwise vs plain; kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.1f} ms; racks reaching soc_max {n_hi}; before the "
-              f"pipeline redesign {PREVIOUS_KERNEL_MS[prev]:.4f} ms (a recorded constant)")
+        before = "" if prev is None else (f"; before the pipeline redesign "
+                                          f"{PREVIOUS_KERNEL_MS[prev]:.4f} ms (a recorded constant)")
+        print(f"pdu_sim     {label:<13} T={t} R={r}: grid, SoC, finals bitwise vs plain over the "
+              f"first {tp} samples; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms over {tp}; racks "
+              f"reaching soc_max {n_hi}{before}")
         # The kernel on the first rn racks against the plain run's first rn
         # columns (the plain version is elementwise across racks): the
         # cp.async route and a block of one or three racks over the whole
         # trace.
         for rn in narrow:
             cut = lambda x: x[..., :rn].contiguous()
-            a = (cut(rack), g0[:rn], soc0[:rn], x0[:rn].contiguous(), *lc, cut(corr))
-            got = ops.pdu_sim(*a, ess_on=None if w is None else cut(w), force="cuda", **kw)
+            a = (cut(args_p[0]), g0[:rn], soc0[:rn], x0[:rn].contiguous(), *lc, cut(args_p[-1]))
+            got = ops.pdu_sim(*a, ess_on=None if w is None else cut(w_p), force="cuda", **kw)
             want = (cut(out_p[0]), cut(out_p[1]),
                     (out_p[2][0][:rn], out_p[2][1][:rn], out_p[2][2][:rn]))
             ok = all(_bitwise(x, y) for x, y in zip(got, want))
-            print(f"pdu_sim     {label:<13} T={t} R={rn}: grid, SoC, finals bitwise vs the plain "
+            print(f"pdu_sim     {label:<13} T={tp} R={rn}: grid, SoC, finals bitwise vs the plain "
                   f"run's first {rn} racks: {ok}")
-            _check(ok, f"pdu_sim {label} T={t} R={rn}: kernel vs plain not bitwise")
+            _check(ok, f"pdu_sim {label} T={tp} R={rn}: kernel vs plain not bitwise")
         n_in = 2 + (w is not None and w.ndim == 2)
         per_rack = 10 + (w is not None and w.ndim == 1)
         return out_k, ms, plain_ms, _sim_bytes_ops(t, r, n_in, 2, PDU_OPS, per_rack)
@@ -9329,19 +9396,21 @@ def phase_sim_kernels(dev) -> dict:
 
     # (a) the kernel benches' shapes
     filt, node, u, x0, w_series, w_row = sim_bench_problem(dev)
-    _, lc_b_ms, lc_b_plain, lc_b_bo, lc_b_cp = kernel_lc(filt, node, x0, "lc_filter_bench")
+    bench_t = SIM_BENCH["plain_t"]
+    _, lc_b_ms, lc_b_plain, lc_b_bo, lc_b_cp = kernel_lc(filt, node, x0, "lc_filter_bench",
+                                                         bench_t)
     r = u.shape[1]
     g0, soc0 = u[0].contiguous(), torch.full((r,), 0.5, device=dev)
     corr = torch.zeros_like(u)
     bench = {label: kernel_pdu(label, filt, u, g0, soc0, x0, corr, w, PDU_KW, prev,
-                               narrow=(1, 3))[1:]
+                               narrow=(1, 3), plain_t=bench_t)[1:]
              for label, w, prev in (("unweighted", None, "pdu_sim_bench"),
                                     ("(T, R) weight", w_series, "pdu_sim_weight_series_bench"),
                                     ("(R,) weight", w_row, "pdu_sim_weight_row_bench"))}
     del node, u, corr, w_series
 
     # (b) the whole campus trace in one launch
-    cfg, st, rack, w_series = sim_campus_problem(dev)
+    cfg, st, rack, w_series, w_row = sim_campus_problem(dev)
     filt, kw = st.filter_obj, pdu.hw_kwargs(cfg)
     t, r = rack.shape
     print(f"campus trace rendered whole: T={t} R={r}, {rack.numel() * 4 / 1e6:.1f} MB per (T, R) "
@@ -9353,6 +9422,7 @@ def phase_sim_kernels(dev) -> dict:
                                                           "pdu_sim")
     _, pw_ms, pw_plain, pw_bo = kernel_pdu("(T, R) weight", *args, w_series, kw,
                                            "pdu_sim_weight_series")
+    _, pr_ms, pr_plain, pr_bo = kernel_pdu("(R,) weight", *args, w_row, kw, None)
     # The cp.async route forced on the same trace: the same bits, timed.
     lc = tuple(m.cpu().numpy() for m in (filt.ad, filt.bd, filt.c[0]))
     sim_args = (rack, st.ess_state.g_filter, st.ess_state.soc, st.filter_state, *lc, corr)
@@ -9375,7 +9445,7 @@ def phase_sim_kernels(dev) -> dict:
     print(f"pdu_sim     campus vs plain ess.simulate -> filters.simulate: max|diff| grid "
           f"{unf[0]:.3e} SoC {unf[1]:.3e} (limit {UNFUSED_TOL}; {time.perf_counter() - t0:.1f} s)")
     _check(max(unf) <= UNFUSED_TOL, "pdu_sim vs the unfused ess -> filters pipeline")
-    del rack, corr, w_series, grid, soc_t, node_u, soc_u, y_u
+    del rack, corr, w_series, w_row, grid, soc_t, node_u, soc_u, y_u
 
     # (c) gemm_burn
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -9455,28 +9525,29 @@ def phase_sim_kernels(dev) -> dict:
                f"gemm_burn ragged {dtype_name} {m} x {k} x {n}: kernel vs plain ({err:.3e})")
 
     gb32, gb16 = gemm[("float32", 4)], gemm[("bfloat16", 4)]
+    bench_plain_key = f"bench_plain_ms_{bench_t}"
     return {
         "lc_filter": entry(
             "lc_filter", lc_src, lc_rep, lc_c_ms, lc_c_plain, lc_c_bo, FP32_FLOP_PER_S,
             shape=[t, r], chunk=hw_plan.lc_plan(r).chunk, cp_async_ms=lc_c_cp,
             bench_shape=[SIM_BENCH["t"], SIM_BENCH["r"]], bench_ms=lc_b_ms,
-            bench_plain_ms=lc_b_plain, bench_bound_ms=lc_b_bo[0] / HBM_BYTES_PER_S * 1e3,
+            **{bench_plain_key: lc_b_plain}, bench_bound_ms=lc_b_bo[0] / HBM_BYTES_PER_S * 1e3,
             bench_cp_async_ms=lc_b_cp),
         "pdu_sim": entry(
             "pdu_sim", ps_src, ps_rep, ps_ms, ps_plain, ps_bo, FP32_FLOP_PER_S, shape=[t, r],
             variant="unweighted", chunk=hw_plan.CHUNK, cp_async_ms=ps_cp_ms,
-            bench_ms=bench["unweighted"][0],
-            bench_plain_ms=bench["unweighted"][1],
+            bench_ms=bench["unweighted"][0], **{bench_plain_key: bench["unweighted"][1]},
             bench_bound_ms=bench["unweighted"][2][0] / HBM_BYTES_PER_S * 1e3),
         "pdu_sim_weight_series": entry(
             "pdu_sim_weight_series", ps_src, ps_rep, pw_ms, pw_plain, pw_bo, FP32_FLOP_PER_S,
             shape=[t, r], variant="(T, R) weight",
-            bench_ms=bench["(T, R) weight"][0], bench_plain_ms=bench["(T, R) weight"][1],
+            bench_ms=bench["(T, R) weight"][0], **{bench_plain_key: bench["(T, R) weight"][1]},
             bench_bound_ms=bench["(T, R) weight"][2][0] / HBM_BYTES_PER_S * 1e3),
         "pdu_sim_weight_row": entry(
-            "pdu_sim_weight_row", ps_src, ps_rep, bench["(R,) weight"][0],
-            bench["(R,) weight"][1], bench["(R,) weight"][2], FP32_FLOP_PER_S,
-            shape=[SIM_BENCH["t"], SIM_BENCH["r"]], variant="(R,) weight"),
+            "pdu_sim_weight_row", ps_src, ps_rep, pr_ms, pr_plain, pr_bo, FP32_FLOP_PER_S,
+            shape=[t, r], variant="(R,) weight",
+            bench_ms=bench["(R,) weight"][0], **{bench_plain_key: bench["(R,) weight"][1]},
+            bench_bound_ms=bench["(R,) weight"][2][0] / HBM_BYTES_PER_S * 1e3),
         "gemm_burn": entry(
             "gemm_burn", gb_src, gb_rep, gb16[1], gb16[2], gb16[4], BF16_FLOP_PER_S,
             library_ms=gb16[3], err=gb16[0], shape=[4096, 4096, 4096], dtype="bfloat16", n_iters=4,
@@ -10851,10 +10922,12 @@ def _gather_line(g: dict) -> str:
     return f"a gather alone {g['alone_s']:.5f} s for {g['bytes']} bytes a rank"
 
 
-def _run_world(world: int, backend: str, job: str) -> list[dict]:
-    """Every rank's results of one phase-23 world, its ranks started
-    together (``spawn``); a rank that fails, or a world that outlasts
-    ``SHARDED["join_s"]``, fails the run."""
+def _run_world(world: int, backend: str, job: str, target=None,
+               join_s: float = SHARDED["join_s"], during=None) -> list[dict]:
+    """Every rank's results of one world of ``target`` ranks (phase 23's
+    ``_sharded_rank`` by default), its ranks started together (``spawn``);
+    ``during()`` runs in this process while they run.  A rank that fails,
+    or a world that outlasts ``join_s``, fails the run."""
     import multiprocessing as mp
     import tempfile
 
@@ -10862,22 +10935,27 @@ def _run_world(world: int, backend: str, job: str) -> list[dict]:
 
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        procs = [ctx.Process(target=_sharded_rank, args=(r, world, f"{tmp}/store", backend, job,
-                                                         tmp)) for r in range(world)]
+        procs = [ctx.Process(target=target or _sharded_rank,
+                             args=(r, world, f"{tmp}/store", backend, job, tmp))
+                 for r in range(world)]
         for p in procs:
             p.start()
-        deadline = time.monotonic() + SHARDED["join_s"]
-        for p in procs:
-            p.join(max(deadline - time.monotonic(), 1.0))
-        alive = [r for r, p in enumerate(procs) if p.is_alive()]
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
+        deadline = time.monotonic() + join_s
+        try:
+            if during is not None:
+                during()
+            for p in procs:
+                p.join(max(deadline - time.monotonic(), 1.0))
+        finally:
+            alive = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
         codes = [p.exitcode for p in procs]
         _check(not alive and all(code == 0 for code in codes),
-               f"phase 23 {job} world of {world} {backend} ranks: exit codes {codes}, still "
-               f"running after {SHARDED['join_s']} s: {alive}")
+               f"{job} world of {world} {backend} ranks: exit codes {codes}, still "
+               f"running after {join_s} s: {alive}")
         return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
 
@@ -11031,6 +11109,403 @@ def phase_sharded(dev, campus: dict, region: dict) -> dict:
     print(f"phase 23 (sharded engines): {out['phase_s']:.1f} s (region world "
           f"{out['region_world_s']:.1f} s, campus worlds "
           f"{', '.join(f'{k} {v:.1f} s' for k, v in worlds.items())})")
+    return out
+
+
+# Phase 24: FSDP training on the rules' layout (``sharding.fsdp``).  (a) A
+# world of one nccl rank trains llama3.2-1b at full width and depth on
+# phase 8a's start weights and steps (TRAIN), bit for bit phase 8a; (b) two
+# gloo ranks sharing the card train it at full width cut to ``layers``
+# layers (every gather goes through the host, so full depth would cost the
+# script's time), 4 x 512 global tokens, 2 x 512 a rank, at each of
+# ``configs`` ((microbatches, gather_small_weights_once)) for ``steps``
+# steps, held to one process's unsharded run within TRAIN_TOL; (c) (b)'s
+# last run saved, restored into one process (this one, while (b)'s ranks
+# go on) and back into (b)'s two ranks, bit for bit, and a step from it
+# bit for bit the step without the restore.  ``wait_s`` bounds this
+# process's wait for the ranks' save.
+FSDP = dict(layers=4, steps=2, configs=((1, False), (2, True)), join_s=300.0, wait_s=240.0)
+FSDP_DIR = ROOT / "build" / "phase24"
+
+
+def _fsdp_cfg(layers: int | None = None):
+    import dataclasses
+
+    from repro_torch.configs import full_config
+
+    cfg = full_config(TRAIN["arch"])
+    return cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)
+
+
+def _fsdp_model(cfg, start: dict, dev):
+    """A ``Transformer`` of ``cfg`` on ``dev`` holding ``start`` (host
+    tensors by name)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    model = T.Transformer(cfg, device=dev)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(start[n])
+    return model
+
+
+def _fsdp_step(cfg, mb: int = 1, once: bool = False):
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import build_train_step
+
+    opt = AdamWConfig(lr=TRAIN["lr"])
+    return opt, build_train_step(cfg, opt, microbatches=mb, gather_small_weights_once=once,
+                                 total_steps=TRAIN["total_steps"],
+                                 warmup_steps=TRAIN["warmup_steps"])
+
+
+def _fsdp_data(cfg):
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+
+    return SyntheticLMDataset(DataConfig(seed=TRAIN["seed"], batch=TRAIN["batch"],
+                                         seq_len=TRAIN["seq_len"], vocab_size=cfg.vocab_size))
+
+
+def _fsdp_samples(params: dict, get, leaves=TRAIN_LEAVES) -> dict:
+    """This rank's part of ``train_samples``: ``{path: {k: value}}`` for
+    the k-th sampled element of each full leaf that lies in this rank's
+    shard (``get(name)`` the shard of parameter ``name``, or its moment's)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.sharding import fsdp
+
+    out = {}
+    for i, path in enumerate(leaves):
+        name = _port_leaf(path)
+        x, info = get(name), fsdp.shard_of(params[name])
+        full = list(x.shape)
+        if info.dim is not None:
+            full[info.dim] *= info.size
+        multi = list(np.unravel_index(train_indices(tuple(full), i), full))
+        keep = np.ones(len(multi[0]), bool)
+        if info.dim is not None:
+            lo = info.rank * x.shape[info.dim]
+            keep = (multi[info.dim] >= lo) & (multi[info.dim] < lo + x.shape[info.dim])
+            multi[info.dim] = multi[info.dim] - lo
+        idx = tuple(torch.as_tensor(m[keep], device=x.device) for m in multi)
+        vals = x.detach()[idx].to(torch.float64).cpu().tolist()
+        out[path] = dict(zip(np.nonzero(keep)[0].tolist(), vals))
+    return out
+
+
+def _merge_samples(parts: list) -> dict:
+    """``train_samples`` from the ranks' ``_fsdp_samples``."""
+    out = {}
+    for path in parts[0]:
+        got = {}
+        for p in parts:
+            got.update(p[path])
+        out[path] = [got[k] for k in range(len(got))]
+    return out
+
+
+def _fsdp_rank(rank: int, world: int, store: str, backend: str, job: str, out_dir: str):
+    """One rank of a phase-24 world: joins it, places the model on
+    ``make_host_mesh()`` and runs ``job`` ("a", or "b" with (c)), writing
+    its results to ``out_dir/rank{rank}.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import profiling
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import init_world, make_host_mesh
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import fsdp
+    from repro_torch.train import Checkpointer
+
+    t0 = time.perf_counter()
+    init_world(rank, world, f"file://{store}", device_type="cuda", backend=backend)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _build.build(["flash_attention", "flash_attention_bwd", "rmsnorm"])
+    mesh = make_host_mesh(device_type="cuda")
+    dist.barrier()  # the backend's first collective (nccl builds its communicator)
+    t1 = time.perf_counter()
+    cfg = _fsdp_cfg(None if job == "a" else FSDP["layers"])
+    start = torch.load(FSDP_DIR / ("start.pt" if job == "a" else "start4.pt"), mmap=True)
+    ds = _fsdp_data(cfg)
+    out: dict = {"backend": backend, "join_s": t1 - t0, "load_s": time.perf_counter() - t1}
+
+    def placed():
+        model = fsdp.shard_model(_fsdp_model(cfg, start, dev), mesh)
+        return model, dict(model.named_parameters())
+
+    def run_steps(model, params, state, step, first: int, n: int, tag: str):
+        walls, losses, norms, counts, moments = [], [], [], [], []
+        for i in range(first, first + n):
+            batch = ds.batch_at(i)
+            torch.cuda.synchronize()
+            _reset_train_counts()
+            t0 = time.perf_counter()
+            _, state, m = step(model, state, batch, i)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts.append(_train_counts())
+            moments.append(_fsdp_samples(params, lambda n_: state.m[n_]))
+        out.update({f"{tag}/walls": walls, f"{tag}/loss": losses, f"{tag}/grad_norm": norms,
+                    f"{tag}/counts": counts, f"{tag}/m": moments})
+        return state
+
+    if job == "a":
+        model, params = placed()
+        del start
+        opt, step = _fsdp_step(cfg)
+        state = adamw_init(params, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = run_steps(model, params, state, step, 0, TRAIN["steps"], "a")
+        out["a/peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out["a/prints"] = _bit_prints(_train_state(params, state))
+        profiling.enable()  # a further step with the collectives timed (synchronized)
+        _reset_train_counts()
+        t0 = time.perf_counter()
+        step(model, state, ds.batch_at(TRAIN["steps"]), TRAIN["steps"])
+        torch.cuda.synchronize()
+        out["a/profiled_wall"] = time.perf_counter() - t0
+        out["a/profiled/counts"] = [_train_counts()]
+        out["a/spans"] = profiling.phases()
+        profiling.disable()
+    elif job == "b":
+        for mb, once in FSDP["configs"]:
+            tag = f"b/mb{mb}{'once' if once else ''}"
+            model, params = placed()
+            opt, step = _fsdp_step(cfg, mb, once)
+            state = adamw_init(params, opt)
+            profiling.enable()
+            state = run_steps(model, params, state, step, 0, FSDP["steps"], tag)
+            out[f"{tag}/spans"] = profiling.phases()
+            profiling.disable()
+            host = lambda t: t.detach().to("cpu", copy=True)
+            for n, p in params.items():
+                out[f"{tag}/param/{n}"] = host(p)
+                info = fsdp.shard_of(p)
+                out[f"{tag}/dim/{n}"] = info.dim
+                if info.dim is None:
+                    out[f"{tag}/m/{n}"], out[f"{tag}/v/{n}"] = host(state.m[n]), host(state.v[n])
+        # (c): the last run saved, its next step; the save restored into a
+        # fresh placement, and that step again
+        t0 = time.perf_counter()
+        Checkpointer(str(FSDP_DIR / "ckpt2")).save(
+            FSDP["steps"] - 1, (params, state), shardings=fsdp.shardings(model, state),
+            blocking=True)
+        out["c/save_s"] = time.perf_counter() - t0
+        out["c/saved"] = _bit_prints(_train_state(params, state))
+        state = run_steps(model, params, state, step, FSDP["steps"], 1, "c/live")
+        out["c/live"] = _bit_prints(_train_state(params, state))
+        del model, params, state
+        model, params = placed()
+        del start
+        state = adamw_init(params, opt)
+        t0 = time.perf_counter()
+        _, (got, state) = Checkpointer(str(FSDP_DIR / "ckpt2")).restore(
+            None, (params, state), shardings=fsdp.shardings(model, state))
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(got[n])
+        del got
+        out["c/restore_s"] = time.perf_counter() - t0
+        out["c/restored"] = _bit_prints(_train_state(params, state))
+        state = run_steps(model, params, state, step, FSDP["steps"], 1, "c/again")
+        out["c/again"] = _bit_prints(_train_state(params, state))
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _bf16_loose_bad(got, want, lr: float, steps: int) -> int:
+    """Elements of ``got`` farther from ``want`` than TRAIN_TOL's loose
+    bound, ``2 lr`` a step plus a bf16 ulp of the value."""
+    import torch
+
+    w = want.double()
+    ulp = torch.where(w != 0, torch.exp2(torch.floor(torch.log2(w.abs())) - 7),
+                      torch.full_like(w, 2.0 ** -133))
+    return int(((got.double() - w).abs() > 2 * lr * steps + ulp).sum())
+
+
+def phase_fsdp(dev, steps_8a: dict, start_8a: dict) -> dict:
+    """Phase 24 (``FSDP``): (a) the one-rank nccl world from phase 8a's
+    start weights ``start_8a`` against its steps ``steps_8a``
+    (``phase_train``), (b) the two-rank gloo world against one process's
+    unsharded run, (c) the checkpoint across worlds.  The ranks read their
+    start weights from ``FSDP_DIR``, which is removed at the end."""
+    import shutil
+
+    import torch
+
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import fsdp
+    from repro_torch.train import Checkpointer
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    note = "one rank, not a scaling figure"
+    out = {}
+    FSDP_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save(start_8a, FSDP_DIR / "start.pt")
+
+    # (a) one nccl rank, full width and depth, against phase 8a
+    t0 = time.perf_counter()
+    (a,) = _run_world(1, "nccl", "a", target=_fsdp_rank, join_s=FSDP["join_s"])
+    out["a_world_s"] = time.perf_counter() - t0
+    want = steps_8a
+    bad = [k for k, v in want["prints"].items() if a["a/prints"].get(k) != v]
+    L = _fsdp_cfg().n_layers
+    per_step = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dkv": L,
+                "flash_attention_bwd_dq": L, "rmsnorm": (2 * L + 1) + 2 * L}
+    spans = a["a/spans"]
+    coll = spans.get("fsdp.gather", 0.0) + spans.get("fsdp.reduce", 0.0)
+    print(f"24a FSDP, one nccl rank ({note}): llama3.2-1b full width, 16 layers, "
+          f"{TRAIN['batch']} x {TRAIN['seq_len']}: the rank joined in {a['join_s']:.2f} s, "
+          f"loaded the weights in {a['load_s']:.2f} s; step walls {_walls(a['a/walls'])} s (the "
+          f"first cold), peak "
+          f"memory {a['a/peak_gb']:.2f} GB, losses {a['a/loss']}, grad norms {a['a/grad_norm']}, "
+          f"launches a step {a['a/counts']}; a synchronized step {a['a/profiled_wall']:.4f} s, "
+          f"of it collectives {coll:.4f} s ({coll / a['a/profiled_wall']:.3f}: fsdp.gather "
+          f"{spans.get('fsdp.gather', 0.0):.4f} s, fsdp.reduce {spans.get('fsdp.reduce', 0.0):.4f}"
+          f" s); vs phase 8a: {'bit for bit (' + str(len(want['prints'])) + ' tensors)' if not bad else 'DIFFERS ' + str(bad[:6])}")
+    _check(not bad and a["a/loss"] == want["loss"] and a["a/grad_norm"] == want["grad_norm"],
+           f"24a: one rank differs from phase 8a: losses {a['a/loss']} vs {want['loss']}, grad "
+           f"norms {a['a/grad_norm']} vs {want['grad_norm']}, tensors {bad[:6]}")
+    _check(all(c == per_step for c in a["a/counts"]),
+           f"24a launches {a['a/counts']}, want {per_step} a step")
+    out.update(a_walls=a["a/walls"], a_peak_gb=a["a/peak_gb"], a_counts=a["a/counts"][-1],
+               a_collective_share=coll / a["a/profiled_wall"])
+
+    # (b) two gloo ranks, 4 layers; meanwhile this process runs the unsharded
+    # reference and (c)'s restore into one process and its save
+    cfg = _fsdp_cfg(FSDP["layers"])
+    start = {n: t for n, t in start_8a.items()
+             if not n.startswith("blocks.") or int(n.split(".")[1]) < FSDP["layers"]}
+    del start_8a
+    torch.save(start, FSDP_DIR / "start4.pt")
+    dims = fsdp.data_dims(start, {"data": 2, "model": 1})
+    ds, refs, one = _fsdp_data(cfg), {}, {}
+
+    def during():
+        for mb, once in FSDP["configs"]:
+            tag = f"b/mb{mb}{'once' if once else ''}"
+            model = _fsdp_model(cfg, start, dev)
+            params = dict(model.named_parameters())
+            opt, step = _fsdp_step(cfg, mb, once)
+            state = adamw_init(params, opt)
+            r = {"loss": [], "grad_norm": [], "counts": [], "m": []}
+            for i in range(FSDP["steps"]):
+                _reset_train_counts()
+                _, state, m = step(model, state, ds.batch_at(i), i)
+                r["loss"].append(float(m["loss"]))
+                r["grad_norm"].append(float(m["grad_norm"]))
+                r["counts"].append(_train_counts())
+                r["m"].append(train_samples(
+                    lambda p: state.m[_port_leaf(p)].float().cpu().numpy()))
+            r["params"] = {n: p.detach().clone() for n, p in params.items()}
+            refs[tag] = r
+            del model, params, state
+        # (c) the ranks' checkpoint into one process, each rank's chunk printed
+        saved = FSDP_DIR / "ckpt2" / f"step-{FSDP['steps'] - 1:09d}" / "manifest.json"
+        deadline = time.monotonic() + FSDP["wait_s"]
+        while not saved.exists():
+            _check(time.monotonic() < deadline, f"24c: no {saved} after {FSDP['wait_s']} s")
+            time.sleep(0.2)
+        t0 = time.perf_counter()
+        model = _fsdp_model(cfg, start, dev)
+        params = dict(model.named_parameters())
+        opt, _ = _fsdp_step(cfg)
+        one["step"], (got, state) = Checkpointer(str(FSDP_DIR / "ckpt2")).restore(
+            None, (params, adamw_init(params, opt)))
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(got[n])
+        del got
+        whole = _train_state(params, state)
+        one["chunks"] = [_bit_prints({k: fsdp.local_shard(t, dims[k.split("/", 1)[1]], 2, r)
+                                      for k, t in whole.items()}) for r in range(2)]
+        one["s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ranks = _run_world(2, "gloo", "b", target=_fsdp_rank, join_s=FSDP["join_s"], during=during)
+    out["b_world_s"] = time.perf_counter() - t0
+    for tag, r in refs.items():
+        whole = {n: (ranks[0][f"{tag}/param/{n}"] if dims[n] is None else torch.cat(
+                 [o[f"{tag}/param/{n}"] for o in ranks], dims[n])).to(dev) for n in r["params"]}
+        sampled = train_samples(lambda p: whole[_port_leaf(p)].float().cpu().numpy())
+        loose = {n: _bf16_loose_bad(whole[n], w, TRAIN["lr"], FSDP["steps"])
+                 for n, w in r["params"].items()}
+        repl = [n for n in r["params"] if dims[n] is None]
+        same = [n for n in repl for k in ("param", "m", "v")
+                if not torch.equal(ranks[0][f"{tag}/{k}/{n}"], ranks[1][f"{tag}/{k}/{n}"])]
+        for rk, o in enumerate(ranks):
+            got = train_summary(o[f"{tag}/loss"], o[f"{tag}/grad_norm"], sampled,
+                                [_merge_samples([q[f"{tag}/m"][i] for q in ranks])
+                                 for i in range(FSDP["steps"])])
+            want = train_summary(r["loss"], r["grad_norm"], train_samples(
+                lambda p: r["params"][_port_leaf(p)].float().cpu().numpy()), r["m"])
+            diff = compare_train(got, want, TRAIN["lr"])
+            sp = o[f"{tag}/spans"]
+            coll = sp.get("fsdp.gather", 0.0) + sp.get("fsdp.reduce", 0.0)
+            print(f"24b FSDP {tag[2:]}, rank {rk} of 2 (gloo, ranks sharing one card: not a "
+                  f"scaling figure): {FSDP['layers']} layers, {TRAIN['batch']} x "
+                  f"{TRAIN['seq_len']} global: walls {_walls(o[f'{tag}/walls'])} s (the first "
+                  f"cold; collectives timed: {coll:.3f} s of {sum(o[f'{tag}/walls']):.3f}), losses "
+                  f"{o[f'{tag}/loss']} vs one process {r['loss']}, grad norms "
+                  f"{o[f'{tag}/grad_norm']} vs {r['grad_norm']}; largest differences "
+                  f"{json.dumps(train_max_diff(got, want, TRAIN['lr']))}; elements past the loose "
+                  f"bound {sum(loose.values())}; replicated leaves equal across ranks: {not same} "
+                  f"({len(repl)} leaves); launches a step {o[f'{tag}/counts'][-1]} (one process's "
+                  f"{r['counts'][-1]})")
+            _check(not diff and not any(loose.values()) and not same
+                   and o[f"{tag}/counts"] == r["counts"],
+                   f"24b {tag} rank {rk}: {diff[:4]}, past the loose bound "
+                   f"{ {n: v for n, v in loose.items() if v} }, replicated differ {same[:4]}, "
+                   f"launches {o[f'{tag}/counts']} vs {r['counts']}")
+        out[f"{tag}_walls"] = [o[f"{tag}/walls"] for o in ranks]
+    del refs, whole
+
+    # (c)
+    bad_1 = [(r, k) for r in range(2) for k, v in one["chunks"][r].items()
+             if ranks[r]["c/saved"][k] != v]
+    bad_2 = [(r, k) for r in range(2) for k, v in ranks[r]["c/saved"].items()
+             if ranks[r]["c/restored"][k] != v]
+    bad_3 = [(r, k) for r in range(2) for k, v in ranks[r]["c/live"].items()
+             if ranks[r]["c/again"][k] != v]
+    same_metrics = all(ranks[r][f"c/again/{k}"] == ranks[r][f"c/live/{k}"]
+                       for r in range(2) for k in ("loss", "grad_norm"))
+    out["c_one_s"] = one["s"]
+    print(f"24c checkpoint of the 2-rank world (step {one['step']}; saved in "
+          f"{_walls([o['c/save_s'] for o in ranks])} s): into one process "
+          f"{'bit for bit (' + str(len(one['chunks'][0])) + ' tensors, each rank chunk)' if not bad_1 else 'DIFFERS ' + str(bad_1[:4])}"
+          f" ({one['s']:.2f} s), and back into the two ranks "
+          f"({_walls([o['c/restore_s'] for o in ranks])} s) "
+          f"{'bit for bit' if not bad_2 else 'DIFFERS ' + str(bad_2[:4])}; the next step from "
+          f"it vs the step without the restore: "
+          f"{'bit for bit' if not bad_3 and same_metrics else 'DIFFERS ' + str(bad_3[:4])} "
+          f"(losses {[o['c/again/loss'] for o in ranks]})")
+    _check(not bad_1 and not bad_2 and not bad_3 and same_metrics,
+           f"24c checkpoint round trip: {bad_1[:4]} {bad_2[:4]} {bad_3[:4]} {same_metrics}")
+    shutil.rmtree(FSDP_DIR, ignore_errors=True)
+    out["launches"] = {}  # every step of every rank of both worlds
+    for o in [a] + ranks:
+        for key, steps in o.items():
+            if key.endswith("/counts"):
+                for c in steps:
+                    for name, n in c.items():
+                        out["launches"][name] = out["launches"].get(name, 0) + n
+    out["launches_per_step"] = dict(
+        one_rank=a["a/counts"][-1],
+        two_ranks={tag: ranks[0][f"{tag}/counts"][-1] for tag in
+                   (f"b/mb{mb}{'once' if once else ''}" for mb, once in FSDP["configs"])})
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 24 (FSDP training): {out['phase_s']:.1f} s (one-rank world "
+          f"{out['a_world_s']:.1f} s, two-rank world {out['b_world_s']:.1f} s with (c))")
     return out
 
 
@@ -11271,6 +11746,7 @@ def main() -> int:
         kernels[name].update(
             launches_sharded_region_capture=sum(c[name] for c in sharded["captures"]),
             launches_sharded_campus=sharded["campus_counts"][name])
+    fsdp_train = phase_fsdp(dev, trained.pop("steps_8a"), trained.pop("start_8a"))
     fa, rn = kernels["flash_attention_fwd"], kernels["rmsnorm"]
     fa.update({k: v for k, v in moe_kernels.items() if k.startswith("mla_")},
               mla_max_abs_err=moe_kernels["err"])
@@ -11324,6 +11800,12 @@ def main() -> int:
                                  ["rwkv6_chunked"])
     for name, n in zip(("pdu_health", "admm_step"), rwkv_train_power["power_counts"]):
         kernels[name]["launches_rwkv_train_powersim"] = n
+    per = fsdp_train["launches_per_step"]
+    for name, n in fsdp_train["launches"].items():
+        kernels[name].update(
+            launches=kernels[name]["launches"] + n, launches_fsdp_train=n,
+            launches_per_fsdp_step_one_rank=per["one_rank"][name],
+            launches_per_fsdp_step_two_ranks={k: c[name] for k, c in per["two_ranks"].items()})
     print(json.dumps({"serve": {k: serve[k] for k in ("prefill_s", "generate_s", "tokens_per_s")},
                       "train": {k: trained[k] for k in ("step_s", "tokens_per_s", "train_mfu",
                                                          "peak_gb")},
@@ -11410,7 +11892,10 @@ def main() -> int:
                           "round_ms", "elements", "same_bits", "resid_over_step", "phase_s")},
                       "phase22_s": phase22_s,
                       "sharded": {k: sharded[k] for k in ("region_world_s", "worlds_s",
-                                                          "phase_s")}}))
+                                                          "phase_s")},
+                      "fsdp_train": {k: fsdp_train[k] for k in (
+                          "a_walls", "a_peak_gb", "a_collective_share", "a_world_s",
+                          "b_world_s", "c_one_s", "phase_s")}}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

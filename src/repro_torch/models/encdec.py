@@ -34,6 +34,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding import fsdp
 from repro_torch.utils.devices import resolve_device
 
 F64 = torch.float64
@@ -220,7 +221,14 @@ def _embed(p: EncDec, tokens: torch.Tensor, start: int) -> torch.Tensor:
 def forward(p: EncDec, tokens: torch.Tensor, frames: torch.Tensor) -> T.ForwardOut:
     """Float32 logits ``(B, T_dec, V)`` of ``tokens (B, T_dec)`` given
     ``frames (B, T_enc, D)``, from a fresh pass (the encoder, then the
-    decoder blocks, each attending to the memory)."""
+    decoder blocks, each attending to the memory).  A sharded model
+    gathers the leaves outside its stacks once here, each block its
+    own."""
+    with fsdp.gathered(p, skip=(p.enc_blocks, p.dec_blocks)):
+        return _forward(p, tokens, frames)
+
+
+def _forward(p: EncDec, tokens: torch.Tensor, frames: torch.Tensor) -> T.ForwardOut:
     memory = encode(p, frames)
     b, t = tokens.shape
     x = _embed(p, tokens, 0)
@@ -230,8 +238,10 @@ def forward(p: EncDec, tokens: torch.Tensor, frames: torch.Tensor) -> T.ForwardO
 
 def lm_loss(p: EncDec, tokens, labels, frames) -> tuple[torch.Tensor, dict]:
     """``(loss, {"lm_loss", "tokens", "total_loss"})``: the mean next-token
-    cross entropy over the labels ``>= 0`` (``transformer._xent``)."""
-    loss, denom = T._xent(forward(p, tokens, frames).logits, labels)
+    cross entropy over the labels ``>= 0`` (``transformer._xent``; the
+    global batch's on a sharded model, ``tokens`` and ``frames`` this
+    rank's rows)."""
+    loss, denom = T._xent(forward(p, tokens, frames).logits, labels, fsdp.data_group(p))
     return loss, {"lm_loss": loss, "tokens": denom, "total_loss": loss}
 
 
@@ -244,6 +254,7 @@ class EncDecState(NamedTuple):
 def init_decode_state(p: EncDec, frames: torch.Tensor, batch: int, max_len: int) -> EncDecState:
     """Encode ``frames`` once and project every layer's cross K/V from the
     memory; empty self-attention caches of ``max_len`` positions."""
+    fsdp.check_unsharded(p, "init_decode_state")
     cfg = p.cfg
     memory = encode(p, frames)
     b, tm, _ = memory.shape
@@ -267,6 +278,7 @@ def decode_step(p: EncDec, tokens: torch.Tensor, state: EncDecState, pos_offset:
     the caches; otherwise each layer attends over its cache.  The caches
     are updated in place and returned with the new length; the cross K/V
     are read."""
+    fsdp.check_unsharded(p, "decode_step")
     b, t = tokens.shape
     x = _embed(p, tokens, pos_offset)
     positions = _positions(b, t, pos_offset, x.device)

@@ -16,9 +16,14 @@ the one ``shared`` attention block visited after each group.  With
 ``cfg.remat == "block"`` (the reference's ``_maybe_remat``) each block is
 an activation checkpoint while a graph is recorded: its activations are
 recomputed in the backward pass, so the flash forward and the block's
-norms run twice per training step.  ``constrain_activations`` and
-``maybe_constrain`` are identities on one device and are dropped (sharding
-comes with ``sharding/rules.py``).
+norms run twice per training step.  On a model that
+``sharding.fsdp.shard_model`` placed on a mesh, each block (group) reads
+its sharded weights through ``fsdp.gathered`` inside the body that is
+checkpointed, so the recompute gathers them again, and ``forward`` gathers
+the leaves outside the stacks (the embedding, ``lm_head``) once; the batch
+arrives split by ``rules.shard_batch`` (the reference's
+``constrain_activations``; its ``maybe_constrain`` annotates GSPMD and has
+nothing to do here) and ``lm_loss`` is the global batch's.
 
 The ``moe`` family trains as the reference does: ``lm_loss`` adds the
 averaged ``load_balance`` and ``router_z`` terms and ``0.3 x`` the MTP
@@ -55,6 +60,7 @@ from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import rwkv6 as R
+from repro_torch.sharding import fsdp
 from repro_torch.utils.devices import resolve_device
 
 # The module lists whose per-layer leaves the reference stacks on leading
@@ -188,9 +194,11 @@ def _checkpointed(fn):
 
 
 def _block_out_aux(blk: B.DecoderBlock):
-    """``(output, aux)`` of ``blk`` as a function of its inputs."""
+    """``(output, aux)`` of ``blk`` as a function of its inputs, its
+    sharded weights gathered within."""
     def body(x, positions, *extra):
-        out, _, aux = blk(x, positions, *extra)
+        with fsdp.gathered(blk):
+            out, _, aux = blk(x, positions, *extra)
         return out, aux
 
     return body
@@ -202,15 +210,17 @@ def _run_stack(cfg, blocks, x, positions, *extra) -> tuple[torch.Tensor, list]:
     block's aux (its ``MoEAux``, None for a dense FFN).  With ``cfg.remat ==
     "block"`` while a graph is recorded, each block is an activation
     checkpoint (the reference's ``_maybe_remat``), its aux carried out
-    beside its output."""
+    beside its output.  A sharded block gathers its weights inside the
+    checkpoint (``_block_out_aux``)."""
     remat = cfg.remat == "block" and torch.is_grad_enabled()
     auxes = []
     for blk in blocks:
+        body = _block_out_aux(blk)
         if remat:
             x, aux = torch.utils.checkpoint.checkpoint(
-                _checkpointed(_block_out_aux(blk)), x, positions, *extra, use_reentrant=False)
+                _checkpointed(body), x, positions, *extra, use_reentrant=False)
         else:
-            x, _, aux = blk(x, positions, *extra)
+            x, aux = body(x, positions, *extra)
         auxes.append(aux)
     return x, auxes
 
@@ -218,7 +228,19 @@ def _run_stack(cfg, blocks, x, positions, *extra) -> tuple[torch.Tensor, list]:
 def forward(p: Transformer, tokens: torch.Tensor, *, embeddings=None) -> ForwardOut:
     """Logits of ``tokens (B, T)`` (or of the modality-stub ``embeddings
     (B, T, D)``) from a fresh causal pass (for ``ssm``, from a zero
-    state)."""
+    state).  A sharded model gathers the leaves outside its stacks once
+    here, each block its own."""
+    with fsdp.gathered(p, skip=_stacks(p)):
+        return _forward(p, tokens, embeddings)
+
+
+def _stacks(p) -> list:
+    """The modules of ``p`` that gather their own weights: the block
+    stacks and the hybrid ``shared`` block (visited inside each group)."""
+    return [getattr(p, n, None) for n in STACKS + ("shared",)]
+
+
+def _forward(p: Transformer, tokens: torch.Tensor, embeddings) -> ForwardOut:
     b, t = tokens.shape[:2]
     x = p.embed.embed(tokens) if embeddings is None else embeddings
     if p.cfg.family == "ssm":
@@ -241,7 +263,10 @@ def _forward_rwkv(p: Transformer, x) -> torch.Tensor:
     ``_maybe_remat(rwkv_body)``)."""
     remat = p.cfg.remat == "block" and torch.is_grad_enabled()
     for blk in p.blocks:
-        body = lambda h, blk=blk: blk(h)[0]
+        def body(h, blk=blk):
+            with fsdp.gathered(blk):
+                return blk(h)[0]
+
         x = (torch.utils.checkpoint.checkpoint(_checkpointed(body), x, use_reentrant=False)
              if remat else body(x))
     return x
@@ -249,11 +274,13 @@ def _forward_rwkv(p: Transformer, x) -> torch.Tensor:
 
 def _group_body(p: Transformer, group):
     """A hybrid group as a function of ``(x, emb0, positions)``: its Mamba
-    blocks from a zero state, then the shared block's visit."""
+    blocks from a zero state, then the shared block's visit, their sharded
+    weights gathered within."""
     def body(x, emb0, positions):
-        for blk in group:
-            x, _ = blk(x)
-        return p.shared(x, emb0, positions)[0]
+        with fsdp.gathered(*group, p.shared):
+            for blk in group:
+                x, _ = blk(x)
+            return p.shared(x, emb0, positions)[0]
 
     return body
 
@@ -310,10 +337,13 @@ def lm_loss(p: Transformer, tokens: torch.Tensor, labels: torch.Tensor, *,
     ``mtp_loss`` (the cross entropy of ``mtp_logits`` against the labels
     rolled one step left, the last column ignored; ``0.3 x`` it is added)
     and ``total_loss`` (``dense``, ``vlm``, ``ssm`` and ``hybrid``: the
-    cross entropy alone)."""
+    cross entropy alone).  On a sharded model ``tokens`` are this rank's
+    rows and the loss, ``lm_loss`` and ``tokens`` are the global batch's
+    (``_xent``)."""
     check_training(p.cfg)
     out = forward(p, tokens, embeddings=embeddings)
-    loss, denom = _xent(out.logits, labels)
+    group = fsdp.data_group(p)
+    loss, denom = _xent(out.logits, labels, group)
     metrics = {"lm_loss": loss, "tokens": denom}
     total = loss
     for k, v in out.aux_losses.items():
@@ -323,27 +353,41 @@ def lm_loss(p: Transformer, tokens: torch.Tensor, labels: torch.Tensor, *,
     if out.mtp_logits is not None:
         mtp_labels = torch.roll(labels, -1, dims=1)
         mtp_labels[:, -1] = -100
-        mtp_loss, _ = _xent(out.mtp_logits, mtp_labels)
+        mtp_loss, _ = _xent(out.mtp_logits, mtp_labels, group)
         total = total + 0.3 * mtp_loss
         metrics["mtp_loss"] = mtp_loss
     metrics["total_loss"] = total
     return total, metrics
 
 
-def _xent(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _xent(logits: torch.Tensor, labels: torch.Tensor,
+          group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """``(mean nll over valid labels, valid count)``.  The gold logit is a
     ``gather``: exactly the reference's masked sum over the vocab axis
     (whose only non-zero term is the gold logit), which the reference
     writes so for a vocab sharded across devices.  On one device the
     gather saves materialising a second (B, T, V) float32 tensor and its
-    gradient."""
+    gradient.
+
+    With the ``"data"`` axis's ``group`` (a sharded model; ``labels`` this
+    rank's rows) the mean is the global batch's, as the reference's mean
+    over its global batch: the count is summed over the ranks (one
+    all-reduce; the ranks' counts differ where labels hold -100), each
+    rank divides its sum of nll by it, and the ranks' quotients are summed
+    (``fsdp.global_sum``, whose gradient is each rank's own share).  So
+    the loss is another association of the same sum: within float32
+    rounding of the one-process loss, not bit for bit past one rank."""
     valid = labels >= 0
     safe = torch.clamp(labels, min=0)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = (logz - gold) * valid
-    denom = torch.clamp(torch.sum(valid), min=1)
-    return torch.sum(nll) / denom, denom
+    count = torch.sum(valid)
+    if group is None:
+        denom = torch.clamp(count, min=1)
+        return torch.sum(nll) / denom, denom
+    denom = torch.clamp(fsdp.global_sum(count, group), min=1)
+    return fsdp.global_sum(torch.sum(nll) / denom, group), denom
 
 
 def init_decode_state(cfg, batch: int, max_len: int, *, device="cuda") -> dict:
@@ -411,6 +455,7 @@ def decode_step(
     place, and each visit of the shared block attends over its own cache
     (on prefill through ``ops.attention``, its keys and values then
     written)."""
+    fsdp.check_unsharded(p, "decode_step")
     b, t = tokens.shape
     x = p.embed.embed(tokens)
     if p.cfg.family == "hybrid":

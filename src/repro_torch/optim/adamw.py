@@ -28,6 +28,15 @@ matrix of deepseek-v2 holds 1.26 B elements: 5 GB a float32 copy).  The
 update is elementwise, so the slices give the same bits as the whole leaf.
 The moments are updated in place: the state returned holds the tensors of
 the state passed in (one copy of the moments, not two, at any time).
+
+On a model that ``sharding.fsdp.shard_model`` placed on a mesh, the
+parameters are this rank's shards and ``adamw_init`` gives moments of the
+same shards (the reference's ``opt_sh = (repl, param_sh, param_sh)``);
+the update is elementwise, so it runs on the shards unchanged.
+``global_norm`` is then the global gradient's (``fsdp.sum_of_squares``:
+the ranks' partial sums reassociate the one-process sum, so the norm, and
+with it the clip scale, may differ from it by float32 ulps past one rank;
+every rank gets the same bits).
 """
 from __future__ import annotations
 
@@ -37,6 +46,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.models.transformer import STACK_DEPTH
+from repro_torch.sharding import fsdp
 
 F32 = torch.float32
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -85,11 +95,11 @@ def _slices(x: torch.Tensor):
         yield slice(i, i + rows)
 
 
-def global_norm(tree: dict) -> torch.Tensor:
+def global_norm(tree: dict, params: dict) -> torch.Tensor:
     """``sqrt(sum of squares)`` of every leaf, in float32 (a large leaf
-    summed slice by slice)."""
-    return torch.sqrt(sum(torch.sum(torch.square(x[s].to(F32)))
-                          for x in tree.values() for s in _slices(x)))
+    summed slice by slice), ``tree`` the gradients of ``params`` by name:
+    of a sharded model, the global gradient's (``fsdp.sum_of_squares``)."""
+    return torch.sqrt(fsdp.sum_of_squares(tree, params, _slices))
 
 
 def reference_ndim(name: str, p: torch.Tensor) -> int:
@@ -115,7 +125,7 @@ def adamw_update(
     ``grad_norm`` (before clipping) and ``lr``.  Matrices in the
     reference's layout are decayed (``reference_ndim``).  Parameters and
     moments are updated in place, a large leaf slice by slice."""
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, params)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1
     stepf = step.to(F32)

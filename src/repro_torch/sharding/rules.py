@@ -26,20 +26,31 @@ Port of ``repro.sharding.rules`` on ``torch.distributed``.
   of names per dim), and ``placements`` turns one into DTensor
   ``Shard`` / ``Replicate`` placements.
 
-The reference's GSPMD constraint helpers (``maybe_constrain``,
-``constrain_to_mesh``, ``constrain_activations``,
-``constrain_gathered_weight``) wait for FSDP training (ROADMAP.md queue 1
-item 9b); ``shard_map_compat`` covers jax API drift and has no
-counterpart.
+* **FSDP training** (``sharding/fsdp.py``) places a model by these specs
+  on a ``("data", "model")`` mesh with ``"model"`` 1 (``check_fsdp_mesh``;
+  tensor parallelism and the ``"pod"`` axis are ROADMAP.md item 9b).  The
+  reference's GSPMD constraint helpers become explicit operations there:
+  ``shard_batch`` takes this rank's rows by ``batch_spec`` (the batch's
+  ``in_shardings`` and ``constrain_activations``, which keep activations
+  batch-sharded), and ``constrain_gathered_weight`` gathers a shard whole
+  along ``"data"`` (the step's ``gather_small_weights_once``).
+  ``maybe_constrain`` and ``constrain_to_mesh`` only annotate GSPMD's
+  propagation and have no operation to port in an explicit layout;
+  ``shard_map_compat`` covers jax API drift and has no counterpart either.
+  A sharded parameter carries its ``DataShard`` (``shard_of``): where it
+  lies on the data axis, which the step, the optimizer's norm and the
+  checkpoint's reshard-on-restore read.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from collections.abc import Mapping
 from typing import Any
 
 import torch
 
+from repro_torch.core import profiling
 from repro_torch.utils.trees import tree_leaves, tree_map
 
 
@@ -160,7 +171,147 @@ def shard_racks(traces: torch.Tensor, mesh) -> torch.Tensor:
     return traces[..., lo:hi].contiguous()
 
 
+def check_fsdp_mesh(mesh):
+    """``mesh`` if FSDP training runs on it: a ``"data"`` axis, a
+    ``"model"`` axis of size 1 if any, nothing else.  Tensor parallelism
+    (``"model"`` > 1) and the ``"pod"`` axis raise ``ValueError``: they are
+    ROADMAP.md item 9b."""
+    sizes = axis_sizes(mesh)
+    if "data" not in sizes:
+        raise ValueError(f"mesh axes {tuple(sizes)} lack the data axis 'data'")
+    if sizes.get("model", 1) > 1:
+        raise ValueError(f"a 'model' axis of {sizes['model']} is tensor parallelism, which the "
+                         "port's training does not run yet (ROADMAP.md item 9b)")
+    other = set(sizes) - {"data", "model"}
+    if other:
+        raise ValueError(f"mesh axes {sorted(other)}: training runs on ('data', 'model') only; "
+                         "the 'pod' axis is ROADMAP.md item 9b")
+    return mesh
+
+
+def shard_batch(batch, mesh) -> dict:
+    """This rank's rows of every ``(B, ...)`` tensor of ``batch`` (a dict)
+    by ``batch_spec``: the explicit form of the batch's ``in_shardings``
+    and of ``constrain_activations`` (each rank computes its own rows).
+    A batch that does not split evenly over the data axis raises
+    ``ValueError``: the reference would replicate it, and replicated rows
+    would count once a rank in the global loss."""
+    check_fsdp_mesh(mesh)
+    n, rank = axis_sizes(mesh)["data"], axis_index(mesh, "data")
+    out = {}
+    for k, v in batch.items():
+        if batch_spec(mesh, v.shape[0]) != P("data"):
+            raise ValueError(f"a batch of {v.shape[0]} rows ({k!r}) does not split over the {n} "
+                             "ranks of the data axis")
+        out[k] = v.chunk(n, 0)[rank]
+    return out
+
+
+@dataclasses.dataclass(eq=False)
+class DataShard:
+    """Where a parameter of a sharded model lies on the mesh's ``"data"``
+    axis (``fsdp.shard_model`` sets it as ``p._fsdp``): ``dim`` the tensor
+    dim split over the axis's ``size`` ranks (None: whole on every rank),
+    ``rank`` this rank's coordinate on it, ``group`` its process group.
+    ``held`` is a gathered copy that ``fsdp.gathered`` reads instead of
+    gathering (the step's ``gather_small_weights_once``)."""
+
+    dim: int | None
+    size: int
+    rank: int
+    group: Any
+    held: torch.Tensor | None = None
+
+
+def shard_of(p: torch.Tensor) -> DataShard | None:
+    """The ``DataShard`` of a parameter of a sharded model, else None."""
+    return getattr(p, "_fsdp", None)
+
+
+def constrain_gathered_weight(path, leaf: torch.Tensor, mesh) -> torch.Tensor:
+    """``leaf``, this rank's shard of the parameter at ``path`` of a model
+    that ``fsdp.shard_model`` placed on ``mesh``, gathered whole along
+    ``"data"`` with its ``"model"`` placement kept (whole at model 1, the
+    only size that trains yet): "gather once, keep TP".  No autograd; a
+    replicated leaf comes back as it is (detached)."""
+    check_fsdp_mesh(mesh)
+    info = shard_of(leaf)
+    if info is None:
+        name = path if isinstance(path, str) else ".".join(path)
+        raise ValueError(f"{name}: not a parameter of a sharded model (fsdp.shard_model)")
+    if info.dim is None:
+        return leaf.detach()
+    return all_gather_dim(leaf, info.dim, info.group)
+
+
 # ------------------------------------------------------------- collectives
+
+
+def nccl(group) -> bool:
+    """Whether ``group``'s backend is nccl (else gloo)."""
+    import torch.distributed as dist
+
+    return dist.get_backend(group) == "nccl"
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order (no
+    autograd)."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    x = x.detach().contiguous()
+    with profiling.span("fsdp.gather") as sync:
+        if nccl(group):
+            out = x.new_empty((n,) + tuple(x.shape))
+            dist.all_gather_into_tensor(out, x, group=group)
+            shape = list(x.shape)
+            shape[dim] *= n
+            out = out.movedim(0, dim).reshape(shape)
+        else:  # gloo: the list form (its tensor form does not take CUDA tensors)
+            parts = [torch.empty_like(x) for _ in range(n)]
+            dist.all_gather(parts, x, group=group)
+            out = torch.cat(parts, dim=dim)
+        sync(out)
+    return out
+
+
+def reduce_scatter_dim(g: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over the ranks of ``g``, this rank's chunk along ``dim``
+    (no autograd)."""
+    import torch.distributed as dist
+
+    n, rank = dist.get_world_size(group), dist.get_rank(group)
+    with profiling.span("fsdp.reduce") as sync:
+        if nccl(group):
+            src = g.unflatten(dim, (n, g.shape[dim] // n)).movedim(dim, 0).contiguous()
+            out = g.new_empty(src.shape[1:])
+            dist.reduce_scatter_tensor(out, src, group=group)
+        else:  # gloo has no reduce-scatter of CUDA tensors: an all-reduce, then the slice
+            buf = torch.empty_like(g, memory_format=torch.contiguous_format).copy_(g)
+            dist.all_reduce(buf, group=group)
+            out = buf.chunk(n, dim)[rank].contiguous()
+        sync(out)
+    return out
+
+
+def all_reduce_sum(tensors: list, group) -> list:
+    """Each tensor summed over the ranks (new tensors), one all-reduce a
+    dtype over their flattened concatenation."""
+    import torch.distributed as dist
+
+    out = list(tensors)
+    by_dtype: dict = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    with profiling.span("fsdp.reduce") as sync:
+        for idx in by_dtype.values():
+            flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+            dist.all_reduce(flat, group=group)
+            for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
+                out[i] = part.view(tensors[i].shape)
+            sync(flat)
+    return out
 
 
 def all_gather_tree(tree, mesh, axis: str) -> list:

@@ -16,8 +16,20 @@ A tree is nested dicts, tuples/lists and NamedTuples of tensors; dict
 keys are the port's names (parameters: ``dict(model.named_parameters())``
 keys), so a path reads ``0/blocks.3.attn.wq.kernel`` or ``1/m/...``.
 Restore places every leaf on the device and in the dtype of the matching
-leaf of ``like``.  The reference's reshard-on-restore (``shardings=``)
-comes with multi-GPU sharding (ROADMAP.md).
+leaf of ``like``.
+
+Sharded worlds (``sharding.fsdp``): ``shardings=`` is a tree of
+``rules.DataShard`` shaped as the tree, each leaf's placement on the data
+axis (``fsdp.shardings(model, opt_state)`` for ``(params, opt_state)``).
+``save(..., shardings=)`` gathers every sharded leaf whole on the caller's
+thread (every rank takes part), and rank 0 of the data axis writes the
+same ``arrays.npz`` layout as a one-process save; the other ranks write
+nothing and every rank waits at a barrier in ``wait()`` (``blocking=True``
+waits at once).  ``restore(..., shardings=)`` is the reference's
+reshard-on-restore: each rank reads the whole leaves and keeps its chunk
+along each leaf's data dim, whatever world wrote them.  A checkpoint is
+one layout for every world: saved by 2 ranks it restores into 1 or 2, and
+the other way round, bit for bit.
 """
 from __future__ import annotations
 
@@ -31,25 +43,44 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.sharding import rules
+from repro_torch.sharding.rules import DataShard
+
 
 _NUMPY_FLOATS = (torch.float16, torch.float32, torch.float64)
 
 
-def _leaves(tree: Any, prefix: tuple = ()):
-    """``(path, leaf)`` pairs in a fixed order."""
-    if isinstance(tree, torch.Tensor):
+def _leaves(tree: Any, prefix: tuple = (), leaf=torch.Tensor):
+    """``(path, leaf)`` pairs in a fixed order (the leaves instances of
+    ``leaf``)."""
+    if isinstance(tree, leaf):
         yield prefix, tree
     elif isinstance(tree, dict):
         for k in tree:
-            yield from _leaves(tree[k], prefix + (str(k),))
+            yield from _leaves(tree[k], prefix + (str(k),), leaf)
     elif hasattr(tree, "_fields"):  # NamedTuple
         for k in tree._fields:
-            yield from _leaves(getattr(tree, k), prefix + (k,))
+            yield from _leaves(getattr(tree, k), prefix + (k,), leaf)
     elif isinstance(tree, (tuple, list)):
         for i, v in enumerate(tree):
-            yield from _leaves(v, prefix + (str(i),))
+            yield from _leaves(v, prefix + (str(i),), leaf)
     else:
-        raise TypeError(f"checkpoint leaves must be tensors, got {type(tree)} at {prefix}")
+        raise TypeError(f"checkpoint leaves must be {leaf.__name__}, got {type(tree)} at "
+                        f"{prefix}")
+
+
+def _placements(tree: Any, shardings: Any) -> list:
+    """The ``DataShard`` of each leaf of ``tree`` that is split over the
+    data axis, from the same path of ``shardings``; None for a whole leaf
+    (every leaf without ``shardings``)."""
+    paths = [p for p, _ in _leaves(tree)]
+    if shardings is None:
+        return [None] * len(paths)
+    by_path = dict(_leaves(shardings, leaf=DataShard))
+    missing = [p for p in paths if p not in by_path]
+    if missing:
+        raise ValueError(f"no sharding for the leaf {'/'.join(missing[0])}")
+    return [by_path[p] if by_path[p].dim is not None else None for p in paths]
 
 
 def _rebuild(tree: Any, it) -> Any:
@@ -62,10 +93,20 @@ def _rebuild(tree: Any, it) -> Any:
     return type(tree)(_rebuild(v, it) for v in tree)
 
 
-def _flatten(tree: Any) -> dict[str, np.ndarray]:
+def _flatten(tree: Any, shardings: Any = None, keep: bool = True) -> dict[str, np.ndarray]:
+    """``{path: whole leaf on the host}``; a sharded leaf gathered whole
+    first (a collective: every rank calls it).  With ``keep=False`` the
+    leaves are gathered and dropped (a rank that does not write)."""
     flat = {}
-    for path, leaf in _leaves(tree):
+    for (path, leaf), place in zip(_leaves(tree), _placements(tree, shardings)):
         t = leaf.detach()
+        if place is not None:
+            # gloo gathers host tensors natively (CUDA ones it copies through
+            # the host both ways); nccl gathers on the device
+            t = rules.all_gather_dim(t if rules.nccl(place.group) else t.cpu(), place.dim,
+                                     place.group)
+        if not keep:
+            continue
         if t.dtype.is_floating_point and t.dtype not in _NUMPY_FLOATS:
             t = t.to(torch.float32)  # bf16/f8: npz cannot round-trip them
         flat["/".join(path)] = t.cpu().numpy()
@@ -77,13 +118,27 @@ class Checkpointer:
         self.directory = directory
         self.keep = keep
         self._thread: threading.Thread | None = None
+        self._barrier = None  # the data axis's group after a sharded save
         os.makedirs(directory, exist_ok=True)
 
     # ------------------------------------------------------------- save --
 
-    def save(self, step: int, tree: Any, *, blocking: bool = False) -> None:
+    def save(self, step: int, tree: Any, *, blocking: bool = False,
+             shardings: Any = None) -> None:
+        """Save ``tree`` as step ``step`` (in the background unless
+        ``blocking``).  With ``shardings`` (a sharded world; every rank
+        calls it) the leaves are gathered whole and rank 0 of the data
+        axis writes them."""
         self.wait()
-        flat = _flatten(tree)  # device -> host on the caller's thread
+        writes = True
+        if shardings is not None:
+            axis = next(s for _, s in _leaves(shardings, leaf=DataShard))
+            self._barrier, writes = axis.group, axis.rank == 0
+        flat = _flatten(tree, shardings, writes)  # device -> host on the caller's thread
+        if not writes:
+            if blocking:
+                self.wait()
+            return
         manifest = {
             "step": int(step),
             "leaves": {k: {"shape": list(v.shape), "dtype": str(v.dtype)} for k, v in flat.items()},
@@ -105,14 +160,22 @@ class Checkpointer:
 
         if blocking:
             write()
+            self.wait()
         else:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
 
     def wait(self) -> None:
+        """Join the background write; after a sharded save, every rank
+        then waits for the others (a barrier on the data axis)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier is not None:
+            import torch.distributed as dist
+
+            group, self._barrier = self._barrier, None
+            dist.barrier(group=group)
 
     def _gc(self) -> None:
         steps = self.all_steps()
@@ -133,9 +196,15 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int | None, like: Any) -> tuple[int, Any]:
+    def restore(self, step: int | None, like: Any, *,
+                shardings: Any = None) -> tuple[int, Any]:
         """Restore into the structure of ``like``: each leaf on the device
-        and in the dtype of ``like``'s leaf at the same path."""
+        and in the dtype of ``like``'s leaf at the same path.  With
+        ``shardings`` (a ``DataShard`` tree shaped as ``like``) each
+        leaf is this rank's chunk along its data dim, ``like``'s leaves
+        the shards (reshard-on-restore: any world's checkpoint).  A save
+        still in flight is waited for first."""
+        self.wait()
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -143,9 +212,15 @@ class Checkpointer:
         d = os.path.join(self.directory, f"step-{step:09d}")
         with np.load(os.path.join(d, "arrays.npz")) as arrays:
             leaves = []
-            for path, leaf in _leaves(like):
+            for (path, leaf), place in zip(_leaves(like), _placements(like, shardings)):
                 key = "/".join(path)
                 arr = arrays[key]
+                if place is not None:
+                    dim, n, rank = place.dim, place.size, place.rank
+                    if arr.ndim <= dim or arr.shape[dim] % n:
+                        raise ValueError(f"{key}: {arr.shape} does not split over {n} ranks "
+                                         f"along dim {dim}")
+                    arr = np.ascontiguousarray(np.split(arr, n, axis=dim)[rank])
                 if tuple(arr.shape) != tuple(leaf.shape):
                     raise ValueError(f"shape mismatch for {key}: {arr.shape} vs {tuple(leaf.shape)}")
                 leaves.append(torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype))

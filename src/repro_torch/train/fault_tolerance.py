@@ -11,9 +11,9 @@ Three mechanisms, each exercised by tests:
     saturated battery is treated as degraded before it even slows down.
 
   * **Elastic remesh** — resume a checkpoint on a different device count:
-    checkpoints are stored unsharded (reshard-on-restore comes with the
-    port's multi-GPU sharding); the data pipeline is step-keyed so the
-    batch stream continues identically.
+    checkpoints are stored unsharded and ``Checkpointer.restore(...,
+    shardings=)`` reshards them for any world; the data pipeline is
+    step-keyed so the batch stream continues identically.
 
   * **PowerAwareCheckpointer** — EasyRider SoC telemetry drives emergency
     checkpoints: if the battery leaves its safe band (grid event in
@@ -109,15 +109,18 @@ class PowerAwareCheckpointer:
         self._last_emergency = -(10**9)
         self.emergency_saves = 0
 
-    def maybe_save(self, step: int, tree, *, soc: float | None = None) -> str | None:
-        """Returns "scheduled" | "emergency" | None."""
+    def maybe_save(self, step: int, tree, *, soc: float | None = None,
+                   shardings=None) -> str | None:
+        """Returns "scheduled" | "emergency" | None.  ``shardings``: a
+        sharded world's (``Checkpointer.save``); every rank calls it with
+        the same ``soc``."""
         if soc is not None and not (self.soc_window[0] <= soc <= self.soc_window[1]):
             if step - self._last_emergency >= self.cooldown_steps:
-                self.ckpt.save(step, tree)
+                self.ckpt.save(step, tree, shardings=shardings)
                 self._last_emergency = step
                 self.emergency_saves += 1
                 return "emergency"
         if self.every_steps and step > 0 and step % self.every_steps == 0:
-            self.ckpt.save(step, tree)
+            self.ckpt.save(step, tree, shardings=shardings)
             return "scheduled"
         return None

@@ -8,6 +8,16 @@ batches (``audio``: with the encoder frames of ``audio_frames``), saves
 checkpoints (scheduled, and SoC-triggered emergency saves through
 ``PowerAwareCheckpointer``), resumes from the newest one with
 ``tc.resume``, and reports each step to ``power_sim``.
+
+With ``mesh`` (a ``("data", "model")`` mesh of ``"model"`` 1, e.g.
+``launch.mesh.make_host_mesh``; every rank of the world calls ``train``
+alike) the model is sharded after ``init`` (``sharding.fsdp.shard_model``:
+every rank draws the same full weights from ``tc.seed``, then keeps its
+shards), each step is given the global batch of ``ds.batch_at(step)``
+(``audio``: the global frames) and keeps this rank's rows, and the
+checkpoints are saved and restored through the shardings (rank 0 writes
+the one-process layout; any world resumes from it).  ``PowerSim`` runs on
+every rank, fed by its own steps.
 """
 from __future__ import annotations
 
@@ -22,6 +32,7 @@ from repro_torch.data import DataConfig, SyntheticLMDataset
 from repro_torch.models import encdec as ED, layers as L, transformer as T
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.power.integration import PowerSim
+from repro_torch.sharding import fsdp
 from repro_torch.train.checkpoint import Checkpointer
 from repro_torch.train.fault_tolerance import PowerAwareCheckpointer, StragglerMonitor
 from repro_torch.train.step import build_train_step
@@ -66,6 +77,7 @@ def train(
     power_sim: PowerSim | None = None,
     callbacks: list[Callable] | None = None,
     device="cuda",
+    mesh=None,
 ) -> dict:
     """Returns ``{"params": the trained Transformer (``audio``: EncDec),
     "opt_state", "history": [{"step", "loss", "grad_norm"}, ...],
@@ -73,8 +85,11 @@ def train(
     dev = resolve_device(device)
     init = ED.init if cfg.family == "audio" else T.init
     model = init(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(tc.seed))
+    if mesh is not None:
+        fsdp.shard_model(model, mesh)
     params = dict(model.named_parameters())
     opt_state = adamw_init(params, opt_cfg)
+    shardings = None if mesh is None else fsdp.shardings(model, opt_state)
     step_fn = build_train_step(
         cfg, opt_cfg, microbatches=tc.microbatches, total_steps=tc.steps,
         warmup_steps=max(tc.steps // 10, 1),
@@ -87,7 +102,8 @@ def train(
             Checkpointer(tc.checkpoint_dir), every_steps=tc.checkpoint_every
         )
         if tc.resume and ckpt.ckpt.all_steps():
-            start_step, (saved, opt_state) = ckpt.ckpt.restore(None, (params, opt_state))
+            start_step, (saved, opt_state) = ckpt.ckpt.restore(None, (params, opt_state),
+                                                                shardings=shardings)
             with torch.no_grad():
                 for n, p in params.items():
                     p.copy_(saved[n])
@@ -116,7 +132,7 @@ def train(
             power_sim.on_step(checkpoint_stall=is_ckpt_step)
         if ckpt is not None:
             soc = power_sim.soc if power_sim is not None else None
-            ckpt.maybe_save(step, (params, opt_state), soc=soc)
+            ckpt.maybe_save(step, (params, opt_state), soc=soc, shardings=shardings)
         if step % tc.log_every == 0 or step == tc.steps - 1:
             history.append({"step": step, "loss": loss,
                             "grad_norm": float(metrics["grad_norm"])})
@@ -124,7 +140,7 @@ def train(
             cb(step, metrics)
 
     if ckpt is not None:
-        ckpt.ckpt.save(tc.steps - 1, (params, opt_state), blocking=True)
+        ckpt.ckpt.save(tc.steps - 1, (params, opt_state), blocking=True, shardings=shardings)
     out = {
         "params": model,
         "opt_state": opt_state,

@@ -28,9 +28,25 @@ family trains with the plain cross entropy
 and, under ``remat="block"``, one checkpoint a group; the ``audio`` family
 (``encdec.lm_loss``) reads the encoder frames from ``batch["frames"]``,
 with one checkpoint an encoder and a decoder block.
-``gather_small_weights_once`` is a sharding constraint of the reference's
-FSDP mesh; on one device it is an identity (its port is ROADMAP.md's item
-9).
+
+A model that ``sharding.fsdp.shard_model`` placed on a mesh (it carries
+the mesh; the step takes no other argument) trains as the reference's
+jitted step under the rules' shardings, the global batch's step: every
+rank is given the global batch and keeps its rows of each microbatch
+(``rules.shard_batch``; microbatch i is the global batch's slice i, as
+the reference's, so each microbatch's loss divides by the valid labels of
+the same rows), the loss and metrics are the global ones on every rank
+(``transformer._xent``), the shards' gradients come back reduce-scattered
+from ``fsdp.gather``'s backward and the replicated leaves' are all-reduced
+(``fsdp.reduce_grads``) before AdamW, whose norm sums over the ranks
+(``adamw.global_norm``).  With ``gather_small_weights_once`` and
+``microbatches > 1`` every sharded leaf that is not a routed expert's is
+gathered once before the microbatch loop (``rules.
+constrain_gathered_weight``), its full float32 gradient accumulated over
+the microbatches and reduce-scattered once after them: the reference's
+``gather_small_weights_once``.  Without a mesh it changes nothing, as on
+the reference's one device.  The ``moe`` family and MTP do not shard
+(``fsdp.check_family``).
 """
 from __future__ import annotations
 
@@ -41,6 +57,7 @@ import torch
 from repro_torch.models import encdec as ED, moe as MOE, transformer as T
 from repro_torch.optim import AdamWConfig, adamw_update
 from repro_torch.optim.schedules import cosine_schedule
+from repro_torch.sharding import fsdp, rules
 
 F32 = torch.float32
 
@@ -72,22 +89,36 @@ def build_train_step(
         params = dict(model.named_parameters())
         names = list(params)
         dev = next(iter(params.values())).device
+        mesh = fsdp.mesh_of(model)
         batch = {k: torch.as_tensor(v).to(dev, non_blocking=True) for k, v in batch.items()}
         if microbatches > 1:
             parts = {k: torch.chunk(v, microbatches, dim=0) for k, v in batch.items()}
             if any(len(p) != microbatches or p[0].shape != p[-1].shape for p in parts.values()):
                 raise ValueError(f"the batch does not split into {microbatches} microbatches")
-            grads = {n: torch.zeros(p.shape, dtype=F32, device=dev) for n, p in params.items()}
-            loss = torch.zeros((), dtype=F32, device=dev)
-            for i in range(microbatches):
-                mb_loss, metrics, mb_grads = grads_of(
-                    model, names, params, {k: v[i] for k, v in parts.items()})
-                for n, g in mb_grads.items():
-                    grads[n].add_(g.to(F32) / microbatches)
-                loss = loss + mb_loss / microbatches
-                del mb_grads
+            parts = [{k: v[i] for k, v in parts.items()} for i in range(microbatches)]
         else:
-            loss, metrics, grads = grads_of(model, names, params, batch)
+            parts = [batch]
+        held = {}
+        if mesh is not None:
+            parts = [rules.shard_batch(part, mesh) for part in parts]
+            if gather_small_weights_once and microbatches > 1:
+                held = fsdp.gather_once(params, mesh)
+        leaves = {**params, **held}
+        with fsdp.holding(params, held):
+            if microbatches > 1:
+                grads = {n: torch.zeros(p.shape, dtype=F32, device=dev) for n, p in leaves.items()}
+                loss = torch.zeros((), dtype=F32, device=dev)
+                for part in parts:
+                    mb_loss, metrics, mb_grads = grads_of(model, names, leaves, part)
+                    for n, g in mb_grads.items():
+                        grads[n].add_(g.to(F32) / microbatches)
+                    loss = loss + mb_loss / microbatches
+                    del mb_grads
+            else:
+                loss, metrics, grads = grads_of(model, names, leaves, parts[0])
+        if mesh is not None:
+            grads = fsdp.reduce_grads(grads, params, held)
+        del held, leaves
         lr_scale = cosine_schedule(torch.as_tensor(step_idx, device=dev), total_steps, warmup_steps)
         _, opt_state, opt_metrics = adamw_update(grads, opt_state, params, opt_cfg, lr_scale)
         del grads

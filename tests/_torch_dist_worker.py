@@ -1,14 +1,17 @@
-"""One rank of a gloo world on the CPU for ``tests/test_torch_distributed.py``.
+"""One rank of a gloo world on the CPU for ``tests/test_torch_distributed.py``
+and ``tests/test_torch_fsdp.py``.
 
-    python tests/_torch_dist_worker.py RANK WORLD STORE OUT_DIR
+    python tests/_torch_dist_worker.py RANK WORLD STORE OUT_DIR [SUITE]
 
 Joins the world through the ``file://`` store ``STORE`` (a 120 s timeout
-on every collective), runs the world's cases (``WORLDS[WORLD]``) and
-writes ``OUT_DIR/rank{RANK}.pt``: a dict of named tensors, flags and error
+on every collective), runs the world's cases (``WORLDS[WORLD]``, or with
+SUITE ``fsdp`` ``FSDP_WORLDS[WORLD]``) and writes
+``OUT_DIR/rank{RANK}.pt``: a dict of named tensors, flags and error
 messages that the test module asserts, case by case.  Rank 0 also runs
 each case's one-process reference (the sequential region engine, the
-unsharded campus, the one-rank service) and stores it beside its result.
-Imports torch and the port only; every process runs one thread.
+unsharded campus, the one-rank service, the unsharded training step) and
+stores it beside its result.  Imports torch and the port only; every
+process runs one thread.
 """
 from __future__ import annotations
 
@@ -20,11 +23,18 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
-from repro_torch import sharding  # noqa: E402
+from repro_torch import convert, sharding  # noqa: E402
+from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.core import compliance, fleet, grid, pdu  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticLMDataset  # noqa: E402
 from repro_torch.launch import mesh as lmesh  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.power import faults as FLT, scenario as SC  # noqa: E402
 from repro_torch.serve import ConditionerService  # noqa: E402
+from repro_torch.sharding import fsdp, rules  # noqa: E402
+from repro_torch.train import Checkpointer, TrainConfig, build_train_step, train  # noqa: E402
+from repro_torch.train.loop import audio_frames  # noqa: E402
 
 DEV = "cpu"
 HZ = 50.0
@@ -238,16 +248,324 @@ WORLDS = {
 }
 
 
+# ---------------------------------------------------------------- FSDP --
+
+# The families that train sharded, by their smoke configs (float32).
+FSDP_ARCHS = ("llama3_2_1b", "rwkv6_7b", "zamba2_2_7b", "whisper_large_v3")
+# The step configurations: (microbatches, gather_small_weights_once).
+FSDP_STEPS = ((1, False), (2, True))
+FSDP_RUN = dict(batch=4, seq_len=16, steps=2, lr=1e-3, weight_decay=0.1, total_steps=10,
+                warmup_steps=1)
+# The JAX comparison's run (``_jax_fsdp_reference.py`` runs the reference's
+# own sharded step on two host devices with it).
+FSDP_REF = dict(arch="llama3_2_1b", seed=0, batch=4, seq_len=16, steps=2, microbatches=2,
+                lr=1e-3, weight_decay=0.1, total_steps=10, warmup_steps=1)
+
+
+def fsdp_batch(cfg, i: int, b: int, t: int, ignore: bool = True) -> dict:
+    """Step ``i``'s global batch; with ``ignore`` labels set to -100 so
+    that the ranks' rows hold unequal valid counts in every microbatch
+    (the loss must divide by the global count).  ``audio``: the reference
+    loop's frames."""
+    batch = SyntheticLMDataset(DataConfig(batch=b, seq_len=t, vocab_size=cfg.vocab_size)) \
+        .batch_at(i)
+    if ignore:
+        batch["labels"][0, : t // 2] = -100
+        batch["labels"][1, :3] = -100
+    if cfg.family == "audio":
+        batch["frames"] = audio_frames(cfg, b, i, DEV)
+    return batch
+
+
+def fsdp_model(cfg):
+    return convert.lm_params_from_numpy(convert.random_lm_tree(cfg, 0), cfg, device=DEV)
+
+
+def fsdp_run(cfg, mesh, mb: int, once: bool, run: dict = FSDP_RUN, ignore: bool = True) -> dict:
+    """``run``'s steps of ``build_train_step`` from ``random_lm_tree(cfg,
+    0)``, sharded on ``mesh`` (None: one process): each step's metrics, the
+    final parameters and first moments (this rank's shards) and the
+    rank's data dims."""
+    opt = AdamWConfig(lr=run["lr"], weight_decay=run["weight_decay"])
+    step = build_train_step(cfg, opt, microbatches=mb, total_steps=run["total_steps"],
+                            warmup_steps=run["warmup_steps"], gather_small_weights_once=once)
+    model = fsdp_model(cfg)
+    if mesh is not None:
+        fsdp.shard_model(model, mesh)
+    params = dict(model.named_parameters())
+    state = adamw_init(params, opt)
+    out = {k: [] for k in ("loss", "lm_loss", "grad_norm", "tokens")}
+    for i in range(run["steps"]):
+        _, state, m = step(model, state, fsdp_batch(cfg, i, run["batch"], run["seq_len"], ignore),
+                           i)
+        for k in out:
+            out[k].append(m[k].item())
+    out = {k: torch.tensor(v, dtype=torch.float64) for k, v in out.items()}
+    for n, p in params.items():
+        out[f"param/{n}"] = p.detach().clone()
+        out[f"m/{n}"] = state.m[n].clone()
+        out[f"v/{n}"] = state.v[n].clone()
+        info = fsdp.shard_of(p)
+        out[f"dim/{n}"] = torch.tensor(-1 if info is None or info.dim is None else info.dim)
+    return out
+
+
+def fsdp_store(out: dict, prefix: str, res: dict) -> None:
+    for k, v in res.items():
+        out[f"{prefix}/{k}"] = v
+
+
+def fsdp_shards_case(mesh, rank: int, out: dict) -> None:
+    """Each family's model sharded: this rank's parameters; rank 0 also
+    the unsharded ones."""
+    for arch in FSDP_ARCHS:
+        cfg = smoke_config(arch)
+        model = fsdp.shard_model(fsdp_model(cfg), mesh)
+        for n, p in model.named_parameters():
+            out[f"shards/{arch}/param/{n}"] = p.detach().clone()
+            d = fsdp.shard_of(p).dim
+            out[f"shards/{arch}/dim/{n}"] = torch.tensor(-1 if d is None else d)
+        if rank == 0:
+            for n, p in fsdp_model(cfg).named_parameters():
+                out[f"shards/{arch}/full/{n}"] = p.detach().clone()
+
+
+def fsdp_steps_case(mesh, rank: int, out: dict) -> None:
+    """Every family at each ``FSDP_STEPS`` configuration, sharded; rank 0
+    also the one-process run."""
+    for arch in FSDP_ARCHS:
+        cfg = smoke_config(arch)
+        for mb, once in FSDP_STEPS:
+            tag = f"steps/{arch}/mb{mb}{'once' if once else ''}"
+            fsdp_store(out, tag, fsdp_run(cfg, mesh, mb, once))
+            if rank == 0 or mesh is None:
+                fsdp_store(out, f"{tag}/ref", fsdp_run(cfg, None, mb, once))
+
+
+def fsdp_jax_case(mesh, out: dict) -> None:
+    """``FSDP_REF``'s run on the mesh (no ignored labels: the JAX side's
+    batches are the dataset's), every parameter gathered whole."""
+    c = FSDP_REF
+    cfg = smoke_config(c["arch"])
+    res = fsdp_run(cfg, mesh, c["microbatches"], True, c, ignore=False)
+    out["jax/loss"], out["jax/grad_norm"] = res["loss"], res["grad_norm"]
+    for k, v in res.items():
+        if k.startswith("param/"):
+            dim = int(res["dim/" + k[len("param/"):]])
+            out["jax/" + k] = v if dim < 0 else rules.all_gather_dim(v, dim,
+                                                                     mesh.get_group("data"))
+
+
+def fsdp_state(model, state) -> dict:
+    """``{path: tensor}`` of ``(params, opt_state)``."""
+    out = {f"param/{n}": p.detach().clone() for n, p in model.named_parameters()}
+    out.update({f"m/{n}": t.clone() for n, t in state.m.items()})
+    out.update({f"v/{n}": t.clone() for n, t in state.v.items()})
+    out["step"] = state.step.clone()
+    return out
+
+
+def leaf_shard(params: dict, key: str):
+    """The ``DataShard`` of the sharded parameter a ``fsdp_state`` key
+    (``param/``, ``m/``, ``v/`` + name) holds, or None (replicated, the
+    step)."""
+    info = fsdp.shard_of(params[key.split("/", 1)[1]]) if "/" in key else None
+    return None if info is None or info.dim is None else info
+
+
+def fsdp_ckpt_case(mesh, rank: int, out: dict, shared: Path) -> None:
+    """Checkpoints across worlds, llama smoke.  2 -> 1: the world saves
+    after one step; rank 0 restores it unsharded (a world of one) beside
+    every leaf gathered whole.  1 -> 2: one process saves its state after
+    one step; every rank restores it sharded beside its chunk of that
+    state.  A step from the restored 2-rank state against the step without
+    the restore."""
+    c = FSDP_RUN
+    cfg = smoke_config("llama3_2_1b")
+    opt = AdamWConfig(lr=c["lr"], weight_decay=c["weight_decay"])
+    step = build_train_step(cfg, opt, total_steps=c["total_steps"],
+                            warmup_steps=c["warmup_steps"])
+    group = mesh.get_group("data")
+
+    def fresh(sharded: bool):
+        model = fsdp_model(cfg)
+        if sharded:
+            fsdp.shard_model(model, mesh)
+        return model, adamw_init(dict(model.named_parameters()), opt)
+
+    # 2 -> 1
+    model, state = fresh(True)
+    params = dict(model.named_parameters())
+    _, state, _ = step(model, state, fsdp_batch(cfg, 0, c["batch"], c["seq_len"]), 0)
+    ck = Checkpointer(str(shared / "ck2"))
+    sh = fsdp.shardings(model, state)
+    ck.save(0, (params, state), shardings=sh, blocking=True)
+    saved = fsdp_state(model, state)
+    whole = {}
+    for k, v in saved.items():
+        info = leaf_shard(params, k)
+        whole[k] = v if info is None else rules.all_gather_dim(v, info.dim, group)
+    if rank == 0:
+        one, one_state = fresh(False)
+        one_params = dict(one.named_parameters())
+        _, (got, got_state) = ck.restore(None, (one_params, one_state))
+        with torch.no_grad():
+            for n, p in one_params.items():
+                p.copy_(got[n])
+        restored = fsdp_state(one, got_state)
+        out["ckpt/2to1/bad"] = [k for k in whole if not torch.equal(restored[k], whole[k])]
+        out["ckpt/2to1/leaves"] = len(whole)
+    # a step from the saved state, then the same step from its restore
+    batch = fsdp_batch(cfg, 1, c["batch"], c["seq_len"])
+    _, state, m_live = step(model, state, batch, 1)
+    live = fsdp_state(model, state)
+    model2, state2 = fresh(True)
+    params2 = dict(model2.named_parameters())
+    _, (got, state2) = ck.restore(None, (params2, state2), shardings=fsdp.shardings(model2, state2))
+    with torch.no_grad():
+        for n, p in params2.items():
+            p.copy_(got[n])
+    out["ckpt/2to2/bad"] = [k for k, v in fsdp_state(model2, state2).items()
+                            if not torch.equal(v, saved[k])]
+    _, state2, m_again = step(model2, state2, batch, 1)
+    again = fsdp_state(model2, state2)
+    out["ckpt/resume/bad"] = [k for k in live if not torch.equal(again[k], live[k])] + [
+        k for k in ("loss", "grad_norm") if not torch.equal(m_live[k], m_again[k])]
+    # 1 -> 2
+    one, one_state = fresh(False)
+    one_params = dict(one.named_parameters())
+    _, one_state, _ = step(one, one_state, fsdp_batch(cfg, 0, c["batch"], c["seq_len"]), 0)
+    ck1 = Checkpointer(str(shared / "ck1"))
+    if rank == 0:
+        ck1.save(0, (one_params, one_state), blocking=True)
+    torch.distributed.barrier()
+    model3, state3 = fresh(True)
+    params3 = dict(model3.named_parameters())
+    _, (got, state3) = ck1.restore(None, (params3, state3),
+                                   shardings=fsdp.shardings(model3, state3))
+    with torch.no_grad():
+        for n, p in params3.items():
+            p.copy_(got[n])
+    want = fsdp_state(one, one_state)
+    bad = []
+    for k, v in fsdp_state(model3, state3).items():
+        info = leaf_shard(params3, k)
+        w = want[k] if info is None else fsdp.local_shard(want[k], info.dim, info.size, info.rank)
+        if not torch.equal(v, w):
+            bad.append(k)
+    out["ckpt/1to2/bad"] = bad
+    out["ckpt/1to2/leaves"] = len(want)
+
+
+def fsdp_control_case(mesh, out: dict) -> None:
+    """One llama smoke step with the replicated leaves' all-reduce left
+    out: the ranks' replicated leaves must then differ (what the equality
+    check across ranks catches)."""
+    saved = rules.all_reduce_sum
+    rules.all_reduce_sum = lambda tensors, group: list(tensors)
+    try:
+        res = fsdp_run(smoke_config("llama3_2_1b"), mesh, 1, False, dict(FSDP_RUN, steps=1))
+    finally:
+        rules.all_reduce_sum = saved
+    for k, v in res.items():
+        if k.startswith("param/") and int(res["dim/" + k[len("param/"):]]) < 0:
+            out["control/" + k] = v
+
+
+# The configs ``train(mesh=)`` runs (the audio one with its global frames).
+FSDP_LOOP_ARCHS = ("llama3_2_1b", "whisper_large_v3")
+
+
+def fsdp_loop_case(mesh, rank: int, out: dict, shared: Path) -> None:
+    """``train(mesh=)`` on each ``FSDP_LOOP_ARCHS`` smoke config with
+    checkpoints, then resumed from them; rank 0 also ``train()`` in one
+    process."""
+    for arch in FSDP_LOOP_ARCHS:
+        cfg = smoke_config(arch)
+        data = DataConfig(batch=4, seq_len=16, vocab_size=cfg.vocab_size)
+        opt = AdamWConfig(lr=1e-3)
+        tc = dict(steps=3, log_every=1, checkpoint_every=2,
+                  checkpoint_dir=str(shared / f"loop_{arch}"))
+        tag = f"loop/{arch}"
+        res = train(cfg, data, opt, TrainConfig(**tc), device=DEV, mesh=mesh)
+        out[f"{tag}/loss"] = torch.tensor([h["loss"] for h in res["history"]],
+                                          dtype=torch.float64)
+        out[f"{tag}/steps"] = torch.tensor(Checkpointer(tc["checkpoint_dir"]).all_steps())
+        again = train(cfg, data, opt, TrainConfig(**dict(tc, steps=4, resume=True)), device=DEV,
+                      mesh=mesh)
+        out[f"{tag}/resumed_steps"] = torch.tensor([h["step"] for h in again["history"]])
+        if rank == 0:
+            ref = train(cfg, data, opt, TrainConfig(steps=3, log_every=1), device=DEV)
+            out[f"{tag}/ref_loss"] = torch.tensor([h["loss"] for h in ref["history"]],
+                                                  dtype=torch.float64)
+
+
+def fsdp_error_cases(mesh, out: dict) -> None:
+    """The refusals: a "model" axis of 2, a "pod" axis, the moe family and
+    MTP under a mesh (the model and ``train``), a batch that does not split
+    over the data axis, and serving a sharded model."""
+    cfg = smoke_config("llama3_2_1b")
+    moe = smoke_config("deepseek_v3_671b")
+    tp = sharding.make_mesh((1, 2), ("data", "model"), device_type=DEV)
+    pod = sharding.make_mesh((2, 1, 1), ("pod", "data", "model"), device_type=DEV)
+    opt = AdamWConfig()
+    model = fsdp.shard_model(fsdp_model(cfg), mesh)
+    state = adamw_init(dict(model.named_parameters()), opt)
+    odd = fsdp_batch(cfg, 0, 3, 8)
+    cases = {
+        "model_axis": lambda: fsdp.shard_model(fsdp_model(cfg), tp),
+        "pod_axis": lambda: fsdp.shard_model(fsdp_model(cfg), pod),
+        "moe": lambda: fsdp.shard_model(T.init(moe, device=DEV), mesh),
+        "moe_train": lambda: train(moe, DataConfig(batch=2, seq_len=8,
+                                                   vocab_size=moe.vocab_size),
+                                   opt, TrainConfig(steps=1), device=DEV, mesh=mesh),
+        "batch": lambda: sharding.shard_batch(odd, mesh),
+        "batch_step": lambda: build_train_step(cfg, opt)(model, state, odd, 0),
+        "decode": lambda: T.decode_step(model, odd["tokens"], T.init_decode_state(
+            cfg, 3, 8, device=DEV), 0),
+        "gathered_weight_tp": lambda: sharding.constrain_gathered_weight(
+            "embed.embedding", model.embed.embedding, tp),
+    }
+    for name, fn in cases.items():
+        out[f"error/{name}"] = error(fn)
+
+
+def run_fsdp_case(case: str, world: int, rank: int, out: dict, shared: Path) -> None:
+    mesh = lmesh.make_host_mesh(device_type=DEV)
+    if case == "shards":
+        fsdp_shards_case(mesh, rank, out)
+    elif case == "steps":
+        fsdp_steps_case(mesh, rank, out)
+    elif case == "jax":
+        fsdp_jax_case(mesh, out)
+    elif case == "ckpt":
+        fsdp_ckpt_case(mesh, rank, out, shared)
+    elif case == "control":
+        fsdp_control_case(mesh, out)
+    elif case == "loop":
+        fsdp_loop_case(mesh, rank, out, shared)
+    elif case == "errors":
+        fsdp_error_cases(mesh, out)
+
+
+FSDP_WORLDS = {
+    2: ("shards", "steps", "jax", "ckpt", "control", "loop", "errors"),
+    1: ("steps",),
+}
+
+
 def main() -> None:
     rank, world, store, out_dir = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], Path(sys.argv[4])
+    suite = sys.argv[5] if len(sys.argv) > 5 else "engines"
     torch.set_num_threads(1)
     lmesh.init_world(rank, world, f"file://{store}", device_type=DEV)
     shared = out_dir / "shared"  # the service's log and checkpoints, one for the world
     shared.mkdir(exist_ok=True)
     out: dict = {}
-    for case in WORLDS[world]:
+    cases, run = (FSDP_WORLDS, run_fsdp_case) if suite == "fsdp" else (WORLDS, run_case)
+    for case in cases[world]:
         t0 = time.perf_counter()
-        run_case(case, world, rank, out, shared)
+        run(case, world, rank, out, shared)
         out[f"seconds/{case}"] = time.perf_counter() - t0
     torch.save(out, out_dir / f"rank{rank}.pt")
     torch.distributed.destroy_process_group()

@@ -484,6 +484,30 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    (b)'s checkpoint restored into one process and back into the two
    ranks bit for bit, and a step from it bit for bit the step without the
    restore.  A failing collective or rank fails the run.
+25. Tensor parallelism (``TP``, ``sharding.tp``) on the rules' ``"model"``
+   axis, gloo ranks sharing the card (nccl refuses two ranks on one
+   device).  Each rank first holds the flash forward (and for training its
+   backward) and rmsnorm kernels to their plain versions at the local
+   shapes its main path gives them, then drives the main path with the
+   counts at 0.  (a) Two ranks on a (1, 2) mesh serve llama3.2-1b at full
+   width and depth (phase 8a's start weights, the serving phase's): a
+   4 x 512 prefill and ``decode`` teacher-forced decode steps through
+   ``build_prefill_step(mesh=)`` / ``build_decode_step(mesh=)``, every
+   rank's whole logits against phase 6's unsharded run of the same steps
+   within ``SERVE_PREFILL_TOL``, the argmax equal where the top-2 margin
+   exceeds ``SERVE_MARGIN_TOL``, the ranks' logits the same bits.  (b) The
+   same width cut to ``FSDP["layers"]`` layers trained from phase 8a's
+   start weights: ``steps12`` steps on (1, 2) over those two ranks, then
+   ``steps22`` on (2, 2) over four, each rank's losses, grad norms,
+   sampled moments and reassembled parameters against one process's
+   unsharded run within ``TRAIN_TOL``.  (c) chatglm3-6b at full width (2
+   KV heads: each rank gathers ``wk`` / ``wv`` over ``"model"``; qkv bias;
+   rope fraction 0.5) cut to ``glm_layers`` layers on (1, 4) over the four
+   ranks: a prefill against one process's, and one training step (its
+   loss, norm, sampled moments and parameters, and the q/k/v biases whole,
+   whose gradients sum over ``"model"``).  It prints each rank's launches,
+   the ``tp.*`` collectives' share of the walls (ranks sharing one card:
+   not a scaling figure) and the phase's seconds.
 
 With ``--profile DIR`` it also profiles one more campus run, prefill step,
 generation and training step, rwkv6-7b prefill and generation, a host run
@@ -3335,7 +3359,8 @@ def phase_serve(dev, tree, profile_dir: Path | None = None) -> dict:
                     profile_dir)
         profile_run("generate", lambda: _timed(lambda: eng.generate(prompts, n)), profile_dir)
     return {"prefill": prefill_counts, "generate": gen_counts, "prefill_s": prefill_s,
-            "generate_s": gen_s, "tokens_per_s": b * n / gen_s}
+            "generate_s": gen_s, "tokens_per_s": b * n / gen_s,
+            "tp_ref": tp_serve_reference(model, cfg, dev)}
 
 
 def _flash_bwd_bytes_ops(q, k, causal, v=None) -> dict:
@@ -11171,7 +11196,9 @@ def _fsdp_data(cfg):
 def _fsdp_samples(params: dict, get, leaves=TRAIN_LEAVES) -> dict:
     """This rank's part of ``train_samples``: ``{path: {k: value}}`` for
     the k-th sampled element of each full leaf that lies in this rank's
-    shard (``get(name)`` the shard of parameter ``name``, or its moment's)."""
+    shard (``get(name)`` the shard of parameter ``name``, or its moment's;
+    split along its data dim and, under tensor parallelism, its model
+    dim)."""
     import numpy as np
     import torch
 
@@ -11181,15 +11208,19 @@ def _fsdp_samples(params: dict, get, leaves=TRAIN_LEAVES) -> dict:
     for i, path in enumerate(leaves):
         name = _port_leaf(path)
         x, info = get(name), fsdp.shard_of(params[name])
+        splits = [(info.dim, info.size, info.rank)]
+        if info.model_dim is not None:
+            splits.append((info.model_dim, info.model.size, info.model.rank))
+        splits = [sp for sp in splits if sp[0] is not None]
         full = list(x.shape)
-        if info.dim is not None:
-            full[info.dim] *= info.size
+        for dim, size, _ in splits:
+            full[dim] *= size
         multi = list(np.unravel_index(train_indices(tuple(full), i), full))
         keep = np.ones(len(multi[0]), bool)
-        if info.dim is not None:
-            lo = info.rank * x.shape[info.dim]
-            keep = (multi[info.dim] >= lo) & (multi[info.dim] < lo + x.shape[info.dim])
-            multi[info.dim] = multi[info.dim] - lo
+        for dim, _, rank in splits:
+            lo = rank * x.shape[dim]
+            keep &= (multi[dim] >= lo) & (multi[dim] < lo + x.shape[dim])
+            multi[dim] = multi[dim] - lo
         idx = tuple(torch.as_tensor(m[keep], device=x.device) for m in multi)
         vals = x.detach()[idx].to(torch.float64).cpu().tolist()
         out[path] = dict(zip(np.nonzero(keep)[0].tolist(), vals))
@@ -11323,13 +11354,17 @@ def _fsdp_rank(rank: int, world: int, store: str, backend: str, job: str, out_di
 
 def _bf16_loose_bad(got, want, lr: float, steps: int) -> int:
     """Elements of ``got`` farther from ``want`` than TRAIN_TOL's loose
-    bound, ``2 lr`` a step plus a bf16 ulp of the value."""
+    bound, ``2 lr`` a step plus a bf16 ulp of the larger of the two values
+    (each side rounds its update to bf16 at its own magnitude: where a
+    sign flip carries ``got`` an order of magnitude past a small ``want``,
+    its rounding is the larger)."""
     import torch
 
-    w = want.double()
-    ulp = torch.where(w != 0, torch.exp2(torch.floor(torch.log2(w.abs())) - 7),
+    g, w = got.double(), want.double()
+    top = torch.maximum(g.abs(), w.abs())
+    ulp = torch.where(top != 0, torch.exp2(torch.floor(torch.log2(top)) - 7),
                       torch.full_like(w, 2.0 ** -133))
-    return int(((got.double() - w).abs() > 2 * lr * steps + ulp).sum())
+    return int(((g - w).abs() > 2 * lr * steps + ulp).sum())
 
 
 def phase_fsdp(dev, steps_8a: dict, start_8a: dict) -> dict:
@@ -11506,6 +11541,558 @@ def phase_fsdp(dev, steps_8a: dict, start_8a: dict) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 24 (FSDP training): {out['phase_s']:.1f} s (one-rank world "
           f"{out['a_world_s']:.1f} s, two-rank world {out['b_world_s']:.1f} s with (c))")
+    return out
+
+
+# Phase 25: tensor parallelism on the rules' "model" axis (``sharding.tp``):
+# (a) serving at full llama3.2-1b width and depth on (1, 2), ``decode``
+# teacher-forced steps after phase 6's 4 x 512 prefill prompts; (b)
+# training at full width, FSDP["layers"] layers, ``steps12`` steps on (1, 2)
+# and ``steps22`` on (2, 2); (c) chatglm3-6b at full width, ``glm_layers``
+# layers, a ``glm_batch`` prefill and one training step on (1, 4).  The
+# ranks read their weights and references from ``TP_DIR``, removed at the
+# end; ``join_s`` bounds each world.
+TP = dict(decode=32, steps12=2, steps22=1, glm_arch="chatglm3_6b", glm_layers=2,
+          glm_batch=(2, 512), glm_seed=0, join_s=360.0)
+TP_DIR = ROOT / "build" / "phase25"
+# The sampled leaves of (c): the projections (wk and wv gathered over
+# "model"), their biases (summed over "model"), the norms and the untied
+# head.  Not the embedding: its untied gradient is the lookup's alone, a
+# 2 x 512 batch reaches 1 of 64 of its rows, and the comparison's scale (the
+# largest sampled |m|) would fall on one element's.
+TP_GLM_LEAVES = ("blocks.attn.wq.kernel", "blocks.attn.wk.kernel", "blocks.attn.wv.kernel",
+                 "blocks.ln1.scale", "ln_f.scale", "lm_head.kernel", "blocks.attn.wq.bias",
+                 "blocks.attn.wk.bias", "blocks.attn.wv.bias")
+
+
+def tp_serve_reference(model, cfg, dev) -> dict:
+    """Phase 25a's reference, run by phase 6 on its unsharded model: a
+    ``SERVE["prefill"]`` prefill into caches of ``TP["decode"]`` more
+    positions, then that many teacher-forced decode steps; the prompts, the
+    fed tokens and every logit on the host in bf16 (the tied readout's
+    logits are bf16 products: exact)."""
+    import torch
+
+    from repro_torch.serve import build_decode_step, build_prefill_step
+
+    b, tl = SERVE["prefill"]
+    n = TP["decode"]
+    toks = torch.as_tensor(serve_prompts(cfg.vocab_size, b, tl + n, SERVE["prompt_seed"] + 2),
+                           device=dev)
+    prompts, fed = toks[:, :tl], toks[:, tl:]
+    lossless = lambda t: bool(torch.equal(t.to(torch.bfloat16).float(), t))
+    logits, state = build_prefill_step(cfg)(model, prompts, tl + n)
+    exact = lossless(logits) and bool(torch.isfinite(logits).all())
+    out = {"prompts": prompts.cpu(), "fed": fed.cpu(), "prefill": logits.to(torch.bfloat16).cpu()}
+    decode, steps = build_decode_step(cfg), []
+    for i in range(n):
+        step_logits, state = decode(model, fed[:, i:i + 1], state, tl + i)
+        exact &= lossless(step_logits) and bool(torch.isfinite(step_logits).all())
+        steps.append(step_logits.to(torch.bfloat16).cpu())
+    out["steps"] = torch.cat(steps, dim=1)
+    _check(exact, "25a reference logits: finite, and exact in bf16")
+    return out
+
+
+def _tp_kernel_parity(dev, b, h, hkv, t, hd, d, backward: bool, eps: float) -> dict:
+    """This rank's kernels against their plain versions at the local shapes
+    of its main path, with phases 5 and 7's tolerances: the flash forward on
+    q ``(b, h, t, hd)``, k and v ``(b, hkv, t, hd)`` in bf16 (2e-2 against
+    the bf16 plain version, one bf16 ulp of the element on o and 1e-5 on
+    lse against the float32 one), with ``backward`` its dK/dV and dQ
+    against the plain backward (one ulp of the element plus 1e-5 of the
+    gradient's scale), rmsnorm on ``(b t, d)`` bf16 rows (one ulp).  The
+    largest errors by kernel; a disagreement fails the run."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa, ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = randn(b, h, t, hd), randn(b, hkv, t, hd), randn(b, hkv, t, hd)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    o_p, lse_p = ref.attention(q, k, v, causal=True, with_lse=True)
+    o_w, lse_w = ref.attention(q.float(), k.float(), v.float(), causal=True, with_lse=True)
+    dev_o = (o.double() - o_w.double()).abs()
+    errs = {"flash_attention_fwd": max(_max_err(o, o_p), _max_err(lse, lse_p))}
+    _check(errs["flash_attention_fwd"] <= 2e-2 and _max_err(lse, lse_w) <= 1e-5
+           and bool((dev_o <= 2.0**-7 * o_w.double().abs() + 1e-6).all()),
+           f"25: flash forward at q {tuple(q.shape)} k {tuple(k.shape)} vs plain")
+    if backward:
+        do = randn(b, h, t, hd)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        plain = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        err, ok = 0.0, True
+        for g, p in zip(got, plain):
+            g64, p64 = g.double(), p.double()
+            ok &= bool(((g64 - p64).abs() <= 2.0**-7 * p64.abs()
+                        + 1e-5 * float(p64.abs().max())).all())
+            err = max(err, _max_err(g, p))
+        _check(ok, f"25: flash backward at q {tuple(q.shape)} k {tuple(k.shape)} vs plain")
+        errs["flash_attention_bwd_dkv"] = errs["flash_attention_bwd_dq"] = err
+    x, w = randn(b * t, d), (1.0 + 0.1 * randn(d).float()).to(torch.bfloat16)
+    got = ops.rmsnorm(x, w, eps, force="cuda").double()
+    want = ops.rmsnorm(x, w, eps, force="ref").double()
+    errs["rmsnorm"] = float((got - want).abs().max())
+    _check(bool(((got - want).abs() <= 2.0**-7 * want.abs() + 1e-6).all()),
+           f"25: rmsnorm ({b * t}, {d}) vs plain")
+    torch.cuda.synchronize()
+    return errs
+
+
+def _tp_coll_s(spans: dict) -> float:
+    """Seconds of ``core.profiling``'s collective spans (``tp.*`` and
+    ``fsdp.*``)."""
+    return sum(v for k, v in spans.items() if k.startswith(("tp.", "fsdp.")))
+
+
+def _tp_serve_job(dev, mesh, out: dict) -> None:
+    """25a on this rank: the full-depth model placed on ``mesh``, the
+    kernels held at the local shapes, then the prefill and the decode
+    steps against the reference, each counted and timed."""
+    import torch
+
+    from repro_torch.configs import full_config
+    from repro_torch.core import profiling
+    from repro_torch.serve import build_decode_step, build_prefill_step
+    from repro_torch.sharding import fsdp, tp as TPM
+
+    cfg = full_config(SERVE["arch"])
+    model = fsdp.shard_model(_fsdp_model(cfg, torch.load(TP_DIR / "start.pt", mmap=True), dev),
+                             mesh)
+    torch.cuda.empty_cache()
+    ref = torch.load(TP_DIR / "serve_ref.pt", mmap=True)
+    prompts, fed = ref["prompts"].to(dev), ref["fed"].to(dev)
+    (b, tl), n, m = prompts.shape, fed.shape[1], model.tp.size
+    kv = TPM.kv_heads(cfg, model.tp)[1]
+    out["a/parity"] = _tp_kernel_parity(dev, b, cfg.n_heads // m, kv, tl,
+                                        cfg.resolved_head_dim, cfg.d_model, False, cfg.norm_eps)
+    prefill, decode = build_prefill_step(cfg, mesh), build_decode_step(cfg, mesh)
+    prefill(model, prompts[:, :64], 65)  # warm-up (the collectives' first calls)
+    torch.cuda.synchronize()
+    _reset_train_counts()
+    t0 = time.perf_counter()
+    logits, state = prefill(model, prompts, tl + n)
+    torch.cuda.synchronize()
+    out["a/prefill_s"], out["a/prefill_counts"] = time.perf_counter() - t0, _train_counts()
+    want = ref["prefill"].to(dev).float()
+    out["a/prefill_err"] = _max_err(logits, want)
+    top2 = torch.topk(want, 2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > SERVE_MARGIN_TOL
+    agree = logits.argmax(-1) == want.argmax(-1)
+    out["a/prefill_sure"], out["a/prefill_agree"] = int(sure.sum()), int((agree & sure).sum())
+    out["a/prefill_print"] = _bit_prints({"prefill": logits})["prefill"]
+    out["a/cache_shape"] = list(state["blocks"].k.shape)
+    del logits, want, top2
+    _reset_train_counts()
+    profiling.enable()
+    errs, walls, steps = [], [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        step_logits, state = decode(model, fed[:, i:i + 1], state, tl + i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        w = ref["steps"][:, i:i + 1].to(dev).float()
+        errs.append(_max_err(step_logits, w))
+        steps.append(step_logits)
+    out["a/decode_spans"] = profiling.phases()
+    profiling.disable()
+    out["a/decode_counts"], out["a/decode_walls"], out["a/decode_err"] = \
+        _train_counts(), walls, max(errs)
+    got = torch.cat(steps, dim=1)
+    want = ref["steps"].to(dev).float()
+    top2 = torch.topk(want, 2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > SERVE_MARGIN_TOL
+    out["a/decode_sure"] = int(sure.sum())
+    out["a/decode_agree"] = int(((got.argmax(-1) == want.argmax(-1)) & sure).sum())
+    out["a/decode_print"] = _bit_prints({"steps": got})["steps"]
+    # one more prefill with the collectives timed (synchronized)
+    profiling.enable()
+    t0 = time.perf_counter()
+    prefill(model, prompts, tl + n)
+    torch.cuda.synchronize()
+    out["a/prefill_profiled_s"], out["a/prefill_spans"] = time.perf_counter() - t0, \
+        profiling.phases()
+    profiling.disable()
+    del model, state, got, want
+    torch.cuda.empty_cache()
+
+
+def _tp_train_job(dev, mesh, steps: int, tag: str, out: dict) -> None:
+    """25b on this rank: the 4-layer model placed on ``mesh``, its kernels
+    held at the local shapes, then ``steps`` steps; the rank's shards, its
+    sampled moments and its walls, counts and spans."""
+    import torch
+
+    from repro_torch.core import profiling
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import fsdp, rules, tp as TPM
+
+    cfg = _fsdp_cfg(FSDP["layers"])
+    model = fsdp.shard_model(_fsdp_model(cfg, torch.load(TP_DIR / "start4.pt", mmap=True), dev),
+                             mesh)
+    params = dict(model.named_parameters())
+    n, m = rules.axis_sizes(mesh)["data"], model.tp.size
+    out[f"{tag}/parity"] = _tp_kernel_parity(
+        dev, TRAIN["batch"] // n, cfg.n_heads // m, TPM.kv_heads(cfg, model.tp)[1],
+        TRAIN["seq_len"], cfg.resolved_head_dim, cfg.d_model, True, cfg.norm_eps)
+    out[f"{tag}/coords"] = (rules.axis_index(mesh, "data"), rules.axis_index(mesh, "model"))
+    opt, step = _fsdp_step(cfg)
+    state = adamw_init(params, opt)
+    ds = _fsdp_data(cfg)
+    walls, losses, norms, counts, moments, spans = [], [], [], [], [], []
+    for i in range(steps):
+        batch = ds.batch_at(i)
+        torch.cuda.synchronize()
+        _reset_train_counts()
+        profiling.enable()
+        t0 = time.perf_counter()
+        _, state, metrics = step(model, state, batch, i)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        spans.append(profiling.phases())
+        profiling.disable()
+        counts.append(_train_counts())
+        moments.append(_fsdp_samples(params, lambda n_: state.m[n_]))
+    out.update({f"{tag}/walls": walls, f"{tag}/loss": losses, f"{tag}/grad_norm": norms,
+                f"{tag}/counts": counts, f"{tag}/m": moments, f"{tag}/spans": spans})
+    for name, p in params.items():
+        info = fsdp.shard_of(p)
+        out[f"{tag}/param/{name}"] = p.detach().to("cpu", copy=True)
+        out[f"{tag}/dims/{name}"] = (info.dim, info.model_dim)
+    del model, params, state
+    torch.cuda.empty_cache()
+
+
+def _tp_glm_cfg():
+    import dataclasses
+
+    from repro_torch.configs import full_config
+
+    return dataclasses.replace(full_config(TP["glm_arch"]), n_layers=TP["glm_layers"])
+
+
+def _tp_glm_model(dev):
+    """(c)'s model, drawn on the card from ``TP["glm_seed"]`` (the same
+    weights in every process)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    return T.init(_tp_glm_cfg(), device=dev,
+                  generator=torch.Generator(device=dev).manual_seed(TP["glm_seed"]))
+
+
+def _tp_glm_batch(cfg):
+    """(c)'s prompts and training batch (host tensors)."""
+    import torch
+
+    b, t = TP["glm_batch"]
+    toks = torch.as_tensor(serve_prompts(cfg.vocab_size, b, t + 1, TP["glm_seed"] + 1))
+    return toks[:, :t], {"tokens": toks[:, :t], "labels": toks[:, 1:].clone()}
+
+
+def _tp_glm_job(dev, mesh, out: dict) -> None:
+    """25c on this rank: chatglm3's model placed on ``mesh`` (1, 4), its
+    kernels held at the local shapes, the prefill against the reference
+    and one training step."""
+    import torch
+
+    from repro_torch.optim import adamw_init
+    from repro_torch.serve import build_prefill_step
+    from repro_torch.sharding import fsdp, tp as TPM
+
+    cfg = _tp_glm_cfg()
+    model = fsdp.shard_model(_tp_glm_model(dev), mesh)
+    prompts, batch = _tp_glm_batch(cfg)
+    b, t = prompts.shape
+    kv = TPM.kv_heads(cfg, model.tp)
+    out["c/kv_heads"] = kv
+    out["c/parity"] = _tp_kernel_parity(dev, b, cfg.n_heads // model.tp.size, kv[1], t,
+                                        cfg.resolved_head_dim, cfg.d_model, True, cfg.norm_eps)
+    _reset_train_counts()
+    t0 = time.perf_counter()
+    logits, _ = build_prefill_step(cfg, mesh)(model, prompts.to(dev), t)
+    torch.cuda.synchronize()
+    out["c/prefill_s"], out["c/prefill_counts"] = time.perf_counter() - t0, _train_counts()
+    want = torch.load(TP_DIR / "glm_ref.pt", mmap=True).to(dev).float()
+    out["c/prefill_err"] = _max_err(logits, want)
+    del logits, want
+    params = dict(model.named_parameters())
+    opt, step = _fsdp_step(cfg)
+    state = adamw_init(params, opt)
+    _reset_train_counts()
+    t0 = time.perf_counter()
+    _, state, metrics = step(model, state, batch, 0)
+    torch.cuda.synchronize()
+    out.update({"c/step_s": time.perf_counter() - t0, "c/step_counts": _train_counts(),
+                "c/loss": [float(metrics["loss"])], "c/grad_norm": [float(metrics["grad_norm"])],
+                "c/m": [_fsdp_samples(params, lambda n_: state.m[n_], TP_GLM_LEAVES)],
+                "c/params": _fsdp_samples(params, lambda n_: params[n_], TP_GLM_LEAVES),
+                "c/biases": {n: p.detach().float().cpu() for n, p in params.items()
+                             if n.endswith("bias")}})
+    del model, params, state
+    torch.cuda.empty_cache()
+
+
+def _tp_rank(rank: int, world: int, store: str, backend: str, job: str, out_dir: str):
+    """One rank of a phase-25 world: ``job`` "a" (two ranks: 25a, then 25b
+    on (1, 2)) or "b" (four ranks: 25b on (2, 2), then 25c on (1, 4));
+    writes its results to ``out_dir/rank{rank}.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import init_world, make_host_mesh
+
+    t0 = time.perf_counter()
+    init_world(rank, world, f"file://{store}", device_type="cuda", backend=backend)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _build.build(["flash_attention", "flash_attention_bwd", "rmsnorm"])
+    dist.barrier()
+    out: dict = {"backend": backend, "join_s": time.perf_counter() - t0}
+    if job == "a":
+        mesh = make_host_mesh(2, device_type="cuda")
+        out["mesh"] = tuple(mesh.shape)
+        _tp_serve_job(dev, mesh, out)
+        _tp_train_job(dev, mesh, TP["steps12"], "b12", out)
+    else:
+        mesh = make_host_mesh(2, device_type="cuda")
+        out["mesh"] = tuple(mesh.shape)
+        _tp_train_job(dev, mesh, TP["steps22"], "b22", out)
+        glm_mesh = make_host_mesh(4, device_type="cuda")
+        out["glm_mesh"] = tuple(glm_mesh.shape)
+        _tp_glm_job(dev, glm_mesh, out)
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _tp_reassemble(ranks: list, tag: str, name: str, model_size: int):
+    """The whole leaf ``name`` from the ranks' shards of run ``tag``: each
+    data coordinate's model chunks concatenated along the model dim, then
+    the data chunks along the data dim."""
+    import torch
+
+    dim, mdim = ranks[0][f"{tag}/dims/{name}"]
+    by = {o[f"{tag}/coords"]: o[f"{tag}/param/{name}"] for o in ranks}
+    n_data = len(ranks) // model_size
+    rows = []
+    for d in range(n_data):
+        parts = [by[(d, m)] for m in range(model_size)]
+        rows.append(parts[0] if mdim is None else torch.cat(parts, mdim))
+    return rows[0] if dim is None else torch.cat(rows, dim)
+
+
+def _tp_train_check(label: str, ranks: list, tag: str, ref: dict, steps: int, model_size: int,
+                    dev) -> dict:
+    """Every rank of a 25b run against one process's (``ref``: losses, grad
+    norms, sampled moments, the parameters after ``steps`` steps): losses,
+    norms, the sampled moments and parameters within ``TRAIN_TOL``, every
+    element of the reassembled parameters within the loose bound, the
+    ranks' replicated leaves the same bits, the launches one process's."""
+    import torch
+
+    params = ref["params"][steps - 1]
+    whole = {n: _tp_reassemble(ranks, tag, n, model_size).to(dev) for n in params}
+    sampled = train_samples(lambda p: whole[_port_leaf(p)].float().cpu().numpy())
+    loose = {n: _bf16_loose_bad(whole[n], w.to(dev), TRAIN["lr"], steps) for n, w in params.items()}
+    repl = [n for n in params if ranks[0][f"{tag}/dims/{n}"] == (None, None)]
+    first = ranks[0]
+    same = [n for n in repl if any(not torch.equal(o[f"{tag}/param/{n}"], first[f"{tag}/param/{n}"])
+                                   for o in ranks[1:])]
+    want = train_summary(ref["loss"][:steps], ref["grad_norm"][:steps], ref["samples"][steps - 1],
+                         ref["m"][:steps])
+    worst = {}
+    for rk, o in enumerate(ranks):
+        got = train_summary(o[f"{tag}/loss"], o[f"{tag}/grad_norm"], sampled,
+                            [_merge_samples([q[f"{tag}/m"][i] for q in ranks])
+                             for i in range(steps)])
+        diff = compare_train(got, want, TRAIN["lr"])
+        worst = train_max_diff(got, want, TRAIN["lr"])
+        sp = o[f"{tag}/spans"][-1]
+        print(f"25b TP {label}, rank {rk} of {len(ranks)} (gloo, ranks sharing one card: not a "
+              f"scaling figure): {FSDP['layers']} layers, {TRAIN['batch']} x {TRAIN['seq_len']} "
+              f"global: walls {_walls(o[f'{tag}/walls'])} s (the first cold; last step's "
+              f"collectives {_tp_coll_s(sp):.3f} s: "
+              f"{ {k: round(v, 4) for k, v in sorted(sp.items())} }), losses {o[f'{tag}/loss']} vs "
+              f"one process {ref['loss'][:steps]}, grad norms {o[f'{tag}/grad_norm']} vs "
+              f"{ref['grad_norm'][:steps]}; largest differences {json.dumps(worst)}; elements "
+              f"past the loose bound {sum(loose.values())}; replicated leaves equal across ranks: "
+              f"{not same} ({len(repl)} leaves); launches a step {o[f'{tag}/counts'][-1]} (one "
+              f"process's {ref['counts'][-1]}); kernels at the local shapes vs plain "
+              f"{o[f'{tag}/parity']}")
+        _check(not diff and not any(loose.values()) and not same
+               and o[f"{tag}/counts"] == ref["counts"][:steps],
+               f"25b {label} rank {rk}: {diff[:4]}, past the loose bound "
+               f"{ {n: v for n, v in loose.items() if v} }, replicated differ {same[:4]}, "
+               f"launches {o[f'{tag}/counts']} vs {ref['counts'][:steps]}")
+    return worst
+
+
+def phase_tp(dev, start_8a: dict, serve_ref: dict) -> dict:
+    """Phase 25 (``TP``): (a) and (b) on (1, 2) over two gloo ranks, (b) on
+    (2, 2) and (c) on (1, 4) over four; ``start_8a`` phase 8a's start
+    weights (host tensors by name), ``serve_ref`` phase 6's
+    ``tp_serve_reference``."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import full_config
+    from repro_torch.optim import adamw_init
+    from repro_torch.serve import build_prefill_step
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {}
+    TP_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save(start_8a, TP_DIR / "start.pt")
+    cfg = _fsdp_cfg(FSDP["layers"])
+    start = {n: t for n, t in start_8a.items()
+             if not n.startswith("blocks.") or int(n.split(".")[1]) < FSDP["layers"]}
+    torch.save(start, TP_DIR / "start4.pt")
+    torch.save(serve_ref, TP_DIR / "serve_ref.pt")
+    ref = {"loss": [], "grad_norm": [], "counts": [], "m": [], "samples": [], "params": []}
+
+    def during_a():
+        # (b)'s one-process run: TP["steps12"] steps, the state after each
+        model = _fsdp_model(cfg, start, dev)
+        params = dict(model.named_parameters())
+        opt, step = _fsdp_step(cfg)
+        state = adamw_init(params, opt)
+        ds = _fsdp_data(cfg)
+        for i in range(max(TP["steps12"], TP["steps22"])):
+            _reset_train_counts()
+            _, state, m = step(model, state, ds.batch_at(i), i)
+            ref["loss"].append(float(m["loss"]))
+            ref["grad_norm"].append(float(m["grad_norm"]))
+            ref["counts"].append(_train_counts())
+            ref["m"].append(train_samples(lambda p: state.m[_port_leaf(p)].float().cpu().numpy()))
+            ref["samples"].append(train_samples(
+                lambda p: params[_port_leaf(p)].detach().float().cpu().numpy()))
+            ref["params"].append({n: p.detach().to("cpu", copy=True) for n, p in params.items()})
+
+    t0 = time.perf_counter()
+    two = _run_world(2, "gloo", "a", target=_tp_rank, join_s=TP["join_s"], during=during_a)
+    out["world2_s"] = time.perf_counter() - t0
+
+    # (a)
+    L, (b, tl), n = full_config(SERVE["arch"]).n_layers, SERVE["prefill"], TP["decode"]
+    want_prefill = {"rmsnorm": 2 * L + 1, "flash_attention_fwd": L, "flash_attention_bwd_dkv": 0,
+                    "flash_attention_bwd_dq": 0}
+    want_decode = dict(want_prefill, rmsnorm=(2 * L + 1) * n, flash_attention_fwd=0)
+    for rk, o in enumerate(two):
+        sp = o["a/prefill_spans"]
+        dsp = o["a/decode_spans"]
+        print(f"25a TP serve, rank {rk} of 2 on {o['mesh']} (gloo, ranks sharing one card: not a "
+              f"scaling figure): llama3.2-1b full width and depth, prefill {b} x {tl} "
+              f"{o['a/prefill_s']:.4f} s (a synchronized run {o['a/prefill_profiled_s']:.4f} s, "
+              f"its "
+              f"collectives {_tp_coll_s(sp):.4f} s: "
+              f"{ {k: round(v, 4) for k, v in sorted(sp.items())} }), {n} decode steps "
+              f"{sum(o['a/decode_walls']):.4f} s (collectives {_tp_coll_s(dsp):.4f} s); logits "
+              f"max|TP - one process| prefill {o['a/prefill_err']:.4f}, decode "
+              f"{o['a/decode_err']:.4f} (tolerance {SERVE_PREFILL_TOL}); argmax equal at "
+              f"{o['a/prefill_agree']}/{o['a/prefill_sure']} prefill and "
+              f"{o['a/decode_agree']}/{o['a/decode_sure']} decode positions with a top-2 margin > "
+              f"{SERVE_MARGIN_TOL}; cache {o['a/cache_shape']}; launches prefill "
+              f"{o['a/prefill_counts']}, decode {o['a/decode_counts']}; kernels at the local "
+              f"shapes vs plain {o['a/parity']}")
+        _check(o["a/prefill_err"] <= SERVE_PREFILL_TOL and o["a/decode_err"] <= SERVE_PREFILL_TOL
+               and o["a/prefill_agree"] == o["a/prefill_sure"] > 0
+               and o["a/decode_agree"] == o["a/decode_sure"] > 0,
+               f"25a rank {rk}: TP serving differs from one process")
+        _check(o["a/prefill_counts"] == want_prefill and o["a/decode_counts"] == want_decode,
+               f"25a rank {rk} launches {o['a/prefill_counts']} {o['a/decode_counts']}")
+        _check(o["a/prefill_print"] == two[0]["a/prefill_print"]
+               and o["a/decode_print"] == two[0]["a/decode_print"],
+               f"25a rank {rk}: the ranks' logits differ")
+    out["a"] = {k: two[0][f"a/{k}"] for k in ("prefill_s", "prefill_profiled_s", "prefill_err",
+                                             "decode_err", "decode_walls")}
+    out["a"]["prefill_coll_s"] = _tp_coll_s(two[0]["a/prefill_spans"])
+    out["a"]["decode_coll_s"] = _tp_coll_s(two[0]["a/decode_spans"])
+    # (b) on (1, 2)
+    out["b12"] = _tp_train_check("(1, 2)", two, "b12", ref, TP["steps12"], 2, dev)
+    out["b12_walls"] = [o["b12/walls"] for o in two]
+    out["b12_coll_s"] = [_tp_coll_s(o["b12/spans"][-1]) for o in two]
+    launches = [o["a/prefill_counts"] for o in two] + [o["a/decode_counts"] for o in two] + [
+        c for o in two for c in o["b12/counts"]]
+    del two
+
+    # (c)'s one-process prefill, which the ranks read, then its step beside them
+    glm_cfg = _tp_glm_cfg()
+    glm = _tp_glm_model(dev)
+    prompts, batch = _tp_glm_batch(glm_cfg)
+    logits, _ = build_prefill_step(glm_cfg)(glm, prompts.to(dev), prompts.shape[1])
+    torch.save(logits.to(torch.bfloat16).cpu(), TP_DIR / "glm_ref.pt")
+    del logits
+    glm_ref = {}
+
+    def during_b():
+        params = dict(glm.named_parameters())
+        opt, step = _fsdp_step(glm_cfg)
+        state = adamw_init(params, opt)
+        _reset_train_counts()
+        _, state, m = step(glm, state, batch, 0)
+        glm_ref.update(loss=[float(m["loss"])], grad_norm=[float(m["grad_norm"])],
+                       counts=_train_counts(),
+                       m=[train_samples(lambda p: state.m[_port_leaf(p)].float().cpu().numpy(),
+                                        TP_GLM_LEAVES)],
+                       params=train_samples(
+                           lambda p: params[_port_leaf(p)].detach().float().cpu().numpy(),
+                           TP_GLM_LEAVES),
+                       biases={n: p.detach().float().cpu() for n, p in params.items()
+                               if n.endswith("bias")})
+
+    t0 = time.perf_counter()
+    four = _run_world(4, "gloo", "b", target=_tp_rank, join_s=TP["join_s"], during=during_b)
+    out["world4_s"] = time.perf_counter() - t0
+    del glm
+    out["b22"] = _tp_train_check("(2, 2)", four, "b22", ref, TP["steps22"], 2, dev)
+    out["b22_walls"] = [o["b22/walls"] for o in four]
+    out["b22_coll_s"] = [_tp_coll_s(o["b22/spans"][-1]) for o in four]
+    del ref
+
+    # (c)
+    gl = glm_cfg.n_layers
+    want_c = {"rmsnorm": 2 * gl + 1, "flash_attention_fwd": gl, "flash_attention_bwd_dkv": 0,
+              "flash_attention_bwd_dq": 0}
+    want = train_summary(glm_ref["loss"], glm_ref["grad_norm"], glm_ref["params"], glm_ref["m"])
+    for rk, o in enumerate(four):
+        got = train_summary(o["c/loss"], o["c/grad_norm"],
+                            _merge_samples([q["c/params"] for q in four]),
+                            [_merge_samples([q["c/m"][0] for q in four])])
+        diff = compare_train(got, want, TRAIN["lr"], leaves=TP_GLM_LEAVES)
+        bias_bad = {n: _bf16_loose_bad(o["c/biases"][n], w, TRAIN["lr"], 1)
+                    for n, w in glm_ref["biases"].items()}
+        worst = train_max_diff(got, want, TRAIN["lr"], leaves=TP_GLM_LEAVES)
+        print(f"25c TP chatglm3-6b, rank {rk} of 4 on {o['glm_mesh']} (KV heads "
+              f"{o['c/kv_heads']} of {glm_cfg.n_kv_heads}: gathered over 'model'): {gl} layers, "
+              f"prefill {TP['glm_batch']} {o['c/prefill_s']:.4f} s, max|TP - one process| "
+              f"{o['c/prefill_err']:.4f}; one step {o['c/step_s']:.4f} s, loss {o['c/loss']} vs "
+              f"{glm_ref['loss']}, grad norm {o['c/grad_norm']} vs {glm_ref['grad_norm']}, largest "
+              f"differences {json.dumps(worst)}"
+              f", q/k/v bias elements past the loose bound {sum(bias_bad.values())}; launches "
+              f"prefill {o['c/prefill_counts']}, step {o['c/step_counts']} (one process's "
+              f"{glm_ref['counts']}); kernels at the local shapes vs plain {o['c/parity']}")
+        _check(o["c/prefill_err"] <= SERVE_PREFILL_TOL and not diff and not any(bias_bad.values())
+               and o["c/prefill_counts"] == want_c and o["c/step_counts"] == glm_ref["counts"],
+               f"25c rank {rk}: {o['c/prefill_err']} {diff[:4]} {bias_bad}")
+    launches += [o["b22/counts"][i] for o in four for i in range(TP["steps22"])]
+    launches += [o[k] for o in four for k in ("c/prefill_counts", "c/step_counts")]
+    out["c"] = {k: four[0][f"c/{k}"] for k in ("prefill_s", "prefill_err", "step_s")}
+    del four
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    out["launches"] = {}  # every main-path run of every rank of both worlds
+    for c in launches:
+        for name, k in c.items():
+            out["launches"][name] = out["launches"].get(name, 0) + k
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 25 (tensor parallelism): {out['phase_s']:.1f} s (two-rank world "
+          f"{out['world2_s']:.1f} s, four-rank world {out['world4_s']:.1f} s)")
     return out
 
 
@@ -11746,7 +12333,10 @@ def main() -> int:
         kernels[name].update(
             launches_sharded_region_capture=sum(c[name] for c in sharded["captures"]),
             launches_sharded_campus=sharded["campus_counts"][name])
-    fsdp_train = phase_fsdp(dev, trained.pop("steps_8a"), trained.pop("start_8a"))
+    start_8a = trained.pop("start_8a")
+    fsdp_train = phase_fsdp(dev, trained.pop("steps_8a"), start_8a)
+    tp_run = phase_tp(dev, start_8a, serve.pop("tp_ref"))
+    del start_8a
     fa, rn = kernels["flash_attention_fwd"], kernels["rmsnorm"]
     fa.update({k: v for k, v in moe_kernels.items() if k.startswith("mla_")},
               mla_max_abs_err=moe_kernels["err"])
@@ -11806,6 +12396,8 @@ def main() -> int:
             launches=kernels[name]["launches"] + n, launches_fsdp_train=n,
             launches_per_fsdp_step_one_rank=per["one_rank"][name],
             launches_per_fsdp_step_two_ranks={k: c[name] for k, c in per["two_ranks"].items()})
+    for name, n in tp_run["launches"].items():
+        kernels[name].update(launches=kernels[name]["launches"] + n, launches_tp=n)
     print(json.dumps({"serve": {k: serve[k] for k in ("prefill_s", "generate_s", "tokens_per_s")},
                       "train": {k: trained[k] for k in ("step_s", "tokens_per_s", "train_mfu",
                                                          "peak_gb")},
@@ -11895,7 +12487,10 @@ def main() -> int:
                                                           "phase_s")},
                       "fsdp_train": {k: fsdp_train[k] for k in (
                           "a_walls", "a_peak_gb", "a_collective_share", "a_world_s",
-                          "b_world_s", "c_one_s", "phase_s")}}))
+                          "b_world_s", "c_one_s", "phase_s")},
+                      "tp": {k: tp_run[k] for k in (
+                          "a", "b12_walls", "b12_coll_s", "b22_walls", "b22_coll_s", "c",
+                          "world2_s", "world4_s", "phase_s")}}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -16,6 +16,21 @@ head dim ``v_head_dim``; the flash kernel takes the narrower value zero-
 padded); its decode is the absorbed form (``wk_b`` folded into the query,
 ``wv_b`` into the output) over the compressed cache.
 
+Under tensor parallelism (``GQAAttention.tp``, set by
+``sharding.fsdp.shard_model``) a rank runs ``n_heads / m`` query heads
+(its ``wq`` columns, its chunk of the ``wq`` bias, its ``wo`` rows; the
+block adds the ranks' partial outputs) and the KV heads they read
+(``sharding.tp.kv_heads``): where ``m`` divides the KV heads, its own
+``wk`` / ``wv`` columns; where it does not (chatglm3's 2 KV heads on 4
+ranks, llama's 8 on 16) the rules still split the ``wk`` / ``wv`` output
+dim, off head boundaries, so the rank gathers them whole over ``"model"``
+inside the block (``tp.whole_kernel``; the gradient goes back by
+reduce-scatter) and keeps the one KV head its query heads read.  Its
+caches hold those KV heads (``init_gqa_cache(kv_heads=)``), one a rank
+where ``m`` exceeds them: not the reference's ``cache_spec``, which
+shards such a cache's sequence instead.  RoPE and the qk-norms act per
+head, unchanged.
+
 The port writes new keys and values into the cache in place (the JAX
 package returns updated arrays); the returned ``KVCache`` holds the same
 tensors with the new length.  Within ``max_len`` both give the same
@@ -32,6 +47,7 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.sharding import tp as TP
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -81,7 +97,10 @@ def write_cache(cache: torch.Tensor, new: torch.Tensor, start: int) -> None:
 class GQAAttention(nn.Module):
     """``init_gqa``: ``wq``, ``wk``, ``wv`` (bias with ``cfg.qkv_bias``),
     ``wo``, and ``q_norm``/``k_norm`` RMSNorms over the head dim with
-    ``cfg.qk_norm``."""
+    ``cfg.qk_norm``.  With ``tp`` it runs on this rank's heads and its
+    output is this rank's partial sum."""
+
+    tp: TP.ModelShard | None = None
 
     def __init__(self, cfg, *, dtype, device):
         super().__init__()
@@ -111,9 +130,12 @@ def gqa_fwd(
 ) -> tuple[torch.Tensor, KVCache]:
     b, t, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = p.wq(x).reshape(b, t, cfg.n_heads, hd)
-    k = p.wk(x).reshape(b, t, cfg.n_kv_heads, hd)
-    v = p.wv(x).reshape(b, t, cfg.n_kv_heads, hd)
+    if p.tp is None:
+        q = p.wq(x).reshape(b, t, cfg.n_heads, hd)
+        k = p.wk(x).reshape(b, t, cfg.n_kv_heads, hd)
+        v = p.wv(x).reshape(b, t, cfg.n_kv_heads, hd)
+    else:
+        q, k, v = _local_qkv(p, cfg, x)
     if cfg.qk_norm:
         q = p.q_norm(q)
         k = p.k_norm(k)
@@ -137,12 +159,33 @@ def gqa_fwd(
             q, cache.k[:, :idx + t], cache.v[:, :idx + t], idx, 1.0 / math.sqrt(hd)
         )
         new_cache = KVCache(k=cache.k, v=cache.v, length=idx + t)
-    o = out.reshape(b, t, cfg.n_heads * hd)
+    o = out.reshape(b, t, q.shape[2] * hd)
     return p.wo(o), new_cache
 
 
-def init_gqa_cache(cfg, batch: int, max_len: int, *, dtype, device) -> KVCache:
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+def _local_qkv(p: GQAAttention, cfg, x):
+    """``(q, k, v)`` of this rank's query heads and the KV heads they read
+    (``tp.kv_heads``), ``(B, T, heads, hd)`` each."""
+    tp, (b, t, _), hd = p.tp, x.shape, cfg.resolved_head_dim
+    q = L.linear(x, p.wq.kernel, TP.local(p.wq.bias, tp)).reshape(b, t, -1, hd)
+    first, n = TP.kv_heads(cfg, tp)
+    out = [q]
+    for lin in (p.wk, p.wv):
+        if cfg.n_kv_heads % tp.size == 0:
+            y = L.linear(x, lin.kernel, TP.local(lin.bias, tp))
+        else:
+            cols = slice(first * hd, (first + n) * hd)
+            bias = None if lin.bias is None else lin.bias[cols]
+            y = L.linear(x, TP.whole_kernel(lin, tp)[:, cols], bias)
+        out.append(y.reshape(b, t, n, hd))
+    return tuple(out)
+
+
+def init_gqa_cache(cfg, batch: int, max_len: int, *, dtype, device,
+                   kv_heads: int | None = None) -> KVCache:
+    """Zero caches of ``kv_heads`` KV heads (default: all of them)."""
+    heads = cfg.n_kv_heads if kv_heads is None else kv_heads
+    shape = (batch, max_len, heads, cfg.resolved_head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device), length=0)
 
@@ -266,7 +309,8 @@ def attention_fwd(p, cfg, x, positions, cache=None, *, causal: bool = True):
     return gqa_fwd(p, cfg, x, positions, cache, causal=causal)
 
 
-def init_cache(cfg, batch: int, max_len: int, *, dtype, device) -> KVCache:
+def init_cache(cfg, batch: int, max_len: int, *, dtype, device,
+               kv_heads: int | None = None) -> KVCache:
     if cfg.attention == "mla":
         return init_mla_cache(cfg, batch, max_len, dtype=dtype, device=device)
-    return init_gqa_cache(cfg, batch, max_len, dtype=dtype, device=device)
+    return init_gqa_cache(cfg, batch, max_len, dtype=dtype, device=device, kv_heads=kv_heads)

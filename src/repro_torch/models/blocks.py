@@ -2,6 +2,13 @@
 pre-norm decoder block with a dense FFN or, for the ``moe`` family's MoE
 layers, the MoE FFN (``models/moe.py``); the Mamba2 block wrapper; and the
 Zamba2 shared attention block of the ``hybrid`` family.
+
+Under tensor parallelism the decoder block is the Megatron layout the
+reference's rules give GSPMD: the residual stream stays replicated over
+``"model"`` (``constrain_activations``), ``sharding.tp.copy_to_model``
+follows each norm (the columns of ``wq`` / ``wk`` / ``wv`` and of
+``w_gate`` / ``w_up`` read it) and ``sharding.tp.reduce_from_model`` adds
+the ranks' partial outputs of ``wo`` and ``w_down``.
 """
 from __future__ import annotations
 
@@ -13,6 +20,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
+from repro_torch.sharding import tp as TP
 
 
 class DecoderBlock(nn.Module):
@@ -38,15 +46,18 @@ class DecoderBlock(nn.Module):
 def decoder_block_fwd(p: DecoderBlock, cfg, x, positions, cache: A.KVCache | None = None, *,
                       causal: bool = True):
     """Returns ``(x, cache, aux)`` like the reference: ``aux`` is the MoE
-    layer's ``MoEAux``, None for a dense FFN."""
-    h = p.ln1(x)
+    layer's ``MoEAux``, None for a dense FFN.  With tensor parallelism
+    (``p.attn.tp``) each sublayer reads its norm's output through
+    ``copy_to_model`` and its output is summed over ``"model"``."""
+    tp = getattr(p.attn, "tp", None)
+    h = TP.copy_to_model(p.ln1(x), tp)
     attn_out, new_cache = A.attention_fwd(p.attn, cfg, h, positions, cache, causal=causal)
-    x = x + attn_out
+    x = x + TP.reduce_from_model(attn_out, tp)
     h = p.ln2(x)
     if hasattr(p, "moe"):
         out, aux = p.moe(h)
         return x + out, new_cache, aux
-    return x + p.ffn(h), new_cache, None
+    return x + TP.reduce_from_model(p.ffn(TP.copy_to_model(h, tp)), tp), new_cache, None
 
 
 class MambaBlock(nn.Module):

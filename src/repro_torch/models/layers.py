@@ -12,6 +12,14 @@ Activations run in the config dtype, normalisation and softmax statistics
 in float32, and bf16 rounds where the reference rounds: after every
 ``linear``, after ``apply_rope``'s float32 rotation, and on the tied
 readout's logits before they are widened to float32.
+
+Under tensor parallelism (``sharding.fsdp.shard_model`` on a ``"model"``
+axis above 1) a ``Linear`` holds its local columns (an up-projection) or
+rows (a down-projection) and runs on them unchanged, so the ``FFN`` runs
+on its ``d_ff / m`` local columns (its block adds the ranks' partial
+outputs, ``blocks.decoder_block_fwd``), and the ``Embedding`` (its ``tp``
+set) on its ``V / m`` local rows: ``embed`` is ``sharding.tp.embed`` and
+``unembed`` gives this rank's vocab columns.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.sharding import tp as TP
 
 F32 = torch.float32
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -250,15 +259,20 @@ class FFN(nn.Module):
 
 class Embedding(nn.Module):
     """``{"embedding": (vocab, d_model)}``: ``embed`` and the tied
-    ``unembed`` readout."""
+    ``unembed`` readout; with ``tp`` on this rank's vocab rows."""
+
+    tp: TP.ModelShard | None = None
 
     def __init__(self, vocab: int, d_model: int, *, dtype, device):
         super().__init__()
         self.embedding = _param((vocab, d_model), dtype, device)
 
     def embed(self, tokens):
+        if self.tp is not None:
+            return TP.embed(self.embedding, tokens, self.tp)
         return self.embedding[tokens]
 
     def unembed(self, x):
-        """Tied readout ``x @ E^T`` in ``x.dtype``, widened to float32."""
+        """Tied readout ``x @ E^T`` in ``x.dtype``, widened to float32 (with
+        ``tp``: this rank's vocab columns)."""
         return (x @ self.embedding.T.to(x.dtype)).to(F32)

@@ -23,7 +23,15 @@ checkpointed, so the recompute gathers them again, and ``forward`` gathers
 the leaves outside the stacks (the embedding, ``lm_head``) once; the batch
 arrives split by ``rules.shard_batch`` (the reference's
 ``constrain_activations``; its ``maybe_constrain`` annotates GSPMD and has
-nothing to do here) and ``lm_loss`` is the global batch's.
+nothing to do here) and ``lm_loss`` is the global batch's.  On a
+``"model"`` axis above 1 (the ``dense`` and ``vlm`` families,
+``rules.check_mesh_family``) the model runs tensor parallel
+(``sharding/tp.py``; the blocks in ``blocks.decoder_block_fwd``): the
+embedding looks up this rank's vocab rows, ``forward``'s logits are this
+rank's vocab columns (the reference keeps them vocab-sharded), ``_xent``
+is the vocab-parallel ``tp.xent``, and ``decode_step`` serves on this
+rank's heads and rows of the batch and returns the whole logits on every
+rank.
 
 The ``moe`` family trains as the reference does: ``lm_loss`` adds the
 averaged ``load_balance`` and ``router_z`` terms and ``0.3 x`` the MTP
@@ -47,6 +55,7 @@ as in the reference: ``Transformer`` refuses it, and ``encdec`` reuses
 """
 from __future__ import annotations
 
+import contextlib
 import contextvars
 from typing import NamedTuple
 
@@ -60,7 +69,7 @@ from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import rwkv6 as R
-from repro_torch.sharding import fsdp
+from repro_torch.sharding import fsdp, rules, tp as TP
 from repro_torch.utils.devices import resolve_device
 
 # The module lists whose per-layer leaves the reference stacks on leading
@@ -74,17 +83,22 @@ STACK_DEPTH = {"blocks": 1, "dense_blocks": 1, "moe_blocks": 1, "groups": 2, "en
 STACKS = tuple(STACK_DEPTH)
 
 
-def check_serving(cfg) -> None:
+def check_serving(cfg, mesh=None) -> None:
     """Raise for a family the port does not know (``audio`` is built by
-    ``models/encdec.py``)."""
+    ``models/encdec.py``), and with ``mesh`` for one that does not run on
+    it (``rules.check_mesh_family``: a ``"model"`` axis above 1 serves the
+    ``dense`` and ``vlm`` families only)."""
     if cfg.family not in ("dense", "vlm", "ssm", "moe", "hybrid", "audio"):
         raise NotImplementedError(f"the {cfg.family} family is not ported")
+    if mesh is not None:
+        rules.check_mesh_family(mesh, cfg)
 
 
-def check_training(cfg) -> None:
-    """Raise for the families the port cannot train: those it cannot serve.
-    Every family the port serves trains, as in the reference."""
-    check_serving(cfg)
+def check_training(cfg, mesh=None) -> None:
+    """Raise for the families the port cannot train (on ``mesh``): those it
+    cannot serve.  Every family the port serves trains, as in the
+    reference."""
+    check_serving(cfg, mesh)
 
 
 class ForwardOut(NamedTuple):
@@ -110,7 +124,10 @@ class Transformer(nn.Module):
     "moe_blocks", "mtp"?`` in place of ``"blocks"``; ``hybrid``: ``"groups",
     "shared"``) with uninitialised
     parameters on ``device`` (``init`` fills them, ``convert`` copies
-    them in)."""
+    them in).  ``tp``: its ``rules.ModelShard`` under tensor
+    parallelism."""
+
+    tp: TP.ModelShard | None = None
 
     def __init__(self, cfg, *, device="cuda"):
         super().__init__()
@@ -155,6 +172,14 @@ def init(cfg, *, device="cuda", generator: torch.Generator | None = None) -> Tra
 
 
 def _readout(p: Transformer, h: torch.Tensor) -> torch.Tensor:
+    """Float32 logits of ``h``; under tensor parallelism this rank's vocab
+    columns (tied: its embedding rows; untied: ``tp.vocab_columns`` of the
+    ``lm_head`` the rules store split along ``d``)."""
+    tp = getattr(p, "tp", None)
+    if tp is not None:
+        h = TP.copy_to_model(h, tp)
+        if p.lm_head is not None:
+            return L.linear(h, TP.vocab_columns(p.lm_head, tp)).to(torch.float32)
     if p.lm_head is None:
         return p.embed.unembed(h)
     return p.lm_head(h).to(torch.float32)
@@ -343,7 +368,7 @@ def lm_loss(p: Transformer, tokens: torch.Tensor, labels: torch.Tensor, *,
     check_training(p.cfg)
     out = forward(p, tokens, embeddings=embeddings)
     group = fsdp.data_group(p)
-    loss, denom = _xent(out.logits, labels, group)
+    loss, denom = _xent(out.logits, labels, group, p.tp)
     metrics = {"lm_loss": loss, "tokens": denom}
     total = loss
     for k, v in out.aux_losses.items():
@@ -360,8 +385,8 @@ def lm_loss(p: Transformer, tokens: torch.Tensor, labels: torch.Tensor, *,
     return total, metrics
 
 
-def _xent(logits: torch.Tensor, labels: torch.Tensor,
-          group=None) -> tuple[torch.Tensor, torch.Tensor]:
+def _xent(logits: torch.Tensor, labels: torch.Tensor, group=None,
+          tp: TP.ModelShard | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """``(mean nll over valid labels, valid count)``.  The gold logit is a
     ``gather``: exactly the reference's masked sum over the vocab axis
     (whose only non-zero term is the gold logit), which the reference
@@ -376,7 +401,11 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor,
     rank divides its sum of nll by it, and the ranks' quotients are summed
     (``fsdp.global_sum``, whose gradient is each rank's own share).  So
     the loss is another association of the same sum: within float32
-    rounding of the one-process loss, not bit for bit past one rank."""
+    rounding of the one-process loss, not bit for bit past one rank.
+    With ``tp`` (``logits`` this rank's vocab columns) it is the
+    vocab-parallel ``tp.xent``."""
+    if tp is not None:
+        return TP.xent(logits, labels, tp, group)
     valid = labels >= 0
     safe = torch.clamp(labels, min=0)
     logz = torch.logsumexp(logits, dim=-1)
@@ -390,7 +419,7 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor,
     return fsdp.global_sum(torch.sum(nll) / denom, group), denom
 
 
-def init_decode_state(cfg, batch: int, max_len: int, *, device="cuda") -> dict:
+def init_decode_state(cfg, batch: int, max_len: int, *, device="cuda", mesh=None) -> dict:
     """``{"blocks": KVCache}`` with per-layer caches stacked on axis 0,
     ``(n_layers, B, max_len, Hkv, Dh)``, as the reference lays them out;
     for ``ssm`` ``{"blocks": RWKVState}`` with the shift states ``(n_layers,
@@ -403,8 +432,18 @@ def init_decode_state(cfg, batch: int, max_len: int, *, device="cuda") -> dict:
     shared_every, ...)`` (conv in the model's type, ssm float32) and one
     cache a visit of the shared block, ``(n_groups, B, max_len, H, Dh)``.
     ``audio`` raises: its state holds the encoder's memory
-    (``encdec.init_decode_state``)."""
-    check_serving(cfg)
+    (``encdec.init_decode_state``).  With ``mesh`` (a sharded ``dense`` or
+    ``vlm`` model's) the caches hold this rank's rows of the batch
+    (``_local_rows``) and the KV heads its query heads read
+    (``tp.kv_heads``)."""
+    check_serving(cfg, mesh)
+    if mesh is not None:
+        _check_sharded_decode(cfg)
+        c = A.init_cache(cfg, _local_batch(batch, mesh), max_len, dtype=L.dtype_of(cfg),
+                         device=resolve_device(device),
+                         kv_heads=TP.kv_heads(cfg, rules.model_shard(mesh))[1])
+        shape = (cfg.n_layers,) + tuple(c.k.shape)
+        return {"blocks": A.KVCache(k=c.k.new_zeros(shape), v=c.v.new_zeros(shape), length=0)}
     if cfg.family == "audio":
         raise ValueError("the audio family's decode state is encdec.init_decode_state")
     dev = resolve_device(device)
@@ -434,6 +473,25 @@ def init_decode_state(cfg, batch: int, max_len: int, *, device="cuda") -> dict:
     return {"blocks": A.KVCache(k=c.k.new_zeros(shape), v=c.v.new_zeros(shape), length=0)}
 
 
+def _check_sharded_decode(cfg) -> None:
+    if cfg.family not in ("dense", "vlm"):
+        raise ValueError(f"{cfg.name}: the {cfg.family} family's decode_step runs an unsharded "
+                         "model (ROADMAP.md item 9b.7b)")
+
+
+def _local_batch(batch: int, mesh) -> int:
+    """The rows of a batch of ``batch`` that a rank serves: its chunk over
+    ``"data"`` where ``rules.batch_spec`` splits the batch, else all."""
+    n = rules.axis_sizes(mesh)["data"]
+    return batch // n if rules.batch_spec(mesh, batch) == rules.P("data") else batch
+
+
+def _local_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows of ``x (B, ...)`` for serving (``_local_batch``)."""
+    n = _local_batch(x.shape[0], mesh)
+    return x if n == x.shape[0] else x.chunk(x.shape[0] // n, 0)[rules.axis_index(mesh, "data")]
+
+
 def decode_step(
     p: Transformer,
     tokens: torch.Tensor,  # (B, T_new): 1 for decode, more for prefill
@@ -454,8 +512,30 @@ def decode_step(
     ``hybrid`` each Mamba block advances from its state, overwritten in
     place, and each visit of the shared block attends over its own cache
     (on prefill through ``ops.attention``, its keys and values then
-    written)."""
-    fsdp.check_unsharded(p, "decode_step")
+    written).  A sharded ``dense`` or ``vlm`` model (``fsdp.shard_model``;
+    ``state`` from ``init_decode_state(mesh=)``) takes the whole batch of
+    ``tokens``, serves this rank's rows (``_local_rows``) on its heads, its
+    weights gathered along ``"data"`` a block at a time as ``forward``
+    gathers them, and returns the whole logits on every rank: gathered
+    over the vocab (``tp.gather_logits``), then over the rows."""
+    mesh = fsdp.mesh_of(p)
+    if mesh is None:
+        return _decode_step(p, tokens, state, pos_offset, prefill)
+    _check_sharded_decode(p.cfg)
+    rows = _local_rows(tokens, mesh)
+    with fsdp.gathered(p, skip=_stacks(p)):
+        logits, new_state = _decode_step(p, rows, state, pos_offset, prefill)
+    logits = TP.gather_logits(logits, p.tp)
+    if rows.shape[0] != tokens.shape[0]:
+        logits = rules.all_gather_dim(logits, 0, mesh.get_group("data"), span="tp.gather")
+    return logits, new_state
+
+
+def _decode_step(p: Transformer, tokens: torch.Tensor, state: dict, pos_offset: int,
+                 prefill: bool):
+    """``decode_step`` on this rank's rows; a sharded model's blocks each
+    gather their weights."""
+    sharded = fsdp.mesh_of(p) is not None
     b, t = tokens.shape
     x = p.embed.embed(tokens)
     if p.cfg.family == "hybrid":
@@ -476,12 +556,14 @@ def decode_step(
     for blocks, key in stacks:
         kvs: A.KVCache = state[key]
         for i, blk in enumerate(blocks):
-            if prefill:
-                x, fresh, _ = blk(x, positions, None)
-                A.write_cache(kvs.k[i], fresh.k, kvs.length)
-                A.write_cache(kvs.v[i], fresh.v, kvs.length)
-            else:
-                x, _, _ = blk(x, positions, A.KVCache(k=kvs.k[i], v=kvs.v[i], length=kvs.length))
+            with fsdp.gathered(blk) if sharded else contextlib.nullcontext():
+                if prefill:
+                    x, fresh, _ = blk(x, positions, None)
+                    A.write_cache(kvs.k[i], fresh.k, kvs.length)
+                    A.write_cache(kvs.v[i], fresh.v, kvs.length)
+                else:
+                    x, _, _ = blk(x, positions,
+                                  A.KVCache(k=kvs.k[i], v=kvs.v[i], length=kvs.length))
         new_state[key] = A.KVCache(k=kvs.k, v=kvs.v, length=kvs.length + t)
     return _readout(p, p.ln_f(x)), new_state
 

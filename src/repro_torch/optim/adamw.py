@@ -34,9 +34,10 @@ parameters are this rank's shards and ``adamw_init`` gives moments of the
 same shards (the reference's ``opt_sh = (repl, param_sh, param_sh)``);
 the update is elementwise, so it runs on the shards unchanged.
 ``global_norm`` is then the global gradient's (``fsdp.sum_of_squares``:
-the ranks' partial sums reassociate the one-process sum, so the norm, and
-with it the clip scale, may differ from it by float32 ulps past one rank;
-every rank gets the same bits).
+each ``"model"``-sharded leaf summed over both axes, a leaf the rules
+replicate over an axis counted once; the ranks' partial sums reassociate
+the one-process sum, so the norm, and with it the clip scale, may differ
+from it by float32 ulps past one rank; every rank gets the same bits).
 """
 from __future__ import annotations
 

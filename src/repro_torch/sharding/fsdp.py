@@ -1,27 +1,33 @@
-"""FSDP: the ``"data"`` axis of the spec rules' layout, for training.
+"""FSDP: the ``"data"`` axis of the spec rules' layout, and the placement
+of both axes.
 
 The reference trains under ``jax.jit(build_train_step(...))`` with the
 parameters and both AdamW moments placed by ``rules.param_specs`` and the
 batch by ``rules.batch_spec`` (``launch/dryrun.py``'s ``build_cell``);
 GSPMD then inserts the all-gathers of the weights and the reductions of
 their gradients.  This module is the explicit form of that layout on a
-``("data", "model")`` mesh whose ``"model"`` axis has size 1 (tensor
-parallelism and the ``"pod"`` axis are ROADMAP.md item 9b):
+``("data", "model")`` mesh (the ``"pod"`` axis is ROADMAP.md item 9b.8;
+the ``"model"`` axis's collectives inside the model are ``sharding/tp.py``'s,
+for the families ``rules.check_mesh_family`` admits):
 
 * ``shard_model(model, mesh)`` keeps in each parameter only this rank's
   contiguous chunk along the dim that ``param_specs`` gives to ``"data"``
-  (``full.chunk(n, dim)[rank]``); a leaf whose spec names no ``"data"``
-  dim (norm scales, biases, ``conv``, routers, dims that do not divide)
-  stays whole.  The parameter names stay the port's, so
+  (``full.chunk(n, dim)[rank]``) and, with a ``"model"`` axis above 1,
+  along the dim it gives to ``"model"``; a leaf whose spec names neither
+  (norm scales, biases, ``conv``, routers, dims that do not divide) stays
+  whole.  The parameter names stay the port's, so
   ``adamw.reference_ndim``, ``param_specs`` and the checkpoint keys read
   them as before.  Each parameter carries its ``rules.DataShard``
-  (``shard_of``) and the model its mesh (``mesh_of``).
+  (``shard_of``), the model its mesh (``mesh_of``), and with tensor
+  parallelism every module with a ``tp`` attribute (the embedding, the
+  attention, the FFN, the model) its ``rules.ModelShard``.
 * ``gather(shard, dim, group)`` is an autograd Function: an all-gather
   along ``dim`` forward, a reduce-scatter (sum) of the gradient back to
   the shard backward, so ``torch.autograd.grad`` with respect to the
   shards returns shard gradients.
 * ``gathered(*modules, skip=())`` reads every sharded weight of
-  ``modules`` through ``gather`` for the duration of a block: the models
+  ``modules`` through ``gather`` along ``"data"`` (its ``"model"`` chunk
+  stays this rank's) for the duration of a block: the models
   enter it inside the body that ``transformer._run_stack`` (and the
   hybrid group, the RWKV block, the encoder-decoder's blocks) checkpoints,
   so remat's recompute gathers again and no full weight outlives its
@@ -30,9 +36,15 @@ parallelism and the ``"pod"`` axis are ROADMAP.md item 9b):
   code reads ``self.kernel`` unchanged and ``named_parameters`` still
   yields the shard.  A weight ``holding`` a full copy (the step's
   ``gather_small_weights_once``) is read from that copy instead.
-* The gradient of a replicated leaf is each rank's share of the batch:
-  ``reduce_grads`` all-reduces it (sum), else the ranks' copies drift
-  apart.  ``sum_of_squares`` counts such a leaf once in the global norm.
+* The gradient of a leaf whole along ``"data"`` is each rank's share of
+  the batch: ``reduce_grads`` all-reduces it (sum) over ``"data"``, else the
+  ranks' copies drift apart.  Of a leaf the rules replicate over
+  ``"model"`` there are two kinds: one read on replicated rows (the
+  ``ln1``, ``ln2`` and ``ln_f`` scales) has the same gradient on every rank
+  of the axis, while one read on a rank's own heads (``rules.per_head``:
+  the qk-norm scales and the q/k/v biases) holds that rank's part, which
+  ``reduce_grads`` sums over ``"model"``.  ``sum_of_squares`` counts each
+  replicated leaf once in the global norm.
 
 The collectives are ``rules``' (``all_gather_dim``, ``reduce_scatter_dim``,
 ``all_reduce_sum``), each following its group's backend.
@@ -46,15 +58,24 @@ import torch
 
 from repro_torch.sharding import rules
 from repro_torch.sharding.rules import (
-    DataShard, PartitionSpec, axis_index, axis_sizes, check_fsdp_mesh, constrain_gathered_weight,
-    param_specs, shard_of,
+    DataShard, PartitionSpec, axis_index, axis_sizes, check_mesh_family,
+    constrain_gathered_weight, model_shard, param_specs, per_head, shard_of,
 )
+
+
+def _axis_dim(spec: PartitionSpec, axis: str) -> int | None:
+    dims = [d for d, s in enumerate(spec) if s == axis or (isinstance(s, tuple) and axis in s)]
+    return dims[0] if dims else None
 
 
 def data_dim(spec: PartitionSpec) -> int | None:
     """The tensor dim that ``spec`` gives to ``"data"``, or None."""
-    dims = [d for d, s in enumerate(spec) if s == "data" or (isinstance(s, tuple) and "data" in s)]
-    return dims[0] if dims else None
+    return _axis_dim(spec, "data")
+
+
+def model_dim(spec: PartitionSpec) -> int | None:
+    """The tensor dim that ``spec`` gives to ``"model"``, or None."""
+    return _axis_dim(spec, "model")
 
 
 def data_dims(shapes, mesh) -> dict[str, int | None]:
@@ -101,11 +122,12 @@ def check_unsharded(model, what: str) -> None:
 def shard_model(model, mesh):
     """Place ``model`` (a ``Transformer`` or ``EncDec``) on ``mesh`` in
     place: each parameter keeps this rank's chunk along its rules' data
-    dim (a world of one keeps it whole) and carries its ``DataShard``.
-    Every rank calls it on the same full weights.  Raises ``ValueError``
-    for a mesh with ``"model"`` > 1 or a ``"pod"`` axis, for the ``moe``
+    dim and, with a ``"model"`` axis above 1, its model dim (a world of one
+    keeps it whole), and carries its ``DataShard``.  Every rank calls it on
+    the same full weights.  Raises ``ValueError`` for a mesh the model's
+    family does not run on (``rules.check_mesh_family``), for the ``moe``
     family and MTP, and for parameters not on the mesh's device type."""
-    check_fsdp_mesh(mesh)
+    check_mesh_family(mesh, model.cfg)
     check_family(model.cfg)
     if mesh_of(model) is not None:
         raise ValueError("the model is already sharded")
@@ -115,12 +137,23 @@ def shard_model(model, mesh):
         raise ValueError(f"the mesh carries {mesh.device_type} tensors; the model's parameters "
                          f"lie on {wrong}")
     n, rank = axis_sizes(mesh)["data"], axis_index(mesh, "data")
-    group = mesh.get_group("data")
+    group, tp = mesh.get_group("data"), model_shard(mesh)
     for name, spec in param_specs(params, mesh).items():
         p, dim = params[name], data_dim(spec)
+        mdim = None if tp is None else model_dim(spec)
+        local = p.data
+        if mdim is not None:
+            local = local_shard(local, mdim, tp.size, tp.rank)
         if dim is not None and n > 1:
-            p.data = local_shard(p.data, dim, n, rank).clone()
-        p._fsdp = DataShard(dim=dim, size=n, rank=rank, group=group)
+            local = local_shard(local, dim, n, rank)
+        if local is not p.data:
+            p.data = local.clone()
+        p._fsdp = DataShard(dim=dim, size=n, rank=rank, group=group, model_dim=mdim, model=tp,
+                            per_head=tp is not None and mdim is None and per_head(name))
+    if tp is not None:
+        for module in model.modules():
+            if hasattr(type(module), "tp"):
+                module.tp = tp
     model.fsdp_mesh = mesh
     return model
 
@@ -136,7 +169,8 @@ def shardings(model, opt_state=None):
     if opt_state is None:
         return params
     any_leaf = next(iter(params.values()))
-    step = DataShard(dim=None, size=any_leaf.size, rank=any_leaf.rank, group=any_leaf.group)
+    step = DataShard(dim=None, size=any_leaf.size, rank=any_leaf.rank, group=any_leaf.group,
+                     model=any_leaf.model)
     return params, type(opt_state)(step=step, m=params, v=params)
 
 
@@ -145,20 +179,22 @@ def shardings(model, opt_state=None):
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, shard, dim, group):
-        ctx.dim, ctx.group = dim, group
-        return rules.all_gather_dim(shard, dim, group)
+    def forward(ctx, shard, dim, group, spans):
+        ctx.dim, ctx.group, ctx.span = dim, group, spans[1]
+        return rules.all_gather_dim(shard, dim, group, span=spans[0])
 
     @staticmethod
     def backward(ctx, grad):
-        return rules.reduce_scatter_dim(grad, ctx.dim, ctx.group), None, None
+        return rules.reduce_scatter_dim(grad, ctx.dim, ctx.group, span=ctx.span), None, None, None
 
 
-def gather(shard: torch.Tensor, dim: int, group) -> torch.Tensor:
+def gather(shard: torch.Tensor, dim: int, group,
+           spans: tuple[str, str] = ("fsdp.gather", "fsdp.reduce")) -> torch.Tensor:
     """The full leaf of ``shard``: an all-gather along ``dim`` over
     ``group``; its gradient is reduce-scattered (summed) back to the
-    shard."""
-    return _Gather.apply(shard, dim, group)
+    shard.  ``spans`` names the two collectives' ``core.profiling``
+    spans."""
+    return _Gather.apply(shard, dim, group, spans)
 
 
 class _GlobalSum(torch.autograd.Function):
@@ -188,9 +224,10 @@ def sum_of_squares(tree: dict, params: dict, slices) -> torch.Tensor:
     """The float32 sum of squares of every leaf of ``tree`` (gradients by
     the names of ``params``), each leaf summed over ``slices(leaf)`` in the
     leaves' order.  Of a sharded model's shards, the global gradient's:
-    every rank sums its shards, rank 0 of the data axis the replicated
-    leaves too (the same gradient on every rank, counted once), and the
-    partial sums are all-reduced.  A world of one sums exactly the
+    every rank sums its shards, and a leaf whole along an axis only on
+    that axis's rank 0 (``reduce_grads`` left the same gradient on every
+    rank of it: counted once); the partial sums are all-reduced over
+    ``"data"``, then over ``"model"``.  A world of one sums exactly the
     one-process terms in their order; past one rank the ranks' partial
     sums reassociate it (float32 ulps), with the same bits on every
     rank."""
@@ -199,9 +236,13 @@ def sum_of_squares(tree: dict, params: dict, slices) -> torch.Tensor:
     info = shard_of(next(iter(params.values())))
     if info is None:
         return sum(terms(tree))
-    mine = [n for n in tree if info.rank == 0 or shard_of(params[n]).dim is not None]
+    m_rank = 0 if info.model is None else info.model.rank
+    mine = [n for n in tree
+            if (info.rank == 0 or shard_of(params[n]).dim is not None)
+            and (m_rank == 0 or shard_of(params[n]).model_dim is not None)]
     zero = torch.zeros((), dtype=torch.float32, device=next(iter(tree.values())).device)
-    return global_sum(sum(terms(mine), zero), info.group)
+    total = global_sum(sum(terms(mine), zero), info.group)
+    return total if info.model is None else global_sum(total, info.model.group)
 
 
 # --------------------------------------------------------------- the reads
@@ -272,8 +313,9 @@ def holding(params: dict, held: dict):
 def reduce_grads(grads: dict, params: dict, held: dict) -> dict:
     """The global gradient of each shard and replicated leaf: the full
     gradients of ``held`` leaves reduce-scattered to their shards (once a
-    step), the replicated leaves' all-reduced (sum) in one collective a
-    dtype.  The shards' own gradients were reduce-scattered by ``gather``'s
+    step), the leaves whole along ``"data"`` all-reduced (sum) over it, and
+    the ``per_head`` leaves then over ``"model"``, one collective a dtype
+    each.  The shards' own gradients were reduce-scattered by ``gather``'s
     backward.  Every rank calls it with the same names in the same
     order."""
     out = dict(grads)
@@ -283,6 +325,12 @@ def reduce_grads(grads: dict, params: dict, held: dict) -> dict:
     repl = [n for n, p in params.items() if shard_of(p).dim is None]
     if repl:
         group = shard_of(params[repl[0]]).group
-        for n, g in zip(repl, rules.all_reduce_sum([grads[n] for n in repl], group)):
+        for n, g in zip(repl, rules.all_reduce_sum([out[n] for n in repl], group)):
+            out[n] = g
+    heads = [n for n, p in params.items() if shard_of(p).per_head]
+    if heads:
+        group = shard_of(params[heads[0]]).model.group
+        for n, g in zip(heads, rules.all_reduce_sum([out[n] for n in heads], group,
+                                                    span="tp.reduce")):
             out[n] = g
     return out

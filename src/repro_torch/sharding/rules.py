@@ -26,25 +26,28 @@ Port of ``repro.sharding.rules`` on ``torch.distributed``.
   of names per dim), and ``placements`` turns one into DTensor
   ``Shard`` / ``Replicate`` placements.
 
-* **FSDP training** (``sharding/fsdp.py``) places a model by these specs
-  on a ``("data", "model")`` mesh with ``"model"`` 1 (``check_fsdp_mesh``;
-  tensor parallelism and the ``"pod"`` axis are ROADMAP.md item 9b).  The
-  reference's GSPMD constraint helpers become explicit operations there:
-  ``shard_batch`` takes this rank's rows by ``batch_spec`` (the batch's
-  ``in_shardings`` and ``constrain_activations``, which keep activations
-  batch-sharded), and ``constrain_gathered_weight`` gathers a shard whole
-  along ``"data"`` (the step's ``gather_small_weights_once``).
-  ``maybe_constrain`` and ``constrain_to_mesh`` only annotate GSPMD's
-  propagation and have no operation to port in an explicit layout;
-  ``shard_map_compat`` covers jax API drift and has no counterpart either.
-  A sharded parameter carries its ``DataShard`` (``shard_of``): where it
-  lies on the data axis, which the step, the optimizer's norm and the
-  checkpoint's reshard-on-restore read.
+* **FSDP and tensor-parallel training and serving** (``sharding/fsdp.py``,
+  ``sharding/tp.py``) place a model by these specs on a ``("data",
+  "model")`` mesh (``check_fsdp_mesh``; the ``"pod"`` axis is ROADMAP.md
+  item 9b.8).  ``check_mesh_family`` admits a ``"model"`` axis above 1 for
+  the ``dense`` and ``vlm`` families only.  The reference's GSPMD
+  constraint helpers become explicit operations there: ``shard_batch``
+  takes this rank's rows by ``batch_spec`` (the batch's ``in_shardings``
+  and ``constrain_activations``, which keep activations batch-sharded and
+  replicated over ``"model"``), and ``constrain_gathered_weight`` gathers a
+  shard whole along ``"data"`` and keeps its ``"model"`` chunk (the step's
+  ``gather_small_weights_once``).  ``maybe_constrain`` and
+  ``constrain_to_mesh`` only annotate GSPMD's propagation and have no
+  operation to port in an explicit layout; ``shard_map_compat`` covers jax
+  API drift and has no counterpart either.  A sharded parameter carries
+  its ``DataShard`` (``shard_of``): where it lies on both axes, which the
+  step, the optimizer's norm and the checkpoint's reshard-on-restore read.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from collections.abc import Mapping
 from typing import Any
 
@@ -172,20 +175,50 @@ def shard_racks(traces: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def check_fsdp_mesh(mesh):
-    """``mesh`` if FSDP training runs on it: a ``"data"`` axis, a
-    ``"model"`` axis of size 1 if any, nothing else.  Tensor parallelism
-    (``"model"`` > 1) and the ``"pod"`` axis raise ``ValueError``: they are
-    ROADMAP.md item 9b."""
+    """``mesh`` if a model trains or serves sharded on it: a ``"data"``
+    axis, a ``"model"`` axis if any, nothing else.  The ``"pod"`` axis
+    raises ``ValueError``: it is ROADMAP.md item 9b.8.  Which families run
+    a ``"model"`` axis above 1 is ``check_mesh_family``'s."""
     sizes = axis_sizes(mesh)
     if "data" not in sizes:
         raise ValueError(f"mesh axes {tuple(sizes)} lack the data axis 'data'")
-    if sizes.get("model", 1) > 1:
-        raise ValueError(f"a 'model' axis of {sizes['model']} is tensor parallelism, which the "
-                         "port's training does not run yet (ROADMAP.md item 9b)")
     other = set(sizes) - {"data", "model"}
     if other:
-        raise ValueError(f"mesh axes {sorted(other)}: training runs on ('data', 'model') only; "
-                         "the 'pod' axis is ROADMAP.md item 9b")
+        raise ValueError(f"mesh axes {sorted(other)}: the port runs on ('data', 'model') only; "
+                         "the 'pod' axis is ROADMAP.md item 9b.8")
+    return mesh
+
+
+def check_mesh_family(mesh, cfg):
+    """``mesh`` if ``cfg``'s model runs on it (``check_fsdp_mesh``): a
+    ``"model"`` axis of ``m`` > 1 is tensor parallelism, which the
+    ``dense`` and ``vlm`` families run when ``m`` divides the query heads,
+    ``d_ff`` and the padded vocab, and the KV heads divide ``m`` or ``m``
+    them.
+    Anything else raises ``ValueError`` naming its ROADMAP.md item: the
+    ``moe`` family 9b.9 / 9b.10, ``ssm``, ``hybrid`` and ``audio`` 9b.7b."""
+    check_fsdp_mesh(mesh)
+    m = axis_sizes(mesh).get("model", 1)
+    if m == 1:
+        return mesh
+    if cfg.family == "moe":
+        raise ValueError(f"{cfg.name}: the moe family under a 'model' axis of {m} is expert "
+                         "parallelism, ROADMAP.md items 9b.9 and 9b.10")
+    if cfg.family not in ("dense", "vlm"):
+        raise ValueError(f"{cfg.name}: the {cfg.family} family does not run a 'model' axis of "
+                         f"{m} yet (ROADMAP.md item 9b.7b)")
+    if cfg.n_heads % m:
+        raise ValueError(f"{cfg.name}: {cfg.n_heads} query heads do not split over a 'model' "
+                         f"axis of {m} (ROADMAP.md item 9b.7)")
+    if cfg.n_kv_heads % m and m % cfg.n_kv_heads:
+        raise ValueError(f"{cfg.name}: {cfg.n_kv_heads} KV heads neither divide nor are "
+                         f"divided by a 'model' axis of {m} (ROADMAP.md item 9b.7)")
+    if cfg.d_ff % m:
+        raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} does not split over a 'model' axis of "
+                         f"{m} (ROADMAP.md item 9b.7)")
+    if cfg.padded_vocab % m:
+        raise ValueError(f"{cfg.name}: a vocab of {cfg.padded_vocab} does not split over a "
+                         f"'model' axis of {m} (ROADMAP.md item 9b.7)")
     return mesh
 
 
@@ -207,20 +240,59 @@ def shard_batch(batch, mesh) -> dict:
     return out
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class ModelShard:
+    """This rank's place on the mesh's ``"model"`` axis (size > 1): the
+    axis's ``size``, this rank's ``rank`` on it and its process ``group``.
+    ``fsdp.shard_model`` sets it as ``.tp`` on the modules that run on
+    their local heads, columns, rows or vocab."""
+
+    size: int
+    rank: int
+    group: Any
+
+
+def model_group(mesh) -> Any:
+    """The ``"model"`` axis's process group of ``mesh``, or None (no such
+    axis)."""
+    return check_mesh(mesh).get_group("model") if "model" in axis_sizes(mesh) else None
+
+
+def model_shard(mesh) -> ModelShard | None:
+    """``mesh``'s ``ModelShard``, or None where its ``"model"`` axis is 1 or
+    absent."""
+    m = axis_sizes(mesh).get("model", 1)
+    return None if m == 1 else ModelShard(size=m, rank=axis_index(mesh, "model"),
+                                          group=model_group(mesh))
+
+
 @dataclasses.dataclass(eq=False)
 class DataShard:
-    """Where a parameter of a sharded model lies on the mesh's ``"data"``
-    axis (``fsdp.shard_model`` sets it as ``p._fsdp``): ``dim`` the tensor
-    dim split over the axis's ``size`` ranks (None: whole on every rank),
-    ``rank`` this rank's coordinate on it, ``group`` its process group.
-    ``held`` is a gathered copy that ``fsdp.gathered`` reads instead of
-    gathering (the step's ``gather_small_weights_once``)."""
+    """Where a parameter of a sharded model lies on the mesh (``fsdp.
+    shard_model`` sets it as ``p._fsdp``): ``dim`` the tensor dim split
+    over the ``"data"`` axis's ``size`` ranks (None: whole along it),
+    ``rank`` this rank's coordinate on it, ``group`` its process group;
+    ``model_dim`` the dim split over the ``"model"`` axis ``model`` (None:
+    replicated over it, or no tensor parallelism).  ``per_head`` marks a
+    model-replicated leaf that each rank reads on its own heads only (the
+    ``q_norm`` / ``k_norm`` scales, the ``wq`` / ``wk`` / ``wv`` biases): its
+    gradient is summed over ``"model"``.  ``held`` is a gathered copy that
+    ``fsdp.gathered`` reads instead of gathering (the step's
+    ``gather_small_weights_once``)."""
 
     dim: int | None
     size: int
     rank: int
     group: Any
     held: torch.Tensor | None = None
+    model_dim: int | None = None
+    model: ModelShard | None = None
+    per_head: bool = False
+
+    @property
+    def split(self) -> bool:
+        """Whether the leaf is split over either axis."""
+        return self.dim is not None or self.model_dim is not None
 
 
 def shard_of(p: torch.Tensor) -> DataShard | None:
@@ -231,9 +303,9 @@ def shard_of(p: torch.Tensor) -> DataShard | None:
 def constrain_gathered_weight(path, leaf: torch.Tensor, mesh) -> torch.Tensor:
     """``leaf``, this rank's shard of the parameter at ``path`` of a model
     that ``fsdp.shard_model`` placed on ``mesh``, gathered whole along
-    ``"data"`` with its ``"model"`` placement kept (whole at model 1, the
-    only size that trains yet): "gather once, keep TP".  No autograd; a
-    replicated leaf comes back as it is (detached)."""
+    ``"data"`` with its ``"model"`` placement kept (the rank's chunk along
+    its model dim): "gather once, keep TP".  No autograd; a leaf whole
+    along ``"data"`` comes back as it is (detached)."""
     check_fsdp_mesh(mesh)
     info = shard_of(leaf)
     if info is None:
@@ -254,15 +326,26 @@ def nccl(group) -> bool:
     return dist.get_backend(group) == "nccl"
 
 
-def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+def _alone(group) -> bool:
+    """Whether ``group`` holds this rank only (a mesh axis of size 1): its
+    collectives are copies, made on the device (gloo would carry a CUDA
+    tensor through the host and back)."""
+    import torch.distributed as dist
+
+    return dist.get_world_size(group) == 1
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group, span: str = "fsdp.gather") -> torch.Tensor:
     """The ranks' ``x`` concatenated along ``dim`` in rank order (no
-    autograd)."""
+    autograd), timed as ``span``."""
     import torch.distributed as dist
 
     n = dist.get_world_size(group)
     x = x.detach().contiguous()
-    with profiling.span("fsdp.gather") as sync:
-        if nccl(group):
+    with profiling.span(span) as sync:
+        if _alone(group):
+            out = x.clone()
+        elif nccl(group):
             out = x.new_empty((n,) + tuple(x.shape))
             dist.all_gather_into_tensor(out, x, group=group)
             shape = list(x.shape)
@@ -276,14 +359,16 @@ def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return out
 
 
-def reduce_scatter_dim(g: torch.Tensor, dim: int, group) -> torch.Tensor:
+def reduce_scatter_dim(g: torch.Tensor, dim: int, group, span: str = "fsdp.reduce") -> torch.Tensor:
     """The sum over the ranks of ``g``, this rank's chunk along ``dim``
-    (no autograd)."""
+    (no autograd), timed as ``span``."""
     import torch.distributed as dist
 
     n, rank = dist.get_world_size(group), dist.get_rank(group)
-    with profiling.span("fsdp.reduce") as sync:
-        if nccl(group):
+    with profiling.span(span) as sync:
+        if _alone(group):
+            out = g.clone(memory_format=torch.contiguous_format)
+        elif nccl(group):
             src = g.unflatten(dim, (n, g.shape[dim] // n)).movedim(dim, 0).contiguous()
             out = g.new_empty(src.shape[1:])
             dist.reduce_scatter_tensor(out, src, group=group)
@@ -295,22 +380,35 @@ def reduce_scatter_dim(g: torch.Tensor, dim: int, group) -> torch.Tensor:
     return out
 
 
-def all_reduce_sum(tensors: list, group) -> list:
+def all_reduce_sum(tensors: list, group, span: str = "fsdp.reduce") -> list:
     """Each tensor summed over the ranks (new tensors), one all-reduce a
-    dtype over their flattened concatenation."""
+    dtype over their flattened concatenation, timed as ``span``."""
     import torch.distributed as dist
 
     out = list(tensors)
     by_dtype: dict = {}
     for i, t in enumerate(tensors):
         by_dtype.setdefault(t.dtype, []).append(i)
-    with profiling.span("fsdp.reduce") as sync:
+    with profiling.span(span) as sync:
         for idx in by_dtype.values():
             flat = torch.cat([tensors[i].reshape(-1) for i in idx])
-            dist.all_reduce(flat, group=group)
+            if not _alone(group):
+                dist.all_reduce(flat, group=group)
             for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
                 out[i] = part.view(tensors[i].shape)
             sync(flat)
+    return out
+
+
+def all_reduce_max(x: torch.Tensor, group, span: str = "tp.reduce") -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the ranks (a new tensor, no
+    autograd), timed as ``span``."""
+    import torch.distributed as dist
+
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    with profiling.span(span) as sync:
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+        sync(out)
     return out
 
 
@@ -374,6 +472,19 @@ _UP_KERNELS = (
 _DOWN_KERNELS = ("wo", "w_down", "w_out", "w_concat", "b", "wv_cm")
 _REPLICATE = ("scale", "bias", "a_log", "dt_bias", "d_skip", "decay_base",
               "mu_base", "mu_k", "mu_r", "u_bonus", "_sub_heads", "dec_pos")
+
+
+# The leaves above that a tensor-parallel rank reads on its own heads only:
+# the query/key/value biases (and a key/value kernel whose output dim does
+# not split over "model"), and the qk-norm scales.  Their gradient on a rank
+# is its heads' part: it is summed over "model" (``fsdp.reduce_grads``).
+_PER_HEAD = re.compile(r"(^|\.)attn\.((wq|wk|wv)\.(bias|kernel)|(q_norm|k_norm)\.scale)$")
+
+
+def per_head(name: str) -> bool:
+    """Whether parameter ``name`` (a dotted path), where the rules
+    replicate it over ``"model"``, is read on each rank's own heads."""
+    return bool(_PER_HEAD.search(name))
 
 
 def _role_of(path: tuple[str, ...], ndim: int) -> str:

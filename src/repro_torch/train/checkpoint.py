@@ -19,17 +19,19 @@ Restore places every leaf on the device and in the dtype of the matching
 leaf of ``like``.
 
 Sharded worlds (``sharding.fsdp``): ``shardings=`` is a tree of
-``rules.DataShard`` shaped as the tree, each leaf's placement on the data
-axis (``fsdp.shardings(model, opt_state)`` for ``(params, opt_state)``).
-``save(..., shardings=)`` gathers every sharded leaf whole on the caller's
-thread (every rank takes part), and rank 0 of the data axis writes the
-same ``arrays.npz`` layout as a one-process save; the other ranks write
-nothing and every rank waits at a barrier in ``wait()`` (``blocking=True``
-waits at once).  ``restore(..., shardings=)`` is the reference's
-reshard-on-restore: each rank reads the whole leaves and keeps its chunk
-along each leaf's data dim, whatever world wrote them.  A checkpoint is
-one layout for every world: saved by 2 ranks it restores into 1 or 2, and
-the other way round, bit for bit.
+``rules.DataShard`` shaped as the tree, each leaf's placement on the
+``"data"`` and ``"model"`` axes (``fsdp.shardings(model, opt_state)`` for
+``(params, opt_state)``).  ``save(..., shardings=)`` gathers every sharded
+leaf whole on the caller's thread (along its data dim, then its model dim;
+every rank takes part), and rank 0 of both axes writes the same
+``arrays.npz`` layout as a one-process save; the other ranks write
+nothing and every rank waits at a barrier over each axis in ``wait()``
+(``blocking=True`` waits at once).  ``restore(..., shardings=)`` is the
+reference's reshard-on-restore: each rank reads the whole leaves and
+keeps its chunk along each leaf's data and model dims, whatever world and
+layout wrote them.  A checkpoint is one layout for every world: saved on
+a ``(1, 2)`` mesh it restores into ``(2, 1)``, ``(1, 1)`` and ``(2, 2)``
+ones, and the other way round, bit for bit.
 """
 from __future__ import annotations
 
@@ -70,8 +72,8 @@ def _leaves(tree: Any, prefix: tuple = (), leaf=torch.Tensor):
 
 
 def _placements(tree: Any, shardings: Any) -> list:
-    """The ``DataShard`` of each leaf of ``tree`` that is split over the
-    data axis, from the same path of ``shardings``; None for a whole leaf
+    """The ``DataShard`` of each leaf of ``tree`` that is split over either
+    axis, from the same path of ``shardings``; None for a whole leaf
     (every leaf without ``shardings``)."""
     paths = [p for p, _ in _leaves(tree)]
     if shardings is None:
@@ -80,7 +82,7 @@ def _placements(tree: Any, shardings: Any) -> list:
     missing = [p for p in paths if p not in by_path]
     if missing:
         raise ValueError(f"no sharding for the leaf {'/'.join(missing[0])}")
-    return [by_path[p] if by_path[p].dim is not None else None for p in paths]
+    return [by_path[p] if by_path[p].split else None for p in paths]
 
 
 def _rebuild(tree: Any, it) -> Any:
@@ -103,8 +105,10 @@ def _flatten(tree: Any, shardings: Any = None, keep: bool = True) -> dict[str, n
         if place is not None:
             # gloo gathers host tensors natively (CUDA ones it copies through
             # the host both ways); nccl gathers on the device
-            t = rules.all_gather_dim(t if rules.nccl(place.group) else t.cpu(), place.dim,
-                                     place.group)
+            for dim, group in ((place.dim, place.group),
+                               (place.model_dim, place.model and place.model.group)):
+                if dim is not None:
+                    t = rules.all_gather_dim(t if rules.nccl(group) else t.cpu(), dim, group)
         if not keep:
             continue
         if t.dtype.is_floating_point and t.dtype not in _NUMPY_FLOATS:
@@ -118,7 +122,7 @@ class Checkpointer:
         self.directory = directory
         self.keep = keep
         self._thread: threading.Thread | None = None
-        self._barrier = None  # the data axis's group after a sharded save
+        self._barrier = ()  # the axes' groups after a sharded save
         os.makedirs(directory, exist_ok=True)
 
     # ------------------------------------------------------------- save --
@@ -133,7 +137,9 @@ class Checkpointer:
         writes = True
         if shardings is not None:
             axis = next(s for _, s in _leaves(shardings, leaf=DataShard))
-            self._barrier, writes = axis.group, axis.rank == 0
+            model = axis.model
+            self._barrier = (axis.group,) + (() if model is None else (model.group,))
+            writes = axis.rank == 0 and (model is None or model.rank == 0)
         flat = _flatten(tree, shardings, writes)  # device -> host on the caller's thread
         if not writes:
             if blocking:
@@ -167,15 +173,17 @@ class Checkpointer:
 
     def wait(self) -> None:
         """Join the background write; after a sharded save, every rank
-        then waits for the others (a barrier on the data axis)."""
+        then waits for the others (a barrier on the data axis, then one on
+        the model axis: each rank has then seen every rank arrive)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._barrier is not None:
+        if self._barrier:
             import torch.distributed as dist
 
-            group, self._barrier = self._barrier, None
-            dist.barrier(group=group)
+            groups, self._barrier = self._barrier, ()
+            for group in groups:
+                dist.barrier(group=group)
 
     def _gc(self) -> None:
         steps = self.all_steps()
@@ -201,8 +209,8 @@ class Checkpointer:
         """Restore into the structure of ``like``: each leaf on the device
         and in the dtype of ``like``'s leaf at the same path.  With
         ``shardings`` (a ``DataShard`` tree shaped as ``like``) each
-        leaf is this rank's chunk along its data dim, ``like``'s leaves
-        the shards (reshard-on-restore: any world's checkpoint).  A save
+        leaf is this rank's chunk along its data and model dims, ``like``'s
+        leaves the shards (reshard-on-restore: any world's checkpoint).  A save
         still in flight is waited for first."""
         self.wait()
         if step is None:
@@ -216,11 +224,17 @@ class Checkpointer:
                 key = "/".join(path)
                 arr = arrays[key]
                 if place is not None:
-                    dim, n, rank = place.dim, place.size, place.rank
-                    if arr.ndim <= dim or arr.shape[dim] % n:
-                        raise ValueError(f"{key}: {arr.shape} does not split over {n} ranks "
-                                         f"along dim {dim}")
-                    arr = np.ascontiguousarray(np.split(arr, n, axis=dim)[rank])
+                    model = place.model
+                    for dim, n, rank in ((place.dim, place.size, place.rank),
+                                         (place.model_dim, model and model.size,
+                                          model and model.rank)):
+                        if dim is None:
+                            continue
+                        if arr.ndim <= dim or arr.shape[dim] % n:
+                            raise ValueError(f"{key}: {arr.shape} does not split over {n} "
+                                             f"ranks along dim {dim}")
+                        arr = np.split(arr, n, axis=dim)[rank]
+                    arr = np.ascontiguousarray(arr)
                 if tuple(arr.shape) != tuple(leaf.shape):
                     raise ValueError(f"shape mismatch for {key}: {arr.shape} vs {tuple(leaf.shape)}")
                 leaves.append(torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype))

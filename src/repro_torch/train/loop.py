@@ -9,12 +9,14 @@ checkpoints (scheduled, and SoC-triggered emergency saves through
 ``PowerAwareCheckpointer``), resumes from the newest one with
 ``tc.resume``, and reports each step to ``power_sim``.
 
-With ``mesh`` (a ``("data", "model")`` mesh of ``"model"`` 1, e.g.
-``launch.mesh.make_host_mesh``; every rank of the world calls ``train``
-alike) the model is sharded after ``init`` (``sharding.fsdp.shard_model``:
-every rank draws the same full weights from ``tc.seed``, then keeps its
-shards), each step is given the global batch of ``ds.batch_at(step)``
-(``audio``: the global frames) and keeps this rank's rows, and the
+With ``mesh`` (a ``("data", "model")`` mesh, e.g.
+``launch.mesh.make_host_mesh(model_parallel=)``, whose ``"model"`` axis
+may exceed 1 for the ``dense`` and ``vlm`` families; every rank of the
+world calls ``train`` alike) the model is sharded after ``init``
+(``sharding.fsdp.shard_model``: every rank draws the same full weights
+from ``tc.seed``, then keeps its shards on both axes), each step is
+given the global batch of ``ds.batch_at(step)`` (``audio``: the global
+frames) and keeps this rank's rows, and the
 checkpoints are saved and restored through the shardings (rank 0 writes
 the one-process layout; any world resumes from it).  ``PowerSim`` runs on
 every rank, fed by its own steps.
@@ -83,6 +85,7 @@ def train(
     "opt_state", "history": [{"step", "loss", "grad_norm"}, ...],
     "first_loss", "last_loss": mean of the last five, "power_report"?}``."""
     dev = resolve_device(device)
+    T.check_training(cfg, mesh)
     init = ED.init if cfg.family == "audio" else T.init
     model = init(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(tc.seed))
     if mesh is not None:

@@ -39,11 +39,16 @@ the same rows), the loss and metrics are the global ones on every rank
 (``transformer._xent``), the shards' gradients come back reduce-scattered
 from ``fsdp.gather``'s backward and the replicated leaves' are all-reduced
 (``fsdp.reduce_grads``) before AdamW, whose norm sums over the ranks
-(``adamw.global_norm``).  With ``gather_small_weights_once`` and
-``microbatches > 1`` every sharded leaf that is not a routed expert's is
-gathered once before the microbatch loop (``rules.
-constrain_gathered_weight``), its full float32 gradient accumulated over
-the microbatches and reduce-scattered once after them: the reference's
+(``adamw.global_norm``).  On a ``"model"`` axis above 1 the model runs
+tensor parallel (``sharding/tp.py``): the ranks of the axis share their
+rows of the batch, each computes on its heads, columns and vocab, and
+``reduce_grads`` also sums over ``"model"`` the gradients of the
+model-replicated leaves each rank reads on its own heads.  With
+``gather_small_weights_once`` and ``microbatches > 1`` every sharded leaf
+that is not a routed expert's is gathered once along ``"data"`` before the
+microbatch loop, its ``"model"`` chunk kept (``rules.
+constrain_gathered_weight``), its float32 gradient accumulated over the
+microbatches and reduce-scattered once after them: the reference's
 ``gather_small_weights_once``.  Without a mesh it changes nothing, as on
 the reference's one device.  The ``moe`` family and MTP do not shard
 (``fsdp.check_family``).

@@ -1,11 +1,12 @@
-"""One rank of a gloo world on the CPU for ``tests/test_torch_distributed.py``
-and ``tests/test_torch_fsdp.py``.
+"""One rank of a gloo world on the CPU for ``tests/test_torch_distributed.py``,
+``tests/test_torch_fsdp.py`` and ``tests/test_torch_tp.py``.
 
     python tests/_torch_dist_worker.py RANK WORLD STORE OUT_DIR [SUITE]
 
 Joins the world through the ``file://`` store ``STORE`` (a 120 s timeout
 on every collective), runs the world's cases (``WORLDS[WORLD]``, or with
-SUITE ``fsdp`` ``FSDP_WORLDS[WORLD]``) and writes
+SUITE ``fsdp`` ``FSDP_WORLDS[WORLD]``, with ``tp`` ``TP_WORLDS[WORLD]``,
+whose worlds share ``OUT_DIR/../shared``) and writes
 ``OUT_DIR/rank{RANK}.pt``: a dict of named tensors, flags and error
 messages that the test module asserts, case by case.  Rank 0 also runs
 each case's one-process reference (the sequential region engine, the
@@ -501,11 +502,13 @@ def fsdp_loop_case(mesh, rank: int, out: dict, shared: Path) -> None:
 
 
 def fsdp_error_cases(mesh, out: dict) -> None:
-    """The refusals: a "model" axis of 2, a "pod" axis, the moe family and
-    MTP under a mesh (the model and ``train``), a batch that does not split
-    over the data axis, and serving a sharded model."""
+    """The refusals: the ssm family on a "model" axis of 2, a "pod" axis
+    (the model, and the gather-once weight), the moe family and MTP under a
+    mesh (the model and ``train``), a batch that does not split over the
+    data axis, and serving a sharded ssm model."""
     cfg = smoke_config("llama3_2_1b")
     moe = smoke_config("deepseek_v3_671b")
+    rwkv = smoke_config("rwkv6_7b")
     tp = sharding.make_mesh((1, 2), ("data", "model"), device_type=DEV)
     pod = sharding.make_mesh((2, 1, 1), ("pod", "data", "model"), device_type=DEV)
     opt = AdamWConfig()
@@ -513,7 +516,7 @@ def fsdp_error_cases(mesh, out: dict) -> None:
     state = adamw_init(dict(model.named_parameters()), opt)
     odd = fsdp_batch(cfg, 0, 3, 8)
     cases = {
-        "model_axis": lambda: fsdp.shard_model(fsdp_model(cfg), tp),
+        "model_axis": lambda: fsdp.shard_model(fsdp_model(rwkv), tp),
         "pod_axis": lambda: fsdp.shard_model(fsdp_model(cfg), pod),
         "moe": lambda: fsdp.shard_model(T.init(moe, device=DEV), mesh),
         "moe_train": lambda: train(moe, DataConfig(batch=2, seq_len=8,
@@ -521,10 +524,11 @@ def fsdp_error_cases(mesh, out: dict) -> None:
                                    opt, TrainConfig(steps=1), device=DEV, mesh=mesh),
         "batch": lambda: sharding.shard_batch(odd, mesh),
         "batch_step": lambda: build_train_step(cfg, opt)(model, state, odd, 0),
-        "decode": lambda: T.decode_step(model, odd["tokens"], T.init_decode_state(
-            cfg, 3, 8, device=DEV), 0),
+        "decode": lambda: T.decode_step(fsdp.shard_model(fsdp_model(rwkv), mesh),
+                                        odd["tokens"], T.init_decode_state(rwkv, 3, 8,
+                                                                           device=DEV), 0),
         "gathered_weight_tp": lambda: sharding.constrain_gathered_weight(
-            "embed.embedding", model.embed.embedding, tp),
+            "embed.embedding", model.embed.embedding, pod),
     }
     for name, fn in cases.items():
         out[f"error/{name}"] = error(fn)
@@ -554,6 +558,309 @@ FSDP_WORLDS = {
 }
 
 
+# ------------------------------------------------------------------ TP --
+
+# The families that run tensor parallel, by their smoke configs (float32):
+# llama (tied readout, 4 / 2 heads), chatglm3 (qkv bias, rope fraction 0.5,
+# untied), chameleon (vlm: qk-norm, untied).  At model 4 their 2 KV heads
+# do not divide the axis (the gathered-KV route).
+TP_ARCHS = ("llama3_2_1b", "chatglm3_6b", "chameleon_34b")
+TP_RUN = dict(batch=4, seq_len=16, steps=3, lr=1e-3, weight_decay=0.1, total_steps=10,
+              warmup_steps=1)
+# Serving: a (2, 8) prompt through the prefill step, then ``decode``
+# teacher-forced decode steps.
+TP_SERVE = dict(batch=2, prompt=8, decode=3, seed=5)
+
+
+def tp_batch(cfg, i: int) -> dict:
+    """Step ``i``'s global batch, with labels set to -100 so that the data
+    ranks' rows hold unequal valid counts."""
+    c = TP_RUN
+    batch = SyntheticLMDataset(DataConfig(batch=c["batch"], seq_len=c["seq_len"],
+                                          vocab_size=cfg.vocab_size)).batch_at(i)
+    batch["labels"][0, : c["seq_len"] // 2] = -100
+    batch["labels"][3, :3] = -100
+    return batch
+
+
+def tp_prompts(cfg):
+    """``(prompts (B, T0), fed (B, decode))`` int32 numpy arrays: the
+    prompt and the tokens fed to the teacher-forced decode steps."""
+    import numpy as np
+
+    c = TP_SERVE
+    rng = np.random.default_rng(c["seed"])
+    toks = rng.integers(0, cfg.vocab_size, (c["batch"], c["prompt"] + c["decode"]),
+                        dtype=np.int32)
+    return toks[:, :c["prompt"]], toks[:, c["prompt"]:]
+
+
+def tp_model(cfg, mesh=None):
+    """``random_lm_tree(cfg, 0)``'s model, placed on ``mesh`` if given."""
+    model = fsdp_model(cfg)
+    return model if mesh is None else fsdp.shard_model(model, mesh)
+
+
+def tp_chunk(full: torch.Tensor, info) -> torch.Tensor:
+    """This rank's chunk of ``full`` by its ``DataShard``."""
+    if info.model_dim is not None:
+        full = full.chunk(info.model.size, info.model_dim)[info.model.rank]
+    if info.dim is not None:
+        full = full.chunk(info.size, info.dim)[info.rank]
+    return full
+
+
+def tp_whole(shard: torch.Tensor, info) -> torch.Tensor:
+    """The whole leaf of this rank's ``shard`` (a collective)."""
+    if info.dim is not None:
+        shard = rules.all_gather_dim(shard, info.dim, info.group)
+    if info.model_dim is not None:
+        shard = rules.all_gather_dim(shard, info.model_dim, info.model.group)
+    return shard
+
+
+def tp_train(cfg, mesh, mb: int = 1, once: bool = False) -> dict:
+    """``TP_RUN``'s steps of ``build_train_step`` on ``mesh`` (None: one
+    process): each step's metrics, the final parameters (this rank's
+    shards) and first moments."""
+    c = TP_RUN
+    opt = AdamWConfig(lr=c["lr"], weight_decay=c["weight_decay"])
+    step = build_train_step(cfg, opt, microbatches=mb, total_steps=c["total_steps"],
+                            warmup_steps=c["warmup_steps"], gather_small_weights_once=once)
+    model = tp_model(cfg, mesh)
+    params = dict(model.named_parameters())
+    state = adamw_init(params, opt)
+    out = {k: [] for k in ("loss", "lm_loss", "grad_norm", "tokens")}
+    for i in range(c["steps"]):
+        _, state, m = step(model, state, tp_batch(cfg, i), i)
+        for k in out:
+            out[k].append(m[k].item())
+    out = {k: torch.tensor(v, dtype=torch.float64) for k, v in out.items()}
+    out["params"] = {n: p.detach().clone() for n, p in params.items()}
+    out["m"] = {n: state.m[n].clone() for n in params}
+    return out
+
+
+def tp_store_train(out: dict, tag: str, got: dict, ref: dict, params: dict) -> None:
+    """``got``'s metrics beside ``ref``'s, and each parameter and moment
+    shard beside the matching chunk of the one-process run."""
+    for k in ("loss", "lm_loss", "grad_norm", "tokens"):
+        out[f"{tag}/{k}"], out[f"{tag}/ref/{k}"] = got[k], ref[k]
+    for kind in ("params", "m"):
+        for n, t in got[kind].items():
+            out[f"{tag}/{kind}/{n}"] = t
+            out[f"{tag}/ref/{kind}/{n}"] = tp_chunk(ref[kind][n], fsdp.shard_of(params[n]))
+
+
+def tp_serve(cfg, mesh) -> dict:
+    """The prefill step's logits and ``TP_SERVE["decode"]`` teacher-forced
+    decode steps' (whole, on every rank), and a greedy ``ServeEngine``
+    generation, on ``mesh`` (None: one process)."""
+    from repro_torch.serve import ServeEngine, build_decode_step, build_prefill_step
+
+    prompts, fed = (torch.as_tensor(a) for a in tp_prompts(cfg))
+    t0, n = prompts.shape[1], fed.shape[1]
+    model = tp_model(cfg)
+    logits, state = build_prefill_step(cfg, mesh)(model, prompts, t0 + n)
+    decode = build_decode_step(cfg, mesh)
+    steps = []
+    for i in range(n):
+        step_logits, state = decode(model, fed[:, i:i + 1], state, t0 + i)
+        steps.append(step_logits)
+    eng = ServeEngine(cfg, tp_model(cfg), max_len=t0 + 4, device=DEV, mesh=mesh)
+    return {"prefill": logits, "steps": torch.cat(steps, dim=1),
+            "cache_shape": torch.tensor(state["blocks"].k.shape),
+            "generated": eng.generate(prompts, 4)}
+
+
+def tp_grads(cfg, mesh) -> dict:
+    """One step's gradients on ``mesh`` (``lm_loss`` of ``tp_batch(cfg,
+    0)``): this rank's raw gradients (before ``fsdp.reduce_grads``) and
+    reduced ones of the model-replicated leaves, beside the one-process
+    gradients."""
+    from repro_torch.train.step import loss_fn
+
+    out = {}
+    for name, model in (("ref", tp_model(cfg)), ("tp", tp_model(cfg, mesh))):
+        params = dict(model.named_parameters())
+        batch = {k: torch.as_tensor(v) for k, v in tp_batch(cfg, 0).items()}
+        if name == "tp":
+            batch = sharding.shard_batch(batch, mesh)
+        loss, _ = loss_fn(model, batch)
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        if name == "ref":
+            ref = grads
+            continue
+        reduced = fsdp.reduce_grads(grads, params, {})
+        for n, p in params.items():
+            info = fsdp.shard_of(p)
+            if info.model_dim is None:
+                out[f"raw/{n}"], out[f"reduced/{n}"] = grads[n], reduced[n]
+                out[f"ref/{n}"] = tp_chunk(ref[n], info)
+                out[f"per_head/{n}"] = info.per_head
+    return out
+
+
+def tp_ckpt_save(mesh, rank: int, out: dict, shared: Path) -> None:
+    """One llama step on the (1, 2) ``mesh``, saved (every leaf gathered
+    whole: rank 0 keeps them) for the restores into other layouts; then
+    restored here into a (2, 1) mesh, and by rank 0 into one process."""
+    cfg = smoke_config("llama3_2_1b")
+    c = TP_RUN
+    opt = AdamWConfig(lr=c["lr"], weight_decay=c["weight_decay"])
+    step = build_train_step(cfg, opt, total_steps=c["total_steps"],
+                            warmup_steps=c["warmup_steps"])
+    model = tp_model(cfg, mesh)
+    params = dict(model.named_parameters())
+    _, state, _ = step(model, adamw_init(params, opt), tp_batch(cfg, 0), 0)
+    Checkpointer(str(shared / "ck12")).save(0, (params, state), blocking=True,
+                                            shardings=fsdp.shardings(model, state))
+    whole = {k: tp_whole(v, fsdp.shard_of(params[k.split("/", 1)[1]]))
+             if leaf_split(params, k) else v for k, v in fsdp_state(model, state).items()}
+    if rank == 0:
+        torch.save(whole, shared / "ck12_whole.pt")
+        (shared / "ck12_done").touch()
+        one = tp_model(cfg)
+        one_params = dict(one.named_parameters())
+        _, (got, got_state) = Checkpointer(str(shared / "ck12")).restore(
+            None, (one_params, adamw_init(one_params, opt)))
+        with torch.no_grad():
+            for n, p in one_params.items():
+                p.copy_(got[n])
+        restored = fsdp_state(one, got_state)
+        out["ckpt/to11/bad"] = [k for k in whole if not torch.equal(restored[k], whole[k])]
+        out["ckpt/to11/leaves"] = len(whole)
+    out["ckpt/to21/bad"] = tp_restore_check(
+        sharding.make_mesh((2, 1), ("data", "model"), device_type=DEV), shared, whole)
+
+
+def leaf_split(params: dict, key: str) -> bool:
+    """Whether the leaf a ``fsdp_state`` key holds is split over an axis."""
+    return "/" in key and fsdp.shard_of(params[key.split("/", 1)[1]]).split
+
+
+def tp_restore_check(mesh, shared: Path, whole: dict) -> list:
+    """The (1, 2) checkpoint restored on ``mesh``: the keys whose restored
+    shard differs from its chunk of ``whole``."""
+    cfg = smoke_config("llama3_2_1b")
+    opt = AdamWConfig(lr=TP_RUN["lr"], weight_decay=TP_RUN["weight_decay"])
+    model = tp_model(cfg, mesh)
+    params = dict(model.named_parameters())
+    state = adamw_init(params, opt)
+    _, (got, state) = Checkpointer(str(shared / "ck12")).restore(
+        None, (params, state), shardings=fsdp.shardings(model, state))
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(got[n])
+    bad = []
+    for k, v in fsdp_state(model, state).items():
+        want = tp_chunk(whole[k], fsdp.shard_of(params[k.split("/", 1)[1]])) \
+            if leaf_split(params, k) else whole[k]
+        if not torch.equal(v, want):
+            bad.append(k)
+    return bad
+
+
+def tp_mesh_case(mesh, tag: str, rank: int, out: dict) -> None:
+    """Every ``TP_ARCHS`` config on ``mesh``: three training steps and the
+    serving run, each beside one process's."""
+    for arch in TP_ARCHS:
+        cfg = smoke_config(arch)
+        params = dict(tp_model(cfg, mesh).named_parameters())
+        for n, p in params.items():
+            info = fsdp.shard_of(p)
+            out[f"{tag}/{arch}/shard/{n}"] = p.detach().clone()
+            out[f"{tag}/{arch}/dims/{n}"] = torch.tensor(
+                [-1 if d is None else d for d in (info.dim, info.model_dim)])
+        tp_store_train(out, f"{tag}/{arch}/train", tp_train(cfg, mesh), tp_train(cfg, None),
+                       params)
+        for k, v in tp_serve(cfg, mesh).items():
+            out[f"{tag}/{arch}/serve/{k}"] = v
+        for k, v in tp_serve(cfg, None).items():
+            out[f"{tag}/{arch}/serve/ref/{k}"] = v
+    out[f"{tag}/coords"] = torch.tensor([sharding.axis_index(mesh, "data"),
+                                         sharding.axis_index(mesh, "model")])
+
+
+def tp_error_cases(mesh, out: dict) -> None:
+    """The refusals of a real (1, 2) mesh: the ssm family's model placed on
+    it, its training and its serving."""
+    from repro_torch.serve import ServeEngine
+
+    rwkv = smoke_config("rwkv6_7b")
+    cases = {
+        "shard_ssm": lambda: fsdp.shard_model(fsdp_model(rwkv), mesh),
+        "train_ssm": lambda: train(rwkv, DataConfig(batch=2, seq_len=8,
+                                                    vocab_size=rwkv.vocab_size),
+                                   AdamWConfig(), TrainConfig(steps=1), device=DEV, mesh=mesh),
+        "serve_ssm": lambda: ServeEngine(rwkv, fsdp_model(rwkv), device=DEV, mesh=mesh),
+    }
+    for name, fn in cases.items():
+        out[f"error/{name}"] = error(fn)
+
+
+def run_tp_case(case: str, world: int, rank: int, out: dict, shared: Path) -> None:
+    if case == "mesh12":
+        mesh = lmesh.make_host_mesh(2, device_type=DEV)
+        tp_mesh_case(mesh, "mesh12", rank, out)
+        out["jax/coords"] = torch.tensor(0)
+        for arch in TP_ARCHS:  # the run the JAX package's own (1, 2) step makes
+            cfg = smoke_config(arch)
+            res = tp_train(cfg, mesh)
+            params = dict(tp_model(cfg, mesh).named_parameters())
+            for n, t in res["params"].items():
+                out[f"jax/{arch}/param/{n}"] = tp_whole(t, fsdp.shard_of(params[n]))
+    elif case == "mesh22":
+        mesh = lmesh.make_host_mesh(2, device_type=DEV)
+        tp_mesh_case(mesh, "mesh22", rank, out)
+        cfg = smoke_config("llama3_2_1b")
+        params = dict(tp_model(cfg, mesh).named_parameters())
+        tp_store_train(out, "mesh22/once", tp_train(cfg, mesh, 2, True),
+                       tp_train(cfg, None, 2, True), params)
+    elif case == "mesh14":
+        tp_mesh_case(lmesh.make_host_mesh(4, device_type=DEV), "mesh14", rank, out)
+    elif case == "grads":
+        for arch in TP_ARCHS:
+            mesh = lmesh.make_host_mesh(world, device_type=DEV)
+            for k, v in tp_grads(smoke_config(arch), mesh).items():
+                out[f"grads/{arch}/{k}"] = v
+    elif case == "ckpt_save":
+        tp_ckpt_save(lmesh.make_host_mesh(2, device_type=DEV), rank, out, shared)
+    elif case == "ckpt_restore":
+        done = shared / "ck12_done"
+        deadline = time.monotonic() + 100.0
+        while not done.exists():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no {done}")
+            time.sleep(0.1)
+        whole = torch.load(shared / "ck12_whole.pt")
+        out["ckpt/to22/bad"] = tp_restore_check(lmesh.make_host_mesh(2, device_type=DEV),
+                                                shared, whole)
+    elif case == "loop":
+        cfg = smoke_config("llama3_2_1b")
+        data = DataConfig(batch=4, seq_len=16, vocab_size=cfg.vocab_size)
+        res = train(cfg, data, AdamWConfig(lr=1e-3), TrainConfig(steps=3, log_every=1),
+                    device=DEV, mesh=lmesh.make_host_mesh(2, device_type=DEV))
+        ref = train(cfg, data, AdamWConfig(lr=1e-3), TrainConfig(steps=3, log_every=1),
+                    device=DEV)
+        for key, r in (("loop/loss", res), ("loop/ref_loss", ref)):
+            out[key] = torch.tensor([h["loss"] for h in r["history"]], dtype=torch.float64)
+    elif case == "hostmesh":
+        for mp in (1, 2, 4, 8):
+            out[f"hostmesh/{mp}"] = torch.tensor(
+                tuple(lmesh.make_host_mesh(mp, device_type=DEV).shape))
+    elif case == "errors":
+        tp_error_cases(lmesh.make_host_mesh(2, device_type=DEV), out)
+
+
+# The cases each world runs, in order.  The 2-rank world saves the (1, 2)
+# checkpoint first; the 4-rank world restores it last, into (2, 2).
+TP_WORLDS = {
+    2: ("ckpt_save", "mesh12", "grads", "loop", "errors"),
+    4: ("mesh22", "mesh14", "hostmesh", "ckpt_restore"),
+}
+
+
 def main() -> None:
     rank, world, store, out_dir = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], Path(sys.argv[4])
     suite = sys.argv[5] if len(sys.argv) > 5 else "engines"
@@ -562,7 +869,11 @@ def main() -> None:
     shared = out_dir / "shared"  # the service's log and checkpoints, one for the world
     shared.mkdir(exist_ok=True)
     out: dict = {}
-    cases, run = (FSDP_WORLDS, run_fsdp_case) if suite == "fsdp" else (WORLDS, run_case)
+    cases, run = {"fsdp": (FSDP_WORLDS, run_fsdp_case), "tp": (TP_WORLDS, run_tp_case)}.get(
+        suite, (WORLDS, run_case))
+    if suite == "tp":  # one directory for both worlds (the checkpoint moves between them)
+        shared = out_dir.parent / "shared"
+        shared.mkdir(exist_ok=True)
     for case in cases[world]:
         t0 = time.perf_counter()
         run(case, world, rank, out, shared)

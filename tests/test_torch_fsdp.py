@@ -45,9 +45,11 @@ subprocess that sets ``XLA_FLAGS`` before importing jax), started together.
   again, each bit for bit; a step from the restored state bit for bit the
   step without the restore.  ``train(mesh=)`` with checkpoints and
   ``resume`` (llama, and whisper with its frames).
-* **Refusals** (``ValueError``): a ``"model"`` axis of 2, a ``"pod"`` axis,
-  the moe family (the model and ``train``), a batch that does not divide
-  the data axis (``shard_batch`` and the step), serving a sharded model.
+* **Refusals** (``ValueError``): the ssm family on a ``"model"`` axis of 2
+  (tensor parallelism runs the dense and vlm families, ``test_torch_tp``),
+  a ``"pod"`` axis (also for the gather-once weight), the moe family (the
+  model and ``train``), a batch that does not divide the data axis
+  (``shard_batch`` and the step), serving a sharded ssm model.
 """
 import os
 import subprocess
@@ -192,8 +194,10 @@ def test_shard_model_on_two_ranks(runs, arch):
 @pytest.mark.parametrize("sizes", [{"data": 2, "model": 2}, {"pod": 2, "data": 2, "model": 1},
                                    {"campus": 2, "data": 1}, {"model": 1}])
 def test_fsdp_mesh_refusals(sizes):
+    """The meshes the ssm family does not train on: a ``"model"`` axis above
+    1 (ROADMAP 9b.7b), a ``"pod"`` axis (9b.8), none without a data axis."""
     with pytest.raises(ValueError, match="9b|data axis"):
-        sharding.check_fsdp_mesh(sizes)
+        sharding.check_mesh_family(sizes, smoke_config("rwkv6_7b"))
 
 
 # ---------------------------------------------------------------- steps --

@@ -11594,34 +11594,54 @@ def tp_serve_reference(model, cfg, dev) -> dict:
     return out
 
 
-def _tp_kernel_parity(dev, b, h, hkv, t, hd, d, backward: bool, eps: float) -> dict:
+def _tp_kernel_parity(dev, b, h, hkv, t, hd, d, backward: bool, eps: float,
+                      causal: bool = True, flash: bool = True) -> dict:
     """This rank's kernels against their plain versions at the local shapes
-    of its main path, with phases 5 and 7's tolerances: the flash forward on
-    q ``(b, h, t, hd)``, k and v ``(b, hkv, t, hd)`` in bf16 (2e-2 against
-    the bf16 plain version, one bf16 ulp of the element on o and 1e-5 on
-    lse against the float32 one), with ``backward`` its dK/dV and dQ
-    against the plain backward (one ulp of the element plus 1e-5 of the
-    gradient's scale), rmsnorm on ``(b t, d)`` bf16 rows (one ulp).  The
-    largest errors by kernel; a disagreement fails the run."""
+    of its main path, with phases 5 and 7's tolerances: with ``flash`` the
+    flash forward (``causal`` or not) on q ``(b, h, t, hd)``, k and v ``(b,
+    hkv, t, hd)`` in bf16 (2e-2 against the bf16 plain version, one bf16 ulp
+    of the element on o and 1e-5 on lse against the float32 one), with
+    ``backward`` its dK/dV and dQ against the plain backward (one ulp of the
+    element plus 1e-5 of the gradient's scale), rmsnorm on ``(b t, d)``
+    bf16 rows (one ulp; not with ``d`` None).  The largest errors by
+    kernel; a disagreement fails the run."""
     import torch
 
-    from repro_torch.kernels import flash_attention as fa, ops, ref
+    from repro_torch.kernels import ops
 
     gen = torch.Generator(device=dev).manual_seed(25)
     randn = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    errs = {}
+    if flash:
+        errs.update(_tp_flash_parity(dev, randn, b, h, hkv, t, hd, backward, causal))
+    if d is not None:
+        x, w = randn(b * t, d), (1.0 + 0.1 * randn(d).float()).to(torch.bfloat16)
+        got = ops.rmsnorm(x, w, eps, force="cuda").double()
+        want = ops.rmsnorm(x, w, eps, force="ref").double()
+        errs["rmsnorm"] = float((got - want).abs().max())
+        _check(bool(((got - want).abs() <= 2.0**-7 * want.abs() + 1e-6).all()),
+               f"25: rmsnorm ({b * t}, {d}) vs plain")
+    torch.cuda.synchronize()
+    return errs
+
+
+def _tp_flash_parity(dev, randn, b, h, hkv, t, hd, backward: bool, causal: bool) -> dict:
+    """``_tp_kernel_parity``'s flash part."""
+    from repro_torch.kernels import flash_attention as fa, ref
+
     q, k, v = randn(b, h, t, hd), randn(b, hkv, t, hd), randn(b, hkv, t, hd)
-    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
-    o_p, lse_p = ref.attention(q, k, v, causal=True, with_lse=True)
-    o_w, lse_w = ref.attention(q.float(), k.float(), v.float(), causal=True, with_lse=True)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    o_p, lse_p = ref.attention(q, k, v, causal=causal, with_lse=True)
+    o_w, lse_w = ref.attention(q.float(), k.float(), v.float(), causal=causal, with_lse=True)
     dev_o = (o.double() - o_w.double()).abs()
     errs = {"flash_attention_fwd": max(_max_err(o, o_p), _max_err(lse, lse_p))}
     _check(errs["flash_attention_fwd"] <= 2e-2 and _max_err(lse, lse_w) <= 1e-5
            and bool((dev_o <= 2.0**-7 * o_w.double().abs() + 1e-6).all()),
-           f"25: flash forward at q {tuple(q.shape)} k {tuple(k.shape)} vs plain")
+           f"25: flash forward at q {tuple(q.shape)} k {tuple(k.shape)} causal {causal} vs plain")
     if backward:
         do = randn(b, h, t, hd)
-        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
-        plain = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        plain = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
         err, ok = 0.0, True
         for g, p in zip(got, plain):
             g64, p64 = g.double(), p.double()
@@ -11630,13 +11650,6 @@ def _tp_kernel_parity(dev, b, h, hkv, t, hd, d, backward: bool, eps: float) -> d
             err = max(err, _max_err(g, p))
         _check(ok, f"25: flash backward at q {tuple(q.shape)} k {tuple(k.shape)} vs plain")
         errs["flash_attention_bwd_dkv"] = errs["flash_attention_bwd_dq"] = err
-    x, w = randn(b * t, d), (1.0 + 0.1 * randn(d).float()).to(torch.bfloat16)
-    got = ops.rmsnorm(x, w, eps, force="cuda").double()
-    want = ops.rmsnorm(x, w, eps, force="ref").double()
-    errs["rmsnorm"] = float((got - want).abs().max())
-    _check(bool(((got - want).abs() <= 2.0**-7 * want.abs() + 1e-6).all()),
-           f"25: rmsnorm ({b * t}, {d}) vs plain")
-    torch.cuda.synchronize()
     return errs
 
 
@@ -12096,6 +12109,540 @@ def phase_tp(dev, start_8a: dict, serve_ref: dict) -> dict:
     return out
 
 
+# Phase 26: tensor parallelism on the rules' "model" axis for the ssm,
+# hybrid and audio families (``sharding.tp``), on (1, 2) over two gloo
+# ranks that share the card: not a scaling figure.  Each rank first runs
+# one process's model on the same weights (drawn on the card from the
+# family's seed), then places that model on the mesh and runs the same
+# work, held to the one-process run.  (a) rwkv6-7b at full width cut to
+# ``rwkv_layers`` layers: RWKV["prefill"]'s 4 x 512 prefill and ``decode``
+# teacher-forced steps, and each block alone on the one-process forward's
+# input to it (RWKV_BLOCK_ULPS); (b) zamba2-2.7b at full width cut to
+# ``hybrid_groups`` groups, the same (HYBRID_BLOCK_ULPS, the Mamba2 blocks
+# and the shared block's visits); (c) whisper-large-v3 whole:
+# WHISPER["prefill"]'s 4 x 64 prefill with 1500 frames a request and
+# ``whisper_decode`` steps, every encoder and decoder block alone
+# (WHISPER_BLOCK_ULPS); (d) ``steps`` training steps of each at full width
+# cut in depth (rwkv6 ``train_rwkv_layers`` layers, zamba2
+# ``train_hybrid_groups`` groups, whisper ``train_whisper_layers`` encoder
+# and as many decoder layers) on TRAIN's 4 x 512 tokens (whisper with
+# 4 x 1500 frames), within TRAIN_TOL on the family's sampled leaves and
+# every element within its loose bound: rwkv6 and whisper in bf16, zamba2
+# in float32, because in bf16 one process's own step lies farther from
+# its float32 step than TRAIN_TOL allows the ranks to lie from it (on an
+# H100, 1 group: grad norms 84.19 bf16 against 81.71 float32 at the first
+# step, 81.08 against 94.89 at the second; ``tools/tp_train_control.py``),
+# and a bf16 comparison of two orders of its sums is then a comparison of
+# rounding noise.  Each rank also holds its kernels at its local shapes to
+# their plain versions.
+# ``join_s`` bounds the world.
+TPF = dict(rwkv_layers=4, hybrid_groups=1, decode=32, whisper_decode=16, train_rwkv_layers=2,
+           train_hybrid_groups=1, train_whisper_layers=4, steps=2, join_s=600.0)
+TPF_FAMILIES = {"rwkv": RWKV, "hybrid": HYBRID, "whisper": WHISPER}
+
+
+def _card() -> str:
+    """The card's name and power limit as ``nvidia-smi`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def _tpf_cfg(fam: str, train: bool = False):
+    """Phase 26's config of ``fam``: full width, its depth cut as TPF says
+    (whisper serves whole; zamba2 trains in float32)."""
+    import dataclasses
+
+    from repro_torch.configs import full_config
+
+    cfg = full_config(TPF_FAMILIES[fam]["arch"])
+    if fam == "rwkv":
+        return dataclasses.replace(
+            cfg, n_layers=TPF["train_rwkv_layers"] if train else TPF["rwkv_layers"])
+    if fam == "hybrid":
+        groups = TPF["train_hybrid_groups"] if train else TPF["hybrid_groups"]
+        return dataclasses.replace(cfg, n_layers=groups * cfg.hybrid.shared_every,
+                                   dtype="float32" if train else cfg.dtype)
+    if not train:
+        return cfg
+    n = TPF["train_whisper_layers"]
+    return dataclasses.replace(cfg, n_layers=n,
+                               encdec=dataclasses.replace(cfg.encdec, encoder_layers=n))
+
+
+def _tpf_model(fam: str, cfg, dev):
+    """``cfg``'s model drawn on the card from the family's seed (the same
+    weights in every process)."""
+    import torch
+
+    from repro_torch.models import encdec as ED, transformer as T
+
+    gen = torch.Generator(device=dev).manual_seed(TPF_FAMILIES[fam]["seed"])
+    return (ED.init if cfg.family == "audio" else T.init)(cfg, device=dev, generator=gen)
+
+
+def tpf_route_bytes(cfg, b: int, t: int, m: int) -> dict:
+    """Bytes a rank receives a block over ``"model"`` (``m`` ranks, bf16
+    activations and weights, float32 partial sums) at ``b x t`` tokens, for
+    each site where a rank needs columns it does not compute, by the two
+    routes: ``activation`` (its columns of the product gathered whole, the
+    route the port takes) and ``kernel`` (the up kernel gathered whole with
+    ``tp.whole_kernel``, each rank computing the columns it needs); and the
+    row-parallel sums of the block's outputs (an all-reduce: ``2 (m - 1) /
+    m`` of the float32 tensor; whisper's encoder block two over its frames,
+    its decoder block three).  ``readout`` is the serving readout of the
+    untied ``lm_head`` (once a call, not a block): the partial logits
+    summed (``activation``, the port's) against the kernel's ``d`` rows
+    gathered and the vocab columns' logits gathered (``kernel``)."""
+    bf, f32 = 2, 4
+    other = (m - 1) / m
+    red = lambda n: 2 * other * b * t * n * f32
+    d = cfg.d_model
+    readout = {} if cfg.tie_embeddings else {"readout": {
+        "activation": red(cfg.padded_vocab),
+        "kernel": other * (d * cfg.padded_vocab * bf + b * t * cfg.padded_vocab * f32)}}
+    if cfg.family == "ssm":
+        lora = 5 * cfg.rwkv.mix_lora
+        sites = {"mix_lora_a": {"activation": other * b * t * lora * bf,
+                                "kernel": other * d * lora * bf},
+                 "ln_x": {"activation": other * b * t * d * bf},
+                 "channel_k": {"activation": other * b * t * cfg.d_ff * bf,
+                               "kernel": other * cfg.d_ff * d * bf},
+                 "channel_out": {"activation": other * b * t * d * bf},
+                 "wo_sum": {"activation": red(d)}}
+    elif cfg.family == "hybrid":
+        s = cfg.ssm
+        di = s.expand * d
+        width = 2 * di + 2 * s.d_state + di // s.head_dim
+        sites = {"w_in": {"activation": other * b * t * width * bf,
+                          "kernel": other * d * width * bf},
+                 "out_norm": {"activation": other * b * t * di * bf},
+                 "w_out_sum": {"activation": red(d)}}
+    else:
+        red_enc = 2 * other * b * cfg.encdec.encoder_seq * d * f32
+        sites = {"encoder_block_sums": {"activation": 2 * red_enc},
+                 "decoder_block_sums": {"activation": 3 * red(d)}}
+    return sites | readout
+
+
+def _tpf_capture(mods, run) -> list:
+    """``(module, args, kwargs)`` of every call of ``mods`` during
+    ``run()``."""
+    calls = []
+    hooks = [m.register_forward_pre_hook(lambda m, a, k: calls.append((m, a, k)),
+                                         with_kwargs=True) for m in mods]
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls
+
+
+def _tpf_blocks(model, cfg) -> list:
+    if cfg.family == "ssm":
+        return list(model.blocks)
+    if cfg.family == "hybrid":
+        return [blk for group in model.groups for blk in group] + [model.shared]
+    return list(model.enc_blocks) + list(model.dec_blocks)
+
+
+def _tpf_kernel_parity(dev, fam: str, cfg, b: int, t: int, m: int) -> dict:
+    """This rank's kernels at its local shapes against their plain
+    versions: rwkv6_scan's chunk and step kernels on ``H / m`` heads (phase
+    9's tolerances: 1e-5 of the scale on o and the state, o also one bf16
+    ulp of the element) and rmsnorm (rwkv, zamba2); flash on ``heads / m``
+    heads (zamba2's shared block causal at head dim 80, whisper's encoder
+    non-causal over 1500 frames and its decoder causal)."""
+    import torch
+
+    from repro_torch.kernels import ref, rwkv6_scan as rw
+
+    errs = {}
+    if fam == "rwkv":
+        gen = torch.Generator(device=dev).manual_seed(26)
+        h = cfg.d_model // cfg.rwkv.head_dim // m
+        err = 0.0
+        for tt in (t, 1):
+            (r, k, v, w, u), s0 = _rwkv_inputs(gen, dev, b, h, tt, cfg.rwkv.head_dim,
+                                               torch.bfloat16, time_major=True)
+            o, s = rw.rwkv6_scan(r, k, v, w, u, s0)
+            po, ps = ref.rwkv6_scan(r, k, v, w, u, s0)
+            for g, p_, u_ in ((o, po, 2.0**-7), (s, ps, 0.0)):
+                g64, p64 = g.double(), p_.double()
+                scale = float(p64.abs().max())
+                _check(bool(((g64 - p64).abs() <= u_ * p64.abs() + 1e-5 * scale).all()),
+                       f"26: rwkv6_scan at {(b, h, tt, cfg.rwkv.head_dim)} vs plain")
+                err = max(err, _max_err(g, p_))
+        errs["rwkv6_scan"] = err
+        errs.update(_tp_kernel_parity(dev, b, 1, 1, t, 64, cfg.d_model, False, cfg.norm_eps,
+                                      flash=False))
+    elif fam == "hybrid":
+        heads = cfg.hybrid.shared_block_heads
+        errs.update(_tp_kernel_parity(dev, b, heads // m, heads // m, t, cfg.d_model // heads,
+                                      None, True, cfg.norm_eps))
+        errs.update(_tp_kernel_parity(dev, b, 1, 1, t, 64, cfg.d_model, False, cfg.norm_eps,
+                                      flash=False))
+    else:
+        h = cfg.n_heads // m
+        enc = _tp_kernel_parity(dev, b, h, h, cfg.encdec.encoder_seq, cfg.resolved_head_dim, None,
+                                True, cfg.norm_eps, causal=False)
+        dec = _tp_kernel_parity(dev, b, h, h, t, cfg.resolved_head_dim, None, True,
+                                cfg.norm_eps)
+        errs.update({k: max(enc[k], dec[k]) for k in enc})
+    return errs
+
+
+def _tpf_counts() -> dict:
+    return {k: v for k, v in {**_rwkv_counts(), **_train_counts()}.items()
+            if k != "rwkv6_slab_sum"}
+
+
+def _tpf_reset_counts() -> None:
+    _reset_rwkv_counts()
+    _reset_train_counts()
+
+
+def _tpf_serve_job(dev, mesh, fam: str, out: dict) -> None:
+    """26a-c on this rank: ``fam``'s one-process run, then the same model
+    placed on ``mesh`` and run again; logits, launches, spans and each
+    block alone against the one-process run."""
+    import torch
+
+    from repro_torch.core import profiling
+    from repro_torch.models import encdec as ED, transformer as T
+    from repro_torch.serve import build_decode_step, build_prefill_step
+    from repro_torch.sharding import fsdp
+    from repro_torch.train.loop import audio_frames
+
+    c = TPF_FAMILIES[fam]
+    cfg = _tpf_cfg(fam)
+    b, tl = c["prefill"]
+    n = TPF["whisper_decode"] if fam == "whisper" else TPF["decode"]
+    toks = torch.as_tensor(serve_prompts(cfg.vocab_size, b, tl + n, c["prompt_seed"] + 3),
+                           device=dev)
+    prompts, fed = toks[:, :tl], toks[:, tl:]
+    enc = (audio_frames(cfg, b, c["frame_seed"], dev),) if fam == "whisper" else ()
+    model = _tpf_model(fam, cfg, dev)
+    tag = f"{fam}/serve"
+
+    def run(prefill, decode):
+        """The prefill (unprofiled) and the decode steps (their
+        collectives timed: ``core.profiling``'s spans)."""
+        torch.cuda.synchronize()
+        _tpf_reset_counts()
+        t0 = time.perf_counter()
+        logits, state = prefill(model, prompts, *enc, tl + n)
+        torch.cuda.synchronize()
+        res = {"prefill_s": time.perf_counter() - t0, "prefill_counts": _tpf_counts(),
+               "prefill": logits}
+        _tpf_reset_counts()
+        steps, walls = [], []
+        profiling.enable()
+        for i in range(n):
+            t0 = time.perf_counter()
+            step_logits, state = decode(model, fed[:, i:i + 1], state, tl + i)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            steps.append(step_logits)
+        res["decode_spans"] = profiling.phases()
+        profiling.disable()
+        res.update(decode_walls=walls, decode_counts=_tpf_counts(), steps=torch.cat(steps, 1))
+        return res
+
+    with torch.inference_mode():
+        one = run(build_prefill_step(cfg), build_decode_step(cfg))
+        forward = (lambda: ED.forward(model, prompts, *enc)) if enc else \
+            (lambda: T.forward(model, prompts))
+        calls = _tpf_capture(_tpf_blocks(model, cfg), forward)
+        ys = [blk(*a, **k)[0] for blk, a, k in calls]
+    fsdp.shard_model(model, mesh)
+    torch.cuda.empty_cache()
+    m = model.tp.size
+    out[f"{tag}/parity"] = _tpf_kernel_parity(dev, fam, cfg, b, tl, m)
+    prefill, decode = build_prefill_step(cfg, mesh), build_decode_step(cfg, mesh)
+    with torch.inference_mode():
+        prefill(model, prompts[:, :16], *enc, 17)  # warm-up (the collectives' first calls)
+        got = run(prefill, decode)
+        profiling.enable()
+        t0 = time.perf_counter()
+        prefill(model, prompts, *enc, tl + n)
+        torch.cuda.synchronize()
+        out[f"{tag}/prefill_profiled_s"] = time.perf_counter() - t0
+        out[f"{tag}/prefill_spans"] = profiling.phases()
+        profiling.disable()
+        ulps = []
+        for (blk, a, k), y1 in zip(calls, ys):
+            with fsdp.gathered(blk):
+                y = blk(*a, **k)[0]
+            ulps.append(_max_err(y, y1) / _bf16_ulp(float(y1.abs().max())))
+    del calls, ys
+    for k in ("prefill", "steps"):
+        want, mine = one[k].float(), got[k].float()
+        top2 = torch.topk(want, 2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > {"rwkv": RWKV_MARGIN_TOL, "hybrid": HYBRID_MARGIN_TOL,
+                                               "whisper": WHISPER_MARGIN_TOL}[fam]
+        out[f"{tag}/{k}_err"] = _max_err(mine, want)
+        out[f"{tag}/{k}_sure"] = int(sure.sum())
+        out[f"{tag}/{k}_agree"] = int(((mine.argmax(-1) == want.argmax(-1)) & sure).sum())
+        out[f"{tag}/{k}_print"] = _bit_prints({k: mine})[k]
+        out[f"{tag}/{k}_finite"] = bool(torch.isfinite(mine).all())
+    for k in ("prefill_s", "decode_walls", "prefill_counts", "decode_counts"):
+        out[f"{tag}/{k}"], out[f"{tag}/one_{k}"] = got[k], one[k]
+    out[f"{tag}/decode_spans"] = got["decode_spans"]
+    out[f"{tag}/block_ulps"] = ulps
+    out[f"{tag}/layers"] = (cfg.n_layers, cfg.encdec.encoder_layers if enc else 0)
+    del model, one, got
+    torch.cuda.empty_cache()
+
+
+def _tpf_batch(cfg, i: int, dev) -> dict:
+    """Step ``i``'s TRAIN batch (whisper: with the reference loop's
+    frames)."""
+    from repro_torch.train.loop import audio_frames
+
+    batch = _fsdp_data(cfg).batch_at(i)
+    if cfg.family == "audio":
+        batch["frames"] = audio_frames(cfg, TRAIN["batch"], i, dev)
+    return batch
+
+
+TPF_TRAIN_LEAVES = {"rwkv": RWKV_TRAIN_LEAVES, "hybrid": HYBRID_TRAIN_LEAVES,
+                    "whisper": WHISPER_TRAIN_LEAVES}
+
+
+def _whole_samples(get, leaves) -> dict:
+    """``train_samples`` of whole leaves (``get(name)`` the parameter
+    ``name`` or its moment), gathered on the device."""
+    import torch
+
+    out = {}
+    for i, path in enumerate(leaves):
+        x = get(_port_leaf(path)).detach()
+        idx = torch.as_tensor(train_indices(tuple(x.shape), i), device=x.device)
+        out[path] = x.reshape(-1)[idx].double().cpu().tolist()
+    return out
+
+
+def _tpf_chunk(w, info):
+    """This rank's shard of the whole leaf ``w`` by its ``DataShard``."""
+    if info.model_dim is not None:
+        w = w.chunk(info.model.size, info.model_dim)[info.model.rank]
+    if info.dim is not None:
+        w = w.chunk(info.size, info.dim)[info.rank]
+    return w
+
+
+def _tpf_train_job(dev, mesh, fam: str, out: dict) -> None:
+    """26d on this rank: ``TPF["steps"]`` steps of ``fam``'s cut model in
+    one process, then of the same weights placed on ``mesh``: the losses,
+    grad norms, launches, walls, the family's sampled leaves and first
+    moments after each step (this rank's part), and every element of this
+    rank's shards against the one-process run's under TRAIN_TOL's loose
+    bound."""
+    import torch
+
+    from repro_torch.core import profiling
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import fsdp
+
+    cfg = _tpf_cfg(fam, train=True)
+    tag, leaves = f"{fam}/train", TPF_TRAIN_LEAVES[fam]
+
+    def run(model, samples):
+        params = dict(model.named_parameters())
+        opt, step = _fsdp_step(cfg)
+        state = adamw_init(params, opt)
+        res = {"loss": [], "grad_norm": [], "counts": [], "walls": [], "spans": [], "m": []}
+        for i in range(TPF["steps"]):
+            batch = _tpf_batch(cfg, i, dev)
+            torch.cuda.synchronize()
+            _tpf_reset_counts()
+            profiling.enable()
+            t0 = time.perf_counter()
+            _, state, metrics = step(model, state, batch, i)
+            res["loss"].append(float(metrics["loss"]))
+            res["grad_norm"].append(float(metrics["grad_norm"]))
+            torch.cuda.synchronize()
+            res["walls"].append(time.perf_counter() - t0)
+            res["spans"].append(profiling.phases())
+            profiling.disable()
+            res["counts"].append(_tpf_counts())
+            res["m"].append(samples(params, lambda n: state.m[n]))
+        res["params"] = samples(params, lambda n: params[n])
+        return params, res
+
+    params, one = run(_tpf_model(fam, cfg, dev), lambda _, get: _whole_samples(get, leaves))
+    want = {n: p.detach() for n, p in params.items()}
+    del params
+    torch.cuda.empty_cache()
+    model = fsdp.shard_model(_tpf_model(fam, cfg, dev), mesh)
+    torch.cuda.empty_cache()
+    params, got = run(model, lambda ps, get: _fsdp_samples(ps, get, leaves))
+    loose, tight, total = 0, 0, 0
+    lr, steps = TRAIN["lr"], TPF["steps"]
+    for name, p in params.items():
+        w = _tpf_chunk(want[name], fsdp.shard_of(p))
+        if not w.numel():
+            continue
+        g64, w64 = p.detach().double(), w.double()
+        loose += _bf16_loose_bad(g64, w64, lr, steps)
+        top = torch.maximum(g64.abs(), w64.abs())
+        ulp = torch.where(top != 0, torch.exp2(torch.floor(torch.log2(top)) - 7),
+                          torch.full_like(w64, 2.0 ** -133))
+        tight += int(((g64 - w64).abs() <= TRAIN_TOL["param_ulps"] * ulp
+                      + TRAIN_TOL["update_frac"] * lr * steps).sum())
+        total += w.numel()
+    out.update({f"{tag}/{k}": v for k, v in got.items()})
+    out.update({f"{tag}/one_{k}": v for k, v in one.items() if k != "spans"})
+    out.update({f"{tag}/loose_bad": loose, f"{tag}/tight_share": tight / total,
+                f"{tag}/layers": (cfg.n_layers, cfg.encdec.encoder_layers if cfg.encdec else 0)})
+    del model, params, want
+    torch.cuda.empty_cache()
+
+
+def _tpf_rank(rank: int, world: int, store: str, backend: str, job: str, out_dir: str):
+    """One rank of phase 26's world: 26a-c, then 26d, on (1, 2); writes its
+    results to ``out_dir/rank{rank}.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import init_world, make_host_mesh
+
+    t0 = time.perf_counter()
+    init_world(rank, world, f"file://{store}", device_type="cuda", backend=backend)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _build.build(["flash_attention", "flash_attention_bwd", "rmsnorm", "rwkv6_scan"])
+    dist.barrier()
+    out: dict = {"backend": backend, "join_s": time.perf_counter() - t0}
+    mesh = make_host_mesh(2, device_type="cuda")
+    out["mesh"] = tuple(mesh.shape)
+    for kind, job_fn in (("serve", _tpf_serve_job), ("train", _tpf_train_job)):
+        for fam in TPF_FAMILIES:
+            t1 = time.perf_counter()
+            job_fn(dev, mesh, fam, out)
+            out[f"{fam}/{kind}/job_s"] = time.perf_counter() - t1
+            print(f"26 rank {rank}: {fam} {kind} {out[f'{fam}/{kind}/job_s']:.1f} s (peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB)", flush=True)
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_tp_families(dev) -> dict:
+    """Phase 26 (``TPF``): two gloo ranks sharing the card on (1, 2), each
+    holding its runs to one process's on the same weights."""
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    card = _card()
+    two = _run_world(2, "gloo", "f", target=_tpf_rank, join_s=TPF["join_s"])
+    out = {"world_s": time.perf_counter() - t_phase, "launches": {}}
+    tols = {"rwkv": (RWKV_PREFILL_TOL, RWKV_MARGIN_TOL, RWKV_BLOCK_ULPS),
+            "hybrid": (HYBRID_PREFILL_TOL, HYBRID_MARGIN_TOL, HYBRID_BLOCK_ULPS),
+            "whisper": (WHISPER_PREFILL_TOL, WHISPER_MARGIN_TOL, WHISPER_BLOCK_ULPS)}
+    runs = []
+    for fam, (tol, margin, max_ulps) in tols.items():
+        tag = f"{fam}/serve"
+        cfg = _tpf_cfg(fam)
+        b, tl = TPF_FAMILIES[fam]["prefill"]
+        print(f"26 tensor parallelism (1, 2), {fam} route bytes a rank a block at "
+              f"{b} x {tl} / at a decode step of {b}: "
+              f"{json.dumps(tpf_route_bytes(cfg, b, tl, 2))} / "
+              f"{json.dumps(tpf_route_bytes(cfg, b, 1, 2))}")
+        for rk, o in enumerate(two):
+            sp, dsp = o[f"{tag}/prefill_spans"], o[f"{tag}/decode_spans"]
+            print(f"26 {fam} TP serve, rank {rk} of 2 on {o['mesh']} (gloo, ranks sharing one "
+                  f"{card}: not a scaling figure): {cfg.name} full width, layers "
+                  f"{o[f'{tag}/layers']}, prefill {b} x {tl} {o[f'{tag}/prefill_s']:.4f} s (one "
+                  f"process {o[f'{tag}/one_prefill_s']:.4f} s; a synchronized run "
+                  f"{o[f'{tag}/prefill_profiled_s']:.4f} s, its collectives "
+                  f"{_tp_coll_s(sp):.4f} s: { {k: round(v, 4) for k, v in sorted(sp.items())} }), "
+                  f"{len(o[f'{tag}/decode_walls'])} decode steps {sum(o[f'{tag}/decode_walls']):.4f} s "
+                  f"(one process {sum(o[f'{tag}/one_decode_walls']):.4f} s; collectives "
+                  f"{_tp_coll_s(dsp):.4f} s); logits max|TP - one process| prefill "
+                  f"{o[f'{tag}/prefill_err']:.4f}, decode {o[f'{tag}/steps_err']:.4f} (tolerance "
+                  f"{tol}); argmax equal at {o[f'{tag}/prefill_agree']}/{o[f'{tag}/prefill_sure']} "
+                  f"prefill and {o[f'{tag}/steps_agree']}/{o[f'{tag}/steps_sure']} decode positions "
+                  f"with a top-2 margin > {margin}; blocks alone max|TP - one process| in bf16 "
+                  f"ulps of the block output's largest value "
+                  f"{[round(u, 2) for u in o[f'{tag}/block_ulps']]} (tolerance {max_ulps}); "
+                  f"launches prefill {o[f'{tag}/prefill_counts']}, decode "
+                  f"{o[f'{tag}/decode_counts']} (one process {o[f'{tag}/one_prefill_counts']}, "
+                  f"{o[f'{tag}/one_decode_counts']}); kernels at the local shapes vs plain "
+                  f"{o[f'{tag}/parity']}")
+            _check(o[f"{tag}/prefill_finite"] and o[f"{tag}/steps_finite"]
+                   and o[f"{tag}/prefill_err"] <= tol and o[f"{tag}/steps_err"] <= tol
+                   and o[f"{tag}/prefill_agree"] == o[f"{tag}/prefill_sure"] > 0
+                   and o[f"{tag}/steps_agree"] == o[f"{tag}/steps_sure"] > 0,
+                   f"26 {fam} rank {rk}: TP serving differs from one process")
+            _check(max(o[f"{tag}/block_ulps"]) <= max_ulps,
+                   f"26 {fam} rank {rk}: a block alone differs from one process's")
+            _check(o[f"{tag}/prefill_counts"] == o[f"{tag}/one_prefill_counts"]
+                   and o[f"{tag}/decode_counts"] == o[f"{tag}/one_decode_counts"],
+                   f"26 {fam} rank {rk}: launches differ from one process's")
+            _check(o[f"{tag}/prefill_print"] == two[0][f"{tag}/prefill_print"]
+                   and o[f"{tag}/steps_print"] == two[0][f"{tag}/steps_print"],
+                   f"26 {fam} rank {rk}: the ranks' logits differ")
+            runs += [o[f"{tag}/prefill_counts"], o[f"{tag}/decode_counts"]]
+        out[fam] = {k: two[0][f"{tag}/{k}"] for k in ("prefill_s", "prefill_err", "steps_err",
+                                                     "decode_walls", "block_ulps", "job_s")}
+        out[fam]["prefill_coll_s"] = _tp_coll_s(two[0][f"{tag}/prefill_spans"])
+        out[fam]["decode_coll_s"] = _tp_coll_s(two[0][f"{tag}/decode_spans"])
+    lr = TRAIN["lr"]
+    for fam in TPF_FAMILIES:
+        tag = f"{fam}/train"
+        cfg = _tpf_cfg(fam, train=True)
+        leaves = TPF_TRAIN_LEAVES[fam]
+        want = train_summary(two[0][f"{tag}/one_loss"], two[0][f"{tag}/one_grad_norm"],
+                             two[0][f"{tag}/one_params"], two[0][f"{tag}/one_m"])
+        merged_m = [_merge_samples([o[f"{tag}/m"][i] for o in two]) for i in range(TPF["steps"])]
+        merged_p = _merge_samples([o[f"{tag}/params"] for o in two])
+        for rk, o in enumerate(two):
+            got = train_summary(o[f"{tag}/loss"], o[f"{tag}/grad_norm"], merged_p, merged_m)
+            diff = compare_train(got, want, lr, leaves=leaves)
+            worst = train_max_diff(got, want, lr, leaves=leaves)
+            tol_name = "TRAIN_TOL, float32" if fam == "hybrid" else "TRAIN_TOL"
+            sp = o[f"{tag}/spans"][-1]
+            print(f"26d {fam} TP train, rank {rk} of 2 (gloo, ranks sharing one {card}: not a "
+                  f"scaling figure): {cfg.name} full width, layers {o[f'{tag}/layers']}, "
+                  f"{TRAIN['batch']} x {TRAIN['seq_len']} tokens: walls "
+                  f"{_walls(o[f'{tag}/walls'])} s (one process {_walls(o[f'{tag}/one_walls'])} s; "
+                  f"last step's collectives {_tp_coll_s(sp):.3f} s: "
+                  f"{ {k: round(v, 4) for k, v in sorted(sp.items())} }), losses "
+                  f"{o[f'{tag}/loss']} vs {o[f'{tag}/one_loss']}, grad norms "
+                  f"{o[f'{tag}/grad_norm']} vs {o[f'{tag}/one_grad_norm']}; largest differences "
+                  f"on the sampled leaves {json.dumps(worst)} ({tol_name}); parameters past the "
+                  f"loose bound {o[f'{tag}/loose_bad']}, within the tight bound "
+                  f"{100 * o[f'{tag}/tight_share']:.3f} %; launches a step "
+                  f"{o[f'{tag}/counts'][-1]} (one process's {o[f'{tag}/one_counts'][-1]})")
+            _check(not diff and o[f"{tag}/loose_bad"] == 0
+                   and o[f"{tag}/counts"] == o[f"{tag}/one_counts"],
+                   f"26d {fam} rank {rk}: TP training differs from one process: {diff[:4]}, "
+                   f"past the loose bound {o[f'{tag}/loose_bad']}")
+            runs += o[f"{tag}/counts"]
+        out[f"{fam}_train"] = {k: two[0][f"{tag}/{k}"] for k in ("walls", "one_walls", "job_s")}
+        out[f"{fam}_train"]["coll_s"] = _tp_coll_s(two[0][f"{tag}/spans"][-1])
+    for c in runs:  # every main-path run of both ranks
+        for name, k in c.items():
+            out["launches"][name] = out["launches"].get(name, 0) + k
+    out["parity"] = {}
+    for o in two:
+        for fam in TPF_FAMILIES:
+            for name, err in o[f"{fam}/serve/parity"].items():
+                out["parity"][name] = max(out["parity"].get(name, 0.0), err)
+    for name in ("rwkv6_scan", "rmsnorm", "flash_attention_fwd"):
+        _check(out["launches"].get(name, 0) > 0, f"26: {name} never launched on the TP path")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 26 (tensor parallelism, ssm / hybrid / audio): {out['phase_s']:.1f} s on "
+          f"{card} (the world {out['world_s']:.1f} s; jobs a rank "
+          f"{ {k: round(two[0][k], 1) for k in two[0] if k.endswith('job_s')} })")
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -12337,6 +12884,7 @@ def main() -> int:
     fsdp_train = phase_fsdp(dev, trained.pop("steps_8a"), start_8a)
     tp_run = phase_tp(dev, start_8a, serve.pop("tp_ref"))
     del start_8a
+    tpf_run = phase_tp_families(dev)
     fa, rn = kernels["flash_attention_fwd"], kernels["rmsnorm"]
     fa.update({k: v for k, v in moe_kernels.items() if k.startswith("mla_")},
               mla_max_abs_err=moe_kernels["err"])
@@ -12398,6 +12946,9 @@ def main() -> int:
             launches_per_fsdp_step_two_ranks={k: c[name] for k, c in per["two_ranks"].items()})
     for name, n in tp_run["launches"].items():
         kernels[name].update(launches=kernels[name]["launches"] + n, launches_tp=n)
+    for name, n in tpf_run["launches"].items():
+        kernels[name].update(launches=kernels[name]["launches"] + n, launches_tp_families=n,
+                             tp_families_max_abs_err=tpf_run["parity"].get(name))
     print(json.dumps({"serve": {k: serve[k] for k in ("prefill_s", "generate_s", "tokens_per_s")},
                       "train": {k: trained[k] for k in ("step_s", "tokens_per_s", "train_mfu",
                                                          "peak_gb")},
@@ -12490,7 +13041,10 @@ def main() -> int:
                           "b_world_s", "c_one_s", "phase_s")},
                       "tp": {k: tp_run[k] for k in (
                           "a", "b12_walls", "b12_coll_s", "b22_walls", "b22_coll_s", "c",
-                          "world2_s", "world4_s", "phase_s")}}))
+                          "world2_s", "world4_s", "phase_s")},
+                      "tp_families": {k: tpf_run[k] for k in (
+                          "rwkv", "hybrid", "whisper", "rwkv_train", "hybrid_train",
+                          "whisper_train", "world_s", "phase_s")}}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -8,7 +8,10 @@ reference's rules give GSPMD: the residual stream stays replicated over
 ``"model"`` (``constrain_activations``), ``sharding.tp.copy_to_model``
 follows each norm (the columns of ``wq`` / ``wk`` / ``wv`` and of
 ``w_gate`` / ``w_up`` read it) and ``sharding.tp.reduce_from_model`` adds
-the ranks' partial outputs of ``wo`` and ``w_down``.
+the ranks' partial outputs of ``wo`` and ``w_down``.  The Mamba2 block
+does the same around ``models/mamba2.py``'s tensor-parallel mixer, and the
+Zamba2 shared block feeds that dense block from ``w_concat`` run
+row-parallel on ``[x ; emb0]`` (``sharding.tp.row_linear``).
 """
 from __future__ import annotations
 
@@ -70,8 +73,9 @@ class MambaBlock(nn.Module):
         self.mamba = M.Mamba2(cfg, **kw)
 
     def forward(self, x, state: M.SSMState | None = None):
-        out, new_state = self.mamba(self.ln(x), state)
-        return x + out, new_state
+        tp = self.mamba.tp
+        out, new_state = self.mamba(TP.copy_to_model(self.ln(x), tp), state)
+        return x + TP.reduce_from_model(out, tp), new_state
 
 
 def shared_sub_config(cfg):
@@ -92,7 +96,11 @@ class SharedBlock(nn.Module):
     block whose weights every visit shares, fed ``w_concat(concat(x,
     emb0))`` (the Zamba2 concatenated residual), its output added to ``x``.
     ``_sub_heads`` is the reference's empty float32 marker leaf, carried so
-    that the two trees match leaf for leaf; nothing reads it."""
+    that the two trees match leaf for leaf; nothing reads it.  With ``tp``
+    ``w_concat`` runs on this rank's rows (``tp.row_linear``) and the block
+    on its heads and ``d_ff`` columns."""
+
+    tp: TP.ModelShard | None = None
 
     def __init__(self, cfg, *, dtype, device):
         super().__init__()
@@ -104,6 +112,6 @@ class SharedBlock(nn.Module):
 
     def forward(self, x, emb0, positions, cache: A.KVCache | None = None):
         """``(x + block(w_concat [x ; emb0]), the block's cache)``."""
-        h = self.w_concat(torch.cat([x, emb0], dim=-1))
+        h = TP.row_linear(torch.cat([x, emb0], dim=-1), self.w_concat, self.tp)
         out, new_cache, _ = self.block(h, positions, cache)
         return x + out, new_cache

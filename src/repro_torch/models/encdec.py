@@ -21,6 +21,23 @@ Decode state (``EncDecState``): the decoder self-attention's KV caches
 stacked over layers, updated in place as the port's other caches are
 (``attention.write_cache``), and every layer's cross K/V, computed once
 from the encoder memory by ``init_decode_state``.
+
+Under tensor parallelism (``shard_model`` on a ``"model"`` axis above 1;
+``EncDec.tp``) the encoder blocks are ``blocks.decoder_block_fwd``'s
+Megatron layout; a decoder block reads each of its three norms through
+``sharding.tp.copy_to_model`` and sums the ranks' partial outputs of the
+self-attention, the cross-attention (``wq`` / ``wk`` / ``wv`` on this
+rank's heads, the keys and values over the replicated memory, ``wo`` on
+its rows) and the FFN.  The memory enters the decoder through one
+``copy_to_model`` (every block's cross K/V read it on their heads).  The
+embedding looks up this rank's vocab rows (``dec_pos`` is replicated),
+the training readout gives its vocab columns of the untied ``lm_head``
+(``tp.vocab_columns``) and the loss is ``tp.xent``; serving sums the
+ranks' partial logits of their ``d`` rows of it
+(``transformer._serve_readout``).  Served sharded, the
+decode state holds this rank's rows of the batch and its heads' caches and
+cross K/V, projected once on its heads, and every step returns the whole
+logits on every rank.
 """
 from __future__ import annotations
 
@@ -34,7 +51,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.sharding import fsdp
+from repro_torch.sharding import fsdp, tp as TP
 from repro_torch.utils.devices import resolve_device
 
 F64 = torch.float64
@@ -42,7 +59,11 @@ MAX_DEC_POS = 32_832  # learned decoder positions (whisper: 448; decode_32k need
 
 
 class CrossAttention(nn.Module):
-    """``init_cross_attention``: ``wq``, ``wk``, ``wv``, ``wo`` (no bias)."""
+    """``init_cross_attention``: ``wq``, ``wk``, ``wv``, ``wo`` (no bias);
+    with ``tp`` on this rank's heads, its output this rank's partial
+    sum."""
+
+    tp: TP.ModelShard | None = None
 
     def __init__(self, cfg, *, dtype, device):
         super().__init__()
@@ -58,18 +79,22 @@ def cross_attention_fwd(p: CrossAttention, cfg, x: torch.Tensor, memory: torch.T
                         kv: tuple[torch.Tensor, torch.Tensor] | None = None):
     """``(out (B, Tq, D), (k, v))`` of the decoder stream ``x (B, Tq, D)``
     attending to ``memory (B, Tm, D)`` (its keys and values projected
-    here) or to the precomputed ``kv`` ``(B, Tm, Hkv, hd)`` each."""
+    here) or to the precomputed ``kv`` ``(B, Tm, Hkv, hd)`` each (with
+    ``tp``, this rank's heads: ``H / m`` and ``Hkv / m``)."""
     b, t, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = p.wq(x).reshape(b, t, cfg.n_heads, hd)
-    if kv is None:
-        tm = memory.shape[1]
-        k = p.wk(memory).reshape(b, tm, cfg.n_kv_heads, hd)
-        v = p.wv(memory).reshape(b, tm, cfg.n_kv_heads, hd)
-    else:
-        k, v = kv
+    q = p.wq(x).reshape(b, t, -1, hd)
+    k, v = cross_kv(p, cfg, memory) if kv is None else kv
     out = _full_attention(q, k, v, 1.0 / math.sqrt(hd))
-    return p.wo(out.reshape(b, t, cfg.n_heads * hd)), (k, v)
+    return p.wo(out.reshape(b, t, q.shape[2] * hd)), (k, v)
+
+
+def cross_kv(p: CrossAttention, cfg, memory: torch.Tensor):
+    """The cross-attention's keys and values ``(B, Tm, Hkv, hd)`` of
+    ``memory`` (with ``tp``, this rank's KV heads)."""
+    b, tm, _ = memory.shape
+    hd = cfg.resolved_head_dim
+    return p.wk(memory).reshape(b, tm, -1, hd), p.wv(memory).reshape(b, tm, -1, hd)
 
 
 def _full_attention(q, k, v, scale: float) -> torch.Tensor:
@@ -125,15 +150,18 @@ def decoder_block_fwd(p: DecoderBlock, cfg, x, positions, memory=None,
     """``(x, self-attention cache, None)``: the third slot, where the
     reference returns the cross K/V, is None as a dense block's aux is
     (``transformer._run_stack`` carries it; nothing reads the cross K/V,
-    which ``init_decode_state`` computes once)."""
-    h = p.ln1(x)
+    which ``init_decode_state`` computes once).  With tensor parallelism
+    (``p.attn.tp``) each sublayer reads its norm's output through
+    ``copy_to_model`` and its output is summed over ``"model"``."""
+    tp = p.attn.tp
+    h = TP.copy_to_model(p.ln1(x), tp)
     attn_out, new_cache = A.gqa_fwd(p.attn, cfg, h, positions, self_cache)
-    x = x + attn_out
-    h = p.ln_x(x)
+    x = x + TP.reduce_from_model(attn_out, tp)
+    h = TP.copy_to_model(p.ln_x(x), tp)
     xout, _ = cross_attention_fwd(p.xattn, cfg, h, memory, cross_kv)
-    x = x + xout
-    h = p.ln2(x)
-    return x + p.ffn(h), new_cache, None
+    x = x + TP.reduce_from_model(xout, tp)
+    h = TP.copy_to_model(p.ln2(x), tp)
+    return x + TP.reduce_from_model(p.ffn(h), tp), new_cache, None
 
 
 # ------------------------------------------------------------ full model --
@@ -143,7 +171,10 @@ class EncDec(nn.Module):
     """``{"embed", "dec_pos", "enc_blocks", "ln_enc", "dec_blocks", "ln_f",
     "lm_head"}`` with uninitialised parameters on ``device`` (``init``
     fills them, ``convert`` copies them in); ``dec_pos`` is ``(MAX_DEC_POS,
-    d_model)``."""
+    d_model)``.  ``tp``: its ``rules.ModelShard`` under tensor
+    parallelism."""
+
+    tp: TP.ModelShard | None = None
 
     def __init__(self, cfg, *, device="cuda"):
         super().__init__()
@@ -229,7 +260,7 @@ def forward(p: EncDec, tokens: torch.Tensor, frames: torch.Tensor) -> T.ForwardO
 
 
 def _forward(p: EncDec, tokens: torch.Tensor, frames: torch.Tensor) -> T.ForwardOut:
-    memory = encode(p, frames)
+    memory = TP.copy_to_model(encode(p, frames), p.tp)
     b, t = tokens.shape
     x = _embed(p, tokens, 0)
     x, _ = T._run_stack(p.cfg, p.dec_blocks, x, _positions(b, t, 0, x.device), memory)
@@ -241,7 +272,7 @@ def lm_loss(p: EncDec, tokens, labels, frames) -> tuple[torch.Tensor, dict]:
     cross entropy over the labels ``>= 0`` (``transformer._xent``; the
     global batch's on a sharded model, ``tokens`` and ``frames`` this
     rank's rows)."""
-    loss, denom = T._xent(forward(p, tokens, frames).logits, labels, fsdp.data_group(p))
+    loss, denom = T._xent(forward(p, tokens, frames).logits, labels, fsdp.data_group(p), p.tp)
     return loss, {"lm_loss": loss, "tokens": denom, "total_loss": loss}
 
 
@@ -253,17 +284,25 @@ class EncDecState(NamedTuple):
 
 def init_decode_state(p: EncDec, frames: torch.Tensor, batch: int, max_len: int) -> EncDecState:
     """Encode ``frames`` once and project every layer's cross K/V from the
-    memory; empty self-attention caches of ``max_len`` positions."""
-    fsdp.check_unsharded(p, "init_decode_state")
+    memory; empty self-attention caches of ``max_len`` positions.  A
+    sharded model takes the whole batch of ``frames`` and keeps this rank's
+    rows (``transformer._local_rows``) and its heads."""
     cfg = p.cfg
-    memory = encode(p, frames)
-    b, tm, _ = memory.shape
-    shape = (cfg.n_layers, b, tm, cfg.n_kv_heads, cfg.resolved_head_dim)
-    ck, cv = memory.new_empty(shape), memory.new_empty(shape)
+    mesh = fsdp.mesh_of(p)
+    if mesh is not None:
+        frames, batch = T._local_rows(frames, mesh), T._local_batch(batch, mesh)
+    with fsdp.gathered(p, skip=(p.enc_blocks, p.dec_blocks)):
+        memory = encode(p, frames)
+    ck = cv = None
     for i, blk in enumerate(p.dec_blocks):
-        ck[i] = blk.xattn.wk(memory).reshape(shape[1:])
-        cv[i] = blk.xattn.wv(memory).reshape(shape[1:])
-    c = A.init_gqa_cache(cfg, batch, max_len, dtype=L.dtype_of(cfg), device=memory.device)
+        with T._gathering(blk, mesh is not None):
+            k, v = cross_kv(blk.xattn, cfg, memory)
+        if ck is None:
+            ck = k.new_empty((cfg.n_layers,) + tuple(k.shape))
+            cv = v.new_empty(ck.shape)
+        ck[i], cv[i] = k, v
+    c = A.init_gqa_cache(cfg, batch, max_len, dtype=L.dtype_of(cfg), device=memory.device,
+                         kv_heads=TP.kv_heads(cfg, p.tp)[1])
     lead = lambda x: x.new_zeros((cfg.n_layers,) + tuple(x.shape))
     return EncDecState(self_kv=A.KVCache(k=lead(c.k), v=lead(c.v), length=0),
                        cross_k=ck, cross_v=cv)
@@ -277,20 +316,35 @@ def decode_step(p: EncDec, tokens: torch.Tensor, state: EncDecState, pos_offset:
     card) over the new tokens and then writes their keys and values into
     the caches; otherwise each layer attends over its cache.  The caches
     are updated in place and returned with the new length; the cross K/V
-    are read."""
-    fsdp.check_unsharded(p, "decode_step")
+    are read.  A sharded model (``state`` from ``init_decode_state``) takes
+    the whole batch of ``tokens``, serves this rank's rows on its heads,
+    each block's weights gathered along ``"data"`` in turn, and returns the
+    whole logits on every rank (``transformer.whole_logits``)."""
+    mesh = fsdp.mesh_of(p)
+    if mesh is None:
+        return _decode_step(p, tokens, state, pos_offset, prefill)
+    rows = T._local_rows(tokens, mesh)
+    with fsdp.gathered(p, skip=(p.enc_blocks, p.dec_blocks)):
+        logits, state = _decode_step(p, rows, state, pos_offset, prefill)
+    return T.whole_logits(p, logits, tokens.shape[0]), state
+
+
+def _decode_step(p: EncDec, tokens: torch.Tensor, state: EncDecState, pos_offset: int,
+                 prefill: bool) -> tuple[torch.Tensor, EncDecState]:
+    sharded = fsdp.mesh_of(p) is not None
     b, t = tokens.shape
     x = _embed(p, tokens, pos_offset)
     positions = _positions(b, t, pos_offset, x.device)
     kvs = state.self_kv
     for i, blk in enumerate(p.dec_blocks):
         cross = (state.cross_k[i], state.cross_v[i])
-        if prefill:
-            x, fresh, _ = blk(x, positions, cross_kv=cross)
-            A.write_cache(kvs.k[i], fresh.k, kvs.length)
-            A.write_cache(kvs.v[i], fresh.v, kvs.length)
-        else:
-            cache = A.KVCache(k=kvs.k[i], v=kvs.v[i], length=kvs.length)
-            x, _, _ = blk(x, positions, self_cache=cache, cross_kv=cross)
-    logits = T._readout(p, p.ln_f(x))
+        with T._gathering(blk, sharded):
+            if prefill:
+                x, fresh, _ = blk(x, positions, cross_kv=cross)
+                A.write_cache(kvs.k[i], fresh.k, kvs.length)
+                A.write_cache(kvs.v[i], fresh.v, kvs.length)
+            else:
+                cache = A.KVCache(k=kvs.k[i], v=kvs.v[i], length=kvs.length)
+                x, _, _ = blk(x, positions, self_cache=cache, cross_kv=cross)
+    logits = T._serve_readout(p, p.ln_f(x))
     return logits, state._replace(self_kv=kvs._replace(length=kvs.length + t))

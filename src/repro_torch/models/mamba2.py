@@ -29,6 +29,20 @@ every model, as there.  ``softplus`` is the reference's ``logaddexp(x,
 0)``; ``y`` is rounded to the model's type before the ``silu(z)`` gate;
 ``out_norm`` runs through ``ops.rmsnorm`` (the kernel on the card); both
 ``silu`` gates round as the reference's (``silu``).
+
+Under tensor parallelism (``Mamba2.tp``, set by ``sharding.fsdp.
+shard_model``; ``blocks.MambaBlock`` reads the norm's output through
+``sharding.tp.copy_to_model`` and sums the partial outputs) a rank runs on
+``H / m`` heads.  The rules split ``w_in``'s fused ``[z | x | B | C | dt]``
+output dim evenly, across the segments: its product is gathered whole
+(``tp.whole_columns``) and the rank keeps its heads' columns of z, x and
+dt and the whole B and C (``tp.segments``).  The window-sum conv runs over
+those channels with the same columns of the replicated kernel, ``a_log``,
+``dt_bias`` and ``d_skip`` are read on its heads, the SSD runs on its
+heads, ``out_norm`` over whole rows (``tp.norm_columns``: the one-process
+bits forward and backward) cut back to its columns, and ``w_out``
+on its rows.  Its decode state holds its rows' conv channels (x of its
+heads, B and C) and its heads' SSM state.
 """
 from __future__ import annotations
 
@@ -39,6 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers as L
+from repro_torch.sharding import tp as TP
 
 F32 = torch.float32
 NEG_BIG = -1e30
@@ -50,15 +65,16 @@ class SSMState(NamedTuple):
     length: int  # tokens consumed, a host integer
 
 
-def dims(cfg) -> tuple:
-    """``(ssm config, d_inner, n_heads, conv_ch)``."""
+def dims(cfg, tp: TP.ModelShard | None = None) -> tuple:
+    """``(ssm config, d_inner, n_heads, conv_ch)``; with ``tp`` this rank's
+    ``d_inner``, heads and conv channels (x of its heads, B and C)."""
     s = cfg.ssm
-    d_inner = s.expand * cfg.d_model
+    d_inner = s.expand * cfg.d_model // (1 if tp is None else tp.size)
     return s, d_inner, d_inner // s.head_dim, d_inner + 2 * s.d_state
 
 
-def init_ssm_state(cfg, batch: int, *, dtype, device) -> SSMState:
-    s, _, n_heads, conv_ch = dims(cfg)
+def init_ssm_state(cfg, batch: int, *, dtype, device, tp: TP.ModelShard | None = None) -> SSMState:
+    s, _, n_heads, conv_ch = dims(cfg, tp)
     return SSMState(conv=torch.zeros((batch, s.d_conv - 1, conv_ch), dtype=dtype, device=device),
                     ssm=torch.zeros((batch, n_heads, s.d_state, s.head_dim), dtype=F32,
                                     device=device),
@@ -76,7 +92,10 @@ class Conv(nn.Module):
 class Mamba2(nn.Module):
     """``init_mamba2``: ``w_in`` (the fused ``[z, x, B, C, dt]``
     projection), ``conv``, ``a_log``, ``dt_bias``, ``d_skip``,
-    ``out_norm`` and ``w_out``."""
+    ``out_norm`` and ``w_out``; with ``tp`` on this rank's heads, its
+    output this rank's partial sum."""
+
+    tp: TP.ModelShard | None = None
 
     def __init__(self, cfg, *, dtype, device):
         super().__init__()
@@ -179,12 +198,22 @@ def mamba2_fwd(p: Mamba2, cfg, x: torch.Tensor, state: SSMState | None = None):
     """``(out (B, T, D), SSMState)`` of ``x (B, T, D)`` from ``state`` (None:
     zeros).  The returned conv state is a view of this call's window
     input."""
-    s, d_inner, n_heads, conv_ch = dims(cfg)
+    tp = p.tp
+    s, d_inner, n_heads, conv_ch = dims(cfg, tp)
     bsz, t, _ = x.shape
-    zxbcdt = p.w_in(x)
-    z = zxbcdt[..., :d_inner]
-    xbc = zxbcdt[..., d_inner:2 * d_inner + 2 * s.d_state]
-    dt = zxbcdt[..., 2 * d_inner + 2 * s.d_state:]
+    n = s.d_state
+    zxbcdt = TP.whole_columns(x, p.w_in, "kernel", tp)
+    kernel = p.conv.kernel
+    if tp is None:
+        z = zxbcdt[..., :d_inner]
+        xbc = zxbcdt[..., d_inner:2 * d_inner + 2 * n]
+        dt = zxbcdt[..., 2 * d_inner + 2 * n:]
+    else:
+        whole = d_inner * tp.size
+        z, xs, b, c, dt = TP.segments(zxbcdt, [(whole, True), (whole, True), (n, False),
+                                               (n, False), (n_heads * tp.size, True)], tp)
+        xbc = torch.cat([xs, b, c], dim=-1)
+        kernel = torch.cat(TP.segments(kernel, [(whole, True), (n, False), (n, False)], tp), -1)
     if state is None:
         prev = xbc.new_zeros((bsz, s.d_conv - 1, conv_ch))
         h0 = torch.zeros((bsz, n_heads, s.d_state, s.head_dim), dtype=F32, device=x.device)
@@ -193,24 +222,24 @@ def mamba2_fwd(p: Mamba2, cfg, x: torch.Tensor, state: SSMState | None = None):
 
     full = torch.cat([prev, xbc], dim=1)  # (B, T + d_conv - 1, CH)
     windows = full.to(F32).unfold(1, s.d_conv, 1)  # (B, T, CH, d_conv), a view
-    conv = torch.sum(windows * p.conv.kernel.T.to(F32), dim=-1).to(x.dtype)
+    conv = torch.sum(windows * kernel.T.to(F32), dim=-1).to(x.dtype)
     conv_out = silu(conv)
     new_conv = full[:, full.shape[1] - (s.d_conv - 1):]
 
     xs = conv_out[..., :d_inner].reshape(bsz, t, n_heads, s.head_dim)
     b_in = conv_out[..., d_inner:d_inner + s.d_state].to(F32)
     c_in = conv_out[..., d_inner + s.d_state:].to(F32)
-    dt_act = _softplus(dt.to(F32) + p.dt_bias)  # (B, T, H)
-    a = torch.exp(-dt_act * torch.exp(p.a_log))  # decay in (0, 1)
+    dt_act = _softplus(dt.to(F32) + TP.local(p.dt_bias, tp))  # (B, T, H)
+    a = torch.exp(-dt_act * torch.exp(TP.local(p.a_log, tp)))  # decay in (0, 1)
     xf = xs.to(F32)
     x_scaled = xf * dt_act[..., None]
     if t == 1:
         y, h_f = ssd_step(x_scaled, a, b_in, c_in, h0)
     else:
         y, h_f = ssd_chunked(x_scaled, a, b_in, c_in, s.chunk, h0)
-    y = y + xf * p.d_skip[None, None, :, None]
+    y = y + xf * TP.local(p.d_skip, tp)[None, None, :, None]
     y = y.reshape(bsz, t, d_inner).to(x.dtype)
     y = y * silu(z)
-    out = p.w_out(p.out_norm(y))
+    out = p.w_out(TP.norm_columns(p.out_norm, y, tp))
     length = (state.length if state is not None else 0) + t
     return out, SSMState(conv=new_conv, ssm=h_f, length=length)

@@ -15,6 +15,23 @@ there.  bf16 rounds where the reference rounds: after each ``linear``,
 the decay LoRA, the squared ReLU and the gates; the decay
 ``exp(-exp(w_log))`` is computed in float32 and rounded to the model's
 type (with ``u_bonus``) before the scan, which widens both again.
+
+Under tensor parallelism (``TimeMix.tp`` / ``ChannelMix.tp``, set by
+``sharding.fsdp.shard_model``) the block reads each norm's output through
+``sharding.tp.copy_to_model`` and a rank runs on ``H / m`` heads: the time
+mix on its ``wr`` / ``wk`` / ``wv`` / ``wg`` columns, its rows of
+``u_bonus`` and its columns of ``decay_lora.b`` and ``decay_base``, the
+scan on its heads, ``ln_x`` over whole rows (``tp.norm_columns``: the
+one-process bits forward and backward) cut back to its columns, and
+``wo`` on its rows, the partial outputs summed over the axis.  The rules
+split ``mix_lora_a``'s 5 x ``mix_lora`` output columns evenly, across the
+five factors: its product is gathered whole before the reshape.  The
+channel mix keeps the rules' layout, which splits the output dim of all
+three kernels (``wv`` too): the squared-ReLU key on this rank's ``d_ff``
+columns is gathered whole, ``wv`` and ``wr`` give this rank's ``d``
+columns, and their product is gathered into the replicated stream.  The
+token-shift states stay whole (every rank's mixes read all of ``D``); the
+recurrence state holds this rank's heads.
 """
 from __future__ import annotations
 
@@ -25,6 +42,7 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.sharding import tp as TP
 
 F32 = torch.float32
 
@@ -36,26 +54,31 @@ class RWKVState(NamedTuple):
     length: int  # tokens consumed, a host integer
 
 
-def heads(cfg) -> tuple[int, int]:
-    """``(H, hd)``: the recurrence's heads and head dim."""
+def heads(cfg, tp: TP.ModelShard | None = None) -> tuple[int, int]:
+    """``(H, hd)``: the recurrence's heads (with ``tp``, this rank's) and
+    head dim."""
     hd = cfg.rwkv.head_dim
-    return cfg.d_model // hd, hd
+    return cfg.d_model // hd // (1 if tp is None else tp.size), hd
 
 
 class LoRA(nn.Module):
-    """``{"a": (d, rank), "b": (rank, out)}``: ``tanh(x @ a) @ b``."""
+    """``{"a": (d, rank), "b": (rank, out)}``: ``tanh(x @ a) @ b`` (with
+    ``tp``, this rank's columns of it)."""
 
     def __init__(self, d: int, rank: int, out: int, *, dtype, device):
         super().__init__()
         self.a = L._param((d, rank), dtype, device)
         self.b = L._param((rank, out), dtype, device)
 
-    def forward(self, x):
-        return torch.tanh(x @ self.a) @ self.b
+    def forward(self, x, tp: TP.ModelShard | None = None):
+        return torch.tanh(x @ self.a) @ TP.local(self.b, tp, 1)
 
 
 class TimeMix(nn.Module):
-    """The reference's ``time`` subtree."""
+    """The reference's ``time`` subtree; with ``tp`` on this rank's heads,
+    its output this rank's partial sum."""
+
+    tp: TP.ModelShard | None = None
 
     def __init__(self, cfg, *, dtype, device):
         super().__init__()
@@ -79,11 +102,12 @@ class TimeMix(nn.Module):
     def forward(self, x, state: RWKVState | None = None):
         """``(out, x[:, -1:], wkv)`` for ``x (B, T, D)``, the normed stream."""
         b, t, d = x.shape
-        h, hd = heads(self.cfg)
+        tp = self.tp
+        h, hd = heads(self.cfg, tp)
         prev = state.shift_tm if state is not None else x.new_zeros((b, 1, d))
         delta = torch.cat([prev, x[:, :-1]], dim=1) - x
         # Data-dependent mixing coefficients of r, k, v, w, g.
-        lora_in = torch.tanh(x @ self.mix_lora_a).reshape(b, t, 5, -1)
+        lora_in = torch.tanh(TP.whole_columns(x, self, "mix_lora_a", tp)).reshape(b, t, 5, -1)
         mix = self.mu_base + torch.einsum("btfr,frd->btfd", lora_in, self.mix_lora_b)
         xr, xk, xv, xw, xg = (x + delta * mix[:, :, i] for i in range(5))
         r = self.wr(xr).view(b, t, h, hd)
@@ -91,20 +115,24 @@ class TimeMix(nn.Module):
         v = self.wv(xv).view(b, t, h, hd)
         gl = self.wg(xg)
         g = gl * torch.sigmoid(gl)  # jax.nn.silu, rounded per op as there
-        w_log = self.decay_base + self.decay_lora(xw).to(F32)
+        w_log = TP.local(self.decay_base, tp) + self.decay_lora(xw, tp).to(F32)
         w = torch.exp(-torch.exp(w_log)).to(x.dtype).view(b, t, h, hd)
         # The (B, T, H, hd) projections go to the scan as (B, H, T, hd)
         # views; the kernel reads them in place and writes o in r's layout.
         out, wkv = ops.rwkv6_scan(
             r.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), w.transpose(1, 2),
-            self.u_bonus.to(x.dtype), None if state is None else state.wkv,
+            TP.local(self.u_bonus, tp).to(x.dtype), None if state is None else state.wkv,
         )
-        out = self.ln_x(out.transpose(1, 2).reshape(b, t, d)) * g
+        out = out.transpose(1, 2).reshape(b, t, h * hd)
+        out = TP.norm_columns(self.ln_x, out, tp) * g
         return self.wo(out), x[:, -1:], wkv
 
 
 class ChannelMix(nn.Module):
-    """The reference's ``channel`` subtree."""
+    """The reference's ``channel`` subtree; with ``tp`` its output is
+    gathered whole from the ranks' ``d`` columns."""
+
+    tp: TP.ModelShard | None = None
 
     def __init__(self, cfg, *, dtype, device):
         super().__init__()
@@ -123,8 +151,8 @@ class ChannelMix(nn.Module):
         delta = torch.cat([prev, x[:, :-1]], dim=1) - x
         xk = x + delta * self.mu_k
         xr = x + delta * self.mu_r
-        kv = self.wv(torch.square(torch.relu(self.wk(xk))))
-        return torch.sigmoid(self.wr(xr)) * kv, x[:, -1:]
+        kv = self.wv(TP.gather_columns(torch.square(torch.relu(self.wk(xk))), self.tp))
+        return TP.gather_output(torch.sigmoid(self.wr(xr)) * kv, self.tp), x[:, -1:]
 
 
 class RWKV6Block(nn.Module):
@@ -140,10 +168,11 @@ class RWKV6Block(nn.Module):
         self.channel = ChannelMix(cfg, **kw)
 
     def forward(self, x, state: RWKVState | None = None) -> tuple[torch.Tensor, RWKVState]:
-        h1 = self.ln1(x)
+        tp = self.time.tp
+        h1 = TP.copy_to_model(self.ln1(x), tp)
         tm, shift_tm, wkv = self.time(h1, state)
-        x = x + tm
-        h2 = self.ln2(x)
+        x = x + TP.reduce_from_model(tm, tp)
+        h2 = TP.copy_to_model(self.ln2(x), tp)
         cm, shift_cm = self.channel(h2, state)
         x = x + cm
         length = (state.length if state is not None else 0) + x.shape[1]
@@ -151,9 +180,10 @@ class RWKV6Block(nn.Module):
         return x, RWKVState(shift_tm=shift_tm, shift_cm=shift_cm, wkv=wkv, length=length)
 
 
-def init_rwkv_state(cfg, batch: int, *, dtype, device) -> RWKVState:
-    """A zero state for one layer."""
-    h, hd = heads(cfg)
+def init_rwkv_state(cfg, batch: int, *, dtype, device,
+                    tp: TP.ModelShard | None = None) -> RWKVState:
+    """A zero state for one layer (with ``tp``, of this rank's heads)."""
+    h, hd = heads(cfg, tp)
     d = cfg.d_model
     return RWKVState(
         shift_tm=torch.zeros((batch, 1, d), dtype=dtype, device=device),

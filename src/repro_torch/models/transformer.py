@@ -24,9 +24,10 @@ the leaves outside the stacks (the embedding, ``lm_head``) once; the batch
 arrives split by ``rules.shard_batch`` (the reference's
 ``constrain_activations``; its ``maybe_constrain`` annotates GSPMD and has
 nothing to do here) and ``lm_loss`` is the global batch's.  On a
-``"model"`` axis above 1 (the ``dense`` and ``vlm`` families,
+``"model"`` axis above 1 (every family but ``moe``,
 ``rules.check_mesh_family``) the model runs tensor parallel
-(``sharding/tp.py``; the blocks in ``blocks.decoder_block_fwd``): the
+(``sharding/tp.py``; the blocks in ``blocks.decoder_block_fwd``,
+``blocks.MambaBlock`` / ``SharedBlock`` and ``rwkv6.RWKV6Block``): the
 embedding looks up this rank's vocab rows, ``forward``'s logits are this
 rank's vocab columns (the reference keeps them vocab-sharded), ``_xent``
 is the vocab-parallel ``tp.xent``, and ``decode_step`` serves on this
@@ -86,8 +87,9 @@ STACKS = tuple(STACK_DEPTH)
 def check_serving(cfg, mesh=None) -> None:
     """Raise for a family the port does not know (``audio`` is built by
     ``models/encdec.py``), and with ``mesh`` for one that does not run on
-    it (``rules.check_mesh_family``: a ``"model"`` axis above 1 serves the
-    ``dense`` and ``vlm`` families only)."""
+    it (``rules.check_mesh_family``: a ``"model"`` axis above 1 serves every
+    family but ``moe`` where it divides the heads, ``d_ff`` and the
+    vocab)."""
     if cfg.family not in ("dense", "vlm", "ssm", "moe", "hybrid", "audio"):
         raise NotImplementedError(f"the {cfg.family} family is not ported")
     if mesh is not None:
@@ -183,6 +185,23 @@ def _readout(p: Transformer, h: torch.Tensor) -> torch.Tensor:
     if p.lm_head is None:
         return p.embed.unembed(h)
     return p.lm_head(h).to(torch.float32)
+
+
+def _serve_readout(p: Transformer, h: torch.Tensor) -> torch.Tensor:
+    """Float32 logits of ``h`` for serving, whole over the vocab on every
+    rank of the ``"model"`` axis.  The untied ``lm_head``, which the rules
+    store split along ``d``, runs on this rank's ``d`` columns of ``h``
+    against its rows, the partial logits summed over the axis
+    (``tp.reduce_from_model``: at a decode step ``B x V`` float32, where
+    ``tp.vocab_columns`` would gather the whole kernel); the tied readout's
+    vocab columns are gathered (``tp.gather_logits``)."""
+    tp = getattr(p, "tp", None)
+    if tp is None:
+        return _readout(p, h)
+    if p.lm_head is not None:
+        part = L.linear(TP.local(h, tp, -1), p.lm_head.kernel)
+        return TP.reduce_from_model(part, tp).to(torch.float32)
+    return TP.gather_logits(_readout(p, h), tp)
 
 
 _RECOMPUTING: contextvars.ContextVar[bool] = contextvars.ContextVar("recomputing", default=False)
@@ -432,23 +451,26 @@ def init_decode_state(cfg, batch: int, max_len: int, *, device="cuda", mesh=None
     shared_every, ...)`` (conv in the model's type, ssm float32) and one
     cache a visit of the shared block, ``(n_groups, B, max_len, H, Dh)``.
     ``audio`` raises: its state holds the encoder's memory
-    (``encdec.init_decode_state``).  With ``mesh`` (a sharded ``dense`` or
-    ``vlm`` model's) the caches hold this rank's rows of the batch
-    (``_local_rows``) and the KV heads its query heads read
-    (``tp.kv_heads``)."""
+    (``encdec.init_decode_state``).  With ``mesh`` (a sharded model's) the
+    state holds this rank's rows of the batch (``_local_rows``) and, on a
+    ``"model"`` axis above 1, what this rank's heads need: the KV heads its
+    query heads read (``tp.kv_heads``; the hybrid shared block's too), the
+    RWKV recurrence of its heads (the shift states whole: its mixes read all
+    of ``D``), Mamba2's SSM state of its heads and its conv channels (x of
+    its heads, B and C whole).  Not the reference's ``decode_state_specs``,
+    which splits the shift states' ``D`` and the conv channels evenly."""
     check_serving(cfg, mesh)
+    tp = None
     if mesh is not None:
         _check_sharded_decode(cfg)
-        c = A.init_cache(cfg, _local_batch(batch, mesh), max_len, dtype=L.dtype_of(cfg),
-                         device=resolve_device(device),
-                         kv_heads=TP.kv_heads(cfg, rules.model_shard(mesh))[1])
-        shape = (cfg.n_layers,) + tuple(c.k.shape)
-        return {"blocks": A.KVCache(k=c.k.new_zeros(shape), v=c.v.new_zeros(shape), length=0)}
+        tp = rules.model_shard(mesh)
+        batch = _local_batch(batch, mesh)
     if cfg.family == "audio":
         raise ValueError("the audio family's decode state is encdec.init_decode_state")
     dev = resolve_device(device)
+    dtype = L.dtype_of(cfg)
     if cfg.family == "moe":
-        c = A.init_cache(cfg, batch, max_len, dtype=L.dtype_of(cfg), device=dev)
+        c = A.init_cache(cfg, batch, max_len, dtype=dtype, device=dev)
         nd = cfg.moe.first_dense_layers
         stacked = lambda n: A.KVCache(k=c.k.new_zeros((n,) + tuple(c.k.shape)),
                                       v=c.v.new_zeros((n,) + tuple(c.v.shape)), length=0)
@@ -456,27 +478,29 @@ def init_decode_state(cfg, batch: int, max_len: int, *, device="cuda", mesh=None
     if cfg.family == "hybrid":
         k_every = cfg.hybrid.shared_every
         n_groups = cfg.n_layers // k_every
-        s = M.init_ssm_state(cfg, batch, dtype=L.dtype_of(cfg), device=dev)
-        c = A.init_cache(cfg, batch, max_len, dtype=L.dtype_of(cfg), device=dev)
+        s = M.init_ssm_state(cfg, batch, dtype=dtype, device=dev, tp=tp)
+        c = A.init_cache(cfg, batch, max_len, dtype=dtype, device=dev,
+                         kv_heads=TP.kv_heads(B.shared_sub_config(cfg), tp)[1])
         lead = lambda t, *n: t.new_zeros(n + tuple(t.shape))
         return {"groups": M.SSMState(conv=lead(s.conv, n_groups, k_every),
                                      ssm=lead(s.ssm, n_groups, k_every), length=0),
                 "shared": A.KVCache(k=lead(c.k, n_groups), v=lead(c.v, n_groups), length=0)}
     if cfg.family == "ssm":
-        s = R.init_rwkv_state(cfg, batch, dtype=L.dtype_of(cfg), device=dev)
+        s = R.init_rwkv_state(cfg, batch, dtype=dtype, device=dev, tp=tp)
         n = cfg.n_layers
         stack = lambda t: t.new_zeros((n,) + tuple(t.shape))
         return {"blocks": R.RWKVState(shift_tm=stack(s.shift_tm), shift_cm=stack(s.shift_cm),
                                       wkv=stack(s.wkv), length=0)}
-    c = A.init_cache(cfg, batch, max_len, dtype=L.dtype_of(cfg), device=dev)
+    c = A.init_cache(cfg, batch, max_len, dtype=dtype, device=dev,
+                     kv_heads=TP.kv_heads(cfg, tp)[1])
     shape = (cfg.n_layers,) + tuple(c.k.shape)
     return {"blocks": A.KVCache(k=c.k.new_zeros(shape), v=c.v.new_zeros(shape), length=0)}
 
 
 def _check_sharded_decode(cfg) -> None:
-    if cfg.family not in ("dense", "vlm"):
-        raise ValueError(f"{cfg.name}: the {cfg.family} family's decode_step runs an unsharded "
-                         "model (ROADMAP.md item 9b.7b)")
+    if cfg.family == "moe":
+        raise ValueError(f"{cfg.name}: the moe family serves sharded only with global router "
+                         "statistics and expert parallelism (ROADMAP.md items 9b.9 and 9b.10)")
 
 
 def _local_batch(batch: int, mesh) -> int:
@@ -512,12 +536,12 @@ def decode_step(
     ``hybrid`` each Mamba block advances from its state, overwritten in
     place, and each visit of the shared block attends over its own cache
     (on prefill through ``ops.attention``, its keys and values then
-    written).  A sharded ``dense`` or ``vlm`` model (``fsdp.shard_model``;
-    ``state`` from ``init_decode_state(mesh=)``) takes the whole batch of
-    ``tokens``, serves this rank's rows (``_local_rows``) on its heads, its
-    weights gathered along ``"data"`` a block at a time as ``forward``
-    gathers them, and returns the whole logits on every rank: gathered
-    over the vocab (``tp.gather_logits``), then over the rows."""
+    written).  A sharded model (``fsdp.shard_model``, any family but
+    ``moe``; ``state`` from ``init_decode_state(mesh=)``) takes the whole
+    batch of ``tokens``, serves this rank's rows (``_local_rows``) on its
+    heads, its weights gathered along ``"data"`` a block at a time as
+    ``forward`` gathers them (the hybrid shared block once a call), and
+    returns the whole logits on every rank (``whole_logits``)."""
     mesh = fsdp.mesh_of(p)
     if mesh is None:
         return _decode_step(p, tokens, state, pos_offset, prefill)
@@ -525,10 +549,23 @@ def decode_step(
     rows = _local_rows(tokens, mesh)
     with fsdp.gathered(p, skip=_stacks(p)):
         logits, new_state = _decode_step(p, rows, state, pos_offset, prefill)
-    logits = TP.gather_logits(logits, p.tp)
-    if rows.shape[0] != tokens.shape[0]:
-        logits = rules.all_gather_dim(logits, 0, mesh.get_group("data"), span="tp.gather")
-    return logits, new_state
+    return whole_logits(p, logits, tokens.shape[0]), new_state
+
+
+def whole_logits(p, logits: torch.Tensor, batch: int) -> torch.Tensor:
+    """A sharded model's logits of this rank's rows (``_serve_readout``'s,
+    whole over the vocab), whole on every rank: gathered over the rows
+    where the ``"data"`` axis split a batch of ``batch``."""
+    if logits.shape[0] != batch:
+        logits = rules.all_gather_dim(logits, 0, fsdp.mesh_of(p).get_group("data"),
+                                      span="tp.gather")
+    return logits
+
+
+def _gathering(blk, sharded: bool):
+    """``fsdp.gathered(blk)`` for a block of a sharded model, else
+    nothing."""
+    return fsdp.gathered(blk) if sharded else contextlib.nullcontext()
 
 
 def _decode_step(p: Transformer, tokens: torch.Tensor, state: dict, pos_offset: int,
@@ -543,12 +580,13 @@ def _decode_step(p: Transformer, tokens: torch.Tensor, state: dict, pos_offset: 
     if p.cfg.family == "ssm":
         st: R.RWKVState = state["blocks"]
         for i, blk in enumerate(p.blocks):
-            x, ns = blk(x, R.RWKVState(shift_tm=st.shift_tm[i], shift_cm=st.shift_cm[i],
-                                       wkv=st.wkv[i], length=st.length))
+            with _gathering(blk, sharded):
+                x, ns = blk(x, R.RWKVState(shift_tm=st.shift_tm[i], shift_cm=st.shift_cm[i],
+                                           wkv=st.wkv[i], length=st.length))
             st.shift_tm[i].copy_(ns.shift_tm)
             st.shift_cm[i].copy_(ns.shift_cm)
             st.wkv[i].copy_(ns.wkv)
-        return _readout(p, p.ln_f(x)), {"blocks": st._replace(length=st.length + t)}
+        return _serve_readout(p, p.ln_f(x)), {"blocks": st._replace(length=st.length + t)}
     positions = pos_offset + torch.arange(t, device=x.device).expand(b, t)
     stacks = ((p.dense_blocks, "dense"), (p.moe_blocks, "moe")) if p.cfg.family == "moe" else \
         ((p.blocks, "blocks"),)
@@ -556,7 +594,7 @@ def _decode_step(p: Transformer, tokens: torch.Tensor, state: dict, pos_offset: 
     for blocks, key in stacks:
         kvs: A.KVCache = state[key]
         for i, blk in enumerate(blocks):
-            with fsdp.gathered(blk) if sharded else contextlib.nullcontext():
+            with _gathering(blk, sharded):
                 if prefill:
                     x, fresh, _ = blk(x, positions, None)
                     A.write_cache(kvs.k[i], fresh.k, kvs.length)
@@ -565,12 +603,20 @@ def _decode_step(p: Transformer, tokens: torch.Tensor, state: dict, pos_offset: 
                     x, _, _ = blk(x, positions,
                                   A.KVCache(k=kvs.k[i], v=kvs.v[i], length=kvs.length))
         new_state[key] = A.KVCache(k=kvs.k, v=kvs.v, length=kvs.length + t)
-    return _readout(p, p.ln_f(x)), new_state
+    return _serve_readout(p, p.ln_f(x)), new_state
 
 
 def _decode_hybrid(p: Transformer, x, state: dict, pos_offset: int, prefill: bool):
     """``decode_step`` of the ``hybrid`` family from the embedded tokens
-    ``x``."""
+    ``x``; a sharded model gathers each Mamba block's weights in turn and
+    the shared block's once."""
+    sharded = fsdp.mesh_of(p) is not None
+    with _gathering(p.shared, sharded):
+        return _decode_groups(p, x, state, pos_offset, prefill, sharded)
+
+
+def _decode_groups(p: Transformer, x, state: dict, pos_offset: int, prefill: bool,
+                   sharded: bool):
     b, t, _ = x.shape
     positions = pos_offset + torch.arange(t, device=x.device).expand(b, t)
     gs: M.SSMState = state["groups"]
@@ -578,7 +624,9 @@ def _decode_hybrid(p: Transformer, x, state: dict, pos_offset: int, prefill: boo
     emb0 = x
     for g, group in enumerate(p.groups):
         for k, blk in enumerate(group):
-            x, ns = blk(x, M.SSMState(conv=gs.conv[g, k], ssm=gs.ssm[g, k], length=gs.length))
+            with _gathering(blk, sharded):
+                x, ns = blk(x, M.SSMState(conv=gs.conv[g, k], ssm=gs.ssm[g, k],
+                                          length=gs.length))
             gs.conv[g, k].copy_(ns.conv)
             gs.ssm[g, k].copy_(ns.ssm)
         if prefill:
@@ -589,4 +637,4 @@ def _decode_hybrid(p: Transformer, x, state: dict, pos_offset: int, prefill: boo
             x, _ = p.shared(x, emb0, positions, A.KVCache(k=sh.k[g], v=sh.v[g], length=sh.length))
     new_state = {"groups": gs._replace(length=gs.length + t),
                  "shared": A.KVCache(k=sh.k, v=sh.v, length=sh.length + t)}
-    return _readout(p, p.ln_f(x)), new_state
+    return _serve_readout(p, p.ln_f(x)), new_state

@@ -18,11 +18,12 @@ computed once from the encoder memory.
 
 With ``mesh=`` (a ``("data", "model")`` mesh, ``launch.mesh.
 make_host_mesh``; every rank makes the same calls with the same inputs)
-the ``dense`` and ``vlm`` families serve sharded: the model is placed
-with ``sharding.fsdp.shard_model`` (on its first call, in place, unless it
-already is), the caches hold this rank's rows of the batch and the KV
-heads its query heads read (``transformer.init_decode_state(mesh=)``), and
-every step returns the whole logits on every rank, gathered over the
+every family but ``moe`` serves sharded: the model is placed with
+``sharding.fsdp.shard_model`` (on its first call, in place, unless it
+already is), the decode state holds this rank's rows of the batch (the
+``audio`` family's frames too) and what its heads read
+(``transformer.init_decode_state(mesh=)``, ``encdec.init_decode_state``),
+and every step returns the whole logits on every rank, gathered over the
 vocab (and the rows) before sampling, so that every rank samples the same
 token from the same generator.
 """
@@ -59,10 +60,13 @@ def build_prefill_step(cfg, mesh=None) -> Callable:
     T.check_serving(cfg, mesh)
     if cfg.family == "audio":
         @torch.inference_mode()
-        def prefill_audio(params, tokens, frames, max_len: int | None = None):
+        def run_audio(params, tokens, frames, max_len: int | None):
             b, t = tokens.shape
             state = ED.init_decode_state(params, frames, b, t if max_len is None else max_len)
             return ED.decode_step(params, tokens, state, 0, prefill=True)
+
+        def prefill_audio(params, tokens, frames, max_len: int | None = None):
+            return run_audio(_placed(params, mesh), tokens, frames, max_len)
 
         return prefill_audio
 

@@ -40,10 +40,13 @@ for the families ``rules.check_mesh_family`` admits):
   the batch: ``reduce_grads`` all-reduces it (sum) over ``"data"``, else the
   ranks' copies drift apart.  Of a leaf the rules replicate over
   ``"model"`` there are two kinds: one read on replicated rows (the
-  ``ln1``, ``ln2`` and ``ln_f`` scales) has the same gradient on every rank
-  of the axis, while one read on a rank's own heads (``rules.per_head``:
-  the qk-norm scales and the q/k/v biases) holds that rank's part, which
-  ``reduce_grads`` sums over ``"model"``.  ``sum_of_squares`` counts each
+  ``ln1``, ``ln2`` and ``ln_f`` scales, RWKV-6's ``ln_x`` and Mamba2's
+  ``out_norm`` scales, whisper's layernorm biases, ``dec_pos``) has the
+  same gradient on every rank of the axis, while one
+  read on a rank's own heads or columns (``rules.per_head``: the qk-norm
+  scales, the q/k/v biases, and every other replicated leaf of the RWKV-6
+  mixes and of Mamba2) holds that rank's part, which ``reduce_grads`` sums over
+  ``"model"``.  ``sum_of_squares`` counts each
   replicated leaf once in the global norm.
 
 The collectives are ``rules``' (``all_gather_dim``, ``reduce_scatter_dim``,
@@ -109,13 +112,6 @@ def data_group(model) -> Any:
     """The ``"data"`` axis's process group of a sharded model, or None."""
     mesh = mesh_of(model)
     return None if mesh is None else mesh.get_group("data")
-
-
-def check_unsharded(model, what: str) -> None:
-    """Raise for a sharded model: ``what`` (serving's decode) reads whole
-    weights, which only the training path gathers."""
-    if mesh_of(model) is not None:
-        raise ValueError(f"{what} runs an unsharded model; a sharded one trains")
 
 
 @torch.no_grad()

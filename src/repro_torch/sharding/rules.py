@@ -30,7 +30,8 @@ Port of ``repro.sharding.rules`` on ``torch.distributed``.
   ``sharding/tp.py``) place a model by these specs on a ``("data",
   "model")`` mesh (``check_fsdp_mesh``; the ``"pod"`` axis is ROADMAP.md
   item 9b.8).  ``check_mesh_family`` admits a ``"model"`` axis above 1 for
-  the ``dense`` and ``vlm`` families only.  The reference's GSPMD
+  every family but ``moe``, where it divides the heads, ``d_ff`` and the
+  vocab.  The reference's GSPMD
   constraint helpers become explicit operations there: ``shard_batch``
   takes this rank's rows by ``batch_spec`` (the batch's ``in_shardings``
   and ``constrain_activations``, which keep activations batch-sharded and
@@ -189,14 +190,33 @@ def check_fsdp_mesh(mesh):
     return mesh
 
 
+def model_splits(cfg) -> list[tuple[str, int]]:
+    """``[(what, count)]``: what a ``"model"`` axis must divide for
+    ``cfg``'s family to run on it: the heads a rank's attention or
+    recurrence runs on (RWKV-6's ``d_model / head_dim``, Mamba2's ``d_inner
+    / head_dim`` and the Zamba2 shared block's heads, the query heads of the
+    others), ``d_ff`` and the padded vocab; for ``audio`` also the KV heads
+    (its cross-attention reads them on each rank's heads)."""
+    if cfg.family == "ssm":
+        heads = [("RWKV heads", cfg.d_model // cfg.rwkv.head_dim)]
+    elif cfg.family == "hybrid":
+        heads = [("Mamba2 heads", cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim),
+                 ("shared-block heads", cfg.hybrid.shared_block_heads)]
+    elif cfg.family == "audio":
+        heads = [("query heads", cfg.n_heads), ("KV heads", cfg.n_kv_heads)]
+    else:
+        heads = [("query heads", cfg.n_heads)]
+    return heads + [("d_ff", cfg.d_ff), ("padded vocab", cfg.padded_vocab)]
+
+
 def check_mesh_family(mesh, cfg):
     """``mesh`` if ``cfg``'s model runs on it (``check_fsdp_mesh``): a
     ``"model"`` axis of ``m`` > 1 is tensor parallelism, which the
-    ``dense`` and ``vlm`` families run when ``m`` divides the query heads,
-    ``d_ff`` and the padded vocab, and the KV heads divide ``m`` or ``m``
-    them.
-    Anything else raises ``ValueError`` naming its ROADMAP.md item: the
-    ``moe`` family 9b.9 / 9b.10, ``ssm``, ``hybrid`` and ``audio`` 9b.7b."""
+    ``dense``, ``vlm``, ``ssm``, ``hybrid`` and ``audio`` families run when
+    ``m`` divides each of ``model_splits(cfg)`` and, for ``dense`` and
+    ``vlm``, the KV heads divide ``m`` or ``m`` them.  Anything else raises
+    ``ValueError`` naming its ROADMAP.md item: the ``moe`` family 9b.9 /
+    9b.10, a split that ``m`` does not divide 9b.7c."""
     check_fsdp_mesh(mesh)
     m = axis_sizes(mesh).get("model", 1)
     if m == 1:
@@ -204,21 +224,13 @@ def check_mesh_family(mesh, cfg):
     if cfg.family == "moe":
         raise ValueError(f"{cfg.name}: the moe family under a 'model' axis of {m} is expert "
                          "parallelism, ROADMAP.md items 9b.9 and 9b.10")
-    if cfg.family not in ("dense", "vlm"):
-        raise ValueError(f"{cfg.name}: the {cfg.family} family does not run a 'model' axis of "
-                         f"{m} yet (ROADMAP.md item 9b.7b)")
-    if cfg.n_heads % m:
-        raise ValueError(f"{cfg.name}: {cfg.n_heads} query heads do not split over a 'model' "
-                         f"axis of {m} (ROADMAP.md item 9b.7)")
-    if cfg.n_kv_heads % m and m % cfg.n_kv_heads:
+    for what, n in model_splits(cfg):
+        if n % m:
+            raise ValueError(f"{cfg.name}: {what} {n} do not split over a 'model' axis of {m} "
+                             "(ROADMAP.md item 9b.7c)")
+    if cfg.family in ("dense", "vlm") and cfg.n_kv_heads % m and m % cfg.n_kv_heads:
         raise ValueError(f"{cfg.name}: {cfg.n_kv_heads} KV heads neither divide nor are "
-                         f"divided by a 'model' axis of {m} (ROADMAP.md item 9b.7)")
-    if cfg.d_ff % m:
-        raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} does not split over a 'model' axis of "
-                         f"{m} (ROADMAP.md item 9b.7)")
-    if cfg.padded_vocab % m:
-        raise ValueError(f"{cfg.name}: a vocab of {cfg.padded_vocab} does not split over a "
-                         f"'model' axis of {m} (ROADMAP.md item 9b.7)")
+                         f"divided by a 'model' axis of {m} (ROADMAP.md item 9b.7c)")
     return mesh
 
 
@@ -274,9 +286,10 @@ class DataShard:
     ``rank`` this rank's coordinate on it, ``group`` its process group;
     ``model_dim`` the dim split over the ``"model"`` axis ``model`` (None:
     replicated over it, or no tensor parallelism).  ``per_head`` marks a
-    model-replicated leaf that each rank reads on its own heads only (the
-    ``q_norm`` / ``k_norm`` scales, the ``wq`` / ``wk`` / ``wv`` biases): its
-    gradient is summed over ``"model"``.  ``held`` is a gathered copy that
+    model-replicated leaf that each rank reads on its own heads or columns
+    only (``rules.per_head``: the ``q_norm`` / ``k_norm`` scales, the ``wq``
+    / ``wk`` / ``wv`` biases, the RWKV-6 mixes' and Mamba2's replicated
+    leaves): its gradient is summed over ``"model"``.  ``held`` is a gathered copy that
     ``fsdp.gathered`` reads instead of gathering (the step's
     ``gather_small_weights_once``)."""
 
@@ -476,14 +489,23 @@ _REPLICATE = ("scale", "bias", "a_log", "dt_bias", "d_skip", "decay_base",
 
 # The leaves above that a tensor-parallel rank reads on its own heads only:
 # the query/key/value biases (and a key/value kernel whose output dim does
-# not split over "model"), and the qk-norm scales.  Their gradient on a rank
-# is its heads' part: it is summed over "model" (``fsdp.reduce_grads``).
-_PER_HEAD = re.compile(r"(^|\.)attn\.((wq|wk|wv)\.(bias|kernel)|(q_norm|k_norm)\.scale)$")
+# not split over "model"), and the qk-norm scales; and every leaf of the
+# RWKV-6 mixes and of Mamba2 that the rules replicate (the token-shift
+# mixes, the LoRAs, ``decay_base``, ``u_bonus``, the conv kernel, ``a_log``,
+# ``dt_bias``, ``d_skip``, and ``mix_lora_a`` / ``w_in`` where "model" does
+# not divide their output dim), all read after the block norm's
+# ``tp.copy_to_model`` for this rank's heads or columns.  Their gradient on
+# a rank is its part: it is summed over "model" (``fsdp.reduce_grads``).
+# RWKV-6's ``ln_x`` and Mamba2's ``out_norm`` run on whole rows forward and
+# backward (``tp.norm_columns``): their scales are read on replicated rows.
+_PER_HEAD = re.compile(r"(^|\.)attn\.((wq|wk|wv)\.(bias|kernel)|(q_norm|k_norm)\.scale)$"
+                       r"|(^|\.)(time|channel|mamba)\.(?!ln_x\.|out_norm\.)")
 
 
 def per_head(name: str) -> bool:
     """Whether parameter ``name`` (a dotted path), where the rules
-    replicate it over ``"model"``, is read on each rank's own heads."""
+    replicate it over ``"model"``, is read on each rank's own heads or
+    columns."""
     return bool(_PER_HEAD.search(name))
 
 

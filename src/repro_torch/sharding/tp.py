@@ -1,5 +1,4 @@
-"""Tensor parallelism: the ``"model"`` axis of the spec rules' layout, for
-the ``dense`` and ``vlm`` families.
+"""Tensor parallelism: the ``"model"`` axis of the spec rules' layout.
 
 The reference places the parameters by ``rules.param_specs`` (up-projections'
 output dims, down-projections' input dims and the vocab on ``"model"``),
@@ -9,7 +8,16 @@ vocab-sharded (``_readout``'s ``maybe_constrain(logits, ("pod", "data"),
 None, "model")``); GSPMD then inserts the collectives.  This module is the
 explicit form of what it inserts, each piece an autograd Function over the
 ``"model"`` group of a ``rules.ModelShard`` through ``rules``' collectives
-(gloo for ranks that share one card and on the CPU, nccl across cards):
+(gloo for ranks that share one card and on the CPU, nccl across cards).
+The families that run it are those ``rules.check_mesh_family`` admits:
+``dense``, ``vlm``, ``ssm``, ``hybrid`` and ``audio``.
+
+Between a block's norm and its output a rank works on its own heads,
+columns or rows: ``copy_to_model`` stands after each norm, so every
+gradient that a rank's part sends back into that stretch (through a
+replicated leaf too) is its part alone, and the parts are summed there or
+by ``fsdp.reduce_grads``; the output comes back replicated through
+``reduce_from_model`` (partial sums) or ``gather_output`` (whole columns).
 
 * ``copy_to_model``: the identity forward, the gradient all-reduced (sum)
   backward.  It stands at the input of every column-parallel projection
@@ -21,6 +29,27 @@ explicit form of what it inserts, each piece an autograd Function over the
   output in the activation dtype (one rounding, as the one-process GEMM's
   output), and the partials are added in float32 and rounded to the
   activation dtype once.  Span ``tp.reduce``.
+* ``gather_columns``: an activation's last dim gathered whole inside that
+  stretch (``fsdp.gather`` over the model group: an all-gather forward, the
+  gradient reduce-scattered backward), where a rank needs columns it does
+  not compute: a fused output the rules split off its segments
+  (``mix_lora_a``, ``w_in``: ``whole_columns``, then ``segments``), and
+  the squared-ReLU key of RWKV's channel mix.  Spans ``tp.gather`` /
+  ``tp.reduce``.
+* ``norm_columns``: a norm over a width the ranks' columns split (RWKV's
+  ``ln_x``, Mamba2's ``out_norm``), on whole rows both ways: the columns
+  gathered forward (``gather_output``) and the norm's output cut back to
+  this rank's columns, whose gradient is all-gathered backward, so the
+  ``rmsnorm`` kernel and its backward run on whole rows with the
+  one-process bits on every rank, and the norm's scale gets the same
+  gradient on every rank.  Span ``tp.gather``.
+* ``gather_output``: the all-gather of a block's output columns into the
+  replicated stream (RWKV's channel mix, which the rules leave split on
+  ``d``: its ``wv`` is an up kernel); backward, this rank's chunk of the
+  replicated gradient.
+* ``row_linear``: a down kernel read on a replicated input (Zamba2's
+  ``w_concat`` over ``[x ; emb0]``): this rank's rows of the input
+  against its rows of the kernel, summed by ``reduce_from_model``.
 * ``embed``: the vocab-parallel lookup; a rank looks up the tokens in its
   rows, zeros elsewhere, and ``reduce_from_model`` adds the ranks' rows
   (one non-zero term a token: exact).
@@ -29,16 +58,23 @@ explicit form of what it inserts, each piece an autograd Function over the
   and the gold logit (the reference's masked sum over the vocab, one
   non-zero term) summed over the ranks, then the global batch's mean over
   ``"data"`` as ``_xent`` composes it (``fsdp.global_sum``).
-* ``gather_logits``: the all-gather of the logits over the vocab, for
-  serving: every rank samples the same token from the same generator.
+* ``gather_logits``: the all-gather of the tied readout's logits over the
+  vocab, for serving: every rank samples the same token from the same
+  generator.  The untied ``lm_head`` serves by the activation route
+  instead (``transformer._serve_readout``: this rank's ``d`` columns of
+  the stream against its rows of the kernel, the partial logits summed by
+  ``reduce_from_model``).
 * ``whole_kernel`` / ``vocab_columns``: a model-sharded weight gathered
   whole along ``"model"`` inside the block that reads it (``fsdp.gather``
   over the model group: an all-gather forward, a reduce-scatter of the
   gradient backward).  ``wk`` / ``wv`` where the KV heads do not divide the
   axis (the rules split their output dim off head boundaries), and the
   untied ``lm_head``, whose rules split ``d`` on ``"model"`` (the embed
-  role reads ``shape[-2]`` as the vocab) while the readout runs on this
-  rank's vocab columns.
+  role reads ``shape[-2]`` as the vocab) while the training readout runs
+  on this rank's vocab columns (``xent``).
+
+Every helper is the identity (or the plain product) without a ``tp``, so
+the blocks read the same with and without tensor parallelism.
 """
 from __future__ import annotations
 
@@ -86,10 +122,94 @@ def reduce_from_model(x: torch.Tensor, tp: ModelShard | None) -> torch.Tensor:
     return x if tp is None else _ReduceFromModel.apply(x, tp.group)
 
 
-def local(x: torch.Tensor | None, tp: ModelShard, dim: int = 0) -> torch.Tensor | None:
+def local(x: torch.Tensor | None, tp: ModelShard | None, dim: int = 0) -> torch.Tensor | None:
     """This rank's contiguous chunk of ``x`` along ``dim`` (a bias the
-    rules replicate, read on this rank's columns)."""
-    return None if x is None else x.chunk(tp.size, dim)[tp.rank]
+    rules replicate, read on this rank's columns); ``x`` without a
+    ``tp``."""
+    return x if x is None or tp is None else x.chunk(tp.size, dim)[tp.rank]
+
+
+class _GatherOutput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size, rank):
+        ctx.size, ctx.rank = size, rank
+        return rules.all_gather_dim(x, x.ndim - 1, group, span="tp.gather")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.chunk(ctx.size, -1)[ctx.rank].contiguous(), None, None, None
+
+
+def gather_columns(x: torch.Tensor, tp: ModelShard | None) -> torch.Tensor:
+    """The ranks' columns of ``x`` concatenated along its last dim, read by
+    this rank's part of a block: the gradient, each rank's part, is
+    reduce-scattered (summed) back to the columns."""
+    if tp is None:
+        return x
+    return fsdp.gather(x, x.ndim - 1, tp.group, spans=("tp.gather", "tp.reduce"))
+
+
+def gather_output(x: torch.Tensor, tp: ModelShard | None) -> torch.Tensor:
+    """The ranks' columns of a block's output concatenated along the last
+    dim into the replicated stream: the gradient, the same on every rank,
+    comes back as this rank's columns of it."""
+    return x if tp is None else _GatherOutput.apply(x, tp.group, tp.size, tp.rank)
+
+
+class _SplitColumns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.group = tp.group
+        return local(x, tp, -1).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return rules.all_gather_dim(grad, grad.ndim - 1, ctx.group, span="tp.gather"), None
+
+
+def norm_columns(norm, x: torch.Tensor, tp: ModelShard | None) -> torch.Tensor:
+    """This rank's columns of ``norm`` over the whole rows of ``x``, this
+    rank's columns of them: the rows gathered (``gather_output``), normed,
+    and cut back to its columns, whose gradient is gathered whole again, so
+    the norm's backward runs on whole rows, the same bits on every rank."""
+    if tp is None:
+        return norm(x)
+    return _SplitColumns.apply(norm(gather_output(x, tp)), tp)
+
+
+def whole_columns(x: torch.Tensor, owner, name: str, tp: ModelShard | None) -> torch.Tensor:
+    """``x @ owner.<name>`` whole along its last dim: an up kernel's
+    product on this rank's columns gathered (``gather_columns``) where the
+    rules split its output dim, else the product with the whole kernel."""
+    y = x @ getattr(owner, name)
+    info = shard_of(owner._parameters[name])
+    return y if tp is None or info is None or info.model_dim is None else gather_columns(y, tp)
+
+
+def segments(x: torch.Tensor, parts, tp: ModelShard | None, dim: int = -1) -> list:
+    """``x`` cut along ``dim`` into consecutive segments of ``parts``'
+    ``(size, split)``: this rank's chunk of each ``split`` segment (its
+    heads' columns), the others whole (Mamba2's ``[z | x | B | C | dt]``:
+    z, x and dt split, B and C whole)."""
+    out, start = [], 0
+    for size, split in parts:
+        seg = x.narrow(dim, start, size)
+        out.append(local(seg, tp, dim) if split else seg)
+        start += size
+    return out
+
+
+def row_linear(u: torch.Tensor, linear, tp: ModelShard | None) -> torch.Tensor:
+    """``linear(u)`` for a replicated ``u`` and a down kernel: where the
+    rules split its input rows on ``"model"``, this rank's columns of ``u``
+    (its gradient summed by ``copy_to_model``) times its rows of the kernel,
+    the partial products summed by ``reduce_from_model``; else the product
+    with the whole kernel."""
+    info = shard_of(linear._parameters["kernel"])
+    if tp is None or info is None or info.model_dim is None:
+        return linear(u)
+    part = local(copy_to_model(u, tp), tp, -1) @ linear.kernel
+    return reduce_from_model(part, tp)
 
 
 def kv_heads(cfg, tp: ModelShard | None) -> tuple[int, int]:

@@ -11,7 +11,7 @@ checkpoints (scheduled, and SoC-triggered emergency saves through
 
 With ``mesh`` (a ``("data", "model")`` mesh, e.g.
 ``launch.mesh.make_host_mesh(model_parallel=)``, whose ``"model"`` axis
-may exceed 1 for the ``dense`` and ``vlm`` families; every rank of the
+may exceed 1 for every family but ``moe``; every rank of the
 world calls ``train`` alike) the model is sharded after ``init``
 (``sharding.fsdp.shard_model``: every rank draws the same full weights
 from ``tc.seed``, then keeps its shards on both axes), each step is

@@ -1,12 +1,14 @@
 """One rank of a gloo world on the CPU for ``tests/test_torch_distributed.py``,
-``tests/test_torch_fsdp.py`` and ``tests/test_torch_tp.py``.
+``tests/test_torch_fsdp.py``, ``tests/test_torch_tp.py`` and
+``tests/test_torch_tp_families.py``.
 
     python tests/_torch_dist_worker.py RANK WORLD STORE OUT_DIR [SUITE]
 
 Joins the world through the ``file://`` store ``STORE`` (a 120 s timeout
 on every collective), runs the world's cases (``WORLDS[WORLD]``, or with
-SUITE ``fsdp`` ``FSDP_WORLDS[WORLD]``, with ``tp`` ``TP_WORLDS[WORLD]``,
-whose worlds share ``OUT_DIR/../shared``) and writes
+SUITE ``fsdp`` ``FSDP_WORLDS[WORLD]``, with ``tp`` ``TP_WORLDS[WORLD]`` and
+with ``tpf`` ``TPF_WORLDS[WORLD]``, whose worlds share
+``OUT_DIR/../shared``) and writes
 ``OUT_DIR/rank{RANK}.pt``: a dict of named tensors, flags and error
 messages that the test module asserts, case by case.  Rank 0 also runs
 each case's one-process reference (the sequential region engine, the
@@ -502,13 +504,14 @@ def fsdp_loop_case(mesh, rank: int, out: dict, shared: Path) -> None:
 
 
 def fsdp_error_cases(mesh, out: dict) -> None:
-    """The refusals: the ssm family on a "model" axis of 2, a "pod" axis
-    (the model, and the gather-once weight), the moe family and MTP under a
-    mesh (the model and ``train``), a batch that does not split over the
-    data axis, and serving a sharded ssm model."""
+    """The refusals: an ssm model whose 3 RWKV heads do not split over a
+    "model" axis of 2, a "pod" axis (the model, and the gather-once
+    weight), the moe family and MTP under a mesh (the model, ``train`` and
+    its sharded decode state), and a batch that does not split over the
+    data axis."""
     cfg = smoke_config("llama3_2_1b")
     moe = smoke_config("deepseek_v3_671b")
-    rwkv = smoke_config("rwkv6_7b")
+    rwkv = smoke_config("rwkv6_7b", d_model=192)  # 3 RWKV heads: not on a model axis of 2
     tp = sharding.make_mesh((1, 2), ("data", "model"), device_type=DEV)
     pod = sharding.make_mesh((2, 1, 1), ("pod", "data", "model"), device_type=DEV)
     opt = AdamWConfig()
@@ -524,9 +527,7 @@ def fsdp_error_cases(mesh, out: dict) -> None:
                                    opt, TrainConfig(steps=1), device=DEV, mesh=mesh),
         "batch": lambda: sharding.shard_batch(odd, mesh),
         "batch_step": lambda: build_train_step(cfg, opt)(model, state, odd, 0),
-        "decode": lambda: T.decode_step(fsdp.shard_model(fsdp_model(rwkv), mesh),
-                                        odd["tokens"], T.init_decode_state(rwkv, 3, 8,
-                                                                           device=DEV), 0),
+        "decode": lambda: T.init_decode_state(moe, 2, 8, device=DEV, mesh=mesh),
         "gathered_weight_tp": lambda: sharding.constrain_gathered_weight(
             "embed.embedding", model.embed.embedding, pod),
     }
@@ -574,13 +575,28 @@ TP_SERVE = dict(batch=2, prompt=8, decode=3, seed=5)
 
 def tp_batch(cfg, i: int) -> dict:
     """Step ``i``'s global batch, with labels set to -100 so that the data
-    ranks' rows hold unequal valid counts."""
+    ranks' rows hold unequal valid counts; ``audio``: with the reference
+    loop's frames."""
     c = TP_RUN
     batch = SyntheticLMDataset(DataConfig(batch=c["batch"], seq_len=c["seq_len"],
                                           vocab_size=cfg.vocab_size)).batch_at(i)
     batch["labels"][0, : c["seq_len"] // 2] = -100
     batch["labels"][3, :3] = -100
+    if cfg.family == "audio":
+        batch["frames"] = audio_frames(cfg, c["batch"], i, DEV)
     return batch
+
+
+def tp_frames(cfg):
+    """The encoder frames of ``tp_prompts``' requests (float32 numpy), or
+    None for a family without an encoder."""
+    import numpy as np
+
+    if cfg.family != "audio":
+        return None
+    rng = np.random.default_rng(TP_SERVE["seed"] + 1)
+    return rng.normal(scale=0.02, size=(TP_SERVE["batch"], cfg.encdec.encoder_seq,
+                                        cfg.d_model)).astype(np.float32)
 
 
 def tp_prompts(cfg):
@@ -652,25 +668,49 @@ def tp_store_train(out: dict, tag: str, got: dict, ref: dict, params: dict) -> N
             out[f"{tag}/ref/{kind}/{n}"] = tp_chunk(ref[kind][n], fsdp.shard_of(params[n]))
 
 
+def state_leaves(state, prefix: str = "") -> dict:
+    """``{dotted name: tensor}`` of a decode state (dicts of NamedTuples,
+    or an ``EncDecState``)."""
+    if isinstance(state, torch.Tensor):
+        return {prefix[:-1]: state}
+    if isinstance(state, dict):
+        items = state.items()
+    elif isinstance(state, tuple) and hasattr(state, "_fields"):
+        items = zip(state._fields, state)
+    else:
+        return {}
+    out = {}
+    for k, v in items:
+        out.update(state_leaves(v, f"{prefix}{k}."))
+    return out
+
+
 def tp_serve(cfg, mesh) -> dict:
     """The prefill step's logits and ``TP_SERVE["decode"]`` teacher-forced
     decode steps' (whole, on every rank), and a greedy ``ServeEngine``
-    generation, on ``mesh`` (None: one process)."""
+    generation, on ``mesh`` (None: one process); ``audio`` from
+    ``tp_frames``.  With the decode state's shapes (``state/<leaf>``)."""
     from repro_torch.serve import ServeEngine, build_decode_step, build_prefill_step
 
     prompts, fed = (torch.as_tensor(a) for a in tp_prompts(cfg))
+    frames = tp_frames(cfg)
+    enc = () if frames is None else (torch.as_tensor(frames),)
     t0, n = prompts.shape[1], fed.shape[1]
     model = tp_model(cfg)
-    logits, state = build_prefill_step(cfg, mesh)(model, prompts, t0 + n)
+    logits, state = build_prefill_step(cfg, mesh)(model, prompts, *enc, t0 + n)
     decode = build_decode_step(cfg, mesh)
     steps = []
     for i in range(n):
         step_logits, state = decode(model, fed[:, i:i + 1], state, t0 + i)
         steps.append(step_logits)
     eng = ServeEngine(cfg, tp_model(cfg), max_len=t0 + 4, device=DEV, mesh=mesh)
-    return {"prefill": logits, "steps": torch.cat(steps, dim=1),
-            "cache_shape": torch.tensor(state["blocks"].k.shape),
-            "generated": eng.generate(prompts, 4)}
+    out = {"prefill": logits, "steps": torch.cat(steps, dim=1),
+           "generated": eng.generate(prompts, 4, frames=enc[0] if enc else None)}
+    if cfg.family in ("dense", "vlm"):
+        out["cache_shape"] = torch.tensor(state["blocks"].k.shape)
+    else:
+        out.update({f"state/{k}": torch.tensor(v.shape) for k, v in state_leaves(state).items()})
+    return out
 
 
 def tp_grads(cfg, mesh) -> dict:
@@ -687,7 +727,8 @@ def tp_grads(cfg, mesh) -> dict:
         if name == "tp":
             batch = sharding.shard_batch(batch, mesh)
         loss, _ = loss_fn(model, batch)
-        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        grads = {n: torch.zeros_like(params[n]) if g is None else g for n, g in zip(
+            params, torch.autograd.grad(loss, list(params.values()), allow_unused=True))}
         if name == "ref":
             ref = grads
             continue
@@ -701,11 +742,13 @@ def tp_grads(cfg, mesh) -> dict:
     return out
 
 
-def tp_ckpt_save(mesh, rank: int, out: dict, shared: Path) -> None:
-    """One llama step on the (1, 2) ``mesh``, saved (every leaf gathered
-    whole: rank 0 keeps them) for the restores into other layouts; then
-    restored here into a (2, 1) mesh, and by rank 0 into one process."""
-    cfg = smoke_config("llama3_2_1b")
+def tp_ckpt_save(mesh, rank: int, out: dict, shared: Path, arch: str = "llama3_2_1b",
+                 key: str = "ckpt") -> None:
+    """One step of ``arch`` on the (1, 2) ``mesh``, saved (every leaf
+    gathered whole: rank 0 keeps them) for the restores into other layouts;
+    then restored here into a (2, 1) mesh, and by rank 0 into one process.
+    Results under ``key/``."""
+    cfg = smoke_config(arch)
     c = TP_RUN
     opt = AdamWConfig(lr=c["lr"], weight_decay=c["weight_decay"])
     step = build_train_step(cfg, opt, total_steps=c["total_steps"],
@@ -713,25 +756,26 @@ def tp_ckpt_save(mesh, rank: int, out: dict, shared: Path) -> None:
     model = tp_model(cfg, mesh)
     params = dict(model.named_parameters())
     _, state, _ = step(model, adamw_init(params, opt), tp_batch(cfg, 0), 0)
-    Checkpointer(str(shared / "ck12")).save(0, (params, state), blocking=True,
-                                            shardings=fsdp.shardings(model, state))
+    ck = shared / f"ck12_{arch}"
+    Checkpointer(str(ck)).save(0, (params, state), blocking=True,
+                               shardings=fsdp.shardings(model, state))
     whole = {k: tp_whole(v, fsdp.shard_of(params[k.split("/", 1)[1]]))
              if leaf_split(params, k) else v for k, v in fsdp_state(model, state).items()}
     if rank == 0:
-        torch.save(whole, shared / "ck12_whole.pt")
-        (shared / "ck12_done").touch()
+        torch.save(whole, shared / f"ck12_{arch}_whole.pt")
+        (shared / f"ck12_{arch}_done").touch()
         one = tp_model(cfg)
         one_params = dict(one.named_parameters())
-        _, (got, got_state) = Checkpointer(str(shared / "ck12")).restore(
+        _, (got, got_state) = Checkpointer(str(ck)).restore(
             None, (one_params, adamw_init(one_params, opt)))
         with torch.no_grad():
             for n, p in one_params.items():
                 p.copy_(got[n])
         restored = fsdp_state(one, got_state)
-        out["ckpt/to11/bad"] = [k for k in whole if not torch.equal(restored[k], whole[k])]
-        out["ckpt/to11/leaves"] = len(whole)
-    out["ckpt/to21/bad"] = tp_restore_check(
-        sharding.make_mesh((2, 1), ("data", "model"), device_type=DEV), shared, whole)
+        out[f"{key}/to11/bad"] = [k for k in whole if not torch.equal(restored[k], whole[k])]
+        out[f"{key}/to11/leaves"] = len(whole)
+    out[f"{key}/to21/bad"] = tp_restore_check(
+        sharding.make_mesh((2, 1), ("data", "model"), device_type=DEV), shared, whole, arch)
 
 
 def leaf_split(params: dict, key: str) -> bool:
@@ -739,15 +783,15 @@ def leaf_split(params: dict, key: str) -> bool:
     return "/" in key and fsdp.shard_of(params[key.split("/", 1)[1]]).split
 
 
-def tp_restore_check(mesh, shared: Path, whole: dict) -> list:
-    """The (1, 2) checkpoint restored on ``mesh``: the keys whose restored
-    shard differs from its chunk of ``whole``."""
-    cfg = smoke_config("llama3_2_1b")
+def tp_restore_check(mesh, shared: Path, whole: dict, arch: str = "llama3_2_1b") -> list:
+    """``arch``'s (1, 2) checkpoint restored on ``mesh``: the keys whose
+    restored shard differs from its chunk of ``whole``."""
+    cfg = smoke_config(arch)
     opt = AdamWConfig(lr=TP_RUN["lr"], weight_decay=TP_RUN["weight_decay"])
     model = tp_model(cfg, mesh)
     params = dict(model.named_parameters())
     state = adamw_init(params, opt)
-    _, (got, state) = Checkpointer(str(shared / "ck12")).restore(
+    _, (got, state) = Checkpointer(str(shared / f"ck12_{arch}")).restore(
         None, (params, state), shardings=fsdp.shardings(model, state))
     with torch.no_grad():
         for n, p in params.items():
@@ -759,6 +803,19 @@ def tp_restore_check(mesh, shared: Path, whole: dict) -> list:
         if not torch.equal(v, want):
             bad.append(k)
     return bad
+
+
+def tp_restore_wait(shared: Path, arch: str) -> list:
+    """Once the 2-rank world has saved ``arch``'s (1, 2) checkpoint, its
+    restore into this world's (2, 2) mesh (``tp_restore_check``)."""
+    done = shared / f"ck12_{arch}_done"
+    deadline = time.monotonic() + 100.0
+    while not done.exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no {done}")
+        time.sleep(0.1)
+    whole = torch.load(shared / f"ck12_{arch}_whole.pt")
+    return tp_restore_check(lmesh.make_host_mesh(2, device_type=DEV), shared, whole, arch)
 
 
 def tp_mesh_case(mesh, tag: str, rank: int, out: dict) -> None:
@@ -783,11 +840,12 @@ def tp_mesh_case(mesh, tag: str, rank: int, out: dict) -> None:
 
 
 def tp_error_cases(mesh, out: dict) -> None:
-    """The refusals of a real (1, 2) mesh: the ssm family's model placed on
-    it, its training and its serving."""
+    """The refusals of a real (1, 2) mesh: an ssm model of 3 RWKV heads
+    (which do not split over 2) placed on it, its training and its
+    serving."""
     from repro_torch.serve import ServeEngine
 
-    rwkv = smoke_config("rwkv6_7b")
+    rwkv = smoke_config("rwkv6_7b", d_model=192)
     cases = {
         "shard_ssm": lambda: fsdp.shard_model(fsdp_model(rwkv), mesh),
         "train_ssm": lambda: train(rwkv, DataConfig(batch=2, seq_len=8,
@@ -827,15 +885,7 @@ def run_tp_case(case: str, world: int, rank: int, out: dict, shared: Path) -> No
     elif case == "ckpt_save":
         tp_ckpt_save(lmesh.make_host_mesh(2, device_type=DEV), rank, out, shared)
     elif case == "ckpt_restore":
-        done = shared / "ck12_done"
-        deadline = time.monotonic() + 100.0
-        while not done.exists():
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"no {done}")
-            time.sleep(0.1)
-        whole = torch.load(shared / "ck12_whole.pt")
-        out["ckpt/to22/bad"] = tp_restore_check(lmesh.make_host_mesh(2, device_type=DEV),
-                                                shared, whole)
+        out["ckpt/to22/bad"] = tp_restore_wait(shared, "llama3_2_1b")
     elif case == "loop":
         cfg = smoke_config("llama3_2_1b")
         data = DataConfig(batch=4, seq_len=16, vocab_size=cfg.vocab_size)
@@ -861,6 +911,98 @@ TP_WORLDS = {
 }
 
 
+# ------------------------------------------------------- TP, families --
+
+# The ssm, hybrid and audio families that run tensor parallel, by their
+# smoke configs (float32): rwkv6 (2 RWKV heads of 64; mix_lora_a's 40
+# columns split across its five factors), zamba2 (8 Mamba2 heads of 32,
+# w_in's 552 fused columns split across its segments, the shared block's 4
+# heads) and whisper (4 heads, the encoder's 64 frames, untied head).
+TPF_ARCHS = ("rwkv6_7b", "zamba2_2_7b", "whisper_large_v3")
+# The family whose (1, 2) checkpoint moves across layouts.
+TPF_CKPT_ARCH = "zamba2_2_7b"
+
+
+def tpf_mesh_case(mesh, tag: str, archs, out: dict, whole: bool = False) -> None:
+    """``archs`` on ``mesh``: the shards and dims, three training steps
+    and the serving run, each beside one process's; with ``whole`` the
+    trained parameters gathered whole (for the JAX comparison)."""
+    for arch in archs:
+        cfg = smoke_config(arch)
+        params = dict(tp_model(cfg, mesh).named_parameters())
+        for n, p in params.items():
+            info = fsdp.shard_of(p)
+            out[f"{tag}/{arch}/shard/{n}"] = p.detach().clone()
+            out[f"{tag}/{arch}/dims/{n}"] = torch.tensor(
+                [-1 if d is None else d for d in (info.dim, info.model_dim)])
+        got = tp_train(cfg, mesh)
+        tp_store_train(out, f"{tag}/{arch}/train", got, tp_train(cfg, None), params)
+        if whole:
+            for n, t in got["params"].items():
+                out[f"{tag}/{arch}/whole/{n}"] = tp_whole(t, fsdp.shard_of(params[n]))
+        for k, v in tp_serve(cfg, mesh).items():
+            out[f"{tag}/{arch}/serve/{k}"] = v
+        for k, v in tp_serve(cfg, None).items():
+            out[f"{tag}/{arch}/serve/ref/{k}"] = v
+    out[f"{tag}/coords"] = torch.tensor([sharding.axis_index(mesh, "data"),
+                                         sharding.axis_index(mesh, "model")])
+
+
+def tpf_error_cases(out: dict) -> None:
+    """The refusals on a real (1, 4) mesh: the rwkv6 smoke config's 2 RWKV
+    heads placed, trained and served on it."""
+    from repro_torch.serve import ServeEngine
+
+    mesh = lmesh.make_host_mesh(4, device_type=DEV)
+    rwkv = smoke_config("rwkv6_7b")
+    cases = {
+        "shard": lambda: fsdp.shard_model(fsdp_model(rwkv), mesh),
+        "train": lambda: train(rwkv, DataConfig(batch=2, seq_len=8, vocab_size=rwkv.vocab_size),
+                               AdamWConfig(), TrainConfig(steps=1), device=DEV, mesh=mesh),
+        "serve": lambda: ServeEngine(rwkv, fsdp_model(rwkv), device=DEV, mesh=mesh),
+        "state": lambda: T.init_decode_state(rwkv, 2, 8, device=DEV, mesh=mesh),
+    }
+    for name, fn in cases.items():
+        out[f"error/{name}"] = error(fn)
+
+
+def run_tpf_case(case: str, world: int, rank: int, out: dict, shared: Path) -> None:
+    if case == "mesh12":
+        tpf_mesh_case(lmesh.make_host_mesh(2, device_type=DEV), "mesh12", TPF_ARCHS, out, True)
+    elif case == "mesh22":
+        tpf_mesh_case(lmesh.make_host_mesh(2, device_type=DEV), "mesh22", TPF_ARCHS, out)
+    elif case == "mesh14":
+        tpf_mesh_case(lmesh.make_host_mesh(4, device_type=DEV), "mesh14", TPF_ARCHS[1:], out)
+    elif case == "grads":
+        mesh = lmesh.make_host_mesh(world, device_type=DEV)
+        for arch in TPF_ARCHS:
+            for k, v in tp_grads(smoke_config(arch), mesh).items():
+                out[f"grads/{arch}/{k}"] = v
+    elif case == "ckpt_save":
+        tp_ckpt_save(lmesh.make_host_mesh(2, device_type=DEV), rank, out, shared, TPF_CKPT_ARCH)
+    elif case == "ckpt_restore":
+        out["ckpt/to22/bad"] = tp_restore_wait(shared, TPF_CKPT_ARCH)
+    elif case == "loop":
+        cfg = smoke_config("whisper_large_v3")
+        data = DataConfig(batch=4, seq_len=16, vocab_size=cfg.vocab_size)
+        res = train(cfg, data, AdamWConfig(lr=1e-3), TrainConfig(steps=2, log_every=1),
+                    device=DEV, mesh=lmesh.make_host_mesh(2, device_type=DEV))
+        ref = train(cfg, data, AdamWConfig(lr=1e-3), TrainConfig(steps=2, log_every=1),
+                    device=DEV)
+        for key, r in (("loop/loss", res), ("loop/ref_loss", ref)):
+            out[key] = torch.tensor([h["loss"] for h in r["history"]], dtype=torch.float64)
+    elif case == "errors":
+        tpf_error_cases(out)
+
+
+# The cases each world runs, in order.  The 2-rank world saves the (1, 2)
+# checkpoint first; the 4-rank world restores it last, into (2, 2).
+TPF_WORLDS = {
+    2: ("ckpt_save", "mesh12", "grads", "loop"),
+    4: ("mesh22", "mesh14", "errors", "ckpt_restore"),
+}
+
+
 def main() -> None:
     rank, world, store, out_dir = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], Path(sys.argv[4])
     suite = sys.argv[5] if len(sys.argv) > 5 else "engines"
@@ -869,9 +1011,9 @@ def main() -> None:
     shared = out_dir / "shared"  # the service's log and checkpoints, one for the world
     shared.mkdir(exist_ok=True)
     out: dict = {}
-    cases, run = {"fsdp": (FSDP_WORLDS, run_fsdp_case), "tp": (TP_WORLDS, run_tp_case)}.get(
-        suite, (WORLDS, run_case))
-    if suite == "tp":  # one directory for both worlds (the checkpoint moves between them)
+    cases, run = {"fsdp": (FSDP_WORLDS, run_fsdp_case), "tp": (TP_WORLDS, run_tp_case),
+                  "tpf": (TPF_WORLDS, run_tpf_case)}.get(suite, (WORLDS, run_case))
+    if suite in ("tp", "tpf"):  # one directory for both worlds (the checkpoint moves between them)
         shared = out_dir.parent / "shared"
         shared.mkdir(exist_ok=True)
     for case in cases[world]:
